@@ -1,0 +1,824 @@
+"""Continuous-batching engine over the block-paged KV pool, in PyTorch.
+
+The counterpart of the JAX package's ``engine/batcher.py`` in the regime
+its defaults select (``KV_POOL=true``, ``RADIX_CACHE=true``,
+``RAGGED_ATTENTION=auto``, ``DECODE_BATCH_SIZE`` > 1):
+
+- **One shared KV pool** ([L, n_blocks + 1, page, KV, hd], zeroed at
+  start) and per-slot block tables. The host is truth for ownership —
+  ``BlockPool`` refcounts, the radix tree and the numpy table rows; the
+  device only ever sees table snapshots at dispatch.
+- **Radix prefix sharing**: the system prompt is prefilled once at start
+  and left cached; an admission maps its longest cached prefix (full
+  pages shared, a partial tail copied on write) and prefills only the
+  rest.
+- **Ragged staged admission**: the unmatched prompt suffix does not run a
+  prefill of its own. It rides the NEXT decode chunk as a long-q_len row
+  of one ragged window (the prologue), while every other live slot takes
+  its normal decode step at q_len=1 in the same forward. Only the head of
+  a prompt beyond the widest admission window prefills eagerly.
+- **Device-side termination**: each chunk runs ``chunk_len`` forward
+  steps whose carry (tokens, positions, live mask, generated counts,
+  budgets, health word) stays on the device; EOS, token budgets and
+  non-finite logits freeze a slot inside the chunk. The host fetches ONE
+  packed int32 buffer per chunk (``protocol.pack_chunk``, v3) and nothing
+  else — no ``.item()`` or boolean index runs inside the step loop.
+- Attention on every path (preload, admission, decode) is the ragged
+  kernel (``ops/ragged_attention.py``): the Hopper kernel for CUDA
+  tensors, its plain version for CPU tensors.
+
+The scheduler runs on one worker thread; request coroutines talk to it
+through a bounded admission queue and per-request asyncio queues.
+
+Not in this slice (each raises or is simply absent; ROADMAP lists them):
+speculative decoding, grammar-constrained decoding, QoS lanes and
+preemption, containment replay (a slot whose health word trips finishes
+with ``RequestQuarantined``), the host KV tier, the step-time, ledger and
+SLO hooks, and a chunk pipeline deeper than one (the host fetches each
+chunk before it dispatches the next).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+import queue as _queue
+import threading
+import time
+import zlib
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models.config import get_config
+from ..models.transformer import KVCache, forward
+from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
+from .protocol import (HEALTH_NONFINITE, HEALTH_TOKEN_RANGE,
+                       EngineOverloaded, EngineResult, EngineUnavailable,
+                       GenerationTimeout, RequestQuarantined,
+                       consume_chunk_row, describe_health, pack_chunk,
+                       unpack_chunk)
+from .radix_cache import RadixCache
+from .sampling import eos_mask, greedy_tokens, sample_rows
+from .tokenizer import StreamDecoder
+from .torch_engine import TorchEngine, engine_kwargs
+
+logger = logging.getLogger(__name__)
+
+
+def termination_fold(nxt, step_logits, prev_tok, live, ngen, budget,
+                     health, eos_ids, vocab_size: int,
+                     health_check: bool):
+    """The per-step termination fold of the JAX chunk body, on [N]
+    device tensors: health bits freeze a slot before its token counts,
+    frozen rows repeat their previous token, EOS and the token budget end
+    a slot. Returns ``(nxt, live, ngen, health, counted)``."""
+    if health_check:
+        bad_logit = ~torch.isfinite(step_logits).all(dim=-1)
+        health = health | (live & bad_logit).to(health.dtype) \
+            * HEALTH_NONFINITE
+        if vocab_size > 0:
+            bad_tok = (nxt < 0) | (nxt >= vocab_size)
+            health = health | (live & bad_tok).to(health.dtype) \
+                * HEALTH_TOKEN_RANGE
+        live = live & (health == 0)
+    nxt = torch.where(live, nxt, prev_tok)
+    hit_eos = eos_mask(nxt, eos_ids) & live
+    counted = live & ~hit_eos
+    ngen = ngen + counted.to(torch.int32)
+    done_now = hit_eos | (counted & (ngen >= budget))
+    live = live & ~done_now
+    return nxt, live, ngen, health, counted
+
+
+@dataclasses.dataclass
+class _Request:
+    prompt_ids: List[int]
+    max_tokens: int
+    temperature: float
+    deadline: Optional[float]
+    loop: asyncio.AbstractEventLoop
+    out_queue: asyncio.Queue
+    cancel: threading.Event
+    t_submit: float
+    # Per-request sampling seed: a sampled request draws from its own
+    # torch.Generator seeded with it, so its tokens depend only on the
+    # seed, its logits and its step count, never on the batch.
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: _Request
+    detok: StreamDecoder
+    n_prompt: int
+    pos: int                      # scheduled device position (upper bound)
+    queue_ms: float
+    t_admit: float
+    prefill_ms: float = 0.0       # admission latency: admit -> first token
+    t_first: Optional[float] = None
+    chunks_inflight: int = 0      # dispatched-but-unconsumed chunks
+    exhausted: bool = False       # KV capacity reached; finish at length
+    prefix_hit: bool = False      # admission radix-matched a prefix
+    # The pool blocks this slot's table maps, in page order, and the
+    # admitted (possibly left-truncated) prompt ids — the basis of the
+    # radix chain inserted at finish.
+    blocks: Optional[List[int]] = None
+    pool_ids: Optional[List[int]] = None
+
+
+class BatchedTorchEngine(TorchEngine):
+    """Engine-protocol implementation with continuous batching."""
+
+    name = "torch-batched"
+
+    #: burst ramp: while admissions keep landing within this window and
+    #: slots are free, hold the first chunk so the burst boards it
+    #: together (capped at ADMIT_RAMP_MAX_SECS from the first hold).
+    ADMIT_RAMP_SECS = 0.03
+    ADMIT_RAMP_MAX_SECS = 0.12
+
+    def __init__(self, *args, batch_size: int = 8, chunk_len: int = 16,
+                 ragged_attention: str = "auto",
+                 kv_pool: bool = True,
+                 kv_pool_page: int = 16,
+                 kv_pool_blocks: int = 0,
+                 radix_cache: bool = True,
+                 radix_lru_blocks: int = 0,
+                 max_queue_depth: int = 64,
+                 slot_health_check: bool = True,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        if batch_size < 1:
+            raise ValueError("batch_size must be >= 1")
+        if chunk_len < 1:
+            raise ValueError("chunk_len must be >= 1")
+        if ragged_attention not in ("auto", "on"):
+            raise NotImplementedError(
+                f"RAGGED_ATTENTION={ragged_attention!r}: the legacy "
+                f"prefill ladder and paged decode wait for a later slice "
+                f"of the port (auto and on serve the ragged kernel)")
+        if not kv_pool:
+            raise NotImplementedError(
+                "KV_POOL=false (the dense KV ladder) waits for a later "
+                "slice of the port")
+        self.batch_size = batch_size
+        self.chunk_len = chunk_len
+        self.kv_pool_page = max(1, kv_pool_page)
+        if 128 % self.kv_pool_page:
+            raise ValueError(
+                f"KV_POOL_PAGE must divide the 128-token tile, got "
+                f"{self.kv_pool_page}")
+        self.kv_pool_blocks = max(0, kv_pool_blocks)
+        self.radix_cache = bool(radix_cache)
+        self.radix_lru_blocks = max(0, radix_lru_blocks)
+        self.max_queue_depth = max(0, max_queue_depth)
+        self.slot_health_check = slot_health_check
+        self._pool: Optional[BlockPool] = None
+        self._radix: Optional[RadixCache] = None
+        self._slots: List[Optional[_Slot]] = [None] * batch_size
+        self._pending_adm: dict = {}    # slot_idx -> staged admission
+        self._inflight: list = []
+        self._admissions: _queue.Queue = _queue.Queue()
+        self._worker: Optional[threading.Thread] = None
+        self._running = False
+        self._admitting = 0
+        self._last_admit_t = 0.0
+        self._ramp_hold_t0 = None
+        #: forward passes run (prefill chunks, prologues, decode steps):
+        #: each launches the attention kernel once per layer.
+        self.forward_steps = 0
+
+    @classmethod
+    def from_config(cls, cfg) -> "BatchedTorchEngine":
+        return cls(
+            get_config(cfg.model_name),
+            batch_size=cfg.decode_batch_size,
+            chunk_len=cfg.chunk_len,
+            ragged_attention=cfg.ragged_attention,
+            kv_pool=cfg.kv_pool,
+            kv_pool_page=cfg.kv_pool_page,
+            kv_pool_blocks=cfg.kv_pool_blocks,
+            radix_cache=cfg.radix_cache,
+            radix_lru_blocks=cfg.radix_lru_blocks,
+            max_queue_depth=cfg.max_queue_depth,
+            slot_health_check=cfg.slot_health_check,
+            **engine_kwargs(cfg),
+        )
+
+    # ------------------------------------------------------------ startup
+
+    async def start(self) -> None:
+        await super().start()
+        # One generation through the real serving path before the first
+        # user request: it builds the attention kernel (first use) and
+        # runs every code path a request takes.
+        await self.generate("warmup: list pods", max_tokens=2,
+                            temperature=0.0)
+
+    def _start_blocking(self) -> None:
+        t0 = time.monotonic()
+        self._load()
+        cfg = self.model_cfg
+        page = self.kv_pool_page
+        # Pool geometry: every per-slot table covers max_seq_len in whole
+        # pages; 0 blocks = auto, the dense envelope (every slot at full
+        # length), which prefix sharing then oversubscribes.
+        self._S_alloc = -(-self.max_seq_len // page) * page
+        self._pool_max_pages = self._S_alloc // page
+        self._pool_n_blocks = (self.kv_pool_blocks
+                               or self.batch_size * self._pool_max_pages)
+        if self._pool_n_blocks < self._pool_max_pages:
+            raise ValueError(
+                f"KV_POOL_BLOCKS={self._pool_n_blocks} cannot hold even "
+                f"one full-length sequence ({self._pool_max_pages} pages)")
+        self._eos_d = torch.tensor(sorted(set(cfg.eos_ids)),
+                                   dtype=torch.int32, device=self.device)
+        self._init_decode_state()
+        self._pool_preload_system_prompt()
+        self._running = True
+        self._worker = threading.Thread(target=self._worker_loop,
+                                        name="torch-batcher", daemon=True)
+        self._worker.start()
+        logger.info("BatchedTorchEngine ready on %s in %.1fs: %d slots, "
+                    "pool %d blocks x %d tokens, chunk %d", self.device,
+                    time.monotonic() - t0, self.batch_size,
+                    self._pool_n_blocks, page, self.chunk_len)
+
+    def _init_decode_state(self) -> None:
+        """(Re-)initialize the device-resident scheduler state: the zeroed
+        KV pool, the host allocator, radix tree and tables, and the
+        per-slot carry vectors. Called at start and after a scheduler
+        failure (which condemns every cached block)."""
+        N = self.batch_size
+        dev = self.device
+        self._cache = KVCache.pool(self.model_cfg, self._pool_n_blocks,
+                                   self.kv_pool_page, dtype=self.dtype,
+                                   device=dev)
+        prev_pool, prev_radix = self._pool, self._radix
+        self._pool = BlockPool(self._pool_n_blocks, self.kv_pool_page)
+        self._radix = (RadixCache(self._pool,
+                                  max_blocks=self.radix_lru_blocks)
+                       if self.radix_cache else None)
+        if prev_pool is not None:
+            self._pool.carry_counters(prev_pool)
+        if prev_radix is not None and self._radix is not None:
+            self._radix.carry_counters(prev_radix)
+        self._tables = np.full((N, self._pool_max_pages),
+                               self._pool_n_blocks, np.int32)
+        self._tok_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
+        self._pos_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
+        self._active_d = torch.zeros((N,), dtype=torch.bool, device=dev)
+        self._ngen_d = torch.zeros((N,), dtype=torch.int32, device=dev)
+        self._budget_d = torch.ones((N,), dtype=torch.int32, device=dev)
+        # Per-slot sampling config is host knowledge: an all-greedy batch
+        # never touches the sampled path.
+        self._temps = [0.0] * N
+        self._gens: List[Optional[torch.Generator]] = [None] * N
+
+    # ------------------------------------------------ block-paged KV pool
+
+    def _tables_d(self, tables: np.ndarray) -> torch.Tensor:
+        """Device copy of a block-table snapshot."""
+        return torch.from_numpy(np.ascontiguousarray(tables)).to(self.device)
+
+    def _forward(self, tokens, positions, tables, *, q_lens=None,
+                 write_mask=None, logits_at=None):
+        self.forward_steps += 1
+        logits, self._cache = forward(
+            self.params, self.model_cfg, tokens, positions, self._cache,
+            attn_impl="ragged", logits_at=logits_at, write_mask=write_mask,
+            block_tables=tables, q_lens=q_lens)
+        return logits
+
+    def _run_arm(self, slot_idx: int, n_prompt: int, first_tok: int,
+                 temperature: float, max_toks: int, ngen0: int) -> None:
+        """Write one slot's carry and config into the device vectors (the
+        JAX arm program): carry token, position, live flag, generated
+        count and token budget."""
+        self._tok_d[slot_idx, 0] = first_tok
+        self._pos_d[slot_idx, 0] = n_prompt
+        self._active_d[slot_idx] = max_toks > ngen0
+        self._ngen_d[slot_idx] = ngen0
+        self._budget_d[slot_idx] = max_toks
+        self._temps[slot_idx] = float(temperature)
+
+    def _run_cow(self, src: int, dst: int, rows: int) -> None:
+        """Copy-on-write: the first ``rows`` KV rows of pool block ``src``
+        into block ``dst``, every layer, in place."""
+        for leaf in (self._cache.k, self._cache.v):
+            leaf[:, dst, :rows] = leaf[:, src, :rows]
+
+    def _pool_alloc(self, n: int) -> Optional[List[int]]:
+        """Allocate with radix-eviction backpressure."""
+        return alloc_with_evict(self._pool, self._radix, n)
+
+    def _pool_map_prefix(self, ids: List[int]) -> tuple:
+        """A slot's block chain: shared full blocks + tail COW + fresh
+        blocks (``kv_pool.map_prefix``). Returns (blocks, m)."""
+        return map_prefix(self._pool, self._radix, ids, cow=self._run_cow)
+
+    def _pool_prefill_span(self, table_row: np.ndarray, ids: List[int],
+                           start: int) -> torch.Tensor:
+        """Prefill ``ids[start:]`` at absolute offsets through one table
+        row, in chunks of the largest prefill bucket, through the ragged
+        kernel (q_len = the chunk's valid length). Returns the last valid
+        position's logits [1, vocab]."""
+        n = len(ids)
+        big = self.prefill_buckets[-1]
+        tables_d = self._tables_d(table_row[None])
+        offset, logits = start, None
+        while offset < n:
+            L = min(big, n - offset)
+            bucket = next(b for b in self.prefill_buckets if b >= L)
+            tokens = np.zeros((1, bucket), np.int64)
+            tokens[0, :L] = ids[offset:offset + L]
+            cols = torch.arange(bucket, device=self.device)
+            logits = self._forward(
+                torch.from_numpy(tokens).to(self.device),
+                (offset + cols)[None].to(torch.int32), tables_d,
+                q_lens=torch.full((1,), L, dtype=torch.int32,
+                                  device=self.device),
+                write_mask=(cols < L)[None],
+                logits_at=torch.full((1,), L - 1, dtype=torch.int64,
+                                     device=self.device))
+            offset += L
+        return logits[:, 0]
+
+    def _pool_ensure_coverage(self, idx: int, slot: _Slot) -> bool:
+        """Grow the slot's table to cover the next chunk's writes. False =
+        pool exhausted even after radix eviction: the slot is marked
+        exhausted and finishes at its current length (truncation, never
+        corruption)."""
+        target = min(slot.pos + self.chunk_len, self._S_alloc)
+        need = pages_for(target, self.kv_pool_page)
+        while len(slot.blocks) < need:
+            b = self._pool_alloc(1)
+            if b is None:
+                slot.exhausted = True
+                logger.warning(
+                    "kv pool exhausted: slot truncated at position %d "
+                    "(%d blocks live)", slot.pos,
+                    self._pool.n_blocks - self._pool.free_count)
+                return False
+            self._tables[idx, len(slot.blocks)] = b[0]
+            slot.blocks.extend(b)
+        return True
+
+    def _pool_release_slot(self, idx: int, slot: _Slot,
+                           cache_chain: bool = True) -> None:
+        """Release a leaving slot's block refs. ``cache_chain`` first
+        inserts the request's verified KV chain (admitted prompt +
+        emitted[:-1], rows the device has certainly written) into the
+        radix tree, so the next turn re-maps those blocks."""
+        self._tables[idx, :] = self._pool_n_blocks
+        if not slot.blocks:
+            slot.blocks = []
+            return
+        if cache_chain and self._radix is not None and slot.pool_ids:
+            gen = list(slot.detok.ids)
+            chain = slot.pool_ids + (gen[:-1] if gen else [])
+            chain = chain[:len(slot.blocks) * self.kv_pool_page]
+            self._radix.insert(chain, slot.blocks)
+        self._pool.decref(slot.blocks)
+        slot.blocks = []
+
+    def _admit_one_pool(self, req: _Request) -> None:
+        """Radix-match the prompt, map shared blocks copy-on-write, and
+        STAGE the unmatched suffix for the next chunk's ragged prologue
+        (which prefills it, samples the first token and arms the slot in
+        the same forward as everyone else's decode step). Only a head
+        beyond the widest admission window prefills here."""
+        slot_idx = self._slots.index(None)
+        t_adm = time.monotonic()
+        wait_ms = (t_adm - req.t_submit) * 1000.0
+        ids = list(req.prompt_ids)
+        max_prompt = self.max_seq_len - max(1, req.max_tokens)
+        if len(ids) > max_prompt:
+            ids = ids[-max_prompt:]
+        n_prompt = len(ids)
+        blocks, m = self._pool_map_prefix(ids)
+        try:
+            self._tables[slot_idx, :] = self._pool_n_blocks
+            self._tables[slot_idx, :len(blocks)] = blocks
+            stage_start = max(m, n_prompt - self.prefill_buckets[-1])
+            if stage_start > m:
+                self._pool_prefill_span(self._tables[slot_idx],
+                                        ids[:stage_start], m)
+            staged = dict(ids=ids[stage_start:], start=stage_start)
+            # The slot's budget, count and live flag go to the device now;
+            # its token, position and first sample come from the prologue.
+            self._run_arm(slot_idx, stage_start, 0, req.temperature,
+                          req.max_tokens, 0)
+        except Exception:
+            self._tables[slot_idx, :] = self._pool_n_blocks
+            self._pool.decref(blocks)
+            raise
+        gen = None
+        if req.temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(req.seed)
+        self._gens[slot_idx] = gen
+        self._slots[slot_idx] = _Slot(
+            req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
+            pos=n_prompt, queue_ms=wait_ms, t_admit=t_adm,
+            prefix_hit=m > 0, blocks=blocks, pool_ids=ids)
+        self._pending_adm[slot_idx] = staged
+        self._last_admit_t = time.monotonic()
+
+    def _pool_preload_system_prompt(self) -> None:
+        """Prefill the shared system prompt once and leave its chain
+        cached in the radix tree, so every request's admission maps it
+        instead of prefilling it (HBM_PREFIX_CACHE)."""
+        if self._radix is None or not self.use_prefix_cache:
+            return
+        from .prompts import SYSTEM_PROMPT
+
+        ids = self.tokenizer.encode(SYSTEM_PROMPT)
+        P = len(ids)
+        if P + self.prefill_buckets[0] > self.max_seq_len:
+            logger.warning("Radix preload skipped: system prompt is %d "
+                           "tokens; no room for a suffix within max_seq "
+                           "%d", P, self.max_seq_len)
+            return
+        need = pages_for(P, self.kv_pool_page)
+        if need > self._radix.max_blocks:
+            logger.warning("Radix preload skipped: system prompt needs %d "
+                           "blocks, RADIX_LRU_BLOCKS budget is %d", need,
+                           self._radix.max_blocks)
+            return
+        blocks = self._pool_alloc(need)
+        if blocks is None:  # pragma: no cover - tiny pools only
+            logger.warning("Radix preload skipped: pool too small")
+            return
+        row = np.full((self._pool_max_pages,), self._pool_n_blocks,
+                      np.int32)
+        row[:need] = blocks
+        try:
+            self._pool_prefill_span(row, list(ids), 0)
+            self._radix.insert(list(ids), blocks)
+        finally:
+            self._pool.decref(blocks)
+        logger.info("Radix cache preloaded: %d-token system prompt "
+                    "resident in %d pool blocks", P, need)
+
+    def kv_pool_health(self) -> Optional[dict]:
+        """Block-state counts and radix hit counters for /health (host
+        counters only)."""
+        if self._pool is None:
+            return None
+        body = self._pool.stats(
+            self._radix.cached_blocks() if self._radix else ()).as_dict()
+        body["attention_regime"] = "ragged"
+        if self._radix is not None:
+            body["radix"] = self._radix.stats()
+        return body
+
+    # -------------------------------------------------------------- chunk
+
+    def _sample(self, step_logits: torch.Tensor) -> torch.Tensor:
+        if not any(t > 0.0 for t in self._temps):
+            return greedy_tokens(step_logits)
+        return sample_rows(step_logits, self._temps, self._gens,
+                           top_k=self.top_k, top_p=self.top_p)
+
+    def _run_chunk(self, force: torch.Tensor, tables: torch.Tensor,
+                   adm: Optional[tuple] = None) -> torch.Tensor:
+        """One decode chunk: ``chunk_len`` forward steps over every slot
+        with the termination fold in the carry, the first step replaced
+        by the ragged prologue when admissions are staged (``adm`` =
+        (tok [N, W], len, start) device tensors; ``_run_arm`` already
+        armed the staged slots' budget, count and live flag). Updates the
+        device carry and returns the packed buffer."""
+        cfg = self.model_cfg
+        tok, pos, ngen, budget = (self._tok_d, self._pos_d, self._ngen_d,
+                                  self._budget_d)
+        live = self._active_d & force
+        health = torch.zeros_like(ngen)
+        steps = self.chunk_len
+        toks = []
+        if adm is not None:
+            # The ragged prologue: staged slots prefill their suffix
+            # (q_len = its length) and sample their first token off its
+            # last position; every other live slot takes its decode step
+            # at q_len=1 in the same forward.
+            a_tok, a_len, a_start = adm
+            is_adm = a_len > 0
+            W = a_tok.shape[1]
+            cols = torch.arange(W, dtype=torch.int32, device=self.device)
+            q_len = torch.where(is_adm, a_len, 1)
+            start = torch.where(is_adm, a_start, pos[:, 0])
+            win_tok = a_tok.clone()
+            win_tok[:, 0] = torch.where(is_adm, a_tok[:, 0], tok[:, 0])
+            q_lens = torch.where(live, q_len, 0)
+            logits = self._forward(
+                win_tok, start[:, None] + cols[None, :], tables,
+                q_lens=q_lens,
+                write_mask=(cols[None, :] < q_len[:, None]) & live[:, None],
+                logits_at=(q_lens.clamp(min=1) - 1).long())
+            step_logits = logits[:, 0]
+            nxt, live, ngen, health, counted = termination_fold(
+                self._sample(step_logits), step_logits, win_tok[:, 0],
+                live, ngen, budget, health, self._eos_d, cfg.vocab_size,
+                self.slot_health_check)
+            pos = (start + q_len * counted.to(torch.int32))[:, None]
+            tok = nxt[:, None]
+            toks.append(nxt)
+            steps -= 1
+        for _ in range(steps):
+            logits = self._forward(tok, pos, tables, write_mask=live)
+            step_logits = logits[:, 0]
+            nxt, live, ngen, health, counted = termination_fold(
+                self._sample(step_logits), step_logits, tok[:, 0], live,
+                ngen, budget, health, self._eos_d, cfg.vocab_size,
+                self.slot_health_check)
+            pos = pos + counted.to(torch.int32)[:, None]
+            tok = nxt[:, None]
+            toks.append(nxt)
+        done = force & ~live
+        packed = pack_chunk(torch.stack(toks, dim=1), done, ngen,
+                            live.sum(), health=health, xp=torch)
+        (self._tok_d, self._pos_d, self._active_d, self._ngen_d,
+         self._budget_d) = tok, pos, live, ngen, budget
+        return packed
+
+    def _dispatch_chunk(self) -> None:
+        """Dispatch one chunk for every live slot, carrying every staged
+        admission in its ragged prologue. The admission width is the
+        smallest prefill bucket covering the longest staged suffix."""
+        staged = {i: e for i, e in self._pending_adm.items()
+                  if self._slots[i] is not None
+                  and not self._slots[i].exhausted}
+        self._pending_adm.clear()
+        active_slots = [s for s in self._slots
+                        if s is not None and not s.exhausted]
+        if not active_slots:
+            return
+        # Grow block tables to cover this chunk's writes BEFORE the
+        # dispatch snapshot; a slot the pool cannot serve is excluded.
+        for i, s in enumerate(self._slots):
+            if s is not None and not s.exhausted:
+                self._pool_ensure_coverage(i, s)
+        active_slots = [s for s in self._slots
+                        if s is not None and not s.exhausted]
+        if not active_slots:
+            return
+        adm = None
+        if staged:
+            N = self.batch_size
+            longest = max(len(e["ids"]) for e in staged.values())
+            adm_w = next(b for b in self.prefill_buckets if b >= longest)
+            a_tok = np.zeros((N, adm_w), np.int64)
+            a_vec = np.zeros((2, N), np.int32)   # len, start
+            for i, e in staged.items():
+                a_tok[i, :len(e["ids"])] = e["ids"]
+                a_vec[:, i] = (len(e["ids"]), e["start"])
+            vec = torch.from_numpy(a_vec).to(self.device)
+            adm = (torch.from_numpy(a_tok).to(self.device), vec[0], vec[1])
+        force = torch.tensor(
+            [s is not None and not s.exhausted for s in self._slots],
+            dtype=torch.bool, device=self.device)
+        packed = self._run_chunk(force, self._tables_d(self._tables), adm)
+        snapshot = [s.req if s is not None and not s.exhausted else None
+                    for s in self._slots]
+        for s in active_slots:
+            s.pos += self.chunk_len
+            s.chunks_inflight += 1
+        self._inflight.append(("chunk", packed, snapshot, self.chunk_len))
+
+    def _consume_oldest(self) -> None:
+        """Fetch the oldest chunk's packed buffer (THE one device->host
+        read per chunk) and deliver each slot's tokens and finish."""
+        _, packed, snapshot, ct = self._inflight.pop(0)
+        res = unpack_chunk(packed.cpu().numpy(), self.batch_size, ct)
+        eos_ids = self.model_cfg.eos_ids
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.req is not snapshot[i]:
+                continue   # freed or reassigned since the dispatch
+            slot.chunks_inflight -= 1
+            if int(res.health[i]):
+                # A tripped health bit froze the slot inside the chunk
+                # before its bad token counted. Replaying it (the JAX
+                # containment pass) waits for a later slice: the request
+                # ends here, terminally.
+                self._finish(i, "error", error=RequestQuarantined(
+                    f"decode step failed health check "
+                    f"({describe_health(int(res.health[i]))})"))
+                continue
+            new_ids, finish = consume_chunk_row(
+                res.tokens[i], bool(res.done[i]), int(res.lengths[i]),
+                len(slot.detok.ids), ct, eos_ids)
+            if new_ids:
+                if slot.t_first is None:
+                    slot.t_first = time.monotonic()
+                    slot.prefill_ms = (slot.t_first - slot.t_admit) * 1e3
+                piece = slot.detok.push(*new_ids)
+                if piece is not None:
+                    self._emit(slot.req, "token", piece)
+            if finish is not None:
+                self._finish(i, finish)
+
+    def _finish(self, slot_idx: int, finish: str,
+                error: Optional[BaseException] = None) -> None:
+        slot = self._slots[slot_idx]
+        self._slots[slot_idx] = None
+        self._pending_adm.pop(slot_idx, None)
+        self._temps[slot_idx] = 0.0
+        self._gens[slot_idx] = None
+        if slot is None:  # pragma: no cover - defensive
+            return
+        # Clean finishes cache their verified chain for the next turn.
+        self._pool_release_slot(
+            slot_idx, slot,
+            cache_chain=error is None and finish in ("stop", "length"))
+        if error is not None:
+            self._emit(slot.req, "error", error)
+            return
+        piece = slot.detok.flush()
+        if piece is not None:
+            self._emit(slot.req, "token", piece)
+        t_end = time.monotonic()
+        self._emit(slot.req, "done", EngineResult(
+            text=slot.detok.text,
+            prompt_tokens=slot.n_prompt,
+            completion_tokens=len(slot.detok.ids),
+            queue_ms=slot.queue_ms,
+            prefill_ms=slot.prefill_ms,
+            decode_ms=(t_end - slot.t_admit) * 1000.0,
+            ttft_ms=((slot.t_first or t_end) - slot.req.t_submit) * 1000.0,
+            prefix_cache_hit=slot.prefix_hit,
+            finish_reason=finish,
+            engine=self.name,
+            weights_version=self.weights_version,
+            degraded=slot.exhausted,
+            token_ids=tuple(slot.detok.ids),
+        ))
+
+    def _emit(self, req: _Request, event: str, payload) -> None:
+        try:
+            req.loop.call_soon_threadsafe(req.out_queue.put_nowait,
+                                          (event, payload))
+        except RuntimeError:
+            # The request's event loop already closed; nothing listens.
+            logger.warning("dropping %r event for a dead event loop", event)
+
+    # ---------------------------------------------------------- scheduler
+
+    def _admit_pending(self) -> None:
+        """Admit queued requests into free slots. A failing admission
+        errors THAT request, never the scheduler."""
+        while any(s is None for s in self._slots):
+            try:
+                req = self._admissions.get_nowait()
+            except _queue.Empty:
+                return
+            self._admit_guarded(req)
+
+    def _admit_guarded(self, req: _Request) -> None:
+        self._admitting += 1
+        try:
+            if req.cancel.is_set():
+                return
+            self._admit_one_pool(req)
+        except Exception:
+            logger.exception("admission failed")
+            self._emit(req, "error", EngineUnavailable("admission failed"))
+        finally:
+            self._admitting -= 1
+
+    def _sweep_finishes(self) -> None:
+        """Host-only finishes before a dispatch: cancellation, deadline,
+        and KV capacity (``pos`` counts scheduled chunks, so a slot at
+        capacity finishes once its in-flight chunk is consumed)."""
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            if slot.req.cancel.is_set():
+                self._finish(i, "abort")
+            elif (slot.req.deadline is not None
+                  and time.monotonic() > slot.req.deadline):
+                self._finish(i, "timeout",
+                             error=GenerationTimeout("generation timeout"))
+            elif slot.exhausted or slot.pos >= self.max_seq_len:
+                slot.exhausted = True
+                if slot.chunks_inflight == 0:
+                    self._finish(i, "length")
+
+    def _worker_loop(self) -> None:
+        while self._running:
+            try:
+                self._admit_pending()
+                self._sweep_finishes()
+                if self._inflight:
+                    self._consume_oldest()
+                    continue
+                if any(s is not None and not s.exhausted
+                       for s in self._slots):
+                    now = time.monotonic()
+                    if (any(s is None for s in self._slots)
+                            and now - self._last_admit_t
+                            < self.ADMIT_RAMP_SECS):
+                        # Burst ramp: let the rest of a burst board the
+                        # first chunk together.
+                        if self._ramp_hold_t0 is None:
+                            self._ramp_hold_t0 = now
+                        if now - self._ramp_hold_t0 < self.ADMIT_RAMP_MAX_SECS:
+                            if self._admissions.empty():
+                                time.sleep(0.002)
+                            continue
+                    self._ramp_hold_t0 = None
+                    self._dispatch_chunk()
+                    continue
+                try:
+                    req = self._admissions.get(timeout=0.05)
+                except _queue.Empty:
+                    continue
+                self._admit_guarded(req)
+            except Exception as e:
+                # Containment replay waits for a later slice: fail every
+                # slot in flight and rebuild the device state (a failed
+                # step condemns every cached block).
+                logger.exception("batch scheduler step failed; failing "
+                                 "active slots and resetting the pool")
+                self._fail_all_active(
+                    EngineUnavailable(f"scheduler error: {e}"))
+                self._init_decode_state()
+        self._fail_all_active(EngineUnavailable("engine stopped"))
+        while True:
+            try:
+                req = self._admissions.get_nowait()
+            except _queue.Empty:
+                break
+            self._emit(req, "error", EngineUnavailable("engine stopped"))
+
+    def _fail_all_active(self, error: BaseException) -> None:
+        self._inflight.clear()
+        for i, slot in enumerate(self._slots):
+            if slot is not None:
+                self._finish(i, "error", error=error)
+
+    async def stop(self, drain_secs: float = 0.0) -> None:
+        self._ready = False
+        if drain_secs > 0:
+            deadline = time.monotonic() + drain_secs
+            while time.monotonic() < deadline:
+                busy = (any(s is not None for s in self._slots)
+                        or not self._admissions.empty()
+                        or self._admitting > 0 or bool(self._inflight))
+                if not busy:
+                    break
+                await asyncio.sleep(0.05)
+        self._running = False
+        if self._worker is not None:
+            await asyncio.to_thread(self._worker.join, 10.0)
+            self._worker = None
+
+    # ------------------------------------------------------------ serving
+
+    async def _stream_events(self, prompt: str, *, max_tokens: int,
+                             temperature: float, timeout: Optional[float],
+                             seed: Optional[int] = None):
+        if not self._ready:
+            raise EngineUnavailable("engine not started")
+        if seed is None:
+            seed = zlib.crc32(prompt.encode("utf-8", "surrogatepass")) \
+                & 0x7FFFFFFF
+        if (self.max_queue_depth
+                and self._admissions.qsize() >= self.max_queue_depth):
+            raise EngineOverloaded(
+                f"admission queue full ({self.max_queue_depth})")
+        t_submit = time.monotonic()
+        req = _Request(
+            prompt_ids=self.tokenizer.encode(prompt),
+            max_tokens=max(1, min(max_tokens, self.max_seq_len - 1)),
+            temperature=temperature,
+            deadline=(t_submit + timeout) if timeout else None,
+            loop=asyncio.get_running_loop(),
+            out_queue=asyncio.Queue(),
+            cancel=threading.Event(),
+            t_submit=t_submit,
+            seed=int(seed) & 0x7FFFFFFF,
+        )
+        self._admissions.put(req)
+        try:
+            while True:
+                if req.deadline is not None:
+                    remaining = req.deadline - time.monotonic()
+                    # The worker enforces the deadline too; the grace
+                    # covers a chunk in flight.
+                    try:
+                        event, payload = await asyncio.wait_for(
+                            req.out_queue.get(), remaining + 2.0)
+                    except asyncio.TimeoutError:
+                        raise GenerationTimeout(
+                            "generation exceeded timeout") from None
+                else:
+                    event, payload = await req.out_queue.get()
+                if event == "error":
+                    raise payload
+                yield (event, payload)
+                if event == "done":
+                    return
+        finally:
+            req.cancel.set()

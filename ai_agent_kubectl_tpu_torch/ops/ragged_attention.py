@@ -1,0 +1,160 @@
+"""Ragged paged attention over the block pool: the Hopper kernel, its
+plain PyTorch version, and the wrapper that picks between them.
+
+Replaces the Pallas TPU kernel ``ai_agent_kubectl_tpu/ops/
+ragged_attention.py::ragged_attention_pool``: ONE kernel for every
+attention shape the serving loop runs over the pool. Per slot n the
+query columns ``0 .. q_lens[n]-1`` sit at absolute positions
+``positions[n] + j`` and attend kv positions ``<= positions[n] + j``
+through ``block_tables[n]`` — q_len 1 is a decode step, k+1 a verify
+window, a prompt span a (suffix) prefill, 0 freezes the slot.
+
+Shape contract (the JAX package's):
+
+- ``q``            [N, W, H, hd]
+- ``k``/``v``      [n_blocks, page, KV, hd] — the shared pool
+- ``q_lens``       [N] int32
+- ``positions``    [N] int32 — absolute position of query column 0
+- ``block_tables`` [N, max_pages] int32; entries >= n_blocks are the
+  unmapped-page sentinel (clamped to n_blocks - 1, never read past the
+  slot's last live row)
+
+Output [N, W, H, hd]; rows of padded columns and frozen slots are zeros.
+
+The kernel (``csrc/ragged_attention.cu``, CUDA C++ for sm_90a) runs for
+CUDA tensors; its source note gives its design and what bounds it. The
+plain version runs for CPU tensors only. A CUDA tensor launches the
+kernel or raises — nothing falls back to the plain version.
+``ragged_attention_pool.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .attention import dense_attention
+
+HEAD_DIMS = (64, 128, 256)
+
+
+def ragged_attention_pool_plain(q, k, v, q_lens, positions, block_tables,
+                                *, page_size: int,
+                                scale: Optional[float] = None):
+    """Gather each slot's pages through its table into a contiguous
+    [N, max_pages*page, KV, hd] view (the JAX ``_pool_gather``) and run
+    ``dense_attention`` under the mask ``kv <= pos + j  and  j < q_len``.
+
+    Rows past the slot's last live row (``pos + max(q_len, 1) - 1``) are
+    selected away, not multiplied by zero, so an unmapped or stale block
+    (even one holding NaN) never reaches the output; columns past q_len
+    are zeros, not the average a fully masked softmax would give."""
+    N, W, H, hd = q.shape
+    n_blocks, page, KV, _ = k.shape
+    if page != page_size:
+        raise ValueError(f"pool page {page} != page_size {page_size}")
+    max_pages = block_tables.shape[1]
+    idx = block_tables.long().clamp(0, n_blocks - 1)
+    S = max_pages * page
+    k_ctx = k[idx].reshape(N, S, KV, hd)
+    v_ctx = v[idx].reshape(N, S, KV, hd)
+    pos = positions.long()[:, None]                      # [N, 1]
+    ql = q_lens.long()[:, None]                          # [N, 1]
+    kv_pos = torch.arange(S, device=q.device)[None, :]   # [1, S]
+    live = (kv_pos <= pos + ql.clamp(min=1) - 1)[:, :, None, None]
+    k_ctx = torch.where(live, k_ctx, 0.0)
+    v_ctx = torch.where(live, v_ctx, 0.0)
+    cols = torch.arange(W, device=q.device)[None, :]     # [1, W]
+    col_ok = cols < ql                                   # [N, W]
+    mask = (kv_pos[:, None, :] <= (pos + cols)[:, :, None]) \
+        & col_ok[:, :, None]                             # [N, W, S]
+    out = dense_attention(q, k_ctx, v_ctx, mask, scale=scale)
+    return torch.where(col_ok[:, :, None, None], out, 0.0)
+
+
+def _check_cuda_args(q, k, v, q_lens, positions, block_tables,
+                     page_size: int) -> None:
+    tensors = {"q": q, "k": k, "v": v, "q_lens": q_lens,
+               "positions": positions, "block_tables": block_tables}
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in ("q", "k", "v"):
+        if tensors[name].dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16, got "
+                            f"{tensors[name].dtype}")
+    for name in ("q_lens", "positions", "block_tables"):
+        if tensors[name].dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got "
+                            f"{tensors[name].dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be [N, W, H, hd] and k/v [n_blocks, "
+                         f"page, KV, hd]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    N, W, H, hd = q.shape
+    _, page, KV, khd = k.shape
+    if hd not in HEAD_DIMS or khd != hd:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS} for q and "
+                         f"k/v, got {hd} and {khd}")
+    if page != page_size:
+        raise ValueError(f"pool page {page} != page_size {page_size}")
+    if H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if (q_lens.shape != (N,) or positions.shape != (N,)
+            or block_tables.dim() != 2 or block_tables.shape[0] != N):
+        raise ValueError("q_lens/positions must be [N] and block_tables "
+                         "[N, max_pages]")
+
+
+def ragged_attention_pool(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, q_lens: torch.Tensor,
+                          positions: torch.Tensor,
+                          block_tables: torch.Tensor, *,
+                          page_size: int,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Ragged block-paged attention over the pool (see the module
+    docstring). CPU tensors take the plain version; CUDA tensors launch
+    the Hopper kernel (bf16 q/k/v, int32 indices, contiguous, head_dim
+    64/128/256) and raise on anything else."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return ragged_attention_pool_plain(q, k, v, q_lens, positions,
+                                           block_tables,
+                                           page_size=page_size, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_attention_pool runs on cuda or cpu, "
+                         f"not {q.device}")
+    _check_cuda_args(q, k, v, q_lens, positions, block_tables, page_size)
+    from ._cuda import load
+
+    lib = load("ragged_attention")
+    fn = lib.ragged_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    N, W, H, hd = q.shape
+    n_blocks, page, KV, _ = k.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 q_lens.data_ptr(), positions.data_ptr(),
+                 block_tables.data_ptr(), out.data_ptr(),
+                 N, W, H, KV, hd, page, n_blocks, block_tables.shape[1],
+                 float(scale), stream)
+    if err != 0:
+        lib.ragged_attention_error_string.restype = ctypes.c_char_p
+        lib.ragged_attention_error_string.argtypes = [ctypes.c_int]
+        msg = lib.ragged_attention_error_string(err).decode()
+        raise RuntimeError(f"ragged attention kernel launch failed: "
+                           f"{msg} (cudaError {err})")
+    ragged_attention_pool.launches += 1
+    return out
+
+
+ragged_attention_pool.launches = 0

@@ -1,0 +1,208 @@
+"""The port's continuous-batching engine on the CPU, against a greedy
+reference built from the JAX package's forward.
+
+``BatchedTorchEngine`` serves ``toy-8m`` in float32 with parameters
+carried over from a JAX init (``params_from_jax``). Three prompts arrive
+staggered — two of them while the first is decoding, so their
+admissions ride a ragged prologue beside its decode step. At temperature
+0 every transcript's token ids must equal a greedy loop over the JAX
+``forward(attn_impl="ragged")`` (its Pallas kernel in interpret mode)
+from the same parameters. A repeat then hits the radix cache and must
+give the same ids, and the pool's books must balance after the drain.
+"""
+
+import ast
+import asyncio
+import time
+from functools import partial
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ai_agent_kubectl_tpu.models import config as jconfig
+from ai_agent_kubectl_tpu.models import transformer as jt
+from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+from ai_agent_kubectl_tpu_torch.models.config import get_config
+from ai_agent_kubectl_tpu_torch.models.convert import params_from_jax
+
+# Tiny shapes: one intra-op thread is as fast, and spares the suite's
+# other workers the cores that idle OpenMP threads spin on.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PROMPTS = ["get pods in namespace kube-system",
+           "describe deployment web in prod",
+           "list services sorted by name"]
+MAX_TOKENS = 12
+PAGE, WIDTH = 16, 64
+
+
+def _jax_params():
+    return jt.init_params(jax.random.PRNGKey(0),
+                          jconfig.get_config("toy-8m"), dtype=jnp.float32)
+
+
+def _greedy_reference(jparams, prompt_ids):
+    """Greedy transcript from a loop over the JAX pool/ragged forward:
+    the prompt as one window, then one decode step per token."""
+    cfg = jconfig.get_config("toy-8m")
+    pages = 8
+    fwd = jax.jit(partial(jt.forward, cfg=cfg, kv_limit=pages * PAGE,
+                          attn_impl="ragged", page_size=PAGE))
+    cache = jt.KVCache(
+        k=jnp.zeros((cfg.n_layers, pages, PAGE, cfg.n_kv_heads,
+                     cfg.head_dim), jnp.float32),
+        v=jnp.zeros((cfg.n_layers, pages, PAGE, cfg.n_kv_heads,
+                     cfg.head_dim), jnp.float32),
+        lengths=jnp.zeros((pages,), jnp.int32))
+    tables = jnp.arange(pages, dtype=jnp.int32)[None]
+    P = len(prompt_ids)
+    tokens = np.zeros((1, WIDTH), np.int32)
+    tokens[0, :P] = prompt_ids
+    logits, cache = fwd(
+        jparams, tokens=jnp.asarray(tokens),
+        positions=jnp.arange(WIDTH, dtype=jnp.int32)[None], cache=cache,
+        write_mask=jnp.asarray(np.arange(WIDTH)[None] < P),
+        block_tables=tables, q_lens=jnp.asarray([P], jnp.int32),
+        logits_at=jnp.asarray([P - 1], jnp.int32))
+    out = []
+    tok = int(np.argmax(np.asarray(logits)[0, 0]))
+    while tok not in cfg.eos_ids and len(out) < MAX_TOKENS:
+        out.append(tok)
+        if len(out) == MAX_TOKENS:
+            break
+        logits, cache = fwd(
+            jparams, tokens=jnp.asarray([[tok]], jnp.int32),
+            positions=jnp.asarray([[P + len(out) - 1]], jnp.int32),
+            cache=cache, write_mask=jnp.asarray([True]),
+            block_tables=tables, q_lens=jnp.asarray([1], jnp.int32),
+            logits_at=jnp.asarray([0], jnp.int32))
+        tok = int(np.argmax(np.asarray(logits)[0, 0]))
+    return out
+
+
+def _engine(params, **kw):
+    defaults = dict(tokenizer=ByteTokenizer(), params=params,
+                    dtype="float32", max_seq_len=256,
+                    prefill_buckets=(32, 64), batch_size=4, chunk_len=4,
+                    device="cpu")
+    defaults.update(kw)
+    return BatchedTorchEngine(get_config("toy-8m"), **defaults)
+
+
+def _books(eng) -> None:
+    holders: dict = {}
+    for slot in eng._slots:
+        if slot is not None and slot.blocks:
+            for b in slot.blocks:
+                holders[b] = holders.get(b, 0) + 1
+    if eng._radix is not None:
+        for b, n in eng._radix._held.items():
+            holders[b] = holders.get(b, 0) + n
+    eng._pool.check(holders)
+
+
+async def test_greedy_transcripts_match_jax_reference():
+    jparams = _jax_params()
+    tok = ByteTokenizer()
+    want = [_greedy_reference(jparams, tok.encode(p)) for p in PROMPTS]
+    eng = _engine(params_from_jax(jax.tree.map(np.asarray, jparams)))
+    await eng.start()
+    chunks = []
+    run_chunk = eng._run_chunk
+
+    def recording(force, tables, adm=None):
+        if len(chunks) == 1:
+            # The second chunk waits for the two late arrivals, so they
+            # board the third beside the first prompt's decode however
+            # the host schedules the threads.
+            deadline = time.monotonic() + 30.0
+            while (eng._admissions.qsize() < 2
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+        staged = 0 if adm is None else int((adm[1] > 0).sum())
+        chunks.append((staged, int(force.sum())))
+        return run_chunk(force, tables, adm)
+
+    eng._run_chunk = recording
+    try:
+        # The first prompt decodes alone; once its first chunk is
+        # consumed the other two arrive, so their admissions ride a
+        # ragged prologue beside its decode step.
+        first = asyncio.ensure_future(
+            eng.generate(PROMPTS[0], max_tokens=MAX_TOKENS))
+        while not any(s is not None and s.detok.ids for s in eng._slots):
+            await asyncio.sleep(0.001)
+        rest = await asyncio.gather(*[
+            eng.generate(p, max_tokens=MAX_TOKENS) for p in PROMPTS[1:]])
+        got = [await first] + rest
+        assert chunks[2] == (2, 3), chunks
+        for prompt, res, ids in zip(PROMPTS, got, want):
+            assert list(res.token_ids) == ids, prompt
+            assert res.completion_tokens == len(ids)
+            assert res.text == tok.decode(ids)
+        again = await eng.generate(PROMPTS[0], max_tokens=MAX_TOKENS)
+        assert again.prefix_cache_hit, "the repeat missed the radix cache"
+        assert list(again.token_ids) == want[0]
+        assert eng._radix.hit_tokens_total > 0
+        pieces = [p async for p in eng.generate_stream(
+            PROMPTS[1], max_tokens=MAX_TOKENS)]
+        assert "".join(pieces) == tok.decode(want[1])
+        _books(eng)
+    finally:
+        await eng.stop()
+    assert all(s is None for s in eng._slots)
+
+
+async def test_seeded_sampling_is_reproducible():
+    eng = _engine(None, top_k=20)
+    await eng.start()
+    try:
+        a, b = await asyncio.gather(
+            eng.generate(PROMPTS[1], max_tokens=8, temperature=0.9, seed=7),
+            eng.generate(PROMPTS[2], max_tokens=8, temperature=0.9, seed=7))
+        c = await eng.generate(PROMPTS[1], max_tokens=8, temperature=0.9,
+                               seed=7)
+        assert a.token_ids == c.token_ids
+        assert a.completion_tokens > 0 and b.completion_tokens > 0
+        _books(eng)
+    finally:
+        await eng.stop()
+
+
+def test_engine_on_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        _engine(None, device=None)
+    with pytest.raises(NotImplementedError, match="KV_POOL=false"):
+        _engine(None, kv_pool=False)
+    with pytest.raises(NotImplementedError, match="RAGGED_ATTENTION"):
+        _engine(None, ragged_attention="off")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "ai_agent_kubectl_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "ai_agent_kubectl_tpu"):
+                bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not bad, bad
