@@ -11,7 +11,9 @@ Package layout (each module mirrors its counterpart in the JAX package):
 - ``device``  — device resolution: CUDA unless the caller asks for the CPU
 - ``ops``     — numeric ops and the hand-written Hopper kernels (``csrc/``)
 - ``models``  — the decoder-only transformer over the block-paged KV pool
-- ``engine``  — tokenizer, KV pool, radix cache, sampling, batched engine
+  or a dense per-request cache, plain or quantized weights
+- ``engine``  — tokenizer, KV pool, radix cache, prefix cache, sampling,
+  the single-sequence and the batched engines
 - ``server``  — the request pipeline and a lean aiohttp front end
 """
 

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 #: JAX-package knobs whose features wait for a later slice, with the
 #: default that means "off".
 UNSERVED_KNOBS = {
-    "QUANT": "", "KV_QUANT": "", "SPEC_DECODE": "false",
+    "KV_QUANT": "", "SPEC_DECODE": "false",
     "GRAMMAR_DECODE": "false", "MESH_SHAPE": "", "DCN_MESH_SHAPE": "",
     "FLEET_SIZE": "1", "HOST_KV_BLOCKS": "0",
 }
@@ -64,6 +64,7 @@ class ServiceConfig:
     model_path: Optional[str] = None        # MODEL_PATH (not served yet)
     tokenizer_path: Optional[str] = None    # TOKENIZER_PATH
     dtype: str = "bfloat16"                 # DTYPE
+    quant: str = ""                         # QUANT: "" | int8 | int4
     max_seq_len: int = 1024                 # MAX_SEQ_LEN
     max_new_tokens: int = 128               # MAX_NEW_TOKENS
     decode_batch_size: int = 8              # DECODE_BATCH_SIZE
@@ -72,6 +73,9 @@ class ServiceConfig:
     temperature: float = 0.0                # TEMPERATURE (0 = greedy)
     top_k: int = 0                          # TOP_K
     top_p: float = 1.0                      # TOP_P
+    # Prefill attention of the single-sequence engine: auto = flash on
+    # cuda, dense on the CPU.
+    attn_impl: str = "auto"                 # ATTN_IMPL: auto | dense | flash
     ragged_attention: str = "auto"          # RAGGED_ATTENTION: auto | on
     kv_pool: bool = True                    # KV_POOL
     kv_pool_page: int = 16                  # KV_POOL_PAGE
@@ -90,6 +94,12 @@ class ServiceConfig:
         if self.torch_device not in ("cuda", "cpu"):
             raise ValueError(f"TORCH_DEVICE must be cuda|cpu, got "
                              f"{self.torch_device!r}")
+        if self.quant not in ("", "int8", "int4"):
+            raise ValueError(f"QUANT must be ''|int8|int4, got "
+                             f"{self.quant!r}")
+        if self.attn_impl not in ("auto", "dense", "flash"):
+            raise ValueError(f"ATTN_IMPL must be auto|dense|flash, got "
+                             f"{self.attn_impl!r}")
         if self.ragged_attention not in ("auto", "on"):
             raise ValueError(
                 f"RAGGED_ATTENTION must be auto|on in this port (the "
@@ -135,6 +145,7 @@ class ServiceConfig:
             model_path=_env_str("MODEL_PATH", None),
             tokenizer_path=_env_str("TOKENIZER_PATH", None),
             dtype=_env_str("DTYPE", "bfloat16"),
+            quant=(_env_str("QUANT", "") or "").lower(),
             max_seq_len=_env_int("MAX_SEQ_LEN", 1024),
             max_new_tokens=_env_int("MAX_NEW_TOKENS", 128),
             decode_batch_size=_env_int("DECODE_BATCH_SIZE", 8),
@@ -144,6 +155,7 @@ class ServiceConfig:
             temperature=_env_float("TEMPERATURE", 0.0),
             top_k=_env_int("TOP_K", 0),
             top_p=_env_float("TOP_P", 1.0),
+            attn_impl=(_env_str("ATTN_IMPL", "auto") or "auto").lower(),
             ragged_attention=(_env_str("RAGGED_ATTENTION", "auto")
                               or "auto").lower(),
             kv_pool=_env_bool("KV_POOL", True),

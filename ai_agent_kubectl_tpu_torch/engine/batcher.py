@@ -210,14 +210,6 @@ class BatchedTorchEngine(TorchEngine):
 
     # ------------------------------------------------------------ startup
 
-    async def start(self) -> None:
-        await super().start()
-        # One generation through the real serving path before the first
-        # user request: it builds the attention kernel (first use) and
-        # runs every code path a request takes.
-        await self.generate("warmup: list pods", max_tokens=2,
-                            temperature=0.0)
-
     def _start_blocking(self) -> None:
         t0 = time.monotonic()
         self._load()

@@ -84,6 +84,21 @@ def sample_rows(logits: torch.Tensor, temperatures: Sequence[float],
     return out
 
 
+def sample_token(logits: torch.Tensor, temperature: float,
+                 generator: Optional[torch.Generator], top_k: int = 0,
+                 top_p: float = 1.0) -> torch.Tensor:
+    """The single-sequence engine's sampler (the JAX
+    ``sample_token_traced``): [batch, vocab] f32 -> [batch] int32, greedy
+    argmax at temperature 0, else a draw from ``generator`` under the
+    same top-k/top-p filters the batched path applies. The temperature
+    is a host value, so the greedy path never touches the generator."""
+    if temperature <= 0.0 or generator is None:
+        return greedy_tokens(logits)
+    rows = logits.shape[0]
+    return sample_rows(logits, [temperature] * rows, [generator] * rows,
+                       top_k=top_k, top_p=top_p)
+
+
 def eos_mask(tokens: torch.Tensor, eos_ids: torch.Tensor) -> torch.Tensor:
     """[batch] bool — which sampled tokens are termination ids (a
     broadcast compare against the tiny static EOS set, a tensor on the

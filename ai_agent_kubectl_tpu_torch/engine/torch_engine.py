@@ -1,15 +1,42 @@
-"""TorchEngine — the local GPU inference engine behind the service seam.
+"""TorchEngine — the single-sequence GPU inference engine behind the
+service seam.
 
-The counterpart of the JAX package's ``engine/jax_engine.py``: it holds
+The counterpart of the JAX package's ``engine/jax_engine.py``. It holds
 what every engine of the port shares — the constructor's knobs, the
-tokenizer and the weights (``_load``: random init from ``seed``), the
-``start``/``stop`` lifecycle and the ``Engine`` protocol surface. The
-continuous-batching engine (``engine/batcher.py::BatchedTorchEngine``)
-builds on it and is what serves.
+tokenizer and the weights (``_load``: random init from ``seed``, plain,
+int8 or packed int4), the ``start``/``stop`` lifecycle and the
+``Engine`` protocol surface — and it serves one request at a time
+(``DECODE_BATCH_SIZE=1``):
 
-The single-sequence generation path (``DECODE_BATCH_SIZE=1``: a dense
-per-request cache with flash prefill) belongs to a later slice of the
-port; asking this class to generate raises ``NotImplementedError``.
+    tokenize -> bucketed prefill (flash) -> decode chunks -> detokenize
+
+- **Bucketed prefill** into a fresh dense per-request cache
+  ([L, 1, max_seq + 1, KV, hd]): prompts pad to the next
+  ``PREFILL_BUCKETS`` length; the prefill attends through the flash
+  kernel where ``flash_supported`` tiles the shape (the JAX engine's
+  per-shape choice, ``_prefill_impl_for``), the dense reference
+  otherwise.
+- **Prefix-KV cache**: the shared system prompt is prefilled once at
+  start (``engine/prefix_cache.py``); a prompt that extends it copies
+  its K/V and prefills only the suffix at offset positions. A prompt
+  (or suffix) beyond the largest bucket prefills in sequential chunks at
+  absolute offsets.
+- **Decode chunks** of ``CHUNK_SIZES`` steps (forward one token, sample
+  the next) run back to back on the device with no host read inside;
+  each chunk's tokens are copied to the host asynchronously and fetched
+  once, and the next chunk is enqueued before the current one is read
+  (two in flight). Attention in a decode step is the dense reference
+  over the smallest KV-ladder bucket covering the positions the chunk
+  can reach. On EOS the chunk in flight is abandoned.
+- Greedy at temperature 0, byte-identical to the JAX engine; a sampled
+  request draws from a ``torch.Generator`` seeded per request (the
+  JAX engine's threefry stream is not reproduced: ROADMAP A6).
+
+The continuous-batching engine (``engine/batcher.py::
+BatchedTorchEngine``) builds on this class and replaces the serving
+path. Left out of the JAX engine: ring prefill, the mesh, the compile
+cache and ladder warm threads (nothing compiles in eager PyTorch), and
+weight swaps.
 
 Everything runs on ``device`` — ``cuda`` unless the caller asks for the
 CPU, as the tests do. A CUDA request with no card raises
@@ -20,15 +47,25 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import threading
+import time
+from collections import deque
 from typing import AsyncIterator, Optional
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.config import ModelConfig
-from ..models.transformer import Params, init_params
-from .protocol import EngineResult
-from .tokenizer import Tokenizer, load_tokenizer
+from ..models.config import ModelConfig, get_config
+from ..models.transformer import KVCache, Params, forward, init_params
+from ..ops.flash_attention import flash_supported
+from ..ops.quant import is_quantized, quantize_params_int8, \
+    random_params_int8
+from ..ops.quant4 import quantize_params_int4
+from .prefix_cache import PrefixKV, round_kv_limit
+from .protocol import EngineResult, EngineUnavailable, GenerationTimeout
+from .sampling import eos_mask, sample_token
+from .tokenizer import StreamDecoder, Tokenizer, load_tokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -36,8 +73,24 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 
 
+def kv_bucket_ladder(top: int, start: int = 128) -> tuple:
+    """Pow2 KV-span ladder topped by ``top``: a decode step attends over
+    the smallest bucket covering its positions, so its cost tracks the
+    live length, not the cache size."""
+    ladder, b = [], start
+    while b < top:
+        ladder.append(b)
+        b *= 2
+    return tuple(ladder) + (top,)
+
+
 class TorchEngine:
     name = "torch"
+
+    #: decode chunk sizes (tokens per chunk), largest first: the remaining
+    #: budget is decomposed greedily over these, so a 20-token request runs
+    #: 8+8+1+1+1+1 rather than a 32-step chunk whose tail it would discard.
+    CHUNK_SIZES = (32, 8, 1)
 
     def __init__(
         self,
@@ -48,10 +101,13 @@ class TorchEngine:
         model_path: Optional[str] = None,
         tokenizer_path: Optional[str] = None,
         dtype: str = "bfloat16",
+        quant: str = "",
+        kv_quant: str = "",
         max_seq_len: int = 1024,
         prefill_buckets: tuple = (64, 128, 256, 512, 1024),
         top_k: int = 0,
         top_p: float = 1.0,
+        attn_impl: str = "auto",
         prefix_cache: bool = True,
         seed: int = 0,
         device: DeviceLike = None,
@@ -66,6 +122,18 @@ class TorchEngine:
         if dtype not in DTYPES:
             raise ValueError(f"DTYPE must be one of {sorted(DTYPES)}, got "
                              f"{dtype!r}")
+        if quant not in ("", "int8", "int4"):
+            raise ValueError(f"QUANT must be ''|int8|int4, got {quant!r}")
+        if kv_quant == "int8":
+            raise NotImplementedError(
+                "KV_QUANT=int8 (the int8 KV cache) waits for a later slice "
+                "of the port")
+        if kv_quant:
+            raise ValueError(f"KV_QUANT must be '' or 'int8', got "
+                             f"{kv_quant!r}")
+        if attn_impl not in ("auto", "dense", "flash"):
+            raise ValueError(
+                f"ATTN_IMPL must be auto|dense|flash, got {attn_impl!r}")
         if top_k < 0 or not (0.0 < top_p <= 1.0):
             raise ValueError(
                 f"TOP_K must be >= 0 and TOP_P in (0, 1], got "
@@ -74,6 +142,13 @@ class TorchEngine:
         self.device = resolve_device(device)
         self.tokenizer_path = tokenizer_path
         self.dtype = DTYPES[dtype]
+        self.quant = quant
+        # auto: the flash kernel on the card; on the CPU the plain version
+        # would stand in for it, so the dense reference serves there (as
+        # the JAX engine picks flash only on its accelerator).
+        if attn_impl == "auto":
+            attn_impl = "flash" if self.device.type == "cuda" else "dense"
+        self.attn_impl = attn_impl
         self.max_seq_len = min(max_seq_len, model_cfg.max_seq_len)
         self.prefill_buckets = tuple(
             b for b in sorted(prefill_buckets) if b <= self.max_seq_len
@@ -86,6 +161,18 @@ class TorchEngine:
         self.params = params
         self.weights_version = ""
         self._ready = False
+        self._shutdown = False
+        self._lock: Optional[asyncio.Lock] = None
+        self._gen_inflight = 0       # accepted requests incl. lock waiters
+        self._prefix: Optional[PrefixKV] = None
+        self._kv_buckets = kv_bucket_ladder(self.max_seq_len)
+        self._impl_for: dict = {}    # (q_len, kv_len) -> attn impl
+        self._eos_d = torch.tensor(sorted(set(model_cfg.eos_ids)),
+                                   dtype=torch.int32, device=self.device)
+
+    @classmethod
+    def from_config(cls, cfg) -> "TorchEngine":
+        return cls(get_config(cfg.model_name), **engine_kwargs(cfg))
 
     # ------------------------------------------------------------ startup
 
@@ -94,37 +181,415 @@ class TorchEngine:
         return self._ready
 
     async def start(self) -> None:
+        self._shutdown = False       # allow stop() -> start() restarts
         await asyncio.to_thread(self._start_blocking)
+        self._lock = asyncio.Lock()
         self._ready = True
+        # One generation through the real serving path before the first
+        # user request: it builds the kernels (first use) and runs every
+        # code path a request takes.
+        await self.generate("warmup: list pods", max_tokens=2,
+                            temperature=0.0)
 
     def _start_blocking(self) -> None:
+        t0 = time.monotonic()
         self._load()
-        raise NotImplementedError(
-            "the single-sequence engine (DECODE_BATCH_SIZE=1: dense cache "
-            "and flash prefill) waits for a later slice of the port; serve "
-            "with DECODE_BATCH_SIZE > 1")
+        self._init_prefix_cache()
+        logger.info("TorchEngine ready on %s in %.1fs: %s (quant=%s, "
+                    "prefill %s, buckets %s)", self.device,
+                    time.monotonic() - t0, self.model_cfg.name,
+                    self.quant or "-", self.attn_impl, self.prefill_buckets)
 
     def _load(self) -> None:
-        """Tokenizer and weights: the caller's parameters, else a random
-        init drawn from a ``torch.Generator`` seeded with ``seed`` on the
-        serving device."""
+        """Tokenizer and weights: the caller's parameters (quantized here
+        if ``quant`` asks and they are not yet), else a random init drawn
+        from a ``torch.Generator`` seeded with ``seed`` on the serving
+        device — directly in quantized form under ``quant``, so no
+        full-precision 7B tree is ever built."""
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(self.model_cfg,
                                             self.tokenizer_path)
+        # The embedding is stored per-row int8 whenever the projections
+        # are quantized (the JAX engine's _quantize_embed).
+        quantize_embed = bool(self.quant)
         if self.params is None:
             logger.warning("No MODEL_PATH; random-initializing %s on %s "
-                           "(seed %d)", self.model_cfg.name, self.device,
-                           self.seed)
+                           "(seed %d, quant=%s)", self.model_cfg.name,
+                           self.device, self.seed, self.quant or "-")
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
-            self.params = init_params(gen, self.model_cfg, dtype=self.dtype,
-                                      device=self.device)
+            if self.quant:
+                self.params = random_params_int8(
+                    gen, self.model_cfg, dtype=self.dtype,
+                    quantize_embed=quantize_embed,
+                    int4=self.quant == "int4", device=self.device)
+            else:
+                self.params = init_params(gen, self.model_cfg,
+                                          dtype=self.dtype,
+                                          device=self.device)
             self.weights_version = (f"dev:{self.model_cfg.name}:"
                                     f"seed={self.seed}")
+            if self.quant:
+                self.weights_version += f":quant={self.quant}"
+        elif self.quant and not is_quantized(self.params):
+            quantize = (quantize_params_int4 if self.quant == "int4"
+                        else quantize_params_int8)
+            self.params = quantize(self.params,
+                                   quantize_embed=quantize_embed)
+            logger.info("Weights quantized to %s (weight-only; embedding "
+                        "per-row int8)", self.quant)
 
     async def stop(self, drain_secs: float = 0.0) -> None:
-        self._ready = False
+        self._ready = False          # new generate() calls now fail
+        if drain_secs > 0 and self._lock is not None:
+            # Drain on the accepted-request count (lock waiters included),
+            # not on the lock itself.
+            deadline = time.monotonic() + drain_secs
+            while (self._gen_inflight > 0 and not self._shutdown
+                   and time.monotonic() < deadline):
+                await asyncio.sleep(0.05)
+        self._shutdown = True
 
-    # ------------------------------------------------------------ serving
+    # ------------------------------------------------------------ prefill
+
+    def _new_cache(self) -> KVCache:
+        return KVCache.zeros(self.model_cfg, 1, self.max_seq_len,
+                             dtype=self.dtype, device=self.device)
+
+    def _prefill_impl_for(self, q_len: int, kv_len: int) -> str:
+        """Attention for a prefill shape: flash where the kernel's gate
+        tiles it, else dense (logged once per shape)."""
+        impl = self._impl_for.get((q_len, kv_len))
+        if impl is None:
+            impl = self.attn_impl
+            if impl == "flash" and not flash_supported(
+                    q_len, kv_len, self.model_cfg.head_dim):
+                logger.warning("Prefill %dq/%dkv: shapes not flash-tileable,"
+                               " using dense", q_len, kv_len)
+                impl = "dense"
+            self._impl_for[(q_len, kv_len)] = impl
+        return impl
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"Prompt of {n} tokens exceeds the largest prefill bucket "
+            f"{self.prefill_buckets[-1]}")
+
+    def _prefill(self, ids, offset: int, bucket: int, kv_limit: int,
+                 cache: KVCache) -> torch.Tensor:
+        """One bucketed prefill: ``ids`` at positions ``offset..`` padded
+        to ``bucket`` (padding keeps its natural positions; its K/V lands
+        past the prompt, where decode overwrites it before any query can
+        attend to it), attending over ``cache[:, :kv_limit]``. Returns
+        the last valid position's logits [1, vocab]."""
+        n = len(ids)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :n] = ids
+        dev = self.device
+        cols = torch.arange(bucket, dtype=torch.int32, device=dev)
+        logits, _ = forward(
+            self.params, self.model_cfg,
+            torch.from_numpy(tokens).to(dev), (offset + cols)[None], cache,
+            kv_limit=kv_limit, attn_impl=self._prefill_impl_for(
+                bucket, kv_limit),
+            token_mask=(cols < n)[None],
+            logits_at=torch.full((1,), max(n - 1, 0), dtype=torch.int64,
+                                 device=dev))
+        return logits[:, 0]
+
+    def _init_prefix_cache(self) -> None:
+        """Prefill the shared system prompt once and keep its K/V on the
+        device (engine/prefix_cache.py)."""
+        if not self.use_prefix_cache:
+            return
+        from .prompts import SYSTEM_PROMPT
+
+        ids = self.tokenizer.encode(SYSTEM_PROMPT)
+        P = len(ids)
+        if P + self.prefill_buckets[0] > self.max_seq_len:
+            logger.warning(
+                "Prefix cache disabled: system prompt is %d tokens; no room "
+                "for a suffix bucket within max_seq %d", P, self.max_seq_len)
+            return
+        bucket = next((b for b in self.prefill_buckets if b >= P), None)
+        if bucket is not None:
+            cache = self._new_cache()
+            self._prefill(ids, 0, bucket, bucket, cache)
+        else:
+            # System prompt beyond the largest bucket: build it in chunks.
+            _, cache, _ = self._prefill_chunked(list(ids))
+        # Trim to the true prefix length: the padding slots' K/V is never
+        # copied into request caches.
+        self._prefix = PrefixKV(ids=list(ids),
+                                k=cache.k[:, :, :P].clone(),
+                                v=cache.v[:, :, :P].clone())
+        logger.info("Prefix-KV cache ready: %d tokens resident on %s", P,
+                    self.device)
+
+    def _splice_prefix(self, cache: KVCache) -> None:
+        P = self._prefix.n
+        cache.k[:, :, :P].copy_(self._prefix.k)
+        cache.v[:, :, :P].copy_(self._prefix.v)
+
+    def _prefill_prompt(self, prompt_ids, max_tokens: int):
+        """Prefill one prompt into a fresh cache. Returns (last_logits
+        [1, V], cache, n_prompt, prefix_hit).
+
+        Routing: a prompt that extends the cached system prefix prefills
+        only its suffix; one that fits a bucket prefills in one pass; a
+        longer one prefills in sequential chunks at absolute offsets.
+        Only prompts beyond the KV capacity (max_seq - budget) are
+        left-truncated (the query tail is the informative part)."""
+        max_prompt = self.max_seq_len - max(1, max_tokens)
+        if len(prompt_ids) > max_prompt:
+            prompt_ids = prompt_ids[-max_prompt:]
+        n_prompt = len(prompt_ids)
+        if self._prefix is not None and self._prefix.matches(prompt_ids):
+            return self._prefill_suffix(prompt_ids)
+        if n_prompt > self.prefill_buckets[-1]:
+            logits, cache, n = self._prefill_chunked(prompt_ids)
+            return logits, cache, n, False
+        bucket = self._bucket_for(n_prompt)
+        cache = self._new_cache()
+        logits = self._prefill(prompt_ids, 0, bucket, bucket, cache)
+        return logits, cache, n_prompt, False
+
+    def _suffix_plan(self, prompt_ids):
+        """(sbucket, kv_limit, n_suffix) of a prefix-matched prompt's
+        suffix prefill, or None when the suffix does not fit one bucket
+        (the chunked suffix path instead)."""
+        n_suffix = len(prompt_ids) - self._prefix.n
+        sbucket = next((b for b in self.prefill_buckets if b >= n_suffix),
+                       None)
+        if sbucket is None:
+            return None
+        kv_limit = round_kv_limit(self._prefix.n + sbucket, self.max_seq_len)
+        if kv_limit is None:
+            return None
+        return sbucket, kv_limit, n_suffix
+
+    def _prefill_suffix(self, prompt_ids):
+        """Prefix-cache hit: splice the resident system-prompt K/V and
+        prefill only the suffix at offset positions (in chunks when it
+        exceeds the largest bucket)."""
+        prefix = self._prefix
+        cache = self._new_cache()
+        self._splice_prefix(cache)
+        plan = self._suffix_plan(prompt_ids)
+        if plan is None:
+            logits, cache, n = self._prefill_chunked(prompt_ids, cache=cache,
+                                                     start=prefix.n)
+            return logits, cache, n, True
+        sbucket, kv_limit, n_suffix = plan
+        logits = self._prefill(prompt_ids[prefix.n:], prefix.n, sbucket,
+                               kv_limit, cache)
+        return logits, cache, prefix.n + n_suffix, True
+
+    def _prefill_chunked(self, prompt_ids, cache: Optional[KVCache] = None,
+                         start: int = 0):
+        """Sequential multi-bucket prefill at absolute offsets: the prompt
+        in largest-bucket chunks, each attending over the span written so
+        far (a chunk is a suffix of everything before it). ``cache`` and
+        ``start`` continue from spliced context. Returns (last_logits
+        [1, V], cache, n_prompt)."""
+        n = len(prompt_ids)
+        big = self.prefill_buckets[-1]
+        if cache is None:
+            cache = self._new_cache()
+        offset, logits = start, None
+        while offset < n:
+            L = min(big, n - offset)
+            bucket = next(b for b in self.prefill_buckets if b >= L)
+            # Attend over [0, offset + bucket), tile-rounded, clamped to
+            # the cache (the tail past the written span is masked).
+            if offset == 0:
+                kv_limit = bucket
+            else:
+                kv_limit = (round_kv_limit(offset + bucket, self.max_seq_len)
+                            or self.max_seq_len)
+            logits = self._prefill(prompt_ids[offset:offset + L], offset,
+                                   bucket, kv_limit, cache)
+            offset += L
+        return logits, cache, n
+
+    # ------------------------------------------------------------- decode
+
+    def _decode_chunk(self, chunk_len: int, kv_limit: int,
+                      tok: torch.Tensor, pos: torch.Tensor, cache: KVCache,
+                      temperature: float,
+                      gen: Optional[torch.Generator], done: torch.Tensor):
+        """``chunk_len`` decode steps (forward one token at ``pos``,
+        sample the next) enqueued back to back with no host read,
+        attending over ``cache[:, :kv_limit]``. Returns ``(toks [1, T]
+        int32 — all -1 when ``done`` came in set —, tok [1, 1], pos
+        [1, 1], done)``; tokens after a mid-chunk EOS are garbage the host
+        discards."""
+        steps = []
+        for _ in range(chunk_len):
+            logits, _ = forward(self.params, self.model_cfg, tok, pos, cache,
+                                kv_limit=kv_limit, attn_impl="dense")
+            nxt = sample_token(logits[:, 0], temperature, gen,
+                               top_k=self.top_k, top_p=self.top_p)
+            steps.append(nxt)
+            tok = nxt[:, None]
+            pos = pos + 1
+        toks = torch.stack(steps, dim=1)
+        new_done = done | eos_mask(toks, self._eos_d).any()
+        toks = torch.where(done, torch.full_like(toks, -1), toks)
+        return toks, tok, pos, new_done
+
+    def _to_host_async(self, t: torch.Tensor):
+        """Start the device->host copy of a chunk's tokens without
+        waiting: the read that consumes it then waits for this chunk
+        only, not for the chunk enqueued after it."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _fetch(self, handle) -> np.ndarray:
+        """THE host read of a chunk: one per chunk consumed."""
+        host, event = handle
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
+
+    # ----------------------------------------------------------- generate
+
+    def _generate_blocking(self, prompt: str, max_tokens: int,
+                           temperature: float, deadline: Optional[float],
+                           cancel: Optional[threading.Event] = None,
+                           seed: Optional[int] = None):
+        """Runs on a worker thread. Yields (event, payload) tuples:
+        ("token", text_piece) ... ("done", EngineResult)."""
+        cfg = self.model_cfg
+        t_start = time.monotonic()
+        # Clamp the budget so the prompt keeps >= 1 slot and decode
+        # positions never run past the cache.
+        max_tokens = max(1, min(max_tokens, self.max_seq_len - 1))
+
+        t_prefill0 = time.monotonic()
+        last_logits, cache, n_prompt, prefix_hit = self._prefill_prompt(
+            self.tokenizer.encode(prompt), max_tokens)
+
+        # Per-request sampling seed: an explicit seed pins the stream;
+        # the default derives it from the engine seed and prompt length,
+        # as the JAX engine does.
+        gen = None
+        if temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.seed + n_prompt if seed is None
+                else int(seed) & 0x7FFFFFFF)
+
+        detok = StreamDecoder(self.tokenizer)
+        detok_ms = 0.0
+        finish = "length"
+
+        # First token: sampled from the prefill logits and read at once —
+        # this IS time to first token.
+        next_tok = sample_token(last_logits, temperature, gen,
+                                top_k=self.top_k, top_p=self.top_p)
+        first_id = int(next_tok[0])
+        t_first = time.monotonic()
+        prefill_ms = (t_first - t_prefill0) * 1000.0
+        t_decode0 = t_first
+        stopped = False
+        if first_id in cfg.eos_ids:
+            finish = "stop"
+            stopped = True
+        else:
+            t_dk = time.monotonic()
+            piece = detok.push(first_id)
+            detok_ms += (time.monotonic() - t_dk) * 1000.0
+            if piece is not None:
+                yield ("token", piece)
+            if max_tokens <= 1:
+                stopped = True
+
+        # Decode chunks, two in flight: the next chunk is enqueued before
+        # the current one's tokens are read. Chunk sizes decompose the
+        # remaining budget greedily, never past max_tokens or the cache.
+        if not stopped:
+            tok_d = next_tok[:, None].to(torch.int32)
+            pos_d = torch.full((1, 1), n_prompt, dtype=torch.int32,
+                               device=self.device)
+            done_d = torch.zeros((), dtype=torch.bool, device=self.device)
+            budget = max_tokens - len(detok.ids)
+            sched = 0                # tokens scheduled in chunks
+            sched_pos = n_prompt     # cache slot the next chunk writes first
+            inflight: deque = deque()
+            while True:
+                while len(inflight) < 2 and sched < budget:
+                    chunk_len = next(
+                        (s for s in self.CHUNK_SIZES
+                         if s <= budget - sched
+                         and sched_pos + s <= self.max_seq_len), 0)
+                    if chunk_len == 0:
+                        break  # KV capacity exhausted
+                    kv_b = next(b for b in self._kv_buckets
+                                if b >= sched_pos + chunk_len)
+                    toks_d, tok_d, pos_d, done_d = self._decode_chunk(
+                        chunk_len, kv_b, tok_d, pos_d, cache, temperature,
+                        gen, done_d)
+                    inflight.append(self._to_host_async(toks_d))
+                    sched += chunk_len
+                    sched_pos += chunk_len
+                if not inflight:
+                    break
+                # Deadline and cancel granularity is one chunk.
+                if deadline is not None and time.monotonic() > deadline:
+                    raise GenerationTimeout("generation exceeded timeout")
+                if (cancel is not None and cancel.is_set()) or self._shutdown:
+                    finish = "abort"
+                    break
+                chunk_ids = self._fetch(inflight.popleft())[0]
+                new_ids = []
+                for tid in chunk_ids:
+                    tid = int(tid)
+                    if tid < 0:  # the chunk came after an EOS
+                        break
+                    if tid in cfg.eos_ids:
+                        finish = "stop"
+                        stopped = True
+                        break
+                    new_ids.append(tid)
+                    if len(detok.ids) + len(new_ids) >= max_tokens:
+                        stopped = True
+                        break
+                t_dk = time.monotonic()
+                piece = detok.push(*new_ids) if new_ids else None
+                detok_ms += (time.monotonic() - t_dk) * 1000.0
+                if piece is not None:
+                    yield ("token", piece)
+                if stopped:
+                    break
+
+        t_dk = time.monotonic()
+        piece = detok.flush()
+        detok_ms += (time.monotonic() - t_dk) * 1000.0
+        if piece is not None:
+            yield ("token", piece)
+
+        t_end = time.monotonic()
+        yield ("done", EngineResult(
+            text=detok.text,
+            prompt_tokens=n_prompt,
+            completion_tokens=len(detok.ids),
+            prefill_ms=prefill_ms,
+            decode_ms=(t_end - t_decode0) * 1000.0,
+            detok_ms=detok_ms,
+            ttft_ms=(t_first - t_start) * 1000.0,
+            prefix_cache_hit=prefix_hit,
+            finish_reason=finish,
+            engine=self.name,
+            weights_version=self.weights_version,
+            token_ids=tuple(detok.ids),
+        ))
 
     async def generate(self, prompt: str, *, max_tokens: int = 128,
                        temperature: float = 0.0,
@@ -153,10 +618,53 @@ class TorchEngine:
     async def _stream_events(self, prompt: str, *, max_tokens: int,
                              temperature: float, timeout: Optional[float],
                              seed: Optional[int] = None):
-        raise NotImplementedError(
-            "the single-sequence engine waits for a later slice of the "
-            "port")
-        yield  # pragma: no cover - makes this an async generator
+        if not self._ready:
+            raise EngineUnavailable("engine not started")
+        t_queue0 = time.monotonic()
+        deadline = (t_queue0 + timeout) if timeout else None
+        # In flight from acceptance, the lock wait included, so that
+        # stop(drain_secs) lets queued requests finish. One generator on
+        # purpose: an abandoned stream's cleanup (cancel, close the inner
+        # generation), the lock release and the count run in that order.
+        self._gen_inflight += 1
+        try:
+            async with self._lock:
+                if self._shutdown:
+                    raise EngineUnavailable("engine stopped")
+                queue_ms = (time.monotonic() - t_queue0) * 1000.0
+                loop = asyncio.get_running_loop()
+                cancel = threading.Event()
+                gen = self._generate_blocking(prompt, max_tokens,
+                                              temperature, deadline, cancel,
+                                              seed=seed)
+                try:
+                    while True:
+                        fut = loop.run_in_executor(None, next, gen, None)
+                        try:
+                            item = await fut
+                        except asyncio.CancelledError:
+                            # The worker may still be inside next(gen):
+                            # signal the decode loop and wait it out.
+                            cancel.set()
+                            try:
+                                await asyncio.shield(fut)
+                            except BaseException:
+                                pass
+                            raise
+                        if item is None:
+                            break
+                        event, payload = item
+                        if event == "done":
+                            payload.queue_ms = queue_ms
+                        yield (event, payload)
+                finally:
+                    cancel.set()
+                    try:
+                        gen.close()  # suspended here: safe
+                    except ValueError:  # pragma: no cover - defensive
+                        pass
+        finally:
+            self._gen_inflight -= 1
 
 
 def engine_kwargs(cfg) -> dict:
@@ -166,10 +674,12 @@ def engine_kwargs(cfg) -> dict:
         model_path=cfg.model_path,
         tokenizer_path=cfg.tokenizer_path,
         dtype=cfg.dtype,
+        quant=cfg.quant,
         max_seq_len=cfg.max_seq_len,
         prefill_buckets=cfg.prefill_bucket_list,
         top_k=cfg.top_k,
         top_p=cfg.top_p,
+        attn_impl=cfg.attn_impl,
         prefix_cache=cfg.hbm_prefix_cache,
         device=cfg.torch_device,
     )

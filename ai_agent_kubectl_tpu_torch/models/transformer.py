@@ -1,32 +1,50 @@
-"""Decoder-only transformer over the block-paged KV pool, in PyTorch.
+"""Decoder-only transformer, in PyTorch.
 
-The counterpart of the JAX package's ``models/transformer.py``, pool
-path only:
+The counterpart of the JAX package's ``models/transformer.py`` on its two
+single-device KV layouts:
 
-- Parameters are a plain dict of tensors with the JAX tree's keys and
-  shapes (per-layer weights stacked on a leading ``n_layers`` axis), so
+- **The block-paged pool** (``block_tables`` given): one shared pool
+  [L, n_blocks + 1, page, KV, hd] read and written through per-slot block
+  tables; attention is ``ops/ragged_attention.py::ragged_attention_pool``
+  (the continuous-batching engine).
+- **The dense per-slot cache** (``KVCache.zeros``): [L, B, max_seq + 1,
+  KV, hd]; K/V are written at their absolute positions and attention
+  reads ``cache[:, :kv_limit]`` — ``ops/flash_attention.py::
+  flash_attention_cached`` for a prefill window (``attn_impl="flash"``,
+  S > 1), the dense reference otherwise (the single-sequence engine).
+
+Shared by both:
+
+- Parameters are a plain dict with the JAX tree's keys and shapes
+  (per-layer weights stacked on a leading ``n_layers`` axis), so
   ``models/convert.py::params_from_jax`` maps one onto the other.
+  Projection leaves may be plain tensors, ``QuantInt8`` or packed
+  ``QuantInt4`` (``ops/quant.py::qmatmul`` dispatches per leaf; int4
+  runs the Hopper kernel), the embedding plain or per-row int8.
 - ``forward`` loops over the layers in Python where the JAX version runs
-  ``lax.scan``.
-- The KV pool is updated IN PLACE (the JAX version returns a new pool);
-  ``forward`` returns the same ``KVCache`` object it was given.
-- Attention is ``ops/ragged_attention.py::ragged_attention_pool``: the
-  Hopper kernel for CUDA tensors, its plain version for CPU tensors.
+  ``lax.scan``, and updates the cache IN PLACE (the JAX version returns a
+  new one); it returns the same ``KVCache`` object it was given.
+- Each layout keeps one spare place that nothing reads (the pool's last
+  block, the dense cache's last row): writes the JAX version drops (a
+  masked row, an unmapped page, a position past the cache) land there,
+  so the scatter never needs a host-side filter.
 
-The dense per-slot cache, MoE, quantized weights and KV, and the mesh and
-pipeline paths belong to later slices: asking for them raises
-``NotImplementedError``.
+The MoE MLP, int8 KV, and the ring, paged and mesh paths belong to later
+slices: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..ops.attention import dense_attention
+from ..ops.flash_attention import flash_attention_cached
 from ..ops.norms import rms_norm
+from ..ops.quant import embed_lookup, qmatmul, tied_head
 from ..ops.ragged_attention import ragged_attention_pool
 from ..ops.rope import rope_tables, rotate
 from .config import ModelConfig
@@ -36,15 +54,18 @@ Params = Dict[str, object]
 
 @dataclasses.dataclass
 class KVCache:
-    """Block-paged KV pool.
+    """KV cache, in one of two layouts.
 
-    k, v: [n_layers, n_blocks + 1, page, n_kv_heads, head_dim]. The last
-          block is a trash block that nothing reads: writes of masked rows
-          and of unmapped (sentinel) pages land there, so the scatter never
-          needs a host-side filter. ``n_blocks`` counts only the real
-          blocks. Per-slot lengths are host truth in the scheduler, so
-          the pool carries none (the JAX cache's ``lengths`` leaf is
-          structural only in pool mode).
+    Pool: k, v [n_layers, n_blocks + 1, page, n_kv_heads, head_dim]. The
+          last block is a trash block that nothing reads: writes of
+          masked rows and of unmapped (sentinel) pages land there.
+          ``n_blocks`` counts only the real blocks. Per-slot lengths are
+          host truth in the scheduler, so the pool carries none.
+    Dense: k, v [n_layers, batch, max_seq + 1, n_kv_heads, head_dim].
+          The last row of each slot is a trash row that nothing reads:
+          writes at positions past ``max_seq`` (which the JAX cache
+          drops) and masked rows land there. The engine keeps each
+          slot's length on the host.
     """
 
     k: torch.Tensor
@@ -59,6 +80,15 @@ class KVCache:
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
+    @classmethod
+    def zeros(cls, cfg: ModelConfig, batch: int, max_seq: int, *,
+              dtype=torch.bfloat16, device=None) -> "KVCache":
+        """A zeroed dense per-slot cache of ``max_seq`` positions."""
+        shape = (cfg.n_layers, batch, max_seq + 1, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
     @property
     def n_blocks(self) -> int:
         return self.k.shape[1] - 1
@@ -66,6 +96,11 @@ class KVCache:
     @property
     def page(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def max_seq(self) -> int:
+        """Positions of a dense cache (its trash row excluded)."""
+        return self.k.shape[2] - 1
 
 
 # ----------------------------------------------------------------- init
@@ -136,14 +171,31 @@ def _pool_flat_pos(tables: torch.Tensor, positions: torch.Tensor,
     return torch.where(dead, torch.full_like(flat, trash), flat)
 
 
-def _pool_scatter(leaf: torch.Tensor, flat: torch.Tensor,
+def _scatter_rows(leaf: torch.Tensor, flat: torch.Tensor,
                   updates: torch.Tensor) -> None:
-    """Write [B, S, KV, hd] updates into one layer's pool
-    [n_blocks + 1, page, KV, hd] at flat rows, in place."""
-    nb1, page = leaf.shape[0], leaf.shape[1]
-    f = leaf.view(nb1 * page, *leaf.shape[2:])
+    """Write [B, S, KV, hd] updates into one layer's cache, viewed as
+    rows [leaf.shape[0] * leaf.shape[1], KV, hd], at flat row indices, in
+    place (the pool's and the dense cache's scatter alike)."""
+    f = leaf.view(leaf.shape[0] * leaf.shape[1], *leaf.shape[2:])
     f.index_copy_(0, flat.reshape(-1),
                   updates.reshape(-1, *leaf.shape[2:]).to(leaf.dtype))
+
+
+# ---------------------------------------------------- dense per-slot KV
+
+def _dense_flat_pos(positions: torch.Tensor, max_seq: int,
+                    write_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, S] flat row index into a layer's [B * (max_seq + 1)] rows:
+    the absolute position in the slot's region, or the slot's trash row
+    (``max_seq``) for positions outside the cache and masked rows."""
+    pos = positions.long()
+    dead = (pos < 0) | (pos >= max_seq)
+    if write_mask is not None:
+        wm = write_mask if write_mask.dim() == 2 else write_mask[:, None]
+        dead = dead | ~wm
+    rows = torch.where(dead, torch.full_like(pos, max_seq), pos)
+    base = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    return base * (max_seq + 1) + rows
 
 
 # -------------------------------------------------------------- blocks
@@ -154,35 +206,84 @@ def _activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def _dense_mlp(cfg: ModelConfig, lp: Dict[str, torch.Tensor],
+def _dense_mlp(cfg: ModelConfig, lp: Dict[str, object],
                x: torch.Tensor) -> torch.Tensor:
-    gate = _activation(cfg, x @ lp["w_gate"])
-    return (gate * (x @ lp["w_up"])) @ lp["w_down"]
+    gate = _activation(cfg, qmatmul(x, lp["w_gate"]))
+    return qmatmul(gate * qmatmul(x, lp["w_up"]), lp["w_down"])
 
 
-def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, torch.Tensor],
+#: (q, k, v, layer_k, layer_v) -> attention output [B, S, H, hd]; writes
+#: the window's K/V into the layer's cache first.
+Attend = Callable[..., torch.Tensor]
+
+
+def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, object],
            layer_k: torch.Tensor, layer_v: torch.Tensor, rope: tuple,
-           flat: torch.Tensor, pos0: torch.Tensor, block_tables: torch.Tensor,
-           q_lens: torch.Tensor) -> torch.Tensor:
-    """One transformer block over the pool: the window's K/V are written
-    through the block table first (at the flat pool rows ``flat``), then
-    the ragged kernel reads context and window together through the same
-    table."""
+           attend: Attend) -> torch.Tensor:
+    """One transformer block: every projection through ``qmatmul``, the
+    KV write and attention through ``attend`` (pool or dense)."""
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = rms_norm(h, lp["attn_norm"], cfg.rms_eps, cfg.rms_offset)
-    q = rotate((x @ lp["wq"]).view(B, S, H, hd), *rope)
-    k = rotate((x @ lp["wk"]).view(B, S, KV, hd), *rope)
-    v = (x @ lp["wv"]).view(B, S, KV, hd)
-    _pool_scatter(layer_k, flat, k)
-    _pool_scatter(layer_v, flat, v)
-    n_blocks = layer_k.shape[0] - 1
-    attn = ragged_attention_pool(
-        q.contiguous(), layer_k[:n_blocks], layer_v[:n_blocks], q_lens,
-        pos0, block_tables, page_size=layer_k.shape[1])
-    h = h + attn.reshape(B, S, H * hd) @ lp["wo"]
+    q = rotate(qmatmul(x, lp["wq"]).view(B, S, H, hd), *rope)
+    k = rotate(qmatmul(x, lp["wk"]).view(B, S, KV, hd), *rope)
+    v = qmatmul(x, lp["wv"]).view(B, S, KV, hd)
+    attn = attend(q, k, v, layer_k, layer_v)
+    h = h + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps, cfg.rms_offset)
     return h + _dense_mlp(cfg, lp, x)
+
+
+def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
+                 cache: KVCache, write_mask, block_tables, q_lens) -> Attend:
+    """The pool's K/V write and read for one forward: the window's K/V
+    go through the block table first (at flat pool rows computed once),
+    then the ragged kernel reads context and window together through the
+    same table."""
+    B, S = tokens.shape
+    if q_lens is None:
+        q_lens = torch.full((B,), S, dtype=torch.int32,
+                            device=tokens.device)
+    q_lens = q_lens.to(torch.int32).contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    flat = _pool_flat_pos(tables, positions, cache.page, cache.n_blocks,
+                          write_mask)
+    pos0 = positions[:, 0].to(torch.int32).contiguous()
+
+    def attend(q, k, v, layer_k, layer_v):
+        _scatter_rows(layer_k, flat, k)
+        _scatter_rows(layer_v, flat, v)
+        n_blocks = layer_k.shape[0] - 1
+        return ragged_attention_pool(
+            q.contiguous(), layer_k[:n_blocks], layer_v[:n_blocks], q_lens,
+            pos0, tables, page_size=layer_k.shape[1])
+
+    return attend
+
+
+def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
+                  cache: KVCache, write_mask, kv_limit: int,
+                  attn_impl: str) -> Attend:
+    """The dense cache's K/V write (at absolute positions) and read over
+    ``cache[:, :kv_limit]``: flash for a prefill window, the dense
+    reference otherwise."""
+    S = tokens.shape[1]
+    flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
+    pos32 = positions.to(torch.int32).contiguous()
+    kv_pos = torch.arange(kv_limit, device=positions.device)
+    mask = kv_pos[None, None, :] <= positions.long()[:, :, None]
+    use_flash = attn_impl == "flash" and S > 1
+
+    def attend(q, k, v, layer_k, layer_v):
+        _scatter_rows(layer_k, flat, k)
+        _scatter_rows(layer_v, flat, v)
+        k_ctx = layer_k[:, :kv_limit]
+        v_ctx = layer_v[:, :kv_limit]
+        if use_flash:
+            return flash_attention_cached(q, k_ctx, v_ctx, pos32)
+        return dense_attention(q, k_ctx, v_ctx, mask)
+
+    return attend
 
 
 # -------------------------------------------------------------- forward
@@ -194,60 +295,75 @@ def forward(
     positions: torch.Tensor,            # [B, S] int absolute positions
     cache: KVCache,
     *,
-    attn_impl: str = "ragged",
+    kv_limit: Optional[int] = None,     # dense: attend over cache[:, :kv_limit]
+    attn_impl: Optional[str] = None,    # default: ragged (pool), dense
+    token_mask: Optional[torch.Tensor] = None,  # [B, S]; 0 = padding
     logits_at: Optional[torch.Tensor] = None,   # [B]: logits at one column
     write_mask: Optional[torch.Tensor] = None,  # [B] or [B, S] bool
     block_tables: Optional[torch.Tensor] = None,  # [B, max_pages] int32
     q_lens: Optional[torch.Tensor] = None,      # [B] int32 valid columns
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Run the model over a token window through the pool. Returns
-    (logits [B, S or 1, vocab] float32, cache) with the pool updated in
-    place.
+    """Run the model over a token window. Returns (logits [B, S or 1,
+    vocab] float32, cache) with the cache updated in place.
 
-    ``q_lens`` (default: all S columns) is each row's valid prefix: 1 for
-    decode, a span for prefill, 0 freezes the row. ``write_mask`` gates
-    the KV writes per row or per token. ``logits_at`` gathers each row's
+    Pool mode (``block_tables``; ``attn_impl`` "ragged", the default
+    there): ``q_lens``
+    (default: all S columns) is each row's valid prefix — 1 for decode, a
+    span for prefill, 0 freezes the row. Dense mode (``attn_impl``
+    "dense", the default there, or "flash"): attention reads ``cache[:, :kv_limit]``
+    (default: the whole cache) under ``kv <= position``. ``write_mask``
+    gates the KV writes per row or per token in both. ``token_mask``
+    marks padding, as in the JAX signature; only the MoE MLP reads it
+    there, and the port has no MoE yet. ``logits_at`` gathers each row's
     hidden state at one column BEFORE the LM head, returning
     [B, 1, vocab]."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "the dense per-slot KV cache waits for a later slice of the "
-            "port; pass block_tables (block-paged pool)")
-    if attn_impl != "ragged":
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} waits for a later slice of the "
-            f"port; the pool path runs 'ragged'")
+    del token_mask
     if cfg.is_moe:
         raise NotImplementedError(
             "MoE models wait for a later slice of the port")
-    B, S = tokens.shape
-    if q_lens is None:
-        q_lens = torch.full((B,), S, dtype=torch.int32,
-                            device=tokens.device)
-    q_lens = q_lens.to(torch.int32).contiguous()
-    tables = block_tables.to(torch.int32).contiguous()
+    if block_tables is not None:
+        attn_impl = attn_impl or "ragged"
+        if attn_impl != "ragged":
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r} over the pool (the legacy "
+                f"prefill ladder and paged decode) waits for a later slice "
+                f"of the port; the pool path runs 'ragged'")
+        attend = _pool_attend(tokens, positions, cache, write_mask,
+                              block_tables, q_lens)
+    else:
+        attn_impl = attn_impl or "dense"
+        if attn_impl not in ("dense", "flash"):
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r} over the dense cache waits for a "
+                f"later slice of the port (dense and flash are served)")
+        if kv_limit is None:
+            kv_limit = cache.max_seq
+        if not 0 < kv_limit <= cache.max_seq:
+            raise ValueError(f"kv_limit {kv_limit} outside the cache's "
+                             f"{cache.max_seq} positions")
+        attend = _dense_attend(tokens, positions, cache, write_mask,
+                               kv_limit, attn_impl)
+    B = tokens.shape[0]
 
-    h = params["embed"][tokens.long()].to(params["final_norm"].dtype)
+    # final_norm is always a plain tensor in the model dtype: it anchors
+    # the activation dtype when the embedding is stored int8.
+    h = embed_lookup(params["embed"], tokens,
+                     dtype=params["final_norm"].dtype)
     if cfg.embed_scale:
         # The scale rounds to the activation dtype before it multiplies,
         # as in the JAX forward (a host-side scalar: no device copy).
         h = h * torch.tensor(cfg.dim ** 0.5, dtype=h.dtype).item()
-    # Layer-invariant inputs, computed once: the rotary tables, the flat
-    # pool row of every window token, each row's first position.
+    # The rotary tables are layer-invariant: computed once per forward.
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    flat = _pool_flat_pos(tables, positions, cache.page, cache.n_blocks,
-                          write_mask)
-    pos0 = positions[:, 0].to(torch.int32).contiguous()
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
-        h = _layer(cfg, h, lp, cache.k[i], cache.v[i], rope, flat, pos0,
-                   tables, q_lens)
+        h = _layer(cfg, h, lp, cache.k[i], cache.v[i], rope, attend)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps, cfg.rms_offset)
     if logits_at is not None:
         h = h[torch.arange(B, device=h.device), logits_at.long()][:, None]
     if cfg.tie_embeddings:
-        logits = h @ params["embed"].to(h.dtype).T
+        logits = tied_head(h, params["embed"])
     else:
-        logits = h @ params["lm_head"]
+        logits = qmatmul(h, params["lm_head"])
     return logits.float(), cache

@@ -1,0 +1,217 @@
+"""Weight-only int8 quantization, and the per-leaf matmul dispatch.
+
+The counterpart of the JAX package's ``ops/quant.py`` (weights only;
+int8 KV and W8A8 wait for a later slice):
+
+- ``QuantInt8``: per-output-channel symmetric int8 for the projection
+  matmuls, f32 scales applied in the epilogue — ``(x @ q) * scale``.
+  The JAX package leaves the convert and the scale to XLA's fusion, not
+  to a Pallas kernel, so plain PyTorch ops serve them here.
+- A per-ROW int8 embedding (``quantize_embed_int8``): one scale per
+  vocab row serves the token gather (``embed_lookup``) and the tied LM
+  head (``tied_head``).
+- ``qmatmul`` dispatches per leaf: a plain tensor, a ``QuantInt8``, or a
+  packed ``QuantInt4`` (``ops/quant4.py``, the Hopper int4 kernel).
+- ``random_params_int8`` draws a tree directly in quantized form on the
+  device (no full-precision 7B tree is ever built), with the structure,
+  shapes and dtypes ``quantize_params_int8(init_params(...))`` gives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from .quant4 import QuantInt4, pick_format, qmatmul4
+
+
+@dataclasses.dataclass
+class QuantInt8:
+    """Per-output-channel symmetric int8 weight.
+
+    q:     int8, the original weight's shape
+    scale: f32, the original shape with the contraction axis (-2)
+           collapsed to 1 (per (layer, output channel) for a stack)
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.q.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return (self.q.numel() * self.q.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+    def __getitem__(self, i) -> "QuantInt8":
+        """One layer of a stacked leaf (a view, no copy)."""
+        return QuantInt8(q=self.q[i], scale=self.scale[i])
+
+
+def quantize_int8(w: torch.Tensor) -> QuantInt8:
+    """Symmetric int8, one scale per (leading..., output channel): only
+    the contraction axis (-2) is reduced."""
+    wf = w.float()
+    absmax = wf.abs().amax(dim=-2, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return QuantInt8(q=q, scale=scale)
+
+
+def dequantize(w: QuantInt8, dtype=torch.bfloat16) -> torch.Tensor:
+    return (w.q.float() * w.scale).to(dtype)
+
+
+def quantize_embed_int8(embed: torch.Tensor,
+                        chunk: int = 65536) -> QuantInt8:
+    """Per-ROW symmetric int8 for the embedding [vocab, dim], quantized
+    in vocab-row chunks to bound the f32 transient."""
+    qs, ss = [], []
+    for i in range(0, embed.shape[0], chunk):
+        blk = embed[i:i + chunk].float()
+        absmax = blk.abs().amax(dim=-1, keepdim=True)
+        scale = torch.where(absmax > 0, absmax / 127.0,
+                            torch.ones_like(absmax))
+        qs.append(torch.clamp(torch.round(blk / scale), -127, 127)
+                  .to(torch.int8))
+        ss.append(scale)
+    return QuantInt8(q=torch.cat(qs), scale=torch.cat(ss))
+
+
+def embed_lookup(emb, tokens: torch.Tensor,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """Token-row gather for a plain or per-row ``QuantInt8`` embedding."""
+    idx = tokens.long()
+    if isinstance(emb, QuantInt8):
+        return (emb.q[idx].float() * emb.scale[idx]).to(dtype)
+    return emb[idx].to(dtype)
+
+
+def tied_head(h: torch.Tensor, emb) -> torch.Tensor:
+    """LM head through a (possibly per-row-quantized) tied embedding:
+    ``logits[..., v] = h . emb[v]``, in h's dtype."""
+    if isinstance(emb, QuantInt8):
+        y = h @ emb.q.to(h.dtype).T
+        return (y.float() * emb.scale[:, 0]).to(h.dtype)
+    return h @ emb.to(h.dtype).T
+
+
+def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a plain, ``QuantInt8`` or ``QuantInt4`` weight
+    ``w [in, out]``. int8: the convert feeds the product and the scale
+    multiplies in f32 before one cast; int4: the packed-nibble kernel."""
+    if isinstance(w, QuantInt4):
+        return qmatmul4(x, w)
+    if isinstance(w, QuantInt8):
+        y = x @ w.q.to(x.dtype)
+        # Scale in f32, cast once: rounding the scales to the activation
+        # dtype first would add systematic per-channel error.
+        return (y.float() * w.scale[0]).to(x.dtype)
+    return x @ w
+
+
+#: projection weights eligible for quantization (matmul RHS, output
+#: channel last). Embeddings and norms are excluded.
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def random_params_int8(generator: torch.Generator, cfg, dtype=None,
+                       quantize_embed: bool = False, int4: bool = False,
+                       device=None) -> Dict[str, Any]:
+    """Random-init a tree DIRECTLY in quantized form on ``device``: no
+    full-precision tree anywhere (a 7B bf16 init is ~17 GB). Weight
+    values are arbitrary, as any random init's; the tree's structure,
+    shapes and dtypes match ``quantize_params_int8(init_params(...))``
+    (``int4=True``: ``quantize_params_int4``, with tileable projections
+    packed and group-scaled, the rest int8).
+
+    Payload bytes are drawn one layer at a time straight into the int8
+    stack (``random_`` in place), so no transient exceeds one slice."""
+    from ..models.convert import expected_shapes
+
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "MoE models wait for a later slice of the port")
+    if dtype is None:
+        dtype = torch.bfloat16
+    shapes = expected_shapes(cfg)
+
+    def int8_payload(shape):
+        q = torch.empty(shape, dtype=torch.int8, device=device)
+        for part in (q if len(shape) > 2 else [q]):
+            part.random_(-127, 128, generator=generator)
+        return q
+
+    def quantized(shape):
+        fmt = pick_format(shape[-2], shape[-1]) if int4 else None
+        if fmt is not None:
+            q = int8_payload(shape[:-1] + (shape[-1] // 2,))
+            G = shape[-2] // fmt[0]
+            scale = torch.full(shape[:-2] + (G, shape[-1]),
+                               (shape[-2] ** -0.5) / 7.0,
+                               dtype=torch.float32, device=device)
+            return QuantInt4(q=q, scale=scale, group_in=fmt[0],
+                             block_out=fmt[1])
+        sshape = tuple(1 if i == len(shape) - 2 else s
+                       for i, s in enumerate(shape))
+        # Plausible magnitude: absmax ~ the init scale init_params uses.
+        scale = torch.full(sshape, (shape[-2] ** -0.5) / 127.0,
+                           dtype=torch.float32, device=device)
+        return QuantInt8(q=int8_payload(shape), scale=scale)
+
+    def dense(shape, scale):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device) * scale
+        return w.to(dtype)
+
+    def norm(shape):
+        fill = torch.zeros if cfg.rms_offset else torch.ones
+        return fill(shape, dtype=dtype, device=device)
+
+    layers = {}
+    for name, shape in shapes["layers"].items():
+        layers[name] = (quantized(shape) if name in _QUANT_KEYS
+                        else norm(shape))
+    vocab, d = shapes["embed"]
+    if quantize_embed:
+        embed = QuantInt8(q=int8_payload((vocab, d)),
+                          scale=torch.full((vocab, 1), 1.0 / 127.0,
+                                           dtype=torch.float32,
+                                           device=device))
+    else:
+        embed = dense((vocab, d), 1.0)
+    params: Dict[str, Any] = {"embed": embed, "layers": layers,
+                              "final_norm": norm(shapes["final_norm"])}
+    if "lm_head" in shapes:
+        params["lm_head"] = quantized(shapes["lm_head"])
+    return params
+
+
+def quantize_params_int8(params: Dict[str, Any],
+                         quantize_embed: bool = False) -> Dict[str, Any]:
+    """Quantize every projection weight of an ``init_params`` tree to
+    ``QuantInt8`` (and, with ``quantize_embed``, the embedding per row)."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key in _QUANT_KEYS:
+        if key in layers and layers[key].dim() in (3, 4):
+            layers[key] = quantize_int8(layers[key])
+    out["layers"] = layers
+    if "lm_head" in params:
+        out["lm_head"] = quantize_int8(params["lm_head"])
+    if quantize_embed:
+        out["embed"] = quantize_embed_int8(params["embed"])
+    return out
+
+
+def is_quantized(params: Optional[Dict[str, Any]]) -> bool:
+    """Whether a tree's projections are already quantized."""
+    if not params:
+        return False
+    return any(isinstance(w, (QuantInt8, QuantInt4))
+               for w in params["layers"].values())

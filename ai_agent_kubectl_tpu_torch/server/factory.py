@@ -2,9 +2,9 @@
 
 ``ENGINE=torch`` serves through the continuous-batching engine when
 ``DECODE_BATCH_SIZE`` > 1 (the default) and through the single-sequence
-engine at 1 — the JAX factory's rule; ``ENGINE=torch-batched`` always
-batches. The single-sequence engine waits for a later slice of the port,
-so at 1 the server starts degraded and its log says why.
+engine (``engine/torch_engine.py::TorchEngine``: dense cache, flash
+prefill) at 1 — the JAX factory's rule; ``ENGINE=torch-batched`` always
+batches. Both take ``QUANT``.
 
 On a construction failure the service starts degraded and answers 503
 (as the JAX factory does): a misconfiguration keeps ``/health`` up and
@@ -46,9 +46,9 @@ def build_engine(cfg):
             from ..engine.batcher import BatchedTorchEngine
 
             return BatchedTorchEngine.from_config(cfg)
-        raise NotImplementedError(
-            "the single-sequence engine (DECODE_BATCH_SIZE=1) waits for a "
-            "later slice of the port; serve with DECODE_BATCH_SIZE > 1")
+        from ..engine.torch_engine import TorchEngine
+
+        return TorchEngine.from_config(cfg)
     except Exception as e:
         logger.exception("Failed to initialize engine; starting degraded.")
         return DegradedEngine(f"engine init failed: {e}")

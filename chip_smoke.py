@@ -5,24 +5,41 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build    -- compile every CUDA kernel of the serving path from the
-               sources in ``ai_agent_kubectl_tpu_torch/csrc`` (one nvcc
-               per source, all started together) and print the build time.
+1. build    -- compile every CUDA kernel of the port from the sources in
+               ``ai_agent_kubectl_tpu_torch/csrc`` (one nvcc per source,
+               all started together) and print the build time.
 2. kernel   -- hold each kernel against its plain PyTorch version on the
-               card, in bf16, at Gemma-2B's attention shapes (H=8, KV=1,
-               head_dim 256, page 16, 8 slots): decode at mixed positions,
-               a 5-wide verify window, prefill spans of 64 and 512, a
-               q_len=0 slot, sentinel table entries and an unmapped block
-               full of NaN. The wrapper's launch counter must grow.
+               card, in bf16:
+               * ragged attention at Gemma-2B's shapes (H=8, KV=1,
+                 head_dim 256, page 16, 8 slots): decode at mixed
+                 positions, a 5-wide verify window, prefill spans of 64
+                 and 512, a q_len=0 slot, sentinel table entries and an
+                 unmapped block full of NaN;
+               * flash attention at Gemma-7B's shapes (H=KV=16, head_dim
+                 256; S 64 and 512 over a 1024-slot cache, from position
+                 0 and from 85, a padded tail running past the cache,
+                 rows with no visible key, a two-row strided cache view)
+                 and one Llama-shaped GQA case (H=32, KV=8, head_dim 128);
+               * the int4 matmul on Gemma-7B's four projection shapes at
+                 T in {1, 8, 85, 512}, formats 512/512 and 256/256.
+               Each wrapper's launch counter must grow.
 3. serve    -- build the port's server from the environment-style config
                (MODEL_NAME=gemma-2b-it, random bf16 weights from a fixed
                seed, DECODE_BATCH_SIZE=8, the default pool and radix
                settings), start it on 127.0.0.1 and send 8 concurrent
                POST /kubectl-command requests plus 2 repeats over HTTP.
                Launch counters are zeroed just before and read just after.
-4. timing   -- time each kernel, its plain version, one PyTorch library
+4. serve1   -- the single-sequence engine: MODEL_NAME=gemma-7b-it,
+               QUANT=int4, DECODE_BATCH_SIZE=1, random int4 weights from
+               a fixed seed, PREFILL_BUCKETS=64,128,256,512. Over HTTP:
+               short queries that hit the system-prompt prefix, one query
+               of about 600 tokens (chunked prefill), two repeats. The
+               flash and int4 launch counters are zeroed just before and
+               must have grown just after; the served first-token logits
+               are held against the same forward on the plain versions.
+5. timing   -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
-               shapes the serving path gives it.
+               shapes the serving paths give it.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -44,7 +61,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
-PHASES = ("build", "kernel", "serve", "timing")
+PHASES = ("build", "kernel", "serve", "serve1", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
 # tensor-core FLOP/s. The bound of a kernel is the larger of its bytes
@@ -55,6 +72,12 @@ BF16_FLOP_PER_S = 989e12
 # Gemma-2B attention geometry and the serving pool's page.
 N_SLOTS, N_HEADS, N_KV, HEAD_DIM, PAGE = 8, 8, 1, 256, 16
 MAX_PAGES = 64                       # 1024 positions per slot
+
+# Gemma-7B: full MHA (16 heads of 256) and its projection shapes
+# (IN, OUT); wk/wv share wq's shape and w_up shares w_gate's.
+G7_HEADS, G7_HD = 16, 256
+G7_PROJ = {"wq": (3072, 4096), "wo": (4096, 3072),
+           "w_gate": (3072, 24576), "w_down": (24576, 3072)}
 
 # Kernel vs plain, both bf16 in and out: |kernel - plain| <= ATOL +
 # RTOL * |plain|. The two round at different places: the kernel rounds
@@ -172,6 +195,136 @@ def sdpa_inputs(torch, case):
     return q.transpose(1, 2).contiguous(), kc, vc, mask
 
 
+# ------------------------------------------------------- flash attention
+
+def flash_case(torch, gen, *, S, KVLEN, offset=0, B=1, H=G7_HEADS,
+               KV=G7_HEADS, hd=G7_HD, cache_len=None, device="cuda"):
+    """One flash call: q [B, S, H, hd] at positions offset.. (per row b,
+    offset + 7b), k/v the first KVLEN slots of a [B, cache_len, KV, hd]
+    cache (a strided view when cache_len > KVLEN and B > 1)."""
+    cache_len = cache_len or KVLEN
+    q = torch.randn((B, S, H, hd), generator=gen, device=device).to(
+        torch.bfloat16)
+    k = torch.randn((B, cache_len, KV, hd), generator=gen,
+                    device=device).to(torch.bfloat16)[:, :KVLEN]
+    v = torch.randn((B, cache_len, KV, hd), generator=gen,
+                    device=device).to(torch.bfloat16)[:, :KVLEN]
+    rows = torch.arange(S, dtype=torch.int32, device=device)[None]
+    shift = 7 * torch.arange(B, dtype=torch.int32, device=device)[:, None]
+    return dict(q=q, k=k, v=v,
+                positions=(offset + shift + rows).contiguous())
+
+
+def flash_cases(torch, gen):
+    """The shapes of phase 2 for flash attention: (label, case)."""
+    cases = [
+        ("g7_s64_pos0", flash_case(torch, gen, S=64, KVLEN=1024)),
+        ("g7_s64_off85", flash_case(torch, gen, S=64, KVLEN=1024,
+                                    offset=85)),
+        ("g7_s512_pos0", flash_case(torch, gen, S=512, KVLEN=1024)),
+        ("g7_s512_off85", flash_case(torch, gen, S=512, KVLEN=1024,
+                                     offset=85)),
+        # A bucket's padded tail: positions run past the 512-slot span.
+        ("g7_s512_tail", flash_case(torch, gen, S=512, KVLEN=512,
+                                    offset=85)),
+        # Two rows of a 1025-slot cache read through a [:, :640] view.
+        ("g7_b2_view", flash_case(torch, gen, S=64, KVLEN=640, offset=85,
+                                  B=2, cache_len=1025)),
+        ("llama_gqa", flash_case(torch, gen, S=256, KVLEN=1024, offset=85,
+                                 H=32, KV=8, hd=128)),
+    ]
+    # Rows with no visible key: the first three sit before slot 0.
+    none = flash_case(torch, gen, S=64, KVLEN=128)
+    none["positions"] = none["positions"] - 3
+    cases.append(("g7_no_key_rows", none))
+    return cases
+
+
+def flash_live_work(case) -> tuple:
+    """(bytes, flops) the call needs for THIS data: q read and out
+    written once, the K/V rows some query sees (up to the largest
+    position, clamped to KVLEN) read once, the positions; 4 * hd FLOPs per
+    (query head, visible key)."""
+    q, k = case["q"], case["k"]
+    B, S, H, hd = q.shape
+    KVLEN, KV = k.shape[1], k.shape[2]
+    pos = case["positions"].long()
+    seen = (pos.clamp(min=-1) + 1).clamp(max=KVLEN)          # [B, S]
+    kv_rows = int(seen.amax(dim=1).sum())
+    nbytes = (2 * q.numel() * 2 + 2 * kv_rows * KV * hd * 2
+              + 4 * pos.numel())
+    flops = 4 * hd * H * int(seen.sum())
+    return nbytes, flops
+
+
+def flash_sdpa_inputs(torch, case):
+    """The library yardstick's inputs: [B, H, S, hd] copies of q and the
+    visible K/V span and the position mask, built once."""
+    q, k, v, pos = case["q"], case["k"], case["v"], case["positions"]
+    KVLEN = k.shape[1]
+    kv = torch.arange(KVLEN, device=q.device)
+    mask = (kv[None, None, :] <= pos.long()[:, :, None])[:, None]
+    return (q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), mask)
+
+
+# ------------------------------------------------------------ int4 matmul
+
+def int4_case(torch, gen, *, T, IN, OUT, fmt, device="cuda"):
+    """x [T, IN] bf16 and a packed int4 weight of random bytes (every
+    nibble value, -8 included) with positive group scales near the
+    init's magnitude."""
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import QuantInt4
+
+    gi, bo = fmt
+    q = torch.randint(-128, 128, (IN, OUT // 2), generator=gen,
+                      device=device, dtype=torch.int8)
+    scale = (torch.rand((IN // gi, OUT), generator=gen, device=device)
+             + 0.5) * (IN ** -0.5 / 7.0)
+    x = torch.randn((T, IN), generator=gen, device=device).to(
+        torch.bfloat16)
+    return x, QuantInt4(q=q, scale=scale, group_in=gi, block_out=bo)
+
+
+def int4_cases(torch, gen):
+    """The shapes of phase 2 for the int4 matmul: (label, x, w)."""
+    out = []
+    for fmt in ((512, 512), (256, 256)):
+        for name, (IN, OUT) in G7_PROJ.items():
+            for T in (1, 8, 85, 512):
+                x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
+                out.append((f"{name}_T{T}_{fmt[0]}/{fmt[1]}", x, w))
+    return out
+
+
+def int4_work(x, w) -> tuple:
+    """(bytes, flops): the packed bytes, the scales, x read and y written
+    once; 2 * T * IN * OUT FLOPs."""
+    T, IN = x.shape
+    OUT = w.q.shape[1] * 2
+    nbytes = (w.q.numel() + 4 * w.scale.numel() + 2 * T * IN + 2 * T * OUT)
+    return nbytes, 2 * T * IN * OUT
+
+
+def check_close(torch, label, out, ref) -> float:
+    """Kernel vs plain within ATOL + RTOL*|plain|, both finite. Returns the
+    max abs error."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    if not torch.isfinite(ref).all():
+        raise AssertionError(f"{label}: non-finite plain output")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    bad = diff > ATOL + RTOL * ref.float().abs()
+    if bad.any():
+        raise AssertionError(
+            f"{label}: kernel disagrees with its plain version at "
+            f"{int(bad.sum())} of {out.numel()} values (max abs err "
+            f"{err:.3e}; tolerance {ATOL} + {RTOL}*|plain|)")
+    return err
+
+
 # ------------------------------------------------------------------ timing
 
 def time_cuda(torch, fn, *, iters: int, warmup: int = 3,
@@ -226,25 +379,13 @@ def phase_kernel(torch) -> dict:
     for label, case in ragged_cases(torch, gen):
         out = ragged_attention_pool(**case, page_size=PAGE)
         ref = ragged_attention_pool_plain(**case, page_size=PAGE)
-        torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"ragged kernel [{label}]: non-finite "
-                                 f"output (a dead or NaN page leaked)")
-        if not torch.isfinite(ref).all():
-            raise AssertionError(f"plain ragged [{label}]: non-finite")
-        diff = (out.float() - ref.float()).abs()
-        err = float(diff.max())
-        bad = diff > ATOL + RTOL * ref.float().abs()
+        # Non-finite output would mean a dead or NaN page leaked in.
+        err = check_close(torch, f"ragged [{label}]", out, ref)
         frozen = case["q_lens"] == 0
         pad = (torch.arange(out.shape[1], device="cuda")[None, :]
                >= case["q_lens"][:, None])
         log(f"[kernel] ragged {label}: max |kernel - plain| = {err:.3e} "
             f"over {out.numel()} values")
-        if bad.any():
-            raise AssertionError(
-                f"ragged kernel [{label}] disagrees with its plain version "
-                f"at {int(bad.sum())} values (max abs err {err:.3e}; "
-                f"tolerance {ATOL} + {RTOL}*|plain|)")
         if (out[frozen] != 0).any() or (out[pad] != 0).any():
             raise AssertionError(f"ragged kernel [{label}]: q_len=0 slots "
                                  f"and padded columns must be exact zeros")
@@ -252,7 +393,56 @@ def phase_kernel(torch) -> dict:
     grew = ragged_attention_pool.launches - before
     if grew != 4:
         raise AssertionError(f"launch counter grew by {grew}, expected 4")
-    return {"ragged_attention": {"max_abs_err": worst}}
+    return {"ragged_attention": {"max_abs_err": worst},
+            "flash_attention": _kernel_flash(torch, gen),
+            "int4_matmul": _kernel_int4(torch, gen)}
+
+
+def _kernel_flash(torch, gen) -> dict:
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached, flash_attention_cached_plain)
+
+    worst = 0.0
+    cases = flash_cases(torch, gen)
+    before = flash_attention_cached.launches
+    for label, case in cases:
+        out = flash_attention_cached(**case)
+        ref = flash_attention_cached_plain(**case)
+        err = check_close(torch, f"flash [{label}]", out, ref)
+        dead = case["positions"] < 0
+        if (out[dead] != 0).any():
+            raise AssertionError(f"flash [{label}]: rows with no visible "
+                                 f"key must be exact zeros")
+        log(f"[kernel] flash {label}: max |kernel - plain| = {err:.3e} over "
+            f"{out.numel()} values (max |plain| "
+            f"{float(ref.float().abs().max()):.3f})")
+        worst = max(worst, err)
+    grew = flash_attention_cached.launches - before
+    if grew != len(cases):
+        raise AssertionError(f"flash launch counter grew by {grew}, "
+                             f"expected {len(cases)}")
+    return {"max_abs_err": worst, "cases": len(cases)}
+
+
+def _kernel_int4(torch, gen) -> dict:
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4, qmatmul4_plain
+
+    worst = 0.0
+    n = 0
+    before = qmatmul4.launches
+    for label, x, w in int4_cases(torch, gen):
+        out = qmatmul4(x, w)
+        ref = qmatmul4_plain(x, w)
+        err = check_close(torch, f"int4 [{label}]", out, ref)
+        log(f"[kernel] int4 {label}: max |kernel - plain| = {err:.3e} "
+            f"(max |plain| {float(ref.float().abs().max()):.3f})")
+        worst = max(worst, err)
+        n += 1
+    grew = qmatmul4.launches - before
+    if grew != n:
+        raise AssertionError(f"int4 launch counter grew by {grew}, "
+                             f"expected {n}")
+    return {"max_abs_err": worst, "cases": n}
 
 
 QUERIES = [
@@ -373,8 +563,10 @@ async def _serve(torch, profile: bool) -> dict:
                                  json={"query": "x"}) as r:
                 if r.status != 400:
                     raise AssertionError(f"short query gave {r.status}")
-            profiled = (await _profile_burst(torch, inner, ask)
-                        if profile else None)
+            profiled = (await _profile_burst(
+                torch, ask, [q + " now" for q in QUERIES],
+                lambda: inner.forward_steps, "forward steps", "profile")
+                if profile else None)
     finally:
         await runner.cleanup()           # drains and stops the engine
 
@@ -445,22 +637,24 @@ async def _serve(torch, profile: bool) -> dict:
     return info
 
 
-async def _profile_burst(torch, inner, ask) -> dict:
-    """Another burst of 8 fresh queries under ``torch.profiler`` (after
-    the counted run): the device's busy share of the wall time and the
-    kernels that take it, logged as a table and as one ``[profile] json``
-    line. Only with ``--profile``."""
+async def _profile_burst(torch, ask, queries, steps, unit: str,
+                         tag: str) -> dict:
+    """Fresh queries (sent together) under ``torch.profiler``, after the
+    counted run: the device's busy share of the wall time and the kernels
+    that take it, logged as a table and as one ``[<tag>] json`` line.
+    ``steps()`` reads a cumulative count (forward steps, or generated
+    tokens) that the per-step figures divide by. Only with
+    ``--profile``."""
     from torch.profiler import ProfilerActivity, profile
 
-    queries = [q + " now" for q in QUERIES]
-    steps0 = inner.forward_steps
+    steps0 = steps()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         await asyncio.gather(*[ask(q) for q in queries])
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
-    steps = inner.forward_steps - steps0
+    n_steps = steps() - steps0
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -472,22 +666,22 @@ async def _profile_burst(torch, inner, ask) -> dict:
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows) / 1e3
     out = {
-        "wall_ms": wall_s * 1e3, "forward_steps": steps,
+        "wall_ms": wall_s * 1e3, "steps": n_steps, "step_unit": unit,
         "device_ms": device_ms,
         "device_busy_share": device_ms / (wall_s * 1e3),
-        "kernel_calls_per_step": sum(r[2] for r in rows) / max(steps, 1),
+        "kernel_calls_per_step": sum(r[2] for r in rows) / max(n_steps, 1),
         "top": [{"name": k[:120], "device_ms": us / 1e3, "calls": n,
                  "share_of_device": us / 1e3 / device_ms if device_ms else 0}
                 for k, us, n in rows[:15]],
     }
-    log(f"[profile] {len(queries)} requests, {steps} forward steps in "
+    log(f"[{tag}] {len(queries)} requests, {n_steps} {unit} in "
         f"{wall_s * 1e3:.0f} ms wall; device busy {device_ms:.0f} ms "
         f"({out['device_busy_share']:.1%}); "
-        f"{out['kernel_calls_per_step']:.0f} kernels per step")
+        f"{out['kernel_calls_per_step']:.0f} kernels per {unit[:-1]}")
     for r in out["top"]:
-        log(f"[profile]   {r['device_ms']:9.2f} ms {r['calls']:7d} calls "
+        log(f"[{tag}]   {r['device_ms']:9.2f} ms {r['calls']:7d} calls "
             f"{r['share_of_device']:6.1%}  {r['name']}")
-    log("[profile] json " + json.dumps(out))
+    log(f"[{tag}] json " + json.dumps(out))
     return out
 
 
@@ -547,7 +741,334 @@ def _check_served_logits(torch, engine, results) -> dict:
             "tolerance": tol, "served_gap": gap}
 
 
+# The single-sequence configuration of phase 4, as the server reads it.
+# Every other knob keeps its default: MAX_SEQ_LEN 1024, 128 new tokens,
+# greedy, the system-prompt prefix cache on, ATTN_IMPL=auto (flash).
+SERVE1_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda",
+    "MODEL_NAME": "gemma-7b-it", "DTYPE": "bfloat16", "QUANT": "int4",
+    "DECODE_BATCH_SIZE": "1", "PREFILL_BUCKETS": "64,128,256,512",
+    "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+}
+SERVE1_QUERIES = [
+    "list all pods in the default namespace",
+    "get services in kube-system",
+    "show logs of pod db-0",
+]
+SERVE1_REPEATS = 2           # the first query again, twice
+# Repeated until the query's suffix past the cached prefix exceeds the
+# largest prefill bucket by a margin (about 600 tokens of prompt).
+LONG_SENTENCE = ("show every pod in every namespace that restarted more "
+                 "than five times today and sort them by node name")
+
+
+def phase_serve1(torch, profile: bool = False) -> dict:
+    return asyncio.run(_serve1(torch, profile))
+
+
+def _long_query(engine) -> str:
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+
+    biggest = engine.prefill_buckets[-1]
+    reps = 1
+    while True:
+        query = " ".join([LONG_SENTENCE] * reps)
+        n = len(engine.tokenizer.encode(render_prompt(query)))
+        if n - engine._prefix.n > biggest + 64:
+            return query
+        reps += 1
+
+
+async def _serve1(torch, profile: bool) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.torch_engine import TorchEngine
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    port = _free_port()
+    os.environ.update(SERVE1_ENV, HOST="127.0.0.1", PORT=str(port))
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if type(inner) is not TorchEngine:
+        raise AssertionError(f"engine construction failed: {inner!r}")
+    chunked = []                         # (prompt tokens, start) per call
+    prefill_chunked = inner._prefill_chunked
+
+    def counting(prompt_ids, cache=None, start=0):
+        chunked.append((len(prompt_ids), start))
+        return prefill_chunked(prompt_ids, cache=cache, start=start)
+
+    inner._prefill_chunked = counting
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    if inner._prefix is None:
+        raise AssertionError("the system-prompt prefix cache was not built")
+    weight_gb = sum(
+        t.numel() * t.element_size() for t in _leaves(inner.params)) / 1e9
+    log(f"[serve1] {cfg.model_name} quant={inner.quant} up on "
+        f"{cfg.host}:{port} in {startup_s:.1f} s ({inner.device}, weights "
+        f"{weight_gb:.3f} GB, prefix {inner._prefix.n} tokens, prefill "
+        f"{inner.attn_impl})")
+    queries = (SERVE1_QUERIES + [_long_query(inner)]
+               + [SERVE1_QUERIES[0]] * SERVE1_REPEATS)
+    url = f"http://{cfg.host}:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+                if r.status != 200 or health["engine"] != "torch":
+                    raise AssertionError(f"/health: {r.status} {health}")
+            engine.results.clear()
+            chunked.clear()
+            flash_attention_cached.launches = 0
+            qmatmul4.launches = 0
+            replies = []
+            t_all = time.monotonic()
+            for query in queries:
+                replies.append(await ask(query))
+            wall_s = time.monotonic() - t_all
+            launches = {"flash_attention": flash_attention_cached.launches,
+                        "int4_matmul": qmatmul4.launches}
+            results = [res for _, res in engine.results]
+            profiled = (await _profile_burst(
+                torch, ask, [SERVE1_QUERIES[1] + " now"],
+                lambda: sum(r.completion_tokens for _, r in engine.results),
+                "tokens", "profile1") if profile else None)
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+
+    if len(results) != len(queries):
+        raise AssertionError(f"{len(results)} results for {len(queries)} "
+                             f"queries")
+    for query, (status, body), res in zip(queries, replies, results):
+        if res.completion_tokens <= 0:
+            raise AssertionError(f"{query[:40]!r}: no tokens generated")
+        want = status_for_text(res.text)
+        if status != want:
+            raise AssertionError(f"{query[:40]!r}: HTTP {status}, the "
+                                 f"service gives {want} for {res.text!r}: "
+                                 f"{body}")
+        if not res.prefix_cache_hit:
+            raise AssertionError(f"{query[:40]!r} missed the system-prompt "
+                                 f"prefix cache")
+    long_res = results[len(SERVE1_QUERIES)]
+    suffix = long_res.prompt_tokens - inner._prefix.n
+    if (suffix <= inner.prefill_buckets[-1]
+            or (long_res.prompt_tokens, inner._prefix.n) not in chunked):
+        raise AssertionError(f"the long query ({long_res.prompt_tokens} "
+                             f"tokens) did not take the chunked suffix "
+                             f"prefill: {chunked}")
+    for again in results[len(SERVE1_QUERIES) + 1:]:
+        if again.token_ids != results[0].token_ids:
+            raise AssertionError("a repeat changed its greedy tokens")
+    n_layers = inner.model_cfg.n_layers
+    if (launches["flash_attention"] < n_layers
+            or launches["int4_matmul"] < 7 * n_layers):
+        raise AssertionError(f"kernel launches in the serve1 run: "
+                             f"{launches}")
+    logit_check = _check_served_logits1(torch, inner, results[0],
+                                        render_prompt(SERVE1_QUERIES[0]))
+    short = results[:len(SERVE1_QUERIES)]
+    decode_tps = [r.completion_tokens / (r.decode_ms / 1e3) for r in short]
+    info = {
+        "startup_s": startup_s,
+        "weight_gb": weight_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "statuses": [st for st, _ in replies],
+        "requests": len(queries),
+        "wall_s": wall_s,
+        "tokens": sum(r.completion_tokens for r in results),
+        "tok_per_s": sum(r.completion_tokens for r in results) / wall_s,
+        "decode_tok_per_s": decode_tps,
+        "ttft_ms": [r.ttft_ms for r in short],
+        "long_prompt_tokens": long_res.prompt_tokens,
+        "long_ttft_ms": long_res.ttft_ms,
+        "chunked_prefills": chunked,
+        "logits": logit_check,
+        "decode_positions": [r.prompt_tokens + r.completion_tokens // 2
+                             for r in short],
+        "profile": profiled,
+    }
+    log(f"[serve1] statuses {info['statuses']}; {info['tokens']} tokens "
+        f"over {len(queries)} sequential requests in {wall_s:.2f} s "
+        f"({info['tok_per_s']:.1f} tok/s); decode "
+        f"{', '.join(f'{t:.1f}' for t in decode_tps)} tok/s; TTFT "
+        f"{', '.join(f'{t:.0f}' for t in info['ttft_ms'])} ms (prefix hits),"
+        f" {long_res.ttft_ms:.0f} ms for the {long_res.prompt_tokens}-token "
+        f"prompt; launches {launches}; peak "
+        f"{info['peak_mem_gb']:.2f} GB")
+    return info
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for val in tree.values():
+            yield from _leaves(val)
+    elif hasattr(tree, "q"):
+        yield tree.q
+        yield tree.scale
+    else:
+        yield tree
+
+
+def _check_served_logits1(torch, engine, res, prompt) -> dict:
+    """One served prompt prefilled from scratch through the engine's
+    forward (flash and int4 kernels) against the same forward with both
+    plain versions, on the card; and the served first token (which came
+    through the prefix-cache suffix path) must be the kernel forward's
+    argmax up to that tolerance."""
+    from ai_agent_kubectl_tpu_torch.models import transformer
+    from ai_agent_kubectl_tpu_torch.ops import quant
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached_plain)
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4_plain
+
+    ids = engine.tokenizer.encode(prompt)
+    P = len(ids)
+    bucket = engine._bucket_for(P)
+
+    def run():
+        return engine._prefill(ids, 0, bucket, bucket,
+                               engine._new_cache())[0].float()
+
+    with torch.no_grad():
+        kernel = run()
+        saved = transformer.flash_attention_cached, quant.qmatmul4
+        transformer.flash_attention_cached = flash_attention_cached_plain
+        quant.qmatmul4 = qmatmul4_plain
+        try:
+            plain = run()
+        finally:
+            transformer.flash_attention_cached, quant.qmatmul4 = saved
+    rms = float(plain.pow(2).mean().sqrt())
+    err = float((kernel - plain).abs().max())
+    tol = LOGIT_RTOL * rms
+    served = int(res.token_ids[0])
+    gap = float(kernel.max()) - float(kernel[served])
+    log(f"[serve1] first-step logits over {P} prompt tokens (bucket "
+        f"{bucket}): max |kernel - plain| {err:.4f} (rms {rms:.3f}, "
+        f"tolerance {tol:.4f}); served token {served} sits {gap:.4f} below "
+        f"the kernel argmax {int(kernel.argmax())}")
+    if not torch.isfinite(kernel).all() or err > tol:
+        raise AssertionError(f"served-path logits disagree with the plain "
+                             f"forward: {err} > {tol}")
+    if gap > tol:
+        raise AssertionError(f"served first token {served} is {gap} below "
+                             f"the argmax (tolerance {tol})")
+    return {"prompt_tokens": P, "max_abs_err": err, "rms": rms,
+            "tolerance": tol, "served_gap": gap}
+
+
+def timed(torch, kernel, plain, library, *, iters: int) -> dict:
+    """Kernel, plain, library, kernel, in turns (L2 flushed before every
+    call)."""
+    k1 = time_cuda(torch, kernel, iters=iters)
+    p = time_cuda(torch, plain, iters=iters)
+    lib = time_cuda(torch, library, iters=iters)
+    k2 = time_cuda(torch, kernel, iters=iters)
+    return {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+            "plain_ms": p, "library_ms": lib}
+
+
+def with_bound(entry: dict, nbytes: int, flops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    entry.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=nbytes, flops=flops)
+    return entry
+
+
+def log_timing(what: str, entry: dict, library: str) -> None:
+    k1, k2 = entry["kernel_ms_runs"]
+    log(f"[timing] {what}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms, {library} {entry['library_ms']:.4f} "
+        f"ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+
+
+def _timing_flash(torch, gen) -> dict:
+    import torch.nn.functional as F
+
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached, flash_attention_cached_plain)
+
+    shapes = {"S85": flash_case(torch, gen, S=85, KVLEN=128),
+              "S512": flash_case(torch, gen, S=512, KVLEN=512)}
+    out = {}
+    for label, case in shapes.items():
+        q, k, v, mask = flash_sdpa_inputs(torch, case)
+        entry = timed(
+            torch, lambda: flash_attention_cached(**case),
+            lambda: flash_attention_cached_plain(**case),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            iters=20)
+        out[label] = with_bound(entry, *flash_live_work(case))
+        log_timing(f"flash {label}", entry, "sdpa")
+    return out
+
+
+def _timing_int4(torch, gen) -> dict:
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import (
+        dequantize_int4, qmatmul4, qmatmul4_plain)
+
+    out = {}
+    for name, (IN, OUT) in G7_PROJ.items():
+        for T in (1, 512):
+            x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT,
+                             fmt=(512, 512))
+            dense = dequantize_int4(w, torch.bfloat16)
+            entry = timed(torch, lambda: qmatmul4(x, w),
+                          lambda: qmatmul4_plain(x, w),
+                          lambda: torch.matmul(x, dense),
+                          iters=50 if T == 1 else 10)
+            label = f"{name}_T{T}"
+            out[label] = with_bound(entry, *int4_work(x, w))
+            del dense
+            log_timing(f"int4 {label} ({IN}x{OUT})", entry, "bf16 matmul")
+    return out
+
+
 def phase_timing(torch, serve_info: dict) -> dict:
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+
+    saved = (ragged_attention_pool.launches, flash_attention_cached.launches,
+             qmatmul4.launches)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {"ragged_attention": _timing_ragged(torch, serve_info),
+           "flash_attention": _timing_flash(torch, gen),
+           "int4_matmul": _timing_int4(torch, gen)}
+    # Timing launches do not count.
+    (ragged_attention_pool.launches, flash_attention_cached.launches,
+     qmatmul4.launches) = saved
+    return out
+
+
+def _timing_ragged(torch, serve_info: dict) -> dict:
     import torch.nn.functional as F
 
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
@@ -565,64 +1086,68 @@ def phase_timing(torch, serve_info: dict) -> dict:
                                   positions=[0] * N_SLOTS,
                                   q_lens=[512] * N_SLOTS, nan_block=False),
     }
-    saved = ragged_attention_pool.launches
     out = {}
     for label, case in shapes.items():
-        iters = 50 if label == "decode" else 10
         q, kc, vc, mask = sdpa_inputs(torch, case)
-        kernel_ms = time_cuda(torch, lambda: ragged_attention_pool(
-            **case, page_size=PAGE), iters=iters)
-        plain_ms = time_cuda(torch, lambda: ragged_attention_pool_plain(
-            **case, page_size=PAGE), iters=iters)
-        library_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
-            q, kc, vc, attn_mask=mask, enable_gqa=True), iters=iters)
-        kernel_ms2 = time_cuda(torch, lambda: ragged_attention_pool(
-            **case, page_size=PAGE), iters=iters)
-        nbytes, flops = ragged_live_work(case)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
-        out[label] = {
-            "kernel_ms": (kernel_ms + kernel_ms2) / 2,
-            "kernel_ms_runs": [kernel_ms, kernel_ms2],
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
-        }
-        log(f"[timing] ragged {label}: kernel {kernel_ms:.4f}/"
-            f"{kernel_ms2:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
-            f"({out[label]['bound_by']})")
-    ragged_attention_pool.launches = saved   # timing launches do not count
+        entry = timed(
+            torch, lambda: ragged_attention_pool(**case, page_size=PAGE),
+            lambda: ragged_attention_pool_plain(**case, page_size=PAGE),
+            lambda: F.scaled_dot_product_attention(
+                q, kc, vc, attn_mask=mask, enable_gqa=True),
+            iters=50 if label == "decode" else 10)
+        out[label] = with_bound(entry, *ragged_live_work(case))
+        log_timing(f"ragged {label}", entry, "sdpa")
     return out
 
 
 def kernel_lines(results: dict) -> list:
-    """One entry per kernel of the serving path for the ``kernels`` line:
-    launches from the serving run, the worst error of phase 2, and the
-    decode-shape times at the top level (every shape under ``shapes``)."""
+    """One entry per kernel for the ``kernels`` line: launches from its
+    serving run (ragged: phase 3; flash and int4: phase 4), the worst
+    error of phase 2, and the times at the shape its serving path runs
+    most at the top level (every timed shape under ``shapes``)."""
     timing = results.get("timing", {})
-    main = timing.get("decode", {})
-    entry = {
-        "name": "ragged_attention_pool",
-        "route": "cuda",
-        "source": f"{PACKAGE}/csrc/ragged_attention.cu",
-        "replaces": "ai_agent_kubectl_tpu/ops/ragged_attention.py:137",
-        "launches": results.get("serve", {}).get("launches"),
-        "max_abs_err": results.get("kernel", {}).get(
-            "ragged_attention", {}).get("max_abs_err"),
-        "tolerance": f"|kernel - plain| <= {ATOL} + {RTOL}*|plain| (bf16)",
-        "ms": main.get("kernel_ms"),
-        "kernel_ms": main.get("kernel_ms"),
-        "plain_ms": main.get("plain_ms"),
-        "bound_ms": main.get("bound_ms"),
-        "bound_by": main.get("bound_by"),
-        "library_ms": main.get("library_ms"),
-        "library": "torch.nn.functional.scaled_dot_product_attention over "
-                   "the gathered contiguous view",
-        "shapes": timing,
-    }
-    return [entry]
+    kernel = results.get("kernel", {})
+    serve1 = results.get("serve1", {}).get("launches", {})
+    tol = f"|kernel - plain| <= {ATOL} + {RTOL}*|plain| (bf16)"
+
+    def entry(name, source, replaces, launches, err, shapes, main,
+              library):
+        top = shapes.get(main, {})
+        return {
+            "name": name, "route": "cuda",
+            "source": f"{PACKAGE}/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "tolerance": tol,
+            "shape": main,
+            "ms": top.get("kernel_ms"), "kernel_ms": top.get("kernel_ms"),
+            "plain_ms": top.get("plain_ms"),
+            "bound_ms": top.get("bound_ms"),
+            "bound_by": top.get("bound_by"),
+            "library_ms": top.get("library_ms"), "library": library,
+            "shapes": shapes,
+        }
+
+    return [
+        entry("ragged_attention_pool", "ragged_attention.cu",
+              "ai_agent_kubectl_tpu/ops/ragged_attention.py:137",
+              results.get("serve", {}).get("launches"),
+              kernel.get("ragged_attention", {}).get("max_abs_err"),
+              timing.get("ragged_attention", {}), "decode",
+              "torch.nn.functional.scaled_dot_product_attention over the "
+              "gathered contiguous view"),
+        entry("flash_attention_cached", "flash_attention.cu",
+              "ai_agent_kubectl_tpu/ops/flash_attention.py:123",
+              serve1.get("flash_attention"),
+              kernel.get("flash_attention", {}).get("max_abs_err"),
+              timing.get("flash_attention", {}), "S512",
+              "torch.nn.functional.scaled_dot_product_attention with the "
+              "position mask"),
+        entry("qmatmul4", "int4_matmul.cu",
+              "ai_agent_kubectl_tpu/ops/quant4.py:293",
+              serve1.get("int4_matmul"),
+              kernel.get("int4_matmul", {}).get("max_abs_err"),
+              timing.get("int4_matmul", {}), "w_gate_T1",
+              "torch.matmul on the dequantized bf16 weight"),
+    ]
 
 
 # -------------------------------------------------------------------- main
@@ -632,7 +1157,7 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="after the serving run, profile one more burst")
+                    help="after each serving run, profile one more burst")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -664,6 +1189,8 @@ def main() -> int:
         results["kernel"] = phase_kernel(torch)
     if "serve" in phases:
         results["serve"] = phase_serve(torch, args.profile)
+    if "serve1" in phases:
+        results["serve1"] = phase_serve1(torch, args.profile)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}))
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")

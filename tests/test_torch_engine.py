@@ -13,6 +13,7 @@ give the same ids, and the pool's books must balance after the drain.
 
 import ast
 import asyncio
+import threading
 import time
 from functools import partial
 from pathlib import Path
@@ -115,12 +116,16 @@ async def test_greedy_transcripts_match_jax_reference():
     await eng.start()
     chunks = []
     run_chunk = eng._run_chunk
+    second_chunk = threading.Event()
 
     def recording(force, tables, adm=None):
         if len(chunks) == 1:
-            # The second chunk waits for the two late arrivals, so they
-            # board the third beside the first prompt's decode however
-            # the host schedules the threads.
+            # The second chunk is already staged when it gets here. It
+            # tells the test to send the two late arrivals and waits until
+            # both are queued, so they board the third chunk beside the
+            # first prompt's decode however the host schedules the threads
+            # (sent earlier, they could win the race to the second).
+            second_chunk.set()
             deadline = time.monotonic() + 30.0
             while (eng._admissions.qsize() < 2
                    and time.monotonic() < deadline):
@@ -131,12 +136,12 @@ async def test_greedy_transcripts_match_jax_reference():
 
     eng._run_chunk = recording
     try:
-        # The first prompt decodes alone; once its first chunk is
-        # consumed the other two arrive, so their admissions ride a
+        # The first prompt decodes alone; once its second chunk is staged
+        # the other two arrive, so their admissions ride the third chunk's
         # ragged prologue beside its decode step.
         first = asyncio.ensure_future(
             eng.generate(PROMPTS[0], max_tokens=MAX_TOKENS))
-        while not any(s is not None and s.detok.ids for s in eng._slots):
+        while not second_chunk.is_set():
             await asyncio.sleep(0.001)
         rest = await asyncio.gather(*[
             eng.generate(p, max_tokens=MAX_TOKENS) for p in PROMPTS[1:]])

@@ -163,8 +163,9 @@ def test_forward_refuses_later_slices():
     cache = tt.KVCache.pool(tcfg, 4, PAGE, dtype=torch.float32,
                             device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dense per-slot"):
-        tt.forward(params, tcfg, tok, tok, cache)
+    dense = tt.KVCache.zeros(tcfg, 1, 16, dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="paged"):
+        tt.forward(params, tcfg, tok, tok, dense, attn_impl="paged")
     with pytest.raises(NotImplementedError, match="flash"):
         tt.forward(params, tcfg, tok, tok, cache, attn_impl="flash",
                    block_tables=torch.zeros((1, 2), dtype=torch.int32))

@@ -7,7 +7,7 @@ tensors lie on the CPU — so these tests hold that version to the
 reference in float32 (tolerance 2e-5, float32 round-off over a
 softmax, as the JAX kernel's own tests use). The CUDA kernel itself is
 held against the plain version on the card by ``chip_smoke.py`` and by
-the ``cuda``-marked test below, which skips without a card.
+``tests/test_torch_cuda.py``, which skips without a card.
 """
 
 import numpy as np
@@ -136,20 +136,3 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         _check_cuda_args(*bad_hd, page)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ragged_attention_pool(*[a.to("meta") for a in bf], page_size=page)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_on_card():
-    """The Hopper kernel against its plain version, bf16 on the card
-    (|kernel - plain| <= 1e-2 + 2e-2 |plain|, chip_smoke.py's bound)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    args, page = _torch_args(_mqa_case())
-    dev = [a.to("cuda").to(torch.bfloat16) if a.is_floating_point()
-           else a.to("cuda") for a in args]
-    out = ragged_attention_pool(*dev, page_size=page)
-    ref = ragged_attention_pool_plain(*dev, page_size=page)
-    torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
-    assert ((out.float() - ref.float()).abs()
-            <= 1e-2 + 2e-2 * ref.float().abs()).all()

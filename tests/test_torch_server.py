@@ -118,12 +118,14 @@ async def test_server_with_batched_engine_on_cpu():
 
 
 async def test_degraded_engine_answers_503():
-    """DECODE_BATCH_SIZE=1 asks for the single-sequence engine, which is
-    not in the port yet: the server starts degraded and answers 503."""
-    cfg = ServiceConfig(torch_device="cpu", decode_batch_size=1)
+    """An engine that cannot be built (here: MODEL_PATH, whose checkpoint
+    loader is not in the port yet) leaves the server up but degraded: it
+    answers 503 and its log says why."""
+    cfg = ServiceConfig(torch_device="cpu", decode_batch_size=1,
+                        model_path="/nonexistent/checkpoint")
     engine = build_engine(cfg)
     assert isinstance(engine, DegradedEngine)
-    assert "single-sequence" in engine.reason
+    assert "MODEL_PATH" in engine.reason
     app = create_app(cfg, engine)
     async with TestClient(TestServer(app)) as client:
         r = await client.get("/health")
@@ -150,7 +152,7 @@ def test_config_reads_the_jax_knob_names(monkeypatch):
         ServiceConfig.from_env()
 
 
-@pytest.mark.parametrize("knob,value", [("QUANT", "int8"),
+@pytest.mark.parametrize("knob,value", [("KV_QUANT", "int8"),
                                         ("SPEC_DECODE", "true"),
                                         ("FLEET_SIZE", "2")])
 def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
@@ -158,6 +160,6 @@ def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
     monkeypatch.setenv(knob, value)
     with pytest.raises(ValueError, match=knob):
         ServiceConfig.from_env()
-    monkeypatch.setenv(knob, {"QUANT": "", "SPEC_DECODE": "false",
+    monkeypatch.setenv(knob, {"KV_QUANT": "", "SPEC_DECODE": "false",
                               "FLEET_SIZE": "1"}[knob])
     assert ServiceConfig.from_env().engine == "torch"
