@@ -76,8 +76,15 @@ class ServiceConfig:
     # Prefill attention of the single-sequence engine: auto = flash on
     # cuda, dense on the CPU.
     attn_impl: str = "auto"                 # ATTN_IMPL: auto | dense | flash
-    ragged_attention: str = "auto"          # RAGGED_ATTENTION: auto | on
-    kv_pool: bool = True                    # KV_POOL
+    # Decode attention of the batched engine: auto = paged for a GQA model
+    # on cuda (the page raised to >= 64), dense otherwise.
+    decode_attn: str = "auto"               # DECODE_ATTN: auto | dense | paged
+    kv_page_size: int = 16                  # KV_PAGE_SIZE (dense KV ladder)
+    # Ragged attention over the pool: auto = on in this port (the JAX
+    # package turns it on only on its accelerator); off = the legacy
+    # prefill ladder and the DECODE_ATTN decode over the pool.
+    ragged_attention: str = "auto"          # RAGGED_ATTENTION: auto | on | off
+    kv_pool: bool = True                    # KV_POOL (false = dense KV ladder)
     kv_pool_page: int = 16                  # KV_POOL_PAGE
     kv_pool_blocks: int = 0                 # KV_POOL_BLOCKS (0 = auto)
     radix_cache: bool = True                # RADIX_CACHE
@@ -100,14 +107,20 @@ class ServiceConfig:
         if self.attn_impl not in ("auto", "dense", "flash"):
             raise ValueError(f"ATTN_IMPL must be auto|dense|flash, got "
                              f"{self.attn_impl!r}")
-        if self.ragged_attention not in ("auto", "on"):
+        if self.decode_attn not in ("auto", "dense", "paged"):
+            raise ValueError(f"DECODE_ATTN must be auto|dense|paged, got "
+                             f"{self.decode_attn!r}")
+        if self.kv_page_size < 1:
+            raise ValueError(f"KV_PAGE_SIZE must be >= 1, got "
+                             f"{self.kv_page_size}")
+        if self.ragged_attention not in ("auto", "on", "off"):
+            raise ValueError(f"RAGGED_ATTENTION must be auto|on|off, got "
+                             f"{self.ragged_attention!r}")
+        if self.ragged_attention == "on" and not self.kv_pool:
             raise ValueError(
-                f"RAGGED_ATTENTION must be auto|on in this port (the "
-                f"legacy ladder, 'off', waits for a later slice), got "
-                f"{self.ragged_attention!r}")
-        if not self.kv_pool:
-            raise ValueError("KV_POOL=false (the dense KV ladder) waits for "
-                             "a later slice of the port")
+                "RAGGED_ATTENTION=on requires KV_POOL=true (the ragged "
+                "kernel reads per-slot block tables over the shared pool; "
+                "the dense ladder has no ragged variant)")
         if self.kv_pool_page < 1 or 128 % self.kv_pool_page:
             raise ValueError(
                 f"KV_POOL_PAGE must divide the 128-token tile "
@@ -156,6 +169,8 @@ class ServiceConfig:
             top_k=_env_int("TOP_K", 0),
             top_p=_env_float("TOP_P", 1.0),
             attn_impl=(_env_str("ATTN_IMPL", "auto") or "auto").lower(),
+            decode_attn=(_env_str("DECODE_ATTN", "auto") or "auto").lower(),
+            kv_page_size=_env_int("KV_PAGE_SIZE", 16),
             ragged_attention=(_env_str("RAGGED_ATTENTION", "auto")
                               or "auto").lower(),
             kv_pool=_env_bool("KV_POOL", True),

@@ -1,18 +1,45 @@
-"""Continuous-batching engine over the block-paged KV pool, in PyTorch.
+"""Continuous-batching engine, in PyTorch.
 
-The counterpart of the JAX package's ``engine/batcher.py`` in the regime
-its defaults select (``KV_POOL=true``, ``RADIX_CACHE=true``,
-``RAGGED_ATTENTION=auto``, ``DECODE_BATCH_SIZE`` > 1):
+The counterpart of the JAX package's ``engine/batcher.py`` at
+``DECODE_BATCH_SIZE`` > 1, in its three attention regimes (resolved at
+startup; ``kv_pool_health()["attention_regime"]`` reports which):
+
+- ``ragged`` (``KV_POOL=true``, ``RAGGED_ATTENTION=auto|on``, the
+  defaults): every forward over the pool — preload, admission, decode —
+  reads through the ragged kernel (``ops/ragged_attention.py``), and
+  admissions ride the next chunk's ragged prologue (below).
+- ``paged`` or ``gather`` (``KV_POOL=true``, ``RAGGED_ATTENTION=off``):
+  the legacy ladder. An admission prefills its unmatched suffix eagerly
+  through ``(bucket, kv_limit)`` gather programs (flash where it tiles
+  the shape), samples its first token and arms its slot; decode reads
+  the pool through the paged decode kernel (``DECODE_ATTN`` resolved to
+  ``paged``: one KV bucket) or the gather path (``dense``: a KV-bucket
+  ladder per dispatch).
+- ``paged`` or ``dense`` (``KV_POOL=false``, the dense KV ladder): one
+  dense per-slot cache [L, N, S_alloc + 1, KV, hd]. An admission
+  prefills into a scratch cache (the system-prompt prefix splice, one
+  bucket, or chunked — ``TorchEngine._prefill_prompt``), samples its
+  first token and splices the scratch rows into its slot; decode runs
+  the paged decode kernel over the whole cache or the dense reference
+  over a KV-bucket ladder. No pool, no radix tree.
+
+``DECODE_ATTN=auto`` picks ``paged`` for a GQA model (several query
+heads over each of several KV heads) on the card, raising the page to
+64, and ``dense`` otherwise (``resolve_decode_attn``). Eager admissions
+deliver their first token through a ``("first", ...)`` entry of the
+in-flight list. In every regime:
 
 - **One shared KV pool** ([L, n_blocks + 1, page, KV, hd], zeroed at
-  start) and per-slot block tables. The host is truth for ownership —
-  ``BlockPool`` refcounts, the radix tree and the numpy table rows; the
-  device only ever sees table snapshots at dispatch.
+  start) and per-slot block tables, unless ``KV_POOL=false``. The host
+  is truth for ownership — ``BlockPool`` refcounts, the radix tree and
+  the numpy table rows; the device only ever sees table snapshots at
+  dispatch.
 - **Radix prefix sharing**: the system prompt is prefilled once at start
   and left cached; an admission maps its longest cached prefix (full
   pages shared, a partial tail copied on write) and prefills only the
   rest.
-- **Ragged staged admission**: the unmatched prompt suffix does not run a
+- **Ragged staged admission** (the ragged regime): the unmatched prompt
+  suffix does not run a
   prefill of its own. It rides the NEXT decode chunk as a long-q_len row
   of one ragged window (the prologue), while every other live slot takes
   its normal decode step at q_len=1 in the same forward. Only the head of
@@ -23,19 +50,19 @@ its defaults select (``KV_POOL=true``, ``RADIX_CACHE=true``,
   non-finite logits freeze a slot inside the chunk. The host fetches ONE
   packed int32 buffer per chunk (``protocol.pack_chunk``, v3) and nothing
   else — no ``.item()`` or boolean index runs inside the step loop.
-- Attention on every path (preload, admission, decode) is the ragged
-  kernel (``ops/ragged_attention.py``): the Hopper kernel for CUDA
-  tensors, its plain version for CPU tensors.
+- Each attention kernel is the Hopper kernel for CUDA tensors and its
+  plain version for CPU tensors.
 
 The scheduler runs on one worker thread; request coroutines talk to it
 through a bounded admission queue and per-request asyncio queues.
 
 Not in this slice (each raises or is simply absent; ROADMAP lists them):
-speculative decoding, grammar-constrained decoding, QoS lanes and
-preemption, containment replay (a slot whose health word trips finishes
-with ``RequestQuarantined``), the host KV tier, the step-time, ledger and
-SLO hooks, and a chunk pipeline deeper than one (the host fetches each
-chunk before it dispatches the next).
+speculative decoding, grammar-constrained decoding, group admission
+(``ADMIT_KPADS``) on the dense ladder, QoS lanes and preemption,
+containment replay (a slot whose health word trips finishes with
+``RequestQuarantined``), the host KV tier, the step-time, ledger and SLO
+hooks, and a chunk pipeline deeper than one (the host fetches each chunk
+before it dispatches the next).
 """
 
 from __future__ import annotations
@@ -54,6 +81,7 @@ import torch
 
 from ..models.config import get_config
 from ..models.transformer import KVCache, forward
+from ..ops.paged_attention import paged_supported
 from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
 from .protocol import (HEALTH_NONFINITE, HEALTH_TOKEN_RANGE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
@@ -63,9 +91,38 @@ from .protocol import (HEALTH_NONFINITE, HEALTH_TOKEN_RANGE,
 from .radix_cache import RadixCache
 from .sampling import eos_mask, greedy_tokens, sample_rows
 from .tokenizer import StreamDecoder
-from .torch_engine import TorchEngine, engine_kwargs
+from .torch_engine import TorchEngine, engine_kwargs, kv_bucket_ladder
 
 logger = logging.getLogger(__name__)
+
+#: smallest KV page ``DECODE_ATTN=auto`` serves paged decode at (the JAX
+#: package's floor; 64 divides the 128-token kv-limit tile).
+_AUTO_PAGED_MIN_PAGE = 64
+
+
+def resolve_decode_attn(decode_attn: str, cfg, *, kv_quant: str = "",
+                        page_size: int, device: torch.device,
+                        dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """Resolve ``DECODE_ATTN`` to a concrete impl and page size (the JAX
+    ``resolve_decode_attn``, whose accelerator test becomes "the engine
+    serves on cuda").
+
+    ``auto`` is ``paged`` for a GQA model — several query heads sharing
+    each of several KV heads — with no KV quantization and a geometry
+    ``paged_supported`` takes (page, head_dim and ``dtype``), with the
+    page raised to ``_AUTO_PAGED_MIN_PAGE``; ``dense`` for MQA, MHA and
+    always on the CPU (where the kernel's plain version would stand in for
+    it).
+    Explicit ``dense``/``paged`` pass through. Returns ``(impl,
+    page_size)``."""
+    if decode_attn != "auto":
+        return decode_attn, page_size
+    page = max(page_size, _AUTO_PAGED_MIN_PAGE)
+    if (device.type == "cuda"
+            and cfg.q_per_kv > 1 and cfg.n_kv_heads > 1 and not kv_quant
+            and paged_supported(page, cfg.head_dim, 1, dtype)):
+        return "paged", page
+    return "dense", page_size
 
 
 def termination_fold(nxt, step_logits, prev_tok, live, ngen, budget,
@@ -142,6 +199,8 @@ class BatchedTorchEngine(TorchEngine):
 
     def __init__(self, *args, batch_size: int = 8, chunk_len: int = 16,
                  ragged_attention: str = "auto",
+                 decode_attn: str = "auto",
+                 kv_page_size: int = 16,
                  kv_pool: bool = True,
                  kv_pool_page: int = 16,
                  kv_pool_blocks: int = 0,
@@ -155,17 +214,21 @@ class BatchedTorchEngine(TorchEngine):
             raise ValueError("batch_size must be >= 1")
         if chunk_len < 1:
             raise ValueError("chunk_len must be >= 1")
-        if ragged_attention not in ("auto", "on"):
-            raise NotImplementedError(
-                f"RAGGED_ATTENTION={ragged_attention!r}: the legacy "
-                f"prefill ladder and paged decode wait for a later slice "
-                f"of the port (auto and on serve the ragged kernel)")
-        if not kv_pool:
-            raise NotImplementedError(
-                "KV_POOL=false (the dense KV ladder) waits for a later "
-                "slice of the port")
+        if ragged_attention not in ("auto", "on", "off"):
+            raise ValueError(f"RAGGED_ATTENTION must be auto|on|off, got "
+                             f"{ragged_attention!r}")
+        if decode_attn not in ("auto", "dense", "paged"):
+            raise ValueError(f"DECODE_ATTN must be auto|dense|paged, got "
+                             f"{decode_attn!r}")
         self.batch_size = batch_size
         self.chunk_len = chunk_len
+        self.ragged_attention = ragged_attention
+        self.decode_attn = decode_attn
+        self.kv_page_size = max(1, kv_page_size)
+        self.kv_pool = bool(kv_pool)
+        if ragged_attention == "on" and not self.kv_pool:
+            raise ValueError("RAGGED_ATTENTION=on needs the KV pool "
+                             "(KV_POOL=true)")
         self.kv_pool_page = max(1, kv_pool_page)
         if 128 % self.kv_pool_page:
             raise ValueError(
@@ -187,9 +250,15 @@ class BatchedTorchEngine(TorchEngine):
         self._admitting = 0
         self._last_admit_t = 0.0
         self._ramp_hold_t0 = None
-        #: forward passes run (prefill chunks, prologues, decode steps):
-        #: each launches the attention kernel once per layer.
+        #: forward passes run through ``_forward`` (pool prefill chunks,
+        #: prologues, decode steps): each launches its attention kernel
+        #: once per layer.
         self.forward_steps = 0
+        #: decode steps (one query per slot) run by the decode chunks.
+        self.decode_steps = 0
+        # Resolved at startup (_resolve_regime).
+        self._decode_impl = ""
+        self._attention_regime = ""
 
     @classmethod
     def from_config(cls, cfg) -> "BatchedTorchEngine":
@@ -198,6 +267,8 @@ class BatchedTorchEngine(TorchEngine):
             batch_size=cfg.decode_batch_size,
             chunk_len=cfg.chunk_len,
             ragged_attention=cfg.ragged_attention,
+            decode_attn=cfg.decode_attn,
+            kv_page_size=cfg.kv_page_size,
             kv_pool=cfg.kv_pool,
             kv_pool_page=cfg.kv_pool_page,
             kv_pool_blocks=cfg.kv_pool_blocks,
@@ -214,18 +285,9 @@ class BatchedTorchEngine(TorchEngine):
         t0 = time.monotonic()
         self._load()
         cfg = self.model_cfg
-        page = self.kv_pool_page
-        # Pool geometry: every per-slot table covers max_seq_len in whole
-        # pages; 0 blocks = auto, the dense envelope (every slot at full
-        # length), which prefix sharing then oversubscribes.
-        self._S_alloc = -(-self.max_seq_len // page) * page
-        self._pool_max_pages = self._S_alloc // page
-        self._pool_n_blocks = (self.kv_pool_blocks
-                               or self.batch_size * self._pool_max_pages)
-        if self._pool_n_blocks < self._pool_max_pages:
-            raise ValueError(
-                f"KV_POOL_BLOCKS={self._pool_n_blocks} cannot hold even "
-                f"one full-length sequence ({self._pool_max_pages} pages)")
+        self._resolve_regime()
+        if not self.kv_pool:
+            self._init_prefix_cache()
         self._eos_d = torch.tensor(sorted(set(cfg.eos_ids)),
                                    dtype=torch.int32, device=self.device)
         self._init_decode_state()
@@ -235,31 +297,100 @@ class BatchedTorchEngine(TorchEngine):
                                         name="torch-batcher", daemon=True)
         self._worker.start()
         logger.info("BatchedTorchEngine ready on %s in %.1fs: %d slots, "
-                    "pool %d blocks x %d tokens, chunk %d", self.device,
+                    "%s regime (decode %s), %s, chunk %d", self.device,
                     time.monotonic() - t0, self.batch_size,
-                    self._pool_n_blocks, page, self.chunk_len)
+                    self._attention_regime, self._decode_impl,
+                    (f"pool {self._pool_n_blocks} blocks x "
+                     f"{self.kv_pool_page} tokens" if self.kv_pool
+                     else f"dense cache of {self._S_alloc} positions"),
+                    self.chunk_len)
+
+    def _resolve_regime(self) -> None:
+        """The JAX engine's startup resolution (without its mesh and
+        speculative branches): the decode attention (``_decode_impl``:
+        ragged, paged or dense), the regime ``kv_pool_health`` reports,
+        the page, the KV span ``_S_alloc`` and the decode KV buckets."""
+        cfg = self.model_cfg
+        on_card = self.device.type == "cuda"
+        impl, page = resolve_decode_attn(
+            self.decode_attn, cfg,
+            page_size=(self.kv_pool_page if self.kv_pool
+                       else self.kv_page_size),
+            device=self.device, dtype=self.dtype)
+        if (impl == "paged" and on_card
+                and not paged_supported(page, cfg.head_dim, 1, self.dtype)):
+            raise ValueError(
+                f"DECODE_ATTN=paged: the paged kernel cannot serve page "
+                f"{page}, head_dim {cfg.head_dim}, dtype {self.dtype}")
+        if self.kv_pool:
+            if page != self.kv_pool_page:
+                logger.info("DECODE_ATTN=auto raises KV_POOL_PAGE %d -> %d",
+                            self.kv_pool_page, page)
+                self.kv_pool_page = page
+            if self.ragged_attention != "off":
+                impl = "ragged"
+            self._attention_regime = {"ragged": "ragged",
+                                      "paged": "paged"}.get(impl, "gather")
+            # Every per-slot table covers max_seq_len in whole pages; 0
+            # blocks = auto, the dense envelope (every slot at full
+            # length), which prefix sharing then oversubscribes.
+            S_alloc = -(-self.max_seq_len // page) * page
+            self._pool_max_pages = S_alloc // page
+            self._pool_n_blocks = (self.kv_pool_blocks
+                                   or self.batch_size * self._pool_max_pages)
+            if self._pool_n_blocks < self._pool_max_pages:
+                raise ValueError(
+                    f"KV_POOL_BLOCKS={self._pool_n_blocks} cannot hold even "
+                    f"one full-length sequence ({self._pool_max_pages} "
+                    f"pages)")
+            # The pool prefill of the legacy ladder gathers a kv_limit of
+            # its own ladder, so a short prompt never attends the span.
+            self._pool_prefill_kv_buckets = kv_bucket_ladder(S_alloc)
+        else:
+            if page != self.kv_page_size:
+                logger.info("DECODE_ATTN=auto: GQA model (%d q heads per KV "
+                            "head) serves paged decode; KV_PAGE_SIZE %d -> "
+                            "%d", cfg.q_per_kv, self.kv_page_size, page)
+                self.kv_page_size = page
+            self._attention_regime = impl
+            # One chunk of slack past max_seq: a near-capacity slot's last
+            # chunk runs at full length without writing past the cache.
+            S_alloc = self.max_seq_len + self.chunk_len
+            if impl == "paged":
+                S_alloc = -(-S_alloc // page) * page
+        self._decode_impl = impl
+        self._S_alloc = S_alloc
+        # Paged and ragged decode cost tracks each slot's live pages in one
+        # call; the dense read attends over the smallest bucket covering
+        # every live position.
+        self._kv_buckets = ((S_alloc,) if impl in ("paged", "ragged")
+                            else kv_bucket_ladder(S_alloc))
 
     def _init_decode_state(self) -> None:
         """(Re-)initialize the device-resident scheduler state: the zeroed
-        KV pool, the host allocator, radix tree and tables, and the
-        per-slot carry vectors. Called at start and after a scheduler
-        failure (which condemns every cached block)."""
+        KV pool, the host allocator, radix tree and tables (or the zeroed
+        dense cache), and the per-slot carry vectors. Called at start and
+        after a scheduler failure (which condemns every cached block)."""
         N = self.batch_size
         dev = self.device
-        self._cache = KVCache.pool(self.model_cfg, self._pool_n_blocks,
-                                   self.kv_pool_page, dtype=self.dtype,
-                                   device=dev)
-        prev_pool, prev_radix = self._pool, self._radix
-        self._pool = BlockPool(self._pool_n_blocks, self.kv_pool_page)
-        self._radix = (RadixCache(self._pool,
-                                  max_blocks=self.radix_lru_blocks)
-                       if self.radix_cache else None)
-        if prev_pool is not None:
-            self._pool.carry_counters(prev_pool)
-        if prev_radix is not None and self._radix is not None:
-            self._radix.carry_counters(prev_radix)
-        self._tables = np.full((N, self._pool_max_pages),
-                               self._pool_n_blocks, np.int32)
+        if self.kv_pool:
+            self._cache = KVCache.pool(self.model_cfg, self._pool_n_blocks,
+                                       self.kv_pool_page, dtype=self.dtype,
+                                       device=dev)
+            prev_pool, prev_radix = self._pool, self._radix
+            self._pool = BlockPool(self._pool_n_blocks, self.kv_pool_page)
+            self._radix = (RadixCache(self._pool,
+                                      max_blocks=self.radix_lru_blocks)
+                           if self.radix_cache else None)
+            if prev_pool is not None:
+                self._pool.carry_counters(prev_pool)
+            if prev_radix is not None and self._radix is not None:
+                self._radix.carry_counters(prev_radix)
+            self._tables = np.full((N, self._pool_max_pages),
+                                   self._pool_n_blocks, np.int32)
+        else:
+            self._cache = KVCache.zeros(self.model_cfg, N, self._S_alloc,
+                                        dtype=self.dtype, device=dev)
         self._tok_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._pos_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._active_d = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -276,20 +407,25 @@ class BatchedTorchEngine(TorchEngine):
         """Device copy of a block-table snapshot."""
         return torch.from_numpy(np.ascontiguousarray(tables)).to(self.device)
 
-    def _forward(self, tokens, positions, tables, *, q_lens=None,
-                 write_mask=None, logits_at=None):
+    def _forward(self, tokens, positions, tables, *, attn_impl: str,
+                 kv_limit=None, q_lens=None, write_mask=None,
+                 logits_at=None):
+        """One forward over the serving cache (``tables`` None for the
+        dense cache)."""
         self.forward_steps += 1
         logits, self._cache = forward(
             self.params, self.model_cfg, tokens, positions, self._cache,
-            attn_impl="ragged", logits_at=logits_at, write_mask=write_mask,
-            block_tables=tables, q_lens=q_lens)
+            kv_limit=kv_limit, attn_impl=attn_impl,
+            page_size=self.kv_page_size, logits_at=logits_at,
+            write_mask=write_mask, block_tables=tables, q_lens=q_lens)
         return logits
 
-    def _run_arm(self, slot_idx: int, n_prompt: int, first_tok: int,
+    def _run_arm(self, slot_idx: int, n_prompt: int, first_tok,
                  temperature: float, max_toks: int, ngen0: int) -> None:
         """Write one slot's carry and config into the device vectors (the
-        JAX arm program): carry token, position, live flag, generated
-        count and token budget."""
+        JAX arm program): carry token (an int, or a 0-d device tensor that
+        never visits the host), position, live flag, generated count and
+        token budget."""
         self._tok_d[slot_idx, 0] = first_tok
         self._pos_d[slot_idx, 0] = n_prompt
         self._active_d[slot_idx] = max_toks > ngen0
@@ -312,25 +448,57 @@ class BatchedTorchEngine(TorchEngine):
         blocks (``kv_pool.map_prefix``). Returns (blocks, m)."""
         return map_prefix(self._pool, self._radix, ids, cow=self._run_cow)
 
+    def _pool_kv_limit(self, needed: int) -> int:
+        """Smallest prefill KV bucket covering ``needed`` positions (every
+        bucket is a whole page count: a 128-tiled ladder, and the page
+        divides 128)."""
+        needed = min(needed, self._S_alloc)
+        return next(b for b in self._pool_prefill_kv_buckets
+                    if b >= needed)
+
+    def _pool_prefill_shape(self, n: int) -> tuple:
+        """The gather path's one prefill shape for a prompt of ``n``
+        tokens: ``kv_limit`` the KV rung covering the prompt, and every
+        window padded to the largest prefill bucket within it. The shape
+        depends on the prompt alone, never on where the radix match split
+        it, so a token's K/V row and the last logits come out of the same
+        GEMM shapes whichever admission computes them (on the card the
+        GEMM library picks its kernel, and so its rounding, by shape).
+        Returns ``(bucket, kv_limit)``."""
+        kv_limit = self._pool_kv_limit(n)
+        bucket = max((b for b in self.prefill_buckets if b <= kv_limit),
+                     default=self.prefill_buckets[0])
+        return bucket, kv_limit
+
     def _pool_prefill_span(self, table_row: np.ndarray, ids: List[int],
                            start: int) -> torch.Tensor:
         """Prefill ``ids[start:]`` at absolute offsets through one table
-        row, in chunks of the largest prefill bucket, through the ragged
-        kernel (q_len = the chunk's valid length). Returns the last valid
-        position's logits [1, vocab]."""
+        row: in the ragged regime through the ragged kernel (q_len = the
+        window's valid length) in windows of the largest prefill bucket,
+        else through the gather program at the prompt's one
+        ``_pool_prefill_shape``, flash where it tiles the shape. Returns
+        the last valid position's logits [1, vocab]."""
         n = len(ids)
-        big = self.prefill_buckets[-1]
         tables_d = self._tables_d(table_row[None])
+        ragged = self._decode_impl == "ragged"
+        if ragged:
+            width, kv_limit = self.prefill_buckets[-1], None
+        else:
+            width, kv_limit = self._pool_prefill_shape(n)
         offset, logits = start, None
         while offset < n:
-            L = min(big, n - offset)
-            bucket = next(b for b in self.prefill_buckets if b >= L)
+            L = min(width, n - offset)
+            bucket = (next(b for b in self.prefill_buckets if b >= L)
+                      if ragged else width)
             tokens = np.zeros((1, bucket), np.int64)
             tokens[0, :L] = ids[offset:offset + L]
             cols = torch.arange(bucket, device=self.device)
             logits = self._forward(
                 torch.from_numpy(tokens).to(self.device),
                 (offset + cols)[None].to(torch.int32), tables_d,
+                attn_impl=("ragged" if ragged
+                           else self._prefill_impl_for(bucket, kv_limit)),
+                kv_limit=kv_limit,
                 q_lens=torch.full((1,), L, dtype=torch.int32,
                                   device=self.device),
                 write_mask=(cols < L)[None],
@@ -378,11 +546,13 @@ class BatchedTorchEngine(TorchEngine):
         slot.blocks = []
 
     def _admit_one_pool(self, req: _Request) -> None:
-        """Radix-match the prompt, map shared blocks copy-on-write, and
-        STAGE the unmatched suffix for the next chunk's ragged prologue
-        (which prefills it, samples the first token and arms the slot in
-        the same forward as everyone else's decode step). Only a head
-        beyond the widest admission window prefills here."""
+        """Radix-match the prompt and map shared blocks copy-on-write.
+        The ragged regime STAGES the unmatched suffix for the next
+        chunk's ragged prologue (which prefills it, samples the first
+        token and arms the slot in the same forward as everyone else's
+        decode step); only a head beyond the widest admission window
+        prefills here. The legacy ladder prefills the whole suffix here,
+        samples the first token and arms the slot (``_admit_eager``)."""
         slot_idx = self._slots.index(None)
         t_adm = time.monotonic()
         wait_ms = (t_adm - req.t_submit) * 1000.0
@@ -392,32 +562,85 @@ class BatchedTorchEngine(TorchEngine):
             ids = ids[-max_prompt:]
         n_prompt = len(ids)
         blocks, m = self._pool_map_prefix(ids)
+        gen = self._slot_generator(req)
+        first_d = staged = None
         try:
             self._tables[slot_idx, :] = self._pool_n_blocks
             self._tables[slot_idx, :len(blocks)] = blocks
-            stage_start = max(m, n_prompt - self.prefill_buckets[-1])
-            if stage_start > m:
-                self._pool_prefill_span(self._tables[slot_idx],
-                                        ids[:stage_start], m)
-            staged = dict(ids=ids[stage_start:], start=stage_start)
-            # The slot's budget, count and live flag go to the device now;
-            # its token, position and first sample come from the prologue.
-            self._run_arm(slot_idx, stage_start, 0, req.temperature,
-                          req.max_tokens, 0)
+            if self._decode_impl == "ragged":
+                stage_start = max(m, n_prompt - self.prefill_buckets[-1])
+                if stage_start > m:
+                    self._pool_prefill_span(self._tables[slot_idx],
+                                            ids[:stage_start], m)
+                staged = dict(ids=ids[stage_start:], start=stage_start)
+                # The slot's budget, count and live flag go to the device
+                # now; its token, position and first sample come from the
+                # prologue.
+                self._run_arm(slot_idx, stage_start, 0, req.temperature,
+                              req.max_tokens, 0)
+            else:
+                last_logits = self._pool_prefill_span(
+                    self._tables[slot_idx], ids, m)
+                first_d = self._arm_first(slot_idx, last_logits, req, gen,
+                                          n_prompt)
         except Exception:
             self._tables[slot_idx, :] = self._pool_n_blocks
             self._pool.decref(blocks)
             raise
-        gen = None
-        if req.temperature > 0.0:
-            gen = torch.Generator(device=self.device).manual_seed(req.seed)
         self._gens[slot_idx] = gen
         self._slots[slot_idx] = _Slot(
             req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
             pos=n_prompt, queue_ms=wait_ms, t_admit=t_adm,
+            chunks_inflight=0 if staged is not None else 1,
             prefix_hit=m > 0, blocks=blocks, pool_ids=ids)
-        self._pending_adm[slot_idx] = staged
+        if staged is not None:
+            self._pending_adm[slot_idx] = staged
+        else:
+            self._inflight.append(("first", first_d, req, slot_idx))
         self._last_admit_t = time.monotonic()
+
+    def _admit_one_dense(self, req: _Request) -> None:
+        """The dense KV ladder's admission (the JAX ``_admit_one``):
+        prefill into a scratch cache (the system-prompt prefix splice, one
+        bucket, or chunked), sample the first token, splice the scratch
+        rows into the slot and arm it. The first token reaches the client
+        through a ``("first", ...)`` entry of the in-flight list."""
+        slot_idx = self._slots.index(None)
+        t_adm = time.monotonic()
+        last_logits, scratch, n_prompt, prefix_hit = self._prefill_prompt(
+            req.prompt_ids, req.max_tokens)
+        # The splice copies the prompt's rows; the slot's rows past them
+        # are rewritten by decode before any query can read them.
+        for dst, src in ((self._cache.k, scratch.k),
+                         (self._cache.v, scratch.v)):
+            dst[:, slot_idx, :n_prompt] = src[:, 0, :n_prompt]
+        gen = self._slot_generator(req)
+        first_d = self._arm_first(slot_idx, last_logits, req, gen, n_prompt)
+        self._gens[slot_idx] = gen
+        self._slots[slot_idx] = _Slot(
+            req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
+            pos=n_prompt, queue_ms=(t_adm - req.t_submit) * 1000.0,
+            t_admit=t_adm, chunks_inflight=1, prefix_hit=prefix_hit)
+        self._inflight.append(("first", first_d, req, slot_idx))
+        self._last_admit_t = time.monotonic()
+
+    def _slot_generator(self, req: _Request) -> Optional[torch.Generator]:
+        """A sampled request's own generator, seeded with its seed."""
+        if req.temperature <= 0.0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(req.seed)
+
+    def _arm_first(self, slot_idx: int, last_logits: torch.Tensor,
+                   req: _Request, gen, n_prompt: int) -> torch.Tensor:
+        """An eager admission's first token, sampled on the device from
+        the prompt's last logits (argmax when greedy, else a draw from the
+        slot's generator), and the slot armed behind it with one token
+        generated. Returns the [1] device tensor; nothing is read back."""
+        first_d = sample_rows(last_logits, [req.temperature], [gen],
+                              top_k=self.top_k, top_p=self.top_p)
+        self._run_arm(slot_idx, n_prompt, first_d[0], req.temperature,
+                      req.max_tokens, 1)
+        return first_d
 
     def _pool_preload_system_prompt(self) -> None:
         """Prefill the shared system prompt once and leave its chain
@@ -456,13 +679,13 @@ class BatchedTorchEngine(TorchEngine):
                     "resident in %d pool blocks", P, need)
 
     def kv_pool_health(self) -> Optional[dict]:
-        """Block-state counts and radix hit counters for /health (host
-        counters only)."""
+        """Block-state counts, the attention regime and radix hit counters
+        for /health (host counters only); None without a pool."""
         if self._pool is None:
             return None
         body = self._pool.stats(
             self._radix.cached_blocks() if self._radix else ()).as_dict()
-        body["attention_regime"] = "ragged"
+        body["attention_regime"] = self._attention_regime
         if self._radix is not None:
             body["radix"] = self._radix.stats()
         return body
@@ -475,14 +698,18 @@ class BatchedTorchEngine(TorchEngine):
         return sample_rows(step_logits, self._temps, self._gens,
                            top_k=self.top_k, top_p=self.top_p)
 
-    def _run_chunk(self, force: torch.Tensor, tables: torch.Tensor,
-                   adm: Optional[tuple] = None) -> torch.Tensor:
+    def _run_chunk(self, force: torch.Tensor,
+                   tables: Optional[torch.Tensor],
+                   adm: Optional[tuple] = None,
+                   kv_limit: Optional[int] = None) -> torch.Tensor:
         """One decode chunk: ``chunk_len`` forward steps over every slot
-        with the termination fold in the carry, the first step replaced
-        by the ragged prologue when admissions are staged (``adm`` =
-        (tok [N, W], len, start) device tensors; ``_run_arm`` already
-        armed the staged slots' budget, count and live flag). Updates the
-        device carry and returns the packed buffer."""
+        with the termination fold in the carry, attending through the
+        resolved decode impl (over ``kv_limit`` positions where it reads
+        a bucket), the first step replaced by the ragged prologue when
+        admissions are staged (``adm`` = (tok [N, W], len, start) device
+        tensors; ``_run_arm`` already armed the staged slots' budget,
+        count and live flag). ``tables`` is None on the dense cache.
+        Updates the device carry and returns the packed buffer."""
         cfg = self.model_cfg
         tok, pos, ngen, budget = (self._tok_d, self._pos_d, self._ngen_d,
                                   self._budget_d)
@@ -506,7 +733,7 @@ class BatchedTorchEngine(TorchEngine):
             q_lens = torch.where(live, q_len, 0)
             logits = self._forward(
                 win_tok, start[:, None] + cols[None, :], tables,
-                q_lens=q_lens,
+                attn_impl="ragged", q_lens=q_lens,
                 write_mask=(cols[None, :] < q_len[:, None]) & live[:, None],
                 logits_at=(q_lens.clamp(min=1) - 1).long())
             step_logits = logits[:, 0]
@@ -519,7 +746,10 @@ class BatchedTorchEngine(TorchEngine):
             toks.append(nxt)
             steps -= 1
         for _ in range(steps):
-            logits = self._forward(tok, pos, tables, write_mask=live)
+            logits = self._forward(tok, pos, tables,
+                                   attn_impl=self._decode_impl,
+                                   kv_limit=kv_limit, write_mask=live)
+            self.decode_steps += 1
             step_logits = logits[:, 0]
             nxt, live, ngen, health, counted = termination_fold(
                 self._sample(step_logits), step_logits, tok[:, 0], live,
@@ -547,15 +777,16 @@ class BatchedTorchEngine(TorchEngine):
                         if s is not None and not s.exhausted]
         if not active_slots:
             return
-        # Grow block tables to cover this chunk's writes BEFORE the
-        # dispatch snapshot; a slot the pool cannot serve is excluded.
-        for i, s in enumerate(self._slots):
-            if s is not None and not s.exhausted:
-                self._pool_ensure_coverage(i, s)
-        active_slots = [s for s in self._slots
-                        if s is not None and not s.exhausted]
-        if not active_slots:
-            return
+        if self.kv_pool:
+            # Grow block tables to cover this chunk's writes BEFORE the
+            # dispatch snapshot; a slot the pool cannot serve is excluded.
+            for i, s in enumerate(self._slots):
+                if s is not None and not s.exhausted:
+                    self._pool_ensure_coverage(i, s)
+            active_slots = [s for s in self._slots
+                            if s is not None and not s.exhausted]
+            if not active_slots:
+                return
         adm = None
         if staged:
             N = self.batch_size
@@ -568,10 +799,16 @@ class BatchedTorchEngine(TorchEngine):
                 a_vec[:, i] = (len(e["ids"]), e["start"])
             vec = torch.from_numpy(a_vec).to(self.device)
             adm = (torch.from_numpy(a_tok).to(self.device), vec[0], vec[1])
+        # The smallest KV bucket covering every position this chunk can
+        # reach (``pos`` counts scheduled chunks: an upper bound).
+        needed = max(s.pos for s in active_slots) + self.chunk_len
+        kv_limit = next((b for b in self._kv_buckets if b >= needed),
+                        self._kv_buckets[-1])
         force = torch.tensor(
             [s is not None and not s.exhausted for s in self._slots],
             dtype=torch.bool, device=self.device)
-        packed = self._run_chunk(force, self._tables_d(self._tables), adm)
+        tables = self._tables_d(self._tables) if self.kv_pool else None
+        packed = self._run_chunk(force, tables, adm, kv_limit=kv_limit)
         snapshot = [s.req if s is not None and not s.exhausted else None
                     for s in self._slots]
         for s in active_slots:
@@ -580,9 +817,15 @@ class BatchedTorchEngine(TorchEngine):
         self._inflight.append(("chunk", packed, snapshot, self.chunk_len))
 
     def _consume_oldest(self) -> None:
-        """Fetch the oldest chunk's packed buffer (THE one device->host
-        read per chunk) and deliver each slot's tokens and finish."""
-        _, packed, snapshot, ct = self._inflight.pop(0)
+        """Fetch the oldest in-flight entry: an eager admission's first
+        token, or a chunk's packed buffer (THE one device->host read per
+        chunk), and deliver each slot's tokens and finish."""
+        entry = self._inflight.pop(0)
+        if entry[0] == "first":
+            _, first_d, req, slot_idx = entry
+            self._consume_first(int(first_d.cpu()[0]), req, slot_idx)
+            return
+        _, packed, snapshot, ct = entry
         res = unpack_chunk(packed.cpu().numpy(), self.batch_size, ct)
         eos_ids = self.model_cfg.eos_ids
         for i, slot in enumerate(self._slots):
@@ -611,6 +854,27 @@ class BatchedTorchEngine(TorchEngine):
             if finish is not None:
                 self._finish(i, finish)
 
+    def _consume_first(self, first_tok: int, req: _Request,
+                       slot_idx: int) -> None:
+        """Deliver an eager admission's first token (the JAX
+        ``_consume_first``). A first-token EOS or a one-token budget
+        finishes the slot here; a chunk already dispatched for it is then
+        discarded by its snapshot check."""
+        slot = self._slots[slot_idx]
+        if slot is None or slot.req is not req:
+            return      # finished or reassigned before its first token
+        slot.chunks_inflight -= 1
+        slot.t_first = time.monotonic()
+        slot.prefill_ms = (slot.t_first - slot.t_admit) * 1000.0
+        if first_tok in self.model_cfg.eos_ids:
+            self._finish(slot_idx, "stop")
+            return
+        piece = slot.detok.push(first_tok)
+        if piece is not None:
+            self._emit(req, "token", piece)
+        if req.max_tokens <= 1:
+            self._finish(slot_idx, "length")
+
     def _finish(self, slot_idx: int, finish: str,
                 error: Optional[BaseException] = None) -> None:
         slot = self._slots[slot_idx]
@@ -620,10 +884,11 @@ class BatchedTorchEngine(TorchEngine):
         self._gens[slot_idx] = None
         if slot is None:  # pragma: no cover - defensive
             return
-        # Clean finishes cache their verified chain for the next turn.
-        self._pool_release_slot(
-            slot_idx, slot,
-            cache_chain=error is None and finish in ("stop", "length"))
+        if self.kv_pool:
+            # Clean finishes cache their verified chain for the next turn.
+            self._pool_release_slot(
+                slot_idx, slot,
+                cache_chain=error is None and finish in ("stop", "length"))
         if error is not None:
             self._emit(slot.req, "error", error)
             return
@@ -672,7 +937,10 @@ class BatchedTorchEngine(TorchEngine):
         try:
             if req.cancel.is_set():
                 return
-            self._admit_one_pool(req)
+            if self.kv_pool:
+                self._admit_one_pool(req)
+            else:
+                self._admit_one_dense(req)
         except Exception:
             logger.exception("admission failed")
             self._emit(req, "error", EngineUnavailable("admission failed"))

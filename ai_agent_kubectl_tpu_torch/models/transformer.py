@@ -5,13 +5,21 @@ single-device KV layouts:
 
 - **The block-paged pool** (``block_tables`` given): one shared pool
   [L, n_blocks + 1, page, KV, hd] read and written through per-slot block
-  tables; attention is ``ops/ragged_attention.py::ragged_attention_pool``
-  (the continuous-batching engine).
+  tables (the continuous-batching engine). Attention by ``attn_impl``:
+  "ragged" (the default) is ``ops/ragged_attention.py::
+  ragged_attention_pool`` for every window shape; "paged" with one query
+  column is ``ops/paged_attention.py::paged_decode_attention_pool``;
+  otherwise (the gather path) each slot's first ``kv_limit // page``
+  pages are gathered into a contiguous view and read by flash (a
+  prefill window under "flash") or the dense reference.
 - **The dense per-slot cache** (``KVCache.zeros``): [L, B, max_seq + 1,
-  KV, hd]; K/V are written at their absolute positions and attention
-  reads ``cache[:, :kv_limit]`` — ``ops/flash_attention.py::
+  KV, hd]; K/V are written at their absolute positions. "paged" with one
+  query column is ``ops/paged_attention.py::paged_decode_attention``
+  over ``cache[:, :max_seq]``; otherwise attention reads
+  ``cache[:, :kv_limit]`` — ``ops/flash_attention.py::
   flash_attention_cached`` for a prefill window (``attn_impl="flash"``,
-  S > 1), the dense reference otherwise (the single-sequence engine).
+  S > 1), the dense reference otherwise (the single-sequence engine and
+  the batched engine's dense KV ladder).
 
 Shared by both:
 
@@ -29,7 +37,7 @@ Shared by both:
   masked row, an unmapped page, a position past the cache) land there,
   so the scatter never needs a host-side filter.
 
-The MoE MLP, int8 KV, and the ring, paged and mesh paths belong to later
+The MoE MLP, int8 KV, and the ring and mesh paths belong to later
 slices: asking for them raises ``NotImplementedError``.
 """
 
@@ -44,6 +52,8 @@ import torch.nn.functional as F
 from ..ops.attention import dense_attention
 from ..ops.flash_attention import flash_attention_cached
 from ..ops.norms import rms_norm
+from ..ops.paged_attention import (_pool_gather, paged_decode_attention,
+                                   paged_decode_attention_pool)
 from ..ops.quant import embed_lookup, qmatmul, tied_head
 from ..ops.ragged_attention import ragged_attention_pool
 from ..ops.rope import rope_tables, rotate
@@ -235,48 +245,84 @@ def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, object],
 
 
 def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
-                 cache: KVCache, write_mask, block_tables, q_lens) -> Attend:
+                 cache: KVCache, write_mask, block_tables, q_lens,
+                 kv_limit: Optional[int], attn_impl: str) -> Attend:
     """The pool's K/V write and read for one forward: the window's K/V
     go through the block table first (at flat pool rows computed once),
-    then the ragged kernel reads context and window together through the
-    same table."""
+    then attention reads context and window together through the same
+    table — the ragged kernel, the paged decode kernel, or the gather
+    path over the table's first ``kv_limit // page`` pages."""
     B, S = tokens.shape
-    if q_lens is None:
-        q_lens = torch.full((B,), S, dtype=torch.int32,
-                            device=tokens.device)
-    q_lens = q_lens.to(torch.int32).contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     flat = _pool_flat_pos(tables, positions, cache.page, cache.n_blocks,
                           write_mask)
     pos0 = positions[:, 0].to(torch.int32).contiguous()
+    if attn_impl == "ragged":
+        if q_lens is None:
+            q_lens = torch.full((B,), S, dtype=torch.int32,
+                                device=tokens.device)
+        q_lens = q_lens.to(torch.int32).contiguous()
+    elif not (attn_impl == "paged" and S == 1):
+        page = cache.page
+        if kv_limit is None:
+            kv_limit = tables.shape[1] * page
+        if kv_limit % page or kv_limit > tables.shape[1] * page:
+            raise ValueError(f"pool kv_limit {kv_limit} not a multiple of "
+                             f"page {page} within the table's "
+                             f"{tables.shape[1]} pages")
+        n_pages = kv_limit // page
+        mask = (torch.arange(kv_limit, device=positions.device)[None, None]
+                <= positions.long()[:, :, None])
+        pos32 = positions.to(torch.int32).contiguous()
+        use_flash = attn_impl == "flash" and S > 1
 
     def attend(q, k, v, layer_k, layer_v):
         _scatter_rows(layer_k, flat, k)
         _scatter_rows(layer_v, flat, v)
-        n_blocks = layer_k.shape[0] - 1
-        return ragged_attention_pool(
-            q.contiguous(), layer_k[:n_blocks], layer_v[:n_blocks], q_lens,
-            pos0, tables, page_size=layer_k.shape[1])
+        n_blocks, page = layer_k.shape[0] - 1, layer_k.shape[1]
+        if attn_impl == "ragged":
+            return ragged_attention_pool(
+                q.contiguous(), layer_k[:n_blocks], layer_v[:n_blocks],
+                q_lens, pos0, tables, page_size=page)
+        if attn_impl == "paged" and S == 1:
+            return paged_decode_attention_pool(
+                q[:, 0].contiguous(), layer_k[:n_blocks], layer_v[:n_blocks],
+                pos0, tables, page_size=page)[:, None]
+        k_ctx = _pool_gather(layer_k[:n_blocks], tables, n_pages)
+        v_ctx = _pool_gather(layer_v[:n_blocks], tables, n_pages)
+        if use_flash:
+            return flash_attention_cached(q, k_ctx, v_ctx, pos32)
+        return dense_attention(q, k_ctx, v_ctx, mask)
 
     return attend
 
 
 def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
                   cache: KVCache, write_mask, kv_limit: int,
-                  attn_impl: str) -> Attend:
-    """The dense cache's K/V write (at absolute positions) and read over
-    ``cache[:, :kv_limit]``: flash for a prefill window, the dense
-    reference otherwise."""
+                  attn_impl: str, page_size: int) -> Attend:
+    """The dense cache's K/V write (at absolute positions) and read: the
+    paged decode kernel over ``cache[:, :max_seq]`` for a one-column
+    window under "paged", else ``cache[:, :kv_limit]`` through flash for
+    a prefill window or the dense reference."""
     S = tokens.shape[1]
     flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
     pos32 = positions.to(torch.int32).contiguous()
-    kv_pos = torch.arange(kv_limit, device=positions.device)
-    mask = kv_pos[None, None, :] <= positions.long()[:, :, None]
+    paged = attn_impl == "paged" and S == 1
     use_flash = attn_impl == "flash" and S > 1
+    if paged:
+        pos0 = pos32[:, 0].contiguous()
+    else:
+        kv_pos = torch.arange(kv_limit, device=positions.device)
+        mask = kv_pos[None, None, :] <= positions.long()[:, :, None]
 
     def attend(q, k, v, layer_k, layer_v):
         _scatter_rows(layer_k, flat, k)
         _scatter_rows(layer_v, flat, v)
+        if paged:
+            S_alloc = layer_k.shape[1] - 1      # the trash row excluded
+            return paged_decode_attention(
+                q[:, 0].contiguous(), layer_k[:, :S_alloc],
+                layer_v[:, :S_alloc], pos0, page_size=page_size)[:, None]
         k_ctx = layer_k[:, :kv_limit]
         v_ctx = layer_v[:, :kv_limit]
         if use_flash:
@@ -295,9 +341,10 @@ def forward(
     positions: torch.Tensor,            # [B, S] int absolute positions
     cache: KVCache,
     *,
-    kv_limit: Optional[int] = None,     # dense: attend over cache[:, :kv_limit]
+    kv_limit: Optional[int] = None,     # attend over kv_limit positions
     attn_impl: Optional[str] = None,    # default: ragged (pool), dense
     token_mask: Optional[torch.Tensor] = None,  # [B, S]; 0 = padding
+    page_size: int = 128,               # dense cache: page under "paged"
     logits_at: Optional[torch.Tensor] = None,   # [B]: logits at one column
     write_mask: Optional[torch.Tensor] = None,  # [B] or [B, S] bool
     block_tables: Optional[torch.Tensor] = None,  # [B, max_pages] int32
@@ -306,43 +353,48 @@ def forward(
     """Run the model over a token window. Returns (logits [B, S or 1,
     vocab] float32, cache) with the cache updated in place.
 
-    Pool mode (``block_tables``; ``attn_impl`` "ragged", the default
-    there): ``q_lens``
-    (default: all S columns) is each row's valid prefix — 1 for decode, a
-    span for prefill, 0 freezes the row. Dense mode (``attn_impl``
-    "dense", the default there, or "flash"): attention reads ``cache[:, :kv_limit]``
-    (default: the whole cache) under ``kv <= position``. ``write_mask``
-    gates the KV writes per row or per token in both. ``token_mask``
-    marks padding, as in the JAX signature; only the MoE MLP reads it
-    there, and the port has no MoE yet. ``logits_at`` gathers each row's
-    hidden state at one column BEFORE the LM head, returning
-    [B, 1, vocab]."""
+    Pool mode (``block_tables``): ``attn_impl`` "ragged" (the default)
+    reads through the ragged kernel, where ``q_lens`` (default: all S
+    columns) is each row's valid prefix — 1 for decode, a span for
+    prefill, 0 freezes the row; "paged" with S == 1 reads through the
+    paged decode kernel; "dense" or "flash" (and "paged" with S > 1)
+    gather the table's first ``kv_limit // page`` pages (default: every
+    page). Dense mode (``attn_impl`` "dense", the default there,
+    "flash" or "paged"): "paged" with S == 1 reads each slot's live
+    pages of ``page_size`` from the whole cache; otherwise attention
+    reads ``cache[:, :kv_limit]`` (default: the whole cache) under
+    ``kv <= position``. ``write_mask`` gates the KV writes per row or per
+    token in both. ``token_mask`` marks padding, as in the JAX
+    signature; only the MoE MLP reads it there, and the port has no MoE
+    yet. ``logits_at`` gathers each row's hidden state at one column
+    BEFORE the LM head, returning [B, 1, vocab]."""
     del token_mask
     if cfg.is_moe:
         raise NotImplementedError(
             "MoE models wait for a later slice of the port")
     if block_tables is not None:
         attn_impl = attn_impl or "ragged"
-        if attn_impl != "ragged":
+        if attn_impl not in ("ragged", "paged", "dense", "flash"):
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} over the pool (the legacy "
-                f"prefill ladder and paged decode) waits for a later slice "
-                f"of the port; the pool path runs 'ragged'")
+                f"attn_impl={attn_impl!r} over the pool waits for a later "
+                f"slice of the port (ragged, paged, dense and flash are "
+                f"served)")
         attend = _pool_attend(tokens, positions, cache, write_mask,
-                              block_tables, q_lens)
+                              block_tables, q_lens, kv_limit, attn_impl)
     else:
         attn_impl = attn_impl or "dense"
-        if attn_impl not in ("dense", "flash"):
+        if attn_impl not in ("dense", "flash", "paged"):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r} over the dense cache waits for a "
-                f"later slice of the port (dense and flash are served)")
+                f"later slice of the port (dense, flash and paged are "
+                f"served)")
         if kv_limit is None:
             kv_limit = cache.max_seq
         if not 0 < kv_limit <= cache.max_seq:
             raise ValueError(f"kv_limit {kv_limit} outside the cache's "
                              f"{cache.max_seq} positions")
         attend = _dense_attend(tokens, positions, cache, write_mask,
-                               kv_limit, attn_impl)
+                               kv_limit, attn_impl, page_size)
     B = tokens.shape[0]
 
     # final_norm is always a plain tensor in the model dtype: it anchors

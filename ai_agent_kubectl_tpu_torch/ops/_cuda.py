@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 #: every kernel source of the port, ``csrc/<name>.cu``.
-SOURCES = ("ragged_attention", "flash_attention", "int4_matmul")
+SOURCES = ("ragged_attention", "flash_attention", "int4_matmul",
+           "paged_attention")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

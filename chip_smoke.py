@@ -21,7 +21,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  rows with no visible key, a two-row strided cache view)
                  and one Llama-shaped GQA case (H=32, KV=8, head_dim 128);
                * the int4 matmul on Gemma-7B's four projection shapes at
-                 T in {1, 8, 85, 512}, formats 512/512 and 256/256.
+                 T in {1, 8, 85, 512}, formats 512/512 and 256/256;
+               * both paged decode entry points (contiguous caches and the
+                 pool) at Llama-3-8B's grouping (H=32, KV=8, head_dim 128;
+                 pages 64 and 16), Gemma-2B's (8 over 1, 256) and
+                 Gemma-7B's (16 over 16, 256), 8 slots at positions 0,
+                 page-1, page, mid-cache and the last slot: the dense
+                 cache read through its strided view (NaN from each
+                 slot's position on and in the trash row), the pool
+                 through tables with a block shared by two slots,
+                 sentinel entries and every block past the live spans
+                 NaN.
                Each wrapper's launch counter must grow.
 3. serve    -- build the port's server from the environment-style config
                (MODEL_NAME=gemma-2b-it, random bf16 weights from a fixed
@@ -37,7 +47,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                flash and int4 launch counters are zeroed just before and
                must have grown just after; the served first-token logits
                are held against the same forward on the plain versions.
-5. timing   -- time each kernel, its plain version, one PyTorch library
+5. serve_paged -- Llama-3-8B (MODEL_NAME=llama-3-8b-instruct, random
+               bf16 weights drawn once from seed 0) through two batched
+               engines in turn, each built from the environment-style
+               config and served over HTTP, DECODE_BATCH_SIZE=8,
+               MAX_SEQ_LEN=1024, PREFILL_BUCKETS=64,128,256,512,
+               DECODE_ATTN=auto (paged at page 64 for this GQA model):
+               (a) KV_POOL=false, the dense KV ladder; (b) the pool with
+               RAGGED_ATTENTION=off. Traffic: the serve phase's burst with
+               one query of about 600 tokens, then 2 repeats. Paged
+               launches must equal layers x decode steps, flash must run
+               on the prefills, repeats must be identical and hit their
+               prefix, (b)'s books must balance, and the served logits
+               must agree with the plain versions'.
+6. timing   -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it.
 
@@ -61,7 +84,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
-PHASES = ("build", "kernel", "serve", "serve1", "timing")
+PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "timing")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
 # tensor-core FLOP/s. The bound of a kernel is the larger of its bytes
@@ -306,6 +329,110 @@ def int4_work(x, w) -> tuple:
     return nbytes, 2 * T * IN * OUT
 
 
+# ---------------------------------------------------------- paged decode
+
+# Llama-3-8B's attention geometry: 32 query heads over 8 KV heads of 128.
+LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 128
+
+
+def paged_case(torch, gen, *, H, KV, hd, page, positions, device="cuda"):
+    """Both entry points' inputs for one geometry, 8 slots at
+    ``positions``: the dense cache [N, S, KV, hd] as the model holds it
+    (S = 1024 + 16 page-rounded, one trash row past S, read through the
+    strided [:, :S] view) with NaN from each slot's position + 1 on, and
+    a pool of N * S / page + 1 blocks whose live pages map through
+    permuted tables (slot 1 shares slot 0's first block), the rest of the
+    table the sentinel, and every block outside the live spans NaN (the
+    clamped sentinel lands on one)."""
+    N = len(positions)
+    S = -(-(1024 + 16) // page) * page
+    q = torch.randn((N, H, hd), generator=gen, device=device).to(
+        torch.bfloat16)
+    cache = torch.randn((2, N, S + 1, KV, hd), generator=gen,
+                        device=device).to(torch.bfloat16)
+    for n, p in enumerate(positions):
+        cache[:, n, p + 1:] = float("nan")
+    max_pages = S // page
+    n_blocks = N * max_pages + 1
+    pool = torch.full((2, n_blocks, page, KV, hd), float("nan"),
+                      dtype=torch.bfloat16, device=device)
+    sentinel = n_blocks + 5
+    tables = torch.full((N, max_pages), sentinel, dtype=torch.int32)
+    perm = torch.randperm(n_blocks - 1, generator=torch.Generator()
+                          .manual_seed(0)).to(torch.int32)
+    used = 0
+    for n, p in enumerate(positions):
+        live = p // page + 1
+        tables[n, :live] = perm[used:used + live]
+        used += live
+    tables[1, 0] = tables[0, 0]          # a block shared by two slots
+    for n, p in enumerate(positions):
+        for j in range(p // page + 1):
+            rows = min(page, p + 1 - j * page)
+            pool[:, int(tables[n, j]), :rows] = torch.randn(
+                (2, rows, KV, hd), generator=gen, device=device).to(
+                    torch.bfloat16)
+    pos = torch.tensor(positions, dtype=torch.int32, device=device)
+    return dict(
+        dense=dict(q=q, k=cache[0][:, :S], v=cache[1][:, :S], positions=pos,
+                   page_size=page),
+        pool=dict(q=q, k=pool[0], v=pool[1], positions=pos,
+                  block_tables=tables.to(device), page_size=page))
+
+
+def paged_cases(torch, gen):
+    """The geometries of phase 2 for paged decode: (label, case)."""
+    out = []
+    for label, (H, KV, hd), page in (
+            ("llama_p64", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 64),
+            ("llama_p16", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 16),
+            ("gemma2b_p16", (N_HEADS, N_KV, HEAD_DIM), 16),
+            ("gemma7b_p16", (G7_HEADS, G7_HEADS, G7_HD), 16)):
+        S = -(-(1024 + 16) // page) * page
+        positions = [0, page - 1, page, 300, S - 1, 511, 700, 1000]
+        out.append((label, paged_case(torch, gen, H=H, KV=KV, hd=hd,
+                                      page=page, positions=positions)))
+    return out
+
+
+def paged_live_work(case, pool: bool) -> tuple:
+    """(bytes, flops): q read and out written once, each slot's visible
+    K and V rows read once (keys 0..pos, pos + 1 rows of every KV head:
+    the rows the function needs, not the pages that hold them),
+    positions and, for the pool, the table entries of the live pages;
+    4 * hd FLOPs per (query head, visible key)."""
+    q, k, page = case["q"], case["k"], case["page_size"]
+    N, H, hd = q.shape
+    KV = k.shape[2]
+    pos = case["positions"].tolist()
+    rows = sum(p + 1 for p in pos)
+    pages = sum(p // page + 1 for p in pos)
+    nbytes = (2 * q.numel() * 2 + 2 * rows * KV * hd * 2
+              + 4 * N + (4 * pages if pool else 0))
+    flops = 4 * hd * H * rows
+    return nbytes, flops
+
+
+def paged_sdpa_inputs(torch, case, pool: bool):
+    """The library yardstick's inputs: each slot's live span gathered
+    into a contiguous [N, KV, S_live, hd] view and the key mask (kv <=
+    position), built once."""
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import _pool_gather
+
+    q, k, v, pos, page = (case["q"], case["k"], case["v"],
+                          case["positions"], case["page_size"])
+    S = (int(pos.max()) // page + 1) * page
+    if pool:
+        k = _pool_gather(k, case["block_tables"], S // page)
+        v = _pool_gather(v, case["block_tables"], S // page)
+    kc = k[:, :S].transpose(1, 2).contiguous()
+    vc = v[:, :S].transpose(1, 2).contiguous()
+    live = torch.arange(S, device=q.device)[None, :] <= pos.long()[:, None]
+    kc = torch.where(live[:, None, :, None], kc, 0.0)
+    vc = torch.where(live[:, None, :, None], vc, 0.0)
+    return q[:, :, None], kc, vc, live[:, None, None, :]
+
+
 def check_close(torch, label, out, ref) -> float:
     """Kernel vs plain within ATOL + RTOL*|plain|, both finite. Returns the
     max abs error."""
@@ -327,27 +454,64 @@ def check_close(torch, label, out, ref) -> float:
 
 # ------------------------------------------------------------------ timing
 
-def time_cuda(torch, fn, *, iters: int, warmup: int = 3,
-              flush: bool = True) -> float:
-    """Mean device milliseconds per call of ``fn``, from CUDA events
-    around each call alone. With ``flush`` a 64 MB buffer is rewritten
-    between calls, so every call finds the 50 MB L2 cold, as the serving
-    path does (each layer's pool slice was last touched a whole forward
-    ago)."""
+def time_cuda(torch, fn, *, iters: int, warmup: int = 3) -> dict:
+    """Device milliseconds per call of ``fn``, from CUDA events around
+    each call alone. A 64 MB buffer is rewritten between calls, so every
+    call finds the 50 MB L2 cold, as the serving path does (each layer's
+    pool slice was last touched a whole forward ago).
+
+    A device-side spin before each start event keeps the card busy while
+    the host runs ``fn`` (the wrapper up to its launches), so that host
+    time stays out of the reading. The spin is sized from the warm-up
+    calls' host time (four times their median, at least 0.3 ms), and
+    every call is checked: its host time, from the spin's launch to
+    ``fn``'s return, must be shorter than the spin's own device time
+    (events around it), or the card may have idled between the start
+    event and the first kernel. Such a call is left out of the mean and
+    counted as ``uncovered``; the timing fails if that is more than half
+    of them. Returns ``{"ms", "host_ms_max", "spin_ms_min",
+    "uncovered"}``."""
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    host = []
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    a, b = event(), event()
+    a.record()
+    torch.cuda._sleep(1_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 1_000_000 / a.elapsed_time(b)
+    spin_ms = max(0.3, 4e3 * sorted(host)[len(host) // 2])
+    cycles = int(spin_ms * cycles_per_ms)
+    pres, starts, ends = ([event() for _ in range(iters)] for _ in range(3))
+    host = []
     for i in range(iters):
-        if flush:
-            scratch.zero_()
+        scratch.zero_()
+        pres[i].record()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
         starts[i].record()
         fn()
+        host.append((time.perf_counter() - t0) * 1e3)
         ends[i].record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    spins = [p.elapsed_time(s) for p, s in zip(pres, starts)]
+    covered = [s.elapsed_time(e) for s, e, h, sp
+               in zip(starts, ends, host, spins) if h < sp]
+    if 2 * len(covered) < iters:
+        raise AssertionError(
+            f"timing: the host outlasted the spin in {iters - len(covered)} "
+            f"of {iters} calls (host up to {max(host):.3f} ms, spin "
+            f"{min(spins):.3f} ms)")
+    return {"ms": sum(covered) / len(covered), "host_ms_max": max(host),
+            "spin_ms_min": min(spins), "uncovered": iters - len(covered)}
 
 
 # ------------------------------------------------------------------ phases
@@ -395,7 +559,38 @@ def phase_kernel(torch) -> dict:
         raise AssertionError(f"launch counter grew by {grew}, expected 4")
     return {"ragged_attention": {"max_abs_err": worst},
             "flash_attention": _kernel_flash(torch, gen),
-            "int4_matmul": _kernel_int4(torch, gen)}
+            "int4_matmul": _kernel_int4(torch, gen),
+            **_kernel_paged(torch, gen)}
+
+
+def _kernel_paged(torch, gen) -> dict:
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_attention_pool, paged_decode_attention_pool_plain)
+
+    worst = {"dense": 0.0, "pool": 0.0}
+    cases = paged_cases(torch, gen)
+    before = (paged_decode_attention.launches,
+              paged_decode_attention_pool.launches)
+    for label, case in cases:
+        for kind, kernel, plain in (
+                ("dense", paged_decode_attention,
+                 paged_decode_attention_plain),
+                ("pool", paged_decode_attention_pool,
+                 paged_decode_attention_pool_plain)):
+            out = kernel(**case[kind])
+            ref = plain(**case[kind])
+            err = check_close(torch, f"paged {kind} [{label}]", out, ref)
+            log(f"[kernel] paged {kind} {label}: max |kernel - plain| = "
+                f"{err:.3e} over {out.numel()} values")
+            worst[kind] = max(worst[kind], err)
+    grew = (paged_decode_attention.launches - before[0],
+            paged_decode_attention_pool.launches - before[1])
+    if grew != (len(cases), len(cases)):
+        raise AssertionError(f"paged launch counters grew by {grew}, "
+                             f"expected {len(cases)} each")
+    return {"paged_decode_attention": {"max_abs_err": worst["dense"]},
+            "paged_decode_attention_pool": {"max_abs_err": worst["pool"]}}
 
 
 def _kernel_flash(torch, gen) -> dict:
@@ -462,6 +657,14 @@ REPEATS = [0, 3]            # served again after the burst: radix hits
 # * rms(plain logits). The two differ only in where attention rounds to
 # bf16; the difference compounds over 18 layers and the tied head.
 LOGIT_RTOL = 0.05
+# Llama-3-8B's untied head gives logits of rms 1.0, so one bf16 ulp of its
+# largest logits is 3 % of the rms, and over 32 random layers the plain
+# attention itself lands up to 10 % of the rms (max abs) from attention
+# computed in f32 (measured on the card, bf16 rounding alone). The
+# serve_paged gate therefore takes the larger of LOGIT_RTOL * rms and
+# FLOOR_FACTOR times that distance, measured in the same run, on the max
+# error, and holds the rms of the error to LOGIT_RTOL * rms.
+FLOOR_FACTOR = 1.5
 
 
 # The served configuration, as the server reads it from the environment.
@@ -980,15 +1183,373 @@ def _check_served_logits1(torch, engine, res, prompt) -> dict:
             "tolerance": tol, "served_gap": gap}
 
 
+# The paged-decode configuration of phase 5, as the server reads it; each
+# engine adds its KV layout. Every other knob keeps its default: 16-token
+# chunks, 128 new tokens, greedy, the prefix and radix caches on.
+SERVE_PAGED_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda",
+    "MODEL_NAME": "llama-3-8b-instruct", "DTYPE": "bfloat16", "QUANT": "",
+    "DECODE_BATCH_SIZE": str(N_SLOTS), "MAX_SEQ_LEN": "1024",
+    "PREFILL_BUCKETS": "64,128,256,512", "DECODE_ATTN": "auto",
+    "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+}
+SERVE_PAGED_ENGINES = {
+    "dense": {"KV_POOL": "false", "RAGGED_ATTENTION": "auto"},
+    "pool": {"KV_POOL": "true", "RAGGED_ATTENTION": "off"},
+}
+LONG_PROMPT_TOKENS = 600    # the burst's long query, rendered
+
+
+def phase_serve_paged(torch, profile: bool = False) -> dict:
+    return asyncio.run(_serve_paged(torch, profile))
+
+
+def _long_burst_query(tokenizer) -> str:
+    """LONG_SENTENCE repeated until the rendered prompt reaches about
+    LONG_PROMPT_TOKENS tokens."""
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+
+    reps = 1
+    while True:
+        query = " ".join([LONG_SENTENCE] * reps)
+        if len(tokenizer.encode(render_prompt(query))) >= LONG_PROMPT_TOKENS:
+            return query
+        reps += 1
+
+
+async def _serve_paged(torch, profile: bool) -> dict:
+    """Both engines of phase 5 in turn on one parameter tree (the first
+    engine draws it, the second is handed it)."""
+    params = None
+    out = {}
+    for kind, env in SERVE_PAGED_ENGINES.items():
+        out[kind], params = await _serve_paged_one(torch, kind, env, params,
+                                                   profile)
+    return out
+
+
+async def _serve_paged_one(torch, kind: str, env: dict, params,
+                           profile: bool):
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_pool)
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = f"serve_paged/{kind}"
+    port = _free_port()
+    os.environ.update(SERVE_PAGED_ENV, **env, HOST="127.0.0.1",
+                      PORT=str(port))
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if not isinstance(inner, BatchedTorchEngine):
+        raise AssertionError(f"engine construction failed: {inner!r}")
+    if params is not None:
+        inner.params = params
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    page = inner.kv_pool_page if inner.kv_pool else inner.kv_page_size
+    kernel = (paged_decode_attention_pool if inner.kv_pool
+              else paged_decode_attention)
+    log(f"[{tag}] {cfg.model_name} up on {cfg.host}:{port} in "
+        f"{startup_s:.1f} s ({inner.device}, {inner.batch_size} slots, "
+        f"regime {inner._attention_regime}, decode {inner._decode_impl} at "
+        f"page {page}, KV span {inner._S_alloc})")
+    if inner._decode_impl != "paged" or page != 64:
+        raise AssertionError(f"{tag}: DECODE_ATTN=auto resolved to "
+                             f"{inner._decode_impl} at page {page}")
+    queries = list(QUERIES)
+    queries[-1] = _long_burst_query(inner.tokenizer)
+    url = f"http://{cfg.host}:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+                if r.status != 200 or health["devices"] != 1:
+                    raise AssertionError(f"/health: {r.status} {health}")
+                regime = (health["kv_pool"] or {}).get("attention_regime")
+                if regime != (inner._attention_regime if inner.kv_pool
+                              else None):
+                    raise AssertionError(f"/health regime {regime}")
+
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            for fn in (paged_decode_attention, paged_decode_attention_pool,
+                       flash_attention_cached, ragged_attention_pool):
+                fn.launches = 0
+            steps0 = inner.decode_steps
+            hits0 = inner._radix.hit_tokens_total if inner.kv_pool else 0
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in queries])
+            burst_s = time.monotonic() - t_burst
+            hits1 = inner._radix.hit_tokens_total if inner.kv_pool else 0
+            repeats = [await ask(queries[i]) for i in REPEATS]
+            hits2 = inner._radix.hit_tokens_total if inner.kv_pool else 0
+            launches = {
+                "paged": kernel.launches,
+                "other_paged": (paged_decode_attention.launches
+                                + paged_decode_attention_pool.launches
+                                - kernel.launches),
+                "flash": flash_attention_cached.launches,
+                "ragged": ragged_attention_pool.launches}
+            steps = inner.decode_steps - steps0
+            profiled = (await _profile_burst(
+                torch, ask, [q + " now" for q in QUERIES],
+                lambda: inner.decode_steps, "decode steps",
+                f"profile_{kind}") if profile else None)
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+
+    n_layers = inner.model_cfg.n_layers
+    if (steps <= 0 or launches["paged"] != n_layers * steps
+            or launches["other_paged"] or launches["ragged"]):
+        raise AssertionError(f"{tag}: launches {launches} for {steps} "
+                             f"decode steps x {n_layers} layers")
+    if launches["flash"] < n_layers:
+        raise AssertionError(f"{tag}: flash never ran on the prefills "
+                             f"({launches})")
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    statuses = [st for st, _ in burst + repeats]
+    for query, (status, body) in zip(queries + [queries[i] for i in REPEATS],
+                                     burst + repeats):
+        res = results[render_prompt(query)][0]
+        if res.completion_tokens <= 0:
+            raise AssertionError(f"{tag} {query[:40]!r}: no tokens")
+        want = status_for_text(res.text)
+        if status != want:
+            raise AssertionError(f"{tag} {query[:40]!r}: HTTP {status}, the "
+                                 f"service gives {want} for {res.text!r}: "
+                                 f"{body}")
+    firsts = [results[render_prompt(q)][0] for q in queries]
+    for i in REPEATS:
+        first, again = results[render_prompt(queries[i])]
+        if again.token_ids != first.token_ids:
+            raise AssertionError(f"{tag}: the repeat of {queries[i]!r} "
+                                 f"changed its greedy tokens")
+        if not again.prefix_cache_hit:
+            raise AssertionError(f"{tag}: the repeat of {queries[i]!r} "
+                                 f"missed its prefix")
+    if inner.kv_pool:
+        # The repeats re-map their own cached chains: at least every full
+        # page of each prompt, beyond what the burst matched.
+        want_hits = sum(firsts[i].prompt_tokens - page for i in REPEATS)
+        if hits2 - hits1 < want_hits:
+            raise AssertionError(f"{tag}: the repeats radix-matched "
+                                 f"{hits2 - hits1} tokens, want >= "
+                                 f"{want_hits}")
+        holders: dict = {}
+        for slot in inner._slots:
+            for b in (slot.blocks or []) if slot is not None else []:
+                holders[b] = holders.get(b, 0) + 1
+        for b, n in inner._radix._held.items():
+            holders[b] = holders.get(b, 0) + n
+        inner._pool.check(holders)
+    n_tok = sum(r.completion_tokens for r in firsts)
+    ttft = sorted(r.ttft_ms for r in firsts)
+    info = {
+        "regime": inner._attention_regime, "page": page,
+        "kv_span": inner._S_alloc,
+        "startup_s": startup_s,
+        "launches": launches,
+        "decode_steps": steps,
+        "statuses": statuses,
+        "burst_requests": len(queries),
+        "burst_s": burst_s,
+        "burst_tokens": n_tok,
+        "burst_tok_per_s": n_tok / burst_s,
+        "ttft_ms_p50": ttft[len(ttft) // 2],
+        "ttft_ms_max": ttft[-1],
+        "prompt_tokens": [r.prompt_tokens for r in firsts],
+        "radix_hit_tokens": [hits1 - hits0, hits2 - hits1],
+        "final_positions": [r.prompt_tokens + r.completion_tokens
+                            for r in firsts],
+        "profile": profiled,
+    }
+    log(f"[{tag}] statuses {statuses}; {n_tok} tokens in {burst_s:.2f} s "
+        f"({n_tok / burst_s:.1f} tok/s), TTFT p50 {info['ttft_ms_p50']:.0f} "
+        f"ms max {info['ttft_ms_max']:.0f} ms; prompts "
+        f"{info['prompt_tokens']}; launches {launches} over {steps} decode "
+        f"steps")
+    info["logits"] = _check_paged_logits(torch, inner, firsts[0],
+                                         render_prompt(queries[0]), tag)
+    return info, inner.params
+
+
+def _check_paged_logits(torch, engine, res, prompt, tag) -> dict:
+    """One served prompt through the engine's forward from scratch — its
+    prefill (flash, the gather path on the pool) and one decode step fed
+    the served first token (the paged kernel) — against the same two
+    forwards on the plain versions, on the card. Each served token must
+    be the kernel forward's argmax up to the tolerance. Two wrong
+    stand-ins for the paged kernel (the plain version with each slot's
+    last key dropped, and reading the next KV head) must fail the decode
+    step's gate, or the gate could not tell a wrong kernel."""
+    from ai_agent_kubectl_tpu_torch.models import transformer
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached_plain)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_plain, paged_decode_attention_pool_plain)
+
+    cfg, dev = engine.model_cfg, engine.device
+    ids = engine.tokenizer.encode(prompt)
+    P = len(ids)
+    # The served prefill's shape: the pool's one gather shape, the dense
+    # ladder's bucket.
+    bucket, kv_limit = (engine._pool_prefill_shape(P) if engine.kv_pool
+                        else (engine._bucket_for(P),) * 2)
+    if bucket < P:
+        raise AssertionError(f"{tag}: the check's prompt of {P} tokens "
+                             f"needs more than one window")
+    page = engine.kv_pool_page if engine.kv_pool else engine.kv_page_size
+    cols = torch.arange(bucket, dtype=torch.int32, device=dev)
+    tokens = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    tokens[0, :P] = torch.tensor(ids, device=dev)
+    served = [int(t) for t in res.token_ids[:2]]
+
+    def run():
+        if engine.kv_pool:
+            pages = engine._pool_max_pages
+            cache = transformer.KVCache.pool(cfg, pages, page,
+                                             dtype=engine.dtype, device=dev)
+            kw = dict(block_tables=torch.arange(
+                pages, dtype=torch.int32, device=dev)[None])
+        else:
+            cache = transformer.KVCache.zeros(cfg, 1, engine._S_alloc,
+                                              dtype=engine.dtype, device=dev)
+            kw = {}
+        impl = engine._prefill_impl_for(bucket, kv_limit)
+        first, _ = transformer.forward(
+            engine.params, cfg, tokens, cols[None], cache,
+            kv_limit=kv_limit, attn_impl=impl, write_mask=(cols < P)[None],
+            logits_at=torch.tensor([P - 1], device=dev), **kw)
+        second, _ = transformer.forward(
+            engine.params, cfg,
+            torch.tensor([[served[0]]], dtype=torch.int32, device=dev),
+            torch.tensor([[P]], dtype=torch.int32, device=dev), cache,
+            kv_limit=engine._S_alloc if not engine.kv_pool else None,
+            attn_impl=engine._decode_impl, page_size=page, **kw)
+        return first[0, 0].float(), second[0, 0].float()
+
+    names = ("flash_attention_cached", "paged_decode_attention",
+             "paged_decode_attention_pool")
+    plains = (flash_attention_cached_plain, paged_decode_attention_plain,
+              paged_decode_attention_pool_plain)
+
+    def exact(plain):
+        """The plain version on f32 copies of q/k/v, rounded to bf16 once
+        at its output: attention without bf16 probabilities."""
+        def fn(q, k, v, *args, **kw):
+            return plain(q.float(), k.float(), v.float(), *args,
+                         **kw).to(q.dtype)
+        return fn
+
+    def run_with(fns):
+        saved = [getattr(transformer, n) for n in names]
+        for n, fn in zip(names, fns):
+            setattr(transformer, n, fn)
+        try:
+            return run()
+        finally:
+            for n, fn in zip(names, saved):
+                setattr(transformer, n, fn)
+
+    def last_key_dropped(plain):
+        def fn(q, k, v, positions, *args, **kw):
+            return plain(q, k, v, positions - 1, *args, **kw)
+        return fn
+
+    def next_kv_head(plain):
+        def fn(q, k, v, *args, **kw):
+            return plain(q, k.roll(1, dims=2), v.roll(1, dims=2), *args,
+                         **kw)
+        return fn
+
+    with torch.no_grad():
+        kernel = run()
+        plain = run_with(plains)
+        floor = run_with([exact(fn) for fn in plains])
+        wrong = {label: run_with([plains[0]] + [bad(fn) for fn in plains[1:]])
+                 for label, bad in (("last_key_dropped", last_key_dropped),
+                                    ("next_kv_head", next_kv_head))}
+    out = {"prompt_tokens": P}
+    for i, (step, tok) in enumerate(zip(("prefill", "decode"), served)):
+        k_logits, p_logits = kernel[i], plain[i]
+        rms = float(p_logits.pow(2).mean().sqrt())
+        err = float((k_logits - p_logits).abs().max())
+        rms_err = float((k_logits - p_logits).pow(2).mean().sqrt())
+        floor_err = float((p_logits - floor[i]).abs().max())
+        tol = max(LOGIT_RTOL * rms, FLOOR_FACTOR * floor_err)
+        if step == "decode":
+            caught = {}
+            for label, logits in wrong.items():
+                d = logits[i] - p_logits
+                w_err = float(d.abs().max())
+                w_rms = float(d.pow(2).mean().sqrt())
+                caught[label] = {"max_abs_err": w_err, "rms_err": w_rms}
+                log(f"[{tag}] decode with a wrong paged stand-in "
+                    f"({label}): max |wrong - plain| {w_err:.4f}, rms "
+                    f"{w_rms:.4f} (tolerances {tol:.4f}, "
+                    f"{LOGIT_RTOL * rms:.4f})")
+                if w_err <= tol and w_rms <= LOGIT_RTOL * rms:
+                    raise AssertionError(
+                        f"{tag}: the logits gate passes a wrong paged "
+                        f"kernel ({label}): {w_err} <= {tol}, {w_rms} <= "
+                        f"{LOGIT_RTOL * rms}")
+            out["wrong_stand_ins"] = caught
+        gap = float(k_logits.max()) - float(k_logits[tok])
+        log(f"[{tag}] {step} logits over {P} prompt tokens: max |kernel - "
+            f"plain| {err:.4f}, rms {rms_err:.4f} (logits rms {rms:.3f}; "
+            f"max |plain - f32 attention| {floor_err:.4f}; tolerance "
+            f"{tol:.4f}); served token {tok} sits {gap:.4f} below the "
+            f"kernel argmax {int(k_logits.argmax())}")
+        if not torch.isfinite(k_logits).all() or err > tol:
+            raise AssertionError(f"{tag} {step}: served-path logits disagree "
+                                 f"with the plain forward: {err} > {tol}")
+        if rms_err > LOGIT_RTOL * rms:
+            raise AssertionError(f"{tag} {step}: the rms of kernel - plain "
+                                 f"{rms_err} exceeds {LOGIT_RTOL} of the "
+                                 f"logits' rms {rms}")
+        if gap > tol:
+            raise AssertionError(f"{tag} {step}: served token {tok} is {gap} "
+                                 f"below the argmax (tolerance {tol})")
+        out[step] = {"max_abs_err": err, "rms_err": rms_err, "rms": rms,
+                     "floor_max_abs_err": floor_err, "tolerance": tol,
+                     "served_gap": gap}
+    return out
+
+
 def timed(torch, kernel, plain, library, *, iters: int) -> dict:
     """Kernel, plain, library, kernel, in turns (L2 flushed before every
-    call)."""
-    k1 = time_cuda(torch, kernel, iters=iters)
-    p = time_cuda(torch, plain, iters=iters)
-    lib = time_cuda(torch, library, iters=iters)
-    k2 = time_cuda(torch, kernel, iters=iters)
+    call). ``spin_check`` keeps, for each of the four timings, the host's
+    longest call, the shortest spin and the calls left uncovered."""
+    runs = [time_cuda(torch, fn, iters=iters)
+            for fn in (kernel, plain, library, kernel)]
+    k1, p, lib, k2 = (r["ms"] for r in runs)
     return {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-            "plain_ms": p, "library_ms": lib}
+            "plain_ms": p, "library_ms": lib,
+            "spin_check": [[r["host_ms_max"], r["spin_ms_min"],
+                            r["uncovered"]] for r in runs]}
 
 
 def with_bound(entry: dict, nbytes: int, flops: int) -> dict:
@@ -1002,9 +1563,12 @@ def with_bound(entry: dict, nbytes: int, flops: int) -> dict:
 
 def log_timing(what: str, entry: dict, library: str) -> None:
     k1, k2 = entry["kernel_ms_runs"]
+    check = ", ".join(f"{h:.3f}/{sp:.3f}/{u}"
+                      for h, sp, u in entry["spin_check"])
     log(f"[timing] {what}: kernel {k1:.4f}/{k2:.4f} ms, plain "
         f"{entry['plain_ms']:.4f} ms, {library} {entry['library_ms']:.4f} "
-        f"ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+        f"ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}); "
+        f"host max / spin min ms / uncovered: {check}")
 
 
 def _timing_flash(torch, gen) -> dict:
@@ -1049,22 +1613,67 @@ def _timing_int4(torch, gen) -> dict:
     return out
 
 
-def phase_timing(torch, serve_info: dict) -> dict:
+def phase_timing(torch, serve_info: dict, paged_info: dict) -> dict:
+    from ai_agent_kubectl_tpu_torch.ops import paged_attention
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached)
     from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
         ragged_attention_pool)
 
-    saved = (ragged_attention_pool.launches, flash_attention_cached.launches,
-             qmatmul4.launches)
+    counted = (ragged_attention_pool, flash_attention_cached, qmatmul4,
+               paged_attention.paged_decode_attention,
+               paged_attention.paged_decode_attention_pool)
+    saved = [fn.launches for fn in counted]
     gen = torch.Generator(device="cuda").manual_seed(7)
-    out = {"ragged_attention": _timing_ragged(torch, serve_info),
+    # The method's floor: the reading of a call that launches nothing.
+    empty = time_cuda(torch, lambda: None, iters=50)
+    log(f"[timing] an empty call reads {empty['ms']:.5f} ms (host up to "
+        f"{empty['host_ms_max']:.4f} ms, spin {empty['spin_ms_min']:.3f} ms)")
+    out = {"empty_call": empty,
+           "ragged_attention": _timing_ragged(torch, serve_info),
            "flash_attention": _timing_flash(torch, gen),
-           "int4_matmul": _timing_int4(torch, gen)}
+           "int4_matmul": _timing_int4(torch, gen),
+           **_timing_paged(torch, gen, paged_info)}
     # Timing launches do not count.
-    (ragged_attention_pool.launches, flash_attention_cached.launches,
-     qmatmul4.launches) = saved
+    for fn, n in zip(counted, saved):
+        fn.launches = n
+    return out
+
+
+def _timing_paged(torch, gen, paged_info: dict) -> dict:
+    """Both paged entry points at Llama-3-8B's grouping, page 64, 8 slots
+    at the final positions the serve_paged burst reached (each engine's
+    own), the library call SDPA over the gathered live span with a key
+    mask."""
+    import torch.nn.functional as F
+
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_decode_attention_pool, paged_decode_attention_pool_plain)
+
+    out = {}
+    for kind, name, kernel, plain in (
+            ("dense", "paged_decode_attention", paged_decode_attention,
+             paged_decode_attention_plain),
+            ("pool", "paged_decode_attention_pool",
+             paged_decode_attention_pool,
+             paged_decode_attention_pool_plain)):
+        positions = (paged_info.get(kind, {}).get("final_positions")
+                     or [213, 213, 213, 213, 213, 213, 213, 728])
+        positions = [p - 1 for p in positions]  # the last step's query
+        case = paged_case(torch, gen, H=LLAMA_HEADS, KV=LLAMA_KV,
+                          hd=LLAMA_HD, page=64, positions=positions)[kind]
+        q, kc, vc, mask = paged_sdpa_inputs(torch, case, kind == "pool")
+        entry = timed(
+            torch, lambda: kernel(**case), lambda: plain(**case),
+            lambda: F.scaled_dot_product_attention(
+                q, kc, vc, attn_mask=mask, enable_gqa=True),
+            iters=50)
+        entry["positions"] = positions
+        out[name] = {"decode": with_bound(
+            entry, *paged_live_work(case, kind == "pool"))}
+        log_timing(f"paged {kind} decode at {positions}", entry, "sdpa")
     return out
 
 
@@ -1102,13 +1711,16 @@ def _timing_ragged(torch, serve_info: dict) -> dict:
 
 def kernel_lines(results: dict) -> list:
     """One entry per kernel for the ``kernels`` line: launches from its
-    serving run (ragged: phase 3; flash and int4: phase 4), the worst
+    serving run (ragged: phase 3; flash and int4: phase 4; the paged
+    entry points: their engines of phase 5), the worst
     error of phase 2, and the times at the shape its serving path runs
     most at the top level (every timed shape under ``shapes``)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
     tol = f"|kernel - plain| <= {ATOL} + {RTOL}*|plain| (bf16)"
+
+    paged = results.get("serve_paged", {})
 
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
@@ -1147,6 +1759,21 @@ def kernel_lines(results: dict) -> list:
               kernel.get("int4_matmul", {}).get("max_abs_err"),
               timing.get("int4_matmul", {}), "w_gate_T1",
               "torch.matmul on the dequantized bf16 weight"),
+        entry("paged_decode_attention_pool", "paged_attention.cu",
+              "ai_agent_kubectl_tpu/ops/paged_attention.py:124",
+              paged.get("pool", {}).get("launches", {}).get("paged"),
+              kernel.get("paged_decode_attention_pool", {}).get(
+                  "max_abs_err"),
+              timing.get("paged_decode_attention_pool", {}), "decode",
+              "torch.nn.functional.scaled_dot_product_attention over the "
+              "gathered live span with a key mask"),
+        entry("paged_decode_attention", "paged_attention.cu",
+              "ai_agent_kubectl_tpu/ops/paged_attention.py:264",
+              paged.get("dense", {}).get("launches", {}).get("paged"),
+              kernel.get("paged_decode_attention", {}).get("max_abs_err"),
+              timing.get("paged_decode_attention", {}), "decode",
+              "torch.nn.functional.scaled_dot_product_attention over the "
+              "live span with a key mask"),
     ]
 
 
@@ -1191,8 +1818,11 @@ def main() -> int:
         results["serve"] = phase_serve(torch, args.profile)
     if "serve1" in phases:
         results["serve1"] = phase_serve1(torch, args.profile)
+    if "serve_paged" in phases:
+        results["serve_paged"] = phase_serve_paged(torch, args.profile)
     if "timing" in phases:
-        results["timing"] = phase_timing(torch, results.get("serve", {}))
+        results["timing"] = phase_timing(torch, results.get("serve", {}),
+                                         results.get("serve_paged", {}))
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 
     print(json.dumps({"kernels": kernel_lines(results)}))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from ai_agent_kubectl_tpu_torch.ops import flash_attention as tfa
+from ai_agent_kubectl_tpu_torch.ops import paged_attention as tpa
 from ai_agent_kubectl_tpu_torch.ops import quant4 as tq4
 from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
     ragged_attention_pool, ragged_attention_pool_plain)
@@ -85,3 +86,41 @@ def test_int4_kernel_matches_plain(card, T, fmt):
     qw = tq4.quantize_int4(w, *fmt)
     x = torch.randn((T, 1024), generator=gen, device=card).to(torch.bfloat16)
     _close(tq4.qmatmul4(x, qw), tq4.qmatmul4_plain(x, qw))
+
+
+@pytest.mark.parametrize("geometry",
+                         [(32, 8, 128), (8, 1, 256), (16, 16, 256)],
+                         ids=["llama_gqa", "gemma2b_mqa", "gemma7b_mha"])
+def test_paged_kernels_match_plain(card, geometry):
+    """Both paged entry points: 4 slots at positions 0, page-1, page and
+    the last slot, the dense cache read through its strided [:, :S] view
+    (the model's trash row past S is NaN), the pool through tables with
+    a shared first block and sentinels whose clamp lands on a NaN
+    block."""
+    H, KV, hd = geometry
+    page, S = 64, 256
+    gen = torch.Generator(device=card).manual_seed(H + KV)
+    q = torch.randn((4, H, hd), generator=gen, device=card).to(torch.bfloat16)
+    cache = torch.randn((2, 4, S + 1, KV, hd), generator=gen,
+                        device=card).to(torch.bfloat16)
+    cache[:, :, S] = float("nan")
+    pos = torch.tensor([0, page - 1, page, S - 1], dtype=torch.int32,
+                       device=card)
+    k, v = cache[0][:, :S], cache[1][:, :S]
+    before = tpa.paged_decode_attention.launches
+    _close(tpa.paged_decode_attention(q, k, v, pos, page_size=page),
+           tpa.paged_decode_attention_plain(q, k, v, pos, page_size=page))
+    assert tpa.paged_decode_attention.launches == before + 1
+
+    n_blocks = 12
+    pool = torch.randn((2, n_blocks, page, KV, hd), generator=gen,
+                       device=card).to(torch.bfloat16)
+    pool[:, n_blocks - 1] = float("nan")
+    tables = torch.tensor([[0, 20, 20, 20], [0, 20, 20, 20], [1, 2, 20, 20],
+                           [3, 4, 5, 6]], dtype=torch.int32, device=card)
+    before = tpa.paged_decode_attention_pool.launches
+    _close(tpa.paged_decode_attention_pool(q, pool[0], pool[1], pos, tables,
+                                           page_size=page),
+           tpa.paged_decode_attention_pool_plain(q, pool[0], pool[1], pos,
+                                                 tables, page_size=page))
+    assert tpa.paged_decode_attention_pool.launches == before + 1

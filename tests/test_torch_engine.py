@@ -118,7 +118,7 @@ async def test_greedy_transcripts_match_jax_reference():
     run_chunk = eng._run_chunk
     second_chunk = threading.Event()
 
-    def recording(force, tables, adm=None):
+    def recording(force, tables, adm=None, **kw):
         if len(chunks) == 1:
             # The second chunk is already staged when it gets here. It
             # tells the test to send the two late arrivals and waits until
@@ -132,7 +132,7 @@ async def test_greedy_transcripts_match_jax_reference():
                 time.sleep(0.001)
         staged = 0 if adm is None else int((adm[1] > 0).sum())
         chunks.append((staged, int(force.sum())))
-        return run_chunk(force, tables, adm)
+        return run_chunk(force, tables, adm, **kw)
 
     eng._run_chunk = recording
     try:
@@ -181,13 +181,40 @@ async def test_seeded_sampling_is_reproducible():
 
 
 def test_engine_on_cuda_without_a_card_raises(monkeypatch):
+    """A CUDA engine with no card raises; both paged-decode knobs
+    construct and resolve on the CPU (auto is dense there); an explicit
+    paged decode the kernel cannot serve on the card (float32) raises
+    instead of switching, as does RAGGED_ATTENTION=on without the pool;
+    int8 KV still waits for a later slice."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         _engine(None, device=None)
-    with pytest.raises(NotImplementedError, match="KV_POOL=false"):
-        _engine(None, kv_pool=False)
-    with pytest.raises(NotImplementedError, match="RAGGED_ATTENTION"):
-        _engine(None, ragged_attention="off")
+    for kw, regime in ((dict(kv_pool=False), "dense"),
+                       (dict(ragged_attention="off"), "gather"),
+                       (dict(kv_pool=False, decode_attn="paged"), "paged"),
+                       (dict(ragged_attention="off", decode_attn="paged"),
+                        "paged")):
+        eng = _engine(None, **kw)
+        eng._resolve_regime()
+        assert eng._attention_regime == regime, kw
+        assert eng._decode_impl == ("paged" if regime == "paged"
+                                    else "dense")
+    for kv_pool in (False, True):
+        eng = _engine(None, kv_pool=kv_pool, ragged_attention="off",
+                      decode_attn="paged")
+        eng.device = torch.device("cuda")
+        with pytest.raises(ValueError, match="DECODE_ATTN=paged"):
+            eng._resolve_regime()
+        eng = _engine(None, kv_pool=kv_pool, ragged_attention="off")
+        eng.device = torch.device("cuda")
+        eng._resolve_regime()
+        assert eng._decode_impl == "dense"
+    with pytest.raises(ValueError, match="RAGGED_ATTENTION=on"):
+        _engine(None, kv_pool=False, ragged_attention="on")
+    with pytest.raises(NotImplementedError, match="KV_QUANT=int8"):
+        _engine(None, kv_quant="int8")
+    with pytest.raises(ValueError, match="DECODE_ATTN"):
+        _engine(None, decode_attn="flash")
 
 
 def _imports(path: Path):

@@ -156,18 +156,115 @@ def test_pool_forward_matches_jax(name):
         pos = pos + live
 
 
+@pytest.mark.parametrize("impl", ["paged", "dense"])
+@pytest.mark.parametrize("layout", ["pool", "dense"])
+def test_decode_regimes_match_jax(layout, impl):
+    """The two paged-decode regimes of the batched engine on toy-8m (4
+    query heads over 2 KV heads): a ragged prefill window, then 8 decode
+    steps with a frozen slot, through the JAX ``forward`` (its Pallas
+    paged kernels in interpret mode) and the port's, with ``attn_impl``
+    "paged" (the paged decode kernel) or "dense" (the pool's gather path,
+    the dense cache's bucket read). The window itself takes the gather
+    path or the dense cache read in every case. Tolerances as above:
+    1e-4 on logits, 1e-5 on the cache."""
+    jcfg, tcfg = _configs("toy-8m")
+    jparams = _jax_params(jcfg)
+    tparams = params_from_jax(_np_tree(jparams), tcfg)
+    L, KV, hd = jcfg.n_layers, jcfg.n_kv_heads, jcfg.head_dim
+    span = MAX_PAGES * PAGE
+    if layout == "pool":
+        shape = (L, N_BLOCKS, PAGE, KV, hd)
+        jcache = jt.KVCache(k=jnp.zeros(shape, jnp.float32),
+                            v=jnp.zeros(shape, jnp.float32),
+                            lengths=jnp.zeros((N_BLOCKS,), jnp.int32))
+        tcache = tt.KVCache.pool(tcfg, N_BLOCKS, PAGE, dtype=torch.float32,
+                                 device="cpu")
+        sentinel = N_BLOCKS + 3
+        tables = np.array([[3, 1, 5, sentinel], [0, 2, 7, sentinel],
+                           [4, sentinel, sentinel, sentinel]], np.int32)
+        extra = dict(block_tables=tables)
+    else:
+        jcache = jt.KVCache.zeros(jcfg, 3, span, dtype=jnp.float32)
+        tcache = tt.KVCache.zeros(tcfg, 3, span, dtype=torch.float32,
+                                  device="cpu")
+        extra = {}
+    jfwd = jax.jit(partial(jt.forward, cfg=jcfg, kv_limit=span,
+                           page_size=PAGE), static_argnames=("attn_impl",))
+
+    def step(tokens, positions, write_mask, logits_at, attn_impl):
+        nonlocal jcache, tcache
+        kw = {name: jnp.asarray(val) for name, val in extra.items()}
+        jl, jcache = jfwd(jparams, tokens=jnp.asarray(tokens),
+                          positions=jnp.asarray(positions), cache=jcache,
+                          write_mask=(None if write_mask is None
+                                      else jnp.asarray(write_mask)),
+                          logits_at=jnp.asarray(logits_at),
+                          attn_impl=attn_impl, **kw)
+        tl, tcache = tt.forward(
+            tparams, tcfg, torch.from_numpy(tokens),
+            torch.from_numpy(positions), tcache, kv_limit=span,
+            page_size=PAGE, attn_impl=attn_impl,
+            write_mask=(None if write_mask is None
+                        else torch.from_numpy(write_mask)),
+            logits_at=torch.from_numpy(logits_at),
+            **{name: torch.from_numpy(val) for name, val in extra.items()})
+        jl = np.asarray(jl)
+        np.testing.assert_allclose(tl.numpy(), jl, atol=1e-4, rtol=1e-4)
+        for jleaf, tleaf in ((jcache.k, tcache.k), (jcache.v, tcache.v)):
+            t = (tleaf[:, :N_BLOCKS] if layout == "pool"
+                 else tleaf[:, :, :span])
+            np.testing.assert_allclose(t.numpy(), np.asarray(jleaf),
+                                       atol=1e-5, rtol=1e-5)
+        return jl
+
+    # The window: slot 0 prefills 8 tokens from 0, slot 1 continues at 5
+    # with 3, slot 2 is frozen (pool) or prefills 2 (dense, whose JAX
+    # write mask is per row). Padding columns of the dense cache write
+    # past the prompt, where decode overwrites them before any read.
+    rng = np.random.default_rng(0)
+    W = 8
+    tokens = rng.integers(0, jcfg.vocab_size, (3, W)).astype(np.int32)
+    starts = np.array([0, 5, 9], np.int32)
+    q_lens = np.array([8, 3, 0 if layout == "pool" else 2], np.int32)
+    positions = starts[:, None] + np.arange(W, dtype=np.int32)[None]
+    wmask = (np.arange(W)[None] < q_lens[:, None] if layout == "pool"
+             else None)
+    logits = step(tokens, positions, wmask, np.maximum(q_lens, 1) - 1,
+                  "dense")
+    live = q_lens > 0
+    pos = starts + q_lens
+    tok = logits[:, 0].argmax(-1).astype(np.int32)
+    for _ in range(8):
+        logits = step(tok[:, None], pos[:, None].astype(np.int32), live,
+                      np.zeros(3, np.int32), impl)
+        tok = np.where(live, logits[:, 0].argmax(-1), tok).astype(np.int32)
+        pos = pos + live
+
+
 def test_forward_refuses_later_slices():
+    """The ring path (either layout), the mesh and MoE wait for later
+    slices; paged decode and the pool's gather path are served."""
     _, tcfg = _configs("toy-8m")
     params = tt.init_params(torch.Generator().manual_seed(0), tcfg,
                             dtype=torch.float32)
     cache = tt.KVCache.pool(tcfg, 4, PAGE, dtype=torch.float32,
                             device="cpu")
     tok = torch.zeros((1, 1), dtype=torch.int32)
+    tables = torch.zeros((1, 2), dtype=torch.int32)
     dense = tt.KVCache.zeros(tcfg, 1, 16, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        tt.forward(params, tcfg, tok, tok, dense, attn_impl="paged")
-    with pytest.raises(NotImplementedError, match="flash"):
-        tt.forward(params, tcfg, tok, tok, cache, attn_impl="flash",
-                   block_tables=torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="ring"):
+        tt.forward(params, tcfg, tok, tok, dense, attn_impl="ring")
+    with pytest.raises(NotImplementedError, match="ring"):
+        tt.forward(params, tcfg, tok, tok, cache, attn_impl="ring",
+                   block_tables=tables)
+    with pytest.raises(TypeError, match="mesh"):
+        tt.forward(params, tcfg, tok, tok, dense, mesh=object())
     with pytest.raises(NotImplementedError, match="MoE"):
         tt.init_params(torch.Generator(), tconfig.get_config("toy-moe"))
+    for impl in ("paged", "flash", "dense"):
+        logits, _ = tt.forward(params, tcfg, tok, tok, cache,
+                               attn_impl=impl, block_tables=tables)
+        assert logits.shape == (1, 1, tcfg.vocab_size)
+    logits, _ = tt.forward(params, tcfg, tok, tok, dense, attn_impl="paged",
+                           page_size=8)
+    assert torch.isfinite(logits).all()

@@ -148,7 +148,18 @@ def test_config_reads_the_jax_knob_names(monkeypatch):
     assert cfg.prefill_bucket_list == (64, 128)
     assert not cfg.radix_cache and cfg.max_new_tokens == 16
     monkeypatch.setenv("KV_POOL", "false")
+    monkeypatch.setenv("DECODE_ATTN", "paged")
+    monkeypatch.setenv("KV_PAGE_SIZE", "64")
+    cfg = ServiceConfig.from_env()
+    assert not cfg.kv_pool and cfg.decode_attn == "paged"
+    assert cfg.kv_page_size == 64
+    monkeypatch.setenv("RAGGED_ATTENTION", "on")
     with pytest.raises(ValueError, match="KV_POOL"):
+        ServiceConfig.from_env()
+    monkeypatch.setenv("KV_POOL", "true")
+    assert ServiceConfig.from_env().ragged_attention == "on"
+    monkeypatch.setenv("DECODE_ATTN", "flash")
+    with pytest.raises(ValueError, match="DECODE_ATTN"):
         ServiceConfig.from_env()
 
 
