@@ -16,33 +16,49 @@
 // The format is an argument: group_in in {128, 256, 512}, block_out in
 // {256, 512}. Within each block_out column block, byte column j holds column j
 // in its low nibble and column j + block_out/2 in its high nibble (not an
-// interleaved pair). A nibble is sign-extended: low = (b << 28) >> 28,
-// high = b >> 4 on the sign-extended byte; values lie in [-7, 7].
+// interleaved pair). A nibble is two's complement, -8..7.
 //
-// Design. A thread reads 4 consecutive bytes of a row (one 32-bit load, 128
-// contiguous bytes per warp), which unpack into 4 columns of the block's first
-// half and the same 4 columns of its second half: 8 output columns, no shuffle.
-// Two paths:
-// - T <= 8 (decode): a GEMV over the packed bytes. A block owns 128 byte
-//   columns (256 output columns); its 4 warps split each group's rows in four,
-//   and the x rows of the group sit in shared memory as f32. When the columns
-//   alone give too few blocks to fill 132 SMs, the contraction is cut into
-//   slices of whole groups (grid.y); the slices write f32 partial rows to a
-//   workspace, and a second kernel sums them in a fixed order, so the result
-//   does not depend on scheduling. The TPU grid carried the sum across k-blocks
-//   in VMEM scratch; blocks here run in no order, hence the second pass.
-// - T > 8 (prefill): a tiled product. A block owns 64 rows x 64 byte columns
-//   (128 output columns) and walks the contraction 32 rows at a time: the x tile
-//   (transposed) and the unpacked weight tile in shared memory, a 4 x 8 register
-//   tile per thread, the group partial scaled into the accumulator at each
-//   group end. Each weight byte is read from device memory once per 64 rows.
+// What bounds it on an H100. At decode (T <= 8) the bytes: the packed weight
+// and its scales, IN*OUT/2 + 4*OUT*IN/group_in, over 3.35 TB/s (about 11 us
+// for a Gemma-7B w_gate, 3072 x 24576); what stands between the kernel and
+// that bound is memory latency, so enough bytes must be in flight on every
+// SM. At prefill (T of 64 to 512) the 2*T*IN*OUT operations: 78 us at 989
+// TFLOP/s for w_gate at T=512, which only the tensor cores reach.
 //
-// What bounds it on an H100: at decode the packed bytes and the scales
-// (IN*OUT/2 + 4*OUT*IN/group_in), against 3.35 TB/s -- about 11 us for a
-// Gemma-7B w_gate (3072 x 24576). At prefill the 2*T*IN*OUT FLOPs; this first
-// version runs them on the CUDA cores in f32 (no tensor cores, no TMA, no
-// pipelining of the tile loads), written to be right. Making it fast (unpack
-// into wgmma operands, TMA rings) is later work; its times stand in PERF.md.
+// Design: one kernel for both regimes, on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, f32 accumulate), computing the product swapped,
+// y^T = W^T x^T: output columns fill the MMA's 16 M rows, tokens its 8 N
+// columns, so a decode step wastes no more than 7 of 8 columns of an MMA that
+// costs nothing beside the bytes, and T = 9..64 pads to a multiple of 8.
+// - The A operand (weights) is built in registers from the packed bytes. The
+//   epilogue maps fragment rows to output columns freely: row g of m-tile t
+//   is the LOW nibble of byte column 4g+t and row g+8 its HIGH nibble, so one
+//   32-bit shared-memory load of four byte columns of a row feeds four
+//   m-tiles, and a thread's four k rows (2c, 2c+1, 2c+8, 2c+9 of a k16 step)
+//   are four such loads. A nibble becomes bf16 exactly with the magic-number
+//   trick: (n ^ 8) | 0x4300 is the bf16 of 136 + n, minus 136.
+// - The B operand (x) comes from shared memory through ldmatrix.
+// - Each warp keeps one f32 accumulator for the current group's partial sum
+//   and folds it into the main accumulator with the scales of its rows at
+//   each group end (a group is 8, 16 or 32 k16 steps), so the scale
+//   multiplies the f32 partial, as the function says.
+// - The packed bytes and the x tile stream through a ring of shared-memory
+//   stages with cp.async (16 bytes a copy, zero-fill past T), so loads of
+//   later stages overlap the MMAs of this one.
+// - Two configurations: T <= 8 (the GEMV) takes 256 output columns by 8
+//   tokens a block and a 6-stage ring (over 40 KB in flight a block); T > 8
+//   takes 128 columns by 64 tokens, four warps each 64 columns by 32 tokens.
+// - When the grid of output tiles x token tiles is under one block per SM,
+//   the contraction is cut into slices of whole groups (grid.z); the slices
+//   write f32 partial rows to a workspace and a second kernel sums them in
+//   slice order, so the result does not depend on scheduling. The plan is a
+//   function of (T, IN, OUT, group_in) only: plan_splits below is the one
+//   rule. The wrapper asks int4_matmul_plan for it to size the workspace,
+//   and the launch refuses any other.
+//
+// Left for later: wgmma with the weights as the register A operand (the
+// issue rate of mma.sync and of the unpacking caps the prefill well below the
+// tensor cores' peak), TMA for the x tile, a persistent schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,124 +66,297 @@
 
 namespace {
 
-// ---------------------------------------------------------------- shared
+constexpr int kBK = 64;               // contraction rows per stage
+constexpr int kSplitBelow = 132;      // split when tiles < one block per SM
+constexpr int kTargetBlocks = 264;    // ... aiming for two per SM
 
-// The 4 bytes of `word` (byte i at bits 8i..8i+7) -> w[0..3] their low
-// nibbles, w[4..7] their high nibbles, each sign-extended.
-__device__ __forceinline__ void unpack8(uint32_t word, float w[8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    w[i] = float(int32_t(word << (28 - 8 * i)) >> 28);
-    w[4 + i] = float(int32_t(word << (24 - 8 * i)) >> 28);
-  }
+template <int WM_, int WN_, int NT_, int STAGES_>
+struct Cfg {
+  static constexpr int WM = WM_, WN = WN_, NT = NT_, STAGES = STAGES_;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kBB = 32 * WM;            // byte columns per block
+  static constexpr int kBN = 8 * NT * WN;        // tokens per block
+  static constexpr int kQStride = kBB + 16;      // bytes: conflict-free rows
+  static constexpr int kXStride = kBK + 8;       // bf16: conflict-free ldmatrix
+  static constexpr int kQBytes = kBK * kQStride;
+  static constexpr int kXBytes = kBN * kXStride * 2;
+  static constexpr int kStageBytes = kQBytes + kXBytes;
+  static constexpr int kSmem = STAGES * kStageBytes;
+  static_assert(kQBytes % 16 == 0 && kXBytes % 16 == 0, "16-byte stages");
+  static_assert(NT == 1 || NT % 2 == 0, "ldmatrix pairs");
+};
+
+// T <= 8: 4 warps side by side over 256 output columns, 8 tokens.
+using Skinny = Cfg<4, 1, 1, 6>;
+// T > 8: 2 x 2 warps over 128 output columns, 64 tokens.
+using Tiled = Cfg<2, 2, 4, 4>;
+
+int plan_splits(int T, int IN, int OUT, int gi) {
+  const int tiles = T <= 8 ? (OUT / 2) / Skinny::kBB
+                           : ((OUT / 2) / Tiled::kBB) * ((T + Tiled::kBN - 1) / Tiled::kBN);
+  if (tiles >= kSplitBelow) return 1;
+  const int G = IN / gi;
+  int want = (kTargetBlocks + tiles - 1) / tiles;
+  if (want > G) want = G;
+  const int per = (G + want - 1) / want;
+  return (G + per - 1) / per;
 }
 
-// ----------------------------------------------------- small T (decode)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 
-constexpr int kSkinnyWarps = 4;
-constexpr int kSkinnyThreads = kSkinnyWarps * 32;
-constexpr int kSkinnyBytes = 32 * 4;  // byte columns per block
-constexpr int kMaxGroupIn = 512;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-template <int RT>
-__global__ void __launch_bounds__(kSkinnyThreads)
-int4_skinny_kernel(const __nv_bfloat16* __restrict__ x,
-                   const uint32_t* __restrict__ q,
-                   const float* __restrict__ scale,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ part,
-                   int T, int IN, int OUT, int gi, int bo, int gps) {
-  __shared__ float sx[RT][kMaxGroupIn];
-  __shared__ float sred[kSkinnyWarps - 1][RT][32 * 8 + 4];
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int words_per_row = OUT / 8;  // OUT/2 bytes, 4 per word
-  const int b0 = blockIdx.x * kSkinnyBytes + lane * 4;
-  const int half_bo = bo / 2;
-  const int col_lo = (b0 / half_bo) * bo + b0 % half_bo;
-  const int col_hi = col_lo + half_bo;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two nibbles (bits 0..3 and 16..19 of v) -> bf16x2 of their signed values:
+// (n ^ 8) | 0x4300 is the bf16 of 136 + n (exact), then subtract 136.
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
+  uint32_t r = (v & 0x000F000Fu) ^ 0x43084308u;
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&r);
+  const __nv_bfloat162 magic = __halves2bfloat162(__ushort_as_bfloat16(0x4308),
+                                                  __ushort_as_bfloat16(0x4308));
+  h = __hsub2(h, magic);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The A fragment of m-tile t from the four words of a thread's k rows
+// (2c, 2c+1, 2c+8, 2c+9): byte t of each word; low nibbles -> row g, high
+// nibbles -> row g+8.
+template <int t>
+__device__ __forceinline__ void unpack_a(uint32_t w0, uint32_t w1, uint32_t w8, uint32_t w9,
+                                         uint32_t a[4]) {
+  constexpr unsigned sel = t | (t << 4) | ((4 + t) << 8) | ((4 + t) << 12);
+  const uint32_t v01 = __byte_perm(w0, w1, sel);
+  const uint32_t v89 = __byte_perm(w8, w9, sel);
+  a[0] = nibbles_to_bf16x2(v01);
+  a[1] = nibbles_to_bf16x2(v01 >> 4);
+  a[2] = nibbles_to_bf16x2(v89);
+  a[3] = nibbles_to_bf16x2(v89 >> 4);
+}
+
+// m-tile t of one k16 step against every live n-tile of the warp.
+template <int t, int NT>
+__device__ __forceinline__ void mma_tile(uint32_t w0, uint32_t w1, uint32_t w8, uint32_t w9,
+                                         const uint32_t (&bf)[NT][2], float (&pt)[NT][4],
+                                         int live_nt) {
+  uint32_t a[4];
+  unpack_a<t>(w0, w1, w8, w9, a);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < live_nt) mma_bf16(pt[j], a, bf[j]);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads)
+int4_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ part, int T, int IN, int OUT, int gi, int bo,
+                int gps) {
+  constexpr int WM = C::WM, NT = C::NT, STAGES = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp % WM;
+  const int wn = warp / WM;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int half_bo = bo >> 1;
+  const int row_bytes = OUT >> 1;
+  const int cb0 = blockIdx.x * C::kBB;
+  const int t0 = blockIdx.y * C::kBN;
   const int G = IN / gi;
-  const int g0 = blockIdx.y * gps;
+  const int g0 = blockIdx.z * gps;
   const int g1 = min(G, g0 + gps);
-  const int t0 = blockIdx.z * RT;
-  const int nr = min(RT, T - t0);
-  const int rows_per_warp = gi / kSkinnyWarps;
-  const int kbeg = warp * rows_per_warp;
+  const int k_begin = g0 * gi;
+  const int steps_per_group = gi / kBK;
+  const int n_steps = (g1 - g0) * steps_per_group;
 
-  float acc[RT][8];
-#pragma unroll
-  for (int t = 0; t < RT; ++t)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[t][c] = 0.f;
+  // This thread's four byte columns b..b+3 and their output columns.
+  const int b = cb0 + 32 * wm + 4 * g;
+  const int col_lo = (b / half_bo) * bo + b % half_bo;
+  const int col_hi = col_lo + half_bo;
+  const int n_warp = 8 * NT * wn;  // first token of this warp in the tile
+  int live_nt = (T - t0 - n_warp + 7) / 8;
+  live_nt = live_nt < 0 ? 0 : (live_nt > NT ? NT : live_nt);
 
-  for (int g = g0; g < g1; ++g) {
-    __syncthreads();  // the previous group's reads of sx are done
-    for (int i = threadIdx.x; i < RT * gi; i += kSkinnyThreads) {
-      const int t = i / gi;
-      const int k = i % gi;
-      sx[t][k] = t < nr ? __bfloat162float(x[size_t(t0 + t) * IN + size_t(g) * gi + k])
-                        : 0.f;
+  auto load_stage = [&](int step, int slot) {
+    unsigned char* sq = smem + slot * C::kStageBytes;
+    __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(sq + C::kQBytes);
+    const int k0 = k_begin + step * kBK;
+    constexpr int kQChunks = kBK * C::kBB / 16;
+#pragma unroll
+    for (int i = tid; i < kQChunks; i += C::kThreads) {
+      const int r = i / (C::kBB / 16);
+      const int cc = i % (C::kBB / 16);
+      cp_async16(sq + r * C::kQStride + cc * 16,
+                 q + size_t(k0 + r) * row_bytes + cb0 + cc * 16, 16);
     }
-    __syncthreads();
+    constexpr int kXChunks = C::kBN * kBK / 8;
+#pragma unroll
+    for (int i = tid; i < kXChunks; i += C::kThreads) {
+      const int r = i / (kBK / 8);
+      const int cc = i % (kBK / 8);
+      const bool ok = t0 + r < T;
+      const __nv_bfloat16* src = x + size_t(ok ? t0 + r : 0) * IN + k0 + cc * 8;
+      cp_async16(sx + r * C::kXStride + cc * 8, src, ok ? 16 : 0);
+    }
+  };
 
-    float p[RT][8];
+  float acc[4][NT][4];
+  float p[4][NT][4];
 #pragma unroll
-    for (int t = 0; t < RT; ++t)
+  for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) p[t][c] = 0.f;
-    const uint32_t* qrow =
-        q + size_t(g * gi + kbeg) * words_per_row + (b0 >> 2);
-#pragma unroll 4
-    for (int k = 0; k < rows_per_warp; ++k) {
-      const uint32_t word = __ldg(qrow + size_t(k) * words_per_row);
-      float w[8];
-      unpack8(word, w);
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int t = 0; t < RT; ++t) {
-        const float xv = sx[t][kbeg + k];
+      for (int e = 0; e < 4; ++e) {
+        acc[t][j][e] = 0.f;
+        p[t][j][e] = 0.f;
+      }
+  float4 s_lo = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s_hi = s_lo;
+
 #pragma unroll
-        for (int c = 0; c < 8; ++c) p[t][c] = fmaf(xv, w[c], p[t][c]);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < n_steps; ++it) {
+    if (it % steps_per_group == 0) {
+      // This group's scales: in registers long before the fold needs them.
+      const float* srow = scale + size_t(g0 + it / steps_per_group) * OUT;
+      s_lo = __ldg(reinterpret_cast<const float4*>(srow + col_lo));
+      s_hi = __ldg(reinterpret_cast<const float4*>(srow + col_hi));
+    }
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage `it` landed; stage it-1 is no longer read
+    {
+      const int nx = it + STAGES - 1;
+      if (nx < n_steps) load_stage(nx, nx % STAGES);
+      cp_async_commit();
+    }
+
+    if (live_nt > 0) {
+      const unsigned char* sq = smem + (it % STAGES) * C::kStageBytes;
+      const __nv_bfloat16* sx = reinterpret_cast<const __nv_bfloat16*>(sq + C::kQBytes);
+      const unsigned char* qb = sq + 32 * wm + 4 * g;
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        const int kr = ks * 16 + 2 * c;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(qb + kr * C::kQStride);
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(qb + (kr + 1) * C::kQStride);
+        const uint32_t w8 = *reinterpret_cast<const uint32_t*>(qb + (kr + 8) * C::kQStride);
+        const uint32_t w9 = *reinterpret_cast<const uint32_t*>(qb + (kr + 9) * C::kQStride);
+        uint32_t bf[NT][2];
+        const int mi = (lane >> 3) & 3;
+        if constexpr (NT == 1) {
+          const __nv_bfloat16* pb =
+              sx + (n_warp + (lane & 7)) * C::kXStride + ks * 16 + (mi & 1) * 8;
+          ldmatrix_x2(bf[0], pb);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; j += 2) {
+            const __nv_bfloat16* pb = sx +
+                                      (n_warp + (j + (mi >> 1)) * 8 + (lane & 7)) * C::kXStride +
+                                      ks * 16 + (mi & 1) * 8;
+            uint32_t r[4];
+            ldmatrix_x4(r, pb);
+            bf[j][0] = r[0];
+            bf[j][1] = r[1];
+            bf[j + 1][0] = r[2];
+            bf[j + 1][1] = r[3];
+          }
+        }
+        mma_tile<0>(w0, w1, w8, w9, bf, p[0], live_nt);
+        mma_tile<1>(w0, w1, w8, w9, bf, p[1], live_nt);
+        mma_tile<2>(w0, w1, w8, w9, bf, p[2], live_nt);
+        mma_tile<3>(w0, w1, w8, w9, bf, p[3], live_nt);
       }
     }
-    const float* srow = scale + size_t(g) * OUT;
-    float s[8];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[c] = srow[col_lo + c];
-      s[4 + c] = srow[col_hi + c];
-    }
-#pragma unroll
-    for (int t = 0; t < RT; ++t)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[t][c] = fmaf(p[t][c], s[c], acc[t][c]);
-  }
 
-  // The four warps' sums of the same columns, added in a fixed order.
-  if (warp > 0) {
+    if ((it + 1) % steps_per_group == 0) {
+      // Group end: scale the group's f32 partials into the accumulator.
+      const float lo[4] = {s_lo.x, s_lo.y, s_lo.z, s_lo.w};
+      const float hi[4] = {s_hi.x, s_hi.y, s_hi.z, s_hi.w};
 #pragma unroll
-    for (int t = 0; t < RT; ++t)
+      for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) sred[warp - 1][t][lane * 8 + c] = acc[t][c];
+        for (int j = 0; j < NT; ++j) {
+          acc[t][j][0] = fmaf(p[t][j][0], lo[t], acc[t][j][0]);
+          acc[t][j][1] = fmaf(p[t][j][1], lo[t], acc[t][j][1]);
+          acc[t][j][2] = fmaf(p[t][j][2], hi[t], acc[t][j][2]);
+          acc[t][j][3] = fmaf(p[t][j][3], hi[t], acc[t][j][3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[t][j][e] = 0.f;
+        }
+    }
   }
-  __syncthreads();
-  if (warp != 0) return;
+  cp_async_wait<0>();
+
+  // Fragment (row g, token 2c+e) of m-tile t is column col_lo + t, and row
+  // g+8 is col_hi + t: four consecutive columns per token and half.
 #pragma unroll
-  for (int t = 0; t < RT; ++t) {
-    if (t >= nr) break;
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float v = acc[t][c];
-#pragma unroll
-      for (int w2 = 0; w2 < kSkinnyWarps - 1; ++w2) v += sred[w2][t][lane * 8 + c];
-      const int col = c < 4 ? col_lo + c : col_hi + (c - 4);
-      const size_t row = size_t(t0 + t);
-      if (gridDim.y == 1) {
-        out[row * OUT + col] = __float2bfloat16(v);
+    for (int e = 0; e < 2; ++e) {
+      const int token = t0 + n_warp + 8 * j + 2 * c + e;
+      if (token >= T) continue;
+      if (gridDim.z == 1) {
+        __nv_bfloat16* orow = out + size_t(token) * OUT;
+        const __nv_bfloat162 l01 = __floats2bfloat162_rn(acc[0][j][e], acc[1][j][e]);
+        const __nv_bfloat162 l23 = __floats2bfloat162_rn(acc[2][j][e], acc[3][j][e]);
+        const __nv_bfloat162 h01 = __floats2bfloat162_rn(acc[0][j][2 + e], acc[1][j][2 + e]);
+        const __nv_bfloat162 h23 = __floats2bfloat162_rn(acc[2][j][2 + e], acc[3][j][2 + e]);
+        uint2 lo, hi;
+        lo.x = *reinterpret_cast<const uint32_t*>(&l01);
+        lo.y = *reinterpret_cast<const uint32_t*>(&l23);
+        hi.x = *reinterpret_cast<const uint32_t*>(&h01);
+        hi.y = *reinterpret_cast<const uint32_t*>(&h23);
+        *reinterpret_cast<uint2*>(orow + col_lo) = lo;
+        *reinterpret_cast<uint2*>(orow + col_hi) = hi;
       } else {
-        part[(size_t(blockIdx.y) * T + row) * OUT + col] = v;
+        float* prow = part + (size_t(blockIdx.z) * T + token) * OUT;
+        *reinterpret_cast<float4*>(prow + col_lo) =
+            make_float4(acc[0][j][e], acc[1][j][e], acc[2][j][e], acc[3][j][e]);
+        *reinterpret_cast<float4*>(prow + col_hi) =
+            make_float4(acc[0][j][2 + e], acc[1][j][2 + e], acc[2][j][2 + e], acc[3][j][2 + e]);
       }
     }
-  }
 }
 
 // Sum the contraction slices' partial rows in slice order, round once.
@@ -181,134 +370,41 @@ __global__ void int4_reduce_kernel(const float* __restrict__ part,
   out[i] = __float2bfloat16(v);
 }
 
-// ------------------------------------------------------- large T (prefill)
-
-constexpr int kTileT = 64;      // rows of x per block
-constexpr int kTileB = 64;      // byte columns per block (128 output columns)
-constexpr int kTileK = 32;      // contraction rows per step
-constexpr int kTileThreads = 256;
-constexpr int kSxStride = kTileT + 4;
-
-__global__ void __launch_bounds__(kTileThreads)
-int4_tiled_kernel(const __nv_bfloat16* __restrict__ x,
-                  const uint32_t* __restrict__ q,
-                  const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ out, int T, int IN, int OUT,
-                  int gi, int bo) {
-  __shared__ __align__(16) float sx[kTileK][kSxStride];   // x tile, k-major
-  __shared__ __align__(16) float sw[kTileK][2 * kTileB];  // lo cols | hi cols
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;  // rows ty*4 .. ty*4+3 of the tile
-  const int tx = tid % 16;  // byte columns tx*4 .. tx*4+3 of the tile
-  const int words_per_row = OUT / 8;
-  const int cb0 = blockIdx.x * kTileB;
-  const int half_bo = bo / 2;
-  const int col_lo = (cb0 / half_bo) * bo + cb0 % half_bo + tx * 4;
-  const int col_hi = col_lo + half_bo;
-  const int t0 = blockIdx.y * kTileT;
-
-  float acc[4][8];
-  float p[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      acc[i][c] = 0.f;
-      p[i][c] = 0.f;
-    }
-
-  for (int k0 = 0; k0 < IN; k0 += kTileK) {
-    {
-      // x tile: 64 rows x 32 columns, 8 bf16 (16 bytes) per thread.
-      const int r = tid / 4;
-      const int kc = (tid % 4) * 8;
-      float v[8];
-      if (t0 + r < T) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(x + size_t(t0 + r) * IN + k0 + kc);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          v[2 * e] = f.x;
-          v[2 * e + 1] = f.y;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sx[kc + e][r] = v[e];
-    }
-    // Weight tile: 32 rows x 64 bytes = 16 words a row, unpacked.
-    for (int i = tid; i < kTileK * (kTileB / 4); i += kTileThreads) {
-      const int kr = i / (kTileB / 4);
-      const int wc = i % (kTileB / 4);
-      const uint32_t word =
-          __ldg(q + size_t(k0 + kr) * words_per_row + (cb0 >> 2) + wc);
-      float w[8];
-      unpack8(word, w);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sw[kr][wc * 4 + e] = w[e];
-        sw[kr][kTileB + wc * 4 + e] = w[4 + e];
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&sx[kk][ty * 4]);
-      const float4 blo = *reinterpret_cast<const float4*>(&sw[kk][tx * 4]);
-      const float4 bhi = *reinterpret_cast<const float4*>(&sw[kk][kTileB + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {blo.x, blo.y, blo.z, blo.w, bhi.x, bhi.y, bhi.z, bhi.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) p[i][c] = fmaf(av[i], bv[c], p[i][c]);
-    }
-    __syncthreads();
-
-    if ((k0 + kTileK) % gi == 0) {
-      // Group end: scale the group's partial sums into the accumulator.
-      const float* srow = scale + size_t(k0 / gi) * OUT;
-      float s[8];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[c] = srow[col_lo + c];
-        s[4 + c] = srow[col_hi + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          acc[i][c] = fmaf(p[i][c], s[c], acc[i][c]);
-          p[i][c] = 0.f;
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = t0 + ty * 4 + i;
-    if (row >= T) continue;
-    __nv_bfloat16* orow = out + size_t(row) * OUT;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      orow[col_lo + c] = __float2bfloat16(acc[i][c]);
-      orow[col_hi + c] = __float2bfloat16(acc[i][4 + c]);
-    }
-  }
+template <class C>
+cudaError_t launch_mma(const __nv_bfloat16* x, const uint8_t* q, const float* sc,
+                       __nv_bfloat16* out, float* part, int T, int IN, int OUT, int gi,
+                       int bo, int splits, cudaStream_t s) {
+  auto kern = int4_mma_kernel<C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const int G = IN / gi;
+  const int gps = (G + splits - 1) / splits;
+  const dim3 grid((OUT / 2) / C::kBB, (T + C::kBN - 1) / C::kBN, splits);
+  kern<<<grid, C::kThreads, C::kSmem, s>>>(x, q, sc, out, part, T, IN, OUT, gi, bo, gps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched). The caller allocates `out` and, when
-// `splits` > 1, the f32 workspace [splits, T, OUT]. `splits` must be what the
-// wrapper's plan gives (whole groups per slice; 1 when T > 8).
+// Plain C interface, loaded with ctypes.
+//
+// The contraction split for these shapes: the number of slices (1 = none),
+// or 0 for shapes the kernel does not take. A split grid has under
+// kSplitBelow tiles and at most kTargetBlocks / tiles + 1 slices, so the
+// workspace [splits, T, OUT] f32 stays under 4 * (264 + 132) * 128 * 64
+// bytes (12.9 MB) for T > 8 and 4 * (264 + 132) * 256 * 8 (3.2 MB) below.
+extern "C" int int4_matmul_plan(int T, int IN, int OUT, int group_in) {
+  if (T <= 0 || IN <= 0 || OUT <= 0) return 0;
+  if (group_in != 128 && group_in != 256 && group_in != 512) return 0;
+  if (IN % group_in || OUT % 256) return 0;
+  return plan_splits(T, IN, OUT, group_in);
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 = launched). The
+// caller allocates `out` and, when `splits` > 1, the f32 workspace
+// [splits, T, OUT]. `splits` must be int4_matmul_plan's: anything else is
+// refused with cudaErrorInvalidValue.
 extern "C" int int4_matmul_bf16(const void* x, const void* q, const void* scale,
                                 void* out, void* workspace, int T, int IN, int OUT,
                                 int group_in, int block_out, int splits,
@@ -317,35 +413,22 @@ extern "C" int int4_matmul_bf16(const void* x, const void* q, const void* scale,
   if (group_in != 128 && group_in != 256 && group_in != 512) return int(cudaErrorInvalidValue);
   if (block_out != 256 && block_out != 512) return int(cudaErrorInvalidValue);
   if (IN % group_in || OUT % block_out) return int(cudaErrorInvalidValue);
+  if (splits != plan_splits(T, IN, OUT, group_in)) return int(cudaErrorInvalidValue);
+  if (splits > 1 && workspace == nullptr) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* qw = static_cast<const uint32_t*>(q);
+  const auto* qb = static_cast<const uint8_t*>(q);
   const auto* sc = static_cast<const float*>(scale);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (T <= 8) {
-    const int G = IN / group_in;
-    const int gps = (G + splits - 1) / splits;
-    if ((G + gps - 1) / gps != splits) return int(cudaErrorInvalidValue);
-    if (splits > 1 && workspace == nullptr) return int(cudaErrorInvalidValue);
-    auto* part = static_cast<float*>(workspace);
-    const dim3 grid((OUT / 2) / kSkinnyBytes, splits, 1);
-    if (T == 1) {
-      int4_skinny_kernel<1><<<grid, kSkinnyThreads, 0, s>>>(
-          xb, qw, sc, ob, part, T, IN, OUT, group_in, block_out, gps);
-    } else {
-      int4_skinny_kernel<8><<<grid, kSkinnyThreads, 0, s>>>(
-          xb, qw, sc, ob, part, T, IN, OUT, group_in, block_out, gps);
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return int(err);
-    const size_t n = size_t(T) * OUT;
-    int4_reduce_kernel<<<unsigned((n + 255) / 256), 256, 0, s>>>(part, ob, splits, n);
-    return int(cudaGetLastError());
-  }
-  if (splits != 1) return int(cudaErrorInvalidValue);
-  const dim3 grid((OUT / 2) / kTileB, (T + kTileT - 1) / kTileT);
-  int4_tiled_kernel<<<grid, kTileThreads, 0, s>>>(xb, qw, sc, ob, T, IN, OUT,
-                                                  group_in, block_out);
+  auto* part = static_cast<float*>(workspace);
+  const cudaError_t err =
+      T <= 8 ? launch_mma<Skinny>(xb, qb, sc, ob, part, T, IN, OUT, group_in, block_out,
+                                  splits, s)
+             : launch_mma<Tiled>(xb, qb, sc, ob, part, T, IN, OUT, group_in, block_out,
+                                 splits, s);
+  if (err != cudaSuccess || splits == 1) return int(err);
+  const size_t n = size_t(T) * OUT;
+  int4_reduce_kernel<<<unsigned((n + 255) / 256), 256, 0, s>>>(part, ob, splits, n);
   return int(cudaGetLastError());
 }
 

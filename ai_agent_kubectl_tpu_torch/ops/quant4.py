@@ -39,12 +39,11 @@ import torch
 GROUP_IN = 512
 BLOCK_OUT = 512
 
-#: the kernel's small-T path (a GEMV over the packed bytes) serves up to
-#: this many rows; more rows take its tiled path.
+#: the kernel's small-T path (the GEMV tiling: 256 output columns by 8
+#: tokens a block) serves up to this many rows; more rows take its tiled
+#: path (128 output columns by 64 tokens a block). Both run on the tensor
+#: cores; the source note of ``csrc/int4_matmul.cu`` gives the design.
 SKINNY_MAX_T = 8
-#: blocks the small-T path aims for (two per SM of an H100) when it
-#: splits the contraction over groups.
-_SKINNY_TARGET_BLOCKS = 264
 
 
 @dataclasses.dataclass
@@ -166,17 +165,24 @@ def qmatmul4_plain(x: torch.Tensor, w: QuantInt4) -> torch.Tensor:
     return (partial * w.scale).sum(dim=-2).to(x.dtype)
 
 
-def _plan_splits(T: int, IN: int, OUT: int, group_in: int) -> int:
-    """How many slices the small-T path cuts the contraction into (whole
-    scale groups each), so that enough blocks run; 1 for the tiled
-    path. The kernel checks the same rule."""
-    if T > SKINNY_MAX_T:
-        return 1
-    col_tiles = OUT // 2 // 128
-    G = IN // group_in
-    want = min(G, max(1, -(-_SKINNY_TARGET_BLOCKS // col_tiles)))
-    per = -(-G // want)
-    return -(-G // per)
+def split_plan(T: int, IN: int, OUT: int, group_in: int) -> int:
+    """How many slices of whole scale groups the kernel cuts the
+    contraction into for these shapes (1: none): the kernel's own rule
+    (``int4_matmul_plan`` in ``csrc/int4_matmul.cu``; it splits when the
+    grid of output tiles x token tiles is under one block per SM, aiming
+    for two), read from its library, so it builds the kernel first. A
+    split call's f32 workspace is [splits, T, OUT]; the source note
+    bounds it (12.9 MB for T > 8, 3.2 MB below)."""
+    from ._cuda import load
+
+    fn = load("int4_matmul").int4_matmul_plan
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    splits = fn(T, IN, OUT, group_in)
+    if splits <= 0:
+        raise ValueError(f"the kernel takes no plan for T={T}, "
+                         f"[{IN}, {OUT}], group_in={group_in}")
+    return splits
 
 
 def _check_cuda_args(x2: torch.Tensor, w: QuantInt4) -> None:
@@ -204,8 +210,8 @@ def _check_cuda_args(x2: torch.Tensor, w: QuantInt4) -> None:
     if tuple(w.scale.shape) != (IN // w.group_in, OUT):
         raise ValueError(f"scale must be [{IN // w.group_in}, {OUT}], got "
                          f"{tuple(w.scale.shape)}")
-    if x2.data_ptr() % 16 or w.q.data_ptr() % 16:
-        raise ValueError("x and q must be 16-byte aligned")
+    if x2.data_ptr() % 16 or w.q.data_ptr() % 16 or w.scale.data_ptr() % 16:
+        raise ValueError("x, q and scale must be 16-byte aligned")
 
 
 def qmatmul4(x: torch.Tensor, w: QuantInt4) -> torch.Tensor:
@@ -233,7 +239,7 @@ def qmatmul4(x: torch.Tensor, w: QuantInt4) -> torch.Tensor:
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     OUT = w.q.shape[1] * 2
-    splits = _plan_splits(T, IN, OUT, w.group_in)
+    splits = split_plan(T, IN, OUT, w.group_in)
     out = torch.empty((T, OUT), dtype=x.dtype, device=x.device)
     work = (torch.empty((splits, T, OUT), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)

@@ -74,6 +74,31 @@ def ragged_attention_pool_plain(q, k, v, q_lens, positions, block_tables,
     return torch.where(col_ok[:, :, None, None], out, 0.0)
 
 
+def split_plan(N: int, W: int, H: int, KV: int, max_pages: int,
+               page: int) -> tuple:
+    """``(splits, keys_per_split, ws_rows)`` for a call: the keys of
+    every 64-row tile cut into ranges of ``keys_per_split`` (a multiple
+    of 64) when the (slot, KV head, row tile) blocks alone are under one
+    per SM, and the rows of each split's workspaces. The kernel's own
+    rule (``ragged_attention_plan`` in ``csrc/ragged_attention.cu``),
+    read from its library, so it builds the kernel first. A function of
+    the shapes only, never of positions or q_lens: a row's live splits
+    follow from its own slot's last key. The source note bounds the
+    workspaces (26.2 MB at head_dim 256)."""
+    from ._cuda import load
+
+    fn = load("ragged_attention").ragged_attention_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    splits, kps, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    err = fn(N, W, H, KV, max_pages, page, ctypes.addressof(splits),
+             ctypes.addressof(kps), ctypes.addressof(rows))
+    if err != 0:
+        raise ValueError(f"the kernel takes no key split for N={N}, W={W}, "
+                         f"H={H}, KV={KV}, {max_pages} pages of {page}")
+    return splits.value, kps.value, rows.value
+
+
 def _check_cuda_args(q, k, v, q_lens, positions, block_tables,
                      page_size: int) -> None:
     tensors = {"q": q, "k": k, "v": v, "q_lens": q_lens,
@@ -108,6 +133,8 @@ def _check_cuda_args(q, k, v, q_lens, positions, block_tables,
             or block_tables.dim() != 2 or block_tables.shape[0] != N):
         raise ValueError("q_lens/positions must be [N] and block_tables "
                          "[N, max_pages]")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("q, k and v must be 16-byte aligned")
 
 
 def ragged_attention_pool(q: torch.Tensor, k: torch.Tensor,
@@ -134,19 +161,29 @@ def ragged_attention_pool(q: torch.Tensor, k: torch.Tensor,
 
     lib = load("ragged_attention")
     fn = lib.ragged_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     N, W, H, hd = q.shape
     n_blocks, page, KV, _ = k.shape
+    max_pages = block_tables.shape[1]
+    splits, kps, rows = split_plan(N, W, H, KV, max_pages, page)
     out = torch.empty_like(q)
+    ws_o = ws_ml = None
+    if splits > 1:
+        ws_o = torch.empty((splits, rows, hd), dtype=torch.float32,
+                           device=q.device)
+        ws_ml = torch.empty((splits, rows, 2), dtype=torch.float32,
+                            device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  q_lens.data_ptr(), positions.data_ptr(),
                  block_tables.data_ptr(), out.data_ptr(),
-                 N, W, H, KV, hd, page, n_blocks, block_tables.shape[1],
-                 float(scale), stream)
+                 0 if ws_o is None else ws_o.data_ptr(),
+                 0 if ws_ml is None else ws_ml.data_ptr(),
+                 N, W, H, KV, hd, page, n_blocks, max_pages,
+                 float(scale), kps, splits, stream)
     if err != 0:
         lib.ragged_attention_error_string.restype = ctypes.c_char_p
         lib.ragged_attention_error_string.argtypes = [ctypes.c_int]

@@ -13,15 +13,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                * ragged attention at Gemma-2B's shapes (H=8, KV=1,
                  head_dim 256, page 16, 8 slots): decode at mixed
                  positions, a 5-wide verify window, prefill spans of 64
-                 and 512, a q_len=0 slot, sentinel table entries and an
-                 unmapped block full of NaN;
+                 and 512, a q_len=0 slot, sentinel table entries, an
+                 unmapped block full of NaN and NaN past every slot's
+                 last live key; decode with the keys split over blocks
+                 (last keys on and beside split boundaries, position
+                 1023) and the mixed prologue at W=64 (two admissions,
+                 six decode rows);
                * flash attention at Gemma-7B's shapes (H=KV=16, head_dim
                  256; S 64 and 512 over a 1024-slot cache, from position
                  0 and from 85, a padded tail running past the cache,
                  rows with no visible key, a two-row strided cache view)
                  and one Llama-shaped GQA case (H=32, KV=8, head_dim 128);
                * the int4 matmul on Gemma-7B's four projection shapes at
-                 T in {1, 8, 85, 512}, formats 512/512 and 256/256;
+                 T in {1, 8, 9, 16, 64, 65, 85, 512, 600}, formats
+                 512/512, 256/256 and 128/256 (the GEMV, the tiled path,
+                 with and without the contraction split);
                * both paged decode entry points (contiguous caches and the
                  pool) at Llama-3-8B's grouping (H=32, KV=8, head_dim 128;
                  pages 64 and 16), Gemma-2B's (8 over 1, 256) and
@@ -126,10 +132,12 @@ def gpu_line() -> str:
 def ragged_case(torch, gen, *, W, positions, q_lens, nan_block=True,
                 device="cuda"):
     """One ragged-attention call at Gemma-2B's shapes: a pool of
-    N*MAX_PAGES+1 blocks whose last block (the one a clamped sentinel
-    entry lands on) is NaN, tables that map each slot's live pages to
+    N*MAX_PAGES+1 blocks, tables that map each slot's live pages to
     distinct blocks (slot 1 shares slot 0's first block) and hold the
-    sentinel past them."""
+    sentinel past them. With ``nan_block`` the last block (the one a
+    clamped sentinel entry lands on) is NaN, and so is every row past a
+    slot's last live key in its last live page, where no other slot
+    reads: the kernel must read nothing past a tile's last live key."""
     N = len(positions)
     n_blocks = N * MAX_PAGES + 1
     shape = (n_blocks, PAGE, N_KV, HEAD_DIM)
@@ -151,6 +159,17 @@ def ragged_case(torch, gen, *, W, positions, q_lens, nan_block=True,
         tables[n, :live] = perm[used:used + live]
         used += live
     tables[1, 0] = tables[0, 0]          # a shared prefix page
+    if nan_block:
+        owners: dict = {}
+        for n, (p, ql) in enumerate(zip(positions, q_lens)):
+            for b in tables[n, :-(-(p + max(ql, 1)) // PAGE)].tolist():
+                owners.setdefault(b, set()).add(n)
+        for n, (p, ql) in enumerate(zip(positions, q_lens)):
+            last = p + max(ql, 1) - 1    # the slot's last live key
+            blk = int(tables[n, last // PAGE])
+            if owners[blk] == {n} and last % PAGE < PAGE - 1:
+                k[blk, last % PAGE + 1:] = float("nan")
+                v[blk, last % PAGE + 1:] = float("nan")
     return dict(
         q=q, k=k, v=v,
         q_lens=torch.tensor(q_lens, dtype=torch.int32, device=device),
@@ -177,13 +196,34 @@ def ragged_cases(torch, gen):
             torch, gen, W=512,
             positions=[0, 100, 0, 256, 0, 0, 500, 0],
             q_lens=[512, 512, 300, 512, 0, 1, 512, 200])),
+        # Decode with the keys split over blocks (64 keys a split at this
+        # shape): last keys just before, on and just past split
+        # boundaries, a frozen slot and the last position of the table.
+        ("decode_split", ragged_case(
+            torch, gen, W=1,
+            positions=[63, 64, 127, 128, 0, 1023, 500, 191],
+            q_lens=[1, 1, 1, 1, 1, 1, 0, 1])),
+        # The ragged prologue as _run_chunk dispatches it: two slots
+        # admit their prompt's suffix (each prompt 85 tokens) while six
+        # decode at q_len 1, in one W=64 window (keys split, 256 a split).
+        ("prologue64", ragged_case(torch, gen, **PROLOGUE64)),
     ]
 
 
+# The mixed ragged prologue of phases 2 and 6 (see ragged_cases).
+PROLOGUE64 = dict(W=64, positions=[21, 45, 100, 150, 200, 260, 512, 1000],
+                  q_lens=[64, 40, 1, 1, 1, 1, 1, 1])
+# Ragged cases whose key split phase 2 checks (their shapes must split).
+RAGGED_SPLIT_CASES = ("decode", "verify5", "prefill64", "decode_split",
+                      "prologue64")
+
+
 def ragged_live_work(case) -> tuple:
-    """(bytes, flops) the call needs for THIS data: q read and out
-    written once, the live K/V rows (pos + q_len per slot) read once, the
-    index vectors; 4 * hd * H FLOPs per attended (query column, key)."""
+    """(bytes, flops) the call needs for THIS data: the live q columns
+    (q_len per slot) read once, all of out written once (its padded
+    columns are zeros the call must write), the live K/V rows (pos +
+    q_len per slot) read once, the index vectors; 4 * hd * H FLOPs per
+    attended (query column, key)."""
     q = case["q"]
     N, W, H, hd = q.shape
     KV = case["k"].shape[2]
@@ -191,7 +231,8 @@ def ragged_live_work(case) -> tuple:
     ql = case["q_lens"].tolist()
     kv_rows = sum(p + l for p, l in zip(pos, ql) if l > 0)
     pairs = sum(sum(p + j + 1 for j in range(l)) for p, l in zip(pos, ql))
-    nbytes = (2 * q.numel() * q.element_size()          # q in, out
+    nbytes = (sum(ql) * H * hd * q.element_size()      # live q in
+              + q.numel() * q.element_size()            # out
               + 2 * kv_rows * KV * hd * 2               # live K and V
               + 4 * (2 * N + case["block_tables"].numel()))
     flops = 4 * pairs * H * hd
@@ -293,6 +334,14 @@ def flash_sdpa_inputs(torch, case):
 
 # ------------------------------------------------------------ int4 matmul
 
+# Phase 2's int4 rows: both sides of the GEMV/tiled switch at 8, one and
+# two token tiles of 64 (with and without the contraction split, which
+# the tiled path takes at wq, wo and w_down up to T=128), serve1's
+# prefill buckets and a chunk past 512.
+INT4_TS = (1, 8, 9, 16, 64, 65, 85, 512, 600)
+INT4_FORMATS = ((512, 512), (256, 256), (128, 256))
+
+
 def int4_case(torch, gen, *, T, IN, OUT, fmt, device="cuda"):
     """x [T, IN] bf16 and a packed int4 weight of random bytes (every
     nibble value, -8 included) with positive group scales near the
@@ -312,9 +361,9 @@ def int4_case(torch, gen, *, T, IN, OUT, fmt, device="cuda"):
 def int4_cases(torch, gen):
     """The shapes of phase 2 for the int4 matmul: (label, x, w)."""
     out = []
-    for fmt in ((512, 512), (256, 256)):
+    for fmt in INT4_FORMATS:
         for name, (IN, OUT) in G7_PROJ.items():
-            for T in (1, 8, 85, 512):
+            for T in INT4_TS:
                 x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
                 out.append((f"{name}_T{T}_{fmt[0]}/{fmt[1]}", x, w))
     return out
@@ -456,9 +505,11 @@ def check_close(torch, label, out, ref) -> float:
 
 def time_cuda(torch, fn, *, iters: int, warmup: int = 3) -> dict:
     """Device milliseconds per call of ``fn``, from CUDA events around
-    each call alone. A 64 MB buffer is rewritten between calls, so every
-    call finds the 50 MB L2 cold, as the serving path does (each layer's
-    pool slice was last touched a whole forward ago).
+    each call alone. A 64 MB buffer is read between calls, so every call
+    finds the 50 MB L2 cold, as the serving path does (each layer's pool
+    slice was last touched a whole forward ago). A read leaves no dirty
+    lines behind: a rewrite would leave the timed call to write 50 MB
+    back, and charge calls that evict more of the L2 more.
 
     A device-side spin before each start event keeps the card busy while
     the host runs ``fn`` (the wrapper up to its launches), so that host
@@ -468,13 +519,15 @@ def time_cuda(torch, fn, *, iters: int, warmup: int = 3) -> dict:
     ``fn``'s return, must be shorter than the spin's own device time
     (events around it), or the card may have idled between the start
     event and the first kernel. Such a call is left out of the mean and
-    counted as ``uncovered``; the timing fails if that is more than half
-    of them. Returns ``{"ms", "host_ms_max", "spin_ms_min",
-    "uncovered"}``."""
+    counted as ``uncovered``. While fewer than half of ``iters`` calls
+    are covered, another ``iters`` are taken (a host-heavy plain version
+    leaves about half uncovered), up to four rounds; the timing fails if
+    they still fall short. Returns ``{"ms", "host_ms_max", "spin_ms_min",
+    "uncovered", "calls"}``."""
     def event():
         return torch.cuda.Event(enable_timing=True)
 
-    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    scratch = torch.zeros(16 << 20, dtype=torch.int32, device="cuda")
     host = []
     for _ in range(warmup):
         torch.cuda.synchronize()
@@ -490,28 +543,34 @@ def time_cuda(torch, fn, *, iters: int, warmup: int = 3) -> dict:
     cycles_per_ms = 1_000_000 / a.elapsed_time(b)
     spin_ms = max(0.3, 4e3 * sorted(host)[len(host) // 2])
     cycles = int(spin_ms * cycles_per_ms)
-    pres, starts, ends = ([event() for _ in range(iters)] for _ in range(3))
-    host = []
-    for i in range(iters):
-        scratch.zero_()
-        pres[i].record()
-        t0 = time.perf_counter()
-        torch.cuda._sleep(cycles)
-        starts[i].record()
-        fn()
-        host.append((time.perf_counter() - t0) * 1e3)
-        ends[i].record()
-    torch.cuda.synchronize()
-    spins = [p.elapsed_time(s) for p, s in zip(pres, starts)]
-    covered = [s.elapsed_time(e) for s, e, h, sp
-               in zip(starts, ends, host, spins) if h < sp]
+    host, spins, covered = [], [], []
+    while 2 * len(covered) < iters and len(host) < 4 * iters:
+        pres, starts, ends = ([event() for _ in range(iters)]
+                              for _ in range(3))
+        took = []
+        for i in range(iters):
+            scratch.sum()
+            pres[i].record()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(cycles)
+            starts[i].record()
+            fn()
+            took.append((time.perf_counter() - t0) * 1e3)
+            ends[i].record()
+        torch.cuda.synchronize()
+        spun = [p.elapsed_time(s) for p, s in zip(pres, starts)]
+        covered += [s.elapsed_time(e) for s, e, h, sp
+                    in zip(starts, ends, took, spun) if h < sp]
+        host += took
+        spins += spun
     if 2 * len(covered) < iters:
         raise AssertionError(
-            f"timing: the host outlasted the spin in {iters - len(covered)} "
-            f"of {iters} calls (host up to {max(host):.3f} ms, spin "
-            f"{min(spins):.3f} ms)")
+            f"timing: the host outlasted the spin in "
+            f"{len(host) - len(covered)} of {len(host)} calls (host up to "
+            f"{max(host):.3f} ms, spin {min(spins):.3f} ms)")
     return {"ms": sum(covered) / len(covered), "host_ms_max": max(host),
-            "spin_ms_min": min(spins), "uncovered": iters - len(covered)}
+            "spin_ms_min": min(spins), "uncovered": len(host) - len(covered),
+            "calls": len(host)}
 
 
 # ------------------------------------------------------------------ phases
@@ -535,12 +594,17 @@ def phase_build() -> dict:
 
 def phase_kernel(torch) -> dict:
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
-        ragged_attention_pool, ragged_attention_pool_plain)
+        ragged_attention_pool, ragged_attention_pool_plain, split_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     worst = 0.0
     before = ragged_attention_pool.launches
-    for label, case in ragged_cases(torch, gen):
+    cases = ragged_cases(torch, gen)
+    for label, case in cases:
+        N, W, H, _ = case["q"].shape
+        splits, kps, _ = split_plan(N, W, H, N_KV, MAX_PAGES, PAGE)
+        if (splits > 1) != (label in RAGGED_SPLIT_CASES):
+            raise AssertionError(f"ragged [{label}]: {splits} key splits")
         out = ragged_attention_pool(**case, page_size=PAGE)
         ref = ragged_attention_pool_plain(**case, page_size=PAGE)
         # Non-finite output would mean a dead or NaN page leaked in.
@@ -549,14 +613,15 @@ def phase_kernel(torch) -> dict:
         pad = (torch.arange(out.shape[1], device="cuda")[None, :]
                >= case["q_lens"][:, None])
         log(f"[kernel] ragged {label}: max |kernel - plain| = {err:.3e} "
-            f"over {out.numel()} values")
+            f"over {out.numel()} values ({splits} key split(s) of {kps})")
         if (out[frozen] != 0).any() or (out[pad] != 0).any():
             raise AssertionError(f"ragged kernel [{label}]: q_len=0 slots "
                                  f"and padded columns must be exact zeros")
         worst = max(worst, err)
     grew = ragged_attention_pool.launches - before
-    if grew != 4:
-        raise AssertionError(f"launch counter grew by {grew}, expected 4")
+    if grew != len(cases):
+        raise AssertionError(f"launch counter grew by {grew}, expected "
+                             f"{len(cases)}")
     return {"ragged_attention": {"max_abs_err": worst},
             "flash_attention": _kernel_flash(torch, gen),
             "int4_matmul": _kernel_int4(torch, gen),
@@ -620,24 +685,34 @@ def _kernel_flash(torch, gen) -> dict:
 
 
 def _kernel_int4(torch, gen) -> dict:
-    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4, qmatmul4_plain
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import (
+        SKINNY_MAX_T, qmatmul4, qmatmul4_plain, split_plan)
 
     worst = 0.0
     n = 0
+    split_tiled = 0
     before = qmatmul4.launches
     for label, x, w in int4_cases(torch, gen):
+        T, IN = x.shape
+        splits = split_plan(T, IN, w.q.shape[1] * 2, w.group_in)
+        split_tiled += T > SKINNY_MAX_T and splits > 1
         out = qmatmul4(x, w)
         ref = qmatmul4_plain(x, w)
         err = check_close(torch, f"int4 [{label}]", out, ref)
         log(f"[kernel] int4 {label}: max |kernel - plain| = {err:.3e} "
-            f"(max |plain| {float(ref.float().abs().max()):.3f})")
+            f"(max |plain| {float(ref.float().abs().max()):.3f}; "
+            f"{splits} slice(s))")
         worst = max(worst, err)
         n += 1
     grew = qmatmul4.launches - before
     if grew != n:
         raise AssertionError(f"int4 launch counter grew by {grew}, "
                              f"expected {n}")
-    return {"max_abs_err": worst, "cases": n}
+    if not split_tiled:
+        raise AssertionError("no int4 case took the tiled path's "
+                             "contraction split")
+    return {"max_abs_err": worst, "cases": n,
+            "split_tiled_cases": split_tiled}
 
 
 QUERIES = [
@@ -1542,14 +1617,15 @@ def _check_paged_logits(torch, engine, res, prompt, tag) -> dict:
 def timed(torch, kernel, plain, library, *, iters: int) -> dict:
     """Kernel, plain, library, kernel, in turns (L2 flushed before every
     call). ``spin_check`` keeps, for each of the four timings, the host's
-    longest call, the shortest spin and the calls left uncovered."""
+    longest call, the shortest spin, the calls left uncovered and the
+    calls taken."""
     runs = [time_cuda(torch, fn, iters=iters)
             for fn in (kernel, plain, library, kernel)]
     k1, p, lib, k2 = (r["ms"] for r in runs)
     return {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
             "plain_ms": p, "library_ms": lib,
             "spin_check": [[r["host_ms_max"], r["spin_ms_min"],
-                            r["uncovered"]] for r in runs]}
+                            r["uncovered"], r["calls"]] for r in runs]}
 
 
 def with_bound(entry: dict, nbytes: int, flops: int) -> dict:
@@ -1563,8 +1639,8 @@ def with_bound(entry: dict, nbytes: int, flops: int) -> dict:
 
 def log_timing(what: str, entry: dict, library: str) -> None:
     k1, k2 = entry["kernel_ms_runs"]
-    check = ", ".join(f"{h:.3f}/{sp:.3f}/{u}"
-                      for h, sp, u in entry["spin_check"])
+    check = ", ".join(f"{h:.3f}/{sp:.3f}/{u} of {n}"
+                      for h, sp, u, n in entry["spin_check"])
     log(f"[timing] {what}: kernel {k1:.4f}/{k2:.4f} ms, plain "
         f"{entry['plain_ms']:.4f} ms, {library} {entry['library_ms']:.4f} "
         f"ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}); "
@@ -1598,14 +1674,14 @@ def _timing_int4(torch, gen) -> dict:
 
     out = {}
     for name, (IN, OUT) in G7_PROJ.items():
-        for T in (1, 512):
+        for T in (1, 64, 512):
             x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT,
                              fmt=(512, 512))
             dense = dequantize_int4(w, torch.bfloat16)
             entry = timed(torch, lambda: qmatmul4(x, w),
                           lambda: qmatmul4_plain(x, w),
                           lambda: torch.matmul(x, dense),
-                          iters=50 if T == 1 else 10)
+                          iters=10 if T == 512 else 50)
             label = f"{name}_T{T}"
             out[label] = with_bound(entry, *int4_work(x, w))
             del dense
@@ -1694,6 +1770,9 @@ def _timing_ragged(torch, serve_info: dict) -> dict:
         "prefill512": ragged_case(torch, gen, W=512,
                                   positions=[0] * N_SLOTS,
                                   q_lens=[512] * N_SLOTS, nan_block=False),
+        # The mixed prologue: two admissions and six decode steps.
+        "prologue64": ragged_case(torch, gen, **PROLOGUE64,
+                                  nan_block=False),
     }
     out = {}
     for label, case in shapes.items():
@@ -1703,7 +1782,7 @@ def _timing_ragged(torch, serve_info: dict) -> dict:
             lambda: ragged_attention_pool_plain(**case, page_size=PAGE),
             lambda: F.scaled_dot_product_attention(
                 q, kc, vc, attn_mask=mask, enable_gqa=True),
-            iters=50 if label == "decode" else 10)
+            iters=10 if label == "prefill512" else 50)
         out[label] = with_bound(entry, *ragged_live_work(case))
         log_timing(f"ragged {label}", entry, "sdpa")
     return out

@@ -8,8 +8,9 @@
   high — not interleaved pairs).
 - ``qmatmul4_plain`` matches the Pallas kernel in interpret mode (as
   ``tests/test_quant4.py`` runs it) at formats 512/512 and 256/256 with
-  T in {1, 5, 64}: float32 within 1e-5 (summation order only), bf16
-  within one bf16 ulp of the output (2e-2 relative).
+  T in {1, 5, 64}, and at the kernel's path edges (T 8, 9, 65; format
+  128/256 too): float32 within 1e-5 (summation order only), bf16 within
+  one bf16 ulp of the output (2e-2 relative).
 - The int8 leaves (``quantize_int8``, ``embed_lookup``, ``tied_head``,
   ``qmatmul``) match exactly or to float32 round-off (1e-5).
 - ``quantize_params_int4`` / ``random_params_int4`` give the JAX tree's
@@ -108,6 +109,23 @@ def test_plain_matches_pallas_interpret(T, IN, OUT, fmt):
     want = np.asarray(jq4.qmatmul4_interpret(jnp.asarray(x), jw))
     tw = _port_leaf(jw)
     got = tq4.qmatmul4(torch.from_numpy(x), tw)       # CPU: plain version
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+# The kernel's path edges (T 8 | 9: the GEMV and the tiled path; 64 | 65:
+# one token tile and two) at the format with the most groups a row.
+@pytest.mark.parametrize("T,IN,OUT,fmt", [
+    (8, 256, 768, (128, 256)), (9, 256, 768, (128, 256)),
+    (65, 256, 768, (128, 256)), (9, 512, 1024, (512, 512)),
+    (65, 512, 1024, (512, 512))],
+    ids=["128x256_T8", "128x256_T9", "128x256_T65", "512x512_T9",
+         "512x512_T65"])
+def test_plain_matches_pallas_interpret_at_path_edges(T, IN, OUT, fmt):
+    w = _w((IN, OUT), 5)
+    x = _w((T, IN), 6)
+    jw = jq4.quantize_int4(jnp.asarray(w), *fmt)
+    want = np.asarray(jq4.qmatmul4_interpret(jnp.asarray(x), jw))
+    got = tq4.qmatmul4(torch.from_numpy(x), _port_leaf(jw))
     np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
@@ -240,7 +258,3 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     before = tq4.qmatmul4.launches
     tq4.qmatmul4(x, w)                                 # CPU: no launch
     assert tq4.qmatmul4.launches == before
-    # The small-T plan cuts the contraction into whole groups.
-    assert tq4._plan_splits(1, 3072, 24576, 512) == 3
-    assert tq4._plan_splits(1, 24576, 3072, 512) == 16
-    assert tq4._plan_splits(64, 3072, 24576, 512) == 1

@@ -83,6 +83,50 @@ def test_plain_matches_jax_kernel(make):
         assert np.all(got[n, ql:] == 0.0), "padded columns must be zeros"
 
 
+def _split_shape_case(W, positions, q_lens, seed):
+    """The shapes the kernel splits keys at, small: one KV head under 4
+    query heads, pages of 16, a NaN block behind the sentinel, and rows
+    of 1e3 past each slot's last live key in its last page (the Pallas
+    kernel reads whole pages and masks them, so they are finite)."""
+    rng = np.random.default_rng(seed)
+    page, max_pages, KV, H, hd = 16, 9, 1, 4, 16
+    N = len(positions)
+    n_blocks = N * max_pages + 1
+    k = rng.standard_normal((n_blocks, page, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((n_blocks, page, KV, hd)).astype(np.float32)
+    k[-1] = v[-1] = np.nan
+    tables = np.full((N, max_pages), n_blocks + 5, np.int32)
+    for n, (p, ql) in enumerate(zip(positions, q_lens)):
+        last = p + max(ql, 1) - 1
+        live = last // page + 1
+        tables[n, :live] = n * max_pages + np.arange(live)
+        k[tables[n, live - 1], last % page + 1:] = 1e3
+        v[tables[n, live - 1], last % page + 1:] = 1e3
+    q = rng.standard_normal((N, W, H, hd)).astype(np.float32)
+    return (q, k, v, np.array(q_lens, np.int32),
+            np.array(positions, np.int32), tables, page)
+
+
+@pytest.mark.parametrize("W,positions,q_lens", [
+    (1, [63, 64, 127, 128, 0, 143], [1, 1, 1, 1, 0, 1]),
+    (16, [5, 21, 40, 100, 64, 130], [16, 11, 1, 1, 1, 1]),
+    (5, [59, 60, 123, 0, 139], [5, 5, 1, 3, 5]),
+], ids=["decode_on_split_edges", "prologue", "verify_across_edges"])
+def test_plain_matches_jax_kernel_at_split_shapes(W, positions, q_lens):
+    """Decode rows whose last keys fall on and beside 64-key boundaries
+    (where the kernel's key ranges meet) and at the table's end, the
+    mixed prologue (two admissions while the rest decode) and verify
+    windows across a boundary: the plain version matches the reference,
+    so the rows past each slot's last live key stay out of it."""
+    case = _split_shape_case(W, positions, q_lens, seed=W)
+    q, k, v, ql, pos, tables, page = case
+    want = np.asarray(jax_ragged(q, k, v, ql, pos, tables, page_size=page))
+    args, page = _torch_args(case)
+    got = ragged_attention_pool(*args, page_size=page).numpy()
+    assert not np.isnan(got).any(), "the NaN block leaked"
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_window_invariance():
     """The last column of a 5-wide window at positions p..p+4 equals a
     1-wide decode call at p+4: verify and decode share one function."""
