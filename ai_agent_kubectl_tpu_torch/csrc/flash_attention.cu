@@ -14,320 +14,382 @@
 //                                  the TPU wrapper transposed to [B, H, S, HD])
 //   positions  [B, S]              int32
 //
-// Design, and where it differs from the TPU kernel:
-// - The TPU grid (batch, head, q tile) held one head's whole KV context in
-//   VMEM and looped over KV tiles. Here one block owns one (batch, KV head,
-//   tile of 32 query rows) and walks the keys itself, 32 keys per step, into
-//   shared memory. Row r of a KV head is query column r / G of query head
-//   kvh*G + r % G (G = H / KV), so the G heads that share a KV head read each
-//   K/V row once (GQA by grouping, not by repeating heads).
-// - Causal skipping: the block stops at the largest position among its rows,
+// What it keeps from the TPU kernel:
+// - Rows are laid out per KV head: row r of KV head kvh is query column r / G
+//   of query head kvh*G + r % G (G = H / KV), so the G heads that share a KV
+//   head read each K/V row once (GQA by grouping, not by repeating heads).
+// - Causal skipping: a tile stops at the largest position among its rows,
 //   clamped to KVLEN - 1 (the TPU kernel's clamp of its tile count). Bucket
-//   padding rows carry positions past the prompt, so a tile can reach further
-//   than its valid rows; still no key at or past KVLEN is read.
-// - head_dim is a template parameter (64, 128, 256). At 256 a block's tiles
-//   (32 query rows in f32, 32 keys and values in bf16, the probabilities) take
-//   about 70 KB of shared memory, above the 48 KB default: the launch raises
-//   the limit with cudaFuncSetAttribute.
-// - -inf arithmetic: exp(-inf - (-inf)) is NaN, so the rescale factor is 0
-//   while the running max is still -inf (the TPU kernel's guard), masked keys
-//   carry probability 0, and a row whose normaliser is 0 (no visible key)
-//   writes exact zeros.
-// - Numerics as the TPU kernel has them: scores, the running max and sum, and
-//   the accumulator in f32; the optional softcap (tanh(s / c) * c) before the
-//   mask; P rounded to bf16 before P.V while the normaliser sums the unrounded
-//   P; the output in bf16.
+//   padding rows carry positions past the prompt, so a tile can reach
+//   further than its valid rows; still no key at or past KVLEN, and no key
+//   past the tile's last live key, is read (cp.async zero-fills the rest of
+//   a stage: 0 * NaN is NaN, so a stale row would poison the sum).
+// - Numerics: scores, the running max and sum, and the accumulator in f32;
+//   the optional softcap (tanh(s / c) * c) before the mask; P rounded to bf16
+//   before P.V while the normaliser sums the unrounded P; a row with no
+//   visible key (position < 0) writes exact zeros; the output in bf16.
 //
-// What bounds it on an H100: a Gemma-7B prefill of 512 tokens is about 4 *
-// S^2 / 2 * HD * H = 4.4 GFLOP per layer, far above its bytes, so the FLOPs.
-// This first version computes both products on the CUDA cores in f32 (no
-// tensor cores, no TMA, no split over keys): it is written to be right.
-// Making it fast (wgmma, TMA, a pipelined K/V ring) is later work; its times
-// stand in PERF.md beside the bound.
+// What bounds it on an H100: a Gemma-7B prefill of 512 tokens is 2.15 GFLOP
+// of causal attention per layer call against 5 MB of q, K/V and out, so the
+// operations, which only the tensor cores reach; a short prefill (85 tokens)
+// is a few blocks' work, bound by latency and by how many SMs take part.
+//
+// Design (FlashAttention-2 on mma.sync, with flash-decoding's key split;
+// the second design: the first ran both products on the CUDA cores in f32,
+// loaded K/V synchronously and masked every step):
+// - A block owns one (batch, KV head, tile of 64 rows), four warps of 16 rows,
+//   and a range of keys. Q.K^T and P.V run on the tensor cores
+//   (mma.sync.m16n8k16, bf16 in, f32 accumulate; attention_mma.cuh's
+//   mma_attend_step): Q and K through ldmatrix, V through ldmatrix.trans,
+//   the score accumulator turned into P's bf16 A fragments in registers, the
+//   online softmax in registers.
+// - K/V stream through a two-stage cp.async ring (64 keys a stage, 32 at
+//   head_dim 256 so that Q and the ring, 99 KB, leave room for two blocks on
+//   an SM): the next stage's copy overlaps this stage's products.
+// - Causal work only where it is needed: a block stops at its tile's last
+//   live key; a warp skips a stage that starts past all its rows' positions;
+//   only a stage that crosses a row's position takes the mask; and the tiles
+//   are numbered bottom-up, so the longest start first.
+// - When the (batch, KV head, row tile) blocks alone are under one per SM,
+//   the keys are split over blocks (grid.y) by attention_mma.cuh's
+//   key_split: the plan depends on the shapes only, lives here alone
+//   (flash_attention_plan) and is what the launch takes. A tile whose live
+//   keys lie in one split is written by that block; the others leave each
+//   row's running max, sum and unnormalised accumulator (f32) in a workspace
+//   that a second kernel merges in split order, a warp per row
+//   (attention_mma.cuh's combine_row; deterministic).
+// - The epilogue leaves through shared memory in 16-byte stores of whole
+//   rows: the fragments' own 4-byte stores, 16 bytes of a row each, took
+//   longer on the card than a block's products.
+//
+// Left for later: wgmma with Q in registers, TMA loads, a persistent
+// schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
+using namespace attn;
+
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block (= 32)
-constexpr int kKeys = 32;                     // keys per step, one per lane
-constexpr int kPStride = kKeys + 4;           // float4-aligned rows of P
+constexpr int kRows = 16 * kWarps;  // query rows per block
 
 template <int HD>
 struct Layout {
-  // K rows padded by one bf16 pair: an odd word stride puts the 32 keys a
-  // warp reads at one column in 32 different banks.
-  static constexpr int kKStride = HD + 2;
-  static constexpr size_t kQBytes = size_t(kRows) * HD * sizeof(float);
-  static constexpr size_t kKBytes = size_t(kKeys) * kKStride * sizeof(__nv_bfloat16);
-  static constexpr size_t kVBytes = size_t(kKeys) * HD * sizeof(__nv_bfloat16);
-  static constexpr size_t kPBytes = size_t(kRows) * kPStride * sizeof(float);
-  static constexpr size_t kVecBytes = size_t(3) * kRows * sizeof(float);
-  static constexpr size_t kTotal = kQBytes + kKBytes + kVBytes + kPBytes + kVecBytes;
-  // P.V: thread t owns column t % kColThreads of every kRowGroups-th row.
-  static constexpr int kColThreads = HD < kThreads ? HD : kThreads;
-  static constexpr int kRowGroups = kThreads / kColThreads;
-  static constexpr int kAccRows = kRows / kRowGroups;
-  static_assert(HD % 8 == 0 && HD <= kThreads, "head_dim must be 64, 128 or 256");
-  static_assert(kKBytes % 16 == 0 && kQBytes % 16 == 0, "16-byte alignment");
+  static constexpr int kKeys = HD == 256 ? 32 : 64;  // keys per stage
+  static constexpr int kStride = HD + 8;  // bf16; conflict-free ldmatrix rows
+  static constexpr int kQTile = kRows * kStride;
+  static constexpr int kKVTile = kKeys * kStride;
+  static constexpr size_t kSmem =
+      (size_t(kQTile) + 4 * size_t(kKVTile)) * sizeof(__nv_bfloat16);  // Q, 2 K, 2 V
+  // The copy: kThreads / kKeys threads per key row, each a fixed key.
+  static constexpr int kThreadsPerKey = kThreads / kKeys;
+  static_assert(HD % 16 == 0 && kSplitKeys % kKeys == 0, "tiles");
+  static_assert((HD / 8) % kThreadsPerKey == 0, "copy");
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+void plan(int B, int S, int H, int KV, int KVLEN, int* splits, int* kps) {
+  const int tiles = (S * (H / KV) + kRows - 1) / kRows;
+  key_split((long long)B * KV * tiles, KVLEN, splits, kps);
 }
 
-__device__ __forceinline__ int warp_max_int(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+// The tile's geometry, shared by the attention and the combine kernels.
+// Blocks run bottom tile first: with positions rising down the rows, the
+// tiles with the most keys start first.
+struct Tile {
+  int b, kvh, r0, r_end, kv_last, live;  // kv_last < 0: no row sees a key
+};
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ Tile tile_of(int bx, const int32_t* __restrict__ positions, int B,
+                                        int S, int G, int KV, int KVLEN, int kps, int splits) {
+  Tile t;
+  const int tiles = (S * G + kRows - 1) / kRows;
+  const int tile = tiles - 1 - bx / (B * KV);
+  t.b = (bx % (B * KV)) / KV;
+  t.kvh = bx % KV;
+  t.r0 = tile * kRows;
+  t.r_end = min(t.r0 + kRows, S * G);
+  // The last key any row of the tile sees: every warp reads the tile's
+  // positions (at most 64) and takes their max.
+  const int lane = threadIdx.x & 31;
+  int pmax = -1;
+  for (int s = t.r0 / G + lane; s <= (t.r_end - 1) / G; s += 32)
+    pmax = max(pmax, positions[size_t(t.b) * S + s]);
+  pmax = __reduce_max_sync(0xffffffffu, pmax);
+  t.kv_last = pmax < 0 ? -1 : min(pmax, KVLEN - 1);
+  t.live = t.kv_last < 0 ? 0 : min(splits, t.kv_last / kps + 1);
+  return t;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const int32_t* __restrict__ positions,
-                       __nv_bfloat16* __restrict__ out, int S, int H, int KV,
-                       int KVLEN, long long k_bstride, long long v_bstride,
-                       float scale, float softcap) {
+__global__ void __launch_bounds__(kThreads, 1)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ positions,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ ws_o,
+                 float* __restrict__ ws_ml, int B, int S, int H, int KV, int KVLEN,
+                 long long k_bstride, long long v_bstride, float scale, float softcap, int kps,
+                 int splits) {
   using L = Layout<HD>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes + L::kKBytes);
-  float* sP = reinterpret_cast<float*>(smem + L::kQBytes + L::kKBytes + L::kVBytes);
-  float* sAlpha = sP + kRows * kPStride;
-  float* sL = sAlpha + kRows;
-  int* sPos = reinterpret_cast<int*>(sL + kRows);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + L::kQTile;       // two stages
+  __nv_bfloat16* sV = sK + 2 * L::kKVTile;  // two stages
 
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int r0 = blockIdx.z * kRows;
+  const int G = H / KV;
+  const Tile t = tile_of(blockIdx.x, positions, B, S, G, KV, KVLEN, kps, splits);
+  const int split = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int G = H / KV;
-  const int r_end = min(r0 + kRows, S * G);
+  const int g = lane >> 2;
+  const int c = lane & 3;
 
-  // Row r of this tile -> its place in q/out.
-  auto row_offset = [&](int r) -> size_t {
-    const int s = r / G;
-    const int h = kvh * G + r % G;
-    return ((size_t(b) * S + s) * H + h) * HD;
+  auto out_row = [&](int r) -> size_t {
+    return ((size_t(t.b) * S + r / G) * H + t.kvh * G + r % G) * HD;
   };
 
-  // Each row's position (-1 for rows past the end: they see no key), and the
-  // last key any row of the tile sees, clamped to the cache.
-  if (warp == 0) {
-    const int r = r0 + lane;  // kRows == 32: one row per lane
-    const int p = r < r_end ? positions[size_t(b) * S + r / G] : -1;
-    sPos[lane] = p;
-    const int pmax = warp_max_int(p);
-    if (lane == 0) sL[0] = __int_as_float(min(pmax, KVLEN - 1));
-  }
-  __syncthreads();
-  const int kv_last = __float_as_int(sL[0]);
-  if (kv_last < 0) {
-    // No row of the tile sees a key: exact zeros.
-    const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
-    for (int i = tid; i < (r_end - r0) * (HD / 2); i += kThreads) {
-      const int r = r0 + i / (HD / 2);
-      reinterpret_cast<__nv_bfloat162*>(out + row_offset(r))[i % (HD / 2)] = z;
+  if (t.live == 0) {
+    // No row of the tile sees a key: exact zeros, from the first split.
+    if (split != 0) return;
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < (t.r_end - t.r0) * kChunks; i += kThreads) {
+      const int r = t.r0 + i / kChunks;
+      reinterpret_cast<uint4*>(out + out_row(r))[i % kChunks] = z;
     }
     return;
   }
+  const int k_start = split * kps;
+  if (k_start > t.kv_last) return;  // past the tile's last live key
+  const int k_stop = min(k_start + kps - 1, t.kv_last);
+  const int n_steps = (k_stop - k_start) / kKeys + 1;
 
-  // Queries of the tile, in f32 (zeros for rows past the end).
-  for (int i = tid; i < kRows * (HD / 2); i += kThreads) {
-    const int rr = i / (HD / 2);
-    const int d2 = i % (HD / 2);
-    const int r = r0 + rr;
-    float2 val = make_float2(0.f, 0.f);
-    if (r < r_end) {
-      val = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(q + row_offset(r))[d2]);
+  // Q tile: zeros for rows past the tile.
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int rr = i / kChunks;
+    const int cc = i % kChunks;
+    const int r = t.r0 + rr;
+    const bool ok = r < t.r_end;
+    cp_async16(sQ + rr * L::kStride + cc * 8, ok ? q + out_row(r) + cc * 8 : q, ok ? 16 : 0);
+  }
+  // Each thread copies chunks of one fixed key row per stage; keys past the
+  // tile's last live key are zero-filled, never read.
+  const int c_key = tid / L::kThreadsPerKey;
+  const int c_part = tid % L::kThreadsPerKey;
+  const __nv_bfloat16* kb_ptr = k + size_t(t.b) * size_t(k_bstride) + size_t(t.kvh) * HD;
+  const __nv_bfloat16* vb_ptr = v + size_t(t.b) * size_t(v_bstride) + size_t(t.kvh) * HD;
+  auto load = [&](int step, int stage) {
+    const int kv = k_start + step * kKeys + c_key;
+    const bool live = kv <= t.kv_last;
+    const size_t off = live ? size_t(kv) * KV * HD : 0;
+    __nv_bfloat16* dk = sK + stage * L::kKVTile + c_key * L::kStride;
+    __nv_bfloat16* dv = sV + stage * L::kKVTile + c_key * L::kStride;
+#pragma unroll
+    for (int i = 0; i < kChunks / L::kThreadsPerKey; ++i) {
+      const int cc = (c_part + i * L::kThreadsPerKey) * 8;
+      cp_async16(dk + cc, kb_ptr + off + cc, live ? 16 : 0);
+      cp_async16(dv + cc, vb_ptr + off + cc, live ? 16 : 0);
     }
-    reinterpret_cast<float2*>(sQ + rr * HD)[d2] = val;
-  }
+  };
+  load(0, 0);
+  cp_async_commit();
 
-  int my_pos[kRowsPerWarp];
-  float m[kRowsPerWarp];
-  float l[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    my_pos[i] = sPos[warp * kRowsPerWarp + i];
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  const int col = tid % L::kColThreads;
-  const int rg = tid / L::kColThreads;
-  float acc[L::kAccRows];
-#pragma unroll
-  for (int a = 0; a < L::kAccRows; ++a) acc[a] = 0.f;
+  // This thread's two rows (fragment rows g and g+8 of its warp) and the last
+  // key each sees (negative: none). The warp skips a stage past all its rows'
+  // limits and masks only a stage that crosses one of them.
+  const int row_a = t.r0 + 16 * warp + g;
+  const int row_b = row_a + 8;
+  auto limit = [&](int r) {
+    return r < t.r_end ? min(positions[size_t(t.b) * S + r / G], KVLEN - 1) : -1;
+  };
+  const int lim_a = limit(row_a);
+  const int lim_b = limit(row_b);
+  const int warp_max = __reduce_max_sync(0xffffffffu, max(lim_a, lim_b));
+  const int warp_min = __reduce_min_sync(
+      0xffffffffu, min(row_a < t.r_end ? lim_a : INT_MAX, row_b < t.r_end ? lim_b : INT_MAX));
 
-  const size_t kbase_b = size_t(b) * size_t(k_bstride);
-  const size_t vbase_b = size_t(b) * size_t(v_bstride);
-  const int n_steps = kv_last / kKeys + 1;
+  float o[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+
   for (int step = 0; step < n_steps; ++step) {
-    const int kbase = step * kKeys;
-
-    // This step's K/V rows, 16 bytes a load; keys past kv_last are zeros.
-    for (int i = tid; i < kKeys * (HD / 8); i += kThreads) {
-      const int kk = i / (HD / 8);
-      const int c8 = i % (HD / 8);
-      const int kv = kbase + kk;
-      uint4 kvec = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vvec = kvec;
-      if (kv <= kv_last) {
-        const size_t off = (size_t(kv) * KV + kvh) * HD + c8 * 8;
-        kvec = *reinterpret_cast<const uint4*>(k + kbase_b + off);
-        vvec = *reinterpret_cast<const uint4*>(v + vbase_b + off);
-      }
-      uint32_t* dk = reinterpret_cast<uint32_t*>(sK + kk * L::kKStride + c8 * 8);
-      dk[0] = kvec.x;
-      dk[1] = kvec.y;
-      dk[2] = kvec.z;
-      dk[3] = kvec.w;
-      *reinterpret_cast<uint4*>(sV + kk * HD + c8 * 8) = vvec;
+    if (step + 1 < n_steps) {
+      load(step + 1, (step + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    // Scores: warp w owns rows 4w..4w+3 of the tile, lane = key.
-    float s[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const __nv_bfloat162* krow =
-        reinterpret_cast<const __nv_bfloat162*>(sK + lane * L::kKStride);
-#pragma unroll 4
-    for (int d2 = 0; d2 < HD / 2; ++d2) {
-      const float2 kf = __bfloat1622float2(krow[d2]);
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float2 qf =
-            reinterpret_cast<const float2*>(sQ + (warp * kRowsPerWarp + i) * HD)[d2];
-        s[i] = fmaf(qf.x, kf.x, s[i]);
-        s[i] = fmaf(qf.y, kf.y, s[i]);
-      }
-    }
-
-    // Softcap, causal mask, and the online softmax update, one row per
-    // iteration across the warp.
-    const int kv = kbase + lane;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int rr = warp * kRowsPerWarp + i;
-      const bool valid = kv <= my_pos[i] && kv <= kv_last;
-      float sc = s[i] * scale;
-      if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
-      const float sv = valid ? sc : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(sv));
-      const float p = valid ? expf(sv - m_new) : 0.f;
-      const float alpha = m[i] == -INFINITY ? 0.f : expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);
-      m[i] = m_new;
-      sP[rr * kPStride + lane] = __bfloat162float(__float2bfloat16(p));
-      if (lane == 0) sAlpha[rr] = alpha;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P.V
-#pragma unroll
-    for (int a = 0; a < L::kAccRows; ++a) acc[a] *= sAlpha[rg + L::kRowGroups * a];
-#pragma unroll 2
-    for (int kk = 0; kk < kKeys; kk += 4) {
-      const float v0 = __bfloat162float(sV[(kk + 0) * HD + col]);
-      const float v1 = __bfloat162float(sV[(kk + 1) * HD + col]);
-      const float v2 = __bfloat162float(sV[(kk + 2) * HD + col]);
-      const float v3 = __bfloat162float(sV[(kk + 3) * HD + col]);
-#pragma unroll
-      for (int a = 0; a < L::kAccRows; ++a) {
-        const float4 pp = *reinterpret_cast<const float4*>(
-            sP + (rg + L::kRowGroups * a) * kPStride + kk);
-        float x = acc[a];
-        x = fmaf(pp.x, v0, x);
-        x = fmaf(pp.y, v1, x);
-        x = fmaf(pp.z, v2, x);
-        x = fmaf(pp.w, v3, x);
-        acc[a] = x;
-      }
-    }
-    __syncthreads();
+    const int kb = k_start + step * kKeys;
+    if (kb <= warp_max)
+      mma_attend_step<HD, kKeys, L::kStride>(
+          sQ + 16 * warp * L::kStride, sK + (step & 1) * L::kKVTile,
+          sV + (step & 1) * L::kKVTile, kb, lim_a, lim_b, kb + kKeys - 1 > warp_min, scale,
+          softcap, o, m_a, m_b, l_a, l_b);
+    __syncthreads();  // this stage is read; the next copy may overwrite it
   }
 
-  if (lane == 0) {
+  // The epilogue goes through shared memory (over Q and the ring, which the
+  // loop's last barrier freed), so that the tile leaves in 16-byte stores of
+  // whole rows.
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  const int r_tile = t.r_end - t.r0;
+  if (t.live > 1) {
+    // Partials for the combine: the running max (log2 domain) and the sum
+    // of each row, and the unnormalised accumulator staged in f32.
+    constexpr int kWStride = HD + 4;
+    float* sW = reinterpret_cast<float*>(smem);
+    static_assert(size_t(kRows) * kWStride * sizeof(float) <= L::kSmem, "staging");
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) sL[warp * kRowsPerWarp + i] = l[i];
+    for (int d = 0; d < HD / 8; ++d) {
+      reinterpret_cast<float2*>(sW + (16 * warp + g) * kWStride + d * 8)[c] =
+          make_float2(o[d][0], o[d][1]);
+      reinterpret_cast<float2*>(sW + (16 * warp + g + 8) * kWStride + d * 8)[c] =
+          make_float2(o[d][2], o[d][3]);
+    }
+    const size_t row0 = size_t(split) * gridDim.x * kRows + size_t(blockIdx.x) * kRows;
+    if (c == 0) {
+      if (row_a < t.r_end) reinterpret_cast<float2*>(ws_ml)[row0 + 16 * warp + g] =
+          make_float2(m_a, l_a);
+      if (row_b < t.r_end) reinterpret_cast<float2*>(ws_ml)[row0 + 16 * warp + g + 8] =
+          make_float2(m_b, l_b);
+    }
+    __syncthreads();
+    for (int i = tid; i < r_tile * (HD / 4); i += kThreads) {
+      const int rr = i / (HD / 4);
+      const int cc = (i % (HD / 4)) * 4;
+      *reinterpret_cast<float4*>(ws_o + (row0 + rr) * HD + cc) =
+          *reinterpret_cast<const float4*>(sW + rr * kWStride + cc);
+    }
+    return;
+  }
+  const float inv_a = (lim_a >= 0 && l_a != 0.f) ? 1.f / l_a : 0.f;
+  const float inv_b = (lim_b >= 0 && l_b != 0.f) ? 1.f / l_b : 0.f;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    reinterpret_cast<uint32_t*>(sQ + (16 * warp + g) * L::kStride + d * 8)[c] =
+        pack_bf16x2(o[d][0] * inv_a, o[d][1] * inv_a);
+    reinterpret_cast<uint32_t*>(sQ + (16 * warp + g + 8) * L::kStride + d * 8)[c] =
+        pack_bf16x2(o[d][2] * inv_b, o[d][3] * inv_b);
   }
   __syncthreads();
-#pragma unroll
-  for (int a = 0; a < L::kAccRows; ++a) {
-    const int rr = rg + L::kRowGroups * a;
-    const int r = r0 + rr;
-    if (r >= r_end) continue;
-    const float lv = sL[rr];
-    const float o = lv != 0.f ? acc[a] / lv : 0.f;
-    out[row_offset(r) + col] = __float2bfloat16(o);
+  for (int i = tid; i < r_tile * kChunks; i += kThreads) {
+    const int rr = i / kChunks;
+    const int cc = (i % kChunks) * 8;
+    *reinterpret_cast<uint4*>(out + out_row(t.r0 + rr) + cc) =
+        *reinterpret_cast<const uint4*>(sQ + rr * L::kStride + cc);
   }
 }
 
+// The key splits of the rows of tiles with more than one live split, merged
+// in split order (attention_mma.cuh's combine_row): block (tile, y) takes
+// rows y * kWarps .. of the tile, a warp per row, so that every row's
+// merge runs at once.
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* positions,
-           void* out, int B, int S, int H, int KV, int KVLEN, long long k_bstride,
-           long long v_bstride, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = Layout<HD>::kTotal;
+__global__ void __launch_bounds__(kThreads)
+flash_combine_kernel(const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
+                     const int32_t* __restrict__ positions, __nv_bfloat16* __restrict__ out,
+                     int B, int S, int H, int KV, int KVLEN, int kps, int splits) {
+  const int G = H / KV;
+  const Tile t = tile_of(blockIdx.x, positions, B, S, G, KV, KVLEN, kps, splits);
+  const int r = t.r0 + blockIdx.y * kWarps + (threadIdx.x >> 5);
+  if (t.live <= 1 || r >= t.r_end) return;  // written by the attention kernel
+  combine_row<HD>(ws_o, ws_ml, size_t(blockIdx.x) * kRows + (r - t.r0),
+                  size_t(gridDim.x) * kRows, t.live,
+                  out + ((size_t(t.b) * S + r / G) * H + t.kvh * G + r % G) * HD);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* positions, void* out,
+           void* ws_o, void* ws_ml, int B, int S, int H, int KV, int KVLEN,
+           long long k_bstride, long long v_bstride, float scale, float softcap, int kps,
+           int splits, cudaStream_t stream) {
+  const size_t smem = Layout<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const int tiles = (S * (H / KV) + kRows - 1) / kRows;
-  const dim3 grid(B, KV, tiles);
-  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(B * KV * tiles, splits);
+  const auto* pos = static_cast<const int32_t*>(positions);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  flash_mma_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(positions),
-      static_cast<__nv_bfloat16*>(out), S, H, KV, KVLEN, k_bstride, v_bstride,
-      scale, softcap);
+      static_cast<const __nv_bfloat16*>(v), pos, o, static_cast<float*>(ws_o),
+      static_cast<float*>(ws_ml), B, S, H, KV, KVLEN, k_bstride, v_bstride, scale, softcap,
+      kps, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return int(err);
+  flash_combine_kernel<HD><<<dim3(B * KV * tiles, kRows / kWarps), kThreads, 0, stream>>>(
+      static_cast<const float*>(ws_o), static_cast<const float*>(ws_ml), pos, o, B, S, H, KV,
+      KVLEN, kps, splits);
   return int(cudaGetLastError());
+}
+
+bool shapes_ok(int B, int S, int H, int KV, int KVLEN) {
+  return B > 0 && S > 0 && KV > 0 && H % KV == 0 && KVLEN > 0;
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched). The caller allocates `out`. The strides
-// are in elements.
+// Plain C interface, loaded with ctypes.
+//
+// The key split for these shapes: `*splits` ranges of `*keys_per_split`
+// keys, and `*ws_rows` rows (every row of every 64-row tile) in each
+// split's workspaces. Returns 0, or cudaErrorInvalidValue for shapes the
+// kernel does not take. A split grid has under kSplitBelow blocks of 64 rows
+// and at most kTargetBlocks / blocks + 1 splits, so the workspaces stay
+// under 4 * (264 + 132) * 64 * (head_dim + 2) bytes: 26.2 MB at 256. The
+// largest prefill served (Gemma-7B, S = KVLEN = 512: 128 blocks, 3 splits
+// of 192 keys) takes 3 * 8192 rows, 25.4 MB.
+extern "C" int flash_attention_plan(int B, int S, int H, int KV, int KVLEN, int* splits,
+                                    int* keys_per_split, long long* ws_rows) {
+  if (!shapes_ok(B, S, H, KV, KVLEN)) return int(cudaErrorInvalidValue);
+  plan(B, S, H, KV, KVLEN, splits, keys_per_split);
+  *ws_rows = (long long)B * KV * ((S * (H / KV) + kRows - 1) / kRows) * kRows;
+  return 0;
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 = launched). The
+// caller allocates `out` and, when `splits` > 1, the f32 workspaces ws_o
+// [splits, ws_rows, head_dim] and ws_ml [splits, ws_rows, 2]. The strides are
+// in elements. `keys_per_split` and `splits` must be flash_attention_plan's:
+// anything else is refused with cudaErrorInvalidValue.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    const void* positions, void* out, int B, int S,
-                                    int H, int KV, int head_dim, int KVLEN,
-                                    long long k_bstride, long long v_bstride,
-                                    float scale, float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || KVLEN <= 0 ||
-      k_bstride % 8 != 0 || v_bstride % 8 != 0)
+                                    const void* positions, void* out, void* ws_o, void* ws_ml,
+                                    int B, int S, int H, int KV, int head_dim, int KVLEN,
+                                    long long k_bstride, long long v_bstride, float scale,
+                                    float softcap, int keys_per_split, int splits,
+                                    void* stream) {
+  if (!shapes_ok(B, S, H, KV, KVLEN) || k_bstride % 8 != 0 || v_bstride % 8 != 0)
     return int(cudaErrorInvalidValue);
+  int want_splits = 0, want_kps = 0;
+  plan(B, S, H, KV, KVLEN, &want_splits, &want_kps);
+  if (splits != want_splits || keys_per_split != want_kps) return int(cudaErrorInvalidValue);
+  if (splits > 1 && (ws_o == nullptr || ws_ml == nullptr)) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return launch<64>(q, k, v, positions, out, B, S, H, KV, KVLEN, k_bstride,
-                        v_bstride, scale, softcap, s);
+      return launch<64>(q, k, v, positions, out, ws_o, ws_ml, B, S, H, KV, KVLEN,
+                        k_bstride, v_bstride, scale, softcap, keys_per_split, splits, s);
     case 128:
-      return launch<128>(q, k, v, positions, out, B, S, H, KV, KVLEN, k_bstride,
-                         v_bstride, scale, softcap, s);
+      return launch<128>(q, k, v, positions, out, ws_o, ws_ml, B, S, H, KV, KVLEN,
+                         k_bstride, v_bstride, scale, softcap, keys_per_split, splits, s);
     case 256:
-      return launch<256>(q, k, v, positions, out, B, S, H, KV, KVLEN, k_bstride,
-                         v_bstride, scale, softcap, s);
+      return launch<256>(q, k, v, positions, out, ws_o, ws_ml, B, S, H, KV, KVLEN,
+                         k_bstride, v_bstride, scale, softcap, keys_per_split, splits, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -66,15 +66,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
+
+using namespace attn;  // cp.async, ldmatrix, mma_bf16, bf16 packing, quad reductions
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;  // query rows per block
-constexpr int kSplitKeys = 64;      // a key split is a multiple of this
-constexpr int kSplitBelow = 132;    // split keys when blocks < one per SM
-constexpr int kTargetBlocks = 264;  // ... aiming for two per SM
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Layout {
@@ -95,72 +95,7 @@ struct Layout {
 // Keys per split and number of splits, from the shapes alone.
 void plan(int N, int KV, int W, int G, int max_pages, int page, int* splits, int* kps) {
   const int tiles = (W * G + kRows - 1) / kRows;
-  const long long blocks = (long long)N * KV * tiles;
-  const int S = max_pages * page;
-  if (blocks >= kSplitBelow) {
-    *splits = 1;
-    *kps = (S + kSplitKeys - 1) / kSplitKeys * kSplitKeys;
-    return;
-  }
-  const int want = int((kTargetBlocks + blocks - 1) / blocks);
-  int per = (S + want - 1) / want;
-  per = (per + kSplitKeys - 1) / kSplitKeys * kSplitKeys;
-  *kps = per;
-  *splits = (S + per - 1) / per;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float d[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+  key_split((long long)N * KV * tiles, max_pages * page, splits, kps);
 }
 
 // The tile's geometry, shared by the attention and the combine kernels.

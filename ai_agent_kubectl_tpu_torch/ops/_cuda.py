@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` into a
 shared library with a plain C interface (``build/lib<name>-<hash>.so``
 at the root of the checkout) and loaded with ``ctypes``. The file name
-carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once. Nothing is built when a
-module is imported: the CPU paths never reach this file's functions.
+carries a hash of the source, of every header beside it
+(``csrc/*.cuh``, which the sources include) and of the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+Nothing is built when a module is imported: the CPU paths never reach
+this file's functions.
 """
 
 from __future__ import annotations
@@ -49,10 +51,14 @@ def nvcc() -> str:
                        "are built from source on first use")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: its hash covers the source,
+    every ``csrc/*.cuh`` (name and bytes) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -86,6 +92,38 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return took
+
+
+def split_plan(name: str, symbol: str, *shape: int) -> tuple:
+    """``(splits, keys_per_split, ws_rows)`` from an attention kernel's
+    plan entry point ``symbol`` (``int fn(int..., int*, int*, long
+    long*)``) in ``csrc/<name>.cu``: the kernel's own rule, read from its
+    library, so it builds the kernel first. Raises ValueError when the
+    kernel takes no such shapes."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    splits, kps, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    err = fn(*shape, ctypes.addressof(splits), ctypes.addressof(kps),
+             ctypes.addressof(rows))
+    if err != 0:
+        raise ValueError(f"{symbol} takes no shapes {shape}")
+    return splits.value, kps.value, rows.value
+
+
+def split_workspaces(splits: int, rows: int, head_dim: int, device) -> tuple:
+    """The f32 workspaces of a key split, ``ws_o`` [splits, rows,
+    head_dim] and ``ws_ml`` [splits, rows, 2], as data pointers (0, 0
+    without a split), with the tensors that keep them alive."""
+    if splits <= 1:
+        return 0, 0, ()
+    import torch
+
+    ws_o = torch.empty((splits, rows, head_dim), dtype=torch.float32,
+                       device=device)
+    ws_ml = torch.empty((splits, rows, 2), dtype=torch.float32,
+                        device=device)
+    return ws_o.data_ptr(), ws_ml.data_ptr(), (ws_o, ws_ml)
 
 
 def load(name: str) -> ctypes.CDLL:

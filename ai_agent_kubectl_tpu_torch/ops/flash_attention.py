@@ -85,6 +85,21 @@ def flash_attention_cached_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def split_plan(B: int, S: int, H: int, KV: int, KVLEN: int) -> tuple:
+    """``(splits, keys_per_split, ws_rows)`` for a call: the KVLEN keys
+    cut into ranges of ``keys_per_split`` (a multiple of 64) when the
+    (batch, KV head, 64-row tile) blocks alone are under one per SM, and
+    the rows of each split's workspaces. The kernel's own rule
+    (``flash_attention_plan`` in ``csrc/flash_attention.cu``), read from
+    its library, so it builds the kernel first. A function of the shapes
+    only, never of positions. The source note bounds the workspaces
+    (26.2 MB at head_dim 256)."""
+    from ._cuda import split_plan as read_plan
+
+    return read_plan("flash_attention", "flash_attention_plan", B, S, H,
+                     KV, KVLEN)
+
+
 def _check_cuda_args(q, k, v, positions) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("positions", positions)):
         if t.device != q.device:
@@ -135,22 +150,25 @@ def flash_attention_cached(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_cached runs on cuda or cpu, "
                          f"not {q.device}")
     _check_cuda_args(q, k, v, positions)
-    from ._cuda import load
+    from ._cuda import load, split_workspaces
 
     lib = load("flash_attention")
     fn = lib.flash_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_longlong] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_longlong] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, S, H, hd = q.shape
     KVLEN, KV = k.shape[1], k.shape[2]
+    splits, kps, rows = split_plan(B, S, H, KV, KVLEN)
     out = torch.empty_like(q)
+    ws_o, ws_ml, _keep = split_workspaces(splits, rows, hd, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 positions.data_ptr(), out.data_ptr(),
+                 positions.data_ptr(), out.data_ptr(), ws_o, ws_ml,
                  B, S, H, KV, hd, KVLEN, k.stride(0), v.stride(0),
-                 float(scale), float(logit_softcap), stream)
+                 float(scale), float(logit_softcap), kps, splits, stream)
     if err != 0:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]

@@ -162,20 +162,50 @@ def _check_cuda_args(q, k, v, positions, page_size: int,
             raise ValueError(f"{name} must be 16-byte aligned per slot")
 
 
-def _launch(fn_name: str, args: list, argtypes: list) -> None:
-    from ._cuda import load
+def split_plan(N: int, H: int, KV: int, span: int) -> tuple:
+    """``(splits, keys_per_split, ws_rows)`` for a call over a span of
+    ``span`` keys (the dense cache's S, or the pool's ``max_pages *
+    page``): the span cut into ranges of ``keys_per_split`` (a multiple
+    of 64) when the (slot, KV head, 16-head tile) blocks alone are under
+    one per SM, and the rows of each split's workspaces. The kernel's own
+    rule (``paged_decode_plan`` in ``csrc/paged_attention.cu``), read
+    from its library, so it builds the kernel first. A function of the
+    shapes only, never of positions: a slot's live splits follow from its
+    own position. The source note bounds the workspaces (6.5 MB at
+    head_dim 256)."""
+    from ._cuda import split_plan as read_plan
 
+    return read_plan("paged_attention", "paged_decode_plan", N, H, KV, span)
+
+
+def _launch(fn_name: str, q: torch.Tensor, KV: int, span: int,
+            inputs: list, shape: list, argtypes: list) -> torch.Tensor:
+    """Call ``fn_name(*inputs, out, ws_o, ws_ml, *shape, keys_per_split,
+    splits, stream)`` with the kernel's split plan and its workspaces
+    (``argtypes`` types ``shape``); raise on a refused launch. Returns
+    the output."""
+    from ._cuda import load, split_workspaces
+
+    N, H, hd = q.shape
+    splits, kps, rows = split_plan(N, H, KV, span)
     lib = load("paged_attention")
     fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
+    fn.argtypes = ([ctypes.c_void_p] * (len(inputs) + 3) + argtypes
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(*args)
+    out = torch.empty_like(q)
+    ws_o, ws_ml, _keep = split_workspaces(splits, rows, hd, q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*[t.data_ptr() for t in inputs], out.data_ptr(), ws_o,
+                 ws_ml, *shape, kps, splits, stream)
     if err != 0:
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged attention kernel launch failed: {msg} "
                            f"(cudaError {err})")
+    return out
 
 
 def paged_decode_attention(q: torch.Tensor, k: torch.Tensor,
@@ -197,15 +227,11 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor,
                          f"{q.device}")
     _check_cuda_args(q, k, v, positions, page_size)
     N, H, hd = q.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("paged_decode_bf16",
-                [q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 positions.data_ptr(), out.data_ptr(), N, H, k.shape[2], hd,
-                 k.shape[1], k.stride(0), v.stride(0), float(scale), stream],
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    KV, S = k.shape[2], k.shape[1]
+    out = _launch("paged_decode_bf16", q, KV, S, [q, k, v, positions],
+                  [N, H, KV, hd, S, k.stride(0), v.stride(0), float(scale)],
+                  [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                  + [ctypes.c_float])
     paged_decode_attention.launches += 1
     return out
 
@@ -235,16 +261,11 @@ def paged_decode_attention_pool(q: torch.Tensor, k: torch.Tensor,
     _check_cuda_args(q, k, v, positions, page_size, block_tables)
     N, H, hd = q.shape
     n_blocks, page, KV, _ = k.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("paged_decode_pool_bf16",
-                [q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 positions.data_ptr(), block_tables.data_ptr(),
-                 out.data_ptr(), N, H, KV, hd, page, n_blocks,
-                 block_tables.shape[1], float(scale), stream],
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                + [ctypes.c_float, ctypes.c_void_p])
+    max_pages = block_tables.shape[1]
+    out = _launch("paged_decode_pool_bf16", q, KV, max_pages * page,
+                  [q, k, v, positions, block_tables],
+                  [N, H, KV, hd, page, n_blocks, max_pages, float(scale)],
+                  [ctypes.c_int] * 7 + [ctypes.c_float])
     paged_decode_attention_pool.launches += 1
     return out
 

@@ -85,18 +85,10 @@ def split_plan(N: int, W: int, H: int, KV: int, max_pages: int,
     the shapes only, never of positions or q_lens: a row's live splits
     follow from its own slot's last key. The source note bounds the
     workspaces (26.2 MB at head_dim 256)."""
-    from ._cuda import load
+    from ._cuda import split_plan as read_plan
 
-    fn = load("ragged_attention").ragged_attention_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    splits, kps, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    err = fn(N, W, H, KV, max_pages, page, ctypes.addressof(splits),
-             ctypes.addressof(kps), ctypes.addressof(rows))
-    if err != 0:
-        raise ValueError(f"the kernel takes no key split for N={N}, W={W}, "
-                         f"H={H}, KV={KV}, {max_pages} pages of {page}")
-    return splits.value, kps.value, rows.value
+    return read_plan("ragged_attention", "ragged_attention_plan", N, W, H,
+                     KV, max_pages, page)
 
 
 def _check_cuda_args(q, k, v, q_lens, positions, block_tables,
@@ -157,7 +149,7 @@ def ragged_attention_pool(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"ragged_attention_pool runs on cuda or cpu, "
                          f"not {q.device}")
     _check_cuda_args(q, k, v, q_lens, positions, block_tables, page_size)
-    from ._cuda import load
+    from ._cuda import load, split_workspaces
 
     lib = load("ragged_attention")
     fn = lib.ragged_attention_bf16
@@ -169,19 +161,12 @@ def ragged_attention_pool(q: torch.Tensor, k: torch.Tensor,
     max_pages = block_tables.shape[1]
     splits, kps, rows = split_plan(N, W, H, KV, max_pages, page)
     out = torch.empty_like(q)
-    ws_o = ws_ml = None
-    if splits > 1:
-        ws_o = torch.empty((splits, rows, hd), dtype=torch.float32,
-                           device=q.device)
-        ws_ml = torch.empty((splits, rows, 2), dtype=torch.float32,
-                            device=q.device)
+    ws_o, ws_ml, _keep = split_workspaces(splits, rows, hd, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  q_lens.data_ptr(), positions.data_ptr(),
-                 block_tables.data_ptr(), out.data_ptr(),
-                 0 if ws_o is None else ws_o.data_ptr(),
-                 0 if ws_ml is None else ws_ml.data_ptr(),
+                 block_tables.data_ptr(), out.data_ptr(), ws_o, ws_ml,
                  N, W, H, KV, hd, page, n_blocks, max_pages,
                  float(scale), kps, splits, stream)
     if err != 0:

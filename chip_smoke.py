@@ -22,8 +22,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                * flash attention at Gemma-7B's shapes (H=KV=16, head_dim
                  256; S 64 and 512 over a 1024-slot cache, from position
                  0 and from 85, a padded tail running past the cache,
-                 rows with no visible key, a two-row strided cache view)
-                 and one Llama-shaped GQA case (H=32, KV=8, head_dim 128);
+                 rows with no visible key, a two-row strided cache view,
+                 serve1's prefix-hit shape S=85 over 128 slots with and
+                 without a softcap, S=600 with the keys unsplit) and
+                 Llama's GQA (H=32, KV=8, head_dim 128: S=256 from 85,
+                 serve_paged's prefill S=128 over 128 slots, S=85 with
+                 rows that see no key, S=512 unsplit); each case's key
+                 split is printed and checked;
                * the int4 matmul on Gemma-7B's four projection shapes at
                  T in {1, 8, 9, 16, 64, 65, 85, 512, 600}, formats
                  512/512, 256/256 and 128/256 (the GEMV, the tiled path,
@@ -32,7 +37,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  pool) at Llama-3-8B's grouping (H=32, KV=8, head_dim 128;
                  pages 64 and 16), Gemma-2B's (8 over 1, 256) and
                  Gemma-7B's (16 over 16, 256), 8 slots at positions 0,
-                 page-1, page, mid-cache and the last slot: the dense
+                 page-1, page, on both sides of the first key-split
+                 boundary, mid-cache and the span's last slot (every
+                 geometry splits the keys; the plan is printed): the dense
                  cache read through its strided view (NaN from each
                  slot's position on and in the trash row), the pool
                  through tables with a block shared by two slots,
@@ -68,7 +75,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                must agree with the plain versions'.
 6. timing   -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
-               shapes the serving paths give it.
+               shapes the serving paths give it; with --profile, also the
+               device time of each kernel a call launches (an attention
+               kernel and its split combine).
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -83,6 +92,7 @@ import argparse
 import asyncio
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -279,6 +289,11 @@ def flash_case(torch, gen, *, S, KVLEN, offset=0, B=1, H=G7_HEADS,
                 positions=(offset + shift + rows).contiguous())
 
 
+# Llama-3-8B's attention geometry: 32 query heads over 8 KV heads of 128.
+LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 128
+LLAMA = dict(H=LLAMA_HEADS, KV=LLAMA_KV, hd=LLAMA_HD)
+
+
 def flash_cases(torch, gen):
     """The shapes of phase 2 for flash attention: (label, case)."""
     cases = [
@@ -294,14 +309,34 @@ def flash_cases(torch, gen):
         # Two rows of a 1025-slot cache read through a [:, :640] view.
         ("g7_b2_view", flash_case(torch, gen, S=64, KVLEN=640, offset=85,
                                   B=2, cache_len=1025)),
+        # serve1's prefix-hit shape: 85 rows end mid-tile, keys split in 2.
+        ("g7_s85_kv128", flash_case(torch, gen, S=85, KVLEN=128)),
+        # 160 row tiles: the keys stay whole; the last tile ends mid-tile.
+        ("g7_s600_unsplit", flash_case(torch, gen, S=600, KVLEN=1024)),
         ("llama_gqa", flash_case(torch, gen, S=256, KVLEN=1024, offset=85,
-                                 H=32, KV=8, hd=128)),
+                                 **LLAMA)),
+        # serve_paged's prefill window (G = 4; keys split in 2).
+        ("llama_s128_kv128", flash_case(torch, gen, S=128, KVLEN=128,
+                                        **LLAMA)),
+        ("llama_s512_unsplit", flash_case(torch, gen, S=512, KVLEN=512,
+                                          **LLAMA)),
     ]
     # Rows with no visible key: the first three sit before slot 0.
     none = flash_case(torch, gen, S=64, KVLEN=128)
     none["positions"] = none["positions"] - 3
     cases.append(("g7_no_key_rows", none))
+    none = flash_case(torch, gen, S=85, KVLEN=128, **LLAMA)
+    none["positions"] = none["positions"] - 3
+    cases.append(("llama_s85_no_key_rows", none))
+    # The optional softcap (before the mask), on the split path.
+    capped = flash_case(torch, gen, S=85, KVLEN=128)
+    capped["q"] = capped["q"] * 4
+    cases.append(("g7_s85_softcap30", dict(capped, logit_softcap=30.0)))
     return cases
+
+
+# Flash cases whose keys must stay whole (every other case splits them).
+FLASH_UNSPLIT_CASES = ("g7_s600_unsplit", "llama_s512_unsplit")
 
 
 def flash_live_work(case) -> tuple:
@@ -380,10 +415,6 @@ def int4_work(x, w) -> tuple:
 
 # ---------------------------------------------------------- paged decode
 
-# Llama-3-8B's attention geometry: 32 query heads over 8 KV heads of 128.
-LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 128
-
-
 def paged_case(torch, gen, *, H, KV, hd, page, positions, device="cuda"):
     """Both entry points' inputs for one geometry, 8 slots at
     ``positions``: the dense cache [N, S, KV, hd] as the model holds it
@@ -430,7 +461,14 @@ def paged_case(torch, gen, *, H, KV, hd, page, positions, device="cuda"):
 
 
 def paged_cases(torch, gen):
-    """The geometries of phase 2 for paged decode: (label, case)."""
+    """The geometries of phase 2 for paged decode: (label, case, plan).
+    Every geometry splits the keys over blocks (8 slots give 8 to 128
+    blocks); the positions sit at 0, page - 1, page, on both sides of the
+    first split boundary (keys_per_split - 1 and keys_per_split), in the
+    middle, and on the span's last slot. Both layouts share the span, so
+    one plan holds for both."""
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import split_plan
+
     out = []
     for label, (H, KV, hd), page in (
             ("llama_p64", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 64),
@@ -438,9 +476,12 @@ def paged_cases(torch, gen):
             ("gemma2b_p16", (N_HEADS, N_KV, HEAD_DIM), 16),
             ("gemma7b_p16", (G7_HEADS, G7_HEADS, G7_HD), 16)):
         S = -(-(1024 + 16) // page) * page
-        positions = [0, page - 1, page, 300, S - 1, 511, 700, 1000]
+        plan = split_plan(N_SLOTS, H, KV, S)
+        kps = plan[1]
+        positions = [0, page - 1, page, kps - 1, S - 1, kps, 700, 1000]
         out.append((label, paged_case(torch, gen, H=H, KV=KV, hd=hd,
-                                      page=page, positions=positions)))
+                                      page=page, positions=positions),
+                    plan))
     return out
 
 
@@ -637,7 +678,9 @@ def _kernel_paged(torch, gen) -> dict:
     cases = paged_cases(torch, gen)
     before = (paged_decode_attention.launches,
               paged_decode_attention_pool.launches)
-    for label, case in cases:
+    for label, case, (splits, kps, _) in cases:
+        if splits < 2:
+            raise AssertionError(f"paged [{label}]: the keys must split")
         for kind, kernel, plain in (
                 ("dense", paged_decode_attention,
                  paged_decode_attention_plain),
@@ -647,7 +690,9 @@ def _kernel_paged(torch, gen) -> dict:
             ref = plain(**case[kind])
             err = check_close(torch, f"paged {kind} [{label}]", out, ref)
             log(f"[kernel] paged {kind} {label}: max |kernel - plain| = "
-                f"{err:.3e} over {out.numel()} values")
+                f"{err:.3e} over {out.numel()} values ({splits} key "
+                f"split(s) of {kps}; positions "
+                f"{case[kind]['positions'].tolist()})")
             worst[kind] = max(worst[kind], err)
     grew = (paged_decode_attention.launches - before[0],
             paged_decode_attention_pool.launches - before[1])
@@ -660,12 +705,17 @@ def _kernel_paged(torch, gen) -> dict:
 
 def _kernel_flash(torch, gen) -> dict:
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
-        flash_attention_cached, flash_attention_cached_plain)
+        flash_attention_cached, flash_attention_cached_plain, split_plan)
 
     worst = 0.0
     cases = flash_cases(torch, gen)
     before = flash_attention_cached.launches
     for label, case in cases:
+        B, S, H, _ = case["q"].shape
+        splits, kps, _ = split_plan(B, S, H, case["k"].shape[2],
+                                    case["k"].shape[1])
+        if (splits > 1) == (label in FLASH_UNSPLIT_CASES):
+            raise AssertionError(f"flash [{label}]: {splits} key splits")
         out = flash_attention_cached(**case)
         ref = flash_attention_cached_plain(**case)
         err = check_close(torch, f"flash [{label}]", out, ref)
@@ -675,7 +725,8 @@ def _kernel_flash(torch, gen) -> dict:
                                  f"key must be exact zeros")
         log(f"[kernel] flash {label}: max |kernel - plain| = {err:.3e} over "
             f"{out.numel()} values (max |plain| "
-            f"{float(ref.float().abs().max()):.3f})")
+            f"{float(ref.float().abs().max()):.3f}; {splits} key split(s) "
+            f"of {kps})")
         worst = max(worst, err)
     grew = flash_attention_cached.launches - before
     if grew != len(cases):
@@ -1614,18 +1665,54 @@ def _check_paged_logits(torch, engine, res, prompt, tag) -> dict:
     return out
 
 
-def timed(torch, kernel, plain, library, *, iters: int) -> dict:
+def kernel_breakdown(torch, fn, *, iters: int = 10) -> dict:
+    """Device microseconds per launch of each of the port's kernels that
+    ``fn`` launches (an attention kernel and its split combine, say), the
+    mean over ``iters`` calls under ``torch.profiler``, each after
+    time_cuda's L2 flush. PyTorch's own kernels (the flush, a memset) are
+    left out, and each kernel's time is divided by its own count of
+    records, not by ``iters``: a profiler that drops records then still
+    reads the right mean. Only with ``--profile``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.zeros(16 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            scratch.sum()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.sub(r"\(anonymous namespace\)::|^void |\(.*$", "", e.key)
+        if name.startswith("at::") or name.startswith("Memset") or not e.count:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            out[name] = float(us) / e.count
+    return out
+
+
+def timed(torch, kernel, plain, library, *, iters: int,
+          profile: bool = False) -> dict:
     """Kernel, plain, library, kernel, in turns (L2 flushed before every
     call). ``spin_check`` keeps, for each of the four timings, the host's
     longest call, the shortest spin, the calls left uncovered and the
-    calls taken."""
+    calls taken. With ``profile``, ``kernels_us`` splits the kernel's
+    call into the kernels it launches (kernel_breakdown)."""
     runs = [time_cuda(torch, fn, iters=iters)
             for fn in (kernel, plain, library, kernel)]
     k1, p, lib, k2 = (r["ms"] for r in runs)
-    return {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
-            "plain_ms": p, "library_ms": lib,
-            "spin_check": [[r["host_ms_max"], r["spin_ms_min"],
-                            r["uncovered"], r["calls"]] for r in runs]}
+    out = {"kernel_ms": (k1 + k2) / 2, "kernel_ms_runs": [k1, k2],
+           "plain_ms": p, "library_ms": lib,
+           "spin_check": [[r["host_ms_max"], r["spin_ms_min"],
+                           r["uncovered"], r["calls"]] for r in runs]}
+    if profile:
+        out["kernels_us"] = kernel_breakdown(torch, kernel)
+    return out
 
 
 def with_bound(entry: dict, nbytes: int, flops: int) -> dict:
@@ -1645,30 +1732,38 @@ def log_timing(what: str, entry: dict, library: str) -> None:
         f"{entry['plain_ms']:.4f} ms, {library} {entry['library_ms']:.4f} "
         f"ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}); "
         f"host max / spin min ms / uncovered: {check}")
+    if "kernels_us" in entry:
+        log(f"[timing]   device us per launch: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in entry["kernels_us"].items()))
 
 
-def _timing_flash(torch, gen) -> dict:
+def _timing_flash(torch, gen, profile: bool) -> dict:
     import torch.nn.functional as F
 
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached, flash_attention_cached_plain)
 
     shapes = {"S85": flash_case(torch, gen, S=85, KVLEN=128),
-              "S512": flash_case(torch, gen, S=512, KVLEN=512)}
+              "S512": flash_case(torch, gen, S=512, KVLEN=512),
+              # serve_paged's prefill window at Llama-3-8B's grouping.
+              "llama_S128": flash_case(torch, gen, S=128, KVLEN=128,
+                                       **LLAMA)}
     out = {}
     for label, case in shapes.items():
         q, k, v, mask = flash_sdpa_inputs(torch, case)
+        gqa = {"enable_gqa": True} if q.shape[1] != k.shape[1] else {}
         entry = timed(
             torch, lambda: flash_attention_cached(**case),
             lambda: flash_attention_cached_plain(**case),
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-            iters=20)
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   **gqa),
+            iters=20, profile=profile)
         out[label] = with_bound(entry, *flash_live_work(case))
         log_timing(f"flash {label}", entry, "sdpa")
     return out
 
 
-def _timing_int4(torch, gen) -> dict:
+def _timing_int4(torch, gen, profile: bool) -> dict:
     from ai_agent_kubectl_tpu_torch.ops.quant4 import (
         dequantize_int4, qmatmul4, qmatmul4_plain)
 
@@ -1681,7 +1776,7 @@ def _timing_int4(torch, gen) -> dict:
             entry = timed(torch, lambda: qmatmul4(x, w),
                           lambda: qmatmul4_plain(x, w),
                           lambda: torch.matmul(x, dense),
-                          iters=10 if T == 512 else 50)
+                          iters=10 if T == 512 else 50, profile=profile)
             label = f"{name}_T{T}"
             out[label] = with_bound(entry, *int4_work(x, w))
             del dense
@@ -1689,7 +1784,8 @@ def _timing_int4(torch, gen) -> dict:
     return out
 
 
-def phase_timing(torch, serve_info: dict, paged_info: dict) -> dict:
+def phase_timing(torch, serve_info: dict, paged_info: dict,
+                 profile: bool = False) -> dict:
     from ai_agent_kubectl_tpu_torch.ops import paged_attention
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached)
@@ -1707,17 +1803,17 @@ def phase_timing(torch, serve_info: dict, paged_info: dict) -> dict:
     log(f"[timing] an empty call reads {empty['ms']:.5f} ms (host up to "
         f"{empty['host_ms_max']:.4f} ms, spin {empty['spin_ms_min']:.3f} ms)")
     out = {"empty_call": empty,
-           "ragged_attention": _timing_ragged(torch, serve_info),
-           "flash_attention": _timing_flash(torch, gen),
-           "int4_matmul": _timing_int4(torch, gen),
-           **_timing_paged(torch, gen, paged_info)}
+           "ragged_attention": _timing_ragged(torch, serve_info, profile),
+           "flash_attention": _timing_flash(torch, gen, profile),
+           "int4_matmul": _timing_int4(torch, gen, profile),
+           **_timing_paged(torch, gen, paged_info, profile)}
     # Timing launches do not count.
     for fn, n in zip(counted, saved):
         fn.launches = n
     return out
 
 
-def _timing_paged(torch, gen, paged_info: dict) -> dict:
+def _timing_paged(torch, gen, paged_info: dict, profile: bool) -> dict:
     """Both paged entry points at Llama-3-8B's grouping, page 64, 8 slots
     at the final positions the serve_paged burst reached (each engine's
     own), the library call SDPA over the gathered live span with a key
@@ -1745,7 +1841,7 @@ def _timing_paged(torch, gen, paged_info: dict) -> dict:
             torch, lambda: kernel(**case), lambda: plain(**case),
             lambda: F.scaled_dot_product_attention(
                 q, kc, vc, attn_mask=mask, enable_gqa=True),
-            iters=50)
+            iters=50, profile=profile)
         entry["positions"] = positions
         out[name] = {"decode": with_bound(
             entry, *paged_live_work(case, kind == "pool"))}
@@ -1753,7 +1849,7 @@ def _timing_paged(torch, gen, paged_info: dict) -> dict:
     return out
 
 
-def _timing_ragged(torch, serve_info: dict) -> dict:
+def _timing_ragged(torch, serve_info: dict, profile: bool) -> dict:
     import torch.nn.functional as F
 
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
@@ -1782,7 +1878,7 @@ def _timing_ragged(torch, serve_info: dict) -> dict:
             lambda: ragged_attention_pool_plain(**case, page_size=PAGE),
             lambda: F.scaled_dot_product_attention(
                 q, kc, vc, attn_mask=mask, enable_gqa=True),
-            iters=10 if label == "prefill512" else 50)
+            iters=10 if label == "prefill512" else 50, profile=profile)
         out[label] = with_bound(entry, *ragged_live_work(case))
         log_timing(f"ragged {label}", entry, "sdpa")
     return out
@@ -1863,7 +1959,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="after each serving run, profile one more burst")
+                    help="after each serving run, profile one more burst; "
+                    "in the timing phase, split each kernel call into the "
+                    "kernels it launches")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1901,7 +1999,8 @@ def main() -> int:
         results["serve_paged"] = phase_serve_paged(torch, args.profile)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
-                                         results.get("serve_paged", {}))
+                                         results.get("serve_paged", {}),
+                                         args.profile)
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 
     print(json.dumps({"kernels": kernel_lines(results)}))

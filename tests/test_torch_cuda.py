@@ -340,3 +340,269 @@ def test_ragged_launch_refuses_another_plan(card, W, splits, kps):
              max_pages, hd ** -0.5, kps, splits,
              torch.cuda.current_stream().cuda_stream)
     assert err == 1                       # cudaErrorInvalidValue
+
+
+def _flash_args(card, *, B, S, KVLEN, H, KV, hd, offsets, seed):
+    """Flash inputs through a strided [:, :KVLEN] view of a cache one slot
+    longer, with row b's queries at offsets[b] + 0 .. S-1. Each batch
+    row's q and cache come from their own draws, so moving one row's
+    offsets leaves the others' bytes as they were."""
+    q = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=card)
+    cache = torch.empty((2, B, KVLEN + 1, KV, hd), dtype=torch.bfloat16,
+                        device=card)
+    for b in range(B):
+        rng = np.random.default_rng((seed, b))
+        q[b] = torch.from_numpy(rng.standard_normal((S, H, hd)).astype(
+            np.float32)).to(card, torch.bfloat16)
+        cache[:, b] = torch.from_numpy(rng.standard_normal(
+            (2, KVLEN + 1, KV, hd)).astype(np.float32)).to(card,
+                                                           torch.bfloat16)
+    pos = torch.stack([torch.arange(S, dtype=torch.int32) + o
+                       for o in offsets]).to(card).contiguous()
+    return q, cache[0][:, :KVLEN], cache[1][:, :KVLEN], pos
+
+
+@pytest.mark.parametrize("S,KVLEN,H,KV,hd,split", [
+    (85, 128, 16, 16, 256, True),
+    (128, 128, 32, 8, 128, True),
+    (72, 200, 8, 2, 64, True),
+    (600, 1024, 16, 16, 256, False),
+    (512, 512, 32, 8, 128, False),
+], ids=["g7_s85_split", "llama_s128_split", "hd64_gqa4_split",
+        "g7_s600_whole", "llama_s512_whole"])
+def test_flash_key_split_matches_plain(card, S, KVLEN, H, KV, hd, split):
+    """Both sides of the flash kernel's key split (serve1's prefix-hit
+    shape and serve_paged's prefill window split; long prefills do not),
+    two batch rows read through a strided view, row 1's first three
+    columns before slot 0 (exact zeros): within tolerance of the plain
+    version, byte-identical on a repeat, and row 0 unchanged when row 1's
+    positions move on."""
+    args = _flash_args(card, B=2, S=S, KVLEN=KVLEN, H=H, KV=KV, hd=hd,
+                       offsets=[0, -3], seed=S)
+    assert (tfa.split_plan(2, S, H, KV, KVLEN)[0] > 1) == split
+    before = tfa.flash_attention_cached.launches
+    out = tfa.flash_attention_cached(*args)
+    _close(out, tfa.flash_attention_cached_plain(*args))
+    assert torch.equal(out, tfa.flash_attention_cached(*args))
+    assert tfa.flash_attention_cached.launches == before + 2
+    assert (out[1, :3] == 0).all()
+    moved = _flash_args(card, B=2, S=S, KVLEN=KVLEN, H=H, KV=KV, hd=hd,
+                        offsets=[0, 40], seed=S)
+    out2 = tfa.flash_attention_cached(*moved)
+    _close(out2, tfa.flash_attention_cached_plain(*moved))
+    assert torch.equal(out2[0], out[0])
+    assert not torch.equal(out2[1], out[1])
+
+
+def _paged_args(card, *, H, KV, hd, positions, page, S, seed):
+    """Both paged layouts holding the same K/V: the dense cache [N, S + 1,
+    KV, hd] read through its [:, :S] view, NaN from each slot's position
+    + 1 on; and a pool whose block n * (S // page) + j is slot n's page j
+    (live pages only; every other block NaN) through tables with the
+    sentinel past the live pages. Each slot's rows come from its own
+    draw, so moving one slot's position leaves the others' bytes as they
+    were."""
+    N = len(positions)
+    max_pages = S // page
+    n_blocks = N * max_pages + 1
+    q = torch.empty((N, H, hd), dtype=torch.bfloat16, device=card)
+    cache = torch.full((2, N, S + 1, KV, hd), float("nan"),
+                       dtype=torch.bfloat16, device=card)
+    pool = torch.full((2, n_blocks, page, KV, hd), float("nan"),
+                      dtype=torch.bfloat16, device=card)
+    tables = torch.full((N, max_pages), n_blocks + 5, dtype=torch.int32)
+    for n, p in enumerate(positions):
+        rng = np.random.default_rng((seed, n))
+        q[n] = torch.from_numpy(rng.standard_normal((H, hd)).astype(
+            np.float32)).to(card, torch.bfloat16)
+        rows = torch.from_numpy(rng.standard_normal((2, S, KV, hd)).astype(
+            np.float32)).to(card, torch.bfloat16)
+        cache[:, n, :p + 1] = rows[:, :p + 1]
+        for j in range(p // page + 1):
+            blk = n * max_pages + j
+            tables[n, j] = blk
+            live = min(page, p + 1 - j * page)
+            pool[:, blk, :live] = rows[:, j * page:j * page + live]
+    pos = torch.tensor(positions, dtype=torch.int32, device=card)
+    return ((q, cache[0][:, :S], cache[1][:, :S], pos),
+            (q, pool[0], pool[1], pos, tables.to(card)))
+
+
+@pytest.mark.parametrize("geometry,N,split", [
+    ((32, 8, 128), 8, True), ((8, 1, 256), 8, True),
+    ((16, 16, 256), 8, True), ((32, 8, 128), 32, False)],
+    ids=["llama_8slots_split", "gemma2b_split", "gemma7b_split",
+         "llama_32slots_whole"])
+def test_paged_key_split_matches_plain(card, geometry, N, split):
+    """Both paged entry points on both sides of the key split, 8 slots at
+    positions 0, page - 1, page, on both sides of the first split edge,
+    mid-span and on the span's last slot (the rest of 32 slots spread
+    over the span): within tolerance of the plain versions, byte-
+    identical on a repeat, and every other slot byte-identical when slot
+    3 moves 300 positions (modulo the span; its K/V rebuilt for the new
+    span)."""
+    H, KV, hd = geometry
+    page, S = 64, 1088
+    splits, kps, _ = tpa.split_plan(N, H, KV, S)
+    assert (splits > 1) == split
+    edge = min(kps, S - 1)            # the span is one split when whole
+    positions = [0, page - 1, page, edge - 1, edge, 700, S - 1, 333]
+    positions += [(37 * i) % S for i in range(N - len(positions))]
+    moved = list(positions)
+    moved[3] = (moved[3] + 300) % S
+    dense, pool = _paged_args(card, H=H, KV=KV, hd=hd, positions=positions,
+                              page=page, S=S, seed=H)
+    dense2, pool2 = _paged_args(card, H=H, KV=KV, hd=hd, positions=moved,
+                                page=page, S=S, seed=H)
+    for fn, plain, a, a2 in (
+            (tpa.paged_decode_attention, tpa.paged_decode_attention_plain,
+             dense, dense2),
+            (tpa.paged_decode_attention_pool,
+             tpa.paged_decode_attention_pool_plain, pool, pool2)):
+        before = fn.launches
+        out = fn(*a, page_size=page)
+        _close(out, plain(*a, page_size=page))
+        assert torch.equal(out, fn(*a, page_size=page))
+        out2 = fn(*a2, page_size=page)
+        _close(out2, plain(*a2, page_size=page))
+        assert fn.launches == before + 3
+        for n in range(N):
+            if n != 3:
+                assert torch.equal(out2[n], out[n]), f"slot {n} moved"
+        assert not torch.equal(out2[3], out[3])
+
+
+def test_flash_split_plan(card):
+    """The flash kernel's key split: ranges of a multiple of 64 keys
+    covering KVLEN, none empty, only grids under one block per SM (132)
+    split (and only more than 64 keys), and the workspaces under the
+    bound its source states (26.2 MB at head_dim 256; 25.4 MB at the
+    largest prefill served)."""
+    for B in (1, 2):
+        for S in (1, 16, 64, 85, 128, 256, 512, 600):
+            for H, KV, hd in ((16, 16, 256), (32, 8, 128), (8, 1, 256),
+                              (4, 2, 64)):
+                for KVLEN in (S, 128, 512, 1024, 1025):
+                    if KVLEN < S:
+                        continue
+                    splits, kps, rows = tfa.split_plan(B, S, H, KV, KVLEN)
+                    blocks = B * KV * -(-S * (H // KV) // 64)
+                    assert rows == blocks * 64
+                    assert kps % 64 == 0
+                    assert (splits - 1) * kps < KVLEN <= splits * kps
+                    assert (splits > 1) == (blocks < 132 and KVLEN > 64)
+                    ws = 4 * splits * rows * (hd + 2) if splits > 1 else 0
+                    assert ws < 4 * 396 * 64 * (256 + 2)
+    # serve1's prefix hit and serve_paged's prefill window split in 2;
+    # serve1's 512 prefill in 3 of 192 keys (its workspaces: 25.4 MB);
+    # 160 row tiles do not split.
+    assert tfa.split_plan(1, 85, 16, 16, 128)[:2] == (2, 64)
+    assert tfa.split_plan(1, 128, 32, 8, 128)[:2] == (2, 64)
+    splits, kps, rows = tfa.split_plan(1, 512, 16, 16, 512)
+    assert (splits, kps) == (3, 192)
+    assert 4 * splits * rows * (256 + 2) == 25362432
+    assert tfa.split_plan(1, 600, 16, 16, 1024)[:2] == (1, 1024)
+    with pytest.raises(ValueError):
+        tfa.split_plan(1, 64, 6, 4, 128)
+
+
+def test_paged_split_plan(card):
+    """The paged kernel's key split: ranges of a multiple of 64 keys
+    covering the span, none empty, only grids of (slot, KV head, 16-head
+    tile) under one block per SM split (and only spans over 64 keys),
+    and the workspaces under the bound its source states (6.5 MB at
+    head_dim 256)."""
+    for N in (1, 4, 8, 16, 32):
+        for H, KV in ((32, 8), (8, 1), (16, 16), (64, 2)):
+            for span in (64, 128, 1024, 1040, 1088, 4096):
+                splits, kps, rows = tpa.split_plan(N, H, KV, span)
+                blocks = N * KV * -(-(H // KV) // 16)
+                assert rows == blocks * 16
+                assert kps % 64 == 0
+                assert (splits - 1) * kps < span <= splits * kps
+                assert (splits > 1) == (blocks < 132 and span > 64)
+                ws = 4 * splits * rows * (256 + 2) if splits > 1 else 0
+                assert ws < 4 * 396 * 16 * (256 + 2)
+    # serve_paged's decode: the dense cache's span 1088 in 5 splits of
+    # 256, the pool's 1024 in 4; Gemma-2B's grouping in 17 of 64.
+    assert tpa.split_plan(8, 32, 8, 1088)[:2] == (5, 256)
+    assert tpa.split_plan(8, 32, 8, 1024)[:2] == (4, 256)
+    assert tpa.split_plan(8, 8, 1, 1040)[:2] == (17, 64)
+    assert tpa.split_plan(32, 32, 8, 1088)[:2] == (1, 1088)
+    with pytest.raises(ValueError):
+        tpa.split_plan(8, 30, 8, 1088)
+
+
+def _c_entry(lib, symbol, n_ptrs, middle):
+    import ctypes
+
+    from ai_agent_kubectl_tpu_torch.ops._cuda import load
+
+    fn = getattr(load(lib), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + middle + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("shift", [(1, 0), (-1, 0), (0, 64)],
+                         ids=["more_splits", "fewer_splits", "wider"])
+def test_flash_launch_refuses_another_plan(card, shift):
+    """flash_attention_bf16 refuses any key split but its plan's with
+    cudaErrorInvalidValue, before it launches anything."""
+    import ctypes
+
+    q, k, v, pos = _flash_args(card, B=1, S=85, KVLEN=128, H=16, KV=16,
+                               hd=256, offsets=[0], seed=0)
+    splits, kps, rows = tfa.split_plan(1, 85, 16, 16, 128)
+    splits, kps = splits + shift[0], kps + shift[1]
+    out = torch.empty_like(q)
+    ws_o = torch.empty((max(splits, 1), rows, 256), device=card)
+    ws_ml = torch.empty((max(splits, 1), rows, 2), device=card)
+    fn = _c_entry("flash_attention", "flash_attention_bf16", 7,
+                  [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+                  + [ctypes.c_float] * 2)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+             out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr(), 1, 85, 16,
+             16, 256, 128, k.stride(0), v.stride(0), 256 ** -0.5, 0.0, kps,
+             splits, torch.cuda.current_stream().cuda_stream)
+    assert err == 1                       # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["dense", "pool"])
+@pytest.mark.parametrize("shift", [(1, 0), (-1, 0), (0, 64)],
+                         ids=["more_splits", "fewer_splits", "wider"])
+def test_paged_launch_refuses_another_plan(card, pool, shift):
+    """Both paged C entry points refuse any key split but their plan's
+    with cudaErrorInvalidValue, before they launch anything."""
+    import ctypes
+
+    page, S = 64, 1088
+    dense_args, pool_args = _paged_args(card, H=32, KV=8, hd=128,
+                                        positions=[5] * 8, page=page, S=S,
+                                        seed=0)
+    splits, kps, rows = tpa.split_plan(8, 32, 8, S)
+    splits, kps = splits + shift[0], kps + shift[1]
+    q = dense_args[0]
+    out = torch.empty_like(q)
+    ws_o = torch.empty((max(splits, 1), rows, 128), device=card)
+    ws_ml = torch.empty((max(splits, 1), rows, 2), device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    if pool:
+        _, k, v, pos, tables = pool_args
+        fn = _c_entry("paged_attention", "paged_decode_pool_bf16", 8,
+                      [ctypes.c_int] * 7 + [ctypes.c_float])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                 tables.data_ptr(), out.data_ptr(), ws_o.data_ptr(),
+                 ws_ml.data_ptr(), 8, 32, 8, 128, page, k.shape[0],
+                 tables.shape[1], 128 ** -0.5, kps, splits, stream)
+    else:
+        _, k, v, pos = dense_args
+        fn = _c_entry("paged_attention", "paged_decode_bf16", 7,
+                      [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                      + [ctypes.c_float])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                 out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr(), 8, 32, 8,
+                 128, S, k.stride(0), v.stride(0), 128 ** -0.5, kps, splits,
+                 stream)
+    assert err == 1                       # cudaErrorInvalidValue

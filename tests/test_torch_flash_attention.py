@@ -62,6 +62,27 @@ def test_plain_matches_jax_kernel(B, S, KVLEN, H, KV, hd):
     np.testing.assert_allclose(got, want, **F32)
 
 
+@pytest.mark.parametrize("S,KVLEN,H,KV,offset", [
+    (72, 128, 8, 2, 0),      # 288 rows per KV head: four full 64-row
+                             # tiles and a part one, G = 4
+    (200, 256, 4, 4, 13),    # three full tiles and a part one, MHA
+    (136, 136, 8, 2, 0),     # keys end 8 past a 128-key (two-split) edge
+    (56, 64, 4, 1, 30),      # the tail runs past KVLEN; MQA
+    (24, 128, 8, 2, -3),     # G = 4; the first three columns see no key
+], ids=["s72_gqa4", "s200_mha", "kv136_gqa4", "s56_tail_mqa",
+        "s24_no_key_gqa4"])
+def test_plain_matches_jax_kernel_at_tile_edges(S, KVLEN, H, KV, offset):
+    """The Hopper kernel's tile and split edges (64-row tiles over the
+    G query heads of a KV head, keys split in multiples of 64): row
+    counts that are no multiple of 64, keys that end just past a split
+    edge, positions past KVLEN and before slot 0."""
+    q, k, v = _case(1, S, KVLEN, H, KV, 64, seed=S + KVLEN)
+    got, want = _both(q, k, v, _arange(1, S, offset))
+    np.testing.assert_allclose(got, want, **F32)
+    if offset < 0:
+        assert np.all(got[:, :-offset] == 0.0)
+
+
 @pytest.mark.parametrize("offset", [37, 85], ids=["prefix37", "tail85"])
 def test_offset_positions(offset):
     """Queries at absolute positions offset.. over a cache whose first

@@ -78,6 +78,40 @@ def test_dense_plain_matches_jax_kernel(kv_heads):
     np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
+@pytest.mark.parametrize("positions", [(63, 64, 127, 128), (0, 191, 65, 62)],
+                         ids=["on_and_past_split_edges", "span_ends"])
+def test_gqa4_plain_matches_jax_kernels_at_split_edges(positions):
+    """G = 4 (8 query heads over 2 KV heads) with live spans that end
+    exactly on and just past a 64-key split edge, on the first key and on
+    the span's last slot: the dense cache and the pool (each slot's pages
+    on permuted blocks, the sentinel past them clamping onto a NaN
+    block)."""
+    q, k, v, pos, page = _dense_case(2, N=4, S=192, H=8, hd=64, seed=11,
+                                     positions=positions)
+    want = np.asarray(jax_paged(q, k, v, pos, page_size=page,
+                                interpret=True))
+    got = paged_decode_attention(*_t(q, k, v, pos), page_size=page)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+    n_pages = 192 // page
+    n_blocks = 4 * n_pages + 1
+    rng = np.random.default_rng(12)
+    kp = rng.standard_normal((n_blocks, page, 2, 64)).astype(np.float32)
+    vp = rng.standard_normal((n_blocks, page, 2, 64)).astype(np.float32)
+    kp[-1] = vp[-1] = np.nan
+    perm = rng.permutation(n_blocks - 1).astype(np.int32)
+    tables = np.full((4, n_pages), n_blocks + 2, np.int32)
+    for n, p in enumerate(positions):
+        live = p // page + 1
+        tables[n, :live] = perm[n * n_pages:n * n_pages + live]
+    want = np.asarray(jax_paged_pool(q, kp, vp, pos, tables, page_size=page,
+                                     interpret=True))
+    got = paged_decode_attention_pool(*_t(q, kp, vp, pos, tables),
+                                      page_size=page).numpy()
+    assert not np.isnan(got).any(), "a dead or NaN page leaked"
+    np.testing.assert_allclose(got, want, **F32)
+
+
 def test_dense_plain_full_cache_and_last_page():
     """Positions S-1 and S-page over a GQA cache."""
     q, k, v, positions, page = _dense_case(2, N=2, S=64, seed=1,
