@@ -11,10 +11,13 @@ Package layout (each module mirrors its counterpart in the JAX package):
 - ``device``  — device resolution: CUDA unless the caller asks for the CPU
 - ``ops``     — numeric ops and the hand-written Hopper kernels (``csrc/``)
 - ``models``  — the decoder-only transformer over the block-paged KV pool
-  or a dense per-request cache, plain or quantized weights
+  or a dense per-request cache, plain or quantized weights, and the HF
+  safetensors checkpoint loader (``models/convert.py``)
 - ``engine``  — tokenizer, KV pool, radix cache, prefix cache, sampling,
-  the single-sequence and the batched engines
-- ``server``  — the request pipeline and a lean aiohttp front end
+  the single-sequence and the batched engines, the rule-based fallback
+- ``obs``     — request traces and the flight recorder
+- ``server``  — the service layer and the aiohttp app: auth, rate limit,
+  overload shedding, TTL cache, breaker, ``/execute``, ``/metrics``
 """
 
 __version__ = "0.1.0"

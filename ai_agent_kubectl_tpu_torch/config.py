@@ -1,28 +1,120 @@
 """Typed environment-variable configuration for the port.
 
-The knobs this slice reads, under the JAX package's environment variable
+The knobs the port reads, under the JAX package's environment variable
 names and with its defaults, plus ``TORCH_DEVICE`` — the counterpart of
 ``JAX_PLATFORMS``: the server runs on ``cuda`` unless it is set to
-``cpu``. The JAX package's knobs for features the port does not serve
-yet are refused when set to anything but their default
-(``UNSERVED_KNOBS``), so a deployment never silently gets less than it
-asked for; the rest of them (QoS, SLOs, middleware) are not read.
+``cpu``. Every other knob of the JAX package names a feature the port
+does not serve yet: it is listed in ``UNSERVED_KNOBS`` and refused at
+boot when set to anything but the value the port serves, so a
+deployment never silently gets less than it asked for. ``ENGINE`` takes
+the port's engines only (``torch``, ``torch-batched``); the JAX
+package's ``openai`` and ``fake`` engines are refused by name.
+``COMPILE_CACHE_DIR`` has no counterpart: nothing compiles in eager
+PyTorch, so the knob is not read.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+import re
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
-#: JAX-package knobs whose features wait for a later slice, with the
-#: default that means "off".
+#: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
+#: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    "KV_QUANT": "", "SPEC_DECODE": "false",
-    "GRAMMAR_DECODE": "false", "MESH_SHAPE": "", "DCN_MESH_SHAPE": "",
-    "FLEET_SIZE": "1", "HOST_KV_BLOCKS": "0",
+    # int8 KV (A4), MoE (A5)
+    "KV_QUANT": "", "MOE_IMPL": "auto",
+    # the rest of the batched engine (A7): speculative and grammar
+    # decode, the two-tier host KV, chunk pipelining (the port fetches
+    # each chunk before the next dispatch, on device-side termination),
+    # group admission
+    "SPEC_DECODE": "false", "SPEC_DRAFT_K": "4",
+    "SPEC_DRAFT_MODEL": "gemma-2b-it", "SPEC_DRAFT_PATH": "",
+    "GRAMMAR_DECODE": "false", "GRAMMAR_PROFILE": "default",
+    "GRAMMAR_FORCED_RUN_MIN": "4", "HOST_KV_BLOCKS": "0",
+    "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
+    "ADMIT_SCRATCH_MB": "512",
+    # QoS lanes, preemption and session budgets (A7)
+    "TENANT_TIERS": "", "QOS_DEFAULT_LANE": "interactive",
+    "LANE_WEIGHTS": "", "TENANT_MAX_QUEUE": "0",
+    "QOS_SESSION_TOKEN_BUDGET": "0", "PREEMPT_WAIT_MS": "500",
+    "PREEMPT_BUDGET": "2", "SLO_INTERACTIVE_MS": "2000",
+    # containment: watchdog, reset-and-replay, fault injection (A7)
+    "ENGINE_WATCHDOG_SECS": "120", "ENGINE_STARTUP_GRACE_SECS": "900",
+    "QUARANTINE_RETRY_BUDGET": "1", "ENGINE_RESET_MAX_PER_MIN": "12",
+    "FAULT_POINTS": "",
+    # goodput ledger, SLO burn rates, step-time sentinel, incidents (A7)
+    "LEDGER_ENABLE": "false", "SLO_TTFT_MS": "5000",
+    "SLO_SESSION_TTFT_MS": "0", "SLO_WINDOWS": "300,3600",
+    "SLO_OBJECTIVE": "0.99", "PERF_BASELINES": "",
+    "SENTINEL_ENABLE": "false", "SENTINEL_WINDOW": "256",
+    "SENTINEL_FACTOR": "2", "SENTINEL_MIN_SAMPLES": "16",
+    "SENTINEL_EVAL_SECS": "2", "INCIDENT_RING": "8",
+    "INCIDENT_COOLDOWN_SECS": "60", "INCIDENT_BURN_THRESHOLD": "2",
+    "INCIDENT_PROFILE_SECS": "0", "INCIDENT_THRASH_MIN_BLOCKS": "8",
+    # fleet and weight rollout (A7)
+    "FLEET_SIZE": "1", "FLEET_HEDGE_MS": "0", "FLEET_AFFINITY": "true",
+    "FLEET_MIGRATION_BUDGET": "3", "FLEET_REJOIN_SECS": "0",
+    "ROLLOUT_CANARY_SHARE": "0.1", "ROLLOUT_OBSERVE_SECS": "60",
+    "ROLLOUT_BURN_GATE": "2", "ROLLOUT_STEPTIME_GATE": "0",
+    # /debug/* and /admin/* (A9), JSON logs (A9, logging_setup)
+    "DEBUG_TOKEN": "", "LOG_FORMAT": "text",
+    # the OpenAI-compatible remote engine (A9)
+    "OPENAI_API_KEY": "", "OPENAI_MODEL": "gpt-3.5-turbo",
+    "OPENAI_BASE_URL": "",
+    # more than one card or host (A8)
+    "MESH_SHAPE": "", "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
+    "COORDINATOR_ADDRESS": "", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
 }
+
+#: The JAX package's engines that the port does not serve, and why.
+UNSERVED_ENGINES = {
+    "openai": "the OpenAI-compatible remote engine (ROADMAP.md A9)",
+    "fake": "the rule-table test engine (ROADMAP.md A9)",
+    "jax": "the JAX package's engine: the port serves ENGINE=torch",
+    "jax-batched": "the JAX package's engine: the port serves "
+                   "ENGINE=torch-batched",
+}
+
+_BOOL_WORDS = {"1": True, "true": True, "yes": True, "on": True,
+               "0": False, "false": False, "no": False, "off": False}
+
+
+def _same_value(raw: str, served: str) -> bool:
+    """Whether an environment value asks for what the port serves: the
+    same word, number or boolean as ``served`` (case and spelling
+    aside)."""
+    val = raw.strip().lower()
+    if val == served:
+        return True
+    if served in _BOOL_WORDS:
+        return _BOOL_WORDS.get(val) is _BOOL_WORDS[served]
+    try:
+        return float(val) == float(served)
+    except ValueError:
+        return False
+
+
+_RATE_RE = re.compile(
+    r"^\s*(\d+)\s*(?:/|\s+per\s+)\s*(\d*)\s*(second|minute|hour|day)s?\s*$",
+    re.IGNORECASE,
+)
+
+_PERIOD_SECONDS = {"second": 1, "minute": 60, "hour": 3600, "day": 86400}
+
+
+def parse_rate_limit(spec: str) -> Tuple[int, float]:
+    """Parse a slowapi-style rate string ("10/minute", "5 per 30 second")
+    into (count, window_seconds), as the JAX package does."""
+    m = _RATE_RE.match(spec)
+    if not m:
+        raise ValueError(f"Invalid rate limit spec: {spec!r}")
+    count = int(m.group(1))
+    multiple = int(m.group(2)) if m.group(2) else 1
+    window = multiple * _PERIOD_SECONDS[m.group(3).lower()]
+    return count, float(window)
 
 
 def _env_str(name: str, default: Optional[str]) -> Optional[str]:
@@ -51,17 +143,25 @@ def _env_bool(name: str, default: bool) -> bool:
 class ServiceConfig:
     """What the port's server and engine read."""
 
+    api_auth_key: Optional[str] = None      # API_AUTH_KEY; auth off if unset
+    cache_maxsize: int = 100                # CACHE_MAXSIZE
+    cache_ttl: float = 300.0                # CACHE_TTL seconds
+    llm_timeout: float = 60.0               # LLM_TIMEOUT seconds
+    execution_timeout: float = 30.0         # EXECUTION_TIMEOUT seconds
+    rate_limit: str = "10/minute"           # RATE_LIMIT
     log_level: str = "INFO"                 # LOG_LEVEL
     host: str = "0.0.0.0"                   # HOST
     port: int = 8000                        # PORT
-    llm_timeout: float = 60.0               # LLM_TIMEOUT seconds
+    # Key the rate limit by the leftmost X-Forwarded-For hop (behind a
+    # fronting router tier); off, the peer address keys it.
+    trust_proxy_headers: bool = False       # TRUST_PROXY_HEADERS
 
     # ENGINE: torch | torch-batched. "torch" serves through the
     # continuous-batching scheduler when DECODE_BATCH_SIZE > 1.
     engine: str = "torch"
     torch_device: str = "cuda"              # TORCH_DEVICE: cuda | cpu
     model_name: str = "toy-8m"              # MODEL_NAME (registry key)
-    model_path: Optional[str] = None        # MODEL_PATH (not served yet)
+    model_path: Optional[str] = None        # MODEL_PATH (HF safetensors)
     tokenizer_path: Optional[str] = None    # TOKENIZER_PATH
     dtype: str = "bfloat16"                 # DTYPE
     quant: str = ""                         # QUANT: "" | int8 | int4
@@ -91,10 +191,34 @@ class ServiceConfig:
     radix_lru_blocks: int = 0               # RADIX_LRU_BLOCKS (0 = auto)
     hbm_prefix_cache: bool = True           # HBM_PREFIX_CACHE
     max_queue_depth: int = 64               # MAX_QUEUE_DEPTH
+    # Generation requests in flight at the HTTP layer; beyond it a fast
+    # 503 with Retry-After (<= 0: unlimited).
+    max_inflight_requests: int = 256        # MAX_INFLIGHT_REQUESTS
+    # Serve rule-based answers (degraded: true, HTTP 200) instead of 503
+    # while the engine fails or the breaker is open.
+    degraded_fallback: bool = False         # DEGRADED_FALLBACK
+    # Circuit breaker around the engine: opens after this many engine
+    # failures within breaker_window_secs (0 disables); after
+    # breaker_recovery_secs one half-open probe re-closes it on success.
+    breaker_threshold: int = 5              # BREAKER_THRESHOLD
+    breaker_window_secs: float = 30.0       # BREAKER_WINDOW_SECS
+    breaker_recovery_secs: float = 15.0     # BREAKER_RECOVERY_SECS
     slot_health_check: bool = True          # SLOT_HEALTH_CHECK
+    flight_recorder_size: int = 256         # FLIGHT_RECORDER_SIZE
     drain_timeout_secs: float = 10.0        # DRAIN_TIMEOUT_SECS
 
+    # Parsed from rate_limit.
+    rate_limit_count: int = field(init=False, default=10)
+    rate_limit_window: float = field(init=False, default=60.0)
+
     def __post_init__(self):
+        count, window = parse_rate_limit(self.rate_limit)
+        object.__setattr__(self, "rate_limit_count", count)
+        object.__setattr__(self, "rate_limit_window", window)
+        if self.engine in UNSERVED_ENGINES:
+            raise ValueError(
+                f"ENGINE={self.engine} ({UNSERVED_ENGINES[self.engine]}) "
+                f"is not served by the PyTorch port")
         if self.engine not in ("torch", "torch-batched"):
             raise ValueError(f"ENGINE must be torch|torch-batched, got "
                              f"{self.engine!r}")
@@ -135,23 +259,35 @@ class ServiceConfig:
                              f"{self.top_k}/{self.top_p}")
 
     @property
+    def auth_enabled(self) -> bool:
+        return bool(self.api_auth_key)
+
+    @property
     def prefill_bucket_list(self) -> Tuple[int, ...]:
         return tuple(sorted(int(b) for b in self.prefill_buckets.split(",")
                             if b.strip()))
 
     @classmethod
     def from_env(cls) -> "ServiceConfig":
-        for name, off in UNSERVED_KNOBS.items():
-            val = (os.getenv(name) or off).strip().lower()
-            if val not in (off, "0", "false", "no", "off"):
-                raise ValueError(f"{name}={os.getenv(name)!r} is not served "
-                                 f"by the PyTorch port yet (ROADMAP.md, "
-                                 f"queue A)")
+        for name, served in UNSERVED_KNOBS.items():
+            raw = os.getenv(name)
+            if raw not in (None, "") and not _same_value(raw, served):
+                raise ValueError(f"{name}={raw!r} is not served by the "
+                                 f"PyTorch port yet (ROADMAP.md, queue A)")
         return cls(
+            api_auth_key=_env_str("API_AUTH_KEY", None),
+            cache_maxsize=_env_int("CACHE_MAXSIZE", 100),
+            cache_ttl=_env_float("CACHE_TTL", 300.0),
+            llm_timeout=_env_float("LLM_TIMEOUT", 60.0),
+            execution_timeout=_env_float("EXECUTION_TIMEOUT", 30.0),
+            rate_limit=_env_str("RATE_LIMIT", "10/minute"),
             log_level=(_env_str("LOG_LEVEL", "INFO") or "INFO").upper(),
             host=_env_str("HOST", "0.0.0.0"),
             port=_env_int("PORT", 8000),
-            llm_timeout=_env_float("LLM_TIMEOUT", 60.0),
+            # TRUST_PROXY is the short alias; TRUST_PROXY_HEADERS wins
+            # when both are set.
+            trust_proxy_headers=_env_bool(
+                "TRUST_PROXY_HEADERS", _env_bool("TRUST_PROXY", False)),
             engine=(_env_str("ENGINE", "torch") or "torch").lower(),
             torch_device=(_env_str("TORCH_DEVICE", "cuda") or "cuda").lower(),
             model_name=_env_str("MODEL_NAME", "toy-8m"),
@@ -180,6 +316,12 @@ class ServiceConfig:
             radix_lru_blocks=_env_int("RADIX_LRU_BLOCKS", 0),
             hbm_prefix_cache=_env_bool("HBM_PREFIX_CACHE", True),
             max_queue_depth=_env_int("MAX_QUEUE_DEPTH", 64),
+            max_inflight_requests=_env_int("MAX_INFLIGHT_REQUESTS", 256),
+            degraded_fallback=_env_bool("DEGRADED_FALLBACK", False),
+            breaker_threshold=_env_int("BREAKER_THRESHOLD", 5),
+            breaker_window_secs=_env_float("BREAKER_WINDOW_SECS", 30.0),
+            breaker_recovery_secs=_env_float("BREAKER_RECOVERY_SECS", 15.0),
             slot_health_check=_env_bool("SLOT_HEALTH_CHECK", True),
+            flight_recorder_size=_env_int("FLIGHT_RECORDER_SIZE", 256),
             drain_timeout_secs=_env_float("DRAIN_TIMEOUT_SECS", 10.0),
         )

@@ -3,8 +3,8 @@ service seam.
 
 The counterpart of the JAX package's ``engine/jax_engine.py``. It holds
 what every engine of the port shares — the constructor's knobs, the
-tokenizer and the weights (``_load``: random init from ``seed``, plain,
-int8 or packed int4), the ``start``/``stop`` lifecycle and the
+tokenizer and the weights (``_load``: an HF checkpoint at ``MODEL_PATH``
+or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``stop`` lifecycle and the
 ``Engine`` protocol surface — and it serves one request at a time
 (``DECODE_BATCH_SIZE=1``):
 
@@ -57,6 +57,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig, get_config
+from ..models.convert import checkpoint_version, convert_hf_checkpoint
 from ..models.transformer import KVCache, Params, forward, init_params
 from ..ops.flash_attention import flash_supported
 from ..ops.quant import is_quantized, quantize_params_int8, \
@@ -115,10 +116,6 @@ class TorchEngine:
         if model_cfg.is_moe:
             raise NotImplementedError(
                 "MoE models wait for a later slice of the port")
-        if model_path:
-            raise NotImplementedError(
-                "loading a checkpoint (MODEL_PATH) waits for a later slice "
-                "of the port; leave it unset to serve random weights")
         if dtype not in DTYPES:
             raise ValueError(f"DTYPE must be one of {sorted(DTYPES)}, got "
                              f"{dtype!r}")
@@ -140,6 +137,7 @@ class TorchEngine:
                 f"{top_k}/{top_p}")
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
+        self.model_path = model_path
         self.tokenizer_path = tokenizer_path
         self.dtype = DTYPES[dtype]
         self.quant = quant
@@ -202,17 +200,27 @@ class TorchEngine:
 
     def _load(self) -> None:
         """Tokenizer and weights: the caller's parameters (quantized here
-        if ``quant`` asks and they are not yet), else a random init drawn
-        from a ``torch.Generator`` seeded with ``seed`` on the serving
-        device — directly in quantized form under ``quant``, so no
-        full-precision 7B tree is ever built."""
+        if ``quant`` asks and they are not yet); else the checkpoint at
+        ``model_path``, streamed onto the serving device and quantized
+        layer by layer under ``quant`` (``convert_hf_checkpoint``); else a
+        random init drawn from a ``torch.Generator`` seeded with ``seed``
+        on the serving device — directly in quantized form under
+        ``quant``. Either way no full-precision 7B tree is ever built."""
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(self.model_cfg,
                                             self.tokenizer_path)
         # The embedding is stored per-row int8 whenever the projections
         # are quantized (the JAX engine's _quantize_embed).
         quantize_embed = bool(self.quant)
-        if self.params is None:
+        if self.params is None and self.model_path:
+            logger.info("Loading checkpoint from %s onto %s (quant=%s)",
+                        self.model_path, self.device, self.quant or "-")
+            self.params = convert_hf_checkpoint(
+                self.model_cfg, self.model_path, dtype=self.dtype,
+                quant=self.quant, quantize_embed=quantize_embed,
+                device=self.device)
+            self.weights_version = checkpoint_version(self.model_path)
+        elif self.params is None:
             logger.warning("No MODEL_PATH; random-initializing %s on %s "
                            "(seed %d, quant=%s)", self.model_cfg.name,
                            self.device, self.seed, self.quant or "-")

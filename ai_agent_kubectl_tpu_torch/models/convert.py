@@ -1,5 +1,19 @@
 """Parameter conversion into the port's tree.
 
+``convert_hf_checkpoint`` loads a HuggingFace Llama or Gemma checkpoint
+(``*.safetensors``, one file or a directory of shards) onto the serving
+device, the counterpart of the JAX package's ``models/convert.py``: HF
+``[out, in]`` projections are transposed, per-layer tensors stacked on a
+leading ``n_layers`` axis, the ``model.`` prefix is optional, and an
+untied ``lm_head`` comes from the file or is tied to the embedding. The
+load streams: one layer's slice of a leaf at a time goes to the device
+(and, under ``quant``, is quantized there and freed), written into the
+preallocated stacked leaf, so the full-precision tree never exists
+whole on the device. The files are read with
+``safetensors.safe_open(framework="pt")``: the package imports on the
+card's machine as on the CPU test machines, so the port keeps no reader
+of its own.
+
 ``params_from_jax`` maps the JAX package's parameter tree (the dict
 ``ai_agent_kubectl_tpu/models/transformer.py::init_params`` returns,
 or its int8/int4-quantized form, with every array converted to numpy)
@@ -9,21 +23,217 @@ and ``group_in``/``block_out`` for packed int4) becomes the port's
 ``QuantInt8``/``QuantInt4`` holding the same bytes. With it both
 packages compute the same function, which is what the parity tests
 hold them to.
-Loading HF checkpoints (``convert_hf_checkpoint``) waits for a later
-slice of the port.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import dataclasses
+import hashlib
+import logging
+import os
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.quant import QuantInt8
-from ..ops.quant4 import QuantInt4
+from ..device import DeviceLike, resolve_device
+from ..ops.quant import QuantInt8, quantize_embed_int8, quantize_int8
+from ..ops.quant4 import QuantInt4, pick_format, quantize_int4
 from .config import ModelConfig
 from .transformer import Params
+
+logger = logging.getLogger(__name__)
+
+#: embedding rows quantized per device transfer under quantize_embed
+#: (bounds the f32 transient; the result is per row, so any chunk gives
+#: the same bytes)
+EMBED_CHUNK_ROWS = 8192
+
+
+def _open_checkpoint(path) -> Tuple[Callable[[str], torch.Tensor],
+                                    List[str]]:
+    """(tensor getter, key list) over one or many .safetensors files; the
+    getter returns a CPU tensor in the file's dtype."""
+    from safetensors import safe_open
+
+    path = Path(path)
+    files = sorted(path.glob("*.safetensors")) if path.is_dir() else [path]
+    if not files:
+        raise FileNotFoundError(f"No .safetensors files under {path}")
+    index: Dict[str, Any] = {}
+    for f in files:
+        handle = safe_open(str(f), framework="pt")
+        for key in handle.keys():
+            index[key] = handle
+    keys = list(index)
+
+    def get(key: str) -> torch.Tensor:
+        return index[key].get_tensor(key)
+
+    return get, keys
+
+
+def checkpoint_version(path) -> str:
+    """12-hex fingerprint of a checkpoint path: the path string plus a
+    manifest of its files (relative name, size, mtime), as the JAX
+    package versions its weights; no tensor data is read."""
+    h = hashlib.sha256(str(path).encode("utf-8", "surrogatepass"))
+    p = str(path)
+    if os.path.isdir(p):
+        for root, _dirs, files in sorted(os.walk(p)):
+            for name in sorted(files):
+                full = os.path.join(root, name)
+                st = os.stat(full)
+                h.update(f"{os.path.relpath(full, p)}:{st.st_size}:"
+                         f"{st.st_mtime_ns}".encode())
+    elif os.path.isfile(p):
+        st = os.stat(p)
+        h.update(f"{st.st_size}:{st.st_mtime_ns}".encode())
+    return h.hexdigest()[:12]
+
+
+def _stacked_like(leaf, n: int):
+    """An empty [n, ...] stack for per-layer leaves shaped like ``leaf``
+    (a tensor, or a quantized leaf's ``q`` and ``scale``)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.new_empty((n,) + tuple(leaf.shape))
+    return dataclasses.replace(leaf, **{
+        f: getattr(leaf, f).new_empty((n,) + tuple(getattr(leaf, f).shape))
+        for f in ("q", "scale")})
+
+
+def _put(stack, i: int, leaf) -> None:
+    if isinstance(leaf, torch.Tensor):
+        stack[i].copy_(leaf)
+    else:
+        for f in ("q", "scale"):
+            getattr(stack, f)[i].copy_(getattr(leaf, f))
+
+
+def convert_hf_checkpoint(cfg: ModelConfig, path, dtype=torch.bfloat16,
+                          quant: str = "", quantize_embed: bool = False,
+                          device: DeviceLike = None) -> Params:
+    """Load an HF checkpoint directory or file into the port's tree on
+    ``device`` (``cuda`` unless the caller asks for the CPU).
+
+    ``quant`` ("" | "int8" | "int4") quantizes each projection during
+    the load, one layer's slice at a time, with the port's
+    ``quantize_int8``/``quantize_int4``; int4 falls back per leaf to
+    int8 where ``pick_format`` cannot tile the shape. ``quantize_embed``
+    (with ``quant``) stores the embedding per-row int8, quantized in row
+    chunks. The result equals ``params_from_jax`` of the JAX function's
+    output on the same file, leaf for leaf."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} is a mixture of experts: converting MoE "
+            f"checkpoints (Mixtral) waits for a later slice of the port "
+            f"(ROADMAP.md A5)")
+    if quant not in ("", "int8", "int4"):
+        raise ValueError(f"quant must be ''|int8|int4, got {quant!r}")
+    dev = resolve_device(device)
+    get, keys = _open_checkpoint(path)
+    pfx = "model." if any(k.startswith("model.") for k in keys) else ""
+    L = cfg.n_layers
+
+    def load(key: str) -> torch.Tensor:
+        return get(key).to(device=dev, dtype=dtype)
+
+    def quantize_slice(w: torch.Tensor):
+        """One layer's [in, out] projection slice -> its stored leaf."""
+        if quant == "int4":
+            fmt = pick_format(w.shape[-2], w.shape[-1])
+            if fmt is not None:
+                return quantize_int4(w, group_in=fmt[0], block_out=fmt[1])
+            return quantize_int8(w)
+        if quant == "int8":
+            return quantize_int8(w)
+        return w
+
+    def stack(name: Callable[[int], str], projection: bool):
+        """Layer by layer into one preallocated [L, ...] leaf; a
+        projection is transposed to [in, out] and quantized first."""
+        out = None
+        for i in range(L):
+            leaf = load(name(i))
+            if projection:
+                leaf = quantize_slice(leaf.T)
+            if out is None:
+                out = _stacked_like(leaf, L)
+            _put(out, i, leaf)
+        return out
+
+    def lay(i: int, part: str) -> str:
+        return f"{pfx}layers.{i}.{part}.weight"
+
+    layers: Dict[str, Any] = {
+        "attn_norm": stack(lambda i: lay(i, "input_layernorm"), False),
+        "mlp_norm": stack(lambda i: lay(i, "post_attention_layernorm"),
+                          False),
+    }
+    for leaf, part in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                       ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                       ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                       ("w_down", "mlp.down_proj")):
+        layers[leaf] = stack(lambda i, part=part: lay(i, part), True)
+
+    embed_key = f"{pfx}embed_tokens.weight"
+    if quantize_embed and quant:
+        host = get(embed_key)
+        embed = None
+        for r0 in range(0, host.shape[0], EMBED_CHUNK_ROWS):
+            part = quantize_embed_int8(
+                host[r0:r0 + EMBED_CHUNK_ROWS].to(device=dev, dtype=dtype))
+            if embed is None:
+                embed = QuantInt8(
+                    q=part.q.new_empty((host.shape[0],) + part.q.shape[1:]),
+                    scale=part.scale.new_empty((host.shape[0], 1)))
+            embed.q[r0:r0 + len(part.q)].copy_(part.q)
+            embed.scale[r0:r0 + len(part.q)].copy_(part.scale)
+        del host
+    else:
+        embed = load(embed_key)
+
+    params: Dict[str, Any] = {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": load(f"{pfx}norm.weight"),
+    }
+    if not cfg.tie_embeddings:
+        if "lm_head.weight" in keys:
+            head = load("lm_head.weight")
+        else:
+            logger.warning("lm_head.weight absent; tying to embeddings")
+            # A per-row-quantized embedding has row scales, not column
+            # ones: the head is read again in full precision then.
+            head = embed if isinstance(embed, torch.Tensor) \
+                else load(embed_key)
+        params["lm_head"] = quantize_slice(head.T.contiguous())
+
+    _validate_shapes(cfg, params)
+    return params
+
+
+def _validate_shapes(cfg: ModelConfig, params: Dict[str, Any]) -> None:
+    d, hd, H, KV, L = (cfg.dim, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.n_layers)
+    expect = {
+        ("embed",): (cfg.vocab_size, d),
+        ("final_norm",): (d,),
+        ("layers", "wq"): (L, d, H * hd),
+        ("layers", "wk"): (L, d, KV * hd),
+        ("layers", "wv"): (L, d, KV * hd),
+        ("layers", "wo"): (L, H * hd, d),
+    }
+    for keypath, shape in expect.items():
+        node: Any = params
+        for k in keypath:
+            node = node[k]
+        if tuple(node.shape) != shape:
+            raise ValueError(
+                f"Checkpoint/config mismatch at {'.'.join(keypath)}: "
+                f"got {tuple(node.shape)}, expected {shape} for {cfg.name}"
+            )
 
 
 def _tensor(arr, dtype, device) -> torch.Tensor:

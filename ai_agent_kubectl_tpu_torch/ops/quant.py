@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .quant4 import QuantInt4, pick_format, qmatmul4
+from .quant4 import QuantInt4, pick_format, qmatmul4, true_div
 
 
 @dataclasses.dataclass
@@ -58,7 +58,8 @@ def quantize_int8(w: torch.Tensor) -> QuantInt8:
     the contraction axis (-2) is reduced."""
     wf = w.float()
     absmax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    scale = torch.where(absmax > 0, true_div(absmax, 127.0),
+                        torch.ones_like(absmax))
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return QuantInt8(q=q, scale=scale)
 
@@ -75,7 +76,7 @@ def quantize_embed_int8(embed: torch.Tensor,
     for i in range(0, embed.shape[0], chunk):
         blk = embed[i:i + chunk].float()
         absmax = blk.abs().amax(dim=-1, keepdim=True)
-        scale = torch.where(absmax > 0, absmax / 127.0,
+        scale = torch.where(absmax > 0, true_div(absmax, 127.0),
                             torch.ones_like(absmax))
         qs.append(torch.clamp(torch.round(blk / scale), -127, 127)
                   .to(torch.int8))

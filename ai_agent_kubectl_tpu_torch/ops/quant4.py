@@ -93,6 +93,15 @@ def pick_format(in_dim: int, out_dim: int):
     return group, block
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a correctly rounded division on every device. A CUDA
+    tensor divided by a Python number is multiplied by the number's
+    reciprocal, which can miss the quotient by one ulp; a divisor on the
+    tensor's own device takes the division kernel, so the card
+    quantizes to the CPU's (and the JAX package's) bytes."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def quantize_int4(w: torch.Tensor, group_in: int = GROUP_IN,
                   block_out: int = BLOCK_OUT) -> QuantInt4:
     """[..., IN, OUT] float -> QuantInt4 (group-wise symmetric, [-7, 7]),
@@ -112,7 +121,8 @@ def quantize_int4(w: torch.Tensor, group_in: int = GROUP_IN,
     G = IN // group_in
     wf = w.float().reshape(G, group_in, OUT)
     absmax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
+    scale = torch.where(absmax > 0, true_div(absmax, 7.0),
+                        torch.ones_like(absmax))
     q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int32)
     q = q.reshape(IN, OUT // block_out, block_out)
     half = block_out // 2

@@ -1,63 +1,560 @@
-"""A lean aiohttp front end for the port: ``POST /kubectl-command`` and
-``GET /health``.
+"""The port's HTTP API on aiohttp: the JAX package's ``server/app.py``
+contract for the routes and middleware the port serves.
 
-The request pipeline lives in ``server/service.py``; this module only
-validates the JSON body (the ``Query`` schema: 400 on a bad body) and
-maps the service's (status, body) onto a response. ``/health`` is
-readiness-gated like the JAX service's: 200 once the engine has started,
-503 before, with the device count read from torch.
+Routes (the JAX statuses):
 
-The stream, execute, debug, admin and metrics routes and the
-middleware stack (rate limit, auth, QoS, overload) wait for a later
-slice of the port.
+- ``POST /kubectl-command`` — query → validated kubectl command;
+  200/400/401/410/422/429/500/503/504.
+- ``POST /kubectl-command/stream`` — the same through the engine's
+  ``generate_stream`` as server-sent events, ending in ``event: done``
+  (or ``error``, or ``degraded`` then ``done``); it shares the response
+  cache and single flight with the non-streaming route.
+- ``POST /execute`` — run a validated kubectl command;
+  200/400/401/429/500, execution errors as structured 200s.
+- ``GET /health`` — readiness-gated, with the breaker's state.
+- ``GET /metrics`` — Prometheus text; ``/openapi.json`` and ``/docs``.
+
+Middleware, outermost first, in the JAX order: observability (request
+ID, trace, HTTP metrics, ``Server-Timing``, flight recorder), overload
+(``MAX_INFLIGHT_REQUESTS``: a fast 503 with ``Retry-After``), rate
+limit (``RATE_LIMIT`` per client: 429 with the ``X-RateLimit-*``
+headers), auth (``X-API-Key`` when ``API_AUTH_KEY`` is set: 401). The
+JAX package's QoS middleware, ``/debug/*`` and ``/admin/*`` routes wait
+for a later slice (ROADMAP.md A9). The pipeline itself lives in
+``server/service.py``.
 """
 
 from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import Optional
 
 from aiohttp import web
 from pydantic import ValidationError
 
 from ..device import device_count
-from .schemas import HealthResponse, Query
-from .service import CommandService, error_body
+from ..engine.prompts import render_prompt
+from ..engine.protocol import (EngineOverloaded, EngineResult,
+                               EngineUnavailable, GenerationTimeout,
+                               RequestQuarantined)
+from ..obs import (PHASES, Trace, current_trace, new_request_id,
+                   sanitize_request_id, use_trace)
+from .breaker import STATE_CODES
+from .executor import CommandExecutor, build_metadata, utcnow_iso
+from .metrics import Metrics
+from .openapi import register as register_openapi
+from .output_parser import UnsafeCommandError, parse_llm_output
+from .ratelimit import ceil_seconds, client_key
+from .safety import unsafe_reason
+from .sanitize import sanitize_query
+from .schemas import (CommandResponse, EngineMetadata, ExecuteRequest,
+                      ExecutionMetadata, HealthResponse, Query)
+from .service import Service, span
+
+logger = logging.getLogger(__name__)
+
+RATE_LIMITED_ROUTES = {"/kubectl-command", "/kubectl-command/stream",
+                       "/execute"}
+AUTH_ROUTES = RATE_LIMITED_ROUTES
+#: routes the MAX_INFLIGHT_REQUESTS gate covers (they occupy the engine)
+GENERATE_ROUTES = {"/kubectl-command", "/kubectl-command/stream"}
+#: paths the flight recorder skips: probes and scrapes would flush every
+#: real request out of the ring.
+UNRECORDED_PATHS = ("/health", "/metrics", "/openapi.json", "/docs")
+
+
+#: Retry-After of the HTTP-layer sheds and of an unready /health: the
+#: port's engines give no drain-rate estimate (the JAX engines'
+#: ``retry_after_hint``), so the JAX default of one second.
+SHED_RETRY_SECS = 1.0
+
+
+def _retry_after_header(seconds: float) -> dict:
+    return {"Retry-After": str(max(1, ceil_seconds(seconds)))}
+
+
+def _json_error(status: int, detail: str,
+                headers: Optional[dict] = None) -> web.Response:
+    return web.json_response({"detail": detail}, status=status,
+                             headers=headers or {})
+
+
+def _client_key(request: web.Request) -> str:
+    svc: Service = request.app["service"]
+    return client_key(request.remote,
+                      request.headers.get("X-Forwarded-For"),
+                      svc.cfg.trust_proxy_headers)
+
+
+def _finalize_trace(svc: Service, trace: Trace, status: int,
+                    canonical_path: str) -> None:
+    """Close out a request's trace for every request, rejections
+    included: status, phase histograms, and the flight recorder (probe,
+    scrape and unmatched paths stay out of the ring)."""
+    trace.finish(status=status)
+    for phase, ms in trace.phase_durations().items():
+        if phase in PHASES:
+            svc.metrics.request_phase.labels(phase).observe(ms / 1000.0)
+    if (canonical_path != "unmatched"
+            and not canonical_path.startswith(UNRECORDED_PATHS)):
+        svc.recorder.record(trace)
+
+
+@web.middleware
+async def observability_middleware(request: web.Request, handler):
+    """Outermost: request ID (a safe client X-Request-ID is echoed),
+    trace scope, HTTP metrics labelled by the matched route, and
+    Server-Timing; wraps the other middleware so their rejections carry
+    an X-Request-ID and land in the recorder."""
+    svc: Service = request.app["service"]
+    resource = getattr(request.match_info.route, "resource", None)
+    path = resource.canonical if resource is not None else "unmatched"
+    rid = (sanitize_request_id(request.headers.get("X-Request-ID"))
+           or new_request_id())
+    trace = Trace(rid, request.method, request.path)
+    request["trace"] = trace
+    status = 500
+    try:
+        with use_trace(trace):
+            response = await handler(request)
+        status = response.status
+        if not getattr(response, "prepared", False):
+            # Streaming responses sent their headers at prepare() time;
+            # the SSE handler stamps X-Request-ID itself.
+            response.headers["X-Request-ID"] = rid
+            timing = trace.server_timing()
+            if timing:
+                response.headers["Server-Timing"] = timing
+            ver = getattr(svc.engine, "weights_version", "")
+            if ver:
+                response.headers.setdefault("X-Model-Version", str(ver))
+        return response
+    except web.HTTPException as e:
+        status = e.status
+        e.headers["X-Request-ID"] = rid
+        trace.error = type(e).__name__
+        raise
+    except Exception as e:
+        trace.error = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        elapsed = time.monotonic() - trace.t0
+        svc.metrics.http_requests.labels(request.method, path,
+                                         str(status)).inc()
+        svc.metrics.http_latency.labels(request.method, path).observe(
+            elapsed)
+        _finalize_trace(svc, trace, status, path)
+
+
+@web.middleware
+async def overload_middleware(request: web.Request, handler):
+    """HTTP-layer load shedding: generation requests beyond
+    MAX_INFLIGHT_REQUESTS (<= 0: unlimited) get a fast 503 with
+    Retry-After before any work is done."""
+    svc: Service = request.app["service"]
+    cap = svc.cfg.max_inflight_requests
+    if cap <= 0 or request.path not in GENERATE_ROUTES:
+        return await handler(request)
+    if svc.inflight_requests >= cap:
+        svc.metrics.queue_rejections.labels("http").inc()
+        trace = current_trace()
+        if trace is not None:
+            trace.shed = True
+            trace.event(f"overload: inflight cap reached "
+                        f"({svc.inflight_requests}/{cap}); shedding")
+        return _json_error(
+            503,
+            f"Server overloaded: {svc.inflight_requests} generation "
+            f"requests in flight (cap {cap})",
+            headers=_retry_after_header(SHED_RETRY_SECS),
+        )
+    svc.inflight_requests += 1
+    try:
+        return await handler(request)
+    finally:
+        svc.inflight_requests -= 1
+
+
+@web.middleware
+async def ratelimit_middleware(request: web.Request, handler):
+    svc: Service = request.app["service"]
+    if request.path in RATE_LIMITED_ROUTES:
+        allowed, remaining, retry_after = svc.limiter.check(
+            _client_key(request))
+        if not allowed:
+            svc.metrics.rate_limited.inc()
+            trace = current_trace()
+            if trace is not None:
+                trace.shed = True
+                trace.event("ratelimit: client over quota; rejecting")
+            return _json_error(
+                429,
+                f"Rate limit exceeded: {svc.cfg.rate_limit}",
+                headers=svc.limiter.headers(remaining, retry_after),
+            )
+    return await handler(request)
+
+
+@web.middleware
+async def auth_middleware(request: web.Request, handler):
+    """X-API-Key auth on the serving routes; off when API_AUTH_KEY is
+    unset."""
+    svc: Service = request.app["service"]
+    if svc.cfg.auth_enabled and request.path in AUTH_ROUTES:
+        key = request.headers.get("X-API-Key")
+        if not key:
+            logger.warning("Missing X-API-Key header.")
+            return _json_error(401, "Missing X-API-Key header")
+        if key != svc.cfg.api_auth_key:
+            logger.warning("Invalid API Key received.")
+            return _json_error(401, "Invalid API Key")
+    return await handler(request)
+
+
+def _record_engine_spans(trace: Optional[Trace], t_block0: float,
+                         t_block1: float, er: EngineResult) -> None:
+    """Lay the engine block's queue, prefill and decode spans back to
+    back from the EngineResult's timings, the remainder of the block as
+    ``detokenize``, so the spans sum to the block's wall time."""
+    if trace is None:
+        return
+    k = 1000.0
+    t_q = t_block0 + er.queue_ms / k
+    t_p = t_q + er.prefill_ms / k
+    t_d = t_p + er.decode_ms / k
+    t_q, t_p, t_d = (min(t, t_block1) for t in (t_q, t_p, t_d))
+    trace.add_span("queue_wait", t_block0, t_q)
+    trace.add_span("prefill", t_q, t_p)
+    trace.add_span("decode", t_p, t_d)
+    meta = {"detok_host_ms": round(er.detok_ms, 3)} if er.detok_ms else {}
+    trace.add_span("detokenize", t_d, t_block1, **meta)
 
 
 async def handle_kubectl_command(request: web.Request) -> web.Response:
-    svc: CommandService = request.app["service"]
+    svc: Service = request.app["service"]
+    trace: Optional[Trace] = request.get("trace")
+    start_iso = utcnow_iso()
+    t0 = time.monotonic()
+    try:
+        with span("validate"):
+            q = Query.model_validate(await request.json())
+    except (ValidationError, ValueError) as e:
+        return _json_error(400, f"Invalid input query: {e}")
+
+    logger.info("Received query: '%s'", q.query)
+    sanitized_query = sanitize_query(q.query)
+    if len(sanitized_query) < 3:
+        return _json_error(400,
+                           "Invalid input query: too short after sanitation")
+
+    t_block0 = time.monotonic()
+    try:
+        command, from_cache, engine_result, degraded = \
+            await svc.generate_command(sanitized_query)
+    except EngineOverloaded as e:
+        return _json_error(503, f"Server overloaded: {e}",
+                           headers=_retry_after_header(e.retry_after))
+    except RequestQuarantined as e:
+        logger.error("Request quarantined for query '%s': %s",
+                     sanitized_query, e)
+        return _json_error(410, f"Request quarantined: {e}")
+    except EngineUnavailable as e:
+        return _json_error(503, f"Engine not available: {e}")
+    except (GenerationTimeout, asyncio.TimeoutError):
+        logger.error("Engine timed out after %ss for query: %s",
+                     svc.cfg.llm_timeout, sanitized_query)
+        return _json_error(504, "LLM request timed out")
+    except UnsafeCommandError as e:
+        logger.error("Engine generated unsafe command: %s", e)
+        svc.metrics.unsafe_commands.labels("llm").inc()
+        return _json_error(422, f"LLM generated unsafe command: {e}")
+    except Exception:
+        logger.exception("Unexpected error processing query '%s'",
+                         sanitized_query)
+        return _json_error(500, "Internal server error processing request")
+
+    t_block1 = time.monotonic()
+    duration_ms = (t_block1 - t0) * 1000.0
+    engine_md = None
+    if engine_result is not None:
+        # Degraded rule answers stay out of the engine latency and
+        # throughput series (degraded_responses_total counts them).
+        if not degraded:
+            svc.metrics.ttft.observe(engine_result.ttft_ms / 1000.0)
+            svc.metrics.gen_latency.observe(duration_ms / 1000.0)
+            svc.metrics.tokens_generated.inc(
+                max(engine_result.completion_tokens, 0))
+            svc.token_rate.add(engine_result.completion_tokens)
+            if engine_result.prefix_cache_hit:
+                svc.metrics.prefix_cache_hits.inc()
+            if not from_cache:
+                _record_engine_spans(trace, t_block0, t_block1,
+                                     engine_result)
+        engine_md = EngineMetadata(
+            queue_ms=engine_result.queue_ms,
+            prefill_ms=engine_result.prefill_ms,
+            decode_ms=engine_result.decode_ms,
+            detok_ms=engine_result.detok_ms,
+            ttft_ms=engine_result.ttft_ms,
+            prompt_tokens=engine_result.prompt_tokens,
+            completion_tokens=engine_result.completion_tokens,
+            tokens_per_sec=engine_result.tokens_per_sec,
+            prefix_cache_hit=engine_result.prefix_cache_hit,
+            engine=engine_result.engine,
+        )
+    if trace is not None:
+        trace.from_cache = from_cache
+        if from_cache:
+            trace.add_span("cache", t_block0, t_block1)
+    with span("respond"):
+        timings = trace.phase_durations() if trace is not None else None
+        body = CommandResponse(
+            kubectl_command=command,
+            execution_result=None,
+            execution_error=None,
+            from_cache=from_cache,
+            metadata=ExecutionMetadata(**build_metadata(start_iso, t0, True)),
+            engine_metadata=engine_md,
+            # Degraded: a rule answer, or an engine-side truncation.
+            degraded=degraded or (engine_result is not None
+                                  and engine_result.degraded),
+            timings=timings,
+        )
+        payload = body.model_dump()
+    return web.json_response(payload)
+
+
+def _sse(payload: str, event: Optional[str] = None) -> bytes:
+    """One SSE frame; every payload line gets its own ``data:`` field."""
+    lines = payload.split("\n") or [""]
+    frame = (f"event: {event}\n" if event else "") + "".join(
+        f"data: {line}\n" for line in lines) + "\n"
+    return frame.encode()
+
+
+async def handle_kubectl_command_stream(request: web.Request
+                                        ) -> web.StreamResponse:
+    """SSE token stream through the same cache and single flight as the
+    non-streaming route: the flight's initiator streams its tokens live;
+    cache hits and coalesced waiters replay the final command as one
+    event. A client that disconnects does not cancel the shared
+    generation."""
+    svc: Service = request.app["service"]
     try:
         q = Query.model_validate(await request.json())
     except (ValidationError, ValueError) as e:
-        return web.json_response(error_body(f"Invalid input query: {e}"),
-                                 status=400)
-    status, body = await svc.command(q.query)
-    return web.json_response(body, status=status)
+        return _json_error(400, f"Invalid input query: {e}")
+    sanitized_query = sanitize_query(q.query)
+    if len(sanitized_query) < 3:
+        return _json_error(400,
+                           "Invalid input query: too short after sanitation")
+
+    trace: Optional[Trace] = request.get("trace")
+    resp = web.StreamResponse(
+        status=200,
+        headers={"Content-Type": "text/event-stream",
+                 "Cache-Control": "no-cache"},
+    )
+    if trace is not None:
+        resp.headers["X-Request-ID"] = trace.request_id
+    ver = getattr(svc.engine, "weights_version", "")
+    if ver:
+        resp.headers["X-Model-Version"] = str(ver)
+    await resp.prepare(request)
+
+    write_ok = True
+
+    async def write_safe(frame: bytes) -> None:
+        nonlocal write_ok
+        if not write_ok:
+            return
+        try:
+            await resp.write(frame)
+        except ConnectionError:
+            write_ok = False  # client went away mid-stream; stop writing
+
+    # The supplier hands tokens to this handler through a queue and never
+    # touches the socket: a slow reader stalls only its own drain loop,
+    # never the shared flight coalesced waiters are blocked on.
+    done = object()
+    token_q: asyncio.Queue = asyncio.Queue()
+
+    async def supplier() -> str:
+        async def run() -> str:
+            pieces = []
+            stream = svc.engine.generate_stream(
+                render_prompt(sanitized_query),
+                max_tokens=svc.cfg.max_new_tokens,
+                temperature=svc.cfg.temperature,
+                timeout=svc.cfg.llm_timeout,
+            )
+            async for piece in stream:
+                pieces.append(piece)
+                token_q.put_nowait(piece)
+            return "".join(pieces)
+
+        try:
+            text = await svc.run_engine(run)
+            with span("safety"):
+                return parse_llm_output(text)
+        finally:
+            token_q.put_nowait(done)
+
+    try:
+        flight = asyncio.ensure_future(
+            svc.cache.get_or_create(sanitized_query, supplier))
+        getter: Optional[asyncio.Future] = None
+        try:
+            while True:
+                getter = asyncio.ensure_future(token_q.get())
+                await asyncio.wait({getter, flight},
+                                   return_when=asyncio.FIRST_COMPLETED)
+                if getter.done():
+                    piece = getter.result()
+                    if piece is done:
+                        break
+                    await write_safe(_sse(piece))
+                else:
+                    break  # flight finished without our supplier running
+        finally:
+            if getter is not None and not getter.done():
+                getter.cancel()
+        command, from_cache = await flight
+        if trace is not None:
+            trace.from_cache = from_cache
+        if from_cache:
+            svc.metrics.cache_hits.inc()
+            await write_safe(_sse(command))
+        else:
+            svc.metrics.cache_misses.inc()
+        await write_safe(_sse(command, event="done"))
+    except UnsafeCommandError as e:
+        svc.metrics.unsafe_commands.labels("llm").inc()
+        await write_safe(_sse(str(e), event="error"))
+    except EngineOverloaded as e:
+        # Shedding stays an error with the fallback on: back off.
+        await write_safe(_sse(f"engine overloaded: {e}", event="error"))
+    except RequestQuarantined as e:
+        await write_safe(_sse(f"request quarantined: {e}", event="error"))
+    except (EngineUnavailable, GenerationTimeout, asyncio.TimeoutError) as e:
+        if svc.fallback is not None:
+            try:
+                command, _ = await svc.degraded_command(sanitized_query, e)
+            except UnsafeCommandError as ue:
+                svc.metrics.unsafe_commands.labels("llm").inc()
+                await write_safe(_sse(str(ue), event="error"))
+            else:
+                await write_safe(_sse(command, event="degraded"))
+                await write_safe(_sse(command, event="done"))
+        elif isinstance(e, EngineUnavailable):
+            await write_safe(_sse(f"engine unavailable: {e}", event="error"))
+        else:
+            await write_safe(_sse("LLM request timed out", event="error"))
+    except Exception:
+        # The 200 is on the wire: a structured error event rather than a
+        # silently truncated stream.
+        logger.exception("Stream generation failed for query '%s'",
+                         sanitized_query)
+        await write_safe(_sse("internal error during generation",
+                              event="error"))
+    try:
+        await resp.write_eof()
+    except ConnectionError:
+        pass  # client already gone; the stream is finished either way
+    return resp
+
+
+async def handle_execute(request: web.Request) -> web.Response:
+    svc: Service = request.app["service"]
+    trace: Optional[Trace] = request.get("trace")
+    try:
+        with span("validate"):
+            req = ExecuteRequest.model_validate(await request.json())
+    except (ValidationError, ValueError) as e:
+        return _json_error(400, f"Invalid request: {e}")
+
+    logger.info("Received execute request for command: '%s'", req.execute)
+    with span("safety"):
+        reason = unsafe_reason(req.execute)
+    if reason is not None:
+        svc.metrics.unsafe_commands.labels("user").inc()
+        return _json_error(400, f"Command failed safety checks: {reason}")
+
+    with span("execute"):
+        execution_data = await svc.executor.execute(req.execute)
+    md = execution_data["metadata"]
+    outcome = "success" if md["success"] else (md.get("error_type")
+                                               or "error")
+    svc.metrics.executions.labels(outcome).inc()
+
+    with span("respond"):
+        body = CommandResponse(
+            kubectl_command=req.execute,
+            execution_result=execution_data.get("execution_result"),
+            execution_error=execution_data.get("execution_error"),
+            from_cache=False,
+            metadata=ExecutionMetadata(**md),
+            timings=trace.phase_durations() if trace is not None else None,
+        )
+        payload = body.model_dump()
+    return web.json_response(payload)
+
+
+def _kv_pool_health(engine) -> Optional[dict]:
+    kph = getattr(engine, "kv_pool_health", None)
+    return (kph() or None) if callable(kph) else None
 
 
 async def handle_health(request: web.Request) -> web.Response:
-    svc: CommandService = request.app["service"]
-    engine = svc.engine
-    ready = bool(getattr(engine, "ready", False))
-    kv_pool = None
-    kph = getattr(engine, "kv_pool_health", None)
-    if callable(kph):
-        kv_pool = kph() or None
+    """Readiness-gated: 200 once the engine has started, else 503 with
+    Retry-After. ``status`` is "healthy" only with the breaker closed."""
+    svc: Service = request.app["service"]
+    ready = bool(getattr(svc.engine, "ready", False))
+    breaker = svc.breaker.state
     body = HealthResponse(
-        status="healthy" if ready else "degraded",
-        engine=getattr(engine, "name", "unknown"),
+        status="healthy" if ready and breaker == "closed" else "degraded",
+        engine=getattr(svc.engine, "name", "unknown"),
         engine_ready=ready,
         model=svc.cfg.model_name,
-        devices=device_count(getattr(engine, "device", None)),
-        kv_pool=kv_pool,
+        devices=device_count(getattr(svc.engine, "device", None)),
+        breaker=breaker,
+        degraded_fallback=svc.fallback is not None,
+        kv_pool=_kv_pool_health(svc.engine),
     )
-    return web.json_response(body.model_dump(), status=200 if ready else 503)
+    if ready:
+        return web.json_response(body.model_dump(), status=200)
+    return web.json_response(
+        body.model_dump(), status=503,
+        headers=_retry_after_header(SHED_RETRY_SECS))
 
 
-def create_app(cfg, engine) -> web.Application:
+async def handle_metrics(request: web.Request) -> web.Response:
+    svc: Service = request.app["service"]
+    pool = _kv_pool_health(svc.engine)
+    if pool:
+        svc.metrics.observe_kv_pool(pool)
+    svc.metrics.tokens_per_sec.set(svc.token_rate.rate())
+    svc.metrics.breaker_state.set(STATE_CODES[svc.breaker.state])
+    return web.Response(body=svc.metrics.render(), content_type="text/plain")
+
+
+def create_app(cfg, engine, executor: Optional[CommandExecutor] = None,
+               metrics: Optional[Metrics] = None) -> web.Application:
     """The app; its startup starts the engine, its cleanup stops it."""
-    app = web.Application()
-    app["service"] = CommandService(cfg, engine)
+    app = web.Application(middlewares=[
+        observability_middleware, overload_middleware,
+        ratelimit_middleware, auth_middleware])
+    app["service"] = Service(cfg, engine, executor=executor,
+                             metrics=metrics)
     app.router.add_post("/kubectl-command", handle_kubectl_command)
+    app.router.add_post("/kubectl-command/stream",
+                        handle_kubectl_command_stream)
+    app.router.add_post("/execute", handle_execute)
     app.router.add_get("/health", handle_health)
+    app.router.add_get("/metrics", handle_metrics)
+    register_openapi(app)
 
     async def _start_engine(app: web.Application) -> None:
         await app["service"].engine.start()

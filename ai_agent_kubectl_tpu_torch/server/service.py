@@ -1,43 +1,37 @@
-"""The request pipeline of ``POST /kubectl-command``, free of any web
-framework.
+"""The service layer behind the HTTP routes, free of any web framework.
 
-The counterpart of the JAX package's ``server/app.py::
-handle_kubectl_command`` and ``Service.generate_command``: sanitise the
-query, render the prompt, ``engine.generate``, parse and validate the
-model's text, and build a response body of the ``CommandResponse``
-shape — or an error status with a ``{"detail": ...}`` body. The status
-mapping is the JAX service's: 400 for a query too short after sanitation,
-422 for an unsafe or unparseable command, 503 for an unavailable or
-overloaded engine, 410 for a quarantined request, 504 for a timeout, 500
-for anything else.
-
-The response cache, breaker and degraded fallback, rate limit, auth and
-metrics wait for a later slice of the port.
+The counterpart of the JAX package's ``server/app.py::Service``: it
+bundles the app's long-lived components — the engine, the kubectl
+executor, the metrics, the TTL response cache with single flight, the
+rate limiter, the circuit breaker, the optional rule-based fallback and
+the flight recorder — and runs the ``POST /kubectl-command`` pipeline
+(``generate_command``): cache, then engine (under the breaker), then
+the safety parser; engine failures degrade to the rule table when
+``DEGRADED_FALLBACK`` is set. The routes and the middleware live in
+``server/app.py``.
 """
 
 from __future__ import annotations
 
 import asyncio
-import datetime
 import logging
-import time
-from typing import Any, Dict, Tuple
+from contextlib import nullcontext
+from typing import Optional, Tuple
 
+from ..engine.fallback import FallbackEngine
 from ..engine.prompts import render_prompt
-from ..engine.protocol import (EngineOverloaded, EngineUnavailable,
-                               GenerationTimeout, RequestQuarantined)
+from ..engine.protocol import (EngineOverloaded, EngineResult,
+                               EngineUnavailable, GenerationTimeout,
+                               RequestQuarantined)
+from ..obs import FlightRecorder, current_trace
+from .breaker import CircuitBreaker
+from .cache import CachedSingleFlight
+from .executor import CommandExecutor
+from .metrics import Metrics, WindowedRate
 from .output_parser import UnsafeCommandError, parse_llm_output
-from .sanitize import sanitize_query
+from .ratelimit import SlidingWindowLimiter
 
 logger = logging.getLogger(__name__)
-
-
-def utcnow_iso() -> str:
-    return datetime.datetime.now(datetime.timezone.utc).isoformat()
-
-
-def error_body(detail: str) -> Dict[str, Any]:
-    return {"detail": detail}
 
 
 def status_for_text(text: str) -> int:
@@ -50,70 +44,145 @@ def status_for_text(text: str) -> int:
     return 200
 
 
-class CommandService:
-    """Sanitise -> render_prompt -> engine.generate -> parse -> body."""
+def span(name: str, **meta):
+    """Span on the active trace, or a no-op when none is active."""
+    trace = current_trace()
+    if trace is not None:
+        return trace.span(name, **meta)
+    return nullcontext()
 
-    def __init__(self, cfg, engine):
+
+class Service:
+    """The app's long-lived components and the generation pipeline."""
+
+    def __init__(self, cfg, engine,
+                 executor: Optional[CommandExecutor] = None,
+                 metrics: Optional[Metrics] = None):
         self.cfg = cfg
         self.engine = engine
+        self.executor = executor or CommandExecutor(
+            timeout=cfg.execution_timeout)
+        self.metrics = metrics or Metrics()
+        self.cache: CachedSingleFlight[str, str] = CachedSingleFlight(
+            cfg.cache_maxsize, cfg.cache_ttl)
+        self.limiter = SlidingWindowLimiter(cfg.rate_limit_count,
+                                            cfg.rate_limit_window)
+        self.breaker = CircuitBreaker(
+            threshold=cfg.breaker_threshold,
+            window_secs=cfg.breaker_window_secs,
+            recovery_secs=cfg.breaker_recovery_secs,
+        )
+        self.fallback: Optional[FallbackEngine] = (
+            FallbackEngine() if cfg.degraded_fallback else None)
+        #: generation requests in flight (the overload middleware's count)
+        self.inflight_requests = 0
+        self.recorder = FlightRecorder(cfg.flight_recorder_size)
+        self.token_rate = WindowedRate()
 
-    async def command(self, query: str) -> Tuple[int, Dict[str, Any]]:
-        """(HTTP status, JSON body) for one natural-language query."""
-        start_iso = utcnow_iso()
-        t0 = time.monotonic()
-        sanitized = sanitize_query(query)
-        if len(sanitized) < 3:
-            return 400, error_body(
-                "Invalid input query: too short after sanitation")
+    async def run_engine(self, coro_fn):
+        """One engine call under the circuit breaker: fail fast while the
+        breaker is open (a half-open probe is the exception), count every
+        engine failure, close on success. Overload sheds and quarantines
+        pass through untouched: neither says the engine is broken.
+        Readiness is sampled before the call, so "engine not started"
+        rejections during a restart do not open the breaker."""
+        token = self.breaker.begin()
+        if token is None:
+            raise EngineUnavailable(
+                f"circuit breaker {self.breaker.state}: engine calls "
+                "suspended until a half-open probe succeeds")
+        was_ready = bool(getattr(self.engine, "ready", True))
+        decided = False
         try:
-            result = await self.engine.generate(
-                render_prompt(sanitized),
+            result = await coro_fn()
+        except RequestQuarantined:
+            raise
+        except EngineOverloaded:
+            # Counted here, once per actual engine shed, not per
+            # coalesced single-flight waiter.
+            self.metrics.queue_rejections.labels("engine").inc()
+            trace = current_trace()
+            if trace is not None:
+                trace.shed = True
+            raise
+        except Exception:
+            decided = True
+            if was_ready:
+                self.breaker.record_failure(token)
+            else:
+                self.breaker.release_probe(token)
+            raise
+        else:
+            decided = True
+            self.breaker.record_success(token)
+            return result
+        finally:
+            # An undecided exit (overload, quarantine, cancellation) must
+            # release a half-open probe slot, or the breaker wedges.
+            if not decided:
+                self.breaker.release_probe(token)
+
+    async def degraded_command(self, sanitized_query: str,
+                               cause: BaseException
+                               ) -> Tuple[str, EngineResult]:
+        """Serve the query from the rule table. Never touches the
+        response cache: a rule answer must not shadow a real generation
+        after recovery."""
+        logger.warning(
+            "Serving degraded fallback for query '%s' (breaker=%s): %s",
+            sanitized_query, self.breaker.state, cause)
+        trace = current_trace()
+        if trace is not None:
+            trace.degraded = True
+            trace.event(f"fallback: engine failed ({cause}); serving "
+                        f"rule-based response (breaker={self.breaker.state})")
+        with span("fallback"):
+            result = await self.fallback.generate(
+                render_prompt(sanitized_query))
+        command = parse_llm_output(result.text)
+        self.metrics.degraded_responses.inc()
+        # The request consulted the cache and missed before the engine
+        # failed: hit + miss keeps reconciling with the request totals.
+        self.metrics.cache_misses.inc()
+        return command, result
+
+    async def generate_command(
+        self, sanitized_query: str
+    ) -> Tuple[str, bool, Optional[EngineResult], bool]:
+        """Cache-or-generate; returns (command, from_cache, engine_result,
+        degraded). Engine failures (breaker-open fast fails included)
+        degrade to the rule table when DEGRADED_FALLBACK is set; overload
+        sheds, quarantines, unsafe outputs and bugs always propagate."""
+        last_result: list = [None]
+
+        async def supplier() -> str:
+            prompt = render_prompt(sanitized_query)
+            result = await self.run_engine(lambda: self.engine.generate(
+                prompt,
                 max_tokens=self.cfg.max_new_tokens,
                 temperature=self.cfg.temperature,
                 timeout=self.cfg.llm_timeout,
-            )
-            command = parse_llm_output(result.text)
-        except EngineOverloaded as e:
-            return 503, error_body(f"Server overloaded: {e}")
-        except RequestQuarantined as e:
-            return 410, error_body(f"Request quarantined: {e}")
-        except EngineUnavailable as e:
-            return 503, error_body(f"Engine not available: {e}")
-        except (GenerationTimeout, asyncio.TimeoutError):
-            return 504, error_body("LLM request timed out")
-        except UnsafeCommandError as e:
-            logger.error("Engine generated unsafe command: %s", e)
-            return 422, error_body(f"LLM generated unsafe command: {e}")
-        except Exception:
-            logger.exception("Unexpected error processing query %r",
-                             sanitized)
-            return 500, error_body(
-                "Internal server error processing request")
-        return 200, {
-            "kubectl_command": command,
-            "execution_result": None,
-            "execution_error": None,
-            "from_cache": False,
-            "metadata": {
-                "start_time": start_iso,
-                "end_time": utcnow_iso(),
-                "duration_ms": (time.monotonic() - t0) * 1000.0,
-                "success": True,
-                "error_type": None,
-                "error_code": None,
-            },
-            "engine_metadata": {
-                "queue_ms": result.queue_ms,
-                "prefill_ms": result.prefill_ms,
-                "decode_ms": result.decode_ms,
-                "detok_ms": result.detok_ms,
-                "ttft_ms": result.ttft_ms,
-                "prompt_tokens": result.prompt_tokens,
-                "completion_tokens": result.completion_tokens,
-                "tokens_per_sec": result.tokens_per_sec,
-                "prefix_cache_hit": result.prefix_cache_hit,
-                "engine": result.engine,
-            },
-            "degraded": result.degraded,
-            "timings": None,
-        }
+            ))
+            last_result[0] = result
+            with span("safety"):
+                command = parse_llm_output(result.text)
+            logger.info("Engine generated command for query '%s': %s",
+                        sanitized_query, command)
+            return command
+
+        try:
+            command, from_cache = await self.cache.get_or_create(
+                sanitized_query, supplier)
+        except EngineOverloaded:
+            raise
+        except (EngineUnavailable, GenerationTimeout,
+                asyncio.TimeoutError) as e:
+            if self.fallback is None:
+                raise
+            command, result = await self.degraded_command(sanitized_query, e)
+            return command, False, result, True
+        if from_cache:
+            self.metrics.cache_hits.inc()
+        else:
+            self.metrics.cache_misses.inc()
+        return command, from_cache, last_result[0], False

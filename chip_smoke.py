@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --phases build,serve --bursts 6
+                                     # the serve burst timed six times
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -49,9 +51,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. serve    -- build the port's server from the environment-style config
                (MODEL_NAME=gemma-2b-it, random bf16 weights from a fixed
                seed, DECODE_BATCH_SIZE=8, the default pool and radix
-               settings), start it on 127.0.0.1 and send 8 concurrent
-               POST /kubectl-command requests plus 2 repeats over HTTP.
-               Launch counters are zeroed just before and read just after.
+               settings, RATE_LIMIT=1000/minute: the phase sends more than
+               the default 10 a minute), start it on 127.0.0.1 and send 8
+               concurrent POST /kubectl-command requests plus 2 repeats
+               over HTTP (the repeats' 422s are not cached, so they reach
+               the engine). Launch counters are zeroed just before and
+               read just after.
 4. serve1   -- the single-sequence engine: MODEL_NAME=gemma-7b-it,
                QUANT=int4, DECODE_BATCH_SIZE=1, random int4 weights from
                a fixed seed, PREFILL_BUCKETS=64,128,256,512. Over HTTP:
@@ -65,7 +70,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                engines in turn, each built from the environment-style
                config and served over HTTP, DECODE_BATCH_SIZE=8,
                MAX_SEQ_LEN=1024, PREFILL_BUCKETS=64,128,256,512,
-               DECODE_ATTN=auto (paged at page 64 for this GQA model):
+               DECODE_ATTN=auto (paged at page 64 for this GQA model),
+               RATE_LIMIT=1000/minute:
                (a) KV_POOL=false, the dense KV ladder; (b) the pool with
                RAGGED_ATTENTION=off. Traffic: the serve phase's burst with
                one query of about 600 tokens, then 2 repeats. Paged
@@ -73,7 +79,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                on the prefills, repeats must be identical and hit their
                prefix, (b)'s books must balance, and the served logits
                must agree with the plain versions'.
-6. timing   -- time each kernel, its plain version, one PyTorch library
+6. serve_ckpt -- write a Gemma-2B checkpoint in the HF safetensors layout
+               (one shard per layer plus one for the embedding and the
+               final norm, bf16 values from seed 0, about 5.0 GB) under
+               the temp dir, after checking its free space, and serve it
+               from MODEL_PATH with API_AUTH_KEY set and RATE_LIMIT and
+               the response cache at their defaults:
+               (a) bf16 through the pool engine (DECODE_BATCH_SIZE=8):
+               loaded leaves equal to the bytes written (embedding rows,
+               wq of the first and last layers, transposed); a burst of 8
+               keyed queries (statuses as the service decides, ragged
+               launches grow), one /kubectl-command/stream repeat of a
+               burst query (the SSE's terminal event, and the engine
+               called again: a 422 is not cached), one request with no
+               key (401), one more keyed request (the 11th of the minute:
+               429 with Retry-After), /metrics (http_requests_total per
+               route and status as sent), /openapi.json, and the served
+               logits against the plain forward;
+               (b) QUANT=int4 through the single-sequence engine: every
+               quantized leaf bit-equal to quantize_int4 (and the
+               embedding to quantize_embed_int8) of (a)'s loaded leaf,
+               the load's peak device memory under the quantized tree
+               plus the bf16 embedding plus two layers' bf16 slices, and
+               one request served (flash and int4 launches grow).
+               Load seconds and GB/s, the peak, and the burst's tok/s
+               beside the serve phase's are printed; the checkpoint is
+               deleted at the end.
+7. timing   -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it; with --profile, also the
                device time of each kernel a call launches (an attention
@@ -100,7 +132,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
-PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "timing")
+PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
+          "timing")
+#: the environment the script started with; each serving phase starts
+#: from it (_phase_env), so no knob of one phase leaks into the next
+START_ENV = dict(os.environ)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
 # tensor-core FLOP/s. The bound of a kernel is the larger of its bytes
@@ -802,29 +838,46 @@ SERVE_ENV = {
     "DECODE_BATCH_SIZE": str(N_SLOTS),
     # The `tokenizers` package imports on the card: the BPE asset serves.
     "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+    # The phase sends 11 rate-limited requests (19 with --profile): more
+    # than the default 10 a minute from one client.
+    "RATE_LIMIT": "1000/minute",
 }
 
 
 class RecordingEngine:
     """The served engine with every ``generate`` result kept, so the
     smoke run can hold each HTTP status against the text the engine
-    produced. Everything else passes through."""
+    produced, and every call (streams included) counted. Everything
+    else passes through."""
 
     def __init__(self, inner):
         self.inner = inner
         self.results = []            # (prompt, EngineResult)
+        self.calls = 0
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
     async def generate(self, prompt, **kw):
+        self.calls += 1
         result = await self.inner.generate(prompt, **kw)
         self.results.append((prompt, result))
         return result
 
+    def generate_stream(self, prompt, **kw):
+        self.calls += 1
+        return self.inner.generate_stream(prompt, **kw)
 
-def phase_serve(torch, profile: bool = False) -> dict:
-    return asyncio.run(_serve(torch, profile))
+
+def phase_serve(torch, profile: bool = False, bursts: int = 1) -> dict:
+    return asyncio.run(_serve(torch, profile, bursts))
+
+
+def _phase_env(env: dict, port: int) -> None:
+    """The process environment one serving phase reads: the script's
+    starting environment, the phase's knobs and the address."""
+    os.environ.clear()
+    os.environ.update(START_ENV, **env, HOST="127.0.0.1", PORT=str(port))
 
 
 def _free_port() -> int:
@@ -835,7 +888,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-async def _serve(torch, profile: bool) -> dict:
+async def _serve(torch, profile: bool, bursts: int) -> dict:
     import aiohttp
     from aiohttp import web
 
@@ -849,7 +902,7 @@ async def _serve(torch, profile: bool) -> dict:
     from ai_agent_kubectl_tpu_torch.server.service import status_for_text
 
     port = _free_port()
-    os.environ.update(SERVE_ENV, HOST="127.0.0.1", PORT=str(port))
+    _phase_env(SERVE_ENV, port)
     cfg = ServiceConfig.from_env()
     inner = build_engine(cfg)
     if not isinstance(inner, BatchedTorchEngine):
@@ -888,6 +941,17 @@ async def _serve(torch, profile: bool) -> dict:
             repeat_s = time.monotonic() - t_rep
             launches = ragged_attention_pool.launches
             steps = inner.forward_steps - steps0
+            # --bursts: more bursts of fresh queries, each timed alone
+            # (the first is the counted one above).
+            more = []
+            for k in range(1, bursts):
+                n0 = len(engine.results)
+                t_k = time.monotonic()
+                await asyncio.gather(*[ask(f"{q} (burst {k})")
+                                       for q in QUERIES])
+                took = time.monotonic() - t_k
+                more.append(sum(r.completion_tokens
+                                for _, r in engine.results[n0:]) / took)
             async with http.post(f"{url}/kubectl-command",
                                  json={"query": "x"}) as r:
                 if r.status != 400:
@@ -950,6 +1014,7 @@ async def _serve(torch, profile: bool) -> dict:
         "burst_s": burst_s,
         "burst_tokens": n_tok,
         "burst_tok_per_s": n_tok / burst_s,
+        "more_bursts_tok_per_s": more,
         "ttft_ms_p50": ttft[len(ttft) // 2],
         "ttft_ms_max": ttft[-1],
         "repeat_s": repeat_s,
@@ -962,7 +1027,9 @@ async def _serve(torch, profile: bool) -> dict:
     log(f"[serve] statuses {statuses}; {n_tok} tokens in {burst_s:.2f} s "
         f"({n_tok / burst_s:.1f} tok/s), TTFT p50 {info['ttft_ms_p50']:.0f}"
         f" ms max {info['ttft_ms_max']:.0f} ms; kernel launches {launches} "
-        f"over {steps} forward steps ({launches / steps:.0f} per step)")
+        f"over {steps} forward steps ({launches / steps:.0f} per step)"
+        + (f"; more bursts {', '.join(f'{t:.1f}' for t in more)} tok/s"
+           if more else ""))
     return info
 
 
@@ -1014,7 +1081,7 @@ async def _profile_burst(torch, ask, queries, steps, unit: str,
     return out
 
 
-def _check_served_logits(torch, engine, results) -> dict:
+def _check_served_logits(torch, engine, results, tag="serve") -> dict:
     """First-step logits of one served prompt through the serving forward
     (kernel attention) against the same forward with the plain attention,
     on the card; and the served first token must be the kernel forward's
@@ -1056,7 +1123,7 @@ def _check_served_logits(torch, engine, results) -> dict:
     top = float(kernel.max())
     served = int(res.token_ids[0])
     gap = top - float(kernel[served])
-    log(f"[serve] first-step logits over {P} prompt tokens: max |kernel - "
+    log(f"[{tag}] first-step logits over {P} prompt tokens: max |kernel - "
         f"plain| {err:.4f} (rms {rms:.3f}, tolerance {tol:.4f}); served "
         f"token {served} sits {gap:.4f} below the kernel argmax "
         f"{int(kernel.argmax())}")
@@ -1123,7 +1190,7 @@ async def _serve1(torch, profile: bool) -> dict:
     from ai_agent_kubectl_tpu_torch.server.service import status_for_text
 
     port = _free_port()
-    os.environ.update(SERVE1_ENV, HOST="127.0.0.1", PORT=str(port))
+    _phase_env(SERVE1_ENV, port)
     cfg = ServiceConfig.from_env()
     inner = build_engine(cfg)
     if type(inner) is not TorchEngine:
@@ -1318,6 +1385,8 @@ SERVE_PAGED_ENV = {
     "DECODE_BATCH_SIZE": str(N_SLOTS), "MAX_SEQ_LEN": "1024",
     "PREFILL_BUCKETS": "64,128,256,512", "DECODE_ATTN": "auto",
     "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+    # Each engine takes 10 rate-limited requests (18 with --profile).
+    "RATE_LIMIT": "1000/minute",
 }
 SERVE_PAGED_ENGINES = {
     "dense": {"KV_POOL": "false", "RAGGED_ATTENTION": "auto"},
@@ -1374,8 +1443,7 @@ async def _serve_paged_one(torch, kind: str, env: dict, params,
 
     tag = f"serve_paged/{kind}"
     port = _free_port()
-    os.environ.update(SERVE_PAGED_ENV, **env, HOST="127.0.0.1",
-                      PORT=str(port))
+    _phase_env({**SERVE_PAGED_ENV, **env}, port)
     cfg = ServiceConfig.from_env()
     inner = build_engine(cfg)
     if not isinstance(inner, BatchedTorchEngine):
@@ -1665,6 +1733,418 @@ def _check_paged_logits(torch, engine, res, prompt, tag) -> dict:
     return out
 
 
+# An HF-layout Gemma-2B checkpoint written by this script (the JAX
+# package's tools/gen_fake_checkpoint.py imports JAX), served from
+# MODEL_PATH in phase 6. The rate limit and the response cache keep
+# their defaults there; the server takes a key.
+CKPT_MODEL = "gemma-2b-it"
+CKPT_KEY = "smoke-key"
+CKPT_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda",
+    "MODEL_NAME": CKPT_MODEL, "DTYPE": "bfloat16",
+    "DECODE_BATCH_SIZE": str(N_SLOTS),
+    "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+    "API_AUTH_KEY": CKPT_KEY,
+}
+# The bf16 tree is about 5.0 GB on disk; a margin on top.
+CKPT_FREE_BYTES = 6_000_000_000
+# Embedding rows held against the bytes written (first, middle, last).
+CKPT_EMBED_ROWS = (0, 1, 128_000, 255_999)
+# Requests of the default RATE_LIMIT=10/minute before the 429.
+CKPT_RATE_LIMIT = 10
+
+
+def write_hf_checkpoint(torch, cfg, path: Path, seed: int = 0):
+    """Write ``cfg``'s weights in the HF safetensors layout under
+    ``path``: ``model.embed_tokens.weight`` and ``model.norm.weight`` in
+    one shard, each layer's norms and ``[out, in]`` projections in one
+    shard of its own. bf16 values drawn on the card from ``seed`` at
+    ``init_params``'s scales (norm weights zero: Gemma's (1 + w) norm).
+    Returns (the kept tensors the loaded tree is held against, the
+    bytes written)."""
+    from safetensors.torch import save_file
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, H, KV, hd, F_ = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.mlp_hidden)
+
+    def draw(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.bfloat16, device="cuda")
+
+    kept, nbytes = {}, 0
+
+    def save(shard: dict, name: str) -> None:
+        nonlocal nbytes
+        save_file({k: v.cpu() for k, v in shard.items()}, str(path / name))
+        nbytes += sum(v.numel() * v.element_size() for v in shard.values())
+
+    embed = draw((cfg.vocab_size, d), 1.0)
+    kept["embed_rows"] = embed[list(CKPT_EMBED_ROWS)].clone()
+    save({"model.embed_tokens.weight": embed, "model.norm.weight": zeros(d)},
+         "model-embed.safetensors")
+    del embed
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        shard = {
+            p + "input_layernorm.weight": zeros(d),
+            p + "post_attention_layernorm.weight": zeros(d),
+            p + "self_attn.q_proj.weight": draw((H * hd, d), d ** -0.5),
+            p + "self_attn.k_proj.weight": draw((KV * hd, d), d ** -0.5),
+            p + "self_attn.v_proj.weight": draw((KV * hd, d), d ** -0.5),
+            p + "self_attn.o_proj.weight": draw((d, H * hd),
+                                                (H * hd) ** -0.5),
+            p + "mlp.gate_proj.weight": draw((F_, d), d ** -0.5),
+            p + "mlp.up_proj.weight": draw((F_, d), d ** -0.5),
+            p + "mlp.down_proj.weight": draw((d, F_), F_ ** -0.5),
+        }
+        if i in (0, cfg.n_layers - 1):
+            kept[f"q_proj_{i}"] = shard[p + "self_attn.q_proj.weight"].clone()
+        save(shard, f"model-layer-{i:02d}.safetensors")
+    return kept, nbytes
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _timed_load(torch, engine, ckpt_bytes: int, tag: str) -> dict:
+    """The engine's weight load on its own (the server's startup then
+    finds the tree loaded): seconds, GB/s of checkpoint read, and the
+    peak device memory it added."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine._load()
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    out = {"load_s": load_s, "load_gb_per_s": ckpt_bytes / load_s / 1e9,
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "tree_gb": _tree_bytes(engine.params) / 1e9}
+    log(f"[{tag}] loaded {ckpt_bytes / 1e9:.3f} GB of checkpoint in "
+        f"{load_s:.2f} s ({out['load_gb_per_s']:.2f} GB/s); tree "
+        f"{out['tree_gb']:.3f} GB, load peak {out['peak_gb']:.3f} GB")
+    return out
+
+
+def phase_serve_ckpt(torch, serve_info: dict) -> dict:
+    return asyncio.run(_serve_ckpt(torch, serve_info))
+
+
+async def _serve_ckpt(torch, serve_info: dict) -> dict:
+    import shutil
+    import tempfile
+
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    cfg = get_config(CKPT_MODEL)
+    path = Path(tempfile.mkdtemp(prefix="smoke-gemma-2b-"))
+    try:
+        free = shutil.disk_usage(path).free
+        log(f"[serve_ckpt] {free / 1e9:.1f} GB free under {path.parent}")
+        if free < CKPT_FREE_BYTES:
+            raise AssertionError(f"the checkpoint needs "
+                                 f"{CKPT_FREE_BYTES / 1e9:.1f} GB free "
+                                 f"under {path.parent}, {free / 1e9:.1f} GB "
+                                 f"are")
+        t0 = time.monotonic()
+        kept, ckpt_bytes = write_hf_checkpoint(torch, cfg, path)
+        write_s = time.monotonic() - t0
+        log(f"[serve_ckpt] wrote {cfg.name} ({ckpt_bytes / 1e9:.3f} GB, "
+            f"{cfg.n_layers + 1} shards) in {write_s:.1f} s")
+        bf16, params = await _serve_ckpt_bf16(torch, path, kept,
+                                              ckpt_bytes, serve_info)
+        int4 = await _serve_ckpt_int4(torch, path, ckpt_bytes, params)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return {"checkpoint_gb": ckpt_bytes / 1e9, "write_s": write_s,
+            "bf16": bf16, "int4": int4}
+
+
+def _check_loaded_bytes(torch, params, kept) -> None:
+    """Loaded leaves against the bytes written: embedding rows as is,
+    q_proj [out, in] as wq [in, out]."""
+    rows = params["embed"][list(CKPT_EMBED_ROWS)]
+    if not torch.equal(rows, kept["embed_rows"]):
+        raise AssertionError("loaded embedding rows differ from the file")
+    wq = params["layers"]["wq"]
+    for key, w in kept.items():
+        if key.startswith("q_proj_"):
+            layer = int(key.rsplit("_", 1)[1])
+            if not torch.equal(wq[layer], w.T):
+                raise AssertionError(f"loaded wq of layer {layer} is not "
+                                     f"the transposed q_proj written")
+
+
+async def _serve_ckpt_bf16(torch, path, kept, ckpt_bytes, serve_info):
+    import aiohttp
+    from aiohttp import web
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.models.convert import checkpoint_version
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = "serve_ckpt/bf16"
+    port = _free_port()
+    _phase_env({**CKPT_ENV, "MODEL_PATH": str(path)}, port)
+    cfg = ServiceConfig.from_env()
+    if (cfg.rate_limit_count, cfg.rate_limit_window) != (
+            CKPT_RATE_LIMIT, 60.0) or not cfg.auth_enabled:
+        raise AssertionError(f"{tag}: expected the default rate limit and "
+                             f"a key, got {cfg.rate_limit}")
+    inner = build_engine(cfg)
+    if not isinstance(inner, BatchedTorchEngine):
+        raise AssertionError(f"engine construction failed: {inner!r}")
+    load = _timed_load(torch, inner, ckpt_bytes, tag)
+    _check_loaded_bytes(torch, inner.params, kept)
+    if inner.weights_version != checkpoint_version(path):
+        raise AssertionError(f"{tag}: weights version "
+                             f"{inner.weights_version!r}")
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    log(f"[{tag}] up on {cfg.host}:{port} in {startup_s:.1f} s after the "
+        f"load ({inner.device}, {inner.batch_size} slots, version "
+        f"{inner.weights_version})")
+    url = f"http://{cfg.host}:{port}"
+    keyed = {"X-API-Key": CKPT_KEY}
+    sent = {}                            # (route, status) -> count
+
+    def count(route, status):
+        sent[(route, str(status))] = sent.get((route, str(status)), 0) + 1
+
+    try:
+        async with aiohttp.ClientSession() as http:
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+                count("/health", r.status)
+                if r.status != 200 or health["breaker"] != "closed":
+                    raise AssertionError(f"/health: {r.status} {health}")
+
+            async def ask(query, headers):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query},
+                                     headers=headers) as r:
+                    count("/kubectl-command", r.status)
+                    return r.status, await r.json(), dict(r.headers)
+
+            engine.results.clear()
+            ragged_attention_pool.launches = 0
+            steps0 = inner.forward_steps
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q, keyed) for q in QUERIES])
+            burst_s = time.monotonic() - t_burst
+            calls0 = engine.calls
+            async with http.post(f"{url}/kubectl-command/stream",
+                                 json={"query": QUERIES[0]},
+                                 headers=keyed) as r:
+                count("/kubectl-command/stream", r.status)
+                stream_status, sse = r.status, await r.text()
+            launches = ragged_attention_pool.launches
+            steps = inner.forward_steps - steps0
+            stream_calls = engine.calls - calls0
+            unkeyed = await ask(QUERIES[1], {})
+            limited = await ask(QUERIES[2], keyed)
+            async with http.get(f"{url}/metrics") as r:
+                metrics_status, metrics = r.status, await r.text()
+            async with http.get(f"{url}/openapi.json") as r:
+                openapi_status = r.status
+                paths = sorted((await r.json())["paths"])
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    statuses = [st for st, _, _ in burst]
+    for query, (status, body, _) in zip(QUERIES, burst):
+        res = results[render_prompt(query)][0]
+        if res.completion_tokens <= 0:
+            raise AssertionError(f"{tag} {query!r}: no tokens generated")
+        want = status_for_text(res.text)
+        if status != want:
+            raise AssertionError(f"{tag} {query!r}: HTTP {status}, the "
+                                 f"service gives {want} for {res.text!r}: "
+                                 f"{body}")
+    events = re.findall(r"^event: (\w+)$", sse, re.M)
+    first = results[render_prompt(QUERIES[0])][0]
+    want_event = "done" if status_for_text(first.text) == 200 else "error"
+    if stream_status != 200 or not events or events[-1] != want_event:
+        raise AssertionError(f"{tag}: the stream answered {stream_status} "
+                             f"with events {events}, want ... {want_event}")
+    if want_event == "error" and stream_calls != 1:
+        raise AssertionError(f"{tag}: the stream repeat of an uncached 422 "
+                             f"made {stream_calls} engine calls, want 1")
+    if unkeyed[0] != 401 or unkeyed[1] != {
+            "detail": "Missing X-API-Key header"}:
+        raise AssertionError(f"{tag}: no key gave {unkeyed[:2]}")
+    if limited[0] != 429 or "Retry-After" not in limited[2]:
+        raise AssertionError(f"{tag}: the request after {CKPT_RATE_LIMIT} "
+                             f"gave {limited[0]} {limited[1]} "
+                             f"{limited[2].get('Retry-After')}")
+    if metrics_status != 200:
+        raise AssertionError(f"{tag}: /metrics answered {metrics_status}")
+    served = {}
+    for fam in text_string_to_metric_families(metrics):
+        if fam.name == "http_requests":
+            for smp in fam.samples:
+                if smp.name == "http_requests_total":
+                    served[(smp.labels["handler"], smp.labels["status"])] = \
+                        int(smp.value)
+    if served != sent:
+        raise AssertionError(f"{tag}: http_requests_total {served} != the "
+                             f"requests sent {sent}")
+    if openapi_status != 200 or "/kubectl-command/stream" not in paths:
+        raise AssertionError(f"{tag}: /openapi.json {openapi_status} "
+                             f"{paths}")
+    n_layers = inner.model_cfg.n_layers
+    if steps <= 0 or launches < n_layers * steps:
+        raise AssertionError(f"{tag}: ragged kernel launched {launches} "
+                             f"times for {steps} forward steps x "
+                             f"{n_layers} layers")
+    holders: dict = {}
+    for slot in inner._slots:
+        for b in (slot.blocks or []) if slot is not None else []:
+            holders[b] = holders.get(b, 0) + 1
+    if inner._radix is not None:
+        for b, n in inner._radix._held.items():
+            holders[b] = holders.get(b, 0) + n
+    inner._pool.check(holders)
+    logit_check = _check_served_logits(torch, inner, results, tag)
+    firsts = [results[render_prompt(q)][0] for q in QUERIES]
+    n_tok = sum(r.completion_tokens for r in firsts)
+    info = {
+        **load, "startup_s": startup_s, "launches": launches,
+        "forward_steps": steps, "statuses": statuses,
+        "stream_events": events[-1], "stream_engine_calls": stream_calls,
+        "unkeyed_status": unkeyed[0], "limited_status": limited[0],
+        "retry_after": limited[2].get("Retry-After"),
+        "http_requests_total": {f"{k[0]} {k[1]}": v
+                                for k, v in sorted(served.items())},
+        "burst_s": burst_s, "burst_tokens": n_tok,
+        "burst_tok_per_s": n_tok / burst_s,
+        "serve_burst_tok_per_s": serve_info.get("burst_tok_per_s"),
+        "logits": logit_check,
+    }
+    log(f"[{tag}] statuses {statuses}; {n_tok} tokens in {burst_s:.2f} s "
+        f"({info['burst_tok_per_s']:.1f} tok/s; the serve phase, same model "
+        f"and traffic from random weights in memory: "
+        f"{info['serve_burst_tok_per_s']} tok/s); stream ended "
+        f"'{events[-1]}' after {stream_calls} engine call(s); no key "
+        f"{unkeyed[0]}, request {CKPT_RATE_LIMIT + 1} {limited[0]} "
+        f"(Retry-After {info['retry_after']}); http_requests_total "
+        f"{info['http_requests_total']}; ragged launches {launches} over "
+        f"{steps} forward steps")
+    return info, inner.params
+
+
+async def _serve_ckpt_int4(torch, path, ckpt_bytes, bf16_params):
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.torch_engine import TorchEngine
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.quant import quantize_embed_int8
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import (QuantInt4,
+                                                       quantize_int4,
+                                                       qmatmul4)
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+
+    tag = "serve_ckpt/int4"
+    port = _free_port()
+    _phase_env({**CKPT_ENV, "MODEL_PATH": str(path), "QUANT": "int4",
+                "DECODE_BATCH_SIZE": "1"}, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if type(inner) is not TorchEngine:
+        raise AssertionError(f"engine construction failed: {inner!r}")
+    load = _timed_load(torch, inner, ckpt_bytes, tag)
+    mc = inner.model_cfg
+    d, F_ = mc.dim, mc.mlp_hidden
+    qd, kvd = mc.n_heads * mc.head_dim, mc.n_kv_heads * mc.head_dim
+    layer_bf16 = 2 * d * (2 * qd + 2 * kvd + 3 * F_)
+    embed_bf16 = 2 * mc.vocab_size * d
+    bound = load["tree_gb"] * 1e9 + embed_bf16 + 2 * layer_bf16
+    load["peak_bound_gb"] = bound / 1e9
+    log(f"[{tag}] load peak {load['peak_gb']:.3f} GB against the bound "
+        f"{bound / 1e9:.3f} GB (quantized tree {load['tree_gb']:.3f} + bf16 "
+        f"embedding {embed_bf16 / 1e9:.3f} + two layers' bf16 slices "
+        f"{2 * layer_bf16 / 1e9:.3f}); the bf16 tree is "
+        f"{ckpt_bytes / 1e9:.3f} GB")
+    if load["peak_gb"] * 1e9 > bound:
+        raise AssertionError(f"{tag}: the int4 load peaked at "
+                             f"{load['peak_gb']:.3f} GB, over the bound")
+    # Every quantized leaf against quantize_int4 of the bf16 leaf, one
+    # layer at a time; the embedding against quantize_embed_int8.
+    checked = 0
+    for key, leaf in inner.params["layers"].items():
+        if not isinstance(leaf, QuantInt4):
+            if key.endswith("norm") and torch.equal(
+                    leaf, bf16_params["layers"][key]):
+                continue
+            raise AssertionError(f"{tag}: {key} is {type(leaf).__name__}")
+        for i in range(mc.n_layers):
+            want = quantize_int4(bf16_params["layers"][key][i],
+                                 group_in=leaf.group_in,
+                                 block_out=leaf.block_out)
+            if not (torch.equal(leaf.q[i], want.q)
+                    and torch.equal(leaf.scale[i], want.scale)):
+                raise AssertionError(f"{tag}: {key}[{i}] differs from "
+                                     f"quantize_int4 of the bf16 leaf")
+            checked += 1
+    emb = inner.params["embed"]
+    for r0 in range(0, mc.vocab_size, 32768):
+        want = quantize_embed_int8(bf16_params["embed"][r0:r0 + 32768])
+        if not (torch.equal(emb.q[r0:r0 + 32768], want.q)
+                and torch.equal(emb.scale[r0:r0 + 32768], want.scale)):
+            raise AssertionError(f"{tag}: embedding rows {r0}.. differ from "
+                                 f"quantize_embed_int8")
+    log(f"[{tag}] {checked} int4 layer slices and the per-row int8 "
+        f"embedding bit-equal to quantizing the bf16 load")
+    runner = web.AppRunner(create_app(cfg, inner), access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    try:
+        async with aiohttp.ClientSession() as http:
+            flash_attention_cached.launches = 0
+            qmatmul4.launches = 0
+            async with http.post(f"http://{cfg.host}:{port}/kubectl-command",
+                                 json={"query": QUERIES[0]},
+                                 headers={"X-API-Key": CKPT_KEY}) as r:
+                status, body = r.status, await r.json()
+            launches = {"flash_attention": flash_attention_cached.launches,
+                        "int4_matmul": qmatmul4.launches}
+    finally:
+        await runner.cleanup()
+    if status not in (200, 422):
+        raise AssertionError(f"{tag}: HTTP {status} {body}")
+    if (launches["flash_attention"] < mc.n_layers
+            or launches["int4_matmul"] < 7 * mc.n_layers):
+        raise AssertionError(f"{tag}: kernel launches {launches}")
+    log(f"[{tag}] one request: HTTP {status}; launches {launches}")
+    return {**load, "status": status, "launches": launches,
+            "int4_slices_checked": checked}
+
+
 def kernel_breakdown(torch, fn, *, iters: int = 10) -> dict:
     """Device microseconds per launch of each of the port's kernels that
     ``fn`` launches (an attention kernel and its split combine, say), the
@@ -1889,10 +2369,20 @@ def kernel_lines(results: dict) -> list:
     serving run (ragged: phase 3; flash and int4: phase 4; the paged
     entry points: their engines of phase 5), the worst
     error of phase 2, and the times at the shape its serving path runs
-    most at the top level (every timed shape under ``shapes``)."""
+    most at the top level (every timed shape under ``shapes``);
+    ``phase_launches`` adds the launches of phase 6 (ragged in its bf16
+    engine, flash and int4 in its int4 engine)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
+    ckpt = results.get("serve_ckpt", {})
+    ckpt_launches = {
+        "ragged_attention_pool": ckpt.get("bf16", {}).get("launches"),
+        "flash_attention_cached": ckpt.get("int4", {}).get(
+            "launches", {}).get("flash_attention"),
+        "qmatmul4": ckpt.get("int4", {}).get("launches", {}).get(
+            "int4_matmul"),
+    }
     tol = f"|kernel - plain| <= {ATOL} + {RTOL}*|plain| (bf16)"
 
     paged = results.get("serve_paged", {})
@@ -1910,6 +2400,7 @@ def kernel_lines(results: dict) -> list:
             "bound_ms": top.get("bound_ms"),
             "bound_by": top.get("bound_by"),
             "library_ms": top.get("library_ms"), "library": library,
+            "phase_launches": {"serve_ckpt": ckpt_launches.get(name)},
             "shapes": shapes,
         }
 
@@ -1962,6 +2453,9 @@ def main() -> int:
                     help="after each serving run, profile one more burst; "
                     "in the timing phase, split each kernel call into the "
                     "kernels it launches")
+    ap.add_argument("--bursts", type=int, default=1,
+                    help="bursts of 8 fresh queries the serve phase times "
+                    "(the first is the counted one)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1992,11 +2486,14 @@ def main() -> int:
     if "kernel" in phases:
         results["kernel"] = phase_kernel(torch)
     if "serve" in phases:
-        results["serve"] = phase_serve(torch, args.profile)
+        results["serve"] = phase_serve(torch, args.profile, args.bursts)
     if "serve1" in phases:
         results["serve1"] = phase_serve1(torch, args.profile)
     if "serve_paged" in phases:
         results["serve_paged"] = phase_serve_paged(torch, args.profile)
+    if "serve_ckpt" in phases:
+        results["serve_ckpt"] = phase_serve_ckpt(torch,
+                                                 results.get("serve", {}))
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),

@@ -606,3 +606,65 @@ def test_paged_launch_refuses_another_plan(card, pool, shift):
                  128, S, k.stride(0), v.stride(0), 128 ** -0.5, kps, splits,
                  stream)
     assert err == 1                       # cudaErrorInvalidValue
+
+
+def _tiny_hf_checkpoint(path):
+    """A tiny HF-layout Llama checkpoint (untied head, ``model.`` keys)
+    of random bf16 tensors from a seeded generator; returns its cfg."""
+    from safetensors.torch import save_file
+
+    from ai_agent_kubectl_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="tiny-llama-cuda", vocab_size=512, dim=256,
+                      n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64,
+                      mlp_hidden=512)
+    gen = torch.Generator().manual_seed(0)
+    d, f, kvd = cfg.dim, cfg.mlp_hidden, cfg.n_kv_heads * cfg.head_dim
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, d),
+              "model.norm.weight": (d,), "lm_head.weight": (cfg.vocab_size, d)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "input_layernorm.weight": (d,),
+            p + "post_attention_layernorm.weight": (d,),
+            p + "self_attn.q_proj.weight": (d, d),
+            p + "self_attn.k_proj.weight": (kvd, d),
+            p + "self_attn.v_proj.weight": (kvd, d),
+            p + "self_attn.o_proj.weight": (d, d),
+            p + "mlp.gate_proj.weight": (f, d),
+            p + "mlp.up_proj.weight": (f, d),
+            p + "mlp.down_proj.weight": (d, f)})
+    save_file({k: (torch.randn(s, generator=gen) * 0.05).to(torch.bfloat16)
+               for k, s in shapes.items()},
+              str(path / "model.safetensors"))
+    return cfg
+
+
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+def test_checkpoint_loads_to_the_card_as_on_the_cpu(card, tmp_path, quant):
+    """The streamed load onto the card (quantized there under int8 and
+    int4) gives the CPU load's tree, byte for byte."""
+    from ai_agent_kubectl_tpu_torch.models.convert import \
+        convert_hf_checkpoint
+
+    cfg = _tiny_hf_checkpoint(tmp_path)
+    kw = dict(dtype=torch.bfloat16, quant=quant, quantize_embed=bool(quant))
+    on_card = convert_hf_checkpoint(cfg, tmp_path, device=card, **kw)
+    on_cpu = convert_hf_checkpoint(cfg, tmp_path, device="cpu", **kw)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                yield from leaves(tree[key], f"{prefix}{key}/")
+        elif hasattr(tree, "q"):
+            yield prefix + "q", tree.q
+            yield prefix + "scale", tree.scale
+        else:
+            yield prefix, tree
+
+    a, b = dict(leaves(on_card)), dict(leaves(on_cpu))
+    assert sorted(a) == sorted(b)
+    for key, t in a.items():
+        assert t.device.type == "cuda", key
+        assert t.dtype == b[key].dtype and t.shape == b[key].shape, key
+        assert torch.equal(t.cpu(), b[key]), key

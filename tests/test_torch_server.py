@@ -1,10 +1,24 @@
-"""The port's lean server on the CPU: ``POST /kubectl-command`` and
+"""The port's server on the CPU: ``POST /kubectl-command`` and
 ``GET /health`` through the aiohttp test client, with ``toy-8m`` served
-by the batched engine, and the request pipeline's status decisions held
-against the JAX service's output parser."""
+by the batched engine; the request pipeline's status decisions held
+against the JAX service's output parser; auth and the default rate limit
+answered as the JAX app answers them (the port once served requests
+without the key and never rate-limited); and the config: the JAX knob
+names it reads, and every JAX knob whose feature it does not serve
+refused at boot."""
+
+import re
+from pathlib import Path
 
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
+
+from ai_agent_kubectl_tpu import config as jax_config
+from ai_agent_kubectl_tpu.config import ServiceConfig as JaxServiceConfig
+from ai_agent_kubectl_tpu.engine import protocol as jax_protocol
+from ai_agent_kubectl_tpu.server.app import create_app as jax_create_app
+from ai_agent_kubectl_tpu.server.ratelimit import (
+    SlidingWindowLimiter as JaxLimiter)
 
 from ai_agent_kubectl_tpu.server.output_parser import (
     UnsafeCommandError as JaxUnsafe)
@@ -12,11 +26,14 @@ from ai_agent_kubectl_tpu.server.output_parser import (
     parse_llm_output as jax_parse)
 from ai_agent_kubectl_tpu.server.schemas import (
     CommandResponse as JaxCommandResponse)
-from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+from ai_agent_kubectl_tpu_torch import config as port_config
+from ai_agent_kubectl_tpu_torch.config import UNSERVED_KNOBS, ServiceConfig
+from ai_agent_kubectl_tpu_torch.engine import protocol as port_protocol
 from ai_agent_kubectl_tpu_torch.engine.protocol import (
     EngineOverloaded, EngineResult, EngineUnavailable, GenerationTimeout,
     RequestQuarantined)
 from ai_agent_kubectl_tpu_torch.server.app import create_app
+from ai_agent_kubectl_tpu_torch.server.ratelimit import SlidingWindowLimiter
 from ai_agent_kubectl_tpu_torch.server.factory import (DegradedEngine,
                                                       build_engine)
 from ai_agent_kubectl_tpu_torch.server.service import status_for_text
@@ -118,14 +135,14 @@ async def test_server_with_batched_engine_on_cpu():
 
 
 async def test_degraded_engine_answers_503():
-    """An engine that cannot be built (here: MODEL_PATH, whose checkpoint
-    loader is not in the port yet) leaves the server up but degraded: it
+    """An engine that cannot be built (here: an MoE model, which the
+    port does not serve yet) leaves the server up but degraded: it
     answers 503 and its log says why."""
     cfg = ServiceConfig(torch_device="cpu", decode_batch_size=1,
-                        model_path="/nonexistent/checkpoint")
+                        model_name="toy-moe")
     engine = build_engine(cfg)
     assert isinstance(engine, DegradedEngine)
-    assert "MODEL_PATH" in engine.reason
+    assert "MoE" in engine.reason
     app = create_app(cfg, engine)
     async with TestClient(TestServer(app)) as client:
         r = await client.get("/health")
@@ -139,7 +156,16 @@ def test_config_reads_the_jax_knob_names(monkeypatch):
     for key, val in {"ENGINE": "torch-batched", "TORCH_DEVICE": "cpu",
                      "MODEL_NAME": "gemma-2b-it", "DECODE_BATCH_SIZE": "4",
                      "KV_POOL_PAGE": "32", "PREFILL_BUCKETS": "128,64",
-                     "RADIX_CACHE": "false", "MAX_NEW_TOKENS": "16"}.items():
+                     "RADIX_CACHE": "false", "MAX_NEW_TOKENS": "16",
+                     "MODEL_PATH": "/ckpt", "API_AUTH_KEY": "sekrit",
+                     "CACHE_MAXSIZE": "7", "CACHE_TTL": "45",
+                     "RATE_LIMIT": "5 per 30 second",
+                     "EXECUTION_TIMEOUT": "3", "TRUST_PROXY": "true",
+                     "MAX_INFLIGHT_REQUESTS": "3",
+                     "DEGRADED_FALLBACK": "true", "BREAKER_THRESHOLD": "2",
+                     "BREAKER_WINDOW_SECS": "9",
+                     "BREAKER_RECOVERY_SECS": "4",
+                     "FLIGHT_RECORDER_SIZE": "16"}.items():
         monkeypatch.setenv(key, val)
     cfg = ServiceConfig.from_env()
     assert (cfg.engine, cfg.torch_device, cfg.model_name) == (
@@ -147,6 +173,22 @@ def test_config_reads_the_jax_knob_names(monkeypatch):
     assert cfg.decode_batch_size == 4 and cfg.kv_pool_page == 32
     assert cfg.prefill_bucket_list == (64, 128)
     assert not cfg.radix_cache and cfg.max_new_tokens == 16
+    assert cfg.model_path == "/ckpt"
+    assert cfg.auth_enabled and cfg.api_auth_key == "sekrit"
+    assert (cfg.cache_maxsize, cfg.cache_ttl) == (7, 45.0)
+    assert (cfg.rate_limit_count, cfg.rate_limit_window) == (5, 30.0)
+    assert cfg.execution_timeout == 3.0 and cfg.trust_proxy_headers
+    assert cfg.max_inflight_requests == 3 and cfg.degraded_fallback
+    assert (cfg.breaker_threshold, cfg.breaker_window_secs,
+            cfg.breaker_recovery_secs) == (2, 9.0, 4.0)
+    assert cfg.flight_recorder_size == 16
+    # TRUST_PROXY_HEADERS wins over its alias, as in the JAX package
+    monkeypatch.setenv("TRUST_PROXY_HEADERS", "false")
+    assert not ServiceConfig.from_env().trust_proxy_headers
+    monkeypatch.setenv("RATE_LIMIT", "often")
+    with pytest.raises(ValueError, match="rate limit"):
+        ServiceConfig.from_env()
+    monkeypatch.setenv("RATE_LIMIT", "10/minute")
     monkeypatch.setenv("KV_POOL", "false")
     monkeypatch.setenv("DECODE_ATTN", "paged")
     monkeypatch.setenv("KV_PAGE_SIZE", "64")
@@ -163,14 +205,203 @@ def test_config_reads_the_jax_knob_names(monkeypatch):
         ServiceConfig.from_env()
 
 
-@pytest.mark.parametrize("knob,value", [("KV_QUANT", "int8"),
-                                        ("SPEC_DECODE", "true"),
-                                        ("FLEET_SIZE", "2")])
+def test_config_defaults_match_the_jax_package():
+    """The knobs both packages read start from the same defaults."""
+    ours, theirs = ServiceConfig(), JaxServiceConfig()
+    for name in ("api_auth_key", "cache_maxsize", "cache_ttl",
+                 "llm_timeout", "execution_timeout", "rate_limit",
+                 "trust_proxy_headers", "max_inflight_requests",
+                 "degraded_fallback", "breaker_threshold",
+                 "breaker_window_secs", "breaker_recovery_secs",
+                 "flight_recorder_size", "max_queue_depth",
+                 "rate_limit_count", "rate_limit_window",
+                 "drain_timeout_secs", "max_new_tokens", "model_path"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+
+
+#: every knob of UNSERVED_KNOBS with a value that asks for the feature
+REFUSED = [
+    ("KV_QUANT", "int8"), ("MOE_IMPL", "ep"), ("SPEC_DECODE", "true"),
+    ("SPEC_DRAFT_K", "2"), ("SPEC_DRAFT_MODEL", "toy-8m"),
+    ("SPEC_DRAFT_PATH", "/draft"), ("GRAMMAR_DECODE", "true"),
+    ("GRAMMAR_PROFILE", "readonly"), ("GRAMMAR_FORCED_RUN_MIN", "8"),
+    ("HOST_KV_BLOCKS", "64"), ("CHUNK_PIPE_DEPTH", "3"),
+    ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
+    ("TENANT_TIERS", "key1:background"), ("QOS_DEFAULT_LANE", "batch"),
+    ("LANE_WEIGHTS", "interactive:4"), ("TENANT_MAX_QUEUE", "8"),
+    ("QOS_SESSION_TOKEN_BUDGET", "100"), ("PREEMPT_WAIT_MS", "100"),
+    ("PREEMPT_BUDGET", "5"), ("SLO_INTERACTIVE_MS", "500"),
+    ("ENGINE_WATCHDOG_SECS", "30"), ("ENGINE_STARTUP_GRACE_SECS", "60"),
+    ("QUARANTINE_RETRY_BUDGET", "3"), ("ENGINE_RESET_MAX_PER_MIN", "2"),
+    ("FAULT_POINTS", "generate:error:1.0"), ("LEDGER_ENABLE", "true"),
+    ("SLO_TTFT_MS", "800"), ("SLO_SESSION_TTFT_MS", "900"),
+    ("SLO_WINDOWS", "60,600"), ("SLO_OBJECTIVE", "0.9"),
+    ("PERF_BASELINES", "/b.json"), ("SENTINEL_ENABLE", "true"),
+    ("SENTINEL_WINDOW", "64"), ("SENTINEL_FACTOR", "3"),
+    ("SENTINEL_MIN_SAMPLES", "4"), ("SENTINEL_EVAL_SECS", "1"),
+    ("INCIDENT_RING", "4"), ("INCIDENT_COOLDOWN_SECS", "5"),
+    ("INCIDENT_BURN_THRESHOLD", "5"), ("INCIDENT_PROFILE_SECS", "2"),
+    ("INCIDENT_THRASH_MIN_BLOCKS", "2"), ("FLEET_SIZE", "2"),
+    ("FLEET_HEDGE_MS", "50"), ("FLEET_AFFINITY", "false"),
+    ("FLEET_MIGRATION_BUDGET", "1"), ("FLEET_REJOIN_SECS", "5"),
+    ("ROLLOUT_CANARY_SHARE", "0.5"), ("ROLLOUT_OBSERVE_SECS", "5"),
+    ("ROLLOUT_BURN_GATE", "3"), ("ROLLOUT_STEPTIME_GATE", "2"),
+    ("DEBUG_TOKEN", "dbg"), ("LOG_FORMAT", "json"),
+    ("OPENAI_API_KEY", "sk-x"), ("OPENAI_MODEL", "gpt-4"),
+    ("OPENAI_BASE_URL", "http://localhost:1"),
+    ("MESH_SHAPE", "data:1,model:8"), ("DCN_MESH_SHAPE", "data:2"),
+    ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
+    ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
+]
+
+
+def test_refused_list_names_every_unserved_knob():
+    assert sorted(k for k, _ in REFUSED) == sorted(UNSERVED_KNOBS)
+
+
+@pytest.mark.parametrize("knob,value", REFUSED)
 def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
                                                       value):
     monkeypatch.setenv(knob, value)
     with pytest.raises(ValueError, match=knob):
         ServiceConfig.from_env()
-    monkeypatch.setenv(knob, {"KV_QUANT": "", "SPEC_DECODE": "false",
-                              "FLEET_SIZE": "1"}[knob])
+    monkeypatch.setenv(knob, UNSERVED_KNOBS[knob])
     assert ServiceConfig.from_env().engine == "torch"
+
+
+@pytest.mark.parametrize("engine", ["openai", "fake", "jax",
+                                    "jax-batched"])
+def test_config_refuses_the_jax_packages_engines_by_name(monkeypatch,
+                                                         engine):
+    monkeypatch.setenv("ENGINE", engine)
+    with pytest.raises(ValueError, match=f"ENGINE={engine} "):
+        ServiceConfig.from_env()
+
+
+def _knobs_read(module) -> set:
+    """The environment variables a config module's from_env reads."""
+    src = Path(module.__file__).read_text()
+    body = src[src.index("def from_env"):]
+    return set(re.findall(r'(?:_env_\w+|os\.getenv)\(\s*"([A-Z_]+)"',
+                          body))
+
+
+def test_every_jax_knob_is_read_or_refused():
+    """Each knob the JAX ServiceConfig.from_env reads is read by the
+    port's or refused by it; only COMPILE_CACHE_DIR has no counterpart
+    (nothing compiles in eager PyTorch)."""
+    jax_knobs = _knobs_read(jax_config)
+    assert len(jax_knobs) > 100
+    ours = _knobs_read(port_config) | set(UNSERVED_KNOBS)
+    assert jax_knobs - ours == {"COMPILE_CACHE_DIR"}
+
+
+# ----------------------------------------------------- auth and rate limit
+
+class StubEngine:
+    """Answers every prompt with "kubectl get pods", built against one
+    package's protocol module so each app gets its own result type."""
+
+    name = "stub"
+    ready = True
+    device = None
+
+    def __init__(self, protocol):
+        self.protocol = protocol
+        self.calls = 0
+
+    async def start(self):
+        pass
+
+    async def stop(self, drain_secs=0.0):
+        pass
+
+    async def generate(self, prompt, **kw):
+        self.calls += 1
+        return self.protocol.EngineResult(text="kubectl get pods",
+                                          completion_tokens=3,
+                                          engine=self.name)
+
+
+def _masked(body):
+    """A JSON body with its timestamps and durations masked."""
+    if isinstance(body, dict):
+        out = {}
+        for key, val in body.items():
+            if key in ("start_time", "end_time", "duration_ms"):
+                out[key] = "*"
+            elif key == "timings" and val is not None:
+                out[key] = sorted(val)
+            else:
+                out[key] = _masked(val)
+        return out
+    return body
+
+
+HEADERS = ("Content-Type", "Retry-After", "X-RateLimit-Limit",
+           "X-RateLimit-Remaining", "X-RateLimit-Reset", "X-Request-ID")
+
+
+async def _answers(app, requests):
+    """(status, masked body, headers that matter) for each request."""
+    out = []
+    async with TestClient(TestServer(app)) as client:
+        for headers, clock_at in requests:
+            app["clock"][0] = clock_at
+            r = await client.post("/kubectl-command",
+                                  json={"query": "list pods"},
+                                  headers=dict(headers,
+                                               **{"X-Request-ID": "c1"}))
+            out.append((r.status, _masked(await r.json()),
+                        {h: r.headers.get(h) for h in HEADERS}))
+    return out
+
+
+def _apps(**cfg):
+    """The port's app and the JAX app, the same config and stub engine,
+    each rate limiter on an injected clock."""
+    apps = []
+    for create, config, protocol, limiter in (
+            (create_app, ServiceConfig(torch_device="cpu", **cfg),
+             port_protocol, SlidingWindowLimiter),
+            (jax_create_app, JaxServiceConfig(engine="fake", **cfg),
+             jax_protocol, JaxLimiter)):
+        app = create(config, StubEngine(protocol))
+        clock = [0.0]
+        app["clock"] = clock
+        app["service"].limiter = limiter(
+            config.rate_limit_count, config.rate_limit_window,
+            timer=lambda clock=clock: clock[0])
+        apps.append(app)
+    return apps
+
+
+@pytest.mark.parametrize("headers,detail", [
+    ({}, "Missing X-API-Key header"),
+    ({"X-API-Key": "wrong"}, "Invalid API Key")], ids=["missing", "wrong"])
+async def test_auth_answers_401_as_the_jax_app(headers, detail):
+    port, jax_app = _apps(api_auth_key="s3cret")
+    requests = [(headers, 0.0), ({"X-API-Key": "s3cret"}, 0.0)]
+    ours = await _answers(port, requests)
+    assert ours == await _answers(jax_app, requests)
+    assert ours[0][:2] == (401, {"detail": detail})
+    assert ours[1][0] == 200
+    assert port["service"].engine.calls == 1
+
+
+async def test_default_rate_limit_answers_429_as_the_jax_app():
+    """RATE_LIMIT=10/minute at the defaults: the 11th request of one
+    client within the minute gets 429 with Retry-After and the
+    X-RateLimit headers; a minute later the client is served again."""
+    port, jax_app = _apps()
+    requests = [({}, 0.0)] * 10 + [({}, 30.0), ({}, 60.5)]
+    ours = await _answers(port, requests)
+    assert ours == await _answers(jax_app, requests)
+    assert [st for st, _, _ in ours] == [200] * 10 + [429, 200]
+    status, body, headers = ours[10]
+    assert body == {"detail": "Rate limit exceeded: 10/minute"}
+    assert headers["Retry-After"] == "30"
+    assert (headers["X-RateLimit-Limit"], headers["X-RateLimit-Remaining"],
+            headers["X-RateLimit-Reset"]) == ("10", "0", "30")
+    assert [b["from_cache"] for _, b, _ in ours if "from_cache" in b] \
+        == [False] + [True] * 10
