@@ -20,6 +20,8 @@ import re
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+from .engine.qos import LANES, parse_lane_weights, parse_tenant_tiers
+
 
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
@@ -36,16 +38,12 @@ UNSERVED_KNOBS = {
     "GRAMMAR_FORCED_RUN_MIN": "4", "HOST_KV_BLOCKS": "0",
     "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
     "ADMIT_SCRATCH_MB": "512",
-    # QoS lanes, preemption and session budgets (A7)
-    "TENANT_TIERS": "", "QOS_DEFAULT_LANE": "interactive",
-    "LANE_WEIGHTS": "", "TENANT_MAX_QUEUE": "0",
-    "QOS_SESSION_TOKEN_BUDGET": "0", "PREEMPT_WAIT_MS": "500",
-    "PREEMPT_BUDGET": "2", "SLO_INTERACTIVE_MS": "2000",
     # containment: watchdog, reset-and-replay, fault injection (A7)
     "ENGINE_WATCHDOG_SECS": "120", "ENGINE_STARTUP_GRACE_SECS": "900",
     "QUARANTINE_RETRY_BUDGET": "1", "ENGINE_RESET_MAX_PER_MIN": "12",
     "FAULT_POINTS": "",
-    # goodput ledger, SLO burn rates, step-time sentinel, incidents (A7)
+    # goodput ledger, SLO burn rates, step-time sentinel, incidents (A7;
+    # SLO_INTERACTIVE_MS is read: it drives the QoS brownout controller)
     "LEDGER_ENABLE": "false", "SLO_TTFT_MS": "5000",
     "SLO_SESSION_TTFT_MS": "0", "SLO_WINDOWS": "300,3600",
     "SLO_OBJECTIVE": "0.99", "PERF_BASELINES": "",
@@ -204,6 +202,29 @@ class ServiceConfig:
     breaker_window_secs: float = 30.0       # BREAKER_WINDOW_SECS
     breaker_recovery_secs: float = 15.0     # BREAKER_RECOVERY_SECS
     slot_health_check: bool = True          # SLOT_HEALTH_CHECK
+
+    # QoS ring (engine/qos.py), as in the JAX package. TENANT_TIERS maps
+    # a tenant key (a registered API key, else the client IP) to the
+    # highest lane it may claim (interactive | batch | background);
+    # X-Priority can lower a request below its tier, never raise it.
+    tenant_tiers: str = ""                  # TENANT_TIERS
+    qos_default_lane: str = "interactive"   # QOS_DEFAULT_LANE
+    # WDRR lane weights: requests per lane in one saturated round.
+    lane_weights: str = ""                  # LANE_WEIGHTS
+    # Per-tenant in-queue cap: past it a fast 429 (0 = no cap below
+    # MAX_QUEUE_DEPTH).
+    tenant_max_queue: int = 0               # TENANT_MAX_QUEUE
+    # Delivered completion tokens after which a session's (X-Session-ID)
+    # later requests run in the background lane (0 disables).
+    qos_session_token_budget: int = 0       # QOS_SESSION_TOKEN_BUDGET
+    # A higher-lane request queued this long with every slot busy
+    # preempts the cheapest lower-lane slot (0 disables preemption).
+    preempt_wait_ms: float = 500.0          # PREEMPT_WAIT_MS
+    # Preemptions one request may take before it is never picked again.
+    preempt_budget: int = 2                 # PREEMPT_BUDGET
+    # Interactive queue-wait p95 target of the brownout controller (0
+    # disables it).
+    slo_interactive_ms: float = 2000.0      # SLO_INTERACTIVE_MS
     flight_recorder_size: int = 256         # FLIGHT_RECORDER_SIZE
     drain_timeout_secs: float = 10.0        # DRAIN_TIMEOUT_SECS
 
@@ -257,10 +278,29 @@ class ServiceConfig:
         if self.top_k < 0 or not 0.0 < self.top_p <= 1.0:
             raise ValueError(f"TOP_K must be >= 0 and TOP_P in (0, 1], got "
                              f"{self.top_k}/{self.top_p}")
+        # A typo'd tier or weight refuses to boot, with the JAX messages.
+        self.tenant_tier_map
+        self.lane_weight_map
+        if self.qos_session_token_budget < 0:
+            raise ValueError(
+                f"QOS_SESSION_TOKEN_BUDGET must be >= 0 (0 disables), "
+                f"got {self.qos_session_token_budget}")
 
     @property
     def auth_enabled(self) -> bool:
         return bool(self.api_auth_key)
+
+    @property
+    def tenant_tier_map(self) -> dict:
+        if self.qos_default_lane not in LANES:
+            raise ValueError(
+                f"QOS_DEFAULT_LANE must be one of {LANES}, "
+                f"got {self.qos_default_lane!r}")
+        return parse_tenant_tiers(self.tenant_tiers)
+
+    @property
+    def lane_weight_map(self) -> dict:
+        return parse_lane_weights(self.lane_weights)
 
     @property
     def prefill_bucket_list(self) -> Tuple[int, ...]:
@@ -322,6 +362,17 @@ class ServiceConfig:
             breaker_window_secs=_env_float("BREAKER_WINDOW_SECS", 30.0),
             breaker_recovery_secs=_env_float("BREAKER_RECOVERY_SECS", 15.0),
             slot_health_check=_env_bool("SLOT_HEALTH_CHECK", True),
+            tenant_tiers=_env_str("TENANT_TIERS", "") or "",
+            qos_default_lane=(
+                _env_str("QOS_DEFAULT_LANE", "interactive")
+                or "interactive").lower(),
+            lane_weights=_env_str("LANE_WEIGHTS", "") or "",
+            tenant_max_queue=_env_int("TENANT_MAX_QUEUE", 0),
+            qos_session_token_budget=_env_int(
+                "QOS_SESSION_TOKEN_BUDGET", 0),
+            preempt_wait_ms=_env_float("PREEMPT_WAIT_MS", 500.0),
+            preempt_budget=_env_int("PREEMPT_BUDGET", 2),
+            slo_interactive_ms=_env_float("SLO_INTERACTIVE_MS", 2000.0),
             flight_recorder_size=_env_int("FLIGHT_RECORDER_SIZE", 256),
             drain_timeout_secs=_env_float("DRAIN_TIMEOUT_SECS", 10.0),
         )

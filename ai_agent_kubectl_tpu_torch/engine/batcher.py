@@ -50,24 +50,46 @@ in-flight list. In every regime:
   non-finite logits freeze a slot inside the chunk. The host fetches ONE
   packed int32 buffer per chunk (``protocol.pack_chunk``, v3) and nothing
   else — no ``.item()`` or boolean index runs inside the step loop.
+- **Seeded sampling**: every sampled token, an admission's first one
+  included, draws from ``fold_in(PRNGKey(seed), g)`` at its generation
+  index ``g`` (``sampling.sample_tokens_seeded``, jax's threefry bits),
+  so a transcript depends only on the seed and the logits — the same
+  tokens as the JAX engine's, and the same after a preemption.
+- **QoS admission** (``engine/qos.py``): the admission queue is the JAX
+  package's ``QoSQueue`` — weighted deficit round robin over per-tenant
+  sub-queues by lane, the per-tenant cap (``TenantOverloaded``, a 429),
+  a full queue displacing the dominant tenant's newest request for a
+  quieter arrival, expired requests purged at scan time — with the
+  brownout controller trimming lower lanes' slot shares. A request's
+  tenant and lane ride the ``QoSContext`` of its caller; a direct call
+  with none runs in one interactive ``anon`` bucket, as before.
+- **Preempt and resume**: a higher-lane request queued past
+  ``PREEMPT_WAIT_MS`` with every slot busy takes the slot of the
+  cheapest lower-lane request, which is requeued at the head of its
+  tenant's queue with its prompt, its generated ids and its seed. Its
+  resume (``_replay_slot``) re-maps its cached chain in the pool (or
+  prefills prompt + ids on the dense ladder), forces the carry token to
+  its last id and re-arms the slot at ``ngen = g``: the transcript goes
+  on as if it had never left.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
 The scheduler runs on one worker thread; request coroutines talk to it
-through a bounded admission queue and per-request asyncio queues.
+through the QoS admission queue and per-request asyncio queues.
 
 Not in this slice (each raises or is simply absent; ROADMAP lists them):
 speculative decoding, grammar-constrained decoding, group admission
-(``ADMIT_KPADS``) on the dense ladder, QoS lanes and preemption,
-containment replay (a slot whose health word trips finishes with
-``RequestQuarantined``), the host KV tier, the step-time, ledger and SLO
-hooks, and a chunk pipeline deeper than one (the host fetches each chunk
-before it dispatches the next).
+(``ADMIT_KPADS``) on the dense ladder, containment replay (a slot whose
+health word trips finishes with ``RequestQuarantined``; the replay path
+it would use is ``_replay_slot``), the host KV tier, the step-time,
+ledger and SLO hooks, and a chunk pipeline deeper than one (the host
+fetches each chunk before it dispatches the next).
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import dataclasses
 import logging
 import queue as _queue
@@ -81,15 +103,19 @@ import torch
 
 from ..models.config import get_config
 from ..models.transformer import KVCache, forward
+from ..obs import Trace, current_trace
 from ..ops.paged_attention import paged_supported
 from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
 from .protocol import (HEALTH_NONFINITE, HEALTH_TOKEN_RANGE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
                        GenerationTimeout, RequestQuarantined,
-                       consume_chunk_row, describe_health, pack_chunk,
-                       unpack_chunk)
+                       TenantOverloaded, consume_chunk_row, describe_health,
+                       pack_chunk, unpack_chunk)
+from .qos import (ANON_TENANT, LANE_BACKGROUND, LANE_BATCH,
+                  LANE_INTERACTIVE, LANES, BrownoutController, QoSQueue,
+                  SessionBudgets, current_qos, lane_rank)
 from .radix_cache import RadixCache
-from .sampling import eos_mask, greedy_tokens, sample_rows
+from .sampling import eos_mask, greedy_tokens, sample_tokens_seeded
 from .tokenizer import StreamDecoder
 from .torch_engine import TorchEngine, engine_kwargs, kv_bucket_ladder
 
@@ -160,10 +186,32 @@ class _Request:
     out_queue: asyncio.Queue
     cancel: threading.Event
     t_submit: float
-    # Per-request sampling seed: a sampled request draws from its own
-    # torch.Generator seeded with it, so its tokens depend only on the
-    # seed, its logits and its step count, never on the batch.
+    # Per-request sampling seed: token g draws from
+    # fold_in(PRNGKey(seed), g), so the transcript depends only on the
+    # seed and the logits, never on the batch or a preemption.
     seed: int = 0
+    trace: Optional[Trace] = None
+    # QoS: the fair-share tenant and the priority lane, read off the
+    # caller's QoSContext at submit (none: one interactive anon bucket),
+    # the session a token budget charges, and the QoSQueue's stamp of
+    # the latest (re-)enqueue, which starvation is judged against.
+    tenant: str = ANON_TENANT
+    lane: str = LANE_INTERACTIVE
+    session: str = ""
+    t_enqueue: float = 0.0
+    # Preemption: how often this request left a slot (PREEMPT_BUDGET
+    # bounds it), when the current preemption began (that wall time is
+    # credited to the deadline at resume), the generated ids it resumes
+    # from, how many chars of their text the client already holds, and
+    # whether the resume has emitted the rest. resume_cause says why the
+    # next _replay_slot runs ("preempt"); it is cleared there, so a later
+    # replay of another cause is not taken for a preemption's.
+    preempt_count: int = 0
+    preempt_t0: Optional[float] = None
+    resume_ids: Optional[List[int]] = None
+    resume_skip: int = 0
+    resume_emitted: bool = False
+    resume_cause: str = ""
 
 
 @dataclasses.dataclass
@@ -208,6 +256,12 @@ class BatchedTorchEngine(TorchEngine):
                  radix_lru_blocks: int = 0,
                  max_queue_depth: int = 64,
                  slot_health_check: bool = True,
+                 lane_weights: Optional[dict] = None,
+                 tenant_max_queue: int = 0,
+                 preempt_wait_ms: float = 500.0,
+                 preempt_budget: int = 2,
+                 slo_interactive_ms: float = 2000.0,
+                 session_token_budget: int = 0,
                  **kwargs):
         super().__init__(*args, **kwargs)
         if batch_size < 1:
@@ -244,7 +298,28 @@ class BatchedTorchEngine(TorchEngine):
         self._slots: List[Optional[_Slot]] = [None] * batch_size
         self._pending_adm: dict = {}    # slot_idx -> staged admission
         self._inflight: list = []
-        self._admissions: _queue.Queue = _queue.Queue()
+        # The QoS ring: the fair-share admission queue (WDRR over
+        # per-tenant sub-queues, tenant caps, displacement, scan-time
+        # expiry), the preemption policy, the brownout controller fed
+        # the interactive queue wait, and the session token budgets.
+        self._admissions = QoSQueue(
+            max_depth=self.max_queue_depth,
+            tenant_cap=max(0, tenant_max_queue),
+            weights=lane_weights, on_expire=self._expire_queued)
+        self.preempt_wait_ms = max(0.0, preempt_wait_ms)
+        self.preempt_budget = max(0, preempt_budget)
+        self._brownout = BrownoutController(slo_interactive_ms)
+        self._session_budgets = SessionBudgets(session_token_budget)
+        self._preemptions = 0          # slots taken from a running request
+        self._preempted_tokens = 0     # generated tokens carried across
+        self._preempt_times: collections.deque = collections.deque(
+            maxlen=512)
+        self._preempt_for_lane: Optional[str] = None
+        self._rejections = 0           # requests shed at submit/displaced
+        # Finish times, engine-wide and per lane: the drain rate that
+        # prices a shed's Retry-After (retry_after_hint).
+        self._finish_times: collections.deque = collections.deque(maxlen=64)
+        self._lane_finish: dict = {}
         self._worker: Optional[threading.Thread] = None
         self._running = False
         self._admitting = 0
@@ -276,6 +351,12 @@ class BatchedTorchEngine(TorchEngine):
             radix_lru_blocks=cfg.radix_lru_blocks,
             max_queue_depth=cfg.max_queue_depth,
             slot_health_check=cfg.slot_health_check,
+            lane_weights=cfg.lane_weight_map,
+            tenant_max_queue=cfg.tenant_max_queue,
+            preempt_wait_ms=cfg.preempt_wait_ms,
+            preempt_budget=cfg.preempt_budget,
+            slo_interactive_ms=cfg.slo_interactive_ms,
+            session_token_budget=cfg.qos_session_token_budget,
             **engine_kwargs(cfg),
         )
 
@@ -396,10 +477,12 @@ class BatchedTorchEngine(TorchEngine):
         self._active_d = torch.zeros((N,), dtype=torch.bool, device=dev)
         self._ngen_d = torch.zeros((N,), dtype=torch.int32, device=dev)
         self._budget_d = torch.ones((N,), dtype=torch.int32, device=dev)
-        # Per-slot sampling config is host knowledge: an all-greedy batch
-        # never touches the sampled path.
+        # Sampling config: each slot's seed and temperature on the device
+        # (the seeded sampler's inputs), and the temperatures on the host
+        # too, so an all-greedy batch never touches the sampled path.
+        self._seeds_d = torch.zeros((N,), dtype=torch.int64, device=dev)
+        self._temps_d = torch.zeros((N,), dtype=torch.float32, device=dev)
         self._temps = [0.0] * N
-        self._gens: List[Optional[torch.Generator]] = [None] * N
 
     # ------------------------------------------------ block-paged KV pool
 
@@ -421,16 +504,19 @@ class BatchedTorchEngine(TorchEngine):
         return logits
 
     def _run_arm(self, slot_idx: int, n_prompt: int, first_tok,
-                 temperature: float, max_toks: int, ngen0: int) -> None:
+                 temperature: float, max_toks: int, seed: int,
+                 ngen0: int) -> None:
         """Write one slot's carry and config into the device vectors (the
         JAX arm program): carry token (an int, or a 0-d device tensor that
-        never visits the host), position, live flag, generated count and
-        token budget."""
+        never visits the host), position, live flag, generated count,
+        token budget, sampling seed and temperature."""
         self._tok_d[slot_idx, 0] = first_tok
         self._pos_d[slot_idx, 0] = n_prompt
         self._active_d[slot_idx] = max_toks > ngen0
         self._ngen_d[slot_idx] = ngen0
         self._budget_d[slot_idx] = max_toks
+        self._seeds_d[slot_idx] = int(seed)
+        self._temps_d[slot_idx] = float(temperature)
         self._temps[slot_idx] = float(temperature)
 
     def _run_cow(self, src: int, dst: int, rows: int) -> None:
@@ -443,10 +529,14 @@ class BatchedTorchEngine(TorchEngine):
         """Allocate with radix-eviction backpressure."""
         return alloc_with_evict(self._pool, self._radix, n)
 
-    def _pool_map_prefix(self, ids: List[int]) -> tuple:
+    def _pool_map_prefix(self, ids: List[int],
+                         match_all: bool = False) -> tuple:
         """A slot's block chain: shared full blocks + tail COW + fresh
-        blocks (``kv_pool.map_prefix``). Returns (blocks, m)."""
-        return map_prefix(self._pool, self._radix, ids, cow=self._run_cow)
+        blocks (``kv_pool.map_prefix``). ``match_all`` (a resume) lets
+        the match cover every id: its carry token is forced, so no
+        last position must run for logits. Returns (blocks, m)."""
+        return map_prefix(self._pool, self._radix, ids, match_all=match_all,
+                          cow=self._run_cow)
 
     def _pool_kv_limit(self, needed: int) -> int:
         """Smallest prefill KV bucket covering ``needed`` positions (every
@@ -556,13 +646,13 @@ class BatchedTorchEngine(TorchEngine):
         slot_idx = self._slots.index(None)
         t_adm = time.monotonic()
         wait_ms = (t_adm - req.t_submit) * 1000.0
+        self._brownout.note_queue_wait(req.lane, wait_ms, now=t_adm)
         ids = list(req.prompt_ids)
         max_prompt = self.max_seq_len - max(1, req.max_tokens)
         if len(ids) > max_prompt:
             ids = ids[-max_prompt:]
         n_prompt = len(ids)
         blocks, m = self._pool_map_prefix(ids)
-        gen = self._slot_generator(req)
         first_d = staged = None
         try:
             self._tables[slot_idx, :] = self._pool_n_blocks
@@ -577,17 +667,16 @@ class BatchedTorchEngine(TorchEngine):
                 # now; its token, position and first sample come from the
                 # prologue.
                 self._run_arm(slot_idx, stage_start, 0, req.temperature,
-                              req.max_tokens, 0)
+                              req.max_tokens, req.seed, 0)
             else:
                 last_logits = self._pool_prefill_span(
                     self._tables[slot_idx], ids, m)
-                first_d = self._arm_first(slot_idx, last_logits, req, gen,
+                first_d = self._arm_first(slot_idx, last_logits, req,
                                           n_prompt)
         except Exception:
             self._tables[slot_idx, :] = self._pool_n_blocks
             self._pool.decref(blocks)
             raise
-        self._gens[slot_idx] = gen
         self._slots[slot_idx] = _Slot(
             req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
             pos=n_prompt, queue_ms=wait_ms, t_admit=t_adm,
@@ -607,16 +696,12 @@ class BatchedTorchEngine(TorchEngine):
         through a ``("first", ...)`` entry of the in-flight list."""
         slot_idx = self._slots.index(None)
         t_adm = time.monotonic()
+        self._brownout.note_queue_wait(
+            req.lane, (t_adm - req.t_submit) * 1000.0, now=t_adm)
         last_logits, scratch, n_prompt, prefix_hit = self._prefill_prompt(
             req.prompt_ids, req.max_tokens)
-        # The splice copies the prompt's rows; the slot's rows past them
-        # are rewritten by decode before any query can read them.
-        for dst, src in ((self._cache.k, scratch.k),
-                         (self._cache.v, scratch.v)):
-            dst[:, slot_idx, :n_prompt] = src[:, 0, :n_prompt]
-        gen = self._slot_generator(req)
-        first_d = self._arm_first(slot_idx, last_logits, req, gen, n_prompt)
-        self._gens[slot_idx] = gen
+        self._splice_scratch(slot_idx, scratch, n_prompt)
+        first_d = self._arm_first(slot_idx, last_logits, req, n_prompt)
         self._slots[slot_idx] = _Slot(
             req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
             pos=n_prompt, queue_ms=(t_adm - req.t_submit) * 1000.0,
@@ -624,22 +709,35 @@ class BatchedTorchEngine(TorchEngine):
         self._inflight.append(("first", first_d, req, slot_idx))
         self._last_admit_t = time.monotonic()
 
-    def _slot_generator(self, req: _Request) -> Optional[torch.Generator]:
-        """A sampled request's own generator, seeded with its seed."""
-        if req.temperature <= 0.0:
-            return None
-        return torch.Generator(device=self.device).manual_seed(req.seed)
+    def _splice_scratch(self, slot_idx: int, scratch: KVCache,
+                        n: int) -> None:
+        """Copy a scratch prefill's first ``n`` KV rows into a dense slot;
+        the slot's rows past them are rewritten by decode before any
+        query can read them."""
+        for dst, src in ((self._cache.k, scratch.k),
+                         (self._cache.v, scratch.v)):
+            dst[:, slot_idx, :n] = src[:, 0, :n]
 
     def _arm_first(self, slot_idx: int, last_logits: torch.Tensor,
-                   req: _Request, gen, n_prompt: int) -> torch.Tensor:
+                   req: _Request, n_prompt: int) -> torch.Tensor:
         """An eager admission's first token, sampled on the device from
-        the prompt's last logits (argmax when greedy, else a draw from the
-        slot's generator), and the slot armed behind it with one token
-        generated. Returns the [1] device tensor; nothing is read back."""
-        first_d = sample_rows(last_logits, [req.temperature], [gen],
-                              top_k=self.top_k, top_p=self.top_p)
+        the prompt's last logits (argmax when greedy, else the draw at
+        generation index 0 of the request's seed stream), and the slot
+        armed behind it with one token generated. Returns the [1] device
+        tensor; nothing is read back."""
+        if req.temperature > 0.0:
+            dev = self.device
+            first_d = sample_tokens_seeded(
+                last_logits,
+                torch.full((1,), req.seed, dtype=torch.int64, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev),
+                torch.full((1,), req.temperature, dtype=torch.float32,
+                           device=dev),
+                top_k=self.top_k, top_p=self.top_p)
+        else:
+            first_d = greedy_tokens(last_logits)
         self._run_arm(slot_idx, n_prompt, first_d[0], req.temperature,
-                      req.max_tokens, 1)
+                      req.max_tokens, req.seed, 1)
         return first_d
 
     def _pool_preload_system_prompt(self) -> None:
@@ -692,11 +790,16 @@ class BatchedTorchEngine(TorchEngine):
 
     # -------------------------------------------------------------- chunk
 
-    def _sample(self, step_logits: torch.Tensor) -> torch.Tensor:
+    def _sample(self, step_logits: torch.Tensor, ngen: torch.Tensor,
+                live: torch.Tensor) -> torch.Tensor:
+        """One step's tokens: argmax for an all-greedy batch (host
+        knowledge), else each live sampled row's draw at its generation
+        index ``ngen``."""
         if not any(t > 0.0 for t in self._temps):
             return greedy_tokens(step_logits)
-        return sample_rows(step_logits, self._temps, self._gens,
-                           top_k=self.top_k, top_p=self.top_p)
+        return sample_tokens_seeded(step_logits, self._seeds_d, ngen,
+                                    self._temps_d, top_k=self.top_k,
+                                    top_p=self.top_p, active=live)
 
     def _run_chunk(self, force: torch.Tensor,
                    tables: Optional[torch.Tensor],
@@ -738,9 +841,9 @@ class BatchedTorchEngine(TorchEngine):
                 logits_at=(q_lens.clamp(min=1) - 1).long())
             step_logits = logits[:, 0]
             nxt, live, ngen, health, counted = termination_fold(
-                self._sample(step_logits), step_logits, win_tok[:, 0],
-                live, ngen, budget, health, self._eos_d, cfg.vocab_size,
-                self.slot_health_check)
+                self._sample(step_logits, ngen, live), step_logits,
+                win_tok[:, 0], live, ngen, budget, health, self._eos_d,
+                cfg.vocab_size, self.slot_health_check)
             pos = (start + q_len * counted.to(torch.int32))[:, None]
             tok = nxt[:, None]
             toks.append(nxt)
@@ -752,9 +855,9 @@ class BatchedTorchEngine(TorchEngine):
             self.decode_steps += 1
             step_logits = logits[:, 0]
             nxt, live, ngen, health, counted = termination_fold(
-                self._sample(step_logits), step_logits, tok[:, 0], live,
-                ngen, budget, health, self._eos_d, cfg.vocab_size,
-                self.slot_health_check)
+                self._sample(step_logits, ngen, live), step_logits,
+                tok[:, 0], live, ngen, budget, health, self._eos_d,
+                cfg.vocab_size, self.slot_health_check)
             pos = pos + counted.to(torch.int32)[:, None]
             tok = nxt[:, None]
             toks.append(nxt)
@@ -881,7 +984,6 @@ class BatchedTorchEngine(TorchEngine):
         self._slots[slot_idx] = None
         self._pending_adm.pop(slot_idx, None)
         self._temps[slot_idx] = 0.0
-        self._gens[slot_idx] = None
         if slot is None:  # pragma: no cover - defensive
             return
         if self.kv_pool:
@@ -889,6 +991,14 @@ class BatchedTorchEngine(TorchEngine):
             self._pool_release_slot(
                 slot_idx, slot,
                 cache_chain=error is None and finish in ("stop", "length"))
+        # Every finish frees a slot: it feeds the drain rate behind
+        # retry_after_hint, engine-wide and for its lane. The session's
+        # budget is charged with the tokens the client received.
+        t_fin = time.monotonic()
+        self._finish_times.append(t_fin)
+        self._lane_finish.setdefault(
+            slot.req.lane, collections.deque(maxlen=64)).append(t_fin)
+        self._session_budgets.charge(slot.req.session, len(slot.detok.ids))
         if error is not None:
             self._emit(slot.req, "error", error)
             return
@@ -923,13 +1033,36 @@ class BatchedTorchEngine(TorchEngine):
     # ---------------------------------------------------------- scheduler
 
     def _admit_pending(self) -> None:
-        """Admit queued requests into free slots. A failing admission
-        errors THAT request, never the scheduler."""
-        while any(s is None for s in self._slots):
+        """Admit queued requests into the free slots, in the QoS queue's
+        order. Lanes at their brownout-trimmed slot cap stay queued;
+        right after a preemption the first pop is pinned to the starved
+        lane, so the freed slot goes to the waiter it was freed for."""
+        free = sum(s is None for s in self._slots)
+        counts = self.lane_occupancy()
+        prefer, self._preempt_for_lane = self._preempt_for_lane, None
+        pending = []
+        while len(pending) < free:
             try:
-                req = self._admissions.get_nowait()
+                req = self._admissions.get_nowait(
+                    exclude_lanes=self._capped_lanes(counts),
+                    min_lane=prefer)
             except _queue.Empty:
-                return
+                if prefer is None:
+                    break
+                prefer = None   # the starved waiter left (cancel, expiry)
+                continue
+            prefer = None
+            counts[req.lane if req.lane in LANES else LANE_INTERACTIVE] += 1
+            pending.append(req)
+        self._admit_popped(pending)
+
+    def _admit_popped(self, pending: List[_Request]) -> None:
+        """Admit popped requests one by one. A preempted request gets its
+        paused wall time back on its deadline before anything judges it;
+        a failing admission errors THAT request, never the scheduler."""
+        for req in pending:
+            self._credit_preempt_wait(req)
+        for req in pending:
             self._admit_guarded(req)
 
     def _admit_guarded(self, req: _Request) -> None:
@@ -937,15 +1070,311 @@ class BatchedTorchEngine(TorchEngine):
         try:
             if req.cancel.is_set():
                 return
-            if self.kv_pool:
-                self._admit_one_pool(req)
+            if (req.deadline is not None
+                    and time.monotonic() > req.deadline):
+                self._emit(req, "error",
+                           GenerationTimeout("timed out waiting for a slot"))
+                return
+            if req.resume_ids:
+                self._admit_resume(req)
             else:
-                self._admit_one_dense(req)
+                self._admit_fresh(req)
         except Exception:
             logger.exception("admission failed")
             self._emit(req, "error", EngineUnavailable("admission failed"))
         finally:
             self._admitting -= 1
+
+    def _admit_fresh(self, req: _Request) -> None:
+        if self.kv_pool:
+            self._admit_one_pool(req)
+        else:
+            self._admit_one_dense(req)
+
+    # ------------------------------------------------------------ QoS ring
+
+    def lane_occupancy(self) -> dict:
+        """Slots held per lane (a racy read: a hint for admission and
+        brownout, not an invariant)."""
+        counts = {lane: 0 for lane in LANES}
+        for s in list(self._slots):
+            if s is not None:
+                lane = s.req.lane
+                counts[lane if lane in LANES else LANE_INTERACTIVE] += 1
+        return counts
+
+    def _capped_lanes(self, counts: dict) -> tuple:
+        """Lanes at their brownout-trimmed slot cap: admission skips them
+        (they stay queued) until the interactive queue wait recovers.
+        Caps floor at one slot, so brownout never starves a lane."""
+        capped = []
+        for lane in (LANE_BACKGROUND, LANE_BATCH):
+            cap = self._brownout.lane_cap(lane, self.batch_size)
+            if cap < self.batch_size and counts.get(lane, 0) >= cap:
+                capped.append(lane)
+        return tuple(capped)
+
+    def _expire_queued(self, req: _Request) -> None:
+        """The QoS queue's scan-time expiry: a queued request whose
+        deadline passed fails now and stops occupying MAX_QUEUE_DEPTH."""
+        if req.trace is not None:
+            req.trace.event("qos: deadline expired while queued — purged "
+                            "at queue scan")
+        self._emit(req, "error",
+                   GenerationTimeout("deadline expired while queued"))
+
+    def _credit_preempt_wait(self, req: _Request) -> None:
+        """Exclude preempted-out wall time from the victim's deadline:
+        its clock stopped at preemption and restarts at re-admission."""
+        t0 = req.preempt_t0
+        if t0 is None:
+            return
+        req.preempt_t0 = None
+        paused = time.monotonic() - t0
+        if req.deadline is not None:
+            req.deadline += paused
+        if req.trace is not None:
+            req.trace.event(f"qos: resuming after {paused * 1000.0:.0f}ms "
+                            f"preempted (deadline credited)")
+
+    def _maybe_preempt(self) -> bool:
+        """Preemptive decode: when a higher-lane request has waited past
+        PREEMPT_WAIT_MS and every slot is busy, take the slot of the
+        cheapest strictly-lower-lane request (lowest lane, then fewest
+        generated tokens) and requeue it at the head of its tenant's
+        queue; _admit_pending hands the freed slot to the starved lane.
+        A request past PREEMPT_BUDGET preemptions is never picked again.
+        Runs only with no chunk in flight, so the victim leaves with
+        every token it was dispatched for delivered."""
+        if self.preempt_wait_ms <= 0:
+            return False
+        if any(s is None for s in self._slots):
+            return False
+        now = time.monotonic()
+        # A brownout-capped lane could not use a freed slot: preempting
+        # for it would only churn the victim.
+        lane = self._admissions.starved_lane(
+            now, self.preempt_wait_ms / 1000.0,
+            exclude=self._capped_lanes(self.lane_occupancy()))
+        if lane is None:
+            return False
+        rank = lane_rank(lane)
+        victims = [
+            (i, s) for i, s in enumerate(self._slots)
+            if s is not None and not s.exhausted
+            and lane_rank(s.req.lane) < rank
+            and s.req.preempt_count < self.preempt_budget
+        ]
+        if not victims:
+            return False
+        idx, _ = min(victims, key=lambda t: (lane_rank(t[1].req.lane),
+                                             len(t[1].detok.ids)))
+        self._preempt_slot(idx, lane)
+        self._preempt_for_lane = lane
+        return True
+
+    def _preempt_slot(self, idx: int, for_lane: str) -> None:
+        """Take slot ``idx`` from its request and requeue the request at
+        the head of its tenant's queue with (prompt, generated ids,
+        seed): the resume (``_admit_resume``) continues the transcript
+        exactly. In the pool the victim's verified chain is cached in
+        the radix tree BEFORE it is requeued, so its resume re-maps those
+        blocks instead of prefilling; a staged admission (its prologue
+        not dispatched, its suffix rows never written) caches nothing."""
+        slot = self._slots[idx]
+        self._slots[idx] = None
+        staged = self._pending_adm.pop(idx, None)
+        self._temps[idx] = 0.0
+        req = slot.req
+        req.preempt_count += 1
+        req.preempt_t0 = time.monotonic()
+        ids = list(slot.detok.ids)
+        req.resume_ids = ids or None
+        # The client holds detok.text already: the resume emits only the
+        # text past it (UTF-8 hold-back can leave text behind the ids).
+        req.resume_skip = len(slot.detok.text)
+        req.resume_emitted = False
+        self._preemptions += 1
+        self._preempted_tokens += len(ids)
+        req.resume_cause = "preempt" if ids else ""
+        self._preempt_times.append(req.preempt_t0)
+        if req.trace is not None:
+            req.trace.event(
+                f"qos: preempted out of slot {idx} after {len(ids)} tokens "
+                f"(lane {req.lane} yields to starved lane {for_lane}; "
+                f"preemption {req.preempt_count}/{self.preempt_budget}) — "
+                f"exported for seeded replay")
+        if self.kv_pool:
+            self._pool_release_slot(idx, slot, cache_chain=staged is None)
+        self._admissions.requeue_head(req)
+
+    def _admit_resume(self, req: _Request) -> None:
+        """Seat a preempted request again: emit the text of its generated
+        ids the client does not hold yet, then re-splice (prompt, ids,
+        seed) through ``_replay_slot``."""
+        t_adm = time.monotonic()
+        detok = StreamDecoder(self.tokenizer)
+        piece = detok.push(*req.resume_ids)
+        if req.resume_emitted:
+            piece = None
+        elif req.resume_skip and piece is not None:
+            piece = piece[req.resume_skip:] or None
+        req.resume_emitted = True
+        req.resume_skip = 0
+        slot = _Slot(req=req, detok=detok, n_prompt=len(req.prompt_ids),
+                     pos=0,             # set by _replay_slot
+                     queue_ms=(t_adm - req.t_submit) * 1000.0,
+                     t_admit=t_adm)
+        if piece is not None:
+            self._emit(req, "token", piece)
+        if len(detok.ids) >= req.max_tokens:
+            slot_idx = self._slots.index(None)
+            slot.t_first = t_adm
+            self._slots[slot_idx] = slot
+            self._finish(slot_idx, "length")
+            return
+        self._replay_slot(slot)
+
+    def _replay_slot(self, slot: _Slot) -> None:
+        """Re-splice one request from prompt + generated-so-far ids:
+        the KV of prompt ++ ids[:-1], the carry token forced to the last
+        id, the slot re-armed with ngen = len(ids), so the seed stream
+        continues at the generation index an uninterrupted run would be
+        at. The slot object (detok state, timings) is reused: nothing
+        the client has is emitted again.
+
+        In the pool the KV is a radix match first (``match_all``): a
+        preempted victim's chain was cached at preemption, so its resume
+        maps those blocks (plus a tail copy-on-write) and prefills at
+        most the rows the tree did not keep. On the dense ladder it is
+        one prefill of prompt ++ ids[:-1] spliced into the slot.
+
+        Numerics: the replay builds the emitted tokens' KV by prefill
+        where the original run built it in decode. The two agree exactly
+        in float32 on the CPU; in bf16 on the card a last-ulp difference
+        can flip a near-tie pick."""
+        req = slot.req
+        req.resume_cause = ""
+        if req.cancel.is_set():
+            return
+        if req.deadline is not None and time.monotonic() > req.deadline:
+            self._emit(req, "error", GenerationTimeout("generation timeout"))
+            return
+        ids = list(slot.detok.ids)
+        if not ids:
+            self._admit_fresh(req)
+            return
+        g = len(ids)
+        slot_idx = self._slots.index(None)
+        replay_ids = list(req.prompt_ids) + ids[:-1]
+        if self.kv_pool:
+            max_prompt = self.max_seq_len - max(1, req.max_tokens - g)
+            if len(replay_ids) > max_prompt:
+                replay_ids = replay_ids[-max_prompt:]
+            n_total = len(replay_ids)
+            blocks, m = self._pool_map_prefix(replay_ids, match_all=True)
+            try:
+                self._tables[slot_idx, :] = self._pool_n_blocks
+                self._tables[slot_idx, :len(blocks)] = blocks
+                if m < n_total:
+                    self._pool_prefill_span(self._tables[slot_idx],
+                                            replay_ids, m)
+                self._run_arm(slot_idx, n_total, ids[-1], req.temperature,
+                              req.max_tokens, req.seed, g)
+            except Exception:
+                self._tables[slot_idx, :] = self._pool_n_blocks
+                self._pool.decref(blocks)
+                raise
+            slot.blocks = blocks
+            # The chain basis for the radix insert at finish: replay_ids
+            # minus the g - 1 generated ids.
+            slot.pool_ids = (replay_ids[:n_total - (g - 1)] if g > 1
+                             else replay_ids)
+            if req.trace is not None and m > 0:
+                req.trace.event(
+                    f"engine: replay re-mapped {m}/{n_total} tokens from "
+                    f"shared pool blocks (prefilled {n_total - m})")
+        else:
+            _, scratch, n_total, _ = self._prefill_prompt(
+                replay_ids, max(1, req.max_tokens - g))
+            self._splice_scratch(slot_idx, scratch, n_total)
+            self._run_arm(slot_idx, n_total, ids[-1], req.temperature,
+                          req.max_tokens, req.seed, g)
+        slot.pos = n_total
+        slot.chunks_inflight = 0
+        slot.exhausted = n_total >= self.max_seq_len
+        self._slots[slot_idx] = slot
+        if req.trace is not None:
+            req.trace.event(
+                f"engine: replayed into slot {slot_idx} from {g} "
+                f"generated tokens (seed {req.seed})")
+        self._last_admit_t = time.monotonic()
+
+    def qos_health(self) -> dict:
+        """The QoS view for /health: queue depth per lane, the brownout
+        level and lane shares, preemptions in total and in the last
+        minute, expiry and displacement totals, session budgets."""
+        now = time.monotonic()
+        return {
+            "lanes": self._admissions.lane_depths(),
+            "brownout_level": self._brownout.level,
+            "lane_shares": {k: round(v, 4)
+                            for k, v in self._brownout.shares.items()},
+            "preemptions_total": self._preemptions,
+            "preemptions_last_60s": sum(
+                1 for t in list(self._preempt_times) if t >= now - 60.0),
+            "queue_expired_total": self._admissions.expired_total,
+            "queue_displaced_total": self._admissions.displaced_total,
+            "session_budgets": self._session_budgets.snapshot(),
+        }
+
+    def stats(self) -> dict:
+        """The scrape-time engine view /metrics mirrors (its ``qos``
+        section under the JAX package's keys)."""
+        return {
+            "queue_rejections": self._rejections,
+            "qos": dict(self._admissions.stats(),
+                        lane_occupancy=self.lane_occupancy(),
+                        preemptions=self._preemptions,
+                        preempted_tokens=self._preempted_tokens,
+                        brownout_level=self._brownout.level,
+                        brownout_transitions=self._brownout.transitions,
+                        lane_shares={
+                            k: round(v, 4)
+                            for k, v in self._brownout.shares.items()}),
+        }
+
+    #: finish times older than this do not feed the drain rate: after an
+    #: idle hour the first shed must not price Retry-After off a rate
+    #: diluted by the gap.
+    DRAIN_RATE_HORIZON_SECS = 60.0
+
+    def retry_after_hint(self, lane: Optional[str] = None) -> float:
+        """Seconds until the queued work plausibly drains, from the
+        completion rate of recent finishes (the last 64, within the
+        horizon): the Retry-After a shed carries. With ``lane`` the
+        estimate is that lane's own depth over its own drain rate,
+        falling back to the engine-wide one without lane history; 5 s
+        with no history at all; clamped to [1, 60]."""
+        horizon = time.monotonic() - self.DRAIN_RATE_HORIZON_SECS
+        if lane is not None:
+            depth = self._admissions.lane_depths().get(lane, 0)
+            ts = [t for t in list(self._lane_finish.get(lane, ()))
+                  if t >= horizon]
+            if len(ts) >= 2 and ts[-1] > ts[0]:
+                rate = (len(ts) - 1) / (ts[-1] - ts[0])
+                if rate > 0:
+                    return min(max(depth / rate, 1.0), 60.0)
+            return self.retry_after_hint()
+        depth = self._admissions.qsize()
+        ts = [t for t in list(self._finish_times) if t >= horizon]
+        if len(ts) >= 2 and ts[-1] > ts[0]:
+            rate = (len(ts) - 1) / (ts[-1] - ts[0])
+            if rate > 0:
+                return min(max(depth / rate, 1.0), 60.0)
+        return 5.0
+
+    # ---------------------------------------------------------- scheduler
 
     def _sweep_finishes(self) -> None:
         """Host-only finishes before a dispatch: cancellation, deadline,
@@ -968,6 +1397,16 @@ class BatchedTorchEngine(TorchEngine):
     def _worker_loop(self) -> None:
         while self._running:
             try:
+                # The QoS ring: the brownout controller's evaluation
+                # (time-gated, cheap), then preemption for the starved
+                # lane, each freed slot handed to it by _admit_pending,
+                # until no starved request is left. Preemption waits
+                # until the chunk in flight is consumed (one chunk at
+                # most: the pipe is one deep).
+                self._brownout.maybe_eval()
+                if not self._inflight:
+                    while self._maybe_preempt():
+                        self._admit_pending()
                 self._admit_pending()
                 self._sweep_finishes()
                 if self._inflight:
@@ -994,7 +1433,7 @@ class BatchedTorchEngine(TorchEngine):
                     req = self._admissions.get(timeout=0.05)
                 except _queue.Empty:
                     continue
-                self._admit_guarded(req)
+                self._admit_popped([req])
             except Exception as e:
                 # Containment replay waits for a later slice: fail every
                 # slot in flight and rebuild the device state (a failed
@@ -1005,11 +1444,7 @@ class BatchedTorchEngine(TorchEngine):
                     EngineUnavailable(f"scheduler error: {e}"))
                 self._init_decode_state()
         self._fail_all_active(EngineUnavailable("engine stopped"))
-        while True:
-            try:
-                req = self._admissions.get_nowait()
-            except _queue.Empty:
-                break
+        for req in self._admissions.drain():
             self._emit(req, "error", EngineUnavailable("engine stopped"))
 
     def _fail_all_active(self, error: BaseException) -> None:
@@ -1044,10 +1479,16 @@ class BatchedTorchEngine(TorchEngine):
         if seed is None:
             seed = zlib.crc32(prompt.encode("utf-8", "surrogatepass")) \
                 & 0x7FFFFFFF
-        if (self.max_queue_depth
-                and self._admissions.qsize() >= self.max_queue_depth):
-            raise EngineOverloaded(
-                f"admission queue full ({self.max_queue_depth})")
+        # QoS classification: the tenant and lane ride a contextvar from
+        # the HTTP layer; a direct engine call runs in one interactive
+        # anon bucket. A session over its token budget runs background.
+        qctx = current_qos()
+        tenant = (qctx.tenant if qctx is not None else "") or ANON_TENANT
+        lane = (qctx.lane if qctx is not None and qctx.lane in LANES
+                else LANE_INTERACTIVE)
+        session = qctx.session if qctx is not None else ""
+        lane = self._session_budgets.lane_for(session, lane)
+        trace = current_trace()
         t_submit = time.monotonic()
         req = _Request(
             prompt_ids=self.tokenizer.encode(prompt),
@@ -1059,10 +1500,40 @@ class BatchedTorchEngine(TorchEngine):
             cancel=threading.Event(),
             t_submit=t_submit,
             seed=int(seed) & 0x7FFFFFFF,
+            trace=trace,
+            tenant=tenant,
+            lane=lane,
+            session=session,
         )
-        self._admissions.put(req)
+        # Fair-share shedding at submit: past the tenant cap a 429 to the
+        # flooding tenant; at MAX_QUEUE_DEPTH the dominant tenant's newest
+        # request is displaced for a quieter arrival, and the arrival is
+        # shed only when its own tenant is the flood. Retry-After is
+        # priced from the shed lane's drain rate.
+        try:
+            displaced = self._admissions.put(req)
+        except EngineOverloaded as e:
+            self._rejections += 1
+            e.retry_after = max(0.0, self.retry_after_hint(lane=lane))
+            if trace is not None:
+                trace.event(f"qos: shed at per-tenant cap — {e}"
+                            if isinstance(e, TenantOverloaded) else
+                            f"engine: admission queue full — shed ({e})")
+            raise
+        for victim in displaced:
+            self._rejections += 1
+            if victim.trace is not None:
+                victim.trace.event(
+                    "qos: displaced from the full admission queue "
+                    f"(tenant {victim.tenant!r} holds the largest share)")
+            self._emit(victim, "error", EngineOverloaded(
+                f"displaced from a full admission queue (tenant "
+                f"{victim.tenant!r} holds the largest queue share)",
+                retry_after=self.retry_after_hint(lane=victim.lane)))
         try:
             while True:
+                # The live deadline: a preemption credits its paused
+                # wall time back onto it.
                 if req.deadline is not None:
                     remaining = req.deadline - time.monotonic()
                     # The worker enforces the deadline too; the grace

@@ -26,6 +26,21 @@ class EngineOverloaded(EngineUnavailable):
         self.retry_after = max(0.0, float(retry_after))
 
 
+class TenantOverloaded(EngineOverloaded):
+    """Per-tenant admission cap hit (the QoS queue, ``engine/qos.py``)
+    -> HTTP 429. An ``EngineOverloaded`` subclass: to the breaker it is
+    still backpressure, never a sign of engine health. The HTTP layer
+    answers 429 instead of 503 — the flooding tenant is told to back
+    off, everyone else keeps being served — with ``Retry-After`` priced
+    from the shed lane's own drain rate."""
+
+    def __init__(self, message: str, retry_after: float = 1.0,
+                 tenant: str = "", lane: str = ""):
+        super().__init__(message, retry_after=retry_after)
+        self.tenant = tenant
+        self.lane = lane
+
+
 class GenerationTimeout(TimeoutError):
     """Generation exceeded the configured timeout -> HTTP 504."""
 

@@ -30,7 +30,9 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   can reach. On EOS the chunk in flight is abandoned.
 - Greedy at temperature 0, byte-identical to the JAX engine; a sampled
   request draws from a ``torch.Generator`` seeded per request (the
-  JAX engine's threefry stream is not reproduced: ROADMAP A6).
+  JAX engine's split-chained threefry key schedule is not reproduced
+  here, unlike the batched engine's per-token ``fold_in`` stream:
+  ROADMAP A6).
 
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving

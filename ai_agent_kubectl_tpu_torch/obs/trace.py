@@ -14,9 +14,11 @@ The active trace travels on the ``ContextVar`` below through the async
 serving path (middleware, cache, breaker, engine call, executor):
 asyncio copies the context into every task, so ``current_trace()``
 works anywhere downstream of the middleware on the event loop. The
-port's engines do not annotate it from their scheduler thread (the JAX
-batcher's thread leg); the service lays the queue, prefill and decode
-spans from each ``EngineResult``'s timings instead.
+batched engine keeps the request's trace and annotates it from its
+scheduler thread with the QoS ring's events (preempted, resumed,
+replayed, expired, displaced, shed); the service
+lays the queue, prefill and decode spans from each ``EngineResult``'s
+timings.
 """
 
 from __future__ import annotations

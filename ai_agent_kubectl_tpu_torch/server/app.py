@@ -18,10 +18,14 @@ Middleware, outermost first, in the JAX order: observability (request
 ID, trace, HTTP metrics, ``Server-Timing``, flight recorder), overload
 (``MAX_INFLIGHT_REQUESTS``: a fast 503 with ``Retry-After``), rate
 limit (``RATE_LIMIT`` per client: 429 with the ``X-RateLimit-*``
-headers), auth (``X-API-Key`` when ``API_AUTH_KEY`` is set: 401). The
-JAX package's QoS middleware, ``/debug/*`` and ``/admin/*`` routes wait
-for a later slice (ROADMAP.md A9). The pipeline itself lives in
-``server/service.py``.
+headers), auth (``X-API-Key`` when ``API_AUTH_KEY`` is set: 401), QoS
+(tenant and lane on a contextvar for the engine's fair-share queue;
+``X-Priority`` clamped by ``TENANT_TIERS``, ``X-Session-ID``; the
+grammar headers answer 400, since the port refuses ``GRAMMAR_DECODE``).
+An engine shed answers 429 for a tenant over its queue cap and 503 for a
+full queue, with the engine's ``Retry-After``. The JAX package's
+``/debug/*`` and ``/admin/*`` routes wait for a later slice (ROADMAP.md
+A9). The pipeline itself lives in ``server/service.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from ..device import device_count
 from ..engine.prompts import render_prompt
 from ..engine.protocol import (EngineOverloaded, EngineResult,
                                EngineUnavailable, GenerationTimeout,
-                               RequestQuarantined)
+                               RequestQuarantined, TenantOverloaded)
+from ..engine.qos import classify, use_qos
 from ..obs import (PHASES, Trace, current_trace, new_request_id,
                    sanitize_request_id, use_trace)
 from .breaker import STATE_CODES
@@ -51,7 +56,7 @@ from .safety import unsafe_reason
 from .sanitize import sanitize_query
 from .schemas import (CommandResponse, EngineMetadata, ExecuteRequest,
                       ExecutionMetadata, HealthResponse, Query)
-from .service import Service, span
+from .service import Service, shed_answer, span
 
 logger = logging.getLogger(__name__)
 
@@ -65,9 +70,9 @@ GENERATE_ROUTES = {"/kubectl-command", "/kubectl-command/stream"}
 UNRECORDED_PATHS = ("/health", "/metrics", "/openapi.json", "/docs")
 
 
-#: Retry-After of the HTTP-layer sheds and of an unready /health: the
-#: port's engines give no drain-rate estimate (the JAX engines'
-#: ``retry_after_hint``), so the JAX default of one second.
+#: Retry-After of the HTTP-layer sheds and of an unready /health, the
+#: JAX default of one second (an engine shed carries the engine's own
+#: estimate, ``retry_after_hint``).
 SHED_RETRY_SECS = 1.0
 
 
@@ -213,6 +218,43 @@ async def auth_middleware(request: web.Request, handler):
     return await handler(request)
 
 
+@web.middleware
+async def qos_middleware(request: web.Request, handler):
+    """QoS classification of every generation request, innermost (only
+    authenticated traffic is classified): a tenant key — the API key
+    when TENANT_TIERS registers it, else the client key the rate limiter
+    uses, so a flooder cannot mint a tenant per request — and a lane,
+    X-Priority clamped by the tenant's tier, carried to the engine on a
+    contextvar with the X-Session-ID session. Grammar restriction
+    headers answer 400: the port does not serve GRAMMAR_DECODE, and a
+    restriction the engine cannot enforce must not be dropped."""
+    svc: Service = request.app["service"]
+    if request.path not in GENERATE_ROUTES:
+        return await handler(request)
+    api_key = request.headers.get("X-API-Key")
+    if api_key not in svc.tenant_tiers:
+        api_key = None
+    ctx = classify(
+        api_key,
+        _client_key(request),
+        request.headers.get("X-Priority"),
+        svc.tenant_tiers,
+        svc.cfg.qos_default_lane,
+        session=request.headers.get("X-Session-ID"),
+    )
+    trace = current_trace()
+    if trace is not None:
+        # The lane is safe to log; the tenant key may be an API key.
+        trace.event(f"qos: lane={ctx.lane} "
+                    f"(tenant={'tier-key' if api_key else 'client-ip'})")
+    if (request.headers.get("X-Grammar-Profile") is not None
+            or request.headers.get("X-Allowed-Verbs") is not None):
+        return _json_error(
+            400, "grammar restrictions require GRAMMAR_DECODE=true")
+    with use_qos(ctx):
+        return await handler(request)
+
+
 def _record_engine_spans(trace: Optional[Trace], t_block0: float,
                          t_block1: float, er: EngineResult) -> None:
     """Lay the engine block's queue, prefill and decode spans back to
@@ -254,7 +296,8 @@ async def handle_kubectl_command(request: web.Request) -> web.Response:
         command, from_cache, engine_result, degraded = \
             await svc.generate_command(sanitized_query)
     except EngineOverloaded as e:
-        return _json_error(503, f"Server overloaded: {e}",
+        status, detail = shed_answer(e)
+        return _json_error(status, detail,
                            headers=_retry_after_header(e.retry_after))
     except RequestQuarantined as e:
         logger.error("Request quarantined for query '%s': %s",
@@ -433,6 +476,10 @@ async def handle_kubectl_command_stream(request: web.Request
     except UnsafeCommandError as e:
         svc.metrics.unsafe_commands.labels("llm").inc()
         await write_safe(_sse(str(e), event="error"))
+    except TenantOverloaded as e:
+        # The in-band 429: this tenant is over its queue quota.
+        await write_safe(_sse(f"tenant over queue quota: {e}",
+                              event="error"))
     except EngineOverloaded as e:
         # Shedding stays an error with the fallback on: back off.
         await write_safe(_sse(f"engine overloaded: {e}", event="error"))
@@ -502,9 +549,11 @@ async def handle_execute(request: web.Request) -> web.Response:
     return web.json_response(payload)
 
 
-def _kv_pool_health(engine) -> Optional[dict]:
-    kph = getattr(engine, "kv_pool_health", None)
-    return (kph() or None) if callable(kph) else None
+def _engine_view(engine, name: str) -> Optional[dict]:
+    """What an engine's view method returns (``kv_pool_health``,
+    ``qos_health``, ``stats``), or None for an engine without it."""
+    fn = getattr(engine, name, None)
+    return (fn() or None) if callable(fn) else None
 
 
 async def handle_health(request: web.Request) -> web.Response:
@@ -521,7 +570,8 @@ async def handle_health(request: web.Request) -> web.Response:
         devices=device_count(getattr(svc.engine, "device", None)),
         breaker=breaker,
         degraded_fallback=svc.fallback is not None,
-        kv_pool=_kv_pool_health(svc.engine),
+        qos=_engine_view(svc.engine, "qos_health"),
+        kv_pool=_engine_view(svc.engine, "kv_pool_health"),
     )
     if ready:
         return web.json_response(body.model_dump(), status=200)
@@ -532,9 +582,14 @@ async def handle_health(request: web.Request) -> web.Response:
 
 async def handle_metrics(request: web.Request) -> web.Response:
     svc: Service = request.app["service"]
-    pool = _kv_pool_health(svc.engine)
+    pool = _engine_view(svc.engine, "kv_pool_health")
     if pool:
         svc.metrics.observe_kv_pool(pool)
+    # The engine's QoS section, sampled at scrape time: lane gauges and
+    # the preemption, expiry and displacement totals.
+    stats = _engine_view(svc.engine, "stats") or {}
+    if stats.get("qos"):
+        svc.metrics.observe_qos(stats["qos"])
     svc.metrics.tokens_per_sec.set(svc.token_rate.rate())
     svc.metrics.breaker_state.set(STATE_CODES[svc.breaker.state])
     return web.Response(body=svc.metrics.render(), content_type="text/plain")
@@ -545,7 +600,7 @@ def create_app(cfg, engine, executor: Optional[CommandExecutor] = None,
     """The app; its startup starts the engine, its cleanup stops it."""
     app = web.Application(middlewares=[
         observability_middleware, overload_middleware,
-        ratelimit_middleware, auth_middleware])
+        ratelimit_middleware, auth_middleware, qos_middleware])
     app["service"] = Service(cfg, engine, executor=executor,
                              metrics=metrics)
     app.router.add_post("/kubectl-command", handle_kubectl_command)

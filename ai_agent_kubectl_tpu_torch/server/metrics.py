@@ -11,10 +11,12 @@ port's features feed, under the same names, labels and help.
   tokens/s gauge and prefix-cache hits, from each response; and, at
   scrape time, the pool engine's ``kv_pool_health()`` (block-state
   gauges, sharing, copy-on-write and radix counters, the decode
-  attention regime).
+  attention regime) and the batched engine's ``stats()["qos"]`` (queue
+  depth and slot occupancy per lane, the brownout level, preemption,
+  expiry and displacement totals).
 
 The JAX package's families of features the port does not serve yet
-(decode pipeline, containment, fleet, QoS, ledger, SLO, grammar,
+(decode pipeline, containment, fleet, ledger, SLO, grammar,
 speculative decode, sharding, rollout, step-time sentinel, incidents,
 the two-tier KV, and the ``engine.stats()`` gauges) wait for a later
 slice (ROADMAP.md A9). A ``CollectorRegistry`` per app keeps tests
@@ -186,6 +188,54 @@ class Metrics:
             registry=r,
         )
 
+        # The QoS ring (engine/qos.py): queue depth and slot occupancy per
+        # lane (the closed three-lane set: tenants are never labels), the
+        # brownout level, and the preemption, expiry and displacement
+        # counters, mirrored from stats()["qos"] at scrape time.
+        self.qos_queue_depth = Gauge(
+            "qos_queue_depth",
+            "Requests waiting for a decode slot, by priority lane",
+            ["lane"],
+            registry=r,
+        )
+        self.qos_lane_occupancy = Gauge(
+            "qos_lane_occupancy",
+            "Decode slots held, by priority lane",
+            ["lane"],
+            registry=r,
+        )
+        self.qos_brownout_level = Gauge(
+            "qos_brownout_level",
+            "AIMD brownout level (0=none, 1=background trimmed, "
+            "2=batch trimmed too)",
+            registry=r,
+        )
+        self.preemptions = Counter(
+            "qos_preemptions_total",
+            "Running requests preempted out of their slot for a "
+            "starved higher lane (export/replay path)",
+            registry=r,
+        )
+        self.preempted_tokens = Counter(
+            "qos_preempted_tokens_total",
+            "Generated tokens carried across preempt-and-replay",
+            registry=r,
+        )
+        self.queue_expired = Counter(
+            "queue_expired_total",
+            "Queued requests purged at scan time because their deadline "
+            "passed (they no longer occupy MAX_QUEUE_DEPTH)",
+            registry=r,
+        )
+        self.queue_displaced = Counter(
+            "queue_displaced_total",
+            "Queued requests displaced from a full queue in favour of a "
+            "quieter tenant's arrival (shed prefers the flooding tenant)",
+            registry=r,
+        )
+        self._qos_seen = {"preemptions": 0, "preempted_tokens": 0,
+                          "expired": 0, "displaced": 0}
+
         # Failure containment: overload shedding, breaker, fallback
         self.queue_rejections = Counter(
             "queue_rejections_total",
@@ -213,6 +263,24 @@ class Metrics:
             buckets=_PHASE_BUCKETS,
             registry=r,
         )
+
+    def observe_qos(self, qos: dict) -> None:
+        """Mirror the engine's ``stats()["qos"]`` at scrape time: gauges
+        set directly, cumulative totals turned into counter increments."""
+        for lane, n in (qos.get("lane_depth") or {}).items():
+            self.qos_queue_depth.labels(lane=lane).set(n)
+        for lane, n in (qos.get("lane_occupancy") or {}).items():
+            self.qos_lane_occupancy.labels(lane=lane).set(n)
+        self.qos_brownout_level.set(qos.get("brownout_level", 0))
+        seen = self._qos_seen
+        for key, counter in (("preemptions", self.preemptions),
+                             ("preempted_tokens", self.preempted_tokens),
+                             ("expired", self.queue_expired),
+                             ("displaced", self.queue_displaced)):
+            total = qos.get(key, 0)
+            if total > seen[key]:
+                counter.inc(total - seen[key])
+                seen[key] = total
 
     def observe_kv_pool(self, pool: dict) -> None:
         """Mirror the engine's ``kv_pool_health()`` body at scrape time:

@@ -22,7 +22,7 @@ from ..engine.fallback import FallbackEngine
 from ..engine.prompts import render_prompt
 from ..engine.protocol import (EngineOverloaded, EngineResult,
                                EngineUnavailable, GenerationTimeout,
-                               RequestQuarantined)
+                               RequestQuarantined, TenantOverloaded)
 from ..obs import FlightRecorder, current_trace
 from .breaker import CircuitBreaker
 from .cache import CachedSingleFlight
@@ -42,6 +42,15 @@ def status_for_text(text: str) -> int:
     except UnsafeCommandError:
         return 422
     return 200
+
+
+def shed_answer(e: EngineOverloaded) -> Tuple[int, str]:
+    """Status and detail of an engine shed, as the JAX app answers: 429
+    for a tenant over its queue cap (the flooding tenant backs off,
+    everyone else keeps being served), 503 for a full queue."""
+    if isinstance(e, TenantOverloaded):
+        return 429, f"Tenant over queue quota: {e}"
+    return 503, f"Server overloaded: {e}"
 
 
 def span(name: str, **meta):
@@ -78,6 +87,9 @@ class Service:
         self.inflight_requests = 0
         self.recorder = FlightRecorder(cfg.flight_recorder_size)
         self.token_rate = WindowedRate()
+        # The tenant -> tier map the QoS middleware classifies against
+        # (a typo'd TENANT_TIERS already refused to boot).
+        self.tenant_tiers = cfg.tenant_tier_map
 
     async def run_engine(self, coro_fn):
         """One engine call under the circuit breaker: fail fast while the

@@ -105,7 +105,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                Load seconds and GB/s, the peak, and the burst's tok/s
                beside the serve phase's are printed; the checkpoint is
                deleted at the end.
-7. timing   -- time each kernel, its plain version, one PyTorch library
+7. serve_qos -- the QoS ring over HTTP on Gemma-2B (the serve phase's
+               random bf16 weights, seed 0), TENANT_TIERS=bulk-key:
+               background,hi-key:interactive, PREEMPT_WAIT_MS=50,
+               TENANT_MAX_QUEUE=4, RATE_LIMIT=1000/minute:
+               (a) the default pool + ragged regime, 8 slots: a greedy
+               background query over HTTP and a sampled one (temperature
+               0.9, a fixed seed, a direct engine call under a
+               background QoSContext) run alone; then six background
+               queries and those two again fill the slots; once every
+               slot holds 32 tokens two interactive requests arrive and
+               must preempt, each seated within PREEMPT_WAIT_MS plus two
+               of this run's decode chunks; then bulk-key sends until a
+               request finds 4 of its own queued (the victims count) and
+               gets 429 with Retry-After >= 1. Every resume re-maps its
+               chain (at most a page prefilled); every victim's
+               transcript equals its uncontended one, or leaves it first
+               at a near tie (top-2 gap within the serve phase's logit
+               tolerance; position and gap printed); statuses as the
+               service decides; qos_preemptions_total in /metrics equals
+               stats()["qos"]; /health has its qos section; the pool's
+               books balance. A sampled step's kernel launches and time
+               are printed.
+               (b) KV_POOL=false with DECODE_ATTN=paged, 2 slots, the
+               two references and one interactive request: its victim
+               resumes through a flash prefill.
+               Ragged, flash and paged launches are zeroed before each
+               engine's traffic and printed after.
+8. timing   -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it; with --profile, also the
                device time of each kernel a call launches (an attention
@@ -133,7 +160,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
-          "timing")
+          "serve_qos", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -2145,6 +2172,449 @@ async def _serve_ckpt_int4(torch, path, ckpt_bytes, bf16_params):
             "int4_slices_checked": checked}
 
 
+# ------------------------------------------------------------ serve_qos
+
+#: The QoS ring's knobs of phase 7, on top of the serve phase's config:
+#: two registered tenants (bulk-key may run background only, hi-key
+#: interactive), preemption after 50 ms of starvation, four queued
+#: requests per tenant at most.
+QOS_ENV = {
+    **SERVE_ENV,
+    "TENANT_TIERS": "bulk-key:background,hi-key:interactive",
+    "PREEMPT_WAIT_MS": "50", "TENANT_MAX_QUEUE": "4",
+}
+QOS_BULK, QOS_HI = {"X-API-Key": "bulk-key"}, {"X-API-Key": "hi-key"}
+#: the two reference requests: a greedy one over HTTP, and a sampled one
+#: as a direct engine call (HTTP carries no temperature or seed)
+QOS_GREEDY = "list all pods in the default namespace"
+QOS_SAMPLED = ("show the nodes with their labels", 0.9, 4242)
+QOS_INTERACTIVE = ["get pods in kube-system now",
+                   "describe the service named api"]
+#: tokens every slot holds before the interactive requests arrive
+QOS_MIN_TOKENS = 32
+
+
+def phase_serve_qos(torch) -> dict:
+    return asyncio.run(_serve_qos(torch))
+
+
+async def _serve_qos(torch) -> dict:
+    a, params = await _serve_qos_one(torch, "pool", {}, None, 8)
+    b, _ = await _serve_qos_one(
+        torch, "dense", {"KV_POOL": "false", "DECODE_ATTN": "paged"}, params,
+        2)
+    return {"pool": a, "dense": b}
+
+
+async def _wait_slots(inner, n_busy: int, min_tokens: int,
+                      timeout: float = 120.0) -> None:
+    """Until ``n_busy`` slots are seated with ``min_tokens`` each."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        busy = [s for s in inner._slots if s is not None]
+        if (len(busy) >= n_busy
+                and all(len(s.detok.ids) >= min_tokens for s in busy)):
+            return
+        await asyncio.sleep(0.002)
+    held = [None if s is None else len(s.detok.ids) for s in inner._slots]
+    raise AssertionError(f"{n_busy} slots never held {min_tokens} tokens "
+                         f"each: {held}")
+
+
+def _first_mismatch(torch, engine, prompt_ids, want, got, temperature,
+                    seed):
+    """Where a resumed transcript first leaves its uncontended one, and
+    how near a tie the uncontended pick was there: the gap between the
+    two highest scores (logits, or logits / T plus the gumbel noise of
+    the (seed, index) key, times T) of the forward over prompt + the
+    common prefix, against LOGIT_RTOL x the logits' rms. None when the
+    two are equal."""
+    from ai_agent_kubectl_tpu_torch.engine.sampling import gumbel, slot_keys
+    from ai_agent_kubectl_tpu_torch.models import transformer
+
+    want, got = list(want), list(got)
+    if want == got:
+        return None
+    k = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    ids = list(prompt_ids) + want[:k]
+    P = len(ids)
+    pages = -(-P // PAGE)
+    dev = engine.device
+    with torch.no_grad():
+        cache = transformer.KVCache.pool(engine.model_cfg, pages, PAGE,
+                                         dtype=engine.dtype, device=dev)
+        logits, _ = transformer.forward(
+            engine.params, engine.model_cfg, torch.tensor([ids], device=dev),
+            torch.arange(P, dtype=torch.int32, device=dev)[None], cache,
+            block_tables=torch.arange(pages, dtype=torch.int32,
+                                      device=dev)[None],
+            logits_at=torch.tensor([P - 1], device=dev))
+    logits = logits[0, 0].float()
+    rms = float(logits.pow(2).mean().sqrt())
+    scores, scale = logits, 1.0
+    if temperature > 0:
+        keys = slot_keys(torch.tensor([seed], device=dev),
+                         torch.tensor([k], device=dev))
+        scores = logits / temperature + gumbel(keys, logits.shape[-1])[0]
+        scale = temperature
+    top2 = torch.topk(scores, 2).values
+    return {"position": k, "gap": float(top2[0] - top2[1]) * scale,
+            "tolerance": LOGIT_RTOL * rms}
+
+
+async def _serve_qos_one(torch, kind: str, env: dict, params, slots: int):
+    """One engine of phase 7 over HTTP: the two references uncontended,
+    then the slots filled with background work, interactive arrivals
+    that must preempt, and (in the pool) a flood of the background
+    tenant up to its queue cap."""
+    import aiohttp
+    from aiohttp import web
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.qos import QoSContext, use_qos
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_pool)
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = f"serve_qos/{kind}"
+    port = _free_port()
+    _phase_env({**QOS_ENV, **env, "DECODE_BATCH_SIZE": str(slots)}, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if not isinstance(inner, BatchedTorchEngine):
+        raise AssertionError(f"engine construction failed: {inner!r}")
+    if params is not None:
+        inner.params = params
+    engine = RecordingEngine(inner)
+    # Seams the gates read: each resume's radix match (pool), each
+    # resume's flash launches (dense), the victims, chunk dispatch times.
+    remaps, resume_flash, victims, dispatch_t = [], [], [], []
+    map_prefix, replay = inner._pool_map_prefix, inner._replay_slot
+    preempt, dispatch = inner._preempt_slot, inner._dispatch_chunk
+
+    def on_map(ids, match_all=False):
+        blocks, m = map_prefix(ids, match_all=match_all)
+        if match_all:
+            remaps.append((len(ids), m))
+        return blocks, m
+
+    def on_replay(slot):
+        n0 = flash_attention_cached.launches
+        replay(slot)
+        resume_flash.append(flash_attention_cached.launches - n0)
+
+    def on_preempt(idx, for_lane):
+        slot = inner._slots[idx]
+        victims.append((list(slot.req.prompt_ids), slot.req.temperature,
+                        slot.req.seed, len(slot.detok.ids)))
+        preempt(idx, for_lane)
+
+    def on_dispatch():
+        dispatch_t.append((time.monotonic(),
+                           any(t > 0.0 for t in inner._temps),
+                           sum(s is not None for s in inner._slots)))
+        dispatch()
+
+    inner._pool_map_prefix, inner._replay_slot = on_map, on_replay
+    inner._preempt_slot, inner._dispatch_chunk = on_preempt, on_dispatch
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    log(f"[{tag}] {cfg.model_name} up on {cfg.host}:{port} in "
+        f"{startup_s:.1f} s ({inner.batch_size} slots, regime "
+        f"{inner._attention_regime}, decode {inner._decode_impl})")
+    url = f"http://{cfg.host}:{port}"
+    prompt_s = render_prompt(QOS_SAMPLED[0])
+    key_g = tuple(inner.tokenizer.encode(render_prompt(QOS_GREEDY)))
+    key_s = tuple(inner.tokenizer.encode(prompt_s))
+    fillers = [q for q in QUERIES if q not in (QOS_GREEDY, QOS_SAMPLED[0])]
+    fillers = fillers[:slots - 2]
+    counters = (ragged_attention_pool, flash_attention_cached,
+                paged_decode_attention, paged_decode_attention_pool)
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query, headers):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query},
+                                     headers=headers) as r:
+                    return r.status, await r.json(), dict(r.headers)
+
+            async def sampled():
+                with use_qos(QoSContext(tenant="bulk-key",
+                                        lane="background")):
+                    return await inner.generate(
+                        prompt_s, max_tokens=cfg.max_new_tokens,
+                        temperature=QOS_SAMPLED[1], seed=QOS_SAMPLED[2])
+
+            for fn in counters:
+                fn.launches = 0
+            engine.results.clear()
+            # Uncontended, one at a time: the references.
+            ref_greedy = await ask(QOS_GREEDY, QOS_BULK)
+            ref_sampled = await sampled()
+            ref_ids = {key_g: engine.results[0][1].token_ids,
+                       key_s: ref_sampled.token_ids}
+            # The fillers (at most four at a time: the tenant's cap),
+            # then the two references again, last, so they hold the
+            # fewest tokens when the interactive requests arrive.
+            t_burst = time.monotonic()
+            tasks = []
+            for i in range(0, len(fillers), 4):
+                wave = fillers[i:i + 4]
+                tasks += [asyncio.ensure_future(ask(q, QOS_BULK))
+                          for q in wave]
+                await _wait_slots(inner, i + len(wave), 1)
+            tasks.append(asyncio.ensure_future(ask(QOS_GREEDY, QOS_BULK)))
+            sampled_task = asyncio.ensure_future(sampled())
+            await _wait_slots(inner, slots, QOS_MIN_TOKENS)
+            n_chunks0 = len(dispatch_t)
+            hi_tasks = [asyncio.ensure_future(ask(q, QOS_HI))
+                        for q in QOS_INTERACTIVE[:1 if kind == "dense"
+                                                 else 2]]
+            # The background tenant floods until one request finds four
+            # of its own queued (requeued victims count).
+            flood, shed = [], None
+            if kind == "pool":
+                t_wait = time.monotonic()
+                while (inner._preemptions < len(hi_tasks)
+                       and time.monotonic() - t_wait < 30.0):
+                    await asyncio.sleep(0.005)
+                for i in range(12):
+                    flood.append(asyncio.ensure_future(
+                        ask(f"list the pods of job {i}", QOS_BULK)))
+                    await asyncio.sleep(0.05)
+                    done = [t for t in flood if t.done()
+                            and t.result()[0] == 429]
+                    if done:
+                        shed = done[0].result()
+                        break
+            hi = await asyncio.gather(*hi_tasks)
+            bg = await asyncio.gather(*tasks)
+            res_sampled = await sampled_task
+            burst_s = time.monotonic() - t_burst
+            flooded = await asyncio.gather(*flood)
+            launches = {fn.__name__: fn.launches for fn in counters}
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+            async with http.get(f"{url}/metrics") as r:
+                metrics = await r.text()
+            stats = inner.stats()
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+
+    qos = stats["qos"]
+    scraped = {}
+    for fam in text_string_to_metric_families(metrics):
+        for smp in fam.samples:
+            if smp.name == "qos_preemptions_total":
+                scraped["preemptions"] = int(smp.value)
+    n_hi = len(hi_tasks)
+    if qos["preemptions"] < 1 or scraped.get("preemptions") != \
+            qos["preemptions"]:
+        raise AssertionError(f"{tag}: preemptions {qos['preemptions']}, "
+                             f"qos_preemptions_total {scraped}")
+    if not health.get("qos") or "lanes" not in health["qos"]:
+        raise AssertionError(f"{tag}: /health has no qos section: {health}")
+    # Statuses: the service's decision for every request it served, the
+    # tenant cap's 429 for the shed one.
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    served = [(QOS_GREEDY, 0, ref_greedy)] + [
+        (q, 0 if q != QOS_GREEDY else 1, a) for q, a in zip(
+            fillers + [QOS_GREEDY] + QOS_INTERACTIVE[:n_hi]
+            + [f"list the pods of job {i}" for i in range(len(flood))],
+            bg + hi + flooded)]
+    statuses = []
+    for query, k, (status, body, _) in served:
+        statuses.append(status)
+        if shed is not None and (status, body) == shed[:2]:
+            continue                     # the tenant cap's 429
+        res = results[render_prompt(query)][k]
+        want = status_for_text(res.text)
+        if status != want:
+            raise AssertionError(f"{tag} {query!r}: HTTP {status}, the "
+                                 f"service gives {want}: {body}")
+    if kind == "pool":
+        if shed is None or "(4/4 queued for tenant 'bulk-key'" not in \
+                shed[1]["detail"]:
+            raise AssertionError(f"{tag}: no request was shed at the "
+                                 f"tenant cap: {[s for s, *_ in flooded]}")
+        if float(shed[2].get("Retry-After", 0)) < 1:
+            raise AssertionError(f"{tag}: 429 without Retry-After >= 1: "
+                                 f"{shed[2]}")
+        if any(n - m > PAGE for n, m in remaps) or not remaps:
+            raise AssertionError(f"{tag}: a resume prefilled more than a "
+                                 f"page: {remaps}")
+        holders: dict = {}
+        for slot in inner._slots:
+            for b in (slot.blocks or []) if slot is not None else []:
+                holders[b] = holders.get(b, 0) + 1
+        for b, n in inner._radix._held.items():
+            holders[b] = holders.get(b, 0) + n
+        inner._pool.check(holders)
+    elif not resume_flash or min(resume_flash) < inner.model_cfg.n_layers:
+        raise AssertionError(f"{tag}: a resume did not prefill through "
+                             f"flash: {resume_flash}")
+    # Seat time: PREEMPT_WAIT_MS plus two decode chunks, a chunk being
+    # the median dispatch-to-dispatch time of the last four chunks before
+    # the interactive requests arrived (every slot busy).
+    def median_chunk_ms(pairs):
+        gaps = sorted(c1[0] - c0[0] for c0, c1 in pairs)
+        return gaps[len(gaps) // 2] * 1e3 if gaps else None
+
+    recent = dispatch_t[max(0, n_chunks0 - 5):n_chunks0]
+    chunk_ms = median_chunk_ms(zip(recent, recent[1:]))
+    # What a sampled row costs a chunk: the median dispatch-to-dispatch
+    # time of chunks with every row greedy and of chunks with a sampled
+    # row aboard, by busy slots (the references ran alone: one slot).
+    chunk_cost = {}
+    for c0, c1 in zip(dispatch_t, dispatch_t[1:]):
+        if c0[1:] == c1[1:]:
+            key = f"{'sampled' if c0[1] else 'greedy'}@{c0[2]}"
+            chunk_cost.setdefault(key, []).append((c0, c1))
+    chunk_cost = {k: {"chunks": len(v), "chunk_ms": median_chunk_ms(v)}
+                  for k, v in sorted(chunk_cost.items())}
+    seat_limit = float(QOS_ENV["PREEMPT_WAIT_MS"]) + 2 * chunk_ms
+    hi_res = [results[render_prompt(q)][-1] for q in QOS_INTERACTIVE[:n_hi]]
+    for q, r in zip(QOS_INTERACTIVE, hi_res):
+        if r.queue_ms > seat_limit:
+            raise AssertionError(f"{tag} {q!r}: seated after "
+                                 f"{r.queue_ms:.1f} ms, limit "
+                                 f"{seat_limit:.1f} ms")
+    # Every victim's transcript against its uncontended one.
+    got_ids = {key_g: results[render_prompt(QOS_GREEDY)][1].token_ids,
+               key_s: res_sampled.token_ids}
+    checked = []
+    for prompt_ids, temp, seed, at in victims:
+        key = tuple(prompt_ids)
+        if key not in ref_ids:
+            raise AssertionError(f"{tag}: a victim without a reference "
+                                 f"({len(key)} prompt tokens, {at} "
+                                 f"generated)")
+        miss = _first_mismatch(torch, inner, prompt_ids, ref_ids[key],
+                               got_ids[key], temp, seed)
+        checked.append({"temperature": temp, "preempted_at": at,
+                        "mismatch": miss})
+        log(f"[{tag}] victim (temperature {temp}) preempted after {at} "
+            f"tokens: " + ("transcript equal to its uncontended one"
+                           if miss is None else
+                           f"first mismatch at token {miss['position']}, "
+                           f"top-2 gap {miss['gap']:.4f} (tolerance "
+                           f"{miss['tolerance']:.4f})"))
+        if miss is not None and miss["gap"] > miss["tolerance"]:
+            raise AssertionError(f"{tag}: a resumed transcript left its "
+                                 f"uncontended one away from a near tie: "
+                                 f"{miss}")
+    n_tok = sum(r.completion_tokens for r in
+                [results[render_prompt(q)][0] for q in fillers]
+                + [results[render_prompt(QOS_GREEDY)][1], res_sampled])
+    info = {
+        "slots": slots, "startup_s": startup_s, "statuses": statuses,
+        "preemptions": qos["preemptions"],
+        "preempted_tokens": qos["preempted_tokens"],
+        "victims": checked, "resume_remaps": remaps,
+        "resume_flash_launches": resume_flash,
+        "chunk_ms": chunk_ms, "seat_limit_ms": seat_limit,
+        "chunk_cost": chunk_cost,
+        "interactive": [{"queue_ms": r.queue_ms, "ttft_ms": r.ttft_ms}
+                        for r in hi_res],
+        "burst_s": burst_s, "burst_tokens": n_tok,
+        "burst_tok_per_s": n_tok / burst_s, "launches": launches,
+        "shed": None if shed is None else {
+            "status": shed[0], "retry_after": shed[2].get("Retry-After"),
+            "flood_sent": len(flood)},
+        "health_qos": health["qos"],
+    }
+    log(f"[{tag}] burst of {slots} background requests: {n_tok} tokens in "
+        f"{burst_s:.2f} s ({info['burst_tok_per_s']:.1f} tok/s, the "
+        f"preemptions and resumes included); chunk {chunk_ms:.1f} ms; "
+        f"median chunk by batch: {chunk_cost}")
+    for q, r in zip(QOS_INTERACTIVE, hi_res):
+        log(f"[{tag}] interactive {q!r}: queue {r.queue_ms:.1f} ms (limit "
+            f"{seat_limit:.1f}), TTFT {r.ttft_ms:.1f} ms")
+    log(f"[{tag}] preemptions {qos['preemptions']} "
+        f"({qos['preempted_tokens']} tokens carried); resumes "
+        f"{remaps if kind == 'pool' else resume_flash} "
+        f"({'(tokens, radix-matched)' if kind == 'pool' else 'flash launches'}"
+        f"); statuses {statuses}"
+        + (f"; shed {shed[0]} with Retry-After {shed[2].get('Retry-After')}"
+           f" after {len(flood)} flood requests" if shed else ""))
+    log(f"[{tag}] launches in the phase: ragged "
+        f"{launches['ragged_attention_pool']}, flash "
+        f"{launches['flash_attention_cached']}, paged "
+        f"{launches['paged_decode_attention']} (dense) + "
+        f"{launches['paged_decode_attention_pool']} (pool); {gpu_line()}")
+    if kind == "pool":
+        info["sampling"] = _sampling_step(torch, inner)
+    return info, inner.params
+
+
+def _sampling_step(torch, engine) -> dict:
+    """One sampled decode step's sampler at the engine's shape (8 rows
+    over Gemma's vocabulary, temperature 0.9 in every row): the kernels
+    it launches (``torch.profiler``) and its time, beside the greedy
+    argmax's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai_agent_kubectl_tpu_torch.engine.sampling import (
+        greedy_tokens, sample_tokens_seeded)
+
+    dev = engine.device
+    n, vocab = engine.batch_size, engine.model_cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((n, vocab), generator=gen, device=dev)
+    seeds = torch.arange(n, dtype=torch.int64, device=dev) + 7
+    ngen = torch.full((n,), 40, dtype=torch.int32, device=dev)
+    temps = torch.full((n,), 0.9, dtype=torch.float32, device=dev)
+
+    def step():
+        return sample_tokens_seeded(logits, seeds, ngen, temps,
+                                    top_k=engine.top_k, top_p=engine.top_p)
+
+    def per_call_ms(fn, iters=20):
+        """Wall milliseconds per call, launches included (the sampler is
+        host-bound): CUDA events around ``iters`` calls in a row."""
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launches = sum(int(e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    sampled_ms = per_call_ms(step)
+    greedy_ms = per_call_ms(lambda: greedy_tokens(logits))
+    log(f"[serve_qos] sampled step ({n} x {vocab}, top_k {engine.top_k}): "
+        f"{launches} kernel launches, {sampled_ms:.4f} ms a call; greedy "
+        f"argmax {greedy_ms:.4f} ms")
+    return {"kernel_launches": launches, "ms": sampled_ms,
+            "greedy_ms": greedy_ms}
+
+
 def kernel_breakdown(torch, fn, *, iters: int = 10) -> dict:
     """Device microseconds per launch of each of the port's kernels that
     ``fn`` launches (an attention kernel and its split combine, say), the
@@ -2371,7 +2841,8 @@ def kernel_lines(results: dict) -> list:
     error of phase 2, and the times at the shape its serving path runs
     most at the top level (every timed shape under ``shapes``);
     ``phase_launches`` adds the launches of phase 6 (ragged in its bf16
-    engine, flash and int4 in its int4 engine)."""
+    engine, flash and int4 in its int4 engine) and of phase 7 (both its
+    engines)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -2384,6 +2855,12 @@ def kernel_lines(results: dict) -> list:
             "int4_matmul"),
     }
     tol = f"|kernel - plain| <= {ATOL} + {RTOL}*|plain| (bf16)"
+    qos = results.get("serve_qos", {})
+
+    def qos_launches(name):
+        counts = [qos[k]["launches"].get(name) for k in ("pool", "dense")
+                  if k in qos]
+        return sum(counts) if counts and None not in counts else None
 
     paged = results.get("serve_paged", {})
 
@@ -2400,7 +2877,8 @@ def kernel_lines(results: dict) -> list:
             "bound_ms": top.get("bound_ms"),
             "bound_by": top.get("bound_by"),
             "library_ms": top.get("library_ms"), "library": library,
-            "phase_launches": {"serve_ckpt": ckpt_launches.get(name)},
+            "phase_launches": {"serve_ckpt": ckpt_launches.get(name),
+                               "serve_qos": qos_launches(name)},
             "shapes": shapes,
         }
 
@@ -2494,6 +2972,8 @@ def main() -> int:
     if "serve_ckpt" in phases:
         results["serve_ckpt"] = phase_serve_ckpt(torch,
                                                  results.get("serve", {}))
+    if "serve_qos" in phases:
+        results["serve_qos"] = phase_serve_qos(torch)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),

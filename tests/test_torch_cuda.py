@@ -668,3 +668,88 @@ def test_checkpoint_loads_to_the_card_as_on_the_cpu(card, tmp_path, quant):
         assert t.device.type == "cuda", key
         assert t.dtype == b[key].dtype and t.shape == b[key].shape, key
         assert torch.equal(t.cpu(), b[key]), key
+
+
+#: (prompt, temperature, seed) of the background requests, greedy pair
+#: first or sampled pair first: the first two seated hold the slots when
+#: the interactive probe arrives, so the victim is of that kind
+CARD_BG = {"greedy_victim": [("bulk a ", 0.0, 101), ("bulk d ", 0.0, 404),
+                             ("bulk b ", 0.9, 202), ("bulk c ", 0.9, 303)],
+           "sampled_victim": [("bulk b ", 0.9, 202), ("bulk c ", 0.9, 303),
+                              ("bulk a ", 0.0, 101), ("bulk d ", 0.0, 404)]}
+
+
+@pytest.mark.parametrize("order", list(CARD_BG))
+def test_preempted_request_resumes_on_the_card(card, order):
+    """toy-8m in bf16 on the card, the pool with the paged decode kernel
+    (RAGGED_ATTENTION=off: every decode step has the same shapes, so the
+    card's rounding does not depend on the batch): an interactive probe
+    preempts a background request, which resumes by re-mapping its cached
+    chain (no prefill) at its seed stream's index. Every transcript,
+    greedy and sampled, equals an uncontended engine's."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.qos import QoSContext, use_qos
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    bg, probe_req = CARD_BG[order], ("quick q ", 0.0, 505)
+
+    def engine(wait_ms):
+        return BatchedTorchEngine(
+            get_config("toy-8m"), tokenizer=ByteTokenizer(), device="cuda",
+            dtype="bfloat16", max_seq_len=128, prefill_buckets=(16, 32),
+            batch_size=2, chunk_len=4, prefix_cache=False,
+            ragged_attention="off", decode_attn="paged", kv_pool_page=16,
+            preempt_wait_ms=wait_ms)
+
+    async def uncontended():
+        eng = engine(0.0)
+        await eng.start()
+        try:
+            return {p: (await eng.generate(p, max_tokens=40, temperature=t,
+                                           seed=s)).token_ids
+                    for p, t, s in bg}
+        finally:
+            await eng.stop()
+
+    async def contended():
+        eng = engine(15.0)
+        await eng.start()
+        remaps = []
+        map_prefix = eng._pool_map_prefix
+
+        def recording(ids, match_all=False):
+            blocks, m = map_prefix(ids, match_all=match_all)
+            if match_all:
+                remaps.append((len(ids), m))
+            return blocks, m
+
+        eng._pool_map_prefix = recording
+        try:
+            async def run_bg(p, t, s):
+                with use_qos(QoSContext(tenant="bulk", lane="background")):
+                    return await eng.generate(p, max_tokens=40,
+                                              temperature=t, seed=s)
+
+            tasks = [asyncio.ensure_future(run_bg(*r)) for r in bg]
+            for _ in range(4000):
+                await asyncio.sleep(0.005)
+                if all(s is not None and len(s.detok.ids) > 0
+                       for s in eng._slots):
+                    break
+            p, t, s = probe_req
+            with use_qos(QoSContext(tenant="quiet", lane="interactive")):
+                await eng.generate(p, max_tokens=8, temperature=t, seed=s)
+            out = dict(zip([r[0] for r in bg],
+                           [r.token_ids for r in await asyncio.gather(*tasks)]))
+            return out, eng.stats()["qos"]["preemptions"], remaps
+        finally:
+            await eng.stop()
+
+    want = asyncio.run(uncontended())
+    got, preemptions, remaps = asyncio.run(contended())
+    assert preemptions >= 1 and remaps
+    assert all(m == n for n, m in remaps), remaps      # nothing prefilled
+    assert got == want

@@ -9,6 +9,9 @@ admissions ride a ragged prologue beside its decode step. At temperature
 ``forward(attn_impl="ragged")`` (its Pallas kernel in interpret mode)
 from the same parameters. A repeat then hits the radix cache and must
 give the same ids, and the pool's books must balance after the drain.
+At temperature 0.9 two sampled transcripts sharing the batch must equal
+the JAX batched engine's for the same seeds (the port draws jax's
+threefry stream, ``fold_in(PRNGKey(seed), g)``).
 """
 
 import ast
@@ -24,6 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from ai_agent_kubectl_tpu.engine.batcher import BatchedJaxEngine
+from ai_agent_kubectl_tpu.engine.tokenizer import (
+    ByteTokenizer as JaxByteTokenizer)
 from ai_agent_kubectl_tpu.models import config as jconfig
 from ai_agent_kubectl_tpu.models import transformer as jt
 from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
@@ -165,7 +171,24 @@ async def test_greedy_transcripts_match_jax_reference():
 
 
 async def test_seeded_sampling_is_reproducible():
-    eng = _engine(None, top_k=20)
+    """Sampled transcripts (temperature 0.9, top-k 20) are the JAX
+    engine's for the same seeds, two of them sharing the batch, and a
+    request repeated alone gives its transcript again."""
+    kw = dict(dtype="float32", max_seq_len=128, prefill_buckets=(32, 64),
+              batch_size=4, chunk_len=4, top_k=20, prefix_cache=False)
+    jeng = BatchedJaxEngine(jconfig.get_config("toy-8m"),
+                            tokenizer=JaxByteTokenizer(),
+                            compile_cache_dir="", **kw)
+    await jeng.start()
+    try:
+        want = await asyncio.gather(*[
+            jeng.generate(p, max_tokens=8, temperature=0.9, seed=7)
+            for p in PROMPTS[1:]])
+    finally:
+        await jeng.stop()
+    eng = BatchedTorchEngine(
+        get_config("toy-8m"), tokenizer=ByteTokenizer(), device="cpu",
+        params=params_from_jax(jax.tree.map(np.asarray, jeng.params)), **kw)
     await eng.start()
     try:
         a, b = await asyncio.gather(
@@ -173,6 +196,7 @@ async def test_seeded_sampling_is_reproducible():
             eng.generate(PROMPTS[2], max_tokens=8, temperature=0.9, seed=7))
         c = await eng.generate(PROMPTS[1], max_tokens=8, temperature=0.9,
                                seed=7)
+        assert [a.text, b.text] == [w.text for w in want]
         assert a.token_ids == c.token_ids
         assert a.completion_tokens > 0 and b.completion_tokens > 0
         _books(eng)

@@ -12,7 +12,8 @@ init; ``BatchedTorchEngine`` serves the same parameters
 the first is decoding — and at temperature 0 every transcript's token ids
 must be identical between the engines. A repeat must give the same ids
 (and hit the radix cache on the pool), and the pool's books must balance
-after the drain.
+after the drain. On the dense ladder a sampled transcript (temperature
+0.9) must equal the JAX engine's for the same seed.
 """
 
 import asyncio
@@ -147,13 +148,30 @@ async def test_dense_ladder_prefix_hit_and_sampling():
     """The dense ladder with the system-prompt prefix cache: a rendered
     query's admission splices the cached prefix and prefills only its
     suffix, and its transcript equals a cold engine's; a sampled request
-    draws its first token from its own generator and repeats itself; a
-    one-token budget finishes on the first token."""
+    draws its first token at index 0 of its seed stream, and its
+    transcript (alone, and beside a second copy of itself) equals the
+    JAX engine's for the same seed; a one-token budget finishes on the
+    first token."""
     kw = dict(COMMON, max_seq_len=384, kv_pool=False, decode_attn="paged")
+    # The reference needs no prefix cache: the sampled prompt is not a
+    # rendered query, so no admission splices the system prompt.
+    jeng = BatchedJaxEngine(jconfig.get_config("toy-8m"),
+                            tokenizer=JaxByteTokenizer(),
+                            compile_cache_dir="", **kw)
+    await jeng.start()
+    try:
+        done = _record_ids(jeng)
+        await jeng.generate(PROMPTS[1], max_tokens=8, temperature=0.9, seed=5)
+        want = done[tuple(jeng.tokenizer.encode(PROMPTS[1]))]
+    finally:
+        await jeng.stop()
+    params = params_from_jax(jax.tree.map(np.asarray, jeng.params),
+                             get_config("toy-8m"))
     warm = BatchedTorchEngine(get_config("toy-8m"), tokenizer=ByteTokenizer(),
-                              device="cpu", **dict(kw, prefix_cache=True))
+                              params=params, device="cpu",
+                              **dict(kw, prefix_cache=True))
     cold = BatchedTorchEngine(get_config("toy-8m"), tokenizer=ByteTokenizer(),
-                              device="cpu", **kw)
+                              params=params, device="cpu", **kw)
     await asyncio.gather(warm.start(), cold.start())
     try:
         assert warm._prefix is not None and cold._prefix is None
@@ -165,7 +183,8 @@ async def test_dense_ladder_prefix_hit_and_sampling():
         s1, s2 = await asyncio.gather(*[
             warm.generate(PROMPTS[1], max_tokens=8, temperature=0.9, seed=5)
             for _ in range(2)])
-        assert s1.token_ids == s2.token_ids and s1.completion_tokens > 0
+        assert list(s1.token_ids) == list(s2.token_ids) == want
+        assert s1.completion_tokens > 0
         one = await warm.generate(PROMPTS[2], max_tokens=1)
         assert one.completion_tokens == 1 and one.finish_reason == "length"
     finally:

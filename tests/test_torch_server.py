@@ -227,10 +227,6 @@ REFUSED = [
     ("GRAMMAR_PROFILE", "readonly"), ("GRAMMAR_FORCED_RUN_MIN", "8"),
     ("HOST_KV_BLOCKS", "64"), ("CHUNK_PIPE_DEPTH", "3"),
     ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
-    ("TENANT_TIERS", "key1:background"), ("QOS_DEFAULT_LANE", "batch"),
-    ("LANE_WEIGHTS", "interactive:4"), ("TENANT_MAX_QUEUE", "8"),
-    ("QOS_SESSION_TOKEN_BUDGET", "100"), ("PREEMPT_WAIT_MS", "100"),
-    ("PREEMPT_BUDGET", "5"), ("SLO_INTERACTIVE_MS", "500"),
     ("ENGINE_WATCHDOG_SECS", "30"), ("ENGINE_STARTUP_GRACE_SECS", "60"),
     ("QUARANTINE_RETRY_BUDGET", "3"), ("ENGINE_RESET_MAX_PER_MIN", "2"),
     ("FAULT_POINTS", "generate:error:1.0"), ("LEDGER_ENABLE", "true"),
@@ -267,6 +263,31 @@ def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
         ServiceConfig.from_env()
     monkeypatch.setenv(knob, UNSERVED_KNOBS[knob])
     assert ServiceConfig.from_env().engine == "torch"
+
+
+#: the QoS knobs the port reads (no longer refused), each with a value
+#: that asks for the feature and the field it lands in
+QOS_KNOBS = [
+    ("TENANT_TIERS", "key1:background", "tenant_tiers", "key1:background"),
+    ("QOS_DEFAULT_LANE", "batch", "qos_default_lane", "batch"),
+    ("LANE_WEIGHTS", "interactive:4", "lane_weights", "interactive:4"),
+    ("TENANT_MAX_QUEUE", "8", "tenant_max_queue", 8),
+    ("QOS_SESSION_TOKEN_BUDGET", "100", "qos_session_token_budget", 100),
+    ("PREEMPT_WAIT_MS", "100", "preempt_wait_ms", 100.0),
+    ("PREEMPT_BUDGET", "5", "preempt_budget", 5),
+    ("SLO_INTERACTIVE_MS", "500", "slo_interactive_ms", 500.0),
+]
+
+
+@pytest.mark.parametrize("knob,value,field,want", QOS_KNOBS)
+def test_config_reads_the_qos_knobs_as_the_jax_package(monkeypatch, knob,
+                                                       value, field, want):
+    monkeypatch.setenv(knob, value)
+    assert knob not in UNSERVED_KNOBS
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert getattr(ours, field) == want == getattr(theirs, field)
+    assert ours.tenant_tier_map == theirs.tenant_tier_map
+    assert ours.lane_weight_map == theirs.lane_weight_map
 
 
 @pytest.mark.parametrize("engine", ["openai", "fake", "jax",
