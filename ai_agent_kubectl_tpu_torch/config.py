@@ -26,8 +26,8 @@ from .engine.qos import LANES, parse_lane_weights, parse_tenant_tiers
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # int8 KV (A4), MoE (A5)
-    "KV_QUANT": "", "MOE_IMPL": "auto",
+    # int8 KV (A4)
+    "KV_QUANT": "",
     # the rest of the batched engine (A7): speculative and grammar
     # decode, the two-tier host KV, chunk pipelining (the port fetches
     # each chunk before the next dispatch, on device-side termination),
@@ -174,6 +174,10 @@ class ServiceConfig:
     # Prefill attention of the single-sequence engine: auto = flash on
     # cuda, dense on the CPU.
     attn_impl: str = "auto"                 # ATTN_IMPL: auto | dense | flash
+    # The MoE MLP: auto and dense evaluate every expert and mix by the
+    # router's top-k weights (parallel/moe.py::dense_moe); ep, the
+    # expert-parallel dispatch, needs a mesh and is refused at boot.
+    moe_impl: str = "auto"                  # MOE_IMPL: auto | ep | dense
     # Decode attention of the batched engine: auto = paged for a GQA model
     # on cuda (the page raised to >= 64), dense otherwise.
     decode_attn: str = "auto"               # DECODE_ATTN: auto | dense | paged
@@ -252,6 +256,9 @@ class ServiceConfig:
         if self.attn_impl not in ("auto", "dense", "flash"):
             raise ValueError(f"ATTN_IMPL must be auto|dense|flash, got "
                              f"{self.attn_impl!r}")
+        if self.moe_impl not in ("auto", "ep", "dense"):
+            raise ValueError(f"MOE_IMPL must be auto|ep|dense, got "
+                             f"{self.moe_impl!r}")
         if self.decode_attn not in ("auto", "dense", "paged"):
             raise ValueError(f"DECODE_ATTN must be auto|dense|paged, got "
                              f"{self.decode_attn!r}")
@@ -314,6 +321,13 @@ class ServiceConfig:
             if raw not in (None, "") and not _same_value(raw, served):
                 raise ValueError(f"{name}={raw!r} is not served by the "
                                  f"PyTorch port yet (ROADMAP.md, queue A)")
+        moe_impl = (_env_str("MOE_IMPL", "auto") or "auto").lower()
+        if moe_impl == "ep":
+            raise ValueError(
+                "MOE_IMPL=ep (the expert-parallel dispatch) needs a mesh "
+                "with an expert axis, which the PyTorch port does not "
+                "build yet (ROADMAP.md A8); auto and dense serve the MoE "
+                "MLP on one card")
         return cls(
             api_auth_key=_env_str("API_AUTH_KEY", None),
             cache_maxsize=_env_int("CACHE_MAXSIZE", 100),
@@ -345,6 +359,7 @@ class ServiceConfig:
             top_k=_env_int("TOP_K", 0),
             top_p=_env_float("TOP_P", 1.0),
             attn_impl=(_env_str("ATTN_IMPL", "auto") or "auto").lower(),
+            moe_impl=moe_impl,
             decode_attn=(_env_str("DECODE_ATTN", "auto") or "auto").lower(),
             kv_page_size=_env_int("KV_PAGE_SIZE", 16),
             ragged_attention=(_env_str("RAGGED_ATTENTION", "auto")

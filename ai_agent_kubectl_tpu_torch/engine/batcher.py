@@ -494,13 +494,21 @@ class BatchedTorchEngine(TorchEngine):
                  kv_limit=None, q_lens=None, write_mask=None,
                  logits_at=None):
         """One forward over the serving cache (``tables`` None for the
-        dense cache)."""
+        dense cache). The tokens that write KV are the live ones: the
+        write mask, as [B, S], is also the forward's ``token_mask`` (the
+        JAX engine's ``live[:, None]``, ``wmask`` and prefill ``mask``),
+        and the MoE MLP runs under the engine's ``moe_impl``."""
         self.forward_steps += 1
+        token_mask = None
+        if write_mask is not None:
+            token_mask = (write_mask if write_mask.dim() == 2
+                          else write_mask[:, None])
         logits, self._cache = forward(
             self.params, self.model_cfg, tokens, positions, self._cache,
             kv_limit=kv_limit, attn_impl=attn_impl,
             page_size=self.kv_page_size, logits_at=logits_at,
-            write_mask=write_mask, block_tables=tables, q_lens=q_lens)
+            write_mask=write_mask, block_tables=tables, q_lens=q_lens,
+            token_mask=token_mask, moe_impl=self.moe_impl)
         return logits
 
     def _run_arm(self, slot_idx: int, n_prompt: int, first_tok,

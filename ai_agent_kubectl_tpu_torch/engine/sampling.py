@@ -16,9 +16,12 @@ well over a hundred launches per threefry call, two calls per sampled
 step (the key's ``fold_in`` and the bits). ``chip_smoke.py``'s
 serve_qos phase counts a sampled step's launches on the card.
 
-The single-sequence engine keeps a per-request ``torch.Generator``
-(``sample_token``): its draws are torch's, not the JAX engine's
-split-chained key schedule.
+The single-sequence engine follows the JAX engine's split-chained key
+schedule instead (``sample_token_keyed`` under keys from ``split``):
+``PRNGKey(seed)`` splits into the first token's key and a chain key,
+and every later step splits the chain key once and draws with the
+second half. The same seed then gives the JAX single-sequence engine's
+transcript, whatever the chunk boundaries.
 
 Which rows sample is host knowledge (the engine knows each slot's
 temperature), so an all-greedy batch never pays for the sampled path and
@@ -27,7 +30,7 @@ no branch here reads a device value.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -53,62 +56,9 @@ def _filter_top_k_p(scaled: torch.Tensor, top_k: int,
     return scaled
 
 
-def _sample_filtered(scaled: torch.Tensor, generator: torch.Generator,
-                     top_k: int, top_p: float) -> torch.Tensor:
-    """One categorical draw per row of [rows, vocab] scaled logits under
-    the top-k/top-p filters. With a top-k only the k survivors are
-    softmaxed and drawn from (the JAX top-k-subset path)."""
-    if top_k > 0:
-        vals, idx = torch.topk(scaled, top_k, dim=-1)
-        if top_p < 1.0:
-            probs = torch.softmax(vals, dim=-1)
-            cumprobs = torch.cumsum(probs, dim=-1)
-            vals = torch.where(cumprobs - probs >= top_p, float("-inf"),
-                               vals)
-        choice = torch.multinomial(torch.softmax(vals, dim=-1), 1,
-                                   generator=generator)
-        return torch.gather(idx, -1, choice)[..., 0].to(torch.int32)
-    scaled = _filter_top_k_p(scaled, 0, top_p)
-    return torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                             generator=generator)[..., 0].to(torch.int32)
-
-
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
     """[batch, vocab] -> [batch] int32 argmax ids."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
-
-
-def sample_rows(logits: torch.Tensor, temperatures: Sequence[float],
-                generators: Sequence[Optional[torch.Generator]],
-                top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
-    """[batch, vocab] f32 logits -> [batch] int32 tokens. Row i samples
-    at ``temperatures[i]`` from ``generators[i]`` when its temperature
-    is > 0 and it has a generator; every other row is greedy."""
-    out = greedy_tokens(logits)
-    for i, (t, gen) in enumerate(zip(temperatures, generators)):
-        if t > 0.0 and gen is not None:
-            row = logits[i:i + 1] / max(float(t), 1e-6)
-            # A non-finite row would make the draw fail on the device;
-            # its slot is frozen by the health check, so draw from zeros.
-            row = torch.where(torch.isfinite(row).all(dim=-1, keepdim=True),
-                              row, torch.zeros_like(row))
-            out[i:i + 1] = _sample_filtered(row, gen, top_k, top_p)
-    return out
-
-
-def sample_token(logits: torch.Tensor, temperature: float,
-                 generator: Optional[torch.Generator], top_k: int = 0,
-                 top_p: float = 1.0) -> torch.Tensor:
-    """The single-sequence engine's sampler (the JAX
-    ``sample_token_traced``): [batch, vocab] f32 -> [batch] int32, greedy
-    argmax at temperature 0, else a draw from ``generator`` under the
-    same top-k/top-p filters the batched path applies. The temperature
-    is a host value, so the greedy path never touches the generator."""
-    if temperature <= 0.0 or generator is None:
-        return greedy_tokens(logits)
-    rows = logits.shape[0]
-    return sample_rows(logits, [temperature] * rows, [generator] * rows,
-                       top_k=top_k, top_p=top_p)
 
 
 # ------------------------------------------------ jax.random's threefry2x32
@@ -151,6 +101,18 @@ def fold_in(key: tuple, data: torch.Tensor) -> tuple:
     k1, k2 = key
     data = data.to(torch.int64) & _M32
     return threefry2x32(k1, k2, torch.zeros_like(data), data)
+
+
+def split(key: tuple, num: int = 2) -> tuple:
+    """``jax.random.split(key, num)`` under ``jax_threefry_partitionable``:
+    key ``i`` is the key hashed with the flat index's two 32-bit words
+    ``(0, i)``. ``key`` is a pair of int64 tensors of one shape; returns
+    ``num`` such pairs."""
+    k1, k2 = key
+    lo = torch.arange(num, dtype=torch.int64, device=k1.device)
+    b0, b1 = threefry2x32(k1[..., None], k2[..., None],
+                          torch.zeros_like(lo), lo)
+    return tuple((b0[..., i], b1[..., i]) for i in range(num))
 
 
 def slot_keys(seeds: torch.Tensor, ngen: torch.Tensor) -> tuple:
@@ -229,6 +191,23 @@ def sample_tokens_seeded(logits: torch.Tensor, seeds: torch.Tensor,
     drawn = _sample_filtered_seeded(logits / t, slot_keys(seeds, ngen),
                                     top_k, top_p)
     return torch.where(wants, drawn, greedy)
+
+
+def sample_token_keyed(logits: torch.Tensor, key: tuple,
+                       temperature: float, top_k: int = 0,
+                       top_p: float = 1.0) -> torch.Tensor:
+    """The single-sequence engine's sampler, the JAX
+    ``sample_token_traced``: [batch, vocab] float32 logits -> [batch]
+    int32 tokens, the argmax at temperature 0, else every row drawn under
+    ``key`` (a pair of [batch] int64 tensors) from its logits over
+    ``max(temperature, 1e-6)`` with the top-k/top-p filters of
+    ``_sample_filtered_seeded``. The temperature is a host value, so a
+    greedy request never hashes a key."""
+    if temperature <= 0.0:
+        return greedy_tokens(logits)
+    t = torch.full((), max(float(temperature), 1e-6), dtype=torch.float32,
+                   device=logits.device)
+    return _sample_filtered_seeded(logits / t, key, top_k, top_p)
 
 
 def eos_mask(tokens: torch.Tensor, eos_ids: torch.Tensor) -> torch.Tensor:

@@ -28,11 +28,16 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   (two in flight). Attention in a decode step is the dense reference
   over the smallest KV-ladder bucket covering the positions the chunk
   can reach. On EOS the chunk in flight is abandoned.
-- Greedy at temperature 0, byte-identical to the JAX engine; a sampled
-  request draws from a ``torch.Generator`` seeded per request (the
-  JAX engine's split-chained threefry key schedule is not reproduced
-  here, unlike the batched engine's per-token ``fold_in`` stream:
-  ROADMAP A6).
+- Greedy at temperature 0, byte-identical to the JAX engine. A sampled
+  request follows the JAX engine's split-chained threefry key schedule
+  (``engine/sampling.py::split``): ``PRNGKey(seed)`` (the request's
+  seed, else the engine seed plus the prompt length) splits into the
+  first token's key and a chain key, and each decode step splits the
+  chain key and draws with its second half, so the same seed gives the
+  JAX engine's transcript.
+- A mixture-of-experts model (Mixtral) runs its MLP through
+  ``parallel/moe.py::dense_moe`` (``moe_impl`` auto or dense); ``ep``
+  needs an expert mesh, which a single card does not have, and raises.
 
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
@@ -67,7 +72,7 @@ from ..ops.quant import is_quantized, quantize_params_int8, \
 from ..ops.quant4 import quantize_params_int4
 from .prefix_cache import PrefixKV, round_kv_limit
 from .protocol import EngineResult, EngineUnavailable, GenerationTimeout
-from .sampling import eos_mask, sample_token
+from .sampling import eos_mask, prng_key, sample_token_keyed, split
 from .tokenizer import StreamDecoder, Tokenizer, load_tokenizer
 
 logger = logging.getLogger(__name__)
@@ -111,13 +116,11 @@ class TorchEngine:
         top_k: int = 0,
         top_p: float = 1.0,
         attn_impl: str = "auto",
+        moe_impl: str = "auto",
         prefix_cache: bool = True,
         seed: int = 0,
         device: DeviceLike = None,
     ):
-        if model_cfg.is_moe:
-            raise NotImplementedError(
-                "MoE models wait for a later slice of the port")
         if dtype not in DTYPES:
             raise ValueError(f"DTYPE must be one of {sorted(DTYPES)}, got "
                              f"{dtype!r}")
@@ -137,6 +140,17 @@ class TorchEngine:
             raise ValueError(
                 f"TOP_K must be >= 0 and TOP_P in (0, 1], got "
                 f"{top_k}/{top_p}")
+        if moe_impl not in ("auto", "ep", "dense"):
+            raise ValueError(
+                f"MOE_IMPL must be auto|ep|dense, got {moe_impl!r}")
+        if moe_impl == "ep" and model_cfg.is_moe:
+            # The JAX engine builds a one-device expert mesh for it; the
+            # port has no mesh (ROADMAP A8), and serving the dense
+            # evaluation instead would not be what was asked for.
+            raise ValueError(
+                "MOE_IMPL=ep needs a mesh with an expert axis: expert "
+                "parallelism waits for the multi-GPU slice of the port "
+                "(ROADMAP.md A8)")
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.model_path = model_path
@@ -149,6 +163,7 @@ class TorchEngine:
         if attn_impl == "auto":
             attn_impl = "flash" if self.device.type == "cuda" else "dense"
         self.attn_impl = attn_impl
+        self.moe_impl = moe_impl
         self.max_seq_len = min(max_seq_len, model_cfg.max_seq_len)
         self.prefill_buckets = tuple(
             b for b in sorted(prefill_buckets) if b <= self.max_seq_len
@@ -304,7 +319,7 @@ class TorchEngine:
             torch.from_numpy(tokens).to(dev), (offset + cols)[None], cache,
             kv_limit=kv_limit, attn_impl=self._prefill_impl_for(
                 bucket, kv_limit),
-            token_mask=(cols < n)[None],
+            token_mask=(cols < n)[None], moe_impl=self.moe_impl,
             logits_at=torch.full((1,), max(n - 1, 0), dtype=torch.int64,
                                  device=dev))
         return logits[:, 0]
@@ -428,27 +443,33 @@ class TorchEngine:
 
     def _decode_chunk(self, chunk_len: int, kv_limit: int,
                       tok: torch.Tensor, pos: torch.Tensor, cache: KVCache,
-                      temperature: float,
-                      gen: Optional[torch.Generator], done: torch.Tensor):
+                      temperature: float, key: Optional[tuple],
+                      done: torch.Tensor):
         """``chunk_len`` decode steps (forward one token at ``pos``,
         sample the next) enqueued back to back with no host read,
-        attending over ``cache[:, :kv_limit]``. Returns ``(toks [1, T]
-        int32 — all -1 when ``done`` came in set —, tok [1, 1], pos
-        [1, 1], done)``; tokens after a mid-chunk EOS are garbage the host
+        attending over ``cache[:, :kv_limit]``. A sampled step splits the
+        chain ``key`` and draws with the second half (the JAX chunk's
+        ``key, sub = split(key)``). Returns ``(toks [1, T] int32 — all -1
+        when ``done`` came in set —, tok [1, 1], pos [1, 1], key,
+        done)``; tokens after a mid-chunk EOS are garbage the host
         discards."""
         steps = []
         for _ in range(chunk_len):
             logits, _ = forward(self.params, self.model_cfg, tok, pos, cache,
-                                kv_limit=kv_limit, attn_impl="dense")
-            nxt = sample_token(logits[:, 0], temperature, gen,
-                               top_k=self.top_k, top_p=self.top_p)
+                                kv_limit=kv_limit, attn_impl="dense",
+                                moe_impl=self.moe_impl)
+            sub = None
+            if temperature > 0.0:
+                key, sub = split(key)
+            nxt = sample_token_keyed(logits[:, 0], sub, temperature,
+                                     top_k=self.top_k, top_p=self.top_p)
             steps.append(nxt)
             tok = nxt[:, None]
             pos = pos + 1
         toks = torch.stack(steps, dim=1)
         new_done = done | eos_mask(toks, self._eos_d).any()
         toks = torch.where(done, torch.full_like(toks, -1), toks)
-        return toks, tok, pos, new_done
+        return toks, tok, pos, key, new_done
 
     def _to_host_async(self, t: torch.Tensor):
         """Start the device->host copy of a chunk's tokens without
@@ -489,12 +510,13 @@ class TorchEngine:
 
         # Per-request sampling seed: an explicit seed pins the stream;
         # the default derives it from the engine seed and prompt length,
-        # as the JAX engine does.
-        gen = None
+        # as the JAX engine does. The first token draws with ``key``,
+        # the decode steps with splits of ``chunk_key``.
+        key = chunk_key = None
         if temperature > 0.0:
-            gen = torch.Generator(device=self.device).manual_seed(
-                self.seed + n_prompt if seed is None
-                else int(seed) & 0x7FFFFFFF)
+            key, chunk_key = split(prng_key(torch.tensor(
+                [self.seed + n_prompt if seed is None
+                 else int(seed) & 0x7FFFFFFF], device=self.device)))
 
         detok = StreamDecoder(self.tokenizer)
         detok_ms = 0.0
@@ -502,8 +524,8 @@ class TorchEngine:
 
         # First token: sampled from the prefill logits and read at once —
         # this IS time to first token.
-        next_tok = sample_token(last_logits, temperature, gen,
-                                top_k=self.top_k, top_p=self.top_p)
+        next_tok = sample_token_keyed(last_logits, key, temperature,
+                                      top_k=self.top_k, top_p=self.top_p)
         first_id = int(next_tok[0])
         t_first = time.monotonic()
         prefill_ms = (t_first - t_prefill0) * 1000.0
@@ -543,9 +565,10 @@ class TorchEngine:
                         break  # KV capacity exhausted
                     kv_b = next(b for b in self._kv_buckets
                                 if b >= sched_pos + chunk_len)
-                    toks_d, tok_d, pos_d, done_d = self._decode_chunk(
-                        chunk_len, kv_b, tok_d, pos_d, cache, temperature,
-                        gen, done_d)
+                    toks_d, tok_d, pos_d, chunk_key, done_d = (
+                        self._decode_chunk(chunk_len, kv_b, tok_d, pos_d,
+                                           cache, temperature, chunk_key,
+                                           done_d))
                     inflight.append(self._to_host_async(toks_d))
                     sched += chunk_len
                     sched_pos += chunk_len
@@ -690,6 +713,7 @@ def engine_kwargs(cfg) -> dict:
         top_k=cfg.top_k,
         top_p=cfg.top_p,
         attn_impl=cfg.attn_impl,
+        moe_impl=cfg.moe_impl,
         prefix_cache=cfg.hbm_prefix_cache,
         device=cfg.torch_device,
     )

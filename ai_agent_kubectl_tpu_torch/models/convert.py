@@ -1,15 +1,19 @@
 """Parameter conversion into the port's tree.
 
-``convert_hf_checkpoint`` loads a HuggingFace Llama or Gemma checkpoint
-(``*.safetensors``, one file or a directory of shards) onto the serving
-device, the counterpart of the JAX package's ``models/convert.py``: HF
-``[out, in]`` projections are transposed, per-layer tensors stacked on a
-leading ``n_layers`` axis, the ``model.`` prefix is optional, and an
-untied ``lm_head`` comes from the file or is tied to the embedding. The
-load streams: one layer's slice of a leaf at a time goes to the device
-(and, under ``quant``, is quantized there and freed), written into the
-preallocated stacked leaf, so the full-precision tree never exists
-whole on the device. The files are read with
+``convert_hf_checkpoint`` loads a HuggingFace Llama, Gemma or Mixtral
+checkpoint (``*.safetensors``, one file or a directory of shards) onto
+the serving device, the counterpart of the JAX package's
+``models/convert.py``: HF ``[out, in]`` projections are transposed,
+per-layer tensors stacked on a leading ``n_layers`` axis, the ``model.``
+prefix is optional, and an untied ``lm_head`` comes from the file or is
+tied to the embedding. Mixtral's ``block_sparse_moe.gate`` becomes the
+full-precision ``router`` [L, D, E] and ``experts.{e}.w1/w3/w2`` the
+expert stacks ``w_gate``/``w_up`` [L, E, D, F] and ``w_down`` [L, E, F,
+D], int8 per (layer, expert, out-channel) under either ``quant``. The
+load streams: one layer's (or one expert's) slice of a leaf at a time
+goes to the device (and, under ``quant``, is quantized there and freed),
+written into the preallocated stacked leaf, so the full-precision tree
+never exists whole on the device. The files are read with
 ``safetensors.safe_open(framework="pt")``: the package imports on the
 card's machine as on the CPU test machines, so the port keeps no reader
 of its own.
@@ -93,22 +97,24 @@ def checkpoint_version(path) -> str:
     return h.hexdigest()[:12]
 
 
-def _stacked_like(leaf, n: int):
-    """An empty [n, ...] stack for per-layer leaves shaped like ``leaf``
-    (a tensor, or a quantized leaf's ``q`` and ``scale``)."""
+def _stacked_like(leaf, lead: Tuple[int, ...]):
+    """An empty ``lead + leaf.shape`` stack for per-layer (or per-layer,
+    per-expert) leaves shaped like ``leaf`` (a tensor, or a quantized
+    leaf's ``q`` and ``scale``)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.new_empty((n,) + tuple(leaf.shape))
+        return leaf.new_empty(lead + tuple(leaf.shape))
     return dataclasses.replace(leaf, **{
-        f: getattr(leaf, f).new_empty((n,) + tuple(getattr(leaf, f).shape))
+        f: getattr(leaf, f).new_empty(lead + tuple(getattr(leaf, f).shape))
         for f in ("q", "scale")})
 
 
-def _put(stack, i: int, leaf) -> None:
+def _put(stack, index, leaf) -> None:
+    """Copy ``leaf`` into ``stack[index]`` (an int or a tuple)."""
     if isinstance(leaf, torch.Tensor):
-        stack[i].copy_(leaf)
+        stack[index].copy_(leaf)
     else:
         for f in ("q", "scale"):
-            getattr(stack, f)[i].copy_(getattr(leaf, f))
+            getattr(stack, f)[index].copy_(getattr(leaf, f))
 
 
 def convert_hf_checkpoint(cfg: ModelConfig, path, dtype=torch.bfloat16,
@@ -120,15 +126,11 @@ def convert_hf_checkpoint(cfg: ModelConfig, path, dtype=torch.bfloat16,
     ``quant`` ("" | "int8" | "int4") quantizes each projection during
     the load, one layer's slice at a time, with the port's
     ``quantize_int8``/``quantize_int4``; int4 falls back per leaf to
-    int8 where ``pick_format`` cannot tile the shape. ``quantize_embed``
-    (with ``quant``) stores the embedding per-row int8, quantized in row
-    chunks. The result equals ``params_from_jax`` of the JAX function's
-    output on the same file, leaf for leaf."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a mixture of experts: converting MoE "
-            f"checkpoints (Mixtral) waits for a later slice of the port "
-            f"(ROADMAP.md A5)")
+    int8 where ``pick_format`` cannot tile the shape. MoE expert slices
+    quantize one (layer, expert) at a time, int8 under either ``quant``.
+    ``quantize_embed`` (with ``quant``) stores the embedding per-row
+    int8, quantized in row chunks. The result equals ``params_from_jax``
+    of the JAX function's output on the same file, leaf for leaf."""
     if quant not in ("", "int8", "int4"):
         raise ValueError(f"quant must be ''|int8|int4, got {quant!r}")
     dev = resolve_device(device)
@@ -159,8 +161,24 @@ def convert_hf_checkpoint(cfg: ModelConfig, path, dtype=torch.bfloat16,
             if projection:
                 leaf = quantize_slice(leaf.T)
             if out is None:
-                out = _stacked_like(leaf, L)
+                out = _stacked_like(leaf, (L,))
             _put(out, i, leaf)
+        return out
+
+    def expert_stack(part: str):
+        """One MoE projection: every (layer, expert) ``[in, out]`` slice
+        into one preallocated [L, E, ...] leaf, int8 under any
+        ``quant`` (the JAX loader's ``eslice_q``)."""
+        out = None
+        for i in range(L):
+            for e in range(cfg.n_experts):
+                leaf = load(f"{pfx}layers.{i}.block_sparse_moe.experts."
+                            f"{e}.{part}.weight").T
+                if quant:
+                    leaf = quantize_int8(leaf)
+                if out is None:
+                    out = _stacked_like(leaf, (L, cfg.n_experts))
+                _put(out, (i, e), leaf)
         return out
 
     def lay(i: int, part: str) -> str:
@@ -172,10 +190,21 @@ def convert_hf_checkpoint(cfg: ModelConfig, path, dtype=torch.bfloat16,
                           False),
     }
     for leaf, part in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
-                       ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
-                       ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
-                       ("w_down", "mlp.down_proj")):
+                       ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")):
         layers[leaf] = stack(lambda i, part=part: lay(i, part), True)
+    if cfg.is_moe:
+        # The router, transposed to [D, E], stays in full precision.
+        gate = stack(lambda i: lay(i, "block_sparse_moe.gate"), False)
+        layers["router"] = gate.transpose(1, 2).contiguous()
+        # experts.{e}.w1 = gate [F, D], w3 = up [F, D], w2 = down [D, F]
+        for leaf, part in (("w_gate", "w1"), ("w_up", "w3"),
+                           ("w_down", "w2")):
+            layers[leaf] = expert_stack(part)
+    else:
+        for leaf, part in (("w_gate", "mlp.gate_proj"),
+                           ("w_up", "mlp.up_proj"),
+                           ("w_down", "mlp.down_proj")):
+            layers[leaf] = stack(lambda i, part=part: lay(i, part), True)
 
     embed_key = f"{pfx}embed_tokens.weight"
     if quantize_embed and quant:
@@ -258,7 +287,8 @@ def _logical_shape(node) -> tuple:
 
 
 def expected_shapes(cfg: ModelConfig) -> dict:
-    """Leaf shapes of a dense model's tree, keyed like the tree."""
+    """Leaf shapes of a model's tree, keyed like the tree (an MoE
+    model's router and expert stacks included)."""
     d, hd, H, KV, F_, L = (cfg.dim, cfg.head_dim, cfg.n_heads,
                            cfg.n_kv_heads, cfg.mlp_hidden, cfg.n_layers)
     shapes = {
@@ -268,9 +298,15 @@ def expected_shapes(cfg: ModelConfig) -> dict:
             "attn_norm": (L, d), "wq": (L, d, H * hd),
             "wk": (L, d, KV * hd), "wv": (L, d, KV * hd),
             "wo": (L, H * hd, d), "mlp_norm": (L, d),
-            "w_gate": (L, d, F_), "w_up": (L, d, F_), "w_down": (L, F_, d),
         },
     }
+    if cfg.is_moe:
+        E = cfg.n_experts
+        shapes["layers"].update(router=(L, d, E), w_gate=(L, E, d, F_),
+                                w_up=(L, E, d, F_), w_down=(L, E, F_, d))
+    else:
+        shapes["layers"].update(w_gate=(L, d, F_), w_up=(L, d, F_),
+                                w_down=(L, F_, d))
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes

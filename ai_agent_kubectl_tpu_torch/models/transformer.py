@@ -36,9 +36,12 @@ Shared by both:
   block, the dense cache's last row): writes the JAX version drops (a
   masked row, an unmapped page, a position past the cache) land there,
   so the scatter never needs a host-side filter.
+- A mixture-of-experts model (``cfg.is_moe``: Mixtral, ``toy-moe``)
+  runs its MLP through ``parallel/moe.py::dense_moe`` in every regime
+  of both layouts; ``moe_impl="ep"`` needs an expert mesh and raises.
 
-The MoE MLP, int8 KV, and the ring and mesh paths belong to later
-slices: asking for them raises ``NotImplementedError``.
+int8 KV, and the ring and mesh paths belong to later slices: asking for
+them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from ..ops.paged_attention import (_pool_gather, paged_decode_attention,
 from ..ops.quant import embed_lookup, qmatmul, tied_head
 from ..ops.ragged_attention import ragged_attention_pool
 from ..ops.rope import rope_tables, rotate
+from ..parallel.moe import dense_moe
 from .config import ModelConfig
 
 Params = Dict[str, object]
@@ -118,12 +122,10 @@ class KVCache:
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 dtype=torch.bfloat16, device=None) -> Params:
     """Random init (scaled normal, drawn in float32 from ``generator``)
-    with the JAX tree's keys and shapes. The draws differ from
-    ``jax.random``'s; parity tests map one tree onto the other with
-    ``params_from_jax`` instead."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE models wait for a later slice of the port")
+    with the JAX tree's keys and shapes, MoE leaves included (``router``
+    [L, D, E], ``w_gate``/``w_up`` [L, E, D, F], ``w_down`` [L, E, F,
+    D]). The draws differ from ``jax.random``'s; parity tests map one
+    tree onto the other with ``params_from_jax`` instead."""
 
     def dense(shape, scale):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -144,10 +146,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         "wv": dense((L, d, KV * hd), s_in),
         "wo": dense((L, H * hd, d), (H * hd) ** -0.5),
         "mlp_norm": norm((L, d)),
-        "w_gate": dense((L, d, F_), s_in),
-        "w_up": dense((L, d, F_), s_in),
-        "w_down": dense((L, F_, d), F_ ** -0.5),
     }
+    if cfg.is_moe:
+        E = cfg.n_experts
+        layers["router"] = dense((L, d, E), s_in)
+        layers["w_gate"] = dense((L, E, d, F_), s_in)
+        layers["w_up"] = dense((L, E, d, F_), s_in)
+        layers["w_down"] = dense((L, E, F_, d), F_ ** -0.5)
+    else:
+        layers["w_gate"] = dense((L, d, F_), s_in)
+        layers["w_up"] = dense((L, d, F_), s_in)
+        layers["w_down"] = dense((L, F_, d), F_ ** -0.5)
     params: Params = {
         "embed": dense((cfg.vocab_size, d), 1.0),
         "layers": layers,
@@ -222,6 +231,20 @@ def _dense_mlp(cfg: ModelConfig, lp: Dict[str, object],
     return qmatmul(gate * qmatmul(x, lp["w_up"]), lp["w_down"])
 
 
+def _moe_mlp(cfg: ModelConfig, lp: Dict[str, object], x: torch.Tensor,
+             moe_impl: str) -> torch.Tensor:
+    """The MoE MLP (the JAX ``_moe_mlp`` on one device, where no mesh is
+    in scope): ``auto`` and ``dense`` evaluate every expert
+    (``dense_moe``); ``ep``, the expert-parallel dispatch, needs a mesh
+    and raises with the JAX message."""
+    if moe_impl == "ep":
+        raise ValueError(
+            "MOE_IMPL=ep needs a mesh with an expert axis whose size "
+            "divides tokens and experts (the port has no mesh yet: "
+            "ROADMAP.md A8)")
+    return dense_moe(cfg, lp, x)
+
+
 #: (q, k, v, layer_k, layer_v) -> attention output [B, S, H, hd]; writes
 #: the window's K/V into the layer's cache first.
 Attend = Callable[..., torch.Tensor]
@@ -229,9 +252,10 @@ Attend = Callable[..., torch.Tensor]
 
 def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, object],
            layer_k: torch.Tensor, layer_v: torch.Tensor, rope: tuple,
-           attend: Attend) -> torch.Tensor:
+           attend: Attend, moe_impl: str = "auto") -> torch.Tensor:
     """One transformer block: every projection through ``qmatmul``, the
-    KV write and attention through ``attend`` (pool or dense)."""
+    KV write and attention through ``attend`` (pool or dense), the MLP
+    dense or mixture of experts."""
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = rms_norm(h, lp["attn_norm"], cfg.rms_eps, cfg.rms_offset)
@@ -241,7 +265,9 @@ def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, object],
     attn = attend(q, k, v, layer_k, layer_v)
     h = h + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps, cfg.rms_offset)
-    return h + _dense_mlp(cfg, lp, x)
+    mlp = (_moe_mlp(cfg, lp, x, moe_impl) if cfg.is_moe
+           else _dense_mlp(cfg, lp, x))
+    return h + mlp
 
 
 def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
@@ -345,6 +371,7 @@ def forward(
     attn_impl: Optional[str] = None,    # default: ragged (pool), dense
     token_mask: Optional[torch.Tensor] = None,  # [B, S]; 0 = padding
     page_size: int = 128,               # dense cache: page under "paged"
+    moe_impl: str = "auto",             # MoE MLP: auto | dense (ep raises)
     logits_at: Optional[torch.Tensor] = None,   # [B]: logits at one column
     write_mask: Optional[torch.Tensor] = None,  # [B] or [B, S] bool
     block_tables: Optional[torch.Tensor] = None,  # [B, max_pages] int32
@@ -364,14 +391,14 @@ def forward(
     pages of ``page_size`` from the whole cache; otherwise attention
     reads ``cache[:, :kv_limit]`` (default: the whole cache) under
     ``kv <= position``. ``write_mask`` gates the KV writes per row or per
-    token in both. ``token_mask`` marks padding, as in the JAX
-    signature; only the MoE MLP reads it there, and the port has no MoE
-    yet. ``logits_at`` gathers each row's hidden state at one column
-    BEFORE the LM head, returning [B, 1, vocab]."""
+    token in both. An MoE model runs ``dense_moe`` under ``moe_impl``
+    "auto" or "dense" ("ep" raises). ``token_mask`` marks padding, as in
+    the JAX signature, where only the expert-parallel dispatch reads it
+    (to keep padding out of the experts' capacity); the dense
+    evaluation, the port's only one, ignores it. ``logits_at`` gathers
+    each row's hidden state at one column BEFORE the LM head, returning
+    [B, 1, vocab]."""
     del token_mask
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE models wait for a later slice of the port")
     if block_tables is not None:
         attn_impl = attn_impl or "ragged"
         if attn_impl not in ("ragged", "paged", "dense", "flash"):
@@ -410,7 +437,8 @@ def forward(
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
-        h = _layer(cfg, h, lp, cache.k[i], cache.v[i], rope, attend)
+        h = _layer(cfg, h, lp, cache.k[i], cache.v[i], rope, attend,
+                   moe_impl)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps, cfg.rms_offset)
     if logits_at is not None:
         h = h[torch.arange(B, device=h.device), logits_at.long()][:, None]

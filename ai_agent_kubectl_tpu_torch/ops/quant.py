@@ -15,6 +15,10 @@ int8 KV and W8A8 wait for a later slice):
 - ``random_params_int8`` draws a tree directly in quantized form on the
   device (no full-precision 7B tree is ever built), with the structure,
   shapes and dtypes ``quantize_params_int8(init_params(...))`` gives.
+- MoE expert stacks ``[L, E, in, out]`` quantize per (layer, expert,
+  out-channel) and stay int8 under int4 too (the int4 kernel serves 2-D
+  slices; ``parallel/moe.py`` takes int8 experts); the router stays in
+  full precision.
 """
 
 from __future__ import annotations
@@ -129,27 +133,28 @@ def random_params_int8(generator: torch.Generator, cfg, dtype=None,
     values are arbitrary, as any random init's; the tree's structure,
     shapes and dtypes match ``quantize_params_int8(init_params(...))``
     (``int4=True``: ``quantize_params_int4``, with tileable projections
-    packed and group-scaled, the rest int8).
+    packed and group-scaled, the rest int8, MoE expert stacks included).
 
-    Payload bytes are drawn one layer at a time straight into the int8
-    stack (``random_`` in place), so no transient exceeds one slice."""
+    Payload bytes are drawn one ``[in, out]`` slice at a time straight
+    into the int8 stack (``random_`` in place; a Mixtral expert stack is
+    45 GB of int8), so no transient exceeds one slice. The scales and the
+    router's normal draw follow the JAX ``random_params_int8``."""
     from ..models.convert import expected_shapes
 
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE models wait for a later slice of the port")
     if dtype is None:
         dtype = torch.bfloat16
     shapes = expected_shapes(cfg)
 
     def int8_payload(shape):
         q = torch.empty(shape, dtype=torch.int8, device=device)
-        for part in (q if len(shape) > 2 else [q]):
+        for part in q.view(-1, *shape[-2:]):
             part.random_(-127, 128, generator=generator)
         return q
 
     def quantized(shape):
-        fmt = pick_format(shape[-2], shape[-1]) if int4 else None
+        # MoE expert stacks ([L, E, in, out]) stay int8 under int4.
+        fmt = (pick_format(shape[-2], shape[-1])
+               if int4 and len(shape) <= 3 else None)
         if fmt is not None:
             q = int8_payload(shape[:-1] + (shape[-1] // 2,))
             G = shape[-2] // fmt[0]
@@ -176,8 +181,14 @@ def random_params_int8(generator: torch.Generator, cfg, dtype=None,
 
     layers = {}
     for name, shape in shapes["layers"].items():
-        layers[name] = (quantized(shape) if name in _QUANT_KEYS
-                        else norm(shape))
+        if name in _QUANT_KEYS:
+            layers[name] = quantized(shape)
+        elif name == "router":
+            # The JAX init scales every plain leaf but the embedding by
+            # its leading dim to the -1/2 (here the layer count).
+            layers[name] = dense(shape, shape[0] ** -0.5)
+        else:
+            layers[name] = norm(shape)
     vocab, d = shapes["embed"]
     if quantize_embed:
         embed = QuantInt8(q=int8_payload((vocab, d)),
@@ -196,7 +207,10 @@ def random_params_int8(generator: torch.Generator, cfg, dtype=None,
 def quantize_params_int8(params: Dict[str, Any],
                          quantize_embed: bool = False) -> Dict[str, Any]:
     """Quantize every projection weight of an ``init_params`` tree to
-    ``QuantInt8`` (and, with ``quantize_embed``, the embedding per row)."""
+    ``QuantInt8`` (and, with ``quantize_embed``, the embedding per row).
+    Rank-4 MoE expert stacks get per-(layer, expert, out-channel)
+    scales: ``quantize_int8`` reduces only the contraction axis. The
+    router is left in full precision."""
     out = dict(params)
     layers = dict(params["layers"])
     for key in _QUANT_KEYS:

@@ -282,6 +282,8 @@ def quantize_params_int4(params: Dict[str, Any],
     from .quant import _QUANT_KEYS, quantize_embed_int8, quantize_int8
 
     def q4_or_q8(w):
+        # MoE expert stacks (rank 4) stay int8, as in the JAX package:
+        # the int4 kernel serves 2-D slices, parallel/moe.py int8 ones.
         fmt = (pick_format(w.shape[-2], w.shape[-1])
                if w.dim() <= 3 else None)
         if fmt is None:

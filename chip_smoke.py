@@ -20,7 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  last live key; decode with the keys split over blocks
                  (last keys on and beside split boundaries, position
                  1023) and the mixed prologue at W=64 (two admissions,
-                 six decode rows);
+                 six decode rows); and at Mixtral's grouping (32 query
+                 heads over 8 KV heads of 128): decode, the prologue and
+                 prefill spans of 512;
                * flash attention at Gemma-7B's shapes (H=KV=16, head_dim
                  256; S 64 and 512 over a 1024-slot cache, from position
                  0 and from 85, a padded tail running past the cache,
@@ -34,7 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                * the int4 matmul on Gemma-7B's four projection shapes at
                  T in {1, 8, 9, 16, 64, 65, 85, 512, 600}, formats
                  512/512, 256/256 and 128/256 (the GEMV, the tiled path,
-                 with and without the contraction split);
+                 with and without the contraction split), and on
+                 Mixtral's wq (4096x4096) and wk (4096x1024) at T in {1,
+                 8, 64, 512, 4096} and its head (4096x32000, 512/256) at
+                 T in {1, 8};
                * both paged decode entry points (contiguous caches and the
                  pool) at Llama-3-8B's grouping (H=32, KV=8, head_dim 128;
                  pages 64 and 16), Gemma-2B's (8 over 1, 256) and
@@ -132,11 +137,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                resumes through a flash prefill.
                Ragged, flash and paged launches are zeroed before each
                engine's traffic and printed after.
-8. timing   -- time each kernel, its plain version, one PyTorch library
+8. serve_moe -- Mixtral-8x7B (MODEL_NAME=mixtral-8x7b-instruct) at full
+               width: 32 layers, dim 4096, 8 experts of 14,336 with 2
+               routed per token, 32 query heads over 8 KV heads of 128,
+               vocab 32,000. QUANT=int4: attention and the head packed
+               int4, the expert stacks int8, the embedding per-row int8,
+               drawn once on the card from seed 0 (random_params_int8,
+               one [in, out] slice at a time) after checking the free
+               device memory, and freed at the end. MAX_SEQ_LEN=1024,
+               PREFILL_BUCKETS=64,128,256,512, RATE_LIMIT=1000/minute.
+               (a) The pool engine (8 slots, the ragged regime) over
+               HTTP: the serve phase's burst of 8 and its 2 repeats;
+               statuses as the service decides, prefix hits on the
+               repeats, books balanced, served logits against the plain
+               versions (ragged and int4) under the serve phase's rule.
+               (b) The single-sequence engine (DECODE_BATCH_SIZE=1): one
+               query of about 600 tokens (prefix splice, chunked flash
+               prefill, int4 decode); served logits likewise (flash and
+               int4). Launch counts are zeroed before each part's traffic
+               and read after: ragged and int4 in (a), flash and int4 in
+               (b) must have grown. Then the dense mix equals the sparse
+               pick (dense_moe on served hidden states of one layer
+               against a float32 loop over each token's two routed
+               experts) and the peak device memory stays under the tree
+               plus both engines' KV plus one MoE layer's transient.
+               Printed: the routed-expert histogram, init seconds, burst
+               tok/s, decode ms a step, TTFT, launches; with --profile
+               the MoE MLP's share of a step.
+9. timing   -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
-               shapes the serving paths give it; with --profile, also the
-               device time of each kernel a call launches (an attention
-               kernel and its split combine).
+               shapes the serving paths give it (serve_moe's int4
+               projections and ragged decode included); with --profile,
+               also the device time of each kernel a call launches (an
+               attention kernel and its split combine).
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -150,6 +183,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import os
 import re
 import subprocess
@@ -160,7 +194,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
-          "serve_qos", "timing")
+          "serve_qos", "serve_moe", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -203,46 +237,50 @@ def gpu_line() -> str:
 # ------------------------------------------------------------ ragged cases
 
 def ragged_case(torch, gen, *, W, positions, q_lens, nan_block=True,
-                device="cuda"):
-    """One ragged-attention call at Gemma-2B's shapes: a pool of
-    N*MAX_PAGES+1 blocks, tables that map each slot's live pages to
+                H=N_HEADS, KV=N_KV, hd=HEAD_DIM, page=PAGE, device="cuda"):
+    """One ragged-attention call, at Gemma-2B's shapes unless ``H``,
+    ``KV``, ``hd`` and ``page`` say otherwise (Mixtral's 32 over 8 of 128
+    at the page of 64 its pool serves with): each slot spans
+    MAX_PAGES * PAGE positions, in a pool of one block per slot page
+    plus one, tables that map each slot's live pages to
     distinct blocks (slot 1 shares slot 0's first block) and hold the
     sentinel past them. With ``nan_block`` the last block (the one a
     clamped sentinel entry lands on) is NaN, and so is every row past a
     slot's last live key in its last live page, where no other slot
     reads: the kernel must read nothing past a tile's last live key."""
     N = len(positions)
-    n_blocks = N * MAX_PAGES + 1
-    shape = (n_blocks, PAGE, N_KV, HEAD_DIM)
+    max_pages = MAX_PAGES * PAGE // page
+    n_blocks = N * max_pages + 1
+    shape = (n_blocks, page, KV, hd)
     k = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
     v = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
     if nan_block:
         k[n_blocks - 1] = float("nan")
         v[n_blocks - 1] = float("nan")
-    q = torch.randn((N, W, N_HEADS, HEAD_DIM), generator=gen,
+    q = torch.randn((N, W, H, hd), generator=gen,
                     device=device).to(torch.bfloat16)
     sentinel = n_blocks + 7
-    tables = torch.full((N, MAX_PAGES), sentinel, dtype=torch.int32)
+    tables = torch.full((N, max_pages), sentinel, dtype=torch.int32)
     perm = torch.randperm(n_blocks - 1, generator=torch.Generator()
                           .manual_seed(0)).to(torch.int32)
     used = 0
     for n, (p, ql) in enumerate(zip(positions, q_lens)):
-        live = -(-(p + max(ql, 1)) // PAGE)
-        assert live <= MAX_PAGES, (p, ql)
+        live = -(-(p + max(ql, 1)) // page)
+        assert live <= max_pages, (p, ql)
         tables[n, :live] = perm[used:used + live]
         used += live
     tables[1, 0] = tables[0, 0]          # a shared prefix page
     if nan_block:
         owners: dict = {}
         for n, (p, ql) in enumerate(zip(positions, q_lens)):
-            for b in tables[n, :-(-(p + max(ql, 1)) // PAGE)].tolist():
+            for b in tables[n, :-(-(p + max(ql, 1)) // page)].tolist():
                 owners.setdefault(b, set()).add(n)
         for n, (p, ql) in enumerate(zip(positions, q_lens)):
             last = p + max(ql, 1) - 1    # the slot's last live key
-            blk = int(tables[n, last // PAGE])
-            if owners[blk] == {n} and last % PAGE < PAGE - 1:
-                k[blk, last % PAGE + 1:] = float("nan")
-                v[blk, last % PAGE + 1:] = float("nan")
+            blk = int(tables[n, last // page])
+            if owners[blk] == {n} and last % page < page - 1:
+                k[blk, last % page + 1:] = float("nan")
+                v[blk, last % page + 1:] = float("nan")
     return dict(
         q=q, k=k, v=v,
         q_lens=torch.tensor(q_lens, dtype=torch.int32, device=device),
@@ -280,6 +318,16 @@ def ragged_cases(torch, gen):
         # admit their prompt's suffix (each prompt 85 tokens) while six
         # decode at q_len 1, in one W=64 window (keys split, 256 a split).
         ("prologue64", ragged_case(torch, gen, **PROLOGUE64)),
+        # serve_moe's pool at Mixtral's grouping (32 query heads over 8
+        # KV heads of 128): decode, the mixed prologue and 8 prefills.
+        ("mixtral_decode", ragged_case(
+            torch, gen, W=1, positions=[0, 15, 16, 100, 255, 511, 700, 1000],
+            q_lens=[1, 1, 1, 0, 1, 1, 1, 1], **MIXTRAL)),
+        ("mixtral_prologue64", ragged_case(torch, gen, **PROLOGUE64,
+                                           **MIXTRAL)),
+        ("mixtral_prefill512", ragged_case(
+            torch, gen, W=512, positions=[0, 100, 0, 256, 0, 0, 500, 0],
+            q_lens=[512, 512, 300, 512, 0, 1, 512, 200], **MIXTRAL)),
     ]
 
 
@@ -288,7 +336,7 @@ PROLOGUE64 = dict(W=64, positions=[21, 45, 100, 150, 200, 260, 512, 1000],
                   q_lens=[64, 40, 1, 1, 1, 1, 1, 1])
 # Ragged cases whose key split phase 2 checks (their shapes must split).
 RAGGED_SPLIT_CASES = ("decode", "verify5", "prefill64", "decode_split",
-                      "prologue64")
+                      "prologue64", "mixtral_decode")
 
 
 def ragged_live_work(case) -> tuple:
@@ -355,6 +403,19 @@ def flash_case(torch, gen, *, S, KVLEN, offset=0, B=1, H=G7_HEADS,
 # Llama-3-8B's attention geometry: 32 query heads over 8 KV heads of 128.
 LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 128
 LLAMA = dict(H=LLAMA_HEADS, KV=LLAMA_KV, hd=LLAMA_HD)
+# Mixtral-8x7B's attention has Llama-3-8B's grouping: the flash cases at
+# LLAMA cover serve_moe's prefills. Its pool serves pages of 64 (the
+# engine raises KV_POOL_PAGE to 64 for a GQA model on the card).
+MIXTRAL = dict(LLAMA, page=64)
+# Mixtral-8x7B's int4 projections (IN, OUT) at pick_format's format:
+# wq and wo 4096x4096, wk and wv 4096x1024, the untied head 4096x32000.
+MIXTRAL_PROJ = {"wq": ((4096, 4096), (512, 512)),
+                "wk": ((4096, 1024), (512, 512)),
+                "lm_head": ((4096, 32000), (512, 256))}
+# Rows a Mixtral projection serves: single-sequence decode, the pool's
+# 8 decode rows, a prefill window, the pool's widest ragged prologue
+# (8 slots x 512).
+MIXTRAL_TS = (1, 8, 64, 512, 4096)
 
 
 def flash_cases(torch, gen):
@@ -464,6 +525,12 @@ def int4_cases(torch, gen):
             for T in INT4_TS:
                 x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
                 out.append((f"{name}_T{T}_{fmt[0]}/{fmt[1]}", x, w))
+    for name, ((IN, OUT), fmt) in MIXTRAL_PROJ.items():
+        for T in MIXTRAL_TS:
+            if name == "lm_head" and T > 8:
+                continue             # the head reads one column a row
+            x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
+            out.append((f"mixtral_{name}_T{T}_{fmt[0]}/{fmt[1]}", x, w))
     return out
 
 
@@ -706,11 +773,13 @@ def phase_kernel(torch) -> dict:
     cases = ragged_cases(torch, gen)
     for label, case in cases:
         N, W, H, _ = case["q"].shape
-        splits, kps, _ = split_plan(N, W, H, N_KV, MAX_PAGES, PAGE)
+        page = case["k"].shape[1]
+        splits, kps, _ = split_plan(N, W, H, case["k"].shape[2],
+                                    case["block_tables"].shape[1], page)
         if (splits > 1) != (label in RAGGED_SPLIT_CASES):
             raise AssertionError(f"ragged [{label}]: {splits} key splits")
-        out = ragged_attention_pool(**case, page_size=PAGE)
-        ref = ragged_attention_pool_plain(**case, page_size=PAGE)
+        out = ragged_attention_pool(**case, page_size=page)
+        ref = ragged_attention_pool_plain(**case, page_size=page)
         # Non-finite output would mean a dead or NaN page leaked in.
         err = check_close(torch, f"ragged [{label}]", out, ref)
         frozen = case["q_lens"] == 0
@@ -1016,16 +1085,7 @@ async def _serve(torch, profile: bool, bursts: int) -> dict:
         raise AssertionError(f"attention kernel launched {launches} times "
                              f"for {steps} forward steps x "
                              f"{cfg_model.n_layers} layers")
-    # The pool's books after the drain: every block free or held by the
-    # radix tree, exactly.
-    holders: dict = {}
-    for slot in inner._slots:
-        for b in (slot.blocks or []) if slot is not None else []:
-            holders[b] = holders.get(b, 0) + 1
-    if inner._radix is not None:
-        for b, n in inner._radix._held.items():
-            holders[b] = holders.get(b, 0) + n
-    inner._pool.check(holders)
+    check_pool_books(inner)
 
     logit_check = _check_served_logits(torch, inner, results)
     firsts = [results[render_prompt(q)][0] for q in QUERIES]
@@ -1058,6 +1118,19 @@ async def _serve(torch, profile: bool, bursts: int) -> dict:
         + (f"; more bursts {', '.join(f'{t:.1f}' for t in more)} tok/s"
            if more else ""))
     return info
+
+
+def check_pool_books(inner) -> None:
+    """The pool's books after a drain: every block free or held by a
+    live slot or the radix tree, exactly (``BlockPool.check`` raises)."""
+    holders: dict = {}
+    for slot in inner._slots:
+        for b in (slot.blocks or []) if slot is not None else []:
+            holders[b] = holders.get(b, 0) + 1
+    if inner._radix is not None:
+        for b, n in inner._radix._held.items():
+            holders[b] = holders.get(b, 0) + n
+    inner._pool.check(holders)
 
 
 async def _profile_burst(torch, ask, queries, steps, unit: str,
@@ -1108,15 +1181,67 @@ async def _profile_burst(torch, ask, queries, steps, unit: str,
     return out
 
 
-def _check_served_logits(torch, engine, results, tag="serve") -> dict:
-    """First-step logits of one served prompt through the serving forward
-    (kernel attention) against the same forward with the plain attention,
-    on the card; and the served first token must be the kernel forward's
-    argmax up to that tolerance."""
-    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+def _kernel_and_plain(torch, run) -> tuple:
+    """``run()`` on the kernels, then with the forward's ragged, flash and
+    int4 entry points set to their plain versions (a call to a kernel
+    the forward does not reach is a no-op swap)."""
     from ai_agent_kubectl_tpu_torch.models import transformer
+    from ai_agent_kubectl_tpu_torch.ops import quant
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached_plain)
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4_plain
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
         ragged_attention_pool_plain)
+
+    swaps = [(transformer, "ragged_attention_pool",
+              ragged_attention_pool_plain),
+             (transformer, "flash_attention_cached",
+              flash_attention_cached_plain),
+             (quant, "qmatmul4", qmatmul4_plain)]
+    with torch.no_grad():
+        kernel = run()
+        saved = [getattr(m, n) for m, n, _ in swaps]
+        for m, n, plain in swaps:
+            setattr(m, n, plain)
+        try:
+            plain = run()
+        finally:
+            for (m, n, _), fn in zip(swaps, saved):
+                setattr(m, n, fn)
+    return kernel, plain
+
+
+def _logit_gate(torch, kernel, plain, served: int, what: str,
+                tag: str) -> dict:
+    """Max |kernel - plain| within LOGIT_RTOL of the plain logits' rms,
+    and the served first token the kernel forward's argmax up to the
+    same tolerance."""
+    rms = float(plain.pow(2).mean().sqrt())
+    err = float((kernel - plain).abs().max())
+    tol = LOGIT_RTOL * rms
+    gap = float(kernel.max()) - float(kernel[served])
+    log(f"[{tag}] first-step logits {what}: max |kernel - plain| "
+        f"{err:.4f} (rms {rms:.3f}, tolerance {tol:.4f}); served token "
+        f"{served} sits {gap:.4f} below the kernel argmax "
+        f"{int(kernel.argmax())}")
+    if not torch.isfinite(kernel).all() or err > tol:
+        raise AssertionError(f"{tag}: served-path logits disagree with the "
+                             f"plain forward: {err} > {tol}")
+    if gap > tol:
+        raise AssertionError(f"{tag}: served first token {served} is {gap} "
+                             f"below the argmax (tolerance {tol})")
+    return {"max_abs_err": err, "rms": rms, "tolerance": tol,
+            "served_gap": gap}
+
+
+def _check_served_logits(torch, engine, results, tag="serve") -> dict:
+    """First-step logits of one served prompt through the serving pool
+    forward (ragged attention, and int4 projections where the tree has
+    them) against the same forward on the plain versions, on the card;
+    and the served first token must be the kernel forward's argmax up to
+    that tolerance."""
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.models import transformer
 
     res = results[render_prompt(QUERIES[0])][0]
     ids = engine.tokenizer.encode(render_prompt(QUERIES[0]))
@@ -1136,32 +1261,10 @@ def _check_served_logits(torch, engine, results, tag="serve") -> dict:
             logits_at=torch.tensor([P - 1], device=dev))
         return logits[0, 0].float()
 
-    with torch.no_grad():
-        kernel = run()
-        saved = transformer.ragged_attention_pool
-        transformer.ragged_attention_pool = ragged_attention_pool_plain
-        try:
-            plain = run()
-        finally:
-            transformer.ragged_attention_pool = saved
-    rms = float(plain.pow(2).mean().sqrt())
-    err = float((kernel - plain).abs().max())
-    tol = LOGIT_RTOL * rms
-    top = float(kernel.max())
-    served = int(res.token_ids[0])
-    gap = top - float(kernel[served])
-    log(f"[{tag}] first-step logits over {P} prompt tokens: max |kernel - "
-        f"plain| {err:.4f} (rms {rms:.3f}, tolerance {tol:.4f}); served "
-        f"token {served} sits {gap:.4f} below the kernel argmax "
-        f"{int(kernel.argmax())}")
-    if not torch.isfinite(kernel).all() or err > tol:
-        raise AssertionError(f"served-path logits disagree with the plain "
-                             f"forward: {err} > {tol}")
-    if gap > tol:
-        raise AssertionError(f"served first token {served} is {gap} below "
-                             f"the argmax (tolerance {tol})")
-    return {"prompt_tokens": P, "max_abs_err": err, "rms": rms,
-            "tolerance": tol, "served_gap": gap}
+    kernel, plain = _kernel_and_plain(torch, run)
+    return dict(_logit_gate(torch, kernel, plain, int(res.token_ids[0]),
+                            f"over {P} prompt tokens", tag),
+                prompt_tokens=P)
 
 
 # The single-sequence configuration of phase 4, as the server reads it.
@@ -1355,52 +1458,23 @@ def _leaves(tree):
         yield tree
 
 
-def _check_served_logits1(torch, engine, res, prompt) -> dict:
+def _check_served_logits1(torch, engine, res, prompt,
+                          tag="serve1") -> dict:
     """One served prompt prefilled from scratch through the engine's
-    forward (flash and int4 kernels) against the same forward with both
-    plain versions, on the card; and the served first token (which came
-    through the prefix-cache suffix path) must be the kernel forward's
-    argmax up to that tolerance."""
-    from ai_agent_kubectl_tpu_torch.models import transformer
-    from ai_agent_kubectl_tpu_torch.ops import quant
-    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
-        flash_attention_cached_plain)
-    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4_plain
-
+    forward (flash and int4 kernels; in chunks of the largest bucket
+    past it, as the engine prefills a long prompt) against the same
+    forward with both plain versions, on the card; and the served first
+    token (which came through the prefix-cache suffix path) must be the
+    kernel forward's argmax up to that tolerance."""
     ids = engine.tokenizer.encode(prompt)
-    P = len(ids)
-    bucket = engine._bucket_for(P)
 
     def run():
-        return engine._prefill(ids, 0, bucket, bucket,
-                               engine._new_cache())[0].float()
+        return engine._prefill_chunked(ids)[0][0].float()
 
-    with torch.no_grad():
-        kernel = run()
-        saved = transformer.flash_attention_cached, quant.qmatmul4
-        transformer.flash_attention_cached = flash_attention_cached_plain
-        quant.qmatmul4 = qmatmul4_plain
-        try:
-            plain = run()
-        finally:
-            transformer.flash_attention_cached, quant.qmatmul4 = saved
-    rms = float(plain.pow(2).mean().sqrt())
-    err = float((kernel - plain).abs().max())
-    tol = LOGIT_RTOL * rms
-    served = int(res.token_ids[0])
-    gap = float(kernel.max()) - float(kernel[served])
-    log(f"[serve1] first-step logits over {P} prompt tokens (bucket "
-        f"{bucket}): max |kernel - plain| {err:.4f} (rms {rms:.3f}, "
-        f"tolerance {tol:.4f}); served token {served} sits {gap:.4f} below "
-        f"the kernel argmax {int(kernel.argmax())}")
-    if not torch.isfinite(kernel).all() or err > tol:
-        raise AssertionError(f"served-path logits disagree with the plain "
-                             f"forward: {err} > {tol}")
-    if gap > tol:
-        raise AssertionError(f"served first token {served} is {gap} below "
-                             f"the argmax (tolerance {tol})")
-    return {"prompt_tokens": P, "max_abs_err": err, "rms": rms,
-            "tolerance": tol, "served_gap": gap}
+    kernel, plain = _kernel_and_plain(torch, run)
+    return dict(_logit_gate(torch, kernel, plain, int(res.token_ids[0]),
+                            f"over {len(ids)} prompt tokens", tag),
+                prompt_tokens=len(ids))
 
 
 # The paged-decode configuration of phase 5, as the server reads it; each
@@ -1579,13 +1653,7 @@ async def _serve_paged_one(torch, kind: str, env: dict, params,
             raise AssertionError(f"{tag}: the repeats radix-matched "
                                  f"{hits2 - hits1} tokens, want >= "
                                  f"{want_hits}")
-        holders: dict = {}
-        for slot in inner._slots:
-            for b in (slot.blocks or []) if slot is not None else []:
-                holders[b] = holders.get(b, 0) + 1
-        for b, n in inner._radix._held.items():
-            holders[b] = holders.get(b, 0) + n
-        inner._pool.check(holders)
+        check_pool_books(inner)
     n_tok = sum(r.completion_tokens for r in firsts)
     ttft = sorted(r.ttft_ms for r in firsts)
     info = {
@@ -2044,14 +2112,7 @@ async def _serve_ckpt_bf16(torch, path, kept, ckpt_bytes, serve_info):
         raise AssertionError(f"{tag}: ragged kernel launched {launches} "
                              f"times for {steps} forward steps x "
                              f"{n_layers} layers")
-    holders: dict = {}
-    for slot in inner._slots:
-        for b in (slot.blocks or []) if slot is not None else []:
-            holders[b] = holders.get(b, 0) + 1
-    if inner._radix is not None:
-        for b, n in inner._radix._held.items():
-            holders[b] = holders.get(b, 0) + n
-    inner._pool.check(holders)
+    check_pool_books(inner)
     logit_check = _check_served_logits(torch, inner, results, tag)
     firsts = [results[render_prompt(q)][0] for q in QUERIES]
     n_tok = sum(r.completion_tokens for r in firsts)
@@ -2459,13 +2520,7 @@ async def _serve_qos_one(torch, kind: str, env: dict, params, slots: int):
         if any(n - m > PAGE for n, m in remaps) or not remaps:
             raise AssertionError(f"{tag}: a resume prefilled more than a "
                                  f"page: {remaps}")
-        holders: dict = {}
-        for slot in inner._slots:
-            for b in (slot.blocks or []) if slot is not None else []:
-                holders[b] = holders.get(b, 0) + 1
-        for b, n in inner._radix._held.items():
-            holders[b] = holders.get(b, 0) + n
-        inner._pool.check(holders)
+        check_pool_books(inner)
     elif not resume_flash or min(resume_flash) < inner.model_cfg.n_layers:
         raise AssertionError(f"{tag}: a resume did not prefill through "
                              f"flash: {resume_flash}")
@@ -2615,6 +2670,509 @@ def _sampling_step(torch, engine) -> dict:
             "greedy_ms": greedy_ms}
 
 
+# --------------------------------------------------------------- serve_moe
+
+# Phase 8's configuration, as the server reads it: Mixtral-8x7B with int4
+# attention and head, int8 experts, a per-row int8 embedding; every
+# other knob at its default (ragged pool regime, 16-token pages and
+# chunks, 128 new tokens, greedy, MOE_IMPL=auto).
+MOE_MODEL = "mixtral-8x7b-instruct"
+SERVE_MOE_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda",
+    "MODEL_NAME": MOE_MODEL, "DTYPE": "bfloat16", "QUANT": "int4",
+    "DECODE_BATCH_SIZE": str(N_SLOTS), "MAX_SEQ_LEN": "1024",
+    "PREFILL_BUCKETS": "64,128,256,512",
+    "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+    "RATE_LIMIT": "1000/minute",
+}
+SERVE_MOE_ENGINES = {"pool": {}, "single": {"DECODE_BATCH_SIZE": "1"}}
+# The layer whose served hidden states (the inputs of its MoE MLP in the
+# pool's decode steps) the dense-mix check takes, and how many tokens.
+MOE_CHECK_LAYER, MOE_CHECK_TOKENS = 15, 64
+# Free device memory the phase asks for beyond the quantized tree: the KV
+# pool (1.07 GB at MAX_SEQ_LEN 1024) and the transients of a prologue.
+MOE_HEADROOM_BYTES = 4_000_000_000
+
+
+def quantized_tree_bytes(cfg) -> int:
+    """Bytes of ``random_params_int8(cfg, int4=True, quantize_embed=True)``
+    in bf16, from the shapes alone: packed int4 where ``pick_format``
+    tiles a 2-D-per-layer projection (half a byte an element, f32 group
+    scales), int8 with f32 per-channel scales elsewhere (the expert
+    stacks), the per-row int8 embedding, bf16 norms and router."""
+    from ai_agent_kubectl_tpu_torch.models.convert import expected_shapes
+    from ai_agent_kubectl_tpu_torch.ops.quant import _QUANT_KEYS
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import pick_format
+
+    def numel(shape):
+        n = 1
+        for d in shape:
+            n *= d
+        return n
+
+    def quantized(shape):
+        IN, OUT = shape[-2:]
+        fmt = pick_format(IN, OUT) if len(shape) <= 3 else None
+        if fmt is not None:
+            return numel(shape) // 2 + 4 * numel(shape) // fmt[0]
+        return numel(shape) + 4 * numel(shape) // IN
+
+    shapes = expected_shapes(cfg)
+    total = 0
+    for name, shape in shapes["layers"].items():
+        total += (quantized(shape) if name in _QUANT_KEYS
+                  else 2 * numel(shape))
+    V, D = shapes["embed"]
+    total += V * D + 4 * V + 2 * D
+    if "lm_head" in shapes:
+        total += quantized(shapes["lm_head"])
+    return total
+
+
+def moe_transient_bytes(cfg, tokens: int) -> int:
+    """A bound on one MoE layer's transient at ``tokens`` tokens in one
+    forward: one expert's bf16 copy of an int8 slice, the expert's
+    [tokens, F] activations (gate, up, their product, the f32 epilogue
+    of each product and its cast: 16 bytes an element), the layer's
+    [tokens, D] streams (attention's q/k/v/out and the residual in bf16,
+    the float32 mix accumulator and the weighted expert output: 32 bytes
+    an element) and the routing ([tokens, E] logits, order, mix: 32
+    bytes an element)."""
+    D, F_, E = cfg.dim, cfg.mlp_hidden, cfg.n_experts
+    return 2 * D * F_ + tokens * (16 * F_ + 32 * D + 32 * E)
+
+
+def release_served_apps(torch) -> None:
+    """Free what earlier serving phases left on the card. aiohttp
+    memoizes each (handler, app) pair's middleware chain in a
+    module-level LRU cache (``web_app._cached_build_middleware``), so
+    every app a phase built keeps its service and engine (weights and
+    KV) alive after the phase ends: about 46 GB by serve_moe. A server
+    builds one app per process and never meets this."""
+    import gc
+
+    from aiohttp import web_app
+
+    web_app._cached_build_middleware.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_moe(torch, profile: bool = False) -> dict:
+    """Phase 8: Mixtral-8x7B at full width on one card, one parameter
+    tree drawn once for (a) the pool engine and (b) the single-sequence
+    engine; then the dense-mix check on (a)'s hidden states and the
+    peak-memory gate. The tree is freed at the end."""
+    import gc
+
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.quant import random_params_int8
+
+    release_served_apps(torch)
+    cfg = get_config(MOE_MODEL)
+    want_tree = quantized_tree_bytes(cfg)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[serve_moe] {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, "
+        f"{cfg.n_experts} experts of {cfg.mlp_hidden} ({cfg.experts_per_token}"
+        f" routed), {cfg.n_heads} over {cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}; quantized tree {want_tree / 1e9:.3f} GB (derived "
+        f"from the shapes); device memory free {free / 1e9:.3f} of "
+        f"{total / 1e9:.3f} GB")
+    if free < want_tree + MOE_HEADROOM_BYTES:
+        raise AssertionError(
+            f"serve_moe needs {(want_tree + MOE_HEADROOM_BYTES) / 1e9:.3f} "
+            f"GB free on the card, {free / 1e9:.3f} GB are")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = random_params_int8(
+        torch.Generator(device="cuda").manual_seed(0), cfg,
+        dtype=torch.bfloat16, quantize_embed=True, int4=True, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    tree = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[serve_moe] random int4/int8 tree drawn on the card in "
+        f"{init_s:.2f} s: {tree / 1e9:.3f} GB")
+    if tree != want_tree:
+        raise AssertionError(f"tree of {tree} bytes, the shapes give "
+                             f"{want_tree}")
+    out = {"init_s": init_s, "tree_bytes": tree, "free_bytes": free}
+    try:
+        for kind, env in SERVE_MOE_ENGINES.items():
+            out[kind] = asyncio.run(_serve_moe_one(torch, kind, env, params,
+                                                   profile))
+            gc.collect()
+        out["mix"] = _check_moe_mix(torch, cfg, params,
+                                    out["pool"].pop("captured"))
+        peak = torch.cuda.max_memory_allocated()
+        T = N_SLOTS * max(int(b) for b in
+                          SERVE_MOE_ENV["PREFILL_BUCKETS"].split(","))
+        bound = (tree + out["pool"]["kv_bytes"] + out["single"]["kv_bytes"]
+                 + moe_transient_bytes(cfg, T))
+        out.update(peak_bytes=peak, peak_bound_bytes=bound)
+        log(f"[serve_moe] peak device memory {peak / 1e9:.3f} GB, bound "
+            f"{bound / 1e9:.3f} GB = tree {tree / 1e9:.3f} + pool KV "
+            f"{out['pool']['kv_bytes'] / 1e9:.3f} + single-sequence KV and "
+            f"prefix {out['single']['kv_bytes'] / 1e9:.3f} + one MoE "
+            f"layer's transient at {T} tokens "
+            f"{moe_transient_bytes(cfg, T) / 1e9:.3f}")
+        if peak > bound:
+            raise AssertionError(f"peak device memory {peak} over the bound "
+                                 f"{bound}")
+        # A decode step's bound: every weight read once (the embedding
+        # but one row), against the bf16 copy of the experts that each
+        # step makes and reads back (int8 read, bf16 written and read).
+        V, D = cfg.vocab_size, cfg.dim
+        step_bytes = tree - (V * D + 4 * V)
+        convert_bytes = (3 * cfg.n_layers * cfg.n_experts * D
+                         * cfg.mlp_hidden * (1 + 2 + 2))
+        out.update(step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                   convert_traffic_ms=convert_bytes / HBM_BYTES_PER_S * 1e3)
+        log(f"[serve_moe] a decode step: (a) {out['pool']['step_ms']:.2f} "
+            f"ms (the burst's wall time per decode step), (b) "
+            f"{out['single']['decode_ms_per_step']:.2f} ms; bound "
+            f"{out['step_bound_ms']:.2f} ms ({step_bytes / 1e9:.2f} GB of "
+            f"weights once); the experts' bf16 copy alone moves "
+            f"{convert_bytes / 1e9:.1f} GB, {out['convert_traffic_ms']:.1f} "
+            f"ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+async def _serve_moe_one(torch, kind: str, env: dict, params,
+                         profile: bool) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.torch_engine import TorchEngine
+    from ai_agent_kubectl_tpu_torch.models import transformer
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_pool)
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+    from ai_agent_kubectl_tpu_torch.parallel import moe
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = f"serve_moe/{kind}"
+    counted = {"ragged_attention_pool": ragged_attention_pool,
+               "flash_attention_cached": flash_attention_cached,
+               "qmatmul4": qmatmul4,
+               "paged_decode_attention_pool": paged_decode_attention_pool,
+               "paged_decode_attention": paged_decode_attention}
+    port = _free_port()
+    _phase_env({**SERVE_MOE_ENV, **env}, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    pool = kind == "pool"
+    if type(inner) is not (BatchedTorchEngine if pool else TorchEngine):
+        raise AssertionError(f"{tag}: engine construction failed: {inner!r}")
+    inner.params = params
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    mcfg = inner.model_cfg
+    L = mcfg.n_layers
+    log(f"[{tag}] {cfg.model_name} quant={inner.quant} up on "
+        f"{cfg.host}:{port} in {startup_s:.1f} s"
+        + (f" ({inner.batch_size} slots, regime {inner._attention_regime}, "
+           f"pool {inner._pool_n_blocks} blocks of {inner.kv_pool_page})"
+           if pool else f" (prefill {inner.attn_impl}, prefix "
+           f"{inner._prefix.n} tokens)"))
+    if pool and inner._attention_regime != "ragged":
+        raise AssertionError(f"{tag}: regime {inner._attention_regime}")
+
+    # The served forward's hooks: the routed experts of every decode step
+    # (all layers), and the MoE inputs of MOE_CHECK_LAYER's decode steps.
+    E = mcfg.n_experts
+    hist = torch.zeros((E,), dtype=torch.int64, device="cuda")
+    captured = []
+    check_router = params["layers"]["router"][MOE_CHECK_LAYER].data_ptr()
+    router_weights, dense_moe = moe.router_weights, transformer.dense_moe
+
+    def counting_router(cfg_, logits):
+        mix, idx = router_weights(cfg_, logits)
+        if logits.shape[-2] == 1:
+            hist.add_(torch.bincount(idx.flatten(), minlength=E))
+        return mix, idx
+
+    def capturing_moe(cfg_, lp, x):
+        if (pool and x.shape[1] == 1
+                and lp["router"].data_ptr() == check_router
+                and sum(c.shape[0] for c in captured) < MOE_CHECK_TOKENS):
+            captured.append(x.reshape(-1, x.shape[-1]).clone())
+        return dense_moe(cfg_, lp, x)
+
+    url = f"http://{cfg.host}:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+                if r.status != 200 or health["devices"] != 1:
+                    raise AssertionError(f"{tag} /health: {r.status} "
+                                         f"{health}")
+
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            queries = (list(QUERIES) if pool
+                       else [_long_query(inner)])
+            moe.router_weights = counting_router
+            transformer.dense_moe = capturing_moe
+            try:
+                for fn in counted.values():
+                    fn.launches = 0
+                steps0 = inner.forward_steps if pool else 0
+                dsteps0 = inner.decode_steps if pool else 0
+                hits0 = inner._radix.hit_tokens_total if pool else 0
+                t_burst = time.monotonic()
+                burst = await asyncio.gather(*[ask(q) for q in queries])
+                burst_s = time.monotonic() - t_burst
+                burst_dsteps = (inner.decode_steps - dsteps0) if pool else 0
+                hits1 = inner._radix.hit_tokens_total if pool else 0
+                repeats = ([await ask(queries[i]) for i in REPEATS]
+                           if pool else [])
+                hits2 = inner._radix.hit_tokens_total if pool else 0
+                launches = {name: fn.launches
+                            for name, fn in counted.items()}
+                steps = inner.forward_steps - steps0 if pool else 0
+                dsteps = inner.decode_steps - dsteps0 if pool else 0
+            finally:
+                moe.router_weights = router_weights
+                transformer.dense_moe = dense_moe
+            profiled = (await _moe_profile(torch, transformer, ask, [
+                q + " now" for q in (QUERIES if pool else QUERIES[:1])],
+                (lambda: inner.forward_steps) if pool else (
+                    lambda: sum(r.completion_tokens
+                                for _, r in engine.results)),
+                "forward steps" if pool else "tokens", f"profile_moe_{kind}")
+                if profile else None)
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+
+    # int4 launches of one forward: every packed projection of every
+    # layer, and the head when it is packed.
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import QuantInt4
+
+    int4_per_forward = (
+        L * sum(isinstance(w, QuantInt4) for w in params["layers"].values())
+        + isinstance(params.get("lm_head"), QuantInt4))
+    if pool and (steps <= 0
+                 or launches["ragged_attention_pool"] != L * steps
+                 or launches["qmatmul4"] != int4_per_forward * steps):
+        raise AssertionError(f"{tag}: launches {launches} for {steps} "
+                             f"forward steps x {L} layers "
+                             f"({int4_per_forward} int4 a forward)")
+    if not pool and (launches["flash_attention_cached"] < L
+                     or launches["qmatmul4"] < int4_per_forward):
+        raise AssertionError(f"{tag}: launches {launches}")
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    sent = queries + [queries[i] for i in REPEATS] if pool else queries
+    statuses = [st for st, _ in burst + repeats]
+    for query, (status, body) in zip(sent, burst + repeats):
+        res = results[render_prompt(query)][0]
+        if res.completion_tokens <= 0:
+            raise AssertionError(f"{tag} {query[:40]!r}: no tokens")
+        want = status_for_text(res.text)
+        if status != want:
+            raise AssertionError(f"{tag} {query[:40]!r}: HTTP {status}, the "
+                                 f"service gives {want} for {res.text!r}: "
+                                 f"{body}")
+    firsts = [results[render_prompt(q)][0] for q in queries]
+    hist_l = hist.tolist()
+    info = {"startup_s": startup_s, "launches": launches,
+            "statuses": statuses, "expert_histogram": hist_l,
+            "profile": profiled}
+    if pool:
+        page = inner.kv_pool_page
+        same = []
+        for i in REPEATS:
+            first, again = results[render_prompt(queries[i])]
+            if not again.prefix_cache_hit:
+                raise AssertionError(f"{tag}: the repeat of {queries[i]!r} "
+                                     f"missed the radix cache")
+            same.append(again.token_ids == first.token_ids)
+        want_hits = sum(firsts[i].prompt_tokens - page for i in REPEATS)
+        if hits2 - hits1 < want_hits:
+            raise AssertionError(f"{tag}: the repeats radix-matched "
+                                 f"{hits2 - hits1} tokens, want >= "
+                                 f"{want_hits}")
+        check_pool_books(inner)
+        if sum(c.shape[0] for c in captured) < MOE_CHECK_TOKENS:
+            raise AssertionError(f"{tag}: captured {len(captured)} decode "
+                                 f"inputs of layer {MOE_CHECK_LAYER}")
+        n_tok = sum(r.completion_tokens for r in firsts)
+        ttft = sorted(r.ttft_ms for r in firsts)
+        info.update(
+            forward_steps=steps, burst_s=burst_s, burst_tokens=n_tok,
+            burst_tok_per_s=n_tok / burst_s, decode_steps=dsteps,
+            step_ms=burst_s * 1e3 / max(burst_dsteps, 1),
+            ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
+            radix_hit_tokens=[hits1 - hits0, hits2 - hits1],
+            repeats_identical=same,
+            decode_positions=[r.prompt_tokens + r.completion_tokens // 2
+                              for r in firsts],
+            kv_bytes=inner._cache.k.nbytes + inner._cache.v.nbytes,
+            captured=torch.cat(captured)[:MOE_CHECK_TOKENS],
+            logits=_check_served_logits(torch, inner, results, tag))
+        log(f"[{tag}] statuses {statuses}; {n_tok} tokens in {burst_s:.2f} "
+            f"s ({info['burst_tok_per_s']:.1f} tok/s; {dsteps} decode steps "
+            f"with the repeats), "
+            f"TTFT p50 {info['ttft_ms_p50']:.0f} ms max "
+            f"{info['ttft_ms_max']:.0f} ms; repeats hit "
+            f"{hits2 - hits1} radix tokens, identical {same}; launches "
+            f"{launches} over {steps} forward steps")
+    else:
+        res = firsts[0]
+        decode_ms = res.decode_ms / max(res.completion_tokens - 1, 1)
+        if not res.prefix_cache_hit:
+            raise AssertionError(f"{tag}: the long query missed the prefix")
+        cache_bytes = 2 * (L * (inner.max_seq_len + 1) * mcfg.n_kv_heads
+                           * mcfg.head_dim * 2)
+        info.update(
+            prompt_tokens=res.prompt_tokens, tokens=res.completion_tokens,
+            ttft_ms=res.ttft_ms, decode_ms_per_step=decode_ms,
+            decode_tok_per_s=1e3 / decode_ms,
+            kv_bytes=cache_bytes + inner._prefix.k.nbytes
+            + inner._prefix.v.nbytes,
+            logits=_check_served_logits1(torch, inner, res,
+                                         render_prompt(queries[0]), tag))
+        log(f"[{tag}] status {statuses}; {res.prompt_tokens}-token prompt, "
+            f"TTFT {res.ttft_ms:.0f} ms, {res.completion_tokens} tokens at "
+            f"{decode_ms:.2f} ms a decode step ({1e3 / decode_ms:.2f} "
+            f"tok/s); launches {launches}")
+    total = max(sum(hist_l), 1)
+    log(f"[{tag}] routed experts over the decode steps (all layers): "
+        + ", ".join(f"{e}: {n} ({n / total:.1%})"
+                    for e, n in enumerate(hist_l)))
+    # Nothing of this engine holds device memory past the phase's part.
+    inner.params = None
+    if pool:
+        inner._cache = None
+    return info
+
+
+async def _moe_profile(torch, transformer, ask, queries, steps, unit: str,
+                       tag: str) -> dict:
+    """``_profile_burst`` with every MoE MLP call bracketed by CUDA
+    events: the MoE MLP's time on the device's clock (event to event, so
+    the device's waits inside it count too) against the burst's wall
+    time and its steps. Only with ``--profile``."""
+    moe_mlp = transformer._moe_mlp
+    spans = []
+
+    def timed_moe(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = moe_mlp(*args, **kw)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    transformer._moe_mlp = timed_moe
+    try:
+        out = await _profile_burst(torch, ask, queries, steps, unit, tag)
+    finally:
+        transformer._moe_mlp = moe_mlp
+    torch.cuda.synchronize()
+    moe_ms = sum(a.elapsed_time(b) for a, b in spans)
+    out.update(moe_ms=moe_ms, moe_calls=len(spans),
+               moe_share_of_wall=moe_ms / out["wall_ms"],
+               moe_ms_per_step=moe_ms / max(out["steps"], 1))
+    log(f"[{tag}] MoE MLP: {moe_ms:.0f} ms over {len(spans)} calls, "
+        f"{out['moe_ms_per_step']:.2f} ms per {unit[:-1]}, "
+        f"{out['moe_share_of_wall']:.1%} of the wall time")
+    return out
+
+
+def _check_moe_mix(torch, cfg, params, x) -> dict:
+    """The dense mix equals the sparse pick: the port's ``dense_moe``
+    (every expert, mixed by the router's weights, bf16) on real hidden
+    states of MOE_CHECK_LAYER against an independent float32 loop that
+    evaluates only each token's two routed experts from the dequantized
+    int8 weights. Routing is read off the same bf16 router product the
+    model computes (the routing's definition, as in the JAX package),
+    the picks taken by a host sort (lower index first on a tie). Gates:
+    ``router_weights`` picks the same experts with the same weights (to
+    float32 rounding), and the outputs meet the serve phase's rule,
+    ``max |dense - sparse| <= LOGIT_RTOL * rms(sparse)``: the dense path
+    rounds each expert's activations to bf16, about a percent of the
+    rms on the worst value, where a wrong expert or weight moves values
+    by the rms itself."""
+    from ai_agent_kubectl_tpu_torch.parallel import moe
+
+    layer = {k: v[MOE_CHECK_LAYER] for k, v in params["layers"].items()}
+    with torch.no_grad():
+        dense = moe.dense_moe(cfg, layer, x[None])[0].float()
+        router_logits = (x @ layer["router"]).float()
+        mix = moe.router_weights(cfg, router_logits)[0].cpu()
+        logits = router_logits.cpu().tolist()
+        k = cfg.experts_per_token
+        picks = []
+        for row in logits:
+            top = sorted(range(len(row)), key=lambda e: (-row[e], e))[:k]
+            m = max(row[e] for e in top)
+            w = [math.exp(row[e] - m) for e in top]
+            picks.append([(e, wi / sum(w)) for e, wi in zip(top, w)])
+        xf = x.float()
+        sparse = torch.zeros_like(xf)
+        for e in range(cfg.n_experts):
+            rows = [t for t, p in enumerate(picks) if e in dict(p)]
+            if not rows:
+                continue
+
+            def deq(name):
+                w = layer[name]
+                return w.q[e].float() * w.scale[e]
+
+            h = xf[rows] @ deq("w_gate")
+            h = torch.nn.functional.silu(h) * (xf[rows] @ deq("w_up"))
+            y = h @ deq("w_down")
+            wts = torch.tensor([dict(picks[t])[e] for t in rows],
+                               device=x.device)
+            sparse[rows] += y * wts[:, None]
+    want_mix = torch.zeros_like(mix)
+    for t, p in enumerate(picks):
+        for e, w in p:
+            want_mix[t, e] = w
+    if ((mix > 0) != (want_mix > 0)).any() or not torch.allclose(
+            mix, want_mix, rtol=1e-5, atol=1e-6):
+        raise AssertionError("router_weights' picks or weights differ from "
+                             "the host's top-k")
+    rms = float(sparse.pow(2).mean().sqrt())
+    err = float((dense - sparse).abs().max())
+    used = sorted({e for p in picks for e, _ in p})
+    log(f"[serve_moe] dense mix vs sparse pick at layer {MOE_CHECK_LAYER} "
+        f"over {x.shape[0]} served decode tokens: the same {k} experts "
+        f"picked per token; max |dense - sparse| {err:.4f} (rms {rms:.4f}, "
+        f"tolerance {LOGIT_RTOL * rms:.4f}); experts routed {used}")
+    if err > LOGIT_RTOL * rms or not torch.isfinite(dense).all():
+        raise AssertionError(
+            f"dense_moe disagrees with the sparse top-{k} pick: max {err} > "
+            f"{LOGIT_RTOL} x rms {rms}")
+    return {"tokens": x.shape[0], "max_abs_err": err, "rms": rms,
+            "tolerance": LOGIT_RTOL * rms, "experts_routed": used}
+
+
 def kernel_breakdown(torch, fn, *, iters: int = 10) -> dict:
     """Device microseconds per launch of each of the port's kernels that
     ``fn`` launches (an attention kernel and its split combine, say), the
@@ -2731,11 +3289,25 @@ def _timing_int4(torch, gen, profile: bool) -> dict:
             out[label] = with_bound(entry, *int4_work(x, w))
             del dense
             log_timing(f"int4 {label} ({IN}x{OUT})", entry, "bf16 matmul")
+    # serve_moe's attention projections and head (Mixtral-8x7B).
+    for name, ((IN, OUT), fmt) in MIXTRAL_PROJ.items():
+        for T in ((1, 8) if name == "lm_head" else (1, 64, 512)):
+            x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
+            dense = dequantize_int4(w, torch.bfloat16)
+            entry = timed(torch, lambda: qmatmul4(x, w),
+                          lambda: qmatmul4_plain(x, w),
+                          lambda: torch.matmul(x, dense),
+                          iters=10 if T == 512 else 50, profile=profile)
+            label = f"mixtral_{name}_T{T}"
+            out[label] = with_bound(entry, *int4_work(x, w))
+            del dense
+            log_timing(f"int4 {label} ({IN}x{OUT}, {fmt[0]}/{fmt[1]})",
+                       entry, "bf16 matmul")
     return out
 
 
 def phase_timing(torch, serve_info: dict, paged_info: dict,
-                 profile: bool = False) -> dict:
+                 moe_info: dict, profile: bool = False) -> dict:
     from ai_agent_kubectl_tpu_torch.ops import paged_attention
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached)
@@ -2753,7 +3325,8 @@ def phase_timing(torch, serve_info: dict, paged_info: dict,
     log(f"[timing] an empty call reads {empty['ms']:.5f} ms (host up to "
         f"{empty['host_ms_max']:.4f} ms, spin {empty['spin_ms_min']:.3f} ms)")
     out = {"empty_call": empty,
-           "ragged_attention": _timing_ragged(torch, serve_info, profile),
+           "ragged_attention": _timing_ragged(torch, serve_info, moe_info,
+                                              profile),
            "flash_attention": _timing_flash(torch, gen, profile),
            "int4_matmul": _timing_int4(torch, gen, profile),
            **_timing_paged(torch, gen, paged_info, profile)}
@@ -2799,7 +3372,8 @@ def _timing_paged(torch, gen, paged_info: dict, profile: bool) -> dict:
     return out
 
 
-def _timing_ragged(torch, serve_info: dict, profile: bool) -> dict:
+def _timing_ragged(torch, serve_info: dict, moe_info: dict,
+                   profile: bool) -> dict:
     import torch.nn.functional as F
 
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
@@ -2807,6 +3381,8 @@ def _timing_ragged(torch, serve_info: dict, profile: bool) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(99)
     decode_pos = serve_info.get("decode_positions") or [
+        96, 112, 128, 144, 160, 176, 192, 208]
+    moe_pos = moe_info.get("pool", {}).get("decode_positions") or [
         96, 112, 128, 144, 160, 176, 192, 208]
     shapes = {
         # The serving loop's decode step: one query per slot.
@@ -2819,13 +3395,18 @@ def _timing_ragged(torch, serve_info: dict, profile: bool) -> dict:
         # The mixed prologue: two admissions and six decode steps.
         "prologue64": ragged_case(torch, gen, **PROLOGUE64,
                                   nan_block=False),
+        # serve_moe's decode step (Mixtral: 32 over 8 heads of 128).
+        "mixtral_decode": ragged_case(torch, gen, W=1, positions=moe_pos,
+                                      q_lens=[1] * N_SLOTS,
+                                      nan_block=False, **MIXTRAL),
     }
     out = {}
     for label, case in shapes.items():
         q, kc, vc, mask = sdpa_inputs(torch, case)
+        page = case["k"].shape[1]
         entry = timed(
-            torch, lambda: ragged_attention_pool(**case, page_size=PAGE),
-            lambda: ragged_attention_pool_plain(**case, page_size=PAGE),
+            torch, lambda: ragged_attention_pool(**case, page_size=page),
+            lambda: ragged_attention_pool_plain(**case, page_size=page),
             lambda: F.scaled_dot_product_attention(
                 q, kc, vc, attn_mask=mask, enable_gqa=True),
             iters=10 if label == "prefill512" else 50, profile=profile)
@@ -2841,8 +3422,9 @@ def kernel_lines(results: dict) -> list:
     error of phase 2, and the times at the shape its serving path runs
     most at the top level (every timed shape under ``shapes``);
     ``phase_launches`` adds the launches of phase 6 (ragged in its bf16
-    engine, flash and int4 in its int4 engine) and of phase 7 (both its
-    engines)."""
+    engine, flash and int4 in its int4 engine), of phase 7 (both its
+    engines) and of phase 8 (both its engines: every kernel counted,
+    those off its path at 0)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -2863,6 +3445,12 @@ def kernel_lines(results: dict) -> list:
         return sum(counts) if counts and None not in counts else None
 
     paged = results.get("serve_paged", {})
+    moe = results.get("serve_moe", {})
+
+    def moe_launches(name):
+        counts = [moe[k]["launches"].get(name) for k in ("pool", "single")
+                  if k in moe]
+        return sum(counts) if counts else None
 
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
@@ -2878,7 +3466,8 @@ def kernel_lines(results: dict) -> list:
             "bound_by": top.get("bound_by"),
             "library_ms": top.get("library_ms"), "library": library,
             "phase_launches": {"serve_ckpt": ckpt_launches.get(name),
-                               "serve_qos": qos_launches(name)},
+                               "serve_qos": qos_launches(name),
+                               "serve_moe": moe_launches(name)},
             "shapes": shapes,
         }
 
@@ -2974,9 +3563,12 @@ def main() -> int:
                                                  results.get("serve", {}))
     if "serve_qos" in phases:
         results["serve_qos"] = phase_serve_qos(torch)
+    if "serve_moe" in phases:
+        results["serve_moe"] = phase_serve_moe(torch, args.profile)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),
+                                         results.get("serve_moe", {}),
                                          args.profile)
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 

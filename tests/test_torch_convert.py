@@ -1,11 +1,11 @@
 """The port's HF checkpoint loader (``models/convert.py::
 convert_hf_checkpoint``) against the JAX package's on the same files.
 
-Tiny Llama and Gemma checkpoints are written in the test with
-``transformers`` (``save_pretrained``, safetensors), at widths that make
-``pick_format`` tile some projections and fall back to int8 on others
-(dim 256, 4 heads of 64, MLP 512, vocab 128), and loaded on the CPU by
-both packages:
+Tiny Llama, Gemma and Mixtral (4 experts, 2 routed per token)
+checkpoints are written in the test with ``transformers``
+(``save_pretrained``, safetensors), at widths that make ``pick_format``
+tile some projections and fall back to int8 on others (dim 256, 4 heads
+of 64, MLP 512, vocab 128), and loaded on the CPU by both packages:
 
 - Every leaf of the port's tree equals ``params_from_jax`` of the JAX
   tree exactly: float32 and bfloat16, and the int8/int4 payloads and
@@ -13,11 +13,14 @@ both packages:
 - The port's forward over the loaded float32 params matches the
   ``transformers`` model's logits within the JAX test's tolerance
   (``rtol=1e-3, atol=2e-3``), with the same argmax everywhere.
-- A shape mismatch is refused with the JAX message; the streamed
-  quantizing load equals quantizing the full load afterwards; an MoE
-  checkpoint is refused; the ``model.`` prefix is optional and a
-  missing ``lm_head`` ties to the embedding, as in JAX; the reader
-  returns what ``safetensors`` reads, over one file or shards.
+- Mixtral's router stays in full precision and its expert stacks load
+  int8 under int8 and int4 alike, as in JAX.
+- A shape mismatch is refused with the JAX message, and so is an MoE
+  checkpoint read with more experts than it holds; the streamed
+  quantizing load equals quantizing the full load afterwards; the
+  ``model.`` prefix is optional and a missing ``lm_head`` ties to the
+  embedding, as in JAX; the reader returns what ``safetensors`` reads,
+  over one file or shards.
 """
 
 import jax
@@ -47,6 +50,8 @@ ARCHS = {
     "llama": dict(n_kv_heads=2, rope_theta=10000.0, rms_eps=1e-5),
     "gemma": dict(n_kv_heads=1, rms_offset=1.0, activation="gelu",
                   tie_embeddings=True, embed_scale=True),
+    "mixtral": dict(n_kv_heads=2, rope_theta=10000.0, rms_eps=1e-5,
+                    n_experts=4, experts_per_token=2),
 }
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 # (dtype, quant): quantized loads keep float32 for the non-quantized
@@ -74,6 +79,12 @@ def _save_hf(path, arch: str, seed: int = 0):
             tie_word_embeddings=False, attention_bias=False,
             mlp_bias=False, **common)
         cls = transformers.LlamaForCausalLM
+    elif arch == "mixtral":
+        hf_cfg = transformers.MixtralConfig(
+            num_key_value_heads=2, rms_norm_eps=1e-5,
+            tie_word_embeddings=False, num_local_experts=4,
+            num_experts_per_tok=2, **common)
+        cls = transformers.MixtralForCausalLM
     else:
         hf_cfg = transformers.GemmaConfig(
             num_key_value_heads=1, rms_norm_eps=1e-6,
@@ -121,9 +132,18 @@ def test_convert_matches_jax_leaf_for_leaf(tmp_path, arch, dtype, quant):
     _assert_same_tree(ours, want)
     if quant == "int4":
         # the format tiles some projections and not others
-        assert isinstance(ours["layers"]["w_gate"], QuantInt4)
+        assert isinstance(ours["layers"]["wq"], QuantInt4)
         assert isinstance(ours["layers"]["wk"], QuantInt8)
         assert isinstance(ours["embed"], QuantInt8)
+    moe = arch == "mixtral"
+    if quant:
+        # MoE expert stacks stay int8 under int4, per (layer, expert)
+        assert isinstance(ours["layers"]["w_gate"],
+                          QuantInt8 if moe or quant == "int8" else QuantInt4)
+    if moe:
+        assert ours["layers"]["router"].dtype == dtype
+        assert ours["layers"]["router"].shape == (2, 256, 4)
+        assert ours["layers"]["w_down"].shape == (2, 4, 512, 256)
 
 
 def _hf_logits(model, ids):
@@ -180,18 +200,17 @@ def test_streaming_quantized_load_equals_posthoc(tmp_path, quant, posthoc):
 
 
 def test_moe_checkpoint_refused(tmp_path):
-    hf_cfg = transformers.MixtralConfig(
-        vocab_size=128, hidden_size=64, intermediate_size=112,
-        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-        num_local_experts=4, num_experts_per_tok=2)
-    torch.manual_seed(2)
-    transformers.MixtralForCausalLM(hf_cfg).save_pretrained(
-        tmp_path, safe_serialization=True)
-    cfg = ModelConfig(name="tiny-mixtral", vocab_size=128, dim=64,
-                      n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16,
-                      mlp_hidden=112, n_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        convert_hf_checkpoint(cfg, tmp_path, device="cpu")
+    """A Mixtral checkpoint read under a config with more experts than
+    it holds is refused, by both loaders, at the first missing expert."""
+    _save_hf(tmp_path, "mixtral")
+    kw = dict(TINY, **dict(ARCHS["mixtral"], n_experts=8))
+    with pytest.raises(KeyError, match="experts.4.w1") as ours:
+        convert_hf_checkpoint(ModelConfig(name="bad", **kw), tmp_path,
+                              dtype=torch.float32, device="cpu")
+    with pytest.raises(KeyError) as want:
+        jax_convert(JaxModelConfig(name="bad", **kw), tmp_path,
+                    dtype=jnp.float32)
+    assert str(ours.value) == str(want.value)
 
 
 def _rewrite(src, dst, keep):

@@ -608,16 +608,19 @@ def test_paged_launch_refuses_another_plan(card, pool, shift):
     assert err == 1                       # cudaErrorInvalidValue
 
 
-def _tiny_hf_checkpoint(path):
+def _tiny_hf_checkpoint(path, n_experts: int = 0):
     """A tiny HF-layout Llama checkpoint (untied head, ``model.`` keys)
-    of random bf16 tensors from a seeded generator; returns its cfg."""
+    of random bf16 tensors from a seeded generator, or with
+    ``n_experts`` a Mixtral one (``block_sparse_moe`` router and
+    experts, 2 routed per token); returns its cfg."""
     from safetensors.torch import save_file
 
     from ai_agent_kubectl_tpu_torch.models.config import ModelConfig
 
     cfg = ModelConfig(name="tiny-llama-cuda", vocab_size=512, dim=256,
                       n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64,
-                      mlp_hidden=512)
+                      mlp_hidden=512, n_experts=n_experts,
+                      experts_per_token=2 if n_experts else 0)
     gen = torch.Generator().manual_seed(0)
     d, f, kvd = cfg.dim, cfg.mlp_hidden, cfg.n_kv_heads * cfg.head_dim
     shapes = {"model.embed_tokens.weight": (cfg.vocab_size, d),
@@ -630,24 +633,35 @@ def _tiny_hf_checkpoint(path):
             p + "self_attn.q_proj.weight": (d, d),
             p + "self_attn.k_proj.weight": (kvd, d),
             p + "self_attn.v_proj.weight": (kvd, d),
-            p + "self_attn.o_proj.weight": (d, d),
-            p + "mlp.gate_proj.weight": (f, d),
-            p + "mlp.up_proj.weight": (f, d),
-            p + "mlp.down_proj.weight": (d, f)})
+            p + "self_attn.o_proj.weight": (d, d)})
+        if n_experts:
+            m = p + "block_sparse_moe."
+            shapes[m + "gate.weight"] = (n_experts, d)
+            for e in range(n_experts):
+                shapes.update({m + f"experts.{e}.w1.weight": (f, d),
+                               m + f"experts.{e}.w3.weight": (f, d),
+                               m + f"experts.{e}.w2.weight": (d, f)})
+        else:
+            shapes.update({p + "mlp.gate_proj.weight": (f, d),
+                           p + "mlp.up_proj.weight": (f, d),
+                           p + "mlp.down_proj.weight": (d, f)})
     save_file({k: (torch.randn(s, generator=gen) * 0.05).to(torch.bfloat16)
                for k, s in shapes.items()},
               str(path / "model.safetensors"))
     return cfg
 
 
+@pytest.mark.parametrize("n_experts", [0, 4], ids=["llama", "mixtral"])
 @pytest.mark.parametrize("quant", ["", "int8", "int4"])
-def test_checkpoint_loads_to_the_card_as_on_the_cpu(card, tmp_path, quant):
+def test_checkpoint_loads_to_the_card_as_on_the_cpu(card, tmp_path, quant,
+                                                    n_experts):
     """The streamed load onto the card (quantized there under int8 and
-    int4) gives the CPU load's tree, byte for byte."""
+    int4; a Mixtral's expert stacks int8 under both) gives the CPU
+    load's tree, byte for byte."""
     from ai_agent_kubectl_tpu_torch.models.convert import \
         convert_hf_checkpoint
 
-    cfg = _tiny_hf_checkpoint(tmp_path)
+    cfg = _tiny_hf_checkpoint(tmp_path, n_experts)
     kw = dict(dtype=torch.bfloat16, quant=quant, quantize_embed=bool(quant))
     on_card = convert_hf_checkpoint(cfg, tmp_path, device=card, **kw)
     on_cpu = convert_hf_checkpoint(cfg, tmp_path, device="cpu", **kw)
@@ -753,3 +767,74 @@ def test_preempted_request_resumes_on_the_card(card, order):
     assert preemptions >= 1 and remaps
     assert all(m == n for n, m in remaps), remaps      # nothing prefilled
     assert got == want
+
+
+@pytest.mark.parametrize("quant", ["", "int8"], ids=["f32", "int8"])
+def test_dense_moe_on_the_card_matches_the_cpu(card, quant):
+    """toy-moe's MoE MLP (4 experts, 2 routed) on one layer, float32, on
+    the card and on the CPU from the same weights (int8 experts: the
+    same bytes): the same routed experts, outputs within 1e-4 (float32
+    GEMMs of another summation order)."""
+    from ai_agent_kubectl_tpu_torch.models import transformer as tt
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.quant import quantize_params_int8
+    from ai_agent_kubectl_tpu_torch.parallel import moe
+
+    cfg = get_config("toy-moe")
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
+                            dtype=torch.float32)
+    if quant:
+        params = quantize_params_int8(params)
+    lp = {k: v[1] for k, v in params["layers"].items()}
+    x = torch.randn((3, 7, cfg.dim), generator=torch.Generator().manual_seed(1))
+
+    def to_card(leaf):
+        if hasattr(leaf, "q"):
+            return type(leaf)(q=leaf.q.to(card), scale=leaf.scale.to(card))
+        return leaf.to(card)
+
+    card_lp = {k: to_card(v) for k, v in lp.items()}
+    want = moe.dense_moe(cfg, lp, x)
+    got = moe.dense_moe(cfg, card_lp, x.to(card))
+    torch.cuda.synchronize()
+    _, want_idx = moe.router_weights(cfg, (x @ lp["router"]).float())
+    _, got_idx = moe.router_weights(
+        cfg, (x.to(card) @ card_lp["router"]).float())
+    assert torch.equal(got_idx.cpu(), want_idx)
+    assert torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_sampled_transcript_on_the_card_equals_the_cpus(card):
+    """TorchEngine at temperature 0.9 (toy-8m, float32, top-k 20): the
+    split-chained threefry keys hash in int64 on the card as on the CPU,
+    so the same seed gives the same transcript on both."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.engine.torch_engine import TorchEngine
+    from ai_agent_kubectl_tpu_torch.models import transformer as tt
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    cfg = get_config("toy-8m")
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
+                            dtype=torch.float32)
+
+    async def transcript(device):
+        eng = TorchEngine(
+            cfg, tokenizer=ByteTokenizer(), device=device, dtype="float32",
+            max_seq_len=128, prefill_buckets=(32, 64), attn_impl="dense",
+            top_k=20, prefix_cache=False,
+            params={k: ({n: w.to(device) for n, w in v.items()}
+                        if isinstance(v, dict) else v.to(device))
+                    for k, v in params.items()})
+        await eng.start()
+        try:
+            return [(await eng.generate(p, max_tokens=24, temperature=0.9,
+                                        seed=s)).token_ids
+                    for p, s in (("get pods", 7), ("list nodes", 8))]
+        finally:
+            await eng.stop()
+
+    want = asyncio.run(transcript("cpu"))
+    got = asyncio.run(transcript("cuda"))
+    assert got == want and all(len(t) > 0 for t in got)

@@ -242,8 +242,9 @@ def test_decode_regimes_match_jax(layout, impl):
 
 
 def test_forward_refuses_later_slices():
-    """The ring path (either layout), the mesh and MoE wait for later
-    slices; paged decode and the pool's gather path are served."""
+    """The ring path (either layout) and the mesh wait for later slices;
+    paged decode, the pool's gather path and an MoE model (toy-moe from
+    the port's own init, through both layouts) are served."""
     _, tcfg = _configs("toy-8m")
     params = tt.init_params(torch.Generator().manual_seed(0), tcfg,
                             dtype=torch.float32)
@@ -259,8 +260,21 @@ def test_forward_refuses_later_slices():
                    block_tables=tables)
     with pytest.raises(TypeError, match="mesh"):
         tt.forward(params, tcfg, tok, tok, dense, mesh=object())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_params(torch.Generator(), tconfig.get_config("toy-moe"))
+    moe_cfg = tconfig.get_config("toy-moe")
+    moe = tt.init_params(torch.Generator().manual_seed(0), moe_cfg,
+                         dtype=torch.float32)
+    E, D, F_ = moe_cfg.n_experts, moe_cfg.dim, moe_cfg.mlp_hidden
+    assert moe["layers"]["router"].shape == (2, D, E)
+    assert moe["layers"]["w_gate"].shape == (2, E, D, F_)
+    assert moe["layers"]["w_down"].shape == (2, E, F_, D)
+    for moe_cache, kw in (
+            (tt.KVCache.pool(moe_cfg, 4, PAGE, dtype=torch.float32,
+                             device="cpu"), dict(block_tables=tables)),
+            (tt.KVCache.zeros(moe_cfg, 1, 16, dtype=torch.float32,
+                              device="cpu"), {})):
+        logits, _ = tt.forward(moe, moe_cfg, tok, tok, moe_cache, **kw)
+        assert logits.shape == (1, 1, moe_cfg.vocab_size)
+        assert torch.isfinite(logits).all()
     for impl in ("paged", "flash", "dense"):
         logits, _ = tt.forward(params, tcfg, tok, tok, cache,
                                attn_impl=impl, block_tables=tables)

@@ -15,7 +15,11 @@ drawn with it exactly:
 ``sample_tokens_seeded`` must pick the JAX function's token in every row
 over temperature x top-k x top-p, and the admission's first-token draw
 (index 0, one row) must equal the JAX engine's ``sample_token_traced``
-under ``fold_in(PRNGKey(seed), 0)``.
+under ``fold_in(PRNGKey(seed), 0)``. The single-sequence engine's
+schedule splits keys instead: ``split`` (and a chain of splits) must be
+bit-equal to ``jax.random.split``, and ``sample_token_keyed`` must pick
+``sample_token_traced``'s token under the same key (greedy, full-vocab
+top-p, top-k subset).
 """
 
 from functools import lru_cache
@@ -133,4 +137,48 @@ def test_first_token_draw_matches_the_jax_admission(top_k):
             torch.from_numpy(logits), torch.tensor([seed]),
             torch.zeros((1,), dtype=torch.int32),
             torch.tensor([0.9], dtype=torch.float32), top_k=top_k)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("num", [2, 3])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_is_bit_equal(seed, num):
+    """``split`` is ``jax.random.split``, and so is a chain of splits of
+    its second key (the single-sequence engine's decode schedule)."""
+    jkey = jax.random.PRNGKey(seed)
+    key = sampling.prng_key(torch.tensor([seed]))
+    for _ in range(4):
+        want = np.asarray(jax.random.split(jkey, num))
+        got = sampling.split(key, num)
+        assert len(got) == num
+        for i, (k1, k2) in enumerate(got):
+            assert k1.shape == k2.shape == (1,)
+            assert [int(k1[0]), int(k2[0])] == want[i].tolist()
+        jkey, key = jax.random.split(jkey)[1], got[1]
+
+
+@lru_cache(maxsize=None)
+def _jax_traced(top_k: int, top_p: float):
+    return jax.jit(lambda logits, key, t: jsampling.sample_token_traced(
+        logits, key, t, top_k=top_k, top_p=top_p))
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [
+    (0.0, 0, 1.0), (0.9, 0, 1.0), (0.9, 0, 0.8), (0.9, 20, 1.0),
+    (0.9, 20, 0.8), (1.5, 5, 0.3)])
+def test_keyed_token_matches_sample_token_traced(temperature, top_k, top_p):
+    """The single-sequence sampler under a split key equals the JAX
+    ``sample_token_traced`` (greedy branch, full-vocab filters, top-k
+    subset) for the same key."""
+    rng = np.random.default_rng(11)
+    for seed in SEEDS:
+        logits = (rng.standard_normal((1, 256)) * 2.5).astype(np.float32)
+        jkey = jax.random.split(jax.random.PRNGKey(seed))[1]
+        want = np.asarray(_jax_traced(top_k, top_p)(
+            jnp.asarray(logits), jkey, jnp.float32(temperature)))
+        key = sampling.split(sampling.prng_key(torch.tensor([seed])))[1]
+        got = sampling.sample_token_keyed(torch.from_numpy(logits), key,
+                                          temperature, top_k=top_k,
+                                          top_p=top_p)
+        assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)

@@ -135,14 +135,15 @@ async def test_server_with_batched_engine_on_cpu():
 
 
 async def test_degraded_engine_answers_503():
-    """An engine that cannot be built (here: an MoE model, which the
-    port does not serve yet) leaves the server up but degraded: it
-    answers 503 and its log says why."""
+    """An engine that cannot be built (here: an MoE model under
+    MOE_IMPL=ep, which needs an expert mesh the port does not build)
+    leaves the server up but degraded: it answers 503 and its log says
+    why."""
     cfg = ServiceConfig(torch_device="cpu", decode_batch_size=1,
-                        model_name="toy-moe")
+                        model_name="toy-moe", moe_impl="ep")
     engine = build_engine(cfg)
     assert isinstance(engine, DegradedEngine)
-    assert "MoE" in engine.reason
+    assert "MOE_IMPL=ep needs a mesh" in engine.reason
     app = create_app(cfg, engine)
     async with TestClient(TestServer(app)) as client:
         r = await client.get("/health")
@@ -221,7 +222,7 @@ def test_config_defaults_match_the_jax_package():
 
 #: every knob of UNSERVED_KNOBS with a value that asks for the feature
 REFUSED = [
-    ("KV_QUANT", "int8"), ("MOE_IMPL", "ep"), ("SPEC_DECODE", "true"),
+    ("KV_QUANT", "int8"), ("SPEC_DECODE", "true"),
     ("SPEC_DRAFT_K", "2"), ("SPEC_DRAFT_MODEL", "toy-8m"),
     ("SPEC_DRAFT_PATH", "/draft"), ("GRAMMAR_DECODE", "true"),
     ("GRAMMAR_PROFILE", "readonly"), ("GRAMMAR_FORCED_RUN_MIN", "8"),

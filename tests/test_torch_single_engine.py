@@ -22,6 +22,10 @@ compute with the same packed bytes.
   inputs (logits 1e-4, cache contents 1e-5), flash and dense.
 - The batched engine under int4 matches a greedy loop over the JAX
   ragged forward on the same int4 tree.
+- At temperature 0.9 (toy-8m at its own head_dim, dense prefill) the
+  transcripts equal the JAX engine's, with an explicit seed and without
+  one, under the full-vocab sampler and under top-k 20 with top-p 0.8:
+  the port follows the JAX engine's split-chained key schedule.
 - Guards: the factory builds ``TorchEngine`` at DECODE_BATCH_SIZE=1; a
   CUDA request with no card raises; KV_QUANT=int8 raises.
 """
@@ -199,6 +203,67 @@ def test_dense_cache_forward_matches_jax(quant, impl):
                       write_mask=mask)
         tok = logits[:, 0].argmax(-1).astype(np.int32)
         pos = pos + 1
+
+
+#: the engines' (TOP_K, TOP_P) under which sampled transcripts are held
+SAMPLING = {"full_vocab": (0, 1.0), "top_k_top_p": (20, 0.8)}
+SAMPLED_TOKENS, SEED = 24, 1234
+
+
+@functools.lru_cache(maxsize=None)
+def _run_sampled(top_k: int, top_p: float) -> dict:
+    """Every prompt at temperature 0.9 through both engines (toy-8m,
+    dense prefill), with an explicit seed and with none (the engine
+    seed plus the prompt length). Returns {(kind, seed): (jax, port)}."""
+    jcfg = jconfig.get_config("toy-8m")
+    jparams = jt.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32)
+    kw = dict(tokenizer=IdTokenizer(), dtype="float32", max_seq_len=MAX_SEQ,
+              prefill_buckets=BUCKETS, attn_impl="dense", top_k=top_k,
+              top_p=top_p)
+
+    async def run():
+        je = JaxEngine(jcfg, compile_cache_dir="", **kw)
+        je.params = jparams
+        te = TorchEngine(get_config("toy-8m"), device="cpu",
+                         params=params_from_jax(
+                             jax.tree.map(np.asarray, jparams)), **kw)
+        await je.start()
+        je._ladder_thread.join()
+        await te.start()
+        out = {}
+        try:
+            for kind, prompt in PROMPTS.items():
+                for seed in (SEED, None):
+                    out[kind, seed] = tuple([await eng.generate(
+                        prompt, max_tokens=SAMPLED_TOKENS, temperature=0.9,
+                        seed=seed) for eng in (je, te)])
+            out["plain", "greedy"] = await te.generate(
+                PROMPTS["plain"], max_tokens=SAMPLED_TOKENS)
+        finally:
+            await je.stop()
+            await te.stop()
+        return out
+
+    return asyncio.run(run())
+
+
+@pytest.mark.parametrize("seed", [SEED, None], ids=["seed", "no_seed"])
+@pytest.mark.parametrize("sampling", list(SAMPLING))
+def test_sampled_transcripts_match_jax_engine(sampling, seed):
+    """At temperature 0.9 the port draws the JAX engine's tokens: the
+    same split-chained threefry keys (the first token under the first
+    half of ``split(PRNGKey(seed))``, each decode step under a split of
+    the second), across chunk borders (8 + 8 + 1s), the prefix-hit and
+    chunked prefill paths, the full-vocab and the top-k/top-p filters."""
+    out = _run_sampled(*SAMPLING[sampling])
+    for kind in PROMPTS:
+        a, b = out[kind, seed]
+        assert b.text == a.text, kind
+        assert b.completion_tokens == a.completion_tokens > 0
+        assert b.finish_reason == a.finish_reason
+    # The draws are not the greedy transcript, and the seed matters.
+    assert out["plain", seed][1].text != out["plain", "greedy"].text
+    assert out["plain", SEED][1].text != out["plain", None][1].text
 
 
 def _jax_ragged_greedy(jparams, prompt_ids, page=16, pages=8):
