@@ -26,8 +26,6 @@ from .engine.qos import LANES, parse_lane_weights, parse_tenant_tiers
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # int8 KV (A4)
-    "KV_QUANT": "",
     # the rest of the batched engine (A7): speculative and grammar
     # decode, the two-tier host KV, chunk pipelining (the port fetches
     # each chunk before the next dispatch, on device-side termination),
@@ -163,6 +161,11 @@ class ServiceConfig:
     tokenizer_path: Optional[str] = None    # TOKENIZER_PATH
     dtype: str = "bfloat16"                 # DTYPE
     quant: str = ""                         # QUANT: "" | int8 | int4
+    # int8 KV cache (ops/quant.py::QuantKV): 132 bytes a (position, head)
+    # at head_dim 128 against 256 in bf16, in both engines and every
+    # regime; no kernel reads it, so the pool serves the gather path and
+    # the dense ladder the dense read, flash prefill resolving to dense.
+    kv_quant: str = ""                      # KV_QUANT: "" | int8
     max_seq_len: int = 1024                 # MAX_SEQ_LEN
     max_new_tokens: int = 128               # MAX_NEW_TOKENS
     decode_batch_size: int = 8              # DECODE_BATCH_SIZE
@@ -253,6 +256,9 @@ class ServiceConfig:
         if self.quant not in ("", "int8", "int4"):
             raise ValueError(f"QUANT must be ''|int8|int4, got "
                              f"{self.quant!r}")
+        if self.kv_quant not in ("", "int8"):
+            raise ValueError(f"KV_QUANT must be '' or 'int8', got "
+                             f"{self.kv_quant!r}")
         if self.attn_impl not in ("auto", "dense", "flash"):
             raise ValueError(f"ATTN_IMPL must be auto|dense|flash, got "
                              f"{self.attn_impl!r}")
@@ -349,6 +355,7 @@ class ServiceConfig:
             tokenizer_path=_env_str("TOKENIZER_PATH", None),
             dtype=_env_str("DTYPE", "bfloat16"),
             quant=(_env_str("QUANT", "") or "").lower(),
+            kv_quant=(_env_str("KV_QUANT", "") or "").lower(),
             max_seq_len=_env_int("MAX_SEQ_LEN", 1024),
             max_new_tokens=_env_int("MAX_NEW_TOKENS", 128),
             decode_batch_size=_env_int("DECODE_BATCH_SIZE", 8),

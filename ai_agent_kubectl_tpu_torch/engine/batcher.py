@@ -25,9 +25,14 @@ startup; ``kv_pool_health()["attention_regime"]`` reports which):
 
 ``DECODE_ATTN=auto`` picks ``paged`` for a GQA model (several query
 heads over each of several KV heads) on the card, raising the page to
-64, and ``dense`` otherwise (``resolve_decode_attn``). Eager admissions
-deliver their first token through a ``("first", ...)`` entry of the
-in-flight list. In every regime:
+64, and ``dense`` otherwise (``resolve_decode_attn``). Under
+``KV_QUANT=int8`` (an int8 pool or dense cache, ``ops/quant.py::
+QuantKV``) no kernel reads the cache, as in the JAX engine: the pool
+serves the ``gather`` regime (``RAGGED_ATTENTION`` and
+``DECODE_ATTN=paged`` resolve to it, with the JAX warnings) and the
+dense ladder ``dense``, both through ``dense_attention_quant``. Eager
+admissions deliver their first token through a ``("first", ...)``
+entry of the in-flight list. In every regime:
 
 - **One shared KV pool** ([L, n_blocks + 1, page, KV, hd], zeroed at
   start) and per-slot block tables, unless ``KV_POOL=false``. The host
@@ -105,6 +110,7 @@ from ..models.config import get_config
 from ..models.transformer import KVCache, forward
 from ..obs import Trace, current_trace
 from ..ops.paged_attention import paged_supported
+from ..ops.quant import kv_map
 from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
 from .protocol import (HEALTH_NONFINITE, HEALTH_TOKEN_RANGE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
@@ -394,10 +400,20 @@ class BatchedTorchEngine(TorchEngine):
         cfg = self.model_cfg
         on_card = self.device.type == "cuda"
         impl, page = resolve_decode_attn(
-            self.decode_attn, cfg,
+            self.decode_attn, cfg, kv_quant=self.kv_quant,
             page_size=(self.kv_pool_page if self.kv_pool
                        else self.kv_page_size),
             device=self.device, dtype=self.dtype)
+        if impl == "paged" and self.kv_quant:
+            # No kernel reads int8 KV (nor does the JAX package's).
+            if self.kv_pool:
+                logger.warning(
+                    "DECODE_ATTN=paged does not read int8 KV; pool "
+                    "decode uses the gather path (dense attention)")
+            else:
+                logger.warning("DECODE_ATTN=paged does not read int8 KV; "
+                               "falling back to the dense KV ladder")
+            impl = "dense"
         if (impl == "paged" and on_card
                 and not paged_supported(page, cfg.head_dim, 1, self.dtype)):
             raise ValueError(
@@ -408,7 +424,13 @@ class BatchedTorchEngine(TorchEngine):
                 logger.info("DECODE_ATTN=auto raises KV_POOL_PAGE %d -> %d",
                             self.kv_pool_page, page)
                 self.kv_pool_page = page
-            if self.ragged_attention != "off":
+            use_ragged = self.ragged_attention != "off"
+            if use_ragged and self.kv_quant:
+                logger.warning(
+                    "RAGGED_ATTENTION: the ragged pool kernel reads "
+                    "bf16 KV; int8 KV serves the gather path")
+                use_ragged = False
+            if use_ragged:
                 impl = "ragged"
             self._attention_regime = {"ragged": "ragged",
                                       "paged": "paged"}.get(impl, "gather")
@@ -457,7 +479,7 @@ class BatchedTorchEngine(TorchEngine):
         if self.kv_pool:
             self._cache = KVCache.pool(self.model_cfg, self._pool_n_blocks,
                                        self.kv_pool_page, dtype=self.dtype,
-                                       device=dev)
+                                       device=dev, kv_quant=self.kv_quant)
             prev_pool, prev_radix = self._pool, self._radix
             self._pool = BlockPool(self._pool_n_blocks, self.kv_pool_page)
             self._radix = (RadixCache(self._pool,
@@ -471,7 +493,8 @@ class BatchedTorchEngine(TorchEngine):
                                    self._pool_n_blocks, np.int32)
         else:
             self._cache = KVCache.zeros(self.model_cfg, N, self._S_alloc,
-                                        dtype=self.dtype, device=dev)
+                                        dtype=self.dtype, device=dev,
+                                        kv_quant=self.kv_quant)
         self._tok_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._pos_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._active_d = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -529,9 +552,10 @@ class BatchedTorchEngine(TorchEngine):
 
     def _run_cow(self, src: int, dst: int, rows: int) -> None:
         """Copy-on-write: the first ``rows`` KV rows of pool block ``src``
-        into block ``dst``, every layer, in place."""
-        for leaf in (self._cache.k, self._cache.v):
-            leaf[:, dst, :rows] = leaf[:, src, :rows]
+        into block ``dst``, every layer, in place (payload and scales of
+        an int8 pool)."""
+        for kv in (self._cache.k, self._cache.v):
+            kv_map(lambda a: a[:, dst, :rows].copy_(a[:, src, :rows]), kv)
 
     def _pool_alloc(self, n: int) -> Optional[List[int]]:
         """Allocate with radix-eviction backpressure."""
@@ -724,7 +748,8 @@ class BatchedTorchEngine(TorchEngine):
         query can read them."""
         for dst, src in ((self._cache.k, scratch.k),
                          (self._cache.v, scratch.v)):
-            dst[:, slot_idx, :n] = src[:, 0, :n]
+            kv_map(lambda d, s: d[:, slot_idx, :n].copy_(s[:, 0, :n]),
+                   dst, src)
 
     def _arm_first(self, slot_idx: int, last_logits: torch.Tensor,
                    req: _Request, n_prompt: int) -> torch.Tensor:

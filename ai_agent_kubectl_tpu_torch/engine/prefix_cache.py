@@ -19,9 +19,11 @@ boundary, and then the prompt simply misses).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
+
+from ..ops.quant import QuantKV
 
 
 @dataclasses.dataclass
@@ -30,11 +32,13 @@ class PrefixKV:
 
     k, v: [n_layers, 1, P, n_kv_heads, head_dim] — trimmed to the true
     prefix length P (no padding garbage; a splice copies exactly P slots).
+    Under ``KV_QUANT=int8`` each is a ``QuantKV`` (int8 payload of that
+    shape, f32 scales [n_layers, 1, P, n_kv_heads]).
     """
 
     ids: List[int]
-    k: torch.Tensor
-    v: torch.Tensor
+    k: Union[torch.Tensor, QuantKV]
+    v: Union[torch.Tensor, QuantKV]
 
     @property
     def n(self) -> int:

@@ -38,6 +38,10 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
 - A mixture-of-experts model (Mixtral) runs its MLP through
   ``parallel/moe.py::dense_moe`` (``moe_impl`` auto or dense); ``ep``
   needs an expert mesh, which a single card does not have, and raises.
+- ``KV_QUANT=int8`` stores the cache and the prefix as int8 with one
+  f32 scale per (position, head) (``ops/quant.py::QuantKV``), read by
+  ``dense_attention_quant``. The flash kernel reads bf16 KV, so prefill
+  attention resolves to dense under it, with the JAX engine's log line.
 
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
@@ -67,7 +71,7 @@ from ..models.config import ModelConfig, get_config
 from ..models.convert import checkpoint_version, convert_hf_checkpoint
 from ..models.transformer import KVCache, Params, forward, init_params
 from ..ops.flash_attention import flash_supported
-from ..ops.quant import is_quantized, quantize_params_int8, \
+from ..ops.quant import is_quantized, kv_map, quantize_params_int8, \
     random_params_int8
 from ..ops.quant4 import quantize_params_int4
 from .prefix_cache import PrefixKV, round_kv_limit
@@ -126,11 +130,7 @@ class TorchEngine:
                              f"{dtype!r}")
         if quant not in ("", "int8", "int4"):
             raise ValueError(f"QUANT must be ''|int8|int4, got {quant!r}")
-        if kv_quant == "int8":
-            raise NotImplementedError(
-                "KV_QUANT=int8 (the int8 KV cache) waits for a later slice "
-                "of the port")
-        if kv_quant:
+        if kv_quant not in ("", "int8"):
             raise ValueError(f"KV_QUANT must be '' or 'int8', got "
                              f"{kv_quant!r}")
         if attn_impl not in ("auto", "dense", "flash"):
@@ -157,6 +157,7 @@ class TorchEngine:
         self.tokenizer_path = tokenizer_path
         self.dtype = DTYPES[dtype]
         self.quant = quant
+        self.kv_quant = kv_quant
         # auto: the flash kernel on the card; on the CPU the plain version
         # would stand in for it, so the dense reference serves there (as
         # the JAX engine picks flash only on its accelerator).
@@ -222,7 +223,13 @@ class TorchEngine:
         layer by layer under ``quant`` (``convert_hf_checkpoint``); else a
         random init drawn from a ``torch.Generator`` seeded with ``seed``
         on the serving device — directly in quantized form under
-        ``quant``. Either way no full-precision 7B tree is ever built."""
+        ``quant``. Either way no full-precision 7B tree is ever built.
+        Under ``KV_QUANT=int8`` flash prefill resolves to dense first:
+        the flash kernel reads bf16 KV."""
+        if self.kv_quant and self.attn_impl == "flash":
+            logger.info("KV_QUANT=int8: prefill attention uses dense "
+                        "(fusable dequant) instead of flash")
+            self.attn_impl = "dense"
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(self.model_cfg,
                                             self.tokenizer_path)
@@ -278,7 +285,8 @@ class TorchEngine:
 
     def _new_cache(self) -> KVCache:
         return KVCache.zeros(self.model_cfg, 1, self.max_seq_len,
-                             dtype=self.dtype, device=self.device)
+                             dtype=self.dtype, device=self.device,
+                             kv_quant=self.kv_quant)
 
     def _prefill_impl_for(self, q_len: int, kv_len: int) -> str:
         """Attention for a prefill shape: flash where the kernel's gate
@@ -347,16 +355,19 @@ class TorchEngine:
             _, cache, _ = self._prefill_chunked(list(ids))
         # Trim to the true prefix length: the padding slots' K/V is never
         # copied into request caches.
-        self._prefix = PrefixKV(ids=list(ids),
-                                k=cache.k[:, :, :P].clone(),
-                                v=cache.v[:, :, :P].clone())
+        def trim(leaf):
+            return leaf[:, :, :P].clone()
+
+        self._prefix = PrefixKV(ids=list(ids), k=kv_map(trim, cache.k),
+                                v=kv_map(trim, cache.v))
         logger.info("Prefix-KV cache ready: %d tokens resident on %s", P,
                     self.device)
 
     def _splice_prefix(self, cache: KVCache) -> None:
         P = self._prefix.n
-        cache.k[:, :, :P].copy_(self._prefix.k)
-        cache.v[:, :, :P].copy_(self._prefix.v)
+        for dst, src in ((cache.k, self._prefix.k),
+                         (cache.v, self._prefix.v)):
+            kv_map(lambda d, p: d[:, :, :P].copy_(p), dst, src)
 
     def _prefill_prompt(self, prompt_ids, max_tokens: int):
         """Prefill one prompt into a fresh cache. Returns (last_logits
@@ -708,6 +719,7 @@ def engine_kwargs(cfg) -> dict:
         tokenizer_path=cfg.tokenizer_path,
         dtype=cfg.dtype,
         quant=cfg.quant,
+        kv_quant=cfg.kv_quant,
         max_seq_len=cfg.max_seq_len,
         prefill_buckets=cfg.prefill_bucket_list,
         top_k=cfg.top_k,

@@ -39,9 +39,16 @@ Shared by both:
 - A mixture-of-experts model (``cfg.is_moe``: Mixtral, ``toy-moe``)
   runs its MLP through ``parallel/moe.py::dense_moe`` in every regime
   of both layouts; ``moe_impl="ep"`` needs an expert mesh and raises.
+- An int8 KV cache (``kv_quant="int8"``: ``ops/quant.py::QuantKV``
+  leaves, scales starting at 1) is written through the same rows, the
+  window's K/V quantized first (``kv_quantize``), and read by
+  ``ops/attention.py::dense_attention_quant``: on the pool through the
+  gather path, on the dense cache over ``cache[:, :kv_limit]``. None of
+  the attention kernels reads int8 KV (nor does the JAX package's), so
+  an int8 cache asked to attend through one of them raises.
 
-int8 KV, and the ring and mesh paths belong to later slices: asking for
-them raises ``NotImplementedError``.
+The ring and mesh paths belong to later slices: asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,12 +59,13 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import dense_attention
+from ..ops.attention import dense_attention, dense_attention_quant
 from ..ops.flash_attention import flash_attention_cached
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (_pool_gather, paged_decode_attention,
                                    paged_decode_attention_pool)
-from ..ops.quant import embed_lookup, qmatmul, tied_head
+from ..ops.quant import (QuantKV, embed_lookup, kv_map, kv_quantize,
+                         qmatmul, tied_head)
 from ..ops.ragged_attention import ragged_attention_pool
 from ..ops.rope import rope_tables, rotate
 from ..parallel.moe import dense_moe
@@ -80,28 +88,56 @@ class KVCache:
           writes at positions past ``max_seq`` (which the JAX cache
           drops) and masked rows land there. The engine keeps each
           slot's length on the host.
+
+    Under ``kv_quant="int8"`` each of k and v is a ``QuantKV``: an int8
+    payload of that shape and f32 scales without the head_dim axis, all
+    1 at the start (as in the JAX package), trash block and rows
+    included.
     """
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: object
+    v: object
+
+    @staticmethod
+    def _leaf(shape, dtype, device, kv_quant: str):
+        if kv_quant == "int8":
+            return QuantKV(q=torch.zeros(shape, dtype=torch.int8,
+                                         device=device),
+                           s=torch.ones(shape[:-1], dtype=torch.float32,
+                                        device=device))
+        if kv_quant:
+            raise ValueError(f"KV_QUANT must be '' or 'int8', got "
+                             f"{kv_quant!r}")
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     @classmethod
     def pool(cls, cfg: ModelConfig, n_blocks: int, page: int, *,
-             dtype=torch.bfloat16, device=None) -> "KVCache":
+             dtype=torch.bfloat16, device=None,
+             kv_quant: str = "") -> "KVCache":
         """A zeroed pool (the JAX pool starts zeroed too)."""
         shape = (cfg.n_layers, n_blocks + 1, page, cfg.n_kv_heads,
                  cfg.head_dim)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        return cls(k=cls._leaf(shape, dtype, device, kv_quant),
+                   v=cls._leaf(shape, dtype, device, kv_quant))
 
     @classmethod
     def zeros(cls, cfg: ModelConfig, batch: int, max_seq: int, *,
-              dtype=torch.bfloat16, device=None) -> "KVCache":
+              dtype=torch.bfloat16, device=None,
+              kv_quant: str = "") -> "KVCache":
         """A zeroed dense per-slot cache of ``max_seq`` positions."""
         shape = (cfg.n_layers, batch, max_seq + 1, cfg.n_kv_heads,
                  cfg.head_dim)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        return cls(k=cls._leaf(shape, dtype, device, kv_quant),
+                   v=cls._leaf(shape, dtype, device, kv_quant))
+
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.k, QuantKV)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of both leaves (payload and scales)."""
+        return self.k.nbytes + self.v.nbytes
 
     @property
     def n_blocks(self) -> int:
@@ -191,13 +227,32 @@ def _pool_flat_pos(tables: torch.Tensor, positions: torch.Tensor,
 
 
 def _scatter_rows(leaf: torch.Tensor, flat: torch.Tensor,
-                  updates: torch.Tensor) -> None:
-    """Write [B, S, KV, hd] updates into one layer's cache, viewed as
-    rows [leaf.shape[0] * leaf.shape[1], KV, hd], at flat row indices, in
-    place (the pool's and the dense cache's scatter alike)."""
+                  updates: torch.Tensor) -> torch.Tensor:
+    """Write [B, S, ...] updates into one layer's cache leaf, viewed as
+    rows [leaf.shape[0] * leaf.shape[1], ...], at flat row indices, in
+    place (the pool's and the dense cache's scatter alike; a ``QuantKV``
+    scale leaf is served as it is, one axis shorter)."""
     f = leaf.view(leaf.shape[0] * leaf.shape[1], *leaf.shape[2:])
     f.index_copy_(0, flat.reshape(-1),
                   updates.reshape(-1, *leaf.shape[2:]).to(leaf.dtype))
+    return leaf
+
+
+def _write_kv(layer, flat: torch.Tensor, x: torch.Tensor) -> None:
+    """The window's K or V [B, S, KV, hd] into one layer's cache at flat
+    rows: quantized first when the layer is a ``QuantKV``."""
+    if isinstance(layer, QuantKV):
+        x = kv_quantize(x)
+    kv_map(lambda leaf, upd: _scatter_rows(leaf, flat, upd), layer, x)
+
+
+def _attend_read(q, k_ctx, v_ctx, mask) -> torch.Tensor:
+    """The dense read over a contiguous context: the int8 span through
+    ``dense_attention_quant``, a plain one through ``dense_attention``."""
+    if isinstance(k_ctx, QuantKV):
+        return dense_attention_quant(q, k_ctx.q, k_ctx.s, v_ctx.q, v_ctx.s,
+                                     mask)
+    return dense_attention(q, k_ctx, v_ctx, mask)
 
 
 # ---------------------------------------------------- dense per-slot KV
@@ -303,8 +358,8 @@ def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
         use_flash = attn_impl == "flash" and S > 1
 
     def attend(q, k, v, layer_k, layer_v):
-        _scatter_rows(layer_k, flat, k)
-        _scatter_rows(layer_v, flat, v)
+        _write_kv(layer_k, flat, k)
+        _write_kv(layer_v, flat, v)
         n_blocks, page = layer_k.shape[0] - 1, layer_k.shape[1]
         if attn_impl == "ragged":
             return ragged_attention_pool(
@@ -314,11 +369,12 @@ def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
             return paged_decode_attention_pool(
                 q[:, 0].contiguous(), layer_k[:n_blocks], layer_v[:n_blocks],
                 pos0, tables, page_size=page)[:, None]
-        k_ctx = _pool_gather(layer_k[:n_blocks], tables, n_pages)
-        v_ctx = _pool_gather(layer_v[:n_blocks], tables, n_pages)
+        k_ctx, v_ctx = (
+            kv_map(lambda a: _pool_gather(a[:n_blocks], tables, n_pages), x)
+            for x in (layer_k, layer_v))
         if use_flash:
             return flash_attention_cached(q, k_ctx, v_ctx, pos32)
-        return dense_attention(q, k_ctx, v_ctx, mask)
+        return _attend_read(q, k_ctx, v_ctx, mask)
 
     return attend
 
@@ -342,8 +398,8 @@ def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
         mask = kv_pos[None, None, :] <= positions.long()[:, :, None]
 
     def attend(q, k, v, layer_k, layer_v):
-        _scatter_rows(layer_k, flat, k)
-        _scatter_rows(layer_v, flat, v)
+        _write_kv(layer_k, flat, k)
+        _write_kv(layer_v, flat, v)
         if paged:
             S_alloc = layer_k.shape[1] - 1      # the trash row excluded
             return paged_decode_attention(
@@ -353,7 +409,7 @@ def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
         v_ctx = layer_v[:, :kv_limit]
         if use_flash:
             return flash_attention_cached(q, k_ctx, v_ctx, pos32)
-        return dense_attention(q, k_ctx, v_ctx, mask)
+        return _attend_read(q, k_ctx, v_ctx, mask)
 
     return attend
 
@@ -397,7 +453,10 @@ def forward(
     (to keep padding out of the experts' capacity); the dense
     evaluation, the port's only one, ignores it. ``logits_at`` gathers
     each row's hidden state at one column BEFORE the LM head, returning
-    [B, 1, vocab]."""
+    [B, 1, vocab]. An int8 cache (``QuantKV`` leaves) reads through the
+    gather path or the dense read only: ``attn_impl`` "ragged", "paged"
+    with one column and "flash" with several raise, their kernels
+    reading bf16 KV."""
     del token_mask
     if block_tables is not None:
         attn_impl = attn_impl or "ragged"
@@ -422,7 +481,14 @@ def forward(
                              f"{cache.max_seq} positions")
         attend = _dense_attend(tokens, positions, cache, write_mask,
                                kv_limit, attn_impl, page_size)
-    B = tokens.shape[0]
+    B, S = tokens.shape
+    if cache.quantized and (attn_impl == "ragged"
+                            or (attn_impl == "paged" and S == 1)
+                            or (attn_impl == "flash" and S > 1)):
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} does not read int8 KV (its kernel "
+            f"reads bf16); the engines resolve KV_QUANT=int8 to the gather "
+            f"path on the pool and the dense read on the dense cache")
 
     # final_norm is always a plain tensor in the model dtype: it anchors
     # the activation dtype when the embedding is stored int8.

@@ -1,4 +1,6 @@
-"""Dense reference attention (GQA, causal, KV-cache aware).
+"""Dense reference attention (GQA, causal, KV-cache aware), over a bf16
+or float span (``dense_attention``) or an int8 one
+(``dense_attention_quant``).
 
 The numerically trusted baseline the hand-written kernels are held
 against, in the JAX package's conventions:
@@ -58,6 +60,48 @@ def dense_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(q.dtype).float(),
                        v.to(q.dtype).float())
+    return out.reshape(B, Q, H, D).to(q.dtype)
+
+
+def dense_attention_quant(
+    q: torch.Tensor,
+    k_q: torch.Tensor,          # int8 [b, s, n_kv, d]
+    k_s: torch.Tensor,          # f32  [b, s, n_kv]
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """``dense_attention`` over an int8 KV span (the JAX
+    ``dense_attention_quant``, plain PyTorch ops as XLA's there).
+
+    A (position, head) scale commutes out of the head_dim contraction:
+    ``q . (K_q[s] * k_s[s]) == (q . K_q[s]) * k_s[s]``. So the K scale
+    multiplies the scores and the V scale the probabilities, in the
+    reference's order: scores, times ``k_s * scale``, softcap, mask,
+    softmax, times ``v_s``, then the product with ``V_q``. Queries group
+    as [b, q, n_kv, g, d] against the unrepeated span. Masked positions
+    have probability 0, which the V scale multiplies: every scale the
+    span can hold must be finite (the caches start at 1)."""
+    B, Q, H, D = q.shape
+    KV = k_q.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = D ** -0.5
+    qg = q.reshape(B, Q, KV, G, D).float()
+    # int8 -> float32 is exact, as int8 -> the query dtype is.
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k_q.float())
+    logits = logits * (k_s.permute(0, 2, 1)[:, :, None, None, :] * scale)
+    if logit_softcap > 0.0:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    probs = probs * v_s.permute(0, 2, 1)[:, :, None, None, :]
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(q.dtype).float(),
+                       v_q.float())
     return out.reshape(B, Q, H, D).to(q.dtype)
 
 

@@ -1,12 +1,20 @@
-"""Weight-only int8 quantization, and the per-leaf matmul dispatch.
+"""int8 quantization of weights and of the KV cache, and the per-leaf
+matmul dispatch.
 
-The counterpart of the JAX package's ``ops/quant.py`` (weights only;
-int8 KV and W8A8 wait for a later slice):
+The counterpart of the JAX package's ``ops/quant.py``:
 
 - ``QuantInt8``: per-output-channel symmetric int8 for the projection
   matmuls, f32 scales applied in the epilogue — ``(x @ q) * scale``.
   The JAX package leaves the convert and the scale to XLA's fusion, not
   to a Pallas kernel, so plain PyTorch ops serve them here.
+- ``QuantInt8W8A8``: the same payload and scales, but ``qmatmul`` also
+  quantizes the activations per token and multiplies s8 x s8 into s32
+  (``int8_matmul``), both scales in an f32 epilogue. ``to_w8a8`` retags
+  the layer projections of an int8 tree.
+- ``QuantKV`` (``KV_QUANT=int8``): an int8 KV cache with one f32 scale
+  per (position, head) vector, written by ``kv_quantize`` and read by
+  ``ops/attention.py::dense_attention_quant``; ``kv_map`` applies one
+  leaf operation to both of its leaves (or to a plain cache tensor).
 - A per-ROW int8 embedding (``quantize_embed_int8``): one scale per
   vocab row serves the token gather (``embed_lookup``) and the tied LM
   head (``tied_head``).
@@ -54,7 +62,29 @@ class QuantInt8:
 
     def __getitem__(self, i) -> "QuantInt8":
         """One layer of a stacked leaf (a view, no copy)."""
-        return QuantInt8(q=self.q[i], scale=self.scale[i])
+        return type(self)(q=self.q[i], scale=self.scale[i])
+
+
+@dataclasses.dataclass
+class QuantInt8W8A8(QuantInt8):
+    """A ``QuantInt8`` whose ``qmatmul`` quantizes the activations per
+    token too and multiplies s8 x s8 into s32 (W8A8); the payload and
+    scales are the weight-only leaf's. The JAX package keeps it as a
+    library option: no serving knob selects it."""
+
+
+def to_w8a8(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Retag the layer projections' ``QuantInt8`` leaves of rank 3 as
+    ``QuantInt8W8A8`` (same tensors). The embedding and the head stay
+    weight-only (their outputs are the logits, where activation noise
+    moves the argmax), and so do the rank-4 MoE expert stacks
+    (``parallel/moe.py`` has no W8A8 path)."""
+    out = dict(params)
+    out["layers"] = {
+        name: (QuantInt8W8A8(q=w.q, scale=w.scale)
+               if isinstance(w, QuantInt8) and w.q.dim() == 3 else w)
+        for name, w in params["layers"].items()}
+    return out
 
 
 def quantize_int8(w: torch.Tensor) -> QuantInt8:
@@ -106,18 +136,111 @@ def tied_head(h: torch.Tensor, emb) -> torch.Tensor:
     return h @ emb.to(h.dtype).T
 
 
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]``, both int8, into an exact int32 product.
+    On the card ``torch._int_mm`` (cuBLASLt's s8 x s8 -> s32 GEMM, as the
+    JAX package's ``dot_general`` with an int32 result is XLA's), which
+    takes more than 16 rows and K, N multiples of 8: fewer rows (a decode
+    step) are padded with zero rows and sliced off. On the CPU an int32
+    product, exact as well. A float product would not be: float32 holds
+    K * 127**2 exactly only for K < 1041."""
+    if a.device.type == "cuda":
+        M = a.shape[0]
+        rows = max(M, 17)
+        rows = -(-rows // 8) * 8
+        if rows != M:
+            a = torch.cat([a, a.new_zeros((rows - M, a.shape[1]))])
+        return torch._int_mm(a, b)[:M]
+    return a.to(torch.int32) @ b.to(torch.int32)
+
+
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for a plain, ``QuantInt8`` or ``QuantInt4`` weight
-    ``w [in, out]``. int8: the convert feeds the product and the scale
-    multiplies in f32 before one cast; int4: the packed-nibble kernel."""
+    """``x @ w`` for a plain, ``QuantInt8``, ``QuantInt8W8A8`` or
+    ``QuantInt4`` weight ``w [in, out]``. int8: the convert feeds the
+    product and the scale multiplies in f32 before one cast; W8A8: per
+    token symmetric activation quantization, an exact s32 product, both
+    scales in the f32 epilogue; int4: the packed-nibble kernel."""
     if isinstance(w, QuantInt4):
         return qmatmul4(x, w)
+    if isinstance(w, QuantInt8W8A8):
+        ax = x.abs().amax(dim=-1, keepdim=True).float()
+        sx = torch.clamp(true_div(ax, 127.0), min=1e-12)
+        xq = torch.clamp(torch.round(x.float() / sx), -127, 127).to(
+            torch.int8)
+        y = int8_matmul(xq.reshape(-1, x.shape[-1]), w.q)
+        y = y.reshape(*x.shape[:-1], w.q.shape[-1])
+        return (y.float() * sx * w.scale[0]).to(x.dtype)
     if isinstance(w, QuantInt8):
         y = x @ w.q.to(x.dtype)
         # Scale in f32, cast once: rounding the scales to the activation
         # dtype first would add systematic per-channel error.
         return (y.float() * w.scale[0]).to(x.dtype)
     return x @ w
+
+
+# ---------------------------------------------------------------- KV cache
+#
+# KV_QUANT=int8: each (position, head) vector of K and V is stored as
+# head_dim int8 values and one f32 scale, 132 bytes against 256 in bf16
+# at head_dim 128. Attention reads the int8 span directly: the K scale
+# multiplies the scores and the V scale the probabilities
+# (``dense_attention_quant``), so no dequantized copy of the span is made.
+
+
+@dataclasses.dataclass
+class QuantKV:
+    """Symmetric int8 KV with one scale per head vector.
+
+    q: int8 [..., n_kv_heads, head_dim]
+    s: f32  [..., n_kv_heads]
+
+    Every structural operation of the caches (a layer view, a slot or
+    block copy, a row scatter, a gather through block tables) indexes
+    leading axes only, so it applies to both leaves alike (``kv_map``).
+    """
+
+    q: torch.Tensor
+    s: torch.Tensor
+
+    @property
+    def shape(self):
+        """The payload's shape (the cache's geometry)."""
+        return tuple(self.q.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return (self.q.numel() * self.q.element_size()
+                + self.s.numel() * self.s.element_size())
+
+    def __getitem__(self, i) -> "QuantKV":
+        """Leading-axis indexing of both leaves (a view, no copy)."""
+        return QuantKV(q=self.q[i], s=self.s[i])
+
+
+def kv_quantize(x: torch.Tensor) -> QuantKV:
+    """[..., hd] -> int8 with one f32 scale per trailing vector,
+    bit-equal to the JAX ``kv_quantize`` (a zero vector gets scale 1 and
+    zeros)."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    s = torch.where(absmax > 0, true_div(absmax, 127.0),
+                    torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return QuantKV(q=q, s=s)
+
+
+def kv_dequantize(kv: QuantKV, dtype=torch.bfloat16) -> torch.Tensor:
+    return (kv.q.float() * kv.s[..., None]).to(dtype)
+
+
+def kv_map(fn, *kvs):
+    """``fn`` applied leaf by leaf: to ``q`` and then ``s`` of each
+    ``QuantKV`` argument (leaves paired in order), or once to plain
+    tensors. Returns a ``QuantKV`` of the results, or the one result."""
+    if isinstance(kvs[0], QuantKV):
+        return QuantKV(q=fn(*(kv.q for kv in kvs)),
+                       s=fn(*(kv.s for kv in kvs)))
+    return fn(*kvs)
 
 
 #: projection weights eligible for quantization (matmul RHS, output

@@ -4,7 +4,8 @@
 ``DECODE_BATCH_SIZE`` > 1 (the default) and through the single-sequence
 engine (``engine/torch_engine.py::TorchEngine``: dense cache, flash
 prefill) at 1 — the JAX factory's rule; ``ENGINE=torch-batched`` always
-batches. Both take ``QUANT`` and ``MOE_IMPL`` (``engine_kwargs``).
+batches. Both take ``QUANT``, ``KV_QUANT`` and ``MOE_IMPL``
+(``engine_kwargs``).
 
 On a construction failure the service starts degraded and answers 503
 (as the JAX factory does): a misconfiguration keeps ``/health`` up and

@@ -39,7 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  with and without the contraction split), and on
                  Mixtral's wq (4096x4096) and wk (4096x1024) at T in {1,
                  8, 64, 512, 4096} and its head (4096x32000, 512/256) at
-                 T in {1, 8};
+                 T in {1, 8}, and on Llama-3-8B's w_gate (4096x14336),
+                 w_down (14336x4096), wk (4096x1024) and head
+                 (4096x128256, 512/256 by pick_format) at T in {1, 8, 64,
+                 512};
                * both paged decode entry points (contiguous caches and the
                  pool) at Llama-3-8B's grouping (H=32, KV=8, head_dim 128;
                  pages 64 and 16), Gemma-2B's (8 over 1, 256) and
@@ -164,10 +167,47 @@ Phases, in order; any failure raises and the script exits non-zero:
                Printed: the routed-expert histogram, init seconds, burst
                tok/s, decode ms a step, TTFT, launches; with --profile
                the MoE MLP's share of a step.
-9. timing   -- time each kernel, its plain version, one PyTorch library
+9. serve_kvq -- the int8 KV cache on Llama-3-8B (MODEL_NAME=
+               llama-3-8b-instruct, 32 layers, dim 4096, 32 query heads
+               over 8 KV heads of 128, MLP 14,336, vocab 128,256) at full
+               width: QUANT=int4 (the untied head 512/256, the embedding
+               per-row int8) drawn once on the card from seed 0,
+               KV_QUANT=int8, MAX_SEQ_LEN=2048,
+               PREFILL_BUCKETS=64,128,256,512, RATE_LIMIT=1000/minute.
+               (a) The pool engine (8 slots; RAGGED_ATTENTION and
+               DECODE_ATTN at auto), which must resolve to the gather
+               regime and log why: the serve phase's burst and its 2
+               repeats over HTTP. (b) The dense ladder (KV_POOL=false,
+               DECODE_ATTN=paged asked), which must resolve to dense and
+               log why: the burst with one query of about 600 tokens and
+               the 2 repeats. (c) The single-sequence engine
+               (DECODE_BATCH_SIZE=1): one query of about 600 tokens (the
+               int8 prefix splice, chunked dense prefill, int4 decode).
+               Flash prefill must resolve to dense in all three. Gates:
+               statuses as the service decides; the repeats hit their
+               prefix and (a)'s books balance; the served logits against
+               the plain int4 version over the same int8 cache, by the
+               serve phase's rule; launch counters zeroed before each
+               part's traffic: the int4 kernel's grows (in (a) by its
+               count a forward times the forward steps), the ragged,
+               paged and flash counters stay 0; the KV cache's bytes,
+               read from its tensors, equal 2 L rows KV (hd + 4) and are
+               at most 0.52x a bf16 cache of the same geometry; the peak
+               device memory stays under what earlier phases left
+               resident, plus the tree, plus the three engines' caches,
+               plus a transient the phase states before it runs; the
+               W8A8 s32 product on the card equals the CPU's bit for bit
+               at Llama's wq and w_gate for T in {1, 8, 17, 64}. Printed:
+               burst tok/s, decode ms a step and TTFT per part, and the
+               gap between int8-KV and bf16-KV logits on one prompt; with
+               --profile, the shares of a decode step that go to the
+               gather, the int8 -> float32 convert and
+               dense_attention_quant.
+10. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
-               shapes the serving paths give it (serve_moe's int4
-               projections and ragged decode included); with --profile,
+               shapes the serving paths give it (serve_moe's and
+               serve_kvq's int4 projections and serve_moe's ragged decode
+               included); with --profile,
                also the device time of each kernel a call launches (an
                attention kernel and its split combine).
 
@@ -194,7 +234,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
-          "serve_qos", "serve_moe", "timing")
+          "serve_qos", "serve_moe", "serve_kvq", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -416,6 +456,15 @@ MIXTRAL_PROJ = {"wq": ((4096, 4096), (512, 512)),
 # 8 decode rows, a prefill window, the pool's widest ragged prologue
 # (8 slots x 512).
 MIXTRAL_TS = (1, 8, 64, 512, 4096)
+# Llama-3-8B's int4 projections (IN, OUT) that no other model here has,
+# each at pick_format's format (512/512; the untied head 512/256): the
+# MLP's gate (and up) and down, wk and wv, the head. serve_kvq serves
+# them (its wq and wo are Mixtral's 4096x4096).
+LLAMA_PROJ = {"w_gate": (4096, 14336), "w_down": (14336, 4096),
+              "wk": (4096, 1024), "lm_head": (4096, 128256)}
+# Rows a Llama projection serves: single-sequence decode, the 8 decode
+# rows, a 64-token prefill bucket, a 512-token window.
+LLAMA_TS = (1, 8, 64, 512)
 
 
 def flash_cases(torch, gen):
@@ -519,6 +568,8 @@ def int4_case(torch, gen, *, T, IN, OUT, fmt, device="cuda"):
 
 def int4_cases(torch, gen):
     """The shapes of phase 2 for the int4 matmul: (label, x, w)."""
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import pick_format
+
     out = []
     for fmt in INT4_FORMATS:
         for name, (IN, OUT) in G7_PROJ.items():
@@ -531,6 +582,11 @@ def int4_cases(torch, gen):
                 continue             # the head reads one column a row
             x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
             out.append((f"mixtral_{name}_T{T}_{fmt[0]}/{fmt[1]}", x, w))
+    for name, (IN, OUT) in LLAMA_PROJ.items():
+        fmt = pick_format(IN, OUT)
+        for T in LLAMA_TS:
+            x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
+            out.append((f"llama_{name}_T{T}_{fmt[0]}/{fmt[1]}", x, w))
     return out
 
 
@@ -3173,6 +3229,615 @@ def _check_moe_mix(torch, cfg, params, x) -> dict:
             "tolerance": LOGIT_RTOL * rms, "experts_routed": used}
 
 
+# The int8 KV cache (KV_QUANT=int8) on Llama-3-8B at full width, int4
+# weights drawn on the card from seed 0, through the three engines of
+# phase 9 in turn, each built from the environment-style config and
+# served over HTTP. Every other knob keeps its default: 16-token pages
+# and chunks, 128 new tokens, greedy, the prefix and radix caches on.
+KVQ_MODEL = "llama-3-8b-instruct"
+SERVE_KVQ_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda",
+    "MODEL_NAME": KVQ_MODEL, "DTYPE": "bfloat16", "QUANT": "int4",
+    "KV_QUANT": "int8", "DECODE_BATCH_SIZE": str(N_SLOTS),
+    "MAX_SEQ_LEN": "2048", "PREFILL_BUCKETS": "64,128,256,512",
+    "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+    "RATE_LIMIT": "1000/minute",
+}
+#: (a) the pool with RAGGED_ATTENTION and DECODE_ATTN at auto, (b) the
+#: dense ladder with DECODE_ATTN=paged asked, (c) the single-sequence
+#: engine (ATTN_IMPL at auto: flash asked on the card)
+SERVE_KVQ_ENGINES = {
+    "pool": {},
+    "dense": {"KV_POOL": "false", "DECODE_ATTN": "paged"},
+    "single": {"DECODE_BATCH_SIZE": "1"},
+}
+#: what each part must resolve to, and the log line that says why:
+#: (decode impl, regime) of a batched engine, the single engine's
+#: prefill attention
+KVQ_RESOLVED = {
+    "pool": (("dense", "gather"),
+             "RAGGED_ATTENTION: the ragged pool kernel reads bf16 KV; int8 "
+             "KV serves the gather path"),
+    "dense": (("dense", "dense"),
+              "DECODE_ATTN=paged does not read int8 KV; falling back to "
+              "the dense KV ladder"),
+    "single": (("dense",),
+               "KV_QUANT=int8: prefill attention uses dense (fusable "
+               "dequant) instead of flash"),
+}
+#: the KV cache's bytes against a bf16 cache of the same geometry
+KVQ_BYTES_RATIO = 0.52
+#: the W8A8 product's shapes (Llama-3-8B's wq and w_gate) and rows
+KVQ_W8A8_SHAPES = {"wq": (4096, 4096), "w_gate": (4096, 14336)}
+KVQ_W8A8_TS = (1, 8, 17, 64)
+
+
+def kvq_cache_bytes(cfg, rows: int) -> tuple:
+    """(int8, bf16) bytes of a K and V cache of ``rows`` positions a
+    layer: head_dim int8 values and one f32 scale a (position, head),
+    against head_dim bf16 values."""
+    per = 2 * cfg.n_layers * rows * cfg.n_kv_heads
+    return per * (cfg.head_dim + 4), per * cfg.head_dim * 2
+
+
+def kvq_transient_bytes(cfg, max_seq: int, window: int) -> int:
+    """A bound on the largest transient of phase 9, from the shapes:
+    one prefill window's float32 scores over the whole span (six
+    surfaces alive at once: the product, its scaling, the mask, the
+    softmax, the V-scaled probabilities and their bf16 round trip), a
+    decode step's gathered span of K and V for every slot (int8 and its
+    float32 copy, 5 bytes an element), the window's MLP and streams (16
+    bytes a [window, mlp_hidden] element, 32 a [window, dim] one), every
+    slot's float32 logits twice, the logit check's own caches (one
+    slot's int8 pool of the whole span and two one-slot dense caches of
+    the span, one of them bf16) and the plain int4 version's unpacked
+    copy of the largest packed weight, the untied head, which the check
+    runs: 8 bytes an element (the int32 nibbles, their concatenation,
+    then the int8, bf16 and float32 copies)."""
+    from ai_agent_kubectl_tpu_torch.models.convert import expected_shapes
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import pick_format
+
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scores = 6 * 4 * H * window * max_seq
+    span = 2 * 5 * N_SLOTS * max_seq * KV * hd
+    mlp = window * (16 * cfg.mlp_hidden + 32 * cfg.dim)
+    head = 2 * 4 * N_SLOTS * cfg.vocab_size
+    check = (2 * kvq_cache_bytes(cfg, max_seq + 64)[0]
+             + kvq_cache_bytes(cfg, max_seq + 64)[1])
+    shapes = expected_shapes(cfg)
+    packed = [s[-2:] for s in [shapes.get("lm_head", (1, 1)),
+                               *shapes["layers"].values()]
+              if len(s) in (2, 3) and pick_format(*s[-2:]) is not None]
+    plain_int4 = 8 * max(i * o for i, o in packed)
+    return scores + span + mlp + head + check + plain_int4
+
+
+def phase_serve_kvq(torch, profile: bool = False) -> dict:
+    """Phase 9: Llama-3-8B with int4 weights and the int8 KV cache, one
+    parameter tree drawn once for (a) the pool engine, (b) the dense
+    ladder and (c) the single-sequence engine; then the gap between
+    int8-KV and bf16-KV logits on one prompt, the W8A8 product against
+    the CPU's and the peak-memory gate. The tree is freed at the end."""
+    import gc
+
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.quant import random_params_int8
+
+    release_served_apps(torch)
+    cfg = get_config(KVQ_MODEL)
+    max_seq = int(SERVE_KVQ_ENV["MAX_SEQ_LEN"])
+    window = max(int(b) for b in SERVE_KVQ_ENV["PREFILL_BUCKETS"].split(","))
+    want_tree = quantized_tree_bytes(cfg)
+    transient = kvq_transient_bytes(cfg, max_seq, window)
+    resident = torch.cuda.memory_allocated()
+    log(f"[serve_kvq] {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, "
+        f"{cfg.n_heads} over {cfg.n_kv_heads} heads of {cfg.head_dim}, MLP "
+        f"{cfg.mlp_hidden}, vocab {cfg.vocab_size}; int4 tree "
+        f"{want_tree / 1e9:.3f} GB (derived from the shapes); int8 KV at "
+        f"MAX_SEQ_LEN {max_seq}; the peak bound's transient "
+        f"{transient / 1e9:.3f} GB (stated before the run); "
+        f"{resident / 1e9:.3f} GB resident from earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = random_params_int8(
+        torch.Generator(device="cuda").manual_seed(0), cfg,
+        dtype=torch.bfloat16, quantize_embed=True, int4=True, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    tree = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[serve_kvq] random int4 tree drawn on the card in {init_s:.2f} s: "
+        f"{tree / 1e9:.3f} GB")
+    if tree != want_tree:
+        raise AssertionError(f"tree of {tree} bytes, the shapes give "
+                             f"{want_tree}")
+    out = {"init_s": init_s, "tree_bytes": tree,
+           "transient_bound_bytes": transient}
+    try:
+        for kind, env in SERVE_KVQ_ENGINES.items():
+            out[kind] = asyncio.run(_serve_kvq_one(torch, kind, env, params,
+                                                   profile))
+            gc.collect()
+        peak = torch.cuda.max_memory_allocated()
+        kv = sum(out[k]["kv_bytes"] for k in SERVE_KVQ_ENGINES)
+        bound = resident + tree + kv + transient
+        out.update(peak_bytes=peak, peak_bound_bytes=bound)
+        log(f"[serve_kvq] peak device memory {peak / 1e9:.3f} GB, bound "
+            f"{bound / 1e9:.3f} GB = resident {resident / 1e9:.3f} + tree "
+            f"{tree / 1e9:.3f} + the three engines' int8 KV "
+            f"{kv / 1e9:.3f} + transient {transient / 1e9:.3f}")
+        if peak > bound:
+            raise AssertionError(f"peak device memory {peak} over the bound "
+                                 f"{bound}")
+        out["kv_gap"] = _kvq_logit_gap(torch, cfg, params,
+                                       out["single"].pop("prompt_ids"))
+        out["w8a8"] = _check_w8a8(torch)
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+class _LogLines:
+    """The records of the engine modules' loggers while in scope (INFO
+    included), for the resolution gates."""
+
+    NAMES = ("ai_agent_kubectl_tpu_torch.engine.batcher",
+             "ai_agent_kubectl_tpu_torch.engine.torch_engine")
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        outer = self
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                outer.lines.append(record.getMessage())
+
+        self.handler = Keep()
+        self.saved = []
+        for name in self.NAMES:
+            lg = logging.getLogger(name)
+            self.saved.append((lg, lg.level))
+            lg.setLevel(logging.INFO)
+            lg.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        for lg, level in self.saved:
+            lg.removeHandler(self.handler)
+            lg.setLevel(level)
+        return False
+
+
+async def _serve_kvq_one(torch, kind: str, env: dict, params,
+                         profile: bool) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.torch_engine import TorchEngine
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_pool)
+    from ai_agent_kubectl_tpu_torch.ops.quant import QuantKV
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import QuantInt4, qmatmul4
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = f"serve_kvq/{kind}"
+    counted = {"qmatmul4": qmatmul4,
+               "ragged_attention_pool": ragged_attention_pool,
+               "flash_attention_cached": flash_attention_cached,
+               "paged_decode_attention_pool": paged_decode_attention_pool,
+               "paged_decode_attention": paged_decode_attention}
+    port = _free_port()
+    _phase_env({**SERVE_KVQ_ENV, **env}, port)
+    batched = kind != "single"
+    with _LogLines() as logged:
+        cfg = ServiceConfig.from_env()
+        inner = build_engine(cfg)
+        if type(inner) is not (BatchedTorchEngine if batched
+                               else TorchEngine):
+            raise AssertionError(f"{tag}: engine construction failed: "
+                                 f"{inner!r}")
+        inner.params = params
+        engine = RecordingEngine(inner)
+        runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+        t0 = time.monotonic()
+        await runner.setup()             # starts the engine (warm-up too)
+        site = web.TCPSite(runner, cfg.host, cfg.port)
+        await site.start()
+        startup_s = time.monotonic() - t0
+    mcfg = inner.model_cfg
+    L = mcfg.n_layers
+    want, why = KVQ_RESOLVED[kind]
+    resolved = ((inner._decode_impl, inner._attention_regime) if batched
+                else (inner.attn_impl,))
+    log(f"[{tag}] {cfg.model_name} quant={inner.quant} "
+        f"kv_quant={inner.kv_quant} up on {cfg.host}:{port} in "
+        f"{startup_s:.1f} s; resolved {resolved}; prefill "
+        f"{inner.attn_impl}; logged: "
+        f"{[m for m in logged.lines if 'int8' in m]}")
+    if resolved != want or not any(why in m for m in logged.lines):
+        raise AssertionError(f"{tag}: resolved {resolved} (want {want}), "
+                             f"log {logged.lines}")
+    if batched and not any(KVQ_RESOLVED["single"][1] in m
+                           for m in logged.lines):
+        raise AssertionError(f"{tag}: flash prefill did not resolve to "
+                             f"dense: {logged.lines}")
+    if kind == "pool":
+        queries = list(QUERIES)
+    elif kind == "dense":
+        queries = list(QUERIES)
+        queries[-1] = _long_burst_query(inner.tokenizer)
+    else:
+        queries = [_long_query(inner)]
+    sent = queries + ([queries[i] for i in REPEATS] if batched else [])
+    url = f"http://{cfg.host}:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+                if r.status != 200 or health["devices"] != 1:
+                    raise AssertionError(f"{tag} /health: {r.status} "
+                                         f"{health}")
+
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            for fn in counted.values():
+                fn.launches = 0
+            steps0 = inner.forward_steps if batched else 0
+            dsteps0 = inner.decode_steps if batched else 0
+            hits0 = inner._radix.hit_tokens_total if kind == "pool" else 0
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in queries])
+            burst_s = time.monotonic() - t_burst
+            burst_dsteps = (inner.decode_steps - dsteps0) if batched else 0
+            hits1 = inner._radix.hit_tokens_total if kind == "pool" else 0
+            repeats = ([await ask(queries[i]) for i in REPEATS]
+                       if batched else [])
+            hits2 = inner._radix.hit_tokens_total if kind == "pool" else 0
+            launches = {name: fn.launches for name, fn in counted.items()}
+            steps = inner.forward_steps - steps0 if batched else 0
+            profiled = (await _kvq_profile(
+                torch, ask, [q + " now" for q in
+                             (QUERIES if batched else QUERIES[:1])],
+                (lambda: inner.decode_steps) if batched else (
+                    lambda: sum(r.completion_tokens
+                                for _, r in engine.results)),
+                "decode steps" if batched else "tokens",
+                f"profile_kvq_{kind}") if profile else None)
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+
+    int4_per_forward = (
+        L * sum(isinstance(w, QuantInt4) for w in params["layers"].values())
+        + isinstance(params.get("lm_head"), QuantInt4))
+    others = {n: c for n, c in launches.items() if n != "qmatmul4"}
+    if launches["qmatmul4"] < int4_per_forward or any(others.values()):
+        raise AssertionError(f"{tag}: launches {launches} (the int4 kernel "
+                             f"must run, no attention kernel may)")
+    if kind == "pool" and launches["qmatmul4"] != int4_per_forward * steps:
+        raise AssertionError(f"{tag}: {launches['qmatmul4']} int4 launches "
+                             f"for {steps} forward steps x "
+                             f"{int4_per_forward}")
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    statuses = [st for st, _ in burst + repeats]
+    for query, (status, body) in zip(sent, burst + repeats):
+        res = results[render_prompt(query)][0]
+        if res.completion_tokens <= 0:
+            raise AssertionError(f"{tag} {query[:40]!r}: no tokens")
+        want_status = status_for_text(res.text)
+        if status != want_status:
+            raise AssertionError(f"{tag} {query[:40]!r}: HTTP {status}, the "
+                                 f"service gives {want_status} for "
+                                 f"{res.text!r}: {body}")
+    firsts = [results[render_prompt(q)][0] for q in queries]
+    # The cache's bytes, read from its tensors, against the geometry.
+    if batched:
+        cache = inner._cache
+        rows = (cache.n_blocks + 1) * cache.page if inner.kv_pool else (
+            inner.batch_size * (cache.max_seq + 1))
+        kv_bytes = cache.nbytes
+        extra = 0
+    else:
+        cache = inner._new_cache()
+        rows = cache.max_seq + 1
+        kv_bytes = cache.nbytes
+        extra = inner._prefix.k.nbytes + inner._prefix.v.nbytes
+        if extra != kvq_cache_bytes(mcfg, inner._prefix.n)[0]:
+            raise AssertionError(f"{tag}: prefix of {extra} bytes")
+    int8_bytes, bf16_bytes = kvq_cache_bytes(mcfg, rows)
+    if not (isinstance(cache.k, QuantKV) and cache.k.q.dtype == torch.int8
+            and kv_bytes == int8_bytes
+            and kv_bytes <= KVQ_BYTES_RATIO * bf16_bytes):
+        raise AssertionError(f"{tag}: KV cache of {kv_bytes} bytes, want "
+                             f"{int8_bytes} = 2 L rows KV (hd + 4) and at "
+                             f"most {KVQ_BYTES_RATIO} x bf16 {bf16_bytes}")
+    info = {"startup_s": startup_s, "resolved": list(resolved),
+            "launches": launches, "statuses": statuses,
+            "kv_rows": rows, "kv_bytes": kv_bytes + extra,
+            "kv_bf16_bytes": bf16_bytes, "kv_ratio": kv_bytes / bf16_bytes,
+            "profile": profiled}
+    log(f"[{tag}] int8 KV cache {kv_bytes / 1e9:.4f} GB over {rows} rows "
+        f"a layer, {kv_bytes / bf16_bytes:.4f} of bf16 "
+        f"({bf16_bytes / 1e9:.4f} GB)"
+        + (f"; prefix {extra / 1e6:.2f} MB" if extra else ""))
+    if batched:
+        for i in REPEATS:
+            first, again = results[render_prompt(queries[i])]
+            if not again.prefix_cache_hit:
+                raise AssertionError(f"{tag}: the repeat of {queries[i]!r} "
+                                     f"missed its prefix")
+        if kind == "pool":
+            want_hits = sum(firsts[i].prompt_tokens - inner.kv_pool_page
+                            for i in REPEATS)
+            if hits2 - hits1 < want_hits:
+                raise AssertionError(f"{tag}: the repeats radix-matched "
+                                     f"{hits2 - hits1} tokens, want >= "
+                                     f"{want_hits}")
+            check_pool_books(inner)
+        n_tok = sum(r.completion_tokens for r in firsts)
+        ttft = sorted(r.ttft_ms for r in firsts)
+        info.update(
+            forward_steps=steps, burst_s=burst_s, burst_tokens=n_tok,
+            burst_tok_per_s=n_tok / burst_s,
+            step_ms=burst_s * 1e3 / max(burst_dsteps, 1),
+            ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
+            prompt_tokens=[r.prompt_tokens for r in firsts],
+            radix_hit_tokens=[hits1 - hits0, hits2 - hits1],
+            repeats_identical=[
+                results[render_prompt(queries[i])][1].token_ids
+                == results[render_prompt(queries[i])][0].token_ids
+                for i in REPEATS],
+            logits=_check_kvq_logits(torch, inner, firsts[0],
+                                     render_prompt(queries[0]), tag))
+        log(f"[{tag}] statuses {statuses}; {n_tok} tokens in {burst_s:.2f} "
+            f"s ({info['burst_tok_per_s']:.1f} tok/s, "
+            f"{info['step_ms']:.2f} ms of burst wall a decode step), TTFT "
+            f"p50 {info['ttft_ms_p50']:.0f} ms max {info['ttft_ms_max']:.0f}"
+            f" ms; prompts {info['prompt_tokens']}; repeats identical "
+            f"{info['repeats_identical']}; launches {launches} over {steps} "
+            f"forward steps")
+    else:
+        res = firsts[0]
+        decode_ms = res.decode_ms / max(res.completion_tokens - 1, 1)
+        if not res.prefix_cache_hit:
+            raise AssertionError(f"{tag}: the long query missed the prefix")
+        if res.prompt_tokens - inner._prefix.n <= inner.prefill_buckets[-1]:
+            raise AssertionError(f"{tag}: the long query's suffix fits one "
+                                 f"bucket: no chunked prefill")
+        prompt = render_prompt(queries[0])
+        info.update(
+            prompt_tokens=res.prompt_tokens, tokens=res.completion_tokens,
+            ttft_ms=res.ttft_ms, decode_ms_per_step=decode_ms,
+            decode_tok_per_s=1e3 / decode_ms,
+            prompt_ids=inner.tokenizer.encode(prompt),
+            logits=_check_served_logits1(torch, inner, res, prompt, tag))
+        log(f"[{tag}] status {statuses}; {res.prompt_tokens}-token prompt, "
+            f"TTFT {res.ttft_ms:.0f} ms, {res.completion_tokens} tokens at "
+            f"{decode_ms:.2f} ms a decode step ({1e3 / decode_ms:.2f} "
+            f"tok/s); launches {launches}")
+    # Nothing of this engine holds device memory past the phase's part.
+    inner.params = None
+    inner._prefix = None
+    if batched:
+        inner._cache = None
+    return info
+
+
+def _check_kvq_logits(torch, engine, res, prompt, tag) -> dict:
+    """One served prompt through the engine's forward from scratch over
+    a fresh int8 cache of its layout — its prefill at the served shape
+    (the gather path on the pool, the dense read on the dense ladder,
+    both ``dense_attention_quant``) and one decode step fed the served
+    first token at the smallest KV bucket covering it — against the
+    same two forwards with the int4 kernel's plain version, on the card
+    (the serve phase's rule, ``_logit_gate``, on each step)."""
+    from ai_agent_kubectl_tpu_torch.models import transformer
+
+    cfg, dev = engine.model_cfg, engine.device
+    ids = engine.tokenizer.encode(prompt)
+    P = len(ids)
+    bucket, kv_limit = (engine._pool_prefill_shape(P) if engine.kv_pool
+                        else (engine._bucket_for(P),) * 2)
+    if bucket < P:
+        raise AssertionError(f"{tag}: the check's prompt of {P} tokens "
+                             f"needs more than one window")
+    cols = torch.arange(bucket, dtype=torch.int32, device=dev)
+    tokens = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    tokens[0, :P] = torch.tensor(ids, device=dev)
+    served = [int(t) for t in res.token_ids[:2]]
+    decode_kv = next(b for b in engine._kv_buckets if b >= P + 1)
+
+    def run():
+        if engine.kv_pool:
+            pages = engine._pool_max_pages
+            cache = transformer.KVCache.pool(
+                cfg, pages, engine.kv_pool_page, dtype=engine.dtype,
+                device=dev, kv_quant=engine.kv_quant)
+            kw = dict(block_tables=torch.arange(
+                pages, dtype=torch.int32, device=dev)[None])
+        else:
+            cache = transformer.KVCache.zeros(
+                cfg, 1, engine._S_alloc, dtype=engine.dtype, device=dev,
+                kv_quant=engine.kv_quant)
+            kw = {}
+        first, _ = transformer.forward(
+            engine.params, cfg, tokens, cols[None], cache,
+            kv_limit=kv_limit, attn_impl=engine._prefill_impl_for(
+                bucket, kv_limit), write_mask=(cols < P)[None],
+            logits_at=torch.tensor([P - 1], device=dev), **kw)
+        second, _ = transformer.forward(
+            engine.params, cfg,
+            torch.tensor([[served[0]]], dtype=torch.int32, device=dev),
+            torch.tensor([[P]], dtype=torch.int32, device=dev), cache,
+            kv_limit=decode_kv, attn_impl=engine._decode_impl, **kw)
+        return torch.stack([first[0, 0], second[0, 0]]).float()
+
+    kernel, plain = _kernel_and_plain(torch, run)
+    out = {"prompt_tokens": P, "decode_kv_limit": decode_kv}
+    for i, step in enumerate(("prefill", "decode")):
+        out[step] = _logit_gate(torch, kernel[i], plain[i], served[i],
+                                f"({step}) over {P} prompt tokens", tag)
+    return out
+
+
+def _kvq_logit_gap(torch, cfg, params, ids) -> dict:
+    """What int8 KV costs in accuracy, on the card (printed, not gated):
+    one prompt prefilled in one window through the dense read over a
+    bf16 cache and over an int8 cache of the same tree, the last
+    position's logits compared as the rms and the max of their
+    difference against the bf16 logits' rms, and whether the argmax
+    agrees."""
+    from ai_agent_kubectl_tpu_torch.models import transformer
+
+    P = len(ids)
+    dev = params["final_norm"].device
+    tokens = torch.tensor([ids], dtype=torch.int32, device=dev)
+    positions = torch.arange(P, dtype=torch.int32, device=dev)[None]
+    logits = {}
+    with torch.no_grad():
+        for kv_quant in ("", "int8"):
+            cache = transformer.KVCache.zeros(
+                cfg, 1, P, dtype=params["final_norm"].dtype, device=dev,
+                kv_quant=kv_quant)
+            out, _ = transformer.forward(
+                params, cfg, tokens, positions, cache, kv_limit=P,
+                attn_impl="dense",
+                logits_at=torch.tensor([P - 1], device=dev))
+            logits[kv_quant or "bf16"] = out[0, 0].float()
+            del cache
+    ref, q = logits["bf16"], logits["int8"]
+    rms = float(ref.pow(2).mean().sqrt())
+    d = q - ref
+    gap = {"prompt_tokens": P, "rms": rms,
+           "rms_gap": float(d.pow(2).mean().sqrt()) / rms,
+           "max_gap": float(d.abs().max()) / rms,
+           "argmax_same": int(q.argmax()) == int(ref.argmax())}
+    log(f"[serve_kvq] int8 KV against bf16 KV over a {P}-token prompt: "
+        f"rms of the logit difference {gap['rms_gap']:.4f} and its max "
+        f"{gap['max_gap']:.4f} of the bf16 logits' rms {rms:.3f}; argmax "
+        f"{'the same' if gap['argmax_same'] else 'differs'}")
+    return gap
+
+
+def _check_w8a8(torch) -> dict:
+    """The W8A8 product's int32 result on the card (``torch._int_mm``,
+    rows padded past 16) equal to the CPU's (an int32 matmul) bit for
+    bit, at Llama-3-8B's wq and w_gate for T in KVQ_W8A8_TS; and the
+    whole W8A8 ``qmatmul`` (per-token activation quantization and the
+    f32 epilogue) on a bf16 x, its largest difference from the CPU's
+    printed."""
+    from ai_agent_kubectl_tpu_torch.ops.quant import (
+        QuantInt8W8A8, int8_matmul, qmatmul, quantize_int8)
+
+    gen = torch.Generator().manual_seed(8)
+    out = {}
+    for name, (IN, OUT) in KVQ_W8A8_SHAPES.items():
+        w = quantize_int8(torch.randn((IN, OUT), generator=gen) * IN ** -0.5)
+        w = QuantInt8W8A8(q=w.q, scale=w.scale)
+        w_d = QuantInt8W8A8(q=w.q.cuda(), scale=w.scale.cuda())
+        for T in KVQ_W8A8_TS:
+            xq = torch.randint(-127, 128, (T, IN), generator=gen,
+                               dtype=torch.int8)
+            cpu = int8_matmul(xq, w.q)
+            card = int8_matmul(xq.cuda(), w_d.q).cpu()
+            x = torch.randn((T, IN), generator=gen).to(torch.bfloat16)
+            y_cpu = qmatmul(x, w).float()
+            y_card = qmatmul(x.cuda(), w_d).float().cpu()
+            diff = float((y_card - y_cpu).abs().max())
+            label = f"{name}_T{T}"
+            out[label] = {"int32_equal": torch.equal(card, cpu),
+                          "qmatmul_max_abs_diff": diff}
+            same = out[label]["int32_equal"]
+            log(f"[serve_kvq] W8A8 {label} ({IN}x{OUT}): int32 product on "
+                f"the card {'equals' if same else 'DIFFERS FROM'} the "
+                f"CPU's; qmatmul max |card - cpu| {diff:.3e}")
+            if card.dtype != torch.int32 or not out[label]["int32_equal"]:
+                raise AssertionError(f"W8A8 {label}: the card's int32 "
+                                     f"product differs from the CPU's")
+    return out
+
+
+async def _kvq_profile(torch, ask, queries, steps, unit: str,
+                       tag: str) -> dict:
+    """``_profile_burst`` with CUDA events around every gather through
+    the block table and every ``dense_attention_quant`` call: their
+    share of the burst's wall time and their ms a step. Then, on the
+    last decode-shaped call's inputs, the int8 -> float32 convert of the
+    span (both leaves) against the whole call, each timed alone. Only
+    with ``--profile``."""
+    from ai_agent_kubectl_tpu_torch.models import transformer
+
+    gather = transformer._pool_gather
+    attend = transformer.dense_attention_quant
+    spans = {"gather": [], "attention": []}
+    last = {}
+
+    def timed(kind, fn):
+        def call(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans[kind].append((a, b))
+            if kind == "attention" and args[0].shape[1] == 1:
+                last["args"] = args
+            return out
+        return call
+
+    transformer._pool_gather = timed("gather", gather)
+    transformer.dense_attention_quant = timed("attention", attend)
+    try:
+        out = await _profile_burst(torch, ask, queries, steps, unit, tag)
+    finally:
+        transformer._pool_gather = gather
+        transformer.dense_attention_quant = attend
+    torch.cuda.synchronize()
+    for kind, ev in spans.items():
+        ms = sum(a.elapsed_time(b) for a, b in ev)
+        out[f"{kind}_ms"] = ms
+        out[f"{kind}_calls"] = len(ev)
+        out[f"{kind}_share_of_wall"] = ms / out["wall_ms"]
+        out[f"{kind}_ms_per_step"] = ms / max(out["steps"], 1)
+    if "args" in last:
+        q, k_q, k_s, v_q, v_s, mask = last["args"]
+        whole = time_cuda(torch, lambda: attend(q, k_q, k_s, v_q, v_s, mask),
+                          iters=20)["ms"]
+        convert = time_cuda(torch, lambda: (k_q.float(), v_q.float()),
+                            iters=20)["ms"]
+        out.update(decode_attention_ms=whole, decode_convert_ms=convert,
+                   convert_share_of_attention=convert / whole,
+                   decode_span=list(k_q.shape))
+    log(f"[{tag}] gather {out['gather_ms']:.0f} ms over "
+        f"{out['gather_calls']} calls ({out['gather_share_of_wall']:.1%} of "
+        f"the wall), dense_attention_quant {out['attention_ms']:.0f} ms over "
+        f"{out['attention_calls']} calls "
+        f"({out['attention_share_of_wall']:.1%}); "
+        + (f"a decode call over {out['decode_span']}: "
+           f"{out['decode_attention_ms']:.4f} ms, of which the int8 -> "
+           f"float32 convert {out['decode_convert_ms']:.4f} ms "
+           f"({out['convert_share_of_attention']:.1%})"
+           if "args" in last else "no decode call"))
+    return out
+
+
 def kernel_breakdown(torch, fn, *, iters: int = 10) -> dict:
     """Device microseconds per launch of each of the port's kernels that
     ``fn`` launches (an attention kernel and its split combine, say), the
@@ -3273,7 +3938,7 @@ def _timing_flash(torch, gen, profile: bool) -> dict:
 
 def _timing_int4(torch, gen, profile: bool) -> dict:
     from ai_agent_kubectl_tpu_torch.ops.quant4 import (
-        dequantize_int4, qmatmul4, qmatmul4_plain)
+        dequantize_int4, pick_format, qmatmul4, qmatmul4_plain)
 
     out = {}
     for name, (IN, OUT) in G7_PROJ.items():
@@ -3299,6 +3964,21 @@ def _timing_int4(torch, gen, profile: bool) -> dict:
                           lambda: torch.matmul(x, dense),
                           iters=10 if T == 512 else 50, profile=profile)
             label = f"mixtral_{name}_T{T}"
+            out[label] = with_bound(entry, *int4_work(x, w))
+            del dense
+            log_timing(f"int4 {label} ({IN}x{OUT}, {fmt[0]}/{fmt[1]})",
+                       entry, "bf16 matmul")
+    # serve_kvq's MLP, wk/wv and head projections (Llama-3-8B).
+    for name, (IN, OUT) in LLAMA_PROJ.items():
+        fmt = pick_format(IN, OUT)
+        for T in LLAMA_TS:
+            x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
+            dense = dequantize_int4(w, torch.bfloat16)
+            entry = timed(torch, lambda: qmatmul4(x, w),
+                          lambda: qmatmul4_plain(x, w),
+                          lambda: torch.matmul(x, dense),
+                          iters=10 if T == 512 else 50, profile=profile)
+            label = f"llama_{name}_T{T}"
             out[label] = with_bound(entry, *int4_work(x, w))
             del dense
             log_timing(f"int4 {label} ({IN}x{OUT}, {fmt[0]}/{fmt[1]})",
@@ -3424,7 +4104,8 @@ def kernel_lines(results: dict) -> list:
     ``phase_launches`` adds the launches of phase 6 (ragged in its bf16
     engine, flash and int4 in its int4 engine), of phase 7 (both its
     engines) and of phase 8 (both its engines: every kernel counted,
-    those off its path at 0)."""
+    those off its path at 0) and of phase 9 (its three engines: the int4
+    kernel's, the attention kernels' at 0)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -3452,6 +4133,13 @@ def kernel_lines(results: dict) -> list:
                   if k in moe]
         return sum(counts) if counts else None
 
+    kvq = results.get("serve_kvq", {})
+
+    def kvq_launches(name):
+        counts = [kvq[k]["launches"].get(name) for k in SERVE_KVQ_ENGINES
+                  if k in kvq]
+        return sum(counts) if counts else None
+
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
         top = shapes.get(main, {})
@@ -3467,7 +4155,8 @@ def kernel_lines(results: dict) -> list:
             "library_ms": top.get("library_ms"), "library": library,
             "phase_launches": {"serve_ckpt": ckpt_launches.get(name),
                                "serve_qos": qos_launches(name),
-                               "serve_moe": moe_launches(name)},
+                               "serve_moe": moe_launches(name),
+                               "serve_kvq": kvq_launches(name)},
             "shapes": shapes,
         }
 
@@ -3565,6 +4254,8 @@ def main() -> int:
         results["serve_qos"] = phase_serve_qos(torch)
     if "serve_moe" in phases:
         results["serve_moe"] = phase_serve_moe(torch, args.profile)
+    if "serve_kvq" in phases:
+        results["serve_kvq"] = phase_serve_kvq(torch, args.profile)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),

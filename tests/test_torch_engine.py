@@ -209,7 +209,7 @@ def test_engine_on_cuda_without_a_card_raises(monkeypatch):
     construct and resolve on the CPU (auto is dense there); an explicit
     paged decode the kernel cannot serve on the card (float32) raises
     instead of switching, as does RAGGED_ATTENTION=on without the pool;
-    int8 KV still waits for a later slice."""
+    int8 KV is accepted, and any other KV_QUANT raises the JAX message."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         _engine(None, device=None)
@@ -235,8 +235,10 @@ def test_engine_on_cuda_without_a_card_raises(monkeypatch):
         assert eng._decode_impl == "dense"
     with pytest.raises(ValueError, match="RAGGED_ATTENTION=on"):
         _engine(None, kv_pool=False, ragged_attention="on")
-    with pytest.raises(NotImplementedError, match="KV_QUANT=int8"):
-        _engine(None, kv_quant="int8")
+    assert _engine(None, kv_quant="int8").kv_quant == "int8"
+    with pytest.raises(ValueError,
+                       match="KV_QUANT must be '' or 'int8', got 'int4'"):
+        _engine(None, kv_quant="int4")
     with pytest.raises(ValueError, match="DECODE_ATTN"):
         _engine(None, decode_attn="flash")
 

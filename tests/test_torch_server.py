@@ -222,7 +222,7 @@ def test_config_defaults_match_the_jax_package():
 
 #: every knob of UNSERVED_KNOBS with a value that asks for the feature
 REFUSED = [
-    ("KV_QUANT", "int8"), ("SPEC_DECODE", "true"),
+    ("SPEC_DECODE", "true"),
     ("SPEC_DRAFT_K", "2"), ("SPEC_DRAFT_MODEL", "toy-8m"),
     ("SPEC_DRAFT_PATH", "/draft"), ("GRAMMAR_DECODE", "true"),
     ("GRAMMAR_PROFILE", "readonly"), ("GRAMMAR_FORCED_RUN_MIN", "8"),
@@ -289,6 +289,21 @@ def test_config_reads_the_qos_knobs_as_the_jax_package(monkeypatch, knob,
     assert getattr(ours, field) == want == getattr(theirs, field)
     assert ours.tenant_tier_map == theirs.tenant_tier_map
     assert ours.lane_weight_map == theirs.lane_weight_map
+
+
+@pytest.mark.parametrize("value", ["int8", "INT8", ""])
+def test_config_reads_kv_quant_as_the_jax_package(monkeypatch, value):
+    """KV_QUANT is read (no longer refused) into the field the JAX
+    from_env fills, lowercased the same way; another value is refused
+    with the JAX engine's message."""
+    monkeypatch.setenv("KV_QUANT", value)
+    assert "KV_QUANT" not in UNSERVED_KNOBS
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert ours.kv_quant == theirs.kv_quant == value.lower()
+    monkeypatch.setenv("KV_QUANT", "int4")
+    with pytest.raises(ValueError,
+                       match="KV_QUANT must be '' or 'int8', got 'int4'"):
+        ServiceConfig.from_env()
 
 
 @pytest.mark.parametrize("engine", ["openai", "fake", "jax",

@@ -356,8 +356,11 @@ async def test_factory_serves_single_engine_at_batch_size_one():
 
 def test_engine_guards(monkeypatch):
     tcfg = get_config("toy-8m")
-    with pytest.raises(NotImplementedError, match="KV_QUANT=int8"):
-        TorchEngine(tcfg, kv_quant="int8", device="cpu")
+    assert TorchEngine(tcfg, kv_quant="int8",
+                       device="cpu").kv_quant == "int8"
+    with pytest.raises(ValueError,
+                       match="KV_QUANT must be '' or 'int8', got 'int4'"):
+        TorchEngine(tcfg, kv_quant="int4", device="cpu")
     with pytest.raises(ValueError, match="QUANT"):
         TorchEngine(tcfg, quant="int3", device="cpu")
     with pytest.raises(ValueError, match="ATTN_IMPL"):
