@@ -1,26 +1,35 @@
 """Typed environment-variable configuration for the port.
 
 The knobs the port reads, under the JAX package's environment variable
-names and with its defaults, plus ``TORCH_DEVICE`` — the counterpart of
-``JAX_PLATFORMS``: the server runs on ``cuda`` unless it is set to
-``cpu``. Every other knob of the JAX package names a feature the port
-does not serve yet: it is listed in ``UNSERVED_KNOBS`` and refused at
-boot when set to anything but the value the port serves, so a
-deployment never silently gets less than it asked for. ``ENGINE`` takes
-the port's engines only (``torch``, ``torch-batched``); the JAX
+names and with its defaults and validation, plus ``TORCH_DEVICE`` — the
+counterpart of ``JAX_PLATFORMS``: the server runs on ``cuda`` unless it
+is set to ``cpu``. Every other knob of the JAX package names a feature
+the port does not serve yet: it is listed in ``UNSERVED_KNOBS`` and
+refused at boot when set to anything but the value the port serves, so
+a deployment never silently gets less than it asked for. ``ENGINE``
+takes the port's engines only (``torch``, ``torch-batched``); the JAX
 package's ``openai`` and ``fake`` engines are refused by name.
 ``COMPILE_CACHE_DIR`` has no counterpart: nothing compiles in eager
 PyTorch, so the knob is not read.
+
+The telemetry plane is served: the goodput ledger (``LEDGER_ENABLE``),
+the SLO burn rates (``SLO_*``), the step-time sentinel
+(``SENTINEL_*``, ``PERF_BASELINES``), incident capture
+(``INCIDENT_*``), the ``/debug/*`` token (``DEBUG_TOKEN``) and JSON
+logs (``LOG_FORMAT``), all with the JAX defaults (the ledger and the
+sentinel on).
 """
 
 from __future__ import annotations
 
 import os
 import re
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Optional, Tuple
 
 from .engine.qos import LANES, parse_lane_weights, parse_tenant_tiers
+from .obs.slo import parse_slo_windows
+from .obs.steptime import load_baselines
 
 
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
@@ -40,23 +49,12 @@ UNSERVED_KNOBS = {
     "ENGINE_WATCHDOG_SECS": "120", "ENGINE_STARTUP_GRACE_SECS": "900",
     "QUARANTINE_RETRY_BUDGET": "1", "ENGINE_RESET_MAX_PER_MIN": "12",
     "FAULT_POINTS": "",
-    # goodput ledger, SLO burn rates, step-time sentinel, incidents (A7;
-    # SLO_INTERACTIVE_MS is read: it drives the QoS brownout controller)
-    "LEDGER_ENABLE": "false", "SLO_TTFT_MS": "5000",
-    "SLO_SESSION_TTFT_MS": "0", "SLO_WINDOWS": "300,3600",
-    "SLO_OBJECTIVE": "0.99", "PERF_BASELINES": "",
-    "SENTINEL_ENABLE": "false", "SENTINEL_WINDOW": "256",
-    "SENTINEL_FACTOR": "2", "SENTINEL_MIN_SAMPLES": "16",
-    "SENTINEL_EVAL_SECS": "2", "INCIDENT_RING": "8",
-    "INCIDENT_COOLDOWN_SECS": "60", "INCIDENT_BURN_THRESHOLD": "2",
-    "INCIDENT_PROFILE_SECS": "0", "INCIDENT_THRASH_MIN_BLOCKS": "8",
-    # fleet and weight rollout (A7)
+    # fleet and weight rollout (A7; ROLLOUT_STEPTIME_GATE is the
+    # rollout gate's step-time verdict, and /admin/rollout waits with it)
     "FLEET_SIZE": "1", "FLEET_HEDGE_MS": "0", "FLEET_AFFINITY": "true",
     "FLEET_MIGRATION_BUDGET": "3", "FLEET_REJOIN_SECS": "0",
     "ROLLOUT_CANARY_SHARE": "0.1", "ROLLOUT_OBSERVE_SECS": "60",
     "ROLLOUT_BURN_GATE": "2", "ROLLOUT_STEPTIME_GATE": "0",
-    # /debug/* and /admin/* (A9), JSON logs (A9, logging_setup)
-    "DEBUG_TOKEN": "", "LOG_FORMAT": "text",
     # the OpenAI-compatible remote engine (A9)
     "OPENAI_API_KEY": "", "OPENAI_MODEL": "gpt-3.5-turbo",
     "OPENAI_BASE_URL": "",
@@ -146,6 +144,10 @@ class ServiceConfig:
     execution_timeout: float = 30.0         # EXECUTION_TIMEOUT seconds
     rate_limit: str = "10/minute"           # RATE_LIMIT
     log_level: str = "INFO"                 # LOG_LEVEL
+    # Log line format: "text" keeps the human format; "json" emits one
+    # JSON object per line, stamped with the request ID, hashed tenant,
+    # lane and open incident (logging_setup.py).
+    log_format: str = "text"                # LOG_FORMAT: text | json
     host: str = "0.0.0.0"                   # HOST
     port: int = 8000                        # PORT
     # Key the rate limit by the leftmost X-Forwarded-For hop (behind a
@@ -233,6 +235,40 @@ class ServiceConfig:
     # disables it).
     slo_interactive_ms: float = 2000.0      # SLO_INTERACTIVE_MS
     flight_recorder_size: int = 256         # FLIGHT_RECORDER_SIZE
+    # Goodput ledger (obs/ledger.py): every device decode step billed
+    # delivered or to a waste class, per lane (metrics) and per hashed
+    # tenant (/debug/ledger only); false disables the accounting.
+    ledger_enable: bool = True              # LEDGER_ENABLE
+    # SLO burn-rate engine (obs/slo.py): the TTFT target (0 disables it;
+    # queue-wait burn runs off SLO_INTERACTIVE_MS), the turn-N TTFT of
+    # radix-warm session re-admissions (0 disables), the windows
+    # (seconds, ascending, at most 4) and the objective.
+    slo_ttft_ms: float = 5000.0             # SLO_TTFT_MS
+    slo_session_ttft_ms: float = 0.0        # SLO_SESSION_TTFT_MS
+    slo_windows: str = "300,3600"           # SLO_WINDOWS
+    slo_objective: float = 0.99             # SLO_OBJECTIVE
+    # Step-time sentinel (obs/steptime.py): a baseline envelope file
+    # (JSON step_time_ms table; empty = every digest self-calibrates),
+    # the switch, the per-digest window, the breach factor, the samples
+    # a digest needs, and the incident watcher's period (0 = evaluate at
+    # scrapes and /debug/incidents reads only).
+    perf_baselines: str = ""                # PERF_BASELINES
+    sentinel_enable: bool = True            # SENTINEL_ENABLE
+    sentinel_window: int = 256              # SENTINEL_WINDOW
+    sentinel_factor: float = 2.0            # SENTINEL_FACTOR
+    sentinel_min_samples: int = 16          # SENTINEL_MIN_SAMPLES
+    sentinel_eval_secs: float = 2.0         # SENTINEL_EVAL_SECS
+    # Incident capture (obs/incidents.py): the ring, the per-trigger
+    # cooldown, the fast-burn threshold (0 disables), a torch.profiler
+    # capture attached to each new bundle (seconds; 0 = off), and the
+    # host-tier thrash sensitivity (0 disables).
+    incident_ring: int = 8                  # INCIDENT_RING
+    incident_cooldown_secs: float = 60.0    # INCIDENT_COOLDOWN_SECS
+    incident_burn_threshold: float = 2.0    # INCIDENT_BURN_THRESHOLD
+    incident_profile_secs: float = 0.0      # INCIDENT_PROFILE_SECS
+    incident_thrash_min_blocks: int = 8     # INCIDENT_THRASH_MIN_BLOCKS
+    # /debug/* additionally requires a matching X-Debug-Token when set.
+    debug_token: Optional[str] = None       # DEBUG_TOKEN
     drain_timeout_secs: float = 10.0        # DRAIN_TIMEOUT_SECS
 
     # Parsed from rate_limit.
@@ -298,6 +334,77 @@ class ServiceConfig:
             raise ValueError(
                 f"QOS_SESSION_TOKEN_BUDGET must be >= 0 (0 disables), "
                 f"got {self.qos_session_token_budget}")
+        # The telemetry knobs, with the JAX validation and messages.
+        self.slo_window_list
+        if not 0.0 < self.slo_objective < 1.0:
+            raise ValueError(
+                f"SLO_OBJECTIVE must be in (0, 1), got {self.slo_objective}")
+        if self.slo_ttft_ms < 0:
+            raise ValueError(
+                f"SLO_TTFT_MS must be >= 0, got {self.slo_ttft_ms}")
+        if self.sentinel_window < 8:
+            raise ValueError(
+                f"SENTINEL_WINDOW must be >= 8 samples, "
+                f"got {self.sentinel_window}")
+        if self.sentinel_factor < 1.0:
+            raise ValueError(
+                f"SENTINEL_FACTOR must be >= 1 (a factor below 1 would "
+                f"trip on every healthy step), got {self.sentinel_factor}")
+        if self.sentinel_min_samples < 1:
+            raise ValueError(
+                f"SENTINEL_MIN_SAMPLES must be >= 1, "
+                f"got {self.sentinel_min_samples}")
+        if self.sentinel_eval_secs < 0:
+            raise ValueError(
+                f"SENTINEL_EVAL_SECS must be >= 0 (0 = scrape-driven "
+                f"only), got {self.sentinel_eval_secs}")
+        if self.incident_ring < 1:
+            raise ValueError(
+                f"INCIDENT_RING must be >= 1, got {self.incident_ring}")
+        if self.incident_cooldown_secs < 0:
+            raise ValueError(
+                f"INCIDENT_COOLDOWN_SECS must be >= 0, "
+                f"got {self.incident_cooldown_secs}")
+        if self.incident_burn_threshold < 0:
+            raise ValueError(
+                f"INCIDENT_BURN_THRESHOLD must be >= 0 (0 disables), "
+                f"got {self.incident_burn_threshold}")
+        if not 0.0 <= self.incident_profile_secs <= 30.0:
+            raise ValueError(
+                f"INCIDENT_PROFILE_SECS must be in [0, 30] (captures "
+                f"are tens of MB each), got {self.incident_profile_secs}")
+        if self.perf_baselines:
+            try:
+                load_baselines(self.perf_baselines)
+            except (OSError, ValueError, KeyError) as e:
+                raise ValueError(
+                    f"PERF_BASELINES {self.perf_baselines!r} failed to "
+                    f"load: {e}") from e
+        if self.slo_session_ttft_ms < 0:
+            raise ValueError(
+                f"SLO_SESSION_TTFT_MS must be >= 0 (0 disables), "
+                f"got {self.slo_session_ttft_ms}")
+        if self.incident_thrash_min_blocks < 0:
+            raise ValueError(
+                f"INCIDENT_THRASH_MIN_BLOCKS must be >= 0 (0 disables), "
+                f"got {self.incident_thrash_min_blocks}")
+
+    @property
+    def slo_window_list(self) -> Tuple[int, ...]:
+        return parse_slo_windows(self.slo_windows)
+
+    def describe(self) -> dict:
+        """Loggable, secret-free view of the config (the incident
+        bundles' config fingerprint hashes it)."""
+        d = {f.name: getattr(self, f.name) for f in fields(self) if f.init}
+        for secret in ("api_auth_key", "debug_token"):
+            if d.get(secret):
+                d[secret] = "***"
+        if d.get("tenant_tiers"):
+            # Tenant keys are API keys; log only the lane assignments.
+            d["tenant_tiers"] = ",".join(
+                f"***:{lane}" for lane in self.tenant_tier_map.values())
+        return d
 
     @property
     def auth_enabled(self) -> bool:
@@ -342,6 +449,7 @@ class ServiceConfig:
             execution_timeout=_env_float("EXECUTION_TIMEOUT", 30.0),
             rate_limit=_env_str("RATE_LIMIT", "10/minute"),
             log_level=(_env_str("LOG_LEVEL", "INFO") or "INFO").upper(),
+            log_format=(_env_str("LOG_FORMAT", "text") or "text").lower(),
             host=_env_str("HOST", "0.0.0.0"),
             port=_env_int("PORT", 8000),
             # TRUST_PROXY is the short alias; TRUST_PROXY_HEADERS wins
@@ -396,5 +504,26 @@ class ServiceConfig:
             preempt_budget=_env_int("PREEMPT_BUDGET", 2),
             slo_interactive_ms=_env_float("SLO_INTERACTIVE_MS", 2000.0),
             flight_recorder_size=_env_int("FLIGHT_RECORDER_SIZE", 256),
+            ledger_enable=_env_bool("LEDGER_ENABLE", True),
+            slo_ttft_ms=_env_float("SLO_TTFT_MS", 5000.0),
+            slo_session_ttft_ms=_env_float("SLO_SESSION_TTFT_MS", 0.0),
+            slo_windows=_env_str("SLO_WINDOWS", "300,3600") or "300,3600",
+            slo_objective=_env_float("SLO_OBJECTIVE", 0.99),
+            perf_baselines=_env_str("PERF_BASELINES", "") or "",
+            sentinel_enable=_env_bool("SENTINEL_ENABLE", True),
+            sentinel_window=_env_int("SENTINEL_WINDOW", 256),
+            sentinel_factor=_env_float("SENTINEL_FACTOR", 2.0),
+            sentinel_min_samples=_env_int("SENTINEL_MIN_SAMPLES", 16),
+            sentinel_eval_secs=_env_float("SENTINEL_EVAL_SECS", 2.0),
+            incident_ring=_env_int("INCIDENT_RING", 8),
+            incident_cooldown_secs=_env_float(
+                "INCIDENT_COOLDOWN_SECS", 60.0),
+            incident_burn_threshold=_env_float(
+                "INCIDENT_BURN_THRESHOLD", 2.0),
+            incident_profile_secs=_env_float(
+                "INCIDENT_PROFILE_SECS", 0.0),
+            incident_thrash_min_blocks=_env_int(
+                "INCIDENT_THRASH_MIN_BLOCKS", 8),
+            debug_token=_env_str("DEBUG_TOKEN", None),
             drain_timeout_secs=_env_float("DRAIN_TIMEOUT_SECS", 10.0),
         )

@@ -76,6 +76,17 @@ entry of the in-flight list. In every regime:
   prefills prompt + ids on the dense ladder), forces the carry token to
   its last id and re-arms the slot at ``ngen = g``: the transcript goes
   on as if it had never left.
+- **The telemetry plane**, at the JAX engine's sites: the goodput
+  ledger (``obs/ledger.py``: delivered at finish, preempted and replayed
+  at a resume, wasted_masked for the steps in-flight chunks spend on a
+  slot a host-only finish ended, quarantine_burn for a health-tripped
+  request); the SLO engine (``obs/slo.py``: queue wait at admission,
+  TTFT at finish), whose fast-window interactive queue-wait burn feeds
+  the brownout controller; the step-time sentinel (``obs/steptime.py``:
+  a prefill sample at an eager admission's first token, one sample per
+  chunk cycle); the chunk-event ring ``_chunk_log`` behind
+  ``/debug/chunks``; and ``profile``, which runs a ``torch.profiler``
+  capture on the scheduler thread (``obs/profiler.py``).
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -86,15 +97,16 @@ Not in this slice (each raises or is simply absent; ROADMAP lists them):
 speculative decoding, grammar-constrained decoding, group admission
 (``ADMIT_KPADS``) on the dense ladder, containment replay (a slot whose
 health word trips finishes with ``RequestQuarantined``; the replay path
-it would use is ``_replay_slot``), the host KV tier, the step-time,
-ledger and SLO hooks, and a chunk pipeline deeper than one (the host
-fetches each chunk before it dispatches the next).
+it would use is ``_replay_slot``), the host KV tier, and a chunk
+pipeline deeper than one (the host fetches each chunk before it
+dispatches the next).
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import concurrent.futures
 import dataclasses
 import logging
 import queue as _queue
@@ -108,7 +120,14 @@ import torch
 
 from ..models.config import get_config
 from ..models.transformer import KVCache, forward
-from ..obs import Trace, current_trace
+from ..obs import (PHASE_DECODE, PHASE_PREFILL, SLO_QUEUE_WAIT, SLO_TTFT,
+                   GoodputLedger, SloEngine, StepTimeSentinel, Trace,
+                   current_trace, prefill_bucket)
+from ..obs.ledger import (CLASS_DELIVERED, CLASS_PREEMPTED,
+                          CLASS_QUARANTINE_BURN, CLASS_REPLAYED,
+                          CLASS_WASTED_MASKED)
+from ..obs.profiler import ProfilerSession, scope
+from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
 from ..ops.quant import kv_map
 from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
@@ -218,6 +237,14 @@ class _Request:
     resume_skip: int = 0
     resume_emitted: bool = False
     resume_cause: str = ""
+    # The ledger: transcript tokens already billed (delivered, or burned
+    # by a quarantine). The SLO books: the first token this request ever
+    # delivered (it survives a preemption, so a resumed request's TTFT
+    # is its client's first byte), and whether its admission
+    # radix-matched at least one full page (the session TTFT's gate).
+    ledger_delivered: int = 0
+    t_first0: Optional[float] = None
+    radix_warm: bool = False
 
 
 @dataclasses.dataclass
@@ -231,6 +258,7 @@ class _Slot:
     prefill_ms: float = 0.0       # admission latency: admit -> first token
     t_first: Optional[float] = None
     chunks_inflight: int = 0      # dispatched-but-unconsumed chunks
+    decode_chunks_inflight: int = 0  # the "chunk" subset of chunks_inflight
     exhausted: bool = False       # KV capacity reached; finish at length
     prefix_hit: bool = False      # admission radix-matched a prefix
     # The pool blocks this slot's table maps, in page order, and the
@@ -268,6 +296,16 @@ class BatchedTorchEngine(TorchEngine):
                  preempt_budget: int = 2,
                  slo_interactive_ms: float = 2000.0,
                  session_token_budget: int = 0,
+                 ledger_enable: bool = True,
+                 slo_ttft_ms: float = 5000.0,
+                 slo_session_ttft_ms: float = 0.0,
+                 slo_objective: float = 0.99,
+                 slo_windows: tuple = (300, 3600),
+                 sentinel_enable: bool = True,
+                 sentinel_window: int = 256,
+                 sentinel_factor: float = 2.0,
+                 sentinel_min_samples: int = 16,
+                 perf_baselines=None,
                  **kwargs):
         super().__init__(*args, **kwargs)
         if batch_size < 1:
@@ -316,6 +354,49 @@ class BatchedTorchEngine(TorchEngine):
         self.preempt_budget = max(0, preempt_budget)
         self._brownout = BrownoutController(slo_interactive_ms)
         self._session_budgets = SessionBudgets(session_token_budget)
+        # The telemetry plane, as the JAX engine builds it: the goodput
+        # ledger; the SLO engine judging TTFT, queue wait (at the
+        # brownout's SLO_INTERACTIVE_MS) and the session TTFT per lane,
+        # whose fast-window interactive queue-wait burn the brownout
+        # controller reads; the step-time sentinel.
+        self.ledger = GoodputLedger(enabled=ledger_enable)
+        self._slo = SloEngine(
+            {SLO_TTFT: slo_ttft_ms, SLO_QUEUE_WAIT: slo_interactive_ms,
+             SLO_SESSION_TTFT: slo_session_ttft_ms},
+            objective=slo_objective, windows=tuple(slo_windows))
+        self._steptime = StepTimeSentinel(
+            enabled=sentinel_enable, window=sentinel_window,
+            factor=sentinel_factor, min_samples=sentinel_min_samples,
+            baselines=perf_baselines)
+        # (t, phase, bucket, (steps, tokens)) of the previous dispatch
+        # and whether a chunk was consumed since: the pair that gates a
+        # dispatch-to-dispatch interval into a step-time sample. The JAX
+        # engine takes the interval only while its pipe never empties (a
+        # chunk still in flight at the next dispatch), which a one-deep
+        # pipe never satisfies, so it records no decode samples there.
+        # The port fetches each chunk before the next dispatch: its rule
+        # is the depth-1 counterpart — a consume in between and no idle
+        # wait or burst-ramp hold between the two dispatches (either
+        # drops the pending dispatch), so an idle gap between requests
+        # never reads as a step.
+        self._steptime_pending = None
+        self._steptime_consumed = False
+        # Pipeline observability: decode steps billed as waste, chunk
+        # dispatch/consume/prune counts, fetch-latency samples (drained by
+        # the /metrics scrape), the last consumed chunk's device-reported
+        # live-slot count, and the ring of chunk events behind
+        # /debug/chunks. Scheduler-thread writes, racy scrape reads.
+        self._wasted_steps = 0
+        self._chunks_dispatched = 0
+        self._chunks_consumed = 0
+        self._chunks_pruned = 0
+        self._fetch_samples: collections.deque = collections.deque(
+            maxlen=4096)
+        self._last_n_alive = 0
+        self._chunk_log: collections.deque = collections.deque(maxlen=512)
+        # A torch.profiler capture the scheduler thread runs (profile()):
+        # [session, trace_dir, seconds, t_end, future] or None.
+        self._profile_req: Optional[list] = None
         self._preemptions = 0          # slots taken from a running request
         self._preempted_tokens = 0     # generated tokens carried across
         self._preempt_times: collections.deque = collections.deque(
@@ -363,6 +444,16 @@ class BatchedTorchEngine(TorchEngine):
             preempt_budget=cfg.preempt_budget,
             slo_interactive_ms=cfg.slo_interactive_ms,
             session_token_budget=cfg.qos_session_token_budget,
+            ledger_enable=cfg.ledger_enable,
+            slo_ttft_ms=cfg.slo_ttft_ms,
+            slo_session_ttft_ms=cfg.slo_session_ttft_ms,
+            slo_objective=cfg.slo_objective,
+            slo_windows=cfg.slo_window_list,
+            sentinel_enable=cfg.sentinel_enable,
+            sentinel_window=cfg.sentinel_window,
+            sentinel_factor=cfg.sentinel_factor,
+            sentinel_min_samples=cfg.sentinel_min_samples,
+            perf_baselines=cfg.perf_baselines or None,
             **engine_kwargs(cfg),
         )
 
@@ -554,8 +645,10 @@ class BatchedTorchEngine(TorchEngine):
         """Copy-on-write: the first ``rows`` KV rows of pool block ``src``
         into block ``dst``, every layer, in place (payload and scales of
         an int8 pool)."""
-        for kv in (self._cache.k, self._cache.v):
-            kv_map(lambda a: a[:, dst, :rows].copy_(a[:, src, :rows]), kv)
+        with scope("kv_splice"):
+            for kv in (self._cache.k, self._cache.v):
+                kv_map(lambda a: a[:, dst, :rows].copy_(a[:, src, :rows]),
+                       kv)
 
     def _pool_alloc(self, n: int) -> Optional[List[int]]:
         """Allocate with radix-eviction backpressure."""
@@ -679,12 +772,16 @@ class BatchedTorchEngine(TorchEngine):
         t_adm = time.monotonic()
         wait_ms = (t_adm - req.t_submit) * 1000.0
         self._brownout.note_queue_wait(req.lane, wait_ms, now=t_adm)
+        self._slo.note(SLO_QUEUE_WAIT, req.lane, wait_ms, now=t_adm)
         ids = list(req.prompt_ids)
         max_prompt = self.max_seq_len - max(1, req.max_tokens)
         if len(ids) > max_prompt:
             ids = ids[-max_prompt:]
         n_prompt = len(ids)
         blocks, m = self._pool_map_prefix(ids)
+        # A seating that radix-matched at least one full page is a warm
+        # re-admission: the only kind the session TTFT SLO judges.
+        req.radix_warm = m >= self.kv_pool_page
         first_d = staged = None
         try:
             self._tables[slot_idx, :] = self._pool_n_blocks
@@ -728,15 +825,16 @@ class BatchedTorchEngine(TorchEngine):
         through a ``("first", ...)`` entry of the in-flight list."""
         slot_idx = self._slots.index(None)
         t_adm = time.monotonic()
-        self._brownout.note_queue_wait(
-            req.lane, (t_adm - req.t_submit) * 1000.0, now=t_adm)
+        wait_ms = (t_adm - req.t_submit) * 1000.0
+        self._brownout.note_queue_wait(req.lane, wait_ms, now=t_adm)
+        self._slo.note(SLO_QUEUE_WAIT, req.lane, wait_ms, now=t_adm)
         last_logits, scratch, n_prompt, prefix_hit = self._prefill_prompt(
             req.prompt_ids, req.max_tokens)
         self._splice_scratch(slot_idx, scratch, n_prompt)
         first_d = self._arm_first(slot_idx, last_logits, req, n_prompt)
         self._slots[slot_idx] = _Slot(
             req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
-            pos=n_prompt, queue_ms=(t_adm - req.t_submit) * 1000.0,
+            pos=n_prompt, queue_ms=wait_ms,
             t_admit=t_adm, chunks_inflight=1, prefix_hit=prefix_hit)
         self._inflight.append(("first", first_d, req, slot_idx))
         self._last_admit_t = time.monotonic()
@@ -746,10 +844,11 @@ class BatchedTorchEngine(TorchEngine):
         """Copy a scratch prefill's first ``n`` KV rows into a dense slot;
         the slot's rows past them are rewritten by decode before any
         query can read them."""
-        for dst, src in ((self._cache.k, scratch.k),
-                         (self._cache.v, scratch.v)):
-            kv_map(lambda d, s: d[:, slot_idx, :n].copy_(s[:, 0, :n]),
-                   dst, src)
+        with scope("kv_splice"):
+            for dst, src in ((self._cache.k, scratch.k),
+                             (self._cache.v, scratch.v)):
+                kv_map(lambda d, s: d[:, slot_idx, :n].copy_(s[:, 0, :n]),
+                       dst, src)
 
     def _arm_first(self, slot_idx: int, last_logits: torch.Tensor,
                    req: _Request, n_prompt: int) -> torch.Tensor:
@@ -923,7 +1022,7 @@ class BatchedTorchEngine(TorchEngine):
                             if s is not None and not s.exhausted]
             if not active_slots:
                 return
-        adm = None
+        adm = adm_w = None
         if staged:
             N = self.batch_size
             longest = max(len(e["ids"]) for e in staged.values())
@@ -937,9 +1036,27 @@ class BatchedTorchEngine(TorchEngine):
             adm = (torch.from_numpy(a_tok).to(self.device), vec[0], vec[1])
         # The smallest KV bucket covering every position this chunk can
         # reach (``pos`` counts scheduled chunks: an upper bound).
-        needed = max(s.pos for s in active_slots) + self.chunk_len
+        ct = self.chunk_len
+        needed = max(s.pos for s in active_slots) + ct
         kv_limit = next((b for b in self._kv_buckets if b >= needed),
                         self._kv_buckets[-1])
+        # Step-time sentinel: the interval since the previous dispatch is
+        # one chunk cycle when a consume happened in between and the
+        # engine never idled (a wait drops the pending dispatch), so the
+        # stored unit is ms per device step. A mixed admission chunk
+        # samples into the prefill phase keyed by its ragged admission
+        # width, as in the JAX engine.
+        now = time.monotonic()
+        pend = self._steptime_pending
+        if pend is not None and self._steptime_consumed:
+            t0, phase0, bucket0, (steps0, toks0) = pend
+            self._steptime.note(phase0, bucket0, now - t0, steps=steps0,
+                                tokens=toks0, now=now)
+        self._steptime_pending = (
+            now, PHASE_PREFILL if adm_w is not None else PHASE_DECODE,
+            adm_w if adm_w is not None else kv_limit,
+            (ct, ct * len(active_slots)))
+        self._steptime_consumed = False
         force = torch.tensor(
             [s is not None and not s.exhausted for s in self._slots],
             dtype=torch.bool, device=self.device)
@@ -948,9 +1065,16 @@ class BatchedTorchEngine(TorchEngine):
         snapshot = [s.req if s is not None and not s.exhausted else None
                     for s in self._slots]
         for s in active_slots:
-            s.pos += self.chunk_len
+            s.pos += ct
             s.chunks_inflight += 1
-        self._inflight.append(("chunk", packed, snapshot, self.chunk_len))
+            s.decode_chunks_inflight += 1
+        self._inflight.append(("chunk", packed, snapshot, ct))
+        self._chunks_dispatched += 1
+        self._chunk_log.append({
+            "t": time.time(), "event": "dispatch", "kv_bucket": kv_limit,
+            "slots": len(active_slots), "admissions": len(staged),
+            "pipe": sum(1 for e in self._inflight if e[0] == "chunk"),
+        })
 
     def _consume_oldest(self) -> None:
         """Fetch the oldest in-flight entry: an eager admission's first
@@ -962,20 +1086,42 @@ class BatchedTorchEngine(TorchEngine):
             self._consume_first(int(first_d.cpu()[0]), req, slot_idx)
             return
         _, packed, snapshot, ct = entry
+        t_fetch = time.monotonic()
         res = unpack_chunk(packed.cpu().numpy(), self.batch_size, ct)
+        fetch_s = time.monotonic() - t_fetch
+        self._fetch_samples.append(fetch_s)
+        self._chunks_consumed += 1
+        self._steptime_consumed = True   # arms the next dispatch's sample
+        self._last_n_alive = res.n_alive
+        self._chunk_log.append({
+            "t": time.time(), "event": "consume", "n_alive": res.n_alive,
+            "fetch_ms": round(fetch_s * 1000.0, 3),
+            "pipe": sum(1 for e in self._inflight if e[0] == "chunk"),
+        })
         eos_ids = self.model_cfg.eos_ids
         for i, slot in enumerate(self._slots):
             if slot is None or slot.req is not snapshot[i]:
                 continue   # freed or reassigned since the dispatch
             slot.chunks_inflight -= 1
+            slot.decode_chunks_inflight -= 1
             if int(res.health[i]):
                 # A tripped health bit froze the slot inside the chunk
                 # before its bad token counted. Replaying it (the JAX
                 # containment pass) waits for a later slice: the request
-                # ends here, terminally.
+                # ends here, terminally, and everything it generated is
+                # discarded — quarantine_burn, as the JAX containment
+                # pass bills a terminal quarantine (never delivered).
+                why = describe_health(int(res.health[i]))
+                self._chunk_log.append({"t": time.time(),
+                                        "event": "health_trip", "slot": i,
+                                        "health": why})
+                burn = len(slot.detok.ids) - slot.req.ledger_delivered
+                slot.req.ledger_delivered = len(slot.detok.ids)
+                self.ledger.record(CLASS_QUARANTINE_BURN, burn,
+                                   lane=slot.req.lane,
+                                   tenant=slot.req.tenant)
                 self._finish(i, "error", error=RequestQuarantined(
-                    f"decode step failed health check "
-                    f"({describe_health(int(res.health[i]))})"))
+                    f"decode step failed health check ({why})"))
                 continue
             new_ids, finish = consume_chunk_row(
                 res.tokens[i], bool(res.done[i]), int(res.lengths[i]),
@@ -984,6 +1130,8 @@ class BatchedTorchEngine(TorchEngine):
                 if slot.t_first is None:
                     slot.t_first = time.monotonic()
                     slot.prefill_ms = (slot.t_first - slot.t_admit) * 1e3
+                    if slot.req.t_first0 is None:
+                        slot.req.t_first0 = slot.t_first
                 piece = slot.detok.push(*new_ids)
                 if piece is not None:
                     self._emit(slot.req, "token", piece)
@@ -1000,10 +1148,21 @@ class BatchedTorchEngine(TorchEngine):
         if slot is None or slot.req is not req:
             return      # finished or reassigned before its first token
         slot.chunks_inflight -= 1
-        slot.t_first = time.monotonic()
-        slot.prefill_ms = (slot.t_first - slot.t_admit) * 1000.0
+        now = time.monotonic()
+        slot.t_first = now
+        if req.t_first0 is None:
+            req.t_first0 = now
+        slot.prefill_ms = (now - slot.t_admit) * 1000.0
+        # Sentinel prefill sample: admission -> first-token consume, keyed
+        # by the prefill bucket covering the prompt.
+        self._steptime.note(
+            PHASE_PREFILL,
+            prefill_bucket(slot.n_prompt, self.prefill_buckets),
+            now - slot.t_admit, tokens=slot.n_prompt, now=now)
         if first_tok in self.model_cfg.eos_ids:
-            self._finish(slot_idx, "stop")
+            # The device never saw this EOS: chunks already dispatched
+            # for the slot decode it for nothing (wasted_masked).
+            self._finish(slot_idx, "stop", wasted_inflight=True)
             return
         piece = slot.detok.push(first_tok)
         if piece is not None:
@@ -1012,7 +1171,8 @@ class BatchedTorchEngine(TorchEngine):
             self._finish(slot_idx, "length")
 
     def _finish(self, slot_idx: int, finish: str,
-                error: Optional[BaseException] = None) -> None:
+                error: Optional[BaseException] = None,
+                wasted_inflight: bool = False) -> None:
         slot = self._slots[slot_idx]
         self._slots[slot_idx] = None
         self._pending_adm.pop(slot_idx, None)
@@ -1024,14 +1184,30 @@ class BatchedTorchEngine(TorchEngine):
             self._pool_release_slot(
                 slot_idx, slot,
                 cache_chain=error is None and finish in ("stop", "length"))
+        # A host-only finish (cancel, deadline, first-token EOS) ends a
+        # slot the device still decodes in every chunk already dispatched
+        # for it: those steps are waste, capped by the slot's remaining
+        # budget (the device freezes a slot at its budget).
+        if wasted_inflight and slot.decode_chunks_inflight > 0:
+            remaining = max(0, slot.req.max_tokens - len(slot.detok.ids))
+            self._bill_waste(min(slot.decode_chunks_inflight
+                                 * self.chunk_len, remaining), slot.req)
         # Every finish frees a slot: it feeds the drain rate behind
-        # retry_after_hint, engine-wide and for its lane. The session's
-        # budget is charged with the tokens the client received.
+        # retry_after_hint, engine-wide and for its lane.
         t_fin = time.monotonic()
+        lane = slot.req.lane
         self._finish_times.append(t_fin)
         self._lane_finish.setdefault(
-            slot.req.lane, collections.deque(maxlen=64)).append(t_fin)
-        self._session_budgets.charge(slot.req.session, len(slot.detok.ids))
+            lane, collections.deque(maxlen=64)).append(t_fin)
+        # The ledger: the transcript is what the client received —
+        # goodput, errors included (a quarantine already billed its
+        # tokens as burned) — and the session's budget is charged with
+        # the same tokens.
+        n_new = len(slot.detok.ids) - slot.req.ledger_delivered
+        slot.req.ledger_delivered = len(slot.detok.ids)
+        self.ledger.record(CLASS_DELIVERED, n_new, lane=lane,
+                           tenant=slot.req.tenant)
+        self._session_budgets.charge(slot.req.session, n_new)
         if error is not None:
             self._emit(slot.req, "error", error)
             return
@@ -1039,6 +1215,15 @@ class BatchedTorchEngine(TorchEngine):
         if piece is not None:
             self._emit(slot.req, "token", piece)
         t_end = time.monotonic()
+        # TTFT from the first token the request ever delivered (it
+        # survives a preemption); the session TTFT only for a radix-warm
+        # re-admission of a declared session.
+        ttft_sample_ms = ((slot.req.t_first0 or slot.t_first or t_end)
+                          - slot.req.t_submit) * 1000.0
+        self._slo.note(SLO_TTFT, lane, ttft_sample_ms, now=t_end)
+        if slot.req.session and slot.req.radix_warm:
+            self._slo.note(SLO_SESSION_TTFT, lane, ttft_sample_ms,
+                           now=t_end)
         self._emit(slot.req, "done", EngineResult(
             text=slot.detok.text,
             prompt_tokens=slot.n_prompt,
@@ -1229,6 +1414,9 @@ class BatchedTorchEngine(TorchEngine):
         req.resume_emitted = False
         self._preemptions += 1
         self._preempted_tokens += len(ids)
+        # The ledger bills the preempted class at the resume: the
+        # re-derivation is the device work, and a victim cancelled while
+        # queued never pays it.
         req.resume_cause = "preempt" if ids else ""
         self._preempt_times.append(req.preempt_t0)
         if req.trace is not None:
@@ -1287,7 +1475,7 @@ class BatchedTorchEngine(TorchEngine):
         in float32 on the CPU; in bf16 on the card a last-ulp difference
         can flip a near-tie pick."""
         req = slot.req
-        req.resume_cause = ""
+        resume_cause, req.resume_cause = req.resume_cause, ""
         if req.cancel.is_set():
             return
         if req.deadline is not None and time.monotonic() > req.deadline:
@@ -1335,8 +1523,15 @@ class BatchedTorchEngine(TorchEngine):
                           req.max_tokens, req.seed, g)
         slot.pos = n_total
         slot.chunks_inflight = 0
+        slot.decode_chunks_inflight = 0
         slot.exhausted = n_total >= self.max_seq_len
         self._slots[slot_idx] = slot
+        # The ledger: the g generated tokens are re-derived by the replay,
+        # device work that produces no new client byte — preempted for a
+        # QoS resume, replayed for any other cause.
+        self.ledger.record(
+            CLASS_PREEMPTED if resume_cause == "preempt" else CLASS_REPLAYED,
+            g, lane=req.lane, tenant=req.tenant)
         if req.trace is not None:
             req.trace.event(
                 f"engine: replayed into slot {slot_idx} from {g} "
@@ -1361,10 +1556,71 @@ class BatchedTorchEngine(TorchEngine):
             "session_budgets": self._session_budgets.snapshot(),
         }
 
+    def _bill_waste(self, n: int, req: Optional[_Request]) -> None:
+        """Bill ``n`` wasted device steps to both the
+        wasted_decode_steps counter and the ledger's wasted_masked class,
+        at one call site per waste event, so the two books never drift."""
+        if n <= 0:
+            return
+        self._wasted_steps += n
+        lane = req.lane if req is not None else LANE_INTERACTIVE
+        tenant = req.tenant if req is not None else None
+        self.ledger.record(CLASS_WASTED_MASKED, n, lane=lane, tenant=tenant)
+
+    def slo_health(self) -> dict:
+        """The SLO burn-rate view for /health (pure reads)."""
+        return self._slo.snapshot()
+
+    def steptime_health(self) -> dict:
+        """The step-time sentinel's view for /health and the incident
+        watcher (a bounded-ring sort per digest, never stats())."""
+        return self._steptime.snapshot()
+
+    def ledger_snapshot(self) -> dict:
+        """The goodput ledger for /debug/ledger: the lane table, the
+        hashed-tenant table and the conservation check."""
+        snap = self.ledger.snapshot()
+        snap["tenants"] = self.ledger.tenant_snapshot()
+        snap["conservation"] = self.ledger.conservation()
+        return snap
+
     def stats(self) -> dict:
-        """The scrape-time engine view /metrics mirrors (its ``qos``
-        section under the JAX package's keys)."""
+        """The scrape-time engine view /metrics mirrors, under the JAX
+        engine's keys: occupancy, queue depth and KV pages; the decode
+        pipeline (its depth is one), the wasted steps and chunk counts,
+        and the fetch-latency samples since the last call (drained);
+        the QoS section, the ledger's lane table, the SLO burn rates and
+        the step-time digests."""
+        slots = list(self._slots)
+        if self._pool is not None:
+            used = self._pool.n_blocks - self._pool.free_count
+            pages_total = self._pool.n_blocks
+        else:
+            page = self.kv_page_size
+            used = sum(-(-min(s.pos, self.max_seq_len) // page)
+                       for s in slots if s is not None)
+            pages_total = self.batch_size * -(-self.max_seq_len // page)
+        fetch_samples = []
+        while True:
+            try:
+                fetch_samples.append(self._fetch_samples.popleft())
+            except IndexError:
+                break
         return {
+            "batch_occupancy": sum(s is not None for s in slots),
+            "queue_depth": self._admissions.qsize(),
+            "kv_pages_used": used,
+            "kv_pages_total": pages_total,
+            "pipe_depth": 1,
+            "pipe_inflight": sum(1 for e in list(self._inflight)
+                                 if e[0] == "chunk"),
+            "device_active_slots": self._last_n_alive,
+            "device_termination": True,
+            "wasted_decode_steps": self._wasted_steps,
+            "chunks_dispatched": self._chunks_dispatched,
+            "chunks_consumed": self._chunks_consumed,
+            "chunks_pruned": self._chunks_pruned,
+            "chunk_fetch_secs": fetch_samples,
             "queue_rejections": self._rejections,
             "qos": dict(self._admissions.stats(),
                         lane_occupancy=self.lane_occupancy(),
@@ -1375,6 +1631,9 @@ class BatchedTorchEngine(TorchEngine):
                         lane_shares={
                             k: round(v, 4)
                             for k, v in self._brownout.shares.items()}),
+            "ledger": self.ledger.snapshot(),
+            "slo": self._slo.snapshot(),
+            "steptime": self._steptime.snapshot(),
         }
 
     #: finish times older than this do not feed the drain rate: after an
@@ -1417,31 +1676,52 @@ class BatchedTorchEngine(TorchEngine):
             if slot is None:
                 continue
             if slot.req.cancel.is_set():
-                self._finish(i, "abort")
+                self._finish(i, "abort", wasted_inflight=True)
             elif (slot.req.deadline is not None
                   and time.monotonic() > slot.req.deadline):
                 self._finish(i, "timeout",
-                             error=GenerationTimeout("generation timeout"))
+                             error=GenerationTimeout("generation timeout"),
+                             wasted_inflight=True)
             elif slot.exhausted or slot.pos >= self.max_seq_len:
                 slot.exhausted = True
                 if slot.chunks_inflight == 0:
                     self._finish(i, "length")
 
+    def _prune_dead_chunks(self) -> None:
+        """Drop leading chunk entries that carry tokens for no live slot
+        (every slot they were dispatched for finished host-side since):
+        their fetch would only block the scheduler."""
+        while self._inflight and self._inflight[0][0] == "chunk":
+            snapshot = self._inflight[0][2]
+            if any(snap is not None and self._slots[i] is not None
+                   and self._slots[i].req is snap
+                   for i, snap in enumerate(snapshot)):
+                return
+            self._inflight.pop(0)
+            self._chunks_pruned += 1
+            self._chunk_log.append({"t": time.time(), "event": "prune"})
+
     def _worker_loop(self) -> None:
         while self._running:
             try:
+                self._profile_tick()
                 # The QoS ring: the brownout controller's evaluation
-                # (time-gated, cheap), then preemption for the starved
-                # lane, each freed slot handed to it by _admit_pending,
-                # until no starved request is left. Preemption waits
-                # until the chunk in flight is consumed (one chunk at
-                # most: the pipe is one deep).
-                self._brownout.maybe_eval()
+                # (time-gated, cheap; the SLO engine's fast-window burn
+                # of interactive queue wait is its early-trim input),
+                # then preemption for the starved lane, each freed slot
+                # handed to it by _admit_pending, until no starved
+                # request is left. Preemption waits until the chunk in
+                # flight is consumed (one chunk at most: the pipe is one
+                # deep).
+                self._brownout.maybe_eval(
+                    burn_fn=lambda: self._slo.fast_burn(
+                        SLO_QUEUE_WAIT, LANE_INTERACTIVE))
                 if not self._inflight:
                     while self._maybe_preempt():
                         self._admit_pending()
                 self._admit_pending()
                 self._sweep_finishes()
+                self._prune_dead_chunks()
                 if self._inflight:
                     self._consume_oldest()
                     continue
@@ -1452,7 +1732,8 @@ class BatchedTorchEngine(TorchEngine):
                             and now - self._last_admit_t
                             < self.ADMIT_RAMP_SECS):
                         # Burst ramp: let the rest of a burst board the
-                        # first chunk together.
+                        # first chunk together (a hold is no step).
+                        self._steptime_pending = None
                         if self._ramp_hold_t0 is None:
                             self._ramp_hold_t0 = now
                         if now - self._ramp_hold_t0 < self.ADMIT_RAMP_MAX_SECS:
@@ -1462,6 +1743,9 @@ class BatchedTorchEngine(TorchEngine):
                     self._ramp_hold_t0 = None
                     self._dispatch_chunk()
                     continue
+                # Idle: no live slot. The next dispatch starts a fresh
+                # step-time interval.
+                self._steptime_pending = None
                 try:
                     req = self._admissions.get(timeout=0.05)
                 except _queue.Empty:
@@ -1479,6 +1763,48 @@ class BatchedTorchEngine(TorchEngine):
         self._fail_all_active(EngineUnavailable("engine stopped"))
         for req in self._admissions.drain():
             self._emit(req, "error", EngineUnavailable("engine stopped"))
+        self._profile_tick(stopping=True)
+
+    # ------------------------------------------------------------ profiler
+
+    async def profile(self, seconds: float, trace_dir: str) -> None:
+        """One ``torch.profiler`` capture of ``seconds`` into
+        ``trace_dir``, run by the scheduler thread (the profiler records
+        the ranges of the thread that starts it, and the forwards run
+        there): started at its next loop pass, stopped and exported at
+        the first pass after ``seconds``. One at a time; raises when the
+        engine's device cannot be traced."""
+        if not self._running:
+            raise EngineUnavailable("engine not started")
+        if self._profile_req is not None:
+            raise RuntimeError("a capture is already running")
+        session = ProfilerSession(self.device)
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._profile_req = [session, trace_dir, seconds, None, fut]
+        await asyncio.wrap_future(fut)
+
+    def _profile_tick(self, stopping: bool = False) -> None:
+        """The scheduler's side of ``profile``: start a requested
+        capture, or stop and export a running one that is due (or the
+        engine is stopping)."""
+        req = self._profile_req
+        if req is None:
+            return
+        session, trace_dir, seconds, t_end, fut = req
+        try:
+            if t_end is None and not stopping:
+                session.start()
+                req[3] = time.monotonic() + seconds
+                return
+            if t_end is None:
+                raise EngineUnavailable("engine stopped")
+            if stopping or time.monotonic() >= t_end:
+                self._profile_req = None
+                session.stop(trace_dir)
+                fut.set_result(trace_dir)
+        except Exception as e:
+            self._profile_req = None
+            fut.set_exception(e)
 
     def _fail_all_active(self, error: BaseException) -> None:
         self._inflight.clear()
@@ -1501,6 +1827,7 @@ class BatchedTorchEngine(TorchEngine):
         if self._worker is not None:
             await asyncio.to_thread(self._worker.join, 10.0)
             self._worker = None
+        self._profile_tick(stopping=True)    # a request the loop missed
 
     # ------------------------------------------------------------ serving
 

@@ -34,6 +34,8 @@ from typing import Optional
 
 import torch
 
+from ..obs.profiler import scope
+
 
 def _filter_top_k_p(scaled: torch.Tensor, top_k: int,
                     top_p: float) -> torch.Tensor:
@@ -58,7 +60,8 @@ def _filter_top_k_p(scaled: torch.Tensor, top_k: int,
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
     """[batch, vocab] -> [batch] int32 argmax ids."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    with scope("sampling"):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 # ------------------------------------------------ jax.random's threefry2x32
@@ -183,14 +186,15 @@ def sample_tokens_seeded(logits: torch.Tensor, seeds: torch.Tensor,
     filtering as the single-sequence path; every other row is greedy.
     ``seeds``, ``ngen`` and ``temperatures`` ([batch]; temperatures
     float32) are device tensors: nothing is read back."""
-    greedy = greedy_tokens(logits)
-    wants = temperatures > 0.0
-    if active is not None:
-        wants = wants & active
-    t = torch.clamp_min(temperatures, 1e-6)[:, None]
-    drawn = _sample_filtered_seeded(logits / t, slot_keys(seeds, ngen),
-                                    top_k, top_p)
-    return torch.where(wants, drawn, greedy)
+    with scope("sampling"):
+        greedy = greedy_tokens(logits)
+        wants = temperatures > 0.0
+        if active is not None:
+            wants = wants & active
+        t = torch.clamp_min(temperatures, 1e-6)[:, None]
+        drawn = _sample_filtered_seeded(logits / t, slot_keys(seeds, ngen),
+                                        top_k, top_p)
+        return torch.where(wants, drawn, greedy)
 
 
 def sample_token_keyed(logits: torch.Tensor, key: tuple,
@@ -205,9 +209,10 @@ def sample_token_keyed(logits: torch.Tensor, key: tuple,
     greedy request never hashes a key."""
     if temperature <= 0.0:
         return greedy_tokens(logits)
-    t = torch.full((), max(float(temperature), 1e-6), dtype=torch.float32,
-                   device=logits.device)
-    return _sample_filtered_seeded(logits / t, key, top_k, top_p)
+    with scope("sampling"):
+        t = torch.full((), max(float(temperature), 1e-6),
+                       dtype=torch.float32, device=logits.device)
+        return _sample_filtered_seeded(logits / t, key, top_k, top_p)
 
 
 def eos_mask(tokens: torch.Tensor, eos_ids: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,7 @@ CPU, as the tests do. A CUDA request with no card raises
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import logging
 import threading
 import time
@@ -70,6 +71,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig, get_config
 from ..models.convert import checkpoint_version, convert_hf_checkpoint
 from ..models.transformer import KVCache, Params, forward, init_params
+from ..obs.profiler import ProfilerSession
 from ..ops.flash_attention import flash_supported
 from ..ops.quant import is_quantized, kv_map, quantize_params_int8, \
     random_params_int8
@@ -180,6 +182,10 @@ class TorchEngine:
         self._shutdown = False
         self._lock: Optional[asyncio.Lock] = None
         self._gen_inflight = 0       # accepted requests incl. lock waiters
+        # Generation steps run on one thread of their own, so a
+        # torch.profiler capture started there (profile()) records them.
+        self._gen_thread = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torch-engine")
         self._prefix: Optional[PrefixKV] = None
         self._kv_buckets = kv_bucket_ladder(self.max_seq_len)
         self._impl_for: dict = {}    # (q_len, kv_len) -> attn impl
@@ -280,6 +286,21 @@ class TorchEngine:
                    and time.monotonic() < deadline):
                 await asyncio.sleep(0.05)
         self._shutdown = True
+
+    async def profile(self, seconds: float, trace_dir: str) -> None:
+        """One ``torch.profiler`` capture of ``seconds`` into
+        ``trace_dir``, started and stopped on the generation thread
+        between two of its steps (the profiler records the ranges of the
+        thread that starts it). Raises when the engine's device cannot
+        be traced."""
+        session = ProfilerSession(self.device)
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(self._gen_thread, session.start)
+        try:
+            await asyncio.sleep(seconds)
+        finally:
+            await loop.run_in_executor(self._gen_thread, session.stop,
+                                       trace_dir)
 
     # ------------------------------------------------------------ prefill
 
@@ -683,7 +704,8 @@ class TorchEngine:
                                               seed=seed)
                 try:
                     while True:
-                        fut = loop.run_in_executor(None, next, gen, None)
+                        fut = loop.run_in_executor(self._gen_thread, next,
+                                                   gen, None)
                         try:
                             item = await fut
                         except asyncio.CancelledError:

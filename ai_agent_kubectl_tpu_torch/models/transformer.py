@@ -59,6 +59,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs.profiler import scope
 from ..ops.attention import dense_attention, dense_attention_quant
 from ..ops.flash_attention import flash_attention_cached
 from ..ops.norms import rms_norm
@@ -313,15 +314,22 @@ def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, object],
     dense or mixture of experts."""
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    x = rms_norm(h, lp["attn_norm"], cfg.rms_eps, cfg.rms_offset)
-    q = rotate(qmatmul(x, lp["wq"]).view(B, S, H, hd), *rope)
-    k = rotate(qmatmul(x, lp["wk"]).view(B, S, KV, hd), *rope)
-    v = qmatmul(x, lp["wv"]).view(B, S, KV, hd)
+    with scope("attn_norm"):
+        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps, cfg.rms_offset)
+    with scope("qkv_proj"):
+        q = qmatmul(x, lp["wq"]).view(B, S, H, hd)
+        k = qmatmul(x, lp["wk"]).view(B, S, KV, hd)
+        v = qmatmul(x, lp["wv"]).view(B, S, KV, hd)
+    with scope("rope"):
+        q = rotate(q, *rope)
+        k = rotate(k, *rope)
     attn = attend(q, k, v, layer_k, layer_v)
-    h = h + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
-    x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps, cfg.rms_offset)
-    mlp = (_moe_mlp(cfg, lp, x, moe_impl) if cfg.is_moe
-           else _dense_mlp(cfg, lp, x))
+    with scope("o_proj"):
+        h = h + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
+    with scope("mlp"):
+        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps, cfg.rms_offset)
+        mlp = (_moe_mlp(cfg, lp, x, moe_impl) if cfg.is_moe
+               else _dense_mlp(cfg, lp, x))
     return h + mlp
 
 
@@ -333,10 +341,29 @@ def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
     then attention reads context and window together through the same
     table — the ragged kernel, the paged decode kernel, or the gather
     path over the table's first ``kv_limit // page`` pages."""
+    with scope("kv_write"):
+        tables = block_tables.to(torch.int32).contiguous()
+        flat = _pool_flat_pos(tables, positions, cache.page, cache.n_blocks,
+                              write_mask)
+    with scope("attention"):
+        read = _pool_read(tokens, positions, cache, tables, q_lens,
+                          kv_limit, attn_impl)
+
+    def attend(q, k, v, layer_k, layer_v):
+        with scope("kv_write"):
+            _write_kv(layer_k, flat, k)
+            _write_kv(layer_v, flat, v)
+        with scope("attention"):
+            return read(q, layer_k, layer_v)
+
+    return attend
+
+
+def _pool_read(tokens, positions, cache: KVCache, tables, q_lens,
+               kv_limit: Optional[int], attn_impl: str):
+    """The pool read's per-forward setup and its per-layer closure
+    ``read(q, layer_k, layer_v)``."""
     B, S = tokens.shape
-    tables = block_tables.to(torch.int32).contiguous()
-    flat = _pool_flat_pos(tables, positions, cache.page, cache.n_blocks,
-                          write_mask)
     pos0 = positions[:, 0].to(torch.int32).contiguous()
     if attn_impl == "ragged":
         if q_lens is None:
@@ -357,9 +384,7 @@ def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
         pos32 = positions.to(torch.int32).contiguous()
         use_flash = attn_impl == "flash" and S > 1
 
-    def attend(q, k, v, layer_k, layer_v):
-        _write_kv(layer_k, flat, k)
-        _write_kv(layer_v, flat, v)
+    def read(q, layer_k, layer_v):
         n_blocks, page = layer_k.shape[0] - 1, layer_k.shape[1]
         if attn_impl == "ragged":
             return ragged_attention_pool(
@@ -376,7 +401,7 @@ def _pool_attend(tokens: torch.Tensor, positions: torch.Tensor,
             return flash_attention_cached(q, k_ctx, v_ctx, pos32)
         return _attend_read(q, k_ctx, v_ctx, mask)
 
-    return attend
+    return read
 
 
 def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
@@ -387,19 +412,19 @@ def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
     window under "paged", else ``cache[:, :kv_limit]`` through flash for
     a prefill window or the dense reference."""
     S = tokens.shape[1]
-    flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
-    pos32 = positions.to(torch.int32).contiguous()
+    with scope("kv_write"):
+        flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
     paged = attn_impl == "paged" and S == 1
     use_flash = attn_impl == "flash" and S > 1
-    if paged:
-        pos0 = pos32[:, 0].contiguous()
-    else:
-        kv_pos = torch.arange(kv_limit, device=positions.device)
-        mask = kv_pos[None, None, :] <= positions.long()[:, :, None]
+    with scope("attention"):
+        pos32 = positions.to(torch.int32).contiguous()
+        if paged:
+            pos0 = pos32[:, 0].contiguous()
+        else:
+            kv_pos = torch.arange(kv_limit, device=positions.device)
+            mask = kv_pos[None, None, :] <= positions.long()[:, :, None]
 
-    def attend(q, k, v, layer_k, layer_v):
-        _write_kv(layer_k, flat, k)
-        _write_kv(layer_v, flat, v)
+    def read(q, layer_k, layer_v):
         if paged:
             S_alloc = layer_k.shape[1] - 1      # the trash row excluded
             return paged_decode_attention(
@@ -410,6 +435,13 @@ def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
         if use_flash:
             return flash_attention_cached(q, k_ctx, v_ctx, pos32)
         return _attend_read(q, k_ctx, v_ctx, mask)
+
+    def attend(q, k, v, layer_k, layer_v):
+        with scope("kv_write"):
+            _write_kv(layer_k, flat, k)
+            _write_kv(layer_v, flat, v)
+        with scope("attention"):
+            return read(q, layer_k, layer_v)
 
     return attend
 
@@ -492,24 +524,29 @@ def forward(
 
     # final_norm is always a plain tensor in the model dtype: it anchors
     # the activation dtype when the embedding is stored int8.
-    h = embed_lookup(params["embed"], tokens,
-                     dtype=params["final_norm"].dtype)
-    if cfg.embed_scale:
-        # The scale rounds to the activation dtype before it multiplies,
-        # as in the JAX forward (a host-side scalar: no device copy).
-        h = h * torch.tensor(cfg.dim ** 0.5, dtype=h.dtype).item()
+    with scope("embed"):
+        h = embed_lookup(params["embed"], tokens,
+                         dtype=params["final_norm"].dtype)
+        if cfg.embed_scale:
+            # The scale rounds to the activation dtype before it
+            # multiplies, as in the JAX forward (a host-side scalar: no
+            # device copy).
+            h = h * torch.tensor(cfg.dim ** 0.5, dtype=h.dtype).item()
     # The rotary tables are layer-invariant: computed once per forward.
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    with scope("rope"):
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
         h = _layer(cfg, h, lp, cache.k[i], cache.v[i], rope, attend,
                    moe_impl)
-    h = rms_norm(h, params["final_norm"], cfg.rms_eps, cfg.rms_offset)
+    with scope("final_norm"):
+        h = rms_norm(h, params["final_norm"], cfg.rms_eps, cfg.rms_offset)
     if logits_at is not None:
         h = h[torch.arange(B, device=h.device), logits_at.long()][:, None]
-    if cfg.tie_embeddings:
-        logits = tied_head(h, params["embed"])
-    else:
-        logits = qmatmul(h, params["lm_head"])
-    return logits.float(), cache
+    with scope("lm_head"):
+        if cfg.tie_embeddings:
+            logits = tied_head(h, params["embed"])
+        else:
+            logits = qmatmul(h, params["lm_head"])
+        return logits.float(), cache

@@ -8,21 +8,20 @@ one.
 
 from __future__ import annotations
 
-import logging
-
 from aiohttp import web
 
 from ..config import ServiceConfig
+from ..logging_setup import setup_logging, startup_warnings
 from .app import create_app
 from .factory import build_engine
 
 
 def main() -> None:
     cfg = ServiceConfig.from_env()
-    logging.basicConfig(
-        level=cfg.log_level,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    logger = logging.getLogger("ai_agent_kubectl_tpu_torch.server")
+    # LOG_FORMAT=json: one JSON object per line, stamped with the
+    # request ID, hashed tenant, lane and open incident.
+    logger = setup_logging(cfg.log_level, cfg.log_format)
+    startup_warnings(cfg)
     engine = build_engine(cfg)
     logger.info("Starting server on %s:%s (engine=%s, device=%s)",
                 cfg.host, cfg.port, getattr(engine, "name", "?"),

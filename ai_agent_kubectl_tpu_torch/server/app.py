@@ -11,8 +11,18 @@ Routes (the JAX statuses):
   cache and single flight with the non-streaming route.
 - ``POST /execute`` — run a validated kubectl command;
   200/400/401/429/500, execution errors as structured 200s.
-- ``GET /health`` — readiness-gated, with the breaker's state.
+- ``GET /health`` — readiness-gated, with the breaker's state and the
+  engine's ``qos``, ``kv_pool``, ``slo`` and ``steptime`` sections and
+  the incident ring's ``incidents`` summary.
 - ``GET /metrics`` — Prometheus text; ``/openapi.json`` and ``/docs``.
+- ``/debug/*``, behind ``X-Debug-Token`` when ``DEBUG_TOKEN`` is set
+  (403 otherwise): ``POST /debug/profile?seconds=N`` (alias
+  ``/debug/trace``; a ``torch.profiler`` capture on the engine's thread,
+  one at a time, 409 while one runs), ``GET /debug/requests[/{id}]``
+  (the flight recorder), ``/debug/chunks`` (the scheduler's chunk
+  events and pipeline counters), ``/debug/ledger`` (the goodput ledger
+  with its hashed-tenant table; 404 on an engine without one, such as
+  the single-sequence engine) and ``/debug/incidents[/{id}]``.
 
 Middleware, outermost first, in the JAX order: observability (request
 ID, trace, HTTP metrics, ``Server-Timing``, flight recorder), overload
@@ -23,16 +33,20 @@ headers), auth (``X-API-Key`` when ``API_AUTH_KEY`` is set: 401), QoS
 ``X-Priority`` clamped by ``TENANT_TIERS``, ``X-Session-ID``; the
 grammar headers answer 400, since the port refuses ``GRAMMAR_DECODE``).
 An engine shed answers 429 for a tenant over its queue cap and 503 for a
-full queue, with the engine's ``Retry-After``. The JAX package's
-``/debug/*`` and ``/admin/*`` routes wait for a later slice (ROADMAP.md
-A9). The pipeline itself lives in ``server/service.py``.
+full queue, with the engine's ``Retry-After``. A background task runs
+the incident triggers every ``SENTINEL_EVAL_SECS`` and attaches an
+``INCIDENT_PROFILE_SECS`` capture to a new bundle. The JAX package's
+``/admin/rollout`` waits for the fleet (ROADMAP.md A7). The pipeline
+itself lives in ``server/service.py``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hmac
 import logging
 import time
+from contextlib import suppress
 from typing import Optional
 
 from aiohttp import web
@@ -46,6 +60,7 @@ from ..engine.protocol import (EngineOverloaded, EngineResult,
 from ..engine.qos import classify, use_qos
 from ..obs import (PHASES, Trace, current_trace, new_request_id,
                    sanitize_request_id, use_trace)
+from ..obs import profiler as obs_profiler
 from .breaker import STATE_CODES
 from .executor import CommandExecutor, build_metadata, utcnow_iso
 from .metrics import Metrics
@@ -204,10 +219,12 @@ async def ratelimit_middleware(request: web.Request, handler):
 
 @web.middleware
 async def auth_middleware(request: web.Request, handler):
-    """X-API-Key auth on the serving routes; off when API_AUTH_KEY is
-    unset."""
+    """X-API-Key auth on the serving routes and, by prefix, ``/debug/*``
+    and ``/admin/*``; off when API_AUTH_KEY is unset."""
     svc: Service = request.app["service"]
-    if svc.cfg.auth_enabled and request.path in AUTH_ROUTES:
+    if svc.cfg.auth_enabled and (request.path in AUTH_ROUTES
+                                 or request.path.startswith("/debug/")
+                                 or request.path.startswith("/admin/")):
         key = request.headers.get("X-API-Key")
         if not key:
             logger.warning("Missing X-API-Key header.")
@@ -571,7 +588,10 @@ async def handle_health(request: web.Request) -> web.Response:
         breaker=breaker,
         degraded_fallback=svc.fallback is not None,
         qos=_engine_view(svc.engine, "qos_health"),
+        slo=_engine_view(svc.engine, "slo_health"),
         kv_pool=_engine_view(svc.engine, "kv_pool_health"),
+        steptime=_engine_view(svc.engine, "steptime_health"),
+        incidents=svc.incidents.snapshot(),
     )
     if ready:
         return web.json_response(body.model_dump(), status=200)
@@ -580,16 +600,219 @@ async def handle_health(request: web.Request) -> web.Response:
         headers=_retry_after_header(SHED_RETRY_SECS))
 
 
+def _debug_forbidden(request: web.Request) -> Optional[web.Response]:
+    """Token gate for /debug/*: when DEBUG_TOKEN is configured, require a
+    matching X-Debug-Token header on top of the API-key auth. Compared
+    as bytes: a header may carry non-ASCII bytes, which must 403, not
+    500."""
+    token = request.app["service"].cfg.debug_token
+    if not token:
+        return None
+    supplied = request.headers.get("X-Debug-Token", "")
+    if not hmac.compare_digest(
+            supplied.encode("utf-8", "surrogateescape"), token.encode()):
+        return _json_error(403, "Invalid or missing X-Debug-Token")
+    return None
+
+
+async def handle_debug_profile(request: web.Request) -> web.Response:
+    """POST /debug/profile?seconds=N — a torch.profiler capture while
+    live traffic runs, on the engine's own thread (obs/profiler.py):
+    ``{"trace_dir", "seconds"}``. One capture at a time (409); a capture
+    the engine's device cannot take answers 500."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    try:
+        seconds = obs_profiler.clamp_seconds(
+            float(request.query.get("seconds", 2.0)))
+    except ValueError:
+        return _json_error(400, "seconds must be a number")
+    if request.app.get("_tracing"):
+        return _json_error(409, "a trace is already in progress")
+    request.app["_tracing"] = True
+    try:
+        result = await obs_profiler.capture(
+            seconds, request.app["service"].engine)
+    except Exception as e:
+        logger.exception("trace capture failed")
+        return _json_error(500, f"trace capture failed: {e}")
+    finally:
+        request.app["_tracing"] = False
+    return web.json_response(result)
+
+
+async def handle_debug_requests(request: web.Request) -> web.Response:
+    """GET /debug/requests — the flight recorder's newest-first index."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    try:
+        limit = int(request.query.get("limit", 50))
+    except ValueError:
+        return _json_error(400, "limit must be an integer")
+    return web.json_response({
+        "size": svc.recorder.size,
+        "recorded": svc.recorder.recorded,
+        "requests": svc.recorder.list(limit=limit),
+    })
+
+
+async def handle_debug_request_detail(request: web.Request) -> web.Response:
+    """GET /debug/requests/{id} — one request's full span timeline."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    rid = request.match_info["id"]
+    entry = svc.recorder.get(rid)
+    if entry is None:
+        return _json_error(
+            404,
+            f"request {rid!r} not in the flight recorder (keeps the last "
+            f"{svc.recorder.size}; is FLIGHT_RECORDER_SIZE large enough?)",
+        )
+    return web.json_response(entry)
+
+
+async def handle_debug_chunks(request: web.Request) -> web.Response:
+    """GET /debug/chunks — the last N chunk dispatch/consume/prune
+    events off the scheduler's ring, and the live pipeline counters.
+    The ring copy retries on a concurrent-mutation RuntimeError."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    try:
+        limit = int(request.query.get("limit", 100))
+    except ValueError:
+        return _json_error(400, "limit must be an integer")
+    log = getattr(svc.engine, "_chunk_log", ())
+    events: list = []
+    for _ in range(5):
+        try:
+            events = list(log)
+            break
+        except RuntimeError:
+            continue
+    stats = _engine_view(svc.engine, "stats") or {}
+    if stats:
+        # stats() drains the fetch-latency samples: forward them to the
+        # histogram rather than dropping them.
+        svc.metrics.observe_pipeline(stats)
+    keys = ("pipe_depth", "pipe_inflight", "device_active_slots",
+            "device_termination", "wasted_decode_steps",
+            "chunks_dispatched", "chunks_consumed", "chunks_pruned")
+    return web.json_response({
+        "events": events[-limit:] if limit > 0 else [],
+        "pipeline": {k: stats[k] for k in keys if k in stats},
+    })
+
+
+async def handle_debug_ledger(request: web.Request) -> web.Response:
+    """GET /debug/ledger — the goodput ledger per lane and per hashed
+    tenant, with the conservation check; 404 on an engine without one."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    snap = _engine_view(svc.engine, "ledger_snapshot")
+    if not snap:
+        return _json_error(
+            404, "engine exposes no goodput ledger (telemetry plane is "
+                 "wired into the chunked schedulers and the fleet)")
+    return web.json_response(snap)
+
+
+async def _attach_incident_profiles(app: web.Application, svc: Service,
+                                    bundles: list) -> None:
+    """Attach an INCIDENT_PROFILE_SECS capture to the first new bundle
+    (0 = off), serialized against operator captures by the same flag and
+    bounded by the trigger cooldowns that bounded the bundles."""
+    secs = svc.cfg.incident_profile_secs
+    if secs <= 0 or not bundles or not callable(
+            getattr(svc.engine, "profile", None)):
+        return
+    if app.get("_tracing"):
+        bundles[0]["profile"] = {"skipped": "capture already running"}
+        return
+    app["_tracing"] = True
+    try:
+        bundles[0]["profile"] = await obs_profiler.capture(secs, svc.engine)
+    except Exception as e:
+        bundles[0]["profile"] = {"error": str(e)}
+    finally:
+        app["_tracing"] = False
+
+
+async def handle_debug_incidents(request: web.Request) -> web.Response:
+    """GET /debug/incidents — the incident ring's newest-first index,
+    after one trigger evaluation (a freshly tripped sentinel files its
+    bundle on the request that comes looking for it)."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    try:
+        new = svc.check_incidents()
+        await _attach_incident_profiles(request.app, svc, new)
+    except Exception:   # pragma: no cover - defensive
+        logger.exception("incident evaluation failed")
+    return web.json_response({
+        **svc.incidents.snapshot(),
+        "incidents": svc.incidents.list(),
+    })
+
+
+async def handle_debug_incident_detail(request: web.Request
+                                       ) -> web.Response:
+    """GET /debug/incidents/{id} — one incident's full evidence bundle."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    iid = request.match_info["id"]
+    bundle = svc.incidents.get(iid)
+    if bundle is None:
+        return _json_error(
+            404,
+            f"incident {iid!r} not in the ring (keeps the newest "
+            f"{svc.incidents.ring_size}; is INCIDENT_RING large "
+            f"enough?)")
+    return web.json_response(bundle)
+
+
 async def handle_metrics(request: web.Request) -> web.Response:
     svc: Service = request.app["service"]
     pool = _engine_view(svc.engine, "kv_pool_health")
     if pool:
         svc.metrics.observe_kv_pool(pool)
-    # The engine's QoS section, sampled at scrape time: lane gauges and
-    # the preemption, expiry and displacement totals.
+    # The engine's stats(), sampled at scrape time: the engine gauges,
+    # the decode pipeline, the QoS section, the ledger's lane table, the
+    # SLO burn rates and the step-time digests.
     stats = _engine_view(svc.engine, "stats") or {}
+    if stats:
+        svc.metrics.batch_occupancy.set(stats.get("batch_occupancy", 0))
+        svc.metrics.queue_depth.set(stats.get("queue_depth", 0))
+        svc.metrics.kv_pool_used.set(stats.get("kv_pages_used", 0))
+        svc.metrics.kv_pool_total.set(stats.get("kv_pages_total", 0))
+        svc.metrics.observe_pipeline(stats)
     if stats.get("qos"):
         svc.metrics.observe_qos(stats["qos"])
+    if stats.get("ledger"):
+        svc.metrics.observe_ledger(stats["ledger"])
+    if stats.get("slo"):
+        svc.metrics.observe_slo(stats["slo"])
+    if stats.get("steptime"):
+        svc.metrics.observe_steptime(stats["steptime"])
+    # A scrape is also a trigger-evaluation round (cooldowns make the
+    # redundant evaluation free).
+    try:
+        svc.check_incidents()
+    except Exception:   # pragma: no cover - defensive
+        logger.exception("incident evaluation failed at scrape")
+    svc.metrics.observe_incidents(svc.incidents.snapshot())
     svc.metrics.tokens_per_sec.set(svc.token_rate.rate())
     svc.metrics.breaker_state.set(STATE_CODES[svc.breaker.state])
     return web.Response(body=svc.metrics.render(), content_type="text/plain")
@@ -607,6 +830,15 @@ def create_app(cfg, engine, executor: Optional[CommandExecutor] = None,
     app.router.add_post("/kubectl-command/stream",
                         handle_kubectl_command_stream)
     app.router.add_post("/execute", handle_execute)
+    app.router.add_post("/debug/profile", handle_debug_profile)
+    app.router.add_post("/debug/trace", handle_debug_profile)  # alias
+    app.router.add_get("/debug/requests", handle_debug_requests)
+    app.router.add_get("/debug/requests/{id}", handle_debug_request_detail)
+    app.router.add_get("/debug/chunks", handle_debug_chunks)
+    app.router.add_get("/debug/ledger", handle_debug_ledger)
+    app.router.add_get("/debug/incidents", handle_debug_incidents)
+    app.router.add_get("/debug/incidents/{id}",
+                       handle_debug_incident_detail)
     app.router.add_get("/health", handle_health)
     app.router.add_get("/metrics", handle_metrics)
     register_openapi(app)
@@ -617,6 +849,37 @@ def create_app(cfg, engine, executor: Optional[CommandExecutor] = None,
     async def _stop_engine(app: web.Application) -> None:
         await app["service"].engine.stop(drain_secs=cfg.drain_timeout_secs)
 
+    async def _start_sentinel_watcher(app: web.Application) -> None:
+        # The incident watcher: a background evaluation loop, so triggers
+        # fire even when nothing scrapes /metrics (0 disables it).
+        svc: Service = app["service"]
+        period = svc.cfg.sentinel_eval_secs
+        if period <= 0:
+            return
+
+        async def watch() -> None:
+            while True:
+                await asyncio.sleep(period)
+                try:
+                    new = svc.check_incidents()
+                    await _attach_incident_profiles(app, svc, new)
+                except asyncio.CancelledError:   # teardown
+                    raise
+                except Exception:   # pragma: no cover - defensive
+                    logger.exception("sentinel watcher failed")
+
+        app["_sentinel_task"] = asyncio.create_task(watch())
+
+    async def _stop_sentinel_watcher(app: web.Application) -> None:
+        task = app.get("_sentinel_task")
+        if task is not None:
+            task.cancel()
+            with suppress(asyncio.CancelledError):
+                await task
+            app["_sentinel_task"] = None
+
     app.on_startup.append(_start_engine)
+    app.on_startup.append(_start_sentinel_watcher)
+    app.on_cleanup.append(_stop_sentinel_watcher)
     app.on_cleanup.append(_stop_engine)
     return app

@@ -11,15 +11,21 @@ port's features feed, under the same names, labels and help.
   tokens/s gauge and prefix-cache hits, from each response; and, at
   scrape time, the pool engine's ``kv_pool_health()`` (block-state
   gauges, sharing, copy-on-write and radix counters, the decode
-  attention regime) and the batched engine's ``stats()["qos"]`` (queue
-  depth and slot occupancy per lane, the brownout level, preemption,
-  expiry and displacement totals).
+  attention regime) and the batched engine's ``stats()``: occupancy,
+  queue depth and KV pages (``engine_*``), the decode pipeline
+  (``decode_pipe_*``, ``decode_chunks_total``, ``chunk_fetch_seconds``,
+  ``wasted_decode_steps_total``), the QoS section (queue depth and slot
+  occupancy per lane, the brownout level, preemption, expiry and
+  displacement totals), the goodput ledger (``goodput_*``), the SLO burn
+  rates (``slo_*``) and the step-time sentinel (``step_time_seconds``,
+  ``step_tokens_per_sec``, ``steptime_breach_trips_total``).
+- Incidents: captured and cooldown-suppressed bundles by trigger.
 
 The JAX package's families of features the port does not serve yet
-(decode pipeline, containment, fleet, ledger, SLO, grammar,
-speculative decode, sharding, rollout, step-time sentinel, incidents,
-the two-tier KV, and the ``engine.stats()`` gauges) wait for a later
-slice (ROADMAP.md A9). A ``CollectorRegistry`` per app keeps tests
+(containment, fleet, grammar, speculative decode, sharding, rollout and
+the two-tier KV) wait for a later slice. Every label set is closed
+(lanes, ledger classes, phases, triggers) or bounded by config
+(buckets, SLO windows). A ``CollectorRegistry`` per app keeps tests
 isolated.
 """
 
@@ -28,6 +34,8 @@ from __future__ import annotations
 import time
 from collections import deque
 from typing import Callable
+
+from ..obs.ledger import LEDGER_CLASSES
 
 from prometheus_client import (
     CollectorRegistry,
@@ -140,6 +148,18 @@ class Metrics:
             "Decode throughput averaged over the trailing 60s window",
             registry=r,
         )
+        self.batch_occupancy = Gauge(
+            "engine_batch_occupancy", "Active slots in the decode batch", registry=r
+        )
+        self.queue_depth = Gauge(
+            "engine_queue_depth", "Requests waiting for a decode slot", registry=r
+        )
+        self.kv_pool_used = Gauge(
+            "engine_kv_pages_used", "KV cache pages in use", registry=r
+        )
+        self.kv_pool_total = Gauge(
+            "engine_kv_pages_total", "KV cache pages allocated", registry=r
+        )
         self.prefix_cache_hits = Counter(
             "engine_prefix_cache_hits_total", "Prefix-KV cache hits", registry=r
         )
@@ -187,6 +207,46 @@ class Metrics:
             ["regime"],
             registry=r,
         )
+
+        # The decode pipeline, from stats() at scrape time: gauges set
+        # directly, cumulative totals delta-mirrored, fetch latencies
+        # observed from the drained per-chunk samples.
+        self.pipe_occupancy = Gauge(
+            "decode_pipe_occupancy",
+            "Speculative decode chunks currently in flight",
+            registry=r,
+        )
+        self.pipe_depth = Gauge(
+            "decode_pipe_depth",
+            "Configured CHUNK_PIPE_DEPTH",
+            registry=r,
+        )
+        self.device_active_slots = Gauge(
+            "decode_device_active_slots",
+            "Live slots reported by the last consumed chunk's n_alive",
+            registry=r,
+        )
+        self.wasted_decode_steps = Counter(
+            "wasted_decode_steps_total",
+            "Decode steps executed for already-terminated slots "
+            "(~0 with DEVICE_TERMINATION=true)",
+            registry=r,
+        )
+        self.decode_chunks = Counter(
+            "decode_chunks_total",
+            "Decode chunk pipeline events",
+            ["event"],  # dispatch | consume | prune
+            registry=r,
+        )
+        self.chunk_fetch = Histogram(
+            "chunk_fetch_seconds",
+            "Blocking device->host fetch latency per consumed chunk",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0, 2.5),
+            registry=r,
+        )
+        self._pipe_seen = {"wasted": 0, "dispatch": 0, "consume": 0,
+                           "prune": 0}
 
         # The QoS ring (engine/qos.py): queue depth and slot occupancy per
         # lane (the closed three-lane set: tenants are never labels), the
@@ -236,6 +296,87 @@ class Metrics:
         self._qos_seen = {"preemptions": 0, "preempted_tokens": 0,
                           "expired": 0, "displaced": 0}
 
+        # Goodput ledger (obs/ledger.py): device decode steps by class
+        # and lane — both closed sets; tenants are never labels (the
+        # per-tenant table lives behind /debug/ledger only).
+        self.goodput_steps = Counter(
+            "goodput_steps_total",
+            "Device decode steps by accounting class and lane "
+            "(delivered = goodput; the rest are waste classes)",
+            ["lane", "class"],
+            registry=r,
+        )
+        self.goodput_ratio = Gauge(
+            "goodput_ratio",
+            "Delivered fraction of all accounted device steps, by lane",
+            ["lane"],
+            registry=r,
+        )
+        self._ledger_seen: dict = {}
+
+        # SLO burn rates (obs/slo.py): ``slo`` and ``lane`` are closed
+        # sets; ``window`` values come from SLO_WINDOWS (at most 4).
+        self.slo_burn_rate = Gauge(
+            "slo_burn_rate",
+            "Error-budget burn rate over the window (1.0 = spending "
+            "exactly at the objective's sustainable rate)",
+            ["slo", "lane", "window"],
+            registry=r,
+        )
+        self.slo_budget_remaining = Gauge(
+            "slo_error_budget_remaining",
+            "Unspent fraction of the window's error budget (floor 0)",
+            ["slo", "lane", "window"],
+            registry=r,
+        )
+        self.slo_breaches = Counter(
+            "slo_breaches_total",
+            "Latency samples that breached their SLO target",
+            ["slo", "lane"],
+            registry=r,
+        )
+        self._slo_seen: dict = {}
+
+        # Step-time sentinel (obs/steptime.py): ``phase`` is the closed
+        # STEP_PHASES set; ``bucket`` values come from the engine's
+        # bucket ladders.
+        self.step_time = Gauge(
+            "step_time_seconds",
+            "Per-chunk device step time quantiles by phase and bucket "
+            "(p50 | p95 | p99 over the sentinel's trailing window)",
+            ["phase", "bucket", "quantile"],
+            registry=r,
+        )
+        self.step_tokens_per_sec = Gauge(
+            "step_tokens_per_sec",
+            "Trailing tokens/sec produced at this (phase, bucket) rung",
+            ["phase", "bucket"],
+            registry=r,
+        )
+        self.steptime_trips = Counter(
+            "steptime_breach_trips_total",
+            "Step-time sentinel breach transitions (p99 crossed the "
+            "baseline envelope; edge-triggered, not per scrape)",
+            registry=r,
+        )
+        self._steptime_seen = 0
+
+        # Incident capture (obs/incidents.py), by the closed TRIGGERS set.
+        self.incidents_captured = Counter(
+            "incidents_captured_total",
+            "Incident bundles assembled into the /debug/incidents ring",
+            ["trigger"],
+            registry=r,
+        )
+        self.incidents_suppressed = Counter(
+            "incidents_suppressed_total",
+            "Trigger firings swallowed by the per-trigger cooldown "
+            "(counted, never captured — bounds capture overhead)",
+            ["trigger"],
+            registry=r,
+        )
+        self._incidents_seen = {"captured": {}, "suppressed": {}}
+
         # Failure containment: overload shedding, breaker, fallback
         self.queue_rejections = Counter(
             "queue_rejections_total",
@@ -263,6 +404,95 @@ class Metrics:
             buckets=_PHASE_BUCKETS,
             registry=r,
         )
+
+    def observe_pipeline(self, stats: dict) -> None:
+        """Mirror the engine's decode-pipeline stats at scrape time:
+        gauges set directly, cumulative totals turned into counter
+        increments, drained chunk-fetch samples observed."""
+        self.pipe_occupancy.set(stats.get("pipe_inflight", 0))
+        self.pipe_depth.set(stats.get("pipe_depth", 0))
+        self.device_active_slots.set(stats.get("device_active_slots", 0))
+        wasted = stats.get("wasted_decode_steps", 0)
+        if wasted > self._pipe_seen["wasted"]:
+            self.wasted_decode_steps.inc(wasted - self._pipe_seen["wasted"])
+            self._pipe_seen["wasted"] = wasted
+        for event, key in (("dispatch", "chunks_dispatched"),
+                           ("consume", "chunks_consumed"),
+                           ("prune", "chunks_pruned")):
+            total = stats.get(key, 0)
+            if total > self._pipe_seen[event]:
+                self.decode_chunks.labels(event=event).inc(
+                    total - self._pipe_seen[event])
+                self._pipe_seen[event] = total
+        for s in stats.get("chunk_fetch_secs", ()):
+            self.chunk_fetch.observe(s)
+
+    def observe_ledger(self, ledger: dict) -> None:
+        """Mirror the ledger's lane table (stats()["ledger"]): per-(lane,
+        class) totals delta-inc'd, the per-lane goodput ratio set."""
+        for lane, row in (ledger.get("lanes") or {}).items():
+            seen = self._ledger_seen.setdefault(lane, {})
+            for cls in LEDGER_CLASSES:
+                total = row.get(cls, 0)
+                prev = seen.get(cls, 0)
+                if total > prev:
+                    # positional labels: "class" is a Python keyword.
+                    self.goodput_steps.labels(lane, cls).inc(total - prev)
+                    seen[cls] = total
+            lane_total = row.get("total", 0)
+            if lane_total:
+                self.goodput_ratio.labels(lane=lane).set(
+                    row.get("delivered", 0) / lane_total)
+
+    def observe_steptime(self, st: dict) -> None:
+        """Mirror the step-time snapshot (stats()["steptime"]): quantile
+        and rate gauges set, the edge-triggered trip total delta-inc'd."""
+        for d in (st.get("digests") or {}).values():
+            phase = str(d.get("phase", "?"))
+            bucket = str(d.get("bucket", "?"))
+            for q, key in (("p50", "p50_ms"), ("p95", "p95_ms"),
+                           ("p99", "p99_ms")):
+                self.step_time.labels(
+                    phase=phase, bucket=bucket, quantile=q).set(
+                    float(d.get(key, 0.0)) / 1000.0)
+            self.step_tokens_per_sec.labels(
+                phase=phase, bucket=bucket).set(d.get("tok_s", 0.0))
+        total = int(st.get("trips_total", 0))
+        if total > self._steptime_seen:
+            self.steptime_trips.inc(total - self._steptime_seen)
+            self._steptime_seen = total
+
+    def observe_incidents(self, snap: dict) -> None:
+        """Delta-mirror the incident manager's captured and suppressed
+        totals by trigger."""
+        seen = self._incidents_seen
+        for key, counter in (("captured", self.incidents_captured),
+                             ("suppressed", self.incidents_suppressed)):
+            for trigger, total in (snap.get(f"{key}_total")
+                                   or {}).items():
+                prev = seen[key].get(trigger, 0)
+                if total > prev:
+                    counter.labels(trigger=trigger).inc(total - prev)
+                    seen[key][trigger] = total
+
+    def observe_slo(self, slo: dict) -> None:
+        """Mirror the SLO snapshot (stats()["slo"]): per-window burn and
+        budget gauges set, cumulative breach counts delta-inc'd."""
+        for name, body in (slo.get("slos") or {}).items():
+            for lane, row in (body.get("lanes") or {}).items():
+                for window, win in (row.get("windows") or {}).items():
+                    self.slo_burn_rate.labels(
+                        slo=name, lane=lane, window=window).set(
+                        win.get("burn_rate", 0.0))
+                    self.slo_budget_remaining.labels(
+                        slo=name, lane=lane, window=window).set(
+                        win.get("budget_remaining", 1.0))
+                total = row.get("breaches_total", 0)
+                prev = self._slo_seen.get((name, lane), 0)
+                if total > prev:
+                    self.slo_breaches.labels(slo=name, lane=lane).inc(
+                        total - prev)
+                    self._slo_seen[(name, lane)] = total
 
     def observe_qos(self, qos: dict) -> None:
         """Mirror the engine's ``stats()["qos"]`` at scrape time: gauges

@@ -3,17 +3,21 @@
 The counterpart of the JAX package's ``server/app.py::Service``: it
 bundles the app's long-lived components — the engine, the kubectl
 executor, the metrics, the TTL response cache with single flight, the
-rate limiter, the circuit breaker, the optional rule-based fallback and
-the flight recorder — and runs the ``POST /kubectl-command`` pipeline
-(``generate_command``): cache, then engine (under the breaker), then
-the safety parser; engine failures degrade to the rule table when
-``DEGRADED_FALLBACK`` is set. The routes and the middleware live in
-``server/app.py``.
+rate limiter, the circuit breaker, the optional rule-based fallback,
+the flight recorder and the incident manager — and runs the ``POST
+/kubectl-command`` pipeline (``generate_command``): cache, then engine
+(under the breaker), then the safety parser; engine failures degrade to
+the rule table when ``DEGRADED_FALLBACK`` is set. ``check_incidents`` is
+one trigger-evaluation round over the engine's cheap health views (the
+background watcher, the /metrics scrape and /debug/incidents reads
+share it). The routes and the middleware live in ``server/app.py``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
+import json
 import logging
 from contextlib import nullcontext
 from typing import Optional, Tuple
@@ -23,7 +27,7 @@ from ..engine.prompts import render_prompt
 from ..engine.protocol import (EngineOverloaded, EngineResult,
                                EngineUnavailable, GenerationTimeout,
                                RequestQuarantined, TenantOverloaded)
-from ..obs import FlightRecorder, current_trace
+from ..obs import FlightRecorder, IncidentManager, current_trace
 from .breaker import CircuitBreaker
 from .cache import CachedSingleFlight
 from .executor import CommandExecutor
@@ -90,6 +94,87 @@ class Service:
         # The tenant -> tier map the QoS middleware classifies against
         # (a typo'd TENANT_TIERS already refused to boot).
         self.tenant_tiers = cfg.tenant_tier_map
+        # Incident capture: the manager watches the engine's cheap health
+        # views for firing triggers and files bounded evidence bundles
+        # behind /debug/incidents; the secret-free config fingerprint
+        # rides every bundle.
+        self.incidents = IncidentManager(
+            ring=cfg.incident_ring,
+            cooldown_secs=cfg.incident_cooldown_secs,
+            burn_threshold=cfg.incident_burn_threshold,
+            thrash_min_blocks=cfg.incident_thrash_min_blocks)
+        self.config_fingerprint = hashlib.sha256(
+            json.dumps(cfg.describe(), sort_keys=True,
+                       default=repr).encode()).hexdigest()[:12]
+
+    # ------------------------------------------------------- incidents
+
+    def _engine_view(self, name: str) -> Optional[dict]:
+        """One cheap engine health view, or None (absent or failing):
+        the incident plane never takes the serving path down."""
+        fn = getattr(self.engine, name, None)
+        if not callable(fn):
+            return None
+        try:
+            return fn() or None
+        except Exception:  # pragma: no cover - defensive
+            return None
+
+    def _chunk_rings(self, limit: int = 64) -> dict:
+        """The tail of the scheduler's chunk-event ring (the
+        /debug/chunks evidence, frozen into a bundle), keyed by replica
+        as in the JAX package (one replica, "0"). The copy retries on a
+        concurrent-mutation RuntimeError."""
+        log = getattr(self.engine, "_chunk_log", None)
+        if log is None:
+            return {}
+        events: list = []
+        for _ in range(5):
+            try:
+                events = list(log)
+                break
+            except RuntimeError:
+                continue
+        return {"0": events[-limit:]}
+
+    def _incident_bundle(self) -> dict:
+        """One bounded evidence bundle, under the JAX bundle's keys: the
+        flight recorder, the chunk ring, every cheap health section (None
+        for a feature the port does not serve), the config fingerprint
+        and the weights version."""
+        return {
+            "weights_version": (str(getattr(self.engine,
+                                            "weights_version", "") or "")
+                                or None),
+            "config_fingerprint": self.config_fingerprint,
+            "breaker": self.breaker.state,
+            "flight_recorder": self.recorder.list(limit=32),
+            "chunks": self._chunk_rings(),
+            "ledger": self._engine_view("ledger_snapshot"),
+            "slo": self._engine_view("slo_health"),
+            "qos": self._engine_view("qos_health"),
+            "kv_pool": self._engine_view("kv_pool_health"),
+            "sharding": self._engine_view("sharding_health"),
+            "grammar": self._engine_view("grammar_health"),
+            "spec": self._engine_view("spec_health"),
+            "fleet": self._engine_view("fleet_health"),
+            "steptime": self._engine_view("steptime_health"),
+            "rollout": None,
+        }
+
+    def check_incidents(self) -> list:
+        """One trigger-evaluation round; returns the NEW bundles. The
+        quarantine, grammar and host-tier views are None: the port has
+        no containment supervisor, grammar decode or host KV tier yet."""
+        views = {
+            "steptime": self._engine_view("steptime_health"),
+            "slo": self._engine_view("slo_health"),
+            "kv_pool": self._engine_view("kv_pool_health"),
+            "grammar": self._engine_view("grammar_health"),
+            "breaker": self.breaker.state,
+            "quarantined_total": None,
+        }
+        return self.incidents.evaluate(views, self._incident_bundle)
 
     async def run_engine(self, coro_fn):
         """One engine call under the circuit breaker: fail fast while the

@@ -203,7 +203,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                --profile, the shares of a decode step that go to the
                gather, the int8 -> float32 convert and
                dense_attention_quant.
-10. timing  -- time each kernel, its plain version, one PyTorch library
+10. serve_obs -- the telemetry plane on the card.
+               (a) Gemma-2B served as the serve phase serves it (random
+               bf16 weights from seed 0, the pool and ragged regime, 8
+               slots) with DEBUG_TOKEN set, LOG_FORMAT=json, the ledger
+               and the sentinel at their defaults (on),
+               SENTINEL_EVAL_SECS=0.5, INCIDENT_PROFILE_SECS=1 and
+               PERF_BASELINES naming a file this phase writes under
+               build/ with a decode envelope of 0.01 ms a step, which no
+               card meets. Traffic: the serve burst and its 2 repeats,
+               then 16 fresh queries with POST /debug/profile?seconds=2
+               sent while they decode. Gates: every /debug/* route 403s
+               without X-Debug-Token; /debug/requests lists every burst
+               request id, a detail answers 200 and an unknown id 404;
+               /debug/chunks holds as many dispatch and consume events as
+               stats() counts; /debug/ledger's books balance and its
+               delivered steps equal the tokens the responses returned
+               (128 each: random weights never emit EOS); /debug/incidents
+               holds one steptime_breach incident whose bundle carries a
+               trace directory, the cooldown suppressing the next firing;
+               /health has its slo, steptime and incidents sections and
+               /metrics the telemetry families; every JSON log line of a
+               request carries its request id; the profile's trace,
+               attributed (obs/attribution.py), has span_source
+               cuda_device, bills every ragged kernel and combine to
+               attention and the GEMM libraries' kernels to weight_gemms
+               (or lm_head_sampling under the head's scope), and leaves at
+               most 10 % of the device's busy time in other_device.
+               (b) run_attribution on Gemma-7B with QUANT=int4 (8 slots,
+               chunk 8, 4 reps): the artifact validates with span_source
+               cuda_device and every int4 kernel span bills weight_gemms.
+               Both tables are printed, and the serve phase's burst tok/s
+               beside (a)'s first burst.
+11. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
                serve_kvq's int4 projections and serve_moe's ragged decode
@@ -234,7 +266,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
-          "serve_qos", "serve_moe", "serve_kvq", "timing")
+          "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -4199,6 +4231,302 @@ def kernel_lines(results: dict) -> list:
     ]
 
 
+# ------------------------------------------------------------ serve_obs
+
+#: the served Gemma-2B with the telemetry plane on (serve_obs (a)); the
+#: decode envelope of PERF_BASELINES is written by the phase.
+SERVE_OBS_ENV = dict(SERVE_ENV, DEBUG_TOKEN="serve-obs-token",
+                     LOG_FORMAT="json", SENTINEL_EVAL_SECS="0.5",
+                     INCIDENT_PROFILE_SECS="1")
+OBS_DEBUG_ROUTES = [("GET", "/debug/requests"), ("GET", "/debug/chunks"),
+                    ("GET", "/debug/ledger"), ("GET", "/debug/incidents"),
+                    ("GET", "/debug/requests/x"),
+                    ("GET", "/debug/incidents/x"),
+                    ("POST", "/debug/profile?seconds=0.1"),
+                    ("POST", "/debug/trace?seconds=0.1")]
+OBS_FAMILIES = {"goodput_steps", "goodput_ratio", "slo_burn_rate",
+                "slo_error_budget_remaining", "slo_breaches",
+                "step_time_seconds", "step_tokens_per_sec",
+                "steptime_breach_trips", "incidents_captured",
+                "incidents_suppressed", "engine_batch_occupancy",
+                "engine_queue_depth", "engine_kv_pages_used",
+                "engine_kv_pages_total", "decode_chunks",
+                "chunk_fetch_seconds", "wasted_decode_steps",
+                "decode_pipe_depth"}
+#: kernel names of the GEMM libraries (cuBLAS, cuBLASLt, CUTLASS)
+GEMM_NAME = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|splitKreduce",
+                       re.IGNORECASE)
+#: other_device may hold at most this share of the device's busy time
+OTHER_DEVICE_MAX = 0.10
+
+
+def phase_serve_obs(torch, serve_info: dict) -> dict:
+    """Phase 10: (a) the telemetry plane served on Gemma-2B, (b) the
+    offline attribution of Gemma-7B int4's decode chunk."""
+    release_served_apps(torch)
+    served = asyncio.run(_serve_obs(torch))
+    if serve_info.get("burst_tok_per_s"):
+        log(f"[serve_obs] burst tok/s: serve {serve_info['burst_tok_per_s']:.1f}"
+            f", serve_obs (a) {served['burst_tok_per_s']:.1f} (telemetry "
+            f"on; one burst each, no claim)")
+    release_served_apps(torch)
+    offline = _attribute_7b_int4(torch)
+    return {"served": served, "offline": offline}
+
+
+def _save_artifact(art: dict, name: str) -> str:
+    """Write an attribution artifact under build/ (its ops' names whole)
+    and return the compact one-line form the log carries (op names cut
+    to 80 characters)."""
+    path = ROOT / "build" / name
+    path.write_text(json.dumps(art, indent=1))
+    short = dict(art, categories=[
+        dict(c, top_ops=[dict(o, name=o["name"][:80]) for o in c["top_ops"]])
+        for c in art["categories"]])
+    return f"{path.relative_to(ROOT)} " + json.dumps(short)
+
+
+def _spans_by_category(trace_dir: str) -> list:
+    """(category, op name, us) of every device span of a capture."""
+    from ai_agent_kubectl_tpu_torch.obs import attribution as attr
+
+    spans, source = attr._select_spans(attr._load_trace_events(trace_dir))
+    if source != "cuda_device":
+        raise AssertionError(f"capture {trace_dir}: span_source {source}, "
+                             f"not cuda_device")
+    return [(attr.categorize(text), op, te - ts)
+            for ts, te, text, op in spans]
+
+
+def _check_billing(spans, pattern, allowed: set, what: str) -> dict:
+    hits = [(cat, us) for cat, op, us in spans if re.search(pattern, op)]
+    if not hits:
+        raise AssertionError(f"no {what} span in the capture")
+    wrong = {cat for cat, _ in hits if cat not in allowed}
+    if wrong:
+        raise AssertionError(f"{what} spans billed to {sorted(wrong)}, "
+                             f"not {sorted(allowed)}")
+    return {"spans": len(hits), "us": sum(us for _, us in hits)}
+
+
+async def _serve_obs(torch) -> dict:
+    import io
+    import logging
+
+    import aiohttp
+    from aiohttp import web
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.logging_setup import setup_logging
+    from ai_agent_kubectl_tpu_torch.obs import attribution as attr
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+
+    base = ROOT / "build" / "serve_obs_baselines.json"
+    base.parent.mkdir(parents=True, exist_ok=True)
+    base.write_text(json.dumps({
+        "source": "chip_smoke.py serve_obs: an envelope no card meets",
+        "step_time_ms": {"decode": {"default": 0.01}}}))
+    port = _free_port()
+    _phase_env(dict(SERVE_OBS_ENV, PERF_BASELINES=str(base)), port)
+    cfg = ServiceConfig.from_env()
+    # The server's logging (LOG_FORMAT=json), its lines kept in memory.
+    root = logging.getLogger()
+    saved = (list(root.handlers), root.level)
+    setup_logging(cfg.log_level, cfg.log_format)
+    lines = io.StringIO()
+    root.handlers[0].setStream(lines)
+    inner = build_engine(cfg)
+    if not isinstance(inner, BatchedTorchEngine):
+        raise AssertionError(f"engine construction failed: {inner!r}")
+    engine = RecordingEngine(inner)
+    app = create_app(cfg, engine)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    url = f"http://{cfg.host}:{port}"
+    dbg = {"X-Debug-Token": cfg.debug_token}
+    out: dict = {}
+    try:
+        async with aiohttp.ClientSession() as http:
+            for method, path in OBS_DEBUG_ROUTES:
+                async with http.request(method, url + path) as r:
+                    if r.status != 403:
+                        raise AssertionError(f"{path} without the debug "
+                                             f"token: {r.status}")
+
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return (r.status, r.headers["X-Request-ID"],
+                            await r.json())
+
+            async def get(path):
+                async with http.get(url + path, headers=dbg) as r:
+                    return r.status, await r.json()
+
+            delivered0 = inner.ledger_snapshot()["classes"]["delivered"]
+            t0 = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in QUERIES])
+            burst_s = time.monotonic() - t0
+            out["burst_tok_per_s"] = sum(
+                r.completion_tokens for _, r in engine.results) / burst_s
+            repeats = [await ask(QUERIES[i]) for i in REPEATS]
+            # The sentinel's decode digest breaches the 0.01 ms envelope;
+            # the watcher files one steptime_breach bundle and attaches a
+            # one-second capture to it.
+            incident = None
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline:
+                _, listing = await get("/debug/incidents")
+                found = [i for i in listing["incidents"]
+                         if i["trigger"] == "steptime_breach"]
+                if found:
+                    _, incident = await get(
+                        f"/debug/incidents/{found[0]['id']}")
+                    if "profile" in incident:
+                        break
+                await asyncio.sleep(0.25)
+            if incident is None or "trace_dir" not in incident.get(
+                    "profile", {}):
+                raise AssertionError(f"no steptime_breach bundle with a "
+                                     f"trace: {incident}")
+            # The second burst, captured while it decodes.
+            second = [f"{q} (obs {k})" for k in (1, 2) for q in QUERIES]
+            burst2 = asyncio.ensure_future(
+                asyncio.gather(*[ask(q) for q in second]))
+            await asyncio.sleep(0.5)
+            async with http.post(f"{url}/debug/profile?seconds=2",
+                                 headers=dbg) as r:
+                profile = await r.json()
+                if r.status != 200:
+                    raise AssertionError(f"/debug/profile: {r.status} "
+                                         f"{profile}")
+            burst2 = await burst2
+            await asyncio.sleep(1.0)            # a watcher pass or two
+            answers = burst + repeats + burst2
+            status, listing = await get("/debug/incidents")
+            breaches = [i for i in listing["incidents"]
+                        if i["trigger"] == "steptime_breach"]
+            if (len(breaches) != 1 or listing["suppressed_total"].get(
+                    "steptime_breach", 0) < 1):
+                raise AssertionError(f"incidents: {listing}")
+            _, reqs = await get("/debug/requests?limit=256")
+            listed = {e["request_id"] for e in reqs["requests"]}
+            missing = {rid for _, rid, _ in answers} - listed
+            if missing:
+                raise AssertionError(f"/debug/requests lacks {missing}")
+            if (await get(f"/debug/requests/{answers[0][1]}"))[0] != 200 \
+                    or (await get("/debug/requests/nope"))[0] != 404:
+                raise AssertionError("/debug/requests detail statuses")
+            _, chunks = await get("/debug/chunks?limit=100000")
+            events = [e["event"] for e in chunks["events"]]
+            pipe = chunks["pipeline"]
+            if (events.count("dispatch") != pipe["chunks_dispatched"]
+                    or events.count("consume") != pipe["chunks_consumed"]
+                    or len(events) >= 512):
+                raise AssertionError(f"/debug/chunks: {len(events)} events"
+                                     f" against {pipe}")
+            _, ledger = await get("/debug/ledger")
+            tokens = [r.completion_tokens for _, r in engine.results]
+            delivered = ledger["classes"]["delivered"] - delivered0
+            if (not ledger["conservation"]["balanced"]
+                    or delivered != sum(tokens)
+                    or set(tokens) != {int(cfg.max_new_tokens)}):
+                raise AssertionError(f"ledger: delivered {delivered} "
+                                     f"against {sum(tokens)} ({tokens}); "
+                                     f"{ledger['conservation']}")
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+            if not all(health.get(k) for k in ("slo", "steptime",
+                                               "incidents")):
+                raise AssertionError(f"/health: {health}")
+            async with http.get(f"{url}/metrics") as r:
+                families = {f.name for f in
+                            text_string_to_metric_families(await r.text())}
+            if OBS_FAMILIES - families:
+                raise AssertionError(f"/metrics lacks "
+                                     f"{OBS_FAMILIES - families}")
+    finally:
+        await runner.cleanup()
+        root.handlers[:] = saved[0]
+        root.setLevel(saved[1])
+    ids = {rid for _, rid, _ in answers}
+    entries = [json.loads(x) for x in lines.getvalue().splitlines() if x]
+    received = [e for e in entries
+                if e["message"].startswith("Received query")]
+    if (len(received) < len(answers)
+            or any(e["request_id"] not in ids for e in received)):
+        raise AssertionError(f"JSON log lines without their request id: "
+                             f"{[e for e in received if e['request_id'] not in ids][:3]}")
+    # The capture, attributed: its forward passes are its lm_head ranges.
+    trace_dir = profile["trace_dir"]
+    steps = sum(1 for e in attr._load_trace_events(trace_dir)
+                if e.get("cat") == "user_annotation"
+                and e.get("name") == "lm_head")
+    art = attr.attribute_trace(trace_dir, max(steps, 1), meta={
+        "model": cfg.model_name, "what": "serve_obs (a) /debug/profile"})
+    attr.validate_attribution(art)
+    spans = _spans_by_category(trace_dir)
+    ragged = _check_billing(spans, r"ragged_(mma|combine)_kernel",
+                            {"attention"}, "ragged kernel")
+    gemms = _check_billing(spans, GEMM_NAME.pattern,
+                           {"weight_gemms", "lm_head_sampling"}, "GEMM")
+    cats = {c["name"]: c for c in art["categories"]}
+    other_ms = cats["other_device"]["ms_per_step"] * art["steps_measured"]
+    if (art["span_source"] != "cuda_device" or steps < 1
+            or other_ms > OTHER_DEVICE_MAX * art["device_busy_ms_total"]
+            or cats["weight_gemms"]["ms_per_step"] <= 0):
+        raise AssertionError(f"attribution: "
+                             f"{_save_artifact(art, 'serve_obs_a.json')}")
+    log(f"[serve_obs] (a) {len(answers)} requests, {sum(tokens)} tokens "
+        f"delivered, burst {out['burst_tok_per_s']:.1f} tok/s; incident "
+        f"{incident['id']} ({incident['trigger']}) with trace "
+        f"{incident['profile'].get('trace_dir')}; {len(entries)} JSON log "
+        f"lines, {len(received)} per-request")
+    log(f"[serve_obs] (a) /debug/profile: {steps} forward passes, "
+        f"{art['n_device_spans']} device spans, device busy "
+        f"{art['device_busy_ms_total']:.1f} of {art['wall_ms_total']:.1f} "
+        f"ms; ragged {ragged}; GEMMs {gemms}")
+    log("[serve_obs] (a) attribution table\n" + attr.render_markdown(art))
+    log("[serve_obs] (a) json " + _save_artifact(art, "serve_obs_a.json"))
+    out.update(attribution=art, forward_steps=steps, ragged=ragged,
+               gemms=gemms, incident=incident["id"], log_lines=len(entries))
+    return out
+
+
+def _attribute_7b_int4(torch) -> dict:
+    from ai_agent_kubectl_tpu_torch.obs import attribution as attr
+
+    t0 = time.monotonic()
+    art = attr.run_attribution(model="gemma-7b-it", quant="int4",
+                               batch_size=8, chunk_len=8, reps=4,
+                               device="cuda", keep_trace=True)
+    took = time.monotonic() - t0
+    trace_dir = art.pop("trace_dir")
+    try:
+        attr.validate_attribution(art)
+        if art["span_source"] != "cuda_device":
+            raise AssertionError(f"(b) span_source {art['span_source']}")
+        int4 = _check_billing(_spans_by_category(trace_dir),
+                              r"int4_(mma|reduce)_kernel", {"weight_gemms"},
+                              "int4 kernel")
+    finally:
+        import shutil
+
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    log(f"[serve_obs] (b) gemma-7b-it int4 decode chunk in {took:.1f} s: "
+        f"step {art['step_ms']:.3f} ms, device busy "
+        f"{art['device_busy_ms_per_step']:.3f} ms a step, coverage "
+        f"{art['coverage_pct']:.1f}%; int4 {int4}")
+    log("[serve_obs] (b) attribution table\n" + attr.render_markdown(art))
+    log("[serve_obs] (b) json " + _save_artifact(art, "serve_obs_b.json"))
+    return {"attribution": art, "int4": int4, "seconds": took}
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -4256,6 +4584,9 @@ def main() -> int:
         results["serve_moe"] = phase_serve_moe(torch, args.profile)
     if "serve_kvq" in phases:
         results["serve_kvq"] = phase_serve_kvq(torch, args.profile)
+    if "serve_obs" in phases:
+        results["serve_obs"] = phase_serve_obs(torch,
+                                               results.get("serve", {}))
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),

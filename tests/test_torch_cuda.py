@@ -928,3 +928,42 @@ def test_int8_kv_forward_on_the_card_matches_the_cpu(card, layout):
         assert torch.allclose(gs[0], ws[0], rtol=1e-5, atol=0)
     for w, g in zip(want, got):
         assert torch.allclose(g, w, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("scoped", [True, False], ids=["in_scope", "bare"])
+def test_ragged_kernel_spans_bill_to_attention(card, tmp_path, scoped):
+    """A profiler capture of serve's decode step (the ragged kernel and
+    its split combine, launched through ctypes): attribution finds both
+    among the card's spans and bills them to ``attention`` — by the
+    enclosing ``attention`` scope, or by their symbols when no scope
+    covers them — never to ``other_device``."""
+    from ai_agent_kubectl_tpu_torch.obs import attribution as attr
+    from ai_agent_kubectl_tpu_torch.obs.profiler import (ProfilerSession,
+                                                         scope)
+
+    args, page = _serve_pool(card, [63, 64, 127, 128, 0, 1023, 500, 191],
+                             [1, 1, 1, 1, 1, 1, 0, 1], 1, seed=1)
+    ragged_attention_pool(*args, page_size=page)
+    torch.cuda.synchronize()
+    session = ProfilerSession(card)
+    session.start()
+    for _ in range(3):
+        if scoped:
+            with scope("attention"):
+                ragged_attention_pool(*args, page_size=page)
+        else:
+            ragged_attention_pool(*args, page_size=page)
+    torch.cuda.synchronize()
+    session.stop(str(tmp_path))
+    spans, source = attr._select_spans(
+        attr._load_trace_events(str(tmp_path)))
+    assert source == "cuda_device"
+    names = {op: attr.categorize(text) for _, _, text, op in spans
+             if "ragged_" in op}
+    assert any("ragged_mma_kernel" in n for n in names)
+    assert any("ragged_combine_kernel" in n for n in names)
+    assert set(names.values()) == {"attention"}
+    art = attr.attribute_trace(str(tmp_path), 3)
+    attr.validate_attribution(art)
+    cats = {c["name"]: c["ms_per_step"] for c in art["categories"]}
+    assert cats["attention"] > 0

@@ -230,20 +230,11 @@ REFUSED = [
     ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
     ("ENGINE_WATCHDOG_SECS", "30"), ("ENGINE_STARTUP_GRACE_SECS", "60"),
     ("QUARANTINE_RETRY_BUDGET", "3"), ("ENGINE_RESET_MAX_PER_MIN", "2"),
-    ("FAULT_POINTS", "generate:error:1.0"), ("LEDGER_ENABLE", "true"),
-    ("SLO_TTFT_MS", "800"), ("SLO_SESSION_TTFT_MS", "900"),
-    ("SLO_WINDOWS", "60,600"), ("SLO_OBJECTIVE", "0.9"),
-    ("PERF_BASELINES", "/b.json"), ("SENTINEL_ENABLE", "true"),
-    ("SENTINEL_WINDOW", "64"), ("SENTINEL_FACTOR", "3"),
-    ("SENTINEL_MIN_SAMPLES", "4"), ("SENTINEL_EVAL_SECS", "1"),
-    ("INCIDENT_RING", "4"), ("INCIDENT_COOLDOWN_SECS", "5"),
-    ("INCIDENT_BURN_THRESHOLD", "5"), ("INCIDENT_PROFILE_SECS", "2"),
-    ("INCIDENT_THRASH_MIN_BLOCKS", "2"), ("FLEET_SIZE", "2"),
+    ("FAULT_POINTS", "generate:error:1.0"), ("FLEET_SIZE", "2"),
     ("FLEET_HEDGE_MS", "50"), ("FLEET_AFFINITY", "false"),
     ("FLEET_MIGRATION_BUDGET", "1"), ("FLEET_REJOIN_SECS", "5"),
     ("ROLLOUT_CANARY_SHARE", "0.5"), ("ROLLOUT_OBSERVE_SECS", "5"),
     ("ROLLOUT_BURN_GATE", "3"), ("ROLLOUT_STEPTIME_GATE", "2"),
-    ("DEBUG_TOKEN", "dbg"), ("LOG_FORMAT", "json"),
     ("OPENAI_API_KEY", "sk-x"), ("OPENAI_MODEL", "gpt-4"),
     ("OPENAI_BASE_URL", "http://localhost:1"),
     ("MESH_SHAPE", "data:1,model:8"), ("DCN_MESH_SHAPE", "data:2"),
@@ -289,6 +280,84 @@ def test_config_reads_the_qos_knobs_as_the_jax_package(monkeypatch, knob,
     assert getattr(ours, field) == want == getattr(theirs, field)
     assert ours.tenant_tier_map == theirs.tenant_tier_map
     assert ours.lane_weight_map == theirs.lane_weight_map
+
+
+#: the telemetry knobs the port reads (no longer refused), each with a
+#: value that asks for something other than the default, and its field
+TELEMETRY_KNOBS = [
+    ("LEDGER_ENABLE", "false", "ledger_enable"),
+    ("SLO_TTFT_MS", "800", "slo_ttft_ms"),
+    ("SLO_SESSION_TTFT_MS", "900", "slo_session_ttft_ms"),
+    ("SLO_WINDOWS", "60,600", "slo_windows"),
+    ("SLO_OBJECTIVE", "0.9", "slo_objective"),
+    ("PERF_BASELINES", "BASELINES", "perf_baselines"),
+    ("SENTINEL_ENABLE", "false", "sentinel_enable"),
+    ("SENTINEL_WINDOW", "64", "sentinel_window"),
+    ("SENTINEL_FACTOR", "3", "sentinel_factor"),
+    ("SENTINEL_MIN_SAMPLES", "4", "sentinel_min_samples"),
+    ("SENTINEL_EVAL_SECS", "1", "sentinel_eval_secs"),
+    ("INCIDENT_RING", "4", "incident_ring"),
+    ("INCIDENT_COOLDOWN_SECS", "5", "incident_cooldown_secs"),
+    ("INCIDENT_BURN_THRESHOLD", "5", "incident_burn_threshold"),
+    ("INCIDENT_PROFILE_SECS", "2", "incident_profile_secs"),
+    ("INCIDENT_THRASH_MIN_BLOCKS", "2", "incident_thrash_min_blocks"),
+    ("DEBUG_TOKEN", "dbg", "debug_token"),
+    ("LOG_FORMAT", "JSON", "log_format"),
+]
+
+
+def _baselines_file(tmp_path) -> str:
+    path = tmp_path / "baselines.json"
+    path.write_text('{"step_time_ms": {"decode": {"default": 25}}}')
+    return str(path)
+
+
+@pytest.mark.parametrize("knob,value,field", TELEMETRY_KNOBS)
+def test_config_reads_the_telemetry_knobs_as_the_jax_package(
+        monkeypatch, tmp_path, knob, value, field):
+    """Each telemetry knob is read (no longer refused) into the field the
+    JAX from_env fills, with the JAX default when unset."""
+    assert knob not in UNSERVED_KNOBS
+    assert getattr(ServiceConfig.from_env(), field) == \
+        getattr(JaxServiceConfig.from_env(), field)
+    if value == "BASELINES":
+        value = _baselines_file(tmp_path)
+    monkeypatch.setenv(knob, value)
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert getattr(ours, field) == getattr(theirs, field)
+    assert getattr(ours, field) != getattr(ServiceConfig(), field)
+
+
+#: values the JAX validation refuses, with the message it raises
+BAD_TELEMETRY = [
+    ("SLO_WINDOWS", "600,60", "strictly ascending"),
+    ("SLO_WINDOWS", "1,2,3,4,5", "at most 4 windows"),
+    ("SLO_OBJECTIVE", "1.0", "SLO_OBJECTIVE must be in"),
+    ("SLO_TTFT_MS", "-1", "SLO_TTFT_MS must be >= 0"),
+    ("SLO_SESSION_TTFT_MS", "-5", "SLO_SESSION_TTFT_MS must be >= 0"),
+    ("SENTINEL_WINDOW", "4", "SENTINEL_WINDOW must be >= 8"),
+    ("SENTINEL_FACTOR", "0.5", "SENTINEL_FACTOR must be >= 1"),
+    ("SENTINEL_MIN_SAMPLES", "0", "SENTINEL_MIN_SAMPLES must be >= 1"),
+    ("SENTINEL_EVAL_SECS", "-1", "SENTINEL_EVAL_SECS must be >= 0"),
+    ("INCIDENT_RING", "0", "INCIDENT_RING must be >= 1"),
+    ("INCIDENT_COOLDOWN_SECS", "-1", "INCIDENT_COOLDOWN_SECS must be"),
+    ("INCIDENT_BURN_THRESHOLD", "-2", "INCIDENT_BURN_THRESHOLD must be"),
+    ("INCIDENT_PROFILE_SECS", "31", "INCIDENT_PROFILE_SECS must be in"),
+    ("INCIDENT_THRASH_MIN_BLOCKS", "-1", "INCIDENT_THRASH_MIN_BLOCKS"),
+    ("PERF_BASELINES", "/nonexistent/b.json", "failed to load"),
+]
+
+
+@pytest.mark.parametrize("knob,value,message", BAD_TELEMETRY)
+def test_bad_telemetry_knobs_raise_the_jax_errors(monkeypatch, knob, value,
+                                                  message):
+    monkeypatch.setenv(knob, value)
+    errors = []
+    for cls in (ServiceConfig, JaxServiceConfig):
+        with pytest.raises(ValueError, match=message) as exc:
+            cls.from_env()
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
 
 
 @pytest.mark.parametrize("value", ["int8", "INT8", ""])
