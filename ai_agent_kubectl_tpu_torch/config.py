@@ -7,8 +7,9 @@ is set to ``cpu``. Every other knob of the JAX package names a feature
 the port does not serve yet: it is listed in ``UNSERVED_KNOBS`` and
 refused at boot when set to anything but the value the port serves, so
 a deployment never silently gets less than it asked for. ``ENGINE``
-takes the port's engines only (``torch``, ``torch-batched``); the JAX
-package's ``openai`` and ``fake`` engines are refused by name.
+takes the port's engines (``torch``, ``torch-batched``) and the remote
+``openai`` engine; the JAX package's ``fake`` and ``jax`` engines are
+refused by name.
 ``COMPILE_CACHE_DIR`` has no counterpart: nothing compiles in eager
 PyTorch, so the knob is not read.
 
@@ -17,7 +18,13 @@ the SLO burn rates (``SLO_*``), the step-time sentinel
 (``SENTINEL_*``, ``PERF_BASELINES``), incident capture
 (``INCIDENT_*``), the ``/debug/*`` token (``DEBUG_TOKEN``) and JSON
 logs (``LOG_FORMAT``), all with the JAX defaults (the ledger and the
-sentinel on).
+sentinel on). So is containment: the scheduler watchdog
+(``ENGINE_WATCHDOG_SECS``, ``ENGINE_STARTUP_GRACE_SECS``), the
+per-request replay budget (``QUARANTINE_RETRY_BUDGET``), the reset rate
+limit (``ENGINE_RESET_MAX_PER_MIN``) and the fault drills
+(``FAULT_POINTS``, parsed by ``server/factory.py``), and the remote
+engine's ``OPENAI_API_KEY``, ``OPENAI_MODEL`` and ``OPENAI_BASE_URL``,
+all with the JAX defaults.
 """
 
 from __future__ import annotations
@@ -45,19 +52,12 @@ UNSERVED_KNOBS = {
     "GRAMMAR_FORCED_RUN_MIN": "4", "HOST_KV_BLOCKS": "0",
     "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
     "ADMIT_SCRATCH_MB": "512",
-    # containment: watchdog, reset-and-replay, fault injection (A7)
-    "ENGINE_WATCHDOG_SECS": "120", "ENGINE_STARTUP_GRACE_SECS": "900",
-    "QUARANTINE_RETRY_BUDGET": "1", "ENGINE_RESET_MAX_PER_MIN": "12",
-    "FAULT_POINTS": "",
     # fleet and weight rollout (A7; ROLLOUT_STEPTIME_GATE is the
     # rollout gate's step-time verdict, and /admin/rollout waits with it)
     "FLEET_SIZE": "1", "FLEET_HEDGE_MS": "0", "FLEET_AFFINITY": "true",
     "FLEET_MIGRATION_BUDGET": "3", "FLEET_REJOIN_SECS": "0",
     "ROLLOUT_CANARY_SHARE": "0.1", "ROLLOUT_OBSERVE_SECS": "60",
     "ROLLOUT_BURN_GATE": "2", "ROLLOUT_STEPTIME_GATE": "0",
-    # the OpenAI-compatible remote engine (A9)
-    "OPENAI_API_KEY": "", "OPENAI_MODEL": "gpt-3.5-turbo",
-    "OPENAI_BASE_URL": "",
     # more than one card or host (A8)
     "MESH_SHAPE": "", "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
     "COORDINATOR_ADDRESS": "", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
@@ -65,8 +65,7 @@ UNSERVED_KNOBS = {
 
 #: The JAX package's engines that the port does not serve, and why.
 UNSERVED_ENGINES = {
-    "openai": "the OpenAI-compatible remote engine (ROADMAP.md A9)",
-    "fake": "the rule-table test engine (ROADMAP.md A9)",
+    "fake": "the rule-table test engine (ROADMAP.md A9b)",
     "jax": "the JAX package's engine: the port serves ENGINE=torch",
     "jax-batched": "the JAX package's engine: the port serves "
                    "ENGINE=torch-batched",
@@ -154,8 +153,9 @@ class ServiceConfig:
     # fronting router tier); off, the peer address keys it.
     trust_proxy_headers: bool = False       # TRUST_PROXY_HEADERS
 
-    # ENGINE: torch | torch-batched. "torch" serves through the
-    # continuous-batching scheduler when DECODE_BATCH_SIZE > 1.
+    # ENGINE: torch | torch-batched | openai. "torch" serves through the
+    # continuous-batching scheduler when DECODE_BATCH_SIZE > 1; "openai"
+    # calls an OpenAI-compatible ChatCompletions endpoint.
     engine: str = "torch"
     torch_device: str = "cuda"              # TORCH_DEVICE: cuda | cpu
     model_name: str = "toy-8m"              # MODEL_NAME (registry key)
@@ -211,6 +211,31 @@ class ServiceConfig:
     breaker_window_secs: float = 30.0       # BREAKER_WINDOW_SECS
     breaker_recovery_secs: float = 15.0     # BREAKER_RECOVERY_SECS
     slot_health_check: bool = True          # SLOT_HEALTH_CHECK
+    # Blast-radius containment (engine/containment.py): how many times
+    # one request may be solo-implicated in a poisoned step (health bit,
+    # or isolated by bisection) and still be replayed; past it HTTP 410.
+    # 0 = quarantine on the first trip.
+    quarantine_retry_budget: int = 1        # QUARANTINE_RETRY_BUDGET
+    # Engine resets per rolling minute; past it the engine fails the
+    # affected requests fast and their errors feed the breaker
+    # (0 = unlimited).
+    engine_reset_max_per_min: int = 12      # ENGINE_RESET_MAX_PER_MIN
+    # Scheduler watchdog: no scheduler progress for this long with work
+    # in flight marks the engine degraded and fails every waiting
+    # request (0 disables). Until the first chunk is consumed, and while
+    # an admission runs, the limit widens to the startup grace.
+    engine_watchdog_secs: float = 120.0     # ENGINE_WATCHDOG_SECS
+    engine_startup_grace_secs: float = 900.0  # ENGINE_STARTUP_GRACE_SECS
+    # Fault drills (testing/faults.py): "decode:nan:<p>",
+    # "decode:poison_step", "scheduler:die", "chunk:hang",
+    # "admit:error:<p>", "tenant:flood:<n>", "generate:<mode>". Empty
+    # disables.
+    fault_points: str = ""                  # FAULT_POINTS
+    # The remote engine (ENGINE=openai): the key, the model and the
+    # endpoint (unset = https://api.openai.com/v1).
+    openai_api_key: Optional[str] = None    # OPENAI_API_KEY
+    openai_model: str = "gpt-3.5-turbo"     # OPENAI_MODEL
+    openai_base_url: Optional[str] = None   # OPENAI_BASE_URL
 
     # QoS ring (engine/qos.py), as in the JAX package. TENANT_TIERS maps
     # a tenant key (a registered API key, else the client IP) to the
@@ -283,9 +308,9 @@ class ServiceConfig:
             raise ValueError(
                 f"ENGINE={self.engine} ({UNSERVED_ENGINES[self.engine]}) "
                 f"is not served by the PyTorch port")
-        if self.engine not in ("torch", "torch-batched"):
-            raise ValueError(f"ENGINE must be torch|torch-batched, got "
-                             f"{self.engine!r}")
+        if self.engine not in ("torch", "torch-batched", "openai"):
+            raise ValueError(f"ENGINE must be torch|torch-batched|openai, "
+                             f"got {self.engine!r}")
         if self.torch_device not in ("cuda", "cpu"):
             raise ValueError(f"TORCH_DEVICE must be cuda|cpu, got "
                              f"{self.torch_device!r}")
@@ -397,7 +422,7 @@ class ServiceConfig:
         """Loggable, secret-free view of the config (the incident
         bundles' config fingerprint hashes it)."""
         d = {f.name: getattr(self, f.name) for f in fields(self) if f.init}
-        for secret in ("api_auth_key", "debug_token"):
+        for secret in ("api_auth_key", "openai_api_key", "debug_token"):
             if d.get(secret):
                 d[secret] = "***"
         if d.get("tenant_tiers"):
@@ -492,6 +517,16 @@ class ServiceConfig:
             breaker_window_secs=_env_float("BREAKER_WINDOW_SECS", 30.0),
             breaker_recovery_secs=_env_float("BREAKER_RECOVERY_SECS", 15.0),
             slot_health_check=_env_bool("SLOT_HEALTH_CHECK", True),
+            quarantine_retry_budget=_env_int("QUARANTINE_RETRY_BUDGET", 1),
+            engine_reset_max_per_min=_env_int("ENGINE_RESET_MAX_PER_MIN",
+                                              12),
+            engine_watchdog_secs=_env_float("ENGINE_WATCHDOG_SECS", 120.0),
+            engine_startup_grace_secs=_env_float(
+                "ENGINE_STARTUP_GRACE_SECS", 900.0),
+            fault_points=_env_str("FAULT_POINTS", "") or "",
+            openai_api_key=_env_str("OPENAI_API_KEY", None),
+            openai_model=_env_str("OPENAI_MODEL", "gpt-3.5-turbo"),
+            openai_base_url=_env_str("OPENAI_BASE_URL", None),
             tenant_tiers=_env_str("TENANT_TIERS", "") or "",
             qos_default_lane=(
                 _env_str("QOS_DEFAULT_LANE", "interactive")

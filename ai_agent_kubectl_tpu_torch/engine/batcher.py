@@ -87,17 +87,36 @@ entry of the in-flight list. In every regime:
   chunk cycle); the chunk-event ring ``_chunk_log`` behind
   ``/debug/chunks``; and ``profile``, which runs a ``torch.profiler``
   capture on the scheduler thread (``obs/profiler.py``).
+- **Blast-radius containment** (``engine/containment.py``, the JAX
+  engine's inner ring): a tripped health word names its slot, a
+  scheduler exception poisons the step. Either way the decode state is
+  reset (the old pool or cache dropped before the new one is
+  allocated) and every survivor replays from prompt + generated ids
+  through ``_replay_slot`` under its seed; a request implicated past
+  ``QUARANTINE_RETRY_BUDGET`` ends with ``RequestQuarantined`` (410),
+  and a fault naming no slot is bisected (half the suspects replay,
+  half are parked) until the culprit runs alone. Resets are
+  rate-limited (``ENGINE_RESET_MAX_PER_MIN``; past it every active
+  request fails fast and the breaker opens). A supervisor thread
+  restarts a scheduler thread that died, and a watchdog thread fails
+  every waiting request when the scheduler stops making progress.
+  ``testing/faults.py`` reaches the engine at the JAX engine's seams:
+  ``admit``, ``chunk``, ``decode:nan`` (a fixed-shape ``[N]`` bool
+  device input of ``_run_chunk`` that NaN-fills the target's logits, so
+  the real health detection catches it), ``decode:poison_step`` at the
+  chunk fetch, ``scheduler:die`` and ``tenant:flood``.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
-The scheduler runs on one worker thread; request coroutines talk to it
-through the QoS admission queue and per-request asyncio queues.
+The scheduler runs on one worker thread (restarted by the supervisor
+after a death); request coroutines talk to it through the QoS admission
+queue and per-request asyncio queues. A sticky CUDA error (an illegal
+address) cannot be contained: every later call fails, the resets spend
+their budget, and fail-fast and the breaker take over.
 
 Not in this slice (each raises or is simply absent; ROADMAP lists them):
 speculative decoding, grammar-constrained decoding, group admission
-(``ADMIT_KPADS``) on the dense ladder, containment replay (a slot whose
-health word trips finishes with ``RequestQuarantined``; the replay path
-it would use is ``_replay_slot``), the host KV tier, and a chunk
+(``ADMIT_KPADS``) on the dense ladder, the host KV tier, and a chunk
 pipeline deeper than one (the host fetches each chunk before it
 dispatches the next).
 """
@@ -112,6 +131,7 @@ import logging
 import queue as _queue
 import threading
 import time
+import traceback
 import zlib
 from typing import List, Optional
 
@@ -130,6 +150,9 @@ from ..obs.profiler import ProfilerSession, scope
 from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
 from ..ops.quant import kv_map
+from .containment import (CAUSE_SCHEDULER_DEATH, CAUSE_SCHEDULER_ERROR,
+                          CAUSE_SLOT_HEALTH, PROBATION_CLEAN_CHUNKS,
+                          REASON_HEALTH, REASON_ISOLATED, EngineSupervisor)
 from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
 from .protocol import (HEALTH_NONFINITE, HEALTH_TOKEN_RANGE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
@@ -245,6 +268,14 @@ class _Request:
     ledger_delivered: int = 0
     t_first0: Optional[float] = None
     radix_warm: bool = False
+    # Containment: the raw prompt text (decode-fault targeting matches
+    # it), how often this request was solo-implicated in a poisoned step
+    # (it survives resets and parking; past QUARANTINE_RETRY_BUDGET it
+    # is quarantined), and whether it stands in the suspect pool a
+    # step-wide fault is being bisected over.
+    prompt: str = ""
+    suspect_count: int = 0
+    suspect: bool = False
 
 
 @dataclasses.dataclass
@@ -306,6 +337,11 @@ class BatchedTorchEngine(TorchEngine):
                  sentinel_factor: float = 2.0,
                  sentinel_min_samples: int = 16,
                  perf_baselines=None,
+                 quarantine_retry_budget: int = 1,
+                 reset_max_per_min: int = 12,
+                 watchdog_secs: float = 120.0,
+                 startup_grace_secs: float = 900.0,
+                 faults=None,
                  **kwargs):
         super().__init__(*args, **kwargs)
         if batch_size < 1:
@@ -407,9 +443,40 @@ class BatchedTorchEngine(TorchEngine):
         # prices a shed's Retry-After (retry_after_hint).
         self._finish_times: collections.deque = collections.deque(maxlen=64)
         self._lane_finish: dict = {}
+        # Containment: the fault injector (None in normal serving), the
+        # supervisor (policy and counters; the mechanism is
+        # _contain_poisoned_step, _reset_decode_state and _replay_slot),
+        # the slots parked out of the batch while a bisection probe
+        # replays, and the clean chunks the probe consumed so far.
+        self.faults = faults
+        self.supervisor = EngineSupervisor(
+            retry_budget=quarantine_retry_budget,
+            max_resets_per_min=reset_max_per_min)
+        self._parked: List[_Slot] = []
+        self._probation_clean = 0
+        # The watchdog: no scheduler progress for watchdog_secs with work
+        # in flight fails every waiting request (0 disables it); until
+        # the first pipeline entry is consumed, and while an admission
+        # runs, the limit widens to startup_grace_secs (the kernels build
+        # and load on first use).
+        self.watchdog_secs = max(0.0, watchdog_secs)
+        self.startup_grace_secs = max(0.0, startup_grace_secs)
+        self._last_progress = time.monotonic()
+        self._first_consumed = False
+        self._stopping = False      # stop() draining: never re-mark ready
+        self._warming = False       # start()'s warm-up generate runs
+        # Each start() is an epoch: the supervisor and watchdog threads
+        # of an earlier one end even when a restart follows the stop
+        # within their poll period.
+        self._epoch = 0
         self._worker: Optional[threading.Thread] = None
+        self._guards: List[threading.Thread] = []   # supervisor, watchdog
         self._running = False
         self._admitting = 0
+        # Requests popped off the queue but not yet slotted or errored:
+        # if the scheduler thread dies mid-admission, only this list lets
+        # the supervisor requeue them.
+        self._admitting_reqs: List[_Request] = []
         self._last_admit_t = 0.0
         self._ramp_hold_t0 = None
         #: forward passes run through ``_forward`` (pool prefill chunks,
@@ -423,7 +490,9 @@ class BatchedTorchEngine(TorchEngine):
         self._attention_regime = ""
 
     @classmethod
-    def from_config(cls, cfg) -> "BatchedTorchEngine":
+    def from_config(cls, cfg, faults=None) -> "BatchedTorchEngine":
+        """``faults``: the factory's one shared injector (None: no
+        drill)."""
         return cls(
             get_config(cfg.model_name),
             batch_size=cfg.decode_batch_size,
@@ -454,13 +523,27 @@ class BatchedTorchEngine(TorchEngine):
             sentinel_factor=cfg.sentinel_factor,
             sentinel_min_samples=cfg.sentinel_min_samples,
             perf_baselines=cfg.perf_baselines or None,
+            quarantine_retry_budget=cfg.quarantine_retry_budget,
+            reset_max_per_min=cfg.engine_reset_max_per_min,
+            watchdog_secs=cfg.engine_watchdog_secs,
+            startup_grace_secs=cfg.engine_startup_grace_secs,
+            faults=faults,
             **engine_kwargs(cfg),
         )
 
     # ------------------------------------------------------------ startup
 
+    async def start(self) -> None:
+        self._warming = True
+        try:
+            await super().start()
+        finally:
+            self._warming = False
+
     def _start_blocking(self) -> None:
         t0 = time.monotonic()
+        self._stopping = False
+        self._first_consumed = False    # re-arm the cold-start grace
         self._load()
         cfg = self.model_cfg
         self._resolve_regime()
@@ -471,9 +554,20 @@ class BatchedTorchEngine(TorchEngine):
         self._init_decode_state()
         self._pool_preload_system_prompt()
         self._running = True
-        self._worker = threading.Thread(target=self._worker_loop,
+        self._worker = threading.Thread(target=self._worker_main,
                                         name="torch-batcher", daemon=True)
         self._worker.start()
+        # The scheduler-death supervisor, and the hang watchdog.
+        self._epoch += 1
+        self._guards = [threading.Thread(
+            target=self._supervise_scheduler, args=(self._epoch,),
+            name="torch-batcher-supervisor", daemon=True)]
+        if self.watchdog_secs > 0:
+            self._guards.append(threading.Thread(
+                target=self._watchdog_loop, args=(self._epoch,),
+                name="torch-batcher-watchdog", daemon=True))
+        for t in self._guards:
+            t.start()
         logger.info("BatchedTorchEngine ready on %s in %.1fs: %d slots, "
                     "%s regime (decode %s), %s, chunk %d", self.device,
                     time.monotonic() - t0, self.batch_size,
@@ -563,10 +657,16 @@ class BatchedTorchEngine(TorchEngine):
     def _init_decode_state(self) -> None:
         """(Re-)initialize the device-resident scheduler state: the zeroed
         KV pool, the host allocator, radix tree and tables (or the zeroed
-        dense cache), and the per-slot carry vectors. Called at start and
-        after a scheduler failure (which condemns every cached block)."""
+        dense cache), the per-slot carry vectors and the all-False
+        ``decode:nan`` mask. Called at start and by the containment reset
+        (which condemns every cached block): the old device buffers are
+        dropped before the new ones are allocated, so a reset's peak is
+        steady state, not steady state plus a second pool."""
         N = self.batch_size
         dev = self.device
+        self._cache = None
+        self._tok_d = self._pos_d = self._active_d = None
+        self._ngen_d = self._budget_d = self._seeds_d = self._temps_d = None
         if self.kv_pool:
             self._cache = KVCache.pool(self.model_cfg, self._pool_n_blocks,
                                        self.kv_pool_page, dtype=self.dtype,
@@ -597,6 +697,9 @@ class BatchedTorchEngine(TorchEngine):
         self._seeds_d = torch.zeros((N,), dtype=torch.int64, device=dev)
         self._temps_d = torch.zeros((N,), dtype=torch.float32, device=dev)
         self._temps = [0.0] * N
+        # The decode:nan seam's input when no drill is armed: a fixed
+        # [N] bool tensor, so the chunk keeps one input set.
+        self._no_corrupt_d = torch.zeros((N,), dtype=torch.bool, device=dev)
 
     # ------------------------------------------------ block-paged KV pool
 
@@ -936,7 +1039,8 @@ class BatchedTorchEngine(TorchEngine):
     def _run_chunk(self, force: torch.Tensor,
                    tables: Optional[torch.Tensor],
                    adm: Optional[tuple] = None,
-                   kv_limit: Optional[int] = None) -> torch.Tensor:
+                   kv_limit: Optional[int] = None,
+                   corrupt: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode chunk: ``chunk_len`` forward steps over every slot
         with the termination fold in the carry, attending through the
         resolved decode impl (over ``kv_limit`` positions where it reads
@@ -944,8 +1048,15 @@ class BatchedTorchEngine(TorchEngine):
         admissions are staged (``adm`` = (tok [N, W], len, start) device
         tensors; ``_run_arm`` already armed the staged slots' budget,
         count and live flag). ``tables`` is None on the dense cache.
-        Updates the device carry and returns the packed buffer."""
+        ``corrupt`` ([N] bool, the ``decode:nan`` seam; None: the cached
+        all-False mask) NaN-fills its rows' logits on every step before
+        the fold, as the JAX chunk body does, so the device's own health
+        check is what catches them. Updates the device carry and returns
+        the packed buffer."""
         cfg = self.model_cfg
+        if corrupt is None:
+            corrupt = self._no_corrupt_d
+        bad_rows = corrupt[:, None]
         tok, pos, ngen, budget = (self._tok_d, self._pos_d, self._ngen_d,
                                   self._budget_d)
         live = self._active_d & force
@@ -971,7 +1082,7 @@ class BatchedTorchEngine(TorchEngine):
                 attn_impl="ragged", q_lens=q_lens,
                 write_mask=(cols[None, :] < q_len[:, None]) & live[:, None],
                 logits_at=(q_lens.clamp(min=1) - 1).long())
-            step_logits = logits[:, 0]
+            step_logits = logits[:, 0].masked_fill(bad_rows, float("nan"))
             nxt, live, ngen, health, counted = termination_fold(
                 self._sample(step_logits, ngen, live), step_logits,
                 win_tok[:, 0], live, ngen, budget, health, self._eos_d,
@@ -985,7 +1096,7 @@ class BatchedTorchEngine(TorchEngine):
                                    attn_impl=self._decode_impl,
                                    kv_limit=kv_limit, write_mask=live)
             self.decode_steps += 1
-            step_logits = logits[:, 0]
+            step_logits = logits[:, 0].masked_fill(bad_rows, float("nan"))
             nxt, live, ngen, health, counted = termination_fold(
                 self._sample(step_logits, ngen, live), step_logits,
                 tok[:, 0], live, ngen, budget, health, self._eos_d,
@@ -1004,6 +1115,10 @@ class BatchedTorchEngine(TorchEngine):
         """Dispatch one chunk for every live slot, carrying every staged
         admission in its ragged prologue. The admission width is the
         smallest prefill bucket covering the longest staged suffix."""
+        if self.faults is not None:
+            # A chunk:hang blocks this (scheduler) thread exactly like a
+            # hung device dispatch: the watchdog's target.
+            self.faults.check("chunk")
         staged = {i: e for i, e in self._pending_adm.items()
                   if self._slots[i] is not None
                   and not self._slots[i].exhausted}
@@ -1061,7 +1176,19 @@ class BatchedTorchEngine(TorchEngine):
             [s is not None and not s.exhausted for s in self._slots],
             dtype=torch.bool, device=self.device)
         tables = self._tables_d(self._tables) if self.kv_pool else None
-        packed = self._run_chunk(force, tables, adm, kv_limit=kv_limit)
+        # The decode:nan seam: the cached all-False mask, or a drill's
+        # mask naming the target slots.
+        corrupt = self._no_corrupt_d
+        if self.faults is not None:
+            hits = self.faults.decode_nan_slots([
+                s.req.prompt if s is not None and not s.exhausted else None
+                for s in self._slots])
+            if hits:
+                mask = np.zeros((self.batch_size,), bool)
+                mask[hits] = True
+                corrupt = torch.from_numpy(mask).to(self.device)
+        packed = self._run_chunk(force, tables, adm, kv_limit=kv_limit,
+                                 corrupt=corrupt)
         snapshot = [s.req if s is not None and not s.exhausted else None
                     for s in self._slots]
         for s in active_slots:
@@ -1079,13 +1206,22 @@ class BatchedTorchEngine(TorchEngine):
     def _consume_oldest(self) -> None:
         """Fetch the oldest in-flight entry: an eager admission's first
         token, or a chunk's packed buffer (THE one device->host read per
-        chunk), and deliver each slot's tokens and finish."""
+        chunk), and deliver each slot's tokens and finish. A tripped
+        health bit runs the containment pass instead, and nothing of the
+        chunk reaches a client."""
+        self._last_progress = time.monotonic()
+        self._first_consumed = True     # the cold-start grace ends
         entry = self._inflight.pop(0)
         if entry[0] == "first":
             _, first_d, req, slot_idx = entry
             self._consume_first(int(first_d.cpu()[0]), req, slot_idx)
             return
         _, packed, snapshot, ct = entry
+        if self.faults is not None:
+            # decode:poison_step: a step-wide fault raised at the fetch,
+            # naming no slot; the scheduler's except bisects for it.
+            self.faults.poison_fetch(
+                [r.prompt if r is not None else None for r in snapshot])
         t_fetch = time.monotonic()
         res = unpack_chunk(packed.cpu().numpy(), self.batch_size, ct)
         fetch_s = time.monotonic() - t_fetch
@@ -1098,31 +1234,33 @@ class BatchedTorchEngine(TorchEngine):
             "fetch_ms": round(fetch_s * 1000.0, 3),
             "pipe": sum(1 for e in self._inflight if e[0] == "chunk"),
         })
+        # A tripped health bit names its culprit. Nothing of a poisoned
+        # chunk is emitted, the clean rows included: the replay
+        # regenerates them exactly (seeded sampling), and no corrupt
+        # token ever reaches a client.
+        tripped = [i for i in range(self.batch_size)
+                   if int(res.health[i]) and snapshot[i] is not None
+                   and self._slots[i] is not None
+                   and self._slots[i].req is snapshot[i]]
+        if tripped:
+            self.supervisor.note_health_trips(len(tripped))
+            for i in tripped:
+                why = describe_health(int(res.health[i]))
+                self._chunk_log.append({"t": time.time(),
+                                        "event": "health_trip", "slot": i,
+                                        "health": why})
+                if self._slots[i].req.trace is not None:
+                    self._slots[i].req.trace.event(
+                        f"engine: slot {i} health tripped ({why})")
+            self._contain_poisoned_step(
+                CAUSE_SLOT_HEALTH, named=[self._slots[i] for i in tripped])
+            return
         eos_ids = self.model_cfg.eos_ids
         for i, slot in enumerate(self._slots):
             if slot is None or slot.req is not snapshot[i]:
                 continue   # freed or reassigned since the dispatch
             slot.chunks_inflight -= 1
             slot.decode_chunks_inflight -= 1
-            if int(res.health[i]):
-                # A tripped health bit froze the slot inside the chunk
-                # before its bad token counted. Replaying it (the JAX
-                # containment pass) waits for a later slice: the request
-                # ends here, terminally, and everything it generated is
-                # discarded — quarantine_burn, as the JAX containment
-                # pass bills a terminal quarantine (never delivered).
-                why = describe_health(int(res.health[i]))
-                self._chunk_log.append({"t": time.time(),
-                                        "event": "health_trip", "slot": i,
-                                        "health": why})
-                burn = len(slot.detok.ids) - slot.req.ledger_delivered
-                slot.req.ledger_delivered = len(slot.detok.ids)
-                self.ledger.record(CLASS_QUARANTINE_BURN, burn,
-                                   lane=slot.req.lane,
-                                   tenant=slot.req.tenant)
-                self._finish(i, "error", error=RequestQuarantined(
-                    f"decode step failed health check ({why})"))
-                continue
             new_ids, finish = consume_chunk_row(
                 res.tokens[i], bool(res.done[i]), int(res.lengths[i]),
                 len(slot.detok.ids), ct, eos_ids)
@@ -1137,6 +1275,32 @@ class BatchedTorchEngine(TorchEngine):
                     self._emit(slot.req, "token", piece)
             if finish is not None:
                 self._finish(i, finish)
+        self._probation_tick(snapshot)
+
+    def _probation_tick(self, snapshot: list) -> None:
+        """Bisection probation after a clean chunk (the JAX consume
+        path's tail). A chunk whose snapshot held a flagged suspect is
+        evidence: after PROBATION_CLEAN_CHUNKS of them suspicion is
+        cleared and the parked half replays now, instead of stalling
+        admissions until the probe drains. A chunk dispatched before an
+        unpark holds only cleared slots and proves nothing. When every
+        probe suspect finished and none rides the pipe, the parked half
+        inherits the suspicion and replays."""
+        if any(r is not None and r.suspect for r in snapshot):
+            self._probation_clean += 1
+            if self._probation_clean >= PROBATION_CLEAN_CHUNKS:
+                self._probation_clean = 0
+                for s in self._slots:
+                    if s is not None:
+                        s.req.suspect = False
+                if self._parked:
+                    self._unpark_parked()
+        elif self._parked and not any(
+                s is not None and s.req.suspect for s in self._slots
+        ) and not any(
+                r is not None and r.suspect
+                for e in self._inflight if e[0] == "chunk" for r in e[2]):
+            self._unpark_parked()
 
     def _consume_first(self, first_tok: int, req: _Request,
                        slot_idx: int) -> None:
@@ -1254,7 +1418,12 @@ class BatchedTorchEngine(TorchEngine):
         """Admit queued requests into the free slots, in the QoS queue's
         order. Lanes at their brownout-trimmed slot cap stay queued;
         right after a preemption the first pop is pinned to the starved
-        lane, so the freed slot goes to the waiter it was freed for."""
+        lane, so the freed slot goes to the waiter it was freed for.
+        While a bisection has slots parked nothing is admitted: a new
+        request joining a suspect batch would muddy the culprit's
+        attribution (queued requests wait, never dropped)."""
+        if self._parked:
+            return
         free = sum(s is None for s in self._slots)
         counts = self.lane_occupancy()
         prefer, self._preempt_for_lane = self._preempt_for_lane, None
@@ -1277,7 +1446,10 @@ class BatchedTorchEngine(TorchEngine):
     def _admit_popped(self, pending: List[_Request]) -> None:
         """Admit popped requests one by one. A preempted request gets its
         paused wall time back on its deadline before anything judges it;
-        a failing admission errors THAT request, never the scheduler."""
+        a failing admission errors THAT request, never the scheduler.
+        Each stays in ``_admitting_reqs`` until it is slotted or errored,
+        so a scheduler death mid-admission cannot lose it."""
+        self._admitting_reqs.extend(pending)
         for req in pending:
             self._credit_preempt_wait(req)
         for req in pending:
@@ -1285,7 +1457,12 @@ class BatchedTorchEngine(TorchEngine):
 
     def _admit_guarded(self, req: _Request) -> None:
         self._admitting += 1
+        # An admission ticks the watchdog: a cold one can block this
+        # thread for a while and must not read as a hung device.
+        self._last_progress = time.monotonic()
         try:
+            if self.faults is not None:
+                self.faults.check("admit")
             if req.cancel.is_set():
                 return
             if (req.deadline is not None
@@ -1302,6 +1479,12 @@ class BatchedTorchEngine(TorchEngine):
             self._emit(req, "error", EngineUnavailable("admission failed"))
         finally:
             self._admitting -= 1
+        # Settled (slotted or errored). A BaseException skips this on
+        # purpose: the record is what lets the supervisor requeue it.
+        try:
+            self._admitting_reqs.remove(req)
+        except ValueError:  # pragma: no cover - defensive
+            pass
 
     def _admit_fresh(self, req: _Request) -> None:
         if self.kv_pool:
@@ -1363,8 +1546,9 @@ class BatchedTorchEngine(TorchEngine):
         queue; _admit_pending hands the freed slot to the starved lane.
         A request past PREEMPT_BUDGET preemptions is never picked again.
         Runs only with no chunk in flight, so the victim leaves with
-        every token it was dispatched for delivered."""
-        if self.preempt_wait_ms <= 0:
+        every token it was dispatched for delivered, and never while a
+        bisection has slots parked."""
+        if self.preempt_wait_ms <= 0 or self._parked:
             return False
         if any(s is None for s in self._slots):
             return False
@@ -1526,6 +1710,7 @@ class BatchedTorchEngine(TorchEngine):
         slot.decode_chunks_inflight = 0
         slot.exhausted = n_total >= self.max_seq_len
         self._slots[slot_idx] = slot
+        self.supervisor.note_replay(g)
         # The ledger: the g generated tokens are re-derived by the replay,
         # device work that produces no new client byte — preempted for a
         # QoS resume, replayed for any other cause.
@@ -1589,8 +1774,8 @@ class BatchedTorchEngine(TorchEngine):
         engine's keys: occupancy, queue depth and KV pages; the decode
         pipeline (its depth is one), the wasted steps and chunk counts,
         and the fetch-latency samples since the last call (drained);
-        the QoS section, the ledger's lane table, the SLO burn rates and
-        the step-time digests."""
+        the QoS section, the ledger's lane table, the SLO burn rates, the
+        step-time digests and the containment totals."""
         slots = list(self._slots)
         if self._pool is not None:
             used = self._pool.n_blocks - self._pool.free_count
@@ -1634,6 +1819,11 @@ class BatchedTorchEngine(TorchEngine):
             "ledger": self.ledger.snapshot(),
             "slo": self._slo.snapshot(),
             "steptime": self._steptime.snapshot(),
+            # Containment totals (resets by cause, quarantines by reason,
+            # health trips, replayed tokens), mirrored into /metrics.
+            "containment": dict(self.supervisor.stats(),
+                                parked=len(self._parked),
+                                slot_health_check=self.slot_health_check),
         }
 
     #: finish times older than this do not feed the drain rate: after an
@@ -1704,6 +1894,19 @@ class BatchedTorchEngine(TorchEngine):
     def _worker_loop(self) -> None:
         while self._running:
             try:
+                if self.faults is not None:
+                    # scheduler:die raises a BaseException the except
+                    # below cannot catch: this thread really dies, and
+                    # the supervisor's restart is what recovers.
+                    self.faults.check_scheduler_die()
+                self._last_progress = time.monotonic()
+                # Bisection probation ends when the probe group drains
+                # (no slot, nothing in flight), or earlier after
+                # PROBATION_CLEAN_CHUNKS clean chunks (_probation_tick).
+                if (self._parked and not self._inflight
+                        and all(s is None for s in self._slots)):
+                    self._unpark_parked()
+                    continue
                 self._profile_tick()
                 # The QoS ring: the brownout controller's evaluation
                 # (time-gated, cheap; the SLO engine's fast-window burn
@@ -1752,14 +1955,25 @@ class BatchedTorchEngine(TorchEngine):
                     continue
                 self._admit_popped([req])
             except Exception as e:
-                # Containment replay waits for a later slice: fail every
-                # slot in flight and rebuild the device state (a failed
-                # step condemns every cached block).
-                logger.exception("batch scheduler step failed; failing "
-                                 "active slots and resetting the pool")
-                self._fail_all_active(
-                    EngineUnavailable(f"scheduler error: {e}"))
-                self._init_decode_state()
+                # The step is poisoned, not the engine: the containment
+                # pass quarantines the culprit (bisecting when the fault
+                # names no slot) and replays the survivors; only a spent
+                # reset budget fails every active request. The frames of
+                # the traceback drop their locals first, so no tensor of
+                # the failed step outlives the reset.
+                logger.exception("batch scheduler step poisoned; running "
+                                 "containment")
+                traceback.clear_frames(e.__traceback__)
+                try:
+                    self._contain_poisoned_step(CAUSE_SCHEDULER_ERROR,
+                                                error=e)
+                except Exception:  # pragma: no cover - containment itself
+                    logger.exception("containment failed; failing active "
+                                     "slots")
+                    self._fail_all_active(
+                        EngineUnavailable("scheduler error"))
+        # Shutdown: active, parked and queued requests all fail, so no
+        # generate() call blocks forever.
         self._fail_all_active(EngineUnavailable("engine stopped"))
         for req in self._admissions.drain():
             self._emit(req, "error", EngineUnavailable("engine stopped"))
@@ -1806,20 +2020,331 @@ class BatchedTorchEngine(TorchEngine):
             self._profile_req = None
             fut.set_exception(e)
 
+    def _worker_main(self) -> None:
+        """The scheduler thread's entry: runs the loop and, when the loop
+        dies of an uncatchable fault (a BaseException: the poisoned-step
+        containment inside the loop handles every Exception), lets the
+        thread end so ``_supervise_scheduler`` notices and restarts it.
+        Never re-raises: a dead scheduler is a recoverable engine event,
+        not a process event."""
+        try:
+            self._worker_loop()
+        except BaseException:
+            logger.critical("batch scheduler thread died; the supervisor "
+                            "will restart it", exc_info=True)
+
+    # --------------------------------------------------------- containment
+
+    def set_reset_listener(self, fn) -> None:
+        """Wire engine resets to the service (the circuit breaker):
+        ``fn(cause)`` runs after every recorded reset, so a flapping
+        engine opens the breaker even while requests keep recovering."""
+        self.supervisor.on_reset = fn
+
     def _fail_all_active(self, error: BaseException) -> None:
+        """Every active and parked request fails (queued ones stay): the
+        path when containment is out of budget, and at shutdown."""
         self._inflight.clear()
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._finish(i, "error", error=error)
+        for slot in self._parked:
+            self._emit(slot.req, "error", error)
+        self._parked.clear()
+
+    def _contain_poisoned_step(self, cause: str, named=(),
+                               error: Optional[BaseException] = None
+                               ) -> None:
+        """The quarantine and reset-and-replay pass (the JAX engine's).
+
+        ``named`` lists the slots the device health word implicated (the
+        culprit is known); empty means a step-wide fault (an exception in
+        a scheduler step, a poisoned fetch) and bisection isolates it:
+        half the suspects replay, the rest are parked, and whichever half
+        poisons again is halved in turn. A slot solo-implicated past its
+        retry budget ends with ``RequestQuarantined`` (410: the engine is
+        fine, that request is not); every other survivor is re-spliced
+        from prompt + generated ids and replays under its seed. Queued
+        requests are untouched: a reset drops none."""
+        survivors = [s for s in self._slots if s is not None]
+        if not self.supervisor.allow_reset():
+            # The reset budget (ENGINE_RESET_MAX_PER_MIN) is spent: a
+            # flapping engine must degrade, not thrash. The failures feed
+            # the breaker, the next ring out.
+            logger.critical(
+                "engine reset budget exhausted (%d/min); failing %d "
+                "slot(s) instead of resetting again",
+                self.supervisor.max_resets_per_min, len(survivors))
+            self._fail_all_active(
+                error if isinstance(error, Exception) else
+                EngineUnavailable("engine reset budget exhausted"))
+            return
+        # Culprit isolation: a health-named slot is implicated directly;
+        # an unnamed fault whose suspect pool is down to one request has
+        # bisected to its culprit. Either way the retry budget decides
+        # between quarantine now and one more replay.
+        quarantined: List[_Slot] = []
+        reasons: dict = {}
+        pool = list(survivors)
+        if named:
+            for slot in named:
+                if self.supervisor.implicate(slot.req):
+                    quarantined.append(slot)
+                    reasons[id(slot)] = REASON_HEALTH
+        else:
+            # Narrow to the standing suspect pool: after an early
+            # exoneration the batch mixes cleared cohabitants (and new
+            # admissions) with the still-suspect half, and only the
+            # latter keeps bisecting. No flag standing: everyone.
+            flagged = [s for s in survivors if s.req.suspect]
+            if flagged:
+                pool = flagged
+            if len(pool) == 1:
+                slot = pool[0]
+                if self.supervisor.implicate(slot.req):
+                    quarantined.append(slot)
+                    reasons[id(slot)] = REASON_ISOLATED
+        self._reset_decode_state(survivors, cause)
+
+        qset = {id(s) for s in quarantined}
+        for slot in quarantined:
+            reason = reasons[id(slot)]
+            self.supervisor.note_quarantine(reason)
+            # The ledger: everything this request generated is discarded
+            # — burned, never delivered (a quarantine never reaches
+            # _finish, so nothing bills twice).
+            burn = len(slot.detok.ids) - slot.req.ledger_delivered
+            slot.req.ledger_delivered = len(slot.detok.ids)
+            self.ledger.record(CLASS_QUARANTINE_BURN, burn,
+                               lane=slot.req.lane, tenant=slot.req.tenant)
+            if slot.req.trace is not None:
+                slot.req.trace.event(
+                    f"engine: quarantined ({reason}, suspected "
+                    f"{slot.req.suspect_count}x, {len(slot.detok.ids)} "
+                    f"tokens generated)")
+            self._finish_times.append(time.monotonic())
+            self._emit(slot.req, "error", RequestQuarantined(
+                f"request quarantined after poisoning {cause} "
+                f"{slot.req.suspect_count}x (retry budget "
+                f"{self.supervisor.retry_budget})"))
+
+        rest = [s for s in survivors
+                if id(s) not in qset and not s.req.cancel.is_set()]
+        if named:
+            probe, parked = rest, []
+        else:
+            # A step-wide fault: bisect within the suspect pool only —
+            # replay one half, park the other, and replay every
+            # non-suspect alongside the probe. If the probe poisons
+            # again this pass recurses on the halved pool; after
+            # PROBATION_CLEAN_CHUNKS clean chunks (or a drain) suspicion
+            # moves to the parked half, which unparks.
+            pool_rest = [s for s in pool
+                         if id(s) not in qset and not s.req.cancel.is_set()]
+            pool_ids = {id(s) for s in pool_rest}
+            innocents = [s for s in rest if id(s) not in pool_ids]
+            if len(pool_rest) <= 1:
+                probe, parked = rest, []
+            else:
+                probe_sus, parked = EngineSupervisor.split(pool_rest)
+                probe = probe_sus + innocents
+            for s in innocents:
+                s.req.suspect = False
+            for s in pool_rest:
+                s.req.suspect = True
+        logger.warning(
+            "engine reset (%s): %d survivor(s) — %d quarantined, "
+            "%d replaying, %d parked for bisection", cause, len(survivors),
+            len(quarantined), len(probe), len(parked))
+        self._parked.extend(parked)
+        self._probation_clean = 0   # each pass restarts probation
+        for slot in parked:
+            if slot.req.trace is not None:
+                slot.req.trace.event("engine: parked for culprit bisection")
+        for slot in probe:
+            self._guarded_replay(slot)
+
+    def _unpark_parked(self) -> None:
+        """End bisection probation: replay every parked slot (each
+        resumes from its generated ids); admissions resume on the next
+        loop pass."""
+        parked, self._parked = self._parked, []
+        self._probation_clean = 0
+        for slot in parked:
+            self._guarded_replay(slot)
+
+    def _reset_decode_state(self, survivors: List[_Slot],
+                            cause: str) -> None:
+        """Tear down and record one reset: the slots detach, the chunks
+        in flight drop and every device buffer is rebuilt as startup
+        built it. The old ones may hold poisoned (NaN) KV rows: nothing
+        is salvaged; a replay re-derives each slot from host truth
+        (prompt, generated ids, seed). In the pool the rebuilt allocator
+        and radix tree start empty, so every survivor's block list is
+        stale: cleared here (a replay must never decref an old id into
+        the new pool)."""
+        self._slots = [None] * self.batch_size
+        self._inflight.clear()
+        self._init_decode_state()
+        if self.kv_pool:
+            for s in survivors:
+                s.blocks = []
+        # Staged ragged admissions die with the state they were staged
+        # against; their replay re-stages them. A reset is no step.
+        self._pending_adm.clear()
+        self._steptime_pending = None
+        self._last_progress = time.monotonic()
+        self.supervisor.note_reset(cause)
+
+    def _guarded_replay(self, slot: _Slot) -> None:
+        """Replay one survivor; a failing replay (an allocation, a drill
+        hitting the admission path) errors that request only."""
+        try:
+            self._replay_slot(slot)
+        except Exception:
+            logger.exception("replay failed; failing the request")
+            self._emit(slot.req, "error",
+                       EngineUnavailable("replay after engine reset failed"))
+
+    def _supervise_scheduler(self, epoch: int) -> None:
+        """Watch for scheduler-thread death (the watchdog watches for a
+        hang). A dead scheduler (scheduler:die in a drill, an uncatchable
+        error in the wild) recovers like a poisoned step: reset, replay
+        the survivors, and a new loop thread, started as ``start`` starts
+        it (the default stream and device, no per-thread state of its
+        own). Queued requests sit in a thread-safe queue the dead thread
+        never drained, and requests it popped but had not settled are
+        requeued at the head: zero queued requests are dropped."""
+        while self._running and self._epoch == epoch:
+            time.sleep(0.2)
+            worker = self._worker
+            if (not self._running or self._stopping or worker is None
+                    or worker.is_alive() or self._epoch != epoch):
+                continue
+            survivors = [s for s in self._slots if s is not None]
+            if not self.supervisor.allow_reset():
+                logger.critical("scheduler dead and reset budget "
+                                "exhausted; marking the engine degraded")
+                self._ready = False
+                err = EngineUnavailable(
+                    "scheduler dead; engine reset budget exhausted")
+                self._fail_all_active(err)
+                for req in self._admitting_reqs:
+                    self._emit(req, "error", err)
+                self._admitting_reqs.clear()
+                for req in self._admissions.drain():
+                    self._emit(req, "error", err)
+                self._abandon_profile()
+                return
+            logger.critical("batch scheduler thread dead; resetting the "
+                            "decode state and restarting it (%d "
+                            "survivor(s))", len(survivors))
+            # Requests popped but not settled hold no slot and no
+            # generated token: a fresh admission replays them exactly.
+            # Head re-entry, never put(): no cap may shed them.
+            slotted = {id(s.req) for s in survivors}
+            for req in reversed(self._admitting_reqs):
+                if id(req) not in slotted:
+                    self._admissions.requeue_head(req)
+            self._admitting_reqs.clear()
+            self._reset_decode_state(survivors, CAUSE_SCHEDULER_DEATH)
+            self._abandon_profile()
+            for slot in survivors:
+                self._guarded_replay(slot)
+            self._worker = threading.Thread(
+                target=self._worker_main, name="torch-batcher", daemon=True)
+            self._worker.start()
+
+    def _abandon_profile(self) -> None:
+        """A capture the dead thread started cannot be stopped by the
+        thread that started it: stop it here (the new thread must not
+        start a second one while the first runs) and settle its caller.
+        A capture not yet started is left to the new thread."""
+        req = self._profile_req
+        if req is None or req[3] is None:
+            return
+        self._profile_req = None
+        session, trace_dir, _, _, fut = req
+        try:
+            session.stop(trace_dir)
+            fut.set_result(trace_dir)
+        except Exception as e:
+            fut.set_exception(e)
+
+    # ------------------------------------------------------------ watchdog
+
+    def _watchdog_loop(self, epoch: int) -> None:
+        """Detect a hung device dispatch: the scheduler thread blocks in a
+        call that never returns, so every request — those without a
+        client timeout too — would wait forever while /health stayed
+        green. Checked from a thread of its own every quarter of the
+        limit (at least a second); fires once, and re-marks the engine
+        ready when progress resumes. The limit is read at every pass, so
+        it can be tightened on a live engine (0 pauses the watchdog)."""
+        fired = False
+        last = time.monotonic()
+        while self._running and self._epoch == epoch:
+            time.sleep(0.25)
+            interval = max(1.0, self.watchdog_secs / 4.0)
+            if (self.watchdog_secs <= 0
+                    or time.monotonic() - last < interval):
+                continue
+            last = time.monotonic()
+            if not fired:
+                fired = self._watchdog_check()
+            elif time.monotonic() - self._last_progress <= 2 * interval:
+                # The stall was transient: the scheduler ticks again.
+                # Failed requests stay failed; new traffic is served
+                # (never while stop() drains).
+                logger.warning("engine watchdog: scheduler progress "
+                               "resumed; re-marking the engine ready")
+                if not self._stopping:
+                    self._ready = True
+                fired = False
+
+    def _watchdog_check(self) -> bool:
+        """One watchdog evaluation; True when it fired."""
+        busy = bool(self._inflight) or any(
+            s is not None for s in self._slots)
+        if not busy:
+            self._last_progress = time.monotonic()
+            return False
+        # The cold-start grace: until the first pipeline entry is
+        # consumed, and while an admission runs on the scheduler thread,
+        # no progress is judged against ENGINE_STARTUP_GRACE_SECS.
+        limit = self.watchdog_secs
+        if not self._first_consumed or self._admitting > 0:
+            limit = max(limit, self.startup_grace_secs)
+        if time.monotonic() - self._last_progress <= limit:
+            return False
+        logger.critical(
+            "engine watchdog: no scheduler progress for %.0fs with work in "
+            "flight — marking the engine degraded and failing %d slot(s)",
+            limit, sum(s is not None for s in self._slots))
+        self._ready = False
+        err = EngineUnavailable("engine watchdog: device dispatch hung")
+        for slot in list(self._slots):
+            if slot is not None:
+                # Unblock the waiting coroutine but leave _slots to the
+                # scheduler thread: a merely slow scheduler drops the
+                # cancelled request at its next sweep.
+                slot.req.cancel.set()
+                self._emit(slot.req, "error", err)
+        for req in self._admissions.drain():
+            req.cancel.set()
+            self._emit(req, "error", err)
+        return True
 
     async def stop(self, drain_secs: float = 0.0) -> None:
         self._ready = False
+        self._stopping = True       # the watchdog must not re-mark ready
         if drain_secs > 0:
             deadline = time.monotonic() + drain_secs
             while time.monotonic() < deadline:
                 busy = (any(s is not None for s in self._slots)
                         or not self._admissions.empty()
-                        or self._admitting > 0 or bool(self._inflight))
+                        or self._admitting > 0 or bool(self._inflight)
+                        or bool(self._parked))
                 if not busy:
                     break
                 await asyncio.sleep(0.05)
@@ -1827,9 +2352,38 @@ class BatchedTorchEngine(TorchEngine):
         if self._worker is not None:
             await asyncio.to_thread(self._worker.join, 10.0)
             self._worker = None
+        # The guards end at their next poll. Joined here, so a stopped
+        # engine holds no live frame: the caller can free it at once
+        # (its weights and KV) rather than at some later collection.
+        for t in self._guards:
+            await asyncio.to_thread(t.join, 2.0)
+        self._guards = []
         self._profile_tick(stopping=True)    # a request the loop missed
 
     # ------------------------------------------------------------ serving
+
+    def _inject_flood(self, n: int, loop) -> None:
+        """The tenant:flood:<n> drill: ``n`` requests of real decode work
+        under one synthetic background tenant, so fairness and
+        preemption are exercisable without a load generator. A burst
+        past the queue's own caps is cut there: the drill must not wedge
+        the queue it stresses."""
+        from ..testing.faults import FLOOD_LANE, FLOOD_TENANT
+
+        now = time.monotonic()
+        max_toks = max(1, min(32, self.max_seq_len // 2))
+        for i in range(n):
+            prompt = f"tenant flood drill {i}"
+            req = _Request(
+                prompt_ids=self.tokenizer.encode(prompt),
+                max_tokens=max_toks, temperature=0.0,
+                deadline=now + 30.0, loop=loop, out_queue=asyncio.Queue(),
+                cancel=threading.Event(), t_submit=now, seed=i,
+                prompt=prompt, tenant=FLOOD_TENANT, lane=FLOOD_LANE)
+            try:
+                self._admissions.put(req)
+            except EngineOverloaded:
+                break
 
     async def _stream_events(self, prompt: str, *, max_tokens: int,
                              temperature: float, timeout: Optional[float],
@@ -1849,13 +2403,26 @@ class BatchedTorchEngine(TorchEngine):
         session = qctx.session if qctx is not None else ""
         lane = self._session_budgets.lane_for(session, lane)
         trace = current_trace()
+        loop = asyncio.get_running_loop()
+        if self.faults is not None and not self._warming:
+            # tenant:flood:<n>: a synthetic background-tenant burst lands
+            # ahead of this submission, so the request that armed it
+            # meets the contention under test. The warm-up generate in
+            # start() must not consume the one-shot; every other seam
+            # is armed through the warm-up, as in the JAX engine.
+            burst = self.faults.tenant_flood()
+            if burst:
+                if trace is not None:
+                    trace.event(f"qos: tenant:flood drill injecting "
+                                f"{burst} synthetic requests")
+                self._inject_flood(burst, loop)
         t_submit = time.monotonic()
         req = _Request(
             prompt_ids=self.tokenizer.encode(prompt),
             max_tokens=max(1, min(max_tokens, self.max_seq_len - 1)),
             temperature=temperature,
             deadline=(t_submit + timeout) if timeout else None,
-            loop=asyncio.get_running_loop(),
+            loop=loop,
             out_queue=asyncio.Queue(),
             cancel=threading.Event(),
             t_submit=t_submit,
@@ -1864,6 +2431,7 @@ class BatchedTorchEngine(TorchEngine):
             tenant=tenant,
             lane=lane,
             session=session,
+            prompt=prompt,
         )
         # Fair-share shedding at submit: past the tenant cap a 429 to the
         # flooding tenant; at MAX_QUEUE_DEPTH the dominant tenant's newest

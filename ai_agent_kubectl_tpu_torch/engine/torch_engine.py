@@ -209,9 +209,14 @@ class TorchEngine:
         self._ready = True
         # One generation through the real serving path before the first
         # user request: it builds the kernels (first use) and runs every
-        # code path a request takes.
-        await self.generate("warmup: list pods", max_tokens=2,
-                            temperature=0.0)
+        # code path a request takes. As in the JAX engine, a failing
+        # warm-up (a drill armed at boot) is logged and never kills
+        # startup: the requests that follow meet the same fault.
+        try:
+            await self.generate("warmup: list pods", max_tokens=2,
+                                temperature=0.0)
+        except Exception:
+            logger.exception("warmup generation failed")
 
     def _start_blocking(self) -> None:
         t0 = time.monotonic()

@@ -108,6 +108,10 @@ def startup_warnings(cfg) -> None:
         logger.warning(
             "API_AUTH_KEY environment variable not set. API authentication is disabled."
         )
+    if cfg.engine == "openai" and not cfg.openai_api_key:
+        logger.error(
+            "ENGINE=openai but OPENAI_API_KEY not set; engine will run degraded (503)."
+        )
     if not cfg.debug_token:
         logger.info(
             "DEBUG_TOKEN not set: /debug/* endpoints are guarded only by "

@@ -11,9 +11,10 @@ Routes (the JAX statuses):
   cache and single flight with the non-streaming route.
 - ``POST /execute`` — run a validated kubectl command;
   200/400/401/429/500, execution errors as structured 200s.
-- ``GET /health`` — readiness-gated, with the breaker's state and the
-  engine's ``qos``, ``kv_pool``, ``slo`` and ``steptime`` sections and
-  the incident ring's ``incidents`` summary.
+- ``GET /health`` — readiness-gated, with the breaker's state, the
+  engine's last containment reset and its cause (``last_reset``,
+  ``last_reset_cause``), the engine's ``qos``, ``kv_pool``, ``slo`` and
+  ``steptime`` sections and the incident ring's ``incidents`` summary.
 - ``GET /metrics`` — Prometheus text; ``/openapi.json`` and ``/docs``.
 - ``/debug/*``, behind ``X-Debug-Token`` when ``DEBUG_TOKEN`` is set
   (403 otherwise): ``POST /debug/profile?seconds=N`` (alias
@@ -579,6 +580,14 @@ async def handle_health(request: web.Request) -> web.Response:
     svc: Service = request.app["service"]
     ready = bool(getattr(svc.engine, "ready", False))
     breaker = svc.breaker.state
+    # When the engine last reset its decode state, and why: read off the
+    # supervisor (not stats(), which drains samples owed to /metrics).
+    last_reset = last_cause = None
+    sup = getattr(svc.engine, "supervisor", None)
+    if sup is not None and sup.last_reset_wall:
+        last_reset = (time.strftime("%Y-%m-%dT%H:%M:%S",
+                                    time.gmtime(sup.last_reset_wall)) + "Z")
+        last_cause = sup.last_reset_cause
     body = HealthResponse(
         status="healthy" if ready and breaker == "closed" else "degraded",
         engine=getattr(svc.engine, "name", "unknown"),
@@ -587,6 +596,8 @@ async def handle_health(request: web.Request) -> web.Response:
         devices=device_count(getattr(svc.engine, "device", None)),
         breaker=breaker,
         degraded_fallback=svc.fallback is not None,
+        last_reset=last_reset,
+        last_reset_cause=last_cause,
         qos=_engine_view(svc.engine, "qos_health"),
         slo=_engine_view(svc.engine, "slo_health"),
         kv_pool=_engine_view(svc.engine, "kv_pool_health"),
@@ -798,6 +809,7 @@ async def handle_metrics(request: web.Request) -> web.Response:
         svc.metrics.kv_pool_used.set(stats.get("kv_pages_used", 0))
         svc.metrics.kv_pool_total.set(stats.get("kv_pages_total", 0))
         svc.metrics.observe_pipeline(stats)
+        svc.metrics.observe_containment(stats)
     if stats.get("qos"):
         svc.metrics.observe_qos(stats["qos"])
     if stats.get("ledger"):

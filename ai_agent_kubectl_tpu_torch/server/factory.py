@@ -5,7 +5,18 @@
 engine (``engine/torch_engine.py::TorchEngine``: dense cache, flash
 prefill) at 1 — the JAX factory's rule; ``ENGINE=torch-batched`` always
 batches. Both take ``QUANT``, ``KV_QUANT`` and ``MOE_IMPL``
-(``engine_kwargs``).
+(``engine_kwargs``). ``ENGINE=openai`` calls an OpenAI-compatible
+ChatCompletions endpoint (``engine/openai_compat.py``).
+
+``FAULT_POINTS`` is parsed before the engine is built, outside the
+degraded-start net, as the JAX factory does: a typo'd drill refuses to
+boot instead of starting into what looks like a real outage. One
+injector serves the batcher's points and the ``generate`` wrapper
+(``ChaosEngine``), so ``fired()``, ``release()`` and ``clear()`` see
+every point. A point the selected engine can never fire is refused at
+boot: the batcher's points under another engine, a replica scope beyond
+``FLEET_SIZE`` (1: the port has no fleet), and the points of features
+the port does not serve yet.
 
 On a construction failure the service starts degraded and answers 503
 (as the JAX factory does): a misconfiguration keeps ``/health`` up and
@@ -19,6 +30,22 @@ import logging
 from ..engine.protocol import EngineResult, EngineUnavailable
 
 logger = logging.getLogger(__name__)
+
+#: the engine's fault points whose features wait for a later slice, with
+#: the ROADMAP row that serves each: a drill on them could never fire.
+UNSERVED_FAULT_POINTS = {
+    "draft": "speculative decoding (ROADMAP.md A7 row 4)",
+    "swap": "weight swap and rollout (ROADMAP.md A7 row 7)",
+    "checkpoint": "weight swap and rollout (ROADMAP.md A7 row 7)",
+    "offload": "the two-tier host KV (ROADMAP.md A7 row 5)",
+    "onload": "the two-tier host KV (ROADMAP.md A7 row 5)",
+}
+
+#: the points only the continuous-batching engine checks
+BATCHER_POINTS = ("admit", "chunk", "decode", "scheduler", "tenant")
+
+#: the port serves one engine: replica 0 of a fleet of one
+FLEET_SIZE = 1
 
 
 class DegradedEngine:
@@ -41,15 +68,79 @@ class DegradedEngine:
         raise EngineUnavailable(self.reason)
 
 
+def _batched(cfg) -> bool:
+    return cfg.engine == "torch-batched" or (
+        cfg.engine == "torch" and cfg.decode_batch_size > 1)
+
+
+def parse_fault_points(cfg):
+    """The one shared injector of ``FAULT_POINTS`` (None when empty), or
+    ValueError for a drill that is malformed or could never fire."""
+    from ..testing.faults import FaultInjector
+
+    injector = FaultInjector.from_spec(cfg.fault_points)
+    if injector is None:
+        return None
+    unserved = [p for p in UNSERVED_FAULT_POINTS if injector.has_any(p)]
+    if unserved:
+        raise ValueError(
+            "FAULT_POINTS " + ", ".join(
+                f"{p!r} needs {UNSERVED_FAULT_POINTS[p]}" for p in unserved)
+            + ", which the PyTorch port does not serve yet; the drill "
+            "would be inert")
+    needs_batcher = [p for p in BATCHER_POINTS if injector.has_any(p)]
+    if needs_batcher and not _batched(cfg):
+        raise ValueError(
+            f"FAULT_POINTS {needs_batcher} are only wired into the "
+            "continuous-batching engine (ENGINE=torch with "
+            f"DECODE_BATCH_SIZE>1); inert under ENGINE={cfg.engine!r}")
+    scoped = injector.scoped_replicas()
+    if scoped and max(scoped) >= FLEET_SIZE:
+        raise ValueError(
+            f"FAULT_POINTS names replica(s) {sorted(scoped)} but "
+            f"FLEET_SIZE={FLEET_SIZE}; the drill would be inert")
+    if injector.has_any("generate") and not injector.has("generate"):
+        raise ValueError(
+            "FAULT_POINTS: 'generate' faults cannot be replica-scoped "
+            "(the generate-path wrapper sits above the fleet); drop the "
+            "r<idx>: prefix")
+    return injector
+
+
+def _build_inner(cfg, faults):
+    if cfg.engine == "openai":
+        from ..engine.openai_compat import OpenAICompatEngine
+
+        return OpenAICompatEngine(api_key=cfg.openai_api_key,
+                                  model=cfg.openai_model,
+                                  base_url=cfg.openai_base_url,
+                                  timeout=cfg.llm_timeout)
+    if _batched(cfg):
+        from ..engine.batcher import BatchedTorchEngine
+
+        return BatchedTorchEngine.from_config(cfg, faults=faults)
+    from ..engine.torch_engine import TorchEngine
+
+    return TorchEngine.from_config(cfg)
+
+
 def build_engine(cfg):
+    injector = parse_fault_points(cfg)
     try:
-        if cfg.engine == "torch-batched" or cfg.decode_batch_size > 1:
-            from ..engine.batcher import BatchedTorchEngine
+        # The single engine is replica 0: an "r0:" drill gets the
+        # replica-0 view, an unscoped one the injector itself (the one
+        # object the generate wrapper shares).
+        faults = injector
+        if injector is not None and injector.scoped_replicas():
+            faults = injector.for_replica(0)
+        engine = _build_inner(cfg, faults)
+        if injector is not None and injector.has("generate"):
+            from ..testing.faults import ChaosEngine
 
-            return BatchedTorchEngine.from_config(cfg)
-        from ..engine.torch_engine import TorchEngine
-
-        return TorchEngine.from_config(cfg)
+            logger.warning("FAULT_POINTS active on the generate path: %s",
+                           injector.describe())
+            return ChaosEngine(engine, injector)
+        return engine
     except Exception as e:
         logger.exception("Failed to initialize engine; starting degraded.")
         return DegradedEngine(f"engine init failed: {e}")

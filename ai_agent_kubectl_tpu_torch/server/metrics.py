@@ -18,12 +18,15 @@ port's features feed, under the same names, labels and help.
   occupancy per lane, the brownout level, preemption, expiry and
   displacement totals), the goodput ledger (``goodput_*``), the SLO burn
   rates (``slo_*``) and the step-time sentinel (``step_time_seconds``,
-  ``step_tokens_per_sec``, ``steptime_breach_trips_total``).
+  ``step_tokens_per_sec``, ``steptime_breach_trips_total``) and the
+  containment totals (``engine_resets_total{cause}``,
+  ``quarantined_requests_total{reason}``, ``replayed_tokens_total``,
+  ``slot_health_trips_total``).
 - Incidents: captured and cooldown-suppressed bundles by trigger.
 
 The JAX package's families of features the port does not serve yet
-(containment, fleet, grammar, speculative decode, sharding, rollout and
-the two-tier KV) wait for a later slice. Every label set is closed
+(fleet, grammar, speculative decode, sharding, rollout and the two-tier
+KV) wait for a later slice. Every label set is closed
 (lanes, ledger classes, phases, triggers) or bounded by config
 (buckets, SLO windows). A ``CollectorRegistry`` per app keeps tests
 isolated.
@@ -395,6 +398,38 @@ class Metrics:
             registry=r,
         )
 
+        # Blast-radius containment (the inner ring): engine resets by
+        # cause, terminal quarantines by reason, device health trips and
+        # tokens regenerated by reset-and-replay. The totals live on the
+        # engine's supervisor; scrapes mirror their deltas
+        # (observe_containment).
+        self.engine_resets = Counter(
+            "engine_resets_total",
+            "Decode-state reset-and-replay cycles",
+            ["cause"],  # slot_health | scheduler_error | scheduler_death
+            registry=r,
+        )
+        self.quarantined_requests = Counter(
+            "quarantined_requests_total",
+            "Requests terminally quarantined by culprit isolation",
+            ["reason"],  # slot_health | step_poison
+            registry=r,
+        )
+        self.replayed_tokens = Counter(
+            "replayed_tokens_total",
+            "Already-generated tokens re-spliced and replayed across "
+            "engine resets (innocent-victim recovery)",
+            registry=r,
+        )
+        self.slot_health_trips = Counter(
+            "slot_health_trips_total",
+            "Per-slot device health-word trips (NaN/Inf logits, "
+            "out-of-range token ids) caught in the decode chunk",
+            registry=r,
+        )
+        self._containment_seen = {"resets": {}, "quarantined": {},
+                                  "health_trips": 0, "replayed_tokens": 0}
+
         # Request-lifecycle phases (obs/trace.py): the ``phase`` label is
         # drawn from the fixed obs.PHASES allowlist.
         self.request_phase = Histogram(
@@ -404,6 +439,32 @@ class Metrics:
             buckets=_PHASE_BUCKETS,
             registry=r,
         )
+
+    def observe_containment(self, stats: dict) -> None:
+        """Mirror the supervisor's containment totals
+        (``stats()["containment"]``) into the labelled counters, by
+        delta, as ``observe_pipeline`` does."""
+        c = stats.get("containment")
+        if not c:
+            return
+        seen = self._containment_seen
+        for cause, total in c.get("resets", {}).items():
+            prev = seen["resets"].get(cause, 0)
+            if total > prev:
+                self.engine_resets.labels(cause=cause).inc(total - prev)
+                seen["resets"][cause] = total
+        for reason, total in c.get("quarantined", {}).items():
+            prev = seen["quarantined"].get(reason, 0)
+            if total > prev:
+                self.quarantined_requests.labels(reason=reason).inc(
+                    total - prev)
+                seen["quarantined"][reason] = total
+        for key, counter in (("health_trips", self.slot_health_trips),
+                             ("replayed_tokens", self.replayed_tokens)):
+            total = c.get(key, 0)
+            if total > seen[key]:
+                counter.inc(total - seen[key])
+                seen[key] = total
 
     def observe_pipeline(self, stats: dict) -> None:
         """Mirror the engine's decode-pipeline stats at scrape time:

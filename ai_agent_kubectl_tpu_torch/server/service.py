@@ -106,6 +106,30 @@ class Service:
         self.config_fingerprint = hashlib.sha256(
             json.dumps(cfg.describe(), sort_keys=True,
                        default=repr).encode()).hexdigest()[:12]
+        # Inner ring into outer ring: every engine reset counts as a
+        # breaker failure, so a reset storm opens the breaker even while
+        # requests keep recovering. The supervisor calls from the
+        # scheduler thread; the failure is marshalled onto the event
+        # loop once one has been seen (breaker transitions run there).
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        hook = getattr(engine, "set_reset_listener", None)
+        if callable(hook):
+            hook(self._on_engine_reset)
+
+    def _on_engine_reset(self, cause: str) -> None:
+        loop = self._loop
+        if loop is not None and not loop.is_closed():
+            loop.call_soon_threadsafe(self.breaker.record_failure)
+        else:  # pragma: no cover - a reset before any traffic
+            self.breaker.record_failure()
+
+    def _quarantine_total(self) -> Optional[int]:
+        """Terminal quarantines so far, off the engine's supervisor (an
+        attribute read, never stats()); None without a supervisor."""
+        sup = getattr(self.engine, "supervisor", None)
+        if sup is None:
+            return None
+        return sum(getattr(sup, "quarantined", {}).values())
 
     # ------------------------------------------------------- incidents
 
@@ -164,15 +188,16 @@ class Service:
 
     def check_incidents(self) -> list:
         """One trigger-evaluation round; returns the NEW bundles. The
-        quarantine, grammar and host-tier views are None: the port has
-        no containment supervisor, grammar decode or host KV tier yet."""
+        quarantine count is the supervisor's (None for an engine without
+        one); the grammar and host-tier views are None: the port has no
+        grammar decode or host KV tier yet."""
         views = {
             "steptime": self._engine_view("steptime_health"),
             "slo": self._engine_view("slo_health"),
             "kv_pool": self._engine_view("kv_pool_health"),
             "grammar": self._engine_view("grammar_health"),
             "breaker": self.breaker.state,
-            "quarantined_total": None,
+            "quarantined_total": self._quarantine_total(),
         }
         return self.incidents.evaluate(views, self._incident_bundle)
 
@@ -183,6 +208,8 @@ class Service:
         pass through untouched: neither says the engine is broken.
         Readiness is sampled before the call, so "engine not started"
         rejections during a restart do not open the breaker."""
+        if self._loop is None:
+            self._loop = asyncio.get_running_loop()
         token = self.breaker.begin()
         if token is None:
             raise EngineUnavailable(

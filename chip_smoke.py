@@ -235,7 +235,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                cuda_device and every int4 kernel span bills weight_gemms.
                Both tables are printed, and the serve phase's burst tok/s
                beside (a)'s first burst.
-11. timing  -- time each kernel, its plain version, one PyTorch library
+11. serve_chaos -- blast-radius containment on the card: Gemma-2B as the
+               serve phase serves it (random bf16 weights from seed 0, 8
+               slots) over HTTP with the default breaker, FAULT_POINTS=
+               decode:nan:0 (the factory threads one injector into the
+               batcher; each drill re-arms it) and CACHE_TTL=0.001 (every
+               drill's request reaches the engine). Each drill sends the
+               serve burst, as the fault-free reference does first.
+               (a) The pool and ragged regime: a one-shot decode:nan on
+               one request in its third chunk (budget 1: replayed); a
+               persistent decode:nan (410 after 2 trips); scheduler:die
+               once every slot decodes (the supervisor restarts the
+               thread, nothing dropped); a persistent decode:poison_step
+               (bisection isolates it: step_poison, in the 8 resets the
+               JAX engine takes for 8 slots with the target third, as a
+               CPU test pins). (b) The dense ladder
+               (KV_POOL=false, DECODE_ATTN=paged): the one-shot drill,
+               its replays prefilling through flash. (c) On (b)'s server,
+               the watchdog's limit lowered to 4 s after the warm
+               bursts, chunk:hang with two requests in flight: both 503
+               within the limit plus one interval plus 1 s, /health 503
+               while hung; after release /health 200 and a fresh burst
+               served. Gates: statuses as the service decides (the
+               poisoned request's 410 excepted); every other transcript
+               equal to the reference or leaving it first at a near tie
+               (as serve_qos); the counters of each drill (resets by
+               cause, quarantines by reason) and their /metrics families
+               and /health's last_reset_cause; the peak device memory
+               across the one-shot drill's reset at most 5 % over the
+               fault-free burst's peak, and less than half the KV pool
+               (or dense cache) above it: no second one resident; launches (ragged in (a), flash
+               and paged in (b)) zeroed before and grown after. Printed:
+               each drill's ms from the trip to the first replayed
+               token, its replayed tokens, the memory peaks, and the
+               fault-free and one-shot bursts' tok/s.
+12. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
                serve_kvq's int4 projections and serve_moe's ragged decode
@@ -266,7 +300,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
-          "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "timing")
+          "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "serve_chaos",
+          "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -4136,8 +4171,9 @@ def kernel_lines(results: dict) -> list:
     ``phase_launches`` adds the launches of phase 6 (ragged in its bf16
     engine, flash and int4 in its int4 engine), of phase 7 (both its
     engines) and of phase 8 (both its engines: every kernel counted,
-    those off its path at 0) and of phase 9 (its three engines: the int4
-    kernel's, the attention kernels' at 0)."""
+    those off its path at 0), of phase 9 (its three engines: the int4
+    kernel's, the attention kernels' at 0) and of phase 11 (both its
+    engines: ragged in the pool, flash and paged on the dense ladder)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -4172,6 +4208,13 @@ def kernel_lines(results: dict) -> list:
                   if k in kvq]
         return sum(counts) if counts else None
 
+    chaos = results.get("serve_chaos", {})
+
+    def chaos_launches(name):
+        counts = [chaos[k]["launches"].get(name) for k in ("pool", "dense")
+                  if k in chaos]
+        return sum(counts) if counts and None not in counts else None
+
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
         top = shapes.get(main, {})
@@ -4188,7 +4231,8 @@ def kernel_lines(results: dict) -> list:
             "phase_launches": {"serve_ckpt": ckpt_launches.get(name),
                                "serve_qos": qos_launches(name),
                                "serve_moe": moe_launches(name),
-                               "serve_kvq": kvq_launches(name)},
+                               "serve_kvq": kvq_launches(name),
+                               "serve_chaos": chaos_launches(name)},
             "shapes": shapes,
         }
 
@@ -4527,6 +4571,446 @@ def _attribute_7b_int4(torch) -> dict:
     return {"attribution": art, "int4": int4, "seconds": took}
 
 
+# ----------------------------------------------------------- serve_chaos
+
+#: phase 11's server: serve's Gemma-2B cell with the factory's one fault
+#: injector threaded into the batcher (armed with a nan drill at rate 0,
+#: which never fires; each drill re-arms it), the response cache's TTL at
+#: 1 ms so every drill's request reaches the engine, and the default
+#: breaker.
+CHAOS_ENV = dict(SERVE_ENV, FAULT_POINTS="decode:nan:0", CACHE_TTL="0.001")
+#: the request every targeted drill poisons
+CHAOS_TARGET = QUERIES[2]
+CHAOS_TARGET_TEXT = "describe the deployment named web"
+#: the one-shot drill NaNs the target's logits in the third chunk that
+#: carries it: every slot has two chunks of tokens to replay
+CHAOS_SKIP = 2
+#: the poison_step drill's resets with 8 suspects and the target third:
+#: the bisection's levels, the budgeted replay and the confirmation, as
+#: the JAX engine counts them on the CPU for the same slot count and
+#: target position (tests/test_torch_containment.py::
+#: test_poison_step_bisection_of_eight_suspects_matches_jax)
+CHAOS_POISON_RESETS = 8
+#: (c): the watchdog's limit, set on the live engine after the warm
+#: bursts; the in-flight requests must fail within the limit plus one
+#: watchdog interval plus this much for HTTP and admission
+CHAOS_WATCHDOG_SECS = 4.0
+CHAOS_HANG_SLACK_S = 1.0
+#: the peak device memory across a reset may exceed the fault-free
+#: burst's peak by at most this share
+CHAOS_PEAK_SLACK = 0.05
+
+
+def phase_serve_chaos(torch) -> dict:
+    """Phase 11: blast-radius containment drilled on Gemma-2B over HTTP:
+    (a) the pool and ragged regime, (b) the dense ladder with paged
+    decode, (c) a hung chunk on (b)'s server."""
+    release_served_apps(torch)
+    return asyncio.run(_serve_chaos(torch))
+
+
+async def _serve_chaos(torch) -> dict:
+    pool, params = await _chaos_server(torch, "pool", {}, None)
+    release_served_apps(torch)
+    dense, _ = await _chaos_server(
+        torch, "dense", {"KV_POOL": "false", "DECODE_ATTN": "paged"}, params)
+    return {"pool": pool, "dense": dense}
+
+
+def _arm_nan_once(inj, target: str, skip: int = CHAOS_SKIP) -> None:
+    """``decode:nan`` on ``target``, once: the (skip+1)-th dispatch that
+    carries it NaNs its logits on the card, then the point disarms."""
+    seen = {"n": 0}
+    orig = type(inj).decode_nan_slots.__get__(inj)
+
+    def once(prompts, replica=None):
+        hits = orig(prompts, replica)
+        if not hits:
+            return hits
+        seen["n"] += 1
+        if seen["n"] <= skip:
+            return []
+        inj.release("decode")
+        return hits
+
+    inj.decode_nan_slots = once
+    inj.target_substr = target
+    inj.set("decode", "nan")
+
+
+def _scrape(text: str) -> dict:
+    """The containment families of a /metrics body, by sample."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    out = {}
+    for fam in text_string_to_metric_families(text):
+        for s in fam.samples:
+            if s.name in ("engine_resets_total", "quarantined_requests_total",
+                          "replayed_tokens_total", "slot_health_trips_total"):
+                key = s.name + "".join(f"{{{k}={v}}}"
+                                       for k, v in sorted(s.labels.items()))
+                out[key] = s.value
+    return out
+
+
+async def _chaos_server(torch, kind: str, env: dict, params):
+    """One engine of phase 11 behind the HTTP app: the fault-free burst,
+    then each drill's burst, every gate checked after its drill."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_pool)
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+    from ai_agent_kubectl_tpu_torch.testing.faults import FaultInjector
+
+    tag = f"serve_chaos/{kind}"
+    port = _free_port()
+    _phase_env({**CHAOS_ENV, **env}, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if (not isinstance(inner, BatchedTorchEngine)
+            or not isinstance(inner.faults, FaultInjector)):
+        raise AssertionError(f"{tag}: engine construction failed, or no "
+                             f"injector threaded in: {inner!r}")
+    if params is not None:
+        inner.params = params
+    inj = inner.faults
+    engine = RecordingEngine(inner)
+    # Seams the gates read: each trip (a containment pass's start, or the
+    # scheduler's death) and the first chunk consumed after it without
+    # another trip; each replay's flash launches.
+    trips: list = []
+    contain, consume = inner._contain_poisoned_step, inner._consume_oldest
+    replay, die = inner._replay_slot, inj.check_scheduler_die
+    replay_flash: list = []
+
+    def on_contain(cause, named=(), error=None):
+        trips.append({"t": time.monotonic(), "cause": cause, "first": None})
+        contain(cause, named=named, error=error)
+
+    def on_consume():
+        n = len(trips)
+        consume()
+        if n and len(trips) == n and trips[-1]["first"] is None:
+            trips[-1]["first"] = time.monotonic()
+
+    def on_replay(slot):
+        n0 = flash_attention_cached.launches
+        replay(slot)
+        replay_flash.append(flash_attention_cached.launches - n0)
+
+    def on_die(*a):
+        try:
+            die(*a)
+        except BaseException:
+            trips.append({"t": time.monotonic(), "cause": "scheduler_death",
+                          "first": None})
+            raise
+
+    inner._contain_poisoned_step, inner._consume_oldest = on_contain, \
+        on_consume
+    inner._replay_slot, inj.check_scheduler_die = on_replay, on_die
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    log(f"[{tag}] {cfg.model_name} up in {time.monotonic() - t0:.1f} s "
+        f"({inner.batch_size} slots, regime {inner._attention_regime}, "
+        f"decode {inner._decode_impl}; retry budget "
+        f"{inner.supervisor.retry_budget}, {cfg.engine_reset_max_per_min} "
+        f"resets a minute, breaker threshold {cfg.breaker_threshold})")
+    url = f"http://{cfg.host}:{port}"
+    # Every kernel's count is zeroed before the fault-free burst and read
+    # after the last drill, so the kernels line's serve_chaos counts are
+    # all measured (0 for a kernel this phase never reaches).
+    counters = (ragged_attention_pool, flash_attention_cached,
+                paged_decode_attention, paged_decode_attention_pool,
+                qmatmul4)
+    target_ids = inner.tokenizer.encode(render_prompt(CHAOS_TARGET))
+    info: dict = {"drills": {}}
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            async def scrape():
+                async with http.get(f"{url}/metrics") as r:
+                    return _scrape(await r.text())
+
+            async def health():
+                async with http.get(f"{url}/health") as r:
+                    return r.status, await r.json()
+
+            async def burst(queries=QUERIES, busy_then=None):
+                """The queries at once; ``busy_then`` arms a drill once
+                every slot decodes. Returns (answers, results, seconds)."""
+                engine.results.clear()
+                t = time.monotonic()
+                task = asyncio.ensure_future(
+                    asyncio.gather(*[ask(q) for q in queries]))
+                if busy_then is not None:
+                    await _wait_slots(inner, len(queries), 1)
+                    busy_then()
+                answers = await task
+                took = time.monotonic() - t
+                results = {p: r for p, r in engine.results}
+                return answers, results, took
+
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ref_answers, ref, ref_s = await burst()
+            torch.cuda.synchronize()
+            steady_peak = torch.cuda.max_memory_allocated()
+            ref_tokens = sum(r.completion_tokens for r in ref.values())
+            _chaos_statuses(tag, "reference", ref_answers, ref,
+                            status_for_text, render_prompt)
+            info["reference"] = {"burst_s": ref_s,
+                                 "burst_tok_per_s": ref_tokens / ref_s}
+            log(f"[{tag}] fault-free burst: {ref_tokens} tokens in "
+                f"{ref_s:.2f} s ({ref_tokens / ref_s:.1f} tok/s)")
+
+            async def drill(name, arm=None, busy_then=None, quarantine=False):
+                stats0 = inner.supervisor.stats()
+                n_trips = len(trips)
+                if arm is not None:
+                    arm()
+                answers, results, took = await burst(busy_then=busy_then)
+                inj.clear()
+                inj.__dict__.pop("decode_nan_slots", None)
+                inj.target_substr = None
+                stats1 = inner.supervisor.stats()
+                d = {k: {c: n - stats0[k].get(c, 0)
+                         for c, n in stats1[k].items()
+                         if n != stats0[k].get(c, 0)}
+                     for k in ("resets", "quarantined")}
+                for k in ("health_trips", "replayed_tokens"):
+                    d[k] = stats1[k] - stats0[k]
+                new = trips[n_trips:]
+                latency = [round((t["first"] - t["t"]) * 1e3, 3)
+                           for t in new if t["first"] is not None]
+                ok = _chaos_statuses(tag, name, answers, results,
+                                     status_for_text, render_prompt,
+                                     quarantined=(CHAOS_TARGET
+                                                  if quarantine else None))
+                mismatches = []
+                for q in ok:
+                    prompt = render_prompt(q)
+                    miss = _first_mismatch(
+                        torch, inner, inner.tokenizer.encode(prompt),
+                        ref[prompt].token_ids, results[prompt].token_ids,
+                        0.0, 0)
+                    if miss is not None:
+                        mismatches.append(dict(miss, query=q))
+                        if miss["gap"] > miss["tolerance"]:
+                            raise AssertionError(
+                                f"{tag} {name}: {q!r} left its fault-free "
+                                f"transcript away from a near tie: {miss}")
+                n_tok = sum(r.completion_tokens for r in results.values())
+                out = {"delta": d, "trip_to_first_replayed_ms": latency,
+                       "causes": [t["cause"] for t in new],
+                       "burst_s": took, "burst_tok_per_s": n_tok / took,
+                       "near_tie_mismatches": mismatches}
+                info["drills"][name] = out
+                log(f"[{tag}] {name}: {d}; trip to first replayed token "
+                    f"{latency} ms; burst {n_tok} tokens in {took:.2f} s "
+                    f"({n_tok / took:.1f} tok/s); "
+                    f"{len(mismatches)} near-tie mismatches")
+                return out
+
+            # One-shot decode:nan at budget 1: replayed, nothing lost.
+            kv_bytes = sum(t.numel() * t.element_size()
+                           for t in (inner._cache.k, inner._cache.v))
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            one = await drill("nan_once", lambda: _arm_nan_once(
+                inj, CHAOS_TARGET_TEXT))
+            torch.cuda.synchronize()
+            reset_peak = torch.cuda.max_memory_allocated()
+            info["memory"] = {"allocated_before_bytes": mem0,
+                              "steady_peak_bytes": steady_peak,
+                              "reset_peak_bytes": reset_peak,
+                              "kv_bytes": kv_bytes,
+                              "ratio": reset_peak / steady_peak}
+            log(f"[{tag}] device memory: {mem0 / 1e9:.3f} GB allocated "
+                f"before the drill, peak {steady_peak / 1e9:.3f} GB over "
+                f"the fault-free burst, {reset_peak / 1e9:.3f} GB across "
+                f"the reset ({reset_peak / steady_peak:.4f}x; the KV "
+                f"{'pool' if kind == 'pool' else 'cache'} is "
+                f"{kv_bytes / 1e9:.3f} GB); {gpu_line()}")
+            # At most 5 % over steady state, and never a second KV pool
+            # or cache resident beside the first (the 5 % alone would
+            # let Gemma-2B's 0.15 GB pool through twice).
+            if (reset_peak > (1 + CHAOS_PEAK_SLACK) * steady_peak
+                    or reset_peak - steady_peak >= kv_bytes / 2):
+                raise AssertionError(
+                    f"{tag}: a reset's peak {reset_peak} B against the "
+                    f"fault-free burst's {steady_peak} B (limit "
+                    f"{CHAOS_PEAK_SLACK:.0%} over, and less than half the "
+                    f"{kv_bytes} B of KV more)")
+            m = await scrape()
+            _, h = await health()
+            if (one["delta"]["resets"] != {"slot_health": 1}
+                    or one["delta"]["quarantined"]
+                    or m.get("engine_resets_total{cause=slot_health}") != 1
+                    or m.get("slot_health_trips_total") != 1
+                    or h.get("last_reset_cause") != "slot_health"
+                    or not h.get("last_reset")):
+                raise AssertionError(f"{tag} nan_once: {one['delta']}, "
+                                     f"/metrics {m}, /health {h}")
+            if kind == "dense":
+                if not replay_flash or min(replay_flash) < \
+                        inner.model_cfg.n_layers:
+                    raise AssertionError(f"{tag}: a replay did not prefill "
+                                         f"through flash: {replay_flash}")
+            else:
+                # Persistent decode:nan on one request: 410 after 2 trips.
+                two = await drill("nan_persistent", lambda: (
+                    setattr(inj, "target_substr", CHAOS_TARGET_TEXT),
+                    inj.set("decode", "nan")), quarantine=True)
+                m = await scrape()
+                if (two["delta"]["resets"] != {"slot_health": 2}
+                        or two["delta"]["quarantined"] != {"slot_health": 1}
+                        or m.get("quarantined_requests_total"
+                                 "{reason=slot_health}") != 1):
+                    raise AssertionError(f"{tag} nan_persistent: "
+                                         f"{two['delta']}, /metrics {m}")
+                # scheduler:die once every slot decodes: zero dropped.
+                die_ = await drill("scheduler_die", busy_then=lambda:
+                                   inj.set("scheduler", "die"))
+                if die_["delta"]["resets"] != {"scheduler_death": 1}:
+                    raise AssertionError(f"{tag} scheduler_die: "
+                                         f"{die_['delta']}")
+                # Persistent decode:poison_step on one request, last: its
+                # resets are the breaker's fifth failure in the window.
+                three = await drill("poison_step", lambda: (
+                    setattr(inj, "target_substr", CHAOS_TARGET_TEXT),
+                    inj.set("decode", "poison_step")), quarantine=True)
+                if (inner.batch_size != 8
+                        or three["delta"]["resets"]
+                        != {"scheduler_error": CHAOS_POISON_RESETS}
+                        or three["delta"]["quarantined"]
+                        != {"step_poison": 1}):
+                    raise AssertionError(f"{tag} poison_step: "
+                                         f"{three['delta']} (the JAX "
+                                         f"engine's {CHAOS_POISON_RESETS} "
+                                         f"resets for 8 slots)")
+                _, h = await health()
+                info["breaker_after_poison_step"] = h["breaker"]
+                log(f"[{tag}] breaker after the poison_step drill: "
+                    f"{h['breaker']} (each reset is a breaker failure)")
+            info["launches"] = {fn.__name__: fn.launches for fn in counters}
+            if kind == "pool" and info["launches"][
+                    "ragged_attention_pool"] <= 0:
+                raise AssertionError(f"{tag}: no ragged launch")
+            if kind == "dense" and (
+                    info["launches"]["flash_attention_cached"] <= 0
+                    or info["launches"]["paged_decode_attention"] <= 0):
+                raise AssertionError(f"{tag}: launches {info['launches']}")
+            log(f"[{tag}] launches: {info['launches']}; replay flash "
+                f"launches {replay_flash[:8]}")
+            if kind == "dense":
+                info["hang"] = await _chaos_hang(
+                    tag, inner, inj, ask, health, burst, status_for_text,
+                    render_prompt)
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+    if kind == "pool":
+        check_pool_books(inner)
+    return info, inner.params
+
+
+def _chaos_statuses(tag, name, answers, results, status_for_text,
+                    render_prompt, quarantined=None) -> list:
+    """Every answer as the service decides for the engine's text, the
+    quarantined query's 410 excepted. Returns the served queries."""
+    ok = []
+    for q, (status, body) in zip(QUERIES, answers):
+        if q == quarantined:
+            if status != 410 or "quarantined" not in body.get("detail", ""):
+                raise AssertionError(f"{tag} {name}: the poisoned request "
+                                     f"answered {status}: {body}")
+            continue
+        res = results.get(render_prompt(q))
+        if res is None:
+            raise AssertionError(f"{tag} {name}: {q!r} answered {status} "
+                                 f"without an engine result: {body}")
+        want = status_for_text(res.text)
+        if status != want:
+            raise AssertionError(f"{tag} {name}: {q!r} HTTP {status}, the "
+                                 f"service gives {want}: {body}")
+        ok.append(q)
+    return ok
+
+
+async def _chaos_hang(tag, inner, inj, ask, health, burst, status_for_text,
+                      render_prompt) -> dict:
+    """(c): after the warm bursts the watchdog's limit drops to
+    CHAOS_WATCHDOG_SECS on the live engine, and chunk:hang blocks the
+    scheduler in a dispatch. Two requests in flight fail with 503 within
+    the limit plus one interval; /health turns not ready; after release
+    the engine is ready again and a fresh burst is served."""
+    inner.watchdog_secs = CHAOS_WATCHDOG_SECS
+    interval = max(1.0, CHAOS_WATCHDOG_SECS / 4.0)
+    inj.set("chunk", "hang", 120.0)
+    t0 = time.monotonic()
+
+    async def timed(q):
+        status, body = await ask(q)
+        return status, time.monotonic() - t0, body
+
+    hung = await asyncio.gather(*[timed(f"{q} while hung")
+                                  for q in QUERIES[:2]])
+    limit_s = CHAOS_WATCHDOG_SECS + interval + CHAOS_HANG_SLACK_S
+    h_status, h = await health()
+    inj.release("chunk")
+    t_rel = time.monotonic()
+    while time.monotonic() - t_rel < 30.0:
+        r_status, _ = await health()
+        if r_status == 200:
+            break
+        await asyncio.sleep(0.1)
+    ready_s = time.monotonic() - t_rel
+    answers, results, took = await burst(
+        queries=[f"{q} after the hang" for q in QUERIES])
+    for q, (status, body) in zip([f"{q} after the hang" for q in QUERIES],
+                                 answers):
+        res = results.get(render_prompt(q))
+        if res is None or status != status_for_text(res.text):
+            raise AssertionError(f"{tag} hang: {q!r} after release "
+                                 f"answered {status}: {body}")
+    f_status, f = await health()
+    out = {"failed": [(s, round(t, 3)) for s, t, _ in hung],
+           "limit_s": limit_s, "health_while_hung": h_status,
+           "ready_after_release_s": ready_s, "health_after": f_status,
+           "breaker_after": f["breaker"]}
+    log(f"[{tag}] chunk:hang at a {CHAOS_WATCHDOG_SECS:.0f} s watchdog: "
+        f"{out['failed']} (limit {limit_s:.1f} s), /health {h_status} while "
+        f"hung, ready {ready_s:.2f} s after release, then a burst of "
+        f"{len(answers)} served in {took:.2f} s; /health {f_status} "
+        f"(breaker {f['breaker']})")
+    if (any(s != 503 or t > limit_s for s, t, _ in hung)
+            or h_status != 503 or h.get("engine_ready")
+            or r_status != 200 or f_status != 200):
+        raise AssertionError(f"{tag} hang: {out}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -4587,6 +5071,8 @@ def main() -> int:
     if "serve_obs" in phases:
         results["serve_obs"] = phase_serve_obs(torch,
                                                results.get("serve", {}))
+    if "serve_chaos" in phases:
+        results["serve_chaos"] = phase_serve_chaos(torch)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),

@@ -967,3 +967,81 @@ def test_ragged_kernel_spans_bill_to_attention(card, tmp_path, scoped):
     attr.validate_attribution(art)
     cats = {c["name"]: c["ms_per_step"] for c in art["categories"]}
     assert cats["attention"] > 0
+
+
+def test_one_shot_nan_replays_on_the_card(card):
+    """toy-8m in bf16 on the card, the pool and ragged regime, 4 slots:
+    a one-shot decode:nan on one request in its third chunk trips the
+    card's own health check; at QUARANTINE_RETRY_BUDGET=1 the engine
+    resets and replays every slot. All four complete, and each
+    transcript equals the fault-free one or leaves it first at a near
+    tie: the replay builds the generated tokens' KV by prefill where the
+    first run built it in decode, and bf16 can flip a pick whose top-2
+    gap is within 5 % of the logits' rms (chip_smoke.py's gate)."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models import transformer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.testing.faults import FaultInjector
+
+    prompts = [f"pod q{i} " for i in range(4)]
+    inj = FaultInjector()
+    eng = BatchedTorchEngine(
+        get_config("toy-8m"), tokenizer=ByteTokenizer(), device="cuda",
+        dtype="bfloat16", max_seq_len=128, prefill_buckets=(16, 32),
+        batch_size=4, chunk_len=4, prefix_cache=False, faults=inj)
+
+    async def burst():
+        res = await asyncio.gather(*[eng.generate(p, max_tokens=24,
+                                                  seed=100 + i)
+                                     for i, p in enumerate(prompts)])
+        return {p: list(r.token_ids) for p, r in zip(prompts, res)}
+
+    async def drill():
+        await eng.start()
+        try:
+            want = await burst()
+            seen = {"n": 0}
+            orig = inj.decode_nan_slots
+
+            def once(slot_prompts, replica=None):
+                hits = orig(slot_prompts, replica)
+                if hits:
+                    seen["n"] += 1
+                    if seen["n"] <= 2:
+                        return []
+                    inj.release("decode")
+                return hits
+
+            inj.decode_nan_slots = once
+            inj.target_substr = "pod q2 "
+            inj.set("decode", "nan")
+            return want, await burst(), eng.stats()["containment"]
+        finally:
+            await eng.stop()
+
+    want, got, c = asyncio.run(drill())
+    assert c["resets"] == {"slot_health": 1} and c["quarantined"] == {}
+    assert c["health_trips"] == 1 and c["replayed_tokens"] > 0
+    for p in prompts:
+        a, b = want[p], got[p]
+        if a == b:
+            continue
+        k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        ids = eng.tokenizer.encode(p) + a[:k]
+        P, pages = len(ids), -(-len(ids) // 16)
+        with torch.no_grad():
+            cache = transformer.KVCache.pool(eng.model_cfg, pages, 16,
+                                             dtype=eng.dtype, device=card)
+            logits, _ = transformer.forward(
+                eng.params, eng.model_cfg, torch.tensor([ids], device=card),
+                torch.arange(P, dtype=torch.int32, device=card)[None], cache,
+                block_tables=torch.arange(pages, dtype=torch.int32,
+                                          device=card)[None],
+                logits_at=torch.tensor([P - 1], device=card))
+        row = logits[0, 0].float()
+        top2 = torch.topk(row, 2).values
+        assert float(top2[0] - top2[1]) <= 0.05 * float(
+            row.pow(2).mean().sqrt()), (p, k)

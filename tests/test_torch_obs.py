@@ -445,11 +445,11 @@ def test_fault_c4_brownout_reads_the_slo_burn_rate(jax_params):
 
 
 async def test_health_tripped_request_bills_quarantine_burn(jax_params):
-    """The port ends a health-tripped request with RequestQuarantined:
-    its generated tokens bill quarantine_burn (the JAX containment
-    pass's class for a terminal quarantine), not delivered, and the
-    books balance."""
-    eng = _port_engine(jax_params, batch_size=1)
+    """A health-tripped request past its retry budget (0 here: quarantine
+    on the first trip) ends with RequestQuarantined: its generated
+    tokens bill quarantine_burn (the JAX containment pass's class for a
+    terminal quarantine), not delivered, and the books balance."""
+    eng = _port_engine(jax_params, batch_size=1, quarantine_retry_budget=0)
     await eng.start()
     try:
         orig = eng._sample

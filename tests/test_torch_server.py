@@ -228,15 +228,11 @@ REFUSED = [
     ("GRAMMAR_PROFILE", "readonly"), ("GRAMMAR_FORCED_RUN_MIN", "8"),
     ("HOST_KV_BLOCKS", "64"), ("CHUNK_PIPE_DEPTH", "3"),
     ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
-    ("ENGINE_WATCHDOG_SECS", "30"), ("ENGINE_STARTUP_GRACE_SECS", "60"),
-    ("QUARANTINE_RETRY_BUDGET", "3"), ("ENGINE_RESET_MAX_PER_MIN", "2"),
-    ("FAULT_POINTS", "generate:error:1.0"), ("FLEET_SIZE", "2"),
+    ("FLEET_SIZE", "2"),
     ("FLEET_HEDGE_MS", "50"), ("FLEET_AFFINITY", "false"),
     ("FLEET_MIGRATION_BUDGET", "1"), ("FLEET_REJOIN_SECS", "5"),
     ("ROLLOUT_CANARY_SHARE", "0.5"), ("ROLLOUT_OBSERVE_SECS", "5"),
     ("ROLLOUT_BURN_GATE", "3"), ("ROLLOUT_STEPTIME_GATE", "2"),
-    ("OPENAI_API_KEY", "sk-x"), ("OPENAI_MODEL", "gpt-4"),
-    ("OPENAI_BASE_URL", "http://localhost:1"),
     ("MESH_SHAPE", "data:1,model:8"), ("DCN_MESH_SHAPE", "data:2"),
     ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
     ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
@@ -255,6 +251,31 @@ def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
         ServiceConfig.from_env()
     monkeypatch.setenv(knob, UNSERVED_KNOBS[knob])
     assert ServiceConfig.from_env().engine == "torch"
+
+
+#: the containment and OpenAI knobs, refused until the port served them:
+#: each value is now read into the field the JAX from_env fills
+SERVED_SINCE_CONTAINMENT = [
+    ("ENGINE_WATCHDOG_SECS", "30", "engine_watchdog_secs"),
+    ("ENGINE_STARTUP_GRACE_SECS", "60", "engine_startup_grace_secs"),
+    ("QUARANTINE_RETRY_BUDGET", "3", "quarantine_retry_budget"),
+    ("ENGINE_RESET_MAX_PER_MIN", "2", "engine_reset_max_per_min"),
+    ("FAULT_POINTS", "generate:error:1.0", "fault_points"),
+    ("OPENAI_API_KEY", "sk-x", "openai_api_key"),
+    ("OPENAI_MODEL", "gpt-4", "openai_model"),
+    ("OPENAI_BASE_URL", "http://localhost:1", "openai_base_url"),
+]
+
+
+@pytest.mark.parametrize("knob,value,field", SERVED_SINCE_CONTAINMENT)
+def test_config_reads_the_containment_and_openai_knobs(monkeypatch, knob,
+                                                       value, field):
+    monkeypatch.setenv(knob, value)
+    assert knob not in UNSERVED_KNOBS
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert getattr(ours, field) == getattr(theirs, field)
+    assert str(getattr(ours, field)) in (value, f"{float(value)}"
+                                         if value.isdigit() else value)
 
 
 #: the QoS knobs the port reads (no longer refused), each with a value
@@ -375,13 +396,22 @@ def test_config_reads_kv_quant_as_the_jax_package(monkeypatch, value):
         ServiceConfig.from_env()
 
 
-@pytest.mark.parametrize("engine", ["openai", "fake", "jax",
-                                    "jax-batched"])
+@pytest.mark.parametrize("engine", ["fake", "jax", "jax-batched"])
 def test_config_refuses_the_jax_packages_engines_by_name(monkeypatch,
                                                          engine):
     monkeypatch.setenv("ENGINE", engine)
     with pytest.raises(ValueError, match=f"ENGINE={engine} "):
         ServiceConfig.from_env()
+
+
+def test_config_serves_engine_openai(monkeypatch):
+    """ENGINE=openai, refused by name until the port served it, boots
+    with the JAX package's OpenAI knobs."""
+    monkeypatch.setenv("ENGINE", "openai")
+    monkeypatch.setenv("OPENAI_API_KEY", "sk-x")
+    cfg = ServiceConfig.from_env()
+    assert (cfg.engine, cfg.openai_api_key, cfg.openai_model) == (
+        "openai", "sk-x", JaxServiceConfig.from_env().openai_model)
 
 
 def _knobs_read(module) -> set:
