@@ -24,7 +24,13 @@ per-request replay budget (``QUARANTINE_RETRY_BUDGET``), the reset rate
 limit (``ENGINE_RESET_MAX_PER_MIN``) and the fault drills
 (``FAULT_POINTS``, parsed by ``server/factory.py``), and the remote
 engine's ``OPENAI_API_KEY``, ``OPENAI_MODEL`` and ``OPENAI_BASE_URL``,
-all with the JAX defaults.
+all with the JAX defaults. Grammar-constrained decoding
+(``GRAMMAR_DECODE``, ``GRAMMAR_PROFILE``, ``GRAMMAR_FORCED_RUN_MIN``)
+is read with the JAX errors and the boot-time safety cross-check. It
+lives in the continuous-batching engine only: where the JAX
+single-sequence engine ignores ``GRAMMAR_DECODE=true``, the port
+refuses it at boot for an engine that would not enforce it (the
+single-sequence engine at ``DECODE_BATCH_SIZE=1``, or ``ENGINE=openai``).
 """
 
 from __future__ import annotations
@@ -42,14 +48,13 @@ from .obs.steptime import load_baselines
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # the rest of the batched engine (A7): speculative and grammar
-    # decode, the two-tier host KV, chunk pipelining (the port fetches
-    # each chunk before the next dispatch, on device-side termination),
-    # group admission
+    # the rest of the batched engine (A7): speculative decode, the
+    # two-tier host KV, chunk pipelining (the port fetches each chunk
+    # before the next dispatch, on device-side termination), group
+    # admission
     "SPEC_DECODE": "false", "SPEC_DRAFT_K": "4",
     "SPEC_DRAFT_MODEL": "gemma-2b-it", "SPEC_DRAFT_PATH": "",
-    "GRAMMAR_DECODE": "false", "GRAMMAR_PROFILE": "default",
-    "GRAMMAR_FORCED_RUN_MIN": "4", "HOST_KV_BLOCKS": "0",
+    "HOST_KV_BLOCKS": "0",
     "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
     "ADMIT_SCRATCH_MB": "512",
     # fleet and weight rollout (A7; ROLLOUT_STEPTIME_GATE is the
@@ -236,6 +241,17 @@ class ServiceConfig:
     openai_api_key: Optional[str] = None    # OPENAI_API_KEY
     openai_model: str = "gpt-3.5-turbo"     # OPENAI_MODEL
     openai_base_url: Optional[str] = None   # OPENAI_BASE_URL
+    # Grammar-constrained decoding (constrain/): the kubectl grammar
+    # compiled against the tokenizer into a token FSM, illegal logits
+    # masked on the device (unsafe commands cannot be produced), forced
+    # runs spliced as one prefill. The batched engine only; off by
+    # default. The base profile: default (read-only and mutating verbs),
+    # readonly (what a background-tier tenant is clamped to), or
+    # permissive (the plumbing on, the language unconstrained). The
+    # shortest forced run worth a splice.
+    grammar_decode: bool = False            # GRAMMAR_DECODE
+    grammar_profile: str = "default"        # GRAMMAR_PROFILE
+    grammar_forced_run_min: int = 4         # GRAMMAR_FORCED_RUN_MIN
 
     # QoS ring (engine/qos.py), as in the JAX package. TENANT_TIERS maps
     # a tenant key (a registered API key, else the client IP) to the
@@ -413,6 +429,41 @@ class ServiceConfig:
             raise ValueError(
                 f"INCIDENT_THRASH_MIN_BLOCKS must be >= 0 (0 disables), "
                 f"got {self.incident_thrash_min_blocks}")
+        # The grammar knobs, with the JAX errors: a typo'd profile must
+        # refuse to boot, not serve unconstrained output behind a knob
+        # that says otherwise.
+        from .constrain.runtime import PROFILES
+
+        if self.grammar_profile not in PROFILES:
+            raise ValueError(
+                f"GRAMMAR_PROFILE must be one of {PROFILES}, "
+                f"got {self.grammar_profile!r}")
+        if self.grammar_forced_run_min < 1:
+            raise ValueError(
+                f"GRAMMAR_FORCED_RUN_MIN must be >= 1, "
+                f"got {self.grammar_forced_run_min}")
+        if self.grammar_decode and not self.batched_engine:
+            raise ValueError(
+                f"GRAMMAR_DECODE=true is enforced by the continuous-"
+                f"batching engine only (ENGINE=torch with "
+                f"DECODE_BATCH_SIZE>1, or ENGINE=torch-batched); "
+                f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
+                f"{self.decode_batch_size} would serve unconstrained "
+                f"output")
+        if self.grammar_decode:
+            # The boot-time cross-check: every safety-blocked verb is
+            # absent from every profile.
+            from .constrain import assert_safety_consistent
+
+            assert_safety_consistent()
+
+    @property
+    def batched_engine(self) -> bool:
+        """Whether the factory builds the continuous-batching engine:
+        ``ENGINE=torch-batched``, or ``torch`` at ``DECODE_BATCH_SIZE`` >
+        1 (the JAX factory's rule)."""
+        return self.engine == "torch-batched" or (
+            self.engine == "torch" and self.decode_batch_size > 1)
 
     @property
     def slo_window_list(self) -> Tuple[int, ...]:
@@ -527,6 +578,10 @@ class ServiceConfig:
             openai_api_key=_env_str("OPENAI_API_KEY", None),
             openai_model=_env_str("OPENAI_MODEL", "gpt-3.5-turbo"),
             openai_base_url=_env_str("OPENAI_BASE_URL", None),
+            grammar_decode=_env_bool("GRAMMAR_DECODE", False),
+            grammar_profile=(_env_str("GRAMMAR_PROFILE", "default")
+                             or "default").lower(),
+            grammar_forced_run_min=_env_int("GRAMMAR_FORCED_RUN_MIN", 4),
             tenant_tiers=_env_str("TENANT_TIERS", "") or "",
             qos_default_lane=(
                 _env_str("QOS_DEFAULT_LANE", "interactive")

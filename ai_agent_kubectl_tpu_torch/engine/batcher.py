@@ -105,6 +105,22 @@ entry of the in-flight list. In every regime:
   device input of ``_run_chunk`` that NaN-fills the target's logits, so
   the real health detection catches it), ``decode:poison_step`` at the
   chunk fetch, ``scheduler:die`` and ``tenant:flood``.
+- **Grammar-constrained decoding** (``GRAMMAR_DECODE``, the JAX
+  engine's; ``constrain/``): the chunk carries a per-slot FSM state
+  word ``gs`` (``_fsm_d``, the global state ``pid * S_max + s``) and
+  reads the stacked tables (``tok_class``, ``class_ok``,
+  ``class_next``, refreshed by the runtime's version at dispatch). Each
+  step, the ragged prologue included, masks illegal logits to -inf
+  before the draw (and before the greedy argmax), freezes a slot with no
+  legal token on ``HEALTH_GRAMMAR_DEAD`` (the containment lane replays
+  or quarantines it) and advances ``gs`` by the sampled token's class.
+  The host keeps each slot's state over the tokens it consumed. A forced
+  run (a chain of states with one legal token each) of at least
+  ``GRAMMAR_FORCED_RUN_MIN`` tokens is spliced as ONE prefill instead of
+  decoded: at admission with the prompt (the pool regimes), and
+  mid-stream after a consume (``_grammar_fast_forward``, the pool
+  regimes only). Forced tokens take generation indices but no
+  randomness, so transcripts equal masked step-by-step decode.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -115,10 +131,9 @@ address) cannot be contained: every later call fails, the resets spend
 their budget, and fail-fast and the breaker take over.
 
 Not in this slice (each raises or is simply absent; ROADMAP lists them):
-speculative decoding, grammar-constrained decoding, group admission
-(``ADMIT_KPADS``) on the dense ladder, the host KV tier, and a chunk
-pipeline deeper than one (the host fetches each chunk before it
-dispatches the next).
+speculative decoding, group admission (``ADMIT_KPADS``) on the dense
+ladder, the host KV tier, and a chunk pipeline deeper than one (the
+host fetches each chunk before it dispatches the next).
 """
 
 from __future__ import annotations
@@ -154,7 +169,8 @@ from .containment import (CAUSE_SCHEDULER_DEATH, CAUSE_SCHEDULER_ERROR,
                           CAUSE_SLOT_HEALTH, PROBATION_CLEAN_CHUNKS,
                           REASON_HEALTH, REASON_ISOLATED, EngineSupervisor)
 from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
-from .protocol import (HEALTH_NONFINITE, HEALTH_TOKEN_RANGE,
+from .protocol import (HEALTH_GRAMMAR_DEAD, HEALTH_NONFINITE,
+                       HEALTH_TOKEN_RANGE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
                        GenerationTimeout, RequestQuarantined,
                        TenantOverloaded, consume_chunk_row, describe_health,
@@ -163,7 +179,8 @@ from .qos import (ANON_TENANT, LANE_BACKGROUND, LANE_BATCH,
                   LANE_INTERACTIVE, LANES, BrownoutController, QoSQueue,
                   SessionBudgets, current_qos, lane_rank)
 from .radix_cache import RadixCache
-from .sampling import eos_mask, greedy_tokens, sample_tokens_seeded
+from .sampling import (apply_mask, eos_mask, greedy_tokens,
+                       sample_tokens_seeded)
 from .tokenizer import StreamDecoder
 from .torch_engine import TorchEngine, engine_kwargs, kv_bucket_ladder
 
@@ -201,11 +218,15 @@ def resolve_decode_attn(decode_attn: str, cfg, *, kv_quant: str = "",
 
 def termination_fold(nxt, step_logits, prev_tok, live, ngen, budget,
                      health, eos_ids, vocab_size: int,
-                     health_check: bool):
+                     health_check: bool, grammar=None):
     """The per-step termination fold of the JAX chunk body, on [N]
     device tensors: health bits freeze a slot before its token counts,
-    frozen rows repeat their previous token, EOS and the token budget end
-    a slot. Returns ``(nxt, live, ngen, health, counted)``."""
+    the FSM state word of every row that really sampled advances by its
+    token's class (``grammar`` = ``(gs, tc, class_next)``: [N] states,
+    the [N, V] token -> class rows, the stacked table), frozen rows
+    repeat their previous token, EOS and the token budget end a slot.
+    Returns ``(nxt, live, ngen, health, counted, gs)`` (``gs`` None
+    without a grammar)."""
     if health_check:
         bad_logit = ~torch.isfinite(step_logits).all(dim=-1)
         health = health | (live & bad_logit).to(health.dtype) \
@@ -215,13 +236,49 @@ def termination_fold(nxt, step_logits, prev_tok, live, ngen, budget,
             health = health | (live & bad_tok).to(health.dtype) \
                 * HEALTH_TOKEN_RANGE
         live = live & (health == 0)
+    gs = None
+    if grammar is not None:
+        # The EOS class self-loops, so a terminating row parks in place;
+        # frozen rows keep their state.
+        gs, tc, class_next = grammar
+        cls = torch.gather(
+            tc, 1, nxt.clamp(0, tc.shape[1] - 1).long()[:, None])[:, 0]
+        gs = torch.where(live, class_next[gs, cls], gs)
     nxt = torch.where(live, nxt, prev_tok)
     hit_eos = eos_mask(nxt, eos_ids) & live
     counted = live & ~hit_eos
     ngen = ngen + counted.to(torch.int32)
     done_now = hit_eos | (counted & (ngen >= budget))
     live = live & ~done_now
-    return nxt, live, ngen, health, counted
+    return nxt, live, ngen, health, counted, gs
+
+
+def step_fold(step_logits, prev_tok, live, ngen, budget, health, gram,
+              sample, eos_ids, vocab_size: int, health_check: bool):
+    """THE per-step fold, shared by the ragged prologue and the step loop,
+    in the JAX chunk body's order: the grammar mask (a live row with no
+    legal token freezes on HEALTH_GRAMMAR_DEAD before it samples), the
+    draw ``sample(step_logits, ngen, live[, mask])`` (the mask passed
+    only under a grammar), then ``termination_fold`` (health, the FSM
+    advance, EOS and budget).
+    ``gram`` is ``(gs, tc, ok, next)``: the [N] state words, the chunk's
+    hoisted [N, V] token -> class rows and the two stacked tables; None
+    without a grammar. Returns ``(nxt, live, ngen, health, counted,
+    gs)``."""
+    mask = grammar = None
+    if gram is not None:
+        gs, tc, ok_d, next_d = gram
+        with scope("grammar_mask"):
+            mask = torch.gather(ok_d[gs], 1, tc)
+            dead = live & ~mask.any(dim=-1)
+            health = health | dead.to(health.dtype) * HEALTH_GRAMMAR_DEAD
+            live = live & ~dead
+        grammar = (gs, tc, next_d)
+    nxt = (sample(step_logits, ngen, live) if mask is None
+           else sample(step_logits, ngen, live, mask))
+    return termination_fold(nxt, step_logits, prev_tok, live, ngen, budget,
+                            health, eos_ids, vocab_size, health_check,
+                            grammar=grammar)
 
 
 @dataclasses.dataclass
@@ -276,6 +333,10 @@ class _Request:
     prompt: str = ""
     suspect_count: int = 0
     suspect: bool = False
+    # Grammar-constrained decoding: the profile id resolved at submit
+    # (the base profile, clamped readonly for the background lane or on
+    # request, narrowed by allowed verbs); -1 with no grammar.
+    gpid: int = -1
 
 
 @dataclasses.dataclass
@@ -297,6 +358,12 @@ class _Slot:
     # radix chain inserted at finish.
     blocks: Optional[List[int]] = None
     pool_ids: Optional[List[int]] = None
+    # Grammar: the FSM state over the tokens consumed so far (host
+    # truth; the device carries its own copy in _fsm_d), and the
+    # in-flight chunks a fast-forward spliced over, whose rows the
+    # consume skips (always 0 at pipe depth one).
+    gs: int = 0
+    stale_chunks: int = 0
 
 
 class BatchedTorchEngine(TorchEngine):
@@ -341,6 +408,9 @@ class BatchedTorchEngine(TorchEngine):
                  reset_max_per_min: int = 12,
                  watchdog_secs: float = 120.0,
                  startup_grace_secs: float = 900.0,
+                 grammar_decode: bool = False,
+                 grammar_profile: str = "default",
+                 grammar_forced_run_min: int = 4,
                  faults=None,
                  **kwargs):
         super().__init__(*args, **kwargs)
@@ -485,6 +555,21 @@ class BatchedTorchEngine(TorchEngine):
         self.forward_steps = 0
         #: decode steps (one query per slot) run by the decode chunks.
         self.decode_steps = 0
+        # Grammar-constrained decoding: the runtime is compiled against
+        # the tokenizer at start (and kept across restarts); its stacked
+        # tables reach the device at dispatch, refreshed by version.
+        # Cumulative counters (scheduler-thread writes, racy scrape
+        # reads): tokens delivered by forced-run splices, tokens sampled
+        # under the mask, dead ends by cause, and splice events.
+        self.grammar_decode = bool(grammar_decode)
+        self.grammar_profile = grammar_profile
+        self.grammar_forced_run_min = max(1, grammar_forced_run_min)
+        self._grammar = None
+        self._grammar_version = -1
+        self._grammar_forced = 0
+        self._grammar_masked = 0
+        self._grammar_dead_ends: dict = {}
+        self._grammar_ff_splices = 0
         # Resolved at startup (_resolve_regime).
         self._decode_impl = ""
         self._attention_regime = ""
@@ -527,6 +612,9 @@ class BatchedTorchEngine(TorchEngine):
             reset_max_per_min=cfg.engine_reset_max_per_min,
             watchdog_secs=cfg.engine_watchdog_secs,
             startup_grace_secs=cfg.engine_startup_grace_secs,
+            grammar_decode=cfg.grammar_decode,
+            grammar_profile=cfg.grammar_profile,
+            grammar_forced_run_min=cfg.grammar_forced_run_min,
             faults=faults,
             **engine_kwargs(cfg),
         )
@@ -546,6 +634,8 @@ class BatchedTorchEngine(TorchEngine):
         self._first_consumed = False    # re-arm the cold-start grace
         self._load()
         cfg = self.model_cfg
+        if self.grammar_decode and self._grammar is None:
+            self._grammar_start()
         self._resolve_regime()
         if not self.kv_pool:
             self._init_prefix_cache()
@@ -576,6 +666,21 @@ class BatchedTorchEngine(TorchEngine):
                      f"{self.kv_pool_page} tokens" if self.kv_pool
                      else f"dense cache of {self._S_alloc} positions"),
                     self.chunk_len)
+
+    def _grammar_start(self) -> None:
+        """Compile the kubectl grammar against this tokenizer (host numpy
+        truth), after the boot-time cross-check with the safety ring."""
+        from ..constrain import GrammarRuntime, assert_safety_consistent
+
+        assert_safety_consistent()
+        self._grammar = GrammarRuntime(
+            self.tokenizer, self.model_cfg.vocab_size,
+            self.model_cfg.eos_ids, profile=self.grammar_profile,
+            forced_run_min=self.grammar_forced_run_min)
+        h = self._grammar.health()
+        logger.info("grammar-constrained decode on: profile=%s hash=%s "
+                    "states=%d classes=%d", self.grammar_profile,
+                    h["grammar_hash"], h["states"], h["classes"])
 
     def _resolve_regime(self) -> None:
         """The JAX engine's startup resolution (without its mesh and
@@ -700,6 +805,10 @@ class BatchedTorchEngine(TorchEngine):
         # The decode:nan seam's input when no drill is armed: a fixed
         # [N] bool tensor, so the chunk keeps one input set.
         self._no_corrupt_d = torch.zeros((N,), dtype=torch.bool, device=dev)
+        # Each slot's FSM state word (global state), re-armed from host
+        # truth by every admission and replay.
+        self._fsm_d = (torch.zeros((N,), dtype=torch.int64, device=dev)
+                       if self._grammar is not None else None)
 
     # ------------------------------------------------ block-paged KV pool
 
@@ -870,7 +979,14 @@ class BatchedTorchEngine(TorchEngine):
         token and arms the slot in the same forward as everyone else's
         decode step); only a head beyond the widest admission window
         prefills here. The legacy ladder prefills the whole suffix here,
-        samples the first token and arms the slot (``_admit_eager``)."""
+        samples the first token and arms the slot (``_arm_first``).
+
+        Under the grammar, the forced run from the START state (``kubectl
+        `` and on, when it reaches GRAMMAR_FORCED_RUN_MIN or ends the
+        command) rides the same prefill as the prompt: the slot starts at
+        generation index ``len(run)``. A run that ends the request
+        (budget or EOS next) finishes it here; under pool pressure the
+        run is decoded instead."""
         slot_idx = self._slots.index(None)
         t_adm = time.monotonic()
         wait_ms = (t_adm - req.t_submit) * 1000.0
@@ -881,40 +997,88 @@ class BatchedTorchEngine(TorchEngine):
         if len(ids) > max_prompt:
             ids = ids[-max_prompt:]
         n_prompt = len(ids)
+        run: List[int] = []
+        ends_eos = False
+        gs1 = -1
+        if self._grammar is not None and req.gpid >= 0:
+            gs1 = self._grammar.start_state(req.gpid)
+            run, ends_eos, gs_end = self._grammar.forced_run(
+                gs1, req.max_tokens)
+            if len(run) >= self.grammar_forced_run_min or (
+                    ends_eos and run):
+                gs1 = gs_end
+            else:
+                run, ends_eos = [], False
+        full = ids + run
         blocks, m = self._pool_map_prefix(ids)
         # A seating that radix-matched at least one full page is a warm
         # re-admission: the only kind the session TTFT SLO judges.
         req.radix_warm = m >= self.kv_pool_page
         first_d = staged = None
         try:
+            grow = pages_for(len(full), self.kv_pool_page) - len(blocks)
+            if grow > 0:
+                extra = self._pool_alloc(grow)
+                if extra is None:       # pool pressure: decode the run
+                    run, ends_eos, full = [], False, ids
+                    gs1 = self._grammar.start_state(req.gpid)
+                else:
+                    blocks = blocks + extra
             self._tables[slot_idx, :] = self._pool_n_blocks
             self._tables[slot_idx, :len(blocks)] = blocks
-            if self._decode_impl == "ragged":
-                stage_start = max(m, n_prompt - self.prefill_buckets[-1])
+            done_at_admit = bool(run) and (len(run) >= req.max_tokens
+                                           or ends_eos)
+            span = full[:-1] if done_at_admit else full
+            if done_at_admit:
+                # The run's rows still back the radix chain at finish.
+                self._pool_prefill_span(self._tables[slot_idx], span, m)
+            elif self._decode_impl == "ragged":
+                stage_start = max(m, len(span) - self.prefill_buckets[-1])
                 if stage_start > m:
                     self._pool_prefill_span(self._tables[slot_idx],
-                                            ids[:stage_start], m)
-                staged = dict(ids=ids[stage_start:], start=stage_start)
-                # The slot's budget, count and live flag go to the device
-                # now; its token, position and first sample come from the
-                # prologue.
+                                            span[:stage_start], m)
+                staged = dict(ids=span[stage_start:], start=stage_start)
+                # The slot's budget, count, live flag and FSM state go to
+                # the device now; its token, position and first sample
+                # come from the prologue.
                 self._run_arm(slot_idx, stage_start, 0, req.temperature,
-                              req.max_tokens, req.seed, 0)
+                              req.max_tokens, req.seed, len(run))
+                if gs1 >= 0:
+                    self._grammar_arm(slot_idx, gs1)
             else:
                 last_logits = self._pool_prefill_span(
-                    self._tables[slot_idx], ids, m)
+                    self._tables[slot_idx], span, m)
                 first_d = self._arm_first(slot_idx, last_logits, req,
-                                          n_prompt)
+                                          n_prompt + len(run), gs=gs1,
+                                          ngen0=len(run))
         except Exception:
             self._tables[slot_idx, :] = self._pool_n_blocks
             self._pool.decref(blocks)
             raise
-        self._slots[slot_idx] = _Slot(
+        slot = _Slot(
             req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
-            pos=n_prompt, queue_ms=wait_ms, t_admit=t_adm,
-            chunks_inflight=0 if staged is not None else 1,
-            prefix_hit=m > 0, blocks=blocks, pool_ids=ids)
-        if staged is not None:
+            pos=n_prompt + len(run), queue_ms=wait_ms, t_admit=t_adm,
+            chunks_inflight=(0 if done_at_admit or staged is not None
+                             else 1),
+            prefix_hit=m > 0, blocks=blocks, pool_ids=ids, gs=gs1)
+        self._slots[slot_idx] = slot
+        if run:
+            piece = slot.detok.push(*run)
+            if req.t_first0 is None:
+                req.t_first0 = time.monotonic()
+            if piece is not None:
+                self._emit(req, "token", piece)
+            self._grammar_forced += len(run)
+            self._grammar_ff_splices += 1
+            if req.trace is not None:
+                req.trace.event(
+                    f"grammar: admission forced run of {len(run)} tokens "
+                    f"spliced with the prompt prefill")
+        if done_at_admit:
+            slot.t_first = time.monotonic()
+            self._finish(slot_idx, "stop" if ends_eos
+                         and len(run) < req.max_tokens else "length")
+        elif staged is not None:
             self._pending_adm[slot_idx] = staged
         else:
             self._inflight.append(("first", first_d, req, slot_idx))
@@ -934,11 +1098,16 @@ class BatchedTorchEngine(TorchEngine):
         last_logits, scratch, n_prompt, prefix_hit = self._prefill_prompt(
             req.prompt_ids, req.max_tokens)
         self._splice_scratch(slot_idx, scratch, n_prompt)
-        first_d = self._arm_first(slot_idx, last_logits, req, n_prompt)
+        # Under the grammar the first sample is masked to the START
+        # state's legal set (masking only: a splice needs the pool).
+        gs0 = (self._grammar.start_state(req.gpid)
+               if self._grammar is not None and req.gpid >= 0 else -1)
+        first_d = self._arm_first(slot_idx, last_logits, req, n_prompt,
+                                  gs=gs0)
         self._slots[slot_idx] = _Slot(
             req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
             pos=n_prompt, queue_ms=wait_ms,
-            t_admit=t_adm, chunks_inflight=1, prefix_hit=prefix_hit)
+            t_admit=t_adm, chunks_inflight=1, prefix_hit=prefix_hit, gs=gs0)
         self._inflight.append(("first", first_d, req, slot_idx))
         self._last_admit_t = time.monotonic()
 
@@ -954,25 +1123,34 @@ class BatchedTorchEngine(TorchEngine):
                        dst, src)
 
     def _arm_first(self, slot_idx: int, last_logits: torch.Tensor,
-                   req: _Request, n_prompt: int) -> torch.Tensor:
+                   req: _Request, n_prompt: int, gs: int = -1,
+                   ngen0: int = 0) -> torch.Tensor:
         """An eager admission's first token, sampled on the device from
         the prompt's last logits (argmax when greedy, else the draw at
-        generation index 0 of the request's seed stream), and the slot
-        armed behind it with one token generated. Returns the [1] device
-        tensor; nothing is read back."""
+        generation index ``ngen0`` of the request's seed stream: 0, or
+        the index after an admission's forced run), and the slot armed
+        behind it at ``n_prompt`` with ``ngen0 + 1`` tokens generated.
+        A grammar state ``gs`` >= 0 masks the sample to its legal set
+        and arms the slot's FSM word past the sampled token. Returns the
+        [1] device tensor; nothing is read back."""
+        dev = self.device
+        mask = None
+        if gs >= 0:
+            mask = torch.from_numpy(self._grammar.allowed_np(gs)).to(dev)[None]
         if req.temperature > 0.0:
-            dev = self.device
             first_d = sample_tokens_seeded(
                 last_logits,
                 torch.full((1,), req.seed, dtype=torch.int64, device=dev),
-                torch.zeros((1,), dtype=torch.int32, device=dev),
+                torch.full((1,), ngen0, dtype=torch.int32, device=dev),
                 torch.full((1,), req.temperature, dtype=torch.float32,
                            device=dev),
-                top_k=self.top_k, top_p=self.top_p)
+                top_k=self.top_k, top_p=self.top_p, mask=mask)
         else:
-            first_d = greedy_tokens(last_logits)
+            first_d = greedy_tokens(apply_mask(last_logits, mask))
         self._run_arm(slot_idx, n_prompt, first_d[0], req.temperature,
-                      req.max_tokens, req.seed, 1)
+                      req.max_tokens, req.seed, ngen0 + 1)
+        if gs >= 0:
+            self._grammar_arm_after_sample(slot_idx, gs, first_d)
         return first_d
 
     def _pool_preload_system_prompt(self) -> None:
@@ -1023,18 +1201,165 @@ class BatchedTorchEngine(TorchEngine):
             body["radix"] = self._radix.stats()
         return body
 
+    # ----------------------------------------- grammar-constrained decode
+    #
+    # Host truth: the GrammarRuntime's numpy tables and each slot's ``gs``
+    # (the state over CONSUMED tokens). The device carries its own state
+    # vector (_fsm_d) like ngen and the live flags; every admission and
+    # replay re-arms it from host truth.
+
+    def _grammar_tables_d(self) -> tuple:
+        """Device copies of the stacked tables (``tok_class`` [P, V] and
+        ``class_next`` [P*S, C] as int64, the gather index type, and
+        ``class_ok`` [P*S, C] bool), refreshed when a variant install
+        moved the runtime's version: a consistent snapshot taken under
+        its lock, stamped with ITS version, so a racing install can
+        neither tear the rows nor leave a newer version on older
+        contents."""
+        g = self._grammar
+        if g.version != self._grammar_version:
+            version, tc, ok, nxt = g.snapshot_tables()
+            dev = self.device
+            self._gram_tc_d = torch.from_numpy(tc).to(dev, torch.int64)
+            self._gram_ok_d = torch.from_numpy(ok).to(dev)
+            self._gram_next_d = torch.from_numpy(nxt).to(dev, torch.int64)
+            self._grammar_version = version
+        return self._gram_tc_d, self._gram_ok_d, self._gram_next_d
+
+    def _grammar_arm(self, slot_idx: int, gs: int) -> None:
+        self._fsm_d[slot_idx] = gs
+
+    def _grammar_arm_after_sample(self, slot_idx: int, gs_base: int,
+                                  first_d: torch.Tensor) -> None:
+        """Arm a slot whose first token is still a device value (no host
+        read): its word becomes advance(gs_base, first token), through
+        the device tables."""
+        tc, _, nxt = self._grammar_tables_d()
+        cls = tc[gs_base // self._grammar.S_max].index_select(
+            0, first_d.long())
+        self._fsm_d[slot_idx:slot_idx + 1] = nxt[gs_base].index_select(
+            0, cls)
+
+    def _grammar_note_dead_end(self, cause: str) -> None:
+        self._grammar_dead_ends[cause] = \
+            self._grammar_dead_ends.get(cause, 0) + 1
+
+    def _grammar_consume(self, slot: _Slot, new_ids) -> None:
+        """Advance a slot's host state by consumed tokens and count them
+        as masked decode steps."""
+        for t in new_ids:
+            slot.gs = self._grammar.advance(slot.gs, int(t))
+        self._grammar_masked += len(new_ids)
+
+    def _grammar_fast_forward(self, idx: int, slot: _Slot) -> None:
+        """Forced-run fast-forward (the JAX engine's): when the slot's
+        state starts a chain of single-successor states, splice the whole
+        run as ONE prefill into its pool blocks instead of decoding it.
+
+        The splice fires when the run exceeds what the chunks in flight
+        already decode by GRAMMAR_FORCED_RUN_MIN (or ends the command);
+        the chunks it splices over are marked stale and billed as waste.
+        The port's pipe is one deep and the host consumes every chunk
+        before the next dispatch, so nothing is in flight here and no
+        chunk goes stale; the countdown is kept for a deeper pipe.
+
+        The prefill covers positions base-1 .. base+len(run)-2 (the last
+        emitted token, whose row decode had not written, and run[:-1]);
+        the run's last token becomes the carry, its row unwritten, so
+        the "last generated row unwritten" rule of every replay and radix
+        path holds. Forced tokens take generation indices but no
+        randomness: ngen re-arms at the post-run count, and the next
+        sampled token draws what masked step-by-step decode would."""
+        if (self._grammar is None or not self.kv_pool
+                or slot.req.gpid < 0 or slot.exhausted):
+            return
+        req = slot.req
+        g = len(slot.detok.ids)
+        cap = req.max_tokens - g
+        if cap <= 0:
+            return
+        run, ends_eos, end_gs = self._grammar.forced_run(slot.gs, cap)
+        covered = slot.decode_chunks_inflight * self.chunk_len
+        net = len(run) - covered
+        if net < self.grammar_forced_run_min and not (
+                ends_eos and run and net > 0):
+            return
+        base = len(slot.pool_ids or []) + g   # the position after the ids
+        if base + len(run) > self._S_alloc:
+            return                            # the capacity sweep's job
+        need = pages_for(base + len(run), self.kv_pool_page)
+        while len(slot.blocks) < need:
+            b = self._pool_alloc(1)
+            if b is None:
+                return                        # pool pressure: decode it
+            self._tables[idx, len(slot.blocks)] = b[0]
+            slot.blocks.extend(b)
+        ids_full = list(slot.pool_ids or []) + list(slot.detok.ids) + run
+        self._pool_prefill_span(self._tables[idx],
+                                ids_full[:base + len(run) - 1],
+                                max(0, base - 1))
+        piece = slot.detok.push(*run)
+        slot.gs = end_gs
+        if piece is not None:
+            self._emit(req, "token", piece)
+        self._grammar_forced += len(run)
+        self._grammar_ff_splices += 1
+        if slot.decode_chunks_inflight > 0:
+            self._bill_waste(min(covered, cap), req)
+            slot.stale_chunks += slot.decode_chunks_inflight
+        if req.trace is not None:
+            req.trace.event(
+                f"grammar: forced run of {len(run)} tokens spliced as one "
+                f"prefill (state {slot.gs}, "
+                f"{'EOS next' if ends_eos else 'decode resumes'})")
+        new_g = len(slot.detok.ids)
+        slot.pos = max(slot.pos, base + len(run))
+        if new_g >= req.max_tokens:
+            self._finish(idx, "length")
+            return
+        if ends_eos:
+            self._finish(idx, "stop")
+            return
+        # The carry: the run's last token at its own position, ngen at
+        # the post-run count.
+        self._run_arm(idx, base + len(run) - 1, run[-1], req.temperature,
+                      req.max_tokens, req.seed, new_g)
+        self._grammar_arm(idx, end_gs)
+
+    def grammar_health(self) -> Optional[dict]:
+        """The grammar view for /health (host counters only); None with
+        the grammar off."""
+        if self._grammar is None:
+            return None
+        body = dict(self._grammar.health())
+        body["forced_tokens_total"] = self._grammar_forced
+        body["masked_steps_total"] = self._grammar_masked
+        body["fast_forward_splices_total"] = self._grammar_ff_splices
+        body["dead_ends_total"] = dict(self._grammar_dead_ends)
+        return body
+
     # -------------------------------------------------------------- chunk
 
     def _sample(self, step_logits: torch.Tensor, ngen: torch.Tensor,
-                live: torch.Tensor) -> torch.Tensor:
+                live: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step's tokens: argmax for an all-greedy batch (host
         knowledge), else each live sampled row's draw at its generation
-        index ``ngen``."""
+        index ``ngen``; under the grammar's ``mask`` either way."""
         if not any(t > 0.0 for t in self._temps):
-            return greedy_tokens(step_logits)
+            return greedy_tokens(apply_mask(step_logits, mask))
         return sample_tokens_seeded(step_logits, self._seeds_d, ngen,
                                     self._temps_d, top_k=self.top_k,
-                                    top_p=self.top_p, active=live)
+                                    top_p=self.top_p, active=live,
+                                    mask=mask)
+
+    def _step_fold(self, step_logits, prev_tok, live, ngen, budget,
+                   health, gram):
+        """``step_fold`` with this engine's sampler, EOS ids and health
+        check."""
+        return step_fold(step_logits, prev_tok, live, ngen, budget, health,
+                         gram, self._sample, self._eos_d,
+                         self.model_cfg.vocab_size, self.slot_health_check)
 
     def _run_chunk(self, force: torch.Tensor,
                    tables: Optional[torch.Tensor],
@@ -1051,9 +1376,10 @@ class BatchedTorchEngine(TorchEngine):
         ``corrupt`` ([N] bool, the ``decode:nan`` seam; None: the cached
         all-False mask) NaN-fills its rows' logits on every step before
         the fold, as the JAX chunk body does, so the device's own health
-        check is what catches them. Updates the device carry and returns
-        the packed buffer."""
-        cfg = self.model_cfg
+        check is what catches them. Under the grammar the FSM state words
+        ride the carry (``_fsm_d``) and each slot's token -> class row is
+        gathered once per chunk: the profile id is chunk-invariant.
+        Updates the device carry and returns the packed buffer."""
         if corrupt is None:
             corrupt = self._no_corrupt_d
         bad_rows = corrupt[:, None]
@@ -1061,6 +1387,13 @@ class BatchedTorchEngine(TorchEngine):
                                   self._budget_d)
         live = self._active_d & force
         health = torch.zeros_like(ngen)
+        gs = tables_g = None
+        if self._grammar is not None:
+            gs = self._fsm_d
+            tc_all, ok_d, next_d = self._grammar_tables_d()
+            tables_g = (tc_all[torch.div(gs, self._grammar.S_max,
+                                         rounding_mode="floor")],
+                        ok_d, next_d)
         steps = self.chunk_len
         toks = []
         if adm is not None:
@@ -1083,10 +1416,9 @@ class BatchedTorchEngine(TorchEngine):
                 write_mask=(cols[None, :] < q_len[:, None]) & live[:, None],
                 logits_at=(q_lens.clamp(min=1) - 1).long())
             step_logits = logits[:, 0].masked_fill(bad_rows, float("nan"))
-            nxt, live, ngen, health, counted = termination_fold(
-                self._sample(step_logits, ngen, live), step_logits,
-                win_tok[:, 0], live, ngen, budget, health, self._eos_d,
-                cfg.vocab_size, self.slot_health_check)
+            nxt, live, ngen, health, counted, gs = self._step_fold(
+                step_logits, win_tok[:, 0], live, ngen, budget, health,
+                None if gs is None else (gs, *tables_g))
             pos = (start + q_len * counted.to(torch.int32))[:, None]
             tok = nxt[:, None]
             toks.append(nxt)
@@ -1097,10 +1429,9 @@ class BatchedTorchEngine(TorchEngine):
                                    kv_limit=kv_limit, write_mask=live)
             self.decode_steps += 1
             step_logits = logits[:, 0].masked_fill(bad_rows, float("nan"))
-            nxt, live, ngen, health, counted = termination_fold(
-                self._sample(step_logits, ngen, live), step_logits,
-                tok[:, 0], live, ngen, budget, health, self._eos_d,
-                cfg.vocab_size, self.slot_health_check)
+            nxt, live, ngen, health, counted, gs = self._step_fold(
+                step_logits, tok[:, 0], live, ngen, budget, health,
+                None if gs is None else (gs, *tables_g))
             pos = pos + counted.to(torch.int32)[:, None]
             tok = nxt[:, None]
             toks.append(nxt)
@@ -1109,6 +1440,8 @@ class BatchedTorchEngine(TorchEngine):
                             live.sum(), health=health, xp=torch)
         (self._tok_d, self._pos_d, self._active_d, self._ngen_d,
          self._budget_d) = tok, pos, live, ngen, budget
+        if gs is not None:
+            self._fsm_d = gs
         return packed
 
     def _dispatch_chunk(self) -> None:
@@ -1249,6 +1582,10 @@ class BatchedTorchEngine(TorchEngine):
                 self._chunk_log.append({"t": time.time(),
                                         "event": "health_trip", "slot": i,
                                         "health": why})
+                if int(res.health[i]) & HEALTH_GRAMMAR_DEAD:
+                    # A grammar dead end: the slot froze before emitting
+                    # anything and rides the containment lane.
+                    self._grammar_note_dead_end("decode")
                 if self._slots[i].req.trace is not None:
                     self._slots[i].req.trace.event(
                         f"engine: slot {i} health tripped ({why})")
@@ -1261,6 +1598,12 @@ class BatchedTorchEngine(TorchEngine):
                 continue   # freed or reassigned since the dispatch
             slot.chunks_inflight -= 1
             slot.decode_chunks_inflight -= 1
+            if slot.stale_chunks > 0:
+                # A fast-forward spliced over this chunk: its rows index
+                # the stream before the splice, which already delivered
+                # these tokens.
+                slot.stale_chunks -= 1
+                continue
             new_ids, finish = consume_chunk_row(
                 res.tokens[i], bool(res.done[i]), int(res.lengths[i]),
                 len(slot.detok.ids), ct, eos_ids)
@@ -1273,6 +1616,12 @@ class BatchedTorchEngine(TorchEngine):
                 piece = slot.detok.push(*new_ids)
                 if piece is not None:
                     self._emit(slot.req, "token", piece)
+                if self._grammar is not None and slot.req.gpid >= 0:
+                    self._grammar_consume(slot, new_ids)
+                    if finish is None:
+                        self._grammar_fast_forward(i, slot)
+                        if self._slots[i] is not slot:
+                            continue   # the fast-forward finished it
             if finish is not None:
                 self._finish(i, finish)
         self._probation_tick(snapshot)
@@ -1331,8 +1680,13 @@ class BatchedTorchEngine(TorchEngine):
         piece = slot.detok.push(first_tok)
         if piece is not None:
             self._emit(req, "token", piece)
+        grammar = self._grammar is not None and req.gpid >= 0
+        if grammar:
+            self._grammar_consume(slot, [first_tok])
         if req.max_tokens <= 1:
             self._finish(slot_idx, "length")
+        elif grammar:
+            self._grammar_fast_forward(slot_idx, slot)
 
     def _finish(self, slot_idx: int, finish: str,
                 error: Optional[BaseException] = None,
@@ -1708,6 +2062,14 @@ class BatchedTorchEngine(TorchEngine):
         slot.pos = n_total
         slot.chunks_inflight = 0
         slot.decode_chunks_inflight = 0
+        slot.stale_chunks = 0
+        if self._grammar is not None and req.gpid >= 0:
+            # Host truth and the device word both re-derive from the
+            # emitted ids: the next masked step samples at the state the
+            # fault-free run is in (an off-grammar prefix lands in DEAD
+            # and trips again).
+            slot.gs = self._grammar.run(req.gpid, ids)
+            self._grammar_arm(slot_idx, slot.gs)
         slot.exhausted = n_total >= self.max_seq_len
         self._slots[slot_idx] = slot
         self.supervisor.note_replay(g)
@@ -1775,7 +2137,8 @@ class BatchedTorchEngine(TorchEngine):
         pipeline (its depth is one), the wasted steps and chunk counts,
         and the fetch-latency samples since the last call (drained);
         the QoS section, the ledger's lane table, the SLO burn rates, the
-        step-time digests and the containment totals."""
+        step-time digests, the containment totals and the grammar
+        totals."""
         slots = list(self._slots)
         if self._pool is not None:
             used = self._pool.n_blocks - self._pool.free_count
@@ -1824,6 +2187,9 @@ class BatchedTorchEngine(TorchEngine):
             "containment": dict(self.supervisor.stats(),
                                 parked=len(self._parked),
                                 slot_health_check=self.slot_health_check),
+            # Grammar totals (None with the grammar off), mirrored into
+            # /metrics and summarized in /health's grammar section.
+            "grammar": self.grammar_health(),
         }
 
     #: finish times older than this do not feed the drain rate: after an
@@ -2372,6 +2738,10 @@ class BatchedTorchEngine(TorchEngine):
 
         now = time.monotonic()
         max_toks = max(1, min(32, self.max_seq_len // 2))
+        # Under the grammar the burst decodes in its lane's profile like
+        # any request of that lane.
+        gpid = (self._grammar.resolve(lane=FLOOD_LANE)
+                if self._grammar is not None else -1)
         for i in range(n):
             prompt = f"tenant flood drill {i}"
             req = _Request(
@@ -2379,7 +2749,8 @@ class BatchedTorchEngine(TorchEngine):
                 max_tokens=max_toks, temperature=0.0,
                 deadline=now + 30.0, loop=loop, out_queue=asyncio.Queue(),
                 cancel=threading.Event(), t_submit=now, seed=i,
-                prompt=prompt, tenant=FLOOD_TENANT, lane=FLOOD_LANE)
+                prompt=prompt, tenant=FLOOD_TENANT, lane=FLOOD_LANE,
+                gpid=gpid)
             try:
                 self._admissions.put(req)
             except EngineOverloaded:
@@ -2403,6 +2774,23 @@ class BatchedTorchEngine(TorchEngine):
         session = qctx.session if qctx is not None else ""
         lane = self._session_budgets.lane_for(session, lane)
         trace = current_trace()
+        # Grammar resolution: the base profile, clamped readonly for the
+        # background lane or an explicit ask, narrowed by a validated
+        # allowed-verbs set. A new verb set compiles a variant (seconds
+        # of CPU at a real vocabulary), so it runs off the event loop;
+        # the scheduler only ever sees a profile id.
+        gpid = -1
+        if self._grammar is not None:
+            from ..constrain import current_grammar
+
+            gctx = current_grammar()
+            if gctx is not None and gctx.allowed_verbs:
+                gpid = await asyncio.to_thread(
+                    self._grammar.resolve, lane=lane, ctx=gctx)
+            else:
+                gpid = self._grammar.resolve(lane=lane, ctx=gctx)
+            if trace is not None:
+                trace.event(f"grammar: profile id {gpid} (lane={lane})")
         loop = asyncio.get_running_loop()
         if self.faults is not None and not self._warming:
             # tenant:flood:<n>: a synthetic background-tenant burst lands
@@ -2432,6 +2820,7 @@ class BatchedTorchEngine(TorchEngine):
             lane=lane,
             session=session,
             prompt=prompt,
+            gpid=gpid,
         )
         # Fair-share shedding at submit: past the tenant cap a 429 to the
         # flooding tenant; at MAX_QUEUE_DEPTH the dominant tenant's newest

@@ -26,6 +26,15 @@ transcript, whatever the chunk boundaries.
 Which rows sample is host knowledge (the engine knows each slot's
 temperature), so an all-greedy batch never pays for the sampled path and
 no branch here reads a device value.
+
+Grammar-constrained decoding passes a [batch, vocab] legality ``mask``
+(``apply_mask``): illegal logits become -inf before the temperature,
+the top-k/top-p filters and the greedy argmax, and the key stream stays
+the same, as in the JAX ``_sample_rows``. The gumbel draw is
+vocab-shaped (or k-shaped under a top-k) whatever the mask, so a masked
+sample equals the unmasked one whenever the unmasked winner is legal.
+When fewer tokens are legal than ``top_k`` keeps, the top-k's tail is
+-inf; those positions never win the draw.
 """
 
 from __future__ import annotations
@@ -56,6 +65,15 @@ def _filter_top_k_p(scaled: torch.Tensor, top_k: int,
                                                       keepdim=True).values
         scaled = torch.where(scaled < cutoff_logit, float("-inf"), scaled)
     return scaled
+
+
+def apply_mask(logits: torch.Tensor,
+               mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grammar legality: illegal logits set to -inf (``mask`` [batch,
+    vocab] bool, True = legal; None leaves the logits as they are)."""
+    if mask is None:
+        return logits
+    return logits.masked_fill(~mask, float("-inf"))
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
@@ -177,16 +195,20 @@ def _sample_filtered_seeded(scaled: torch.Tensor, keys: tuple, top_k: int,
 def sample_tokens_seeded(logits: torch.Tensor, seeds: torch.Tensor,
                          ngen: torch.Tensor, temperatures: torch.Tensor,
                          top_k: int = 0, top_p: float = 1.0,
-                         active: Optional[torch.Tensor] = None
+                         active: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """[batch, vocab] float32 logits -> [batch] int32 tokens, the JAX
     ``sample_tokens_seeded``: each row with a temperature above 0 (and
     ``active``, when given) draws under ``slot_keys(seeds, ngen)`` from
     its logits over ``max(temperature, 1e-6)``, the same top-k/top-p
     filtering as the single-sequence path; every other row is greedy.
-    ``seeds``, ``ngen`` and ``temperatures`` ([batch]; temperatures
-    float32) are device tensors: nothing is read back."""
+    ``mask`` ([batch, vocab] bool, grammar legality) drops illegal
+    logits to -inf before both. ``seeds``, ``ngen`` and ``temperatures``
+    ([batch]; temperatures float32) are device tensors: nothing is read
+    back."""
     with scope("sampling"):
+        logits = apply_mask(logits, mask)
         greedy = greedy_tokens(logits)
         wants = temperatures > 0.0
         if active is not None:

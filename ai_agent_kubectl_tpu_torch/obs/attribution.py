@@ -14,10 +14,16 @@ names a span differs:
   ``gpu_user_annotation`` span covering the kernels it launched.
 - **On the card** (``span_source`` ``"cuda_device"``) the spans are the
   trace's device events: ``cat`` ``kernel``, ``gpu_memcpy`` and
-  ``gpu_memset``. Each is billed by the path of ``gpu_user_annotation``
-  ranges that cover it, outermost to innermost, and its own name; the
-  JAX scope rules match on that text first. A kernel no range covers
-  falls to name rules, the counterpart of ``_HLO_RULES``: the port's own
+  ``gpu_memset``. Each is billed by the path of ranges open on the host
+  thread that launched it, at its launch call (the ``cuda_runtime`` or
+  ``cuda_driver`` event of the same ``correlation``), outermost to
+  innermost, and its own name: the scope that launched it, as a JAX op
+  carries its ``named_scope``. (A span whose launch is not in the trace
+  takes the ``gpu_user_annotation`` ranges that cover it on the card's
+  timeline instead; such a range runs from the first to the last of its
+  kernels' timestamps, so one kernel stamped out of its stream's order
+  stretches it over every kernel between.) The JAX scope rules match on
+  that text first. A kernel no range covers falls to name rules, the counterpart of ``_HLO_RULES``: the port's own
   kernel symbols (``csrc/ragged_attention.cu``, ``paged_attention.cu``,
   ``flash_attention.cu`` to ``attention``; ``int4_matmul.cu`` to
   ``weight_gemms``), cuBLAS/CUTLASS GEMMs to ``weight_gemms``, and copy,
@@ -105,6 +111,8 @@ _KERNEL_RULES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 )
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the host API calls that launch a device span (its ``correlation``)
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
 def categorize(text: str) -> str:
@@ -143,28 +151,21 @@ def _complete(events: Iterable[dict], cats: Tuple[str, ...]) -> List[dict]:
             and float(e.get("dur", 0.0)) > 0.0]
 
 
-def _covered_spans(spans: List[dict], ranges: List[dict], same_thread: bool
-                   ) -> List[Tuple[float, float, str, str, bool]]:
-    """(start_us, end_us, text, name, covered) per span: ``text`` is the
-    names of the ranges that cover its start (on its own pid, and tid
-    when ``same_thread``), outermost first, then its own name."""
-    def key(e):
-        return (e.get("pid"), e.get("tid")) if same_thread \
-            else e.get("pid")
-
+def _paths(points: List[Tuple[object, float]],
+           ranges: List[Tuple[object, float, float, str]]) -> List[str]:
+    """Per ``(key, ts)`` point, in input order: the names of the
+    ``(key, start_us, end_us, name)`` ranges of its key that cover
+    ``ts``, outermost first, joined by "/" ("" when none covers it)."""
     by_key: Dict[object, List[Tuple[float, float, str]]] = {}
-    for r in ranges:
-        ts = float(r["ts"])
-        by_key.setdefault(key(r), []).append(
-            (ts, ts + float(r["dur"]), str(r.get("name", ""))))
+    for k, ts, te, name in ranges:
+        by_key.setdefault(k, []).append((ts, te, name))
     for rs in by_key.values():
         rs.sort()
-    out = []
+    out = [""] * len(points)
     cursor: Dict[object, int] = {}
     active: Dict[object, list] = {}
-    for e in sorted(spans, key=lambda e: float(e["ts"])):
-        ts = float(e["ts"])
-        k = key(e)
+    for j in sorted(range(len(points)), key=lambda j: points[j][1]):
+        k, ts = points[j]
         rs = by_key.get(k, [])
         i = cursor.get(k, 0)
         act = active.setdefault(k, [])
@@ -173,29 +174,69 @@ def _covered_spans(spans: List[dict], ranges: List[dict], same_thread: bool
             i += 1
         cursor[k] = i
         act[:] = [r for r in act if r[1] > ts]
-        path = [r[2] for r in sorted(act, key=lambda r: r[0] - r[1])]
-        name = str(e.get("name", "")) or "?"
-        text = "/".join(path) + " " + name if path else name
-        out.append((ts, ts + float(e["dur"]), text, name, bool(path)))
+        out[j] = "/".join(r[2] for r in sorted(act,
+                                               key=lambda r: r[0] - r[1]))
     return out
+
+
+def _ranges(events: List[dict], key) -> list:
+    """(key(e), start_us, end_us, name) per range event."""
+    return [(key(e), float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+             str(e.get("name", ""))) for e in events]
+
+
+def _thread(e: dict) -> tuple:
+    return (e.get("pid"), e.get("tid"))
+
+
+def _card(e: dict) -> tuple:
+    return ("card", e.get("pid"))
 
 
 def _select_spans(events: List[dict]
                   ) -> Tuple[List[Tuple[float, float, str, str]], str]:
-    """(spans, source): (start_us, end_us, text, op name) per span.
-    The card's kernels, copies and sets under their ``gpu_user_annotation``
-    paths when the trace has any ("cuda_device"); else the host's
-    ``cpu_op`` events inside ``user_annotation`` ranges ("host_ops");
-    else none."""
+    """(spans, source): (start_us, end_us, text, op name) per span, in
+    start order; ``text`` is the scope path, then the span's own name.
+    The card's kernels, copies and sets when the trace has any
+    ("cuda_device"): each under the ``user_annotation`` ranges open on
+    its launching thread at its launch call (found by ``correlation``),
+    so it bills to the scope that launched it; a span whose launch is
+    not in the trace, under the ``gpu_user_annotation`` ranges covering
+    its start on the card's timeline. (Those ranges run from the first
+    to the last of their kernels' timestamps, so one kernel stamped out
+    of its stream's order stretches a range over every kernel between:
+    never the first choice.) Else the host's ``cpu_op`` events inside
+    ``user_annotation`` ranges of their own thread ("host_ops"); else
+    none."""
     device = _complete(events, _DEVICE_CATS)
+    ranges = _ranges(_complete(events, ("user_annotation",)), _thread)
     if device:
-        ranges = _complete(events, ("gpu_user_annotation",))
-        return ([sp[:4] for sp in _covered_spans(device, ranges, False)],
-                "cuda_device")
-    ranges = _complete(events, ("user_annotation",))
-    host = _complete(events, ("cpu_op",))
-    spans = [sp[:4] for sp in _covered_spans(host, ranges, True) if sp[4]]
-    return spans, ("host_ops" if spans else "none")
+        launches = {e["args"]["correlation"]: e for e in events
+                    if e.get("ph") == "X" and e.get("cat") in _LAUNCH_CATS
+                    and "correlation" in e.get("args", {})}
+        own = [launches.get(e.get("args", {}).get("correlation"))
+               for e in device]
+        points = [(_thread(l), float(l["ts"])) if l is not None
+                  else (_card(e), float(e["ts"]))
+                  for e, l in zip(device, own)]
+        ranges += _ranges(_complete(events, ("gpu_user_annotation",)),
+                          _card)
+        spans = device
+        source = "cuda_device"
+    else:
+        spans = _complete(events, ("cpu_op",))
+        points = [(_thread(e), float(e["ts"])) for e in spans]
+        source = "host_ops"
+    out = []
+    for e, path in zip(spans, _paths(points, ranges)):
+        if path or source == "cuda_device":
+            name = str(e.get("name", "")) or "?"
+            ts = float(e["ts"])
+            out.append((ts, ts + float(e["dur"]),
+                        f"{path} {name}" if path else name, name))
+    if not out:
+        source = "none"
+    return sorted(out), source
 
 
 def _union_ms(intervals: List[Tuple[float, float]]) -> float:

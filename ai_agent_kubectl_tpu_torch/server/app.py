@@ -13,8 +13,9 @@ Routes (the JAX statuses):
   200/400/401/429/500, execution errors as structured 200s.
 - ``GET /health`` — readiness-gated, with the breaker's state, the
   engine's last containment reset and its cause (``last_reset``,
-  ``last_reset_cause``), the engine's ``qos``, ``kv_pool``, ``slo`` and
-  ``steptime`` sections and the incident ring's ``incidents`` summary.
+  ``last_reset_cause``), the engine's ``qos``, ``kv_pool``, ``slo``,
+  ``steptime`` and ``grammar`` sections and the incident ring's
+  ``incidents`` summary.
 - ``GET /metrics`` — Prometheus text; ``/openapi.json`` and ``/docs``.
 - ``/debug/*``, behind ``X-Debug-Token`` when ``DEBUG_TOKEN`` is set
   (403 otherwise): ``POST /debug/profile?seconds=N`` (alias
@@ -32,7 +33,9 @@ limit (``RATE_LIMIT`` per client: 429 with the ``X-RateLimit-*``
 headers), auth (``X-API-Key`` when ``API_AUTH_KEY`` is set: 401), QoS
 (tenant and lane on a contextvar for the engine's fair-share queue;
 ``X-Priority`` clamped by ``TENANT_TIERS``, ``X-Session-ID``; the
-grammar headers answer 400, since the port refuses ``GRAMMAR_DECODE``).
+grammar headers ``X-Grammar-Profile`` and ``X-Allowed-Verbs`` validated
+against the request's clamped profile under ``GRAMMAR_DECODE``, a 400
+otherwise).
 An engine shed answers 429 for a tenant over its queue cap and 503 for a
 full queue, with the engine's ``Retry-After``. A background task runs
 the incident triggers every ``SENTINEL_EVAL_SECS`` and attaches an
@@ -53,6 +56,7 @@ from typing import Optional
 from aiohttp import web
 from pydantic import ValidationError
 
+from ..constrain import GrammarContext, use_grammar, validate_restriction
 from ..device import device_count
 from ..engine.prompts import render_prompt
 from ..engine.protocol import (EngineOverloaded, EngineResult,
@@ -243,9 +247,15 @@ async def qos_middleware(request: web.Request, handler):
     when TENANT_TIERS registers it, else the client key the rate limiter
     uses, so a flooder cannot mint a tenant per request — and a lane,
     X-Priority clamped by the tenant's tier, carried to the engine on a
-    contextvar with the X-Session-ID session. Grammar restriction
-    headers answer 400: the port does not serve GRAMMAR_DECODE, and a
-    restriction the engine cannot enforce must not be dropped."""
+    contextvar with the X-Session-ID session. A request may lower itself
+    to the readonly grammar (X-Grammar-Profile) and narrow the verb set
+    (X-Allowed-Verbs, comma-separated), validated here against its
+    clamped profile (constrain.validate_restriction, the rule the engine
+    runs too) and carried on its own contextvar: an unknown profile or
+    verb, a verb outside the clamped profile, any verb restriction under
+    the permissive profile, and either header with GRAMMAR_DECODE off
+    answer 400, since a restriction the engine cannot enforce must not
+    be dropped."""
     svc: Service = request.app["service"]
     if request.path not in GENERATE_ROUTES:
         return await handler(request)
@@ -265,11 +275,31 @@ async def qos_middleware(request: web.Request, handler):
         # The lane is safe to log; the tenant key may be an API key.
         trace.event(f"qos: lane={ctx.lane} "
                     f"(tenant={'tier-key' if api_key else 'client-ip'})")
-    if (request.headers.get("X-Grammar-Profile") is not None
-            or request.headers.get("X-Allowed-Verbs") is not None):
-        return _json_error(
-            400, "grammar restrictions require GRAMMAR_DECODE=true")
+    g_profile = request.headers.get("X-Grammar-Profile")
+    g_verbs = request.headers.get("X-Allowed-Verbs")
+    gctx = None
+    if g_profile is not None or g_verbs is not None:
+        if not svc.cfg.grammar_decode:
+            return _json_error(
+                400, "grammar restrictions require GRAMMAR_DECODE=true")
+        verbs = None
+        if g_verbs is not None:
+            verbs = frozenset(v.strip().lower() for v in g_verbs.split(",")
+                              if v.strip())
+        gctx = GrammarContext(
+            profile=(g_profile or "").strip().lower() or None,
+            allowed_verbs=verbs)
+        err = validate_restriction(svc.cfg.grammar_profile, ctx.lane, gctx)
+        if err is not None:
+            return _json_error(400, err)
+        if trace is not None:
+            trace.event(
+                f"grammar: request profile={gctx.profile or 'base'}"
+                + (f", {len(verbs)} allowed verbs" if verbs else ""))
     with use_qos(ctx):
+        if gctx is not None:
+            with use_grammar(gctx):
+                return await handler(request)
         return await handler(request)
 
 
@@ -465,7 +495,8 @@ async def handle_kubectl_command_stream(request: web.Request
 
     try:
         flight = asyncio.ensure_future(
-            svc.cache.get_or_create(sanitized_query, supplier))
+            svc.cache.get_or_create(svc.cache_key(sanitized_query),
+                                    supplier))
         getter: Optional[asyncio.Future] = None
         try:
             while True:
@@ -602,6 +633,7 @@ async def handle_health(request: web.Request) -> web.Response:
         slo=_engine_view(svc.engine, "slo_health"),
         kv_pool=_engine_view(svc.engine, "kv_pool_health"),
         steptime=_engine_view(svc.engine, "steptime_health"),
+        grammar=_engine_view(svc.engine, "grammar_health"),
         incidents=svc.incidents.snapshot(),
     )
     if ready:
@@ -818,6 +850,8 @@ async def handle_metrics(request: web.Request) -> web.Response:
         svc.metrics.observe_slo(stats["slo"])
     if stats.get("steptime"):
         svc.metrics.observe_steptime(stats["steptime"])
+    if stats.get("grammar"):
+        svc.metrics.observe_grammar(stats["grammar"])
     # A scrape is also a trigger-evaluation round (cooldowns make the
     # redundant evaluation free).
     try:

@@ -68,11 +68,6 @@ class DegradedEngine:
         raise EngineUnavailable(self.reason)
 
 
-def _batched(cfg) -> bool:
-    return cfg.engine == "torch-batched" or (
-        cfg.engine == "torch" and cfg.decode_batch_size > 1)
-
-
 def parse_fault_points(cfg):
     """The one shared injector of ``FAULT_POINTS`` (None when empty), or
     ValueError for a drill that is malformed or could never fire."""
@@ -89,7 +84,7 @@ def parse_fault_points(cfg):
             + ", which the PyTorch port does not serve yet; the drill "
             "would be inert")
     needs_batcher = [p for p in BATCHER_POINTS if injector.has_any(p)]
-    if needs_batcher and not _batched(cfg):
+    if needs_batcher and not cfg.batched_engine:
         raise ValueError(
             f"FAULT_POINTS {needs_batcher} are only wired into the "
             "continuous-batching engine (ENGINE=torch with "
@@ -115,7 +110,7 @@ def _build_inner(cfg, faults):
                                   model=cfg.openai_model,
                                   base_url=cfg.openai_base_url,
                                   timeout=cfg.llm_timeout)
-    if _batched(cfg):
+    if cfg.batched_engine:
         from ..engine.batcher import BatchedTorchEngine
 
         return BatchedTorchEngine.from_config(cfg, faults=faults)

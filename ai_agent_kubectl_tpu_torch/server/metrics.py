@@ -21,12 +21,14 @@ port's features feed, under the same names, labels and help.
   ``step_tokens_per_sec``, ``steptime_breach_trips_total``) and the
   containment totals (``engine_resets_total{cause}``,
   ``quarantined_requests_total{reason}``, ``replayed_tokens_total``,
-  ``slot_health_trips_total``).
+  ``slot_health_trips_total``) and the grammar totals
+  (``grammar_forced_tokens_total``, ``grammar_masked_steps_total``,
+  ``grammar_dead_end_total{cause}``).
 - Incidents: captured and cooldown-suppressed bundles by trigger.
 
 The JAX package's families of features the port does not serve yet
-(fleet, grammar, speculative decode, sharding, rollout and the two-tier
-KV) wait for a later slice. Every label set is closed
+(fleet, speculative decode, sharding, rollout and the two-tier KV) wait
+for a later slice. Every label set is closed
 (lanes, ledger classes, phases, triggers) or bounded by config
 (buckets, SLO windows). A ``CollectorRegistry`` per app keeps tests
 isolated.
@@ -430,6 +432,32 @@ class Metrics:
         self._containment_seen = {"resets": {}, "quarantined": {},
                                   "health_trips": 0, "replayed_tokens": 0}
 
+        # Grammar-constrained decoding: tokens delivered by forced-run
+        # splices against tokens sampled under the device-side mask, and
+        # FSM dead ends by cause (a closed set: decode | admission).
+        # Delta-mirrored from stats()["grammar"] (observe_grammar).
+        self.grammar_forced_tokens = Counter(
+            "grammar_forced_tokens_total",
+            "Tokens delivered by forced-run fast-forward splices "
+            "(single-successor FSM chains written as one suffix "
+            "prefill instead of decoded token-by-token)",
+            registry=r,
+        )
+        self.grammar_masked_steps = Counter(
+            "grammar_masked_steps_total",
+            "Decode steps sampled under the grammar's device-side "
+            "logit mask",
+            registry=r,
+        )
+        self.grammar_dead_ends = Counter(
+            "grammar_dead_end_total",
+            "Slots frozen in a grammar dead end (no legal token from "
+            "the current FSM state)",
+            ["cause"],
+            registry=r,
+        )
+        self._grammar_seen = {"forced": 0, "masked": 0, "dead": {}}
+
         # Request-lifecycle phases (obs/trace.py): the ``phase`` label is
         # drawn from the fixed obs.PHASES allowlist.
         self.request_phase = Histogram(
@@ -439,6 +467,24 @@ class Metrics:
             buckets=_PHASE_BUCKETS,
             registry=r,
         )
+
+    def observe_grammar(self, grammar: dict) -> None:
+        """Mirror the engine's grammar totals (``stats()["grammar"]``)
+        into the counters, by delta, as ``observe_containment`` does."""
+        seen = self._grammar_seen
+        for key, counter, total in (
+                ("forced", self.grammar_forced_tokens,
+                 grammar.get("forced_tokens_total", 0)),
+                ("masked", self.grammar_masked_steps,
+                 grammar.get("masked_steps_total", 0))):
+            if total > seen[key]:
+                counter.inc(total - seen[key])
+                seen[key] = total
+        for cause, total in (grammar.get("dead_ends_total") or {}).items():
+            prev = seen["dead"].get(cause, 0)
+            if total > prev:
+                self.grammar_dead_ends.labels(cause=cause).inc(total - prev)
+                seen["dead"][cause] = total
 
     def observe_containment(self, stats: dict) -> None:
         """Mirror the supervisor's containment totals

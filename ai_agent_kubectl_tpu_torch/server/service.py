@@ -7,7 +7,9 @@ rate limiter, the circuit breaker, the optional rule-based fallback,
 the flight recorder and the incident manager — and runs the ``POST
 /kubectl-command`` pipeline (``generate_command``): cache, then engine
 (under the breaker), then the safety parser; engine failures degrade to
-the rule table when ``DEGRADED_FALLBACK`` is set. ``check_incidents`` is
+the rule table when ``DEGRADED_FALLBACK`` is set. Under
+``GRAMMAR_DECODE`` the response cache is keyed by the request's grammar
+identity too (``cache_key``). ``check_incidents`` is
 one trigger-evaluation round over the engine's cheap health views (the
 background watcher, the /metrics scrape and /debug/incidents reads
 share it). The routes and the middleware live in ``server/app.py``.
@@ -22,11 +24,13 @@ import logging
 from contextlib import nullcontext
 from typing import Optional, Tuple
 
+from ..constrain import cache_scope, current_grammar
 from ..engine.fallback import FallbackEngine
 from ..engine.prompts import render_prompt
 from ..engine.protocol import (EngineOverloaded, EngineResult,
                                EngineUnavailable, GenerationTimeout,
                                RequestQuarantined, TenantOverloaded)
+from ..engine.qos import current_qos
 from ..obs import FlightRecorder, IncidentManager, current_trace
 from .breaker import CircuitBreaker
 from .cache import CachedSingleFlight
@@ -189,8 +193,8 @@ class Service:
     def check_incidents(self) -> list:
         """One trigger-evaluation round; returns the NEW bundles. The
         quarantine count is the supervisor's (None for an engine without
-        one); the grammar and host-tier views are None: the port has no
-        grammar decode or host KV tier yet."""
+        one); the host-tier view is None: the port has no host KV tier
+        yet."""
         views = {
             "steptime": self._engine_view("steptime_health"),
             "slo": self._engine_view("slo_health"),
@@ -270,6 +274,19 @@ class Service:
         self.metrics.cache_misses.inc()
         return command, result
 
+    def cache_key(self, sanitized_query: str) -> str:
+        """The response-cache key of one request. Under GRAMMAR_DECODE
+        it is scoped by the request's grammar identity (clamped profile
+        and allowed verbs): keyed by the query alone, a mutating command
+        cached for an interactive tenant would be served verbatim to a
+        readonly-clamped one. Off, the key is the plain query."""
+        if not self.cfg.grammar_decode:
+            return sanitized_query
+        qctx = current_qos()
+        return sanitized_query + cache_scope(
+            self.cfg.grammar_profile,
+            qctx.lane if qctx is not None else None, current_grammar())
+
     async def generate_command(
         self, sanitized_query: str
     ) -> Tuple[str, bool, Optional[EngineResult], bool]:
@@ -296,7 +313,7 @@ class Service:
 
         try:
             command, from_cache = await self.cache.get_or_create(
-                sanitized_query, supplier)
+                self.cache_key(sanitized_query), supplier)
         except EngineOverloaded:
             raise
         except (EngineUnavailable, GenerationTimeout,

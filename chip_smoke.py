@@ -269,7 +269,43 @@ Phases, in order; any failure raises and the script exits non-zero:
                each drill's ms from the trip to the first replayed
                token, its replayed tokens, the memory peaks, and the
                fault-free and one-shot bursts' tok/s.
-12. timing  -- time each kernel, its plain version, one PyTorch library
+12. serve_grammar -- grammar-constrained decoding on Gemma-2B (the serve
+               phase's random bf16 weights from seed 0, the pool and
+               ragged regime, 8 slots).
+               (a) Over HTTP with the BPE asset, GRAMMAR_DECODE=true,
+               GRAMMAR_PROFILE=default and one background key in
+               TENANT_TIERS: the serve burst, two queries with
+               X-Grammar-Profile: readonly, one with X-Allowed-Verbs:
+               get,describe and one with the background key (clamped to
+               readonly), the same burst again with fresh queries
+               (every variant compiled by then), then X-Allowed-Verbs:
+               get,frobnicate (400).
+               Gates: every transcript in grammar for its resolved
+               profile (GrammarRuntime.in_grammar over the engine's ids),
+               no readonly, narrowed or background transcript on a verb
+               outside its set, unsafe_reason None for all, the
+               grammar_* families of /metrics equal to /health's totals,
+               masked plus forced tokens equal to the tokens generated,
+               the books balanced, ragged launches at least layers x
+               forward steps, statuses as the service decides. Printed:
+               each burst's tok/s and ms a forward step beside the serve
+               phase's (the grammar off), no claim, and one decode
+               step's fold at 8 slots x the vocabulary with and without
+               the grammar (host ms, device busy ms, kernels).
+               (b) At the engine: the same weights and regime with
+               tokenizer=ByteTokenizer() (an 8-token forced run from
+               START) and its EOS id (Gemma's 107 is the byte 'h' there),
+               chunk 4,
+               requests one at a time, each greedy and at 0.9: fast-
+               forward on (GRAMMAR_FORCED_RUN_MIN=4) against off (10**6),
+               GRAMMAR_PROFILE=permissive against the grammar off.
+               Gates: transcripts equal or apart first at a near tie (as
+               serve_qos, over the legal tokens only); with it on every
+               request takes an admission splice of >= 8 tokens, strictly
+               fewer masked steps than off, and every mid-stream splice
+               launches the ragged kernel once a layer at least.
+               Launch counters are zeroed before each engine's traffic.
+13. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
                serve_kvq's int4 projections and serve_moe's ragged decode
@@ -301,7 +337,7 @@ ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
           "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "serve_chaos",
-          "timing")
+          "serve_grammar", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -1155,6 +1191,7 @@ async def _serve(torch, profile: bool, bursts: int) -> dict:
             t_burst = time.monotonic()
             burst = await asyncio.gather(*[ask(q) for q in QUERIES])
             burst_s = time.monotonic() - t_burst
+            burst_steps = inner.forward_steps - steps0
             t_rep = time.monotonic()
             repeats = [await ask(QUERIES[i]) for i in REPEATS]
             repeat_s = time.monotonic() - t_rep
@@ -1224,6 +1261,7 @@ async def _serve(torch, profile: bool, bursts: int) -> dict:
         "burst_s": burst_s,
         "burst_tokens": n_tok,
         "burst_tok_per_s": n_tok / burst_s,
+        "burst_forward_steps": burst_steps,
         "more_bursts_tok_per_s": more,
         "ttft_ms_p50": ttft[len(ttft) // 2],
         "ttft_ms_max": ttft[-1],
@@ -2406,13 +2444,14 @@ async def _wait_slots(inner, n_busy: int, min_tokens: int,
 
 
 def _first_mismatch(torch, engine, prompt_ids, want, got, temperature,
-                    seed):
+                    seed, allowed=None):
     """Where a resumed transcript first leaves its uncontended one, and
     how near a tie the uncontended pick was there: the gap between the
     two highest scores (logits, or logits / T plus the gumbel noise of
-    the (seed, index) key, times T) of the forward over prompt + the
-    common prefix, against LOGIT_RTOL x the logits' rms. None when the
-    two are equal."""
+    the (seed, index) key, times T; under a grammar, ``allowed`` [V] bool
+    drops the illegal ones) of the forward over prompt + the common
+    prefix, against LOGIT_RTOL x the logits' rms. None when the two are
+    equal."""
     from ai_agent_kubectl_tpu_torch.engine.sampling import gumbel, slot_keys
     from ai_agent_kubectl_tpu_torch.models import transformer
 
@@ -2442,6 +2481,9 @@ def _first_mismatch(torch, engine, prompt_ids, want, got, temperature,
                          torch.tensor([k], device=dev))
         scores = logits / temperature + gumbel(keys, logits.shape[-1])[0]
         scale = temperature
+    if allowed is not None:
+        scores = scores.masked_fill(~torch.from_numpy(allowed).to(dev),
+                                    float("-inf"))
     top2 = torch.topk(scores, 2).values
     return {"position": k, "gap": float(top2[0] - top2[1]) * scale,
             "tolerance": LOGIT_RTOL * rms}
@@ -4172,8 +4214,10 @@ def kernel_lines(results: dict) -> list:
     engine, flash and int4 in its int4 engine), of phase 7 (both its
     engines) and of phase 8 (both its engines: every kernel counted,
     those off its path at 0), of phase 9 (its three engines: the int4
-    kernel's, the attention kernels' at 0) and of phase 11 (both its
-    engines: ragged in the pool, flash and paged on the dense ladder)."""
+    kernel's, the attention kernels' at 0), of phase 11 (both its
+    engines: ragged in the pool, flash and paged on the dense ladder) and
+    of phase 12 (its HTTP engine and its four ByteTokenizer engines: the
+    ragged kernel's, the others' at 0)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -4215,6 +4259,8 @@ def kernel_lines(results: dict) -> list:
                   if k in chaos]
         return sum(counts) if counts and None not in counts else None
 
+    grammar = results.get("serve_grammar", {}).get("launches", {})
+
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
         top = shapes.get(main, {})
@@ -4232,7 +4278,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_qos": qos_launches(name),
                                "serve_moe": moe_launches(name),
                                "serve_kvq": kvq_launches(name),
-                               "serve_chaos": chaos_launches(name)},
+                               "serve_chaos": chaos_launches(name),
+                               "serve_grammar": grammar.get(name)},
             "shapes": shapes,
         }
 
@@ -4638,15 +4685,22 @@ def _arm_nan_once(inj, target: str, skip: int = CHAOS_SKIP) -> None:
     inj.set("decode", "nan")
 
 
-def _scrape(text: str) -> dict:
-    """The containment families of a /metrics body, by sample."""
+#: the counters of /metrics that serve_chaos and serve_grammar read
+CONTAINMENT_FAMILIES = ("engine_resets_total", "quarantined_requests_total",
+                        "replayed_tokens_total", "slot_health_trips_total")
+GRAMMAR_FAMILIES = ("grammar_forced_tokens_total",
+                    "grammar_masked_steps_total", "grammar_dead_end_total")
+
+
+def _scrape(text: str, names=CONTAINMENT_FAMILIES) -> dict:
+    """The samples of ``names`` in a /metrics body, keyed by name and
+    labels."""
     from prometheus_client.parser import text_string_to_metric_families
 
     out = {}
     for fam in text_string_to_metric_families(text):
         for s in fam.samples:
-            if s.name in ("engine_resets_total", "quarantined_requests_total",
-                          "replayed_tokens_total", "slot_health_trips_total"):
+            if s.name in names:
                 key = s.name + "".join(f"{{{k}={v}}}"
                                        for k, v in sorted(s.labels.items()))
                 out[key] = s.value
@@ -5011,6 +5065,493 @@ async def _chaos_hang(tag, inner, inj, ask, health, burst, status_for_text,
     return out
 
 
+# --------------------------------------------------------- serve_grammar
+
+#: the served Gemma-2B with grammar-constrained decoding on (phase 12
+#: (a)): the BPE asset, the default profile, one background tenant key
+GRAMMAR_BG_KEY = "grammar-bg-key"
+GRAMMAR_ENV = dict(SERVE_ENV, GRAMMAR_DECODE="true", GRAMMAR_PROFILE="default",
+                   TENANT_TIERS=f"{GRAMMAR_BG_KEY}:background")
+#: the burst's grammar headers, by query index (the rest send none)
+GRAMMAR_HEADERS = {0: {"X-Grammar-Profile": "readonly"},
+                   1: {"X-Grammar-Profile": "readonly"},
+                   2: {"X-Allowed-Verbs": "get,describe"},
+                   3: {"X-API-Key": GRAMMAR_BG_KEY}}
+#: (b): prompts served one at a time, each greedy and at 0.9
+GRAMMAR_FF_PROMPTS = ["list all pods", "scale web", "show nodes",
+                      "delete the job"]
+GRAMMAR_FF_TOKENS = 40
+GRAMMAR_FF_CHUNK = 4
+
+
+def phase_serve_grammar(torch, serve_info: dict) -> dict:
+    """Phase 12: grammar-constrained decoding on Gemma-2B: (a) over HTTP
+    with the BPE asset, (b) at the engine with ByteTokenizer, where
+    forced runs are long."""
+    release_served_apps(torch)
+    return asyncio.run(_serve_grammar(torch, serve_info))
+
+
+def _launch_counters():
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_pool)
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+
+    return {"ragged_attention_pool": ragged_attention_pool,
+            "flash_attention_cached": flash_attention_cached,
+            "paged_decode_attention": paged_decode_attention,
+            "paged_decode_attention_pool": paged_decode_attention_pool,
+            "qmatmul4": qmatmul4}
+
+
+async def _serve_grammar(torch, serve_info: dict) -> dict:
+    a, served = await _grammar_http(torch, serve_info)
+    release_served_apps(torch)
+    b = await _grammar_forced_runs(torch, served)
+    counters = _launch_counters()
+    return {"http": a, "forced_runs": b,
+            "launches": {n: a["launches"][n] + b["launches"][n]
+                         for n in counters}}
+
+
+async def _grammar_http(torch, serve_info: dict):
+    """(a): the serve burst over HTTP with the grammar on, two queries
+    lowered to readonly, one narrowed to get/describe, one from the
+    background tenant (clamped readonly), and a 400 for an unknown verb.
+    Returns (info, the engine's parameters)."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.constrain import (READONLY_VERBS,
+                                                      GrammarContext)
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.safety import unsafe_reason
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = "serve_grammar/http"
+    port = _free_port()
+    _phase_env(GRAMMAR_ENV, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if not isinstance(inner, BatchedTorchEngine) or not inner.grammar_decode:
+        raise AssertionError(f"{tag}: engine construction failed: {inner!r}")
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    g = inner._grammar
+    gh = g.health()
+    log(f"[{tag}] {cfg.model_name} up in {time.monotonic() - t0:.1f} s "
+        f"(regime {inner._attention_regime}); grammar {gh['grammar_hash']}: "
+        f"{gh['states']} states, {gh['classes']} classes, "
+        f"{int(g.tok_class.nbytes + g.class_ok.nbytes + g.class_next.nbytes)}"
+        f" table bytes; START admits "
+        f"{int(g.allowed_np(g.start_state(0)).sum())} tokens")
+    url = f"http://{cfg.host}:{port}"
+    counters = _launch_counters()
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query, headers):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query},
+                                     headers=headers) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            h0 = inner.grammar_health()
+            for fn in counters.values():
+                fn.launches = 0
+            steps0 = inner.forward_steps
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[
+                ask(q, GRAMMAR_HEADERS.get(i, {}))
+                for i, q in enumerate(QUERIES)])
+            burst_s = time.monotonic() - t_burst
+            steps = inner.forward_steps - steps0
+            # The same burst again, fresh queries: every variant is
+            # compiled now, so this one times the mask alone.
+            steps1 = inner.forward_steps
+            t_again = time.monotonic()
+            again = await asyncio.gather(*[
+                ask(f"{q} again", GRAMMAR_HEADERS.get(i, {}))
+                for i, q in enumerate(QUERIES)])
+            again_s = time.monotonic() - t_again
+            again_steps = inner.forward_steps - steps1
+            bad = await ask("list the pods",
+                            {"X-Allowed-Verbs": "get,frobnicate"})
+            launches = {n: fn.launches for n, fn in counters.items()}
+            async with http.get(f"{url}/health") as r:
+                health = (await r.json())["grammar"]
+            async with http.get(f"{url}/metrics") as r:
+                families = _scrape(await r.text(), GRAMMAR_FAMILIES)
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+
+    if bad[0] != 400 or "frobnicate" not in bad[1].get("detail", ""):
+        raise AssertionError(f"{tag}: an unknown verb answered {bad}")
+    results = {p: r for p, r in engine.results}
+    # Each query's profile, resolved as the engine resolved it (every
+    # variant is installed by now), and the verbs it may start with.
+    readonly = set(READONLY_VERBS)
+    plan = []
+    for i, q in enumerate(QUERIES):
+        hdr = GRAMMAR_HEADERS.get(i, {})
+        if "X-Allowed-Verbs" in hdr:
+            verbs = {"get", "describe"}
+            pid = g.resolve(ctx=GrammarContext(allowed_verbs=frozenset(
+                verbs)))
+        elif hdr:
+            verbs = readonly
+            pid = g.resolve(lane="background" if "X-API-Key" in hdr
+                            else None,
+                            ctx=GrammarContext(profile="readonly"
+                                               if "X-API-Key" not in hdr
+                                               else None))
+        else:
+            verbs, pid = None, g.resolve()
+        plan.append((q, pid, verbs))
+    per_query = []
+    sent = [(q, pid, verbs, answer)
+            for suffix, answers in (("", burst), (" again", again))
+            for (q, pid, verbs), answer in zip(
+                [(q + suffix, pid, verbs) for q, pid, verbs in plan],
+                answers)]
+    for q, pid, verbs, (status, body) in sent:
+        res = results.get(render_prompt(q))
+        if res is None:
+            raise AssertionError(f"{tag}: {q!r} answered {status} without "
+                                 f"an engine result: {body}")
+        text = res.text
+        if not g.in_grammar(pid, res.token_ids):
+            raise AssertionError(f"{tag}: {q!r} left profile {pid}'s "
+                                 f"grammar: {text!r}")
+        if unsafe_reason(text) is not None:
+            raise AssertionError(f"{tag}: {q!r} is unsafe: {text!r} "
+                                 f"({unsafe_reason(text)})")
+        words = text.split()
+        if verbs is not None and len(words) > 1:
+            verb = words[1]
+            whole = len(words) > 2 or text.endswith(" ") or \
+                res.finish_reason == "stop"
+            if (verb not in verbs if whole
+                    else not any(v.startswith(verb) for v in verbs)):
+                raise AssertionError(f"{tag}: {q!r} (profile {pid}) starts "
+                                     f"with verb {verb!r}: {text!r}")
+        want = status_for_text(text)
+        if status != want:
+            raise AssertionError(f"{tag}: {q!r} HTTP {status}, the service "
+                                 f"gives {want} for {text!r}: {body}")
+        per_query.append({"query": q, "pid": pid, "status": status,
+                          "text": text[:80], "tokens": res.completion_tokens,
+                          "finish": res.finish_reason})
+    n_tok = sum(r["tokens"] for r in per_query[:len(QUERIES)])
+    again_tok = sum(r["tokens"] for r in per_query[len(QUERIES):])
+    forced = health["forced_tokens_total"] - h0["forced_tokens_total"]
+    masked = health["masked_steps_total"] - h0["masked_steps_total"]
+    n_all = n_tok + again_tok
+    if masked + forced != n_all or masked < n_all - forced:
+        raise AssertionError(f"{tag}: {masked} masked + {forced} forced "
+                             f"tokens for {n_all} generated")
+    want_fam = {"grammar_forced_tokens_total": health["forced_tokens_total"],
+                "grammar_masked_steps_total": health["masked_steps_total"]}
+    for cause, n in health["dead_ends_total"].items():
+        want_fam[f"grammar_dead_end_total{{cause={cause}}}"] = n
+    if {k: families.get(k) for k in want_fam} != {
+            k: float(v) for k, v in want_fam.items()}:
+        raise AssertionError(f"{tag}: /metrics {families} against /health "
+                             f"{health}")
+    n_layers = inner.model_cfg.n_layers
+    if launches["ragged_attention_pool"] < n_layers * steps or steps <= 0:
+        raise AssertionError(f"{tag}: ragged launched "
+                             f"{launches['ragged_attention_pool']} times for "
+                             f"{steps} forward steps")
+    check_pool_books(inner)
+    fold = _grammar_fold_cost(torch, inner)
+    info = {"burst_s": burst_s, "burst_tokens": n_tok,
+            "burst_tok_per_s": n_tok / burst_s, "forward_steps": steps,
+            "ms_per_step": burst_s * 1e3 / steps,
+            "again_s": again_s, "again_tokens": again_tok,
+            "again_tok_per_s": again_tok / again_s,
+            "again_forward_steps": again_steps,
+            "again_ms_per_step": again_s * 1e3 / again_steps,
+            "forced": forced, "masked": masked, "launches": launches,
+            "queries": per_query, "fold": fold,
+            "grammar": {k: gh[k] for k in ("grammar_hash", "states",
+                                          "classes")},
+            "statuses": [s for s, _ in burst] + [s for s, _ in again]
+            + [bad[0]]}
+    off = serve_info or {}
+    off_ms = (off["burst_s"] * 1e3 / off["burst_forward_steps"]
+              if off.get("burst_forward_steps") else None)
+    log(f"[{tag}] statuses {info['statuses']}; {n_tok} + {again_tok} "
+        f"tokens ({masked} masked, {forced} forced); first burst (the "
+        f"allowed-verbs variant compiles) {burst_s:.2f} s, "
+        f"{info['burst_tok_per_s']:.1f} tok/s, {info['ms_per_step']:.2f} ms "
+        f"a forward step; again {again_s:.2f} s, "
+        f"{info['again_tok_per_s']:.1f} tok/s, "
+        f"{info['again_ms_per_step']:.2f} ms a forward step; the serve "
+        f"phase's burst with the grammar off: "
+        + (f"{off['burst_tok_per_s']:.1f} tok/s, {off_ms:.2f} ms a forward "
+           f"step" if off_ms else "not run") + f"; {gpu_line()}")
+    for row in per_query:
+        log(f"[{tag}]   pid {row['pid']} {row['status']} {row['tokens']:3d} "
+            f"tok {row['finish']:6s} {row['text']!r}")
+    info["grammar_off_serve"] = {"burst_tok_per_s": off.get(
+        "burst_tok_per_s"), "ms_per_step": off_ms}
+    return info, (inner.params, cfg.model_name, cfg.dtype, cfg.torch_device)
+
+
+def _grammar_fold_cost(torch, inner, iters: int = 200) -> dict:
+    """One decode step's fold at the served shapes (8 slots, the model's
+    vocabulary), with the grammar (the mask gathered through the stacked
+    tables, the dead-end freeze, the masked argmax, the FSM advance) and
+    without it, same inputs: ms a step on the host clock (each loop
+    synchronized at its end) and between CUDA events (the device waits
+    on the host's launches, so the two agree), then the device's busy ms
+    and kernels a step under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import step_fold
+
+    dev, N = inner.device, inner.batch_size
+    g = inner._grammar
+    V = inner.model_cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((N, V), generator=gen, device=dev)
+    tc_all, ok_d, nx_d = inner._grammar_tables_d()
+    gs = torch.full((N,), g.start_state(0), dtype=torch.int64, device=dev)
+    rows = tc_all[torch.div(gs, g.S_max, rounding_mode="floor")]
+    prev = torch.zeros((N,), dtype=torch.int32, device=dev)
+    ngen = torch.zeros((N,), dtype=torch.int32, device=dev)
+    budget = torch.full((N,), 1 << 20, dtype=torch.int32, device=dev)
+    live = torch.ones((N,), dtype=torch.bool, device=dev)
+    out = {}
+    for name, gram in (("off", None), ("on", (gs, rows, ok_d, nx_d))):
+        def step():
+            return step_fold(logits, prev, live, ngen, budget,
+                             torch.zeros_like(ngen), gram, inner._sample,
+                             inner._eos_d, V, True)
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.monotonic()
+        e0.record()
+        for _ in range(iters):
+            step()
+        e1.record()
+        torch.cuda.synchronize()
+        out[name] = {"host_ms": (time.monotonic() - t0) * 1e3 / iters,
+                     "event_ms": e0.elapsed_time(e1) / iters}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters // 4):
+                step()
+            torch.cuda.synchronize()
+        busy_us = calls = 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            busy_us += float(dev_us)
+            calls += int(e.count)
+        out[name]["busy_ms"] = busy_us / 1e3 / (iters // 4)
+        out[name]["kernels"] = calls / (iters // 4)
+    log(f"[serve_grammar/fold] a step's fold, {N} slots x {V}, ms host / "
+        f"between events / device busy, kernels: off "
+        + " / ".join(f"{out['off'][k]:.4f}" for k in ("host_ms", "event_ms",
+                                                       "busy_ms"))
+        + f", {out['off']['kernels']:.0f}; on "
+        + " / ".join(f"{out['on'][k]:.4f}" for k in ("host_ms", "event_ms",
+                                                      "busy_ms"))
+        + f", {out['on']['kernels']:.0f}; {gpu_line()}")
+    return out
+
+
+async def _grammar_forced_runs(torch, served) -> dict:
+    """(b): the same model and regime at the engine with ByteTokenizer
+    (``kubectl `` is an 8-token forced run from START), requests one at a
+    time, greedy and at 0.9: fast-forward on (GRAMMAR_FORCED_RUN_MIN=4)
+    against off (10**6), and the permissive profile against the grammar
+    off. The model's EOS ids become the tokenizer's (id 2): Gemma's 107
+    is the byte 'h' under ByteTokenizer, and an 'h' that could only end
+    a command would dead-end every word that spells one."""
+    import dataclasses
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    tag = "serve_grammar/forced"
+    params, model_name, dtype, device = served
+    cfg = dataclasses.replace(get_config(model_name),
+                              eos_ids=ByteTokenizer().eos_ids)
+    counters = _launch_counters()
+    ragged = counters["ragged_attention_pool"]
+    reqs = [(p, t, 1000 + i) for i, p in enumerate(GRAMMAR_FF_PROMPTS)
+            for t in (0.0, 0.9)]
+
+    async def run(name, **kw):
+        eng = BatchedTorchEngine(
+            cfg, tokenizer=ByteTokenizer(), params=params,
+            device=device, dtype=dtype,
+            batch_size=N_SLOTS, chunk_len=GRAMMAR_FF_CHUNK, **kw)
+        await eng.start()
+        splice_launches = []
+        ff = eng._grammar_fast_forward
+
+        def recording(idx, slot):
+            n0, s0 = ragged.launches, eng._grammar_ff_splices
+            ff(idx, slot)
+            if eng._grammar_ff_splices > s0:
+                splice_launches.append(ragged.launches - n0)
+
+        eng._grammar_fast_forward = recording
+        out = {"results": [], "per_request": []}
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            start = eng.grammar_health()
+            t0 = time.monotonic()
+            for p, t, s in reqs:
+                h0 = eng.grammar_health()
+                r = await eng.generate(p, max_tokens=GRAMMAR_FF_TOKENS,
+                                       temperature=t, seed=s)
+                h1 = eng.grammar_health()
+                out["results"].append(r)
+                if h1 is not None:
+                    out["per_request"].append({
+                        k: h1[k] - h0[k] for k in (
+                            "forced_tokens_total", "masked_steps_total",
+                            "fast_forward_splices_total")})
+            out["seconds"] = time.monotonic() - t0
+            out["launches"] = {n: fn.launches for n, fn in counters.items()}
+            # The traffic's totals (start()'s warm-up decodes too).
+            end = eng.grammar_health()
+            out["health"] = end and {
+                k: end[k] - start[k] for k in (
+                    "forced_tokens_total", "masked_steps_total",
+                    "fast_forward_splices_total")}
+            if end is not None:
+                out["health"]["dead_ends_total"] = end["dead_ends_total"]
+            out["splice_launches"] = splice_launches
+            out["engine"] = eng
+            if eng.kv_pool:
+                check_pool_books(eng)
+        finally:
+            await eng.stop()
+        n_tok = sum(r.completion_tokens for r in out["results"])
+        log(f"[{tag}] {name}: {n_tok} tokens in {out['seconds']:.2f} s; "
+            + (f"{out['health']['forced_tokens_total']} forced in "
+               f"{out['health']['fast_forward_splices_total']} splices, "
+               f"{out['health']['masked_steps_total']} masked; "
+               if out["health"] else "")
+            + f"ragged launches {out['launches']['ragged_attention_pool']}")
+        return out
+
+    runs = {}
+    for name, kw in (("on", dict(grammar_decode=True,
+                                 grammar_forced_run_min=4)),
+                     ("off", dict(grammar_decode=True,
+                                  grammar_forced_run_min=10 ** 6)),
+                     ("permissive", dict(grammar_decode=True,
+                                         grammar_profile="permissive")),
+                     ("grammar_off", dict(grammar_decode=False))):
+        runs[name] = await run(name, **kw)
+        release_served_apps(torch)
+
+    def compare(a, b, what, grammar):
+        eng = runs[a]["engine"]
+        out = []
+        for (p, t, s), ra, rb in zip(reqs, runs[a]["results"],
+                                     runs[b]["results"]):
+            ids = eng.tokenizer.encode(p)
+            allowed = None
+            if grammar:
+                want = list(ra.token_ids)
+                got = list(rb.token_ids)
+                k = next((i for i, (x, y) in enumerate(zip(want, got))
+                          if x != y), None)
+                if k is not None:
+                    allowed = eng._grammar.allowed_np(
+                        eng._grammar.run(0, want[:k]))
+            miss = _first_mismatch(torch, eng, ids, ra.token_ids,
+                                   rb.token_ids, t, s, allowed=allowed)
+            if miss is not None:
+                out.append(dict(miss, prompt=p, temperature=t))
+                if miss["gap"] > miss["tolerance"]:
+                    raise AssertionError(f"{tag}: {what}: {p!r} at {t} "
+                                         f"parts away from a near tie: "
+                                         f"{miss}")
+        return out
+
+    on, off = runs["on"], runs["off"]
+    g = on["engine"]._grammar
+    for r in on["results"] + off["results"]:
+        if not g.in_grammar(0, r.token_ids):
+            raise AssertionError(f"{tag}: off-grammar transcript "
+                                 f"{r.text!r}")
+    short = [d for d in on["per_request"]
+             if d["forced_tokens_total"] < 8
+             or d["fast_forward_splices_total"] < 1]
+    if short:
+        raise AssertionError(f"{tag}: requests without an admission splice "
+                             f"of 8 tokens: {short}")
+    if off["health"]["fast_forward_splices_total"] != 0:
+        raise AssertionError(f"{tag}: the off run spliced")
+    m_on, m_off = (on["health"]["masked_steps_total"],
+                   off["health"]["masked_steps_total"])
+    if not m_on < m_off:
+        raise AssertionError(f"{tag}: masked steps on {m_on} not below off "
+                             f"{m_off}")
+    n_layers = on["engine"].model_cfg.n_layers
+    mid = on["splice_launches"]
+    if any(n < n_layers for n in mid):
+        raise AssertionError(f"{tag}: a mid-stream splice launched the "
+                             f"ragged kernel {mid} times")
+    if on["launches"]["ragged_attention_pool"] <= 0:
+        raise AssertionError(f"{tag}: no ragged launch")
+    near_ff = compare("on", "off", "fast-forward on vs off", True)
+    near_perm = compare("grammar_off", "permissive", "permissive vs off",
+                        False)
+    info = {
+        "requests": len(reqs),
+        "per_request_on": on["per_request"],
+        "mid_stream_splices": len(mid),
+        "mid_stream_splice_launches": mid,
+        "near_tie_mismatches": {"ff": near_ff, "permissive": near_perm},
+        "launches": {n: sum(runs[k]["launches"][n] for k in runs)
+                     for n in counters},
+    }
+    for k, r in runs.items():
+        info[k] = {"seconds": r["seconds"],
+                   "tokens": sum(x.completion_tokens for x in r["results"]),
+                   "health": (None if r["health"] is None else {
+                       h: r["health"][h] for h in (
+                           "forced_tokens_total", "masked_steps_total",
+                           "fast_forward_splices_total",
+                           "dead_ends_total")})}
+    log(f"[{tag}] fast-forward on: {on['health']['masked_steps_total']} "
+        f"masked steps against {off['health']['masked_steps_total']} off; "
+        f"{len(mid)} mid-stream splices (ragged launches {mid}); near-tie "
+        f"mismatches: {len(near_ff)} on/off, {len(near_perm)} "
+        f"permissive/off; {gpu_line()}")
+    return info
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -5073,6 +5614,9 @@ def main() -> int:
                                                results.get("serve", {}))
     if "serve_chaos" in phases:
         results["serve_chaos"] = phase_serve_chaos(torch)
+    if "serve_grammar" in phases:
+        results["serve_grammar"] = phase_serve_grammar(
+            torch, results.get("serve", {}))
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),

@@ -1045,3 +1045,78 @@ def test_one_shot_nan_replays_on_the_card(card):
         top2 = torch.topk(row, 2).values
         assert float(top2[0] - top2[1]) <= 0.05 * float(
             row.pow(2).mean().sqrt()), (p, k)
+
+
+def test_masked_step_fold_on_the_card_equals_the_cpus(card):
+    """The grammar's per-step fold (``batcher.step_fold``: the legality
+    mask gathered through the stacked tables, a dead end frozen before it
+    samples, the masked draw, the FSM advance by the sampled token's
+    class, EOS and budget) run for eight steps on the card and on the
+    CPU over the same toy inputs: ByteTokenizer's default and readonly
+    profiles at vocabulary 512, greedy and seeded 0.9 rows, one row in
+    the DEAD state and one a token short of its budget. Every step's
+    tokens, live flags, counts, health words and states are equal."""
+    from ai_agent_kubectl_tpu_torch.constrain import GrammarRuntime
+    from ai_agent_kubectl_tpu_torch.engine.batcher import step_fold
+    from ai_agent_kubectl_tpu_torch.engine.protocol import (
+        HEALTH_GRAMMAR_DEAD)
+    from ai_agent_kubectl_tpu_torch.engine.sampling import (
+        sample_tokens_seeded)
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok, V = ByteTokenizer(), 512
+    rt = GrammarRuntime(tok, V, tok.eos_ids)
+    _, tc, ok, nxt = rt.snapshot_tables()
+
+    def enc(s):
+        return tok.encode(s, add_bos=False)
+
+    gs0 = np.array([rt.start_state(0), rt.run(0, enc("kubectl get p")),
+                    rt.run(0, enc("not kubectl")), rt.start_state(1),
+                    rt.run(0, enc("kubectl ver")),
+                    rt.run(1, enc("kubectl logs web-")), ], np.int64)
+    N = len(gs0)
+    assert rt.is_dead(int(gs0[2])) and not rt.is_dead(int(gs0[5]))
+    rng = np.random.default_rng(3)
+    steps = (rng.standard_normal((8, N, V)) * 3.0).astype(np.float32)
+    temps = np.array([0.0, 0.9, 0.9, 0.0, 0.9, 0.0], np.float32)
+    seeds = np.array([7, 8, 9, 10, 11, 12], np.int64)
+    budget = np.array([40, 40, 40, 40, 40, 3], np.int32)
+
+    def run(dev):
+        tc_d = torch.from_numpy(tc).to(dev, torch.int64)
+        ok_d = torch.from_numpy(ok).to(dev)
+        nx_d = torch.from_numpy(nxt).to(dev, torch.int64)
+        gs = torch.from_numpy(gs0).to(dev)
+        rows = tc_d[torch.div(gs, rt.S_max, rounding_mode="floor")]
+        seeds_d, temps_d = (torch.from_numpy(seeds).to(dev),
+                            torch.from_numpy(temps).to(dev))
+
+        def sample(lg, ngen, live, mask):
+            return sample_tokens_seeded(lg, seeds_d, ngen, temps_d,
+                                        active=live, mask=mask)
+
+        tok_d = torch.zeros((N,), dtype=torch.int32, device=dev)
+        live = torch.ones((N,), dtype=torch.bool, device=dev)
+        ngen = torch.full((N,), 2, dtype=torch.int32, device=dev)
+        budget_d = torch.from_numpy(budget).to(dev)
+        health = torch.zeros_like(ngen)
+        eos = torch.tensor(tok.eos_ids, dtype=torch.int32, device=dev)
+        trail = []
+        for logits in steps:
+            tok_d, live, ngen, health, counted, gs = step_fold(
+                torch.from_numpy(logits).to(dev), tok_d, live, ngen,
+                budget_d, health, (gs, rows, ok_d, nx_d), sample, eos, V,
+                True)
+            trail.append([x.cpu() for x in (tok_d, live, ngen, health,
+                                            counted, gs)])
+        return trail
+
+    want, got = run("cpu"), run(card)
+    for a, b in zip(want, got):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    last = want[-1]
+    assert int(last[3][2]) & HEALTH_GRAMMAR_DEAD and not bool(last[1][2])
+    assert int(last[2][5]) == 3 and not bool(last[1][5])
+    assert int(last[2][0]) > 2 and not rt.is_dead(int(last[5][0]))

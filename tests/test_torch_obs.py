@@ -590,6 +590,70 @@ def test_attribute_trace_bills_a_synthetic_torch_trace(tmp_path):
     assert "ragged_mma_kernel 0.005, ragged_combine_kernel 0.003" in table[3]
 
 
+def _launch(corr, ts, pid=1, tid=5):
+    return dict(_ev("cuda_runtime", "cudaLaunchKernel", ts, 3, pid, tid),
+                args={"correlation": corr})
+
+
+def _kernel(corr, name, ts, dur):
+    return dict(_ev("kernel", name, ts, dur), args={"correlation": corr})
+
+
+def test_device_spans_bill_to_the_scope_that_launched_them(tmp_path):
+    """A span bills to the host ranges open at its launch call (same
+    ``correlation``), not to the gpu_user_annotation ranges that cover
+    it on the card: there one copy stamped ahead of its stream's order
+    (rope's, at 1000 us) stretches the rope range over both of mlp's
+    GEMMs, as a capture on the card showed. A span whose launch is not
+    in the trace still takes the card's ranges."""
+    gemm = "nvjet_tst_128x8_64x12_2x1_v_bz_NNT"
+    events = [
+        _ev("user_annotation", "mlp", 0, 100, pid=1, tid=5),
+        _launch(1, 10), _launch(2, 20),
+        _ev("user_annotation", "rope", 100, 100, pid=1, tid=5),
+        _launch(3, 110), _launch(4, 150),
+        _launch(5, 210),                                   # no scope
+        _ev("user_annotation", "attention", 220, 40, pid=1, tid=5),
+        _launch(6, 230),
+        _kernel(3, "void at::native::unrolled_elementwise_kernel<copy>",
+                1000, 2),
+        _kernel(1, gemm, 1010, 20),
+        _kernel(2, gemm, 1040, 20),
+        _kernel(4, "void at::native::elementwise_kernel<mul>", 1100, 2),
+        _kernel(5, "void at::native::vectorized_elementwise_kernel<add>",
+                1110, 2),
+        _kernel(6, "void ragged_mma_kernel<256>", 1120, 5),
+        _kernel(99, "void rms_kernel<bf16>", 1200, 5),     # no launch
+        _ev("gpu_user_annotation", "rope", 1000, 102),
+        _ev("gpu_user_annotation", "mlp", 1010, 50),
+        _ev("gpu_user_annotation", "attention", 1120, 5),
+        _ev("gpu_user_annotation", "attn_norm", 1195, 15),
+    ]
+    spans, source = port_attr._select_spans(events)
+    assert source == "cuda_device"
+    billed = [(op.split("<")[0].split("::")[-1], port_attr.categorize(text))
+              for _, _, text, op in spans]
+    assert billed == [
+        ("unrolled_elementwise_kernel", "norm_rope_residual"),
+        (gemm, "weight_gemms"), (gemm, "weight_gemms"),
+        ("elementwise_kernel", "norm_rope_residual"),
+        ("vectorized_elementwise_kernel", "data_movement"),
+        ("void ragged_mma_kernel", "attention"),
+        ("void rms_kernel", "norm_rope_residual")]
+    # Without the launch calls, the card's stretched rope range takes
+    # the GEMMs.
+    bare = [e for e in events if e["cat"] != "cuda_runtime"]
+    spans, _ = port_attr._select_spans(bare)
+    assert {port_attr.categorize(text) for _, _, text, op in spans
+            if op == gemm} == {"norm_rope_residual"}
+    (tmp_path / "trace.pt.trace.json").write_text(
+        json.dumps({"traceEvents": events}))
+    art = port_attr.attribute_trace(str(tmp_path), 1)
+    port_attr.validate_attribution(art)
+    cats = {c["name"]: c["ms_per_step"] for c in art["categories"]}
+    assert cats["weight_gemms"] == 0.04
+
+
 def test_run_attribution_on_the_cpu_validates():
     t0 = time.monotonic()
     art = port_attr.run_attribution(

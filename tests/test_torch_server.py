@@ -224,8 +224,7 @@ def test_config_defaults_match_the_jax_package():
 REFUSED = [
     ("SPEC_DECODE", "true"),
     ("SPEC_DRAFT_K", "2"), ("SPEC_DRAFT_MODEL", "toy-8m"),
-    ("SPEC_DRAFT_PATH", "/draft"), ("GRAMMAR_DECODE", "true"),
-    ("GRAMMAR_PROFILE", "readonly"), ("GRAMMAR_FORCED_RUN_MIN", "8"),
+    ("SPEC_DRAFT_PATH", "/draft"),
     ("HOST_KV_BLOCKS", "64"), ("CHUNK_PIPE_DEPTH", "3"),
     ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
     ("FLEET_SIZE", "2"),
@@ -251,6 +250,27 @@ def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
         ServiceConfig.from_env()
     monkeypatch.setenv(knob, UNSERVED_KNOBS[knob])
     assert ServiceConfig.from_env().engine == "torch"
+
+
+#: the grammar knobs, refused until the port served them: each value is
+#: now read into the field the JAX from_env fills
+GRAMMAR_KNOBS = [
+    ("GRAMMAR_DECODE", "true", "grammar_decode", True),
+    ("GRAMMAR_PROFILE", "ReadOnly", "grammar_profile", "readonly"),
+    ("GRAMMAR_PROFILE", "permissive", "grammar_profile", "permissive"),
+    ("GRAMMAR_FORCED_RUN_MIN", "8", "grammar_forced_run_min", 8),
+]
+
+
+@pytest.mark.parametrize("knob,value,field,want", GRAMMAR_KNOBS)
+def test_config_reads_the_grammar_knobs_as_the_jax_package(
+        monkeypatch, knob, value, field, want):
+    assert knob not in UNSERVED_KNOBS
+    assert getattr(ServiceConfig.from_env(), field) == \
+        getattr(JaxServiceConfig.from_env(), field)
+    monkeypatch.setenv(knob, value)
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert getattr(ours, field) == want == getattr(theirs, field)
 
 
 #: the containment and OpenAI knobs, refused until the port served them:
