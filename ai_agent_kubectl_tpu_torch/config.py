@@ -31,6 +31,11 @@ lives in the continuous-batching engine only: where the JAX
 single-sequence engine ignores ``GRAMMAR_DECODE=true``, the port
 refuses it at boot for an engine that would not enforce it (the
 single-sequence engine at ``DECODE_BATCH_SIZE=1``, or ``ENGINE=openai``).
+Speculative decoding (``SPEC_DECODE``, ``SPEC_DRAFT_K``,
+``SPEC_DRAFT_MODEL``, ``SPEC_DRAFT_PATH``) is read with the JAX
+defaults and errors, and refused likewise where no engine would run it:
+the single-sequence engine, ``ENGINE=openai``, and ``KV_POOL=false``
+(where the JAX batcher logs a warning and serves plain decode).
 """
 
 from __future__ import annotations
@@ -48,12 +53,9 @@ from .obs.steptime import load_baselines
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # the rest of the batched engine (A7): speculative decode, the
-    # two-tier host KV, chunk pipelining (the port fetches each chunk
-    # before the next dispatch, on device-side termination), group
-    # admission
-    "SPEC_DECODE": "false", "SPEC_DRAFT_K": "4",
-    "SPEC_DRAFT_MODEL": "gemma-2b-it", "SPEC_DRAFT_PATH": "",
+    # the rest of the batched engine (A7): the two-tier host KV, chunk
+    # pipelining (the port fetches each chunk before the next dispatch,
+    # on device-side termination), group admission
     "HOST_KV_BLOCKS": "0",
     "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
     "ADMIT_SCRATCH_MB": "512",
@@ -252,6 +254,17 @@ class ServiceConfig:
     grammar_decode: bool = False            # GRAMMAR_DECODE
     grammar_profile: str = "default"        # GRAMMAR_PROFILE
     grammar_forced_run_min: int = 4         # GRAMMAR_FORCED_RUN_MIN
+    # Speculative decoding (engine/batcher.py): a draft model proposes
+    # SPEC_DRAFT_K tokens a verify iteration and ONE target forward over
+    # the k + 1-token window verifies them by exact match against the
+    # target's own seeded draw, so transcripts equal SPEC_DECODE=false
+    # at any k. The continuous-batching engine over the KV pool only.
+    # The draft shares the target's vocabulary; SPEC_DRAFT_PATH is its
+    # checkpoint (unset: random init, toy/dev mode only).
+    spec_decode: bool = False               # SPEC_DECODE
+    spec_draft_k: int = 4                   # SPEC_DRAFT_K
+    spec_draft_model: str = "gemma-2b-it"   # SPEC_DRAFT_MODEL
+    spec_draft_path: Optional[str] = None   # SPEC_DRAFT_PATH
 
     # QoS ring (engine/qos.py), as in the JAX package. TENANT_TIERS maps
     # a tenant key (a registered API key, else the client IP) to the
@@ -456,6 +469,29 @@ class ServiceConfig:
             from .constrain import assert_safety_consistent
 
             assert_safety_consistent()
+        # The speculative-decode knobs, with the JAX errors: an
+        # impossible combination or an unknown or mismatched draft must
+        # refuse to boot, not serve plain decode behind a knob that says
+        # otherwise. (DEVICE_TERMINATION is always on in the port: its
+        # false is refused in from_env, with the JAX error under
+        # SPEC_DECODE.)
+        if self.spec_decode:
+            from .models.config import get_config as _get_model_config
+            from .models.config import spec_draft_config
+
+            try:
+                target = _get_model_config(self.model_name)
+            except KeyError:
+                target = None   # MODEL_NAME errors are the engine's job
+            spec_draft_config(self.spec_draft_k, self.spec_draft_model,
+                              target, self.kv_pool)
+            if not self.batched_engine:
+                raise ValueError(
+                    f"SPEC_DECODE=true is served by the continuous-"
+                    f"batching engine only (ENGINE=torch with "
+                    f"DECODE_BATCH_SIZE>1, or ENGINE=torch-batched); "
+                    f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
+                    f"{self.decode_batch_size} would serve plain decode")
 
     @property
     def batched_engine(self) -> bool:
@@ -505,6 +541,11 @@ class ServiceConfig:
 
     @classmethod
     def from_env(cls) -> "ServiceConfig":
+        if (_env_bool("SPEC_DECODE", False)
+                and not _env_bool("DEVICE_TERMINATION", True)):
+            raise ValueError(
+                "SPEC_DECODE requires DEVICE_TERMINATION=true (the "
+                "accept/reject fold rides the decode chunk's carry)")
         for name, served in UNSERVED_KNOBS.items():
             raw = os.getenv(name)
             if raw not in (None, "") and not _same_value(raw, served):
@@ -582,6 +623,10 @@ class ServiceConfig:
             grammar_profile=(_env_str("GRAMMAR_PROFILE", "default")
                              or "default").lower(),
             grammar_forced_run_min=_env_int("GRAMMAR_FORCED_RUN_MIN", 4),
+            spec_decode=_env_bool("SPEC_DECODE", False),
+            spec_draft_k=_env_int("SPEC_DRAFT_K", 4),
+            spec_draft_model=_env_str("SPEC_DRAFT_MODEL", "gemma-2b-it"),
+            spec_draft_path=_env_str("SPEC_DRAFT_PATH", None),
             tenant_tiers=_env_str("TENANT_TIERS", "") or "",
             qos_default_lane=(
                 _env_str("QOS_DEFAULT_LANE", "interactive")

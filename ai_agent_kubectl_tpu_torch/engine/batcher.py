@@ -121,6 +121,22 @@ entry of the in-flight list. In every regime:
   mid-stream after a consume (``_grammar_fast_forward``, the pool
   regimes only). Forced tokens take generation indices but no
   randomness, so transcripts equal masked step-by-step decode.
+- **Speculative decoding** (``SPEC_DECODE``, the JAX engine's; the pool
+  regimes only): a draft model (``SPEC_DRAFT_MODEL``, same vocabulary,
+  never quantized) with its own dense per-slot cache proposes
+  ``SPEC_DRAFT_K`` = k greedy tokens a verify iteration (k + 1 draft
+  forwards: the last writes the k-th proposal's KV row), and ONE target
+  forward over the (k + 1)-token window (the ragged kernel at q_len =
+  k + 1, or the gather path) keeps every position's logits. Each
+  position runs the plain step's fold (corrupt, grammar mask, seeded
+  draw at its own generation index, health, EOS, budget); a window
+  stays valid while each draft equals the token sampled against it, so
+  the transcript never depends on the draft and equals spec-off's. A
+  chunk runs ``max(1, CHUNK_LEN // (k + 1))`` iterations into a
+  compacting token buffer (the packed buffer's drafted/accepted lanes
+  ride along); every site that arms the target's KV (admission,
+  replay, fast-forward) prefills the span into the draft's cache too.
+  ``draft:die`` flips the engine to plain chunks at dispatch.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -131,9 +147,9 @@ address) cannot be contained: every later call fails, the resets spend
 their budget, and fail-fast and the breaker take over.
 
 Not in this slice (each raises or is simply absent; ROADMAP lists them):
-speculative decoding, group admission (``ADMIT_KPADS``) on the dense
-ladder, the host KV tier, and a chunk pipeline deeper than one (the
-host fetches each chunk before it dispatches the next).
+group admission (``ADMIT_KPADS``) on the dense ladder, the host KV
+tier, and a chunk pipeline deeper than one (the host fetches each chunk
+before it dispatches the next).
 """
 
 from __future__ import annotations
@@ -153,14 +169,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models.config import get_config
-from ..models.transformer import KVCache, forward
-from ..obs import (PHASE_DECODE, PHASE_PREFILL, SLO_QUEUE_WAIT, SLO_TTFT,
-                   GoodputLedger, SloEngine, StepTimeSentinel, Trace,
-                   current_trace, prefill_bucket)
-from ..obs.ledger import (CLASS_DELIVERED, CLASS_PREEMPTED,
-                          CLASS_QUARANTINE_BURN, CLASS_REPLAYED,
-                          CLASS_WASTED_MASKED)
+from ..models.config import get_config, spec_draft_config
+from ..models.transformer import KVCache, forward, init_params
+from ..obs import (PHASE_DECODE, PHASE_PREFILL, PHASE_SPEC_VERIFY,
+                   SLO_QUEUE_WAIT, SLO_TTFT, GoodputLedger, SloEngine,
+                   StepTimeSentinel, Trace, current_trace, prefill_bucket)
+from ..obs.ledger import (CLASS_DELIVERED, CLASS_DRAFT_REJECTED,
+                          CLASS_PREEMPTED, CLASS_QUARANTINE_BURN,
+                          CLASS_REPLAYED, CLASS_WASTED_MASKED)
 from ..obs.profiler import ProfilerSession, scope
 from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
@@ -189,6 +205,12 @@ logger = logging.getLogger(__name__)
 #: smallest KV page ``DECODE_ATTN=auto`` serves paged decode at (the JAX
 #: package's floor; 64 divides the 128-token kv-limit tile).
 _AUTO_PAGED_MIN_PAGE = 64
+
+
+def default_seed(prompt: str) -> int:
+    """The seed a request's tokens are drawn under when the caller gives
+    none: the prompt's CRC32 (the JAX batcher's rule)."""
+    return zlib.crc32(prompt.encode("utf-8", "surrogatepass")) & 0x7FFFFFFF
 
 
 def resolve_decode_attn(decode_attn: str, cfg, *, kv_quant: str = "",
@@ -364,6 +386,12 @@ class _Slot:
     # consume skips (always 0 at pipe depth one).
     gs: int = 0
     stale_chunks: int = 0
+    # Speculative decoding: host truth of the device carry at the last
+    # arm — the carry token sat at ``anchor_pos`` when ``anchor_g``
+    # tokens were generated. A spec chunk advances by what it accepted,
+    # not by its width, so the consume re-syncs ``pos`` from these.
+    anchor_pos: int = 0
+    anchor_g: int = 0
 
 
 class BatchedTorchEngine(TorchEngine):
@@ -411,6 +439,12 @@ class BatchedTorchEngine(TorchEngine):
                  grammar_decode: bool = False,
                  grammar_profile: str = "default",
                  grammar_forced_run_min: int = 4,
+                 spec_decode: bool = False,
+                 spec_draft_k: int = 4,
+                 spec_draft_model: str = "gemma-2b-it",
+                 spec_draft_path: Optional[str] = None,
+                 spec_draft_seed: Optional[int] = None,
+                 spec_draft_params=None,
                  faults=None,
                  **kwargs):
         super().__init__(*args, **kwargs)
@@ -570,6 +604,33 @@ class BatchedTorchEngine(TorchEngine):
         self._grammar_masked = 0
         self._grammar_dead_ends: dict = {}
         self._grammar_ff_splices = 0
+        # Speculative decoding: the draft model (loaded at start, random
+        # from seed + 1 unless spec_draft_seed says otherwise, kept
+        # across restarts), its dense per-slot cache (_init_decode_state),
+        # whether it still drafts (a draft:die drill ends that), the
+        # verify iterations a chunk runs and the tokens its row holds.
+        # Cumulative counters (scheduler-thread writes, racy reads):
+        # proposals, accepted proposals, degradations, and the draft's
+        # and the verifier's forwards.
+        self.spec_decode = bool(spec_decode)
+        self.spec_draft_k = int(spec_draft_k)
+        self.spec_draft_model = spec_draft_model
+        self.spec_draft_path = spec_draft_path
+        self.spec_draft_seed = spec_draft_seed
+        self._draft_params = spec_draft_params
+        self._draft_cfg = (spec_draft_config(self.spec_draft_k,
+                                             spec_draft_model,
+                                             self.model_cfg, self.kv_pool)
+                           if self.spec_decode else None)
+        self._draft_cache: Optional[KVCache] = None
+        self._spec_live = False
+        self._spec_steps = 0
+        self._chunk_tokens = self.chunk_len
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_degraded = 0
+        self.draft_forward_steps = 0
+        self.verify_steps = 0
         # Resolved at startup (_resolve_regime).
         self._decode_impl = ""
         self._attention_regime = ""
@@ -615,6 +676,10 @@ class BatchedTorchEngine(TorchEngine):
             grammar_decode=cfg.grammar_decode,
             grammar_profile=cfg.grammar_profile,
             grammar_forced_run_min=cfg.grammar_forced_run_min,
+            spec_decode=cfg.spec_decode,
+            spec_draft_k=cfg.spec_draft_k,
+            spec_draft_model=cfg.spec_draft_model,
+            spec_draft_path=cfg.spec_draft_path,
             faults=faults,
             **engine_kwargs(cfg),
         )
@@ -636,6 +701,8 @@ class BatchedTorchEngine(TorchEngine):
         cfg = self.model_cfg
         if self.grammar_decode and self._grammar is None:
             self._grammar_start()
+        if self.spec_decode:
+            self._spec_load()
         self._resolve_regime()
         if not self.kv_pool:
             self._init_prefix_cache()
@@ -682,11 +749,38 @@ class BatchedTorchEngine(TorchEngine):
                     "states=%d classes=%d", self.grammar_profile,
                     h["grammar_hash"], h["states"], h["classes"])
 
+    def _spec_load(self) -> None:
+        """The draft model, as the JAX engine loads it: the caller's
+        parameters (kept across restarts), else the checkpoint at
+        ``spec_draft_path``, else a random init from ``spec_draft_seed``
+        (default ``seed + 1``), always at the engine dtype and never
+        quantized (its config was checked at construction)."""
+        dcfg = self._draft_cfg
+        if self._draft_params is not None:
+            return
+        if self.spec_draft_path:
+            from ..models.convert import convert_hf_checkpoint
+
+            logger.info("Loading draft checkpoint from %s",
+                        self.spec_draft_path)
+            self._draft_params = convert_hf_checkpoint(
+                dcfg, self.spec_draft_path, dtype=self.dtype,
+                device=self.device)
+            return
+        dseed = (self.spec_draft_seed if self.spec_draft_seed is not None
+                 else self.seed + 1)
+        logger.warning("No SPEC_DRAFT_PATH; random-initializing draft %s "
+                       "(toy/dev mode, seed %d)", dcfg.name, dseed)
+        gen = torch.Generator(device=self.device).manual_seed(dseed)
+        self._draft_params = init_params(gen, dcfg, dtype=self.dtype,
+                                         device=self.device)
+
     def _resolve_regime(self) -> None:
-        """The JAX engine's startup resolution (without its mesh and
-        speculative branches): the decode attention (``_decode_impl``:
-        ragged, paged or dense), the regime ``kv_pool_health`` reports,
-        the page, the KV span ``_S_alloc`` and the decode KV buckets."""
+        """The JAX engine's startup resolution (without its mesh
+        branches): the decode attention (``_decode_impl``: ragged, paged
+        or dense), the regime ``kv_pool_health`` reports, the page, the
+        speculative chunk's geometry, the KV span ``_S_alloc`` and the
+        decode KV buckets."""
         cfg = self.model_cfg
         on_card = self.device.type == "cuda"
         impl, page = resolve_decode_attn(
@@ -722,12 +816,30 @@ class BatchedTorchEngine(TorchEngine):
                 use_ragged = False
             if use_ragged:
                 impl = "ragged"
+            if impl == "paged" and self.spec_decode:
+                # The paged decode kernel is single-query; a verify
+                # window spans k + 1 tokens.
+                logger.info("SPEC_DECODE: verify windows are multi-token; "
+                            "decode attention uses the gather path")
+                impl = "dense"
             self._attention_regime = {"ragged": "ragged",
                                       "paged": "paged"}.get(impl, "gather")
             # Every per-slot table covers max_seq_len in whole pages; 0
             # blocks = auto, the dense envelope (every slot at full
-            # length), which prefix sharing then oversubscribes.
-            S_alloc = -(-self.max_seq_len // page) * page
+            # length), which prefix sharing then oversubscribes. A
+            # speculative chunk's verify window reads and writes up to
+            # k positions past the last one a plain chunk reaches, so
+            # the span takes the JAX engine's slack of one chunk's
+            # tokens: a near-capacity slot's last window stays inside
+            # its table.
+            span = self.max_seq_len
+            if self.spec_decode:
+                self._spec_steps = max(1, self.chunk_len
+                                       // (self.spec_draft_k + 1))
+                self._chunk_tokens = self._spec_steps * (
+                    self.spec_draft_k + 1)
+                span += max(self.chunk_len, self._chunk_tokens)
+            S_alloc = -(-span // page) * page
             self._pool_max_pages = S_alloc // page
             self._pool_n_blocks = (self.kv_pool_blocks
                                    or self.batch_size * self._pool_max_pages)
@@ -753,6 +865,12 @@ class BatchedTorchEngine(TorchEngine):
                 S_alloc = -(-S_alloc // page) * page
         self._decode_impl = impl
         self._S_alloc = S_alloc
+        self._spec_live = self.spec_decode
+        if self.spec_decode:
+            logger.info("speculative decode on: draft=%s k=%d (%d verify "
+                        "iterations x %d tokens per chunk)",
+                        self._draft_cfg.name, self.spec_draft_k,
+                        self._spec_steps, self.spec_draft_k + 1)
         # Paged and ragged decode cost tracks each slot's live pages in one
         # call; the dense read attends over the smallest bucket covering
         # every live position.
@@ -762,14 +880,15 @@ class BatchedTorchEngine(TorchEngine):
     def _init_decode_state(self) -> None:
         """(Re-)initialize the device-resident scheduler state: the zeroed
         KV pool, the host allocator, radix tree and tables (or the zeroed
-        dense cache), the per-slot carry vectors and the all-False
-        ``decode:nan`` mask. Called at start and by the containment reset
-        (which condemns every cached block): the old device buffers are
-        dropped before the new ones are allocated, so a reset's peak is
-        steady state, not steady state plus a second pool."""
+        dense cache), the draft's zeroed cache under speculative decode,
+        the per-slot carry vectors and the all-False ``decode:nan`` mask.
+        Called at start and by the containment reset (which condemns
+        every cached block): the old device buffers are dropped before
+        the new ones are allocated, so a reset's peak is steady state,
+        not steady state plus a second pool."""
         N = self.batch_size
         dev = self.device
-        self._cache = None
+        self._cache = self._draft_cache = None
         self._tok_d = self._pos_d = self._active_d = None
         self._ngen_d = self._budget_d = self._seeds_d = self._temps_d = None
         if self.kv_pool:
@@ -809,6 +928,12 @@ class BatchedTorchEngine(TorchEngine):
         # truth by every admission and replay.
         self._fsm_d = (torch.zeros((N,), dtype=torch.int64, device=dev)
                        if self._grammar is not None else None)
+        # The draft's dense per-slot cache, rebuilt with the rest (a
+        # replay re-prefills it from host truth, as the pool's blocks).
+        if self.spec_decode:
+            self._draft_cache = KVCache.zeros(self._draft_cfg, N,
+                                              self._S_alloc,
+                                              dtype=self.dtype, device=dev)
 
     # ------------------------------------------------ block-paged KV pool
 
@@ -934,12 +1059,15 @@ class BatchedTorchEngine(TorchEngine):
             offset += L
         return logits[:, 0]
 
-    def _pool_ensure_coverage(self, idx: int, slot: _Slot) -> bool:
-        """Grow the slot's table to cover the next chunk's writes. False =
-        pool exhausted even after radix eviction: the slot is marked
-        exhausted and finishes at its current length (truncation, never
-        corruption)."""
-        target = min(slot.pos + self.chunk_len, self._S_alloc)
+    def _pool_ensure_coverage(self, idx: int, slot: _Slot,
+                              chunk_tokens: Optional[int] = None) -> bool:
+        """Grow the slot's table to cover the next chunk's writes
+        (``chunk_tokens`` of them: a speculative chunk's row is wider
+        than ``chunk_len``). False = pool exhausted even after radix
+        eviction: the slot is marked exhausted and finishes at its
+        current length (truncation, never corruption)."""
+        target = min(slot.pos + (chunk_tokens or self.chunk_len),
+                     self._S_alloc)
         need = pages_for(target, self.kv_pool_page)
         while len(slot.blocks) < need:
             b = self._pool_alloc(1)
@@ -1045,12 +1173,19 @@ class BatchedTorchEngine(TorchEngine):
                               req.max_tokens, req.seed, len(run))
                 if gs1 >= 0:
                     self._grammar_arm(slot_idx, gs1)
+                # The draft mirrors the whole span now: the prologue's
+                # draft forward reads rows below the window's start.
+                self._draft_prefill_slot(slot_idx, span)
             else:
                 last_logits = self._pool_prefill_span(
                     self._tables[slot_idx], span, m)
                 first_d = self._arm_first(slot_idx, last_logits, req,
                                           n_prompt + len(run), gs=gs1,
                                           ngen0=len(run))
+                # The draft conditions on the same prompt (and run)
+                # before it drafts; it has no radix tree, so it prefills
+                # the whole span.
+                self._draft_prefill_slot(slot_idx, span)
         except Exception:
             self._tables[slot_idx, :] = self._pool_n_blocks
             self._pool.decref(blocks)
@@ -1060,7 +1195,8 @@ class BatchedTorchEngine(TorchEngine):
             pos=n_prompt + len(run), queue_ms=wait_ms, t_admit=t_adm,
             chunks_inflight=(0 if done_at_admit or staged is not None
                              else 1),
-            prefix_hit=m > 0, blocks=blocks, pool_ids=ids, gs=gs1)
+            prefix_hit=m > 0, blocks=blocks, pool_ids=ids, gs=gs1,
+            anchor_pos=n_prompt + len(run), anchor_g=1 + len(run))
         self._slots[slot_idx] = slot
         if run:
             piece = slot.detok.push(*run)
@@ -1279,7 +1415,8 @@ class BatchedTorchEngine(TorchEngine):
         if cap <= 0:
             return
         run, ends_eos, end_gs = self._grammar.forced_run(slot.gs, cap)
-        covered = slot.decode_chunks_inflight * self.chunk_len
+        covered = slot.decode_chunks_inflight * (
+            self._chunk_tokens if self._spec_live else self.chunk_len)
         net = len(run) - covered
         if net < self.grammar_forced_run_min and not (
                 ends_eos and run and net > 0):
@@ -1298,6 +1435,10 @@ class BatchedTorchEngine(TorchEngine):
         self._pool_prefill_span(self._tables[idx],
                                 ids_full[:base + len(run) - 1],
                                 max(0, base - 1))
+        # The draft holds the run's rows too (from base - 1, over the
+        # slot's rows it already decoded): it drafts what comes after.
+        self._draft_prefill_slot(idx, ids_full[:base + len(run) - 1],
+                                 start=max(0, base - 1))
         piece = slot.detok.push(*run)
         slot.gs = end_gs
         if piece is not None:
@@ -1325,6 +1466,8 @@ class BatchedTorchEngine(TorchEngine):
         self._run_arm(idx, base + len(run) - 1, run[-1], req.temperature,
                       req.max_tokens, req.seed, new_g)
         self._grammar_arm(idx, end_gs)
+        slot.anchor_pos = base + len(run) - 1
+        slot.anchor_g = new_g
 
     def grammar_health(self) -> Optional[dict]:
         """The grammar view for /health (host counters only); None with
@@ -1337,6 +1480,97 @@ class BatchedTorchEngine(TorchEngine):
         body["fast_forward_splices_total"] = self._grammar_ff_splices
         body["dead_ends_total"] = dict(self._grammar_dead_ends)
         return body
+
+    # ------------------------------------------------ speculative decode
+    #
+    # The draft lives inside this engine: its parameters and its dense
+    # per-slot cache sit beside the target's, and every site that arms
+    # the target's KV (admission, replay, fast-forward) prefills the same
+    # span into the draft's cache, so both condition on one transcript.
+    # Verification is exact match against the target's own seeded draw:
+    # no transcript depends on a draft, which is why losing the draft
+    # (draft:die) degrades to plain decode and fails nothing.
+
+    def _draft_forward(self, tokens, positions, live, kv_limit: int):
+        """One draft forward over its dense cache (the JAX engine's
+        ``draft_forward_step``): dense attention over ``kv_limit``
+        positions, KV written for the ``live`` rows only. Returns the
+        logits [N, S, vocab]."""
+        self.draft_forward_steps += 1
+        logits, self._draft_cache = forward(
+            self._draft_params, self._draft_cfg, tokens, positions,
+            self._draft_cache, kv_limit=kv_limit, attn_impl="dense",
+            write_mask=live, moe_impl="dense")
+        return logits
+
+    def _draft_prefill_slot(self, slot_idx: int, ids: List[int],
+                            start: int = 0) -> None:
+        """Mirror a target KV span into the draft's cache: prefill
+        ``ids[start:]`` at absolute offsets into the slot's rows, in
+        windows of the largest prefill bucket, each padded to the
+        smallest bucket that holds it and attending over the prefill KV
+        rung that covers it (the JAX ``_draft_prefill_slot``, whose
+        scratch the slot's own rows stand in for: at ``start`` 0 they
+        are zeroed first, as its scratch starts zeroed)."""
+        if not self._spec_live:
+            return
+        n = len(ids)
+        if n <= start:
+            return
+        cache = self._draft_cache
+        with scope("kv_splice"):
+            view = KVCache(k=cache.k[:, slot_idx:slot_idx + 1],
+                           v=cache.v[:, slot_idx:slot_idx + 1])
+            if start == 0:
+                view.k.zero_()
+                view.v.zero_()
+        big = self.prefill_buckets[-1]
+        offset = start
+        while offset < n:
+            L = min(big, n - offset)
+            bucket = next(b for b in self.prefill_buckets if b >= L)
+            kv_limit = self._pool_kv_limit(offset + bucket)
+            tokens = np.zeros((1, bucket), np.int64)
+            tokens[0, :L] = ids[offset:offset + L]
+            positions = offset + torch.arange(bucket, device=self.device)
+            forward(self._draft_params, self._draft_cfg,
+                    torch.from_numpy(tokens).to(self.device),
+                    positions[None].to(torch.int32), view,
+                    kv_limit=kv_limit, attn_impl="dense", moe_impl="dense",
+                    logits_at=torch.full((1,), L - 1, dtype=torch.int64,
+                                         device=self.device))
+            offset += L
+
+    def _chunk_waste_bound(self) -> int:
+        """Counted device steps one in-flight chunk can hold for a slot
+        (the waste cap at a host-only finish): a speculative chunk's row
+        is ``_chunk_tokens`` wide, and a draft:die flip can leave chunks
+        of both widths in flight."""
+        if self.spec_decode:
+            return max(self.chunk_len, self._chunk_tokens)
+        return self.chunk_len
+
+    def spec_health(self) -> Optional[dict]:
+        """The speculative-decode view for /health (host counters only);
+        None with it off. The draft is never sharded here (one card)."""
+        if not self.spec_decode:
+            return None
+        drafted = self._spec_drafted
+        return {
+            "enabled": self.spec_decode,
+            "active": self._spec_live,
+            "draft_model": (self._draft_cfg.name if self._draft_cfg
+                            is not None else self.spec_draft_model),
+            "k": self.spec_draft_k,
+            "verify_steps_per_chunk": self._spec_steps,
+            "drafted_tokens_total": drafted,
+            "accepted_tokens_total": self._spec_accepted,
+            "acceptance_ratio": (round(self._spec_accepted / drafted, 4)
+                                 if drafted else None),
+            "degraded_total": self._spec_degraded,
+            "draft_sharded": False,
+            "draft_kv_fallback": False,
+        }
 
     # -------------------------------------------------------------- chunk
 
@@ -1397,29 +1631,9 @@ class BatchedTorchEngine(TorchEngine):
         steps = self.chunk_len
         toks = []
         if adm is not None:
-            # The ragged prologue: staged slots prefill their suffix
-            # (q_len = its length) and sample their first token off its
-            # last position; every other live slot takes its decode step
-            # at q_len=1 in the same forward.
-            a_tok, a_len, a_start = adm
-            is_adm = a_len > 0
-            W = a_tok.shape[1]
-            cols = torch.arange(W, dtype=torch.int32, device=self.device)
-            q_len = torch.where(is_adm, a_len, 1)
-            start = torch.where(is_adm, a_start, pos[:, 0])
-            win_tok = a_tok.clone()
-            win_tok[:, 0] = torch.where(is_adm, a_tok[:, 0], tok[:, 0])
-            q_lens = torch.where(live, q_len, 0)
-            logits = self._forward(
-                win_tok, start[:, None] + cols[None, :], tables,
-                attn_impl="ragged", q_lens=q_lens,
-                write_mask=(cols[None, :] < q_len[:, None]) & live[:, None],
-                logits_at=(q_lens.clamp(min=1) - 1).long())
-            step_logits = logits[:, 0].masked_fill(bad_rows, float("nan"))
-            nxt, live, ngen, health, counted, gs = self._step_fold(
-                step_logits, win_tok[:, 0], live, ngen, budget, health,
-                None if gs is None else (gs, *tables_g))
-            pos = (start + q_len * counted.to(torch.int32))[:, None]
+            nxt, pos, live, ngen, health, _, gs = self._prologue(
+                adm, tok, pos, live, ngen, budget, health, gs, tables_g,
+                tables, bad_rows)
             tok = nxt[:, None]
             toks.append(nxt)
             steps -= 1
@@ -1444,18 +1658,204 @@ class BatchedTorchEngine(TorchEngine):
             self._fsm_d = gs
         return packed
 
+    def _prologue(self, adm, tok, pos, live, ngen, budget, health, gs,
+                  tables_g, tables, bad_rows) -> tuple:
+        """The ragged prologue: staged slots prefill their suffix (q_len
+        = its length) and sample their first token off its last
+        position, while every other live slot takes its decode step at
+        q_len=1 in the same forward (``adm`` = (tok [N, W], len, start);
+        ``_run_arm`` already armed the staged slots' budget, count and
+        live flag). Returns ``(nxt, pos, live, ngen, health, counted,
+        gs)`` after the step's fold."""
+        a_tok, a_len, a_start = adm
+        is_adm = a_len > 0
+        W = a_tok.shape[1]
+        cols = torch.arange(W, dtype=torch.int32, device=self.device)
+        q_len = torch.where(is_adm, a_len, 1)
+        start = torch.where(is_adm, a_start, pos[:, 0])
+        win_tok = a_tok.clone()
+        win_tok[:, 0] = torch.where(is_adm, a_tok[:, 0], tok[:, 0])
+        q_lens = torch.where(live, q_len, 0)
+        logits = self._forward(
+            win_tok, start[:, None] + cols[None, :], tables,
+            attn_impl="ragged", q_lens=q_lens,
+            write_mask=(cols[None, :] < q_len[:, None]) & live[:, None],
+            logits_at=(q_lens.clamp(min=1) - 1).long())
+        step_logits = logits[:, 0].masked_fill(bad_rows, float("nan"))
+        nxt, live, ngen, health, counted, gs = self._step_fold(
+            step_logits, win_tok[:, 0], live, ngen, budget, health,
+            None if gs is None else (gs, *tables_g))
+        pos = (start + q_len * counted.to(torch.int32))[:, None]
+        return nxt, pos, live, ngen, health, counted, gs
+
+    def _run_spec_chunk(self, force: torch.Tensor, tables: torch.Tensor,
+                        adm: Optional[tuple] = None,
+                        kv_limit: Optional[int] = None,
+                        corrupt: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """One speculative chunk (the JAX ``spec_chunk_impl``):
+        ``_spec_steps`` verify iterations, each k + 1 greedy draft
+        forwards (masked by the grammar, whose speculative state ``dgs``
+        the draft walks; the last forward only writes the k-th
+        proposal's KV row), then ONE target forward over the carry token
+        and the k proposals, every position's logits kept, then the
+        plain step's fold at each position j (``_step_fold`` over the
+        rows still valid in the window, ``seg``): a row stays valid
+        while each proposal equals the token sampled against it, dies
+        with its row at EOS, budget or a health trip, and re-drafts
+        from the corrected carry next iteration. Tokens land in a
+        buffer ``CT`` wide through a per-slot cursor (the EOS that ends
+        a row too); a lane that writes nothing lands in one spare
+        column, sliced off. With staged admissions the ragged prologue
+        runs first (after one draft forward over the window's first
+        token, which keeps the draft's rows gapless) and its token takes
+        column 0. ``drafted`` grows by k for each live iteration;
+        ``accepted`` counts positions j >= 1 that counted. Updates the
+        device carry and returns the packed buffer with both lanes."""
+        if corrupt is None:
+            corrupt = self._no_corrupt_d
+        bad_rows = corrupt[:, None]
+        k = self.spec_draft_k
+        N = self.batch_size
+        dev = self.device
+        ragged = self._decode_impl == "ragged"
+        # The draft attends over the chunk's KV bucket in the gather
+        # regime and over the whole span in the ragged one (where the
+        # target needs no bucket), as in the JAX engine.
+        draft_kvl = self._S_alloc if ragged else kv_limit
+        CT = self._spec_steps * (k + 1) + (1 if adm is not None else 0)
+        tok, pos, ngen, budget = (self._tok_d, self._pos_d, self._ngen_d,
+                                  self._budget_d)
+        live = self._active_d & force
+        health = torch.zeros_like(ngen)
+        zeros = torch.zeros_like(ngen)
+        drafted, accepted = zeros, zeros
+        rows = torch.arange(N, device=dev)
+        gs = tables_g = None
+        if self._grammar is not None:
+            gs = self._fsm_d
+            tc_all, ok_d, next_d = self._grammar_tables_d()
+            tables_g = (tc_all[torch.div(gs, self._grammar.S_max,
+                                         rounding_mode="floor")],
+                        ok_d, next_d)
+        if adm is not None:
+            a_tok, a_len, a_start = adm
+            is_adm = a_len > 0
+            wt0 = torch.where(is_adm, a_tok[:, 0],
+                              tok[:, 0]).to(tok.dtype)
+            st0 = torch.where(is_adm, a_start, pos[:, 0])
+            self._draft_forward(wt0[:, None], st0[:, None], live, draft_kvl)
+            live0 = live
+            nxt0, pos, live, ngen, health, c0, gs = self._prologue(
+                adm, tok, pos, live, ngen, budget, health, gs, tables_g,
+                tables, bad_rows)
+            # An uncounted prologue (EOS, a freeze) keeps the window's
+            # first token as the carry: EOS never becomes a spec carry.
+            tok = torch.where(c0, nxt0.to(tok.dtype), wt0)[:, None]
+            buf = tok.repeat(1, CT + 1)
+            wrote = live0 & (health == 0)
+            buf[rows, torch.where(wrote, 0, CT)] = nxt0.to(buf.dtype)
+            cur_i = c0.to(torch.int32)
+        else:
+            # Entries no token reaches repeat the carry (the packed
+            # contract): never an accidental EOS at a row's end.
+            buf = tok.repeat(1, CT + 1)
+            cur_i = zeros
+        positions_k = torch.arange(k + 1, dtype=torch.int32, device=dev)
+        for _ in range(self._spec_steps):
+            it_live = live
+            step_live = it_live.to(torch.int32)[:, None]
+            drafts = []
+            dtok, dpos, dgs = tok, pos, gs
+            for j in range(k + 1):
+                dl = self._draft_forward(dtok, dpos, it_live, draft_kvl)
+                if j == k:
+                    break
+                dmask = None
+                if gs is not None:
+                    tc, ok_d, next_d = tables_g
+                    dmask = torch.gather(ok_d[dgs], 1, tc)
+                d = greedy_tokens(apply_mask(dl[:, 0], dmask))
+                d = torch.where(it_live, d, dtok[:, 0].to(d.dtype))
+                drafts.append(d)
+                if gs is not None:
+                    dcls = torch.gather(
+                        tc, 1, d.clamp(0, tc.shape[1] - 1).long()[:, None]
+                    )[:, 0]
+                    dgs = torch.where(it_live, next_d[dgs, dcls], dgs)
+                dtok = d[:, None].to(tok.dtype)
+                dpos = dpos + step_live
+            drafted = drafted + torch.where(it_live, k, 0).to(torch.int32)
+            toks_in = torch.cat([tok] + [d[:, None].to(tok.dtype)
+                                         for d in drafts], dim=1)
+            logits = self._forward(
+                toks_in, pos + positions_k[None, :], tables,
+                attn_impl=self._decode_impl, kv_limit=kv_limit,
+                q_lens=(torch.where(it_live, k + 1, 0).to(torch.int32)
+                        if ragged else None),
+                write_mask=it_live)
+            self.verify_steps += 1
+            seg = it_live
+            cur = tok[:, 0]
+            for j in range(k + 1):
+                sl = logits[:, j].masked_fill(bad_rows, float("nan"))
+                s, seg_out, ngen, health, counted, gs = self._step_fold(
+                    sl, cur, seg, ngen, budget, health,
+                    None if gs is None else (gs, *tables_g))
+                # The row's EOS (a lane that froze writes nothing) lands
+                # at the cursor: the finish reason's entry.
+                wrote = seg & (health == 0)
+                buf[rows, torch.where(wrote, cur_i, CT)] = s.to(buf.dtype)
+                cnt = counted.to(torch.int32)
+                cur_i = cur_i + cnt
+                pos = pos + cnt[:, None]
+                cur = torch.where(counted, s.to(cur.dtype), cur)
+                # A row that left the window by a freeze or a finish
+                # leaves the chunk; a mismatch only ends the window.
+                live = live & ~(seg & ~seg_out)
+                seg = seg_out
+                if j >= 1:
+                    accepted = accepted + cnt
+                if j < k:
+                    seg = seg & (s == drafts[j].to(s.dtype))
+            tok = cur[:, None]
+        done = force & ~live
+        packed = pack_chunk(buf[:, :CT], done, ngen, live.sum(),
+                            health=health, drafted=drafted,
+                            accepted=accepted, xp=torch)
+        (self._tok_d, self._pos_d, self._active_d, self._ngen_d,
+         self._budget_d) = tok, pos, live, ngen, budget
+        if gs is not None:
+            self._fsm_d = gs
+        return packed
+
     def _dispatch_chunk(self) -> None:
         """Dispatch one chunk for every live slot, carrying every staged
         admission in its ragged prologue. The admission width is the
-        smallest prefill bucket covering the longest staged suffix."""
+        smallest prefill bucket covering the longest staged suffix. A
+        speculative chunk's row is ``_chunk_tokens`` wide (one more with
+        staged admissions, the prologue's token)."""
         if self.faults is not None:
             # A chunk:hang blocks this (scheduler) thread exactly like a
             # hung device dispatch: the watchdog's target.
             self.faults.check("chunk")
+            # draft:die: the draft is gone. The engine flips to plain
+            # chunks; requests in flight decode on with the same
+            # transcripts (none depended on a draft). The one
+            # degradation: nothing else falls back from the draft.
+            if self._spec_live and self.faults.draft_die():
+                self._spec_live = False
+                self._spec_degraded += 1
+                logger.warning("draft engine died (draft:die); degrading "
+                               "to plain non-speculative decode")
+        spec = self._spec_live
+        ct = self._chunk_tokens if spec else self.chunk_len
         staged = {i: e for i, e in self._pending_adm.items()
                   if self._slots[i] is not None
                   and not self._slots[i].exhausted}
         self._pending_adm.clear()
+        if staged and spec:
+            ct += 1
         active_slots = [s for s in self._slots
                         if s is not None and not s.exhausted]
         if not active_slots:
@@ -1465,7 +1865,7 @@ class BatchedTorchEngine(TorchEngine):
             # dispatch snapshot; a slot the pool cannot serve is excluded.
             for i, s in enumerate(self._slots):
                 if s is not None and not s.exhausted:
-                    self._pool_ensure_coverage(i, s)
+                    self._pool_ensure_coverage(i, s, ct)
             active_slots = [s for s in self._slots
                             if s is not None and not s.exhausted]
             if not active_slots:
@@ -1484,7 +1884,6 @@ class BatchedTorchEngine(TorchEngine):
             adm = (torch.from_numpy(a_tok).to(self.device), vec[0], vec[1])
         # The smallest KV bucket covering every position this chunk can
         # reach (``pos`` counts scheduled chunks: an upper bound).
-        ct = self.chunk_len
         needed = max(s.pos for s in active_slots) + ct
         kv_limit = next((b for b in self._kv_buckets if b >= needed),
                         self._kv_buckets[-1])
@@ -1501,7 +1900,8 @@ class BatchedTorchEngine(TorchEngine):
             self._steptime.note(phase0, bucket0, now - t0, steps=steps0,
                                 tokens=toks0, now=now)
         self._steptime_pending = (
-            now, PHASE_PREFILL if adm_w is not None else PHASE_DECODE,
+            now, PHASE_PREFILL if adm_w is not None
+            else PHASE_SPEC_VERIFY if spec else PHASE_DECODE,
             adm_w if adm_w is not None else kv_limit,
             (ct, ct * len(active_slots)))
         self._steptime_consumed = False
@@ -1520,15 +1920,15 @@ class BatchedTorchEngine(TorchEngine):
                 mask = np.zeros((self.batch_size,), bool)
                 mask[hits] = True
                 corrupt = torch.from_numpy(mask).to(self.device)
-        packed = self._run_chunk(force, tables, adm, kv_limit=kv_limit,
-                                 corrupt=corrupt)
+        run = self._run_spec_chunk if spec else self._run_chunk
+        packed = run(force, tables, adm, kv_limit=kv_limit, corrupt=corrupt)
         snapshot = [s.req if s is not None and not s.exhausted else None
                     for s in self._slots]
         for s in active_slots:
             s.pos += ct
             s.chunks_inflight += 1
             s.decode_chunks_inflight += 1
-        self._inflight.append(("chunk", packed, snapshot, ct))
+        self._inflight.append(("chunk", packed, snapshot, ct, spec))
         self._chunks_dispatched += 1
         self._chunk_log.append({
             "t": time.time(), "event": "dispatch", "kv_bucket": kv_limit,
@@ -1549,14 +1949,15 @@ class BatchedTorchEngine(TorchEngine):
             _, first_d, req, slot_idx = entry
             self._consume_first(int(first_d.cpu()[0]), req, slot_idx)
             return
-        _, packed, snapshot, ct = entry
+        _, packed, snapshot, ct, is_spec = entry
         if self.faults is not None:
             # decode:poison_step: a step-wide fault raised at the fetch,
             # naming no slot; the scheduler's except bisects for it.
             self.faults.poison_fetch(
                 [r.prompt if r is not None else None for r in snapshot])
         t_fetch = time.monotonic()
-        res = unpack_chunk(packed.cpu().numpy(), self.batch_size, ct)
+        res = unpack_chunk(packed.cpu().numpy(), self.batch_size, ct,
+                           spec=is_spec)
         fetch_s = time.monotonic() - t_fetch
         self._fetch_samples.append(fetch_s)
         self._chunks_consumed += 1
@@ -1567,6 +1968,20 @@ class BatchedTorchEngine(TorchEngine):
             "fetch_ms": round(fetch_s * 1000.0, 3),
             "pipe": sum(1 for e in self._inflight if e[0] == "chunk"),
         })
+        # Speculative books, billed per snapshot request BEFORE the
+        # health-trip return: the drafting happened whether or not the
+        # chunk survives. Rejected proposals are the draft_rejected
+        # waste; accepted ones bill delivered at finish like any token.
+        if is_spec:
+            for i, req_i in enumerate(snapshot):
+                d, a = int(res.drafted[i]), int(res.accepted[i])
+                if req_i is None or d <= 0:
+                    continue
+                self._spec_drafted += d
+                self._spec_accepted += a
+                if d > a:
+                    self.ledger.record(CLASS_DRAFT_REJECTED, d - a,
+                                       lane=req_i.lane, tenant=req_i.tenant)
         # A tripped health bit names its culprit. Nothing of a poisoned
         # chunk is emitted, the clean rows included: the replay
         # regenerates them exactly (seeded sampling), and no corrupt
@@ -1622,6 +2037,19 @@ class BatchedTorchEngine(TorchEngine):
                         self._grammar_fast_forward(i, slot)
                         if self._slots[i] is not slot:
                             continue   # the fast-forward finished it
+            if is_spec:
+                # Re-sync the conservative position: a spec chunk
+                # advances by what it accepted, not by its width, so
+                # ``pos`` would drift high and the capacity sweep would
+                # cut a long generation short. The carry sits at
+                # anchor_pos plus the tokens emitted since the anchor,
+                # plus one widest row for each chunk still in flight.
+                slot.pos = (slot.anchor_pos
+                            + (len(slot.detok.ids) - slot.anchor_g)
+                            + slot.decode_chunks_inflight
+                            * (self._chunk_tokens
+                               + (1 if self._decode_impl == "ragged"
+                                  else 0)))
             if finish is not None:
                 self._finish(i, finish)
         self._probation_tick(snapshot)
@@ -1709,7 +2137,8 @@ class BatchedTorchEngine(TorchEngine):
         if wasted_inflight and slot.decode_chunks_inflight > 0:
             remaining = max(0, slot.req.max_tokens - len(slot.detok.ids))
             self._bill_waste(min(slot.decode_chunks_inflight
-                                 * self.chunk_len, remaining), slot.req)
+                                 * self._chunk_waste_bound(), remaining),
+                             slot.req)
         # Every finish frees a slot: it feeds the drain rate behind
         # retry_after_hint, engine-wide and for its lane.
         t_fin = time.monotonic()
@@ -2040,6 +2469,9 @@ class BatchedTorchEngine(TorchEngine):
                                             replay_ids, m)
                 self._run_arm(slot_idx, n_total, ids[-1], req.temperature,
                               req.max_tokens, req.seed, g)
+                # The draft's rows were reset or belong to another
+                # request: re-derive its view of prompt + ids[:-1].
+                self._draft_prefill_slot(slot_idx, replay_ids)
             except Exception:
                 self._tables[slot_idx, :] = self._pool_n_blocks
                 self._pool.decref(blocks)
@@ -2059,7 +2491,8 @@ class BatchedTorchEngine(TorchEngine):
             self._splice_scratch(slot_idx, scratch, n_total)
             self._run_arm(slot_idx, n_total, ids[-1], req.temperature,
                           req.max_tokens, req.seed, g)
-        slot.pos = n_total
+        slot.pos = slot.anchor_pos = n_total
+        slot.anchor_g = g
         slot.chunks_inflight = 0
         slot.decode_chunks_inflight = 0
         slot.stale_chunks = 0
@@ -2137,8 +2570,8 @@ class BatchedTorchEngine(TorchEngine):
         pipeline (its depth is one), the wasted steps and chunk counts,
         and the fetch-latency samples since the last call (drained);
         the QoS section, the ledger's lane table, the SLO burn rates, the
-        step-time digests, the containment totals and the grammar
-        totals."""
+        step-time digests, the containment totals, the grammar totals
+        and the speculative-decode totals."""
         slots = list(self._slots)
         if self._pool is not None:
             used = self._pool.n_blocks - self._pool.free_count
@@ -2190,6 +2623,8 @@ class BatchedTorchEngine(TorchEngine):
             # Grammar totals (None with the grammar off), mirrored into
             # /metrics and summarized in /health's grammar section.
             "grammar": self.grammar_health(),
+            # Speculative totals (None with it off), likewise.
+            "spec": self.spec_health(),
         }
 
     #: finish times older than this do not feed the drain rate: after an
@@ -2762,8 +3197,7 @@ class BatchedTorchEngine(TorchEngine):
         if not self._ready:
             raise EngineUnavailable("engine not started")
         if seed is None:
-            seed = zlib.crc32(prompt.encode("utf-8", "surrogatepass")) \
-                & 0x7FFFFFFF
+            seed = default_seed(prompt)
         # QoS classification: the tenant and lane ride a contextvar from
         # the HTTP layer; a direct engine call runs in one interactive
         # anon bucket. A session over its token budget runs background.

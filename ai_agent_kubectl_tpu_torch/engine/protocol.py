@@ -76,7 +76,8 @@ class RequestQuarantined(RuntimeError):
 #   (HEALTH_NONFINITE: NaN/Inf logits; HEALTH_TOKEN_RANGE: a sampled id
 #   outside [0, vocab)). A tripped slot froze inside the chunk.
 # - ``spec_drafted`` / ``spec_accepted``: speculative decoding's lanes,
-#   present only when ``spec=True`` (not served by this port yet).
+#   present only when ``spec=True``: draft tokens proposed and accepted
+#   for each slot this chunk.
 # - ``n_alive``: slots still decoding after the chunk.
 # ---------------------------------------------------------------------------
 

@@ -131,5 +131,35 @@ def get_config(name: str, **overrides) -> ModelConfig:
     return replace(cfg, **overrides) if overrides else cfg
 
 
+def spec_draft_config(k: int, draft_model: str,
+                      target: Optional[ModelConfig],
+                      kv_pool: bool = True) -> ModelConfig:
+    """The draft of a speculative-decode deployment, after its checks:
+    the block-paged KV pool (``KV_POOL``), which alone runs the spec
+    chunk (where the JAX batcher logs a warning and serves plain
+    decode), then the JAX config's, with its errors: ``k``
+    (``SPEC_DRAFT_K``) at least 1, a registry model, and the target's
+    vocabulary (a ``target`` of None, one the registry does not know, is
+    not compared)."""
+    if not kv_pool:
+        raise ValueError(
+            "SPEC_DECODE=true needs the block-paged KV pool (KV_POOL=true); "
+            "the dense KV ladder would serve plain decode")
+    if k < 1:
+        raise ValueError(f"SPEC_DRAFT_K must be >= 1, got {k}")
+    try:
+        draft = get_config(draft_model)
+    except KeyError:
+        raise ValueError(
+            f"SPEC_DRAFT_MODEL {draft_model!r} is not a known model "
+            f"registry name") from None
+    if target is not None and draft.vocab_size != target.vocab_size:
+        raise ValueError(
+            f"SPEC_DRAFT_MODEL {draft_model!r} (vocab {draft.vocab_size}) "
+            f"does not share {target.name!r}'s vocab ({target.vocab_size}) "
+            f"— draft and verifier must use one tokenizer")
+    return draft
+
+
 def list_configs() -> Dict[str, ModelConfig]:
     return dict(_CONFIGS)

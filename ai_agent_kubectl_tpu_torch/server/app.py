@@ -14,8 +14,8 @@ Routes (the JAX statuses):
 - ``GET /health`` — readiness-gated, with the breaker's state, the
   engine's last containment reset and its cause (``last_reset``,
   ``last_reset_cause``), the engine's ``qos``, ``kv_pool``, ``slo``,
-  ``steptime`` and ``grammar`` sections and the incident ring's
-  ``incidents`` summary.
+  ``steptime``, ``grammar`` and ``spec`` sections and the incident
+  ring's ``incidents`` summary.
 - ``GET /metrics`` — Prometheus text; ``/openapi.json`` and ``/docs``.
 - ``/debug/*``, behind ``X-Debug-Token`` when ``DEBUG_TOKEN`` is set
   (403 otherwise): ``POST /debug/profile?seconds=N`` (alias
@@ -634,6 +634,7 @@ async def handle_health(request: web.Request) -> web.Response:
         kv_pool=_engine_view(svc.engine, "kv_pool_health"),
         steptime=_engine_view(svc.engine, "steptime_health"),
         grammar=_engine_view(svc.engine, "grammar_health"),
+        spec=_engine_view(svc.engine, "spec_health"),
         incidents=svc.incidents.snapshot(),
     )
     if ready:
@@ -852,6 +853,8 @@ async def handle_metrics(request: web.Request) -> web.Response:
         svc.metrics.observe_steptime(stats["steptime"])
     if stats.get("grammar"):
         svc.metrics.observe_grammar(stats["grammar"])
+    if stats.get("spec"):
+        svc.metrics.observe_spec(stats["spec"])
     # A scrape is also a trigger-evaluation round (cooldowns make the
     # redundant evaluation free).
     try:

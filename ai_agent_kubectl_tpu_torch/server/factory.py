@@ -14,9 +14,10 @@ boot instead of starting into what looks like a real outage. One
 injector serves the batcher's points and the ``generate`` wrapper
 (``ChaosEngine``), so ``fired()``, ``release()`` and ``clear()`` see
 every point. A point the selected engine can never fire is refused at
-boot: the batcher's points under another engine, a replica scope beyond
-``FLEET_SIZE`` (1: the port has no fleet), and the points of features
-the port does not serve yet.
+boot: the batcher's points under another engine, ``draft:die`` without
+``SPEC_DECODE=true`` (the JAX factory lets that drill sit inert), a
+replica scope beyond ``FLEET_SIZE`` (1: the port has no fleet), and the
+points of features the port does not serve yet.
 
 On a construction failure the service starts degraded and answers 503
 (as the JAX factory does): a misconfiguration keeps ``/health`` up and
@@ -34,7 +35,6 @@ logger = logging.getLogger(__name__)
 #: the engine's fault points whose features wait for a later slice, with
 #: the ROADMAP row that serves each: a drill on them could never fire.
 UNSERVED_FAULT_POINTS = {
-    "draft": "speculative decoding (ROADMAP.md A7 row 4)",
     "swap": "weight swap and rollout (ROADMAP.md A7 row 7)",
     "checkpoint": "weight swap and rollout (ROADMAP.md A7 row 7)",
     "offload": "the two-tier host KV (ROADMAP.md A7 row 5)",
@@ -42,7 +42,8 @@ UNSERVED_FAULT_POINTS = {
 }
 
 #: the points only the continuous-batching engine checks
-BATCHER_POINTS = ("admit", "chunk", "decode", "scheduler", "tenant")
+BATCHER_POINTS = ("admit", "chunk", "decode", "scheduler", "tenant",
+                  "draft")
 
 #: the port serves one engine: replica 0 of a fleet of one
 FLEET_SIZE = 1
@@ -89,6 +90,11 @@ def parse_fault_points(cfg):
             f"FAULT_POINTS {needs_batcher} are only wired into the "
             "continuous-batching engine (ENGINE=torch with "
             f"DECODE_BATCH_SIZE>1); inert under ENGINE={cfg.engine!r}")
+    if injector.has_any("draft") and not cfg.spec_decode:
+        raise ValueError(
+            "FAULT_POINTS 'draft' kills the speculative-decode draft, "
+            "which runs only with SPEC_DECODE=true; the drill would be "
+            "inert")
     scoped = injector.scoped_replicas()
     if scoped and max(scoped) >= FLEET_SIZE:
         raise ValueError(

@@ -21,14 +21,16 @@ port's features feed, under the same names, labels and help.
   ``step_tokens_per_sec``, ``steptime_breach_trips_total``) and the
   containment totals (``engine_resets_total{cause}``,
   ``quarantined_requests_total{reason}``, ``replayed_tokens_total``,
-  ``slot_health_trips_total``) and the grammar totals
+  ``slot_health_trips_total``), the grammar totals
   (``grammar_forced_tokens_total``, ``grammar_masked_steps_total``,
-  ``grammar_dead_end_total{cause}``).
+  ``grammar_dead_end_total{cause}``) and the speculative-decode totals
+  (``spec_drafted_tokens_total``, ``spec_accepted_tokens_total``,
+  ``spec_acceptance_ratio``).
 - Incidents: captured and cooldown-suppressed bundles by trigger.
 
 The JAX package's families of features the port does not serve yet
-(fleet, speculative decode, sharding, rollout and the two-tier KV) wait
-for a later slice. Every label set is closed
+(fleet, sharding, rollout and the two-tier KV) wait for a later
+slice. Every label set is closed
 (lanes, ledger classes, phases, triggers) or bounded by config
 (buckets, SLO windows). A ``CollectorRegistry`` per app keeps tests
 isolated.
@@ -458,6 +460,28 @@ class Metrics:
         )
         self._grammar_seen = {"forced": 0, "masked": 0, "dead": {}}
 
+        # Speculative decoding: draft proposals against verifier
+        # acceptances, and the cumulative ratio (a gauge set from the
+        # two totals). Delta-mirrored from stats()["spec"] (observe_spec).
+        self.spec_drafted_tokens = Counter(
+            "spec_drafted_tokens_total",
+            "Draft-model token proposals submitted to the verifier",
+            registry=r,
+        )
+        self.spec_accepted_tokens = Counter(
+            "spec_accepted_tokens_total",
+            "Draft proposals the target model's verify step accepted "
+            "(each one is a transcript token that cost no extra "
+            "target forward)",
+            registry=r,
+        )
+        self.spec_acceptance_ratio = Gauge(
+            "spec_acceptance_ratio",
+            "Cumulative accepted/drafted ratio of speculative decoding",
+            registry=r,
+        )
+        self._spec_seen = {"drafted": 0, "accepted": 0}
+
         # Request-lifecycle phases (obs/trace.py): the ``phase`` label is
         # drawn from the fixed obs.PHASES allowlist.
         self.request_phase = Histogram(
@@ -485,6 +509,24 @@ class Metrics:
             if total > prev:
                 self.grammar_dead_ends.labels(cause=cause).inc(total - prev)
                 seen["dead"][cause] = total
+
+    def observe_spec(self, spec: dict) -> None:
+        """Mirror the engine's speculative totals (``stats()["spec"]``)
+        into the counters, by delta, and the ratio gauge from the
+        cumulative totals."""
+        seen = self._spec_seen
+        for key, counter, total in (
+                ("drafted", self.spec_drafted_tokens,
+                 spec.get("drafted_tokens_total", 0)),
+                ("accepted", self.spec_accepted_tokens,
+                 spec.get("accepted_tokens_total", 0))):
+            if total > seen[key]:
+                counter.inc(total - seen[key])
+                seen[key] = total
+        drafted = spec.get("drafted_tokens_total", 0)
+        if drafted:
+            self.spec_acceptance_ratio.set(
+                spec.get("accepted_tokens_total", 0) / drafted)
 
     def observe_containment(self, stats: dict) -> None:
         """Mirror the supervisor's containment totals

@@ -26,7 +26,8 @@ fault points that the engine layer checks at its seams:
   admission and preemptive decode are exercisable without a load
   generator
 - ``draft`` — ``draft:die`` kills the speculative-decode draft engine
-  (one-shot, checked at chunk dispatch)
+  (one-shot, checked at chunk dispatch: ``BatchedTorchEngine.
+  _dispatch_chunk`` flips to plain chunks, transcripts unchanged)
 - ``swap`` — ``swap:fail`` kills the next weight swap mid-swap
   (one-shot)
 - ``checkpoint`` — ``checkpoint:corrupt`` fails the next checkpoint
@@ -38,10 +39,10 @@ fault points that the engine layer checks at its seams:
 - ``generate`` — the whole engine call (applied by ``ChaosEngine``, the
   protocol wrapper the factory installs when FAULT_POINTS names it)
 
-The port has no speculative decoding, weight swap, checkpoint rollout
-or host KV tier yet: ``server/factory.py`` refuses a spec naming
-``draft``, ``swap``, ``checkpoint``, ``offload`` or ``onload`` at boot
-rather than run a drill that can never fire. The points stay known
+The port has no weight swap, checkpoint rollout or host KV tier yet:
+``server/factory.py`` refuses a spec naming ``swap``, ``checkpoint``,
+``offload`` or ``onload`` at boot rather than run a drill that can never
+fire, and ``draft`` unless ``SPEC_DECODE=true``. The points stay known
 here so a spec parses the same in both packages.
 
 Modes (the third ``:``-field is mode-specific):

@@ -20,9 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  last live key; decode with the keys split over blocks
                  (last keys on and beside split boundaries, position
                  1023) and the mixed prologue at W=64 (two admissions,
-                 six decode rows); and at Mixtral's grouping (32 query
+                 six decode rows); at Mixtral's grouping (32 query
                  heads over 8 KV heads of 128): decode, the prologue and
-                 prefill spans of 512;
+                 prefill spans of 512; and serve_spec's verify windows
+                 at Gemma-7B's MHA (16 over 16 heads of 256): q_len 3
+                 and 5 at mixed positions, 8 slots;
                * flash attention at Gemma-7B's shapes (H=KV=16, head_dim
                  256; S 64 and 512 over a 1024-slot cache, from position
                  0 and from 85, a padded tail running past the cache,
@@ -305,11 +307,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                fewer masked steps than off, and every mid-stream splice
                launches the ragged kernel once a layer at least.
                Launch counters are zeroed before each engine's traffic.
-13. timing  -- time each kernel, its plain version, one PyTorch library
+13. serve_spec -- speculative decoding.
+               (a) Over HTTP: MODEL_NAME=gemma-7b-it, QUANT=int4 (random
+               weights from seed 0) verifying SPEC_DRAFT_MODEL=gemma-2b-it
+               (random bf16 from seed 1, never quantized), SPEC_DRAFT_K=4,
+               the pool and ragged regime, 8 slots, serve's
+               MAX_NEW_TOKENS: the serve burst and its 2 repeats. Gates: statuses as the
+               service decides; /health's spec section enabled, active,
+               k=4, drafted > 0; the spec_* families of /metrics equal to
+               it; the ledger's draft_rejected equal to drafted minus
+               accepted, conservation balanced; the books balanced; ragged
+               launches at least layers x verify forwards, int4 launches
+               grown. Then the same target weights with spec off, the
+               burst's prompts at once: each transcript equal to (a)'s or
+               apart first at a near tie (serve_qos's rule).
+               (b) At the engine: Gemma-2B (random bf16 from seed 0, the
+               BPE asset, 8 slots) with an identical draft
+               (spec_draft_seed=0), k = 2 and 4, one burst of four
+               prompts greedy and at 0.9, in the ragged and the gather
+               regime (RAGGED_ATTENTION=off), against spec off in each;
+               then draft:die armed mid-burst and one burst after it.
+               Gates: accepted > 0 in the ragged regime; transcripts
+               equal or apart first at a near tie; the drill fires once,
+               degraded_total 1, no verify forward after the chunk in
+               flight, both bursts as spec off; books and ledger
+               balanced. Printed, no claim: tok/s spec on and off, the
+               acceptance ratio, ms a verify iteration, draft and target
+               forwards a chunk.
+14. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
-               serve_kvq's int4 projections and serve_moe's ragged decode
-               included); with --profile,
+               serve_kvq's int4 projections, serve_moe's ragged decode,
+               serve_spec's verify window and its int4 projections at T
+               = 40 included); with --profile,
                also the device time of each kernel a call launches (an
                attention kernel and its split combine).
 
@@ -337,7 +367,7 @@ ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
           "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "serve_chaos",
-          "serve_grammar", "timing")
+          "serve_grammar", "serve_spec", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -357,6 +387,15 @@ MAX_PAGES = 64                       # 1024 positions per slot
 G7_HEADS, G7_HD = 16, 256
 G7_PROJ = {"wq": (3072, 4096), "wo": (4096, 3072),
            "w_gate": (3072, 24576), "w_down": (24576, 3072)}
+
+#: draft tokens a verify iteration proposes on the card (the JAX default)
+SPEC_K = 4
+#: the rows of serve_spec's verify forward: every slot's k + 1 columns
+SPEC_VERIFY_ROWS = N_SLOTS * (SPEC_K + 1)
+#: the admission widths (prefill buckets) of the ragged prologues that
+#: serve_spec (a) sends Gemma-7B: phase 2 checks the ragged kernel at
+#: each, and the int4 GEMM at each one's 8 x W rows
+G7_PROLOGUE_WIDTHS = (64, 128)
 
 # Kernel vs plain, both bf16 in and out: |kernel - plain| <= ATOL +
 # RTOL * |plain|. The two round at different places: the kernel rounds
@@ -471,6 +510,25 @@ def ragged_cases(torch, gen):
         ("mixtral_prefill512", ragged_case(
             torch, gen, W=512, positions=[0, 100, 0, 256, 0, 0, 500, 0],
             q_lens=[512, 512, 300, 512, 0, 1, 512, 200], **MIXTRAL)),
+        # serve_spec's verify windows at Gemma-7B's MHA (16 heads of 256
+        # over 16 KV heads: one query row per KV head and column, so a
+        # 64-row tile holds k + 1 live rows): k = 2 and k = 4, mixed
+        # positions, a frozen slot and one whose window ends early.
+        ("g7_verify3", ragged_case(
+            torch, gen, W=3, positions=[0, 15, 16, 100, 255, 511, 700, 1000],
+            q_lens=[3, 3, 3, 0, 3, 1, 3, 3], **G7)),
+        ("g7_verify5", ragged_case(
+            torch, gen, W=5, positions=[11, 30, 64, 127, 300, 0, 900, 1017],
+            q_lens=[5, 5, 3, 5, 0, 5, 1, 5], **G7)),
+        # serve_spec (a)'s admission prologues at Gemma-7B's MHA, one per
+        # width of G7_PROLOGUE_WIDTHS: admissions of a whole window, a
+        # prompt's suffix and a short one beside decode steps at q_len 1
+        # and a frozen slot (64: keys split; 128: two row tiles a head,
+        # keys whole).
+        ("g7_prologue64", ragged_case(torch, gen, **PROLOGUE64, **G7)),
+        ("g7_prologue128", ragged_case(
+            torch, gen, W=128, positions=[0, 0, 45, 21, 300, 0, 700, 896],
+            q_lens=[85, 128, 40, 64, 1, 0, 1, 128], **G7)),
     ]
 
 
@@ -479,7 +537,8 @@ PROLOGUE64 = dict(W=64, positions=[21, 45, 100, 150, 200, 260, 512, 1000],
                   q_lens=[64, 40, 1, 1, 1, 1, 1, 1])
 # Ragged cases whose key split phase 2 checks (their shapes must split).
 RAGGED_SPLIT_CASES = ("decode", "verify5", "prefill64", "decode_split",
-                      "prologue64", "mixtral_decode")
+                      "prologue64", "mixtral_decode", "g7_verify3",
+                      "g7_verify5", "g7_prologue64")
 
 
 def ragged_live_work(case) -> tuple:
@@ -543,6 +602,9 @@ def flash_case(torch, gen, *, S, KVLEN, offset=0, B=1, H=G7_HEADS,
                 positions=(offset + shift + rows).contiguous())
 
 
+# Gemma-7B's attention geometry at serve_spec's pool page: 16 query heads
+# over 16 KV heads of 256.
+G7 = dict(H=G7_HEADS, KV=G7_HEADS, hd=G7_HD)
 # Llama-3-8B's attention geometry: 32 query heads over 8 KV heads of 128.
 LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 128
 LLAMA = dict(H=LLAMA_HEADS, KV=LLAMA_KV, hd=LLAMA_HD)
@@ -648,8 +710,10 @@ def flash_sdpa_inputs(torch, case):
 # Phase 2's int4 rows: both sides of the GEMV/tiled switch at 8, one and
 # two token tiles of 64 (with and without the contraction split, which
 # the tiled path takes at wq, wo and w_down up to T=128), serve1's
-# prefill buckets and a chunk past 512.
-INT4_TS = (1, 8, 9, 16, 64, 65, 85, 512, 600)
+# prefill buckets, a chunk past 512, and serve_spec's rows: its verify
+# forward (8 x (k + 1)) and its ragged prologues (8 x W).
+INT4_TS = tuple(sorted({1, 8, 9, 16, 64, 65, 85, 512, 600, SPEC_VERIFY_ROWS,
+                        *(N_SLOTS * w for w in G7_PROLOGUE_WIDTHS)}))
 INT4_FORMATS = ((512, 512), (256, 256), (128, 256))
 
 
@@ -4050,8 +4114,9 @@ def _timing_int4(torch, gen, profile: bool) -> dict:
         dequantize_int4, pick_format, qmatmul4, qmatmul4_plain)
 
     out = {}
+    # T = 40: serve_spec's verify forward, 8 slots x (k + 1) = 5 rows.
     for name, (IN, OUT) in G7_PROJ.items():
-        for T in (1, 64, 512):
+        for T in (1, SPEC_VERIFY_ROWS, 64, 512):
             x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT,
                              fmt=(512, 512))
             dense = dequantize_int4(w, torch.bfloat16)
@@ -4096,7 +4161,8 @@ def _timing_int4(torch, gen, profile: bool) -> dict:
 
 
 def phase_timing(torch, serve_info: dict, paged_info: dict,
-                 moe_info: dict, profile: bool = False) -> dict:
+                 moe_info: dict, spec_info: dict,
+                 profile: bool = False) -> dict:
     from ai_agent_kubectl_tpu_torch.ops import paged_attention
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached)
@@ -4115,7 +4181,7 @@ def phase_timing(torch, serve_info: dict, paged_info: dict,
         f"{empty['host_ms_max']:.4f} ms, spin {empty['spin_ms_min']:.3f} ms)")
     out = {"empty_call": empty,
            "ragged_attention": _timing_ragged(torch, serve_info, moe_info,
-                                              profile),
+                                              spec_info, profile),
            "flash_attention": _timing_flash(torch, gen, profile),
            "int4_matmul": _timing_int4(torch, gen, profile),
            **_timing_paged(torch, gen, paged_info, profile)}
@@ -4162,7 +4228,7 @@ def _timing_paged(torch, gen, paged_info: dict, profile: bool) -> dict:
 
 
 def _timing_ragged(torch, serve_info: dict, moe_info: dict,
-                   profile: bool) -> dict:
+                   spec_info: dict, profile: bool) -> dict:
     import torch.nn.functional as F
 
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
@@ -4172,6 +4238,8 @@ def _timing_ragged(torch, serve_info: dict, moe_info: dict,
     decode_pos = serve_info.get("decode_positions") or [
         96, 112, 128, 144, 160, 176, 192, 208]
     moe_pos = moe_info.get("pool", {}).get("decode_positions") or [
+        96, 112, 128, 144, 160, 176, 192, 208]
+    spec_pos = spec_info.get("http", {}).get("verify_positions") or [
         96, 112, 128, 144, 160, 176, 192, 208]
     shapes = {
         # The serving loop's decode step: one query per slot.
@@ -4188,6 +4256,12 @@ def _timing_ragged(torch, serve_info: dict, moe_info: dict,
         "mixtral_decode": ragged_case(torch, gen, W=1, positions=moe_pos,
                                       q_lens=[1] * N_SLOTS,
                                       nan_block=False, **MIXTRAL),
+        # serve_spec's verify window (Gemma-7B, k = 4) at the positions
+        # its burst reached halfway.
+        "g7_verify5": ragged_case(torch, gen, W=SPEC_K + 1,
+                                  positions=spec_pos,
+                                  q_lens=[SPEC_K + 1] * N_SLOTS,
+                                  nan_block=False, **G7),
     }
     out = {}
     for label, case in shapes.items():
@@ -4217,7 +4291,9 @@ def kernel_lines(results: dict) -> list:
     kernel's, the attention kernels' at 0), of phase 11 (both its
     engines: ragged in the pool, flash and paged on the dense ladder) and
     of phase 12 (its HTTP engine and its four ByteTokenizer engines: the
-    ragged kernel's, the others' at 0)."""
+    ragged kernel's, the others' at 0) and of phase 13 (its HTTP engine:
+    ragged and int4; its spec-on Gemma-2B engines and the drill: ragged;
+    not its spec-off reference engines)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -4260,6 +4336,7 @@ def kernel_lines(results: dict) -> list:
         return sum(counts) if counts and None not in counts else None
 
     grammar = results.get("serve_grammar", {}).get("launches", {})
+    spec = results.get("serve_spec", {}).get("launches", {})
 
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
@@ -4279,7 +4356,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_moe": moe_launches(name),
                                "serve_kvq": kvq_launches(name),
                                "serve_chaos": chaos_launches(name),
-                               "serve_grammar": grammar.get(name)},
+                               "serve_grammar": grammar.get(name),
+                               "serve_spec": spec.get(name)},
             "shapes": shapes,
         }
 
@@ -5552,6 +5630,407 @@ async def _grammar_forced_runs(torch, served) -> dict:
     return info
 
 
+# ----------------------------------------------------------- serve_spec
+
+#: (a): Gemma-7B int4 verifies Gemma-2B's drafts, over HTTP, at serve's
+#: MAX_NEW_TOKENS (128; random weights never emit EOS, so every request
+#: runs its whole budget).
+SPEC_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda",
+    "MODEL_NAME": "gemma-7b-it", "DTYPE": "bfloat16", "QUANT": "int4",
+    "DECODE_BATCH_SIZE": str(N_SLOTS),
+    "TOKENIZER_PATH": str(ROOT / PACKAGE / "assets" / "tokenizer-k8s.json"),
+    "RATE_LIMIT": "1000/minute", "LLM_TIMEOUT": "300",
+    "SPEC_DECODE": "true", "SPEC_DRAFT_MODEL": "gemma-2b-it",
+    "SPEC_DRAFT_K": str(SPEC_K),
+}
+SPEC_FAMILIES = ("spec_drafted_tokens_total", "spec_accepted_tokens_total",
+                 "spec_acceptance_ratio")
+#: (b): Gemma-2B drafting for itself (its own seed), one burst of these
+#: prompts, each greedy and at 0.9, per engine
+SPEC_B_PROMPTS = ["list all pods", "scale web", "show nodes",
+                  "delete the job"]
+SPEC_B_TOKENS = 40
+SPEC_B_KS = (2, 4)
+
+
+def phase_serve_spec(torch) -> dict:
+    """Phase 13: speculative decoding: (a) Gemma-7B int4 verifying
+    Gemma-2B over HTTP, then the same target with spec off; (b) Gemma-2B
+    with an identical draft at k = 2 and 4 in the ragged and gather
+    regimes against spec off, and a draft:die drill."""
+    release_served_apps(torch)
+    return asyncio.run(_serve_spec(torch))
+
+
+async def _serve_spec(torch) -> dict:
+    a = await _spec_http(torch)
+    release_served_apps(torch)
+    b = await _spec_engines(torch)
+    release_served_apps(torch)
+    return {"http": a, "engines": b,
+            "launches": {n: a["launches"][n] + b["launches"][n]
+                         for n in _launch_counters()}}
+
+
+def _spec_gate_mismatches(torch, tag, engine, prompts, want, got) -> list:
+    """Each (prompt ids, temperature, seed) pair's transcripts must be
+    equal, or apart first at a near tie (``_first_mismatch``); returns
+    the near ties."""
+    out = []
+    for (ids, temp, seed), a, b in zip(prompts, want, got):
+        miss = _first_mismatch(torch, engine, ids, a, b, temp, seed)
+        if miss is None:
+            continue
+        out.append(dict(miss, temperature=temp))
+        if miss["gap"] > miss["tolerance"]:
+            raise AssertionError(f"{tag}: a spec-on transcript (temperature "
+                                 f"{temp}) leaves spec off's away from a "
+                                 f"near tie: {miss}")
+    return out
+
+
+def _spec_books(tag: str, inner) -> dict:
+    """The pool's books and the ledger: draft_rejected equal to drafted
+    minus accepted, conservation balanced. Returns the spec section."""
+    check_pool_books(inner)
+    h = inner.spec_health()
+    ledger = inner.ledger_snapshot()
+    rejected = ledger["classes"]["draft_rejected"]
+    if rejected != h["drafted_tokens_total"] - h["accepted_tokens_total"]:
+        raise AssertionError(f"{tag}: draft_rejected {rejected} against "
+                             f"{h}")
+    if not ledger["conservation"]["balanced"]:
+        raise AssertionError(f"{tag}: ledger unbalanced: "
+                             f"{ledger['conservation']}")
+    return h
+
+
+async def _spec_http(torch) -> dict:
+    """(a): the serve burst and its repeats over HTTP with Gemma-7B int4
+    verifying Gemma-2B's drafts (k = 4, the pool and ragged regime, 8
+    slots; target seed 0, draft seed 1); then the same target weights
+    with spec off, the same prompts at once, against them."""
+    import dataclasses
+
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import (
+        BatchedTorchEngine, default_seed)
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = "serve_spec/http"
+    port = _free_port()
+    _phase_env(SPEC_ENV, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if not isinstance(inner, BatchedTorchEngine) or not inner.spec_decode:
+        raise AssertionError(f"{tag}: engine construction failed: {inner!r}")
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    if inner._attention_regime != "ragged":
+        raise AssertionError(f"{tag}: regime {inner._attention_regime}")
+    log(f"[{tag}] {cfg.model_name} ({cfg.quant}) verifying "
+        f"{inner._draft_cfg.name} at k={inner.spec_draft_k} up in "
+        f"{startup_s:.1f} s: {inner._spec_steps} verify iterations a chunk, "
+        f"{inner._chunk_tokens}-token rows, span {inner._S_alloc}")
+    url = f"http://{cfg.host}:{port}"
+    counters = _launch_counters()
+    # The admission width of each ragged prologue the traffic sends
+    # Gemma-7B: each must be one that phase 2 checks.
+    widths = []
+    prologue = inner._prologue
+
+    def spy(adm, *args, **kw):
+        widths.append(int(adm[0].shape[1]))
+        return prologue(adm, *args, **kw)
+
+    inner._prologue = spy
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            mark = (inner.verify_steps, inner.draft_forward_steps,
+                    inner.forward_steps, inner._chunks_dispatched)
+            h0 = inner.spec_health()
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in QUERIES])
+            burst_s = time.monotonic() - t_burst
+            h1 = inner.spec_health()
+            burst_counts = [now - was for now, was in zip(
+                (inner.verify_steps, inner.draft_forward_steps,
+                 inner.forward_steps, inner._chunks_dispatched), mark)]
+            repeats = [await ask(QUERIES[i]) for i in REPEATS]
+            launches = {n: fn.launches for n, fn in counters.items()}
+            verify = inner.verify_steps - mark[0]
+            async with http.get(f"{url}/health") as r:
+                health = (await r.json())["spec"]
+            async with http.get(f"{url}/metrics") as r:
+                families = _scrape(await r.text(), SPEC_FAMILIES)
+    finally:
+        await runner.cleanup()           # drains and stops the engine
+        del inner._prologue
+
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    statuses = [s for s, _ in burst + repeats]
+    for query, (status, body) in zip(QUERIES + [QUERIES[i] for i in REPEATS],
+                                     burst + repeats):
+        res = results[render_prompt(query)][0]
+        want = status_for_text(res.text)
+        if status != want or res.completion_tokens <= 0:
+            raise AssertionError(f"{tag}: {query!r} HTTP {status}, the "
+                                 f"service gives {want} for {res.text!r}")
+    if not (health and health["enabled"] and health["active"]
+            and health["k"] == SPEC_K and health["drafted_tokens_total"] > 0):
+        raise AssertionError(f"{tag}: /health spec {health}")
+    want_fam = {"spec_drafted_tokens_total": health["drafted_tokens_total"],
+                "spec_accepted_tokens_total":
+                    health["accepted_tokens_total"]}
+    if ({k: families.get(k) for k in want_fam}
+            != {k: float(v) for k, v in want_fam.items()}
+            or abs(families.get("spec_acceptance_ratio", -1.0)
+                   - health["accepted_tokens_total"]
+                   / health["drafted_tokens_total"]) > 1e-9):
+        raise AssertionError(f"{tag}: /metrics {families} against /health "
+                             f"{health}")
+    h = _spec_books(tag, inner)
+    n_layers = inner.model_cfg.n_layers
+    if (verify <= 0 or launches["ragged_attention_pool"] < n_layers * verify
+            or launches["qmatmul4"] <= 0):
+        raise AssertionError(f"{tag}: launches {launches} for {verify} "
+                             f"verify forwards")
+    if not widths or not set(widths) <= set(G7_PROLOGUE_WIDTHS):
+        raise AssertionError(f"{tag}: ragged prologues at widths {widths}; "
+                             f"phase 2 checks {G7_PROLOGUE_WIDTHS}")
+    firsts = [results[render_prompt(q)][0] for q in QUERIES]
+    n_tok = sum(r.completion_tokens for r in firsts)
+    v_b, d_b, f_b, c_b = burst_counts
+    burst_acc = h1["accepted_tokens_total"] - h0["accepted_tokens_total"]
+    burst_drafted = h1["drafted_tokens_total"] - h0["drafted_tokens_total"]
+
+    # Spec off on the same target weights (the draft freed first), the
+    # burst's prompts at once, as the service sent them.
+    params, tok = inner.params, inner.tokenizer
+    inner._draft_params = inner._draft_cache = inner._cache = None
+    del engine, runner, site, inner
+    release_served_apps(torch)
+    off = BatchedTorchEngine.from_config(dataclasses.replace(
+        cfg, spec_decode=False))
+    off.params, off.tokenizer = params, tok
+    await off.start()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        f0 = off.forward_steps
+        t_off = time.monotonic()
+        off_res = await asyncio.gather(*[
+            off.generate(render_prompt(q), max_tokens=cfg.max_new_tokens,
+                         temperature=cfg.temperature, timeout=cfg.llm_timeout)
+            for q in QUERIES])
+        off_s = time.monotonic() - t_off
+        off_steps = off.forward_steps - f0
+        check_pool_books(off)
+        near = _spec_gate_mismatches(
+            torch, tag, off,
+            [(tok.encode(render_prompt(q)), cfg.temperature,
+              default_seed(render_prompt(q))) for q in QUERIES],
+            [r.token_ids for r in off_res], [r.token_ids for r in firsts])
+    finally:
+        await off.stop()
+    off_tok = sum(r.completion_tokens for r in off_res)
+    info = {
+        "startup_s": startup_s, "statuses": statuses,
+        "burst_s": burst_s, "burst_tokens": n_tok,
+        "burst_tok_per_s": n_tok / burst_s,
+        "spec_off_s": off_s, "spec_off_tokens": off_tok,
+        "spec_off_tok_per_s": off_tok / off_s,
+        "spec_off_ms_per_step": off_s * 1e3 / off_steps,
+        "burst_verify_iterations": v_b, "burst_chunks": c_b,
+        "ms_per_verify_iteration": burst_s * 1e3 / v_b,
+        "draft_forwards_per_chunk": d_b / c_b,
+        "target_forwards_per_chunk": f_b / c_b,
+        "verify_forwards_per_chunk": v_b / c_b,
+        "burst_acceptance": (burst_acc / burst_drafted
+                             if burst_drafted else None),
+        "spec": h, "launches": launches, "verify_forwards": verify,
+        "prologue_widths": widths,
+        "near_tie_mismatches": near,
+        "verify_positions": [r.prompt_tokens + r.completion_tokens // 2
+                             for r in firsts],
+    }
+    log(f"[{tag}] statuses {statuses}; burst {n_tok} tokens in "
+        f"{burst_s:.2f} s ({info['burst_tok_per_s']:.1f} tok/s) spec on, "
+        f"{off_tok} in {off_s:.2f} s ({info['spec_off_tok_per_s']:.1f} "
+        f"tok/s, {info['spec_off_ms_per_step']:.2f} ms a step) spec off; "
+        f"acceptance {h['acceptance_ratio']} (burst "
+        f"{info['burst_acceptance']}); "
+        f"{info['ms_per_verify_iteration']:.2f} ms a verify iteration; a "
+        f"chunk {info['draft_forwards_per_chunk']:.2f} draft and "
+        f"{info['target_forwards_per_chunk']:.2f} target "
+        f"forwards ({info['verify_forwards_per_chunk']:.2f} verify); "
+        f"launches ragged {launches['ragged_attention_pool']} over {verify} "
+        f"verify forwards, int4 {launches['qmatmul4']}; prologue widths "
+        f"{widths}; near ties {len(near)}; no claim; {gpu_line()}")
+    return info
+
+
+async def _spec_engines(torch) -> dict:
+    """(b): Gemma-2B (random bf16 from seed 0, 8 slots, the BPE asset)
+    with an identical draft (SPEC_DRAFT seed 0 draws the target's own
+    weights), k = 2 and 4, one burst of SPEC_B_PROMPTS greedy and at 0.9,
+    in the ragged and the gather regime, each against spec off in its
+    regime; then draft:die armed mid-burst (after two verify forwards; k
+    = 4, ragged), and one more burst after it. ``launches`` sums the
+    spec-on engines' and the drill's, ``reference_launches`` the spec-off
+    engines'."""
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import load_tokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.models.transformer import init_params
+    from ai_agent_kubectl_tpu_torch.testing.faults import FaultInjector
+
+    tag = "serve_spec/engines"
+    cfg = get_config("gemma-2b-it")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         dtype=torch.bfloat16, device="cuda")
+    tok = load_tokenizer(cfg, SPEC_ENV["TOKENIZER_PATH"])
+    counters = _launch_counters()
+    reqs = [(p, t, 3000 + i) for i, p in enumerate(SPEC_B_PROMPTS)
+            for t in (0.0, 0.9)]
+    prompts = [(tok.encode(p), t, s) for p, t, s in reqs]
+    launches = {n: 0 for n in counters}
+    reference = {n: 0 for n in counters}
+
+    async def burst(eng):
+        res = await asyncio.gather(*[
+            eng.generate(p, max_tokens=SPEC_B_TOKENS, temperature=t, seed=s)
+            for p, t, s in reqs])
+        return [r.token_ids for r in res]
+
+    async def run(regime, k=None, faults=None):
+        kw = {} if regime == "ragged" else {"ragged_attention": "off"}
+        if k:
+            kw.update(spec_decode=True, spec_draft_k=k,
+                      spec_draft_model="gemma-2b-it", spec_draft_seed=0)
+        eng = BatchedTorchEngine(cfg, tokenizer=tok, params=params,
+                                 device="cuda", dtype="bfloat16",
+                                 batch_size=N_SLOTS, faults=faults, **kw)
+        await eng.start()
+        out = {"regime": eng._attention_regime}
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            h0, v0 = eng.spec_health(), eng.verify_steps
+            t0 = time.monotonic()
+            if faults is None:
+                out["ids"] = await burst(eng)
+            else:
+                task = asyncio.ensure_future(burst(eng))
+                while eng.verify_steps - v0 < 2 and not task.done():
+                    await asyncio.sleep(0.002)
+                if task.done():
+                    raise AssertionError(f"{tag}: the burst ended before "
+                                         f"the drill was armed")
+                faults.set("draft", "die")
+                v_at = eng.verify_steps
+                out["ids"] = await task
+                out["verify_after_drill"] = eng.verify_steps - v_at
+                out["again"] = await burst(eng)
+                out["spec_steps"] = eng._spec_steps
+            out["seconds"] = time.monotonic() - t0
+            out["verify"] = eng.verify_steps - v0
+            for n, fn in counters.items():
+                (launches if k else reference)[n] += fn.launches
+            out["ragged"] = counters["ragged_attention_pool"].launches
+            if k:
+                h = _spec_books(tag, eng)
+                out["spec"] = h
+                out["drafted"] = (h["drafted_tokens_total"]
+                                  - h0["drafted_tokens_total"])
+                out["accepted"] = (h["accepted_tokens_total"]
+                                   - h0["accepted_tokens_total"])
+            else:
+                check_pool_books(eng)
+                out["engine"] = eng      # its params: the near-tie forward
+        finally:
+            await eng.stop()
+            eng._cache = eng._draft_cache = eng._draft_params = None
+        release_served_apps(torch)
+        return out
+
+    runs, near = {}, {}
+    for regime in ("ragged", "gather"):
+        off = runs[(regime, 0)] = await run(regime)
+        for k in SPEC_B_KS:
+            on = runs[(regime, k)] = await run(regime, k)
+            if on["regime"] != off["regime"] or on["verify"] <= 0:
+                raise AssertionError(f"{tag}: {regime} k={k}: regime "
+                                     f"{on['regime']}, {on['verify']} "
+                                     f"verify forwards")
+            near[f"{regime}_k{k}"] = _spec_gate_mismatches(
+                torch, f"{tag} {regime} k={k}", off["engine"], prompts,
+                off["ids"], on["ids"])
+            if regime == "ragged" and on["accepted"] <= 0:
+                raise AssertionError(f"{tag}: an identical draft accepted "
+                                     f"nothing: {on['spec']}")
+            log(f"[{tag}] {regime} k={k}: {on['drafted']} drafted, "
+                f"{on['accepted']} accepted "
+                f"({on['accepted'] / max(1, on['drafted']):.4f}); "
+                f"{on['verify']} verify forwards, "
+                f"{on['seconds']:.2f} s against {off['seconds']:.2f} s spec "
+                f"off; near ties {len(near[f'{regime}_k{k}'])}")
+    inj = FaultInjector()
+    drill = await run("ragged", SPEC_B_KS[-1], faults=inj)
+    h = drill["spec"]
+    # A chunk the scheduler was dispatching as the drill was armed may
+    # still verify (its iterations); every later one runs plain.
+    if (inj.fired("draft") != 1 or h["degraded_total"] != 1 or h["active"]
+            or drill["verify_after_drill"] > drill["spec_steps"]):
+        raise AssertionError(f"{tag}: draft:die drill: fired "
+                             f"{inj.fired('draft')}, {h}, "
+                             f"{drill['verify_after_drill']} verify forwards "
+                             f"after it")
+    ref = runs[("ragged", 0)]
+    near["drill"] = _spec_gate_mismatches(torch, f"{tag} drill",
+                                          ref["engine"], prompts, ref["ids"],
+                                          drill["ids"])
+    near["after_drill"] = _spec_gate_mismatches(
+        torch, f"{tag} after the drill", ref["engine"], prompts, ref["ids"],
+        drill["again"])
+    info = {"launches": launches, "reference_launches": reference,
+            "near_tie_mismatches": near,
+            "drill": {"degraded_total": h["degraded_total"],
+                      "verify_after_drill": drill["verify_after_drill"]}}
+    for (regime, k), r in runs.items():
+        info[f"{regime}_k{k}"] = {
+            "seconds": r["seconds"], "verify": r["verify"],
+            "drafted": r.get("drafted"), "accepted": r.get("accepted"),
+            "ragged_launches": r["ragged"]}
+    log(f"[{tag}] draft:die mid-burst: degraded_total 1, "
+        f"{drill['verify_after_drill']} verify forwards after it, both "
+        f"bursts as spec off (near ties {len(near['drill'])} + "
+        f"{len(near['after_drill'])}); {gpu_line()}")
+    return info
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -5617,10 +6096,13 @@ def main() -> int:
     if "serve_grammar" in phases:
         results["serve_grammar"] = phase_serve_grammar(
             torch, results.get("serve", {}))
+    if "serve_spec" in phases:
+        results["serve_spec"] = phase_serve_spec(torch)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),
                                          results.get("serve_moe", {}),
+                                         results.get("serve_spec", {}),
                                          args.profile)
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 

@@ -927,7 +927,7 @@ def _port_cfg(**kw):
 
 
 @pytest.mark.parametrize("spec,row", [
-    ("draft:die", "A7 row 4"), ("swap:fail", "A7 row 7"),
+    ("swap:fail", "A7 row 7"),
     ("checkpoint:corrupt", "A7 row 7"), ("offload:fail", "A7 row 5"),
     ("onload:corrupt", "A7 row 5"),
     ("admit:error:1.0,r0:offload:fail", "A7 row 5")])

@@ -1120,3 +1120,72 @@ def test_masked_step_fold_on_the_card_equals_the_cpus(card):
     assert int(last[3][2]) & HEALTH_GRAMMAR_DEAD and not bool(last[1][2])
     assert int(last[2][5]) == 3 and not bool(last[1][5])
     assert int(last[2][0]) > 2 and not rt.is_dead(int(last[5][0]))
+
+
+def test_spec_chunk_on_the_card_equals_spec_off(card):
+    """Speculative decoding on the card: toy-8m in bf16, the pool and
+    ragged regime, 4 slots, greedy, k=2 with an identical draft (the
+    target's seed, so the accept path fires). The verify windows run through the
+    ragged kernel at q_len 3 (at least a launch a layer a verify
+    forward), proposals are accepted, the books balance, and each
+    transcript equals spec off's or leaves it first at a near tie (top-2
+    gap within 5 % of the logits' rms, as in the replay test above): the
+    verify window computes a position's logits in a 3-column window
+    where plain decode computes them alone, and bf16 rounds the two
+    apart."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models import transformer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+
+    prompts = [f"pod q{i} " for i in range(4)]
+    kw = dict(tokenizer=ByteTokenizer(), device="cuda", dtype="bfloat16",
+              max_seq_len=128, prefill_buckets=(16, 32), batch_size=4,
+              chunk_len=4, prefix_cache=False)
+
+    async def run(**spec):
+        eng = BatchedTorchEngine(get_config("toy-8m"), **kw, **spec)
+        await eng.start()
+        try:
+            ragged_attention_pool.launches = 0
+            res = await asyncio.gather(*[
+                eng.generate(p, max_tokens=24, seed=100 + i)
+                for i, p in enumerate(prompts)])
+            return eng, ragged_attention_pool.launches, [
+                list(r.token_ids) for r in res]
+        finally:
+            await eng.stop()
+
+    on, launches, got = asyncio.run(run(
+        spec_decode=True, spec_draft_k=2, spec_draft_model="toy-8m",
+        spec_draft_seed=0))
+    off, _, want = asyncio.run(run())
+    h = on.spec_health()
+    assert h["drafted_tokens_total"] > 0 and h["accepted_tokens_total"] > 0
+    assert on.verify_steps > 0
+    assert launches >= on.model_cfg.n_layers * on.verify_steps
+    assert on.ledger_snapshot()["conservation"]["balanced"]
+    for p, a, b in zip(prompts, want, got):
+        if a == b:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        ids = off.tokenizer.encode(p) + a[:k]
+        P, pages = len(ids), -(-len(ids) // 16)
+        with torch.no_grad():
+            cache = transformer.KVCache.pool(off.model_cfg, pages, 16,
+                                             dtype=off.dtype, device=card)
+            logits, _ = transformer.forward(
+                off.params, off.model_cfg, torch.tensor([ids], device=card),
+                torch.arange(P, dtype=torch.int32, device=card)[None], cache,
+                block_tables=torch.arange(pages, dtype=torch.int32,
+                                          device=card)[None],
+                logits_at=torch.tensor([P - 1], device=card))
+        row = logits[0, 0].float()
+        top2 = torch.topk(row, 2).values
+        assert float(top2[0] - top2[1]) <= 0.05 * float(
+            row.pow(2).mean().sqrt()), (p, k)

@@ -222,9 +222,6 @@ def test_config_defaults_match_the_jax_package():
 
 #: every knob of UNSERVED_KNOBS with a value that asks for the feature
 REFUSED = [
-    ("SPEC_DECODE", "true"),
-    ("SPEC_DRAFT_K", "2"), ("SPEC_DRAFT_MODEL", "toy-8m"),
-    ("SPEC_DRAFT_PATH", "/draft"),
     ("HOST_KV_BLOCKS", "64"), ("CHUNK_PIPE_DEPTH", "3"),
     ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
     ("FLEET_SIZE", "2"),
