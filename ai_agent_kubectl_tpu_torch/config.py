@@ -35,7 +35,11 @@ Speculative decoding (``SPEC_DECODE``, ``SPEC_DRAFT_K``,
 ``SPEC_DRAFT_MODEL``, ``SPEC_DRAFT_PATH``) is read with the JAX
 defaults and errors, and refused likewise where no engine would run it:
 the single-sequence engine, ``ENGINE=openai``, and ``KV_POOL=false``
-(where the JAX batcher logs a warning and serves plain decode).
+(where the JAX batcher logs a warning and serves plain decode). The
+two-tier host KV (``HOST_KV_BLOCKS``) is read with the JAX errors (it
+needs ``KV_POOL=true`` and ``RADIX_CACHE=true``), and refused likewise
+where no engine would serve it (the single-sequence engine and
+``ENGINE=openai``).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import re
 from dataclasses import dataclass, field, fields
 from typing import Optional, Tuple
 
+from .engine.kv_pool import check_host_tier
 from .engine.qos import LANES, parse_lane_weights, parse_tenant_tiers
 from .obs.slo import parse_slo_windows
 from .obs.steptime import load_baselines
@@ -53,10 +58,9 @@ from .obs.steptime import load_baselines
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # the rest of the batched engine (A7): the two-tier host KV, chunk
-    # pipelining (the port fetches each chunk before the next dispatch,
-    # on device-side termination), group admission
-    "HOST_KV_BLOCKS": "0",
+    # the rest of the batched engine (A7): chunk pipelining (the port
+    # fetches each chunk before the next dispatch, on device-side
+    # termination), group admission
     "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
     "ADMIT_SCRATCH_MB": "512",
     # fleet and weight rollout (A7; ROLLOUT_STEPTIME_GATE is the
@@ -203,6 +207,11 @@ class ServiceConfig:
     kv_pool_blocks: int = 0                 # KV_POOL_BLOCKS (0 = auto)
     radix_cache: bool = True                # RADIX_CACHE
     radix_lru_blocks: int = 0               # RADIX_LRU_BLOCKS (0 = auto)
+    # The host-RAM second KV tier behind the radix tree (blocks): pool
+    # pressure demotes cold cached pages there (CRC32-stamped) instead of
+    # dropping them, and a returning match onloads them back, checksum
+    # verified. 0 disables it.
+    host_kv_blocks: int = 0                 # HOST_KV_BLOCKS
     hbm_prefix_cache: bool = True           # HBM_PREFIX_CACHE
     max_queue_depth: int = 64               # MAX_QUEUE_DEPTH
     # Generation requests in flight at the HTTP layer; beyond it a fast
@@ -376,6 +385,7 @@ class ServiceConfig:
         if self.kv_pool_blocks < 0 or self.radix_lru_blocks < 0:
             raise ValueError("KV_POOL_BLOCKS and RADIX_LRU_BLOCKS must be "
                              ">= 0 (0 = auto)")
+        check_host_tier(self.host_kv_blocks, self.kv_pool, self.radix_cache)
         if self.decode_batch_size < 1 or self.chunk_len < 1:
             raise ValueError("DECODE_BATCH_SIZE and CHUNK_LEN must be >= 1")
         if self.top_k < 0 or not 0.0 < self.top_p <= 1.0:
@@ -492,6 +502,15 @@ class ServiceConfig:
                     f"DECODE_BATCH_SIZE>1, or ENGINE=torch-batched); "
                     f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
                     f"{self.decode_batch_size} would serve plain decode")
+        # Only the continuous-batching engine has the radix tree the host
+        # tier hangs off (the JAX single-sequence engine ignores the knob).
+        if self.host_kv_blocks > 0 and not self.batched_engine:
+            raise ValueError(
+                f"HOST_KV_BLOCKS={self.host_kv_blocks} is served by the "
+                f"continuous-batching engine only (ENGINE=torch with "
+                f"DECODE_BATCH_SIZE>1, or ENGINE=torch-batched); "
+                f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
+                f"{self.decode_batch_size} has no radix tree to demote from")
 
     @property
     def batched_engine(self) -> bool:
@@ -601,6 +620,7 @@ class ServiceConfig:
             kv_pool_blocks=_env_int("KV_POOL_BLOCKS", 0),
             radix_cache=_env_bool("RADIX_CACHE", True),
             radix_lru_blocks=_env_int("RADIX_LRU_BLOCKS", 0),
+            host_kv_blocks=_env_int("HOST_KV_BLOCKS", 0),
             hbm_prefix_cache=_env_bool("HBM_PREFIX_CACHE", True),
             max_queue_depth=_env_int("MAX_QUEUE_DEPTH", 64),
             max_inflight_requests=_env_int("MAX_INFLIGHT_REQUESTS", 256),

@@ -137,6 +137,21 @@ entry of the in-flight list. In every regime:
   ride along); every site that arms the target's KV (admission,
   replay, fast-forward) prefills the span into the draft's cache too.
   ``draft:die`` flips the engine to plain chunks at dispatch.
+- **The two-tier host KV** (``HOST_KV_BLOCKS`` > 0, the pool with the
+  radix tree; the JAX engine's): radix eviction under pool pressure
+  *demotes* a cold cached page to a ``HostBlockStore`` in host RAM
+  (``_pool_offload_block``: the block's bytes across every K/V leaf,
+  CRC32-stamped) instead of dropping it, and a later match walking into
+  it *onloads* it back into a fresh pool block (``_pool_onload_block``)
+  once the checksum verifies. A corrupt or allocation-starved onload
+  ends the match there and the suffix prefills: the tier can turn a hit
+  into a prefill, never fail a request. A containment reset rebuilds
+  both tiers empty with the counters carried.
+- **Pool starvation** is counted (``starved_slots_total`` in
+  ``kv_pool_health``): a slot whose table cannot grow even after radix
+  eviction is truncated at its current length, its result marked
+  ``degraded``, and the incident watcher's ``pool_exhausted`` reads the
+  count.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -147,9 +162,9 @@ address) cannot be contained: every later call fails, the resets spend
 their budget, and fail-fast and the breaker take over.
 
 Not in this slice (each raises or is simply absent; ROADMAP lists them):
-group admission (``ADMIT_KPADS``) on the dense ladder, the host KV
-tier, and a chunk pipeline deeper than one (the host fetches each chunk
-before it dispatches the next).
+group admission (``ADMIT_KPADS``) on the dense ladder and a chunk
+pipeline deeper than one (the host fetches each chunk before it
+dispatches the next).
 """
 
 from __future__ import annotations
@@ -184,7 +199,8 @@ from ..ops.quant import kv_map
 from .containment import (CAUSE_SCHEDULER_DEATH, CAUSE_SCHEDULER_ERROR,
                           CAUSE_SLOT_HEALTH, PROBATION_CLEAN_CHUNKS,
                           REASON_HEALTH, REASON_ISOLATED, EngineSupervisor)
-from .kv_pool import BlockPool, alloc_with_evict, map_prefix, pages_for
+from .kv_pool import (BlockPool, HostBlockStore, alloc_with_evict,
+                      check_host_tier, map_prefix, pages_for)
 from .protocol import (HEALTH_GRAMMAR_DEAD, HEALTH_NONFINITE,
                        HEALTH_TOKEN_RANGE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
@@ -414,6 +430,7 @@ class BatchedTorchEngine(TorchEngine):
                  kv_pool_blocks: int = 0,
                  radix_cache: bool = True,
                  radix_lru_blocks: int = 0,
+                 host_kv_blocks: int = 0,
                  max_queue_depth: int = 64,
                  slot_health_check: bool = True,
                  lane_weights: Optional[dict] = None,
@@ -475,10 +492,18 @@ class BatchedTorchEngine(TorchEngine):
         self.kv_pool_blocks = max(0, kv_pool_blocks)
         self.radix_cache = bool(radix_cache)
         self.radix_lru_blocks = max(0, radix_lru_blocks)
+        # The two-tier KV: host-RAM capacity (blocks) behind the radix
+        # tree; 0 keeps the single-tier world.
+        check_host_tier(host_kv_blocks, self.kv_pool, self.radix_cache)
+        self.host_kv_blocks = host_kv_blocks
         self.max_queue_depth = max(0, max_queue_depth)
         self.slot_health_check = slot_health_check
         self._pool: Optional[BlockPool] = None
         self._radix: Optional[RadixCache] = None
+        self._host_store: Optional[HostBlockStore] = None
+        # Slots truncated by pool exhaustion (starved even after radix
+        # eviction): an engine counter, so a containment reset keeps it.
+        self._pool_starved = 0
         self._slots: List[Optional[_Slot]] = [None] * batch_size
         self._pending_adm: dict = {}    # slot_idx -> staged admission
         self._inflight: list = []
@@ -651,6 +676,7 @@ class BatchedTorchEngine(TorchEngine):
             kv_pool_blocks=cfg.kv_pool_blocks,
             radix_cache=cfg.radix_cache,
             radix_lru_blocks=cfg.radix_lru_blocks,
+            host_kv_blocks=cfg.host_kv_blocks,
             max_queue_depth=cfg.max_queue_depth,
             slot_health_check=cfg.slot_health_check,
             lane_weights=cfg.lane_weight_map,
@@ -896,14 +922,28 @@ class BatchedTorchEngine(TorchEngine):
                                        self.kv_pool_page, dtype=self.dtype,
                                        device=dev, kv_quant=self.kv_quant)
             prev_pool, prev_radix = self._pool, self._radix
+            prev_store = self._host_store
             self._pool = BlockPool(self._pool_n_blocks, self.kv_pool_page)
+            # A reset condemns the host tier too: its payloads were
+            # gathered from the poisoned device world, so BOTH tiers
+            # restart empty.
+            self._host_store = (HostBlockStore(self.host_kv_blocks)
+                                if self.host_kv_blocks > 0 else None)
             self._radix = (RadixCache(self._pool,
-                                      max_blocks=self.radix_lru_blocks)
+                                      max_blocks=self.radix_lru_blocks,
+                                      host_store=self._host_store,
+                                      offload_fn=self._pool_offload_block,
+                                      onload_fn=self._pool_onload_block,
+                                      faults=self.faults)
                            if self.radix_cache else None)
+            # Cumulative counters survive the rebuild: the /metrics
+            # delta-mirror must never see totals go backwards.
             if prev_pool is not None:
                 self._pool.carry_counters(prev_pool)
             if prev_radix is not None and self._radix is not None:
                 self._radix.carry_counters(prev_radix)
+            if prev_store is not None and self._host_store is not None:
+                self._host_store.carry_counters(prev_store)
             self._tables = np.full((N, self._pool_max_pages),
                                    self._pool_n_blocks, np.int32)
         else:
@@ -987,6 +1027,57 @@ class BatchedTorchEngine(TorchEngine):
                 kv_map(lambda a: a[:, dst, :rows].copy_(a[:, src, :rows]),
                        kv)
 
+    # ------------------------------------------ host-tier block transfer
+    #
+    # Both copies are synchronous and run on torch's current stream,
+    # where every kernel of the engine is queued: a demote's D2H read
+    # (alloc_with_evict at admission or at coverage growth) starts only
+    # after every kernel queued before it, so it never reads a block a
+    # queued kernel still writes; an onload's H2D write and copy_ are
+    # queued before any kernel that reads the block (the table that maps
+    # it reaches the device after the match returns), and after every
+    # kernel already queued, which could only read the block's previous
+    # (freed) contents. The pipe is one deep: the host fetches each
+    # chunk before it dispatches the next.
+
+    def _kv_leaves(self) -> list:
+        """The pool's K/V leaves in the JAX cache pytree's order: ``k``
+        then ``v``, and under ``KV_QUANT=int8`` each ``QuantKV``'s ``q``
+        then ``s`` (so the checksum covers the scales too)."""
+        out = []
+        for kv in (self._cache.k, self._cache.v):
+            out.extend((kv.q, kv.s) if self._cache.quantized else (kv,))
+        return out
+
+    def _pool_offload_block(self, block: int) -> np.ndarray:
+        """Demote path: pool block ``block`` across every K/V leaf as one
+        flat ``uint8`` payload (each leaf's ``[L, page, ...]`` slice,
+        row-major, in leaf order — the JAX engine's bytes for the same
+        geometry). The slice is a strided view: copied contiguous and
+        viewed as bytes on the device (numpy has no bfloat16), then
+        read back synchronously."""
+        parts = [leaf[:, block].contiguous().view(torch.uint8).reshape(-1)
+                 for leaf in self._kv_leaves()]
+        return torch.cat(parts).cpu().numpy()
+
+    def _pool_onload_block(self, block: int, data: np.ndarray) -> None:
+        """Promote path: a verified payload's bytes back into pool block
+        ``block``, split by ``_pool_offload_block``'s leaf walk, each part
+        written in place through ``copy_`` (the JAX engine's
+        ``.at[:, block].set``)."""
+        dsts = [leaf[:, block] for leaf in self._kv_leaves()]
+        want = sum(d.numel() * d.element_size() for d in dsts)
+        raw = np.asarray(data, dtype=np.uint8).reshape(-1)
+        if raw.size != want:
+            raise ValueError(f"host KV payload of {raw.size} bytes for a "
+                             f"{want}-byte block")
+        flat = torch.from_numpy(raw.copy()).to(self.device)
+        off = 0
+        for dst in dsts:
+            n = dst.numel() * dst.element_size()
+            dst.copy_(flat[off:off + n].view(dst.dtype).reshape(dst.shape))
+            off += n
+
     def _pool_alloc(self, n: int) -> Optional[List[int]]:
         """Allocate with radix-eviction backpressure."""
         return alloc_with_evict(self._pool, self._radix, n)
@@ -1064,8 +1155,8 @@ class BatchedTorchEngine(TorchEngine):
         """Grow the slot's table to cover the next chunk's writes
         (``chunk_tokens`` of them: a speculative chunk's row is wider
         than ``chunk_len``). False = pool exhausted even after radix
-        eviction: the slot is marked exhausted and finishes at its
-        current length (truncation, never corruption)."""
+        eviction: the slot is marked exhausted, counted as starved, and
+        finishes at its current length (truncation, never corruption)."""
         target = min(slot.pos + (chunk_tokens or self.chunk_len),
                      self._S_alloc)
         need = pages_for(target, self.kv_pool_page)
@@ -1073,10 +1164,17 @@ class BatchedTorchEngine(TorchEngine):
             b = self._pool_alloc(1)
             if b is None:
                 slot.exhausted = True
+                self._pool_starved += 1
+                if slot.req.trace is not None:
+                    slot.req.trace.event(
+                        f"engine: kv pool exhausted at position "
+                        f"{slot.pos} — finishing at current length")
                 logger.warning(
                     "kv pool exhausted: slot truncated at position %d "
-                    "(%d blocks live)", slot.pos,
-                    self._pool.n_blocks - self._pool.free_count)
+                    "(%d blocks live, %d cached)", slot.pos,
+                    self._pool.n_blocks - self._pool.free_count,
+                    self._radix.cached_block_count()
+                    if self._radix else 0)
                 return False
             self._tables[idx, len(slot.blocks)] = b[0]
             slot.blocks.extend(b)
@@ -1184,7 +1282,8 @@ class BatchedTorchEngine(TorchEngine):
                                           ngen0=len(run))
                 # The draft conditions on the same prompt (and run)
                 # before it drafts; it has no radix tree, so it prefills
-                # the whole span.
+                # the whole span (pages the match promoted from the host
+                # tier included).
                 self._draft_prefill_slot(slot_idx, span)
         except Exception:
             self._tables[slot_idx, :] = self._pool_n_blocks
@@ -1326,15 +1425,19 @@ class BatchedTorchEngine(TorchEngine):
                     "resident in %d pool blocks", P, need)
 
     def kv_pool_health(self) -> Optional[dict]:
-        """Block-state counts, the attention regime and radix hit counters
-        for /health (host counters only); None without a pool."""
+        """Block-state counts, starved slots, the attention regime, radix
+        hit counters and the host tier's stats for /health (host counters
+        only); None without a pool."""
         if self._pool is None:
             return None
         body = self._pool.stats(
             self._radix.cached_blocks() if self._radix else ()).as_dict()
+        body["starved_slots_total"] = self._pool_starved
         body["attention_regime"] = self._attention_regime
         if self._radix is not None:
             body["radix"] = self._radix.stats()
+        if self._host_store is not None:
+            body["host_tier"] = self._host_store.stats()
         return body
 
     # ----------------------------------------- grammar-constrained decode

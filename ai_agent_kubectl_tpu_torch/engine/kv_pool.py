@@ -18,15 +18,26 @@ here:
   writing rows into it), so mapping a cached partial page copies the
   matched rows into a fresh block first (``cow_copies_total``).
 
-The host-RAM second tier (``HostBlockStore`` in the JAX package) waits
-for a later slice of the port.
+``HostBlockStore`` is the host-RAM second tier behind the radix tree's
+demotion path (``HOST_KV_BLOCKS``). Cold cached pages are *demoted*
+there (CRC32 stamped at demote) instead of discarded, and
+``RadixCache.match`` transparently *onloads* them back — with checksum
+verification, so a corrupt host copy can only ever cost a suffix
+re-prefill, never a wrong transcript. The store is id-addressed (host
+block ids are an independent namespace from device block ids) and, like
+the pool, is host truth under the single-writer discipline; the ``check``
+methods together assert exact balance across both tiers. Both are pure
+numpy, copied from the JAX package with its counter names (``/metrics``
+and the incident watcher read them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import zlib
 from collections import deque
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -232,11 +243,17 @@ class BlockPool:
             exhausted_total=self.exhausted_total,
         )
 
-    def check(self, holders: Dict[int, int]) -> None:
+    def check(self, holders: Dict[int, int], *,
+              host: Optional["HostBlockStore"] = None,
+              host_holders: Optional[Dict[int, int]] = None) -> None:
         """Assert the books balance exactly against an externally-computed
         holder count per block (slots' tables + tree references): every
         block is either free (refcount 0, on the free list once) or
-        accounted for by exactly its holders — no leak, no double-free."""
+        accounted for by exactly its holders — no leak, no double-free.
+
+        Passing ``host``/``host_holders`` extends the exact-balance
+        assertion across the second tier: every resident host block must
+        be held by exactly one radix node and vice versa."""
         free_set = list(self._free)
         if len(free_set) != len(set(free_set)):
             raise AssertionError("free list holds a block twice")
@@ -251,3 +268,171 @@ class BlockPool:
                 raise AssertionError(
                     f"block {b}: refcount {have} but "
                     f"{'on' if on_free else 'off'} the free list")
+        if host is not None:
+            host.check(host_holders or {})
+
+
+def check_host_tier(host_kv_blocks: int, kv_pool: bool,
+                    radix_cache: bool) -> None:
+    """The host tier's settings, with the JAX config's errors: a negative
+    capacity, and a tier without the block pool and the radix tree it
+    demotes from. The config and the engine both call it: where the JAX
+    engine quietly builds no store, the port refuses."""
+    if host_kv_blocks < 0:
+        raise ValueError(
+            f"HOST_KV_BLOCKS must be >= 0 (0 disables the host "
+            f"tier), got {host_kv_blocks}")
+    if host_kv_blocks > 0 and not (kv_pool and radix_cache):
+        raise ValueError(
+            "HOST_KV_BLOCKS requires KV_POOL=true and "
+            "RADIX_CACHE=true (the host tier is the radix tree's "
+            "demotion target — without the tree there is nothing "
+            "to demote)")
+
+
+class HostBlockStore:
+    """Host-RAM second KV tier.
+
+    Holds demoted radix pages as numpy payloads keyed by *host block id*
+    (an id namespace independent of device block indices — a host id is
+    never valid in a slot table). Every ``put`` stamps a CRC32 over the
+    payload bytes; promotion verifies it before the page re-enters the
+    device tier, so silent host-RAM corruption degrades to a counted
+    suffix re-prefill instead of a wrong transcript.
+
+    Ownership is exactly-one-holder: each resident id is held by exactly
+    one radix node (``RadixCache`` keeps the reverse map). There is no
+    refcounting here — host pages are cache-only, never slot-mapped.
+    Counters are cumulative and delta-mirrored into Prometheus, same as
+    the pool's.
+    """
+
+    #: closed cause set for onload_fail_total — the causes are metric
+    #: labels, so the set must be bounded by construction.
+    ONLOAD_FAIL_CAUSES = ("corrupt", "exhausted")
+
+    def __init__(self, capacity: int):
+        if capacity < 0:
+            raise ValueError("host KV block capacity must be >= 0")
+        self.capacity = int(capacity)
+        self._data: Dict[int, np.ndarray] = {}
+        self._crc: Dict[int, int] = {}
+        self._ids = itertools.count(1)
+        # Counters (cumulative; delta-mirrored at /metrics scrape).
+        self.demoted_total = 0        # device -> host copies stored
+        self.onloaded_total = 0       # host -> device promotes (verified)
+        self.adopted_total = 0        # host copy superseded by an
+        #                               insert-path device block (free
+        #                               promotion — no onload needed)
+        self.dropped_total = 0        # host-LRU drops + discarded demotes
+        self.offload_fail_total = 0   # offload:fail drills / demote aborts
+        self.onload_fail_total: Dict[str, int] = {
+            c: 0 for c in self.ONLOAD_FAIL_CAUSES}
+
+    def carry_counters(self, prev: "HostBlockStore") -> None:
+        """Inherit cumulative counters across a containment reset (both
+        tiers rebuild — see BlockPool.carry_counters for why totals must
+        never go backwards under the delta-mirror)."""
+        self.demoted_total = prev.demoted_total
+        self.onloaded_total = prev.onloaded_total
+        self.adopted_total = prev.adopted_total
+        self.dropped_total = prev.dropped_total
+        self.offload_fail_total = prev.offload_fail_total
+        self.onload_fail_total = dict(prev.onload_fail_total)
+
+    # ------------------------------------------------------------ storage
+
+    @property
+    def used(self) -> int:
+        return len(self._data)
+
+    @property
+    def free_count(self) -> int:
+        return self.capacity - len(self._data)
+
+    def put(self, data: np.ndarray) -> int:
+        """Store one demoted page; returns its host block id. The CRC is
+        stamped over the exact bytes stored — the promote path recomputes
+        it over what it reads back. Raises when full (the radix demote
+        path makes room FIRST; a full put is an accounting bug)."""
+        if self.free_count < 1:
+            raise RuntimeError(
+                f"host block store full ({self.used}/{self.capacity}); "
+                f"demote must make room before putting")
+        buf = np.ascontiguousarray(data)
+        hbid = next(self._ids)
+        self._data[hbid] = buf
+        self._crc[hbid] = zlib.crc32(buf.tobytes())
+        self.demoted_total += 1
+        return hbid
+
+    def get(self, hbid: int) -> np.ndarray:
+        if hbid not in self._data:
+            raise RuntimeError(
+                f"host block {hbid} not resident (use-after-free)")
+        return self._data[hbid]
+
+    def verify(self, hbid: int, data: np.ndarray) -> bool:
+        """Does ``data`` still match the checksum stamped at demote?"""
+        return (zlib.crc32(np.ascontiguousarray(data).tobytes())
+                == self._crc.get(hbid))
+
+    def free(self, hbid: int) -> None:
+        if hbid not in self._data:
+            raise RuntimeError(f"double free of host block {hbid}")
+        del self._data[hbid]
+        del self._crc[hbid]
+
+    # --------------------------------------------------------- accounting
+
+    def note_dropped(self, n: int = 1) -> None:
+        self.dropped_total += n
+
+    def note_onload_fail(self, cause: str) -> None:
+        if cause not in self.ONLOAD_FAIL_CAUSES:
+            raise ValueError(
+                f"unknown onload-fail cause {cause!r}; "
+                f"valid: {self.ONLOAD_FAIL_CAUSES}")
+        self.onload_fail_total[cause] += 1
+
+    def stats(self) -> dict:
+        """The /health ``host_tier`` subsection (cheap host counters,
+        never a payload walk — same rule as PoolStats)."""
+        return {
+            "capacity": self.capacity,
+            "used": self.used,
+            "free": self.free_count,
+            "demoted_total": self.demoted_total,
+            "onloaded_total": self.onloaded_total,
+            "adopted_total": self.adopted_total,
+            "dropped_total": self.dropped_total,
+            "offload_fail_total": self.offload_fail_total,
+            "onload_fail_total": dict(self.onload_fail_total),
+        }
+
+    def check(self, holders: Dict[int, int]) -> None:
+        """Exact-balance assertion for the host tier: every resident id
+        is held by exactly one node, every held id is resident, and the
+        CRC table tracks the payload table one-to-one."""
+        held = {h for h, n in holders.items() if n > 0}
+        for hbid, n in holders.items():
+            if n <= 0:
+                continue
+            if n != 1:
+                raise AssertionError(
+                    f"host block {hbid}: {n} holders (exactly one radix "
+                    f"node may hold a host block)")
+            if hbid not in self._data:
+                raise AssertionError(
+                    f"host block {hbid} held but not resident "
+                    f"(use-after-free)")
+        extra = set(self._data) - held
+        if extra:
+            raise AssertionError(
+                f"host blocks resident but unheld (leak): {sorted(extra)}")
+        if set(self._data) != set(self._crc):
+            raise AssertionError("host CRC table out of sync with payloads")
+        if len(self._data) > self.capacity:
+            raise AssertionError(
+                f"host store over capacity: {len(self._data)} > "
+                f"{self.capacity}")

@@ -31,8 +31,8 @@ the LRU walk drops childless nodes (tails first), decref'ing their blocks
 its *cached* state ends. ``max_blocks`` bounds the tree's held blocks
 (RADIX_LRU_BLOCKS); ``evict_for`` frees pool pressure on demand.
 
-Two-tier demotion: with a host block store attached, the
-eviction walk *demotes* a cold page to pinned host RAM (CRC32 stamped)
+Two-tier demotion: with a ``HostBlockStore`` attached, the
+eviction walk *demotes* a cold page to host RAM (CRC32 stamped)
 instead of discarding it — the node stays in the tree holding a host
 block id (``_Node.host``) and no device block. Host-resident nodes form
 bottom-hanging subtrees by construction: a node may give up its device
@@ -51,10 +51,6 @@ points (testing/faults.py) are consumed through the duck-typed
 
 Host-side, numpy/stdlib only; single-writer (scheduler thread / event
 loop) like the pool itself.
-
-In this port the host tier is not wired yet: the engine builds the tree
-without a host store, so eviction always drops (the single-tier
-behaviour) and the host-tier methods are never reached.
 """
 
 from __future__ import annotations
@@ -66,7 +62,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
-from .kv_pool import BlockPool, alloc_with_evict
+from .kv_pool import BlockPool, HostBlockStore, alloc_with_evict
 
 
 @dataclasses.dataclass
@@ -95,7 +91,7 @@ class _Node:
         self.children: Dict[tuple, _Node] = {}
         self.block = block           # pool block of this node's page
         # Host tier: exactly one of block/host is set for a
-        # non-root node. host is the host block store id of the demoted
+        # non-root node. host is the HostBlockStore id of the demoted
         # page; block is None while host-resident.
         self.host: Optional[int] = None
         self.parent = parent
@@ -109,7 +105,7 @@ class _Node:
 
 class RadixCache:
     def __init__(self, pool: BlockPool, *, max_blocks: int = 0,
-                 host_store: Optional[object] = None,
+                 host_store: Optional[HostBlockStore] = None,
                  offload_fn=None, onload_fn=None, faults=None):
         self.pool = pool
         self.page = pool.page
@@ -125,7 +121,7 @@ class RadixCache:
         self.onload_fn = onload_fn
         self.faults = faults
         # hbid -> node holding it (exactly one — the host-tier ownership
-        # invariant the host store's check asserts).
+        # invariant HostBlockStore.check asserts).
         self._host_nodes: Dict[int, _Node] = {}
         # LRU stamp of the match walk currently in flight: eviction
         # triggered by a mid-walk promote must never demote/drop the
@@ -484,7 +480,7 @@ class RadixCache:
 
     def _demote_node(self, node: _Node) -> bool:
         """Device→host demotion of one cold page: copy the page payload
-        into the pinned host store (CRC32 stamped by ``put``), release
+        into the host store (CRC32 stamped by ``put``), release
         the device block, and keep the node in the tree host-resident.
         Returns False when the page must be plain-dropped instead — host
         tier off, the block still mapped by a live slot (demoting would

@@ -16,8 +16,9 @@ injector serves the batcher's points and the ``generate`` wrapper
 every point. A point the selected engine can never fire is refused at
 boot: the batcher's points under another engine, ``draft:die`` without
 ``SPEC_DECODE=true`` (the JAX factory lets that drill sit inert), a
-replica scope beyond ``FLEET_SIZE`` (1: the port has no fleet), and the
-points of features the port does not serve yet.
+replica scope beyond ``FLEET_SIZE`` (1: the port has no fleet),
+``offload`` and ``onload`` without the host tier (``HOST_KV_BLOCKS`` >
+0), and the points of features the port does not serve yet.
 
 On a construction failure the service starts degraded and answers 503
 (as the JAX factory does): a misconfiguration keeps ``/health`` up and
@@ -37,13 +38,14 @@ logger = logging.getLogger(__name__)
 UNSERVED_FAULT_POINTS = {
     "swap": "weight swap and rollout (ROADMAP.md A7 row 7)",
     "checkpoint": "weight swap and rollout (ROADMAP.md A7 row 7)",
-    "offload": "the two-tier host KV (ROADMAP.md A7 row 5)",
-    "onload": "the two-tier host KV (ROADMAP.md A7 row 5)",
 }
 
 #: the points only the continuous-batching engine checks
 BATCHER_POINTS = ("admit", "chunk", "decode", "scheduler", "tenant",
-                  "draft")
+                  "draft", "offload", "onload")
+
+#: the points of the two-tier host KV: its demote and onload paths
+HOST_TIER_POINTS = ("offload", "onload")
 
 #: the port serves one engine: replica 0 of a fleet of one
 FLEET_SIZE = 1
@@ -95,6 +97,12 @@ def parse_fault_points(cfg):
             "FAULT_POINTS 'draft' kills the speculative-decode draft, "
             "which runs only with SPEC_DECODE=true; the drill would be "
             "inert")
+    host_points = [p for p in HOST_TIER_POINTS if injector.has_any(p)]
+    if host_points and cfg.host_kv_blocks <= 0:
+        raise ValueError(
+            f"FAULT_POINTS {host_points} drill the two-tier host KV "
+            "(ROADMAP.md A7 row 5), which runs only with HOST_KV_BLOCKS>0; "
+            "the drill would be inert")
     scoped = injector.scoped_replicas()
     if scoped and max(scoped) >= FLEET_SIZE:
         raise ValueError(

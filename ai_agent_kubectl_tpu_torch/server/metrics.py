@@ -11,7 +11,11 @@ port's features feed, under the same names, labels and help.
   tokens/s gauge and prefix-cache hits, from each response; and, at
   scrape time, the pool engine's ``kv_pool_health()`` (block-state
   gauges, sharing, copy-on-write and radix counters, the decode
-  attention regime) and the batched engine's ``stats()``: occupancy,
+  attention regime, and the host tier's occupancy and demote, onload,
+  onload-failure and drop totals: ``kv_host_blocks{state}``,
+  ``kv_blocks_demoted_total``, ``kv_blocks_onloaded_total``,
+  ``kv_onload_fail_total{cause}``, ``kv_host_blocks_dropped_total``) and
+  the batched engine's ``stats()``: occupancy,
   queue depth and KV pages (``engine_*``), the decode pipeline
   (``decode_pipe_*``, ``decode_chunks_total``, ``chunk_fetch_seconds``,
   ``wasted_decode_steps_total``), the QoS section (queue depth and slot
@@ -29,8 +33,7 @@ port's features feed, under the same names, labels and help.
 - Incidents: captured and cooldown-suppressed bundles by trigger.
 
 The JAX package's families of features the port does not serve yet
-(fleet, sharding, rollout and the two-tier KV) wait for a later
-slice. Every label set is closed
+(fleet, sharding and rollout) wait for a later slice. Every label set is closed
 (lanes, ledger classes, phases, triggers) or bounded by config
 (buckets, SLO windows). A ``CollectorRegistry`` per app keeps tests
 isolated.
@@ -203,7 +206,42 @@ class Metrics:
             "them",
             registry=r,
         )
-        self._kv_pool_seen = {"shared": 0, "cow": 0, "hit": 0, "miss": 0}
+        # The two-tier KV: host-tier occupancy and the demote/onload
+        # flow. ``cause`` on the onload-fail counter is the closed
+        # HostBlockStore.ONLOAD_FAIL_CAUSES set (corrupt | exhausted).
+        self.kv_host_blocks = Gauge(
+            "kv_host_blocks",
+            "Host-tier KV blocks by state (used | free)",
+            ["state"],
+            registry=r,
+        )
+        self.kv_blocks_demoted = Counter(
+            "kv_blocks_demoted_total",
+            "KV blocks demoted from HBM to the host-RAM tier",
+            registry=r,
+        )
+        self.kv_blocks_onloaded = Counter(
+            "kv_blocks_onloaded_total",
+            "Host-tier KV blocks re-onloaded to HBM (checksum verified)",
+            registry=r,
+        )
+        self.kv_onload_fail = Counter(
+            "kv_onload_fail_total",
+            "Host-tier onload failures by cause (corrupt = checksum "
+            "mismatch, chain dropped + prefill fallback; exhausted = "
+            "no device block free)",
+            ["cause"],
+            registry=r,
+        )
+        self.kv_host_dropped = Counter(
+            "kv_host_blocks_dropped_total",
+            "Host-tier blocks discarded (LRU displacement, corrupt-"
+            "chain purge, or reset drain)",
+            registry=r,
+        )
+        self._kv_pool_seen = {"shared": 0, "cow": 0, "hit": 0, "miss": 0,
+                              "demoted": 0, "onloaded": 0, "dropped": 0,
+                              "fail_corrupt": 0, "fail_exhausted": 0}
         self.decode_attention_regime = Gauge(
             "decode_attention_regime",
             "1 for the attention regime actually serving decode "
@@ -663,8 +701,8 @@ class Metrics:
 
     def observe_kv_pool(self, pool: dict) -> None:
         """Mirror the engine's ``kv_pool_health()`` body at scrape time:
-        block-state gauges set directly, the cumulative sharing, COW and
-        radix totals turned into counter increments."""
+        block-state gauges set directly, the cumulative sharing, COW,
+        radix and host-tier totals turned into counter increments."""
         for state in ("free", "live", "cached"):
             self.kv_pool_blocks.labels(state=state).set(pool.get(state, 0))
         active = pool.get("attention_regime")
@@ -685,6 +723,31 @@ class Metrics:
             if total > seen[key]:
                 counter.inc(total - seen[key])
                 seen[key] = total
+        # The host tier: absent at HOST_KV_BLOCKS=0, where its gauges and
+        # counters never move.
+        host = pool.get("host_tier")
+        if host:
+            self.kv_host_blocks.labels(state="used").set(
+                host.get("used", 0))
+            self.kv_host_blocks.labels(state="free").set(
+                host.get("free", 0))
+            fails = host.get("onload_fail_total") or {}
+            for key, counter, total in (
+                    ("demoted", self.kv_blocks_demoted,
+                     host.get("demoted_total", 0)),
+                    ("onloaded", self.kv_blocks_onloaded,
+                     host.get("onloaded_total", 0)),
+                    ("dropped", self.kv_host_dropped,
+                     host.get("dropped_total", 0)),
+                    ("fail_corrupt",
+                     self.kv_onload_fail.labels(cause="corrupt"),
+                     fails.get("corrupt", 0)),
+                    ("fail_exhausted",
+                     self.kv_onload_fail.labels(cause="exhausted"),
+                     fails.get("exhausted", 0))):
+                if total > seen[key]:
+                    counter.inc(total - seen[key])
+                    seen[key] = total
 
     def render(self) -> bytes:
         return generate_latest(self.registry)

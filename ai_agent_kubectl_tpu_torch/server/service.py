@@ -193,8 +193,8 @@ class Service:
     def check_incidents(self) -> list:
         """One trigger-evaluation round; returns the NEW bundles. The
         quarantine count is the supervisor's (None for an engine without
-        one); the host-tier view is None: the port has no host KV tier
-        yet."""
+        one); the pool view carries the starved-slot count and, with the
+        host tier on, its ``host_tier`` stats."""
         views = {
             "steptime": self._engine_view("steptime_health"),
             "slo": self._engine_view("slo_health"),

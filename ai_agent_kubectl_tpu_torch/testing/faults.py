@@ -39,11 +39,12 @@ fault points that the engine layer checks at its seams:
 - ``generate`` — the whole engine call (applied by ``ChaosEngine``, the
   protocol wrapper the factory installs when FAULT_POINTS names it)
 
-The port has no weight swap, checkpoint rollout or host KV tier yet:
-``server/factory.py`` refuses a spec naming ``swap``, ``checkpoint``,
-``offload`` or ``onload`` at boot rather than run a drill that can never
-fire, and ``draft`` unless ``SPEC_DECODE=true``. The points stay known
-here so a spec parses the same in both packages.
+The port has no weight swap or checkpoint rollout yet:
+``server/factory.py`` refuses a spec naming ``swap`` or ``checkpoint``
+at boot rather than run a drill that can never fire, ``draft`` unless
+``SPEC_DECODE=true``, and ``offload`` or ``onload`` unless
+``HOST_KV_BLOCKS`` > 0. The points stay known here so a spec parses the
+same in both packages.
 
 Modes (the third ``:``-field is mode-specific):
 

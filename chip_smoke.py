@@ -33,8 +33,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  without a softcap, S=600 with the keys unsplit) and
                  Llama's GQA (H=32, KV=8, head_dim 128: S=256 from 85,
                  serve_paged's prefill S=128 over 128 slots, S=85 with
-                 rows that see no key, S=512 unsplit); each case's key
-                 split is printed and checked;
+                 rows that see no key, S=512 unsplit) and Gemma-2B's
+                 (H=8, KV=1, head_dim 256: serve_host (b)'s prefills,
+                 S=KVLEN=256 from 0 and from 192, S=KVLEN=512 from
+                 192); each case's key split is printed and checked;
                * the int4 matmul on Gemma-7B's four projection shapes at
                  T in {1, 8, 9, 16, 64, 65, 85, 512, 600}, formats
                  512/512, 256/256 and 128/256 (the GEMV, the tiled path,
@@ -47,7 +49,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  512};
                * both paged decode entry points (contiguous caches and the
                  pool) at Llama-3-8B's grouping (H=32, KV=8, head_dim 128;
-                 pages 64 and 16), Gemma-2B's (8 over 1, 256) and
+                 pages 64 and 16), Gemma-2B's (8 over 1, 256; page 16,
+                 and page 64 over serve_host (b)'s span of 1024) and
                  Gemma-7B's (16 over 16, 256), 8 slots at positions 0,
                  page-1, page, on both sides of the first key-split
                  boundary, mid-cache and the span's last slot (every
@@ -118,7 +121,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. serve_qos -- the QoS ring over HTTP on Gemma-2B (the serve phase's
                random bf16 weights, seed 0), TENANT_TIERS=bulk-key:
                background,hi-key:interactive, PREEMPT_WAIT_MS=50,
-               TENANT_MAX_QUEUE=4, RATE_LIMIT=1000/minute:
+               TENANT_MAX_QUEUE=4, RATE_LIMIT=1000/minute,
+               MAX_NEW_TOKENS=160:
                (a) the default pool + ragged regime, 8 slots: a greedy
                background query over HTTP and a sampled one (temperature
                0.9, a fixed seed, a direct engine call under a
@@ -334,12 +338,51 @@ Phases, in order; any failure raises and the script exits non-zero:
                balanced. Printed, no claim: tok/s spec on and off, the
                acceptance ratio, ms a verify iteration, draft and target
                forwards a chunk.
-14. timing  -- time each kernel, its plain version, one PyTorch library
+14. serve_host -- the two-tier host KV (HOST_KV_BLOCKS=512) on Gemma-2B
+               (the serve phase's random bf16 weights from seed 0, 8
+               slots, MAX_NEW_TOKENS=32) over HTTP, in (a) the ragged
+               regime at page 16 and (b) RAGGED_ATTENTION=off with
+               DECODE_ATTN=paged at page 64 (the paged pool kernel reads
+               the onloaded pages at decode, flash at prefill). Each
+               regime's KV_POOL_BLOCKS holds eight slots at the longest
+               turn 2 the phase sends but not sixteen sessions' chains
+               (printed). Traffic: 16 sessions (X-Session-ID) of two
+               turns, all turn 1s at once, then all turn 2s (turn 1's
+               query, its answer and a follow-up). Gates: blocks demoted
+               and onloaded; turn 2's radix hits cover the full pages of
+               turn 1's prompt that turn 2's rendered prompt shares (the
+               template ends the query with "\nKubectl Command:"); every
+               onloaded block bit-identical on the card to its device
+               bytes before the demote; each turn 2 equal to a
+               HOST_KV_BLOCKS=0 engine's cold serving of it, or apart
+               first at a near tie (serve_qos's rule); statuses as the
+               service decides; /health's kv_pool carries host_tier and
+               starved_slots_total and /metrics the five host-tier
+               families; the books balanced across both tiers; the
+               regime's kernels launched. In (b) the paged pool kernel
+               and flash are wrapped for the traffic: each shape they
+               ran at must be one phase 2 holds, and each is held
+               against its plain version on the traffic's own last
+               inputs at that shape. In (a) also: onload:corrupt
+               over HTTP (no failed request, kv_onload_fail_total{cause=
+               "corrupt"} up by 1, the transcript as cold); offload:fail
+               (the pool after the eviction as the host-off engine's,
+               turn 2 as its); a decode:nan quarantine with host pages
+               resident (both tiers rebuilt empty, counters carried,
+               books balanced). Then two slots of 160-token budgets in
+               a 16-block pool (MAX_SEQ_LEN=256): slots starve, are
+               counted in starved_slots_total and fire pool_exhausted
+               (C7). Printed, no claim: ms and GB/s per demoted and
+               onloaded block beside a 256 MiB pinned copy's GB/s, and
+               the TTFT of a turn 2 from host pages against the cold
+               re-prefill, each alone.
+15. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
                serve_kvq's int4 projections, serve_moe's ragged decode,
                serve_spec's verify window and its int4 projections at T
-               = 40 included); with --profile,
+               = 40, serve_host (b)'s paged decode and turn-2 prefill on
+               Gemma-2B included); with --profile,
                also the device time of each kernel a call launches (an
                attention kernel and its split combine).
 
@@ -367,7 +410,7 @@ ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
           "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "serve_chaos",
-          "serve_grammar", "serve_spec", "timing")
+          "serve_grammar", "serve_spec", "serve_host", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -658,6 +701,10 @@ def flash_cases(torch, gen):
                                         **LLAMA)),
         ("llama_s512_unsplit", flash_case(torch, gen, S=512, KVLEN=512,
                                           **LLAMA)),
+        # serve_host (b)'s prefills on Gemma-2B (G = 8, hd 256).
+        *[(label, flash_case(torch, gen, S=S, KVLEN=KVLEN, offset=offset,
+                             **G2B))
+          for label, S, KVLEN, offset in G2B_FLASH],
     ]
     # Rows with no visible key: the first three sit before slot 0.
     none = flash_case(torch, gen, S=64, KVLEN=128)
@@ -673,6 +720,16 @@ def flash_cases(torch, gen):
     return cases
 
 
+# Gemma-2B's attention geometry: 8 query heads over 1 KV head of 256.
+G2B = dict(H=N_HEADS, KV=N_KV, hd=HEAD_DIM)
+# serve_host (b)'s gather-path prefills on Gemma-2B, (label, S, KVLEN,
+# offset): a window is the largest prefill bucket within the prompt's KV
+# rung, so a turn 1 (up to 256 tokens) runs S = KVLEN = 256 from 0, and a
+# turn 2 after its radix hit of three 64-row pages runs from 192 at the
+# rung of 256 or of 512 (positions past KVLEN: the bucket's padded tail).
+G2B_FLASH = (("g2b_s256_pos0", 256, 256, 0),
+             ("g2b_s256_off192", 256, 256, 192),
+             ("g2b_s512_off192", 512, 512, 192))
 # Flash cases whose keys must stay whole (every other case splits them).
 FLASH_UNSPLIT_CASES = ("g7_s600_unsplit", "llama_s512_unsplit")
 
@@ -768,17 +825,19 @@ def int4_work(x, w) -> tuple:
 
 # ---------------------------------------------------------- paged decode
 
-def paged_case(torch, gen, *, H, KV, hd, page, positions, device="cuda"):
+def paged_case(torch, gen, *, H, KV, hd, page, positions, span=None,
+               device="cuda"):
     """Both entry points' inputs for one geometry, 8 slots at
     ``positions``: the dense cache [N, S, KV, hd] as the model holds it
-    (S = 1024 + 16 page-rounded, one trash row past S, read through the
+    (S = ``span``, by default 1024 + 16 page-rounded; one trash row past
+    S, read through the
     strided [:, :S] view) with NaN from each slot's position + 1 on, and
     a pool of N * S / page + 1 blocks whose live pages map through
     permuted tables (slot 1 shares slot 0's first block), the rest of the
     table the sentinel, and every block outside the live spans NaN (the
     clamped sentinel lands on one)."""
     N = len(positions)
-    S = -(-(1024 + 16) // page) * page
+    S = span or paged_span(page)
     q = torch.randn((N, H, hd), generator=gen, device=device).to(
         torch.bfloat16)
     cache = torch.randn((2, N, S + 1, KV, hd), generator=gen,
@@ -813,6 +872,26 @@ def paged_case(torch, gen, *, H, KV, hd, page, positions, device="cuda"):
                   block_tables=tables.to(device), page_size=page))
 
 
+# The span of serve_host (b)'s pool tables: MAX_SEQ_LEN 1024 in whole
+# pages of 64.
+G2B_POOL_SPAN = 1024
+# Phase 2's paged geometries, (label, (H, KV, hd), page, span): Gemma-2B
+# at 64 is serve_host (b)'s pool (DECODE_ATTN=paged raises its page to
+# 64).
+PAGED_GEOMETRIES = (
+    ("llama_p64", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 64, None),
+    ("llama_p16", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 16, None),
+    ("gemma2b_p16", (N_HEADS, N_KV, HEAD_DIM), 16, None),
+    ("gemma2b_p64", (N_HEADS, N_KV, HEAD_DIM), 64, G2B_POOL_SPAN),
+    ("gemma7b_p16", (G7_HEADS, G7_HEADS, G7_HD), 16, None))
+
+
+def paged_span(page: int) -> int:
+    """Phase 2's default paged span, the dense cache's: MAX_SEQ_LEN 1024
+    plus one 16-token chunk, page-rounded."""
+    return -(-(1024 + 16) // page) * page
+
+
 def paged_cases(torch, gen):
     """The geometries of phase 2 for paged decode: (label, case, plan).
     Every geometry splits the keys over blocks (8 slots give 8 to 128
@@ -823,17 +902,14 @@ def paged_cases(torch, gen):
     from ai_agent_kubectl_tpu_torch.ops.paged_attention import split_plan
 
     out = []
-    for label, (H, KV, hd), page in (
-            ("llama_p64", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 64),
-            ("llama_p16", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 16),
-            ("gemma2b_p16", (N_HEADS, N_KV, HEAD_DIM), 16),
-            ("gemma7b_p16", (G7_HEADS, G7_HEADS, G7_HD), 16)):
-        S = -(-(1024 + 16) // page) * page
+    for label, (H, KV, hd), page, span in PAGED_GEOMETRIES:
+        S = span or paged_span(page)
         plan = split_plan(N_SLOTS, H, KV, S)
         kps = plan[1]
         positions = [0, page - 1, page, kps - 1, S - 1, kps, 700, 1000]
         out.append((label, paged_case(torch, gen, H=H, KV=KV, hd=hd,
-                                      page=page, positions=positions),
+                                      page=page, positions=positions,
+                                      span=S),
                     plan))
     return out
 
@@ -1347,7 +1423,9 @@ async def _serve(torch, profile: bool, bursts: int) -> dict:
 
 def check_pool_books(inner) -> None:
     """The pool's books after a drain: every block free or held by a
-    live slot or the radix tree, exactly (``BlockPool.check`` raises)."""
+    live slot or the radix tree, exactly, and with the host tier on
+    every resident host page held by one node (``BlockPool.check``
+    raises)."""
     holders: dict = {}
     for slot in inner._slots:
         for b in (slot.blocks or []) if slot is not None else []:
@@ -1355,7 +1433,10 @@ def check_pool_books(inner) -> None:
     if inner._radix is not None:
         for b, n in inner._radix._held.items():
             holders[b] = holders.get(b, 0) + n
-    inner._pool.check(holders)
+    host = inner._host_store
+    inner._pool.check(holders, host=host,
+                      host_holders=(inner._radix.host_holders()
+                                    if host is not None else None))
 
 
 async def _profile_burst(torch, ask, queries, steps, unit: str,
@@ -2468,6 +2549,11 @@ QOS_ENV = {
     **SERVE_ENV,
     "TENANT_TIERS": "bulk-key:background,hi-key:interactive",
     "PREEMPT_WAIT_MS": "50", "TENANT_MAX_QUEUE": "4",
+    # Above serve's 128: when a filler wave is seated over two chunks its
+    # first filler leads by up to 112 tokens as the interactive requests
+    # arrive, and at 128 it would finish at the next chunk and free a
+    # slot before any preemption could fire.
+    "MAX_NEW_TOKENS": "160",
 }
 QOS_BULK, QOS_HI = {"X-API-Key": "bulk-key"}, {"X-API-Key": "hi-key"}
 #: the two reference requests: a greedy one over HTTP, and a sampled one
@@ -2671,6 +2757,8 @@ async def _serve_qos_one(torch, kind: str, env: dict, params, slots: int):
             sampled_task = asyncio.ensure_future(sampled())
             await _wait_slots(inner, slots, QOS_MIN_TOKENS)
             n_chunks0 = len(dispatch_t)
+            held_at_hi = [None if s is None else len(s.detok.ids)
+                          for s in inner._slots]
             hi_tasks = [asyncio.ensure_future(ask(q, QOS_HI))
                         for q in QOS_INTERACTIVE[:1 if kind == "dense"
                                                  else 2]]
@@ -2714,8 +2802,12 @@ async def _serve_qos_one(torch, kind: str, env: dict, params, slots: int):
     n_hi = len(hi_tasks)
     if qos["preemptions"] < 1 or scraped.get("preemptions") != \
             qos["preemptions"]:
-        raise AssertionError(f"{tag}: preemptions {qos['preemptions']}, "
-                             f"qos_preemptions_total {scraped}")
+        raise AssertionError(
+            f"{tag}: preemptions {qos['preemptions']}, "
+            f"qos_preemptions_total {scraped}; tokens a slot held when "
+            f"the interactive requests were sent {held_at_hi}, busy slots "
+            f"at each chunk after {[n for *_, n in dispatch_t[n_chunks0:]]}"
+            f", qos {qos}")
     if not health.get("qos") or "lanes" not in health["qos"]:
         raise AssertionError(f"{tag}: /health has no qos section: {health}")
     # Statuses: the service's decision for every request it served, the
@@ -4093,7 +4185,10 @@ def _timing_flash(torch, gen, profile: bool) -> dict:
               "S512": flash_case(torch, gen, S=512, KVLEN=512),
               # serve_paged's prefill window at Llama-3-8B's grouping.
               "llama_S128": flash_case(torch, gen, S=128, KVLEN=128,
-                                       **LLAMA)}
+                                       **LLAMA),
+              # serve_host (b)'s turn 2 after its radix hit (Gemma-2B).
+              "g2b_S256_off192": flash_case(torch, gen, S=256, KVLEN=256,
+                                            offset=192, **G2B)}
     out = {}
     for label, case in shapes.items():
         q, k, v, mask = flash_sdpa_inputs(torch, case)
@@ -4161,7 +4256,7 @@ def _timing_int4(torch, gen, profile: bool) -> dict:
 
 
 def phase_timing(torch, serve_info: dict, paged_info: dict,
-                 moe_info: dict, spec_info: dict,
+                 moe_info: dict, spec_info: dict, host_info: dict,
                  profile: bool = False) -> dict:
     from ai_agent_kubectl_tpu_torch.ops import paged_attention
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
@@ -4184,18 +4279,20 @@ def phase_timing(torch, serve_info: dict, paged_info: dict,
                                               spec_info, profile),
            "flash_attention": _timing_flash(torch, gen, profile),
            "int4_matmul": _timing_int4(torch, gen, profile),
-           **_timing_paged(torch, gen, paged_info, profile)}
+           **_timing_paged(torch, gen, paged_info, host_info, profile)}
     # Timing launches do not count.
     for fn, n in zip(counted, saved):
         fn.launches = n
     return out
 
 
-def _timing_paged(torch, gen, paged_info: dict, profile: bool) -> dict:
+def _timing_paged(torch, gen, paged_info: dict, host_info: dict,
+                  profile: bool) -> dict:
     """Both paged entry points at Llama-3-8B's grouping, page 64, 8 slots
     at the final positions the serve_paged burst reached (each engine's
-    own), the library call SDPA over the gathered live span with a key
-    mask."""
+    own), and the pool's at Gemma-2B's, page 64, at the positions of
+    serve_host (b)'s last decode step; the library call SDPA over the
+    gathered live span with a key mask."""
     import torch.nn.functional as F
 
     from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
@@ -4224,6 +4321,25 @@ def _timing_paged(torch, gen, paged_info: dict, profile: bool) -> dict:
         out[name] = {"decode": with_bound(
             entry, *paged_live_work(case, kind == "pool"))}
         log_timing(f"paged {kind} decode at {positions}", entry, "sdpa")
+    checks = host_info.get("paged", {}).get("kernel_checks", [])
+    positions = next((c["positions"] for c in checks
+                      if c["kernel"] == "paged_decode_attention_pool"),
+                     [260] * N_SLOTS)
+    positions = [max(p, 0) for p in positions]
+    case = paged_case(torch, gen, page=64, positions=positions,
+                      span=G2B_POOL_SPAN, **G2B)["pool"]
+    q, kc, vc, mask = paged_sdpa_inputs(torch, case, True)
+    entry = timed(
+        torch, lambda: paged_decode_attention_pool(**case),
+        lambda: paged_decode_attention_pool_plain(**case),
+        lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, enable_gqa=True),
+        iters=50, profile=profile)
+    entry["positions"] = positions
+    out["paged_decode_attention_pool"]["gemma2b_p64_decode"] = with_bound(
+        entry, *paged_live_work(case, True))
+    log_timing(f"paged pool decode, Gemma-2B page 64, at {positions}", entry,
+               "sdpa")
     return out
 
 
@@ -4293,7 +4409,9 @@ def kernel_lines(results: dict) -> list:
     of phase 12 (its HTTP engine and its four ByteTokenizer engines: the
     ragged kernel's, the others' at 0) and of phase 13 (its HTTP engine:
     ragged and int4; its spec-on Gemma-2B engines and the drill: ragged;
-    not its spec-off reference engines)."""
+    not its spec-off reference engines) and of phase 14 (both its HTTP
+    engines' session traffic: ragged in (a), paged pool and flash in
+    (b))."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -4337,6 +4455,7 @@ def kernel_lines(results: dict) -> list:
 
     grammar = results.get("serve_grammar", {}).get("launches", {})
     spec = results.get("serve_spec", {}).get("launches", {})
+    host = results.get("serve_host", {}).get("launches", {})
 
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
@@ -4357,7 +4476,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_kvq": kvq_launches(name),
                                "serve_chaos": chaos_launches(name),
                                "serve_grammar": grammar.get(name),
-                               "serve_spec": spec.get(name)},
+                               "serve_spec": spec.get(name),
+                               "serve_host": host.get(name)},
             "shapes": shapes,
         }
 
@@ -5676,7 +5796,7 @@ async def _serve_spec(torch) -> dict:
 def _spec_gate_mismatches(torch, tag, engine, prompts, want, got) -> list:
     """Each (prompt ids, temperature, seed) pair's transcripts must be
     equal, or apart first at a near tie (``_first_mismatch``); returns
-    the near ties."""
+    the near ties. serve_spec's rule, which serve_host holds too."""
     out = []
     for (ids, temp, seed), a, b in zip(prompts, want, got):
         miss = _first_mismatch(torch, engine, ids, a, b, temp, seed)
@@ -5684,9 +5804,9 @@ def _spec_gate_mismatches(torch, tag, engine, prompts, want, got) -> list:
             continue
         out.append(dict(miss, temperature=temp))
         if miss["gap"] > miss["tolerance"]:
-            raise AssertionError(f"{tag}: a spec-on transcript (temperature "
-                                 f"{temp}) leaves spec off's away from a "
-                                 f"near tie: {miss}")
+            raise AssertionError(f"{tag}: a transcript (temperature "
+                                 f"{temp}) leaves its reference's away from "
+                                 f"a near tie: {miss}")
     return out
 
 
@@ -6031,6 +6151,649 @@ async def _spec_engines(torch) -> dict:
     return info
 
 
+# ------------------------------------------------------------ serve_host
+
+#: the served Gemma-2B with the two-tier host KV (serve_host): the serve
+#: phase's model and slots, sessions of long queries, HOST_KV_BLOCKS
+#: host blocks behind a pool sized per regime (_host_pool_blocks), and
+#: an injector threaded in at boot (decode:nan at rate 0; each drill
+#: arms its own point)
+HOST_MAX_NEW = 32
+HOST_KV_BLOCKS = 512
+HOST_ENV = dict(SERVE_ENV, HOST_KV_BLOCKS=str(HOST_KV_BLOCKS),
+                MAX_NEW_TOKENS=str(HOST_MAX_NEW), LLM_TIMEOUT="300",
+                FAULT_POINTS="decode:nan:0")
+#: (a) the ragged regime at page 16; (b) the legacy ladder, where
+#: DECODE_ATTN=paged serves decode through the paged pool kernel (page
+#: 64, as DECODE_ATTN=auto raises it for this GQA model) and prefill
+#: runs flash over the gathered span
+HOST_REGIMES = {
+    "ragged": {"KV_POOL_PAGE": "16"},
+    "paged": {"RAGGED_ATTENTION": "off", "DECODE_ATTN": "paged",
+              "KV_POOL_PAGE": "64"},
+}
+HOST_SESSIONS = 16
+HOST_FAMILIES = ("kv_host_blocks", "kv_blocks_demoted_total",
+                 "kv_blocks_onloaded_total", "kv_onload_fail_total",
+                 "kv_host_blocks_dropped_total")
+HOST_FOLLOW_UP = "and now show only the failing pods"
+#: the follow-up's tokens, bounded (the turn-2 prompt bound below)
+HOST_FOLLOW_TOKENS = 16
+HOST_SESSION_TEXT = (
+    "the checkout service in namespace shop-prod returns 502 errors since "
+    "the last rollout; the pods restart every few minutes, the readiness "
+    "probe fails on port 8080, the deployment has 6 replicas across 3 "
+    "nodes, one node reports memory pressure, and the ingress controller "
+    "logs show upstream timeouts.")
+#: sessions of the TTFT comparison and the pinned copy's size
+HOST_TTFT_SESSIONS = 3
+PINNED_COPY_BYTES = 256 << 20
+
+
+def _host_query(i: int) -> str:
+    """Session ``i``'s first query: an on-call agent's context, unique
+    from its first words (so no two sessions share a page past the
+    system prompt's)."""
+    return f"session {i} of the on-call agent: {HOST_SESSION_TEXT}"
+
+
+def _host_turn2(query: str, answer: str) -> str:
+    """Turn 2 of a session: turn 1's query, its answer and a follow-up.
+    The service renders it into the same template (``User Request:
+    ...\\nKubectl Command:``) and collapses its whitespace, so the
+    rendered turn 2 shares turn 1's rendered prompt up to the end of the
+    query: the pages a returning turn can map. Collapsed here as the
+    service collapses it, so the prompt the engine records is the
+    rendered one."""
+    from ai_agent_kubectl_tpu_torch.server.sanitize import sanitize_query
+
+    return sanitize_query(f"{query} {answer} {HOST_FOLLOW_UP}")
+
+
+def _host_pool_blocks(p1_max: int, page: int) -> int:
+    """The pool of one serve_host regime: every slot at the longest
+    turn 2 the phase can send (turn 1's prompt, an answer re-encoded at
+    up to twice its tokens, the follow-up, the budget and one chunk of
+    coverage) plus two blocks. Eight live slots always fit; sixteen
+    sessions' cached chains do not."""
+    bound = p1_max + 3 * HOST_MAX_NEW + HOST_FOLLOW_TOKENS + 16
+    return N_SLOTS * (-(-bound // page)) + 2
+
+
+def phase_serve_host(torch) -> dict:
+    """Phase 14: the two-tier host KV on Gemma-2B, (a) the ragged regime
+    and (b) the paged pool kernel with flash prefill, each over HTTP."""
+    release_served_apps(torch)
+    return asyncio.run(_serve_host(torch))
+
+
+async def _serve_host(torch) -> dict:
+    out, params = {}, None
+    for regime in HOST_REGIMES:
+        out[regime], params = await _host_regime(torch, regime, params)
+        release_served_apps(torch)
+    out["starve"] = await _host_starve(torch, params)
+    release_served_apps(torch)
+    out["pinned_copy"] = _pinned_copy(torch)
+    out["launches"] = {n: out["ragged"]["launches"][n]
+                       + out["paged"]["launches"][n]
+                       for n in _launch_counters()}
+    log(f"[serve_host] pinned copy D2H "
+        f"{out['pinned_copy']['d2h_gb_s']:.1f} GB/s, H2D "
+        f"{out['pinned_copy']['h2d_gb_s']:.1f} GB/s "
+        f"({PINNED_COPY_BYTES >> 20} MiB); {gpu_line()}")
+    return out
+
+
+class _CopySpy:
+    """The radix tree's offload and onload functions, wrapped: each
+    demote snapshots the block's device bytes (a clone of every K/V
+    leaf, on the card) before the payload is read, keyed by the
+    payload's CRC32; each onload compares the block it wrote with the
+    snapshot of the bytes that went out, bit for bit on the card. Both
+    copies are timed between device synchronizations."""
+
+    def __init__(self, torch, inner):
+        import zlib
+
+        self.torch, self.inner, self.crc = torch, inner, zlib.crc32
+        self.snaps: dict = {}
+        self.demote_s, self.onload_s = [], []
+        self.checked = self.mismatched = 0
+        self.block_bytes = 0
+        radix = inner._radix
+        self._off, self._on = radix.offload_fn, radix.onload_fn
+        radix.offload_fn, radix.onload_fn = self.offload, self.onload
+
+    def offload(self, block):
+        torch = self.torch
+        snap = [leaf[:, block].clone() for leaf in self.inner._kv_leaves()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = self._off(block)
+        self.demote_s.append(time.perf_counter() - t0)
+        self.block_bytes = data.size
+        self.snaps[self.crc(data.tobytes())] = snap
+        return data
+
+    def onload(self, block, data):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self._on(block, data)
+        torch.cuda.synchronize()
+        self.onload_s.append(time.perf_counter() - t0)
+        snap = self.snaps.get(self.crc(data.tobytes()))
+        if snap is None:
+            raise AssertionError(f"onload of block {block}: no demote "
+                                 f"snapshot for its payload")
+        self.checked += 1
+        for leaf, want in zip(self.inner._kv_leaves(), snap):
+            if not torch.equal(leaf[:, block].view(torch.uint8),
+                               want.view(torch.uint8)):
+                self.mismatched += 1
+                break
+
+    def summary(self) -> dict:
+        def per_block(samples):
+            if not samples:
+                return None, None
+            ms = sorted(samples)[len(samples) // 2] * 1e3
+            return ms, self.block_bytes / (ms * 1e-3) / 1e9
+        d_ms, d_gbs = per_block(self.demote_s)
+        o_ms, o_gbs = per_block(self.onload_s)
+        return {"block_bytes": self.block_bytes,
+                "demotes_timed": len(self.demote_s),
+                "onloads_timed": len(self.onload_s),
+                "demote_ms_p50": d_ms, "demote_gb_s": d_gbs,
+                "onload_ms_p50": o_ms, "onload_gb_s": o_gbs,
+                "onloads_checked": self.checked,
+                "onloads_mismatched": self.mismatched}
+
+
+class _KernelTap:
+    """The paged regime's two kernels, wrapped where the model calls them
+    (``models/transformer.py``'s names): the latest call at each shape
+    keeps a copy of its inputs on the card, taken before the launch and
+    with no host sync, so that ``check`` holds each kernel against its
+    plain version on the pages, onloaded ones included, and at the shapes
+    that the traffic gave it. The wrapped call is the kernel's own launch;
+    ``check``'s launches come after the phase reads its counts."""
+
+    NAMES = ("flash_attention_cached", "paged_decode_attention_pool")
+
+    def __init__(self, torch):
+        from ai_agent_kubectl_tpu_torch.models import transformer
+
+        self.torch, self.module = torch, transformer
+        self.real = {n: getattr(transformer, n) for n in self.NAMES}
+        self.inputs: dict = {}
+        for name in self.NAMES:
+            setattr(transformer, name, self._wrap(name))
+
+    def _wrap(self, name):
+        real, Tensor = self.real[name], self.torch.Tensor
+
+        def call(*args, **kw):
+            key = (name,) + tuple(tuple(a.shape) for a in args
+                                  if isinstance(a, Tensor))
+            self.inputs[key] = ([a.clone() if isinstance(a, Tensor) else a
+                                 for a in args], dict(kw))
+            return real(*args, **kw)
+        return call
+
+    def restore(self) -> None:
+        for name, fn in self.real.items():
+            setattr(self.module, name, fn)
+
+    def check(self, tag: str) -> list:
+        """Each captured call's geometry must be one that phase 2 holds
+        (G2B_FLASH, PAGED_GEOMETRIES); then kernel against plain on its
+        inputs, at check_close's tolerance."""
+        from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+            flash_attention_cached_plain)
+        from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+            paged_decode_attention_pool_plain)
+
+        plain = {"flash_attention_cached": flash_attention_cached_plain,
+                 "paged_decode_attention_pool":
+                     paged_decode_attention_pool_plain}
+        flash_shapes = {(S, KVLEN) for _, S, KVLEN, _ in G2B_FLASH}
+        paged_shapes = {(H, KV, hd, page, span or paged_span(page))
+                        for _, (H, KV, hd), page, span in PAGED_GEOMETRIES}
+        g2b = (G2B["H"], G2B["KV"], G2B["hd"])
+        if {key[0] for key in self.inputs} != set(self.NAMES):
+            raise AssertionError(f"{tag}: the tap saw {list(self.inputs)}")
+        out = []
+        for key, (args, kw) in self.inputs.items():
+            name, q, k = key[0], args[0], args[1]
+            if name == "flash_attention_cached":
+                _, S, H, hd = q.shape
+                shape = (S, k.shape[1])
+                known = (H, k.shape[2], hd) == g2b and shape in flash_shapes
+                at = {"S": S, "KVLEN": k.shape[1],
+                      "offset": int(args[3][0, 0])}
+            else:
+                _, H, hd = q.shape
+                page = kw["page_size"]
+                span = args[4].shape[1] * page
+                known = (H, k.shape[2], hd, page, span) in paged_shapes
+                at = {"page": page, "span": span,
+                      "positions": args[3].tolist()}
+            if not known:
+                raise AssertionError(f"{tag}: {name} ran at {key}, a shape "
+                                     f"phase 2 does not hold")
+            err = check_close(self.torch, f"{tag} {name} {at}",
+                              self.real[name](*args, **kw),
+                              plain[name](*args, **kw))
+            out.append({"kernel": name, **at, "max_abs_err": err})
+            log(f"[{tag}] {name} at {at} on the traffic's own inputs: max "
+                f"|kernel - plain| = {err:.3e}")
+        return out
+
+
+async def _host_regime(torch, regime: str, params):
+    """One regime of phase 14 over HTTP: sixteen two-turn sessions with
+    the host tier on, a HOST_KV_BLOCKS=0 engine's cold turn 2 beside
+    them, the TTFT of a turn 2 served from host pages against the cold
+    re-prefill; in the ragged regime also the onload:corrupt,
+    offload:fail and decode:nan drills."""
+    import dataclasses
+
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import (
+        BatchedTorchEngine, default_seed)
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.protocol import RequestQuarantined
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import load_tokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = f"serve_host/{regime}"
+    env = dict(HOST_ENV, **HOST_REGIMES[regime])
+    page = int(env["KV_POOL_PAGE"])
+    tok = load_tokenizer(get_config(env["MODEL_NAME"]),
+                         env["TOKENIZER_PATH"])
+    q1s = [_host_query(i) for i in range(HOST_SESSIONS + 8)]
+    p1_max = max(len(tok.encode(render_prompt(q))) for q in q1s)
+    if len(tok.encode(" " + HOST_FOLLOW_UP)) > HOST_FOLLOW_TOKENS:
+        raise AssertionError(f"{tag}: the follow-up outgrew its bound")
+    n_blocks = _host_pool_blocks(p1_max, page)
+    env["KV_POOL_BLOCKS"] = str(n_blocks)
+    port = _free_port()
+    _phase_env(env, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    if not isinstance(inner, BatchedTorchEngine) or inner.faults is None:
+        raise AssertionError(f"{tag}: engine construction failed: {inner!r}")
+    if params is not None:
+        inner.params = params
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    if (inner._attention_regime != regime
+            or inner.kv_pool_page != page or inner._host_store is None):
+        raise AssertionError(f"{tag}: regime {inner._attention_regime} at "
+                             f"page {inner.kv_pool_page}")
+    chains = HOST_SESSIONS * (-(-(p1_max + HOST_MAX_NEW) // page))
+    log(f"[{tag}] KV_POOL_BLOCKS={n_blocks} of {page} rows "
+        f"({inner._pool.n_blocks} blocks; 8 live turn-2 slots fit, "
+        f"{HOST_SESSIONS} sessions' chains need about {chains}), "
+        f"HOST_KV_BLOCKS={HOST_KV_BLOCKS}, turn-1 prompts up to {p1_max} "
+        f"tokens")
+    spy = _CopySpy(torch, inner)
+    tap = None
+    inj = inner.faults
+    # The cold reference: the same weights and pool, no host tier.
+    cold = BatchedTorchEngine.from_config(dataclasses.replace(
+        cfg, host_kv_blocks=0, fault_points=""))
+    cold.params, cold.tokenizer = inner.params, inner.tokenizer
+    await cold.start()
+    url = f"http://{cfg.host}:{port}"
+    counters = _launch_counters()
+    info = {"pool_blocks": n_blocks, "page": page,
+            "host_kv_blocks": HOST_KV_BLOCKS, "p1_max": p1_max}
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query, session):
+                async with http.post(
+                        f"{url}/kubectl-command", json={"query": query},
+                        headers={"X-Session-ID": session}) as r:
+                    return r.status
+
+            async def scrape():
+                async with http.get(f"{url}/metrics") as r:
+                    return _scrape(await r.text(), HOST_FAMILIES)
+
+            def result_of(query):
+                hits = [res for p, res in engine.results
+                        if p == render_prompt(query)]
+                return hits[-1]
+
+            for fn in counters.values():
+                fn.launches = 0
+            if regime == "paged":
+                tap = _KernelTap(torch)
+            h0 = inner.kv_pool_health()["host_tier"]
+            t0 = time.monotonic()
+            st1 = await asyncio.gather(*[
+                ask(q, f"s{i}") for i, q in enumerate(q1s[:HOST_SESSIONS])])
+            mid = inner.kv_pool_health()["host_tier"]
+            q2s = [_host_turn2(q, result_of(q).text)
+                   for q in q1s[:HOST_SESSIONS]]
+            hits0 = inner._radix.hit_tokens_total
+            st2 = await asyncio.gather(*[
+                ask(q, f"s{i}") for i, q in enumerate(q2s)])
+            traffic_s = time.monotonic() - t0
+            if tap is not None:
+                tap.restore()
+            hits = inner._radix.hit_tokens_total - hits0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            h1 = inner.kv_pool_health()["host_tier"]
+            async with http.get(f"{url}/health") as r:
+                health = (await r.json())["kv_pool"]
+            families = await scrape()
+            check_pool_books(inner)
+
+            # Each kernel of the regime launched in its traffic.
+            grown = (("ragged_attention_pool",) if regime == "ragged" else
+                     ("paged_decode_attention_pool",
+                      "flash_attention_cached"))
+            if any(launches[n] <= 0 for n in grown):
+                raise AssertionError(f"{tag}: launches {launches}")
+            # Gate 1: the traffic demoted chains and onloaded them back.
+            demoted = h1["demoted_total"] - h0["demoted_total"]
+            onloaded = h1["onloaded_total"] - h0["onloaded_total"]
+            if demoted <= 0 or onloaded <= 0:
+                raise AssertionError(f"{tag}: {demoted} demoted, {onloaded} "
+                                     f"onloaded: {h1}")
+            # Gate 2: turn 2's radix hits cover the full pages of turn
+            # 1's prompt that turn 2's shares, every session.
+            shared = 0
+            for q1, q2 in zip(q1s, q2s):
+                a, b = (tok.encode(render_prompt(q1)),
+                        tok.encode(render_prompt(q2)))
+                n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                shared += (n // page) * page
+            if hits < shared:
+                raise AssertionError(f"{tag}: turn 2 hit {hits} tokens, the "
+                                     f"shared full pages hold {shared}")
+            # Statuses as the service decides, each turn 2 within bound.
+            p2_bound = p1_max + 2 * HOST_MAX_NEW + HOST_FOLLOW_TOKENS
+            for q, status in zip(q1s[:HOST_SESSIONS] + q2s, st1 + st2):
+                res = result_of(q)
+                if (status != status_for_text(res.text)
+                        or res.completion_tokens <= 0):
+                    raise AssertionError(f"{tag}: HTTP {status} for "
+                                         f"{res.text!r}")
+                if res.prompt_tokens > p2_bound:
+                    raise AssertionError(f"{tag}: a prompt of "
+                                         f"{res.prompt_tokens} tokens "
+                                         f"outgrew the pool's bound")
+            # Gate 3: every onloaded block bit-identical to its demote.
+            copies = spy.summary()
+            if (copies["onloads_checked"] < onloaded
+                    or copies["onloads_mismatched"]):
+                raise AssertionError(f"{tag}: onloaded blocks against their "
+                                     f"demote snapshots: {copies}")
+            # The paged pool kernel and flash against their plain versions
+            # at the traffic's own shapes and inputs.
+            if tap is not None:
+                info["kernel_checks"] = tap.check(tag)
+            # Gate 4: each turn 2 as the cold engine serves it alone.
+            cold_res = await asyncio.gather(*[
+                cold.generate(render_prompt(q), max_tokens=HOST_MAX_NEW,
+                              temperature=cfg.temperature,
+                              timeout=cfg.llm_timeout) for q in q2s])
+            near = _spec_gate_mismatches(
+                torch, tag, cold,
+                [(tok.encode(render_prompt(q)), cfg.temperature,
+                  default_seed(render_prompt(q))) for q in q2s],
+                [r.token_ids for r in cold_res],
+                [result_of(q).token_ids for q in q2s])
+            # Gate 8: /health and /metrics carry the host tier.
+            if ("host_tier" not in health
+                    or "starved_slots_total" not in health):
+                raise AssertionError(f"{tag}: /health kv_pool {health}")
+            missing = [f for f in HOST_FAMILIES
+                       if not any(k.startswith(f) for k in families)]
+            if (missing or families.get("kv_blocks_demoted_total")
+                    != h1["demoted_total"]
+                    or families.get("kv_blocks_onloaded_total")
+                    != h1["onloaded_total"]):
+                raise AssertionError(f"{tag}: /metrics host families "
+                                     f"{families} (missing {missing}) "
+                                     f"against {h1}")
+            info.update(
+                statuses=st1 + st2, traffic_s=traffic_s,
+                demoted=demoted, onloaded=onloaded,
+                demoted_before_turn2=mid["demoted_total"] - h0[
+                    "demoted_total"],
+                turn2_hit_tokens=hits, shared_page_tokens=shared,
+                host_tier=h1, near_tie_mismatches=near, launches=launches,
+                starved_slots_total=health["starved_slots_total"])
+            log(f"[{tag}] {HOST_SESSIONS} sessions x 2 turns in "
+                f"{traffic_s:.2f} s: {demoted} blocks demoted "
+                f"({info['demoted_before_turn2']} before turn 2), "
+                f"{onloaded} onloaded, all {copies['onloads_checked']} "
+                f"onloads bit-identical on the card; turn-2 hits {hits} >= "
+                f"{shared} shared; near ties {len(near)}; launches "
+                f"{launches}")
+
+            # TTFT: a turn 2 from host pages against the cold re-prefill,
+            # each alone.
+            ttft = {"host": [], "cold": []}
+            for i in range(HOST_TTFT_SESSIONS):
+                q = q1s[HOST_SESSIONS + i]
+                r1 = await inner.generate(render_prompt(q),
+                                          max_tokens=HOST_MAX_NEW)
+                q2 = render_prompt(_host_turn2(q, r1.text))
+                for eng, kind in ((inner, "host"), (cold, "cold")):
+                    eng._radix.evict_for(eng._pool.n_blocks)
+                    on0 = eng._host_store.onloaded_total if (
+                        eng._host_store) else 0
+                    r2 = await eng.generate(q2, max_tokens=HOST_MAX_NEW)
+                    if kind == "host" and (
+                            eng._host_store.onloaded_total == on0):
+                        raise AssertionError(f"{tag}: the TTFT turn 2 "
+                                             f"onloaded nothing")
+                    ttft[kind].append(r2.ttft_ms)
+            info["ttft_ms"] = ttft
+            info["copies"] = spy.summary()
+            c = info["copies"]
+            log(f"[{tag}] a {c['block_bytes']}-byte block: demote "
+                f"{c['demote_ms_p50']:.3f} ms ({c['demote_gb_s']:.2f} GB/s), "
+                f"onload {c['onload_ms_p50']:.3f} ms "
+                f"({c['onload_gb_s']:.2f} GB/s), p50 of "
+                f"{c['demotes_timed']} and {c['onloads_timed']}; turn-2 "
+                f"TTFT from host pages {ttft['host']} ms, cold re-prefill "
+                f"{ttft['cold']} ms; no claim; {gpu_line()}")
+            if regime == "ragged":
+                info["drills"] = await _host_drills(
+                    torch, tag, inner, cold, inj, ask, scrape, result_of,
+                    RequestQuarantined)
+    finally:
+        if tap is not None:
+            tap.restore()
+        await runner.cleanup()
+        await cold.stop()
+        params = inner.params
+        cold._cache = inner._cache = None
+    return info, params
+
+
+async def _host_drills(torch, tag, inner, cold, inj, ask, scrape, result_of,
+                       quarantined) -> dict:
+    """(a)'s drills, in order: onload:corrupt over HTTP (no failed
+    request, one corrupt onload counted, the transcript as cold), then
+    offload:fail against the cold engine, then a decode:nan reset with
+    the host tier populated (both tiers rebuilt empty, the books
+    balanced)."""
+    from ai_agent_kubectl_tpu_torch.engine.batcher import default_seed
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+
+    out = {}
+    # Gate 5: onload:corrupt.
+    q = _host_query(90)
+    st1 = await ask(q, "corrupt")
+    inner._radix.evict_for(inner._pool.n_blocks)
+    if inner._host_store.used <= 0:
+        raise AssertionError(f"{tag}: nothing demoted for the corrupt drill")
+    before = await scrape()
+    q2 = _host_turn2(q, result_of(q).text)
+    inj.set("onload", "corrupt")
+    st2 = await ask(q2, "corrupt")
+    after = await scrape()
+    key = "kv_onload_fail_total{cause=corrupt}"
+    rise = after.get(key, 0.0) - before.get(key, 0.0)
+    if st2 >= 500 or st1 >= 500 or rise != 1:
+        raise AssertionError(f"{tag}: onload:corrupt: HTTP {st1}/{st2}, "
+                             f"corrupt onloads +{rise}")
+    ref = await cold.generate(render_prompt(q2), max_tokens=HOST_MAX_NEW)
+    ids = inner.tokenizer.encode(render_prompt(q2))
+    near = _spec_gate_mismatches(torch, f"{tag} onload:corrupt", cold,
+                                 [(ids, 0.0, default_seed(render_prompt(q2)))],
+                                 [ref.token_ids],
+                                 [result_of(q2).token_ids])
+    out["onload_corrupt"] = {"statuses": [st1, st2], "corrupt_rise": rise,
+                             "near_tie_mismatches": near}
+    # Gate 6: offload:fail on the eviction, against the cold engine
+    # through the same turn 1, eviction and turn 2.
+    q = render_prompt(_host_query(91))
+    for eng in (inner, cold):
+        r1 = await eng.generate(q, max_tokens=HOST_MAX_NEW)
+        if eng is inner:
+            q2 = render_prompt(_host_turn2(_host_query(91), r1.text))
+    store = inner._host_store
+    fail0 = store.offload_fail_total
+    inj.set("offload", "fail")
+    states = []
+    for eng in (inner, cold):
+        eng._radix.evict_for(eng._pool.n_blocks)
+        st = eng.kv_pool_health()
+        states.append({k: st[k] for k in ("free", "live", "cached")})
+    r2 = [await eng.generate(q2, max_tokens=HOST_MAX_NEW)
+          for eng in (inner, cold)]
+    if states[0] != states[1] or store.offload_fail_total != fail0 + 1:
+        raise AssertionError(f"{tag}: offload:fail: pools {states}, host "
+                             f"{store.stats()}")
+    near = _spec_gate_mismatches(
+        torch, f"{tag} offload:fail", cold,
+        [(inner.tokenizer.encode(q2), 0.0, default_seed(q2))],
+        [r2[1].token_ids], [r2[0].token_ids])
+    out["offload_fail"] = {"pools": states, "near_tie_mismatches": near}
+    # Gate 7: decode:nan with the host tier populated.
+    await inner.generate(render_prompt(_host_query(92)),
+                         max_tokens=HOST_MAX_NEW)
+    inner._radix.evict_for(inner._pool.n_blocks)
+    store0 = inner._host_store
+    s0 = store0.stats()
+    if s0["used"] <= 0:
+        raise AssertionError(f"{tag}: the reset drill found no host pages")
+    inj.target_substr = "poison the host tier"
+    inj.set("decode", "nan")
+    try:
+        await inner.generate(render_prompt("poison the host tier now"),
+                             max_tokens=HOST_MAX_NEW)
+        raise AssertionError(f"{tag}: decode:nan was not quarantined")
+    except quarantined:
+        pass
+    finally:
+        inj.release("decode")
+        inj.target_substr = None
+    s1 = inner._host_store.stats()
+    pool = inner.kv_pool_health()
+    if (inner._host_store is store0 or s1["used"] != 0
+            or s1["demoted_total"] != s0["demoted_total"]
+            or pool["live"] != 0):
+        raise AssertionError(f"{tag}: after the reset host {s1} (before "
+                             f"{s0}), pool {pool}")
+    check_pool_books(inner)
+    out["reset"] = {"host_before": s0, "host_after": s1,
+                    "resets": inner.supervisor.stats()["resets"]}
+    log(f"[{tag}] drills: onload:corrupt HTTP {st1}/{st2}, +1 corrupt, "
+        f"near ties {len(out['onload_corrupt']['near_tie_mismatches'])}; "
+        f"offload:fail pools {states[0]} as host-off's; decode:nan reset "
+        f"left {s0['used']} host pages -> 0, demoted_total carried "
+        f"({s1['demoted_total']})")
+    return out
+
+
+async def _host_starve(torch, params) -> dict:
+    """Gate 9 (C7): a pool of one full-length sequence's pages shared by
+    two slots whose budgets need more: slots are truncated, counted in
+    ``starved_slots_total``, and the incident manager fires
+    ``pool_exhausted`` from the engine's own view."""
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import load_tokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.obs.incidents import (TRIGGER_POOL,
+                                                          IncidentManager)
+
+    tag = "serve_host/starve"
+    cfg = get_config("gemma-2b-it")
+    eng = BatchedTorchEngine(
+        cfg, tokenizer=load_tokenizer(cfg, SERVE_ENV["TOKENIZER_PATH"]),
+        params=params, device="cuda", dtype="bfloat16", batch_size=N_SLOTS,
+        max_seq_len=256, kv_pool_blocks=16)
+    await eng.start()
+    try:
+        mgr = IncidentManager(ring=4, cooldown_secs=0.0)
+        if mgr.evaluate({"kv_pool": eng.kv_pool_health()}, dict):
+            raise AssertionError(f"{tag}: an incident before the drill")
+        res = await asyncio.gather(*[
+            eng.generate(render_prompt(q), max_tokens=160)
+            for q in QUERIES[:2]])
+        health = eng.kv_pool_health()
+        fired = mgr.evaluate({"kv_pool": health}, dict)
+        check_pool_books(eng)
+    finally:
+        await eng.stop()
+        eng._cache = None
+    starved = health["starved_slots_total"]
+    degraded = sum(r.degraded for r in res)
+    if (starved < 1 or degraded != starved
+            or [b["trigger"] for b in fired] != [TRIGGER_POOL]):
+        raise AssertionError(f"{tag}: starved {starved}, degraded "
+                             f"{degraded}, incidents {fired}")
+    log(f"[{tag}] 16-block pool, 2 slots of 160-token budgets: {starved} "
+        f"starved (each result degraded), pool_exhausted fired")
+    return {"starved_slots_total": starved,
+            "completion_tokens": [r.completion_tokens for r in res]}
+
+
+def _pinned_copy(torch) -> dict:
+    """A large pinned host buffer copied to the card and back, timed with
+    CUDA events: the yardstick beside the per-block demote and onload."""
+    host = torch.empty(PINNED_COPY_BYTES, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(PINNED_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 5
+        out[f"{name}_ms"] = ms
+        out[f"{name}_gb_s"] = PINNED_COPY_BYTES / (ms * 1e-3) / 1e9
+    del host, dev
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -6098,11 +6861,14 @@ def main() -> int:
             torch, results.get("serve", {}))
     if "serve_spec" in phases:
         results["serve_spec"] = phase_serve_spec(torch)
+    if "serve_host" in phases:
+        results["serve_host"] = phase_serve_host(torch)
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),
                                          results.get("serve_moe", {}),
                                          results.get("serve_spec", {}),
+                                         results.get("serve_host", {}),
                                          args.profile)
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 

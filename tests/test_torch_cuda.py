@@ -1189,3 +1189,60 @@ def test_spec_chunk_on_the_card_equals_spec_off(card):
         top2 = torch.topk(row, 2).values
         assert float(top2[0] - top2[1]) <= 0.05 * float(
             row.pow(2).mean().sqrt()), (p, k)
+
+
+def test_onloaded_blocks_are_bit_identical_on_the_card(card):
+    """The two-tier host KV on the card: toy-8m in bf16, the pool and
+    ragged regime, 4 slots (DECODE_ATTN=auto raises the page of this GQA
+    model to 64 on the card). Every full page of a session's prompt is
+    read on the card before radix eviction demotes it to host RAM; the
+    returning turn onloads each into a fresh block, which must hold the
+    same bytes (K and V, every layer); the books balance across both
+    tiers."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    prompt = ("inspect deployment rollout status verbose 3 across the "
+              "staging cluster now, then list every pod of the deployment "
+              "with its node and restarts")
+
+    async def run():
+        eng = BatchedTorchEngine(
+            get_config("toy-8m"), tokenizer=ByteTokenizer(), device="cuda",
+            dtype="bfloat16", max_seq_len=320, prefill_buckets=(32, 64, 128),
+            batch_size=4, chunk_len=4, prefix_cache=False,
+            host_kv_blocks=16)
+        await eng.start()
+        try:
+            page = eng.kv_pool_page
+            r1 = await eng.generate(prompt, max_tokens=12)
+            ids = eng.tokenizer.encode(prompt)
+            node, snaps = eng._radix._root, []
+            for i in range(len(ids) // page):
+                node = node.children[tuple(ids[i * page:(i + 1) * page])]
+                snaps.append((node, [leaf[:, node.block].clone()
+                                     for leaf in eng._kv_leaves()]))
+            assert eng._radix.evict_for(eng._pool.n_blocks)
+            assert all(n.block is None for n, _ in snaps)
+            await eng.generate(prompt + r1.text + " and then?",
+                               max_tokens=12)
+            assert eng._host_store.onloaded_total >= len(snaps) > 0
+            for n, want in snaps:
+                for leaf, w in zip(eng._kv_leaves(), want):
+                    assert torch.equal(leaf[:, n.block].view(torch.uint8),
+                                       w.view(torch.uint8))
+            holders: dict = {}
+            for slot in eng._slots:
+                for b in (slot.blocks or []) if slot is not None else []:
+                    holders[b] = holders.get(b, 0) + 1
+            for b, k in eng._radix._held.items():
+                holders[b] = holders.get(b, 0) + k
+            eng._pool.check(holders, host=eng._host_store,
+                            host_holders=eng._radix.host_holders())
+        finally:
+            await eng.stop()
+
+    asyncio.run(run())

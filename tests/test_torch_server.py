@@ -222,7 +222,7 @@ def test_config_defaults_match_the_jax_package():
 
 #: every knob of UNSERVED_KNOBS with a value that asks for the feature
 REFUSED = [
-    ("HOST_KV_BLOCKS", "64"), ("CHUNK_PIPE_DEPTH", "3"),
+    ("CHUNK_PIPE_DEPTH", "3"),
     ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
     ("FLEET_SIZE", "2"),
     ("FLEET_HEDGE_MS", "50"), ("FLEET_AFFINITY", "false"),
@@ -558,3 +558,129 @@ async def test_default_rate_limit_answers_429_as_the_jax_app():
             headers["X-RateLimit-Reset"]) == ("10", "0", "30")
     assert [b["from_cache"] for _, b, _ in ours if "from_cache" in b] \
         == [False] + [True] * 10
+
+
+# ------------------------------------------------- the two-tier host KV
+
+#: HOST_KV_BLOCKS, refused until the port served it: each environment
+#: is read into the field the JAX from_env fills, or refused with the
+#: JAX error
+HOST_KV_ENVS = [
+    ({"HOST_KV_BLOCKS": "64"}, None),
+    ({"HOST_KV_BLOCKS": "0"}, None),
+    ({"HOST_KV_BLOCKS": "-1"}, "must be >= 0"),
+    ({"HOST_KV_BLOCKS": "8", "KV_POOL": "false"}, "requires KV_POOL=true"),
+    ({"HOST_KV_BLOCKS": "8", "RADIX_CACHE": "false"},
+     "requires KV_POOL=true"),
+]
+
+
+@pytest.mark.parametrize("env,error", HOST_KV_ENVS)
+def test_config_reads_host_kv_blocks_with_the_jax_errors(monkeypatch, env,
+                                                         error):
+    assert "HOST_KV_BLOCKS" not in UNSERVED_KNOBS
+    for knob, value in env.items():
+        monkeypatch.setenv(knob, value)
+    if error is None:
+        ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+        assert ours.host_kv_blocks == theirs.host_kv_blocks == int(
+            env["HOST_KV_BLOCKS"])
+        return
+    errors = []
+    for cls in (ServiceConfig, JaxServiceConfig):
+        with pytest.raises(ValueError, match=error) as ei:
+            cls.from_env()
+        errors.append(str(ei.value))
+    assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("engine,batch", [("torch", "1"), ("openai", "8")])
+def test_config_refuses_host_kv_blocks_where_no_engine_serves_it(
+        monkeypatch, engine, batch):
+    """The JAX single-sequence engine ignores HOST_KV_BLOCKS; the port
+    refuses it where no radix tree would demote to it."""
+    for knob, value in (("HOST_KV_BLOCKS", "8"), ("ENGINE", engine),
+                        ("DECODE_BATCH_SIZE", batch),
+                        ("OPENAI_API_KEY", "sk-x")):
+        monkeypatch.setenv(knob, value)
+    with pytest.raises(ValueError, match="continuous-batching engine only"):
+        ServiceConfig.from_env()
+
+
+@pytest.mark.parametrize("spec", ["offload:fail", "onload:corrupt",
+                                  "r0:offload:fail,onload:corrupt",
+                                  "admit:error:1.0,r0:offload:fail"])
+def test_factory_boots_the_host_tier_fault_points(spec):
+    """offload and onload boot with the host tier on (the factory threads
+    the one injector into the batcher) and are refused without it, where
+    the drill could never fire."""
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+
+    eng = build_engine(ServiceConfig(torch_device="cpu", host_kv_blocks=8,
+                                     fault_points=spec))
+    assert isinstance(eng, BatchedTorchEngine)
+    assert eng.host_kv_blocks == 8
+    assert eng.faults.offload_fail() == ("offload" in spec)
+    with pytest.raises(ValueError, match="HOST_KV_BLOCKS>0"):
+        build_engine(ServiceConfig(torch_device="cpu", fault_points=spec))
+
+
+HOST_FAMILIES = ("kv_host_blocks", "kv_blocks_demoted_total",
+                 "kv_blocks_onloaded_total", "kv_onload_fail_total",
+                 "kv_host_blocks_dropped_total")
+
+
+async def test_http_host_tier_surfaces_and_thrash_incident():
+    """The service plane over the port's own engine: /health's kv_pool
+    carries ``host_tier`` and ``starved_slots_total``, /metrics the five
+    host-tier families (the counters equal the engine's totals), and a
+    demote/onload churn read from the engine's own view files a
+    ``host_tier_thrash`` incident at /debug/incidents."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.obs.incidents import TRIGGER_HOST_THRASH
+
+    cfg = ServiceConfig(torch_device="cpu", rate_limit="10000/minute",
+                        sentinel_eval_secs=0.0, incident_cooldown_secs=0.0,
+                        incident_thrash_min_blocks=1, max_new_tokens=8,
+                        host_kv_blocks=32)
+    eng = BatchedTorchEngine(get_config("toy-8m"), tokenizer=ByteTokenizer(),
+                             device="cpu", dtype="float32", max_seq_len=192,
+                             prefill_buckets=(32, 64), prefix_cache=False,
+                             batch_size=2, chunk_len=4, host_kv_blocks=32)
+    hdr = {"X-Session-ID": "agent-1"}
+    q = {"query": "list all pods in the staging namespace right now"}
+    async with TestClient(TestServer(create_app(cfg, eng))) as client:
+        await client.post("/kubectl-command", json=q, headers=hdr)
+        body = await (await client.get("/debug/incidents")).json()
+        assert body["incidents"] == []
+        assert eng._radix.evict_for(eng._pool.n_blocks)
+        assert eng._host_store.used > 0
+        await client.post("/kubectl-command", json=q, headers=hdr)
+        assert eng._host_store.onloaded_total > 0
+        body = await (await client.get("/debug/incidents")).json()
+        assert body["captured_total"].get(TRIGGER_HOST_THRASH) == 1
+        health = (await (await client.get("/health")).json())["kv_pool"]
+        text = await (await client.get("/metrics")).text()
+    host = health["host_tier"]
+    assert health["starved_slots_total"] == 0
+    assert host["capacity"] == 32
+    assert host["demoted_total"] >= 1 and host["onloaded_total"] >= 1
+    seen = {}
+    for fam in text_string_to_metric_families(text):
+        for smp in fam.samples:
+            if smp.name.startswith(("kv_host_blocks", "kv_blocks_",
+                                    "kv_onload_fail")):
+                key = smp.name + "".join(
+                    f"{{{k}={v}}}" for k, v in sorted(smp.labels.items()))
+                seen[key] = smp.value
+    assert {f for f in HOST_FAMILIES
+            if any(k.startswith(f) for k in seen)} == set(HOST_FAMILIES)
+    assert seen["kv_blocks_demoted_total"] == host["demoted_total"]
+    assert seen["kv_blocks_onloaded_total"] == host["onloaded_total"]
+    assert seen["kv_host_blocks{state=used}"] == host["used"]
+    assert seen["kv_host_blocks{state=free}"] == host["free"]
+    assert seen["kv_onload_fail_total{cause=corrupt}"] == 0
