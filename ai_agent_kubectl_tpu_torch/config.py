@@ -39,7 +39,13 @@ the single-sequence engine, ``ENGINE=openai``, and ``KV_POOL=false``
 two-tier host KV (``HOST_KV_BLOCKS``) is read with the JAX errors (it
 needs ``KV_POOL=true`` and ``RADIX_CACHE=true``), and refused likewise
 where no engine would serve it (the single-sequence engine and
-``ENGINE=openai``).
+``ENGINE=openai``). The engine fleet (``FLEET_SIZE``, ``FLEET_HEDGE_MS``,
+``FLEET_AFFINITY``, ``FLEET_MIGRATION_BUDGET``, ``FLEET_REJOIN_SECS``)
+and the weight rollout (``ROLLOUT_CANARY_SHARE``,
+``ROLLOUT_OBSERVE_SECS``, ``ROLLOUT_BURN_GATE``,
+``ROLLOUT_STEPTIME_GATE``) are read with the JAX defaults and errors;
+``server/factory.py`` refuses ``FLEET_SIZE`` > 1 with ``ENGINE=openai``,
+as the JAX factory does.
 """
 
 from __future__ import annotations
@@ -63,12 +69,6 @@ UNSERVED_KNOBS = {
     # termination), group admission
     "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
     "ADMIT_SCRATCH_MB": "512",
-    # fleet and weight rollout (A7; ROLLOUT_STEPTIME_GATE is the
-    # rollout gate's step-time verdict, and /admin/rollout waits with it)
-    "FLEET_SIZE": "1", "FLEET_HEDGE_MS": "0", "FLEET_AFFINITY": "true",
-    "FLEET_MIGRATION_BUDGET": "3", "FLEET_REJOIN_SECS": "0",
-    "ROLLOUT_CANARY_SHARE": "0.1", "ROLLOUT_OBSERVE_SECS": "60",
-    "ROLLOUT_BURN_GATE": "2", "ROLLOUT_STEPTIME_GATE": "0",
     # more than one card or host (A8)
     "MESH_SHAPE": "", "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
     "COORDINATOR_ADDRESS": "", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
@@ -274,6 +274,30 @@ class ServiceConfig:
     spec_draft_k: int = 4                   # SPEC_DRAFT_K
     spec_draft_model: str = "gemma-2b-it"   # SPEC_DRAFT_MODEL
     spec_draft_path: Optional[str] = None   # SPEC_DRAFT_PATH
+    # The engine fleet (engine/fleet.py): N engine replicas behind one
+    # facade with health-aware routing, cross-replica migration (seeded
+    # replay keeps a migrated transcript byte-identical), zero-downtime
+    # drains and hedged re-dispatch; 1 = one engine, no fleet layer. A
+    # replica that gives no event within FLEET_HEDGE_MS is raced by a
+    # second one (0 disables); affinity keeps multi-turn agent loops on
+    # the replica holding their prefix; a request migrates at most
+    # FLEET_MIGRATION_BUDGET times; an ejected replica restarts after
+    # FLEET_REJOIN_SECS (0 = manual rejoin only).
+    fleet_size: int = 1                     # FLEET_SIZE
+    fleet_hedge_ms: float = 0.0             # FLEET_HEDGE_MS
+    fleet_affinity: bool = True             # FLEET_AFFINITY
+    fleet_migration_budget: int = 3         # FLEET_MIGRATION_BUDGET
+    fleet_rejoin_secs: float = 0.0          # FLEET_REJOIN_SECS
+    # Zero-downtime weight rollout (engine/rollout.py, /admin/rollout):
+    # the share of fresh traffic steered at the canary, in (0, 0.5]; how
+    # long the canary serves it before the promotion gate's verdict; the
+    # canary rolls back when its fast-window burn reaches BURN_GATE x
+    # max(1, the stable cohort's burn), or (STEPTIME_GATE >= 1; 0 = off)
+    # when its decode p95 reaches that multiple of the stable cohort's.
+    rollout_canary_share: float = 0.1       # ROLLOUT_CANARY_SHARE
+    rollout_observe_secs: float = 60.0      # ROLLOUT_OBSERVE_SECS
+    rollout_burn_gate: float = 2.0          # ROLLOUT_BURN_GATE
+    rollout_steptime_gate: float = 0.0      # ROLLOUT_STEPTIME_GATE
 
     # QoS ring (engine/qos.py), as in the JAX package. TENANT_TIERS maps
     # a tenant key (a registered API key, else the client IP) to the
@@ -437,6 +461,12 @@ class ServiceConfig:
             raise ValueError(
                 f"INCIDENT_PROFILE_SECS must be in [0, 30] (captures "
                 f"are tens of MB each), got {self.incident_profile_secs}")
+        if self.rollout_steptime_gate != 0.0 \
+                and self.rollout_steptime_gate < 1.0:
+            raise ValueError(
+                f"ROLLOUT_STEPTIME_GATE must be 0 (off) or >= 1 (a "
+                f"factor below 1 would roll back every healthy canary), "
+                f"got {self.rollout_steptime_gate}")
         if self.perf_baselines:
             try:
                 load_baselines(self.perf_baselines)
@@ -479,6 +509,23 @@ class ServiceConfig:
             from .constrain import assert_safety_consistent
 
             assert_safety_consistent()
+        # The weight-rollout knobs, with the JAX errors: a canary share
+        # outside (0, 0.5] either disables the observe phase or lets the
+        # canary starve the stable cohort.
+        if not 0.0 < self.rollout_canary_share <= 0.5:
+            raise ValueError(
+                f"ROLLOUT_CANARY_SHARE must be in (0, 0.5] (the canary "
+                f"may never take more fresh traffic than the stable "
+                f"cohort), got {self.rollout_canary_share}")
+        if self.rollout_observe_secs < 0:
+            raise ValueError(
+                f"ROLLOUT_OBSERVE_SECS must be >= 0, "
+                f"got {self.rollout_observe_secs}")
+        if self.rollout_burn_gate < 1.0:
+            raise ValueError(
+                f"ROLLOUT_BURN_GATE must be >= 1 (a factor below the "
+                f"sustainable burn rate would roll back every healthy "
+                f"canary), got {self.rollout_burn_gate}")
         # The speculative-decode knobs, with the JAX errors: an
         # impossible combination or an unknown or mismatched draft must
         # refuse to boot, not serve plain decode behind a knob that says
@@ -647,6 +694,15 @@ class ServiceConfig:
             spec_draft_k=_env_int("SPEC_DRAFT_K", 4),
             spec_draft_model=_env_str("SPEC_DRAFT_MODEL", "gemma-2b-it"),
             spec_draft_path=_env_str("SPEC_DRAFT_PATH", None),
+            fleet_size=_env_int("FLEET_SIZE", 1),
+            fleet_hedge_ms=_env_float("FLEET_HEDGE_MS", 0.0),
+            fleet_affinity=_env_bool("FLEET_AFFINITY", True),
+            fleet_migration_budget=_env_int("FLEET_MIGRATION_BUDGET", 3),
+            fleet_rejoin_secs=_env_float("FLEET_REJOIN_SECS", 0.0),
+            rollout_canary_share=_env_float("ROLLOUT_CANARY_SHARE", 0.1),
+            rollout_observe_secs=_env_float("ROLLOUT_OBSERVE_SECS", 60.0),
+            rollout_burn_gate=_env_float("ROLLOUT_BURN_GATE", 2.0),
+            rollout_steptime_gate=_env_float("ROLLOUT_STEPTIME_GATE", 0.0),
             tenant_tiers=_env_str("TENANT_TIERS", "") or "",
             qos_default_lane=(
                 _env_str("QOS_DEFAULT_LANE", "interactive")

@@ -152,6 +152,19 @@ entry of the in-flight list. In every regime:
   eviction is truncated at its current length, its result marked
   ``degraded``, and the incident watcher's ``pool_exhausted`` reads the
   count.
+- **The fleet's contract** (``stream_events``, the JAX engine's): a
+  request carries a ``protocol.RequestExport`` whose ``ids`` the
+  scheduler points at the generated ids after every consume (a fresh
+  list each time) and whose ``blocks`` follow the table, stamped at
+  submit with the engine's ``weights_version``; an imported
+  ``resume_ids`` (a prefix generated on another replica) is seated
+  through ``_admit_resume`` and replayed, billed on the donor
+  (``ledger_delivered``) and exempt from the TTFT SLO; a cancelled hedge
+  loser (``export.discard``) bills its tokens as ``hedge_loser``. A
+  restart after ``swap_weights`` rebuilds every structure that holds
+  KV computed under the old weights (the pool, the radix tree and its
+  preloaded system prompt, the host tier, the dense prefix cache, the
+  draft's cache) and keeps the grammar runtime and the draft's weights.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -190,8 +203,9 @@ from ..obs import (PHASE_DECODE, PHASE_PREFILL, PHASE_SPEC_VERIFY,
                    SLO_QUEUE_WAIT, SLO_TTFT, GoodputLedger, SloEngine,
                    StepTimeSentinel, Trace, current_trace, prefill_bucket)
 from ..obs.ledger import (CLASS_DELIVERED, CLASS_DRAFT_REJECTED,
-                          CLASS_PREEMPTED, CLASS_QUARANTINE_BURN,
-                          CLASS_REPLAYED, CLASS_WASTED_MASKED)
+                          CLASS_HEDGE_LOSER, CLASS_PREEMPTED,
+                          CLASS_QUARANTINE_BURN, CLASS_REPLAYED,
+                          CLASS_WASTED_MASKED)
 from ..obs.profiler import ProfilerSession, scope
 from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
@@ -204,7 +218,7 @@ from .kv_pool import (BlockPool, HostBlockStore, alloc_with_evict,
 from .protocol import (HEALTH_GRAMMAR_DEAD, HEALTH_NONFINITE,
                        HEALTH_TOKEN_RANGE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
-                       GenerationTimeout, RequestQuarantined,
+                       GenerationTimeout, RequestExport, RequestQuarantined,
                        TenantOverloaded, consume_chunk_row, describe_health,
                        pack_chunk, unpack_chunk)
 from .qos import (ANON_TENANT, LANE_BACKGROUND, LANE_BATCH,
@@ -363,6 +377,14 @@ class _Request:
     ledger_delivered: int = 0
     t_first0: Optional[float] = None
     radix_warm: bool = False
+    # The fleet: ``export`` is the live outbound view (the scheduler
+    # points its ``ids`` at the generated ids after every consume and
+    # its ``blocks`` at the table, so the fleet can carry the request
+    # to another replica); ``ttft_exempt`` marks an import whose first
+    # byte happened on the donor replica. An import's resume_ids ride
+    # _admit_resume, and the donor billed them (ledger_delivered).
+    export: Optional[RequestExport] = None
+    ttft_exempt: bool = False
     # Containment: the raw prompt text (decode-fault targeting matches
     # it), how often this request was solo-implicated in a poisoned step
     # (it survives resets and parking; past QUARANTINE_RETRY_BUDGET it
@@ -1178,6 +1200,8 @@ class BatchedTorchEngine(TorchEngine):
                 return False
             self._tables[idx, len(slot.blocks)] = b[0]
             slot.blocks.extend(b)
+            if slot.req.export is not None:
+                slot.req.export.blocks = list(slot.blocks)
         return True
 
     def _pool_release_slot(self, idx: int, slot: _Slot,
@@ -1296,9 +1320,13 @@ class BatchedTorchEngine(TorchEngine):
                              else 1),
             prefix_hit=m > 0, blocks=blocks, pool_ids=ids, gs=gs1,
             anchor_pos=n_prompt + len(run), anchor_g=1 + len(run))
+        if req.export is not None:
+            req.export.blocks = list(blocks)
         self._slots[slot_idx] = slot
         if run:
             piece = slot.detok.push(*run)
+            if req.export is not None:
+                req.export.ids = list(slot.detok.ids)
             if req.t_first0 is None:
                 req.t_first0 = time.monotonic()
             if piece is not None:
@@ -1544,6 +1572,9 @@ class BatchedTorchEngine(TorchEngine):
                                  start=max(0, base - 1))
         piece = slot.detok.push(*run)
         slot.gs = end_gs
+        if req.export is not None:
+            req.export.ids = list(slot.detok.ids)
+            req.export.blocks = list(slot.blocks)
         if piece is not None:
             self._emit(req, "token", piece)
         self._grammar_forced += len(run)
@@ -2132,6 +2163,11 @@ class BatchedTorchEngine(TorchEngine):
                     if slot.req.t_first0 is None:
                         slot.req.t_first0 = slot.t_first
                 piece = slot.detok.push(*new_ids)
+                # The portable export: a fresh list per update, so the
+                # fleet's read from another thread sees a settled
+                # snapshot of the generated prefix.
+                if slot.req.export is not None:
+                    slot.req.export.ids = list(slot.detok.ids)
                 if piece is not None:
                     self._emit(slot.req, "token", piece)
                 if self._grammar is not None and slot.req.gpid >= 0:
@@ -2209,6 +2245,8 @@ class BatchedTorchEngine(TorchEngine):
             self._finish(slot_idx, "stop", wasted_inflight=True)
             return
         piece = slot.detok.push(first_tok)
+        if req.export is not None:
+            req.export.ids = list(slot.detok.ids)
         if piece is not None:
             self._emit(req, "token", piece)
         grammar = self._grammar is not None and req.gpid >= 0
@@ -2252,12 +2290,20 @@ class BatchedTorchEngine(TorchEngine):
         # The ledger: the transcript is what the client received —
         # goodput, errors included (a quarantine already billed its
         # tokens as burned) — and the session's budget is charged with
-        # the same tokens.
+        # the same tokens. Billed past ledger_delivered: a migrated
+        # import's prefix was decoded and billed on the donor replica. A
+        # cancelled hedge loser (export.discard, set by the fleet before
+        # the cancel) emitted tokens the client never received:
+        # hedge_loser, and no session charge.
         n_new = len(slot.detok.ids) - slot.req.ledger_delivered
         slot.req.ledger_delivered = len(slot.detok.ids)
-        self.ledger.record(CLASS_DELIVERED, n_new, lane=lane,
+        discarded = (slot.req.export is not None
+                     and slot.req.export.discard)
+        self.ledger.record(CLASS_HEDGE_LOSER if discarded
+                           else CLASS_DELIVERED, n_new, lane=lane,
                            tenant=slot.req.tenant)
-        self._session_budgets.charge(slot.req.session, n_new)
+        if not discarded:
+            self._session_budgets.charge(slot.req.session, n_new)
         if error is not None:
             self._emit(slot.req, "error", error)
             return
@@ -2267,13 +2313,16 @@ class BatchedTorchEngine(TorchEngine):
         t_end = time.monotonic()
         # TTFT from the first token the request ever delivered (it
         # survives a preemption); the session TTFT only for a radix-warm
-        # re-admission of a declared session.
-        ttft_sample_ms = ((slot.req.t_first0 or slot.t_first or t_end)
-                          - slot.req.t_submit) * 1000.0
-        self._slo.note(SLO_TTFT, lane, ttft_sample_ms, now=t_end)
-        if slot.req.session and slot.req.radix_warm:
-            self._slo.note(SLO_SESSION_TTFT, lane, ttft_sample_ms,
-                           now=t_end)
+        # re-admission of a declared session. A migrated import (its
+        # first byte was the donor's) and a hedge loser (the winner
+        # measures the request) take no sample.
+        if not slot.req.ttft_exempt and not discarded:
+            ttft_sample_ms = ((slot.req.t_first0 or slot.t_first or t_end)
+                              - slot.req.t_submit) * 1000.0
+            self._slo.note(SLO_TTFT, lane, ttft_sample_ms, now=t_end)
+            if slot.req.session and slot.req.radix_warm:
+                self._slo.note(SLO_SESSION_TTFT, lane, ttft_sample_ms,
+                               now=t_end)
         self._emit(slot.req, "done", EngineResult(
             text=slot.detok.text,
             prompt_tokens=slot.n_prompt,
@@ -2482,6 +2531,8 @@ class BatchedTorchEngine(TorchEngine):
         # text past it (UTF-8 hold-back can leave text behind the ids).
         req.resume_skip = len(slot.detok.text)
         req.resume_emitted = False
+        if req.export is not None:
+            req.export.ids = list(ids)
         self._preemptions += 1
         self._preempted_tokens += len(ids)
         # The ledger bills the preempted class at the resume: the
@@ -2518,6 +2569,8 @@ class BatchedTorchEngine(TorchEngine):
                      t_admit=t_adm)
         if piece is not None:
             self._emit(req, "token", piece)
+        if req.export is not None:
+            req.export.ids = list(detok.ids)
         if len(detok.ids) >= req.max_tokens:
             slot_idx = self._slots.index(None)
             slot.t_first = t_adm
@@ -2580,6 +2633,8 @@ class BatchedTorchEngine(TorchEngine):
                 self._pool.decref(blocks)
                 raise
             slot.blocks = blocks
+            if req.export is not None:
+                req.export.blocks = list(blocks)
             # The chain basis for the radix insert at finish: replay_ids
             # minus the g - 1 generated ids.
             slot.pool_ids = (replay_ids[:n_total - (g - 1)] if g > 1
@@ -3294,9 +3349,29 @@ class BatchedTorchEngine(TorchEngine):
             except EngineOverloaded:
                 break
 
+    async def stream_events(self, prompt: str, *, max_tokens: int = 128,
+                            temperature: float = 0.0,
+                            timeout: Optional[float] = None,
+                            seed: Optional[int] = None,
+                            resume_ids: Optional[List[int]] = None,
+                            export: Optional[RequestExport] = None):
+        """The fleet's event stream (``engine/fleet.py``): the whole
+        cross-replica contract — a pinned seed, ``resume_ids`` imported
+        (a prefix generated on another replica re-spliced through
+        ``_admit_resume``) and the live ``export`` of this request's
+        generated ids and blocks, stamped with this engine's weights
+        version at submit."""
+        async for ev in self._stream_events(
+                prompt, max_tokens=max_tokens, temperature=temperature,
+                timeout=timeout, seed=seed, resume_ids=resume_ids,
+                export=export):
+            yield ev
+
     async def _stream_events(self, prompt: str, *, max_tokens: int,
                              temperature: float, timeout: Optional[float],
-                             seed: Optional[int] = None):
+                             seed: Optional[int] = None,
+                             resume_ids: Optional[List[int]] = None,
+                             export: Optional[RequestExport] = None):
         if not self._ready:
             raise EngineUnavailable("engine not started")
         if seed is None:
@@ -3358,7 +3433,17 @@ class BatchedTorchEngine(TorchEngine):
             session=session,
             prompt=prompt,
             gpid=gpid,
+            # A fleet import: the prefix was decoded and billed delivered
+            # on the donor replica, whose client got its first byte.
+            resume_ids=list(resume_ids) if resume_ids else None,
+            export=export,
+            ledger_delivered=len(resume_ids) if resume_ids else 0,
+            ttft_exempt=bool(resume_ids),
         )
+        if export is not None:
+            # The ids this engine generates are a function of THESE
+            # weights: the fleet's version pinning routes on this stamp.
+            export.weights_version = self.weights_version
         # Fair-share shedding at submit: past the tenant cap a 429 to the
         # flooding tenant; at MAX_QUEUE_DEPTH the dominant tenant's newest
         # request is displaced for a quieter arrival, and the arrival is

@@ -5,7 +5,7 @@ package's ``engine/protocol.py`` so both engines speak one contract.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import AsyncIterator, List, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
@@ -193,6 +193,36 @@ def consume_chunk_row(tokens_row, done: bool, length: int,
         else:
             finish = "length"
     return new_ids, finish
+
+
+@dataclass
+class RequestExport:
+    """Live, host-readable view of one request's recoverable state.
+
+    The fleet (``engine/fleet.py``) hands one of these to the engine
+    when it submits a request; the engine's scheduler keeps ``ids``
+    pointed at the generated-so-far token ids (a fresh list is assigned
+    on every update, never mutated in place, so a reader on another
+    thread always sees a settled snapshot). With the per-request
+    sampling seed this is the portable half of the reset-and-replay
+    contract: (prompt, generated-prefix ids, seed) is everything needed
+    to re-splice the request onto another replica and continue the
+    transcript as if it had never moved."""
+
+    ids: List[int] = field(default_factory=list)
+    #: the pool blocks this request's table maps on its engine, updated
+    #: at admission and at every table growth. Block ids are local to
+    #: the engine: a migration target re-derives its own chain through
+    #: its radix tree.
+    blocks: List[int] = field(default_factory=list)
+    #: set by the fleet before it cancels a losing hedge branch: the
+    #: tokens this dispatch emitted never reached the client, so the
+    #: engine's finish bills them as hedge_loser, not delivered.
+    discard: bool = False
+    #: the weights version of the engine that generated ``ids``, stamped
+    #: at submit. A transcript is a function of the weights, so the
+    #: fleet pins migration and hedging to replicas of this version.
+    weights_version: str = ""
 
 
 @dataclass

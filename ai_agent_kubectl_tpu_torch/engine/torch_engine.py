@@ -43,11 +43,18 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   ``dense_attention_quant``. The flash kernel reads bf16 KV, so prefill
   attention resolves to dense under it, with the JAX engine's log line.
 
+- ``swap_weights`` changes the weights of a stopped engine in place,
+  atomically (the new tree loads and is checked against the live one
+  before the old one goes), for the weight rollout
+  (``engine/rollout.py``). Every engine stamps the version it serves
+  (``weights_version``, the JAX package's fingerprint of ``MODEL_PATH``
+  or of the ``dev:<model>:seed=<n>:quant=<q>`` sentinel without one).
+
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
-path. Left out of the JAX engine: ring prefill, the mesh, the compile
-cache and ladder warm threads (nothing compiles in eager PyTorch), and
-weight swaps.
+path. Left out of the JAX engine: ring prefill, the mesh, and the
+compile cache and ladder warm threads (nothing compiles in eager
+PyTorch).
 
 Everything runs on ``device`` — ``cuda`` unless the caller asks for the
 CPU, as the tests do. A CUDA request with no card raises
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import dataclasses
 import logging
 import threading
 import time
@@ -177,7 +185,11 @@ class TorchEngine:
         self.seed = seed
         self.tokenizer = tokenizer
         self.params = params
+        # The weights version this engine serves (stamped by _load or a
+        # swap, kept across restarts) and the checkpoint path it came
+        # from: a dev sentinel without MODEL_PATH, restorable by a swap.
         self.weights_version = ""
+        self.checkpoint_path = model_path
         self._ready = False
         self._shutdown = False
         self._lock: Optional[asyncio.Lock] = None
@@ -254,25 +266,11 @@ class TorchEngine:
                 self.model_cfg, self.model_path, dtype=self.dtype,
                 quant=self.quant, quantize_embed=quantize_embed,
                 device=self.device)
-            self.weights_version = checkpoint_version(self.model_path)
         elif self.params is None:
             logger.warning("No MODEL_PATH; random-initializing %s on %s "
                            "(seed %d, quant=%s)", self.model_cfg.name,
                            self.device, self.seed, self.quant or "-")
-            gen = torch.Generator(device=self.device).manual_seed(self.seed)
-            if self.quant:
-                self.params = random_params_int8(
-                    gen, self.model_cfg, dtype=self.dtype,
-                    quantize_embed=quantize_embed,
-                    int4=self.quant == "int4", device=self.device)
-            else:
-                self.params = init_params(gen, self.model_cfg,
-                                          dtype=self.dtype,
-                                          device=self.device)
-            self.weights_version = (f"dev:{self.model_cfg.name}:"
-                                    f"seed={self.seed}")
-            if self.quant:
-                self.weights_version += f":quant={self.quant}"
+            self.params = self._random_params(self.seed)
         elif self.quant and not is_quantized(self.params):
             quantize = (quantize_params_int4 if self.quant == "int4"
                         else quantize_params_int8)
@@ -280,6 +278,124 @@ class TorchEngine:
                                    quantize_embed=quantize_embed)
             logger.info("Weights quantized to %s (weight-only; embedding "
                         "per-row int8)", self.quant)
+        if not self.weights_version:
+            # Version the weights served, as the JAX engine does: a
+            # checkpoint by its content manifest, a random init by (model,
+            # seed, quant), so two replicas built alike share a version
+            # (migration and hedging need it). The dev sentinel doubles
+            # as a restorable checkpoint path: a swap onto it parses the
+            # seed back out and re-derives the same init. A version a
+            # swap stamped survives a restart.
+            dev_id = (f"dev:{self.model_cfg.name}:seed={self.seed}"
+                      f":quant={self.quant}")
+            if not self.checkpoint_path:
+                self.checkpoint_path = self.model_path or dev_id
+            self.weights_version = checkpoint_version(
+                self.model_path or dev_id)
+
+    def _random_params(self, seed: int):
+        """A random init drawn from a ``torch.Generator`` seeded with
+        ``seed`` on the serving device, directly in quantized form under
+        ``quant`` (the embedding per-row int8 then)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.quant:
+            return random_params_int8(
+                gen, self.model_cfg, dtype=self.dtype,
+                quantize_embed=True, int4=self.quant == "int4",
+                device=self.device)
+        return init_params(gen, self.model_cfg, dtype=self.dtype,
+                           device=self.device)
+
+    def swap_weights(self, path: str, *, version: Optional[str] = None
+                     ) -> str:
+        """Swap the served checkpoint in place on a stopped (drained)
+        engine: the rollout's mechanism (``engine/rollout.py``).
+
+        The swap is atomic: the new tree loads fully, and every leaf
+        (quantized ``q`` and ``scale`` included) is checked for shape and
+        dtype against the live tree, before the old tree is released. Any
+        failure raises ``CheckpointCorrupt`` and the engine keeps the old
+        weights. The restart that follows (``start``) rebuilds every
+        structure holding KV computed under the old weights.
+
+        A path that exists loads through ``convert_hf_checkpoint`` onto
+        the serving device; one that does not serves a random init keyed
+        on the path (a ``dev:`` sentinel gives back its ``:seed=N``, so
+        a rollback onto the original sentinel restores the same bytes).
+        ``checkpoint:corrupt`` rejects the load; ``swap:fail`` kills the
+        engine mid-swap: it keeps no weights, and its version and path
+        are cleared, so a restart loads and stamps afresh."""
+        from .rollout import CheckpointCorrupt, RolloutError, SwapFailed
+
+        if self._ready:
+            raise RolloutError(
+                "swap_weights requires a stopped (drained) engine")
+        version = version or checkpoint_version(path)
+        faults = getattr(self, "faults", None)
+        if faults is not None and faults.checkpoint_corrupt():
+            raise CheckpointCorrupt(
+                f"checkpoint {path!r} failed integrity validation "
+                f"(injected checkpoint:corrupt drill)")
+        try:
+            new_params = self._load_swap_params(path)
+        except CheckpointCorrupt:
+            raise
+        except Exception as e:
+            raise CheckpointCorrupt(
+                f"checkpoint {path!r} failed to load: "
+                f"{type(e).__name__}: {e}") from e
+        if self.params is not None and not tree_matches(self.params,
+                                                        new_params):
+            # Wrong model or geometry: the serving tree stays as it is.
+            del new_params
+            raise CheckpointCorrupt(
+                f"checkpoint {path!r} does not match the serving "
+                f"model's parameter tree "
+                f"({self.model_cfg.name}, quant={self.quant or '-'})")
+        if faults is not None and faults.swap_fail():
+            # Mid-swap death: the old tree is released here and the new
+            # one is not armed. The replica has no weights until a
+            # restart reloads them; its stamps go with them, so a restart
+            # re-stamps truthfully in _load.
+            del new_params
+            self.params = None
+            self.weights_version = ""
+            self.checkpoint_path = None
+            raise SwapFailed("injected swap:fail — replica died mid-swap")
+        self.params = new_params
+        self.weights_version = version
+        self.checkpoint_path = path
+        logger.info("weights swapped: %s now serves version %s (%s)",
+                    self.model_cfg.name, version, path)
+        return version
+
+    def _load_swap_params(self, path: str):
+        """Load (or dev-init) a parameter tree for ``swap_weights``
+        without touching the live ``self.params``."""
+        import os
+        import re
+        import zlib
+
+        from .rollout import CheckpointCorrupt
+
+        if not path or not str(path).strip():
+            raise CheckpointCorrupt("swap needs a checkpoint path")
+        path = str(path)
+        if os.path.exists(path):
+            logger.info("Loading swap checkpoint from %s onto %s "
+                        "(quant=%s)", path, self.device, self.quant or "-")
+            return convert_hf_checkpoint(
+                self.model_cfg, path, dtype=self.dtype, quant=self.quant,
+                quantize_embed=bool(self.quant), device=self.device)
+        logger.warning(
+            "Swap checkpoint %s does not exist; random-initializing %s "
+            "keyed on the path (toy/dev mode)", path, self.model_cfg.name)
+        m = re.search(r":seed=(\d+)", path) if path.startswith("dev:") \
+            else None
+        seed = (int(m.group(1)) if m
+                else zlib.crc32(path.encode("utf-8", "surrogatepass"))
+                & 0x7FFFFFFF)
+        return self._random_params(seed)
 
     async def stop(self, drain_secs: float = 0.0) -> None:
         self._ready = False          # new generate() calls now fail
@@ -736,6 +852,28 @@ class TorchEngine:
                         pass
         finally:
             self._gen_inflight -= 1
+
+
+def tree_matches(live, new) -> bool:
+    """Whether two parameter trees have one structure and every tensor
+    (quantized leaves' ``q`` and ``scale`` included) one shape and
+    dtype: the swap's check that a checkpoint fits the serving model."""
+    if isinstance(live, torch.Tensor) or isinstance(new, torch.Tensor):
+        return (isinstance(live, torch.Tensor)
+                and isinstance(new, torch.Tensor)
+                and live.shape == new.shape and live.dtype == new.dtype)
+    if type(live) is not type(new):
+        return False
+    if isinstance(live, dict):
+        return (live.keys() == new.keys()
+                and all(tree_matches(live[k], new[k]) for k in live))
+    if isinstance(live, (list, tuple)):
+        return (len(live) == len(new)
+                and all(tree_matches(a, b) for a, b in zip(live, new)))
+    if dataclasses.is_dataclass(live):
+        return all(tree_matches(getattr(live, f.name), getattr(new, f.name))
+                   for f in dataclasses.fields(live))
+    return live == new
 
 
 def engine_kwargs(cfg) -> dict:

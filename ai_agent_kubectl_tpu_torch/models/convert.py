@@ -81,19 +81,24 @@ def _open_checkpoint(path) -> Tuple[Callable[[str], torch.Tensor],
 def checkpoint_version(path) -> str:
     """12-hex fingerprint of a checkpoint path: the path string plus a
     manifest of its files (relative name, size, mtime), as the JAX
-    package versions its weights; no tensor data is read."""
-    h = hashlib.sha256(str(path).encode("utf-8", "surrogatepass"))
-    p = str(path)
-    if os.path.isdir(p):
-        for root, _dirs, files in sorted(os.walk(p)):
-            for name in sorted(files):
-                full = os.path.join(root, name)
-                st = os.stat(full)
-                h.update(f"{os.path.relpath(full, p)}:{st.st_size}:"
-                         f"{st.st_mtime_ns}".encode())
-    elif os.path.isfile(p):
-        st = os.stat(p)
-        h.update(f"{st.st_size}:{st.st_mtime_ns}".encode())
+    package versions its weights; no tensor data is read. A path that
+    does not exist still versions deterministically (a dev sentinel or
+    a random init keyed on the path), and None versions as ""."""
+    p = str(path or "")
+    h = hashlib.sha256(p.encode("utf-8", "surrogatepass"))
+    try:
+        if p and os.path.isdir(p):
+            for root, _dirs, files in sorted(os.walk(p)):
+                for name in sorted(files):
+                    full = os.path.join(root, name)
+                    st = os.stat(full)
+                    h.update(f"{os.path.relpath(full, p)}:{st.st_size}:"
+                             f"{st.st_mtime_ns}".encode())
+        elif p and os.path.isfile(p):
+            st = os.stat(p)
+            h.update(f"{st.st_size}:{st.st_mtime_ns}".encode())
+    except OSError:  # pragma: no cover - racing filesystem change
+        pass
     return h.hexdigest()[:12]
 
 

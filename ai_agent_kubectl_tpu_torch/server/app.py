@@ -13,9 +13,10 @@ Routes (the JAX statuses):
   200/400/401/429/500, execution errors as structured 200s.
 - ``GET /health`` — readiness-gated, with the breaker's state, the
   engine's last containment reset and its cause (``last_reset``,
-  ``last_reset_cause``), the engine's ``qos``, ``kv_pool``, ``slo``,
-  ``steptime``, ``grammar`` and ``spec`` sections and the incident
-  ring's ``incidents`` summary.
+  ``last_reset_cause``), the engine's ``fleet``, ``qos``, ``kv_pool``,
+  ``slo``, ``steptime``, ``grammar`` and ``spec`` sections, the
+  rollout controller's ``rollout`` section and the incident ring's
+  ``incidents`` summary.
 - ``GET /metrics`` — Prometheus text; ``/openapi.json`` and ``/docs``.
 - ``/debug/*``, behind ``X-Debug-Token`` when ``DEBUG_TOKEN`` is set
   (403 otherwise): ``POST /debug/profile?seconds=N`` (alias
@@ -25,6 +26,11 @@ Routes (the JAX statuses):
   events and pipeline counters), ``/debug/ledger`` (the goodput ledger
   with its hashed-tenant table; 404 on an engine without one, such as
   the single-sequence engine) and ``/debug/incidents[/{id}]``.
+- ``/admin/rollout`` behind the same token: ``POST`` ``{"checkpoint":
+  path}`` starts a zero-downtime weight rollout (202; 409 while one runs
+  or when the fleet already serves that version), ``GET`` its status,
+  ``POST /admin/rollout/abort`` rolls it back (409 with nothing to
+  abort); 404 when the engine cannot swap its weights.
 
 Middleware, outermost first, in the JAX order: observability (request
 ID, trace, HTTP metrics, ``Server-Timing``, flight recorder), overload
@@ -39,9 +45,11 @@ otherwise).
 An engine shed answers 429 for a tenant over its queue cap and 503 for a
 full queue, with the engine's ``Retry-After``. A background task runs
 the incident triggers every ``SENTINEL_EVAL_SECS`` and attaches an
-``INCIDENT_PROFILE_SECS`` capture to a new bundle. The JAX package's
-``/admin/rollout`` waits for the fleet (ROADMAP.md A7). The pipeline
-itself lives in ``server/service.py``.
+``INCIDENT_PROFILE_SECS`` capture to a new bundle. While a rollout
+holds the only capacity (the ``FLEET_SIZE=1`` in-place swap) an engine
+503 carries a ``Retry-After`` priced from the swap. Every response
+echoes the fleet's stable weights version as ``X-Model-Version``. The
+pipeline itself lives in ``server/service.py``.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from ..engine.protocol import (EngineOverloaded, EngineResult,
                                EngineUnavailable, GenerationTimeout,
                                RequestQuarantined, TenantOverloaded)
 from ..engine.qos import classify, use_qos
+from ..engine.rollout import RolloutError
 from ..obs import (PHASES, Trace, current_trace, new_request_id,
                    sanitize_request_id, use_trace)
 from ..obs import profiler as obs_profiler
@@ -352,7 +361,16 @@ async def handle_kubectl_command(request: web.Request) -> web.Response:
                      sanitized_query, e)
         return _json_error(410, f"Request quarantined: {e}")
     except EngineUnavailable as e:
-        return _json_error(503, f"Engine not available: {e}")
+        headers = None
+        if svc.rollout is not None and svc.rollout.active:
+            # While a swap holds the only capacity (the FLEET_SIZE=1
+            # in-place swap has no fleet facade to price the shed), tell
+            # the load balancer when to offer again.
+            hint = float(getattr(svc.engine, "swap_hint", 0.0) or 0.0)
+            headers = _retry_after_header(
+                hint or max(2.0, svc.rollout.drain_secs / 2.0))
+        return _json_error(503, f"Engine not available: {e}",
+                           headers=headers)
     except (GenerationTimeout, asyncio.TimeoutError):
         logger.error("Engine timed out after %ss for query: %s",
                      svc.cfg.llm_timeout, sanitized_query)
@@ -619,22 +637,34 @@ async def handle_health(request: web.Request) -> web.Response:
         last_reset = (time.strftime("%Y-%m-%dT%H:%M:%S",
                                     time.gmtime(sup.last_reset_wall)) + "Z")
         last_cause = sup.last_reset_cause
+    # A fleet: the per-replica section (state, breaker, occupancy,
+    # version, last reset) and its counters; its most recent reset
+    # backfills the top-level fields.
+    fleet = _engine_view(svc.engine, "fleet_health")
+    if fleet is not None and last_reset is None:
+        last_reset = fleet.get("last_reset")
+        last_cause = fleet.get("last_reset_cause")
     body = HealthResponse(
         status="healthy" if ready and breaker == "closed" else "degraded",
         engine=getattr(svc.engine, "name", "unknown"),
         engine_ready=ready,
         model=svc.cfg.model_name,
-        devices=device_count(getattr(svc.engine, "device", None)),
+        # A fleet's replicas share one configuration: the first's device.
+        devices=device_count(getattr(svc._replica_engines()[0][1], "device",
+                                     None)),
         breaker=breaker,
         degraded_fallback=svc.fallback is not None,
         last_reset=last_reset,
         last_reset_cause=last_cause,
+        fleet=fleet,
         qos=_engine_view(svc.engine, "qos_health"),
         slo=_engine_view(svc.engine, "slo_health"),
         kv_pool=_engine_view(svc.engine, "kv_pool_health"),
         steptime=_engine_view(svc.engine, "steptime_health"),
         grammar=_engine_view(svc.engine, "grammar_health"),
         spec=_engine_view(svc.engine, "spec_health"),
+        rollout=(svc.rollout.health() if svc.rollout is not None
+                 else None),
         incidents=svc.incidents.snapshot(),
     )
     if ready:
@@ -827,6 +857,71 @@ async def handle_debug_incident_detail(request: web.Request
     return web.json_response(bundle)
 
 
+def _rollout_unavailable(svc: Service) -> Optional[web.Response]:
+    if svc.rollout is None:
+        return _json_error(
+            404, "engine has no weight-rollout support (rollouts are "
+                 "wired into the fleet and the swap-capable engines)")
+    return None
+
+
+async def handle_admin_rollout_post(request: web.Request) -> web.Response:
+    """POST /admin/rollout {"checkpoint": path} — begin a zero-downtime
+    weight rollout: drain one canary replica, swap it to the versioned
+    checkpoint, observe it under a bounded traffic share, then promote
+    the rest or roll back on its own. Token-gated like /debug/*."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    unavailable = _rollout_unavailable(svc)
+    if unavailable is not None:
+        return unavailable
+    try:
+        body = await request.json()
+    except Exception:
+        return _json_error(400, "body must be JSON")
+    checkpoint = (body or {}).get("checkpoint")
+    if not isinstance(checkpoint, str) or not checkpoint.strip():
+        return _json_error(400, "body needs a 'checkpoint' path string")
+    try:
+        status = await svc.rollout.start_rollout(checkpoint.strip())
+    except RolloutError as e:
+        return _json_error(409, str(e))
+    return web.json_response(status, status=202)
+
+
+async def handle_admin_rollout_get(request: web.Request) -> web.Response:
+    """GET /admin/rollout — the rollout state machine's full status:
+    state, target and stable versions, canary and share, gate verdicts,
+    the drain→swap→rejoin→promote timeline and the rollback history."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    unavailable = _rollout_unavailable(svc)
+    if unavailable is not None:
+        return unavailable
+    return web.json_response(svc.rollout.status())
+
+
+async def handle_admin_rollout_abort(request: web.Request) -> web.Response:
+    """POST /admin/rollout/abort — roll the rollout in flight back (cause
+    ``aborted``); 409 when nothing is in flight."""
+    denied = _debug_forbidden(request)
+    if denied is not None:
+        return denied
+    svc: Service = request.app["service"]
+    unavailable = _rollout_unavailable(svc)
+    if unavailable is not None:
+        return unavailable
+    try:
+        status = await svc.rollout.abort()
+    except RolloutError as e:
+        return _json_error(409, str(e))
+    return web.json_response(status)
+
+
 async def handle_metrics(request: web.Request) -> web.Response:
     svc: Service = request.app["service"]
     pool = _engine_view(svc.engine, "kv_pool_health")
@@ -843,6 +938,8 @@ async def handle_metrics(request: web.Request) -> web.Response:
         svc.metrics.kv_pool_total.set(stats.get("kv_pages_total", 0))
         svc.metrics.observe_pipeline(stats)
         svc.metrics.observe_containment(stats)
+    if stats.get("fleet"):
+        svc.metrics.observe_fleet(stats["fleet"])
     if stats.get("qos"):
         svc.metrics.observe_qos(stats["qos"])
     if stats.get("ledger"):
@@ -862,6 +959,8 @@ async def handle_metrics(request: web.Request) -> web.Response:
     except Exception:   # pragma: no cover - defensive
         logger.exception("incident evaluation failed at scrape")
     svc.metrics.observe_incidents(svc.incidents.snapshot())
+    if svc.rollout is not None:
+        svc.metrics.observe_rollout(svc.rollout.health())
     svc.metrics.tokens_per_sec.set(svc.token_rate.rate())
     svc.metrics.breaker_state.set(STATE_CODES[svc.breaker.state])
     return web.Response(body=svc.metrics.render(), content_type="text/plain")
@@ -888,6 +987,9 @@ def create_app(cfg, engine, executor: Optional[CommandExecutor] = None,
     app.router.add_get("/debug/incidents", handle_debug_incidents)
     app.router.add_get("/debug/incidents/{id}",
                        handle_debug_incident_detail)
+    app.router.add_post("/admin/rollout", handle_admin_rollout_post)
+    app.router.add_get("/admin/rollout", handle_admin_rollout_get)
+    app.router.add_post("/admin/rollout/abort", handle_admin_rollout_abort)
     app.router.add_get("/health", handle_health)
     app.router.add_get("/metrics", handle_metrics)
     register_openapi(app)

@@ -8,17 +8,26 @@ batches. Both take ``QUANT``, ``KV_QUANT`` and ``MOE_IMPL``
 (``engine_kwargs``). ``ENGINE=openai`` calls an OpenAI-compatible
 ChatCompletions endpoint (``engine/openai_compat.py``).
 
+``FLEET_SIZE`` > 1 builds that many engines behind the
+``engine/fleet.py::EngineFleet`` facade (``_build_fleet``, the JAX
+factory's): each replica is a whole engine with its own weights and KV,
+and all of them may share one card.
+
 ``FAULT_POINTS`` is parsed before the engine is built, outside the
 degraded-start net, as the JAX factory does: a typo'd drill refuses to
 boot instead of starting into what looks like a real outage. One
 injector serves the batcher's points and the ``generate`` wrapper
 (``ChaosEngine``), so ``fired()``, ``release()`` and ``clear()`` see
-every point. A point the selected engine can never fire is refused at
-boot: the batcher's points under another engine, ``draft:die`` without
-``SPEC_DECODE=true`` (the JAX factory lets that drill sit inert), a
-replica scope beyond ``FLEET_SIZE`` (1: the port has no fleet),
+every point; each fleet replica gets its replica-scoped view
+(``for_replica``), so ``r1:scheduler:die`` fires in replica 1 only. A
+point the selected engine can never fire is refused at boot: the
+batcher's points (``swap`` and ``checkpoint`` among them) under another
+engine, ``draft:die`` without ``SPEC_DECODE=true`` (the JAX factory lets
+that drill sit inert), a replica scope at or beyond ``FLEET_SIZE``, a
+replica-scoped ``generate`` (its wrapper sits above the fleet), and
 ``offload`` and ``onload`` without the host tier (``HOST_KV_BLOCKS`` >
-0), and the points of features the port does not serve yet.
+0). ``FLEET_SIZE`` > 1 with ``ENGINE=openai`` is refused as the JAX
+factory refuses it.
 
 On a construction failure the service starts degraded and answers 503
 (as the JAX factory does): a misconfiguration keeps ``/health`` up and
@@ -33,22 +42,12 @@ from ..engine.protocol import EngineResult, EngineUnavailable
 
 logger = logging.getLogger(__name__)
 
-#: the engine's fault points whose features wait for a later slice, with
-#: the ROADMAP row that serves each: a drill on them could never fire.
-UNSERVED_FAULT_POINTS = {
-    "swap": "weight swap and rollout (ROADMAP.md A7 row 7)",
-    "checkpoint": "weight swap and rollout (ROADMAP.md A7 row 7)",
-}
-
 #: the points only the continuous-batching engine checks
 BATCHER_POINTS = ("admit", "chunk", "decode", "scheduler", "tenant",
-                  "draft", "offload", "onload")
+                  "draft", "swap", "checkpoint", "offload", "onload")
 
 #: the points of the two-tier host KV: its demote and onload paths
 HOST_TIER_POINTS = ("offload", "onload")
-
-#: the port serves one engine: replica 0 of a fleet of one
-FLEET_SIZE = 1
 
 
 class DegradedEngine:
@@ -79,13 +78,6 @@ def parse_fault_points(cfg):
     injector = FaultInjector.from_spec(cfg.fault_points)
     if injector is None:
         return None
-    unserved = [p for p in UNSERVED_FAULT_POINTS if injector.has_any(p)]
-    if unserved:
-        raise ValueError(
-            "FAULT_POINTS " + ", ".join(
-                f"{p!r} needs {UNSERVED_FAULT_POINTS[p]}" for p in unserved)
-            + ", which the PyTorch port does not serve yet; the drill "
-            "would be inert")
     needs_batcher = [p for p in BATCHER_POINTS if injector.has_any(p)]
     if needs_batcher and not cfg.batched_engine:
         raise ValueError(
@@ -104,10 +96,10 @@ def parse_fault_points(cfg):
             "(ROADMAP.md A7 row 5), which runs only with HOST_KV_BLOCKS>0; "
             "the drill would be inert")
     scoped = injector.scoped_replicas()
-    if scoped and max(scoped) >= FLEET_SIZE:
+    if scoped and max(scoped) >= cfg.fleet_size:
         raise ValueError(
             f"FAULT_POINTS names replica(s) {sorted(scoped)} but "
-            f"FLEET_SIZE={FLEET_SIZE}; the drill would be inert")
+            f"FLEET_SIZE={cfg.fleet_size}; the drill would be inert")
     if injector.has_any("generate") and not injector.has("generate"):
         raise ValueError(
             "FAULT_POINTS: 'generate' faults cannot be replica-scoped "
@@ -133,16 +125,47 @@ def _build_inner(cfg, faults):
     return TorchEngine.from_config(cfg)
 
 
+def _build_fleet(cfg, injector):
+    """``FLEET_SIZE`` > 1: the replicas behind the ``EngineFleet``
+    facade. Each replica gets a replica-scoped view of the one shared
+    injector, so an ``r0:scheduler:die`` drill hits exactly the replica
+    it names while the counters stay on one ledger."""
+    from ..engine.fleet import EngineFleet
+
+    replicas = [_build_inner(cfg, injector.for_replica(i)
+                             if injector is not None else None)
+                for i in range(cfg.fleet_size)]
+    return EngineFleet(
+        replicas,
+        hedge_ms=cfg.fleet_hedge_ms,
+        affinity=cfg.fleet_affinity,
+        migration_budget=cfg.fleet_migration_budget,
+        rejoin_secs=cfg.fleet_rejoin_secs,
+        drain_secs=cfg.drain_timeout_secs,
+        breaker_threshold=cfg.breaker_threshold,
+        breaker_window_secs=cfg.breaker_window_secs,
+        breaker_recovery_secs=cfg.breaker_recovery_secs,
+    )
+
+
 def build_engine(cfg):
     injector = parse_fault_points(cfg)
+    if cfg.fleet_size > 1 and cfg.engine == "openai":
+        # Outside the degraded-start net, as in the JAX factory: N
+        # clients of one remote endpoint are not a fleet.
+        raise ValueError("FLEET_SIZE > 1 requires a local engine "
+                         "(ENGINE=torch | torch-batched)")
     try:
-        # The single engine is replica 0: an "r0:" drill gets the
-        # replica-0 view, an unscoped one the injector itself (the one
-        # object the generate wrapper shares).
-        faults = injector
-        if injector is not None and injector.scoped_replicas():
-            faults = injector.for_replica(0)
-        engine = _build_inner(cfg, faults)
+        if cfg.fleet_size > 1:
+            engine = _build_fleet(cfg, injector)
+        else:
+            # The single engine is replica 0: an "r0:" drill gets the
+            # replica-0 view, an unscoped one the injector itself (the
+            # one object the generate wrapper shares).
+            faults = injector
+            if injector is not None and injector.scoped_replicas():
+                faults = injector.for_replica(0)
+            engine = _build_inner(cfg, faults)
         if injector is not None and injector.has("generate"):
             from ..testing.faults import ChaosEngine
 

@@ -31,9 +31,14 @@ port's features feed, under the same names, labels and help.
   (``spec_drafted_tokens_total``, ``spec_accepted_tokens_total``,
   ``spec_acceptance_ratio``).
 - Incidents: captured and cooldown-suppressed bundles by trigger.
+- The fleet (``fleet_replicas{state}``, per-replica occupancy,
+  in-flight and breaker gauges, the migration, migrated-token, hedge,
+  drain, eject and rejoin totals) and the weight rollout
+  (``rollout_state``, ``rollout_replicas{version}``,
+  ``rollout_rollbacks_total{cause}``).
 
-The JAX package's families of features the port does not serve yet
-(fleet, sharding and rollout) wait for a later slice. Every label set is closed
+The JAX package's sharding and mesh families wait for the multi-GPU
+slice (ROADMAP.md A8). Every label set is closed
 (lanes, ledger classes, phases, triggers) or bounded by config
 (buckets, SLO windows). A ``CollectorRegistry`` per app keeps tests
 isolated.
@@ -520,6 +525,97 @@ class Metrics:
         )
         self._spec_seen = {"drafted": 0, "accepted": 0}
 
+        # The engine fleet (engine/fleet.py, FLEET_SIZE > 1): replica
+        # counts by lifecycle state, per-replica occupancy, in-flight and
+        # breaker gauges (the ``replica`` label is the index, bounded by
+        # FLEET_SIZE), and the migration, hedge, drain, eject and rejoin
+        # totals, delta-mirrored from stats()["fleet"] (observe_fleet).
+        self.fleet_replicas = Gauge(
+            "fleet_replicas",
+            "Fleet replicas by lifecycle state",
+            ["state"],  # active | draining | ejected
+            registry=r,
+        )
+        self.fleet_replica_occupancy = Gauge(
+            "fleet_replica_occupancy",
+            "Active decode slots per fleet replica",
+            ["replica"],
+            registry=r,
+        )
+        self.fleet_replica_inflight = Gauge(
+            "fleet_replica_inflight",
+            "Fleet requests currently dispatched to each replica",
+            ["replica"],
+            registry=r,
+        )
+        self.fleet_replica_breaker = Gauge(
+            "fleet_replica_breaker_state",
+            "Per-replica circuit breaker (0=closed, 1=half-open, 2=open)",
+            ["replica"],
+            registry=r,
+        )
+        self.fleet_migrations = Counter(
+            "fleet_migrations_total",
+            "Requests migrated across replicas (crash failover + drains)",
+            registry=r,
+        )
+        self.fleet_migrated_tokens = Counter(
+            "fleet_migrated_tokens_total",
+            "Generated tokens carried across replica migrations",
+            registry=r,
+        )
+        self.fleet_hedges = Counter(
+            "fleet_hedges_total",
+            "Hedged re-dispatches fired past FLEET_HEDGE_MS",
+            registry=r,
+        )
+        self.fleet_drains = Counter(
+            "fleet_drains_total",
+            "Voluntary replica drains started",
+            registry=r,
+        )
+        self.fleet_ejects = Counter(
+            "fleet_ejects_total",
+            "Replicas ejected from rotation (evictions)",
+            registry=r,
+        )
+        self.fleet_rejoins = Counter(
+            "fleet_rejoins_total",
+            "Replicas restarted and returned to rotation",
+            registry=r,
+        )
+        self._fleet_seen = {"migrations": 0, "migrated_tokens": 0,
+                            "hedges": 0, "drains": 0, "ejects": 0,
+                            "rejoins": 0}
+
+        # The weight rollout (engine/rollout.py): the state machine's
+        # position (its index in the closed ROLLOUT_STATES), replicas by
+        # the version they serve (stale version labels zeroed; at most
+        # FLEET_SIZE + 1 live at once), and rollbacks by cause (the closed
+        # ROLLBACK_CAUSES), mirrored from the controller's health view
+        # (observe_rollout).
+        self.rollout_state = Gauge(
+            "rollout_state",
+            "Weight-rollout state machine position (0=idle, 1=draining, "
+            "2=swapping, 3=warming, 4=observing, 5=promoting, "
+            "6=rolling_back, 7=rolled_back, 8=complete, 9=failed)",
+            registry=r,
+        )
+        self.rollout_replicas = Gauge(
+            "rollout_replicas",
+            "Fleet replicas by the checkpoint version they serve",
+            ["version"],
+            registry=r,
+        )
+        self.rollout_rollbacks = Counter(
+            "rollout_rollbacks_total",
+            "Automatic weight-rollout rollbacks",
+            ["cause"],
+            registry=r,
+        )
+        self._rollout_seen: dict = {}
+        self._rollout_versions_seen: set = set()
+
         # Request-lifecycle phases (obs/trace.py): the ``phase`` label is
         # drawn from the fixed obs.PHASES allowlist.
         self.request_phase = Histogram(
@@ -565,6 +661,63 @@ class Metrics:
         if drafted:
             self.spec_acceptance_ratio.set(
                 spec.get("accepted_tokens_total", 0) / drafted)
+
+    #: breaker-state encoding of the per-replica gauge
+    _BREAKER_CODES = {"closed": 0, "half-open": 1, "open": 2}
+
+    def observe_fleet(self, fleet: dict) -> None:
+        """Mirror the fleet rollup (``stats()["fleet"]``): gauges set,
+        the cumulative fleet totals delta-inc'd."""
+        for state in ("active", "draining", "ejected"):
+            self.fleet_replicas.labels(state=state).set(
+                fleet.get(state, 0))
+        for rep in fleet.get("replicas", ()):
+            label = str(rep.get("replica", "?"))
+            self.fleet_replica_occupancy.labels(replica=label).set(
+                rep.get("occupancy", 0))
+            self.fleet_replica_inflight.labels(replica=label).set(
+                rep.get("inflight", 0))
+            self.fleet_replica_breaker.labels(replica=label).set(
+                self._BREAKER_CODES.get(rep.get("breaker"), 0))
+        seen = self._fleet_seen
+        for key, counter in (("migrations", self.fleet_migrations),
+                             ("migrated_tokens", self.fleet_migrated_tokens),
+                             ("hedges", self.fleet_hedges),
+                             ("drains", self.fleet_drains),
+                             ("ejects", self.fleet_ejects),
+                             ("rejoins", self.fleet_rejoins)):
+            total = fleet.get(key, 0)
+            if total > seen[key]:
+                counter.inc(total - seen[key])
+                seen[key] = total
+
+    def observe_rollout(self, rollout: dict) -> None:
+        """Mirror the rollout controller's health view: the state gauge
+        by index, replicas per version (a version no replica serves any
+        more reads 0), rollbacks by cause delta-inc'd."""
+        from ..engine.rollout import ROLLOUT_STATES
+
+        try:
+            code = ROLLOUT_STATES.index(rollout.get("state", "idle"))
+        except ValueError:   # pragma: no cover - a future state
+            code = 0
+        self.rollout_state.set(code)
+        versions: dict = {}
+        for v in (rollout.get("replica_versions") or {}).values():
+            if v:
+                versions[v] = versions.get(v, 0) + 1
+        for v, n in versions.items():
+            self.rollout_replicas.labels(version=v).set(n)
+            self._rollout_versions_seen.add(v)
+        for v in self._rollout_versions_seen - set(versions):
+            self.rollout_replicas.labels(version=v).set(0)
+        for cause, total in (rollout.get("rollbacks_total")
+                             or {}).items():
+            prev = self._rollout_seen.get(cause, 0)
+            if total > prev:
+                self.rollout_rollbacks.labels(cause=cause).inc(
+                    total - prev)
+                self._rollout_seen[cause] = total
 
     def observe_containment(self, stats: dict) -> None:
         """Mirror the supervisor's containment totals

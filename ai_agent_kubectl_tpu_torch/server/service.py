@@ -4,7 +4,10 @@ The counterpart of the JAX package's ``server/app.py::Service``: it
 bundles the app's long-lived components — the engine, the kubectl
 executor, the metrics, the TTL response cache with single flight, the
 rate limiter, the circuit breaker, the optional rule-based fallback,
-the flight recorder and the incident manager — and runs the ``POST
+the flight recorder, the incident manager and the weight-rollout
+controller (``engine/rollout.py``, built against the unwrapped engine:
+a fleet whose replicas all swap, or one swap-capable engine) — and runs
+the ``POST
 /kubectl-command`` pipeline (``generate_command``): cache, then engine
 (under the breaker), then the safety parser; engine failures degrade to
 the rule table when ``DEGRADED_FALLBACK`` is set. Under
@@ -119,6 +122,25 @@ class Service:
         hook = getattr(engine, "set_reset_listener", None)
         if callable(hook):
             hook(self._on_engine_reset)
+        # Zero-downtime weight rollout: drain, swap, warm-up, rejoin,
+        # observe, then promote or roll back, over the fleet (or one
+        # swap-capable engine: the in-place swap). Built against the
+        # unwrapped engine, since a generate-fault ChaosEngine sits
+        # above the fleet and lifecycle calls must reach the replicas;
+        # absent (404 at /admin/rollout) unless every replica can swap.
+        self.rollout = None
+        if all(callable(getattr(eng, "swap_weights", None))
+               for _, eng in self._replica_engines()):
+            from ..engine.rollout import RolloutController
+
+            self.rollout = RolloutController(
+                getattr(engine, "inner", engine),
+                canary_share=cfg.rollout_canary_share,
+                observe_secs=cfg.rollout_observe_secs,
+                burn_gate=cfg.rollout_burn_gate,
+                steptime_gate=cfg.rollout_steptime_gate,
+                drain_secs=cfg.drain_timeout_secs,
+            )
 
     def _on_engine_reset(self, cause: str) -> None:
         loop = self._loop
@@ -127,13 +149,24 @@ class Service:
         else:  # pragma: no cover - a reset before any traffic
             self.breaker.record_failure()
 
+    def _replica_engines(self) -> list:
+        """(replica key, engine) of every engine behind the wrapper: each
+        replica of a fleet, else the one engine as replica "0"."""
+        target = getattr(self.engine, "inner", self.engine)
+        if hasattr(target, "replicas"):
+            return [(str(rep.idx), rep.engine) for rep in target.replicas]
+        return [("0", target)]
+
     def _quarantine_total(self) -> Optional[int]:
-        """Terminal quarantines so far, off the engine's supervisor (an
-        attribute read, never stats()); None without a supervisor."""
-        sup = getattr(self.engine, "supervisor", None)
-        if sup is None:
+        """Terminal quarantines so far across every replica's supervisor
+        (attribute reads, never stats()); None without a supervisor."""
+        sups = [getattr(eng, "supervisor", None)
+                for _, eng in self._replica_engines()]
+        sups = [sup for sup in sups if sup is not None]
+        if not sups:
             return None
-        return sum(getattr(sup, "quarantined", {}).values())
+        return sum(sum(getattr(sup, "quarantined", {}).values())
+                   for sup in sups)
 
     # ------------------------------------------------------- incidents
 
@@ -149,25 +182,28 @@ class Service:
             return None
 
     def _chunk_rings(self, limit: int = 64) -> dict:
-        """The tail of the scheduler's chunk-event ring (the
+        """The tails of the schedulers' chunk-event rings (the
         /debug/chunks evidence, frozen into a bundle), keyed by replica
-        as in the JAX package (one replica, "0"). The copy retries on a
-        concurrent-mutation RuntimeError."""
-        log = getattr(self.engine, "_chunk_log", None)
-        if log is None:
-            return {}
-        events: list = []
-        for _ in range(5):
-            try:
-                events = list(log)
-                break
-            except RuntimeError:
+        as in the JAX package. Each copy retries on a concurrent-mutation
+        RuntimeError."""
+        out = {}
+        for key, eng in self._replica_engines():
+            log = getattr(eng, "_chunk_log", None)
+            if log is None:
                 continue
-        return {"0": events[-limit:]}
+            events: list = []
+            for _ in range(5):
+                try:
+                    events = list(log)
+                    break
+                except RuntimeError:
+                    continue
+            out[key] = events[-limit:]
+        return out
 
     def _incident_bundle(self) -> dict:
         """One bounded evidence bundle, under the JAX bundle's keys: the
-        flight recorder, the chunk ring, every cheap health section (None
+        flight recorder, the chunk rings, every cheap health section (None
         for a feature the port does not serve), the config fingerprint
         and the weights version."""
         return {
@@ -187,7 +223,8 @@ class Service:
             "spec": self._engine_view("spec_health"),
             "fleet": self._engine_view("fleet_health"),
             "steptime": self._engine_view("steptime_health"),
-            "rollout": None,
+            "rollout": (self.rollout.health()
+                        if self.rollout is not None else None),
         }
 
     def check_incidents(self) -> list:

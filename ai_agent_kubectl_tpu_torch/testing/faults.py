@@ -29,9 +29,12 @@ fault points that the engine layer checks at its seams:
   (one-shot, checked at chunk dispatch: ``BatchedTorchEngine.
   _dispatch_chunk`` flips to plain chunks, transcripts unchanged)
 - ``swap`` — ``swap:fail`` kills the next weight swap mid-swap
-  (one-shot)
+  (one-shot, checked in ``TorchEngine.swap_weights`` once the new tree
+  loaded: the replica keeps no weights, stays ejected with cause
+  ``swap_failed``, and the rollout rolls the fleet back)
 - ``checkpoint`` — ``checkpoint:corrupt`` fails the next checkpoint
-  load's integrity validation (one-shot)
+  load's integrity validation (one-shot; the swap is atomic, so the
+  prior weights stay armed and the rollout rolls back onto them)
 - ``offload`` — ``offload:fail`` kills the next KV-block demotion to the
   host tier (one-shot)
 - ``onload`` — ``onload:corrupt`` corrupts the next host-tier page
@@ -39,12 +42,12 @@ fault points that the engine layer checks at its seams:
 - ``generate`` — the whole engine call (applied by ``ChaosEngine``, the
   protocol wrapper the factory installs when FAULT_POINTS names it)
 
-The port has no weight swap or checkpoint rollout yet:
-``server/factory.py`` refuses a spec naming ``swap`` or ``checkpoint``
-at boot rather than run a drill that can never fire, ``draft`` unless
-``SPEC_DECODE=true``, and ``offload`` or ``onload`` unless
-``HOST_KV_BLOCKS`` > 0. The points stay known here so a spec parses the
-same in both packages.
+A ``r<idx>:`` prefix scopes a point to one fleet replica
+(``r1:scheduler:die``); each replica's engine holds a ``ReplicaFaults``
+view of the one injector. ``server/factory.py`` refuses at boot a drill
+that can never fire: a scope at or beyond ``FLEET_SIZE``, ``draft``
+unless ``SPEC_DECODE=true``, and ``offload`` or ``onload`` unless
+``HOST_KV_BLOCKS`` > 0.
 
 Modes (the third ``:``-field is mode-specific):
 

@@ -22,9 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  1023) and the mixed prologue at W=64 (two admissions,
                  six decode rows); at Mixtral's grouping (32 query
                  heads over 8 KV heads of 128): decode, the prologue and
-                 prefill spans of 512; and serve_spec's verify windows
-                 at Gemma-7B's MHA (16 over 16 heads of 256): q_len 3
-                 and 5 at mixed positions, 8 slots;
+                 prefill spans of 512; serve_spec's verify windows at
+                 Gemma-7B's MHA (16 over 16 heads of 256): q_len 3 and 5
+                 at mixed positions, 8 slots; and one table row's eager
+                 prefill windows at Gemma-2B's (W 64, 128 and 256: the
+                 system prompt's preload, a replay after a radix match);
                * flash attention at Gemma-7B's shapes (H=KV=16, head_dim
                  256; S 64 and 512 over a 1024-slot cache, from position
                  0 and from 85, a padded tail running past the cache,
@@ -174,7 +176,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                tok/s, decode ms a step, TTFT, launches; with --profile
                the MoE MLP's share of a step.
 9. serve_kvq -- the int8 KV cache on Llama-3-8B (MODEL_NAME=
-               llama-3-8b-instruct, 32 layers, dim 4096, 32 query heads
+               llama-3-8b-instruct, 16 of its 32 layers (KVQ_LAYERS; the
+               engines take the cut config), dim 4096, 32 query heads
                over 8 KV heads of 128, MLP 14,336, vocab 128,256) at full
                width: QUANT=int4 (the untied head 512/256, the embedding
                per-row int8) drawn once on the card from seed 0,
@@ -376,7 +379,61 @@ Phases, in order; any failure raises and the script exits non-zero:
                onloaded block beside a 256 MiB pinned copy's GB/s, and
                the TTFT of a turn 2 from host pages against the cold
                re-prefill, each alone.
-15. timing  -- time each kernel, its plain version, one PyTorch library
+15. serve_fleet -- the engine fleet and the zero-downtime weight
+               rollout: FLEET_SIZE=2 Gemma-2B replicas (the serve
+               phase's random bf16 weights from seed 0, 8 slots each,
+               the pool and ragged regime) on one card, served over HTTP
+               from the environment-style config. (a) 16 concurrent
+               queries, then serve's two repeats. Gates: both replicas'
+               forward steps grow; statuses as the service decides; each
+               transcript replica 0's alone on the same 16 prompts (two
+               waves of 8), or apart first at a near tie; /health's fleet section and
+               the fleet_* families as the routing went. (b) Eight
+               requests of 128 tokens (greedy, and seeded at 0.9) seated
+               on replica 0, its scheduler held once each holds 32
+               tokens, then drain(0). Gates: all eight finish on replica
+               1; each transcript its undisturbed run's (replica 1
+               alone) or apart first at a near tie;
+               fleet_migrations_total 8 and fleet_migrated_tokens_total
+               the sum of the exported prefixes; the ledger balanced;
+               rejoin(0), and a fresh request routes to it. (c) With
+               ROLLOUT_OBSERVE_SECS=3, ROLLOUT_CANARY_SHARE=0.5 and a
+               trickle of requests throughout, three rollouts over
+               POST /admin/rollout: onto the seed-1 sentinel with
+               r0:checkpoint:corrupt armed at boot (rolled_back,
+               checkpoint_corrupt, both replicas and a probe's
+               transcript on v1), the same rollout clean (complete, both
+               on v2, X-Model-Version and the rollout_* families moved,
+               the probe, a radix hit on the preloaded system prompt,
+               equal to a fresh engine's on v2's weights, and every
+               replica's preloaded system-prompt KV bytes a fresh v2
+               engine's, none of v1's), and back onto the seed-0
+               sentinel (the probe v1's byte for byte, the preloaded KV
+               v1's bit for bit); no trickle request dropped. The SLO
+               targets are 60 s in this phase (SLO_TTFT_MS,
+               SLO_INTERACTIVE_MS): the drills test the rollout's
+               mechanics, not the burn gate's verdict; and
+               DRAIN_TIMEOUT_SECS=60, so that a stream left to finish
+               in place by a promotion's drain can (a step takes ~100 ms
+               while both replicas decode). Launch counts are zeroed as
+               each window of the fleet's own traffic opens ((a)'s burst
+               and repeats, (b)'s migration and rejoin, (c)'s rollouts
+               with the trickle and probes) and read as it closes; each
+               window's ragged launches must reach its replicas' forward
+               steps times the layers. The runs the fleet is held against
+               (replica 0 alone, replica 1 undisturbed, the fresh v2
+               engine) count apart, as reference_launches. Every ragged
+               shape the traffic launched must be one phase 2 holds, and
+               each is held against the plain version on its own last
+               inputs.
+               Printed, no claim: requests per replica, migrations and
+               migrated tokens, ms from drain(0) to the last migrated
+               request's first resumed token, a swap's seconds per
+               replica, peak device memory across each rollout above its
+               start, the probe's TTFT before and after a swap, seconds
+               in each rollout state, the burst's tok/s through the
+               fleet beside one 8-slot engine's.
+16. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
                serve_kvq's int4 projections, serve_moe's ragged decode,
@@ -397,6 +454,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -410,7 +468,8 @@ ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
           "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "serve_chaos",
-          "serve_grammar", "serve_spec", "serve_host", "timing")
+          "serve_grammar", "serve_spec", "serve_host", "serve_fleet",
+          "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -494,7 +553,8 @@ def ragged_case(torch, gen, *, W, positions, q_lens, nan_block=True,
         assert live <= max_pages, (p, ql)
         tables[n, :live] = perm[used:used + live]
         used += live
-    tables[1, 0] = tables[0, 0]          # a shared prefix page
+    if N > 1:
+        tables[1, 0] = tables[0, 0]      # a shared prefix page
     if nan_block:
         owners: dict = {}
         for n, (p, ql) in enumerate(zip(positions, q_lens)):
@@ -572,6 +632,18 @@ def ragged_cases(torch, gen):
         ("g7_prologue128", ragged_case(
             torch, gen, W=128, positions=[0, 0, 45, 21, 300, 0, 700, 896],
             q_lens=[85, 128, 40, 64, 1, 0, 1, 128], **G7)),
+        # One table row's eager prefill windows (_pool_prefill_span): the
+        # system prompt's preload at each start, and a replay after a
+        # radix match (a migrated request re-spliced on its new
+        # replica, serve_fleet); the keys split at every width here.
+        ("prefill1_64", ragged_case(torch, gen, W=64, positions=[0],
+                                    q_lens=[59])),
+        ("prefill1_64_tail", ragged_case(torch, gen, W=64, positions=[160],
+                                         q_lens=[9])),
+        ("prefill1_128", ragged_case(torch, gen, W=128, positions=[48],
+                                     q_lens=[100])),
+        ("prefill1_256", ragged_case(torch, gen, W=256, positions=[64],
+                                     q_lens=[200])),
     ]
 
 
@@ -581,7 +653,8 @@ PROLOGUE64 = dict(W=64, positions=[21, 45, 100, 150, 200, 260, 512, 1000],
 # Ragged cases whose key split phase 2 checks (their shapes must split).
 RAGGED_SPLIT_CASES = ("decode", "verify5", "prefill64", "decode_split",
                       "prologue64", "mixtral_decode", "g7_verify3",
-                      "g7_verify5", "g7_prologue64")
+                      "g7_verify5", "g7_prologue64", "prefill1_64",
+                      "prefill1_64_tail", "prefill1_128", "prefill1_256")
 
 
 def ragged_live_work(case) -> tuple:
@@ -3015,6 +3088,15 @@ MOE_CHECK_LAYER, MOE_CHECK_TOKENS = 15, 64
 MOE_HEADROOM_BYTES = 4_000_000_000
 
 
+def cut_config(name: str, n_layers: int):
+    """The registry's config of ``name`` at ``n_layers`` layers."""
+    import dataclasses
+
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    return dataclasses.replace(get_config(name), n_layers=n_layers)
+
+
 def quantized_tree_bytes(cfg) -> int:
     """Bytes of ``random_params_int8(cfg, int4=True, quantize_embed=True)``
     in bf16, from the shapes alone: packed int4 where ``pick_format``
@@ -3500,6 +3582,10 @@ def _check_moe_mix(torch, cfg, params, x) -> dict:
 # served over HTTP. Every other knob keeps its default: 16-token pages
 # and chunks, 128 new tokens, greedy, the prefix and radix caches on.
 KVQ_MODEL = "llama-3-8b-instruct"
+#: serve_kvq runs Llama-3-8B at half its published depth (16 of 32
+#: layers, every width unchanged), so that the whole script, with
+#: serve_fleet, stays near its ~780 s budget on a slow host
+KVQ_LAYERS = 16
 SERVE_KVQ_ENV = {
     "ENGINE": "torch", "TORCH_DEVICE": "cuda",
     "MODEL_NAME": KVQ_MODEL, "DTYPE": "bfloat16", "QUANT": "int4",
@@ -3585,11 +3671,10 @@ def phase_serve_kvq(torch, profile: bool = False) -> dict:
     the CPU's and the peak-memory gate. The tree is freed at the end."""
     import gc
 
-    from ai_agent_kubectl_tpu_torch.models.config import get_config
     from ai_agent_kubectl_tpu_torch.ops.quant import random_params_int8
 
     release_served_apps(torch)
-    cfg = get_config(KVQ_MODEL)
+    cfg = cut_config(KVQ_MODEL, KVQ_LAYERS)
     max_seq = int(SERVE_KVQ_ENV["MAX_SEQ_LEN"])
     window = max(int(b) for b in SERVE_KVQ_ENV["PREFILL_BUCKETS"].split(","))
     want_tree = quantized_tree_bytes(cfg)
@@ -3713,6 +3798,7 @@ async def _serve_kvq_one(torch, kind: str, env: dict, params,
                                else TorchEngine):
             raise AssertionError(f"{tag}: engine construction failed: "
                                  f"{inner!r}")
+        inner.model_cfg = cut_config(KVQ_MODEL, KVQ_LAYERS)
         inner.params = params
         engine = RecordingEngine(inner)
         runner = web.AppRunner(create_app(cfg, engine), access_log=None)
@@ -4456,6 +4542,7 @@ def kernel_lines(results: dict) -> list:
     grammar = results.get("serve_grammar", {}).get("launches", {})
     spec = results.get("serve_spec", {}).get("launches", {})
     host = results.get("serve_host", {}).get("launches", {})
+    fleet = results.get("serve_fleet", {}).get("launches", {})
 
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
@@ -4477,7 +4564,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_chaos": chaos_launches(name),
                                "serve_grammar": grammar.get(name),
                                "serve_spec": spec.get(name),
-                               "serve_host": host.get(name)},
+                               "serve_host": host.get(name),
+                               "serve_fleet": fleet.get(name)},
             "shapes": shapes,
         }
 
@@ -6794,6 +6882,759 @@ def _pinned_copy(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serve_fleet
+
+#: two Gemma-2B replicas of the serve phase's configuration behind the
+#: fleet, on one card; the first rollout drill's fault armed at boot
+#: (one-shot, replica 0: its next checkpoint load fails validation)
+FLEET_ENV = dict(SERVE_ENV, FLEET_SIZE="2", LLM_TIMEOUT="300",
+                 ROLLOUT_OBSERVE_SECS="3", ROLLOUT_CANARY_SHARE="0.5",
+                 FAULT_POINTS="r0:checkpoint:corrupt",
+                 # The promotion gate compares the canary's fast-window
+                 # SLO burn (300 s, its history before the rollout
+                 # included) with the stable replica's; at a few dozen
+                 # samples a replica, one slow request of (a) or (b)
+                 # would roll a healthy checkpoint back. The drills here
+                 # are the rollout's mechanics; the gate's verdicts are
+                 # tested on the CPU (tests/test_torch_rollout.py).
+                 SLO_TTFT_MS="60000", SLO_INTERACTIVE_MS="60000",
+                 # A promotion drains the stable replica while the canary
+                 # serves: an established stream there finishes in place
+                 # within DRAIN_TIMEOUT_SECS or is cut (it may not cross
+                 # versions). With both replicas decoding, the two
+                 # scheduler threads share one interpreter lock and a
+                 # decode step takes ~100 ms, not ~30: a 128-token
+                 # request needs ~13 s, past the 10 s default.
+                 DRAIN_TIMEOUT_SECS="60")
+#: (a): sixteen concurrent queries (two replicas of eight slots), then
+#: the serve phase's two repeats
+FLEET_QUERIES = QUERIES + [f"{q} right now" for q in QUERIES]
+#: (b): eight requests seated on replica 0, four greedy and four seeded
+#: at 0.9, each held until it has this many tokens before drain(0)
+FLEET_MIGRATE = [(QUERIES[i], 0.0 if i % 2 == 0 else 0.9, 500 + i)
+                 for i in range(N_SLOTS)]
+FLEET_MIGRATE_TOKENS = 128
+FLEET_MIGRATE_AT = 32
+#: (c): the rollout drills' checkpoints (dev sentinels: v1 is the
+#: served weights, v2 a random init from seed 1) and the probe
+FLEET_V1 = "dev:gemma-2b-it:seed=0:quant="
+FLEET_V2 = "dev:gemma-2b-it:seed=1:quant="
+FLEET_PROBE = "show the rollout history of deployment web"
+FLEET_PROBE_TOKENS = 64
+FLEET_FAMILIES = ("fleet_replicas", "fleet_replica_occupancy",
+                  "fleet_replica_inflight", "fleet_replica_breaker_state",
+                  "fleet_migrations_total", "fleet_migrated_tokens_total",
+                  "fleet_hedges_total", "fleet_drains_total",
+                  "fleet_ejects_total", "fleet_rejoins_total")
+ROLLOUT_FAMILIES = ("rollout_state", "rollout_replicas",
+                    "rollout_rollbacks_total")
+
+
+def phase_serve_fleet(torch, serve_info: dict) -> dict:
+    """Phase 15: the engine fleet and the weight rollout, two Gemma-2B
+    replicas on one card over HTTP."""
+    release_served_apps(torch)
+    out = asyncio.run(_serve_fleet(torch))
+    release_served_apps(torch)
+    if serve_info.get("burst_tok_per_s"):
+        log(f"[serve_fleet] burst tok/s: serve {serve_info['burst_tok_per_s']:.1f}"
+            f" (8 requests, one engine, an earlier phase; no claim)")
+    return out
+
+
+class _LaunchWindows:
+    """The launch counters read in windows, so that the fleet's launches
+    come from the fleet's own traffic alone. ``window(kind, segment)``
+    zeroes every counter as it opens and, as it closes, adds what each
+    read to ``books[kind]``: ``fleet`` for the fleet's traffic,
+    ``reference`` for the runs its transcripts are held against (the
+    near-tie forwards run outside every window). A fleet window also
+    keeps the replicas' forward steps inside it, and ``gate`` holds each
+    fleet window's ragged launches against them: every forward step
+    launches the kernel once per layer."""
+
+    def __init__(self, engines):
+        self.counters = _launch_counters()
+        self.engines = engines
+        self.books = {k: dict.fromkeys(self.counters, 0)
+                      for k in ("fleet", "reference")}
+        self.segments: dict = {}
+
+    @contextlib.contextmanager
+    def window(self, kind: str, segment: str | None = None):
+        for fn in self.counters.values():
+            fn.launches = 0
+        steps0 = [e.forward_steps for e in self.engines]
+        yield
+        read = {n: fn.launches for n, fn in self.counters.items()}
+        for n, v in read.items():
+            self.books[kind][n] += v
+        if kind == "fleet":
+            seg = self.segments.setdefault(
+                segment, {"ragged": 0, "forward_steps": [0] * len(steps0)})
+            seg["ragged"] += read["ragged_attention_pool"]
+            seg["forward_steps"] = [
+                n + e.forward_steps - s0 for n, e, s0 in
+                zip(seg["forward_steps"], self.engines, steps0)]
+
+    def gate(self, tag: str, n_layers: int) -> None:
+        for name, seg in self.segments.items():
+            steps = sum(seg["forward_steps"])
+            if steps <= 0 or seg["ragged"] < n_layers * steps:
+                raise AssertionError(f"{tag} ({name}): {seg['ragged']} "
+                                     f"ragged launches for "
+                                     f"{seg['forward_steps']} forward steps "
+                                     f"of {n_layers} layers")
+
+
+class _RaggedTap:
+    """The ragged kernel wrapped where the model calls it (both replicas
+    call the one module-level name): the latest call at each shape keeps
+    a copy of its inputs on the card, taken before the launch, so that
+    ``check`` holds the kernel against its plain version at every shape
+    the traffic ran, on the traffic's own inputs. The wrapped call is the
+    kernel's own launch; ``check``'s launches come after the phase reads
+    its counts."""
+
+    def __init__(self, torch):
+        from ai_agent_kubectl_tpu_torch.models import transformer
+
+        self.torch, self.module = torch, transformer
+        self.real = transformer.ragged_attention_pool
+        self.inputs: dict = {}
+        self.calls: dict = {}
+
+        def call(q, k, v, q_lens, positions, tables, **kw):
+            key = self.key(q, k, tables, kw["page_size"])
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.inputs[key] = ([a.clone() for a in (q, k, v, q_lens,
+                                                     positions, tables)],
+                                dict(kw))
+            return self.real(q, k, v, q_lens, positions, tables, **kw)
+
+        transformer.ragged_attention_pool = call
+
+    @staticmethod
+    def key(q, k, tables, page) -> tuple:
+        N, W, H, hd = q.shape
+        return (N, W, H, k.shape[2], hd, page, tables.shape[1])
+
+    def restore(self) -> None:
+        self.module.ragged_attention_pool = self.real
+
+    def check(self, tag: str) -> list:
+        """Each shape must be one that phase 2 holds (ragged_cases), then
+        kernel against plain on its captured inputs."""
+        from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+            ragged_attention_pool_plain)
+
+        torch = self.torch
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        held = {self.key(c["q"], c["k"], c["block_tables"], c["k"].shape[1])
+                for _, c in ragged_cases(torch, gen)}
+        torch.cuda.empty_cache()
+        out = []
+        for key, (args, kw) in sorted(self.inputs.items()):
+            if key not in held:
+                raise AssertionError(f"{tag}: ragged attention ran at {key} "
+                                     f"(N, W, H, KV, hd, page, pages), a "
+                                     f"shape phase 2 does not hold")
+            err = check_close(torch, f"{tag} ragged {key}",
+                              self.real(*args, **kw),
+                              ragged_attention_pool_plain(*args, **kw))
+            out.append({"shape": key, "calls": self.calls[key],
+                        "max_abs_err": err})
+            log(f"[{tag}] ragged at (N, W)={key[:2]}, {self.calls[key]} "
+                f"calls, on the traffic's own last inputs: max |kernel - "
+                f"plain| = {err:.3e}")
+        return out
+
+
+async def _serve_fleet(torch) -> dict:
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.fleet import EngineFleet
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+
+    import logging
+
+    tag = "serve_fleet"
+    # The fleet's and the rollout's own timelines (drains, swaps,
+    # rejoins, gate verdicts), stamped, on stderr for this phase.
+    stamped = logging.StreamHandler()
+    stamped.setFormatter(logging.Formatter("%(created).3f %(name)s: "
+                                           "%(message)s"))
+    timelines = [logging.getLogger(f"{PACKAGE}.engine.{m}")
+                 for m in ("fleet", "rollout")]
+    for lg in timelines:
+        lg.addHandler(stamped)
+        lg.setLevel(logging.INFO)
+    port = _free_port()
+    _phase_env(FLEET_ENV, port)
+    cfg = ServiceConfig.from_env()
+    fleet = build_engine(cfg)
+    if not isinstance(fleet, EngineFleet) or len(fleet.replicas) != 2:
+        raise AssertionError(f"{tag}: engine construction failed: {fleet!r}")
+    engines = [rep.engine for rep in fleet.replicas]
+    if not all(isinstance(e, BatchedTorchEngine) for e in engines):
+        raise AssertionError(f"{tag}: replicas {engines}")
+    engine = RecordingEngine(fleet)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                  # starts both replicas
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    svc = runner.app["service"]
+    steady_bytes = torch.cuda.memory_allocated()
+    tree_bytes = _tree_bytes(engines[0].params)
+    if (len({e.weights_version for e in engines}) != 1
+            or engines[0].checkpoint_path != FLEET_V1
+            or any(e._attention_regime != "ragged" for e in engines)):
+        raise AssertionError(f"{tag}: replicas serve "
+                             f"{[(e.weights_version, e.checkpoint_path, e._attention_regime) for e in engines]}")
+    log(f"[{tag}] {cfg.model_name} x2 up in {startup_s:.1f} s on one card "
+        f"({tree_bytes / 1e9:.3f} GB of weights each, "
+        f"{steady_bytes / 1e9:.3f} GB allocated), version "
+        f"{engines[0].weights_version}")
+    url = f"http://{cfg.host}:{port}"
+    win = _LaunchWindows(engines)
+    tap = _RaggedTap(torch)
+    info = {"startup_s": startup_s, "tree_gb": tree_bytes / 1e9,
+            "steady_gb": steady_bytes / 1e9}
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, r.headers.get("X-Model-Version")
+
+            async def get_json(path):
+                async with http.get(f"{url}{path}") as r:
+                    return r.status, await r.json(), dict(r.headers)
+
+            async def scrape(names):
+                async with http.get(f"{url}/metrics") as r:
+                    return _scrape(await r.text(), names)
+
+            info["a"] = await _fleet_routing(torch, tag, fleet, engine, ask,
+                                             get_json, scrape, win)
+            info["b"] = await _fleet_migration(torch, tag, fleet, scrape,
+                                               win)
+            info["c"] = await _fleet_rollout(torch, tag, cfg, fleet, svc,
+                                             ask, get_json, http, url,
+                                             scrape, tree_bytes, win)
+    finally:
+        tap.restore()
+        await runner.cleanup()            # drains and stops both replicas
+        for lg in timelines:
+            lg.removeHandler(stamped)
+    win.gate(tag, engines[0].model_cfg.n_layers)
+    info.update(launches=win.books["fleet"],
+                reference_launches=win.books["reference"],
+                segments=win.segments)
+    info["kernel_check"] = tap.check(tag)
+    log(f"[{tag}] ragged launches by the fleet's traffic "
+        f"{win.books['fleet']['ragged_attention_pool']} "
+        f"({', '.join(f'{k}: {v}' for k, v in win.segments.items())}); by "
+        f"the reference runs {win.books['reference']['ragged_attention_pool']}"
+        f"; {gpu_line()}")
+    return info
+
+
+async def _fleet_routing(torch, tag, fleet, engine, ask, get_json,
+                         scrape, win) -> dict:
+    """(a) Sixteen concurrent queries over HTTP, then two repeats: both
+    replicas serve, statuses as the service decides, each transcript
+    that of one engine on the same weights (replica 0's own, the sixteen
+    at once) or apart first at a near tie, /health's fleet section and
+    the fleet_* families as the routing went."""
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    engines = [rep.engine for rep in fleet.replicas]
+    engine.results.clear()
+    steps0 = [e.forward_steps for e in engines]
+    disp0 = [rep.dispatches for rep in fleet.replicas]
+    with win.window("fleet", "a"):
+        t_burst = time.monotonic()
+        burst = await asyncio.gather(*[ask(q) for q in FLEET_QUERIES])
+        burst_s = time.monotonic() - t_burst
+        repeats = [await ask(FLEET_QUERIES[i]) for i in REPEATS]
+    steps = [e.forward_steps - s for e, s in zip(engines, steps0)]
+    routed = [rep.dispatches - d for rep, d in zip(fleet.replicas, disp0)]
+    _, health, _ = await get_json("/health")
+    families = await scrape(FLEET_FAMILIES)
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    asked = FLEET_QUERIES + [FLEET_QUERIES[i] for i in REPEATS]
+    for query, (status, _) in zip(asked, burst + repeats):
+        res = results[render_prompt(query)][0]
+        if status != status_for_text(res.text) or res.completion_tokens <= 0:
+            raise AssertionError(f"{tag} (a): {query!r} HTTP {status} for "
+                                 f"{res.text!r}")
+    if min(steps) <= 0 or sum(routed) != len(asked) or min(routed) <= 0:
+        raise AssertionError(f"{tag} (a): forward steps {steps}, routed "
+                             f"{routed}")
+    fh = health["fleet"]
+    if ([r["dispatches"] for r in fh["replicas"]]
+            != [rep.dispatches for rep in fleet.replicas]
+            or fh["active"] != 2 or fh["migrations"] != 0):
+        raise AssertionError(f"{tag} (a): /health fleet {fh}")
+    want_fam = {'fleet_replicas{state=active}': 2.0,
+                'fleet_replicas{state=draining}': 0.0,
+                'fleet_replicas{state=ejected}': 0.0,
+                'fleet_migrations_total': 0.0, 'fleet_drains_total': 0.0}
+    want_fam.update({f"fleet_replica_breaker_state{{replica={i}}}": 0.0
+                     for i in range(2)})
+    if any(families.get(k) != v for k, v in want_fam.items()):
+        raise AssertionError(f"{tag} (a): /metrics {families}")
+    # The reference: replica 0 alone, the sixteen prompts in two waves of
+    # its eight slots. (A wave queued behind another would put SLO
+    # breaches on this replica's books, and the rollout gate of (c)
+    # judges a canary by its whole fast window.)
+    firsts = [results[render_prompt(q)][0] for q in FLEET_QUERIES]
+    ref = []
+    with win.window("reference"):
+        t_ref = time.monotonic()
+        for w in range(0, len(FLEET_QUERIES), N_SLOTS):
+            ref += await asyncio.gather(*[
+                engines[0].generate(render_prompt(q),
+                                    max_tokens=r.completion_tokens)
+                for q, r in zip(FLEET_QUERIES[w:w + N_SLOTS],
+                                firsts[w:w + N_SLOTS])])
+        ref_s = time.monotonic() - t_ref
+    ties = []
+    for q, got, want in zip(FLEET_QUERIES, firsts, ref):
+        tie = _first_mismatch(torch, engines[0],
+                              engines[0].tokenizer.encode(render_prompt(q)),
+                              want.token_ids, got.token_ids, 0.0, 0)
+        if tie is not None:
+            if tie["gap"] > tie["tolerance"]:
+                raise AssertionError(f"{tag} (a): {q!r} left one engine's "
+                                     f"transcript at {tie}")
+            ties.append(tie)
+    for i in REPEATS:
+        first, again = results[render_prompt(FLEET_QUERIES[i])][:2]
+        if not again.prefix_cache_hit:
+            raise AssertionError(f"{tag} (a): repeat {i} missed the radix")
+    n_tok = sum(r.completion_tokens for r in firsts)
+    ref_tok = sum(r.completion_tokens for r in ref)
+    log(f"[{tag}] (a) statuses {sorted(set(s for s, _ in burst + repeats))}; "
+        f"requests per replica {routed}, forward steps {steps}; {n_tok} "
+        f"tokens in {burst_s:.2f} s ({n_tok / burst_s:.1f} tok/s through "
+        f"the fleet, 16 at once); replica 0 alone, two waves of 8: "
+        f"{ref_tok / ref_s:.1f} tok/s; near ties {len(ties)}")
+    return {"routed": routed, "forward_steps": steps, "burst_s": burst_s,
+            "burst_tokens": n_tok, "fleet_tok_per_s": n_tok / burst_s,
+            "one_engine_tok_per_s": ref_tok / ref_s, "near_ties": ties,
+            "families": families}
+
+
+async def _fleet_migration(torch, tag, fleet, scrape, win) -> dict:
+    """(b) Eight requests seated on replica 0 (replica 1 out of rotation
+    while they are routed), its scheduler held once each has
+    FLEET_MIGRATE_AT tokens, then drain(0): every request finishes on
+    replica 1, each transcript its undisturbed run's (replica 1 alone,
+    before) or apart first at a near tie; the migration counters equal
+    the requests moved and their exported prefixes; the books balance;
+    rejoin(0), and a fresh request routes to it."""
+    import threading
+
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+
+    e0, e1 = (rep.engine for rep in fleet.replicas)
+    prompts = [render_prompt(q) for q, _, _ in FLEET_MIGRATE]
+    with win.window("reference"):
+        want = await asyncio.gather(*[
+            e1.generate(p, max_tokens=FLEET_MIGRATE_TOKENS, temperature=t,
+                        seed=s)
+            for p, (_, t, s) in zip(prompts, FLEET_MIGRATE)])
+    steps0 = [e0.forward_steps, e1.forward_steps]
+    disp1 = fleet.replicas[1].dispatches
+    reached, opened = threading.Event(), threading.Event()
+    real = type(e0)._dispatch_chunk.__get__(e0)
+
+    def held():
+        live = [s for s in e0._slots if s is not None]
+        if (len(live) == len(FLEET_MIGRATE) and not opened.is_set()
+                and min(len(s.detok.ids) for s in live)
+                >= FLEET_MIGRATE_AT):
+            reached.set()
+            opened.wait(120)
+        real()
+
+    e0._dispatch_chunk = held
+    first_after: dict = {}
+    t_drain = [None]
+
+    async def one(i, prompt, temp, seed):
+        result = None
+        async for event, payload in fleet._stream_events(
+                prompt, max_tokens=FLEET_MIGRATE_TOKENS, temperature=temp,
+                seed=seed):
+            if event == "token":
+                if t_drain[0] is not None and i not in first_after:
+                    first_after[i] = time.monotonic()
+            elif event == "done":
+                result = payload
+        return result
+
+    fleet.eject(1, cause="manual")
+    try:
+        with win.window("fleet", "b"):
+            tasks = [asyncio.create_task(one(i, p, t, s))
+                     for i, (p, (_, t, s)) in enumerate(zip(prompts,
+                                                            FLEET_MIGRATE))]
+            deadline = time.monotonic() + 120
+            while not reached.is_set():
+                if (time.monotonic() > deadline
+                        or any(t.done() for t in tasks)):
+                    raise AssertionError(f"{tag} (b): the eight never held"
+                                         f" {FLEET_MIGRATE_AT} tokens each "
+                                         f"on replica 0")
+                await asyncio.sleep(0.005)
+            exported = sorted(len(s.detok.ids) for s in e0._slots
+                              if s is not None)
+            await fleet.rejoin(1)
+            # The scheduler is held: let the relays deliver what replica
+            # 0 emitted before it, so every token after t_drain is
+            # resumed.
+            await asyncio.sleep(0.2)
+            t_drain[0] = time.monotonic()
+            drain = asyncio.create_task(fleet.drain(0))
+            while fleet._migrations < len(FLEET_MIGRATE):
+                if drain.done():
+                    break
+                await asyncio.sleep(0.002)
+            opened.set()
+            got = await asyncio.gather(*tasks)
+            await drain
+    finally:
+        opened.set()
+        del e0._dispatch_chunk
+    steps = [e0.forward_steps - steps0[0], e1.forward_steps - steps0[1]]
+    fh = fleet.fleet_health()
+    moved = fh["migrations"]
+    if (moved != len(FLEET_MIGRATE) or fh["migrated_tokens"] != sum(exported)
+            or fleet.replicas[1].dispatches - disp1 != len(FLEET_MIGRATE)
+            or fleet.replicas[0].eject_cause != "drain"):
+        raise AssertionError(f"{tag} (b): moved {moved}, carried "
+                             f"{fh['migrated_tokens']} of {exported}, "
+                             f"health {fh}")
+    families = await scrape(FLEET_FAMILIES)
+    if (families.get("fleet_migrations_total") != float(moved)
+            or families.get("fleet_migrated_tokens_total")
+            != float(sum(exported))
+            or families.get("fleet_drains_total") != 1.0):
+        raise AssertionError(f"{tag} (b): /metrics {families}")
+    ties = []
+    for p, (_, temp, seed), w, g in zip(prompts, FLEET_MIGRATE, want, got):
+        if g is None:
+            raise AssertionError(f"{tag} (b): {p[-40:]!r} gave no result")
+        tie = _first_mismatch(torch, e1, e1.tokenizer.encode(p),
+                              w.token_ids, g.token_ids, temp, seed)
+        if tie is not None:
+            if tie["gap"] > tie["tolerance"]:
+                raise AssertionError(f"{tag} (b): a migrated transcript "
+                                     f"left its undisturbed run at {tie}")
+            ties.append(tie)
+    books = fleet.ledger_snapshot()["conservation"]
+    if not books["balanced"]:
+        raise AssertionError(f"{tag} (b): ledger {books}")
+    check_pool_books(e1)
+    with win.window("fleet", "b"):
+        await fleet.rejoin(0)
+        disp0 = fleet.replicas[0].dispatches
+        fresh = await fleet.generate(render_prompt("list the daemonsets"),
+                                     max_tokens=8)
+    if (fleet.replicas[0].dispatches != disp0 + 1
+            or fleet.fleet_health()["active"] != 2):
+        raise AssertionError(f"{tag} (b): a fresh request after rejoin(0) "
+                             f"went to {fleet.fleet_health()['replicas']}")
+    resume_ms = (max(first_after.values()) - t_drain[0]) * 1e3 \
+        if len(first_after) == len(FLEET_MIGRATE) else None
+    log(f"[{tag}] (b) drain(0) moved {moved} requests with "
+        f"{sum(exported)} exported tokens ({exported}) to replica 1; "
+        f"{resume_ms:.1f} ms from drain(0) to the last migrated request's "
+        f"first resumed token; near ties {len(ties)}; books balanced; "
+        f"rejoin(0) served {fresh.completion_tokens} tokens")
+    return {"moved": moved, "exported": exported,
+            "migrated_tokens": fh["migrated_tokens"],
+            "resume_ms": resume_ms, "near_ties": ties,
+            "forward_steps": steps, "families": families}
+
+
+def _preload_blocks(engine) -> list:
+    """The KV bytes of the preloaded system prompt's full pages in the
+    engine's radix tree: for each page, every K/V leaf's block, cloned."""
+    from ai_agent_kubectl_tpu_torch.engine.prompts import SYSTEM_PROMPT
+
+    ids = engine.tokenizer.encode(SYSTEM_PROMPT)
+    page = engine.kv_pool_page
+    node, out = engine._radix._root, []
+    for i in range(len(ids) // page):
+        node = node.children[tuple(ids[i * page:(i + 1) * page])]
+        out.append([leaf[:, node.block].clone()
+                    for leaf in engine._kv_leaves()])
+    return out
+
+
+def _same_blocks(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+
+async def _fleet_rollout(torch, tag, cfg, fleet, svc, ask, get_json, http,
+                         url, scrape, tree_bytes, win) -> dict:
+    """(c) Three rollouts over HTTP with a trickle of requests throughout:
+    onto the seed-1 sentinel with checkpoint:corrupt armed on replica 0
+    (rolled back, both replicas and the probe on v1), then clean (both
+    on v2, the probe a fresh v2 engine's), then back onto the seed-0
+    sentinel (the probe v1's, byte for byte)."""
+    import dataclasses
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.models.convert import checkpoint_version
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    ctl = svc.rollout
+    v1, v2 = checkpoint_version(FLEET_V1), checkpoint_version(FLEET_V2)
+    if ctl is None or fleet.weights_version != v1:
+        raise AssertionError(f"{tag} (c): rollout {ctl}, fleet "
+                             f"{fleet.weights_version}")
+    swaps: list = []
+    for rep in fleet.replicas:
+        real = rep.engine.swap_weights
+
+        def timed(path, _real=real, _idx=rep.idx, **kw):
+            t = time.perf_counter()
+            try:
+                return _real(path, **kw)
+            finally:
+                torch.cuda.synchronize()
+                swaps.append({"replica": _idx, "path": path,
+                              "s": time.perf_counter() - t})
+
+        rep.engine.swap_weights = timed
+    # The trickle: a request every 0.25 s, at most four in flight,
+    # paused while a probe runs alone. Each request's span and status are
+    # kept, and the replicas' slots sampled every 0.25 s (printed only
+    # when a request is dropped, beside the rollouts' timelines).
+    statuses, versions, spans = [], set(), []
+    paused, stop = asyncio.Event(), asyncio.Event()
+    inflight: set = set()
+    samples: list = []
+
+    async def one(i):
+        t0 = time.time()
+        status, ver = await ask(f"{QUERIES[i % len(QUERIES)]} (trickle {i})")
+        statuses.append(status)
+        versions.add(ver)
+        spans.append((i, round(t0, 3), round(time.time(), 3), status, ver))
+
+    async def trickle():
+        i = 0
+        while not stop.is_set():
+            if not paused.is_set() and len(inflight) < 4:
+                t = asyncio.create_task(one(i))
+                inflight.add(t)
+                t.add_done_callback(inflight.discard)
+                i += 1
+            samples.append((round(time.time(), 3), [
+                (rep.state, rep.engine.ready, len(rep.flights),
+                 rep.engine._admissions.qsize(),
+                 [(len(s.detok.ids), s.chunks_inflight, s.exhausted)
+                  for s in rep.engine._slots if s is not None])
+                for rep in fleet.replicas]))
+            await asyncio.sleep(0.25)
+
+    async def probe():
+        paused.set()
+        while inflight:
+            await asyncio.sleep(0.01)
+        try:
+            return await fleet.generate(render_prompt(FLEET_PROBE),
+                                        max_tokens=FLEET_PROBE_TOKENS)
+        finally:
+            paused.clear()
+
+    async def rollout(path):
+        """One rollout over HTTP: its status, seconds per state, peak
+        device memory above the steady state."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        async with http.post(f"{url}/admin/rollout",
+                             json={"checkpoint": path}) as r:
+            if r.status != 202:
+                raise AssertionError(f"{tag} (c): POST /admin/rollout "
+                                     f"{r.status} {await r.text()}")
+        t, state, secs = time.monotonic(), ctl.state, {}
+        deadline = t + 300
+        while ctl.active:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag} (c): rollout stuck in "
+                                     f"{ctl.state}")
+            await asyncio.sleep(0.02)
+            now = time.monotonic()
+            if ctl.state != state or not ctl.active:
+                secs[state] = secs.get(state, 0.0) + now - t
+                t, state = now, ctl.state
+        _, status, _ = await get_json("/admin/rollout")
+        peak = torch.cuda.max_memory_allocated()
+        return status, secs, (peak - base) / 1e9
+
+    with win.window("fleet", "c"):
+        task = asyncio.create_task(trickle())
+        drills = {}
+        try:
+            p1 = await probe()
+            if not p1.prefix_cache_hit or p1.weights_version != v1:
+                raise AssertionError(f"{tag} (c): v1 probe {p1}")
+            kv1 = _preload_blocks(fleet.replicas[0].engine)
+            _, h0, hdr0 = await get_json("/health")
+            # Drill 1: the checkpoint load fails validation on replica 0.
+            st, secs, extra = await rollout(FLEET_V2)
+            st1 = st
+            if (st["state"] != "rolled_back"
+                    or st["last_rollback_cause"] != "checkpoint_corrupt"
+                    or set(st["replica_versions"].values()) != {v1}):
+                raise AssertionError(f"{tag} (c) drill 1: {st}")
+            p1b = await probe()
+            if list(p1b.token_ids) != list(p1.token_ids):
+                raise AssertionError(f"{tag} (c) drill 1: the probe changed")
+            drills["corrupt"] = {"state_secs": secs, "extra_gb": extra,
+                                 "rollbacks": st["rollbacks_total"]}
+            # Drill 2: a clean rollout to v2.
+            n_swaps = len(swaps)
+            st, secs, extra = await rollout(FLEET_V2)
+            if (st["state"] != "complete"
+                    or set(st["replica_versions"].values()) != {v2}):
+                raise AssertionError(f"{tag} (c) drill 2: {st}")
+            p2 = await probe()
+            kv2 = [_preload_blocks(rep.engine) for rep in fleet.replicas]
+            _, h2, hdr2 = await get_json("/health")
+            families = await scrape(ROLLOUT_FAMILIES)
+            drills["clean"] = {"state_secs": secs, "extra_gb": extra,
+                               "swap_s": [s["s"] for s in swaps[n_swaps:]],
+                               "events": [e["type"] for e in st["events"]]}
+            # Drill 3: back onto the served weights' sentinel.
+            n_swaps = len(swaps)
+            st3, secs3, extra3 = await rollout(FLEET_V1)
+            if (st3["state"] != "complete"
+                    or set(st3["replica_versions"].values()) != {v1}):
+                raise AssertionError(f"{tag} (c) drill 3: {st3}")
+            p3 = await probe()
+            kv3 = [_preload_blocks(rep.engine) for rep in fleet.replicas]
+            drills["back"] = {"state_secs": secs3, "extra_gb": extra3,
+                              "swap_s": [s["s"] for s in swaps[n_swaps:]]}
+        finally:
+            stop.set()
+            await task
+            while inflight:
+                await asyncio.sleep(0.01)
+            for rep in fleet.replicas:
+                del rep.engine.swap_weights
+    if hdr0.get("X-Model-Version") != v1 or hdr2.get("X-Model-Version") != v2:
+        raise AssertionError(f"{tag} (c): X-Model-Version "
+                             f"{hdr0.get('X-Model-Version')} -> "
+                             f"{hdr2.get('X-Model-Version')}")
+    if (h2["rollout"]["state"] != "complete"
+            or h2["fleet"]["versions"] != {v2: 2}
+            or families.get("rollout_state") != 8.0
+            or families.get("rollout_rollbacks_total{cause=checkpoint_corrupt}")
+            != 1.0
+            or families.get(f"rollout_replicas{{version={v2}}}") != 2.0
+            or families.get(f"rollout_replicas{{version={v1}}}") != 0.0):
+        raise AssertionError(f"{tag} (c): /health {h2['rollout']}, "
+                             f"/metrics {families}")
+    dropped = [s for s in statuses if s not in (200, 422)]
+    if dropped or not statuses:
+        for name, d in (("drill 1", st1), ("drill 2", st), ("drill 3", st3)):
+            log(f"[{tag}] {name} events: "
+                f"{[(e['t'], e['type'], e.get('replica')) for e in d['events']]}")
+        log(f"[{tag}] trickle (i, start, end, status, version): {spans}")
+        for t, reps in samples:
+            log(f"[{tag}] {t} {reps}")
+        raise AssertionError(f"{tag} (c): the trickle got {statuses}")
+    if list(p3.token_ids) != list(p1.token_ids):
+        raise AssertionError(f"{tag} (c) drill 3: the probe is not v1's")
+    # Random Gemmas echo their prompt's last token whatever the seed, so
+    # v1's and v2's probe transcripts may agree: the preloaded system
+    # prompt's KV bytes tell the weights apart. After the v2 rollout
+    # every replica's must be a fresh v2 engine's (none of v1's left);
+    # after the rollback, v1's again, bit for bit.
+    if not all(_same_blocks(torch, kv, kv1) for kv in kv3):
+        raise AssertionError(f"{tag} (c) drill 3: the preloaded system "
+                             f"prompt's KV is not v1's")
+    if any(_same_blocks(torch, kv, kv1) for kv in kv2):
+        raise AssertionError(f"{tag} (c) drill 2: v1's system-prompt KV "
+                             f"survived the swap")
+    # The v2 reference: a fresh engine of the same configuration whose
+    # own start draws the seed-1 init (no fleet, no swap).
+    fresh = BatchedTorchEngine.from_config(dataclasses.replace(
+        cfg, fault_points="", fleet_size=1))
+    fresh.seed = 1
+    with win.window("reference"):
+        await fresh.start()
+        try:
+            if fresh.weights_version != v2:
+                raise AssertionError(f"{tag} (c): fresh engine "
+                                     f"{fresh.weights_version}")
+            want2 = await fresh.generate(render_prompt(FLEET_PROBE),
+                                         max_tokens=FLEET_PROBE_TOKENS)
+            kv_fresh = _preload_blocks(fresh)
+        finally:
+            await fresh.stop()
+            fresh._cache = None
+            del fresh
+    if not (p2.prefix_cache_hit and want2.prefix_cache_hit):
+        raise AssertionError(f"{tag} (c): the v2 probes missed the "
+                             f"preloaded system prompt")
+    if list(p2.token_ids) != list(want2.token_ids):
+        raise AssertionError(f"{tag} (c) drill 2: the probe after the "
+                             f"swap is not a fresh v2 engine's")
+    if not all(_same_blocks(torch, kv, kv_fresh) for kv in kv2):
+        raise AssertionError(f"{tag} (c) drill 2: the preloaded system "
+                             f"prompt's KV is not a fresh v2 engine's")
+    for st_ in (st, st3):
+        kinds = [e["type"] for e in st_["events"]]
+        for k in ("drain", "swap", "warmup", "rejoin", "observe",
+                  "promote", "rollout_complete"):
+            if k not in kinds:
+                raise AssertionError(f"{tag} (c): no {k} in {kinds}")
+    extra_max = max(d["extra_gb"] for d in drills.values())
+    log(f"[{tag}] (c) drill 1 rolled back (checkpoint_corrupt), drill 2 "
+        f"complete on {v2}, drill 3 back on {v1}; the probe v1 -> v1 -> v2 "
+        f"(a fresh v2 engine's, radix hit on the preload; v1's and v2's "
+        f"transcripts {'equal' if p1.token_ids == p2.token_ids else 'apart'}"
+        f") -> v1 byte for byte; the preloaded system prompt's KV v1 -> a "
+        f"fresh v2 engine's -> v1 bit for bit on both replicas; trickle "
+        f"{len(statuses)} requests, statuses "
+        f"{sorted(set(statuses))}, versions {sorted(v for v in versions if v)}")
+    log(f"[{tag}] (c) swap seconds per replica "
+        f"{[round(s['s'], 3) for s in swaps]}; peak above steady "
+        f"{[round(d['extra_gb'], 3) for d in drills.values()]} GB "
+        f"(one tree {tree_bytes / 1e9:.3f} GB); TTFT of the probe before "
+        f"{p1.ttft_ms:.1f} ms, after the swap {p2.ttft_ms:.1f} ms; seconds "
+        f"per state {drills['clean']['state_secs']}")
+    return {"drills": drills, "swaps": swaps,
+            "extra_gb_max": extra_max, "tree_gb": tree_bytes / 1e9,
+            "ttft_ms": {"before": p1.ttft_ms, "after_swap": p2.ttft_ms},
+            "trickle": {"requests": len(statuses),
+                        "statuses": sorted(set(statuses))},
+            "families": families}
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -6832,37 +7673,62 @@ def main() -> int:
 
     results: dict = {}
     t_all = time.monotonic()
+    t_phase = [t_all]
+
+    def took(name: str) -> None:
+        now = time.monotonic()
+        log(f"[time] {name} {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     if "build" in phases:
         results["build"] = phase_build()
+        took("build")
     if "kernel" in phases:
         results["kernel"] = phase_kernel(torch)
+        took("kernel")
     if "serve" in phases:
         results["serve"] = phase_serve(torch, args.profile, args.bursts)
+        took("serve")
     if "serve1" in phases:
         results["serve1"] = phase_serve1(torch, args.profile)
+        took("serve1")
     if "serve_paged" in phases:
         results["serve_paged"] = phase_serve_paged(torch, args.profile)
+        took("serve_paged")
     if "serve_ckpt" in phases:
         results["serve_ckpt"] = phase_serve_ckpt(torch,
                                                  results.get("serve", {}))
+        took("serve_ckpt")
     if "serve_qos" in phases:
         results["serve_qos"] = phase_serve_qos(torch)
+        took("serve_qos")
     if "serve_moe" in phases:
         results["serve_moe"] = phase_serve_moe(torch, args.profile)
+        took("serve_moe")
     if "serve_kvq" in phases:
         results["serve_kvq"] = phase_serve_kvq(torch, args.profile)
+        took("serve_kvq")
     if "serve_obs" in phases:
         results["serve_obs"] = phase_serve_obs(torch,
                                                results.get("serve", {}))
+        took("serve_obs")
     if "serve_chaos" in phases:
         results["serve_chaos"] = phase_serve_chaos(torch)
+        took("serve_chaos")
     if "serve_grammar" in phases:
         results["serve_grammar"] = phase_serve_grammar(
             torch, results.get("serve", {}))
+        took("serve_grammar")
     if "serve_spec" in phases:
         results["serve_spec"] = phase_serve_spec(torch)
+        took("serve_spec")
     if "serve_host" in phases:
         results["serve_host"] = phase_serve_host(torch)
+        took("serve_host")
+    if "serve_fleet" in phases:
+        results["serve_fleet"] = phase_serve_fleet(torch,
+                                                   results.get("serve", {}))
+        took("serve_fleet")
     if "timing" in phases:
         results["timing"] = phase_timing(torch, results.get("serve", {}),
                                          results.get("serve_paged", {}),
@@ -6870,6 +7736,7 @@ def main() -> int:
                                          results.get("serve_spec", {}),
                                          results.get("serve_host", {}),
                                          args.profile)
+        took("timing")
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 
     print(json.dumps({"kernels": kernel_lines(results)}))

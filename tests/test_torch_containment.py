@@ -926,15 +926,31 @@ def _port_cfg(**kw):
     return ServiceConfig(torch_device="cpu", **kw)
 
 
-@pytest.mark.parametrize("spec,row", [
-    ("swap:fail", "A7 row 7"),
-    ("checkpoint:corrupt", "A7 row 7")])
-def test_factory_refuses_points_of_unported_features(spec, row):
-    """swap and checkpoint wait for weight rollout (A7 row 7). The host
-    tier's points boot with HOST_KV_BLOCKS > 0 and are refused without
-    it: test_torch_server.py::test_factory_boots_the_host_tier_fault_points."""
-    with pytest.raises(ValueError, match=row):
-        build_engine(_port_cfg(fault_points=spec))
+@pytest.mark.parametrize("spec,point,fire", [
+    ("swap:fail", "swap", "swap_fail"),
+    ("checkpoint:corrupt", "checkpoint", "checkpoint_corrupt")])
+def test_factory_serves_the_swap_and_checkpoint_points(spec, point, fire):
+    """The weight swap's points boot with the batched engine, whose swap
+    fires them once; under the single-sequence engine they are refused
+    with the JAX factory's message (the JAX factory refuses them under
+    ENGINE=fake). The host tier's points:
+    test_torch_server.py::test_factory_boots_the_host_tier_fault_points."""
+    from ai_agent_kubectl_tpu.server.factory import (
+        build_engine as jax_build_engine)
+
+    eng = build_engine(_port_cfg(fault_points=spec))
+    assert isinstance(eng, BatchedTorchEngine)
+    assert getattr(eng.faults, fire)() and not getattr(eng.faults, fire)()
+    errors = []
+    with pytest.raises(ValueError) as ours:
+        build_engine(_port_cfg(fault_points=spec, decode_batch_size=1))
+    with pytest.raises(ValueError) as theirs:
+        jax_build_engine(JaxServiceConfig(engine="fake", fault_points=spec))
+    for e in (ours, theirs):
+        errors.append(str(e.value).split(";")[0].split(" (ENGINE")[0])
+    assert errors[0] == errors[1] == (
+        f"FAULT_POINTS ['{point}'] are only wired into the "
+        f"continuous-batching engine")
 
 
 def test_factory_refuses_inert_drills_as_the_jax_factory():

@@ -1246,3 +1246,94 @@ def test_onloaded_blocks_are_bit_identical_on_the_card(card):
             await eng.stop()
 
     asyncio.run(run())
+
+
+def test_fleet_migrates_a_request_between_two_replicas_on_the_card(card):
+    """Two toy-8m replicas (bf16, the pool and ragged regime) on one card
+    behind the fleet: replica 0 is drained while its scheduler is held
+    with the request in flight, and the request finishes on replica 1
+    from its exported ids. One migration carrying the ids generated so
+    far; both replicas ran ragged forwards; the transcript equals the
+    undisturbed one or leaves it first at a near tie (top-2 gap within
+    5 % of the logits' rms: the replay builds the carried ids' KV by
+    prefill where the first run built it in decode, and bf16 rounds the
+    two apart); the merged books balance."""
+    import asyncio
+    import threading
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.fleet import EngineFleet
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models import transformer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+
+    prompt = "pod migrate "
+    kw = dict(tokenizer=ByteTokenizer(), device="cuda", dtype="bfloat16",
+              max_seq_len=128, prefill_buckets=(16, 32), batch_size=4,
+              chunk_len=4, prefix_cache=False)
+
+    async def run():
+        fleet = EngineFleet([BatchedTorchEngine(get_config("toy-8m"), **kw)
+                             for _ in range(2)], affinity=False)
+        await fleet.start()
+        try:
+            want = await fleet.generate(prompt, max_tokens=48, seed=7)
+            eng0 = fleet.replicas[0].engine
+            real, n = type(eng0)._dispatch_chunk.__get__(eng0), [0]
+            reached, opened = threading.Event(), threading.Event()
+
+            def held():
+                n[0] += 1
+                if n[0] > 3 and not opened.is_set():
+                    reached.set()
+                    opened.wait(60)
+                real()
+
+            eng0._dispatch_chunk = held
+            steps = [r.engine.forward_steps for r in fleet.replicas]
+            ragged_attention_pool.launches = 0
+            task = asyncio.create_task(
+                fleet.generate(prompt, max_tokens=48, seed=7))
+            while not reached.is_set():
+                await asyncio.sleep(0.005)
+            drain = asyncio.create_task(fleet.drain(0))
+            while fleet._migrations == 0:
+                await asyncio.sleep(0.005)
+            opened.set()
+            got = await task
+            await drain
+            grew = [r.engine.forward_steps - s
+                    for r, s in zip(fleet.replicas, steps)]
+            return (fleet, want, got, grew, ragged_attention_pool.launches,
+                    fleet.ledger_snapshot())
+        finally:
+            await fleet.stop()
+
+    fleet, want, got, grew, launches, books = asyncio.run(run())
+    assert fleet._migrations == 1 and fleet._migrated_tokens > 0
+    assert all(g > 0 for g in grew)
+    assert launches >= fleet.replicas[0].engine.model_cfg.n_layers * sum(grew)
+    assert books["conservation"]["balanced"]
+    a, b = list(want.token_ids), list(got.token_ids)
+    if a != b:
+        eng = fleet.replicas[1].engine
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        assert k >= fleet._migrated_tokens
+        ids = eng.tokenizer.encode(prompt) + a[:k]
+        P, pages = len(ids), -(-len(ids) // 16)
+        with torch.no_grad():
+            cache = transformer.KVCache.pool(eng.model_cfg, pages, 16,
+                                             dtype=eng.dtype, device=card)
+            logits, _ = transformer.forward(
+                eng.params, eng.model_cfg, torch.tensor([ids], device=card),
+                torch.arange(P, dtype=torch.int32, device=card)[None], cache,
+                block_tables=torch.arange(pages, dtype=torch.int32,
+                                          device=card)[None],
+                logits_at=torch.tensor([P - 1], device=card))
+        row = logits[0, 0].float()
+        top2 = torch.topk(row, 2).values
+        assert float(top2[0] - top2[1]) <= 0.05 * float(
+            row.pow(2).mean().sqrt())

@@ -224,11 +224,6 @@ def test_config_defaults_match_the_jax_package():
 REFUSED = [
     ("CHUNK_PIPE_DEPTH", "3"),
     ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
-    ("FLEET_SIZE", "2"),
-    ("FLEET_HEDGE_MS", "50"), ("FLEET_AFFINITY", "false"),
-    ("FLEET_MIGRATION_BUDGET", "1"), ("FLEET_REJOIN_SECS", "5"),
-    ("ROLLOUT_CANARY_SHARE", "0.5"), ("ROLLOUT_OBSERVE_SECS", "5"),
-    ("ROLLOUT_BURN_GATE", "3"), ("ROLLOUT_STEPTIME_GATE", "2"),
     ("MESH_SHAPE", "data:1,model:8"), ("DCN_MESH_SHAPE", "data:2"),
     ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
     ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
@@ -247,6 +242,45 @@ def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
         ServiceConfig.from_env()
     monkeypatch.setenv(knob, UNSERVED_KNOBS[knob])
     assert ServiceConfig.from_env().engine == "torch"
+
+
+#: the fleet and rollout knobs, refused until the port served them: a
+#: value that asks for the feature, read into the field the JAX from_env
+#: fills, and a bad value, which both packages refuse with one message
+#: (or, for the boolean, read alike)
+FLEET_ROLLOUT_KNOBS = [
+    ("FLEET_SIZE", "2", "fleet_size", "two"),
+    ("FLEET_HEDGE_MS", "50", "fleet_hedge_ms", "soon"),
+    ("FLEET_AFFINITY", "false", "fleet_affinity", "maybe"),
+    ("FLEET_MIGRATION_BUDGET", "1", "fleet_migration_budget", "1.5"),
+    ("FLEET_REJOIN_SECS", "5", "fleet_rejoin_secs", "later"),
+    ("ROLLOUT_CANARY_SHARE", "0.5", "rollout_canary_share", "0.9"),
+    ("ROLLOUT_OBSERVE_SECS", "5", "rollout_observe_secs", "-1"),
+    ("ROLLOUT_BURN_GATE", "3", "rollout_burn_gate", "0.5"),
+    ("ROLLOUT_STEPTIME_GATE", "2", "rollout_steptime_gate", "0.5"),
+]
+
+
+@pytest.mark.parametrize("knob,value,field,bad", FLEET_ROLLOUT_KNOBS)
+def test_config_reads_the_fleet_and_rollout_knobs_as_the_jax_package(
+        monkeypatch, knob, value, field, bad):
+    assert knob not in UNSERVED_KNOBS
+    assert getattr(ServiceConfig(), field) == getattr(JaxServiceConfig(),
+                                                      field)
+    monkeypatch.setenv(knob, value)
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert getattr(ours, field) == getattr(theirs, field)
+    assert getattr(ours, field) != getattr(ServiceConfig(), field)
+    monkeypatch.setenv(knob, bad)
+    outcomes = []
+    for cls in (ServiceConfig, JaxServiceConfig):
+        try:
+            outcomes.append(("read", getattr(cls.from_env(), field)))
+        except ValueError as e:
+            outcomes.append(("refused", str(e)))
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0][0] == ("read" if knob == "FLEET_AFFINITY"
+                              else "refused")
 
 
 #: the grammar knobs, refused until the port served them: each value is
