@@ -45,7 +45,12 @@ and the weight rollout (``ROLLOUT_CANARY_SHARE``,
 ``ROLLOUT_OBSERVE_SECS``, ``ROLLOUT_BURN_GATE``,
 ``ROLLOUT_STEPTIME_GATE``) are read with the JAX defaults and errors;
 ``server/factory.py`` refuses ``FLEET_SIZE`` > 1 with ``ENGINE=openai``,
-as the JAX factory does.
+as the JAX factory does. The decode chunk pipeline
+(``CHUNK_PIPE_DEPTH``, default 3: chunks dispatched ahead of the one the
+host reads) and device-side termination (``DEVICE_TERMINATION``,
+default true; false serves the host-scan path) are read with the JAX
+defaults and errors: ``GRAMMAR_DECODE`` and ``SPEC_DECODE`` need device
+termination, and the batched engine refuses a depth below 1.
 """
 
 from __future__ import annotations
@@ -64,10 +69,7 @@ from .obs.steptime import load_baselines
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # the rest of the batched engine (A7): chunk pipelining (the port
-    # fetches each chunk before the next dispatch, on device-side
-    # termination), group admission
-    "CHUNK_PIPE_DEPTH": "1", "DEVICE_TERMINATION": "true",
+    # the rest of the batched engine (A7): group admission
     "ADMIT_SCRATCH_MB": "512",
     # more than one card or host (A8)
     "MESH_SHAPE": "", "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
@@ -183,6 +185,18 @@ class ServiceConfig:
     max_new_tokens: int = 128               # MAX_NEW_TOKENS
     decode_batch_size: int = 8              # DECODE_BATCH_SIZE
     chunk_len: int = 16                     # CHUNK_LEN
+    # Decode chunks kept in flight ahead of the one the host reads: the
+    # host dispatches chunk N+1 (and N+2) before it reads chunk N's
+    # packed buffer, so its reads and its next dispatch overlap the
+    # device's work. With device-side termination a deeper pipe wastes
+    # no step on a finished slot; 2 suits DEVICE_TERMINATION=false.
+    chunk_pipe_depth: int = 3               # CHUNK_PIPE_DEPTH
+    # Device-side termination: the chunk folds EOS and each slot's token
+    # budget into its carry and freezes finished slots mid-chunk; false
+    # restores the host-scan path (every dispatched slot decodes the
+    # whole chunk, the host scans for EOS and the budget, and
+    # wasted_decode_steps_total shows what the device mask saves).
+    device_termination: bool = True         # DEVICE_TERMINATION
     prefill_buckets: str = "64,128,256,512,1024"  # PREFILL_BUCKETS
     temperature: float = 0.0                # TEMPERATURE (0 = greedy)
     top_k: int = 0                          # TOP_K
@@ -495,6 +509,10 @@ class ServiceConfig:
             raise ValueError(
                 f"GRAMMAR_FORCED_RUN_MIN must be >= 1, "
                 f"got {self.grammar_forced_run_min}")
+        if self.grammar_decode and not self.device_termination:
+            raise ValueError(
+                "GRAMMAR_DECODE requires DEVICE_TERMINATION=true (the "
+                "FSM state word rides the decode chunk's carry)")
         if self.grammar_decode and not self.batched_engine:
             raise ValueError(
                 f"GRAMMAR_DECODE=true is enforced by the continuous-"
@@ -529,10 +547,12 @@ class ServiceConfig:
         # The speculative-decode knobs, with the JAX errors: an
         # impossible combination or an unknown or mismatched draft must
         # refuse to boot, not serve plain decode behind a knob that says
-        # otherwise. (DEVICE_TERMINATION is always on in the port: its
-        # false is refused in from_env, with the JAX error under
-        # SPEC_DECODE.)
+        # otherwise.
         if self.spec_decode:
+            if not self.device_termination:
+                raise ValueError(
+                    "SPEC_DECODE requires DEVICE_TERMINATION=true (the "
+                    "accept/reject fold rides the decode chunk's carry)")
             from .models.config import get_config as _get_model_config
             from .models.config import spec_draft_config
 
@@ -607,11 +627,6 @@ class ServiceConfig:
 
     @classmethod
     def from_env(cls) -> "ServiceConfig":
-        if (_env_bool("SPEC_DECODE", False)
-                and not _env_bool("DEVICE_TERMINATION", True)):
-            raise ValueError(
-                "SPEC_DECODE requires DEVICE_TERMINATION=true (the "
-                "accept/reject fold rides the decode chunk's carry)")
         for name, served in UNSERVED_KNOBS.items():
             raw = os.getenv(name)
             if raw not in (None, "") and not _same_value(raw, served):
@@ -651,6 +666,8 @@ class ServiceConfig:
             max_new_tokens=_env_int("MAX_NEW_TOKENS", 128),
             decode_batch_size=_env_int("DECODE_BATCH_SIZE", 8),
             chunk_len=_env_int("CHUNK_LEN", 16),
+            chunk_pipe_depth=_env_int("CHUNK_PIPE_DEPTH", 3),
+            device_termination=_env_bool("DEVICE_TERMINATION", True),
             prefill_buckets=_env_str("PREFILL_BUCKETS",
                                      "64,128,256,512,1024"),
             temperature=_env_float("TEMPERATURE", 0.0),

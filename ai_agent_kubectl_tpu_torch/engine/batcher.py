@@ -49,12 +49,32 @@ entry of the in-flight list. In every regime:
   of one ragged window (the prologue), while every other live slot takes
   its normal decode step at q_len=1 in the same forward. Only the head of
   a prompt beyond the widest admission window prefills eagerly.
-- **Device-side termination**: each chunk runs ``chunk_len`` forward
-  steps whose carry (tokens, positions, live mask, generated counts,
-  budgets, health word) stays on the device; EOS, token budgets and
-  non-finite logits freeze a slot inside the chunk. The host fetches ONE
-  packed int32 buffer per chunk (``protocol.pack_chunk``, v3) and nothing
-  else — no ``.item()`` or boolean index runs inside the step loop.
+- **Device-side termination** (``DEVICE_TERMINATION``, on by default):
+  each chunk runs ``chunk_len`` forward steps whose carry (tokens,
+  positions, live mask, generated counts, budgets, health word) stays on
+  the device; EOS, token budgets and non-finite logits freeze a slot
+  inside the chunk. The host reads ONE packed int32 buffer per chunk
+  (``protocol.pack_chunk``, v3) and nothing else — no ``.item()`` or
+  boolean index runs inside the step loop. Off, the JAX engine's
+  host-scan path: every dispatched slot decodes the whole chunk, the host
+  scans each row for EOS and the budget (``protocol.scan_chunk_row``) and
+  bills the steps past a finish as waste; the ragged regime, which arms
+  staged admissions inside the chunk's carry, resolves to the legacy
+  ladder, and the grammar and speculative decoding refuse it.
+- **The chunk pipeline** (``CHUNK_PIPE_DEPTH``, 3 by default): the
+  scheduler keeps up to that many chunks in flight, dispatching chunk
+  N+1 before it reads chunk N. Each in-flight entry (a chunk's packed
+  buffer, an eager admission's first token) starts its device->host copy
+  into pinned memory at dispatch, with an event recorded behind it; the
+  read waits on that event only, never on the chunks dispatched after
+  it. Every host->device upload between dispatches (block tables,
+  staged admissions, the live mask, prefill tokens, grammar masks)
+  goes through pinned staging with a non-blocking copy
+  (``TorchEngine._h2d``): a copy from pageable memory would wait for the
+  whole stream and collapse the pipe. Admissions arm their slots on
+  the latest device state, so a request admitted with two chunks in
+  flight starts decoding two chunks later; a chunk dispatched for a
+  slot that was freed or reassigned since is discarded at its read.
 - **Seeded sampling**: every sampled token, an admission's first one
   included, draws from ``fold_in(PRNGKey(seed), g)`` at its generation
   index ``g`` (``sampling.sample_tokens_seeded``, jax's threefry bits),
@@ -174,10 +194,8 @@ queue and per-request asyncio queues. A sticky CUDA error (an illegal
 address) cannot be contained: every later call fails, the resets spend
 their budget, and fail-fast and the breaker take over.
 
-Not in this slice (each raises or is simply absent; ROADMAP lists them):
-group admission (``ADMIT_KPADS``) on the dense ladder and a chunk
-pipeline deeper than one (the host fetches each chunk before it
-dispatches the next).
+Not in this slice (absent; ROADMAP lists it): group admission
+(``ADMIT_KPADS``) on the dense ladder.
 """
 
 from __future__ import annotations
@@ -220,7 +238,7 @@ from .protocol import (HEALTH_GRAMMAR_DEAD, HEALTH_NONFINITE,
                        EngineOverloaded, EngineResult, EngineUnavailable,
                        GenerationTimeout, RequestExport, RequestQuarantined,
                        TenantOverloaded, consume_chunk_row, describe_health,
-                       pack_chunk, unpack_chunk)
+                       pack_chunk, scan_chunk_row, unpack_chunk)
 from .qos import (ANON_TENANT, LANE_BACKGROUND, LANE_BATCH,
                   LANE_INTERACTIVE, LANES, BrownoutController, QoSQueue,
                   SessionBudgets, current_qos, lane_rank)
@@ -421,7 +439,7 @@ class _Slot:
     # Grammar: the FSM state over the tokens consumed so far (host
     # truth; the device carries its own copy in _fsm_d), and the
     # in-flight chunks a fast-forward spliced over, whose rows the
-    # consume skips (always 0 at pipe depth one).
+    # consume skips.
     gs: int = 0
     stale_chunks: int = 0
     # Speculative decoding: host truth of the device carry at the last
@@ -444,6 +462,8 @@ class BatchedTorchEngine(TorchEngine):
     ADMIT_RAMP_MAX_SECS = 0.12
 
     def __init__(self, *args, batch_size: int = 8, chunk_len: int = 16,
+                 chunk_pipe_depth: int = 3,
+                 device_termination: bool = True,
                  ragged_attention: str = "auto",
                  decode_attn: str = "auto",
                  kv_page_size: int = 16,
@@ -491,6 +511,14 @@ class BatchedTorchEngine(TorchEngine):
             raise ValueError("batch_size must be >= 1")
         if chunk_len < 1:
             raise ValueError("chunk_len must be >= 1")
+        if chunk_pipe_depth < 1:
+            raise ValueError("chunk_pipe_depth must be >= 1")
+        # The grammar's FSM word and the speculative accept/reject fold
+        # ride the chunk's carry: both need device-side termination.
+        if grammar_decode and not device_termination:
+            raise ValueError("GRAMMAR_DECODE requires DEVICE_TERMINATION")
+        if spec_decode and not device_termination:
+            raise ValueError("SPEC_DECODE requires DEVICE_TERMINATION")
         if ragged_attention not in ("auto", "on", "off"):
             raise ValueError(f"RAGGED_ATTENTION must be auto|on|off, got "
                              f"{ragged_attention!r}")
@@ -499,6 +527,8 @@ class BatchedTorchEngine(TorchEngine):
                              f"{decode_attn!r}")
         self.batch_size = batch_size
         self.chunk_len = chunk_len
+        self.chunk_pipe_depth = chunk_pipe_depth
+        self.device_termination = bool(device_termination)
         self.ragged_attention = ragged_attention
         self.decode_attn = decode_attn
         self.kv_page_size = max(1, kv_page_size)
@@ -557,15 +587,11 @@ class BatchedTorchEngine(TorchEngine):
             baselines=perf_baselines)
         # (t, phase, bucket, (steps, tokens)) of the previous dispatch
         # and whether a chunk was consumed since: the pair that gates a
-        # dispatch-to-dispatch interval into a step-time sample. The JAX
-        # engine takes the interval only while its pipe never empties (a
-        # chunk still in flight at the next dispatch), which a one-deep
-        # pipe never satisfies, so it records no decode samples there.
-        # The port fetches each chunk before the next dispatch: its rule
-        # is the depth-1 counterpart — a consume in between and no idle
-        # wait or burst-ramp hold between the two dispatches (either
-        # drops the pending dispatch), so an idle gap between requests
-        # never reads as a step.
+        # dispatch-to-dispatch interval into a step-time sample, taken
+        # only while the pipe never empties (a chunk still in flight at
+        # the next dispatch), so an idle gap between requests never
+        # reads as a step. A one-deep pipe never satisfies it and
+        # records no decode samples, as in the JAX engine.
         self._steptime_pending = None
         self._steptime_consumed = False
         # Pipeline observability: decode steps billed as waste, chunk
@@ -690,6 +716,8 @@ class BatchedTorchEngine(TorchEngine):
             get_config(cfg.model_name),
             batch_size=cfg.decode_batch_size,
             chunk_len=cfg.chunk_len,
+            chunk_pipe_depth=cfg.chunk_pipe_depth,
+            device_termination=cfg.device_termination,
             ragged_attention=cfg.ragged_attention,
             decode_attn=cfg.decode_attn,
             kv_page_size=cfg.kv_page_size,
@@ -774,13 +802,15 @@ class BatchedTorchEngine(TorchEngine):
         for t in self._guards:
             t.start()
         logger.info("BatchedTorchEngine ready on %s in %.1fs: %d slots, "
-                    "%s regime (decode %s), %s, chunk %d", self.device,
+                    "%s regime (decode %s), %s, chunk %d, pipe %d deep, "
+                    "%s termination", self.device,
                     time.monotonic() - t0, self.batch_size,
                     self._attention_regime, self._decode_impl,
                     (f"pool {self._pool_n_blocks} blocks x "
                      f"{self.kv_pool_page} tokens" if self.kv_pool
                      else f"dense cache of {self._S_alloc} positions"),
-                    self.chunk_len)
+                    self.chunk_len, self.chunk_pipe_depth,
+                    "device" if self.device_termination else "host-scan")
 
     def _grammar_start(self) -> None:
         """Compile the kubectl grammar against this tokenizer (host numpy
@@ -857,6 +887,12 @@ class BatchedTorchEngine(TorchEngine):
                             self.kv_pool_page, page)
                 self.kv_pool_page = page
             use_ragged = self.ragged_attention != "off"
+            if use_ragged and not self.device_termination:
+                logger.warning(
+                    "RAGGED_ATTENTION needs DEVICE_TERMINATION (staged "
+                    "admissions arm inside the chunk carry); serving "
+                    "the legacy ladder")
+                use_ragged = False
             if use_ragged and self.kv_quant:
                 logger.warning(
                     "RAGGED_ATTENTION: the ragged pool kernel reads "
@@ -1000,8 +1036,10 @@ class BatchedTorchEngine(TorchEngine):
     # ------------------------------------------------ block-paged KV pool
 
     def _tables_d(self, tables: np.ndarray) -> torch.Tensor:
-        """Device copy of a block-table snapshot."""
-        return torch.from_numpy(np.ascontiguousarray(tables)).to(self.device)
+        """Device copy of a block-table snapshot (through pinned staging:
+        the host rewrites its table rows while the copy may still be
+        queued)."""
+        return self._h2d(tables)
 
     def _forward(self, tokens, positions, tables, *, attn_impl: str,
                  kv_limit=None, q_lens=None, write_mask=None,
@@ -1030,14 +1068,17 @@ class BatchedTorchEngine(TorchEngine):
         """Write one slot's carry and config into the device vectors (the
         JAX arm program): carry token (an int, or a 0-d device tensor that
         never visits the host), position, live flag, generated count,
-        token budget, sampling seed and temperature."""
-        self._tok_d[slot_idx, 0] = first_tok
-        self._pos_d[slot_idx, 0] = n_prompt
-        self._active_d[slot_idx] = max_toks > ngen0
-        self._ngen_d[slot_idx] = ngen0
-        self._budget_d[slot_idx] = max_toks
-        self._seeds_d[slot_idx] = int(seed)
-        self._temps_d[slot_idx] = float(temperature)
+        token budget, sampling seed and temperature. Each is an in-place
+        fill queued behind the chunks in flight (a host value is a
+        kernel argument, never an upload), so the slot arms on the
+        latest carry."""
+        self._tok_d[slot_idx, 0].fill_(first_tok)
+        self._pos_d[slot_idx, 0].fill_(n_prompt)
+        self._active_d[slot_idx].fill_(max_toks > ngen0)
+        self._ngen_d[slot_idx].fill_(ngen0)
+        self._budget_d[slot_idx].fill_(max_toks)
+        self._seeds_d[slot_idx].fill_(int(seed))
+        self._temps_d[slot_idx].fill_(float(temperature))
         self._temps[slot_idx] = float(temperature)
 
     def _run_cow(self, src: int, dst: int, rows: int) -> None:
@@ -1051,16 +1092,17 @@ class BatchedTorchEngine(TorchEngine):
 
     # ------------------------------------------ host-tier block transfer
     #
-    # Both copies are synchronous and run on torch's current stream,
-    # where every kernel of the engine is queued: a demote's D2H read
-    # (alloc_with_evict at admission or at coverage growth) starts only
-    # after every kernel queued before it, so it never reads a block a
-    # queued kernel still writes; an onload's H2D write and copy_ are
-    # queued before any kernel that reads the block (the table that maps
-    # it reaches the device after the match returns), and after every
-    # kernel already queued, which could only read the block's previous
-    # (freed) contents. The pipe is one deep: the host fetches each
-    # chunk before it dispatches the next.
+    # Both copies run on torch's current stream, where every kernel of
+    # the engine is queued. A demote's D2H read (alloc_with_evict at
+    # admission or at coverage growth) is synchronous: it waits for every
+    # chunk in flight, stalling the pipe for that one read, and so never
+    # reads a block a queued kernel still writes (a demoted block is a
+    # cached one, which no slot's chunk writes anyway). An onload's H2D
+    # copy goes through pinned staging without waiting (_h2d); it and
+    # its copy_ are queued after every chunk already in flight, which
+    # could only touch the block's previous (freed) contents, and before
+    # any kernel that reads it (the table that maps it is uploaded after
+    # the match returns).
 
     def _kv_leaves(self) -> list:
         """The pool's K/V leaves in the JAX cache pytree's order: ``k``
@@ -1093,7 +1135,7 @@ class BatchedTorchEngine(TorchEngine):
         if raw.size != want:
             raise ValueError(f"host KV payload of {raw.size} bytes for a "
                              f"{want}-byte block")
-        flat = torch.from_numpy(raw.copy()).to(self.device)
+        flat = self._h2d(raw)
         off = 0
         for dst in dsts:
             n = dst.numel() * dst.element_size()
@@ -1159,8 +1201,8 @@ class BatchedTorchEngine(TorchEngine):
             tokens[0, :L] = ids[offset:offset + L]
             cols = torch.arange(bucket, device=self.device)
             logits = self._forward(
-                torch.from_numpy(tokens).to(self.device),
-                (offset + cols)[None].to(torch.int32), tables_d,
+                self._h2d(tokens), (offset + cols)[None].to(torch.int32),
+                tables_d,
                 attn_impl=("ragged" if ragged
                            else self._prefill_impl_for(bucket, kv_limit)),
                 kv_limit=kv_limit,
@@ -1344,7 +1386,8 @@ class BatchedTorchEngine(TorchEngine):
         elif staged is not None:
             self._pending_adm[slot_idx] = staged
         else:
-            self._inflight.append(("first", first_d, req, slot_idx))
+            self._inflight.append(("first", self._to_host_async(first_d),
+                                   slot, slot_idx))
         self._last_admit_t = time.monotonic()
 
     def _admit_one_dense(self, req: _Request) -> None:
@@ -1367,11 +1410,12 @@ class BatchedTorchEngine(TorchEngine):
                if self._grammar is not None and req.gpid >= 0 else -1)
         first_d = self._arm_first(slot_idx, last_logits, req, n_prompt,
                                   gs=gs0)
-        self._slots[slot_idx] = _Slot(
+        slot = self._slots[slot_idx] = _Slot(
             req=req, detok=StreamDecoder(self.tokenizer), n_prompt=n_prompt,
             pos=n_prompt, queue_ms=wait_ms,
             t_admit=t_adm, chunks_inflight=1, prefix_hit=prefix_hit, gs=gs0)
-        self._inflight.append(("first", first_d, req, slot_idx))
+        self._inflight.append(("first", self._to_host_async(first_d), slot,
+                               slot_idx))
         self._last_admit_t = time.monotonic()
 
     def _splice_scratch(self, slot_idx: int, scratch: KVCache,
@@ -1399,7 +1443,7 @@ class BatchedTorchEngine(TorchEngine):
         dev = self.device
         mask = None
         if gs >= 0:
-            mask = torch.from_numpy(self._grammar.allowed_np(gs)).to(dev)[None]
+            mask = self._h2d(self._grammar.allowed_np(gs))[None]
         if req.temperature > 0.0:
             first_d = sample_tokens_seeded(
                 last_logits,
@@ -1486,15 +1530,14 @@ class BatchedTorchEngine(TorchEngine):
         g = self._grammar
         if g.version != self._grammar_version:
             version, tc, ok, nxt = g.snapshot_tables()
-            dev = self.device
-            self._gram_tc_d = torch.from_numpy(tc).to(dev, torch.int64)
-            self._gram_ok_d = torch.from_numpy(ok).to(dev)
-            self._gram_next_d = torch.from_numpy(nxt).to(dev, torch.int64)
+            self._gram_tc_d = self._h2d(tc.astype(np.int64))
+            self._gram_ok_d = self._h2d(ok)
+            self._gram_next_d = self._h2d(nxt.astype(np.int64))
             self._grammar_version = version
         return self._gram_tc_d, self._gram_ok_d, self._gram_next_d
 
     def _grammar_arm(self, slot_idx: int, gs: int) -> None:
-        self._fsm_d[slot_idx] = gs
+        self._fsm_d[slot_idx].fill_(gs)
 
     def _grammar_arm_after_sample(self, slot_idx: int, gs_base: int,
                                   first_d: torch.Tensor) -> None:
@@ -1523,12 +1566,13 @@ class BatchedTorchEngine(TorchEngine):
         state starts a chain of single-successor states, splice the whole
         run as ONE prefill into its pool blocks instead of decoding it.
 
-        The splice fires when the run exceeds what the chunks in flight
-        already decode by GRAMMAR_FORCED_RUN_MIN (or ends the command);
-        the chunks it splices over are marked stale and billed as waste.
-        The port's pipe is one deep and the host consumes every chunk
-        before the next dispatch, so nothing is in flight here and no
-        chunk goes stale; the countdown is kept for a deeper pipe.
+        The chunks in flight decode the run's head anyway (their compute
+        is sunk and, under the mask, their tokens are the forced ones),
+        so the splice fires only when the run exceeds what they cover by
+        GRAMMAR_FORCED_RUN_MIN (or ends the command); the chunks it
+        splices over are marked stale (the consume skips their rows,
+        which index the stream before the splice; the FIFO read makes
+        the countdown exact) and billed as waste.
 
         The prefill covers positions base-1 .. base+len(run)-2 (the last
         emitted token, whose row decode had not written, and run[:-1]);
@@ -1667,8 +1711,7 @@ class BatchedTorchEngine(TorchEngine):
             tokens = np.zeros((1, bucket), np.int64)
             tokens[0, :L] = ids[offset:offset + L]
             positions = offset + torch.arange(bucket, device=self.device)
-            forward(self._draft_params, self._draft_cfg,
-                    torch.from_numpy(tokens).to(self.device),
+            forward(self._draft_params, self._draft_cfg, self._h2d(tokens),
                     positions[None].to(torch.int32), view,
                     kv_limit=kv_limit, attn_impl="dense", moe_impl="dense",
                     logits_at=torch.full((1,), L - 1, dtype=torch.int64,
@@ -1750,6 +1793,8 @@ class BatchedTorchEngine(TorchEngine):
         Updates the device carry and returns the packed buffer."""
         if corrupt is None:
             corrupt = self._no_corrupt_d
+        if not self.device_termination:
+            return self._run_chunk_host_scan(force, tables, kv_limit, corrupt)
         bad_rows = corrupt[:, None]
         tok, pos, ngen, budget = (self._tok_d, self._pos_d, self._ngen_d,
                                   self._budget_d)
@@ -1790,6 +1835,48 @@ class BatchedTorchEngine(TorchEngine):
          self._budget_d) = tok, pos, live, ngen, budget
         if gs is not None:
             self._fsm_d = gs
+        return packed
+
+    def _run_chunk_host_scan(self, force: torch.Tensor,
+                             tables: Optional[torch.Tensor],
+                             kv_limit: Optional[int],
+                             corrupt: torch.Tensor) -> torch.Tensor:
+        """The ``DEVICE_TERMINATION=false`` chunk (the JAX engine's
+        ``batched_chunk_legacy``): every slot of ``force`` decodes the
+        whole chunk — no EOS or budget freeze, the host scans each row
+        (``protocol.scan_chunk_row``). Health still accumulates over the
+        chunk, but nothing freezes: the containment pass discards a
+        tripped chunk. The done mask is all-False and the generated
+        counts advance by the chunk. Updates the carry and returns the
+        packed buffer."""
+        bad_rows = corrupt[:, None]
+        tok, pos, ngen = self._tok_d, self._pos_d, self._ngen_d
+        health = torch.zeros_like(ngen)
+        step = force.to(torch.int32)
+        vocab = self.model_cfg.vocab_size
+        toks = []
+        for _ in range(self.chunk_len):
+            logits = self._forward(tok, pos, tables,
+                                   attn_impl=self._decode_impl,
+                                   kv_limit=kv_limit, write_mask=force)
+            self.decode_steps += 1
+            step_logits = logits[:, 0].masked_fill(bad_rows, float("nan"))
+            nxt = self._sample(step_logits, ngen, force)
+            if self.slot_health_check:
+                bad = ~torch.isfinite(step_logits).all(dim=-1)
+                health = health | (force & bad).to(health.dtype) \
+                    * HEALTH_NONFINITE
+                bad_tok = (nxt < 0) | (nxt >= vocab)
+                health = health | (force & bad_tok).to(health.dtype) \
+                    * HEALTH_TOKEN_RANGE
+            nxt = torch.where(force, nxt, tok[:, 0])
+            pos = pos + step[:, None]
+            ngen = ngen + step
+            tok = nxt[:, None]
+            toks.append(nxt)
+        packed = pack_chunk(torch.stack(toks, dim=1), torch.zeros_like(force),
+                            ngen, force.sum(), health=health, xp=torch)
+        self._tok_d, self._pos_d, self._ngen_d = tok, pos, ngen
         return packed
 
     def _prologue(self, adm, tok, pos, live, ngen, budget, health, gs,
@@ -2014,22 +2101,23 @@ class BatchedTorchEngine(TorchEngine):
             for i, e in staged.items():
                 a_tok[i, :len(e["ids"])] = e["ids"]
                 a_vec[:, i] = (len(e["ids"]), e["start"])
-            vec = torch.from_numpy(a_vec).to(self.device)
-            adm = (torch.from_numpy(a_tok).to(self.device), vec[0], vec[1])
+            vec = self._h2d(a_vec)
+            adm = (self._h2d(a_tok), vec[0], vec[1])
         # The smallest KV bucket covering every position this chunk can
         # reach (``pos`` counts scheduled chunks: an upper bound).
         needed = max(s.pos for s in active_slots) + ct
         kv_limit = next((b for b in self._kv_buckets if b >= needed),
                         self._kv_buckets[-1])
         # Step-time sentinel: the interval since the previous dispatch is
-        # one chunk cycle when a consume happened in between and the
-        # engine never idled (a wait drops the pending dispatch), so the
-        # stored unit is ms per device step. A mixed admission chunk
-        # samples into the prefill phase keyed by its ragged admission
-        # width, as in the JAX engine.
+        # one chunk cycle when a consume happened in between and the pipe
+        # never emptied (a chunk still in flight now), so the stored unit
+        # is ms per device step. A mixed admission chunk samples into the
+        # prefill phase keyed by its ragged admission width, as in the
+        # JAX engine.
         now = time.monotonic()
         pend = self._steptime_pending
-        if pend is not None and self._steptime_consumed:
+        if (pend is not None and self._steptime_consumed
+                and any(e[0] == "chunk" for e in self._inflight)):
             t0, phase0, bucket0, (steps0, toks0) = pend
             self._steptime.note(phase0, bucket0, now - t0, steps=steps0,
                                 tokens=toks0, now=now)
@@ -2039,9 +2127,8 @@ class BatchedTorchEngine(TorchEngine):
             adm_w if adm_w is not None else kv_limit,
             (ct, ct * len(active_slots)))
         self._steptime_consumed = False
-        force = torch.tensor(
-            [s is not None and not s.exhausted for s in self._slots],
-            dtype=torch.bool, device=self.device)
+        force = self._h2d(np.array(
+            [s is not None and not s.exhausted for s in self._slots], bool))
         tables = self._tables_d(self._tables) if self.kv_pool else None
         # The decode:nan seam: the cached all-False mask, or a drill's
         # mask naming the target slots.
@@ -2053,16 +2140,24 @@ class BatchedTorchEngine(TorchEngine):
             if hits:
                 mask = np.zeros((self.batch_size,), bool)
                 mask[hits] = True
-                corrupt = torch.from_numpy(mask).to(self.device)
+                corrupt = self._h2d(mask)
         run = self._run_spec_chunk if spec else self._run_chunk
         packed = run(force, tables, adm, kv_limit=kv_limit, corrupt=corrupt)
-        snapshot = [s.req if s is not None and not s.exhausted else None
-                    for s in self._slots]
+        # The seats the chunk decodes for, and their requests. A row is
+        # delivered only to the seat it was dispatched for: a request
+        # preempted with chunks in flight and resumed into the same slot
+        # sits in a new seat, and those chunks' rows are stale for it.
+        seats = [s if s is not None and not s.exhausted else None
+                 for s in self._slots]
+        snapshot = [s.req if s is not None else None for s in seats]
         for s in active_slots:
             s.pos += ct
             s.chunks_inflight += 1
             s.decode_chunks_inflight += 1
-        self._inflight.append(("chunk", packed, snapshot, ct, spec))
+        # The device->host copy starts now, behind the chunk: its read
+        # waits for this chunk alone, not for those dispatched after it.
+        self._inflight.append(("chunk", self._to_host_async(packed),
+                               snapshot, ct, spec, seats))
         self._chunks_dispatched += 1
         self._chunk_log.append({
             "t": time.time(), "event": "dispatch", "kv_bucket": kv_limit,
@@ -2071,26 +2166,30 @@ class BatchedTorchEngine(TorchEngine):
         })
 
     def _consume_oldest(self) -> None:
-        """Fetch the oldest in-flight entry: an eager admission's first
-        token, or a chunk's packed buffer (THE one device->host read per
-        chunk), and deliver each slot's tokens and finish. A tripped
-        health bit runs the containment pass instead, and nothing of the
-        chunk reaches a client."""
+        """Read the oldest in-flight entry: an eager admission's first
+        token, or a chunk's packed buffer (THE one host read per entry,
+        ``_fetch``: it waits on the entry's own event, whose copy started
+        at dispatch), and deliver each slot's tokens and finish. A
+        tripped health bit runs the containment pass instead, and
+        nothing of the chunk reaches a client. Under the host scan
+        (``DEVICE_TERMINATION=false``) each row is scanned for EOS and
+        the budget, and the steps past a finish, or spent on a slot
+        freed since the dispatch, are billed as waste here."""
         self._last_progress = time.monotonic()
         self._first_consumed = True     # the cold-start grace ends
         entry = self._inflight.pop(0)
         if entry[0] == "first":
-            _, first_d, req, slot_idx = entry
-            self._consume_first(int(first_d.cpu()[0]), req, slot_idx)
+            _, handle, seat, slot_idx = entry
+            self._consume_first(int(self._fetch(handle)[0]), seat, slot_idx)
             return
-        _, packed, snapshot, ct, is_spec = entry
+        _, handle, snapshot, ct, is_spec, seats = entry
         if self.faults is not None:
             # decode:poison_step: a step-wide fault raised at the fetch,
             # naming no slot; the scheduler's except bisects for it.
             self.faults.poison_fetch(
                 [r.prompt if r is not None else None for r in snapshot])
         t_fetch = time.monotonic()
-        res = unpack_chunk(packed.cpu().numpy(), self.batch_size, ct,
+        res = unpack_chunk(self._fetch(handle), self.batch_size, ct,
                            spec=is_spec)
         fetch_s = time.monotonic() - t_fetch
         self._fetch_samples.append(fetch_s)
@@ -2121,9 +2220,8 @@ class BatchedTorchEngine(TorchEngine):
         # regenerates them exactly (seeded sampling), and no corrupt
         # token ever reaches a client.
         tripped = [i for i in range(self.batch_size)
-                   if int(res.health[i]) and snapshot[i] is not None
-                   and self._slots[i] is not None
-                   and self._slots[i].req is snapshot[i]]
+                   if int(res.health[i]) and seats[i] is not None
+                   and self._slots[i] is seats[i]]
         if tripped:
             self.supervisor.note_health_trips(len(tripped))
             for i in tripped:
@@ -2143,8 +2241,14 @@ class BatchedTorchEngine(TorchEngine):
             return
         eos_ids = self.model_cfg.eos_ids
         for i, slot in enumerate(self._slots):
-            if slot is None or slot.req is not snapshot[i]:
-                continue   # freed or reassigned since the dispatch
+            if slot is None or slot is not seats[i]:
+                # Freed or reseated since the dispatch. Under the host
+                # scan the device decoded the whole chunk for it: the
+                # waste the done mask removes (with the mask the carry
+                # froze it, and a host-only finish billed at _finish).
+                if snapshot[i] is not None and not self.device_termination:
+                    self._bill_waste(self.chunk_len, snapshot[i])
+                continue
             slot.chunks_inflight -= 1
             slot.decode_chunks_inflight -= 1
             if slot.stale_chunks > 0:
@@ -2153,9 +2257,15 @@ class BatchedTorchEngine(TorchEngine):
                 # these tokens.
                 slot.stale_chunks -= 1
                 continue
-            new_ids, finish = consume_chunk_row(
-                res.tokens[i], bool(res.done[i]), int(res.lengths[i]),
-                len(slot.detok.ids), ct, eos_ids)
+            if self.device_termination:
+                new_ids, finish = consume_chunk_row(
+                    res.tokens[i], bool(res.done[i]), int(res.lengths[i]),
+                    len(slot.detok.ids), ct, eos_ids)
+            else:
+                new_ids, finish, wasted = scan_chunk_row(
+                    res.tokens[i], len(slot.detok.ids), eos_ids,
+                    slot.req.max_tokens)
+                self._bill_waste(wasted, slot.req)
             if new_ids:
                 if slot.t_first is None:
                     slot.t_first = time.monotonic()
@@ -2218,15 +2328,16 @@ class BatchedTorchEngine(TorchEngine):
                 for e in self._inflight if e[0] == "chunk" for r in e[2]):
             self._unpark_parked()
 
-    def _consume_first(self, first_tok: int, req: _Request,
+    def _consume_first(self, first_tok: int, seat: _Slot,
                        slot_idx: int) -> None:
         """Deliver an eager admission's first token (the JAX
-        ``_consume_first``). A first-token EOS or a one-token budget
-        finishes the slot here; a chunk already dispatched for it is then
-        discarded by its snapshot check."""
+        ``_consume_first``) to the seat it was sampled for. A first-token
+        EOS or a one-token budget finishes the slot here; a chunk already
+        dispatched for it is then discarded by its seat check."""
         slot = self._slots[slot_idx]
-        if slot is None or slot.req is not req:
-            return      # finished or reassigned before its first token
+        if slot is None or slot is not seat:
+            return      # finished or reseated before its first token
+        req = slot.req
         slot.chunks_inflight -= 1
         now = time.monotonic()
         slot.t_first = now
@@ -2274,8 +2385,11 @@ class BatchedTorchEngine(TorchEngine):
         # A host-only finish (cancel, deadline, first-token EOS) ends a
         # slot the device still decodes in every chunk already dispatched
         # for it: those steps are waste, capped by the slot's remaining
-        # budget (the device freezes a slot at its budget).
-        if wasted_inflight and slot.decode_chunks_inflight > 0:
+        # budget (the device freezes a slot at its budget). The host scan
+        # bills them at the read instead (seat mismatch, prune):
+        # counting both would bill twice.
+        if (wasted_inflight and self.device_termination
+                and slot.decode_chunks_inflight > 0):
             remaining = max(0, slot.req.max_tokens - len(slot.detok.ids))
             self._bill_waste(min(slot.decode_chunks_inflight
                                  * self._chunk_waste_bound(), remaining),
@@ -2480,9 +2594,10 @@ class BatchedTorchEngine(TorchEngine):
         generated tokens) and requeue it at the head of its tenant's
         queue; _admit_pending hands the freed slot to the starved lane.
         A request past PREEMPT_BUDGET preemptions is never picked again.
-        Runs only with no chunk in flight, so the victim leaves with
-        every token it was dispatched for delivered, and never while a
-        bisection has slots parked."""
+        Runs every scheduler turn, chunks in flight or not (never while
+        a bisection has slots parked): the victim's in-flight chunks are
+        discarded at their read by the seat check, as after a
+        cancel, and billed as waste."""
         if self.preempt_wait_ms <= 0 or self._parked:
             return False
         if any(s is None for s in self._slots):
@@ -2517,7 +2632,10 @@ class BatchedTorchEngine(TorchEngine):
         exactly. In the pool the victim's verified chain is cached in
         the radix tree BEFORE it is requeued, so its resume re-maps those
         blocks instead of prefilling; a staged admission (its prologue
-        not dispatched, its suffix rows never written) caches nothing."""
+        not dispatched, its suffix rows never written) caches nothing.
+        The steps the chunks in flight still decode for the victim are
+        waste, capped by its remaining budget (device termination; the
+        host scan bills them at the read)."""
         slot = self._slots[idx]
         self._slots[idx] = None
         staged = self._pending_adm.pop(idx, None)
@@ -2533,6 +2651,11 @@ class BatchedTorchEngine(TorchEngine):
         req.resume_emitted = False
         if req.export is not None:
             req.export.ids = list(ids)
+        if self.device_termination and slot.decode_chunks_inflight > 0:
+            remaining = max(0, req.max_tokens - len(ids))
+            self._bill_waste(min(slot.decode_chunks_inflight
+                                 * self._chunk_waste_bound(), remaining),
+                             req)
         self._preemptions += 1
         self._preempted_tokens += len(ids)
         # The ledger bills the preempted class at the resume: the
@@ -2725,7 +2848,8 @@ class BatchedTorchEngine(TorchEngine):
     def stats(self) -> dict:
         """The scrape-time engine view /metrics mirrors, under the JAX
         engine's keys: occupancy, queue depth and KV pages; the decode
-        pipeline (its depth is one), the wasted steps and chunk counts,
+        pipeline (its depth, the chunks in flight, the termination mode
+        served), the wasted steps and chunk counts,
         and the fetch-latency samples since the last call (drained);
         the QoS section, the ledger's lane table, the SLO burn rates, the
         step-time digests, the containment totals, the grammar totals
@@ -2750,11 +2874,11 @@ class BatchedTorchEngine(TorchEngine):
             "queue_depth": self._admissions.qsize(),
             "kv_pages_used": used,
             "kv_pages_total": pages_total,
-            "pipe_depth": 1,
+            "pipe_depth": self.chunk_pipe_depth,
             "pipe_inflight": sum(1 for e in list(self._inflight)
                                  if e[0] == "chunk"),
             "device_active_slots": self._last_n_alive,
-            "device_termination": True,
+            "device_termination": self.device_termination,
             "wasted_decode_steps": self._wasted_steps,
             "chunks_dispatched": self._chunks_dispatched,
             "chunks_consumed": self._chunks_consumed,
@@ -2838,19 +2962,42 @@ class BatchedTorchEngine(TorchEngine):
 
     def _prune_dead_chunks(self) -> None:
         """Drop leading chunk entries that carry tokens for no live slot
-        (every slot they were dispatched for finished host-side since):
-        their fetch would only block the scheduler."""
+        (every slot they were dispatched for finished since, e.g. the
+        chunks still in flight when the last request ends): their read
+        would only block the scheduler. Under the host scan a pruned
+        chunk still decoded a whole chunk for each slot it was
+        dispatched with, billed as waste here."""
         while self._inflight and self._inflight[0][0] == "chunk":
-            snapshot = self._inflight[0][2]
-            if any(snap is not None and self._slots[i] is not None
-                   and self._slots[i].req is snap
-                   for i, snap in enumerate(snapshot)):
+            snapshot, seats = self._inflight[0][2], self._inflight[0][5]
+            if any(seat is not None and self._slots[i] is seat
+                   for i, seat in enumerate(seats)):
                 return
             self._inflight.pop(0)
+            if not self.device_termination:
+                for snap in snapshot:
+                    if snap is not None:
+                        self._bill_waste(self.chunk_len, snap)
             self._chunks_pruned += 1
             self._chunk_log.append({"t": time.time(), "event": "prune"})
 
     def _worker_loop(self) -> None:
+        # The chunk pipeline, CHUNK_PIPE_DEPTH deep (the JAX engine's
+        # loop): dispatch chunk N+1 on the device carry before reading
+        # chunk N, so the host's reads, detokenizing and admissions
+        # overlap the device's work. The in-flight list holds two kinds
+        # of entry, read strictly first in, first out:
+        #
+        # - ("chunk", handle, snapshot, ct, spec, seats): a decode chunk
+        #   for every slot, with the slot -> seat (and request) snapshot
+        #   at dispatch; a row whose slot was freed or reseated since is
+        #   discarded at the read.
+        # - ("first", handle, seat, slot_idx): an eager admission's first
+        #   token, still on its way to the host: an admission never
+        #   waits on a host read.
+        #
+        # Only chunks count against the depth; first-token entries are
+        # transfers, not compute. (The list is not reset here: a
+        # supervisor restart may already have queued replays.)
         while self._running:
             try:
                 if self.faults is not None:
@@ -2870,32 +3017,36 @@ class BatchedTorchEngine(TorchEngine):
                 # The QoS ring: the brownout controller's evaluation
                 # (time-gated, cheap; the SLO engine's fast-window burn
                 # of interactive queue wait is its early-trim input),
-                # then preemption for the starved lane, each freed slot
-                # handed to it by _admit_pending, until no starved
-                # request is left. Preemption waits until the chunk in
-                # flight is consumed (one chunk at most: the pipe is one
-                # deep).
+                # then preemption for the starved lane, whose freed slot
+                # _admit_pending hands to it.
                 self._brownout.maybe_eval(
                     burn_fn=lambda: self._slo.fast_burn(
                         SLO_QUEUE_WAIT, LANE_INTERACTIVE))
-                if not self._inflight:
-                    while self._maybe_preempt():
-                        self._admit_pending()
+                self._maybe_preempt()
                 self._admit_pending()
                 self._sweep_finishes()
-                self._prune_dead_chunks()
-                if self._inflight:
+                n_active = sum(s is not None and not s.exhausted
+                               for s in self._slots)
+                chunks_in_pipe = sum(1 for e in self._inflight
+                                     if e[0] == "chunk")
+                # Latency at low occupancy: with at most two slots live
+                # and no chunk in flight, deliver a fresh admission's
+                # first token before dispatching behind it; with more
+                # streams, keep the pipe full and let the read overlap.
+                if (chunks_in_pipe == 0 and n_active <= 2 and self._inflight
+                        and self._inflight[0][0] == "first"):
                     self._consume_oldest()
                     continue
-                if any(s is not None and not s.exhausted
-                       for s in self._slots):
+                if n_active > 0 and chunks_in_pipe < self.chunk_pipe_depth:
                     now = time.monotonic()
-                    if (any(s is None for s in self._slots)
+                    if (chunks_in_pipe == 0
+                            and any(s is None for s in self._slots)
                             and now - self._last_admit_t
                             < self.ADMIT_RAMP_SECS):
-                        # Burst ramp: let the rest of a burst board the
-                        # first chunk together (a hold is no step).
-                        self._steptime_pending = None
+                        # Burst ramp: while admissions keep landing and
+                        # slots are free, hold the first chunk so the
+                        # rest of a burst boards it (capped from the
+                        # hold's start: a steady trickle cannot defer it).
                         if self._ramp_hold_t0 is None:
                             self._ramp_hold_t0 = now
                         if now - self._ramp_hold_t0 < self.ADMIT_RAMP_MAX_SECS:
@@ -2905,9 +3056,11 @@ class BatchedTorchEngine(TorchEngine):
                     self._ramp_hold_t0 = None
                     self._dispatch_chunk()
                     continue
-                # Idle: no live slot. The next dispatch starts a fresh
-                # step-time interval.
-                self._steptime_pending = None
+                self._prune_dead_chunks()
+                if self._inflight:
+                    self._consume_oldest()
+                    continue
+                # Idle: wait for an admission.
                 try:
                     req = self._admissions.get(timeout=0.05)
                 except _queue.Empty:
@@ -3134,9 +3287,12 @@ class BatchedTorchEngine(TorchEngine):
 
     def _reset_decode_state(self, survivors: List[_Slot],
                             cause: str) -> None:
-        """Tear down and record one reset: the slots detach, the chunks
-        in flight drop and every device buffer is rebuilt as startup
-        built it. The old ones may hold poisoned (NaN) KV rows: nothing
+        """Tear down and record one reset: the slots detach, the entries
+        in flight drop (their events and pinned host buffers with them:
+        the kernels still queued run out on the old buffers, which the
+        stream-ordered allocators hand out again only behind them) and
+        every device buffer is rebuilt as startup built it. The old
+        ones may hold poisoned (NaN) KV rows: nothing
         is salvaged; a replay re-derives each slot from host truth
         (prompt, generated ids, seed). In the pool the rebuilt allocator
         and radix tree start empty, so every survivor's block list is
@@ -3149,9 +3305,8 @@ class BatchedTorchEngine(TorchEngine):
             for s in survivors:
                 s.blocks = []
         # Staged ragged admissions die with the state they were staged
-        # against; their replay re-stages them. A reset is no step.
+        # against; their replay re-stages them.
         self._pending_adm.clear()
-        self._steptime_pending = None
         self._last_progress = time.monotonic()
         self.supervisor.note_reset(cause)
 

@@ -195,6 +195,30 @@ def consume_chunk_row(tokens_row, done: bool, length: int,
     return new_ids, finish
 
 
+def scan_chunk_row(tokens_row, already_emitted: int, eos_ids,
+                   max_tokens: int) -> Tuple[List[int], Optional[str], int]:
+    """Consume one slot's row under host-side termination
+    (``DEVICE_TERMINATION=false``): walk the row until EOS or the token
+    budget. Returns ``(new_ids, finish, wasted_steps)``;
+    ``wasted_steps`` counts the decode steps the device ran past the
+    slot's finish (the waste the device-side done mask removes)."""
+    new_ids: List[int] = []
+    finish = None
+    steps = 0
+    for tid in tokens_row:
+        steps += 1
+        tid = int(tid)
+        if tid in eos_ids:
+            finish = "stop"
+            break
+        new_ids.append(tid)
+        if already_emitted + len(new_ids) >= max_tokens:
+            finish = "length"
+            break
+    wasted = len(tokens_row) - steps if finish is not None else 0
+    return new_ids, finish, wasted
+
+
 @dataclass
 class RequestExport:
     """Live, host-readable view of one request's recoverable state.

@@ -466,7 +466,7 @@ class TorchEngine:
         cols = torch.arange(bucket, dtype=torch.int32, device=dev)
         logits, _ = forward(
             self.params, self.model_cfg,
-            torch.from_numpy(tokens).to(dev), (offset + cols)[None], cache,
+            self._h2d(tokens), (offset + cols)[None], cache,
             kv_limit=kv_limit, attn_impl=self._prefill_impl_for(
                 bucket, kv_limit),
             token_mask=(cols < n)[None], moe_impl=self.moe_impl,
@@ -623,6 +623,21 @@ class TorchEngine:
         new_done = done | eos_mask(toks, self._eos_d).any()
         toks = torch.where(done, torch.full_like(toks, -1), toks)
         return toks, tok, pos, key, new_done
+
+    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the serving device, in its own dtype. On the
+        card the bytes go through pinned staging and a non-blocking copy
+        queued on the current stream: a copy from pageable memory waits
+        for the whole stream, so the host would stall behind every chunk
+        still in flight. The staging block belongs to PyTorch's pinned
+        host allocator, which records the copy's event on it and hands
+        the block out again only once that event has passed, so it is
+        never rewritten before the copy has run. On the CPU the tensor
+        is a private copy (the caller may rewrite ``arr`` later)."""
+        src = torch.from_numpy(np.array(arr, order="C", copy=True))
+        if self.device.type != "cuda":
+            return src
+        return src.pin_memory().to(self.device, non_blocking=True)
 
     def _to_host_async(self, t: torch.Tensor):
         """Start the device->host copy of a chunk's tokens without

@@ -72,6 +72,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                over HTTP (the repeats' 422s are not cached, so they reach
                the engine). Launch counters are zeroed just before and
                read just after.
+3b. serve_pipe -- the decode chunk pipeline on serve's cell (Gemma-2B,
+               random bf16 weights from seed 0, 8 slots, chunk 16), four
+               engines in turn from the environment-style config, each
+               served over HTTP and released before the next: the serve
+               burst of 8 and its 2 repeats, and in (a) then 4 requests
+               one at a time at the engine, seeded at 0.9 (64 tokens).
+               (a) The ragged regime at CHUNK_PIPE_DEPTH=3 (the default)
+               and at 1. (b) DEVICE_TERMINATION=false at depth 2 with
+               DECODE_ATTN=paged and KV_POOL_PAGE=64, and its reference,
+               the legacy pool ladder (RAGGED_ATTENTION=off) with device
+               termination at depth 1. Every dispatch and admission runs
+               under torch.cuda.set_sync_debug_mode("error"), and the
+               events of the chunks in flight are queried as each
+               dispatch starts and returns. Gates: no synchronizing call
+               between dispatches; host reads equal the entries read;
+               (a) the sequential transcripts byte-identical between the
+               depths, each burst transcript identical or apart first at
+               a near tie, the pipe reaching 3 chunks at depth 3, the
+               books balanced, ragged launches at least forward steps x
+               layers; then a second window with the card made the
+               slower side (each forward also queues a device spin of
+               twice a forward's host time, torch.cuda._sleep, and a
+               fresh burst decodes 32 tokens each): at depth 3 at least
+               one dispatch begins while an earlier chunk still runs on
+               the card, at depth 1 none begins or returns over one, and
+               the transcripts are equal or apart at a near tie; (b) the host
+               scan resolved to the legacy ladder with the JAX warning,
+               its greedy transcripts byte-identical to the reference's,
+               the paged pool and flash kernels launched in both and
+               held against their plain versions on the host scan's own
+               last inputs, wasted_decode_steps_total read from /metrics
+               (at least 0) and decode_pipe_depth 2 there. Printed, no
+               claim: burst tok/s at depths 3 and 1, host ms a dispatch,
+               the share of dispatches that overlapped a running chunk,
+               fetch ms, beside the card's name and power limit.
 4. serve1   -- the single-sequence engine: MODEL_NAME=gemma-7b-it,
                QUANT=int4, DECODE_BATCH_SIZE=1, random int4 weights from
                a fixed seed, PREFILL_BUCKETS=64,128,256,512. Over HTTP:
@@ -124,7 +159,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                random bf16 weights, seed 0), TENANT_TIERS=bulk-key:
                background,hi-key:interactive, PREEMPT_WAIT_MS=50,
                TENANT_MAX_QUEUE=4, RATE_LIMIT=1000/minute,
-               MAX_NEW_TOKENS=160:
+               MAX_NEW_TOKENS=256:
                (a) the default pool + ragged regime, 8 slots: a greedy
                background query over HTTP and a sampled one (temperature
                0.9, a fixed seed, a direct engine call under a
@@ -149,7 +184,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                Ragged, flash and paged launches are zeroed before each
                engine's traffic and printed after.
 8. serve_moe -- Mixtral-8x7B (MODEL_NAME=mixtral-8x7b-instruct) at full
-               width: 32 layers, dim 4096, 8 experts of 14,336 with 2
+               width, 16 of its 32 layers (MOE_LAYERS; the engines take
+               the cut config): dim 4096, 8 experts of 14,336 with 2
                routed per token, 32 query heads over 8 KV heads of 128,
                vocab 32,000. QUANT=int4: attention and the head packed
                int4, the expert stacks int8, the embedding per-row int8,
@@ -466,10 +502,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "ai_agent_kubectl_tpu_torch"
-PHASES = ("build", "kernel", "serve", "serve1", "serve_paged", "serve_ckpt",
-          "serve_qos", "serve_moe", "serve_kvq", "serve_obs", "serve_chaos",
-          "serve_grammar", "serve_spec", "serve_host", "serve_fleet",
-          "timing")
+PHASES = ("build", "kernel", "serve", "serve_pipe", "serve1", "serve_paged",
+          "serve_ckpt", "serve_qos", "serve_moe", "serve_kvq", "serve_obs",
+          "serve_chaos", "serve_grammar", "serve_spec", "serve_host",
+          "serve_fleet", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -795,12 +831,15 @@ def flash_cases(torch, gen):
 
 # Gemma-2B's attention geometry: 8 query heads over 1 KV head of 256.
 G2B = dict(H=N_HEADS, KV=N_KV, hd=HEAD_DIM)
-# serve_host (b)'s gather-path prefills on Gemma-2B, (label, S, KVLEN,
-# offset): a window is the largest prefill bucket within the prompt's KV
-# rung, so a turn 1 (up to 256 tokens) runs S = KVLEN = 256 from 0, and a
-# turn 2 after its radix hit of three 64-row pages runs from 192 at the
-# rung of 256 or of 512 (positions past KVLEN: the bucket's padded tail).
-G2B_FLASH = (("g2b_s256_pos0", 256, 256, 0),
+# serve_host (b)'s and serve_pipe (b)'s gather-path prefills on Gemma-2B,
+# (label, S, KVLEN, offset): a window is the largest prefill bucket within
+# the prompt's KV rung, so a turn 1 (up to 256 tokens) runs S = KVLEN =
+# 256 from 0, and a turn 2 after its radix hit of three 64-row pages runs
+# from 192 at the rung of 256 or of 512 (positions past KVLEN: the
+# bucket's padded tail); serve's 82-88-token queries run S = KVLEN = 128,
+# from 64 after a one-page radix hit.
+G2B_FLASH = (("g2b_s128_off64", 128, 128, 64),
+             ("g2b_s256_pos0", 256, 256, 0),
              ("g2b_s256_off192", 256, 256, 192),
              ("g2b_s512_off192", 512, 512, 192))
 # Flash cases whose keys must stay whole (every other case splits them).
@@ -2624,9 +2663,11 @@ QOS_ENV = {
     "PREEMPT_WAIT_MS": "50", "TENANT_MAX_QUEUE": "4",
     # Above serve's 128: when a filler wave is seated over two chunks its
     # first filler leads by up to 112 tokens as the interactive requests
-    # arrive, and at 128 it would finish at the next chunk and free a
-    # slot before any preemption could fire.
-    "MAX_NEW_TOKENS": "160",
+    # arrive at pipe depth 1, and at the default depth of 3 each of the
+    # three waits for tokens below reads them two chunks later still (up
+    # to 96 more); with less it would finish and free a slot before any
+    # preemption could fire.
+    "MAX_NEW_TOKENS": "256",
 }
 QOS_BULK, QOS_HI = {"X-API-Key": "bulk-key"}, {"X-API-Key": "hi-key"}
 #: the two reference requests: a greedy one over HTTP, and a sampled one
@@ -3071,6 +3112,11 @@ def _sampling_step(torch, engine) -> dict:
 # other knob at its default (ragged pool regime, 16-token pages and
 # chunks, 128 new tokens, greedy, MOE_IMPL=auto).
 MOE_MODEL = "mixtral-8x7b-instruct"
+#: the layers serve_moe runs, of Mixtral's 32 (widths untouched): since
+#: the pipe's default depth of 3 every serving phase dispatches two
+#: chunks past each drain, and the whole script must stay well inside
+#: its time limit
+MOE_LAYERS = 16
 SERVE_MOE_ENV = {
     "ENGINE": "torch", "TORCH_DEVICE": "cuda",
     "MODEL_NAME": MOE_MODEL, "DTYPE": "bfloat16", "QUANT": "int4",
@@ -3168,11 +3214,10 @@ def phase_serve_moe(torch, profile: bool = False) -> dict:
     peak-memory gate. The tree is freed at the end."""
     import gc
 
-    from ai_agent_kubectl_tpu_torch.models.config import get_config
     from ai_agent_kubectl_tpu_torch.ops.quant import random_params_int8
 
     release_served_apps(torch)
-    cfg = get_config(MOE_MODEL)
+    cfg = cut_config(MOE_MODEL, MOE_LAYERS)
     want_tree = quantized_tree_bytes(cfg)
     free, total = torch.cuda.mem_get_info()
     log(f"[serve_moe] {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, "
@@ -3279,6 +3324,7 @@ async def _serve_moe_one(torch, kind: str, env: dict, params,
     pool = kind == "pool"
     if type(inner) is not (BatchedTorchEngine if pool else TorchEngine):
         raise AssertionError(f"{tag}: engine construction failed: {inner!r}")
+    inner.model_cfg = cut_config(MOE_MODEL, MOE_LAYERS)
     inner.params = params
     engine = RecordingEngine(inner)
     runner = web.AppRunner(create_app(cfg, engine), access_log=None)
@@ -4543,6 +4589,7 @@ def kernel_lines(results: dict) -> list:
     spec = results.get("serve_spec", {}).get("launches", {})
     host = results.get("serve_host", {}).get("launches", {})
     fleet = results.get("serve_fleet", {}).get("launches", {})
+    pipe = results.get("serve_pipe", {}).get("launches", {})
 
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
@@ -4565,7 +4612,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_grammar": grammar.get(name),
                                "serve_spec": spec.get(name),
                                "serve_host": host.get(name),
-                               "serve_fleet": fleet.get(name)},
+                               "serve_fleet": fleet.get(name),
+                               "serve_pipe": pipe.get(name)},
             "shapes": shapes,
         }
 
@@ -6882,6 +6930,427 @@ def _pinned_copy(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serve_pipe
+
+#: serve_pipe: serve's cell (Gemma-2B, random bf16 weights from seed 0, 8
+#: slots, chunk 16) through the decode chunk pipeline. (a) the ragged
+#: regime at CHUNK_PIPE_DEPTH 3 (the default) against 1; (b)
+#: DEVICE_TERMINATION=false at depth 2 on the legacy pool ladder (paged
+#: decode at page 64, flash prefill), against device termination at
+#: depth 1 on that ladder.
+PIPE_ENV = dict(SERVE_ENV, RATE_LIMIT="1000/minute")
+PIPE_RUNS = {
+    "depth3": {"CHUNK_PIPE_DEPTH": "3"},
+    "depth1": {"CHUNK_PIPE_DEPTH": "1"},
+    "scan": {"CHUNK_PIPE_DEPTH": "2", "DEVICE_TERMINATION": "false",
+             "DECODE_ATTN": "paged", "KV_POOL_PAGE": "64"},
+    "scan_ref": {"CHUNK_PIPE_DEPTH": "1", "RAGGED_ATTENTION": "off",
+                 "DECODE_ATTN": "paged", "KV_POOL_PAGE": "64"},
+}
+#: (a)'s requests sent one at a time after the burst: seeded, at 0.9,
+#: PIPE_SEQ_TOKENS each
+PIPE_SEQUENTIAL = [(f"{q} right now", 900 + i)
+                   for i, q in enumerate(QUERIES[:4])]
+PIPE_TEMPERATURE = 0.9
+PIPE_SEQ_TOKENS = 64
+#: (a)'s second window: the card made the slower side. Each forward
+#: also queues a device-side spin of PIPE_SPIN_FACTOR times the host ms
+#: a forward takes (measured in the depth-3 run's traffic), and a burst
+#: of 8 fresh queries decodes PIPE_SPIN_TOKENS tokens each.
+PIPE_SPIN_FACTOR = 2.0
+PIPE_SPIN_TOKENS = 32
+#: the host-scan regime's warning (the JAX engine's words)
+PIPE_SCAN_WARNING = ("RAGGED_ATTENTION needs DEVICE_TERMINATION (staged "
+                     "admissions arm inside the chunk carry); serving the "
+                     "legacy ladder")
+
+
+def phase_serve_pipe(torch) -> dict:
+    """The decode chunk pipeline on the card (the docstring's 3b)."""
+    return asyncio.run(_serve_pipe(torch))
+
+
+class _PipeProbe:
+    """The scheduler's pipe as the card sees it, on one engine. Each
+    dispatch runs under ``torch.cuda.set_sync_debug_mode("error")`` (so
+    does each admission): a copy from pageable memory, a ``.item()`` or a
+    boolean index there raises and is recorded. Before and after each
+    dispatch the events of the chunks already in flight are queried: a
+    dispatch that starts, or returns, while an earlier chunk has not
+    finished on the card overlapped it. Every host read (``_fetch``) is
+    counted and timed, and so is every entry read. The counts go to the
+    window named by ``window``."""
+
+    def __init__(self, torch, inner):
+        self.torch, self.inner = torch, inner
+        self.windows: dict = {}
+        self.window = "traffic"
+        self.saved = {n: getattr(inner, n) for n in (
+            "_dispatch_chunk", "_admit_fresh", "_fetch", "_consume_oldest")}
+        inner._dispatch_chunk = self._checked(self._dispatch)
+        inner._admit_fresh = self._checked(self.saved["_admit_fresh"])
+        inner._fetch = self._fetch
+        inner._consume_oldest = self._consume
+
+    def _w(self) -> dict:
+        return self.windows.setdefault(self.window, {
+            "syncs": [], "host_ms": [], "fetch_ms": [], "dispatches": 0,
+            "overlapped_at_start": 0, "overlapped_at_return": 0,
+            "max_pipe": 0, "host_reads": 0, "entries_read": 0})
+
+    def _checked(self, fn):
+        torch = self.torch
+
+        def call(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            except RuntimeError as e:
+                if "synchroniz" in str(e):
+                    self._w()["syncs"].append(str(e).splitlines()[0])
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    def _dispatch(self):
+        inner, w = self.inner, self._w()
+        earlier = [e[1][1] for e in inner._inflight if e[0] == "chunk"]
+        start = any(not ev.query() for ev in earlier)
+        t0 = time.perf_counter()
+        self.saved["_dispatch_chunk"]()
+        w["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        w["dispatches"] += 1
+        w["overlapped_at_start"] += start
+        w["overlapped_at_return"] += any(not ev.query() for ev in earlier)
+        w["max_pipe"] = max(w["max_pipe"], sum(
+            1 for e in inner._inflight if e[0] == "chunk"))
+
+    def _fetch(self, handle):
+        t0 = time.perf_counter()
+        out = self.saved["_fetch"](handle)
+        w = self._w()
+        w["fetch_ms"].append((time.perf_counter() - t0) * 1e3)
+        w["host_reads"] += 1
+        return out
+
+    def _consume(self):
+        self._w()["entries_read"] += 1
+        return self.saved["_consume_oldest"]()
+
+    def restore(self) -> None:
+        for name in self.saved:
+            delattr(self.inner, name)
+
+    def summary(self, window: str = "traffic") -> dict:
+        w = dict(self.windows.get(window) or self._w())
+
+        def med(xs):
+            return sorted(xs)[len(xs) // 2] if xs else None
+
+        host, fetch = w.pop("host_ms"), w.pop("fetch_ms")
+        n = w["dispatches"]
+        return dict(w, syncs=list(w["syncs"]),
+                    overlap_share_at_start=(w["overlapped_at_start"] / n
+                                            if n else None),
+                    overlap_share_at_return=(w["overlapped_at_return"] / n
+                                             if n else None),
+                    host_ms_per_dispatch_median=med(host),
+                    host_ms_per_dispatch_mean=(sum(host) / n if n else None),
+                    fetch_ms_median=med(fetch),
+                    fetch_ms_max=max(fetch, default=None))
+
+
+def _spin_cycles(torch, ms: float) -> int:
+    """The ``torch.cuda._sleep`` argument that spins the card for about
+    ``ms`` milliseconds (its clock measured with CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return int(20_000_000 / start.elapsed_time(end) * ms)
+
+
+async def _pipe_engine(torch, name: str, counters: dict, spin: dict):
+    """One engine of serve_pipe, built by the factory from the
+    environment-style config and served over HTTP: serve's burst of 8 and
+    its two repeats, then in (a) the seeded requests one at a time at the
+    engine, all under a ``_PipeProbe`` (and in (b)'s host scan a
+    ``_KernelTap``); then in (a) the spin window (``spin["ms"]``, set by
+    the depth-3 run). Returns the stopped engine (its weights serve the
+    near-tie forward) and what was measured."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    port = _free_port()
+    _phase_env(dict(PIPE_ENV, **PIPE_RUNS[name]), port)
+    cfg = ServiceConfig.from_env()
+    tag = f"serve_pipe/{name}"
+    with _LogLines() as logs:
+        inner = build_engine(cfg)
+        if not isinstance(inner, BatchedTorchEngine):
+            raise AssertionError(f"{tag}: engine construction failed: "
+                                 f"{inner!r}")
+        engine = RecordingEngine(inner)
+        runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+        t0 = time.monotonic()
+        await runner.setup()             # starts the engine (warm-up too)
+        startup_s = time.monotonic() - t0
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    out = {"regime": inner._attention_regime, "startup_s": startup_s,
+           "depth": inner.chunk_pipe_depth,
+           "device_termination": inner.device_termination,
+           "warned": PIPE_SCAN_WARNING in logs.lines}
+    url = f"http://{cfg.host}:{port}"
+    tap = _KernelTap(torch) if name == "scan" else None
+    probe = _PipeProbe(torch, inner)
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            s0 = inner.stats()
+            steps0 = inner.forward_steps
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in QUERIES])
+            out["burst_s"] = time.monotonic() - t_burst
+            repeats = [await ask(QUERIES[i]) for i in REPEATS]
+            seq = []
+            if name.startswith("depth"):
+                for q, seed in PIPE_SEQUENTIAL:
+                    seq.append(await inner.generate(
+                        render_prompt(q), max_tokens=PIPE_SEQ_TOKENS,
+                        temperature=PIPE_TEMPERATURE, seed=seed))
+            while inner._inflight:       # the pipe drains behind the end
+                await asyncio.sleep(0.005)
+            s1 = inner.stats()
+            out["forward_steps"] = inner.forward_steps - steps0
+            out["launches"] = {n: fn.launches for n, fn in counters.items()}
+            async with http.get(f"{url}/metrics") as r:
+                out["metrics"] = _scrape(await r.text(), (
+                    "wasted_decode_steps_total", "decode_pipe_depth"))
+            if name.startswith("depth"):
+                if "ms" not in spin:
+                    per_forward = (probe.summary()["host_ms_per_dispatch_mean"]
+                                   / cfg.chunk_len)
+                    spin["ms"] = PIPE_SPIN_FACTOR * per_forward
+                    spin["cycles"] = _spin_cycles(torch, spin["ms"])
+                forward, cycles = inner._forward, spin["cycles"]
+
+                def spun(*args, **kw):
+                    logits = forward(*args, **kw)
+                    torch.cuda._sleep(cycles)
+                    return logits
+
+                inner._forward, probe.window = spun, "spin"
+                t_spin = time.monotonic()
+                spin_res = await asyncio.gather(*[
+                    inner.generate(render_prompt(f"{q} again"),
+                                   max_tokens=PIPE_SPIN_TOKENS,
+                                   temperature=0.0) for q in QUERIES])
+                out["spin_s"] = time.monotonic() - t_spin
+                del inner._forward
+                while inner._inflight:
+                    await asyncio.sleep(0.005)
+    finally:
+        probe.restore()
+        if tap is not None:
+            tap.restore()
+        await runner.cleanup()           # drains and stops the engine
+    out["probe"] = probe.summary()
+    if name.startswith("depth"):
+        out["spin_probe"] = probe.summary("spin")
+        out["spin_tok_per_s"] = (sum(r.completion_tokens for r in spin_res)
+                                 / out["spin_s"])
+    out["chunks"] = {k: s1[k] - s0[k] for k in (
+        "chunks_dispatched", "chunks_consumed", "chunks_pruned",
+        "wasted_decode_steps")}
+    results = {}
+    for prompt, res in engine.results:
+        results.setdefault(prompt, []).append(res)
+    for query, (status, body) in zip(QUERIES + [QUERIES[i] for i in REPEATS],
+                                     burst + repeats):
+        res = results[render_prompt(query)][0]
+        want = status_for_text(res.text)
+        if status != want or res.completion_tokens <= 0:
+            raise AssertionError(f"{tag}: {query!r} HTTP {status}, the "
+                                 f"service gives {want} for {res.text!r}: "
+                                 f"{body}")
+    firsts = [results[render_prompt(q)][0] for q in QUERIES]
+    again = [results[render_prompt(QUERIES[i])][1] for i in REPEATS]
+    for i, r in zip(REPEATS, again):
+        if r.token_ids != firsts[i].token_ids:
+            raise AssertionError(f"{tag}: the repeat of {QUERIES[i]!r} "
+                                 f"changed its greedy tokens")
+    out["burst_tokens"] = sum(r.completion_tokens for r in firsts)
+    out["burst_tok_per_s"] = out["burst_tokens"] / out["burst_s"]
+    out["burst_ttft_ms_p50"] = sorted(r.ttft_ms for r in firsts)[4]
+    out["ids"] = {"burst": [list(r.token_ids) for r in firsts],
+                  "seq": [list(r.token_ids) for r in seq],
+                  "spin": ([list(r.token_ids) for r in spin_res]
+                           if name.startswith("depth") else [])}
+    out["prompt_ids"] = [inner.tokenizer.encode(render_prompt(q))
+                         for q in QUERIES]
+    out["spin_prompt_ids"] = [
+        inner.tokenizer.encode(render_prompt(f"{q} again")) for q in QUERIES]
+    check_pool_books(inner)
+    if tap is not None:
+        out["tap"] = tap.check(tag)
+    p = out["probe"]
+    log(f"[{tag}] {out['regime']} regime, depth {out['depth']}, "
+        f"{'device' if out['device_termination'] else 'host-scan'} "
+        f"termination: burst {out['burst_tok_per_s']:.1f} tok/s, TTFT p50 "
+        f"{out['burst_ttft_ms_p50']:.0f} ms; "
+        f"{p['dispatches']} dispatches ({p['overlapped_at_start']} began, "
+        f"{p['overlapped_at_return']} returned with an earlier chunk "
+        f"running on the card), pipe up to {p['max_pipe']}, host "
+        f"{p['host_ms_per_dispatch_median']:.2f} ms a dispatch (median), "
+        f"fetch median {p['fetch_ms_median']:.3f} ms max "
+        f"{p['fetch_ms_max']:.3f} ms; {p['host_reads']} host reads for "
+        f"{p['entries_read']} entries; chunks {out['chunks']}; "
+        f"/metrics {out['metrics']}; {len(p['syncs'])} synchronizing calls")
+    if name.startswith("depth"):
+        q = out["spin_probe"]
+        log(f"[{tag}] with a {spin['ms']:.1f} ms device spin a forward: "
+            f"{out['spin_tok_per_s']:.1f} tok/s; {q['dispatches']} "
+            f"dispatches ({q['overlapped_at_start']} began, "
+            f"{q['overlapped_at_return']} returned with an earlier chunk "
+            f"running on the card), host "
+            f"{q['host_ms_per_dispatch_median']:.1f} ms a dispatch (median),"
+            f" pipe up to {q['max_pipe']}, fetch "
+            f"median {q['fetch_ms_median']:.3f} ms max "
+            f"{q['fetch_ms_max']:.3f} ms, {len(q['syncs'])} synchronizing "
+            f"calls")
+    return inner, out
+
+
+async def _serve_pipe(torch) -> dict:
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_pool)
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool)
+
+    counters = {"ragged_attention_pool": ragged_attention_pool,
+                "flash_attention_cached": flash_attention_cached,
+                "paged_decode_attention_pool": paged_decode_attention_pool}
+    runs, near, spin = {}, {}, {}
+    for name in PIPE_RUNS:
+        inner, out = await _pipe_engine(torch, name, counters, spin)
+        runs[name] = out
+        ref = {"depth1": "depth3", "scan_ref": "scan"}.get(name)
+        if ref is not None:
+            # The near-tie forward runs on this (reference) engine's
+            # weights: every engine drew the same seed-0 init.
+            a, b = runs[ref]["ids"], out["ids"]
+            prompts = [(ids, 0.0, 0) for ids in out["prompt_ids"]]
+            near[ref] = _spec_gate_mismatches(
+                torch, f"serve_pipe/{ref}", inner, prompts, b["burst"],
+                a["burst"])
+            if name == "depth1":
+                near["spin"] = _spec_gate_mismatches(
+                    torch, "serve_pipe/spin", inner,
+                    [(ids, 0.0, 0) for ids in out["spin_prompt_ids"]],
+                    b["spin"], a["spin"])
+            if name == "depth1" and b["seq"] != a["seq"]:
+                raise AssertionError(
+                    "serve_pipe: the sequential seeded transcripts differ "
+                    "between depths 3 and 1")
+        inner.params = inner._cache = None
+        del inner
+        release_served_apps(torch)
+    d3, d1, scan, scan_ref = (runs[k] for k in PIPE_RUNS)
+    n_layers = get_config(SERVE_ENV["MODEL_NAME"]).n_layers
+    failures = []
+    for name, r in runs.items():
+        for p in (r["probe"], r.get("spin_probe", r["probe"])):
+            if p["syncs"]:
+                failures.append(f"{name}: synchronizing calls between "
+                                f"dispatches: {p['syncs'][:3]}")
+            if p["host_reads"] != p["entries_read"]:
+                failures.append(f"{name}: {p['host_reads']} host reads "
+                                f"for {p['entries_read']} entries read")
+    if d3["regime"] != "ragged" or d1["regime"] != "ragged":
+        failures.append(f"(a) regimes {d3['regime']}, {d1['regime']}")
+    if d3["probe"]["max_pipe"] != 3:
+        failures.append(f"(a) the pipe reached {d3['probe']['max_pipe']} "
+                        f"chunks, not 3")
+    if d3["spin_probe"]["overlapped_at_start"] < 1:
+        failures.append("(a) with the card the slower side, no dispatch at "
+                        "depth 3 began while an earlier chunk ran on it")
+    for key in ("probe", "spin_probe"):
+        p = d1[key]
+        if (p["overlapped_at_start"] or p["overlapped_at_return"]
+                or p["max_pipe"] != 1):
+            failures.append(f"(a) depth 1 overlapped: {p}")
+    for name in ("depth3", "depth1"):
+        r = runs[name]
+        if r["launches"]["ragged_attention_pool"] < n_layers * \
+                r["forward_steps"] or r["forward_steps"] <= 0:
+            failures.append(f"{name}: {r['launches']} ragged launches for "
+                            f"{r['forward_steps']} forward steps")
+    if not (scan["regime"] == "paged" and scan["warned"]
+            and not scan["device_termination"] and scan["depth"] == 2):
+        failures.append(f"(b) resolved to {scan['regime']} (warning logged: "
+                        f"{scan['warned']})")
+    if scan["ids"]["burst"] != scan_ref["ids"]["burst"]:
+        failures.append("(b) the host scan's greedy transcripts differ from "
+                        "the device-terminated ladder's")
+    for name in ("scan", "scan_ref"):
+        got = runs[name]["launches"]
+        if (got["paged_decode_attention_pool"] <= 0
+                or got["flash_attention_cached"] <= 0):
+            failures.append(f"{name}: launches {got}")
+    wasted = scan["metrics"].get("wasted_decode_steps_total")
+    if wasted is None or wasted < 0 or \
+            scan["metrics"].get("decode_pipe_depth") != 2:
+        failures.append(f"(b) /metrics {scan['metrics']}")
+    if failures:
+        raise AssertionError("serve_pipe: " + "; ".join(failures))
+    info = {
+        "spin": spin,
+        "runs": {k: {kk: vv for kk, vv in v.items()
+                     if kk not in ("ids", "prompt_ids", "spin_prompt_ids")}
+                 for k, v in runs.items()},
+        "near_tie_mismatches": near,
+        "launches": {n: sum(r["launches"][n] for r in runs.values())
+                     for n in counters},
+    }
+    log(f"[serve_pipe] (a) burst {d3['burst_tok_per_s']:.1f} tok/s at depth "
+        f"3 against {d1['burst_tok_per_s']:.1f} at depth 1 (no claim); "
+        f"{d3['probe']['overlapped_at_start']}/{d3['probe']['dispatches']} "
+        f"dispatches began and {d3['probe']['overlapped_at_return']} "
+        f"returned over a running chunk at depth 3; with the {spin['ms']:.1f}"
+        f" ms spin {d3['spin_probe']['overlapped_at_start']}/"
+        f"{d3['spin_probe']['dispatches']} began and "
+        f"{d3['spin_probe']['overlapped_at_return']} returned over one, "
+        f"{d3['spin_tok_per_s']:.1f} tok/s against "
+        f"{d1['spin_tok_per_s']:.1f} at depth 1; near ties "
+        f"{len(near['depth3'])} + {len(near['spin'])}; "
+        f"(b) wasted_decode_steps_total "
+        f"{wasted:.0f} under the host scan against "
+        f"{scan_ref['metrics'].get('wasted_decode_steps_total')} with "
+        f"device termination; {gpu_line()}")
+    return info
+
+
 # ------------------------------------------------------------ serve_fleet
 
 #: two Gemma-2B replicas of the serve phase's configuration behind the
@@ -7689,6 +8158,9 @@ def main() -> int:
     if "serve" in phases:
         results["serve"] = phase_serve(torch, args.profile, args.bursts)
         took("serve")
+    if "serve_pipe" in phases:
+        results["serve_pipe"] = phase_serve_pipe(torch)
+        took("serve_pipe")
     if "serve1" in phases:
         results["serve1"] = phase_serve1(torch, args.profile)
         took("serve1")

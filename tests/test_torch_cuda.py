@@ -1151,23 +1151,30 @@ def test_spec_chunk_on_the_card_equals_spec_off(card):
         eng = BatchedTorchEngine(get_config("toy-8m"), **kw, **spec)
         await eng.start()
         try:
+            # The warm-up's chunks still in flight run out first: the
+            # counts below are this burst's alone.
+            while eng._inflight:
+                await asyncio.sleep(0.005)
             ragged_attention_pool.launches = 0
+            v0 = eng.verify_steps
             res = await asyncio.gather(*[
                 eng.generate(p, max_tokens=24, seed=100 + i)
                 for i, p in enumerate(prompts)])
-            return eng, ragged_attention_pool.launches, [
-                list(r.token_ids) for r in res]
+            while eng._inflight:
+                await asyncio.sleep(0.005)
+            return eng, ragged_attention_pool.launches, \
+                eng.verify_steps - v0, [list(r.token_ids) for r in res]
         finally:
             await eng.stop()
 
-    on, launches, got = asyncio.run(run(
+    on, launches, verify, got = asyncio.run(run(
         spec_decode=True, spec_draft_k=2, spec_draft_model="toy-8m",
         spec_draft_seed=0))
-    off, _, want = asyncio.run(run())
+    off, _, _, want = asyncio.run(run())
     h = on.spec_health()
     assert h["drafted_tokens_total"] > 0 and h["accepted_tokens_total"] > 0
-    assert on.verify_steps > 0
-    assert launches >= on.model_cfg.n_layers * on.verify_steps
+    assert verify > 0
+    assert launches >= on.model_cfg.n_layers * verify
     assert on.ledger_snapshot()["conservation"]["balanced"]
     for p, a, b in zip(prompts, want, got):
         if a == b:
@@ -1281,12 +1288,15 @@ def test_fleet_migrates_a_request_between_two_replicas_on_the_card(card):
         try:
             want = await fleet.generate(prompt, max_tokens=48, seed=7)
             eng0 = fleet.replicas[0].engine
-            real, n = type(eng0)._dispatch_chunk.__get__(eng0), [0]
+            real = type(eng0)._dispatch_chunk.__get__(eng0)
+            base = eng0._chunks_consumed
             reached, opened = threading.Event(), threading.Event()
 
             def held():
-                n[0] += 1
-                if n[0] > 3 and not opened.is_set():
+                # Held once three chunks were read: tokens delivered,
+                # chunks still in the pipe.
+                if (eng0._chunks_consumed - base >= 3
+                        and not opened.is_set()):
                     reached.set()
                     opened.wait(60)
                 real()
@@ -1337,3 +1347,67 @@ def test_fleet_migrates_a_request_between_two_replicas_on_the_card(card):
         top2 = torch.topk(row, 2).values
         assert float(top2[0] - top2[1]) <= 0.05 * float(
             row.pow(2).mean().sqrt())
+
+
+def test_pipe_of_three_overlaps_the_card_and_serves_depth_ones_transcripts(
+        card):
+    """The batched engine at CHUNK_PIPE_DEPTH=3 against depth 1 on the
+    same toy weights, requests one at a time (greedy and seeded 0.9):
+    byte-identical transcripts. Each forward also queues a device-side
+    spin (``torch.cuda._sleep``) so that the card, not the host, sets
+    the pace: then at depth 3 a dispatch begins while an earlier chunk
+    still runs on the card (its event not yet complete), and at depth 1
+    never. Every dispatch runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no upload or read
+    between dispatches waits for the stream."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    reqs = [("pod alpha ", 0.0, 1), ("list things ", 0.9, 7),
+            ("get nodes ", 0.9, 8)]
+    kw = dict(tokenizer=ByteTokenizer(), device="cuda", dtype="bfloat16",
+              max_seq_len=128, prefill_buckets=(16, 32), batch_size=2,
+              chunk_len=4, prefix_cache=False)
+
+    def slowed(eng):
+        forward = eng._forward
+
+        def call(*args, **kwargs):
+            out = forward(*args, **kwargs)
+            torch.cuda._sleep(50_000_000)      # tens of ms of device work
+            return out
+        eng._forward = call
+
+    async def run(depth):
+        eng = BatchedTorchEngine(get_config("toy-8m"), chunk_pipe_depth=depth,
+                                 **kw)
+        await eng.start()
+        slowed(eng)
+        dispatch, overlapped = eng._dispatch_chunk, []
+
+        def watched():
+            earlier = [e[1][1] for e in eng._inflight if e[0] == "chunk"]
+            overlapped.append(any(not ev.query() for ev in earlier))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        eng._dispatch_chunk = watched
+        try:
+            out = [list((await eng.generate(p, max_tokens=24, temperature=t,
+                                            seed=s)).token_ids)
+                   for p, t, s in reqs]
+        finally:
+            await eng.stop()
+        return out, overlapped, eng.stats()["containment"]["resets"]
+
+    deep, deep_overlap, deep_resets = asyncio.run(run(3))
+    shallow, shallow_overlap, shallow_resets = asyncio.run(run(1))
+    assert deep == shallow
+    assert deep_resets == shallow_resets == {}
+    assert any(deep_overlap) and not any(shallow_overlap)

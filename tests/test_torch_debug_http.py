@@ -132,13 +132,14 @@ def answers():
                        BatchedTorchEngine(get_config("toy-8m"),
                                           tokenizer=ByteTokenizer(),
                                           device="cpu", batch_size=2,
-                                          chunk_len=4, **COMMON)))
+                                          chunk_len=4, chunk_pipe_depth=3,
+                                          **COMMON)))
         jax_side = await _drive(
             jax_create_app(JaxServiceConfig(engine="fake", **CFG),
                            BatchedJaxEngine(jconfig.get_config("toy-8m"),
                                             tokenizer=JaxByteTokenizer(),
                                             compile_cache_dir="",
-                                            chunk_pipe_depth=1,
+                                            chunk_pipe_depth=3,
                                             batch_size=2, chunk_len=4,
                                             **COMMON)))
         return port, jax_side

@@ -123,20 +123,22 @@ async def _fleet(ref, n=2, faults=None, fleet_kw=None, **kw):
 
 
 class _Gate:
-    """Holds an engine's scheduler thread before each chunk dispatch
-    after the first ``after`` until ``release``: the request it serves
-    is then in flight, with tokens generated, for as long as the test
-    needs. A dispatch released on a stopped engine does not run."""
+    """Holds an engine's scheduler thread before each chunk dispatch once
+    ``after`` chunks were read since the gate was set, until ``release``:
+    the request it serves is then in flight, with tokens generated and
+    chunks in the pipe, for as long as the test needs. A dispatch
+    released on a stopped engine does not run."""
 
     def __init__(self, eng, after: int = 2):
-        self.eng, self.after, self.n = eng, after, 0
+        self.eng, self.after = eng, after
+        self.base = eng._chunks_consumed
         self.reached = threading.Event()
         self.opened = threading.Event()
         real = type(eng)._dispatch_chunk.__get__(eng)
 
         def dispatch():
-            self.n += 1
-            if self.n > self.after and not self.opened.is_set():
+            if (eng._chunks_consumed - self.base >= self.after
+                    and not self.opened.is_set()):
                 self.reached.set()
                 self.opened.wait(LIMIT)
                 if not eng._running:

@@ -1,6 +1,7 @@
 """Grammar-constrained decoding in the port against the JAX package's, on
-the CPU (toy-8m, float32, ``ByteTokenizer``, 4 slots, chunk 4; the JAX
-engine at ``chunk_pipe_depth=1`` wherever counters are compared).
+the CPU (toy-8m, float32, ``ByteTokenizer``, 4 slots, chunk 4; both
+engines at ``chunk_pipe_depth=3``, the JAX default, wherever counters are
+compared).
 
 - **The copied ``constrain/``**: the same grammar hash and equal
   ``tok_class``, ``class_ok``, ``class_next``, ``forced_tok`` and
@@ -15,14 +16,13 @@ engine at ``chunk_pipe_depth=1`` wherever counters are compared).
   three regimes (ragged; ``RAGGED_ATTENTION=off``; ``KV_POOL=false``), at
   temperature 0 and seeded 0.9: byte-identical transcripts, every one in
   grammar, equal ``grammar_health()`` totals and balanced pool books.
-  Bursts are two requests: the JAX engine at pipe depth one still
-  dispatches a chunk before it consumes an eager admission's first token
-  when more than two slots are live, and a chunk in flight shortens the
-  fast-forward it would splice there, where the port consumes every
-  entry before the next dispatch. The transcripts agree either way; the
-  counters split forced from masked tokens differently.
-- Fast-forward on against off, and the permissive profile against the
-  grammar off: byte-identical, fewer masked steps with it on.
+  Bursts are two requests, so both engines consume an eager admission's
+  first token before they dispatch behind it; the chunks in flight
+  shorten the fast-forwards alike in both.
+- Fast-forward on against off at depths 1 and 3, and the permissive
+  profile against the grammar off: byte-identical, fewer masked steps
+  with it on (at depth 1 mid-stream splices too; at depth 3 the chunks in
+  flight cover every run past the admission's).
 - A dead end from an off-grammar resume prefix, a one-shot ``decode:nan``
   on a grammar request and a preempted grammar request, against the JAX
   engine.
@@ -226,13 +226,14 @@ COUNTERS = ("forced_tokens_total", "masked_steps_total",
 def _jax_engine(regime="ragged", **kw):
     return BatchedJaxEngine(jconfig.get_config("toy-8m"),
                             tokenizer=JaxByteTokenizer(),
-                            compile_cache_dir="", chunk_pipe_depth=1,
+                            compile_cache_dir="", chunk_pipe_depth=3,
                             grammar_decode=True,
                             **{**COMMON, **REGIMES[regime][0], **kw})
 
 
 def _port_engine(params, regime="ragged", **kw):
     kw.setdefault("grammar_decode", True)
+    kw.setdefault("chunk_pipe_depth", 3)
     return BatchedTorchEngine(TOY, tokenizer=ByteTokenizer(), params=params,
                               device="cpu",
                               **{**COMMON, **REGIMES[regime][1], **kw})
@@ -270,12 +271,68 @@ def _ids(text: str) -> list:
     return ByteTokenizer().encode(text, add_bos=False)
 
 
+async def _quiet(eng) -> None:
+    """Wait until the scheduler idles: the chunks dispatched past the
+    last request's end count against the depth until the idle scheduler
+    prunes them, so a request that arrives before that boards later
+    chunks. Its next idle pop (reached only with nothing in flight and
+    no live slot) comes after the turn that pruned them, its books
+    included."""
+    q = eng._admissions
+    get, idle = q.get, threading.Event()
+
+    def watched(*args, **kw):
+        idle.set()
+        return get(*args, **kw)
+
+    q.get = watched
+    try:
+        while not idle.is_set():
+            await asyncio.sleep(0.002)
+    finally:
+        q.__dict__.pop("get", None)
+
+
+async def _together(eng, calls) -> list:
+    """``calls`` (each a function giving one request's coroutine) sent at
+    once from an idle scheduler that is held at its next pop until every
+    one is queued: the burst then boards the same chunks in both engines
+    however the threads are scheduled."""
+    await _quiet(eng)
+    q = eng._admissions
+    pops = {name: getattr(q, name) for name in ("get", "get_nowait")}
+    opened, held = threading.Event(), threading.Event()
+
+    def hold(pop):
+        def call(*args, **kw):
+            held.set()
+            opened.wait(10.0)
+            return pop(*args, **kw)
+        return call
+
+    for name, pop in pops.items():
+        setattr(q, name, hold(pop))
+    try:
+        while not held.is_set():
+            await asyncio.sleep(0.002)
+        tasks = [asyncio.ensure_future(call()) for call in calls]
+        while q.qsize() < len(calls):
+            await asyncio.sleep(0.002)
+        opened.set()
+        return await asyncio.gather(*tasks)
+    finally:
+        opened.set()
+        for name in pops:
+            q.__dict__.pop(name, None)
+
+
 async def _bursts(eng, bursts=BURSTS):
     """Each burst's requests at once; the transcripts by (prompt, temp)."""
     out = {}
     for burst in bursts:
-        res = await asyncio.gather(*[
-            eng.generate(p, max_tokens=MAX_TOKENS, temperature=t, seed=s)
+        res = await _together(eng, [
+            (lambda p=p, t=t, s=s: eng.generate(
+                p, max_tokens=MAX_TOKENS, temperature=t, seed=s))
             for p, t, s in burst])
         for (p, t, _), r in zip(burst, res):
             out[(p, t)] = r.text
@@ -445,16 +502,20 @@ async def test_engine_matches_the_jax_engine(jax_ref, regime):
         assert text.startswith("kubectl ") and unsafe_reason(text) is None
 
 
-async def test_fast_forward_on_and_off_are_byte_identical(jax_ref):
+@pytest.mark.parametrize("depth", [1, 3])
+async def test_fast_forward_on_and_off_are_byte_identical(jax_ref, depth):
     """Four requests at once in the ragged regime: the admission splice
     and the mid-stream fast-forward (GRAMMAR_FORCED_RUN_MIN=2) against
     masked step-by-step decode of the same runs (10**6): the same
-    transcripts, strictly fewer masked steps with it on."""
+    transcripts, strictly fewer masked steps with it on. At depth 1 runs
+    splice mid-stream too; at depth 3 the two chunks in flight (8 tokens)
+    already decode every later run, so only the admission splices."""
     burst = [BURSTS[0] + BURSTS[1]]
     out = {}
     for name, run_min in (("on", 2), ("off", 10 ** 6)):
         eng = _port_engine(jax_ref["params"],
-                           grammar_forced_run_min=run_min)
+                           grammar_forced_run_min=run_min,
+                           chunk_pipe_depth=depth)
         await eng.start()
         try:
             c0 = _counters(eng)
@@ -465,7 +526,10 @@ async def test_fast_forward_on_and_off_are_byte_identical(jax_ref):
     (on, c_on), (off, c_off) = out["on"], out["off"]
     assert on == off
     assert c_off["fast_forward_splices_total"] == 0
-    assert c_on["fast_forward_splices_total"] > len(on)   # mid-stream too
+    if depth == 1:
+        assert c_on["fast_forward_splices_total"] > len(on)  # mid-stream
+    else:
+        assert c_on["fast_forward_splices_total"] == len(on)
     assert c_on["masked_steps_total"] < c_off["masked_steps_total"]
     assert (c_on["masked_steps_total"] + c_on["forced_tokens_total"]
             == c_off["masked_steps_total"])

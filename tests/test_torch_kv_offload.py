@@ -1,7 +1,8 @@
 """The port's two-tier host KV against the JAX package's, on the CPU
-(toy-8m, float32, ``ByteTokenizer``, 4 slots, chunk 4; the JAX engines
-at ``chunk_pipe_depth=1`` in the ragged regime, the port's on the JAX
-engine's weights through ``params_from_jax``).
+(toy-8m, float32, ``ByteTokenizer``, 4 slots, chunk 4; both engines at
+``chunk_pipe_depth=3``, the JAX default, the JAX engines in the ragged
+regime, the port's on the JAX engine's weights through
+``params_from_jax``).
 
 - **Fault C7**: the port's batcher never counted a starved slot, so
   ``pool_exhausted`` could not fire. A pool too small for two slots'
@@ -57,7 +58,7 @@ torch.set_num_threads(1)
 TOY = get_config("toy-8m")
 COMMON = dict(dtype="float32", max_seq_len=192, prefill_buckets=(32, 64),
               prefix_cache=False, batch_size=4, chunk_len=4,
-              kv_pool_page=16)
+              kv_pool_page=16, chunk_pipe_depth=3)
 HOST = 16
 PROMPT = ("inspect deployment rollout status verbose {seed} across the "
           "staging cluster now")
@@ -71,8 +72,7 @@ MODULES = {"jax": (jax_kv_pool, jax_radix, jax_faults, jax_qos),
 def _jax_engine(faults=None, **kw):
     return BatchedJaxEngine(jconfig.get_config("toy-8m"),
                             tokenizer=JaxByteTokenizer(),
-                            compile_cache_dir="", chunk_pipe_depth=1,
-                            faults=faults,
+                            compile_cache_dir="", faults=faults,
                             **{"ragged_attention": "on", **COMMON, **kw})
 
 
@@ -478,7 +478,7 @@ async def test_payload_layout_matches_the_jax_engine_in_bf16(kv_quant):
               max_seq_len=64, prefill_buckets=(16,))
     jeng = BatchedJaxEngine(jconfig.get_config("toy-8m"),
                             tokenizer=JaxByteTokenizer(),
-                            compile_cache_dir="", chunk_pipe_depth=1, **kw)
+                            compile_cache_dir="", **kw)
     await jeng.start()
     try:
         await jeng.generate("pod q0 and friends", max_tokens=4)

@@ -12,13 +12,13 @@
   own ``_slo`` and ``_brownout`` and their worker loops' call: both trim
   the background share.
 - **The engines**: ``BatchedTorchEngine`` against ``BatchedJaxEngine``
-  (``CHUNK_PIPE_DEPTH=1``) on toy-8m, greedy, one slot: a background
-  victim preempted at its fifth token by an interactive probe, and a
-  request cancelled while a chunk is in flight. The ledger's delivered,
-  preempted, replayed and wasted_masked steps per lane, the SLO sample
-  counts per (slo, lane) and the sentinel's prefill keys must be equal,
-  the books balanced in both; the port's depth-1 sentinel rule records
-  decode samples where the JAX engine at depth 1 records none.
+  at ``CHUNK_PIPE_DEPTH`` 1 and 3 on toy-8m, greedy, one slot: a
+  background victim preempted at its fifth token by an interactive
+  probe, and a request cancelled while a chunk is in flight. The
+  ledger's delivered, preempted, replayed and wasted_masked steps per
+  lane, the SLO sample counts per (slo, lane), the sentinel's prefill
+  keys and its decode samples must be equal, the books balanced in both
+  (a one-deep pipe records no decode sample in either engine).
 - **Quarantine**: a tripped health bit bills the request's tokens as
   quarantine_burn, never delivered, and the books still balance.
 - **Logs**: the JSON formatter stamps the JAX formatter's fields.
@@ -265,17 +265,18 @@ PROBE = ("quick q ", 505)     # greedy, interactive
 CANCELLED = ("bulk d ", 404)  # greedy, cancelled at its fifth token
 
 
-def _jax_engine(**kw):
+def _jax_engine(depth=1, **kw):
     return BatchedJaxEngine(jconfig.get_config("toy-8m"),
                             tokenizer=JaxByteTokenizer(),
-                            compile_cache_dir="", chunk_pipe_depth=1,
+                            compile_cache_dir="", chunk_pipe_depth=depth,
                             **COMMON, **kw)
 
 
-def _port_engine(params, **kw):
+def _port_engine(params, depth=1, **kw):
     return BatchedTorchEngine(get_config("toy-8m"), tokenizer=ByteTokenizer(),
                               params=params, device="cpu",
-                              ragged_attention="off", **COMMON, **kw)
+                              ragged_attention="off", chunk_pipe_depth=depth,
+                              **COMMON, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -346,6 +347,15 @@ async def _flood(eng, qos):
         with qos.use_qos(qos.QoSContext(tenant=tenant, lane=lane)):
             return await eng.generate(prompt, max_tokens=24, seed=seed)
 
+    async def quiet():
+        # At depth 3 the chunks dispatched past a drain stay in flight
+        # until the idle scheduler prunes them, and a dispatch with one
+        # still in flight takes a step-time sample: start each request
+        # from an empty pipe, so both engines sample alike.
+        while eng._inflight:
+            await asyncio.sleep(0.002)
+
+    await quiet()
     victim = asyncio.ensure_future(run(*VICTIM, "background", "bulk"))
     for _ in range(3000):
         await asyncio.sleep(0.002)
@@ -358,6 +368,7 @@ async def _flood(eng, qos):
             break
     ready.set()
     results = [await victim, await probe]
+    await quiet()
     results.append(await run(*CANCELLED, "interactive", "quiet"))
     ledger1, slo1 = _books(eng)
     rows = {lane: {cls: row[cls] - ledger0["lanes"].get(lane, {}).get(
@@ -378,13 +389,13 @@ async def _flood(eng, qos):
         wasted=eng.stats()["wasted_decode_steps"])
 
 
-async def test_engine_books_match_the_jax_engine_at_pipe_depth_one(
-        jax_params):
+async def _books_both(jax_params, depth):
     outs = []
     kw = dict(batch_size=1, preempt_wait_ms=15.0, slo_ttft_ms=5000.0,
               slo_interactive_ms=2000.0)
-    for make, qos in ((lambda: _jax_engine(**kw), jax_qos),
-                      (lambda: _port_engine(jax_params, **kw), port_qos)):
+    for make, qos in ((lambda: _jax_engine(depth, **kw), jax_qos),
+                      (lambda: _port_engine(jax_params, depth, **kw),
+                       port_qos)):
         eng = make()
         await eng.start()
         try:
@@ -394,16 +405,33 @@ async def test_engine_books_match_the_jax_engine_at_pipe_depth_one(
     jax_out, port_out = outs
     assert jax_out["preemptions"] == port_out["preemptions"] == 1
     assert port_out["finish"][2] == jax_out["finish"][2] == "abort"
-    for key in ("texts", "rows", "samples", "prefill_keys", "wasted"):
+    for key in ("texts", "rows", "samples", "prefill_keys", "decode_count",
+                "wasted"):
         assert port_out[key] == jax_out[key], key
     assert port_out["rows"]["background"]["preempted"] == 5
+    assert jax_out["conservation"] and port_out["conservation"]
+    return port_out
+
+
+async def test_engine_books_match_the_jax_engine_at_pipe_depth_one(
+        jax_params):
+    port_out = await _books_both(jax_params, 1)
     assert port_out["rows"]["interactive"]["wasted_masked"] == 4
     assert port_out["wasted"] == 4
-    assert jax_out["conservation"] and port_out["conservation"]
-    # The depth-1 sentinel rule: the JAX engine at depth 1 records no
-    # decode sample (its pipe is empty at every dispatch); the port's
-    # dispatch-to-dispatch counterpart does.
-    assert jax_out["decode_count"] == 0 < port_out["decode_count"]
+    # The sentinel samples a dispatch-to-dispatch interval only while a
+    # chunk is still in flight at the next dispatch: never at depth 1.
+    assert port_out["decode_count"] == 0
+
+
+async def test_engine_books_match_the_jax_engine_at_pipe_depth_three(
+        jax_params):
+    """The same drill with chunks in flight: the victim leaves with its
+    in-flight chunks billed as waste, the cancelled request likewise,
+    and the sentinel samples the decode intervals the JAX engine
+    samples."""
+    port_out = await _books_both(jax_params, 3)
+    assert port_out["wasted"] > 4
+    assert port_out["decode_count"] > 0
 
 
 def test_fault_c4_brownout_reads_the_slo_burn_rate(jax_params):

@@ -440,17 +440,18 @@ def test_route_version_filter_and_canary_accumulator():
 
 
 class _Hold:
-    """Holds an engine's scheduler before its third chunk dispatch until
-    ``release``: its request is in flight by construction."""
+    """Holds an engine's scheduler before its first chunk dispatch after
+    two chunks were read until ``release``: its request is in flight, with
+    tokens delivered, by construction."""
 
     def __init__(self, eng):
-        self.reached, self.opened, n = threading.Event(), \
-            threading.Event(), [0]
+        self.reached, self.opened = threading.Event(), threading.Event()
+        base = eng._chunks_consumed
         real = type(eng)._dispatch_chunk.__get__(eng)
 
         def dispatch():
-            n[0] += 1
-            if n[0] > 2 and not self.opened.is_set():
+            if (eng._chunks_consumed - base >= 2
+                    and not self.opened.is_set()):
                 self.reached.set()
                 self.opened.wait(LIMIT)
                 if not eng._running:

@@ -29,6 +29,7 @@ from ai_agent_kubectl_tpu.server.schemas import (
 from ai_agent_kubectl_tpu_torch import config as port_config
 from ai_agent_kubectl_tpu_torch.config import UNSERVED_KNOBS, ServiceConfig
 from ai_agent_kubectl_tpu_torch.engine import protocol as port_protocol
+from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
 from ai_agent_kubectl_tpu_torch.engine.protocol import (
     EngineOverloaded, EngineResult, EngineUnavailable, GenerationTimeout,
     RequestQuarantined)
@@ -222,8 +223,7 @@ def test_config_defaults_match_the_jax_package():
 
 #: every knob of UNSERVED_KNOBS with a value that asks for the feature
 REFUSED = [
-    ("CHUNK_PIPE_DEPTH", "3"),
-    ("DEVICE_TERMINATION", "false"), ("ADMIT_SCRATCH_MB", "256"),
+    ("ADMIT_SCRATCH_MB", "256"),
     ("MESH_SHAPE", "data:1,model:8"), ("DCN_MESH_SHAPE", "data:2"),
     ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
     ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
@@ -302,6 +302,57 @@ def test_config_reads_the_grammar_knobs_as_the_jax_package(
     monkeypatch.setenv(knob, value)
     ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
     assert getattr(ours, field) == want == getattr(theirs, field)
+
+
+#: the decode pipeline's knobs, refused until the port served them: each
+#: value is read into the field the JAX from_env fills (its default too)
+PIPE_KNOBS = [
+    ("CHUNK_PIPE_DEPTH", "1", "chunk_pipe_depth", 1),
+    ("CHUNK_PIPE_DEPTH", "2", "chunk_pipe_depth", 2),
+    ("CHUNK_PIPE_DEPTH", "", "chunk_pipe_depth", 3),
+    ("DEVICE_TERMINATION", "false", "device_termination", False),
+    ("DEVICE_TERMINATION", "", "device_termination", True),
+]
+
+
+@pytest.mark.parametrize("knob,value,field,want", PIPE_KNOBS)
+def test_config_reads_the_pipe_knobs_as_the_jax_package(monkeypatch, knob,
+                                                        value, field, want):
+    assert knob not in UNSERVED_KNOBS
+    monkeypatch.setenv(knob, value)
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert getattr(ours, field) == want == getattr(theirs, field)
+
+
+@pytest.mark.parametrize("feature", ["GRAMMAR_DECODE", "SPEC_DECODE"])
+def test_host_scan_refuses_grammar_and_spec_with_the_jax_message(
+        monkeypatch, feature):
+    """Grammar and speculative decoding ride the chunk's carry: with
+    DEVICE_TERMINATION=false both packages refuse to boot, with one
+    message."""
+    monkeypatch.setenv("DEVICE_TERMINATION", "false")
+    monkeypatch.setenv(feature, "true")
+    monkeypatch.setenv("DECODE_BATCH_SIZE", "4")
+    errors = []
+    for cls in (ServiceConfig, JaxServiceConfig):
+        with pytest.raises(ValueError) as e:
+            cls.from_env()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    assert errors[0].startswith(f"{feature} requires DEVICE_TERMINATION=true")
+
+
+def test_batched_engine_serves_the_pipe_knobs(monkeypatch):
+    """The factory's batched engine runs the depth and termination mode
+    the config read, and ``stats()`` reports them."""
+    monkeypatch.setenv("CHUNK_PIPE_DEPTH", "2")
+    monkeypatch.setenv("DEVICE_TERMINATION", "false")
+    monkeypatch.setenv("TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("DECODE_BATCH_SIZE", "4")
+    eng = BatchedTorchEngine.from_config(ServiceConfig.from_env())
+    assert (eng.chunk_pipe_depth, eng.device_termination) == (2, False)
+    stats = eng.stats()
+    assert (stats["pipe_depth"], stats["device_termination"]) == (2, False)
 
 
 #: the containment and OpenAI knobs, refused until the port served them:

@@ -1,7 +1,7 @@
 """Speculative decoding in the port against the JAX package's, on the CPU
-(toy-8m, float32, ``ByteTokenizer``, 4 slots, chunk 4; the JAX engines at
-``chunk_pipe_depth=1`` with the target's and the draft's parameters
-carried across by ``params_from_jax``).
+(toy-8m, float32, ``ByteTokenizer``, 4 slots, chunk 4; both engines at
+``chunk_pipe_depth=3``, the JAX default, the target's and the draft's
+parameters carried across by ``params_from_jax``).
 
 - **The packed buffer's v3 lanes**: the port's ``pack_chunk`` over torch
   tensors gives the JAX function's bytes; both unpack alike.
@@ -60,7 +60,8 @@ torch.set_num_threads(1)
 
 TOY = get_config("toy-8m")
 COMMON = dict(dtype="float32", max_seq_len=64, prefill_buckets=(16,),
-              prefix_cache=False, chunk_len=4, batch_size=4)
+              prefix_cache=False, chunk_len=4, batch_size=4,
+              chunk_pipe_depth=3)
 #: the two pool regimes, as each package spells them
 REGIMES = {
     "ragged": ({"ragged_attention": "on"}, {}),
@@ -94,7 +95,7 @@ SPEC_KEYS = ("drafted_tokens_total", "accepted_tokens_total")
 def _jax_engine(regime="ragged", k=2, **kw):
     return BatchedJaxEngine(
         jconfig.get_config("toy-8m"), tokenizer=JaxByteTokenizer(),
-        compile_cache_dir="", chunk_pipe_depth=1, spec_decode=True,
+        compile_cache_dir="", spec_decode=True,
         spec_draft_k=k, spec_draft_model="toy-8m",
         **{"spec_draft_seed": DRAFT_SEED, **COMMON, **REGIMES[regime][0],
            **kw})
@@ -117,11 +118,17 @@ def _spec_delta(eng, since):
 
 
 async def _one_by_one(eng, reqs=REQS, max_tokens=MAX_TOKENS):
-    """Each request alone; the transcripts and the spec totals' growth
-    (start()'s warm-up drafts too)."""
+    """Each request alone, from an empty pipe (the chunks dispatched past
+    the last request's end count against the depth until the idle
+    scheduler prunes them, and shift which chunks a request boards, so
+    the fast-forward's splices and with them the spec totals); the
+    transcripts and the spec totals' growth (start()'s warm-up drafts
+    too)."""
     h0 = eng.spec_health()
     out = {}
     for p, t, s in reqs:
+        while eng._inflight:
+            await asyncio.sleep(0.002)
         r = await eng.generate(p, max_tokens=max_tokens, temperature=t,
                                seed=s)
         out[(p, t)] = r.text
@@ -182,11 +189,19 @@ def jax_ref():
                         p, max_tokens=40, temperature=t, seed=s)).text
                         for p, t, s in BG_REQS}
                 if (regime, k) == ("ragged", 4):
-                    p, t, s = CAP_REQ
-                    r = await eng.generate(p, max_tokens=CAP_TOKENS,
-                                           temperature=t, seed=s)
-                    out["cap"] = (r.text, r.completion_tokens,
-                                  r.finish_reason)
+                    # The capacity request at the depth the engine was
+                    # built with and at depth 1 (the loop reads the depth
+                    # each turn; the pipe is empty between the two).
+                    out["cap"] = {}
+                    for depth in (3, 1):
+                        while eng._inflight:
+                            await asyncio.sleep(0.002)
+                        eng.chunk_pipe_depth = depth
+                        p, t, s = CAP_REQ
+                        r = await eng.generate(p, max_tokens=CAP_TOKENS,
+                                               temperature=t, seed=s)
+                        out["cap"][depth] = (r.text, r.completion_tokens,
+                                             r.finish_reason)
             finally:
                 await eng.stop()
         eng = _jax_engine(k=SAME_K, chunk_len=SAME_CHUNK, spec_draft_seed=0)
@@ -320,21 +335,25 @@ async def test_spec_with_grammar_matches_the_jax_engine(jax_ref):
         assert eng._grammar.in_grammar(0, ids) and text.startswith("kubectl")
 
 
-async def test_capacity_sweep_matches_the_jax_engine(jax_ref):
+@pytest.mark.parametrize("depth", [1, 3])
+async def test_capacity_sweep_matches_the_jax_engine(jax_ref, depth):
     """A sampled generation whose budget fills MAX_SEQ_LEN, at k=4 (the
     widest row), runs into the capacity sweep: the consume re-syncs the
     position bound from the slot's anchors, so the sweep retires the
     slot only once a dispatched row could pass MAX_SEQ_LEN, within one
-    row of the budget (without the re-sync the bound grows a whole row a
-    chunk and retires it after about a fifth of it). The transcript
-    equals the JAX engine's, token count and finish reason included, and
-    is a prefix of spec off's, which the plain chunk's narrower row
-    carries a little further (ROADMAP section C records the difference,
-    the JAX engine's own)."""
+    row of the budget at depth 1, and one more row (k + 2 tokens in the
+    ragged regime) for each further chunk in flight at depth 3 (without
+    the re-sync the bound grows a whole row a chunk and retires it after
+    about a fifth of it). The transcript equals the JAX engine's at the
+    same depth, token count and finish reason included, and is a prefix
+    of spec off's, which the plain chunk's narrower row carries a little
+    further (ROADMAP section C records the difference, the JAX engine's
+    own)."""
     p, t, s = CAP_REQ
     out = {}
     for name, draft in (("on", jax_ref["draft"]), ("off", None)):
-        eng = _port_engine(jax_ref["params"], draft, k=4)
+        eng = _port_engine(jax_ref["params"], draft, k=4,
+                           chunk_pipe_depth=depth)
         await eng.start()
         try:
             r = await eng.generate(p, max_tokens=CAP_TOKENS, temperature=t,
@@ -345,9 +364,10 @@ async def test_capacity_sweep_matches_the_jax_engine(jax_ref):
         finally:
             await eng.stop()
     assert n_prompt + CAP_TOKENS == COMMON["max_seq_len"]
-    assert out["on"] == jax_ref["cap"]
+    assert out["on"] == jax_ref["cap"][depth]
     text, n, finish = out["on"]
-    assert finish == "length" and CAP_TOKENS - 5 < n < CAP_TOKENS
+    assert finish == "length" and n < CAP_TOKENS
+    assert CAP_TOKENS - 5 - (depth - 1) * (4 + 2) < n
     assert out["off"][1:] == (CAP_TOKENS, "length")
     assert out["off"][0].startswith(text)
 
@@ -538,6 +558,9 @@ BAD_KNOBS = [
 
 @pytest.mark.parametrize("env", BAD_KNOBS)
 def test_bad_spec_knobs_raise_the_jax_errors(monkeypatch, env):
+    # The target is toy-8m whatever an earlier test in this process left
+    # in the environment (the JAX from_env also reads a .env file).
+    monkeypatch.setenv("MODEL_NAME", "toy-8m")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     errors = []
