@@ -7,8 +7,9 @@ is set to ``cpu``. Every other knob of the JAX package names a feature
 the port does not serve yet: it is listed in ``UNSERVED_KNOBS`` and
 refused at boot when set to anything but the value the port serves, so
 a deployment never silently gets less than it asked for. ``ENGINE``
-takes the port's engines (``torch``, ``torch-batched``) and the remote
-``openai`` engine; the JAX package's ``fake`` and ``jax`` engines are
+takes the port's engines (``torch``, ``torch-batched``), the remote
+``openai`` engine and the rule-table ``fake`` engine (no model, no
+device); the JAX package's ``jax`` and ``jax-batched`` engines are
 refused by name.
 ``COMPILE_CACHE_DIR`` has no counterpart: nothing compiles in eager
 PyTorch, so the knob is not read.
@@ -50,7 +51,11 @@ as the JAX factory does. The decode chunk pipeline
 host reads) and device-side termination (``DEVICE_TERMINATION``,
 default true; false serves the host-scan path) are read with the JAX
 defaults and errors: ``GRAMMAR_DECODE`` and ``SPEC_DECODE`` need device
-termination, and the batched engine refuses a depth below 1.
+termination, and the batched engine refuses a depth below 1. Group
+admission's scratch budget (``ADMIT_SCRATCH_MB``, default 512, 0 =
+uncapped) is read with the JAX parsing; it caps the group sizes of the
+batched engine on the dense KV ladder (``KV_POOL=false``), and the pool
+has no scratch to cap.
 """
 
 from __future__ import annotations
@@ -69,8 +74,6 @@ from .obs.steptime import load_baselines
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # the rest of the batched engine (A7): group admission
-    "ADMIT_SCRATCH_MB": "512",
     # more than one card or host (A8)
     "MESH_SHAPE": "", "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
     "COORDINATOR_ADDRESS": "", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
@@ -78,7 +81,6 @@ UNSERVED_KNOBS = {
 
 #: The JAX package's engines that the port does not serve, and why.
 UNSERVED_ENGINES = {
-    "fake": "the rule-table test engine (ROADMAP.md A9b)",
     "jax": "the JAX package's engine: the port serves ENGINE=torch",
     "jax-batched": "the JAX package's engine: the port serves "
                    "ENGINE=torch-batched",
@@ -166,9 +168,10 @@ class ServiceConfig:
     # fronting router tier); off, the peer address keys it.
     trust_proxy_headers: bool = False       # TRUST_PROXY_HEADERS
 
-    # ENGINE: torch | torch-batched | openai. "torch" serves through the
-    # continuous-batching scheduler when DECODE_BATCH_SIZE > 1; "openai"
-    # calls an OpenAI-compatible ChatCompletions endpoint.
+    # ENGINE: torch | torch-batched | openai | fake. "torch" serves
+    # through the continuous-batching scheduler when DECODE_BATCH_SIZE >
+    # 1; "openai" calls an OpenAI-compatible ChatCompletions endpoint;
+    # "fake" answers from the rule table (engine/fake.py, no model).
     engine: str = "torch"
     torch_device: str = "cuda"              # TORCH_DEVICE: cuda | cpu
     model_name: str = "toy-8m"              # MODEL_NAME (registry key)
@@ -197,6 +200,11 @@ class ServiceConfig:
     # whole chunk, the host scans for EOS and the budget, and
     # wasted_decode_steps_total shows what the device mask saves).
     device_termination: bool = True         # DEVICE_TERMINATION
+    # Group admission's scratch budget (MB) on the dense KV ladder: a
+    # burst of prefix hits sharing one suffix shape prefills as one
+    # group of kpad rows, and the kpads whose suffix-depth scratch
+    # exceeds it are dropped per depth (0 = uncapped).
+    admit_scratch_mb: int = 512             # ADMIT_SCRATCH_MB
     prefill_buckets: str = "64,128,256,512,1024"  # PREFILL_BUCKETS
     temperature: float = 0.0                # TEMPERATURE (0 = greedy)
     top_k: int = 0                          # TOP_K
@@ -384,9 +392,9 @@ class ServiceConfig:
             raise ValueError(
                 f"ENGINE={self.engine} ({UNSERVED_ENGINES[self.engine]}) "
                 f"is not served by the PyTorch port")
-        if self.engine not in ("torch", "torch-batched", "openai"):
-            raise ValueError(f"ENGINE must be torch|torch-batched|openai, "
-                             f"got {self.engine!r}")
+        if self.engine not in ("torch", "torch-batched", "openai", "fake"):
+            raise ValueError(f"ENGINE must be torch|torch-batched|openai|"
+                             f"fake, got {self.engine!r}")
         if self.torch_device not in ("cuda", "cpu"):
             raise ValueError(f"TORCH_DEVICE must be cuda|cpu, got "
                              f"{self.torch_device!r}")
@@ -667,6 +675,7 @@ class ServiceConfig:
             decode_batch_size=_env_int("DECODE_BATCH_SIZE", 8),
             chunk_len=_env_int("CHUNK_LEN", 16),
             chunk_pipe_depth=_env_int("CHUNK_PIPE_DEPTH", 3),
+            admit_scratch_mb=_env_int("ADMIT_SCRATCH_MB", 512),
             device_termination=_env_bool("DEVICE_TERMINATION", True),
             prefill_buckets=_env_str("PREFILL_BUCKETS",
                                      "64,128,256,512,1024"),

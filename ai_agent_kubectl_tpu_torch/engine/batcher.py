@@ -21,7 +21,8 @@ startup; ``kv_pool_health()["attention_regime"]`` reports which):
   bucket, or chunked — ``TorchEngine._prefill_prompt``), samples its
   first token and splices the scratch rows into its slot; decode runs
   the paged decode kernel over the whole cache or the dense reference
-  over a KV-bucket ladder. No pool, no radix tree.
+  over a KV-bucket ladder. No pool, no radix tree. A burst of prefix
+  hits that share one suffix shape is admitted as a group (below).
 
 ``DECODE_ATTN=auto`` picks ``paged`` for a GQA model (several query
 heads over each of several KV heads) on the card, raising the page to
@@ -32,7 +33,8 @@ serves the ``gather`` regime (``RAGGED_ATTENTION`` and
 ``DECODE_ATTN=paged`` resolve to it, with the JAX warnings) and the
 dense ladder ``dense``, both through ``dense_attention_quant``. Eager
 admissions deliver their first token through a ``("first", ...)``
-entry of the in-flight list. In every regime:
+entry of the in-flight list (a group admission its first tokens through
+one ``("firsts", ...)`` entry). In every regime:
 
 - **One shared KV pool** ([L, n_blocks + 1, page, KV, hd], zeroed at
   start) and per-slot block tables, unless ``KV_POOL=false``. The host
@@ -185,6 +187,18 @@ entry of the in-flight list. In every regime:
   KV computed under the old weights (the pool, the radix tree and its
   preloaded system prompt, the host tier, the dense prefix cache, the
   draft's cache) and keeps the grammar runtime and the draft's weights.
+- **Group admission** (the dense KV ladder with the system-prompt
+  prefix cache; the JAX engine's ``_admit_group``): the prefix hits of
+  one admission pass that share a ``(suffix bucket, kv_limit)`` shape
+  are spliced into ``kpad`` suffix-depth scratch rows (``kpad`` in
+  ``ADMIT_KPADS``, capped by the batch and, per scratch depth, by
+  ``ADMIT_SCRATCH_MB``), prefilled in ONE forward over ``[kpad,
+  sbucket]`` (flash where it tiles the shape), each row's first token
+  drawn at generation index 0 of its own seed, and the rows written into
+  their slots (``kv_set_slots``; padding rows carry the out-of-range
+  slot ``batch_size`` and are dropped). The first tokens travel as one
+  ``("firsts", ...)`` in-flight entry. Transcripts equal single
+  admission's. Resumes and grammar requests take the single path.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -193,9 +207,6 @@ after a death); request coroutines talk to it through the QoS admission
 queue and per-request asyncio queues. A sticky CUDA error (an illegal
 address) cannot be contained: every later call fails, the resets spend
 their budget, and fail-fast and the breaker take over.
-
-Not in this slice (absent; ROADMAP lists it): group admission
-(``ADMIT_KPADS``) on the dense ladder.
 """
 
 from __future__ import annotations
@@ -227,7 +238,8 @@ from ..obs.ledger import (CLASS_DELIVERED, CLASS_DRAFT_REJECTED,
 from ..obs.profiler import ProfilerSession, scope
 from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
-from ..ops.quant import kv_map
+from ..ops.quant import (kv_broadcast_rows, kv_map, kv_set_slots,
+                         kv_update_slice)
 from .containment import (CAUSE_SCHEDULER_DEATH, CAUSE_SCHEDULER_ERROR,
                           CAUSE_SLOT_HEALTH, PROBATION_CLEAN_CHUNKS,
                           REASON_HEALTH, REASON_ISOLATED, EngineSupervisor)
@@ -242,6 +254,7 @@ from .protocol import (HEALTH_GRAMMAR_DEAD, HEALTH_NONFINITE,
 from .qos import (ANON_TENANT, LANE_BACKGROUND, LANE_BATCH,
                   LANE_INTERACTIVE, LANES, BrownoutController, QoSQueue,
                   SessionBudgets, current_qos, lane_rank)
+from .prefix_cache import round_kv_limit
 from .radix_cache import RadixCache
 from .sampling import (apply_mask, eos_mask, greedy_tokens,
                        sample_tokens_seeded)
@@ -461,8 +474,14 @@ class BatchedTorchEngine(TorchEngine):
     ADMIT_RAMP_SECS = 0.03
     ADMIT_RAMP_MAX_SECS = 0.12
 
+    #: group admission's sizes (a group pads to the smallest that holds
+    #: it); ``admit_kpads`` caps them by the batch, ``admit_kpads_for``
+    #: by the scratch budget at a depth.
+    ADMIT_KPADS = (2, 4, 8, 16)
+
     def __init__(self, *args, batch_size: int = 8, chunk_len: int = 16,
                  chunk_pipe_depth: int = 3,
+                 admit_scratch_mb: int = 512,
                  device_termination: bool = True,
                  ragged_attention: str = "auto",
                  decode_attn: str = "auto",
@@ -529,6 +548,11 @@ class BatchedTorchEngine(TorchEngine):
         self.chunk_len = chunk_len
         self.chunk_pipe_depth = chunk_pipe_depth
         self.device_termination = bool(device_termination)
+        # Group admission: the scratch budget, its per-depth kpad caps
+        # (filled at start), and the groups served.
+        self.admit_scratch_mb = max(0, admit_scratch_mb)
+        self._admit_kpad_caps: dict = {}
+        self._group_admitted = 0
         self.ragged_attention = ragged_attention
         self.decode_attn = decode_attn
         self.kv_page_size = max(1, kv_page_size)
@@ -717,6 +741,7 @@ class BatchedTorchEngine(TorchEngine):
             batch_size=cfg.decode_batch_size,
             chunk_len=cfg.chunk_len,
             chunk_pipe_depth=cfg.chunk_pipe_depth,
+            admit_scratch_mb=cfg.admit_scratch_mb,
             device_termination=cfg.device_termination,
             ragged_attention=cfg.ragged_attention,
             decode_attn=cfg.decode_attn,
@@ -782,6 +807,14 @@ class BatchedTorchEngine(TorchEngine):
         self._resolve_regime()
         if not self.kv_pool:
             self._init_prefix_cache()
+            if self._prefix is not None:
+                # The group admission's kpad caps at every suffix
+                # scratch depth a prefix hit can take.
+                P = self._prefix.n
+                self._cap_admit_kpads(sorted({
+                    d for d in (round_kv_limit(P + b, self.max_seq_len)
+                                for b in self.prefill_buckets)
+                    if d is not None}))
         self._eos_d = torch.tensor(sorted(set(cfg.eos_ids)),
                                    dtype=torch.int32, device=self.device)
         self._init_decode_state()
@@ -2167,7 +2200,8 @@ class BatchedTorchEngine(TorchEngine):
 
     def _consume_oldest(self) -> None:
         """Read the oldest in-flight entry: an eager admission's first
-        token, or a chunk's packed buffer (THE one host read per entry,
+        token, a group admission's first tokens, or a chunk's packed
+        buffer (THE one host read per entry,
         ``_fetch``: it waits on the entry's own event, whose copy started
         at dispatch), and deliver each slot's tokens and finish. A
         tripped health bit runs the containment pass instead, and
@@ -2181,6 +2215,13 @@ class BatchedTorchEngine(TorchEngine):
         if entry[0] == "first":
             _, handle, seat, slot_idx = entry
             self._consume_first(int(self._fetch(handle)[0]), seat, slot_idx)
+            return
+        if entry[0] == "firsts":
+            # A group admission's first tokens: one read for the group.
+            _, handle, pairs = entry
+            vals = self._fetch(handle)
+            for (seat, slot_idx), v in zip(pairs, vals):
+                self._consume_first(int(v), seat, slot_idx)
             return
         _, handle, snapshot, ct, is_spec, seats = entry
         if self.faults is not None:
@@ -2493,15 +2534,35 @@ class BatchedTorchEngine(TorchEngine):
         self._admit_popped(pending)
 
     def _admit_popped(self, pending: List[_Request]) -> None:
-        """Admit popped requests one by one. A preempted request gets its
-        paused wall time back on its deadline before anything judges it;
-        a failing admission errors THAT request, never the scheduler.
+        """Admit popped requests. A preempted request gets its paused
+        wall time back on its deadline before anything judges it; a
+        failing admission errors its own requests, never the scheduler.
         Each stays in ``_admitting_reqs`` until it is slotted or errored,
-        so a scheduler death mid-admission cannot lose it."""
+        so a scheduler death mid-admission cannot lose it. Prefix hits
+        sharing a suffix shape are admitted as groups first (the JAX
+        ``_admit_pending``'s order), at most the largest kpad the scratch
+        budget allows at their depth, then every other request singly."""
         self._admitting_reqs.extend(pending)
         for req in pending:
             self._credit_preempt_wait(req)
+        groups: dict = {}
+        singles: List[_Request] = []
         for req in pending:
+            key = self._suffix_group_key(req) if self.admit_kpads else None
+            if key is None:
+                singles.append(req)
+            else:
+                groups.setdefault(key, []).append(req)
+        for (sbucket, kv_limit), reqs in groups.items():
+            kpads = self.admit_kpads_for(kv_limit)
+            while reqs:
+                take = reqs[:(kpads[-1] if kpads else 1)]
+                del reqs[:len(take)]
+                if len(take) == 1:
+                    self._admit_guarded(take[0])
+                else:
+                    self._admit_group_guarded(take, sbucket, kv_limit)
+        for req in singles:
             self._admit_guarded(req)
 
     def _admit_guarded(self, req: _Request) -> None:
@@ -2540,6 +2601,203 @@ class BatchedTorchEngine(TorchEngine):
             self._admit_one_pool(req)
         else:
             self._admit_one_dense(req)
+
+    # ----------------------------------------------------- group admission
+    #
+    # The JAX engine runs a group only once a background warm has
+    # compiled its shape (_batch_ready, _warm_batch_admit_shapes) and
+    # serializes that warm's scratch with the scheduler's
+    # (_admit_scratch_lock). Both exist for XLA's compiles: every shape
+    # is ready at once in eager PyTorch, so neither is copied.
+
+    @property
+    def admit_kpads(self) -> tuple:
+        """Group sizes usable at all: none under the pool (its suffixes
+        prefill straight into fresh blocks, with no scratch to stage) and
+        none past the batch size."""
+        if self.kv_pool:
+            return ()
+        return tuple(k for k in self.ADMIT_KPADS if k <= self.batch_size)
+
+    def admit_kpads_for(self, depth: int) -> tuple:
+        """``admit_kpads`` capped so kpad suffix-scratch rows of ``depth``
+        positions fit ``ADMIT_SCRATCH_MB`` (``_cap_admit_kpads``); a depth
+        with no cap (budget 0, or no prefix cache) passes uncapped."""
+        kpads = self.admit_kpads
+        cap = self._admit_kpad_caps.get(depth)
+        if cap is not None:
+            kpads = tuple(k for k in kpads if k <= cap)
+        return kpads
+
+    def _scratch_row_bytes(self, depth: int) -> int:
+        """Bytes of one kpad row of scratch at ``depth`` positions (K and
+        V: the int8 payload and an f32 scale per (position, head) under
+        ``KV_QUANT=int8``, else the model dtype), as the JAX engine
+        counts them."""
+        cfg = self.model_cfg
+        per_pos_head = (cfg.head_dim + 4 if self.kv_quant == "int8"
+                        else cfg.head_dim * self.dtype.itemsize)
+        return 2 * cfg.n_layers * depth * cfg.n_kv_heads * per_pos_head
+
+    def _cap_admit_kpads(self, depths) -> None:
+        """The per-depth kpad caps of the ``ADMIT_SCRATCH_MB`` budget (0
+        leaves every depth uncapped); a cap of 0 admits singly."""
+        self._admit_kpad_caps = {}
+        budget = self.admit_scratch_mb * 1_000_000
+        if budget <= 0:
+            return
+        for depth in depths:
+            row = self._scratch_row_bytes(depth)
+            fits = tuple(k for k in self.ADMIT_KPADS if k * row <= budget)
+            self._admit_kpad_caps[depth] = fits[-1] if fits else 0
+            structural = self.admit_kpads
+            if structural and (not fits or fits[-1] < structural[-1]):
+                logger.info(
+                    "ADMIT_SCRATCH_MB=%d caps group admissions at depth %d "
+                    "to kpad<=%d (%.0f MB/row)", self.admit_scratch_mb,
+                    depth, self._admit_kpad_caps[depth], row / 1e6)
+
+    def _suffix_group_key(self, req: _Request):
+        """``(sbucket, kv_limit)`` when the request takes the prefix-hit
+        suffix prefill, else None (single admission): resumes re-splice
+        their generated ids and grammar requests sample their first
+        token masked, so both take the single path."""
+        if self._prefix is None or req.resume_ids:
+            return None
+        if self._grammar is not None and req.gpid >= 0:
+            return None
+        ids = req.prompt_ids
+        max_prompt = self.max_seq_len - max(1, req.max_tokens)
+        if len(ids) > max_prompt or not self._prefix.matches(ids):
+            return None
+        plan = self._suffix_plan(ids)
+        if plan is None:
+            return None
+        sbucket, kv_limit, _ = plan
+        return (sbucket, kv_limit)
+
+    def _admit_group_guarded(self, reqs: List[_Request], sbucket: int,
+                             kv_limit: int) -> None:
+        """``_admit_guarded`` for a group: a failing group errors its own
+        requests (the JAX ``guarded``), and each leaves
+        ``_admitting_reqs`` once settled."""
+        self._admitting += len(reqs)
+        self._last_progress = time.monotonic()
+        try:
+            self._admit_group(reqs, sbucket, kv_limit)
+        except Exception:
+            logger.exception("group admission failed; failing %d "
+                             "request(s)", len(reqs))
+            for req in reqs:
+                self._emit(req, "error", EngineUnavailable("admission failed"))
+        finally:
+            self._admitting -= len(reqs)
+        for req in reqs:
+            try:
+                self._admitting_reqs.remove(req)
+            except ValueError:  # pragma: no cover - defensive
+                pass
+
+    def _admit_group(self, reqs: List[_Request], sbucket: int,
+                     kv_limit: int) -> None:
+        """The JAX ``_admit_group``: the ``admit`` fault point once for
+        the group, cancelled requests dropped and expired ones answered,
+        and a group of one or none admitted singly."""
+        if self.faults is not None:
+            self.faults.check("admit")
+        live = []
+        for req in reqs:
+            if req.cancel.is_set():
+                continue
+            if req.deadline is not None and time.monotonic() > req.deadline:
+                self._emit(req, "error",
+                           GenerationTimeout("timed out waiting for a slot"))
+                continue
+            live.append(req)
+        kpad = next((k for k in self.admit_kpads_for(kv_limit)
+                     if k >= len(live)), None)
+        if len(live) <= 1 or kpad is None:
+            for req in live:
+                if self.faults is not None:
+                    self.faults.check("admit")
+                self._admit_fresh(req)
+            return
+        self._admit_group_rows(live, kpad, sbucket, kv_limit)
+
+    def _admit_group_rows(self, live: List[_Request], kpad: int,
+                          sbucket: int, kv_limit: int) -> None:
+        """The JAX ``_admit_group_locked``: the resident prefix spliced
+        into ``kpad`` scratch rows of suffix depth, every suffix
+        prefilled in one forward over ``[kpad, sbucket]`` with each
+        row's logits taken at its last valid column, the first tokens
+        drawn at generation index 0 of each row's seed, the rows written
+        into their slots and the slots armed. Nothing is read back: the
+        first tokens reach the host as one ``("firsts", ...)`` entry."""
+        prefix = self._prefix
+        cfg = self.model_cfg
+        dev = self.device
+        t_adm = time.monotonic()
+        for req in live:
+            wait_ms = (t_adm - req.t_submit) * 1000.0
+            self._brownout.note_queue_wait(req.lane, wait_ms, now=t_adm)
+            self._slo.note(SLO_QUEUE_WAIT, req.lane, wait_ms, now=t_adm)
+        scratch = KVCache.zeros(cfg, kpad, kv_limit, dtype=self.dtype,
+                                device=dev, kv_quant=self.kv_quant)
+        with scope("kv_splice"):
+            kv_update_slice(scratch.k, kv_broadcast_rows(prefix.k, kpad))
+            kv_update_slice(scratch.v, kv_broadcast_rows(prefix.v, kpad))
+        tokens = np.zeros((kpad, sbucket), np.int32)
+        suf_lens = np.ones((kpad,), np.int64)   # padding rows: column 0
+        temps = np.zeros((kpad,), np.float32)
+        seeds = np.zeros((kpad,), np.int64)
+        for i, req in enumerate(live):
+            suf = req.prompt_ids[prefix.n:]
+            tokens[i, :len(suf)] = suf
+            suf_lens[i] = len(suf)
+            temps[i] = req.temperature
+            seeds[i] = req.seed
+        lens_d = self._h2d(suf_lens)
+        cols = torch.arange(sbucket, dtype=torch.int32, device=dev)
+        logits, _ = forward(
+            self.params, cfg, self._h2d(tokens),
+            (prefix.n + cols)[None].expand(kpad, sbucket), scratch,
+            kv_limit=kv_limit,
+            attn_impl=self._prefill_impl_for(sbucket, kv_limit),
+            token_mask=cols[None] < lens_d[:, None], moe_impl=self.moe_impl,
+            logits_at=lens_d - 1)
+        first_d = sample_tokens_seeded(
+            logits[:, 0], self._h2d(seeds),
+            torch.zeros((kpad,), dtype=torch.int32, device=dev),
+            self._h2d(temps), top_k=self.top_k, top_p=self.top_p)
+        slots = np.full((kpad,), self.batch_size, np.int64)   # pad: drop
+        pairs = []
+        for i, req in enumerate(live):
+            slot_idx = self._slots.index(None)
+            n_prompt = prefix.n + int(suf_lens[i])
+            slots[i] = slot_idx
+            self._run_arm(slot_idx, n_prompt, first_d[i], req.temperature,
+                          req.max_tokens, req.seed, 1)
+            seat = self._slots[slot_idx] = _Slot(
+                req=req, detok=StreamDecoder(self.tokenizer),
+                n_prompt=n_prompt, pos=n_prompt,
+                queue_ms=(t_adm - req.t_submit) * 1000.0, t_admit=t_adm,
+                chunks_inflight=1, prefix_hit=True, gs=-1)
+            if req.trace is not None:
+                req.trace.event(
+                    f"engine: group-admitted to slot {slot_idx} (burst of "
+                    f"{len(live)}, suffix bucket {sbucket})")
+            pairs.append((seat, slot_idx))
+        # The scratch's trash row (past kv_limit) stays behind: the slots
+        # take exactly the kv_limit positions the forward wrote.
+        with scope("kv_splice"):
+            for dst, src in ((self._cache.k, scratch.k),
+                             (self._cache.v, scratch.v)):
+                kv_set_slots(dst, kv_map(lambda a: a[:, :, :kv_limit], src),
+                             slots)
+        self._inflight.append(("firsts", self._to_host_async(first_d),
+                               pairs))
+        self._group_admitted += 1
+        self._last_admit_t = time.monotonic()
 
     # ------------------------------------------------------------ QoS ring
 
@@ -2994,6 +3252,8 @@ class BatchedTorchEngine(TorchEngine):
         # - ("first", handle, seat, slot_idx): an eager admission's first
         #   token, still on its way to the host: an admission never
         #   waits on a host read.
+        # - ("firsts", handle, [(seat, slot_idx), ...]): a group
+        #   admission's first tokens, one vector read once.
         #
         # Only chunks count against the depth; first-token entries are
         # transfers, not compute. (The list is not reset here: a
@@ -3034,7 +3294,7 @@ class BatchedTorchEngine(TorchEngine):
                 # first token before dispatching behind it; with more
                 # streams, keep the pipe full and let the read overlap.
                 if (chunks_in_pipe == 0 and n_active <= 2 and self._inflight
-                        and self._inflight[0][0] == "first"):
+                        and self._inflight[0][0] in ("first", "firsts")):
                     self._consume_oldest()
                     continue
                 if n_active > 0 and chunks_in_pipe < self.chunk_pipe_depth:

@@ -1,5 +1,5 @@
 """FallbackEngine — deterministic rule-based degradation path (the JAX
-package's ``engine/fallback.py``, read-only rules).
+package's ``engine/fallback.py``).
 
 When the engine is failing (circuit breaker open, an engine error,
 EngineUnavailable) and ``DEGRADED_FALLBACK=true``, the service routes
@@ -9,6 +9,10 @@ reference service was mostly used for, and anything unmatched degrades
 to the safe ``kubectl get all``. Responses are marked ``degraded: true``
 with ``engine_metadata.engine == "fallback-rules"`` so clients and
 dashboards can tell a rule hit from a real generation.
+
+The same table, its mutating rules included, answers ``ENGINE=fake``
+(``engine/fake.py``), so the two can never drift; the fallback serves
+only the read-only half.
 """
 
 from __future__ import annotations
@@ -35,6 +39,17 @@ READ_ONLY_RULES = [
     (re.compile(r"\bdescribe\b.*\bpod\b\s+(\S+)", re.I), "kubectl describe pod {0}"),
 ]
 
+#: Mutating rules: part of FakeEngine's table (the reference service's
+#: full query surface) but never served by the fallback.
+MUTATING_RULES = [
+    (re.compile(r"\bdelete\b.*\bpod\b\s+(\S+)", re.I), "kubectl delete pod {0}"),
+    (re.compile(r"\bscale\b.*\bdeployment\b\s+(\S+).*?\b(\d+)\b", re.I),
+     "kubectl scale deployment {0} --replicas={1}"),
+]
+
+#: FakeEngine's full table.
+RULES = READ_ONLY_RULES + MUTATING_RULES
+
 _QUERY_RE = re.compile(
     r"User Request:\s*(.*?)\s*(?:\nKubectl Command:|\Z)", re.S
 )
@@ -47,9 +62,9 @@ def extract_query(prompt: str) -> str:
     return m.group(1) if m else prompt
 
 
-def rule_command(query: str) -> str:
-    """First matching read-only rule's command, or the safe catch-all."""
-    for pattern, template in READ_ONLY_RULES:
+def rule_command(query: str, rules=RULES) -> str:
+    """First matching rule's command, or the safe catch-all."""
+    for pattern, template in rules:
         hit = pattern.search(query)
         if hit:
             return template.format(*hit.groups())
@@ -64,7 +79,8 @@ class FallbackEngine:
 
     async def generate(self, prompt: str) -> EngineResult:
         t0 = time.monotonic()
-        text = rule_command(extract_query(prompt))
+        # Read-only rules only: degraded mode never mints a mutation.
+        text = rule_command(extract_query(prompt), rules=READ_ONLY_RULES)
         elapsed_ms = (time.monotonic() - t0) * 1000.0
         return EngineResult(
             text=text,

@@ -14,7 +14,9 @@ The counterpart of the JAX package's ``ops/quant.py``:
 - ``QuantKV`` (``KV_QUANT=int8``): an int8 KV cache with one f32 scale
   per (position, head) vector, written by ``kv_quantize`` and read by
   ``ops/attention.py::dense_attention_quant``; ``kv_map`` applies one
-  leaf operation to both of its leaves (or to a plain cache tensor).
+  leaf operation to both of its leaves (or to a plain cache tensor), and
+  the group admission's ``kv_update_slice``, ``kv_set_slots`` (padding
+  rows dropped) and ``kv_broadcast_rows`` go through it.
 - A per-ROW int8 embedding (``quantize_embed_int8``): one scale per
   vocab row serves the token gather (``embed_lookup``) and the tied LM
   head (``tied_head``).
@@ -34,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .quant4 import QuantInt4, pick_format, qmatmul4, true_div
@@ -241,6 +244,49 @@ def kv_map(fn, *kvs):
         return QuantKV(q=fn(*(kv.q for kv in kvs)),
                        s=fn(*(kv.s for kv in kvs)))
     return fn(*kvs)
+
+
+def kv_update_slice(dst, src):
+    """Write the KV block ``src`` at the origin of ``dst``, per leaf, in
+    place (the JAX ``dynamic_update_slice`` at index 0). Returns
+    ``dst``."""
+    def upd(d, s):
+        d[tuple(slice(0, n) for n in s.shape)].copy_(s)
+        return d
+
+    return kv_map(upd, dst, src)
+
+
+def kv_set_slots(dst, src, slots):
+    """Write per-row KV blocks ``src`` [L, R, depth, ...] into the slots
+    (axis 1) of ``dst`` named by ``slots``, a host sequence of R ints, in
+    place. A row whose slot lies outside ``[0, batch)`` is dropped (the
+    group admission's padding rows carry ``batch``), as the JAX scatter's
+    ``mode="drop"`` drops it: the slot vector is host truth, so the rows
+    are filtered here and never reach an index the device would refuse.
+
+    ``src`` may be shallower than ``dst`` along the sequence axis (2):
+    only its ``depth`` positions are written. The slot's stale tail is
+    never read (decode's causal mask exposes only positions below the
+    slot's live length, and each later position is written by its own
+    decode step before the mask reaches it). Returns ``dst``."""
+    batch = (dst.q if isinstance(dst, QuantKV) else dst).shape[1]
+    rows = [(i, int(s)) for i, s in enumerate(np.asarray(slots).reshape(-1))
+            if 0 <= int(s) < batch]
+
+    def set_rows(d, s):
+        depth = s.shape[2]
+        for i, slot in rows:
+            d[:, slot, :depth].copy_(s[:, i])
+        return d
+
+    return kv_map(set_rows, dst, src)
+
+
+def kv_broadcast_rows(src, n: int):
+    """[L, 1, P, ...] -> [L, n, P, ...] per leaf (a view: the prefix
+    spliced into ``n`` scratch rows)."""
+    return kv_map(lambda a: a.expand(a.shape[0], n, *a.shape[2:]), src)
 
 
 #: projection weights eligible for quantization (matmul RHS, output

@@ -6,7 +6,9 @@ engine (``engine/torch_engine.py::TorchEngine``: dense cache, flash
 prefill) at 1 — the JAX factory's rule; ``ENGINE=torch-batched`` always
 batches. Both take ``QUANT``, ``KV_QUANT`` and ``MOE_IMPL``
 (``engine_kwargs``). ``ENGINE=openai`` calls an OpenAI-compatible
-ChatCompletions endpoint (``engine/openai_compat.py``).
+ChatCompletions endpoint (``engine/openai_compat.py``), and
+``ENGINE=fake`` answers from the rule table (``engine/fake.py::
+FakeEngine``: no model, no device).
 
 ``FLEET_SIZE`` > 1 builds that many engines behind the
 ``engine/fleet.py::EngineFleet`` facade (``_build_fleet``, the JAX
@@ -109,6 +111,10 @@ def parse_fault_points(cfg):
 
 
 def _build_inner(cfg, faults):
+    if cfg.engine == "fake":
+        from ..engine.fake import FakeEngine
+
+        return FakeEngine()
     if cfg.engine == "openai":
         from ..engine.openai_compat import OpenAICompatEngine
 
@@ -154,7 +160,7 @@ def build_engine(cfg):
         # Outside the degraded-start net, as in the JAX factory: N
         # clients of one remote endpoint are not a fleet.
         raise ValueError("FLEET_SIZE > 1 requires a local engine "
-                         "(ENGINE=torch | torch-batched)")
+                         "(ENGINE=torch | torch-batched | fake)")
     try:
         if cfg.fleet_size > 1:
             engine = _build_fleet(cfg, injector)

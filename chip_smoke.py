@@ -38,7 +38,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  rows that see no key, S=512 unsplit) and Gemma-2B's
                  (H=8, KV=1, head_dim 256: serve_host (b)'s prefills,
                  S=KVLEN=256 from 0 and from 192, S=KVLEN=512 from
-                 192); each case's key split is printed and checked;
+                 192), and group admission's prefills (GROUP_FLASH: kpad
+                 rows sharing positions from the system prompt's length,
+                 Llama's at B = 8 over S = 64 and 128 with kv_limit 128
+                 and 256, once with its last row padding, Gemma-2B's at
+                 B = 4); each case's key split is printed and checked;
                * the int4 matmul on Gemma-7B's four projection shapes at
                  T in {1, 8, 9, 16, 64, 65, 85, 512, 600}, formats
                  512/512, 256/256 and 128/256 (the GEMV, the tiled path,
@@ -62,7 +66,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  through tables with a block shared by two slots,
                  sentinel entries and every block past the live spans
                  NaN.
-               Each wrapper's launch counter must grow.
+               Each wrapper's launch counter must grow. Group
+               admission's scatter (ops/quant.py::kv_set_slots: a
+               shallow source, a padding row at the out-of-range slot,
+               bf16 and int8 leaves) must equal its CPU result bit for
+               bit.
 3. serve    -- build the port's server from the environment-style config
                (MODEL_NAME=gemma-2b-it, random bf16 weights from a fixed
                seed, DECODE_BATCH_SIZE=8, the default pool and radix
@@ -126,9 +134,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                RAGGED_ATTENTION=off. Traffic: the serve phase's burst with
                one query of about 600 tokens, then 2 repeats. Paged
                launches must equal layers x decode steps, flash must run
-               on the prefills, repeats must be identical and hit their
-               prefix, (b)'s books must balance, and the served logits
-               must agree with the plain versions'.
+               on the prefills, repeats must hit their prefix and be
+               identical (in (a) a group-admitted request's repeat, which
+               admits singly, may leave it first at a near tie), (b)'s
+               books must balance, and the served logits
+               must agree with the plain versions'. (a)'s burst reaches
+               an idle scheduler whole (its pop held until all 8 are
+               queued), so its 7 prefix hits, which share suffix bucket
+               64 and kv_limit 128, admit as one group of kpad 8 (one
+               padding row): one flash forward at B = 8 (a tap keeps the
+               call's inputs; kernel against plain on them; the shape
+               must be one phase 2 holds), _group_admitted grows by one,
+               the books balance. Its reference: the same weights in an
+               engine from the same config with ADMIT_SCRATCH_MB=1
+               (every kpad capped to 0), serving only the burst, no
+               group; each transcript equal to (a)'s or apart first at a
+               near tie. Printed: the group's first-token ms against the
+               singles'.
 6. serve_ckpt -- write a Gemma-2B checkpoint in the HF safetensors layout
                (one shard per layer plus one for the embedding and the
                final norm, bf16 values from seed 0, about 5.0 GB) under
@@ -475,9 +497,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                serve_kvq's int4 projections, serve_moe's ragged decode,
                serve_spec's verify window and its int4 projections at T
                = 40, serve_host (b)'s paged decode and turn-2 prefill on
-               Gemma-2B included); with --profile,
+               Gemma-2B, serve_paged (a)'s group prefill at B = 8 and a
+               Gemma-2B group at B = 4 included); with --profile,
                also the device time of each kernel a call launches (an
                attention kernel and its split combine).
+
+ENGINE=fake (the rule-table engine, engine/fake.py) runs no model and
+touches no device, so it has no phase here; the CPU tests hold it against
+the JAX package's fakes.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -737,10 +764,11 @@ def sdpa_inputs(torch, case):
 # ------------------------------------------------------- flash attention
 
 def flash_case(torch, gen, *, S, KVLEN, offset=0, B=1, H=G7_HEADS,
-               KV=G7_HEADS, hd=G7_HD, cache_len=None, device="cuda"):
+               KV=G7_HEADS, hd=G7_HD, cache_len=None, shift=7,
+               device="cuda"):
     """One flash call: q [B, S, H, hd] at positions offset.. (per row b,
-    offset + 7b), k/v the first KVLEN slots of a [B, cache_len, KV, hd]
-    cache (a strided view when cache_len > KVLEN and B > 1)."""
+    offset + shift * b), k/v the first KVLEN slots of a [B, cache_len,
+    KV, hd] cache (a strided view when cache_len > KVLEN and B > 1)."""
     cache_len = cache_len or KVLEN
     q = torch.randn((B, S, H, hd), generator=gen, device=device).to(
         torch.bfloat16)
@@ -749,9 +777,41 @@ def flash_case(torch, gen, *, S, KVLEN, offset=0, B=1, H=G7_HEADS,
     v = torch.randn((B, cache_len, KV, hd), generator=gen,
                     device=device).to(torch.bfloat16)[:, :KVLEN]
     rows = torch.arange(S, dtype=torch.int32, device=device)[None]
-    shift = 7 * torch.arange(B, dtype=torch.int32, device=device)[:, None]
+    shift = shift * torch.arange(B, dtype=torch.int32,
+                                 device=device)[:, None]
     return dict(q=q, k=k, v=v,
                 positions=(offset + shift + rows).contiguous())
+
+
+def group_prefix_tokens() -> int:
+    """The system prompt's length in the BPE asset's tokens: where a
+    group admission's suffixes start (serve_paged (a)'s Llama-3-8B and a
+    Gemma-2B served with the asset share the tokenizer)."""
+    from ai_agent_kubectl_tpu_torch.engine.prompts import SYSTEM_PROMPT
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import load_tokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    tok = load_tokenizer(get_config(SERVE_PAGED_ENV["MODEL_NAME"]),
+                         SERVE_PAGED_ENV["TOKENIZER_PATH"])
+    return len(tok.encode(SYSTEM_PROMPT))
+
+
+def group_flash_case(torch, gen, *, geometry, B, S, KVLEN, live,
+                     device="cuda"):
+    """A group admission's prefill, as the engine calls flash: ``B`` =
+    kpad rows sharing their positions (the prefix length onwards), the
+    first ``live`` of them requests and the rest padding rows, whose
+    query and suffix keys repeat one vector each (their tokens are all
+    the pad id)."""
+    P = group_prefix_tokens()
+    case = flash_case(torch, gen, S=S, KVLEN=KVLEN, offset=P, B=B,
+                      shift=0, device=device, **geometry)
+    if live < B:
+        q, k, v = case["q"], case["k"], case["v"]
+        q[live:] = q[live:, :1]
+        for kv in (k, v):
+            kv[live:, P:] = kv[live:, P:P + 1]
+    return case
 
 
 # Gemma-7B's attention geometry at serve_spec's pool page: 16 query heads
@@ -826,6 +886,9 @@ def flash_cases(torch, gen):
     capped = flash_case(torch, gen, S=85, KVLEN=128)
     capped["q"] = capped["q"] * 4
     cases.append(("g7_s85_softcap30", dict(capped, logit_softcap=30.0)))
+    cases += [(label, group_flash_case(torch, gen, geometry=geom, B=B, S=S,
+                                       KVLEN=KVLEN, live=live))
+              for label, geom, B, S, KVLEN, live in GROUP_FLASH]
     return cases
 
 
@@ -842,8 +905,21 @@ G2B_FLASH = (("g2b_s128_off64", 128, 128, 64),
              ("g2b_s256_pos0", 256, 256, 0),
              ("g2b_s256_off192", 256, 256, 192),
              ("g2b_s512_off192", 512, 512, 192))
-# Flash cases whose keys must stay whole (every other case splits them).
-FLASH_UNSPLIT_CASES = ("g7_s600_unsplit", "llama_s512_unsplit")
+# Group admission's prefills (serve_paged (a), the dense KV ladder):
+# (label, geometry, kpad, S = suffix bucket, KVLEN = kv_limit, live rows),
+# from the prefix length on. serve_paged (a)'s burst sends 7 prefix hits
+# at suffix bucket 64 (kv_limit 128) to one group of kpad 8, its last row
+# padding; a longer suffix takes bucket 128 (kv_limit 256); Gemma-2B's
+# geometry at kpad 4 is the group of a four-slot engine.
+GROUP_FLASH = (("llama_group_b8_s64", LLAMA, 8, 64, 128, 8),
+               ("llama_group_b8_s64_pad", LLAMA, 8, 64, 128, 7),
+               ("llama_group_b8_s128", LLAMA, 8, 128, 256, 8),
+               ("g2b_group_b4_s64", G2B, 4, 64, 128, 4))
+# Flash cases whose keys must stay whole (every other case splits them):
+# Llama's groups fill 256 or more blocks without a split.
+FLASH_UNSPLIT_CASES = ("g7_s600_unsplit", "llama_s512_unsplit",
+                       "llama_group_b8_s64", "llama_group_b8_s64_pad",
+                       "llama_group_b8_s128")
 
 
 def flash_live_work(case) -> tuple:
@@ -1209,7 +1285,41 @@ def phase_kernel(torch) -> dict:
     return {"ragged_attention": {"max_abs_err": worst},
             "flash_attention": _kernel_flash(torch, gen),
             "int4_matmul": _kernel_int4(torch, gen),
+            "kv_set_slots": _kernel_kv_set_slots(torch, gen),
             **_kernel_paged(torch, gen)}
+
+
+def _kernel_kv_set_slots(torch, gen) -> dict:
+    """Group admission's scatter (``ops/quant.py::kv_set_slots``) on the
+    card against its CPU result: a shallow bf16 source (kv_limit rows of
+    a dense cache of 1,041) into three slots of eight, its last row
+    padding (slot index 8, dropped), and the same on int8 KV leaves.
+    Copies only, so the two must be bit-equal."""
+    from ai_agent_kubectl_tpu_torch.ops.quant import (kv_quantize,
+                                                      kv_set_slots)
+
+    slots = [5, 0, 3, 8]
+    out = {}
+    for label, quant in (("bf16", False), ("int8", True)):
+        dst = torch.randn((4, 8, 1041, 8, 128), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        src = torch.randn((4, 4, 128, 8, 128), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        if quant:
+            dst, src = kv_quantize(dst), kv_quantize(src)
+        want = kv_set_slots(
+            *(type(x)(**{f: getattr(x, f).cpu() for f in ("q", "s")})
+              if quant else x.cpu() for x in (dst, src)), slots)
+        got = kv_set_slots(dst, src, slots)
+        for a, b in zip(*(((x.q, x.s) if quant else (x,))
+                          for x in (got, want))):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"kv_set_slots [{label}]: the card's "
+                                     f"scatter differs from the CPU's")
+        out[label] = {"slots": slots, "depth": 128}
+        log(f"[kernel] kv_set_slots {label}: slots {slots} (8 dropped), a "
+            f"128-row source into 1,041 rows: bit-equal to the CPU's")
+    return out
 
 
 def _kernel_paged(torch, gen) -> dict:
@@ -1933,13 +2043,210 @@ def _long_burst_query(tokenizer) -> str:
 
 async def _serve_paged(torch, profile: bool) -> dict:
     """Both engines of phase 5 in turn on one parameter tree (the first
-    engine draws it, the second is handed it)."""
+    engine draws it, the others are handed it); after (a), its group
+    admission's single-admission reference."""
     params = None
     out = {}
     for kind, env in SERVE_PAGED_ENGINES.items():
         out[kind], params = await _serve_paged_one(torch, kind, env, params,
                                                    profile)
+        if kind == "dense":
+            out["group"] = await _serve_paged_reference(torch, params,
+                                                        out[kind])
     return out
+
+
+class _HeldPop:
+    """Holds an idle batched engine's next queue pop until a whole burst
+    is queued, then lets that pop come back empty: the scheduler's next
+    pass pops the burst at once, as it pops a burst that arrives between
+    two passes, so prefix hits sharing a suffix shape admit as one
+    group."""
+
+    def __init__(self, inner):
+        import queue
+        import threading
+
+        self.q, self.empty = inner._admissions, queue.Empty
+        self.held, self.opened = threading.Event(), threading.Event()
+        self.q.get = self._hold
+
+    def _hold(self, *args, **kw):
+        self.held.set()
+        self.opened.wait(60.0)
+        raise self.empty
+
+    async def _until(self, cond, what: str) -> None:
+        t0 = time.monotonic()
+        while not cond():
+            if time.monotonic() - t0 > 60.0:
+                raise AssertionError(f"{what} within 60 s "
+                                     f"({self.q.qsize()} queued)")
+            await asyncio.sleep(0.002)
+
+    async def idle(self) -> None:
+        """Until the scheduler waits at the held pop."""
+        await self._until(self.held.is_set, "the scheduler never idled")
+
+    async def release_when_queued(self, n: int) -> None:
+        await self._until(lambda: self.q.qsize() >= n,
+                          f"the burst of {n} never queued")
+        self.restore()
+
+    def restore(self) -> None:
+        self.q.__dict__.pop("get", None)
+        self.opened.set()
+
+
+class _GroupFlashTap:
+    """Flash attention wrapped where the model calls it: every call with
+    more than one row (a group admission's prefill; every other flash
+    call of the dense ladder has one) is counted by its shape, and the
+    latest at each shape keeps a copy of its inputs on the card, taken
+    before the launch with no host sync, so ``check`` holds the kernel
+    against its plain version on the traffic's own inputs."""
+
+    def __init__(self, torch):
+        from ai_agent_kubectl_tpu_torch.models import transformer
+
+        self.torch, self.module = torch, transformer
+        self.real = transformer.flash_attention_cached
+        self.inputs: dict = {}
+        self.launches: dict = {}
+        transformer.flash_attention_cached = self._call
+
+    def _call(self, q, k, v, positions, **kw):
+        if q.shape[0] > 1:
+            key = (tuple(q.shape), tuple(k.shape))
+            self.launches[key] = self.launches.get(key, 0) + 1
+            self.inputs[key] = ([x.clone() for x in (q, k, v, positions)],
+                                dict(kw))
+        return self.real(q, k, v, positions, **kw)
+
+    def restore(self) -> None:
+        self.module.flash_attention_cached = self.real
+
+    def check(self, tag: str, kpad: int) -> list:
+        """Every group call at B = ``kpad`` and at a shape phase 2 holds
+        (GROUP_FLASH, from the prefix length on); then the kernel against
+        its plain version on the captured inputs."""
+        from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+            flash_attention_cached_plain)
+
+        held = {(B, S, KVLEN, geom["H"], geom["KV"], geom["hd"])
+                for _, geom, B, S, KVLEN, _ in GROUP_FLASH}
+        P = group_prefix_tokens()
+        if not self.inputs:
+            raise AssertionError(f"{tag}: no group prefill reached flash")
+        out = []
+        for key, (args, kw) in self.inputs.items():
+            q, k, _, pos = args
+            B, S, H, hd = q.shape
+            shape = (B, S, k.shape[1], H, k.shape[2], hd)
+            offsets = set(pos[:, 0].tolist())
+            if B != kpad or shape not in held or offsets != {P}:
+                raise AssertionError(f"{tag}: flash ran at {shape} from "
+                                     f"{offsets}, not a group shape phase 2 "
+                                     f"holds at kpad {kpad} from {P}")
+            err = check_close(self.torch, f"{tag} group flash {shape}",
+                              self.real(*args, **kw),
+                              flash_attention_cached_plain(*args, **kw))
+            at = {"B": B, "S": S, "KVLEN": k.shape[1], "offset": P,
+                  "launches": self.launches[key], "max_abs_err": err}
+            out.append(at)
+            log(f"[{tag}] group flash at {at} on the traffic's own inputs")
+        return out
+
+
+async def _serve_paged_reference(torch, params, grouped: dict) -> dict:
+    """serve_paged (a)'s burst again on an engine built from the same
+    environment-style config and weights with ADMIT_SCRATCH_MB=1, which
+    caps every kpad to 0 at Llama-3-8B's scratch rows (16.8 MB at kv_limit
+    128): every request admits singly. Gates: no group; each burst
+    transcript equal to (a)'s, or apart first at a near tie; the books
+    balance. Printed: the group's first-token ms against the singles'."""
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+
+    import aiohttp
+
+    tag = "serve_paged/dense-singles"
+    port = _free_port()
+    _phase_env({**SERVE_PAGED_ENV, **SERVE_PAGED_ENGINES["dense"],
+                "ADMIT_SCRATCH_MB": "1"}, port)
+    cfg = ServiceConfig.from_env()
+    inner = build_engine(cfg)
+    inner.params = params
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    queries = grouped["burst_queries"]
+    try:
+        kv_limit = grouped["group"]["key"][1]
+        if inner.admit_kpads_for(kv_limit):
+            raise AssertionError(f"{tag}: ADMIT_SCRATCH_MB=1 left kpads "
+                                 f"{inner.admit_kpads_for(kv_limit)}")
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"http://{cfg.host}:{port}"
+                                     f"/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            hold = _HeldPop(inner)
+            try:
+                await hold.idle()
+                tasks = [asyncio.ensure_future(ask(q)) for q in queries]
+                await hold.release_when_queued(len(queries))
+                statuses = [st for st, _ in await asyncio.gather(*tasks)]
+            finally:
+                hold.restore()
+    finally:
+        await runner.cleanup()
+    if inner._group_admitted:
+        raise AssertionError(f"{tag}: {inner._group_admitted} groups")
+    if any(s is not None for s in inner._slots) or \
+            inner.stats()["kv_pages_used"]:
+        raise AssertionError(f"{tag}: the books do not balance")
+    singles = {p: r for p, r in engine.results}
+    ties = []
+    for q in queries:
+        prompt = render_prompt(q)
+        want = grouped["burst_ids"][prompt]
+        got = list(singles[prompt].token_ids)
+        gap = _first_mismatch(torch, inner, inner.tokenizer.encode(prompt),
+                              want, got, 0.0, 0)
+        if gap is not None:
+            if gap["gap"] > gap["tolerance"]:
+                raise AssertionError(f"{tag} {q[:40]!r}: the group's "
+                                     f"transcript leaves the single's at "
+                                     f"{gap}, not a near tie")
+            ties.append(gap)
+            log(f"[{tag}] {q[:40]!r}: apart at a near tie {gap}")
+    members = grouped["group_prompts"]
+    g_ttft = sorted(grouped["burst_ttft"][p] for p in members)
+    s_ttft = sorted(singles[p].ttft_ms for p in members)
+    info = {"statuses": statuses, "near_ties": ties,
+            "identical": len(queries) - len(ties),
+            "group_ttft_ms_p50": g_ttft[len(g_ttft) // 2],
+            "single_ttft_ms_p50": s_ttft[len(s_ttft) // 2],
+            "group_ttft_ms_max": g_ttft[-1],
+            "single_ttft_ms_max": s_ttft[-1]}
+    log(f"[{tag}] {info['identical']} of {len(queries)} transcripts "
+        f"identical to the group's, {len(ties)} apart at a near tie; the "
+        f"group's {len(members)} first tokens p50 "
+        f"{info['group_ttft_ms_p50']:.1f} ms (max "
+        f"{info['group_ttft_ms_max']:.1f}) against "
+        f"{info['single_ttft_ms_p50']:.1f} ms (max "
+        f"{info['single_ttft_ms_max']:.1f}) admitted singly; "
+        f"{gpu_line()}")
+    return info
 
 
 async def _serve_paged_one(torch, kind: str, env: dict, params,
@@ -2006,14 +2313,31 @@ async def _serve_paged_one(torch, kind: str, env: dict, params,
                     return r.status, await r.json()
 
             engine.results.clear()
+            # The dense ladder's burst admits at one pass (held until the
+            # whole burst is queued): its prefix hits take the group path.
+            groups0 = inner._group_admitted
+            tap = None if inner.kv_pool else _GroupFlashTap(torch)
+            hold = None if inner.kv_pool else _HeldPop(inner)
             for fn in (paged_decode_attention, paged_decode_attention_pool,
                        flash_attention_cached, ragged_attention_pool):
                 fn.launches = 0
             steps0 = inner.decode_steps
             hits0 = inner._radix.hit_tokens_total if inner.kv_pool else 0
             t_burst = time.monotonic()
-            burst = await asyncio.gather(*[ask(q) for q in queries])
+            try:
+                if hold is not None:
+                    await hold.idle()
+                tasks = [asyncio.ensure_future(ask(q)) for q in queries]
+                if hold is not None:
+                    await hold.release_when_queued(len(queries))
+                burst = await asyncio.gather(*tasks)
+            finally:
+                if hold is not None:
+                    hold.restore()
+                if tap is not None:
+                    tap.restore()
             burst_s = time.monotonic() - t_burst
+            groups = inner._group_admitted - groups0
             hits1 = inner._radix.hit_tokens_total if inner.kv_pool else 0
             repeats = [await ask(queries[i]) for i in REPEATS]
             hits2 = inner._radix.hit_tokens_total if inner.kv_pool else 0
@@ -2024,6 +2348,8 @@ async def _serve_paged_one(torch, kind: str, env: dict, params,
                                 - kernel.launches),
                 "flash": flash_attention_cached.launches,
                 "ragged": ragged_attention_pool.launches}
+            if tap is not None:
+                launches["flash_group"] = sum(tap.launches.values())
             steps = inner.decode_steps - steps0
             profiled = (await _profile_burst(
                 torch, ask, [q + " now" for q in QUERIES],
@@ -2055,11 +2381,23 @@ async def _serve_paged_one(torch, kind: str, env: dict, params,
                                  f"service gives {want} for {res.text!r}: "
                                  f"{body}")
     firsts = [results[render_prompt(q)][0] for q in queries]
+    repeat_ties = []
     for i in REPEATS:
         first, again = results[render_prompt(queries[i])]
         if again.token_ids != first.token_ids:
-            raise AssertionError(f"{tag}: the repeat of {queries[i]!r} "
-                                 f"changed its greedy tokens")
+            # A group-admitted request's repeat admits singly: its
+            # prefill's GEMMs run 64 rows where the group's ran kpad x 64,
+            # and bf16 may round the two apart (only at a near tie).
+            gap = (None if tap is None else _first_mismatch(
+                torch, inner, inner.tokenizer.encode(
+                    render_prompt(queries[i])),
+                first.token_ids, again.token_ids, 0.0, 0))
+            if gap is None or gap["gap"] > gap["tolerance"]:
+                raise AssertionError(f"{tag}: the repeat of {queries[i]!r} "
+                                     f"changed its greedy tokens ({gap})")
+            repeat_ties.append(gap)
+            log(f"[{tag}] the single-admitted repeat of {queries[i]!r} "
+                f"leaves its group-admitted transcript at a near tie {gap}")
         if not again.prefix_cache_hit:
             raise AssertionError(f"{tag}: the repeat of {queries[i]!r} "
                                  f"missed its prefix")
@@ -2092,7 +2430,47 @@ async def _serve_paged_one(torch, kind: str, env: dict, params,
         "final_positions": [r.prompt_tokens + r.completion_tokens
                             for r in firsts],
         "profile": profiled,
+        "repeat_near_ties": repeat_ties,
     }
+    if tap is not None:
+        # Group admission: the burst's prefix hits share one suffix shape
+        # and admit as one group of kpad rows through flash.
+        from types import SimpleNamespace
+
+        keys = {}
+        for q in queries:
+            prompt = render_prompt(q)
+            key = inner._suffix_group_key(SimpleNamespace(
+                prompt_ids=inner.tokenizer.encode(prompt), resume_ids=None,
+                max_tokens=cfg.max_new_tokens, gpid=-1))
+            if key is not None:
+                keys.setdefault(key, []).append(prompt)
+        if len(keys) != 1:
+            raise AssertionError(f"{tag}: the burst's prefix hits take "
+                                 f"suffix shapes {list(keys)}, not one")
+        (key, hits), = keys.items()
+        kpad = next(k for k in inner.admit_kpads if k >= len(hits))
+        if groups != 1 or len(hits) < 2:
+            raise AssertionError(f"{tag}: {groups} group admissions for the "
+                                 f"burst's {len(hits)} hits at {key}")
+        info["group"] = {"admissions": groups, "rows": len(hits),
+                         "kpad": kpad, "key": list(key),
+                         "flash": tap.check(tag, kpad)}
+        if launches["flash_group"] != n_layers:
+            raise AssertionError(f"{tag}: {launches['flash_group']} group "
+                                 f"flash launches, want one forward's "
+                                 f"{n_layers}")
+        if inner.stats()["kv_pages_used"]:
+            raise AssertionError(f"{tag}: the books do not balance")
+        info["burst_queries"] = queries
+        info["group_prompts"] = hits
+        info["burst_ids"] = {render_prompt(q): list(r.token_ids)
+                             for q, r in zip(queries, firsts)}
+        info["burst_ttft"] = {render_prompt(q): r.ttft_ms
+                              for q, r in zip(queries, firsts)}
+        log(f"[{tag}] group admission: {len(hits)} prefix hits in one group "
+            f"of kpad {kpad}, {launches['flash_group']} flash launches at "
+            f"B = {kpad}")
     log(f"[{tag}] statuses {statuses}; {n_tok} tokens in {burst_s:.2f} s "
         f"({n_tok / burst_s:.1f} tok/s), TTFT p50 {info['ttft_ms_p50']:.0f} "
         f"ms max {info['ttft_ms_max']:.0f} ms; prompts "
@@ -4320,7 +4698,13 @@ def _timing_flash(torch, gen, profile: bool) -> dict:
                                        **LLAMA),
               # serve_host (b)'s turn 2 after its radix hit (Gemma-2B).
               "g2b_S256_off192": flash_case(torch, gen, S=256, KVLEN=256,
-                                            offset=192, **G2B)}
+                                            offset=192, **G2B),
+              # serve_paged (a)'s group admission: 7 rows and a padding
+              # row at kpad 8 (Llama-3-8B), and a four-slot Gemma-2B's.
+              "llama_group_B8": group_flash_case(
+                  torch, gen, geometry=LLAMA, B=8, S=64, KVLEN=128, live=7),
+              "g2b_group_B4": group_flash_case(
+                  torch, gen, geometry=G2B, B=4, S=64, KVLEN=128, live=4)}
     out = {}
     for label, case in shapes.items():
         q, k, v, mask = flash_sdpa_inputs(torch, case)
@@ -4605,6 +4989,11 @@ def kernel_lines(results: dict) -> list:
             "bound_by": top.get("bound_by"),
             "library_ms": top.get("library_ms"), "library": library,
             "phase_launches": {"serve_ckpt": ckpt_launches.get(name),
+                               "serve_paged_group": (
+                                   paged.get("dense", {}).get(
+                                       "launches", {}).get("flash_group")
+                                   if name == "flash_attention_cached"
+                                   else None),
                                "serve_qos": qos_launches(name),
                                "serve_moe": moe_launches(name),
                                "serve_kvq": kvq_launches(name),

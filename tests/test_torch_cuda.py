@@ -342,6 +342,19 @@ def test_ragged_launch_refuses_another_plan(card, W, splits, kps):
     assert err == 1                       # cudaErrorInvalidValue
 
 
+async def _until(cond, what: str, limit: float = 60.0) -> None:
+    """Poll ``cond`` until it holds, failing the test with ``what`` when
+    it has not within ``limit`` seconds (a lost race must fail, not hang
+    the run)."""
+    import asyncio
+    import time
+
+    deadline = time.monotonic() + limit
+    while not cond():
+        assert time.monotonic() < deadline, f"{what} within {limit:.0f} s"
+        await asyncio.sleep(0.005)
+
+
 def _flash_args(card, *, B, S, KVLEN, H, KV, hd, offsets, seed):
     """Flash inputs through a strided [:, :KVLEN] view of a cache one slot
     longer, with row b's queries at offsets[b] + 0 .. S-1. Each batch
@@ -1153,15 +1166,15 @@ def test_spec_chunk_on_the_card_equals_spec_off(card):
         try:
             # The warm-up's chunks still in flight run out first: the
             # counts below are this burst's alone.
-            while eng._inflight:
-                await asyncio.sleep(0.005)
+            await _until(lambda: not eng._inflight,
+                         "the warm-up's chunks never ran out")
             ragged_attention_pool.launches = 0
             v0 = eng.verify_steps
             res = await asyncio.gather(*[
                 eng.generate(p, max_tokens=24, seed=100 + i)
                 for i, p in enumerate(prompts)])
-            while eng._inflight:
-                await asyncio.sleep(0.005)
+            await _until(lambda: not eng._inflight,
+                         "the burst's chunks never ran out")
             return eng, ragged_attention_pool.launches, \
                 eng.verify_steps - v0, [list(r.token_ids) for r in res]
         finally:
@@ -1306,11 +1319,11 @@ def test_fleet_migrates_a_request_between_two_replicas_on_the_card(card):
             ragged_attention_pool.launches = 0
             task = asyncio.create_task(
                 fleet.generate(prompt, max_tokens=48, seed=7))
-            while not reached.is_set():
-                await asyncio.sleep(0.005)
+            await _until(reached.is_set,
+                         "replica 0 never read three chunks")
             drain = asyncio.create_task(fleet.drain(0))
-            while fleet._migrations == 0:
-                await asyncio.sleep(0.005)
+            await _until(lambda: fleet._migrations > 0,
+                         "the drain never migrated the request")
             opened.set()
             got = await task
             await drain

@@ -147,7 +147,10 @@ async def test_greedy_transcripts_match_jax_reference():
         # ragged prologue beside its decode step.
         first = asyncio.ensure_future(
             eng.generate(PROMPTS[0], max_tokens=MAX_TOKENS))
+        deadline = time.monotonic() + 60.0
         while not second_chunk.is_set():
+            assert time.monotonic() < deadline, (
+                "the first prompt's second chunk was never staged")
             await asyncio.sleep(0.001)
         rest = await asyncio.gather(*[
             eng.generate(p, max_tokens=MAX_TOKENS) for p in PROMPTS[1:]])

@@ -148,8 +148,8 @@ class _Gate:
         eng._dispatch_chunk = dispatch
 
     async def wait(self):
-        while not self.reached.is_set():
-            await asyncio.sleep(0.005)
+        await _wait_for(self.reached.is_set,
+                        "the held replica never read its chunks")
 
     def release(self):
         self.opened.set()
@@ -364,8 +364,26 @@ def test_hedge_wins_byte_identical_and_bills_the_loser(ref):
         try:
             loser = fleet.replicas[0].engine
             _slow_first_event(loser, delay=LIMIT)
+            # The loser has read tokens and not finished when the hedge's
+            # first event wins: held after its first chunk's read until
+            # the race is decided, while the hedge's scheduler waits for
+            # that hold. (Left to the clock, a loser discarded before its
+            # first read, or finished before the discard, bills no
+            # hedge_loser step: either happened now and then under load.)
+            gate = _Gate(loser, after=1)
+            hedge = fleet.replicas[1].engine
+            real = type(hedge)._dispatch_chunk.__get__(hedge)
+
+            def after_the_loser():
+                assert gate.reached.wait(LIMIT), "the loser never read"
+                real()
+
+            hedge._dispatch_chunk = after_the_loser
             before = dict(loser.ledger_snapshot()["classes"])
-            got = await fleet.generate(prompt, max_tokens=16)
+            try:
+                got = await fleet.generate(prompt, max_tokens=16)
+            finally:
+                gate.release()
             assert got.text == ref["texts"][prompt]
             assert fleet._hedges == 1 and fleet._hedge_wins == 1
             assert fleet.fleet_health()["hedges"] == 1

@@ -36,6 +36,7 @@ Transcripts are compared byte for byte, counters for equality.
 
 import asyncio
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -271,6 +272,17 @@ def _ids(text: str) -> list:
     return ByteTokenizer().encode(text, add_bos=False)
 
 
+async def _until(cond, what: str, limit: float = 60.0) -> None:
+    """Poll ``cond`` until it holds, failing the test with ``what`` when
+    it has not within ``limit`` seconds: a scheduler thread that lost a
+    race must fail its test, not hang the run."""
+    deadline = time.monotonic() + limit
+    while not cond():
+        assert time.monotonic() < deadline, (
+            f"{what} within {limit:.0f} s")
+        await asyncio.sleep(0.002)
+
+
 async def _quiet(eng) -> None:
     """Wait until the scheduler idles: the chunks dispatched past the
     last request's end count against the depth until the idle scheduler
@@ -287,8 +299,7 @@ async def _quiet(eng) -> None:
 
     q.get = watched
     try:
-        while not idle.is_set():
-            await asyncio.sleep(0.002)
+        await _until(idle.is_set, "the scheduler never went idle")
     finally:
         q.__dict__.pop("get", None)
 
@@ -313,11 +324,10 @@ async def _together(eng, calls) -> list:
     for name, pop in pops.items():
         setattr(q, name, hold(pop))
     try:
-        while not held.is_set():
-            await asyncio.sleep(0.002)
+        await _until(held.is_set, "the scheduler never reached its next pop")
         tasks = [asyncio.ensure_future(call()) for call in calls]
-        while q.qsize() < len(calls):
-            await asyncio.sleep(0.002)
+        await _until(lambda: q.qsize() >= len(calls),
+                     "the burst was never wholly queued")
         opened.set()
         return await asyncio.gather(*tasks)
     finally:

@@ -79,7 +79,7 @@ class StubEngine:
         self.calls += 1
         self.started.set()
         if self.gate is not None:
-            await self.gate.wait()
+            await asyncio.wait_for(self.gate.wait(), 30.0)
         out = self.script.pop(0) if self.script else self.default
         if isinstance(out, tuple):
             name, message = out
@@ -634,7 +634,7 @@ async def test_single_flight_coalesces_and_recovers_as_the_jax_one():
 
         async def supplier():
             calls[0] += 1
-            await gate.wait()
+            await asyncio.wait_for(gate.wait(), 30.0)
             return "kubectl get pods"
 
         tasks = [asyncio.ensure_future(csf.get_or_create("q", supplier))

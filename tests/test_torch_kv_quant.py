@@ -380,7 +380,9 @@ def _transcripts(kind: str) -> dict:
         je.params = jparams
         await je.start()
         if kind == "single":
-            je._ladder_thread.join()
+            je._ladder_thread.join(120.0)
+            assert not je._ladder_thread.is_alive(), (
+                "the JAX engine's decode ladder warm never finished")
         try:
             want = await _drive(je)
             want_resolved = _resolved(je)

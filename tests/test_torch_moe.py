@@ -365,7 +365,9 @@ def _transcripts(kind: str, quant: str) -> dict:
         je._quantized = bool(quant)
         await je.start()
         if kind == "single":
-            je._ladder_thread.join()
+            je._ladder_thread.join(120.0)
+            assert not je._ladder_thread.is_alive(), (
+                "the JAX engine's decode ladder warm never finished")
         try:
             want = await _drive(je)
         finally:

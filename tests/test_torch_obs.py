@@ -352,7 +352,9 @@ async def _flood(eng, qos):
         # until the idle scheduler prunes them, and a dispatch with one
         # still in flight takes a step-time sample: start each request
         # from an empty pipe, so both engines sample alike.
+        deadline = time.monotonic() + 60.0
         while eng._inflight:
+            assert time.monotonic() < deadline, "the pipe never emptied"
             await asyncio.sleep(0.002)
 
     await quiet()

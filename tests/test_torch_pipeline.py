@@ -131,6 +131,17 @@ def port_engines(params):
     _stopped(engines)
 
 
+async def _until(cond, what: str, limit: float = 60.0) -> None:
+    """Poll ``cond`` until it holds, failing the test with ``what`` when
+    it has not within ``limit`` seconds: a scheduler thread that lost a
+    race must fail its test, not hang the run."""
+    deadline = time.monotonic() + limit
+    while not cond():
+        assert time.monotonic() < deadline, (
+            f"{what} within {limit:.0f} s")
+        await asyncio.sleep(0.002)
+
+
 async def _quiet(eng) -> None:
     """Wait until the scheduler idles: the chunks dispatched past the
     last request's end count against the depth until the idle scheduler
@@ -147,8 +158,7 @@ async def _quiet(eng) -> None:
 
     q.get = watched
     try:
-        while not idle.is_set():
-            await asyncio.sleep(0.002)
+        await _until(idle.is_set, "the scheduler never went idle")
     finally:
         q.__dict__.pop("get", None)
 
@@ -173,11 +183,10 @@ async def _together(eng, calls) -> list:
     for name, pop in pops.items():
         setattr(q, name, hold(pop))
     try:
-        while not held.is_set():
-            await asyncio.sleep(0.002)
+        await _until(held.is_set, "the scheduler never reached its next pop")
         tasks = [asyncio.ensure_future(call()) for call in calls]
-        while q.qsize() < len(calls):
-            await asyncio.sleep(0.002)
+        await _until(lambda: q.qsize() >= len(calls),
+                     "the burst was never wholly queued")
         opened.set()
         return await asyncio.gather(*tasks)
     finally:
@@ -669,8 +678,9 @@ async def test_resume_over_its_own_chunks_in_flight_keeps_the_transcript(
         await _quiet(eng)
         tasks = [asyncio.ensure_future(run(p, t, s, "background", 40))
                  for p, t, s in reqs]
-        while not all(s is not None for s in eng._slots):
-            await asyncio.sleep(0.002)
+        await _until(lambda: all(s is not None for s in eng._slots),
+                     "the two background requests never held both "
+                     "slots")
         probe = await run("quick q ", 0.0, 5, "interactive", 8)
         got = [r.text for r in await asyncio.gather(*tasks)]
     finally:

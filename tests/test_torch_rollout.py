@@ -32,6 +32,7 @@ stamped three times, and one ``BatchedJaxEngine`` on the checkpoints.
 
 import asyncio
 import threading
+import time
 import zlib
 
 import pytest
@@ -100,15 +101,28 @@ def _controller(engine, **kw):
                                         "drain_secs": 2.0, **kw})
 
 
+async def _poll(cond, what: str) -> None:
+    """Poll ``cond`` until it holds, failing the test with ``what`` when
+    it has not within ``LIMIT`` seconds (a lost race must fail, not hang
+    the run)."""
+    deadline = time.monotonic() + LIMIT
+    while not cond():
+        assert time.monotonic() < deadline, f"{what} within {LIMIT:.0f} s"
+        await asyncio.sleep(0.005)
+
+
 async def _idle(ctl):
-    while ctl.active:
-        await asyncio.sleep(0.01)
+    await _poll(lambda: not ctl.active, "the rollout never ended")
 
 
 async def _until(ctl, state):
-    while ctl.state != state:
+    def reached():
+        if ctl.state == state:
+            return True
         assert ctl.active, f"rollout ended in {ctl.state}"
-        await asyncio.sleep(0.01)
+        return False
+
+    await _poll(reached, f"the rollout never reached {state}")
 
 
 async def _text(eng, prompt="pod alpha ", **kw):
@@ -461,8 +475,8 @@ class _Hold:
         eng._dispatch_chunk = dispatch
 
     async def wait(self):
-        while not self.reached.is_set():
-            await asyncio.sleep(0.005)
+        await _poll(self.reached.is_set,
+                    "the held engine never read two chunks")
 
 
 def test_established_stream_never_splices_across_versions():
@@ -653,16 +667,16 @@ async def _inplace_http(client, svc, gate, swapping) -> list:
     r = await client.post("/admin/rollout",
                           json={"checkpoint": V2})
     out.append(r.status)
-    while not swapping():
-        assert svc.rollout.active
-        await asyncio.sleep(0.005)
+    await _poll(lambda: swapping() or not svc.rollout.active,
+                "the rollout never reached its swap")
+    assert svc.rollout.active
     r = await client.post("/kubectl-command",
                           json={"query": "list pods while swapping"})
     out.append((r.status, r.headers.get("Retry-After"),
                 (await r.json())["detail"].split(":")[0]))
     gate.set()
-    while svc.rollout.active:
-        await asyncio.sleep(0.01)
+    await _poll(lambda: not svc.rollout.active,
+                "the rollout never finished after its swap")
     status = await (await client.get("/admin/rollout")).json()
     out.append((status["state"], [e["type"] for e in status["events"]],
                 next(e for e in status["events"]
@@ -698,8 +712,8 @@ def test_single_replica_inplace_swap_priced_503_as_the_jax_app():
             await hold.wait()
             task = asyncio.create_task(_inplace_http(
                 c, c.app["service"], gate, lambda: not eng.ready))
-            while not c.app["service"].rollout.active:
-                await asyncio.sleep(0.005)
+            await _poll(lambda: c.app["service"].rollout.active,
+                        "the rollout never started")
             hold.opened.set()
             got = await task
             assert await inflight == base
@@ -760,8 +774,7 @@ async def _admin_script(client, svc, token: dict) -> list:
     r = await client.post("/admin/rollout",
                           json={"checkpoint": V3}, headers=token)
     out.append(r.status)
-    while svc.rollout.active:
-        await asyncio.sleep(0.01)
+    await _poll(lambda: not svc.rollout.active, "the rollout never ended")
     r = await client.get("/admin/rollout", headers=token)
     status = await r.json()
     out.append((r.status, _shape(status), status["state"],

@@ -223,7 +223,6 @@ def test_config_defaults_match_the_jax_package():
 
 #: every knob of UNSERVED_KNOBS with a value that asks for the feature
 REFUSED = [
-    ("ADMIT_SCRATCH_MB", "256"),
     ("MESH_SHAPE", "data:1,model:8"), ("DCN_MESH_SHAPE", "data:2"),
     ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
     ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
@@ -498,12 +497,29 @@ def test_config_reads_kv_quant_as_the_jax_package(monkeypatch, value):
         ServiceConfig.from_env()
 
 
-@pytest.mark.parametrize("engine", ["fake", "jax", "jax-batched"])
+@pytest.mark.parametrize("engine", ["jax", "jax-batched"])
 def test_config_refuses_the_jax_packages_engines_by_name(monkeypatch,
                                                          engine):
     monkeypatch.setenv("ENGINE", engine)
     with pytest.raises(ValueError, match=f"ENGINE={engine} "):
         ServiceConfig.from_env()
+
+
+def test_config_serves_engine_fake(monkeypatch):
+    """ENGINE=fake, refused by name until the port served it, boots the
+    port's rule-table engine, which has no device; the batcher's fault
+    points are refused under it with the JAX factory's message."""
+    from ai_agent_kubectl_tpu_torch.engine.fake import FakeEngine
+    from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+
+    monkeypatch.setenv("ENGINE", "fake")
+    cfg = ServiceConfig.from_env()
+    assert cfg.engine == JaxServiceConfig.from_env().engine == "fake"
+    assert not cfg.batched_engine
+    assert isinstance(build_engine(cfg), FakeEngine)
+    monkeypatch.setenv("FAULT_POINTS", "admit:error:1.0")
+    with pytest.raises(ValueError, match="only wired into the continuous"):
+        build_engine(ServiceConfig.from_env())
 
 
 def test_config_serves_engine_openai(monkeypatch):

@@ -118,7 +118,9 @@ def _run_engines(quant: str) -> dict:
         await je.start()
         # Every decode program warm: the JAX engine then picks the same
         # KV-ladder bucket as the port for every chunk.
-        je._ladder_thread.join()
+        je._ladder_thread.join(120.0)
+        assert not je._ladder_thread.is_alive(), (
+            "the JAX engine's decode ladder warm never finished")
         await te.start()
         out = {}
         try:
@@ -228,7 +230,9 @@ def _run_sampled(top_k: int, top_p: float) -> dict:
                          params=params_from_jax(
                              jax.tree.map(np.asarray, jparams)), **kw)
         await je.start()
-        je._ladder_thread.join()
+        je._ladder_thread.join(120.0)
+        assert not je._ladder_thread.is_alive(), (
+            "the JAX engine's decode ladder warm never finished")
         await te.start()
         out = {}
         try:

@@ -28,6 +28,7 @@ Transcripts are compared byte for byte, counters for equality.
 """
 
 import asyncio
+import time
 
 import jax
 import numpy as np
@@ -117,6 +118,15 @@ def _spec_delta(eng, since):
     return {k: now[k] - since[k] for k in SPEC_KEYS}
 
 
+async def _empty_pipe(eng) -> None:
+    """Wait for the engine's pipe to empty (the chunks past a drain are
+    pruned by the idle scheduler), failing the test after 60 s."""
+    deadline = time.monotonic() + 60.0
+    while eng._inflight:
+        assert time.monotonic() < deadline, "the pipe never emptied"
+        await asyncio.sleep(0.002)
+
+
 async def _one_by_one(eng, reqs=REQS, max_tokens=MAX_TOKENS):
     """Each request alone, from an empty pipe (the chunks dispatched past
     the last request's end count against the depth until the idle
@@ -127,8 +137,7 @@ async def _one_by_one(eng, reqs=REQS, max_tokens=MAX_TOKENS):
     h0 = eng.spec_health()
     out = {}
     for p, t, s in reqs:
-        while eng._inflight:
-            await asyncio.sleep(0.002)
+        await _empty_pipe(eng)
         r = await eng.generate(p, max_tokens=max_tokens, temperature=t,
                                seed=s)
         out[(p, t)] = r.text
@@ -194,8 +203,7 @@ def jax_ref():
                     # each turn; the pipe is empty between the two).
                     out["cap"] = {}
                     for depth in (3, 1):
-                        while eng._inflight:
-                            await asyncio.sleep(0.002)
+                        await _empty_pipe(eng)
                         eng.chunk_pipe_depth = depth
                         p, t, s = CAP_REQ
                         r = await eng.generate(p, max_tokens=CAP_TOKENS,
