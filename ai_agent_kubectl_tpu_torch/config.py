@@ -74,10 +74,57 @@ from .obs.steptime import load_baselines
 #: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
 #: queue A), each with the value the port serves: its "off" default.
 UNSERVED_KNOBS = {
-    # more than one card or host (A8)
-    "MESH_SHAPE": "", "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
+    # more than one host, or processes joined by torch.distributed (A8)
+    "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
     "COORDINATOR_ADDRESS": "", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
 }
+
+
+def _mesh_device_count(spec: str) -> int:
+    """Device count a MESH_SHAPE spec asks for (product of its axis
+    sizes; 1 for empty): the JAX config's mirror of
+    ``parallel/mesh.py::MeshConfig.parse``'s arithmetic, which config
+    validation reads without building a mesh. Malformed axis names are
+    the engine's error to raise, so unknown parts simply count their
+    integer value."""
+    total = 1
+    for part in filter(None, (p.strip() for p in (spec or "").split(","))):
+        _, _, val = part.replace(":", "=").partition("=")
+        try:
+            total *= max(1, int(val))
+        except ValueError:
+            continue
+    return total
+
+
+#: ``parallel/mesh.py::MeshConfig.parse``'s alias map, for validation.
+_MESH_AXIS_ALIASES = {
+    "dp": "data", "data": "data",
+    "ep": "expert", "expert": "expert",
+    "pp": "pipe", "pipe": "pipe",
+    "sp": "seq", "seq": "seq",
+    "tp": "model", "model": "model",
+}
+
+#: axes the port does not serve yet (ROADMAP.md A8): only ``model`` is.
+_UNSERVED_MESH_AXES = frozenset({"data", "expert", "pipe", "seq"})
+
+
+def _mesh_axes_over_one(spec: str) -> set:
+    """Canonical names of the >1 axes a MESH_SHAPE spec asks for;
+    unknown names are the engine's error and are ignored here."""
+    out = set()
+    for part in filter(None, (p.strip() for p in (spec or "").split(","))):
+        name, _, val = part.replace(":", "=").partition("=")
+        canon = _MESH_AXIS_ALIASES.get(name.strip().lower())
+        try:
+            size = int(val)
+        except ValueError:
+            continue
+        if canon is not None and size > 1:
+            out.add(canon)
+    return out
+
 
 #: The JAX package's engines that the port does not serve, and why.
 UNSERVED_ENGINES = {
@@ -174,6 +221,9 @@ class ServiceConfig:
     # "fake" answers from the rule table (engine/fake.py, no model).
     engine: str = "torch"
     torch_device: str = "cuda"              # TORCH_DEVICE: cuda | cpu
+    # Tensor-parallel serving: "tp=N" (or "model:N") splits the model
+    # over N devices; the other axes wait (ROADMAP.md A8).
+    mesh_shape: str = ""                    # MESH_SHAPE
     model_name: str = "toy-8m"              # MODEL_NAME (registry key)
     model_path: Optional[str] = None        # MODEL_PATH (HF safetensors)
     tokenizer_path: Optional[str] = None    # TOKENIZER_PATH
@@ -577,6 +627,33 @@ class ServiceConfig:
                     f"DECODE_BATCH_SIZE>1, or ENGINE=torch-batched); "
                     f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
                     f"{self.decode_batch_size} would serve plain decode")
+        # The mesh: only the model axis is served; speculative decoding
+        # and mixture-of-experts models on a mesh wait for later parts of
+        # ROADMAP.md A8.
+        if _mesh_device_count(self.mesh_shape) > 1:
+            bad = sorted(_mesh_axes_over_one(self.mesh_shape)
+                         & _UNSERVED_MESH_AXES)
+            if bad:
+                raise ValueError(
+                    f"MESH_SHAPE={self.mesh_shape!r}: the {'/'.join(bad)} "
+                    f"axis is not served by the PyTorch port yet "
+                    f"(ROADMAP.md A8); it serves the model axis (tp=N)")
+            if self.spec_decode:
+                raise ValueError(
+                    f"SPEC_DECODE with MESH_SHAPE={self.mesh_shape!r} (the "
+                    f"draft world sharded) is not served by the PyTorch "
+                    f"port yet (ROADMAP.md A8)")
+            from .models.config import get_config as _model_config
+
+            try:
+                is_moe = _model_config(self.model_name).is_moe
+            except KeyError:
+                is_moe = False   # MODEL_NAME errors are the engine's job
+            if is_moe:
+                raise ValueError(
+                    f"MESH_SHAPE={self.mesh_shape!r}: a mixture-of-experts "
+                    f"model ({self.model_name}) on a mesh is not served by "
+                    f"the PyTorch port yet (ROADMAP.md A8)")
         # Only the continuous-batching engine has the radix tree the host
         # tier hangs off (the JAX single-sequence engine ignores the knob).
         if self.host_kv_blocks > 0 and not self.batched_engine:
@@ -720,6 +797,7 @@ class ServiceConfig:
             spec_draft_k=_env_int("SPEC_DRAFT_K", 4),
             spec_draft_model=_env_str("SPEC_DRAFT_MODEL", "gemma-2b-it"),
             spec_draft_path=_env_str("SPEC_DRAFT_PATH", None),
+            mesh_shape=_env_str("MESH_SHAPE", "") or "",
             fleet_size=_env_int("FLEET_SIZE", 1),
             fleet_hedge_ms=_env_float("FLEET_HEDGE_MS", 0.0),
             fleet_affinity=_env_bool("FLEET_AFFINITY", True),

@@ -199,6 +199,18 @@ one ``("firsts", ...)`` entry). In every regime:
   slot ``batch_size`` and are dropped). The first tokens travel as one
   ``("firsts", ...)`` in-flight entry. Transcripts equal single
   admission's. Resumes and grammar requests take the single path.
+- **Tensor parallelism** (``MESH_SHAPE=tp=N``, the JAX engine's mesh
+  rules on the ``model`` axis): the weights split over the shards, the
+  pool or dense cache split on KV heads (each shard's K and V tensors of
+  its own, written through its own leaves), every forward over the
+  shards. The pool's kernels run once per shard through the sharded
+  wrappers; where KV or H does not divide tp the pool serves the gather
+  path instead, with the JAX warning. The dense ladder reads per shard
+  in the JAX layouts (heads split together, MQA's KV head replicated,
+  or heads replicated). The block tables, the radix tree and every
+  host structure are one, shared by the shards. ``sharding_health`` and
+  ``stats()["sharding"]`` report the mesh; speculative decoding on a
+  mesh is refused (ROADMAP.md A8).
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -238,8 +250,9 @@ from ..obs.ledger import (CLASS_DELIVERED, CLASS_DRAFT_REJECTED,
 from ..obs.profiler import ProfilerSession, scope
 from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
-from ..ops.quant import (kv_broadcast_rows, kv_map, kv_set_slots,
-                         kv_update_slice)
+from ..ops.quant import (QuantKV, ShardedKV, kv_broadcast_rows, kv_map,
+                         kv_set_slots, kv_update_slice)
+from ..parallel.sharding import kernel_heads_divide, residual_fraction
 from .containment import (CAUSE_SCHEDULER_DEATH, CAUSE_SCHEDULER_ERROR,
                           CAUSE_SLOT_HEALTH, PROBATION_CLEAN_CHUNKS,
                           REASON_HEALTH, REASON_ISOLATED, EngineSupervisor)
@@ -733,9 +746,11 @@ class BatchedTorchEngine(TorchEngine):
         self._attention_regime = ""
 
     @classmethod
-    def from_config(cls, cfg, faults=None) -> "BatchedTorchEngine":
+    def from_config(cls, cfg, faults=None, devices: Optional[list] = None
+                    ) -> "BatchedTorchEngine":
         """``faults``: the factory's one shared injector (None: no
-        drill)."""
+        drill); ``devices``: the mesh's devices when they are not the
+        distinct cards (``TorchEngine.from_config``)."""
         return cls(
             get_config(cfg.model_name),
             batch_size=cfg.decode_batch_size,
@@ -782,6 +797,7 @@ class BatchedTorchEngine(TorchEngine):
             spec_draft_model=cfg.spec_draft_model,
             spec_draft_path=cfg.spec_draft_path,
             faults=faults,
+            devices=devices,
             **engine_kwargs(cfg),
         )
 
@@ -798,6 +814,11 @@ class BatchedTorchEngine(TorchEngine):
         t0 = time.monotonic()
         self._stopping = False
         self._first_consumed = False    # re-arm the cold-start grace
+        self._setup_mesh()
+        if self.spec_decode and self.mesh is not None:
+            raise ValueError(
+                "SPEC_DECODE on a mesh (the draft world sharded) is not "
+                "served by the PyTorch port yet (ROADMAP.md A8)")
         self._load()
         cfg = self.model_cfg
         if self.grammar_decode and self._grammar is None:
@@ -887,11 +908,11 @@ class BatchedTorchEngine(TorchEngine):
                                          device=self.device)
 
     def _resolve_regime(self) -> None:
-        """The JAX engine's startup resolution (without its mesh
-        branches): the decode attention (``_decode_impl``: ragged, paged
-        or dense), the regime ``kv_pool_health`` reports, the page, the
-        speculative chunk's geometry, the KV span ``_S_alloc`` and the
-        decode KV buckets."""
+        """The JAX engine's startup resolution (its mesh branches on the
+        ``model`` axis included): the decode attention (``_decode_impl``:
+        ragged, paged or dense), the regime ``kv_pool_health`` reports,
+        the page, the speculative chunk's geometry, the KV span
+        ``_S_alloc`` and the decode KV buckets."""
         cfg = self.model_cfg
         on_card = self.device.type == "cuda"
         impl, page = resolve_decode_attn(
@@ -930,6 +951,22 @@ class BatchedTorchEngine(TorchEngine):
                 logger.warning(
                     "RAGGED_ATTENTION: the ragged pool kernel reads "
                     "bf16 KV; int8 KV serves the gather path")
+                use_ragged = False
+            tp = self.mesh.tp if self.mesh is not None else 1
+            if impl == "paged" and not kernel_heads_divide(cfg, tp):
+                # The sharded pool kernels split Q and KV heads together
+                # (whole KV groups per shard); geometries that don't
+                # divide serve the gather path.
+                logger.warning(
+                    "paged pool decode needs KV (%d) and H (%d) "
+                    "divisible by the model axis (%d); using the "
+                    "gather path", cfg.n_kv_heads, cfg.n_heads, tp)
+                impl = "dense"
+            if use_ragged and not kernel_heads_divide(cfg, tp):
+                logger.warning(
+                    "ragged pool attention needs KV (%d) and H (%d) "
+                    "divisible by the model axis (%d); using the "
+                    "gather path", cfg.n_kv_heads, cfg.n_heads, tp)
                 use_ragged = False
             if use_ragged:
                 impl = "ragged"
@@ -1011,7 +1048,8 @@ class BatchedTorchEngine(TorchEngine):
         if self.kv_pool:
             self._cache = KVCache.pool(self.model_cfg, self._pool_n_blocks,
                                        self.kv_pool_page, dtype=self.dtype,
-                                       device=dev, kv_quant=self.kv_quant)
+                                       device=dev, kv_quant=self.kv_quant,
+                                       mesh=self.mesh)
             prev_pool, prev_radix = self._pool, self._radix
             prev_store = self._host_store
             self._pool = BlockPool(self._pool_n_blocks, self.kv_pool_page)
@@ -1040,7 +1078,8 @@ class BatchedTorchEngine(TorchEngine):
         else:
             self._cache = KVCache.zeros(self.model_cfg, N, self._S_alloc,
                                         dtype=self.dtype, device=dev,
-                                        kv_quant=self.kv_quant)
+                                        kv_quant=self.kv_quant,
+                                        mesh=self.mesh)
         self._tok_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._pos_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._active_d = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -1092,7 +1131,7 @@ class BatchedTorchEngine(TorchEngine):
             kv_limit=kv_limit, attn_impl=attn_impl,
             page_size=self.kv_page_size, logits_at=logits_at,
             write_mask=write_mask, block_tables=tables, q_lens=q_lens,
-            token_mask=token_mask, moe_impl=self.moe_impl)
+            token_mask=token_mask, moe_impl=self.moe_impl, mesh=self.mesh)
         return logits
 
     def _run_arm(self, slot_idx: int, n_prompt: int, first_tok,
@@ -1140,10 +1179,16 @@ class BatchedTorchEngine(TorchEngine):
     def _kv_leaves(self) -> list:
         """The pool's K/V leaves in the JAX cache pytree's order: ``k``
         then ``v``, and under ``KV_QUANT=int8`` each ``QuantKV``'s ``q``
-        then ``s`` (so the checksum covers the scales too)."""
+        then ``s`` (so the checksum covers the scales too). On a mesh
+        each of ``k`` and ``v`` walks its shards in order: a payload
+        holds every shard's rows (a replicated KV head once per shard),
+        and an onload writes every shard's own leaves."""
         out = []
         for kv in (self._cache.k, self._cache.v):
-            out.extend((kv.q, kv.s) if self._cache.quantized else (kv,))
+            parts = kv.shards if isinstance(kv, ShardedKV) else (kv,)
+            for part in parts:
+                out.extend((part.q, part.s) if isinstance(part, QuantKV)
+                           else (part,))
         return out
 
     def _pool_offload_block(self, block: int) -> np.ndarray:
@@ -2742,7 +2787,8 @@ class BatchedTorchEngine(TorchEngine):
             self._brownout.note_queue_wait(req.lane, wait_ms, now=t_adm)
             self._slo.note(SLO_QUEUE_WAIT, req.lane, wait_ms, now=t_adm)
         scratch = KVCache.zeros(cfg, kpad, kv_limit, dtype=self.dtype,
-                                device=dev, kv_quant=self.kv_quant)
+                                device=dev, kv_quant=self.kv_quant,
+                                mesh=self.mesh)
         with scope("kv_splice"):
             kv_update_slice(scratch.k, kv_broadcast_rows(prefix.k, kpad))
             kv_update_slice(scratch.v, kv_broadcast_rows(prefix.v, kpad))
@@ -2764,7 +2810,7 @@ class BatchedTorchEngine(TorchEngine):
             kv_limit=kv_limit,
             attn_impl=self._prefill_impl_for(sbucket, kv_limit),
             token_mask=cols[None] < lens_d[:, None], moe_impl=self.moe_impl,
-            logits_at=lens_d - 1)
+            logits_at=lens_d - 1, mesh=self.mesh)
         first_d = sample_tokens_seeded(
             logits[:, 0], self._h2d(seeds),
             torch.zeros((kpad,), dtype=torch.int32, device=dev),
@@ -3165,6 +3211,30 @@ class BatchedTorchEngine(TorchEngine):
             "grammar": self.grammar_health(),
             # Speculative totals (None with it off), likewise.
             "spec": self.spec_health(),
+            # The mesh (None without one), mirrored into /metrics.
+            "sharding": self.sharding_health(),
+        }
+
+    def sharding_health(self) -> Optional[dict]:
+        """The sharding view for /health and /metrics, under the JAX
+        batcher's keys (host attributes only): the mesh, its device
+        count, the residual fraction the policy splits at the decode
+        shape, whether the pool serves sharded, the mesh-fallback flag
+        (a data/pipe/seq axis, refused here, so never set), the draft
+        flags (speculative decoding on a mesh is refused, so never set)
+        and the attention regime actually serving."""
+        if self.mesh is None:
+            return None
+        return {
+            "mesh": dict(self.mesh.shape),
+            "devices": int(self.mesh.size),
+            "residual_tp_fraction": residual_fraction(
+                self.mesh, self.batch_size, self.model_cfg.dim),
+            "pool_sharded": bool(self.kv_pool),
+            "kv_pool_mesh_fallback": False,
+            "draft_sharded": False,
+            "draft_kv_fallback": False,
+            "attention_regime": self._attention_regime,
         }
 
     #: finish times older than this do not feed the drain rate: after an

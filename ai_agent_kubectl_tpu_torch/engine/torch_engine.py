@@ -50,11 +50,22 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   (``weights_version``, the JAX package's fingerprint of ``MODEL_PATH``
   or of the ``dev:<model>:seed=<n>:quant=<q>`` sentinel without one).
 
+- ``MESH_SHAPE=tp=N`` serves tensor-parallel over a ``model`` axis of
+  N shards (``_setup_mesh``, the JAX engine's, model axis only): the
+  weights split per ``parallel/sharding.py`` (``shard_params``), the
+  cache per shard, every forward over the shards
+  (``models/transformer.py::_forward_tp``). The mesh's devices are the
+  distinct cards of the serving type, or the constructor's ``devices``
+  list, which may repeat a device (``[cuda:0] * 2`` puts two shards on
+  one card). ``QUANT=int4`` serves int8 under a multi-device mesh, with
+  the JAX warning; a mesh with any other axis, or an MoE model on one,
+  is refused (ROADMAP.md A8).
+
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
-path. Left out of the JAX engine: ring prefill, the mesh, and the
-compile cache and ladder warm threads (nothing compiles in eager
-PyTorch).
+path. Left out of the JAX engine: ring prefill, the data, expert, pipe
+and seq mesh axes, and the compile cache and ladder warm threads
+(nothing compiles in eager PyTorch).
 
 Everything runs on ``device`` — ``cuda`` unless the caller asks for the
 CPU, as the tests do. A CUDA request with no card raises
@@ -84,6 +95,9 @@ from ..ops.flash_attention import flash_supported
 from ..ops.quant import is_quantized, kv_map, quantize_params_int8, \
     random_params_int8
 from ..ops.quant4 import quantize_params_int4
+from ..parallel.mesh import MeshConfig, build_mesh, distinct_devices
+from ..parallel.sharding import ShardedParams, residual_fraction, \
+    shard_params
 from .prefix_cache import PrefixKV, round_kv_limit
 from .protocol import EngineResult, EngineUnavailable, GenerationTimeout
 from .sampling import eos_mask, prng_key, sample_token_keyed, split
@@ -134,6 +148,8 @@ class TorchEngine:
         prefix_cache: bool = True,
         seed: int = 0,
         device: DeviceLike = None,
+        mesh_shape: str = "",
+        devices: Optional[list] = None,
     ):
         if dtype not in DTYPES:
             raise ValueError(f"DTYPE must be one of {sorted(DTYPES)}, got "
@@ -162,7 +178,14 @@ class TorchEngine:
                 "parallelism waits for the multi-GPU slice of the port "
                 "(ROADMAP.md A8)")
         self.model_cfg = model_cfg
-        self.device = resolve_device(device)
+        # An explicit device list names the mesh's devices; its first
+        # is the serving device (scheduler state, logits, sampling).
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else None)
+        self.device = (self.devices[0] if self.devices
+                       else resolve_device(device))
+        self.mesh_shape = mesh_shape or ""
+        self.mesh = None
         self.model_path = model_path
         self.tokenizer_path = tokenizer_path
         self.dtype = DTYPES[dtype]
@@ -205,8 +228,13 @@ class TorchEngine:
                                    dtype=torch.int32, device=self.device)
 
     @classmethod
-    def from_config(cls, cfg) -> "TorchEngine":
-        return cls(get_config(cfg.model_name), **engine_kwargs(cfg))
+    def from_config(cls, cfg, devices: Optional[list] = None
+                    ) -> "TorchEngine":
+        """``devices``: the mesh's devices, one per shard, when they are
+        not the distinct cards (``[cuda:0] * 2`` puts two shards of
+        ``MESH_SHAPE=tp=2`` on one card)."""
+        return cls(get_config(cfg.model_name), devices=devices,
+                   **engine_kwargs(cfg))
 
     # ------------------------------------------------------------ startup
 
@@ -232,12 +260,59 @@ class TorchEngine:
 
     def _start_blocking(self) -> None:
         t0 = time.monotonic()
+        self._setup_mesh()
         self._load()
         self._init_prefix_cache()
         logger.info("TorchEngine ready on %s in %.1fs: %s (quant=%s, "
                     "prefill %s, buckets %s)", self.device,
                     time.monotonic() - t0, self.model_cfg.name,
                     self.quant or "-", self.attn_impl, self.prefill_buckets)
+
+    def _setup_mesh(self) -> None:
+        """The serving mesh from ``mesh_shape`` (the JAX engine's
+        ``_setup_mesh``, model axis only). An empty spec or a one-device
+        mesh keeps ``self.mesh = None``: every path then runs exactly as
+        on one card. A larger spec builds the mesh over the constructor's
+        ``devices``, else the distinct devices of the serving type, and
+        raises when there are too few (as the JAX engine does), when it
+        has a >1 data/expert/pipe/seq axis, or for an MoE model
+        (ROADMAP.md A8). Idempotent: a restart keeps the mesh."""
+        spec = self.mesh_shape.strip()
+        if self.mesh is not None or not spec:
+            return
+        mesh_cfg = MeshConfig.parse(spec)
+        total = mesh_cfg.n_devices
+        if total == 1:
+            return
+        if self.model_cfg.is_moe:
+            raise ValueError(
+                f"MESH_SHAPE={spec!r}: a mixture-of-experts model on a mesh "
+                f"is not served by the PyTorch port yet (ROADMAP.md A8)")
+        devices = self.devices or distinct_devices(self.device.type)
+        if total > len(devices):
+            raise ValueError(
+                f"MESH_SHAPE={spec!r} DCN_MESH_SHAPE='' wants {total} "
+                f"devices; only {len(devices)} present")
+        self.mesh = build_mesh(mesh_cfg, devices[:total])
+        self.device = self.mesh.devices[0]
+
+    def sharding_health(self) -> Optional[dict]:
+        """The sharding view for /health (the JAX engine's keys): mesh
+        shape, device count and the residual fraction at this engine's
+        decode shape (one sequence: the residual cannot split over the
+        batch). The batched engine overrides it with its pool's flags."""
+        if self.mesh is None:
+            return None
+        return {
+            "mesh": dict(self.mesh.shape),
+            "devices": int(self.mesh.size),
+            "residual_tp_fraction": residual_fraction(
+                self.mesh, 1, self.model_cfg.dim),
+            "pool_sharded": False,
+            "kv_pool_mesh_fallback": False,
+            "draft_sharded": False,
+            "draft_kv_fallback": False,
+        }
 
     def _load(self) -> None:
         """Tokenizer and weights: the caller's parameters (quantized here
@@ -248,7 +323,14 @@ class TorchEngine:
         on the serving device — directly in quantized form under
         ``quant``. Either way no full-precision 7B tree is ever built.
         Under ``KV_QUANT=int8`` flash prefill resolves to dense first:
-        the flash kernel reads bf16 KV."""
+        the flash kernel reads bf16 KV. Under a mesh the tree is then
+        split over its shards (``shard_params``), and ``QUANT=int4``
+        serves int8, as in the JAX engine."""
+        if (self.quant == "int4" and self.mesh is not None
+                and self.mesh.size > 1):
+            logger.warning("QUANT=int4 does not compose with a multi-"
+                           "device mesh; serving int8 weights instead")
+            self.quant = "int8"
         if self.kv_quant and self.attn_impl == "flash":
             logger.info("KV_QUANT=int8: prefill attention uses dense "
                         "(fusable dequant) instead of flash")
@@ -271,7 +353,8 @@ class TorchEngine:
                            "(seed %d, quant=%s)", self.model_cfg.name,
                            self.device, self.seed, self.quant or "-")
             self.params = self._random_params(self.seed)
-        elif self.quant and not is_quantized(self.params):
+        elif (self.quant and not isinstance(self.params, ShardedParams)
+              and not is_quantized(self.params)):
             quantize = (quantize_params_int4 if self.quant == "int4"
                         else quantize_params_int8)
             self.params = quantize(self.params,
@@ -292,6 +375,14 @@ class TorchEngine:
                 self.checkpoint_path = self.model_path or dev_id
             self.weights_version = checkpoint_version(
                 self.model_path or dev_id)
+        self.params = self._placed(self.params)
+
+    def _placed(self, params):
+        """A parameter tree as this engine serves it: split over the
+        mesh's shards when there is one."""
+        if self.mesh is None or isinstance(params, ShardedParams):
+            return params
+        return shard_params(params, self.mesh, self.model_cfg)
 
     def _random_params(self, seed: int):
         """A random init drawn from a ``torch.Generator`` seeded with
@@ -337,7 +428,7 @@ class TorchEngine:
                 f"checkpoint {path!r} failed integrity validation "
                 f"(injected checkpoint:corrupt drill)")
         try:
-            new_params = self._load_swap_params(path)
+            new_params = self._placed(self._load_swap_params(path))
         except CheckpointCorrupt:
             raise
         except Exception as e:
@@ -428,7 +519,7 @@ class TorchEngine:
     def _new_cache(self) -> KVCache:
         return KVCache.zeros(self.model_cfg, 1, self.max_seq_len,
                              dtype=self.dtype, device=self.device,
-                             kv_quant=self.kv_quant)
+                             kv_quant=self.kv_quant, mesh=self.mesh)
 
     def _prefill_impl_for(self, q_len: int, kv_len: int) -> str:
         """Attention for a prefill shape: flash where the kernel's gate
@@ -471,7 +562,7 @@ class TorchEngine:
                 bucket, kv_limit),
             token_mask=(cols < n)[None], moe_impl=self.moe_impl,
             logits_at=torch.full((1,), max(n - 1, 0), dtype=torch.int64,
-                                 device=dev))
+                                 device=dev), mesh=self.mesh)
         return logits[:, 0]
 
     def _init_prefix_cache(self) -> None:
@@ -610,7 +701,7 @@ class TorchEngine:
         for _ in range(chunk_len):
             logits, _ = forward(self.params, self.model_cfg, tok, pos, cache,
                                 kv_limit=kv_limit, attn_impl="dense",
-                                moe_impl=self.moe_impl)
+                                moe_impl=self.moe_impl, mesh=self.mesh)
             sub = None
             if temperature > 0.0:
                 key, sub = split(key)
@@ -908,4 +999,5 @@ def engine_kwargs(cfg) -> dict:
         moe_impl=cfg.moe_impl,
         prefix_cache=cfg.hbm_prefix_cache,
         device=cfg.torch_device,
+        mesh_shape=cfg.mesh_shape,
     )

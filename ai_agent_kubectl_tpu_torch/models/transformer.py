@@ -47,8 +47,16 @@ Shared by both:
   the attention kernels reads int8 KV (nor does the JAX package's), so
   an int8 cache asked to attend through one of them raises.
 
-The ring and mesh paths belong to later slices: asking for them raises
-``NotImplementedError``.
+- Under a ``model`` mesh of more than one shard (``mesh=``, the JAX
+  forward's mesh on that axis) the forward runs tensor-parallel over
+  per-shard weights and caches (``_forward_tp``): Megatron column/row
+  splits, the f≈1 residual split, attention per shard on its own heads —
+  the two pool kernels through their sharded wrappers.
+
+Ring attention and the data, expert, pipe and seq axes belong to later
+slices (ROADMAP.md A8): ``attn_impl="ring"`` raises
+``NotImplementedError``, and an MoE model or ``moe_impl="ep"`` on a mesh
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -65,11 +73,16 @@ from ..ops.flash_attention import flash_attention_cached
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (_pool_gather, paged_decode_attention,
                                    paged_decode_attention_pool)
-from ..ops.quant import (QuantKV, embed_lookup, kv_map, kv_quantize,
-                         qmatmul, tied_head)
-from ..ops.ragged_attention import ragged_attention_pool
+from ..ops.paged_attention import paged_decode_attention_pool_sharded
+from ..ops.quant import (QuantKV, ShardedKV, embed_lookup, kv_map,
+                         kv_quantize, qmatmul, tied_head)
+from ..ops.ragged_attention import (check_heads_divide,
+                                    ragged_attention_pool,
+                                    ragged_attention_pool_sharded)
 from ..ops.rope import rope_tables, rotate
+from ..parallel.collectives import all_gather, all_reduce, reduce_scatter
 from ..parallel.moe import dense_moe
+from ..parallel.sharding import head_layout, replicate, residual_split_dim
 from .config import ModelConfig
 
 Params = Dict[str, object]
@@ -112,32 +125,61 @@ class KVCache:
         return torch.zeros(shape, dtype=dtype, device=device)
 
     @classmethod
+    def _kv(cls, cfg: ModelConfig, shape: tuple, dtype, device,
+            kv_quant: str, mesh):
+        """One zeroed K or V leaf: a tensor, or on a ``model`` mesh of
+        more than one shard a ``ShardedKV`` of per-shard leaves (KV heads
+        split where ``head_layout`` splits them, else a whole copy per
+        shard), each allocated on its shard's device."""
+        if mesh is None or mesh.tp <= 1:
+            return cls._leaf(shape, dtype, device, kv_quant)
+        split = head_layout(cfg, mesh.tp)[1]
+        local = shape[:3] + ((shape[3] // mesh.tp if split else shape[3]),
+                             shape[4])
+        return ShardedKV(shards=[cls._leaf(local, dtype, d, kv_quant)
+                                 for d in mesh.devices], heads_split=split)
+
+    @classmethod
     def pool(cls, cfg: ModelConfig, n_blocks: int, page: int, *,
              dtype=torch.bfloat16, device=None,
-             kv_quant: str = "") -> "KVCache":
-        """A zeroed pool (the JAX pool starts zeroed too)."""
+             kv_quant: str = "", mesh=None) -> "KVCache":
+        """A zeroed pool (the JAX pool starts zeroed too), split over
+        ``mesh``'s shards when it has more than one."""
         shape = (cfg.n_layers, n_blocks + 1, page, cfg.n_kv_heads,
                  cfg.head_dim)
-        return cls(k=cls._leaf(shape, dtype, device, kv_quant),
-                   v=cls._leaf(shape, dtype, device, kv_quant))
+        return cls(k=cls._kv(cfg, shape, dtype, device, kv_quant, mesh),
+                   v=cls._kv(cfg, shape, dtype, device, kv_quant, mesh))
 
     @classmethod
     def zeros(cls, cfg: ModelConfig, batch: int, max_seq: int, *,
               dtype=torch.bfloat16, device=None,
-              kv_quant: str = "") -> "KVCache":
-        """A zeroed dense per-slot cache of ``max_seq`` positions."""
+              kv_quant: str = "", mesh=None) -> "KVCache":
+        """A zeroed dense per-slot cache of ``max_seq`` positions, split
+        over ``mesh``'s shards when it has more than one."""
         shape = (cfg.n_layers, batch, max_seq + 1, cfg.n_kv_heads,
                  cfg.head_dim)
-        return cls(k=cls._leaf(shape, dtype, device, kv_quant),
-                   v=cls._leaf(shape, dtype, device, kv_quant))
+        return cls(k=cls._kv(cfg, shape, dtype, device, kv_quant, mesh),
+                   v=cls._kv(cfg, shape, dtype, device, kv_quant, mesh))
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.k, ShardedKV)
+
+    def shard(self, i: int) -> "KVCache":
+        """Shard ``i``'s own cache (the cache itself when unsharded)."""
+        if not self.sharded:
+            return self
+        return KVCache(k=self.k.shards[i], v=self.v.shards[i])
 
     @property
     def quantized(self) -> bool:
+        if self.sharded:
+            return self.k.quantized
         return isinstance(self.k, QuantKV)
 
     @property
     def nbytes(self) -> int:
-        """Bytes of both leaves (payload and scales)."""
+        """Bytes of both leaves (payload and scales, every shard)."""
         return self.k.nbytes + self.v.nbytes
 
     @property
@@ -407,13 +449,30 @@ def _pool_read(tokens, positions, cache: KVCache, tables, q_lens,
 def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
                   cache: KVCache, write_mask, kv_limit: int,
                   attn_impl: str, page_size: int) -> Attend:
-    """The dense cache's K/V write (at absolute positions) and read: the
-    paged decode kernel over ``cache[:, :max_seq]`` for a one-column
-    window under "paged", else ``cache[:, :kv_limit]`` through flash for
-    a prefill window or the dense reference."""
-    S = tokens.shape[1]
+    """The dense cache's K/V write (at absolute positions) and read
+    (``_dense_read``)."""
     with scope("kv_write"):
         flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
+    read = _dense_read(tokens, positions, kv_limit, attn_impl, page_size)
+
+    def attend(q, k, v, layer_k, layer_v):
+        with scope("kv_write"):
+            _write_kv(layer_k, flat, k)
+            _write_kv(layer_v, flat, v)
+        with scope("attention"):
+            return read(q, layer_k, layer_v)
+
+    return attend
+
+
+def _dense_read(tokens: torch.Tensor, positions: torch.Tensor,
+                kv_limit: int, attn_impl: str, page_size: int):
+    """The dense cache's per-forward read setup and its per-layer
+    closure ``read(q, layer_k, layer_v)``: the paged decode kernel over
+    ``cache[:, :max_seq]`` for a one-column window under "paged", else
+    ``cache[:, :kv_limit]`` through flash for a prefill window or the
+    dense reference."""
+    S = tokens.shape[1]
     paged = attn_impl == "paged" and S == 1
     use_flash = attn_impl == "flash" and S > 1
     with scope("attention"):
@@ -436,14 +495,213 @@ def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
             return flash_attention_cached(q, k_ctx, v_ctx, pos32)
         return _attend_read(q, k_ctx, v_ctx, mask)
 
-    def attend(q, k, v, layer_k, layer_v):
-        with scope("kv_write"):
-            _write_kv(layer_k, flat, k)
-            _write_kv(layer_v, flat, v)
-        with scope("attention"):
-            return read(q, layer_k, layer_v)
+    return read
 
-    return attend
+
+# ------------------------------------------------ tensor parallelism
+
+def _tp_pool_reads(cfg: ModelConfig, tokens, positions, cache: KVCache,
+                   tables, q_lens, kv_limit, attn_impl: str, mesh):
+    """The pool's per-layer read over every shard: ``read(qs, lks, lvs)``
+    -> per-shard outputs [B, S, H/tp, hd]. The two kernel paths go
+    through the sharded wrappers (one launch per shard); the gather
+    path runs ``_pool_read`` on each shard's own pool."""
+    S = tokens.shape[1]
+    if attn_impl == "ragged" or (attn_impl == "paged" and S == 1):
+        check_heads_divide("ragged pool kernel" if attn_impl == "ragged"
+                           else "pool paged kernel", cfg.n_heads,
+                           cfg.n_kv_heads, mesh.tp)
+    if attn_impl == "ragged":
+        B = tokens.shape[0]
+        ql = (torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+              if q_lens is None else q_lens.to(torch.int32).contiguous())
+        pos0 = replicate(positions[:, 0].to(torch.int32).contiguous(), mesh)
+        ql, tbl = replicate(ql, mesh), replicate(tables, mesh)
+
+        def read(qs, lks, lvs):
+            n_blocks, page = lks[0].shape[0] - 1, lks[0].shape[1]
+            return ragged_attention_pool_sharded(
+                [q.contiguous() for q in qs], [k[:n_blocks] for k in lks],
+                [v[:n_blocks] for v in lvs], ql, pos0, tbl, mesh,
+                page_size=page)
+        return read
+    if attn_impl == "paged" and S == 1:
+        pos0 = replicate(positions[:, 0].to(torch.int32).contiguous(), mesh)
+        tbl = replicate(tables, mesh)
+
+        def read(qs, lks, lvs):
+            n_blocks, page = lks[0].shape[0] - 1, lks[0].shape[1]
+            outs = paged_decode_attention_pool_sharded(
+                [q[:, 0].contiguous() for q in qs],
+                [k[:n_blocks] for k in lks], [v[:n_blocks] for v in lvs],
+                pos0, tbl, mesh, page_size=page)
+            return [o[:, None] for o in outs]
+        return read
+    toks, poss, tbls = (replicate(t, mesh)
+                        for t in (tokens, positions, tables))
+    reads = [_pool_read(toks[i], poss[i], cache.shard(i), tbls[i], q_lens,
+                        kv_limit, attn_impl) for i in range(mesh.tp)]
+    return lambda qs, lks, lvs: [r(q, k, v) for r, q, k, v in
+                                 zip(reads, qs, lks, lvs)]
+
+
+def _tp_combine(partials, whole: bool, split_dim: Optional[int]):
+    """A row-parallel product's per-shard partial sums joined into the
+    residual's layout: reduce-scattered over the residual's split
+    dimension, or all-reduced when the residual is replicated. A
+    weight that did not split (``whole``) already gives every shard the
+    full product: it is only cut to the residual's block."""
+    if whole:
+        if split_dim is None:
+            return partials
+        tp = len(partials)
+        return [p.chunk(tp, dim=split_dim)[i].contiguous()
+                for i, p in enumerate(partials)]
+    if split_dim is None:
+        return all_reduce(partials)
+    return reduce_scatter(partials, split_dim)
+
+
+def _forward_tp(params, cfg: ModelConfig, tokens, positions,
+                cache: KVCache, *, mesh, kv_limit, attn_impl, page_size,
+                logits_at, write_mask, block_tables, q_lens):
+    """``forward`` over a ``model`` mesh of more than one shard (the JAX
+    forward under a mesh, one controller over per-shard tensors):
+
+    - ``params`` is ``parallel/sharding.py::shard_params``'s per-shard
+      trees, ``cache`` a ``KVCache`` of ``ShardedKV`` leaves;
+    - wq/wk/wv and w_gate/w_up run column-parallel on each shard, wo and
+      w_down row-parallel, their partial sums joined by the collectives
+      of ``parallel/collectives.py``;
+    - the residual follows the f≈1 policy (``residual_spec``): split
+      over the batch rows (decode) or the sequence (prefill) — a
+      reduce-scatter after each row-parallel product, an all-gather
+      before each column-parallel one — else replicated;
+    - attention runs per shard on the shard's heads (``head_layout``):
+      the pool kernels through the sharded wrappers, every other read
+      on each shard's own cache;
+    - the vocab-sharded embedding looks up each shard's rows and sums
+      them; the head's logits gather over the vocab on the first
+      shard's device, where the logits are returned.
+    """
+    tp = mesh.tp
+    B, S = tokens.shape
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
+    q_split, kv_split = head_layout(cfg, tp)
+    H_l = H // tp if q_split else H
+    KV_l = KV // tp if kv_split else KV
+    split = residual_split_dim(mesh, (B, S, d))
+
+    if block_tables is not None:
+        tables = block_tables.to(torch.int32).contiguous()
+        with scope("kv_write"):
+            flat = _pool_flat_pos(tables, positions, cache.page,
+                                  cache.n_blocks, write_mask)
+        with scope("attention"):
+            read = _tp_pool_reads(cfg, tokens, positions, cache, tables,
+                                  q_lens, kv_limit, attn_impl, mesh)
+    else:
+        with scope("kv_write"):
+            flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
+        toks, poss = replicate(tokens, mesh), replicate(positions, mesh)
+        with scope("attention"):
+            reads = [_dense_read(toks[i], poss[i], kv_limit, attn_impl,
+                                 page_size) for i in range(tp)]
+
+        def read(qs, lks, lvs):
+            return [r(q, k, v) for r, q, k, v in zip(reads, qs, lks, lvs)]
+    flats = replicate(flat, mesh)
+
+    with scope("embed"):
+        dt = params[0]["final_norm"].dtype
+        emb = [p["embed"] for p in params]
+        V_l = emb[0].shape[0]
+        toks = replicate(tokens, mesh)
+        if V_l != cfg.vocab_size:       # vocab rows split over the shards
+            parts = []
+            for i in range(tp):
+                local = toks[i].long() - i * V_l
+                inside = (local >= 0) & (local < V_l)
+                e = embed_lookup(emb[i], local.clamp(0, V_l - 1), dtype=dt)
+                parts.append(torch.where(inside[..., None], e,
+                                         torch.zeros((), dtype=dt,
+                                                     device=e.device)))
+            h = _tp_combine(parts, False, split)
+        else:
+            h = _tp_combine([embed_lookup(emb[i], toks[i], dtype=dt)
+                             for i in range(tp)], True, split)
+        if cfg.embed_scale:
+            c = torch.tensor(cfg.dim ** 0.5, dtype=dt).item()
+            h = [x * c for x in h]
+    with scope("rope"):
+        rope = replicate(torch.stack(rope_tables(positions, hd,
+                                                 cfg.rope_theta)), mesh)
+
+    def gather(xs):
+        return xs if split is None else all_gather(xs, split)
+
+    layers = [p["layers"] for p in params]
+    wo_whole = layers[0]["wo"].shape[1] == H * hd
+    down_whole = layers[0]["w_down"].shape[1] == cfg.mlp_hidden
+    for li in range(cfg.n_layers):
+        lps = [{n: w[li] for n, w in lay.items()} for lay in layers]
+        with scope("attn_norm"):
+            xs = gather([rms_norm(x, lp["attn_norm"], cfg.rms_eps,
+                                  cfg.rms_offset) for x, lp in zip(h, lps)])
+        with scope("qkv_proj"):
+            qs = [qmatmul(x, lp["wq"]).view(B, S, H_l, hd)
+                  for x, lp in zip(xs, lps)]
+            ks = [qmatmul(x, lp["wk"]).view(B, S, KV_l, hd)
+                  for x, lp in zip(xs, lps)]
+            vs = [qmatmul(x, lp["wv"]).view(B, S, KV_l, hd)
+                  for x, lp in zip(xs, lps)]
+        with scope("rope"):
+            qs = [rotate(q, r[0], r[1]) for q, r in zip(qs, rope)]
+            ks = [rotate(k, r[0], r[1]) for k, r in zip(ks, rope)]
+        lks = [c.k[li] for c in (cache.shard(i) for i in range(tp))]
+        lvs = [c.v[li] for c in (cache.shard(i) for i in range(tp))]
+        with scope("kv_write"):
+            for i in range(tp):
+                _write_kv(lks[i], flats[i], ks[i])
+                _write_kv(lvs[i], flats[i], vs[i])
+        with scope("attention"):
+            attn = read(qs, lks, lvs)
+        with scope("o_proj"):
+            outs = []
+            for i, (a, lp) in enumerate(zip(attn, lps)):
+                a = a.reshape(B, S, H_l * hd)
+                rows = lp["wo"].shape[0]
+                if not q_split and not wo_whole:
+                    a = a[..., i * rows:(i + 1) * rows]
+                outs.append(qmatmul(a, lp["wo"]))
+            h = [x + o for x, o in zip(h, _tp_combine(outs, wo_whole,
+                                                       split))]
+        with scope("mlp"):
+            xs = gather([rms_norm(x, lp["mlp_norm"], cfg.rms_eps,
+                                  cfg.rms_offset) for x, lp in zip(h, lps)])
+            outs = [_dense_mlp(cfg, lp, x) for x, lp in zip(xs, lps)]
+            h = [x + o for x, o in zip(h, _tp_combine(outs, down_whole,
+                                                       split))]
+    h = gather(h)
+    head = params[0].get("lm_head", emb[0])
+    vocab_split = (head.shape[-1] if "lm_head" in params[0]
+                   else head.shape[0]) != cfg.vocab_size
+    shards = range(tp) if vocab_split else range(1)
+    logits = []
+    for i in shards:
+        with scope("final_norm"):
+            x = rms_norm(h[i], params[i]["final_norm"], cfg.rms_eps,
+                         cfg.rms_offset)
+        if logits_at is not None:
+            x = x[torch.arange(B, device=x.device),
+                  logits_at.to(x.device).long()][:, None]
+        with scope("lm_head"):
+            logits.append(tied_head(x, params[i]["embed"])
+                          if cfg.tie_embeddings
+                          else qmatmul(x, params[i]["lm_head"]))
+    if vocab_split:
+        logits = all_gather(logits, -1)
+    return logits[0].to(mesh.devices[0]).float(), cache
 
 
 # -------------------------------------------------------------- forward
@@ -464,6 +722,7 @@ def forward(
     write_mask: Optional[torch.Tensor] = None,  # [B] or [B, S] bool
     block_tables: Optional[torch.Tensor] = None,  # [B, max_pages] int32
     q_lens: Optional[torch.Tensor] = None,      # [B] int32 valid columns
+    mesh=None,                          # parallel/mesh.py::Mesh
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the model over a token window. Returns (logits [B, S or 1,
     vocab] float32, cache) with the cache updated in place.
@@ -490,6 +749,11 @@ def forward(
     with one column and "flash" with several raise, their kernels
     reading bf16 KV."""
     del token_mask
+    tp = mesh is not None and mesh.tp > 1
+    if tp and cfg.is_moe:
+        raise ValueError(
+            "a mixture-of-experts model on a mesh is not served by the "
+            "PyTorch port yet (ROADMAP.md A8)")
     if block_tables is not None:
         attn_impl = attn_impl or "ragged"
         if attn_impl not in ("ragged", "paged", "dense", "flash"):
@@ -497,8 +761,9 @@ def forward(
                 f"attn_impl={attn_impl!r} over the pool waits for a later "
                 f"slice of the port (ragged, paged, dense and flash are "
                 f"served)")
-        attend = _pool_attend(tokens, positions, cache, write_mask,
-                              block_tables, q_lens, kv_limit, attn_impl)
+        if not tp:
+            attend = _pool_attend(tokens, positions, cache, write_mask,
+                                  block_tables, q_lens, kv_limit, attn_impl)
     else:
         attn_impl = attn_impl or "dense"
         if attn_impl not in ("dense", "flash", "paged"):
@@ -511,8 +776,9 @@ def forward(
         if not 0 < kv_limit <= cache.max_seq:
             raise ValueError(f"kv_limit {kv_limit} outside the cache's "
                              f"{cache.max_seq} positions")
-        attend = _dense_attend(tokens, positions, cache, write_mask,
-                               kv_limit, attn_impl, page_size)
+        if not tp:
+            attend = _dense_attend(tokens, positions, cache, write_mask,
+                                   kv_limit, attn_impl, page_size)
     B, S = tokens.shape
     if cache.quantized and (attn_impl == "ragged"
                             or (attn_impl == "paged" and S == 1)
@@ -522,6 +788,12 @@ def forward(
             f"reads bf16); the engines resolve KV_QUANT=int8 to the gather "
             f"path on the pool and the dense read on the dense cache")
 
+    if tp:
+        return _forward_tp(params, cfg, tokens, positions, cache,
+                           mesh=mesh, kv_limit=kv_limit,
+                           attn_impl=attn_impl, page_size=page_size,
+                           logits_at=logits_at, write_mask=write_mask,
+                           block_tables=block_tables, q_lens=q_lens)
     # final_norm is always a plain tensor in the model dtype: it anchors
     # the activation dtype when the embedding is stored int8.
     with scope("embed"):

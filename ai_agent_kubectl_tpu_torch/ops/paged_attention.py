@@ -35,7 +35,8 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention_cached_plain
-from .ragged_attention import HEAD_DIMS
+from .ragged_attention import (HEAD_DIMS, check_heads_divide, global_heads,
+                               on_shards, split_heads)
 
 
 def paged_supported(page_size: int, head_dim: int, n_pages: int,
@@ -271,3 +272,50 @@ def paged_decode_attention_pool(q: torch.Tensor, k: torch.Tensor,
 
 
 paged_decode_attention_pool.launches = 0
+
+
+def paged_decode_attention_pool_sharded(q, k, v, positions, block_tables,
+                                        mesh, *, page_size: int = 128,
+                                        scale: Optional[float] = None,
+                                        plain: bool = False) -> list:
+    """Pool decode attention over the ``model`` axis of ``mesh``: Q and
+    KV heads split together, and ``paged_decode_attention_pool`` (the
+    Hopper kernel ``paged_decode_pool_bf16`` for CUDA shards) launched
+    once per shard on that shard's own contiguous q/k/v, on torch's
+    current stream of its device. Replaces the JAX
+    ``paged_decode_attention_pool_sharded`` (a ``shard_map`` of the
+    Pallas kernel).
+
+    ``q`` [N, H, hd] and ``k``/``v`` [n_blocks, page, KV, hd] are whole
+    tensors (split here, with the JAX refusal when the heads do not
+    divide) or lists of per-shard blocks; ``positions`` and
+    ``block_tables`` are the same on every shard. Returns the per-shard
+    outputs [N, H/tp, hd] in shard order (``torch.cat(out, dim=1)``
+    assembles them). ``plain`` runs the plain version per shard (the
+    comparisons' reference). ``.launches`` counts the kernel launches,
+    one per CUDA shard a call."""
+    tp = mesh.shape["model"] if mesh is not None else 1
+    fn = (paged_decode_attention_pool_plain if plain
+          else paged_decode_attention_pool)
+    if tp <= 1 and not isinstance(q, (list, tuple)):
+        return [fn(q, k, v, positions, block_tables, page_size=page_size,
+                   scale=scale)]
+    if not isinstance(q, (list, tuple)):
+        check_heads_divide("pool paged kernel", q.shape[1],
+                           global_heads(k, 2), tp)
+    qs = split_heads(q, tp, 1)
+    ks, vs = split_heads(k, tp, 2), split_heads(v, tp, 2)
+    devices = [t.device for t in qs]
+    before = paged_decode_attention_pool.launches
+    out = [fn(qs[i], ks[i], vs[i], pos, tbl, page_size=page_size,
+              scale=scale)
+           for i, (pos, tbl) in enumerate(zip(
+               on_shards(positions, devices),
+               on_shards(block_tables, devices)))]
+    # One per shard whose kernel launched (CPU shards launch none).
+    paged_decode_attention_pool_sharded.launches += (
+        paged_decode_attention_pool.launches - before)
+    return out
+
+
+paged_decode_attention_pool_sharded.launches = 0

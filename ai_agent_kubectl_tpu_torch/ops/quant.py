@@ -236,10 +236,42 @@ def kv_dequantize(kv: QuantKV, dtype=torch.bfloat16) -> torch.Tensor:
     return (kv.q.float() * kv.s[..., None]).to(dtype)
 
 
+@dataclasses.dataclass
+class ShardedKV:
+    """One KV cache leaf over the shards of a tensor-parallel mesh
+    (``parallel/sharding.py``): each shard's own contiguous leaf — a
+    tensor or a ``QuantKV`` — on its own device, never a view of a
+    shared one (the attention kernels refuse non-contiguous k/v).
+    ``heads_split``: the KV-head axis is split over the shards (each
+    holds ``KV / tp`` heads); otherwise each shard holds a full copy."""
+
+    shards: list
+    heads_split: bool
+
+    @property
+    def shape(self):
+        """Shard 0's geometry (KV heads per shard)."""
+        return tuple(self.shards[0].shape)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.nbytes for s in self.shards)
+
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.shards[0], QuantKV)
+
+
 def kv_map(fn, *kvs):
-    """``fn`` applied leaf by leaf: to ``q`` and then ``s`` of each
-    ``QuantKV`` argument (leaves paired in order), or once to plain
-    tensors. Returns a ``QuantKV`` of the results, or the one result."""
+    """``fn`` applied leaf by leaf: shard by shard over ``ShardedKV``
+    arguments, then to ``q`` and then ``s`` of each ``QuantKV`` argument
+    (leaves paired in order), or once to plain tensors. Returns a
+    ``ShardedKV`` or ``QuantKV`` of the results, or the one result."""
+    if isinstance(kvs[0], ShardedKV):
+        return ShardedKV(
+            shards=[kv_map(fn, *(kv.shards[i] for kv in kvs))
+                    for i in range(len(kvs[0].shards))],
+            heads_split=kvs[0].heads_split)
     if isinstance(kvs[0], QuantKV):
         return QuantKV(q=fn(*(kv.q for kv in kvs)),
                        s=fn(*(kv.s for kv in kvs)))
@@ -270,7 +302,7 @@ def kv_set_slots(dst, src, slots):
     never read (decode's causal mask exposes only positions below the
     slot's live length, and each later position is written by its own
     decode step before the mask reaches it). Returns ``dst``."""
-    batch = (dst.q if isinstance(dst, QuantKV) else dst).shape[1]
+    batch = dst.shape[1]
     rows = [(i, int(s)) for i, s in enumerate(np.asarray(slots).reshape(-1))
             if 0 <= int(s) < batch]
 

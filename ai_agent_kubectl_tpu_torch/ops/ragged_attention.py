@@ -180,3 +180,89 @@ def ragged_attention_pool(q: torch.Tensor, k: torch.Tensor,
 
 
 ragged_attention_pool.launches = 0
+
+
+# ------------------------------------------------- over a model axis
+
+def split_heads(x, tp: int, axis: int) -> list:
+    """Per-shard blocks of ``x``: a list is taken as the shards
+    themselves; a tensor is cut into ``tp`` contiguous blocks of heads
+    along ``axis``, each a tensor of its own (the kernels read
+    contiguous k/v)."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != tp:
+            raise ValueError(f"{len(x)} shards for a model axis of {tp}")
+        return list(x)
+    return [c.contiguous() for c in x.chunk(tp, dim=axis)]
+
+
+def on_shards(x, devices) -> list:
+    """A replicated argument (positions, q_lens, tables) on each shard's
+    device: a list is taken as it is, a tensor moved where it is not."""
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x if x.device == d else x.to(d) for d in devices]
+
+
+def global_heads(x, axis: int) -> int:
+    """Heads along ``axis`` of a whole tensor or of its shards together."""
+    if isinstance(x, (list, tuple)):
+        return sum(t.shape[axis] for t in x)
+    return x.shape[axis]
+
+
+def check_heads_divide(kind: str, H: int, KV: int, tp: int) -> None:
+    """The JAX sharded wrappers' refusal: Q and KV heads split together,
+    whole KV groups per shard."""
+    if KV % tp or H % tp:
+        raise ValueError(
+            f"{kind} needs KV ({KV}) and H ({H}) divisible by the model "
+            f"axis ({tp}); engine startup resolves such meshes to the "
+            f"gather path")
+
+
+def ragged_attention_pool_sharded(q, k, v, q_lens, positions,
+                                  block_tables, mesh, *, page_size: int,
+                                  scale: Optional[float] = None,
+                                  plain: bool = False) -> list:
+    """Ragged pool attention over the ``model`` axis of ``mesh``: Q and
+    KV heads split together, and ``ragged_attention_pool`` (the Hopper
+    kernel for CUDA shards) launched once per shard on that shard's own
+    contiguous q/k/v, on torch's current stream of its device. Replaces
+    the JAX ``ragged_attention_pool_sharded`` (a ``shard_map`` of the
+    Pallas kernel).
+
+    ``q`` [N, W, H, hd] and ``k``/``v`` [n_blocks, page, KV, hd] are
+    whole tensors (split here, with the JAX refusal when the heads do
+    not divide) or lists of per-shard blocks (the pool's own shards);
+    ``q_lens``, ``positions`` and ``block_tables`` are the same on every
+    shard (a tensor, or one per shard). Each shard's local G = H/KV is
+    the model's. Returns the per-shard outputs [N, W, H/tp, hd] in shard
+    order (``torch.cat(out, dim=2)`` assembles them). ``plain`` runs the
+    plain version per shard (the comparisons' reference). ``.launches``
+    counts the kernel launches, one per CUDA shard a call."""
+    tp = mesh.shape["model"] if mesh is not None else 1
+    if tp <= 1 and not isinstance(q, (list, tuple)):
+        fn = ragged_attention_pool_plain if plain else ragged_attention_pool
+        return [fn(q, k, v, q_lens, positions, block_tables,
+                   page_size=page_size, scale=scale)]
+    if not isinstance(q, (list, tuple)):
+        check_heads_divide("ragged pool kernel", q.shape[2],
+                           global_heads(k, 2), tp)
+    qs, ks, vs = (split_heads(x, tp, ax) for x, ax in
+                  ((q, 2), (k, 2), (v, 2)))
+    devices = [t.device for t in qs]
+    fn = ragged_attention_pool_plain if plain else ragged_attention_pool
+    before = ragged_attention_pool.launches
+    out = [fn(qs[i], ks[i], vs[i], ql, pos, tbl, page_size=page_size,
+              scale=scale)
+           for i, (ql, pos, tbl) in enumerate(zip(
+               on_shards(q_lens, devices), on_shards(positions, devices),
+               on_shards(block_tables, devices)))]
+    # One per shard whose kernel launched (CPU shards launch none).
+    ragged_attention_pool_sharded.launches += (ragged_attention_pool.launches
+                                               - before)
+    return out
+
+
+ragged_attention_pool_sharded.launches = 0

@@ -1,0 +1,334 @@
+"""Partition policy: how params, KV cache and activations split over the
+``model`` axis, and the functions that split them.
+
+The counterpart of the JAX package's ``parallel/sharding.py``. A spec is
+a tuple of mesh axis names (or ``None``, or a tuple of names) over a
+tensor's dimensions — the JAX ``PartitionSpec`` as a tuple, with the
+same policy: Megatron tensor parallelism over the stacked-layer tree of
+``models/transformer.py``.
+
+- attention: wq/wk/wv column-parallel (heads split over ``model``), wo
+  row-parallel;
+- MLP: w_gate/w_up column-parallel, w_down row-parallel;
+- embedding: vocab-sharded (the tied head's logits gather over
+  ``model`` before sampling);
+- KV cache and pool: KV heads over ``model``.
+
+``sanitize_spec`` drops an axis that does not divide its dimension. The
+``shard_*`` functions split the port's tensors into per-shard tensors
+on the mesh's devices, with one difference from the JAX placement: a
+head-packed projection (wq, wk, wv) splits on whole heads or not at
+all, since each shard runs the attention kernel on its own heads (XLA
+may split a single KV head's columns and gather them back; a shard here
+cannot). So Gemma-2B's single KV head is replicated under tp=2 and its
+query heads split (``head_layout``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..models.config import ModelConfig
+from ..ops.quant import QuantInt8, QuantKV, ShardedKV
+from ..ops.quant4 import QuantInt4
+from .mesh import Mesh
+
+Spec = Tuple
+Params = Dict[str, Any]
+
+
+def P(*axes) -> Spec:
+    """A spec: one entry per leading dimension (``None`` = whole)."""
+    return tuple(axes)
+
+
+def _axes_prod(mesh: Mesh, axes: tuple) -> int:
+    p = 1
+    for a in axes:
+        p *= mesh.shape[a]
+    return p
+
+
+def sanitize_spec(mesh: Mesh, spec: Spec, shape: tuple) -> Spec:
+    """Drop spec axes that don't divide their dimension (-> replicate
+    there); the spec is cut or padded with ``None`` to the shape's
+    rank."""
+    out = []
+    for dim, names in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                         - len(spec))):
+        if names is None:
+            out.append(None)
+            continue
+        group = names if isinstance(names, tuple) else (names,)
+        prod = _axes_prod(mesh, group)
+        out.append(names if prod and dim % prod == 0 else None)
+    return P(*out)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The spec tree matching ``models/transformer.py::init_params`` (the
+    leading ``n_layers`` axis over ``pipe``, a no-op on a ``model``
+    mesh)."""
+    layers: Params = {
+        "attn_norm": P("pipe"),
+        "wq": P("pipe", None, "model"),
+        "wk": P("pipe", None, "model"),
+        "wv": P("pipe", None, "model"),
+        "wo": P("pipe", "model", None),
+        "mlp_norm": P("pipe"),
+    }
+    if cfg.is_moe:
+        layers.update(
+            router=P("pipe"),
+            w_gate=P("pipe", "expert", None, "model"),
+            w_up=P("pipe", "expert", None, "model"),
+            w_down=P("pipe", "expert", "model", None),
+        )
+    else:
+        layers.update(
+            w_gate=P("pipe", None, "model"),
+            w_up=P("pipe", None, "model"),
+            w_down=P("pipe", "model", None),
+        )
+    specs: Params = {
+        "embed": P("model", None),
+        "layers": layers,
+        "final_norm": P(),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, "model")
+    return specs
+
+
+def cache_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    """The dense cache [L, B, S, KV, hd]: batch over data, KV heads over
+    model (the JAX cache's ``lengths`` leaf included; the port keeps
+    lengths on the host)."""
+    kv = P("pipe", "data", None, "model", None)
+    return {"k": kv, "v": kv, "lengths": P("data")}
+
+
+def pool_cache_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    """The pool [L, n_blocks, page, KV, hd]: KV heads over ``model``;
+    the block axis never shards (any slot's table may map any block)."""
+    kv = P(None, None, None, "model", None)
+    return {"k": kv, "v": kv, "lengths": P()}
+
+
+def residual_spec(mesh: Optional[Mesh], shape: tuple) -> Optional[Spec]:
+    """Where the [B, S, d] residual's TP factor lands under the f≈1
+    policy: the batch axis when data x model divides B (decode), else
+    the sequence axis (prefill's B == 1), else None (the residual is
+    replicated). Off on pipe and expert meshes."""
+    if (mesh is None or "model" not in mesh.axis_names
+            or mesh.shape["model"] <= 1 or mesh.shape["pipe"] > 1
+            or mesh.shape["expert"] > 1):
+        return None
+    B, S = shape[0], shape[1]
+    batch = sanitize_spec(mesh, P(("data", "model"),), (B,))
+    if batch[0] is not None:
+        return P(("data", "model"), None, None)
+    seq = sanitize_spec(mesh, P("model"), (S,))
+    if S > 1 and seq[0] is not None:
+        d_ax = ("data",) if B % max(1, mesh.shape["data"]) == 0 \
+            and mesh.shape["data"] > 1 else None
+        return P(d_ax[0] if d_ax else None, "model", None)
+    return None
+
+
+def logits_spec(mesh: Optional[Mesh], vocab: int) -> Optional[Spec]:
+    """[B, S, vocab] logits: the vocab axis over ``model`` (the head is
+    vocab-sharded), or None when the vocab doesn't divide or the policy
+    is off for this mesh."""
+    if (mesh is None or "model" not in mesh.axis_names
+            or mesh.shape["model"] <= 1 or mesh.shape["pipe"] > 1
+            or mesh.shape["expert"] > 1):
+        return None
+    if vocab % mesh.shape["model"]:
+        return None
+    return P(None, None, "model")
+
+
+def residual_fraction(mesh: Optional[Mesh], batch: int, dim: int) -> float:
+    """The residual fraction the policy shards at the decode shape
+    [batch, 1, dim]: 1.0 when the residual splits over the batch rows,
+    else 0.0 (replicated)."""
+    if mesh is None:
+        return 0.0
+    spec = residual_spec(mesh, (batch, 1, dim))
+    if spec is None:
+        return 0.0
+    first = spec[0]
+    group = first if isinstance(first, tuple) else (first,)
+    return 1.0 if "model" in group else 0.0
+
+
+def residual_split_dim(mesh: Optional[Mesh], shape: tuple) -> Optional[int]:
+    """The residual's split dimension under ``residual_spec``: 0 (batch
+    rows), 1 (sequence) or None (replicated)."""
+    spec = residual_spec(mesh, shape)
+    if spec is None:
+        return None
+    for d, names in enumerate(spec):
+        group = names if isinstance(names, tuple) else (names,)
+        if "model" in group:
+            return d
+    return None
+
+
+# ------------------------------------------------------------- heads
+
+def head_layout(cfg: ModelConfig, tp: int) -> Tuple[bool, bool]:
+    """(query heads split, KV heads split) over a model axis of ``tp``
+    — the JAX dense path's three layouts:
+
+    - KV % tp == 0: query and KV heads split together (each shard holds
+      whole KV groups, its local G the model's);
+    - one KV head (MQA) and H % tp == 0: query heads split, the KV head
+      replicated;
+    - else: heads replicated (every shard runs all of them).
+    """
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if tp <= 1:
+        return False, False
+    if KV % tp == 0 and H % tp == 0:
+        return True, True
+    if KV == 1 and H % tp == 0:
+        return True, False
+    return False, False
+
+
+def kernel_heads_divide(cfg: ModelConfig, tp: int) -> bool:
+    """Whether the sharded pool kernels serve this model at ``tp``: KV
+    and H both divide the model axis."""
+    return tp <= 1 or (cfg.n_kv_heads % tp == 0 and cfg.n_heads % tp == 0)
+
+
+# ------------------------------------------------------------ placing
+
+class ShardedParams(list):
+    """A parameter tree per shard (shard ``i`` on ``mesh.devices[i]``),
+    each with the unsharded tree's keys; a replicated leaf is the same
+    values on every shard (the same tensor where shards share a
+    device)."""
+
+
+def _split(t: torch.Tensor, dims: Sequence[int], tp: int, i: int,
+           device) -> torch.Tensor:
+    """Shard ``i``'s block of ``t``: each of ``dims`` cut into ``tp``
+    equal blocks where it divides (a size-1 axis stays whole), copied
+    contiguous onto ``device``."""
+    out, cut = t, False
+    for d in dims:
+        n = t.shape[d]
+        if n % tp == 0 and n >= tp:
+            out = out.narrow(d, i * (n // tp), n // tp)
+            cut = True
+    if not cut:
+        return out if out.device == device else out.to(device)
+    return out.to(device).contiguous()
+
+
+def _leaf_shards(leaf, dims: Sequence[int], mesh: Mesh) -> list:
+    """A leaf's per-shard blocks: a plain tensor, or each tensor field
+    of a quantized leaf cut along the same dimensions."""
+    tp = mesh.tp
+    if isinstance(leaf, QuantInt4):
+        raise ValueError("QUANT=int4 does not compose with a multi-device "
+                         "mesh; the engines serve int8 instead")
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        if isinstance(leaf, QuantInt8):
+            out.append(type(leaf)(q=_split(leaf.q, dims, tp, i, dev),
+                                  scale=_split(leaf.scale, dims, tp, i,
+                                               dev)))
+        else:
+            out.append(_split(leaf, dims, tp, i, dev))
+    return out
+
+
+def _split_dims(mesh: Mesh, spec: Spec, shape: tuple) -> list:
+    return [d for d, names in enumerate(sanitize_spec(mesh, spec, shape))
+            if names is not None and "model" in (
+                names if isinstance(names, tuple) else (names,))]
+
+
+def shard_params(params: Params, mesh: Mesh,
+                 cfg: ModelConfig) -> ShardedParams:
+    """Split a parameter tree over the mesh per ``param_specs``
+    (sanitized per leaf). Quantized leaves cut payload and scales along
+    the weight's split axis (a size-1 scale axis stays whole). The
+    head-packed projections split on whole heads (``head_layout``) or
+    stay whole. MoE trees raise: experts on a mesh are ROADMAP.md A8."""
+    if cfg.is_moe:
+        raise ValueError("a mixture-of-experts model on a mesh is not "
+                         "served by the PyTorch port yet (ROADMAP.md A8)")
+    specs = param_specs(cfg)
+    q_split, kv_split = head_layout(cfg, mesh.tp)
+    whole = {"wq": not q_split, "wk": not kv_split, "wv": not kv_split}
+    trees = [dict() for _ in mesh.devices]
+    for key, spec in specs.items():
+        if key == "layers":
+            for t in trees:
+                t["layers"] = {}
+            for name, lspec in spec.items():
+                leaf = params["layers"][name]
+                dims = ([] if whole.get(name)
+                        else _split_dims(mesh, lspec, tuple(leaf.shape)))
+                for t, s in zip(trees, _leaf_shards(leaf, dims, mesh)):
+                    t["layers"][name] = s
+            continue
+        leaf = params[key]
+        dims = _split_dims(mesh, spec, tuple(leaf.shape))
+        for t, s in zip(trees, _leaf_shards(leaf, dims, mesh)):
+            t[key] = s
+    return ShardedParams(trees)
+
+
+def _shard_kv_leaf(leaf, split: bool, mesh: Mesh) -> ShardedKV:
+    """One cache leaf [L, X, Y, KV, hd] (or a ``QuantKV``) split on its
+    KV-head axis (3), or copied whole, onto each shard's device."""
+    dims = [3] if split else []
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        if isinstance(leaf, QuantKV):
+            out.append(QuantKV(q=_split(leaf.q, dims, mesh.tp, i, dev),
+                               s=_split(leaf.s, dims, mesh.tp, i, dev)))
+        else:
+            out.append(_split(leaf, dims, mesh.tp, i, dev))
+    if not split:
+        # Each shard owns its copy: writes go to each shard's own leaf.
+        out = [o if i == 0 else _own(o) for i, o in enumerate(out)]
+    return ShardedKV(shards=out, heads_split=split)
+
+
+def _own(leaf):
+    if isinstance(leaf, QuantKV):
+        return QuantKV(q=leaf.q.clone(), s=leaf.s.clone())
+    return leaf.clone()
+
+
+def shard_cache(cache, mesh: Mesh, cfg: ModelConfig):
+    """A dense per-slot ``KVCache`` split over the mesh: KV heads over
+    ``model`` where they divide (``cache_specs``), else a whole copy per
+    shard."""
+    from ..models.transformer import KVCache
+
+    split = head_layout(cfg, mesh.tp)[1]
+    return KVCache(k=_shard_kv_leaf(cache.k, split, mesh),
+                   v=_shard_kv_leaf(cache.v, split, mesh))
+
+
+def shard_pool_cache(cache, mesh: Mesh, cfg: ModelConfig):
+    """A block-paged pool ``KVCache`` split over the mesh: KV heads over
+    ``model`` where they divide (``pool_cache_specs``), every other axis
+    whole; each shard's K and V are tensors of their own."""
+    return shard_cache(cache, mesh, cfg)
+
+
+def replicate(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+    """One tensor on every shard's device (itself where it already
+    is)."""
+    return [t if t.device == d else t.to(d) for d in mesh.devices]

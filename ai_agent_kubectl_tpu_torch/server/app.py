@@ -660,6 +660,7 @@ async def handle_health(request: web.Request) -> web.Response:
         qos=_engine_view(svc.engine, "qos_health"),
         slo=_engine_view(svc.engine, "slo_health"),
         kv_pool=_engine_view(svc.engine, "kv_pool_health"),
+        sharding=_engine_view(svc.engine, "sharding_health"),
         steptime=_engine_view(svc.engine, "steptime_health"),
         grammar=_engine_view(svc.engine, "grammar_health"),
         spec=_engine_view(svc.engine, "spec_health"),
@@ -952,6 +953,8 @@ async def handle_metrics(request: web.Request) -> web.Response:
         svc.metrics.observe_grammar(stats["grammar"])
     if stats.get("spec"):
         svc.metrics.observe_spec(stats["spec"])
+    if stats.get("sharding"):
+        svc.metrics.observe_sharding(stats["sharding"])
     # A scrape is also a trigger-evaluation round (cooldowns make the
     # redundant evaluation free).
     try:

@@ -37,8 +37,12 @@ port's features feed, under the same names, labels and help.
   (``rollout_state``, ``rollout_replicas{version}``,
   ``rollout_rollbacks_total{cause}``).
 
-The JAX package's sharding and mesh families wait for the multi-GPU
-slice (ROADMAP.md A8). Every label set is closed
+- Tensor-parallel serving: ``mesh_devices``,
+  ``sharding_residual_fraction``, ``kv_pool_mesh_fallback``,
+  ``spec_draft_sharded``, ``spec_draft_kv_fallback`` (the two draft
+  gauges read 0: speculative decoding on a mesh is refused).
+
+Every label set is closed
 (lanes, ledger classes, phases, triggers) or bounded by config
 (buckets, SLO windows). A ``CollectorRegistry`` per app keeps tests
 isolated.
@@ -525,6 +529,43 @@ class Metrics:
         )
         self._spec_seen = {"drafted": 0, "accepted": 0}
 
+        # Tensor-parallel serving (MESH_SHAPE=tp=N): the mesh's device
+        # count, the residual fraction the policy splits at the decode
+        # shape, and the loud-fallback flags; gauges sampled at scrape
+        # time from stats()["sharding"].
+        self.mesh_devices = Gauge(
+            "mesh_devices",
+            "Devices in the active serving mesh (0 = single device)",
+            registry=r,
+        )
+        self.sharding_residual_fraction = Gauge(
+            "sharding_residual_fraction",
+            "Residual TP-shardable fraction f achieved by the active "
+            "sharding policy at the decode shape (1.0 = full f~1 "
+            "residual-path sharding)",
+            registry=r,
+        )
+        self.kv_pool_mesh_fallback = Gauge(
+            "kv_pool_mesh_fallback",
+            "1 when KV_POOL was requested but the mesh forced the "
+            "dense KV ladder (data/pipe/seq axis > 1) — a silent "
+            "dense fallback must be visible",
+            registry=r,
+        )
+        self.spec_draft_sharded = Gauge(
+            "spec_draft_sharded",
+            "1 when the speculative draft model's params/KV are "
+            "sharded over the serving mesh",
+            registry=r,
+        )
+        self.spec_draft_kv_fallback = Gauge(
+            "spec_draft_kv_fallback",
+            "1 when the draft's KV heads do not divide the mesh's "
+            "model axis and its KV cache serves replicated (gather "
+            "fallback) — a silent gather must be visible",
+            registry=r,
+        )
+
         # The engine fleet (engine/fleet.py, FLEET_SIZE > 1): replica
         # counts by lifecycle state, per-replica occupancy, in-flight and
         # breaker gauges (the ``replica`` label is the index, bounded by
@@ -851,6 +892,24 @@ class Metrics:
             if total > seen[key]:
                 counter.inc(total - seen[key])
                 seen[key] = total
+
+    def observe_sharding(self, sharding: dict) -> None:
+        """Mirror the engine's sharding view (stats()["sharding"]) at
+        scrape time: plain gauges of config-derived states."""
+        self.mesh_devices.set(sharding.get("devices", 0))
+        self.sharding_residual_fraction.set(
+            sharding.get("residual_tp_fraction", 0.0))
+        self.kv_pool_mesh_fallback.set(
+            1 if sharding.get("kv_pool_mesh_fallback") else 0)
+        self.spec_draft_sharded.set(
+            1 if sharding.get("draft_sharded") else 0)
+        self.spec_draft_kv_fallback.set(
+            1 if sharding.get("draft_kv_fallback") else 0)
+        active = sharding.get("attention_regime")
+        if active:
+            for regime in ATTENTION_REGIMES:
+                self.decode_attention_regime.labels(regime=regime).set(
+                    1 if regime == active else 0)
 
     def observe_kv_pool(self, pool: dict) -> None:
         """Mirror the engine's ``kv_pool_health()`` body at scrape time:

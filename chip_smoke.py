@@ -5,7 +5,12 @@
     python3 chip_smoke.py --phases build,serve --bursts 6
                                      # the serve burst timed six times
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.
+Every model runs at its full width. serve, serve_ckpt and serve_tp run
+every layer of theirs; the phases that PHASE_LAYERS names run fewer
+(Gemma-2B 6 of 18, Gemma-7B 8 of 28, Llama-3-8B 8 of 32 in serve_paged),
+as serve_moe and serve_kvq do (MOE_LAYERS, KVQ_LAYERS), so that the whole
+script stays well inside its 1,200 s:
 
 1. build    -- compile every CUDA kernel of the port from the sources in
                ``ai_agent_kubectl_tpu_torch/csrc`` (one nvcc per source,
@@ -66,6 +71,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                  through tables with a block shared by two slots,
                  sentinel entries and every block past the live spans
                  NaN.
+               The two sharded wrappers (the model axis: Q and KV heads
+               split together, one kernel launch per shard on two
+               shards of the one card) at Llama-3-8B's tp=2 (16 over 4
+               heads of 128 a shard) and tp=8 (4 over 1): ragged decode
+               and a prefill span of 64 (page 16), paged pool decode
+               (page 64); ragged at Gemma-7B's tp=2 (8 over 8 of 256):
+               each shard against its plain version, and the assembled
+               output against the unsharded kernel on the same pool.
                Each wrapper's launch counter must grow. Group
                admission's scatter (ops/quant.py::kv_set_slots: a
                shallow source, a padding row at the out-of-range slot,
@@ -206,7 +219,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                Ragged, flash and paged launches are zeroed before each
                engine's traffic and printed after.
 8. serve_moe -- Mixtral-8x7B (MODEL_NAME=mixtral-8x7b-instruct) at full
-               width, 16 of its 32 layers (MOE_LAYERS; the engines take
+               width, 8 of its 32 layers (MOE_LAYERS; the engines take
                the cut config): dim 4096, 8 experts of 14,336 with 2
                routed per token, 32 query heads over 8 KV heads of 128,
                vocab 32,000. QUANT=int4: attention and the head packed
@@ -234,7 +247,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                tok/s, decode ms a step, TTFT, launches; with --profile
                the MoE MLP's share of a step.
 9. serve_kvq -- the int8 KV cache on Llama-3-8B (MODEL_NAME=
-               llama-3-8b-instruct, 16 of its 32 layers (KVQ_LAYERS; the
+               llama-3-8b-instruct, 8 of its 32 layers (KVQ_LAYERS; the
                engines take the cut config), dim 4096, 32 query heads
                over 8 KV heads of 128, MLP 14,336, vocab 128,256) at full
                width: QUANT=int4 (the untied head 512/256, the embedding
@@ -491,6 +504,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                start, the probe's TTFT before and after a swap, seconds
                in each rollout state, the burst's tok/s through the
                fleet beside one 8-slot engine's.
+15b. serve_tp -- tensor-parallel serving (MESH_SHAPE=tp=2) of
+               Llama-3-8B in bf16 at full width and all 32 layers
+               (random weights from seed 0), its two shards on one card
+               (the engine's devices=[cuda:0] * 2; NCCL across cards is
+               a later slice), over HTTP: (a) the ragged regime, (b)
+               RAGGED_ATTENTION=off (the paged pool decode), (c) the
+               dense KV ladder (KV_POOL=false); eight queries each, 64
+               new tokens. Gates: the sharded ragged launches in (a)'s
+               window equal tp x layers x forward steps; (b) launches
+               the sharded paged kernel and (c) the per-shard paged and
+               flash kernels, in multiples of tp x layers; each shard's
+               kernel inputs tapped during the traffic and held against
+               the plain version; the pool books balanced and every
+               shard's K and V its own contiguous [blocks, page, 4, 128]
+               tensor; /health's sharding section (devices 2,
+               pool_sharded, the regime) and the mesh families of
+               /metrics; one forward step's logits against the
+               unsharded forward on the same weights (rms of the error
+               within LOGIT_RTOL of the logits' rms, max within
+               TP_LOGIT_MAX). The unsharded reference engine's greedy
+               transcripts are compared and printed, not gated (bf16
+               sums in another order flip near ties); its launches
+               count apart. Printed: peak device memory, tok/s of each
+               burst (two shards on one card measure no interconnect:
+               no claim).
 16. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
@@ -498,7 +536,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                serve_spec's verify window and its int4 projections at T
                = 40, serve_host (b)'s paged decode and turn-2 prefill on
                Gemma-2B, serve_paged (a)'s group prefill at B = 8 and a
-               Gemma-2B group at B = 4 included); with --profile,
+               Gemma-2B group at B = 4 included; one shard's ragged and
+               paged pool decode at Llama-3-8B's tp=2); with --profile,
                also the device time of each kernel a call launches (an
                attention kernel and its split combine).
 
@@ -518,6 +557,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import faulthandler
 import json
 import math
 import os
@@ -532,10 +572,34 @@ PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve_pipe", "serve1", "serve_paged",
           "serve_ckpt", "serve_qos", "serve_moe", "serve_kvq", "serve_obs",
           "serve_chaos", "serve_grammar", "serve_spec", "serve_host",
-          "serve_fleet", "timing")
+          "serve_fleet", "serve_tp", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
+
+#: the layers a phase's engines run of each model it serves, where that is
+#: fewer than the model's own (widths untouched; phase_layers puts the cut
+#: config in the port's registry for the phase, so every engine and
+#: reference the phase builds takes it). A serving step's time is the
+#: host's launches, so it grows with the layers, and the whole script
+#: must finish well inside its 1,200 s on a card shared with a busy host.
+#: serve, serve_ckpt and serve_tp run every layer; serve_moe and serve_kvq
+#: take MOE_LAYERS and KVQ_LAYERS.
+PHASE_LAYERS = {
+    "serve_pipe": {"gemma-2b-it": 6},
+    "serve1": {"gemma-7b-it": 8},
+    "serve_paged": {"llama-3-8b-instruct": 8},
+    "serve_qos": {"gemma-2b-it": 6},
+    "serve_obs": {"gemma-2b-it": 6, "gemma-7b-it": 8},
+    "serve_chaos": {"gemma-2b-it": 6},
+    "serve_grammar": {"gemma-2b-it": 6},
+    "serve_spec": {"gemma-2b-it": 6, "gemma-7b-it": 8},
+    "serve_host": {"gemma-2b-it": 6},
+    "serve_fleet": {"gemma-2b-it": 6},
+}
+#: seconds after which every thread's stack is printed to stderr once, so
+#: that a run stopped at the limit shows where it was
+STACKS_AT_S = 1100
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16
 # tensor-core FLOP/s. The bound of a kernel is the larger of its bytes
@@ -1283,10 +1347,93 @@ def phase_kernel(torch) -> dict:
         raise AssertionError(f"launch counter grew by {grew}, expected "
                              f"{len(cases)}")
     return {"ragged_attention": {"max_abs_err": worst},
+            **_kernel_sharded(torch, gen),
             "flash_attention": _kernel_flash(torch, gen),
             "int4_matmul": _kernel_int4(torch, gen),
             "kv_set_slots": _kernel_kv_set_slots(torch, gen),
             **_kernel_paged(torch, gen)}
+
+
+#: the sharded wrappers' geometries of phase 2: (label, heads, tp,
+#: whether the paged pool kernel runs there too)
+TP_KERNEL_GEOMETRIES = (("llama_tp2", "LLAMA", 2, True),
+                        ("llama_tp8", "LLAMA", 8, True),
+                        ("g7_tp2", "G7", 2, False))
+#: phase 2's ragged windows for the sharded wrapper: decode with a frozen
+#: slot, and a prefill span of 64 beside decode rows
+TP_RAGGED_WINDOWS = (
+    ("decode", dict(W=1, positions=[0, 15, 16, 100, 255, 511, 700, 1000],
+                    q_lens=[1, 1, 1, 0, 1, 1, 1, 1])),
+    ("prefill64", dict(W=64, positions=[0, 0, 64, 17, 300, 0, 500, 900],
+                       q_lens=[64, 40, 64, 1, 64, 0, 33, 64])))
+
+
+def _kernel_sharded(torch, gen) -> dict:
+    """The two sharded wrappers on ``tp`` shards of the one card: each
+    shard's output against the plain version on that shard's heads, the
+    assembled output against the unsharded kernel on the same pool, and
+    one launch per shard."""
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_pool, paged_decode_attention_pool_sharded)
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool, ragged_attention_pool_sharded)
+    from ai_agent_kubectl_tpu_torch.parallel.mesh import (MeshConfig,
+                                                          build_mesh)
+
+    worst = {"ragged": 0.0, "paged": 0.0, "ragged_assembled": 0.0,
+             "paged_assembled": 0.0}
+    geos = {"LLAMA": LLAMA, "G7": G7}
+    for label, geo, tp, paged in TP_KERNEL_GEOMETRIES:
+        mesh = build_mesh(MeshConfig(model=tp), [torch.device("cuda", 0)] * tp)
+        g = geos[geo]
+        calls = [("ragged", w, ragged_case(torch, gen, **kw, **g))
+                 for w, kw in TP_RAGGED_WINDOWS]
+        if paged:
+            positions = [0, 63, 64, 255, 256, 700, 1000, 1087]
+            calls.append(("paged", "decode", paged_case(
+                torch, gen, page=64, positions=positions, **g)["pool"]))
+        for kind, window, case in calls:
+            if kind == "ragged":
+                page = case["k"].shape[1]
+                args = [case[n] for n in ("q", "k", "v", "q_lens",
+                                          "positions", "block_tables")]
+                wrapper, whole = (ragged_attention_pool_sharded,
+                                  ragged_attention_pool)
+                head_axis = 2
+            else:
+                page = case["page_size"]
+                args = [case[n] for n in ("q", "k", "v", "positions",
+                                          "block_tables")]
+                wrapper, whole = (paged_decode_attention_pool_sharded,
+                                  paged_decode_attention_pool)
+                head_axis = 1
+            before = wrapper.launches
+            outs = wrapper(*args, mesh, page_size=page)
+            if wrapper.launches - before != tp:
+                raise AssertionError(
+                    f"{kind} sharded [{label} {window}]: "
+                    f"{wrapper.launches - before} launches for {tp} shards")
+            plains = wrapper(*args, mesh, page_size=page, plain=True)
+            for i, (o, p) in enumerate(zip(outs, plains)):
+                worst[kind] = max(worst[kind], check_close(
+                    torch, f"{kind} sharded [{label} {window}] shard {i}",
+                    o, p))
+            full = whole(*args, page_size=page)
+            err = check_close(torch, f"{kind} sharded [{label} {window}] "
+                              f"assembled", torch.cat(outs, dim=head_axis),
+                              full)
+            worst[f"{kind}_assembled"] = max(worst[f"{kind}_assembled"], err)
+            H, KV = args[0].shape[head_axis], args[1].shape[2]
+            log(f"[kernel] {kind} sharded {label} {window}: {tp} shards of "
+                f"{H // tp} over {KV // tp} heads, max |kernel - plain| = "
+                f"{worst[kind]:.3e}; assembled vs unsharded kernel "
+                f"{err:.3e}")
+    return {"ragged_attention_pool_sharded": {
+                "max_abs_err": worst["ragged"],
+                "assembled_vs_unsharded": worst["ragged_assembled"]},
+            "paged_decode_attention_pool_sharded": {
+                "max_abs_err": worst["paged"],
+                "assembled_vs_unsharded": worst["paged_assembled"]}}
 
 
 def _kernel_kv_set_slots(torch, gen) -> dict:
@@ -3493,8 +3640,8 @@ MOE_MODEL = "mixtral-8x7b-instruct"
 #: the layers serve_moe runs, of Mixtral's 32 (widths untouched): since
 #: the pipe's default depth of 3 every serving phase dispatches two
 #: chunks past each drain, and the whole script must stay well inside
-#: its time limit
-MOE_LAYERS = 16
+#: its time limit (PHASE_LAYERS)
+MOE_LAYERS = 8
 SERVE_MOE_ENV = {
     "ENGINE": "torch", "TORCH_DEVICE": "cuda",
     "MODEL_NAME": MOE_MODEL, "DTYPE": "bfloat16", "QUANT": "int4",
@@ -3506,7 +3653,7 @@ SERVE_MOE_ENV = {
 SERVE_MOE_ENGINES = {"pool": {}, "single": {"DECODE_BATCH_SIZE": "1"}}
 # The layer whose served hidden states (the inputs of its MoE MLP in the
 # pool's decode steps) the dense-mix check takes, and how many tokens.
-MOE_CHECK_LAYER, MOE_CHECK_TOKENS = 15, 64
+MOE_CHECK_LAYER, MOE_CHECK_TOKENS = MOE_LAYERS - 1, 64
 # Free device memory the phase asks for beyond the quantized tree: the KV
 # pool (1.07 GB at MAX_SEQ_LEN 1024) and the transients of a prologue.
 MOE_HEADROOM_BYTES = 4_000_000_000
@@ -3519,6 +3666,24 @@ def cut_config(name: str, n_layers: int):
     from ai_agent_kubectl_tpu_torch.models.config import get_config
 
     return dataclasses.replace(get_config(name), n_layers=n_layers)
+
+
+@contextlib.contextmanager
+def phase_layers(phase: str):
+    """The port's model registry with ``PHASE_LAYERS[phase]``'s cut
+    configs in place while the phase runs, the full ones after."""
+    from ai_agent_kubectl_tpu_torch.models import config as registry
+
+    cut = PHASE_LAYERS.get(phase, {})
+    kept = {name: registry.get_config(name) for name in cut}
+    try:
+        for name, n_layers in cut.items():
+            registry._CONFIGS[name] = cut_config(name, n_layers)
+            log(f"[{phase}] {name}: {n_layers} of its "
+                f"{kept[name].n_layers} layers (PHASE_LAYERS)")
+        yield
+    finally:
+        registry._CONFIGS.update(kept)
 
 
 def quantized_tree_bytes(cfg) -> int:
@@ -4006,10 +4171,10 @@ def _check_moe_mix(torch, cfg, params, x) -> dict:
 # served over HTTP. Every other knob keeps its default: 16-token pages
 # and chunks, 128 new tokens, greedy, the prefix and radix caches on.
 KVQ_MODEL = "llama-3-8b-instruct"
-#: serve_kvq runs Llama-3-8B at half its published depth (16 of 32
-#: layers, every width unchanged), so that the whole script, with
-#: serve_fleet, stays near its ~780 s budget on a slow host
-KVQ_LAYERS = 16
+#: serve_kvq runs Llama-3-8B at a quarter of its published depth (8 of
+#: 32 layers, every width unchanged), so that the whole script stays well
+#: inside its time limit on a slow host (PHASE_LAYERS)
+KVQ_LAYERS = 8
 SERVE_KVQ_ENV = {
     "ENGINE": "torch", "TORCH_DEVICE": "cuda",
     "MODEL_NAME": KVQ_MODEL, "DTYPE": "bfloat16", "QUANT": "int4",
@@ -4773,7 +4938,7 @@ def _timing_int4(torch, gen, profile: bool) -> dict:
 
 def phase_timing(torch, serve_info: dict, paged_info: dict,
                  moe_info: dict, spec_info: dict, host_info: dict,
-                 profile: bool = False) -> dict:
+                 tp_info: dict, profile: bool = False) -> dict:
     from ai_agent_kubectl_tpu_torch.ops import paged_attention
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached)
@@ -4795,7 +4960,8 @@ def phase_timing(torch, serve_info: dict, paged_info: dict,
                                               spec_info, profile),
            "flash_attention": _timing_flash(torch, gen, profile),
            "int4_matmul": _timing_int4(torch, gen, profile),
-           **_timing_paged(torch, gen, paged_info, host_info, profile)}
+           **_timing_paged(torch, gen, paged_info, host_info, profile),
+           **_timing_sharded(torch, gen, tp_info, profile)}
     # Timing launches do not count.
     for fn, n in zip(counted, saved):
         fn.launches = n
@@ -4856,6 +5022,54 @@ def _timing_paged(torch, gen, paged_info: dict, host_info: dict,
         entry, *paged_live_work(case, True))
     log_timing(f"paged pool decode, Gemma-2B page 64, at {positions}", entry,
                "sdpa")
+    return out
+
+
+def _timing_sharded(torch, gen, tp_info: dict, profile: bool) -> dict:
+    """One shard's launch of each sharded wrapper at Llama-3-8B's tp=2
+    (16 query heads over 4 KV heads of 128): ragged decode (page 16)
+    and paged pool decode (page 64), 8 slots at the positions serve_tp
+    (a) reached at its last decode step; the library call SDPA over the
+    shard's gathered live span. The bound is one shard's work."""
+    import torch.nn.functional as F
+
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_pool, paged_decode_attention_pool_plain)
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool, ragged_attention_pool_plain)
+
+    shard = dict(H=LLAMA_HEADS // 2, KV=LLAMA_KV // 2, hd=LLAMA_HD)
+    positions = (tp_info.get("runs", {}).get("ragged", {})
+                 .get("decode_positions")
+                 or [96, 112, 128, 144, 160, 176, 192, 208])
+    case = ragged_case(torch, gen, W=1, positions=positions,
+                       q_lens=[1] * len(positions), nan_block=False, **shard)
+    q, kc, vc, mask = sdpa_inputs(torch, case)
+    entry = timed(
+        torch, lambda: ragged_attention_pool(**case, page_size=PAGE),
+        lambda: ragged_attention_pool_plain(**case, page_size=PAGE),
+        lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, enable_gqa=True),
+        iters=50, profile=profile)
+    entry["positions"] = positions
+    out = {"ragged_attention_pool_sharded": {
+        "decode": with_bound(entry, *ragged_live_work(case))}}
+    log_timing(f"ragged decode, one shard of Llama-3-8B tp=2, at "
+               f"{positions}", entry, "sdpa")
+    pcase = paged_case(torch, gen, page=64, positions=positions,
+                       **shard)["pool"]
+    q, kc, vc, mask = paged_sdpa_inputs(torch, pcase, True)
+    entry = timed(
+        torch, lambda: paged_decode_attention_pool(**pcase),
+        lambda: paged_decode_attention_pool_plain(**pcase),
+        lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, enable_gqa=True),
+        iters=50, profile=profile)
+    entry["positions"] = positions
+    out["paged_decode_attention_pool_sharded"] = {
+        "decode": with_bound(entry, *paged_live_work(pcase, True))}
+    log_timing(f"paged pool decode, one shard of Llama-3-8B tp=2, page 64, "
+               f"at {positions}", entry, "sdpa")
     return out
 
 
@@ -4953,14 +5167,14 @@ def kernel_lines(results: dict) -> list:
     def moe_launches(name):
         counts = [moe[k]["launches"].get(name) for k in ("pool", "single")
                   if k in moe]
-        return sum(counts) if counts else None
+        return sum(counts) if counts and None not in counts else None
 
     kvq = results.get("serve_kvq", {})
 
     def kvq_launches(name):
         counts = [kvq[k]["launches"].get(name) for k in SERVE_KVQ_ENGINES
                   if k in kvq]
-        return sum(counts) if counts else None
+        return sum(counts) if counts and None not in counts else None
 
     chaos = results.get("serve_chaos", {})
 
@@ -4974,6 +5188,11 @@ def kernel_lines(results: dict) -> list:
     host = results.get("serve_host", {}).get("launches", {})
     fleet = results.get("serve_fleet", {}).get("launches", {})
     pipe = results.get("serve_pipe", {}).get("launches", {})
+    tp_runs = results.get("serve_tp", {}).get("runs", {})
+
+    def tp_launches(name):
+        counts = [r["launches"].get(name) for r in tp_runs.values()]
+        return sum(counts) if counts and None not in counts else None
 
     def entry(name, source, replaces, launches, err, shapes, main,
               library):
@@ -5002,7 +5221,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_spec": spec.get(name),
                                "serve_host": host.get(name),
                                "serve_fleet": fleet.get(name),
-                               "serve_pipe": pipe.get(name)},
+                               "serve_pipe": pipe.get(name),
+                               "serve_tp": tp_launches(name)},
             "shapes": shapes,
         }
 
@@ -5042,6 +5262,23 @@ def kernel_lines(results: dict) -> list:
               timing.get("paged_decode_attention", {}), "decode",
               "torch.nn.functional.scaled_dot_product_attention over the "
               "live span with a key mask"),
+        entry("ragged_attention_pool_sharded", "ragged_attention.cu",
+              "ai_agent_kubectl_tpu/ops/ragged_attention.py:218",
+              tp_launches("ragged_attention_pool_sharded"),
+              kernel.get("ragged_attention_pool_sharded", {}).get(
+                  "max_abs_err"),
+              timing.get("ragged_attention_pool_sharded", {}), "decode",
+              "torch.nn.functional.scaled_dot_product_attention over one "
+              "shard's gathered contiguous view"),
+        entry("paged_decode_attention_pool_sharded", "paged_attention.cu",
+              "ai_agent_kubectl_tpu/ops/paged_attention.py:204",
+              tp_launches("paged_decode_attention_pool_sharded"),
+              kernel.get("paged_decode_attention_pool_sharded", {}).get(
+                  "max_abs_err"),
+              timing.get("paged_decode_attention_pool_sharded", {}),
+              "decode",
+              "torch.nn.functional.scaled_dot_product_attention over one "
+              "shard's gathered live span with a key mask"),
     ]
 
 
@@ -5081,8 +5318,8 @@ def phase_serve_obs(torch, serve_info: dict) -> dict:
     served = asyncio.run(_serve_obs(torch))
     if serve_info.get("burst_tok_per_s"):
         log(f"[serve_obs] burst tok/s: serve {serve_info['burst_tok_per_s']:.1f}"
-            f", serve_obs (a) {served['burst_tok_per_s']:.1f} (telemetry "
-            f"on; one burst each, no claim)")
+            f" (every layer), serve_obs (a) {served['burst_tok_per_s']:.1f} "
+            f"(telemetry on, PHASE_LAYERS; one burst each, no claim)")
     release_served_apps(torch)
     offline = _attribute_7b_int4(torch)
     return {"served": served, "offline": offline}
@@ -5819,16 +6056,20 @@ def _launch_counters():
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached)
     from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_pool)
+        paged_decode_attention, paged_decode_attention_pool,
+        paged_decode_attention_pool_sharded)
     from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
     from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
-        ragged_attention_pool)
+        ragged_attention_pool, ragged_attention_pool_sharded)
 
     return {"ragged_attention_pool": ragged_attention_pool,
             "flash_attention_cached": flash_attention_cached,
             "paged_decode_attention": paged_decode_attention,
             "paged_decode_attention_pool": paged_decode_attention_pool,
-            "qmatmul4": qmatmul4}
+            "qmatmul4": qmatmul4,
+            "ragged_attention_pool_sharded": ragged_attention_pool_sharded,
+            "paged_decode_attention_pool_sharded":
+                paged_decode_attention_pool_sharded}
 
 
 async def _serve_grammar(torch, serve_info: dict) -> dict:
@@ -6023,7 +6264,7 @@ async def _grammar_http(torch, serve_info: dict):
         f"a forward step; again {again_s:.2f} s, "
         f"{info['again_tok_per_s']:.1f} tok/s, "
         f"{info['again_ms_per_step']:.2f} ms a forward step; the serve "
-        f"phase's burst with the grammar off: "
+        f"phase's burst with the grammar off, every layer: "
         + (f"{off['burst_tok_per_s']:.1f} tok/s, {off_ms:.2f} ms a forward "
            f"step" if off_ms else "not run") + f"; {gpu_line()}")
     for row in per_query:
@@ -7796,7 +8037,8 @@ def phase_serve_fleet(torch, serve_info: dict) -> dict:
     release_served_apps(torch)
     if serve_info.get("burst_tok_per_s"):
         log(f"[serve_fleet] burst tok/s: serve {serve_info['burst_tok_per_s']:.1f}"
-            f" (8 requests, one engine, an earlier phase; no claim)")
+            f" (8 requests, one engine, every layer, an earlier phase; no "
+            f"claim)")
     return out
 
 
@@ -8495,6 +8737,359 @@ async def _fleet_rollout(torch, tag, cfg, fleet, svc, ask, get_json, http,
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------------------ serve_tp
+
+#: tensor-parallel serving on the card: Llama-3-8B (random bf16 weights
+#: from seed 0, all 32 layers) over a model axis of TP shards, each shard
+#: on the one card (the engine's devices=[cuda:0] * TP)
+TP = 2
+TP_MODEL = "llama-3-8b-instruct"
+SERVE_TP_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda", "MODEL_NAME": TP_MODEL,
+    "DTYPE": "bfloat16", "DECODE_BATCH_SIZE": str(N_SLOTS),
+    "TOKENIZER_PATH": SERVE_ENV["TOKENIZER_PATH"],
+    "RATE_LIMIT": "1000/minute", "MESH_SHAPE": f"tp={TP}",
+    "MAX_NEW_TOKENS": "64",
+}
+#: (a) the ragged regime, (b) the paged pool decode, (c) the dense KV
+#: ladder, each on the same sharded weights
+TP_RUNS = {"ragged": {}, "paged": {"RAGGED_ATTENTION": "off"},
+           "dense": {"KV_POOL": "false"}}
+#: the kernel each run must launch on every shard (its counter, and the
+#: regime /health reports)
+TP_RUN_KERNELS = {"ragged": ("ragged_attention_pool_sharded", "ragged"),
+                  "paged": ("paged_decode_attention_pool_sharded", "paged"),
+                  "dense": ("paged_decode_attention", "paged")}
+TP_FAMILIES = ("mesh_devices", "sharding_residual_fraction",
+               "kv_pool_mesh_fallback", "spec_draft_sharded",
+               "spec_draft_kv_fallback")
+# One forward step of the sharded model against the unsharded one on the
+# same bf16 weights: each row-parallel product rounds its two partial
+# sums to bf16 before adding them (2^-9 relative each, 64 such joins a
+# forward), so the two differ by bf16 round-off that compounds over the
+# 32 layers. Gate: the rms of the difference within LOGIT_RTOL of the
+# logits' rms, its max within TP_LOGIT_MAX of it.
+TP_LOGIT_MAX = 0.25
+
+
+def phase_serve_tp(torch) -> dict:
+    """Phase 15b: tensor-parallel serving, two shards on one card."""
+    release_served_apps(torch)
+    out = asyncio.run(_serve_tp(torch))
+    release_served_apps(torch)
+    return out
+
+
+class _ShardTap:
+    """The kernels of the sharded forward, wrapped where the model calls
+    them (``models/transformer.py``'s names): the two sharded pool
+    wrappers and the per-shard dense-ladder reads. The latest call at each
+    shape keeps a copy of its inputs (every shard's) on the card, taken
+    before the launch, so that ``check`` holds each shard's kernel against
+    its plain version on the traffic's own inputs. ``check``'s launches
+    come after the phase reads its counts."""
+
+    NAMES = ("ragged_attention_pool_sharded",
+             "paged_decode_attention_pool_sharded",
+             "paged_decode_attention", "flash_attention_cached")
+
+    def __init__(self, torch):
+        from ai_agent_kubectl_tpu_torch.models import transformer
+
+        self.torch, self.module = torch, transformer
+        self.real = {n: getattr(transformer, n) for n in self.NAMES}
+        self.inputs: dict = {}
+        for name in self.NAMES:
+            setattr(transformer, name, self._wrap(name))
+
+    def _copy(self, a):
+        if isinstance(a, self.torch.Tensor):
+            return a.clone()
+        if isinstance(a, list):
+            return [self._copy(x) for x in a]
+        return a
+
+    def _shape(self, a):
+        if isinstance(a, self.torch.Tensor):
+            return tuple(a.shape)
+        if isinstance(a, list):
+            return tuple(self._shape(x) for x in a)
+        return None
+
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def call(*args, **kw):
+            key = (name,) + tuple(self._shape(a) for a in args)
+            self.inputs[key] = ([self._copy(a) for a in args], dict(kw))
+            return real(*args, **kw)
+        return call
+
+    def restore(self) -> None:
+        for name, fn in self.real.items():
+            setattr(self.module, name, fn)
+
+    def check(self, tag: str) -> list:
+        from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+            flash_attention_cached_plain)
+        from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+            paged_decode_attention_plain)
+
+        plain = {"paged_decode_attention": paged_decode_attention_plain,
+                 "flash_attention_cached": flash_attention_cached_plain}
+        out = []
+        for key, (args, kw) in self.inputs.items():
+            name = key[0]
+            if name.endswith("_sharded"):
+                got = self.real[name](*args, **kw)
+                want = self.real[name](*args, **kw, plain=True)
+                errs = [check_close(self.torch, f"{tag} {name} shard {i}",
+                                    g, w)
+                        for i, (g, w) in enumerate(zip(got, want))]
+                heads = [tuple(q.shape) for q in args[0]]
+            else:
+                errs = [check_close(self.torch, f"{tag} {name}",
+                                    self.real[name](*args, **kw),
+                                    plain[name](*args, **kw))]
+                heads = [tuple(args[0].shape)]
+            out.append({"kernel": name, "q": heads,
+                        "max_abs_err": max(errs)})
+            log(f"[{tag}] {name} on the traffic's own inputs, q {heads}: "
+                f"max |kernel - plain| = {max(errs):.3e}")
+        return out
+
+
+def _tp_step_logits(torch, params, cfg, ids, mesh=None):
+    """One forward step over a fresh pool: the prompt ``ids`` through the
+    ragged path, the logits at its last position."""
+    from ai_agent_kubectl_tpu_torch.models.transformer import KVCache, forward
+
+    n = len(ids)
+    pages = -(-n // PAGE)
+    cache = KVCache.pool(cfg, pages, PAGE, dtype=torch.bfloat16,
+                         device="cuda", mesh=mesh)
+    tables = torch.arange(pages, dtype=torch.int32, device="cuda")[None]
+    tok = torch.tensor([ids], dtype=torch.int32, device="cuda")
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
+    with torch.no_grad():
+        logits, _ = forward(params, cfg, tok, pos, cache,
+                            block_tables=tables, attn_impl="ragged",
+                            logits_at=torch.tensor([n - 1], device="cuda"),
+                            mesh=mesh)
+    return logits[0, 0]
+
+
+async def _tp_run(torch, name: str, params, tap) -> tuple:
+    """One engine of serve_tp from the environment-style config with the
+    mesh's devices named (``from_config(cfg, devices=...)``), served
+    over HTTP: the eight queries at once, counted in a window of their
+    own. Returns what was measured and the stopped engine (its sharded
+    weights serve the next run)."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    tag = f"serve_tp/{name}"
+    port = _free_port()
+    _phase_env({**SERVE_TP_ENV, **TP_RUNS[name]}, port)
+    cfg = ServiceConfig.from_env()
+    inner = BatchedTorchEngine.from_config(
+        cfg, devices=[torch.device("cuda", 0)] * TP)
+    inner.params = params
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    out = {"startup_s": time.monotonic() - t0,
+           "regime": inner._attention_regime}
+    if inner.mesh is None or inner.mesh.tp != TP:
+        raise AssertionError(f"{tag}: no model axis of {TP} shards")
+    log(f"[{tag}] {cfg.model_name} up in {out['startup_s']:.1f} s, "
+        f"{inner.mesh.tp} shards on {inner.mesh.devices}, regime "
+        f"{inner._attention_regime} (decode {inner._decode_impl})")
+    counters = _launch_counters()
+    url = f"http://{cfg.host}:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            steps0 = inner.forward_steps
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in QUERIES])
+            out["burst_s"] = time.monotonic() - t_burst
+            while inner._inflight:       # the pipe drains behind the end
+                await asyncio.sleep(0.005)
+            torch.cuda.synchronize()
+            out["launches"] = {n: fn.launches for n, fn in counters.items()}
+            out["forward_steps"] = inner.forward_steps - steps0
+            async with http.get(f"{url}/health") as r:
+                out["sharding"] = (await r.json()).get("sharding")
+            async with http.get(f"{url}/metrics") as r:
+                out["metrics"] = _scrape(await r.text(), TP_FAMILIES)
+        statuses = [s for s, _ in burst]
+        want = [status_for_text(res.text)
+                for _, res in engine.results[:len(QUERIES)]]
+        if sorted(statuses) != sorted(want) or len(engine.results) != \
+                len(QUERIES):
+            raise AssertionError(f"{tag}: statuses {statuses}, the engine's "
+                                 f"results {want}")
+        out["prompts"] = [p for p, _ in engine.results]
+        out["texts"] = [r.text for _, r in engine.results]
+        tokens = sum(r.completion_tokens for _, r in engine.results)
+        out["burst_tok_per_s"] = tokens / out["burst_s"]
+        if inner.kv_pool:
+            check_pool_books(inner)
+        leaf = inner._cache.k
+        local = inner.model_cfg.n_kv_heads // TP
+        for i, shard in enumerate(leaf.shards):
+            if not (shard.is_contiguous() and shard.shape[3] == local
+                    and shard.device == inner.mesh.devices[i]):
+                raise AssertionError(f"{tag}: shard {i}'s K is "
+                                     f"{tuple(shard.shape)} on "
+                                     f"{shard.device}")
+        out["shard_kv_shape"] = list(leaf.shards[0].shape)
+    finally:
+        await runner.cleanup()           # stops the engine
+    return out, inner
+
+
+async def _serve_tp(torch) -> dict:
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.models.transformer import init_params
+
+    cfg = get_config(TP_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       dtype=torch.bfloat16, device="cuda")
+    runs, params, mesh = {}, full, None
+    tap = _ShardTap(torch)
+    try:
+        for name in TP_RUNS:
+            runs[name], inner = await _tp_run(torch, name, params, tap)
+            params, mesh = inner.params, inner.mesh
+            inner._cache = None
+            del inner
+            release_served_apps(torch)
+    finally:
+        tap.restore()
+    # The positions of (a)'s last decode step (the timing phase's).
+    for key, (args, _) in tap.inputs.items():
+        if key[0] == "ragged_attention_pool_sharded" and \
+                args[0][0].shape[1] == 1:
+            runs["ragged"]["decode_positions"] = args[4][0].tolist()
+    checks = tap.check("serve_tp")
+    tap.inputs.clear()
+    torch.cuda.synchronize()
+    # The unsharded reference engine on the same weights: (a)'s prompts,
+    # greedy, its launches counted apart.
+    counters = _launch_counters()
+    _phase_env({k: v for k, v in SERVE_TP_ENV.items() if k != "MESH_SHAPE"},
+               _free_port())
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+
+    ref = BatchedTorchEngine.from_config(ServiceConfig.from_env())
+    ref.params = full
+    await ref.start()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t_ref = time.monotonic()
+        got = await asyncio.gather(*[
+            ref.generate(p, max_tokens=int(SERVE_TP_ENV["MAX_NEW_TOKENS"]),
+                         temperature=0.0) for p in runs["ragged"]["prompts"]])
+        ref_tok_per_s = (sum(r.completion_tokens for r in got)
+                         / (time.monotonic() - t_ref))
+        while ref._inflight:
+            await asyncio.sleep(0.005)
+        ref_launches = {n: fn.launches for n, fn in counters.items()}
+        ids = ref.tokenizer.encode(runs["ragged"]["prompts"][0])
+    finally:
+        await ref.stop()
+    same = sum(a == b.text for a, b in zip(runs["ragged"]["texts"], got))
+    # One forward step, sharded against unsharded on the same weights.
+    sharded_logits = _tp_step_logits(torch, params, cfg, ids, mesh)
+    whole_logits = _tp_step_logits(torch, full, cfg, ids)
+    rms = float(whole_logits.float().pow(2).mean().sqrt())
+    diff = (sharded_logits - whole_logits).float()
+    step = {"tokens": len(ids), "rms": rms,
+            "max_abs_err": float(diff.abs().max()),
+            "rms_err": float(diff.pow(2).mean().sqrt()),
+            "argmax_equal": bool(int(sharded_logits.argmax())
+                                 == int(whole_logits.argmax()))}
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, full, ref
+    n_layers = cfg.n_layers
+    failures = []
+    if not torch.isfinite(sharded_logits).all() \
+            or step["rms_err"] > LOGIT_RTOL * rms \
+            or step["max_abs_err"] > TP_LOGIT_MAX * rms:
+        failures.append(f"one step's logits: {step}")
+    for name, r in runs.items():
+        kernel, regime = TP_RUN_KERNELS[name]
+        n = r["launches"][kernel]
+        if r["forward_steps"] <= 0 or n <= 0 or n % (TP * n_layers):
+            failures.append(f"{name}: {n} {kernel} launches for "
+                            f"{r['forward_steps']} forward steps")
+        if r["regime"] != regime:
+            failures.append(f"{name}: regime {r['regime']}")
+        sh = r["sharding"] or {}
+        if (sh.get("devices") != TP
+                or sh.get("pool_sharded") is not (name != "dense")
+                or sh.get("attention_regime") != regime
+                or sh.get("residual_tp_fraction") != 1.0):
+            failures.append(f"{name}: /health sharding {sh}")
+        if (r["metrics"].get("mesh_devices") != TP
+                or r["metrics"].get("sharding_residual_fraction") != 1.0):
+            failures.append(f"{name}: /metrics {r['metrics']}")
+    a = runs["ragged"]
+    if a["launches"]["ragged_attention_pool_sharded"] != \
+            TP * n_layers * a["forward_steps"]:
+        failures.append(f"ragged: {a['launches']} for {a['forward_steps']} "
+                        f"forward steps of {n_layers} layers on {TP} shards")
+    if runs["dense"]["launches"]["flash_attention_cached"] <= 0:
+        failures.append(f"dense: no flash prefill {runs['dense']['launches']}")
+    seen = {c["kernel"] for c in checks}
+    if seen != set(_ShardTap.NAMES):
+        failures.append(f"the tap saw {sorted(seen)}")
+    if failures:
+        raise AssertionError("serve_tp: " + "; ".join(failures))
+    info = {"runs": {k: {kk: vv for kk, vv in v.items()
+                         if kk not in ("prompts", "texts")}
+                     for k, v in runs.items()},
+            "step_logits": step, "kernel_checks": checks,
+            "greedy_same_as_unsharded": same,
+            "reference_launches": ref_launches,
+            "reference_tok_per_s": ref_tok_per_s,
+            "peak_gb": peak / 1e9,
+            "launches": {n: sum(r["launches"][n] for r in runs.values())
+                         for n in counters}}
+    log(f"[serve_tp] one step's logits against the unsharded forward: rms "
+        f"err {step['rms_err']:.4f}, max {step['max_abs_err']:.4f} (logit "
+        f"rms {rms:.3f}; argmax equal {step['argmax_equal']}); greedy "
+        f"transcripts equal to the unsharded engine's: {same} of "
+        f"{len(got)} (not gated: bf16 near ties); bursts "
+        + ", ".join(f"{k} {v['burst_tok_per_s']:.1f} tok/s"
+                    for k, v in runs.items())
+        + f", the unsharded engine's (a) {ref_tok_per_s:.1f} tok/s at the "
+        f"engine, not over HTTP (two shards on one card: no claim); peak {peak / 1e9:.1f} GB "
+        f"above the phase's start; {gpu_line()}")
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8532,72 +9127,40 @@ def main() -> int:
     results: dict = {}
     t_all = time.monotonic()
     t_phase = [t_all]
+    faulthandler.dump_traceback_later(STACKS_AT_S, exit=False)
 
-    def took(name: str) -> None:
+    def run(name: str, fn, *args) -> None:
+        if name not in phases:
+            return
+        with phase_layers(name):
+            results[name] = fn(*args)
         now = time.monotonic()
-        log(f"[time] {name} {now - t_phase[0]:.1f} s")
+        log(f"[time] {name} {now - t_phase[0]:.1f} s ({now - t_all:.1f} s "
+            f"in all)")
         t_phase[0] = now
 
-    if "build" in phases:
-        results["build"] = phase_build()
-        took("build")
-    if "kernel" in phases:
-        results["kernel"] = phase_kernel(torch)
-        took("kernel")
-    if "serve" in phases:
-        results["serve"] = phase_serve(torch, args.profile, args.bursts)
-        took("serve")
-    if "serve_pipe" in phases:
-        results["serve_pipe"] = phase_serve_pipe(torch)
-        took("serve_pipe")
-    if "serve1" in phases:
-        results["serve1"] = phase_serve1(torch, args.profile)
-        took("serve1")
-    if "serve_paged" in phases:
-        results["serve_paged"] = phase_serve_paged(torch, args.profile)
-        took("serve_paged")
-    if "serve_ckpt" in phases:
-        results["serve_ckpt"] = phase_serve_ckpt(torch,
-                                                 results.get("serve", {}))
-        took("serve_ckpt")
-    if "serve_qos" in phases:
-        results["serve_qos"] = phase_serve_qos(torch)
-        took("serve_qos")
-    if "serve_moe" in phases:
-        results["serve_moe"] = phase_serve_moe(torch, args.profile)
-        took("serve_moe")
-    if "serve_kvq" in phases:
-        results["serve_kvq"] = phase_serve_kvq(torch, args.profile)
-        took("serve_kvq")
-    if "serve_obs" in phases:
-        results["serve_obs"] = phase_serve_obs(torch,
-                                               results.get("serve", {}))
-        took("serve_obs")
-    if "serve_chaos" in phases:
-        results["serve_chaos"] = phase_serve_chaos(torch)
-        took("serve_chaos")
-    if "serve_grammar" in phases:
-        results["serve_grammar"] = phase_serve_grammar(
-            torch, results.get("serve", {}))
-        took("serve_grammar")
-    if "serve_spec" in phases:
-        results["serve_spec"] = phase_serve_spec(torch)
-        took("serve_spec")
-    if "serve_host" in phases:
-        results["serve_host"] = phase_serve_host(torch)
-        took("serve_host")
-    if "serve_fleet" in phases:
-        results["serve_fleet"] = phase_serve_fleet(torch,
-                                                   results.get("serve", {}))
-        took("serve_fleet")
-    if "timing" in phases:
-        results["timing"] = phase_timing(torch, results.get("serve", {}),
-                                         results.get("serve_paged", {}),
-                                         results.get("serve_moe", {}),
-                                         results.get("serve_spec", {}),
-                                         results.get("serve_host", {}),
-                                         args.profile)
-        took("timing")
+    run("build", phase_build)
+    run("kernel", phase_kernel, torch)
+    run("serve", phase_serve, torch, args.profile, args.bursts)
+    run("serve_pipe", phase_serve_pipe, torch)
+    run("serve1", phase_serve1, torch, args.profile)
+    run("serve_paged", phase_serve_paged, torch, args.profile)
+    run("serve_ckpt", phase_serve_ckpt, torch, results.get("serve", {}))
+    run("serve_qos", phase_serve_qos, torch)
+    run("serve_moe", phase_serve_moe, torch, args.profile)
+    run("serve_kvq", phase_serve_kvq, torch, args.profile)
+    run("serve_obs", phase_serve_obs, torch, results.get("serve", {}))
+    run("serve_chaos", phase_serve_chaos, torch)
+    run("serve_grammar", phase_serve_grammar, torch, results.get("serve", {}))
+    run("serve_spec", phase_serve_spec, torch)
+    run("serve_host", phase_serve_host, torch)
+    run("serve_fleet", phase_serve_fleet, torch, results.get("serve", {}))
+    run("serve_tp", phase_serve_tp, torch)
+    run("timing", phase_timing, torch, results.get("serve", {}),
+        results.get("serve_paged", {}), results.get("serve_moe", {}),
+        results.get("serve_spec", {}), results.get("serve_host", {}),
+        results.get("serve_tp", {}), args.profile)
+    faulthandler.cancel_dump_traceback_later()
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 
     print(json.dumps({"kernels": kernel_lines(results)}))

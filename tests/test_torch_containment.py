@@ -58,6 +58,7 @@ from ai_agent_kubectl_tpu_torch.models.convert import params_from_jax
 from ai_agent_kubectl_tpu_torch.server.app import create_app
 from ai_agent_kubectl_tpu_torch.server.factory import build_engine
 from ai_agent_kubectl_tpu_torch.testing import faults as port_faults
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

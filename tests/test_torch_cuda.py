@@ -1424,3 +1424,62 @@ def test_pipe_of_three_overlaps_the_card_and_serves_depth_ones_transcripts(
     assert deep == shallow
     assert deep_resets == shallow_resets == {}
     assert any(deep_overlap) and not any(shallow_overlap)
+
+
+#: the tensor-parallel slice's per-shard geometries (H, KV, hd): Llama-3-8B
+#: at tp=2 and tp=8, Gemma-7B at tp=2
+TP_SHARDS = {"llama_tp2": (2, 32, 8, 128), "llama_tp8": (8, 32, 8, 128),
+             "gemma7b_tp2": (2, 16, 16, 256)}
+
+
+@pytest.mark.parametrize("geometry", sorted(TP_SHARDS))
+def test_sharded_pool_kernels_launch_per_shard(card, geometry):
+    """``ragged_attention_pool_sharded`` and
+    ``paged_decode_attention_pool_sharded`` on two or eight shards of one
+    card: one kernel launch per shard, each shard's output against its
+    plain version, and the assembled output against the unsharded
+    kernel on the same pool (decode, a verify window and a prefill span
+    over 16-token pages)."""
+    from ai_agent_kubectl_tpu_torch.ops import ragged_attention as tra
+    from ai_agent_kubectl_tpu_torch.parallel.mesh import (MeshConfig,
+                                                          build_mesh)
+
+    tp, H, KV, hd = TP_SHARDS[geometry]
+    mesh = build_mesh(MeshConfig(model=tp), [card] * tp)
+    gen = torch.Generator(device=card).manual_seed(tp)
+    page, n_blocks, W, N = 16, 24, 8, 3
+    k = torch.randn((n_blocks, page, KV, hd), generator=gen,
+                    device=card).to(torch.bfloat16)
+    v = torch.randn((n_blocks, page, KV, hd), generator=gen,
+                    device=card).to(torch.bfloat16)
+    q = torch.randn((N, W, H, hd), generator=gen,
+                    device=card).to(torch.bfloat16)
+    q_lens = torch.tensor([1, 5, 8], dtype=torch.int32, device=card)
+    pos = torch.tensor([70, 33, 0], dtype=torch.int32, device=card)
+    tables = torch.arange(N * 8, dtype=torch.int32,
+                          device=card).view(N, 8).contiguous()
+    before = tra.ragged_attention_pool_sharded.launches
+    shards = tra.ragged_attention_pool_sharded(q, k, v, q_lens, pos, tables,
+                                               mesh, page_size=page)
+    assert tra.ragged_attention_pool_sharded.launches == before + tp
+    plain = tra.ragged_attention_pool_sharded(q.float(), k.float(),
+                                              v.float(), q_lens, pos,
+                                              tables, mesh, page_size=page,
+                                              plain=True)
+    for s, p in zip(shards, plain):
+        _close(s, p)
+    _close(torch.cat(shards, dim=2),
+           ragged_attention_pool(q, k, v, q_lens, pos, tables,
+                                 page_size=page))
+    q1 = q[:, 0].contiguous()
+    before = tpa.paged_decode_attention_pool_sharded.launches
+    shards = tpa.paged_decode_attention_pool_sharded(q1, k, v, pos, tables,
+                                                     mesh, page_size=page)
+    assert tpa.paged_decode_attention_pool_sharded.launches == before + tp
+    for s, p in zip(shards, tpa.paged_decode_attention_pool_sharded(
+            q1.float(), k.float(), v.float(), pos, tables, mesh,
+            page_size=page, plain=True)):
+        _close(s, p)
+    _close(torch.cat(shards, dim=1),
+           tpa.paged_decode_attention_pool(q1, k, v, pos, tables,
+                                           page_size=page))

@@ -24,6 +24,7 @@ from types import SimpleNamespace
 
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 LIMIT = 30.0
 

@@ -66,6 +66,7 @@ from ai_agent_kubectl_tpu_torch.ops import attention as tattn
 from ai_agent_kubectl_tpu_torch.ops import quant as tq
 from ai_agent_kubectl_tpu_torch.server.app import create_app
 from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 # Tiny shapes: one intra-op thread is as fast, and spares the suite's
 # other workers the cores that idle OpenMP threads spin on.

@@ -24,6 +24,8 @@ from ai_agent_kubectl_tpu.models import transformer as jt
 from ai_agent_kubectl_tpu_torch.models import config as tconfig
 from ai_agent_kubectl_tpu_torch.models import transformer as tt
 from ai_agent_kubectl_tpu_torch.models.convert import params_from_jax
+from ai_agent_kubectl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from ai_agent_kubectl_tpu_torch.parallel.sharding import shard_params
 
 # Tiny shapes: one intra-op thread is as fast, and spares the suite's
 # other workers the cores that idle OpenMP threads spin on.
@@ -242,9 +244,10 @@ def test_decode_regimes_match_jax(layout, impl):
 
 
 def test_forward_refuses_later_slices():
-    """The ring path (either layout) and the mesh wait for later slices;
-    paged decode, the pool's gather path and an MoE model (toy-moe from
-    the port's own init, through both layouts) are served."""
+    """The ring path (either layout) and an MoE model on a mesh wait for
+    later slices; paged decode, the pool's gather path, an MoE model
+    (toy-moe from the port's own init, through both layouts) and a dense
+    model on a ``model`` mesh are served."""
     _, tcfg = _configs("toy-8m")
     params = tt.init_params(torch.Generator().manual_seed(0), tcfg,
                             dtype=torch.float32)
@@ -258,11 +261,17 @@ def test_forward_refuses_later_slices():
     with pytest.raises(NotImplementedError, match="ring"):
         tt.forward(params, tcfg, tok, tok, cache, attn_impl="ring",
                    block_tables=tables)
-    with pytest.raises(TypeError, match="mesh"):
-        tt.forward(params, tcfg, tok, tok, dense, mesh=object())
+    mesh = build_mesh(MeshConfig(model=2), ["cpu"] * 2)
+    logits, _ = tt.forward(
+        shard_params(params, mesh, tcfg), tcfg, tok, tok,
+        tt.KVCache.zeros(tcfg, 1, 16, dtype=torch.float32, mesh=mesh),
+        mesh=mesh)
+    assert logits.shape == (1, 1, tcfg.vocab_size)
     moe_cfg = tconfig.get_config("toy-moe")
     moe = tt.init_params(torch.Generator().manual_seed(0), moe_cfg,
                          dtype=torch.float32)
+    with pytest.raises(ValueError, match="mixture-of-experts.*A8"):
+        tt.forward(moe, moe_cfg, tok, tok, dense, mesh=mesh)
     E, D, F_ = moe_cfg.n_experts, moe_cfg.dim, moe_cfg.mlp_hidden
     assert moe["layers"]["router"].shape == (2, D, E)
     assert moe["layers"]["w_gate"].shape == (2, E, D, F_)

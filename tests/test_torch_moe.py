@@ -54,6 +54,7 @@ from ai_agent_kubectl_tpu_torch.models.convert import params_from_jax
 from ai_agent_kubectl_tpu_torch.ops import quant as tq
 from ai_agent_kubectl_tpu_torch.ops import quant4 as tq4
 from ai_agent_kubectl_tpu_torch.parallel import moe as tmoe
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 # Tiny shapes: one intra-op thread is as fast, and spares the suite's
 # other workers the cores that idle OpenMP threads spin on.

@@ -30,6 +30,7 @@ from ai_agent_kubectl_tpu_torch.config import ServiceConfig
 from ai_agent_kubectl_tpu_torch.engine import openai_compat as port_openai
 from ai_agent_kubectl_tpu_torch.server.app import create_app
 from ai_agent_kubectl_tpu_torch.server.factory import build_engine
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 PACKAGES = {"jax": jax_openai, "port": port_openai}
 PIECES = ["kubectl ", "get ", "pods ", "-n ", "staging"]

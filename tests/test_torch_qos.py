@@ -58,6 +58,7 @@ from ai_agent_kubectl_tpu_torch.models.config import get_config
 from ai_agent_kubectl_tpu_torch.models.convert import params_from_jax
 from ai_agent_kubectl_tpu_torch.obs import Trace, use_trace
 from ai_agent_kubectl_tpu_torch.server.app import create_app
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 # Tiny shapes: one intra-op thread is as fast, and spares the suite's
 # other workers the cores that idle OpenMP threads spin on.

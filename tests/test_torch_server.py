@@ -38,6 +38,7 @@ from ai_agent_kubectl_tpu_torch.server.ratelimit import SlidingWindowLimiter
 from ai_agent_kubectl_tpu_torch.server.factory import (DegradedEngine,
                                                       build_engine)
 from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 TEXTS = ["kubectl get pods", "```bash\nkubectl get nodes -o wide\n```",
          "$ kubectl describe deploy web\nthis lists it", "rm -rf /",
@@ -221,16 +222,21 @@ def test_config_defaults_match_the_jax_package():
         assert getattr(ours, name) == getattr(theirs, name), name
 
 
-#: every knob of UNSERVED_KNOBS with a value that asks for the feature
+#: every knob of UNSERVED_KNOBS with a value that asks for the feature,
+#: and MESH_SHAPE with an axis the port does not serve (it serves tp=N)
 REFUSED = [
-    ("MESH_SHAPE", "data:1,model:8"), ("DCN_MESH_SHAPE", "data:2"),
+    ("MESH_SHAPE", "dp=2"), ("DCN_MESH_SHAPE", "data:2"),
     ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
     ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
 ]
 
+#: a value of each refused knob that the port serves
+SERVED = dict(UNSERVED_KNOBS, MESH_SHAPE="tp=2")
+
 
 def test_refused_list_names_every_unserved_knob():
-    assert sorted(k for k, _ in REFUSED) == sorted(UNSERVED_KNOBS)
+    assert "MESH_SHAPE" not in UNSERVED_KNOBS
+    assert sorted(k for k, _ in REFUSED) == sorted(SERVED)
 
 
 @pytest.mark.parametrize("knob,value", REFUSED)
@@ -239,7 +245,7 @@ def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
     monkeypatch.setenv(knob, value)
     with pytest.raises(ValueError, match=knob):
         ServiceConfig.from_env()
-    monkeypatch.setenv(knob, UNSERVED_KNOBS[knob])
+    monkeypatch.setenv(knob, SERVED[knob])
     assert ServiceConfig.from_env().engine == "torch"
 
 

@@ -54,6 +54,7 @@ from ai_agent_kubectl_tpu_torch.obs.ledger import CLASS_DRAFT_REJECTED
 from ai_agent_kubectl_tpu_torch.server.app import create_app
 from ai_agent_kubectl_tpu_torch.server.factory import build_engine
 from ai_agent_kubectl_tpu_torch.testing import faults as port_faults
+from test_torch_env import knob_env  # noqa: F401  (autouse)
 
 safetensors_torch = pytest.importorskip("safetensors.torch")
 
