@@ -106,8 +106,9 @@ _MESH_AXIS_ALIASES = {
     "tp": "model", "model": "model",
 }
 
-#: axes the port does not serve yet (ROADMAP.md A8): only ``model`` is.
-_UNSERVED_MESH_AXES = frozenset({"data", "expert", "pipe", "seq"})
+#: axes the port does not serve yet (ROADMAP.md A8): data, expert and
+#: model are served.
+_UNSERVED_MESH_AXES = frozenset({"pipe", "seq"})
 
 
 def _mesh_axes_over_one(spec: str) -> set:
@@ -221,8 +222,8 @@ class ServiceConfig:
     # "fake" answers from the rule table (engine/fake.py, no model).
     engine: str = "torch"
     torch_device: str = "cuda"              # TORCH_DEVICE: cuda | cpu
-    # Tensor-parallel serving: "tp=N" (or "model:N") splits the model
-    # over N devices; the other axes wait (ROADMAP.md A8).
+    # Serving on a mesh: "dp=2,ep=2,tp=2" style (or "data:2,..."), the
+    # data, expert and model axes; pipe and seq wait (ROADMAP.md A8).
     mesh_shape: str = ""                    # MESH_SHAPE
     model_name: str = "toy-8m"              # MODEL_NAME (registry key)
     model_path: Optional[str] = None        # MODEL_PATH (HF safetensors)
@@ -262,9 +263,10 @@ class ServiceConfig:
     # Prefill attention of the single-sequence engine: auto = flash on
     # cuda, dense on the CPU.
     attn_impl: str = "auto"                 # ATTN_IMPL: auto | dense | flash
-    # The MoE MLP: auto and dense evaluate every expert and mix by the
-    # router's top-k weights (parallel/moe.py::dense_moe); ep, the
-    # expert-parallel dispatch, needs a mesh and is refused at boot.
+    # The MoE MLP: dense evaluates every expert and mixes by the router's
+    # top-k weights (parallel/moe.py::dense_moe); ep always serves the
+    # expert-parallel dispatch (a one-device expert mesh on one card);
+    # auto serves it on an expert mesh, else dense.
     moe_impl: str = "auto"                  # MOE_IMPL: auto | ep | dense
     # Decode attention of the batched engine: auto = paged for a GQA model
     # on cuda (the page raised to >= 64), dense otherwise.
@@ -627,9 +629,19 @@ class ServiceConfig:
                     f"DECODE_BATCH_SIZE>1, or ENGINE=torch-batched); "
                     f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
                     f"{self.decode_batch_size} would serve plain decode")
-        # The mesh: only the model axis is served; speculative decoding
-        # and mixture-of-experts models on a mesh wait for later parts of
-        # ROADMAP.md A8.
+            # The draft world shards over tp/ep; the pool the spec chunk
+            # needs never splits over data (nor pipe/seq), as in JAX.
+            bad = sorted(_mesh_axes_over_one(self.mesh_shape)
+                         & {"data", "pipe", "seq"})
+            if bad:
+                raise ValueError(
+                    f"SPEC_DECODE does not compose with a mesh that has "
+                    f"a >1 {'/'.join(bad)} axis (MESH_SHAPE="
+                    f"{self.mesh_shape!r}): the spec KV pool's blocks and "
+                    f"the draft verify window shard over tp/ep only — use "
+                    f"a tensor/expert-parallel mesh or disable one of them")
+        # The mesh: the data, expert and model axes are served; the pipe
+        # and seq axes wait for later parts of ROADMAP.md A8.
         if _mesh_device_count(self.mesh_shape) > 1:
             bad = sorted(_mesh_axes_over_one(self.mesh_shape)
                          & _UNSERVED_MESH_AXES)
@@ -637,23 +649,8 @@ class ServiceConfig:
                 raise ValueError(
                     f"MESH_SHAPE={self.mesh_shape!r}: the {'/'.join(bad)} "
                     f"axis is not served by the PyTorch port yet "
-                    f"(ROADMAP.md A8); it serves the model axis (tp=N)")
-            if self.spec_decode:
-                raise ValueError(
-                    f"SPEC_DECODE with MESH_SHAPE={self.mesh_shape!r} (the "
-                    f"draft world sharded) is not served by the PyTorch "
-                    f"port yet (ROADMAP.md A8)")
-            from .models.config import get_config as _model_config
-
-            try:
-                is_moe = _model_config(self.model_name).is_moe
-            except KeyError:
-                is_moe = False   # MODEL_NAME errors are the engine's job
-            if is_moe:
-                raise ValueError(
-                    f"MESH_SHAPE={self.mesh_shape!r}: a mixture-of-experts "
-                    f"model ({self.model_name}) on a mesh is not served by "
-                    f"the PyTorch port yet (ROADMAP.md A8)")
+                    f"(ROADMAP.md A8); it serves the data, expert and "
+                    f"model axes (dp/ep/tp)")
         # Only the continuous-batching engine has the radix tree the host
         # tier hangs off (the JAX single-sequence engine ignores the knob).
         if self.host_kv_blocks > 0 and not self.batched_engine:
@@ -718,12 +715,6 @@ class ServiceConfig:
                 raise ValueError(f"{name}={raw!r} is not served by the "
                                  f"PyTorch port yet (ROADMAP.md, queue A)")
         moe_impl = (_env_str("MOE_IMPL", "auto") or "auto").lower()
-        if moe_impl == "ep":
-            raise ValueError(
-                "MOE_IMPL=ep (the expert-parallel dispatch) needs a mesh "
-                "with an expert axis, which the PyTorch port does not "
-                "build yet (ROADMAP.md A8); auto and dense serve the MoE "
-                "MLP on one card")
         return cls(
             api_auth_key=_env_str("API_AUTH_KEY", None),
             cache_maxsize=_env_int("CACHE_MAXSIZE", 100),

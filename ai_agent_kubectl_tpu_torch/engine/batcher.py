@@ -199,18 +199,24 @@ one ``("firsts", ...)`` entry). In every regime:
   slot ``batch_size`` and are dropped). The first tokens travel as one
   ``("firsts", ...)`` in-flight entry. Transcripts equal single
   admission's. Resumes and grammar requests take the single path.
-- **Tensor parallelism** (``MESH_SHAPE=tp=N``, the JAX engine's mesh
-  rules on the ``model`` axis): the weights split over the shards, the
-  pool or dense cache split on KV heads (each shard's K and V tensors of
-  its own, written through its own leaves), every forward over the
-  shards. The pool's kernels run once per shard through the sharded
-  wrappers; where KV or H does not divide tp the pool serves the gather
-  path instead, with the JAX warning. The dense ladder reads per shard
-  in the JAX layouts (heads split together, MQA's KV head replicated,
-  or heads replicated). The block tables, the radix tree and every
-  host structure are one, shared by the shards. ``sharding_health`` and
-  ``stats()["sharding"]`` report the mesh; speculative decoding on a
-  mesh is refused (ROADMAP.md A8).
+- **Serving on a mesh** (``MESH_SHAPE``, the JAX engine's mesh rules on
+  the ``data``, ``expert`` and ``model`` axes): the weights split over
+  the shards, the pool or dense cache split on KV heads (each shard's K
+  and V tensors of its own, written through its own leaves), the dense
+  cache's slots over ``data``, every forward over the shards. The
+  pool's kernels run once per shard through the sharded wrappers; where
+  KV or H does not divide tp the pool serves the gather path instead,
+  with the JAX warning. A >1 data (or pipe, seq) axis turns a requested
+  pool into the dense ladder, loudly (``kv_pool_mesh_fallback``). The
+  dense ladder reads per (data, model) shard in the JAX layouts (heads
+  split together, MQA's KV head replicated, or heads replicated). MoE
+  layers run dense under tp or dispatched over ``expert``. Speculative
+  decoding rides a tp/ep mesh: the draft's weights and cache split as
+  the target's, its cache replicated when its KV heads do not divide tp
+  (``draft_kv_fallback``). The block tables, the radix tree and every
+  host structure are one, shared by the shards. ``sharding_health``,
+  ``spec_health`` and ``stats()["sharding"]`` report the mesh and the
+  flags.
 - Each attention kernel is the Hopper kernel for CUDA tensors and its
   plain version for CPU tensors.
 
@@ -252,7 +258,9 @@ from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
 from ..ops.quant import (QuantKV, ShardedKV, kv_broadcast_rows, kv_map,
                          kv_set_slots, kv_update_slice)
-from ..parallel.sharding import kernel_heads_divide, residual_fraction
+from ..parallel.sharding import (ShardedParams, draft_kv_fallback,
+                                  kernel_heads_divide, residual_fraction,
+                                  shard_params)
 from .containment import (CAUSE_SCHEDULER_DEATH, CAUSE_SCHEDULER_ERROR,
                           CAUSE_SLOT_HEALTH, PROBATION_CLEAN_CHUNKS,
                           REASON_HEALTH, REASON_ISOLATED, EngineSupervisor)
@@ -570,6 +578,11 @@ class BatchedTorchEngine(TorchEngine):
         self.decode_attn = decode_attn
         self.kv_page_size = max(1, kv_page_size)
         self.kv_pool = bool(kv_pool)
+        # KV_POOL as asked; ``kv_pool`` is whether the pool serves, which
+        # a mesh with a >1 data, pipe or seq axis turns off at start
+        # (``kv_pool_mesh_fallback``, the JAX ``_use_pool``).
+        self._kv_pool_asked = self.kv_pool
+        self._kv_pool_mesh_fallback = False
         if ragged_attention == "on" and not self.kv_pool:
             raise ValueError("RAGGED_ATTENTION=on needs the KV pool "
                              "(KV_POOL=true)")
@@ -733,6 +746,10 @@ class BatchedTorchEngine(TorchEngine):
                                              self.model_cfg, self.kv_pool)
                            if self.spec_decode else None)
         self._draft_cache: Optional[KVCache] = None
+        # Whether the draft world rides the mesh, and whether its KV
+        # serves replicated (its KV heads do not divide the model axis).
+        self._draft_sharded = False
+        self._draft_kv_fallback = False
         self._spec_live = False
         self._spec_steps = 0
         self._chunk_tokens = self.chunk_len
@@ -815,11 +832,26 @@ class BatchedTorchEngine(TorchEngine):
         self._stopping = False
         self._first_consumed = False    # re-arm the cold-start grace
         self._setup_mesh()
-        if self.spec_decode and self.mesh is not None:
+        if (self.spec_decode and self.mesh is not None and any(
+                self.mesh.shape[a] > 1 for a in ("data", "pipe", "seq"))):
             raise ValueError(
-                "SPEC_DECODE on a mesh (the draft world sharded) is not "
-                "served by the PyTorch port yet (ROADMAP.md A8)")
+                "SPEC_DECODE does not compose with a mesh that has a "
+                ">1 data/pipe/seq axis (MESH_SHAPE); use a tensor/"
+                "expert-parallel mesh or disable one of them")
         self._load()
+        # The pool's blocks are shared by every slot, so they never split
+        # over data: a mesh with a >1 data/pipe/seq axis serves the dense
+        # ladder, loudly (the JAX engine's rule).
+        mesh_pool_ok = self.mesh is None or all(
+            self.mesh.shape[a] == 1 for a in ("data", "pipe", "seq"))
+        self.kv_pool = self._kv_pool_asked and mesh_pool_ok
+        self._kv_pool_mesh_fallback = self._kv_pool_asked and not \
+            mesh_pool_ok
+        if self._kv_pool_mesh_fallback:
+            logger.warning(
+                "KV_POOL does not compose with data/pipe/seq mesh axes "
+                "(mesh %s); falling back to the dense KV ladder",
+                dict(self.mesh.shape))
         cfg = self.model_cfg
         if self.grammar_decode and self._grammar is None:
             self._grammar_start()
@@ -886,11 +918,14 @@ class BatchedTorchEngine(TorchEngine):
         parameters (kept across restarts), else the checkpoint at
         ``spec_draft_path``, else a random init from ``spec_draft_seed``
         (default ``seed + 1``), always at the engine dtype and never
-        quantized (its config was checked at construction)."""
+        quantized (its config was checked at construction). On a mesh the
+        draft world rides it (JAX ``engine/batcher.py:1480-1525``): its
+        weights split through ``shard_params`` as the target's, its cache
+        per ``draft_cache_specs`` (``_init_decode_state``), replicated
+        when its KV heads do not divide the model axis
+        (``draft_kv_fallback``, loud)."""
         dcfg = self._draft_cfg
-        if self._draft_params is not None:
-            return
-        if self.spec_draft_path:
+        if self._draft_params is None and self.spec_draft_path:
             from ..models.convert import convert_hf_checkpoint
 
             logger.info("Loading draft checkpoint from %s",
@@ -898,14 +933,26 @@ class BatchedTorchEngine(TorchEngine):
             self._draft_params = convert_hf_checkpoint(
                 dcfg, self.spec_draft_path, dtype=self.dtype,
                 device=self.device)
-            return
-        dseed = (self.spec_draft_seed if self.spec_draft_seed is not None
-                 else self.seed + 1)
-        logger.warning("No SPEC_DRAFT_PATH; random-initializing draft %s "
-                       "(toy/dev mode, seed %d)", dcfg.name, dseed)
-        gen = torch.Generator(device=self.device).manual_seed(dseed)
-        self._draft_params = init_params(gen, dcfg, dtype=self.dtype,
-                                         device=self.device)
+        elif self._draft_params is None:
+            dseed = (self.spec_draft_seed
+                     if self.spec_draft_seed is not None
+                     else self.seed + 1)
+            logger.warning("No SPEC_DRAFT_PATH; random-initializing draft "
+                           "%s (toy/dev mode, seed %d)", dcfg.name, dseed)
+            gen = torch.Generator(device=self.device).manual_seed(dseed)
+            self._draft_params = init_params(gen, dcfg, dtype=self.dtype,
+                                             device=self.device)
+        self._draft_sharded = self.mesh is not None and self.mesh.size > 1
+        self._draft_kv_fallback = draft_kv_fallback(self.mesh, dcfg)
+        if self._draft_sharded and not isinstance(self._draft_params,
+                                                  ShardedParams):
+            self._draft_params = shard_params(self._draft_params, self.mesh,
+                                              dcfg)
+        if self._draft_kv_fallback:
+            logger.warning(
+                "draft %s KV heads (%d) do not divide the mesh's model "
+                "axis (%d); draft KV serves replicated (gather fallback)",
+                dcfg.name, dcfg.n_kv_heads, self.mesh.shape["model"])
 
     def _resolve_regime(self) -> None:
         """The JAX engine's startup resolution (its mesh branches on the
@@ -1079,7 +1126,7 @@ class BatchedTorchEngine(TorchEngine):
             self._cache = KVCache.zeros(self.model_cfg, N, self._S_alloc,
                                         dtype=self.dtype, device=dev,
                                         kv_quant=self.kv_quant,
-                                        mesh=self.mesh)
+                                        mesh=self.mesh, split_rows=True)
         self._tok_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._pos_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._active_d = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -1103,7 +1150,8 @@ class BatchedTorchEngine(TorchEngine):
         if self.spec_decode:
             self._draft_cache = KVCache.zeros(self._draft_cfg, N,
                                               self._S_alloc,
-                                              dtype=self.dtype, device=dev)
+                                              dtype=self.dtype, device=dev,
+                                              mesh=self.mesh)
 
     # ------------------------------------------------ block-paged KV pool
 
@@ -1504,8 +1552,8 @@ class BatchedTorchEngine(TorchEngine):
         with scope("kv_splice"):
             for dst, src in ((self._cache.k, scratch.k),
                              (self._cache.v, scratch.v)):
-                kv_map(lambda d, s: d[:, slot_idx, :n].copy_(s[:, 0, :n]),
-                       dst, src)
+                kv_set_slots(dst, kv_map(lambda a: a[:, :, :n], src),
+                             [slot_idx])
 
     def _arm_first(self, slot_idx: int, last_logits: torch.Tensor,
                    req: _Request, n_prompt: int, gs: int = -1,
@@ -1756,7 +1804,8 @@ class BatchedTorchEngine(TorchEngine):
         logits, self._draft_cache = forward(
             self._draft_params, self._draft_cfg, tokens, positions,
             self._draft_cache, kv_limit=kv_limit, attn_impl="dense",
-            write_mask=live, moe_impl="dense")
+            write_mask=live, token_mask=live[:, None], moe_impl="dense",
+            mesh=self.mesh)
         return logits
 
     def _draft_prefill_slot(self, slot_idx: int, ids: List[int],
@@ -1775,11 +1824,11 @@ class BatchedTorchEngine(TorchEngine):
             return
         cache = self._draft_cache
         with scope("kv_splice"):
-            view = KVCache(k=cache.k[:, slot_idx:slot_idx + 1],
-                           v=cache.v[:, slot_idx:slot_idx + 1])
+            view = KVCache(*(kv_map(lambda a: a[:, slot_idx:slot_idx + 1],
+                                    leaf) for leaf in (cache.k, cache.v)))
             if start == 0:
-                view.k.zero_()
-                view.v.zero_()
+                for leaf in (view.k, view.v):
+                    kv_map(torch.Tensor.zero_, leaf)
         big = self.prefill_buckets[-1]
         offset = start
         while offset < n:
@@ -1793,7 +1842,8 @@ class BatchedTorchEngine(TorchEngine):
                     positions[None].to(torch.int32), view,
                     kv_limit=kv_limit, attn_impl="dense", moe_impl="dense",
                     logits_at=torch.full((1,), L - 1, dtype=torch.int64,
-                                         device=self.device))
+                                         device=self.device),
+                    mesh=self.mesh)
             offset += L
 
     def _chunk_waste_bound(self) -> int:
@@ -1807,7 +1857,7 @@ class BatchedTorchEngine(TorchEngine):
 
     def spec_health(self) -> Optional[dict]:
         """The speculative-decode view for /health (host counters only);
-        None with it off. The draft is never sharded here (one card)."""
+        None with it off. Its draft flags mirror ``sharding_health``'s."""
         if not self.spec_decode:
             return None
         drafted = self._spec_drafted
@@ -1823,8 +1873,8 @@ class BatchedTorchEngine(TorchEngine):
             "acceptance_ratio": (round(self._spec_accepted / drafted, 4)
                                  if drafted else None),
             "degraded_total": self._spec_degraded,
-            "draft_sharded": False,
-            "draft_kv_fallback": False,
+            "draft_sharded": bool(self._draft_sharded),
+            "draft_kv_fallback": bool(self._draft_kv_fallback),
         }
 
     # -------------------------------------------------------------- chunk
@@ -3219,10 +3269,10 @@ class BatchedTorchEngine(TorchEngine):
         """The sharding view for /health and /metrics, under the JAX
         batcher's keys (host attributes only): the mesh, its device
         count, the residual fraction the policy splits at the decode
-        shape, whether the pool serves sharded, the mesh-fallback flag
-        (a data/pipe/seq axis, refused here, so never set), the draft
-        flags (speculative decoding on a mesh is refused, so never set)
-        and the attention regime actually serving."""
+        shape, whether the pool actually serves (the JAX ``_use_pool``),
+        the mesh-fallback flag (a data axis turned a requested pool into
+        the dense ladder), the draft flags (the draft world on the mesh,
+        its KV replicated) and the attention regime actually serving."""
         if self.mesh is None:
             return None
         return {
@@ -3231,9 +3281,9 @@ class BatchedTorchEngine(TorchEngine):
             "residual_tp_fraction": residual_fraction(
                 self.mesh, self.batch_size, self.model_cfg.dim),
             "pool_sharded": bool(self.kv_pool),
-            "kv_pool_mesh_fallback": False,
-            "draft_sharded": False,
-            "draft_kv_fallback": False,
+            "kv_pool_mesh_fallback": bool(self._kv_pool_mesh_fallback),
+            "draft_sharded": bool(self._draft_sharded),
+            "draft_kv_fallback": bool(self._draft_kv_fallback),
             "attention_regime": self._attention_regime,
         }
 

@@ -36,8 +36,9 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   chain key and draws with its second half, so the same seed gives the
   JAX engine's transcript.
 - A mixture-of-experts model (Mixtral) runs its MLP through
-  ``parallel/moe.py::dense_moe`` (``moe_impl`` auto or dense); ``ep``
-  needs an expert mesh, which a single card does not have, and raises.
+  ``parallel/moe.py::dense_moe`` (``moe_impl`` auto or dense), or the
+  expert-parallel dispatch on an expert mesh; ``MOE_IMPL=ep`` on one
+  card builds the JAX engine's one-device expert mesh for it.
 - ``KV_QUANT=int8`` stores the cache and the prefix as int8 with one
   f32 scale per (position, head) (``ops/quant.py::QuantKV``), read by
   ``dense_attention_quant``. The flash kernel reads bf16 KV, so prefill
@@ -50,21 +51,21 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   (``weights_version``, the JAX package's fingerprint of ``MODEL_PATH``
   or of the ``dev:<model>:seed=<n>:quant=<q>`` sentinel without one).
 
-- ``MESH_SHAPE=tp=N`` serves tensor-parallel over a ``model`` axis of
-  N shards (``_setup_mesh``, the JAX engine's, model axis only): the
-  weights split per ``parallel/sharding.py`` (``shard_params``), the
-  cache per shard, every forward over the shards
-  (``models/transformer.py::_forward_tp``). The mesh's devices are the
-  distinct cards of the serving type, or the constructor's ``devices``
-  list, which may repeat a device (``[cuda:0] * 2`` puts two shards on
-  one card). ``QUANT=int4`` serves int8 under a multi-device mesh, with
-  the JAX warning; a mesh with any other axis, or an MoE model on one,
-  is refused (ROADMAP.md A8).
+- ``MESH_SHAPE`` serves over the ``data``, ``expert`` and ``model``
+  axes (``_setup_mesh``, the JAX engine's): the weights split per
+  ``parallel/sharding.py`` (``shard_params``: Megatron over ``model``,
+  experts over ``expert``), the cache per shard, every forward over the
+  shards (``models/transformer.py::_forward_tp``). The mesh's devices
+  are the distinct cards of the serving type, or the constructor's
+  ``devices`` list, which may repeat a device (``[cuda:0] * 2`` puts
+  two shards on one card). ``QUANT=int4`` serves int8 under a
+  multi-device mesh, with the JAX warning (int4 on the one-device
+  expert mesh); a pipe or seq axis is refused (ROADMAP.md A8).
 
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
-path. Left out of the JAX engine: ring prefill, the data, expert, pipe
-and seq mesh axes, and the compile cache and ladder warm threads
+path. Left out of the JAX engine: ring prefill, the pipe and seq mesh
+axes, and the compile cache and ladder warm threads
 (nothing compiles in eager PyTorch).
 
 Everything runs on ``device`` — ``cuda`` unless the caller asks for the
@@ -169,14 +170,6 @@ class TorchEngine:
         if moe_impl not in ("auto", "ep", "dense"):
             raise ValueError(
                 f"MOE_IMPL must be auto|ep|dense, got {moe_impl!r}")
-        if moe_impl == "ep" and model_cfg.is_moe:
-            # The JAX engine builds a one-device expert mesh for it; the
-            # port has no mesh (ROADMAP A8), and serving the dense
-            # evaluation instead would not be what was asked for.
-            raise ValueError(
-                "MOE_IMPL=ep needs a mesh with an expert axis: expert "
-                "parallelism waits for the multi-GPU slice of the port "
-                "(ROADMAP.md A8)")
         self.model_cfg = model_cfg
         # An explicit device list names the mesh's devices; its first
         # is the serving device (scheduler state, logits, sampling).
@@ -270,24 +263,26 @@ class TorchEngine:
 
     def _setup_mesh(self) -> None:
         """The serving mesh from ``mesh_shape`` (the JAX engine's
-        ``_setup_mesh``, model axis only). An empty spec or a one-device
-        mesh keeps ``self.mesh = None``: every path then runs exactly as
-        on one card. A larger spec builds the mesh over the constructor's
+        ``_setup_mesh``). An empty spec or a one-device mesh keeps
+        ``self.mesh = None``: every path then runs exactly as on one
+        card; except that ``MOE_IMPL=ep`` on an MoE model builds a
+        one-device expert mesh, so the dispatch itself serves (its
+        all-to-alls degenerate to the shard's own buffers), as in the
+        JAX engine. A larger spec builds the mesh over the constructor's
         ``devices``, else the distinct devices of the serving type, and
-        raises when there are too few (as the JAX engine does), when it
-        has a >1 data/expert/pipe/seq axis, or for an MoE model
-        (ROADMAP.md A8). Idempotent: a restart keeps the mesh."""
+        raises when there are too few (as the JAX engine does) or when it
+        has a >1 pipe or seq axis (ROADMAP.md A8). Idempotent: a restart
+        keeps the mesh."""
         spec = self.mesh_shape.strip()
-        if self.mesh is not None or not spec:
+        force_ep_mesh = self.moe_impl == "ep" and self.model_cfg.is_moe
+        if self.mesh is not None or (not spec and not force_ep_mesh):
             return
         mesh_cfg = MeshConfig.parse(spec)
         total = mesh_cfg.n_devices
-        if total == 1:
+        if total == 1 and not force_ep_mesh:
             return
-        if self.model_cfg.is_moe:
-            raise ValueError(
-                f"MESH_SHAPE={spec!r}: a mixture-of-experts model on a mesh "
-                f"is not served by the PyTorch port yet (ROADMAP.md A8)")
+        if total == 1:
+            logger.info("MOE_IMPL=ep: building 1-device expert mesh")
         devices = self.devices or distinct_devices(self.device.type)
         if total > len(devices):
             raise ValueError(
@@ -300,7 +295,8 @@ class TorchEngine:
         """The sharding view for /health (the JAX engine's keys): mesh
         shape, device count and the residual fraction at this engine's
         decode shape (one sequence: the residual cannot split over the
-        batch). The batched engine overrides it with its pool's flags."""
+        batch). The batched engine overrides it with its pool's and its
+        draft's flags."""
         if self.mesh is None:
             return None
         return {
@@ -380,7 +376,8 @@ class TorchEngine:
     def _placed(self, params):
         """A parameter tree as this engine serves it: split over the
         mesh's shards when there is one."""
-        if self.mesh is None or isinstance(params, ShardedParams):
+        if (self.mesh is None or self.mesh.size == 1
+                or isinstance(params, ShardedParams)):
             return params
         return shard_params(params, self.mesh, self.model_cfg)
 

@@ -38,7 +38,8 @@ Shared by both:
   so the scatter never needs a host-side filter.
 - A mixture-of-experts model (``cfg.is_moe``: Mixtral, ``toy-moe``)
   runs its MLP through ``parallel/moe.py::dense_moe`` in every regime
-  of both layouts; ``moe_impl="ep"`` needs an expert mesh and raises.
+  of both layouts, or through ``expert_parallel_moe`` on an expert mesh
+  (``_moe_path``, the JAX ``_moe_mlp``'s rule).
 - An int8 KV cache (``kv_quant="int8"``: ``ops/quant.py::QuantKV``
   leaves, scales starting at 1) is written through the same rows, the
   window's K/V quantized first (``kv_quantize``), and read by
@@ -47,16 +48,17 @@ Shared by both:
   the attention kernels reads int8 KV (nor does the JAX package's), so
   an int8 cache asked to attend through one of them raises.
 
-- Under a ``model`` mesh of more than one shard (``mesh=``, the JAX
-  forward's mesh on that axis) the forward runs tensor-parallel over
-  per-shard weights and caches (``_forward_tp``): Megatron column/row
-  splits, the f≈1 residual split, attention per shard on its own heads —
-  the two pool kernels through their sharded wrappers.
+- Under a mesh of more than one shard (``mesh=``, the JAX forward's
+  mesh on its ``data``, ``expert`` and ``model`` axes) the forward runs
+  over per-shard weights and caches (``_forward_tp``): Megatron
+  column/row splits, the f≈1 residual split, attention per shard on its
+  own heads — the two pool kernels through their sharded wrappers, the
+  dense ladder's paged decode and flash prefill per (data, model) shard
+  —, the dense cache's slots over ``data``, and MoE layers dense under
+  tp or dispatched over ``expert``.
 
-Ring attention and the data, expert, pipe and seq axes belong to later
-slices (ROADMAP.md A8): ``attn_impl="ring"`` raises
-``NotImplementedError``, and an MoE model or ``moe_impl="ep"`` on a mesh
-raises ``ValueError``.
+Ring attention and the pipe and seq axes belong to later slices
+(ROADMAP.md A8): ``attn_impl="ring"`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,8 +83,10 @@ from ..ops.ragged_attention import (check_heads_divide,
                                     ragged_attention_pool_sharded)
 from ..ops.rope import rope_tables, rotate
 from ..parallel.collectives import all_gather, all_reduce, reduce_scatter
-from ..parallel.moe import dense_moe
-from ..parallel.sharding import head_layout, replicate, residual_split_dim
+from ..parallel.moe import (dense_moe, dense_moe_partial,
+                            expert_parallel_moe)
+from ..parallel.sharding import (head_layout, replicate, residual_split_dim,
+                                  rows_split)
 from .config import ModelConfig
 
 Params = Dict[str, object]
@@ -126,18 +130,22 @@ class KVCache:
 
     @classmethod
     def _kv(cls, cfg: ModelConfig, shape: tuple, dtype, device,
-            kv_quant: str, mesh):
-        """One zeroed K or V leaf: a tensor, or on a ``model`` mesh of
-        more than one shard a ``ShardedKV`` of per-shard leaves (KV heads
-        split where ``head_layout`` splits them, else a whole copy per
+            kv_quant: str, mesh, split_rows: bool = False):
+        """One zeroed K or V leaf: a tensor, or on a mesh of more than
+        one shard a ``ShardedKV`` of per-shard leaves (KV heads split
+        where ``head_layout`` splits them, slots split over ``data``
+        under ``split_rows`` where that divides, else a whole copy per
         shard), each allocated on its shard's device."""
-        if mesh is None or mesh.tp <= 1:
+        if mesh is None or mesh.size <= 1:
             return cls._leaf(shape, dtype, device, kv_quant)
-        split = head_layout(cfg, mesh.tp)[1]
-        local = shape[:3] + ((shape[3] // mesh.tp if split else shape[3]),
-                             shape[4])
+        heads = head_layout(cfg, mesh.tp)[1]
+        rows = split_rows and rows_split(mesh, shape[1])
+        local = (shape[0], shape[1] // mesh.dp if rows else shape[1],
+                 shape[2], shape[3] // mesh.tp if heads else shape[3],
+                 shape[4])
         return ShardedKV(shards=[cls._leaf(local, dtype, d, kv_quant)
-                                 for d in mesh.devices], heads_split=split)
+                                 for d in mesh.devices], heads_split=heads,
+                         row_groups=mesh.dp if rows else 1)
 
     @classmethod
     def pool(cls, cfg: ModelConfig, n_blocks: int, page: int, *,
@@ -153,13 +161,18 @@ class KVCache:
     @classmethod
     def zeros(cls, cfg: ModelConfig, batch: int, max_seq: int, *,
               dtype=torch.bfloat16, device=None,
-              kv_quant: str = "", mesh=None) -> "KVCache":
+              kv_quant: str = "", mesh=None,
+              split_rows: bool = False) -> "KVCache":
         """A zeroed dense per-slot cache of ``max_seq`` positions, split
-        over ``mesh``'s shards when it has more than one."""
+        over ``mesh``'s shards when it has more than one: with
+        ``split_rows`` (a serving cache's slots, ``cache_specs``) its
+        slots over ``data`` where that divides."""
         shape = (cfg.n_layers, batch, max_seq + 1, cfg.n_kv_heads,
                  cfg.head_dim)
-        return cls(k=cls._kv(cfg, shape, dtype, device, kv_quant, mesh),
-                   v=cls._kv(cfg, shape, dtype, device, kv_quant, mesh))
+        return cls(k=cls._kv(cfg, shape, dtype, device, kv_quant, mesh,
+                             split_rows),
+                   v=cls._kv(cfg, shape, dtype, device, kv_quant, mesh,
+                             split_rows))
 
     @property
     def sharded(self) -> bool:
@@ -329,17 +342,43 @@ def _dense_mlp(cfg: ModelConfig, lp: Dict[str, object],
     return qmatmul(gate * qmatmul(x, lp["w_up"]), lp["w_down"])
 
 
-def _moe_mlp(cfg: ModelConfig, lp: Dict[str, object], x: torch.Tensor,
-             moe_impl: str) -> torch.Tensor:
-    """The MoE MLP (the JAX ``_moe_mlp`` on one device, where no mesh is
-    in scope): ``auto`` and ``dense`` evaluate every expert
-    (``dense_moe``); ``ep``, the expert-parallel dispatch, needs a mesh
-    and raises with the JAX message."""
+def _moe_path(cfg: ModelConfig, moe_impl: str, mesh, tokens: int) -> str:
+    """The JAX ``_moe_mlp``'s choice for a window of ``tokens`` (B * S,
+    the whole batch): "ep", the expert-parallel dispatch, whenever a mesh
+    is in scope whose expert axis is > 1 (under ``auto``) or any size
+    (under ``ep``) and divides the tokens and the experts; else "dense",
+    the all-experts evaluation, which ``ep`` refuses with the JAX
+    message."""
+    if moe_impl == "dense":
+        return "dense"
+    if mesh is not None:
+        ep = mesh.shape["expert"]
+        if ((moe_impl == "ep" or ep > 1) and tokens % ep == 0
+                and cfg.n_experts % ep == 0):
+            return "ep"
     if moe_impl == "ep":
         raise ValueError(
             "MOE_IMPL=ep needs a mesh with an expert axis whose size "
-            "divides tokens and experts (the port has no mesh yet: "
-            "ROADMAP.md A8)")
+            "divides tokens and experts")
+    return "dense"
+
+
+def _ep_capacity(tokens: int, S: int, ep: int) -> Optional[int]:
+    """The JAX decode capacity: every local token (S == 1: drops
+    impossible), else the dispatch's default."""
+    return tokens // ep if S == 1 else None
+
+
+def _moe_mlp(cfg: ModelConfig, lp: Dict[str, object], x: torch.Tensor,
+             moe_impl: str, mesh=None, token_mask=None) -> torch.Tensor:
+    """The MoE MLP on one device (the JAX ``_moe_mlp``): the dispatch
+    over a one-device expert mesh (``MOE_IMPL=ep`` on one card) or the
+    dense evaluation (``_moe_path``)."""
+    B, S, _ = x.shape
+    if _moe_path(cfg, moe_impl, mesh, B * S) == "ep":
+        return expert_parallel_moe(
+            cfg, [lp], [x], mesh, token_mask=token_mask,
+            capacity=_ep_capacity(B * S, S, mesh.shape["expert"]))[0]
     return dense_moe(cfg, lp, x)
 
 
@@ -350,7 +389,8 @@ Attend = Callable[..., torch.Tensor]
 
 def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, object],
            layer_k: torch.Tensor, layer_v: torch.Tensor, rope: tuple,
-           attend: Attend, moe_impl: str = "auto") -> torch.Tensor:
+           attend: Attend, moe_impl: str = "auto", mesh=None,
+           token_mask=None) -> torch.Tensor:
     """One transformer block: every projection through ``qmatmul``, the
     KV write and attention through ``attend`` (pool or dense), the MLP
     dense or mixture of experts."""
@@ -370,8 +410,8 @@ def _layer(cfg: ModelConfig, h: torch.Tensor, lp: Dict[str, object],
         h = h + qmatmul(attn.reshape(B, S, H * hd), lp["wo"])
     with scope("mlp"):
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps, cfg.rms_offset)
-        mlp = (_moe_mlp(cfg, lp, x, moe_impl) if cfg.is_moe
-               else _dense_mlp(cfg, lp, x))
+        mlp = (_moe_mlp(cfg, lp, x, moe_impl, mesh, token_mask)
+               if cfg.is_moe else _dense_mlp(cfg, lp, x))
     return h + mlp
 
 
@@ -498,7 +538,7 @@ def _dense_read(tokens: torch.Tensor, positions: torch.Tensor,
     return read
 
 
-# ------------------------------------------------ tensor parallelism
+# ------------------------------------------------ the mesh forward
 
 def _tp_pool_reads(cfg: ModelConfig, tokens, positions, cache: KVCache,
                    tables, q_lens, kv_limit, attn_impl: str, mesh):
@@ -540,128 +580,193 @@ def _tp_pool_reads(cfg: ModelConfig, tokens, positions, cache: KVCache,
     toks, poss, tbls = (replicate(t, mesh)
                         for t in (tokens, positions, tables))
     reads = [_pool_read(toks[i], poss[i], cache.shard(i), tbls[i], q_lens,
-                        kv_limit, attn_impl) for i in range(mesh.tp)]
+                        kv_limit, attn_impl) for i in range(mesh.size)]
     return lambda qs, lks, lvs: [r(q, k, v) for r, q, k, v in
                                  zip(reads, qs, lks, lvs)]
 
 
-def _tp_combine(partials, whole: bool, split_dim: Optional[int]):
-    """A row-parallel product's per-shard partial sums joined into the
-    residual's layout: reduce-scattered over the residual's split
-    dimension, or all-reduced when the residual is replicated. A
-    weight that did not split (``whole``) already gives every shard the
-    full product: it is only cut to the residual's block."""
+def _tp_combine(partials, whole: bool, split_dim: Optional[int], groups):
+    """A row-parallel product's per-shard partial sums joined over each
+    model group into the residual's layout: reduce-scattered over the
+    residual's split dimension, or all-reduced when the residual is
+    replicated. A weight that did not split (``whole``) already gives
+    every shard the full product: it is only cut to the residual's
+    block."""
     if whole:
         if split_dim is None:
             return partials
-        tp = len(partials)
-        return [p.chunk(tp, dim=split_dim)[i].contiguous()
-                for i, p in enumerate(partials)]
+        out = list(partials)
+        for g in groups:
+            for r, i in enumerate(g):
+                out[i] = partials[i].chunk(len(g), dim=split_dim)[r]\
+                    .contiguous()
+        return out
     if split_dim is None:
-        return all_reduce(partials)
-    return reduce_scatter(partials, split_dim)
+        return all_reduce(partials, groups)
+    return reduce_scatter(partials, split_dim, groups)
+
+
+def _tp_moe(cfg: ModelConfig, lps, xs, mesh, *, moe_impl: str,
+            token_mask, data_split: bool, split: Optional[int], groups):
+    """The MoE MLP over the shards, each input its data group's whole
+    rows: the expert-parallel dispatch (``_moe_path``) over the whole
+    batch, gathered over ``data`` first where the rows are split, each
+    shard keeping its rows of the result; else each shard's experts
+    (its ``expert`` block, or all) evaluated densely on its slice of F,
+    the float32 partials summed over the expert group and then joined
+    over the model group as ``w_down``'s are. Returns the outputs in the
+    residual's layout."""
+    B_l, S, _ = xs[0].shape
+    B = B_l * (mesh.dp if data_split else 1)
+    if _moe_path(cfg, moe_impl, mesh, B * S) == "ep":
+        full = all_gather(xs, 0, mesh.groups("data")) if data_split else xs
+        ys = expert_parallel_moe(
+            cfg, lps, full, mesh, token_mask=token_mask,
+            capacity=_ep_capacity(B * S, S, mesh.ep))
+        if data_split:
+            ys = [y[mesh.coord(i, "data") * B_l:][:B_l]
+                  for i, y in enumerate(ys)]
+        return _tp_combine(ys, True, split, groups)
+    E_l = lps[0]["w_gate"].shape[0]
+    experts_split = E_l != cfg.n_experts
+    parts = [dense_moe_partial(cfg, lp, x, mesh.coord(i, "expert") * E_l
+                               if experts_split else 0)
+             for i, (lp, x) in enumerate(zip(lps, xs))]
+    if experts_split:
+        parts = all_reduce(parts, mesh.groups("expert"))
+    whole = lps[0]["w_down"].shape[1] == cfg.mlp_hidden
+    return [p.to(x.dtype) for p, x in
+            zip(_tp_combine(parts, whole, split, groups), xs)]
 
 
 def _forward_tp(params, cfg: ModelConfig, tokens, positions,
                 cache: KVCache, *, mesh, kv_limit, attn_impl, page_size,
-                logits_at, write_mask, block_tables, q_lens):
-    """``forward`` over a ``model`` mesh of more than one shard (the JAX
-    forward under a mesh, one controller over per-shard tensors):
+                logits_at, write_mask, block_tables, q_lens, token_mask,
+                moe_impl):
+    """``forward`` over a mesh of more than one shard (the JAX forward
+    under a mesh, one controller over per-shard tensors):
 
     - ``params`` is ``parallel/sharding.py::shard_params``'s per-shard
       trees, ``cache`` a ``KVCache`` of ``ShardedKV`` leaves;
     - wq/wk/wv and w_gate/w_up run column-parallel on each shard, wo and
-      w_down row-parallel, their partial sums joined by the collectives
-      of ``parallel/collectives.py``;
+      w_down row-parallel, their partial sums joined over each model
+      group (the shards of one (data, expert) row) by the collectives of
+      ``parallel/collectives.py``;
     - the residual follows the f≈1 policy (``residual_spec``): split
       over the batch rows (decode) or the sequence (prefill) — a
       reduce-scatter after each row-parallel product, an all-gather
-      before each column-parallel one — else replicated;
+      before each column-parallel one — else replicated (always on an
+      expert mesh);
+    - a dense cache whose slots split over ``data`` (``row_groups``)
+      gives each data group its slots' rows of the window: each group
+      runs its model shards on them, and the logits join in data order;
+    - every expert row runs the non-MoE part of a layer on its own copy
+      of its data group's cache (the JAX layout replicates the residual
+      and the cache over ``expert``); an MoE layer runs ``_tp_moe``;
     - attention runs per shard on the shard's heads (``head_layout``):
       the pool kernels through the sharded wrappers, every other read
-      on each shard's own cache;
+      (the dense ladder's paged decode and flash prefill among them) on
+      each shard's own cache;
     - the vocab-sharded embedding looks up each shard's rows and sums
       them; the head's logits gather over the vocab on the first
       shard's device, where the logits are returned.
     """
-    tp = mesh.tp
+    n, tp = mesh.size, mesh.tp
     B, S = tokens.shape
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
     q_split, kv_split = head_layout(cfg, tp)
     H_l = H // tp if q_split else H
     KV_l = KV // tp if kv_split else KV
     split = residual_split_dim(mesh, (B, S, d))
+    models = mesh.groups("model")
+    mcoord = [mesh.coord(i, "model") for i in range(n)]
+    dp_rows = cache.k.row_groups
+    per = n // dp_rows
+    B_l = B // dp_rows
 
+    def blocks(t):
+        """Each data group's rows of a [B, ...] tensor (None stays)."""
+        if t is None or dp_rows == 1:
+            return [t] * dp_rows
+        return list(t.split(B_l))
+
+    def spread(bs):
+        """Per-group values onto each shard of the group's device."""
+        return [None if bs[i // per] is None else bs[i // per].to(dev)
+                for i, dev in enumerate(mesh.devices)]
+
+    toks, poss = spread(blocks(tokens)), spread(blocks(positions))
     if block_tables is not None:
         tables = block_tables.to(torch.int32).contiguous()
         with scope("kv_write"):
-            flat = _pool_flat_pos(tables, positions, cache.page,
-                                  cache.n_blocks, write_mask)
+            flats = replicate(_pool_flat_pos(tables, positions, cache.page,
+                                             cache.n_blocks, write_mask),
+                              mesh)
         with scope("attention"):
             read = _tp_pool_reads(cfg, tokens, positions, cache, tables,
                                   q_lens, kv_limit, attn_impl, mesh)
     else:
         with scope("kv_write"):
-            flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
-        toks, poss = replicate(tokens, mesh), replicate(positions, mesh)
+            flats = spread([_dense_flat_pos(p, cache.max_seq, w)
+                            for p, w in zip(blocks(positions),
+                                            blocks(write_mask))])
         with scope("attention"):
             reads = [_dense_read(toks[i], poss[i], kv_limit, attn_impl,
-                                 page_size) for i in range(tp)]
+                                 page_size) for i in range(n)]
 
         def read(qs, lks, lvs):
             return [r(q, k, v) for r, q, k, v in zip(reads, qs, lks, lvs)]
-    flats = replicate(flat, mesh)
 
     with scope("embed"):
         dt = params[0]["final_norm"].dtype
         emb = [p["embed"] for p in params]
         V_l = emb[0].shape[0]
-        toks = replicate(tokens, mesh)
         if V_l != cfg.vocab_size:       # vocab rows split over the shards
             parts = []
-            for i in range(tp):
-                local = toks[i].long() - i * V_l
-                inside = (local >= 0) & (local < V_l)
-                e = embed_lookup(emb[i], local.clamp(0, V_l - 1), dtype=dt)
+            for i in range(n):
+                lo = toks[i].long() - mcoord[i] * V_l
+                inside = (lo >= 0) & (lo < V_l)
+                e = embed_lookup(emb[i], lo.clamp(0, V_l - 1), dtype=dt)
                 parts.append(torch.where(inside[..., None], e,
                                          torch.zeros((), dtype=dt,
                                                      device=e.device)))
-            h = _tp_combine(parts, False, split)
+            h = _tp_combine(parts, False, split, models)
         else:
             h = _tp_combine([embed_lookup(emb[i], toks[i], dtype=dt)
-                             for i in range(tp)], True, split)
+                             for i in range(n)], True, split, models)
         if cfg.embed_scale:
             c = torch.tensor(cfg.dim ** 0.5, dtype=dt).item()
             h = [x * c for x in h]
     with scope("rope"):
-        rope = replicate(torch.stack(rope_tables(positions, hd,
-                                                 cfg.rope_theta)), mesh)
+        rope = spread([torch.stack(rope_tables(p, hd, cfg.rope_theta))
+                       for p in blocks(positions)])
 
     def gather(xs):
-        return xs if split is None else all_gather(xs, split)
+        return xs if split is None else all_gather(xs, split, models)
 
     layers = [p["layers"] for p in params]
     wo_whole = layers[0]["wo"].shape[1] == H * hd
-    down_whole = layers[0]["w_down"].shape[1] == cfg.mlp_hidden
+    down_whole = layers[0]["w_down"].shape[-2] == cfg.mlp_hidden
+    shards = [cache.shard(i) for i in range(n)]
     for li in range(cfg.n_layers):
-        lps = [{n: w[li] for n, w in lay.items()} for lay in layers]
+        lps = [{name: w[li] for name, w in lay.items()} for lay in layers]
         with scope("attn_norm"):
             xs = gather([rms_norm(x, lp["attn_norm"], cfg.rms_eps,
                                   cfg.rms_offset) for x, lp in zip(h, lps)])
         with scope("qkv_proj"):
-            qs = [qmatmul(x, lp["wq"]).view(B, S, H_l, hd)
+            qs = [qmatmul(x, lp["wq"]).view(x.shape[0], S, H_l, hd)
                   for x, lp in zip(xs, lps)]
-            ks = [qmatmul(x, lp["wk"]).view(B, S, KV_l, hd)
+            ks = [qmatmul(x, lp["wk"]).view(x.shape[0], S, KV_l, hd)
                   for x, lp in zip(xs, lps)]
-            vs = [qmatmul(x, lp["wv"]).view(B, S, KV_l, hd)
+            vs = [qmatmul(x, lp["wv"]).view(x.shape[0], S, KV_l, hd)
                   for x, lp in zip(xs, lps)]
         with scope("rope"):
             qs = [rotate(q, r[0], r[1]) for q, r in zip(qs, rope)]
             ks = [rotate(k, r[0], r[1]) for k, r in zip(ks, rope)]
-        lks = [c.k[li] for c in (cache.shard(i) for i in range(tp))]
-        lvs = [c.v[li] for c in (cache.shard(i) for i in range(tp))]
+        lks = [c.k[li] for c in shards]
+        lvs = [c.v[li] for c in shards]
         with scope("kv_write"):
-            for i in range(tp):
+            for i in range(n):
                 _write_kv(lks[i], flats[i], ks[i])
                 _write_kv(lvs[i], flats[i], vs[i])
         with scope("attention"):
@@ -669,39 +774,52 @@ def _forward_tp(params, cfg: ModelConfig, tokens, positions,
         with scope("o_proj"):
             outs = []
             for i, (a, lp) in enumerate(zip(attn, lps)):
-                a = a.reshape(B, S, H_l * hd)
+                a = a.reshape(a.shape[0], S, H_l * hd)
                 rows = lp["wo"].shape[0]
                 if not q_split and not wo_whole:
-                    a = a[..., i * rows:(i + 1) * rows]
+                    a = a[..., mcoord[i] * rows:(mcoord[i] + 1) * rows]
                 outs.append(qmatmul(a, lp["wo"]))
             h = [x + o for x, o in zip(h, _tp_combine(outs, wo_whole,
-                                                       split))]
+                                                       split, models))]
         with scope("mlp"):
             xs = gather([rms_norm(x, lp["mlp_norm"], cfg.rms_eps,
                                   cfg.rms_offset) for x, lp in zip(h, lps)])
-            outs = [_dense_mlp(cfg, lp, x) for x, lp in zip(xs, lps)]
-            h = [x + o for x, o in zip(h, _tp_combine(outs, down_whole,
-                                                       split))]
+            if cfg.is_moe:
+                outs = _tp_moe(cfg, lps, xs, mesh, moe_impl=moe_impl,
+                               token_mask=token_mask,
+                               data_split=dp_rows > 1, split=split,
+                               groups=models)
+            else:
+                outs = _tp_combine([_dense_mlp(cfg, lp, x)
+                                    for x, lp in zip(xs, lps)],
+                                   down_whole, split, models)
+            h = [x + o for x, o in zip(h, outs)]
     h = gather(h)
     head = params[0].get("lm_head", emb[0])
     vocab_split = (head.shape[-1] if "lm_head" in params[0]
                    else head.shape[0]) != cfg.vocab_size
-    shards = range(tp) if vocab_split else range(1)
-    logits = []
-    for i in shards:
-        with scope("final_norm"):
-            x = rms_norm(h[i], params[i]["final_norm"], cfg.rms_eps,
-                         cfg.rms_offset)
-        if logits_at is not None:
-            x = x[torch.arange(B, device=x.device),
-                  logits_at.to(x.device).long()][:, None]
-        with scope("lm_head"):
-            logits.append(tied_head(x, params[i]["embed"])
-                          if cfg.tie_embeddings
-                          else qmatmul(x, params[i]["lm_head"]))
-    if vocab_split:
-        logits = all_gather(logits, -1)
-    return logits[0].to(mesh.devices[0]).float(), cache
+    ats = spread(blocks(logits_at))
+    rows = []
+    # One model group per data group of rows (expert row 0's) makes
+    # the logits; the others hold the same.
+    for g in (models[r * mesh.ep] for r in range(dp_rows)):
+        logits = []
+        for i in (g if vocab_split else g[:1]):
+            with scope("final_norm"):
+                x = rms_norm(h[i], params[i]["final_norm"], cfg.rms_eps,
+                             cfg.rms_offset)
+            if ats[i] is not None:
+                x = x[torch.arange(x.shape[0], device=x.device),
+                      ats[i].long()][:, None]
+            with scope("lm_head"):
+                logits.append(tied_head(x, params[i]["embed"])
+                              if cfg.tie_embeddings
+                              else qmatmul(x, params[i]["lm_head"]))
+        if vocab_split:
+            logits = all_gather(logits, -1)
+        rows.append(logits[0].to(mesh.devices[0]))
+    out = rows[0] if len(rows) == 1 else torch.cat(rows)
+    return out.float(), cache
 
 
 # -------------------------------------------------------------- forward
@@ -717,7 +835,7 @@ def forward(
     attn_impl: Optional[str] = None,    # default: ragged (pool), dense
     token_mask: Optional[torch.Tensor] = None,  # [B, S]; 0 = padding
     page_size: int = 128,               # dense cache: page under "paged"
-    moe_impl: str = "auto",             # MoE MLP: auto | dense (ep raises)
+    moe_impl: str = "auto",             # MoE MLP: auto | ep | dense
     logits_at: Optional[torch.Tensor] = None,   # [B]: logits at one column
     write_mask: Optional[torch.Tensor] = None,  # [B] or [B, S] bool
     block_tables: Optional[torch.Tensor] = None,  # [B, max_pages] int32
@@ -738,22 +856,23 @@ def forward(
     pages of ``page_size`` from the whole cache; otherwise attention
     reads ``cache[:, :kv_limit]`` (default: the whole cache) under
     ``kv <= position``. ``write_mask`` gates the KV writes per row or per
-    token in both. An MoE model runs ``dense_moe`` under ``moe_impl``
-    "auto" or "dense" ("ep" raises). ``token_mask`` marks padding, as in
-    the JAX signature, where only the expert-parallel dispatch reads it
-    (to keep padding out of the experts' capacity); the dense
-    evaluation, the port's only one, ignores it. ``logits_at`` gathers
+    token in both. An MoE model's MLP runs as the JAX ``_moe_mlp``
+    chooses (``_moe_path``): the expert-parallel dispatch
+    (``parallel/moe.py::expert_parallel_moe``) on a mesh whose expert
+    axis is > 1 (``auto``) or any size (``ep``, on one card a one-device
+    expert mesh) and divides the tokens and experts, else ``dense_moe``
+    (``ep`` refuses that). ``token_mask`` marks padding and dead slots,
+    which the dispatch keeps out of the experts' capacity (the dense
+    evaluation ignores it). Under a ``mesh`` of more than one shard the
+    forward runs ``_forward_tp`` over per-shard weights and caches: the
+    ``model`` axis tensor-parallel, slots over ``data`` where the dense
+    cache splits them, experts over ``expert``. ``logits_at`` gathers
     each row's hidden state at one column BEFORE the LM head, returning
     [B, 1, vocab]. An int8 cache (``QuantKV`` leaves) reads through the
     gather path or the dense read only: ``attn_impl`` "ragged", "paged"
     with one column and "flash" with several raise, their kernels
     reading bf16 KV."""
-    del token_mask
-    tp = mesh is not None and mesh.tp > 1
-    if tp and cfg.is_moe:
-        raise ValueError(
-            "a mixture-of-experts model on a mesh is not served by the "
-            "PyTorch port yet (ROADMAP.md A8)")
+    tp = mesh is not None and mesh.size > 1
     if block_tables is not None:
         attn_impl = attn_impl or "ragged"
         if attn_impl not in ("ragged", "paged", "dense", "flash"):
@@ -793,7 +912,8 @@ def forward(
                            mesh=mesh, kv_limit=kv_limit,
                            attn_impl=attn_impl, page_size=page_size,
                            logits_at=logits_at, write_mask=write_mask,
-                           block_tables=block_tables, q_lens=q_lens)
+                           block_tables=block_tables, q_lens=q_lens,
+                           token_mask=token_mask, moe_impl=moe_impl)
     # final_norm is always a plain tensor in the model dtype: it anchors
     # the activation dtype when the embedding is stored int8.
     with scope("embed"):
@@ -811,7 +931,7 @@ def forward(
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
         h = _layer(cfg, h, lp, cache.k[i], cache.v[i], rope, attend,
-                   moe_impl)
+                   moe_impl, mesh, token_mask)
     with scope("final_norm"):
         h = rms_norm(h, params["final_norm"], cfg.rms_eps, cfg.rms_offset)
     if logits_at is not None:

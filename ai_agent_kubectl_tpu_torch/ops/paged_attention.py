@@ -288,8 +288,9 @@ def paged_decode_attention_pool_sharded(q, k, v, positions, block_tables,
 
     ``q`` [N, H, hd] and ``k``/``v`` [n_blocks, page, KV, hd] are whole
     tensors (split here, with the JAX refusal when the heads do not
-    divide) or lists of per-shard blocks; ``positions`` and
-    ``block_tables`` are the same on every shard. Returns the per-shard
+    divide) or lists of per-shard blocks, one per shard of the mesh;
+    ``positions`` and ``block_tables`` are the same on every shard.
+    Returns the per-shard
     outputs [N, H/tp, hd] in shard order (``torch.cat(out, dim=1)``
     assembles them). ``plain`` runs the plain version per shard (the
     comparisons' reference). ``.launches`` counts the kernel launches,
@@ -303,8 +304,8 @@ def paged_decode_attention_pool_sharded(q, k, v, positions, block_tables,
     if not isinstance(q, (list, tuple)):
         check_heads_divide("pool paged kernel", q.shape[1],
                            global_heads(k, 2), tp)
-    qs = split_heads(q, tp, 1)
-    ks, vs = split_heads(k, tp, 2), split_heads(v, tp, 2)
+    qs = split_heads(q, mesh, 1)
+    ks, vs = split_heads(k, mesh, 2), split_heads(v, mesh, 2)
     devices = [t.device for t in qs]
     before = paged_decode_attention_pool.launches
     out = [fn(qs[i], ks[i], vs[i], pos, tbl, page_size=page_size,

@@ -243,10 +243,14 @@ class ShardedKV:
     tensor or a ``QuantKV`` — on its own device, never a view of a
     shared one (the attention kernels refuse non-contiguous k/v).
     ``heads_split``: the KV-head axis is split over the shards (each
-    holds ``KV / tp`` heads); otherwise each shard holds a full copy."""
+    holds ``KV / tp`` heads); otherwise each shard holds a full copy.
+    ``row_groups``: the slot axis (1) is split over a ``data`` axis of
+    that size, the data groups major in shard order (a dense cache's
+    ``cache_specs``); 1 = every shard holds every slot."""
 
     shards: list
     heads_split: bool
+    row_groups: int = 1
 
     @property
     def shape(self):
@@ -271,7 +275,7 @@ def kv_map(fn, *kvs):
         return ShardedKV(
             shards=[kv_map(fn, *(kv.shards[i] for kv in kvs))
                     for i in range(len(kvs[0].shards))],
-            heads_split=kvs[0].heads_split)
+            heads_split=kvs[0].heads_split, row_groups=kvs[0].row_groups)
     if isinstance(kvs[0], QuantKV):
         return QuantKV(q=fn(*(kv.q for kv in kvs)),
                        s=fn(*(kv.s for kv in kvs)))
@@ -301,18 +305,32 @@ def kv_set_slots(dst, src, slots):
     only its ``depth`` positions are written. The slot's stale tail is
     never read (decode's causal mask exposes only positions below the
     slot's live length, and each later position is written by its own
-    decode step before the mask reaches it). Returns ``dst``."""
+    decode step before the mask reaches it).
+
+    A ``dst`` whose slots are split over ``data`` (``row_groups`` > 1)
+    takes a ``src`` whose every shard holds every row: each shard writes
+    the rows bound for its own slots, at their local index. Returns
+    ``dst``."""
+    slots = [int(s) for s in np.asarray(slots).reshape(-1)]
     batch = dst.shape[1]
-    rows = [(i, int(s)) for i, s in enumerate(np.asarray(slots).reshape(-1))
-            if 0 <= int(s) < batch]
 
-    def set_rows(d, s):
-        depth = s.shape[2]
-        for i, slot in rows:
-            d[:, slot, :depth].copy_(s[:, i])
-        return d
+    def set_rows(rows):
+        def put(d, s):
+            depth = s.shape[2]
+            for i, slot in rows:
+                d[:, slot, :depth].copy_(s[:, i])
+            return d
+        return put
 
-    return kv_map(set_rows, dst, src)
+    if isinstance(dst, ShardedKV) and dst.row_groups > 1:
+        per = len(dst.shards) // dst.row_groups
+        for k, (d, s) in enumerate(zip(dst.shards, src.shards)):
+            lo = (k // per) * batch
+            kv_map(set_rows([(i, slot - lo) for i, slot in enumerate(slots)
+                             if lo <= slot < lo + batch]), d, s)
+        return dst
+    return kv_map(set_rows([(i, slot) for i, slot in enumerate(slots)
+                            if 0 <= slot < batch]), dst, src)
 
 
 def kv_broadcast_rows(src, n: int):

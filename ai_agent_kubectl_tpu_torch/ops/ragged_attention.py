@@ -184,15 +184,21 @@ ragged_attention_pool.launches = 0
 
 # ------------------------------------------------- over a model axis
 
-def split_heads(x, tp: int, axis: int) -> list:
+def split_heads(x, mesh, axis: int) -> list:
     """Per-shard blocks of ``x``: a list is taken as the shards
-    themselves; a tensor is cut into ``tp`` contiguous blocks of heads
-    along ``axis``, each a tensor of its own (the kernels read
-    contiguous k/v)."""
+    themselves, one per shard of ``mesh`` (the shards of one model
+    coordinate hold its heads, over every data and expert row); a tensor
+    is cut into the model axis's contiguous blocks of heads along
+    ``axis``, each a tensor of its own (the kernels read contiguous k/v),
+    on a mesh of that axis alone."""
+    tp = mesh.shape["model"]
     if isinstance(x, (list, tuple)):
-        if len(x) != tp:
-            raise ValueError(f"{len(x)} shards for a model axis of {tp}")
+        if len(x) != mesh.size:
+            raise ValueError(f"{len(x)} shards for a mesh of {mesh.size}")
         return list(x)
+    if mesh.size != tp:
+        raise ValueError(f"a whole tensor splits over a model axis alone, "
+                         f"not a mesh of {mesh.size} shards")
     return [c.contiguous() for c in x.chunk(tp, dim=axis)]
 
 
@@ -234,7 +240,8 @@ def ragged_attention_pool_sharded(q, k, v, q_lens, positions,
 
     ``q`` [N, W, H, hd] and ``k``/``v`` [n_blocks, page, KV, hd] are
     whole tensors (split here, with the JAX refusal when the heads do
-    not divide) or lists of per-shard blocks (the pool's own shards);
+    not divide) or lists of per-shard blocks, one per shard of the mesh
+    (the pool's own shards);
     ``q_lens``, ``positions`` and ``block_tables`` are the same on every
     shard (a tensor, or one per shard). Each shard's local G = H/KV is
     the model's. Returns the per-shard outputs [N, W, H/tp, hd] in shard
@@ -249,7 +256,7 @@ def ragged_attention_pool_sharded(q, k, v, q_lens, positions,
     if not isinstance(q, (list, tuple)):
         check_heads_divide("ragged pool kernel", q.shape[2],
                            global_heads(k, 2), tp)
-    qs, ks, vs = (split_heads(x, tp, ax) for x, ax in
+    qs, ks, vs = (split_heads(x, mesh, ax) for x, ax in
                   ((q, 2), (k, 2), (v, 2)))
     devices = [t.device for t in qs]
     fn = ragged_attention_pool_plain if plain else ragged_attention_pool

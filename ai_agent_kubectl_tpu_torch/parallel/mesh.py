@@ -16,8 +16,15 @@ Axis conventions (the JAX package's, fixed order):
 - ``seq``    — sequence/context (ring attention)
 - ``model``  — tensor parallelism
 
-Only ``model`` is served (ROADMAP.md A8 holds the others); a mesh with a
->1 data, expert, pipe or seq axis is refused where it is built.
+``data``, ``expert`` and ``model`` are served; a mesh with a >1 pipe or
+seq axis is refused where it is built (ROADMAP.md A8 holds them). Shard
+``i`` sits at the coordinates of the JAX device layout,
+``np.asarray(devices).reshape(cfg.shape)`` over ``AXES``: the shard
+index is the row-major ravel of (data, expert, pipe, seq, model), so
+the model shards of one (data, expert) row are adjacent. ``Mesh.groups``
+lists the shards a collective over some axes runs among. An ``expert``
+mesh may have one device: ``MOE_IMPL=ep`` on one card serves the
+dispatch over it, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import logging
 import math
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
@@ -34,7 +42,7 @@ logger = logging.getLogger(__name__)
 AXES = ("data", "expert", "pipe", "seq", "model")
 
 #: the axes a later part of ROADMAP.md A8 serves
-UNSERVED_AXES = ("data", "expert", "pipe", "seq")
+UNSERVED_AXES = ("pipe", "seq")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,11 +114,40 @@ class Mesh:
     def tp(self) -> int:
         return self.config.model
 
+    @property
+    def ep(self) -> int:
+        return self.config.expert
+
+    @property
+    def dp(self) -> int:
+        return self.config.data
+
+    def coords(self, i: int) -> Dict[str, int]:
+        """Shard ``i``'s index on each axis."""
+        return dict(zip(AXES, (int(c) for c in
+                               np.unravel_index(i, self.config.shape))))
+
+    def coord(self, i: int, axis: str) -> int:
+        return self.coords(i)[axis]
+
+    def groups(self, axes) -> list:
+        """The shards a collective over ``axes`` (a name or a tuple of
+        names) runs among: one list per combination of the other axes'
+        coordinates, each in shard order (a JAX ``psum`` over those axes
+        sums within each list)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = np.arange(self.size).reshape(self.config.shape)
+        inner = [k for k, a in enumerate(AXES) if a in axes]
+        outer = [k for k, a in enumerate(AXES) if a not in axes]
+        width = math.prod(self.config.shape[k] for k in inner)
+        return [[int(i) for i in g] for g in
+                idx.transpose(outer + inner).reshape(-1, width)]
+
 
 def build_mesh(cfg: MeshConfig, devices: Sequence) -> Mesh:
     """A mesh over ``devices`` (one per shard; a device may repeat).
     Raises when the spec wants another number of devices, as the JAX
-    ``build_mesh`` does, and when it has a >1 axis other than ``model``
+    ``build_mesh`` does, and when it has a >1 pipe or seq axis
     (ROADMAP.md A8)."""
     devices = tuple(torch.device(d) for d in devices)
     if cfg.n_devices != len(devices):
@@ -121,7 +158,7 @@ def build_mesh(cfg: MeshConfig, devices: Sequence) -> Mesh:
         raise ValueError(
             f"Mesh {cfg.describe()}: the {'/'.join(bad)} axis is not "
             f"served by the PyTorch port yet (ROADMAP.md A8); it serves "
-            f"the model axis (tp=N)")
+            f"the data, expert and model axes (dp/ep/tp)")
     mesh = Mesh(cfg, devices)
     logger.info("Mesh built: %s over %d %s device(s)", cfg.describe(),
                 len(devices), devices[0].type)

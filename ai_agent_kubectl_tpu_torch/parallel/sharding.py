@@ -1,5 +1,6 @@
 """Partition policy: how params, KV cache and activations split over the
-``model`` axis, and the functions that split them.
+``data``, ``expert`` and ``model`` axes, and the functions that split
+them.
 
 The counterpart of the JAX package's ``parallel/sharding.py``. A spec is
 a tuple of mesh axis names (or ``None``, or a tuple of names) over a
@@ -10,9 +11,15 @@ same policy: Megatron tensor parallelism over the stacked-layer tree of
 - attention: wq/wk/wv column-parallel (heads split over ``model``), wo
   row-parallel;
 - MLP: w_gate/w_up column-parallel, w_down row-parallel;
+- MoE: experts split over ``expert``; within an expert the same
+  column/row split over ``model``;
 - embedding: vocab-sharded (the tied head's logits gather over
   ``model`` before sampling);
-- KV cache and pool: KV heads over ``model``.
+- KV cache and pool: KV heads over ``model``; the dense cache's slots
+  over ``data`` (the pool never splits: its blocks are shared by every
+  slot, so a data mesh serves the dense ladder); every leaf replicated
+  over the axes it does not name (each expert row holds its data
+  group's cache).
 
 ``sanitize_spec`` drops an axis that does not divide its dimension. The
 ``shard_*`` functions split the port's tensors into per-shard tensors
@@ -26,12 +33,13 @@ query heads split (``head_layout``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..models.config import ModelConfig
-from ..ops.quant import QuantInt8, QuantKV, ShardedKV
+from ..ops.quant import QuantInt8, QuantKV, ShardedKV, kv_map
 from ..ops.quant4 import QuantInt4
 from .mesh import Mesh
 
@@ -215,56 +223,74 @@ class ShardedParams(list):
     device)."""
 
 
-def _split(t: torch.Tensor, dims: Sequence[int], tp: int, i: int,
-           device) -> torch.Tensor:
-    """Shard ``i``'s block of ``t``: each of ``dims`` cut into ``tp``
-    equal blocks where it divides (a size-1 axis stays whole), copied
+#: one cut of a tensor: (dimension, parts, this shard's part)
+Cut = Tuple[int, int, int]
+
+
+def _block(t: torch.Tensor, cuts: Sequence[Cut], device) -> torch.Tensor:
+    """A shard's block of ``t``: each cut's dimension split into its
+    parts where it divides (a size-1 axis stays whole), copied
     contiguous onto ``device``."""
     out, cut = t, False
-    for d in dims:
+    for d, parts, k in cuts:
         n = t.shape[d]
-        if n % tp == 0 and n >= tp:
-            out = out.narrow(d, i * (n // tp), n // tp)
+        if parts > 1 and n % parts == 0 and n >= parts:
+            out = out.narrow(d, k * (n // parts), n // parts)
             cut = True
     if not cut:
         return out if out.device == device else out.to(device)
     return out.to(device).contiguous()
 
 
-def _leaf_shards(leaf, dims: Sequence[int], mesh: Mesh) -> list:
-    """A leaf's per-shard blocks: a plain tensor, or each tensor field
-    of a quantized leaf cut along the same dimensions."""
-    tp = mesh.tp
-    if isinstance(leaf, QuantInt4):
-        raise ValueError("QUANT=int4 does not compose with a multi-device "
-                         "mesh; the engines serve int8 instead")
+def _leaf_block(leaf, cuts: Sequence[Cut], device):
+    """A leaf's block: a plain tensor, or each tensor field of a
+    quantized leaf cut along the same dimensions."""
+    if isinstance(leaf, (QuantInt8, QuantKV)):
+        fields = dataclasses.fields(leaf)
+        return type(leaf)(**{f.name: _block(getattr(leaf, f.name), cuts,
+                                            device) for f in fields})
+    return _block(leaf, cuts, device)
+
+
+def _spec_cuts(mesh: Mesh, spec: Spec, shape: tuple, i: int) -> list:
+    """Shard ``i``'s cuts of a tensor under ``spec`` (sanitized): one per
+    split dimension, over the axis it names at the shard's coordinate
+    (a single axis: no parameter or cache spec names a tuple)."""
+    coords = mesh.coords(i)
     out = []
-    for i, dev in enumerate(mesh.devices):
-        if isinstance(leaf, QuantInt8):
-            out.append(type(leaf)(q=_split(leaf.q, dims, tp, i, dev),
-                                  scale=_split(leaf.scale, dims, tp, i,
-                                               dev)))
-        else:
-            out.append(_split(leaf, dims, tp, i, dev))
+    for d, names in enumerate(sanitize_spec(mesh, spec, shape)):
+        if names is None:
+            continue
+        for a in (names if isinstance(names, tuple) else (names,)):
+            if mesh.shape[a] > 1:
+                out.append((d, mesh.shape[a], coords[a]))
     return out
 
 
-def _split_dims(mesh: Mesh, spec: Spec, shape: tuple) -> list:
-    return [d for d, names in enumerate(sanitize_spec(mesh, spec, shape))
-            if names is not None and "model" in (
-                names if isinstance(names, tuple) else (names,))]
+def _leaf_shards(leaf, spec: Spec, mesh: Mesh) -> list:
+    if isinstance(leaf, QuantInt4):
+        raise ValueError("QUANT=int4 does not compose with a multi-device "
+                         "mesh; the engines serve int8 instead")
+    return [_leaf_block(leaf, _spec_cuts(mesh, spec, tuple(leaf.shape), i),
+                        dev) for i, dev in enumerate(mesh.devices)]
+
+
+def _no_model(spec: Spec) -> Spec:
+    """``spec`` with the ``model`` axis dropped (a head-packed projection
+    that stays whole over the model axis)."""
+    return P(*(None if n == "model" else n for n in spec))
 
 
 def shard_params(params: Params, mesh: Mesh,
                  cfg: ModelConfig) -> ShardedParams:
     """Split a parameter tree over the mesh per ``param_specs``
-    (sanitized per leaf). Quantized leaves cut payload and scales along
-    the weight's split axis (a size-1 scale axis stays whole). The
+    (sanitized per leaf): Megatron splits over ``model``, the expert
+    stacks over ``expert`` too, every leaf replicated over ``data``.
+    Quantized leaves cut payload and scales along the weight's split
+    axes (a size-1 scale axis stays whole: an expert stack's scales
+    follow its expert and out-channel axes, the JAX ``_wspec``). The
     head-packed projections split on whole heads (``head_layout``) or
-    stay whole. MoE trees raise: experts on a mesh are ROADMAP.md A8."""
-    if cfg.is_moe:
-        raise ValueError("a mixture-of-experts model on a mesh is not "
-                         "served by the PyTorch port yet (ROADMAP.md A8)")
+    stay whole over ``model``."""
     specs = param_specs(cfg)
     q_split, kv_split = head_layout(cfg, mesh.tp)
     whole = {"wq": not q_split, "wk": not kv_split, "wv": not kv_split}
@@ -274,51 +300,62 @@ def shard_params(params: Params, mesh: Mesh,
             for t in trees:
                 t["layers"] = {}
             for name, lspec in spec.items():
-                leaf = params["layers"][name]
-                dims = ([] if whole.get(name)
-                        else _split_dims(mesh, lspec, tuple(leaf.shape)))
-                for t, s in zip(trees, _leaf_shards(leaf, dims, mesh)):
+                if whole.get(name):
+                    lspec = _no_model(lspec)
+                for t, s in zip(trees, _leaf_shards(
+                        params["layers"][name], lspec, mesh)):
                     t["layers"][name] = s
             continue
-        leaf = params[key]
-        dims = _split_dims(mesh, spec, tuple(leaf.shape))
-        for t, s in zip(trees, _leaf_shards(leaf, dims, mesh)):
+        for t, s in zip(trees, _leaf_shards(params[key], spec, mesh)):
             t[key] = s
     return ShardedParams(trees)
 
 
-def _shard_kv_leaf(leaf, split: bool, mesh: Mesh) -> ShardedKV:
-    """One cache leaf [L, X, Y, KV, hd] (or a ``QuantKV``) split on its
-    KV-head axis (3), or copied whole, onto each shard's device."""
-    dims = [3] if split else []
-    out = []
+def _cache_spec(heads_split: bool, split_rows: bool) -> Spec:
+    """The per-shard split of a cache leaf [L, X, Y, KV, hd]: slots (X)
+    over ``data`` and KV heads over ``model``, each where asked."""
+    return P(None, "data" if split_rows else None, None,
+             "model" if heads_split else None, None)
+
+
+def _kv_shards(leaf, mesh: Mesh, heads_split: bool,
+               split_rows: bool) -> ShardedKV:
+    """One cache leaf [L, X, Y, KV, hd] (or a ``QuantKV``) over the mesh:
+    KV heads split over ``model`` and slots over ``data`` where asked,
+    else a whole copy per shard; each shard's leaf its own tensor."""
+    spec = _cache_spec(heads_split, split_rows)
+    out, seen = [], set()
     for i, dev in enumerate(mesh.devices):
-        if isinstance(leaf, QuantKV):
-            out.append(QuantKV(q=_split(leaf.q, dims, mesh.tp, i, dev),
-                               s=_split(leaf.s, dims, mesh.tp, i, dev)))
-        else:
-            out.append(_split(leaf, dims, mesh.tp, i, dev))
-    if not split:
-        # Each shard owns its copy: writes go to each shard's own leaf.
-        out = [o if i == 0 else _own(o) for i, o in enumerate(out)]
-    return ShardedKV(shards=out, heads_split=split)
+        block = _leaf_block(leaf, _spec_cuts(mesh, spec, tuple(leaf.shape),
+                                             i), dev)
+        ptr = (block.q if isinstance(block, QuantKV) else block).data_ptr()
+        if ptr in seen:
+            # Each shard owns its copy: writes go to each shard's leaf.
+            block = kv_map(torch.clone, block)
+        seen.add(ptr)
+        out.append(block)
+    return ShardedKV(shards=out, heads_split=heads_split,
+                     row_groups=mesh.dp if split_rows else 1)
 
 
-def _own(leaf):
-    if isinstance(leaf, QuantKV):
-        return QuantKV(q=leaf.q.clone(), s=leaf.s.clone())
-    return leaf.clone()
+def rows_split(mesh: Mesh, batch: int) -> bool:
+    """Whether a dense cache of ``batch`` slots splits them over
+    ``data`` (``cache_specs``: where the axis divides)."""
+    return mesh.dp > 1 and batch % mesh.dp == 0
 
 
-def shard_cache(cache, mesh: Mesh, cfg: ModelConfig):
+def shard_cache(cache, mesh: Mesh, cfg: ModelConfig, *,
+                split_rows: bool = False):
     """A dense per-slot ``KVCache`` split over the mesh: KV heads over
-    ``model`` where they divide (``cache_specs``), else a whole copy per
-    shard."""
+    ``model`` where they divide (``cache_specs``), and with
+    ``split_rows`` its slots over ``data`` where that divides; else a
+    whole copy per shard."""
     from ..models.transformer import KVCache
 
-    split = head_layout(cfg, mesh.tp)[1]
-    return KVCache(k=_shard_kv_leaf(cache.k, split, mesh),
-                   v=_shard_kv_leaf(cache.v, split, mesh))
+    heads = head_layout(cfg, mesh.tp)[1]
+    split = split_rows and rows_split(mesh, cache.k.shape[1])
+    return KVCache(k=_kv_shards(cache.k, mesh, heads, split),
+                   v=_kv_shards(cache.v, mesh, heads, split))
 
 
 def shard_pool_cache(cache, mesh: Mesh, cfg: ModelConfig):
@@ -326,6 +363,39 @@ def shard_pool_cache(cache, mesh: Mesh, cfg: ModelConfig):
     ``model`` where they divide (``pool_cache_specs``), every other axis
     whole; each shard's K and V are tensors of their own."""
     return shard_cache(cache, mesh, cfg)
+
+
+def draft_cache_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    """The draft's dense per-slot cache [L2, N, S_alloc, KV2, hd]: KV
+    heads over ``model`` as the target's ``cache_specs``, slots over
+    ``data``; no pipe factor (the draft stack is never pipelined). Where
+    the draft's KV heads do not divide the model axis, ``sanitize_spec``
+    drops it and the cache serves replicated (``draft_kv_fallback``)."""
+    kv = P(None, "data", None, "model", None)
+    return {"k": kv, "v": kv, "lengths": P("data")}
+
+
+def draft_kv_fallback(mesh: Optional[Mesh], cfg: ModelConfig) -> bool:
+    """True when the draft's KV heads do not divide the mesh's ``model``
+    axis: its cache serves replicated, a whole copy per shard."""
+    if (mesh is None or "model" not in mesh.axis_names
+            or mesh.shape["model"] <= 1):
+        return False
+    return cfg.n_kv_heads % mesh.shape["model"] != 0
+
+
+def shard_draft_cache(cache, mesh: Mesh, cfg: ModelConfig):
+    """The draft's dense ``KVCache`` over the mesh per
+    ``draft_cache_specs``: KV heads split where they divide the model
+    axis (the port's whole-heads rule, ``head_layout``), slots over
+    ``data`` where that divides, else replicated. The draft cache is
+    kept in the serving dtype (``KV_QUANT`` applies to the target's)."""
+    return shard_cache(cache, mesh, cfg, split_rows=True)
+
+
+def token_spec() -> Spec:
+    """[B, S] token and position arrays: batch over ``data``."""
+    return P("data", None)
 
 
 def replicate(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:

@@ -8,9 +8,10 @@
 Phases, in order; any failure raises and the script exits non-zero.
 Every model runs at its full width. serve, serve_ckpt and serve_tp run
 every layer of theirs; the phases that PHASE_LAYERS names run fewer
-(Gemma-2B 6 of 18, Gemma-7B 8 of 28, Llama-3-8B 8 of 32 in serve_paged),
-as serve_moe and serve_kvq do (MOE_LAYERS, KVQ_LAYERS), so that the whole
-script stays well inside its 1,200 s:
+(Gemma-2B 6 of 18, Gemma-7B 8 of 28, Llama-3-8B 8 of 32 in serve_paged,
+Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
+(MOE_LAYERS, KVQ_LAYERS), so that the whole script stays well inside its
+1,200 s:
 
 1. build    -- compile every CUDA kernel of the port from the sources in
                ``ai_agent_kubectl_tpu_torch/csrc`` (one nvcc per source,
@@ -78,8 +79,16 @@ script stays well inside its 1,200 s:
                and a prefill span of 64 (page 16), paged pool decode
                (page 64); ragged at Gemma-7B's tp=2 (8 over 8 of 256):
                each shard against its plain version, and the assembled
-               output against the unsharded kernel on the same pool.
-               Each wrapper's launch counter must grow. Group
+               output against the unsharded kernel on the same pool; each
+               geometry's ragged windows include serve_spec_tp's verify
+               window (W = 5, k = 4; Gemma-7B tp=2 is 8 over 8 heads of
+               256 a shard). The dense ladder's kernels on the (data,
+               model) shards of serve_moe_ep (d) (dp=2 x tp=2 of
+               Mixtral, one card): the paged decode kernel on each
+               shard's 4 slots and 16 over 4 heads of 128 (page 64, the
+               shard's own cache through its strided view), and flash on
+               each model shard of a prompt's prefill of 128 (KVLEN
+               128). Each wrapper's launch counter must grow. Group
                admission's scatter (ops/quant.py::kv_set_slots: a
                shallow source, a padding row at the out-of-range slot,
                bf16 and int8 leaves) must equal its CPU result bit for
@@ -529,6 +538,63 @@ script stays well inside its 1,200 s:
                count apart. Printed: peak device memory, tok/s of each
                burst (two shards on one card measure no interconnect:
                no claim).
+15c. serve_spec_tp -- speculative decoding on a tensor-parallel mesh:
+               Gemma-7B (QUANT=int4, which serves int8 on the mesh as in
+               JAX; random weights from seed 0) verifying Gemma-2B's
+               drafts (seed 1) at SPEC_DRAFT_K=4, MESH_SHAPE=tp=2 on two
+               shards of the one card, both models cut by PHASE_LAYERS
+               (Gemma-7B 8 of 28 layers, Gemma-2B 6 of 18, widths
+               untouched) and 32 new tokens, so that the whole script
+               stays inside its time budget. Over HTTP: the serve burst
+               of 8 queries at once, then one request with draft:die
+               armed. Gemma-2B's single KV head does not divide tp=2, so
+               its cache serves replicated (the JAX fallback). Gates:
+               statuses as the service decides (the drill's request
+               too); /health's spec and sharding sections draft_sharded
+               and draft_kv_fallback true, /metrics spec_draft_sharded
+               and spec_draft_kv_fallback 1; drafts made (acceptance
+               printed); the books and the ledger balanced; draft:die
+               fired once and degraded once; the sharded ragged launches
+               in multiples of tp x layers, each shard's kernel inputs
+               tapped during the traffic (a verify window among them)
+               and held against the plain version; one forward step's
+               logits against the unsharded forward (serve_tp's
+               TP_LOGIT_MAX rule); the burst's greedy transcripts equal
+               to the unsharded spec-off engine's on the same target
+               weights or apart first at a near tie.
+15d. serve_moe_ep -- Mixtral-8x7B at full width on expert and data
+               meshes of the one card, MOE_LAYERS (8 of 32) layers: a
+               32-layer int8-expert copy is ~46 GB, and the shards plus
+               the unsharded reference on the same weights would not fit
+               the card's 80 GB. Runs, each from the environment-style
+               config, against the unsharded dense engine on the same
+               weights (random from seed 0): (a) MOE_IMPL=ep on one
+               device (the one-device expert mesh; int4 attention
+               through the int4 kernel, int8 experts); (b) tp=2, dense
+               MoE under tp; (c) ep=2; (d) dp=2,ep=2,tp=2 on eight
+               shards, where the pool falls back to the dense ladder
+               (the paged decode and flash kernels once per shard);
+               (b)-(d) on an int8 tree (QUANT=int4 serves int8 on a
+               multi-device mesh). Two queries each, one at a time, 8
+               new tokens, the system prompt's radix preload off
+               (HBM_PREFIX_CACHE=false: each request prefills its own
+               prompt, and no request inherits a preload's drops). The
+               prefill's capacity (2 k T_local / E) may
+               drop tokens, in JAX too: the phase counts each request's
+               dropped picks from the router's own (a tap on the
+               dispatch; the package has no counter) and gates the
+               transcripts of requests whose prefill dropped nothing
+               (equal, or apart first at a near tie), the first prefill
+               dispatch of each run against dense_moe over its kept
+               tokens (rms within LOGIT_RTOL), the run's kernel launched
+               in multiples of shards x layers, the dispatch run where
+               an expert axis serves it, kv_pool_mesh_fallback 1 in
+               /metrics and true in /health for (d) only, and (d)'s
+               per-shard kernel inputs against the plain versions; at
+               least one transcript gated in the phase. Decode runs at
+               capacity T_local and drops nothing.
+               Printed: each run's seconds, tok/s and drops (shards on
+               one card measure no interconnect: no claim).
 16. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
@@ -537,7 +603,10 @@ script stays well inside its 1,200 s:
                = 40, serve_host (b)'s paged decode and turn-2 prefill on
                Gemma-2B, serve_paged (a)'s group prefill at B = 8 and a
                Gemma-2B group at B = 4 included; one shard's ragged and
-               paged pool decode at Llama-3-8B's tp=2); with --profile,
+               paged pool decode at Llama-3-8B's tp=2; one shard's
+               ragged verify window of Gemma-7B tp=2, dense paged decode
+               of a (data, model) shard of Mixtral and flash on a model
+               shard of its prefill); with --profile,
                also the device time of each kernel a call launches (an
                attention kernel and its split combine).
 
@@ -572,7 +641,8 @@ PACKAGE = "ai_agent_kubectl_tpu_torch"
 PHASES = ("build", "kernel", "serve", "serve_pipe", "serve1", "serve_paged",
           "serve_ckpt", "serve_qos", "serve_moe", "serve_kvq", "serve_obs",
           "serve_chaos", "serve_grammar", "serve_spec", "serve_host",
-          "serve_fleet", "serve_tp", "timing")
+          "serve_fleet", "serve_tp", "serve_spec_tp", "serve_moe_ep",
+          "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -596,6 +666,8 @@ PHASE_LAYERS = {
     "serve_spec": {"gemma-2b-it": 6, "gemma-7b-it": 8},
     "serve_host": {"gemma-2b-it": 6},
     "serve_fleet": {"gemma-2b-it": 6},
+    "serve_spec_tp": {"gemma-2b-it": 6, "gemma-7b-it": 8},
+    "serve_moe_ep": {"mixtral-8x7b-instruct": 8},     # MOE_LAYERS
 }
 #: seconds after which every thread's stack is printed to stderr once, so
 #: that a run stopped at the limit shows where it was
@@ -1346,12 +1418,102 @@ def phase_kernel(torch) -> dict:
     if grew != len(cases):
         raise AssertionError(f"launch counter grew by {grew}, expected "
                              f"{len(cases)}")
-    return {"ragged_attention": {"max_abs_err": worst},
-            **_kernel_sharded(torch, gen),
-            "flash_attention": _kernel_flash(torch, gen),
-            "int4_matmul": _kernel_int4(torch, gen),
-            "kv_set_slots": _kernel_kv_set_slots(torch, gen),
-            **_kernel_paged(torch, gen)}
+    out = {"ragged_attention": {"max_abs_err": worst},
+           **_kernel_sharded(torch, gen),
+           "flash_attention": _kernel_flash(torch, gen),
+           "int4_matmul": _kernel_int4(torch, gen),
+           "kv_set_slots": _kernel_kv_set_slots(torch, gen),
+           **_kernel_paged(torch, gen)}
+    for name, got in _kernel_mesh_shards(torch, gen).items():
+        key = {"paged_decode_attention": "paged_decode_attention",
+               "flash_attention_cached": "flash_attention"}[name]
+        out[key]["mesh_shards"] = got
+        out[key]["max_abs_err"] = max(out[key]["max_abs_err"],
+                                      got["max_abs_err"])
+    return out
+
+
+def _kernel_mesh_shards(torch, gen) -> dict:
+    """The dense ladder's kernels as serve_moe_ep (d) launches them, once
+    per (data, model) shard of Mixtral on the one card: the paged decode
+    kernel on each shard's 4 slots and 16 over 4 heads of 128 (the
+    shard's own [4, S + 1, 4, 128] cache read through its [:, :S] view,
+    page 64), and flash on each model shard's heads of a prompt's
+    prefill of 128 (KVLEN 128); each shard against its plain
+    version, the assembled output against the unsharded kernel, one
+    launch per shard."""
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached, flash_attention_cached_plain)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    H_l, KV_l = LLAMA_HEADS // MESH_TP, LLAMA_KV // MESH_TP
+    positions = [0, 63, 64, 255, 256, 700, 1000, 1087]
+    case = paged_case(torch, gen, page=64, positions=positions,
+                      **LLAMA)["dense"]
+    rows = N_SLOTS // MESH_DP
+    S = case["k"].shape[1]
+    worst = {"paged": 0.0, "flash": 0.0}
+    before = paged_decode_attention.launches
+    blocks = []
+    for d in range(MESH_DP):
+        r = slice(d * rows, (d + 1) * rows)
+        heads = []
+        for m in range(MESH_TP):
+            kv = []
+            for x in (case["k"], case["v"]):
+                own = torch.full((rows, S + 1, KV_l, LLAMA_HD), float("nan"),
+                                 dtype=x.dtype, device=x.device)
+                own[:, :S] = x[r, :, m * KV_l:(m + 1) * KV_l]
+                kv.append(own[:, :S])
+            shard = dict(q=case["q"][r, m * H_l:(m + 1) * H_l].contiguous(),
+                         k=kv[0], v=kv[1],
+                         positions=case["positions"][r].contiguous(),
+                         page_size=64)
+            out = paged_decode_attention(**shard)
+            worst["paged"] = max(worst["paged"], check_close(
+                torch, f"paged mesh shard (data {d}, model {m})", out,
+                paged_decode_attention_plain(**shard)))
+            heads.append(out)
+        blocks.append(torch.cat(heads, dim=1))
+    launched = paged_decode_attention.launches - before
+    if launched != MESH_DP * MESH_TP:
+        raise AssertionError(f"paged mesh shards: {launched} launches for "
+                             f"{MESH_DP * MESH_TP} shards")
+    paged_err = check_close(torch, "paged mesh shards assembled",
+                            torch.cat(blocks), paged_decode_attention(**case))
+    log(f"[kernel] paged dense decode on {MESH_DP}x{MESH_TP} (data, model) "
+        f"shards of Mixtral ({rows} slots, {H_l} over {KV_l} heads of "
+        f"{LLAMA_HD} a shard): max |kernel - plain| = {worst['paged']:.3e}; "
+        f"assembled vs unsharded kernel {paged_err:.3e}")
+    fcase = flash_case(torch, gen, S=128, KVLEN=128, **LLAMA)
+    before = flash_attention_cached.launches
+    heads = []
+    for m in range(MESH_TP):
+        shard = dict(q=fcase["q"][:, :, m * H_l:(m + 1) * H_l].contiguous(),
+                     k=fcase["k"][:, :, m * KV_l:(m + 1) * KV_l].contiguous(),
+                     v=fcase["v"][:, :, m * KV_l:(m + 1) * KV_l].contiguous(),
+                     positions=fcase["positions"])
+        out = flash_attention_cached(**shard)
+        worst["flash"] = max(worst["flash"], check_close(
+            torch, f"flash mesh shard (model {m})", out,
+            flash_attention_cached_plain(**shard)))
+        heads.append(out)
+    launched = flash_attention_cached.launches - before
+    if launched != MESH_TP:
+        raise AssertionError(f"flash mesh shards: {launched} launches for "
+                             f"{MESH_TP} shards")
+    flash_err = check_close(torch, "flash mesh shards assembled",
+                            torch.cat(heads, dim=2),
+                            flash_attention_cached(**fcase))
+    log(f"[kernel] flash prefill (S 128 from 0, KVLEN 128) on {MESH_TP} "
+        f"model shards of Mixtral ({H_l} over {KV_l} heads a shard): max "
+        f"|kernel - plain| = {worst['flash']:.3e}; assembled vs unsharded "
+        f"kernel {flash_err:.3e}")
+    return {"paged_decode_attention": {"max_abs_err": worst["paged"],
+                                       "assembled_vs_unsharded": paged_err},
+            "flash_attention_cached": {"max_abs_err": worst["flash"],
+                                       "assembled_vs_unsharded": flash_err}}
 
 
 #: the sharded wrappers' geometries of phase 2: (label, heads, tp,
@@ -1364,8 +1526,16 @@ TP_KERNEL_GEOMETRIES = (("llama_tp2", "LLAMA", 2, True),
 TP_RAGGED_WINDOWS = (
     ("decode", dict(W=1, positions=[0, 15, 16, 100, 255, 511, 700, 1000],
                     q_lens=[1, 1, 1, 0, 1, 1, 1, 1])),
+    # serve_spec_tp's verify window (k = 4) at mixed positions.
+    ("verify5", dict(W=SPEC_K + 1,
+                     positions=[11, 30, 64, 127, 300, 0, 900, 1017],
+                     q_lens=[SPEC_K + 1] * N_SLOTS)),
     ("prefill64", dict(W=64, positions=[0, 0, 64, 17, 300, 0, 500, 900],
                        q_lens=[64, 40, 64, 1, 64, 0, 33, 64])))
+#: serve_moe_ep (d)'s mesh on the dense ladder: Mixtral over data x model
+#: shards (the expert rows hold the same heads): 8 slots, 4 a data shard,
+#: 16 query heads over 4 KV heads of 128 a model shard
+MESH_DP, MESH_TP = 2, 2
 
 
 def _kernel_sharded(torch, gen) -> dict:
@@ -4938,7 +5108,8 @@ def _timing_int4(torch, gen, profile: bool) -> dict:
 
 def phase_timing(torch, serve_info: dict, paged_info: dict,
                  moe_info: dict, spec_info: dict, host_info: dict,
-                 tp_info: dict, profile: bool = False) -> dict:
+                 tp_info: dict, profile: bool = False,
+                 spec_tp_info: dict = None, moe_ep_info: dict = None) -> dict:
     from ai_agent_kubectl_tpu_torch.ops import paged_attention
     from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
         flash_attention_cached)
@@ -4962,6 +5133,9 @@ def phase_timing(torch, serve_info: dict, paged_info: dict,
            "int4_matmul": _timing_int4(torch, gen, profile),
            **_timing_paged(torch, gen, paged_info, host_info, profile),
            **_timing_sharded(torch, gen, tp_info, profile)}
+    for name, shapes in _timing_mesh(torch, gen, spec_tp_info or {},
+                                     moe_ep_info or {}, profile).items():
+        out[name].update(shapes)
     # Timing launches do not count.
     for fn, n in zip(counted, saved):
         fn.launches = n
@@ -5070,6 +5244,76 @@ def _timing_sharded(torch, gen, tp_info: dict, profile: bool) -> dict:
         "decode": with_bound(entry, *paged_live_work(pcase, True))}
     log_timing(f"paged pool decode, one shard of Llama-3-8B tp=2, page 64, "
                f"at {positions}", entry, "sdpa")
+    return out
+
+
+def _timing_mesh(torch, gen, spec_tp_info: dict, moe_ep_info: dict,
+                 profile: bool) -> dict:
+    """One shard's launch at the shapes serve_spec_tp and serve_moe_ep (d)
+    give the kernels: the ragged verify window (k = 4) of Gemma-7B tp=2
+    (8 over 8 heads of 256) at serve_spec_tp's positions halfway; the
+    dense paged decode at a (data, model) shard of Mixtral (4 slots, 16
+    over 4 heads of 128, page 64) at (d)'s last decode positions; flash
+    at a model shard of Mixtral's prompt prefill of 128 (KVLEN 128). The
+    library call is SDPA over the shard's (gathered)
+    live span; the bound is one shard's work."""
+    import torch.nn.functional as F
+
+    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
+        flash_attention_cached, flash_attention_cached_plain)
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
+        ragged_attention_pool, ragged_attention_pool_plain)
+
+    g7_shard = dict(H=G7_HEADS // TP, KV=G7_HEADS // TP, hd=G7_HD)
+    mix_shard = dict(H=LLAMA_HEADS // MESH_TP, KV=LLAMA_KV // MESH_TP,
+                     hd=LLAMA_HD)
+    positions = (spec_tp_info.get("verify_positions")
+                 or [96, 112, 128, 144, 160, 176, 192, 208])
+    case = ragged_case(torch, gen, W=SPEC_K + 1, positions=positions,
+                       q_lens=[SPEC_K + 1] * len(positions),
+                       nan_block=False, **g7_shard)
+    q, kc, vc, mask = sdpa_inputs(torch, case)
+    entry = timed(
+        torch, lambda: ragged_attention_pool(**case, page_size=PAGE),
+        lambda: ragged_attention_pool_plain(**case, page_size=PAGE),
+        lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask),
+        iters=50, profile=profile)
+    entry["positions"] = positions
+    out = {"ragged_attention_pool_sharded": {
+        "g7_tp2_verify5": with_bound(entry, *ragged_live_work(case))}}
+    log_timing(f"ragged verify window (k = {SPEC_K}), one shard of "
+               f"Gemma-7B tp=2, at {positions}", entry, "sdpa")
+    d_pos = (moe_ep_info.get("runs", {}).get("dp2_ep2_tp2", {})
+             .get("decode_positions") or [100, 101, 102, 103])
+    pcase = paged_case(torch, gen, page=64, positions=d_pos,
+                       **mix_shard)["dense"]
+    q, kc, vc, mask = paged_sdpa_inputs(torch, pcase, False)
+    entry = timed(
+        torch, lambda: paged_decode_attention(**pcase),
+        lambda: paged_decode_attention_plain(**pcase),
+        lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, enable_gqa=True),
+        iters=50, profile=profile)
+    entry["positions"] = d_pos
+    out["paged_decode_attention"] = {
+        "mixtral_dp_tp_shard": with_bound(entry,
+                                          *paged_live_work(pcase, False))}
+    log_timing(f"paged dense decode, one (data, model) shard of Mixtral, "
+               f"at {d_pos}", entry, "sdpa")
+    fcase = flash_case(torch, gen, S=128, KVLEN=128, **mix_shard)
+    q, k, v, mask = flash_sdpa_inputs(torch, fcase)
+    entry = timed(
+        torch, lambda: flash_attention_cached(**fcase),
+        lambda: flash_attention_cached_plain(**fcase),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               enable_gqa=True),
+        iters=20, profile=profile)
+    out["flash_attention"] = {
+        "mixtral_tp_shard_S128": with_bound(entry, *flash_live_work(fcase))}
+    log_timing("flash prefill S 128, one model shard of Mixtral", entry,
+               "sdpa")
     return out
 
 
@@ -5189,6 +5433,8 @@ def kernel_lines(results: dict) -> list:
     fleet = results.get("serve_fleet", {}).get("launches", {})
     pipe = results.get("serve_pipe", {}).get("launches", {})
     tp_runs = results.get("serve_tp", {}).get("runs", {})
+    spec_tp = results.get("serve_spec_tp", {}).get("launches", {})
+    moe_ep = results.get("serve_moe_ep", {}).get("launches", {})
 
     def tp_launches(name):
         counts = [r["launches"].get(name) for r in tp_runs.values()]
@@ -5222,7 +5468,9 @@ def kernel_lines(results: dict) -> list:
                                "serve_host": host.get(name),
                                "serve_fleet": fleet.get(name),
                                "serve_pipe": pipe.get(name),
-                               "serve_tp": tp_launches(name)},
+                               "serve_tp": tp_launches(name),
+                               "serve_spec_tp": spec_tp.get(name),
+                               "serve_moe_ep": moe_ep.get(name)},
             "shapes": shapes,
         }
 
@@ -9090,6 +9338,541 @@ async def _serve_tp(torch) -> dict:
     return info
 
 
+# ------------------------------------------------------- serve_spec_tp
+
+#: speculative decoding on a tp=2 mesh of the one card: serve_spec (a)'s
+#: pair (Gemma-7B verifying Gemma-2B drafts, k = 4) at PHASE_LAYERS' cut,
+#: the target's QUANT=int4 resolving to int8 on the mesh as in JAX
+SPEC_TP_ENV = dict(SPEC_ENV, MESH_SHAPE=f"tp={TP}", MAX_NEW_TOKENS="32")
+#: the request served after the burst, with draft:die armed
+SPEC_TP_DIE_QUERY = "show the events of the failing pods"
+SPEC_TP_FAMILIES = TP_FAMILIES + SPEC_FAMILIES
+
+
+def phase_serve_spec_tp(torch) -> dict:
+    """Phase 15c: speculative decoding on a tp=2 mesh, two shards on one
+    card."""
+    release_served_apps(torch)
+    out = asyncio.run(_serve_spec_tp(torch))
+    release_served_apps(torch)
+    return out
+
+
+async def _serve_spec_tp(torch) -> dict:
+    """Gemma-7B (random int8 weights from seed 0) verifying Gemma-2B's
+    drafts (seed 1) at k = 4 on ``MESH_SHAPE=tp=2`` over HTTP: the serve
+    burst at once, then one request with draft:die armed; against the
+    same target weights unsharded with spec off."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import (
+        BatchedTorchEngine, default_seed)
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.quant import random_params_int8
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+    from ai_agent_kubectl_tpu_torch.testing.faults import FaultInjector
+
+    tag = "serve_spec_tp"
+    mcfg = get_config(SPEC_TP_ENV["MODEL_NAME"])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = random_params_int8(torch.Generator(device="cuda").manual_seed(0),
+                              mcfg, dtype=torch.bfloat16,
+                              quantize_embed=True, device="cuda")
+    port = _free_port()
+    _phase_env(SPEC_TP_ENV, port)
+    cfg = ServiceConfig.from_env()
+    inj = FaultInjector()
+    inner = BatchedTorchEngine.from_config(
+        cfg, faults=inj, devices=[torch.device("cuda", 0)] * TP)
+    inner.params = full
+    engine = RecordingEngine(inner)
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    await runner.setup()                 # starts the engine (warm-up too)
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+    startup_s = time.monotonic() - t0
+    if (inner.mesh is None or inner.mesh.tp != TP or inner.quant != "int8"
+            or inner._attention_regime != "ragged"):
+        raise AssertionError(f"{tag}: mesh {inner.mesh}, quant "
+                             f"{inner.quant}, regime "
+                             f"{inner._attention_regime}")
+    log(f"[{tag}] {cfg.model_name} ({inner.quant} on the mesh; QUANT="
+        f"{cfg.quant} asked) verifying {inner._draft_cfg.name} at k="
+        f"{inner.spec_draft_k} on {TP} shards of one card, up in "
+        f"{startup_s:.1f} s")
+    counters = _launch_counters()
+    tap = _ShardTap(torch)
+    url = f"http://{cfg.host}:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            v0, h0 = inner.verify_steps, inner.spec_health()
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in QUERIES])
+            burst_s = time.monotonic() - t_burst
+            while inner._inflight:       # the pipe drains behind the end
+                await asyncio.sleep(0.005)
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in counters.items()}
+            verify = inner.verify_steps - v0
+            h1 = inner.spec_health()
+            async with http.get(f"{url}/health") as r:
+                health = await r.json()
+            async with http.get(f"{url}/metrics") as r:
+                families = _scrape(await r.text(), SPEC_TP_FAMILIES)
+            inj.set("draft", "die")
+            die = await ask(SPEC_TP_DIE_QUERY)
+            while inner._inflight:
+                await asyncio.sleep(0.005)
+            h2 = inner.spec_health()
+    finally:
+        tap.restore()
+        await runner.cleanup()           # drains and stops the engine
+    by_prompt = dict(engine.results)
+    failures = []
+    if len(by_prompt) != len(QUERIES) + 1:
+        failures.append(f"{len(by_prompt)} results for {len(QUERIES) + 1} "
+                        f"requests")
+    prompts = [render_prompt(q) for q in QUERIES]
+    results = [(p, by_prompt[p]) for p in prompts]
+    for (status, _), q in zip(burst + [die], QUERIES + [SPEC_TP_DIE_QUERY]):
+        res = by_prompt[render_prompt(q)]
+        if status != status_for_text(res.text) or res.completion_tokens <= 0:
+            failures.append(f"HTTP {status} for {res.text!r}")
+    for view in (health.get("spec") or {}, health.get("sharding") or {}):
+        if not (view.get("draft_sharded") is True
+                and view.get("draft_kv_fallback") is True):
+            failures.append(f"/health {view}")
+    want_fam = {"spec_draft_sharded": 1.0, "spec_draft_kv_fallback": 1.0,
+                "mesh_devices": float(TP)}
+    if {k: families.get(k) for k in want_fam} != want_fam:
+        failures.append(f"/metrics {families}")
+    drafted = h1["drafted_tokens_total"] - h0["drafted_tokens_total"]
+    accepted = h1["accepted_tokens_total"] - h0["accepted_tokens_total"]
+    if drafted <= 0 or verify <= 0:
+        failures.append(f"drafted {drafted} over {verify} verify forwards")
+    if (inj.fired("draft") != 1 or h2["degraded_total"] != 1
+            or h2["active"]):
+        failures.append(f"draft:die: fired {inj.fired('draft')}, {h2}")
+    n_layers = mcfg.n_layers
+    n = launches["ragged_attention_pool_sharded"]
+    if n <= 0 or n % (TP * n_layers):
+        failures.append(f"{n} sharded ragged launches")
+    spec_h = _spec_books(tag, inner)
+    checks = tap.check(tag)
+    tap.inputs.clear()
+    windows = sorted({c["q"][0][1] for c in checks
+                      if c["kernel"] == "ragged_attention_pool_sharded"})
+    if SPEC_K + 1 not in windows:
+        failures.append(f"no verify window among the tapped widths "
+                        f"{windows}")
+    # One forward step, sharded against unsharded on the same weights.
+    ids = inner.tokenizer.encode(results[0][0])
+    sharded_logits = _tp_step_logits(torch, inner.params, mcfg, ids,
+                                     inner.mesh)
+    whole_logits = _tp_step_logits(torch, full, mcfg, ids)
+    rms = float(whole_logits.float().pow(2).mean().sqrt())
+    diff = (sharded_logits - whole_logits).float()
+    step = {"tokens": len(ids), "rms": rms,
+            "max_abs_err": float(diff.abs().max()),
+            "rms_err": float(diff.pow(2).mean().sqrt())}
+    if (not torch.isfinite(sharded_logits).all()
+            or step["rms_err"] > LOGIT_RTOL * rms
+            or step["max_abs_err"] > TP_LOGIT_MAX * rms):
+        failures.append(f"one step's logits: {step}")
+    tok = inner.tokenizer
+    inner.params = inner._draft_params = None
+    inner._cache = inner._draft_cache = None
+    del engine, runner, site, inner
+    release_served_apps(torch)
+    # The reference: the same target weights unsharded, spec off, the
+    # burst's prompts one batch at once, as the service sent them.
+    _phase_env({**{k: v for k, v in SPEC_TP_ENV.items()
+                   if k not in ("MESH_SHAPE", "SPEC_DECODE")},
+                "QUANT": "int8"}, _free_port())
+    ref = BatchedTorchEngine.from_config(ServiceConfig.from_env())
+    ref.params, ref.tokenizer = full, tok
+    await ref.start()
+    try:
+        t_ref = time.monotonic()
+        want = await asyncio.gather(*[
+            ref.generate(p, max_tokens=cfg.max_new_tokens,
+                         temperature=cfg.temperature)
+            for p in prompts])
+        ref_s = time.monotonic() - t_ref
+        near = _spec_gate_mismatches(
+            torch, tag, ref,
+            [(tok.encode(p), cfg.temperature, default_seed(p))
+             for p in prompts],
+            [r.token_ids for r in want], [r.token_ids for _, r in results])
+    finally:
+        await ref.stop()
+        ref._cache = None
+    if failures:
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+    n_tok = sum(r.completion_tokens for _, r in results)
+    ref_tok = sum(r.completion_tokens for r in want)
+    peak = torch.cuda.max_memory_allocated() - base
+    del full, ref
+    info = {"startup_s": startup_s, "statuses": [s for s, _ in burst],
+            "die_status": die[0], "burst_s": burst_s,
+            "burst_tok_per_s": n_tok / burst_s,
+            "reference_tok_per_s": ref_tok / ref_s,
+            "drafted": drafted, "accepted": accepted,
+            "acceptance": accepted / drafted, "verify_forwards": verify,
+            "spec": spec_h, "launches": launches, "kernel_checks": checks,
+            "verify_windows": windows, "step_logits": step,
+            "near_tie_mismatches": near, "peak_gb": peak / 1e9,
+            "verify_positions": [r.prompt_tokens + r.completion_tokens // 2
+                                 for _, r in results]}
+    log(f"[{tag}] statuses {info['statuses']} + draft:die {die[0]}; burst "
+        f"{n_tok} tokens in {burst_s:.2f} s ({info['burst_tok_per_s']:.1f} "
+        f"tok/s) against the unsharded spec-off engine's "
+        f"{info['reference_tok_per_s']:.1f} at the engine (two shards on "
+        f"one card measure no interconnect: no claim); acceptance "
+        f"{accepted}/{drafted} = {info['acceptance']:.4f} over {verify} "
+        f"verify forwards; sharded ragged launches "
+        f"{launches['ragged_attention_pool_sharded']} (windows {windows}); "
+        f"one step's logits: rms err {step['rms_err']:.4f}, max "
+        f"{step['max_abs_err']:.4f} (logit rms {rms:.3f}); near ties "
+        f"{len(near)}; peak {peak / 1e9:.1f} GB; {gpu_line()}")
+    return info
+
+
+# -------------------------------------------------------- serve_moe_ep
+
+#: Mixtral on expert and data meshes of the one card (serve_moe's cell,
+#: MOE_LAYERS of its 32 layers): each run against the unsharded dense
+#: engine on the same weights. (a) MOE_IMPL=ep on one device (the
+#: one-device expert mesh, int4 attention); (b) tp=2, dense MoE under tp;
+#: (c) ep=2; (d) dp=2,ep=2,tp=2 on eight shards, where the pool falls back
+#: to the dense ladder. QUANT=int4 serves int8 on (b)-(d), as in JAX.
+#: The system prompt's radix preload is off (HBM_PREFIX_CACHE=false): its
+#: window would run at prefill capacity and may drop tokens, and every
+#: request would inherit that KV; so each request prefills its own prompt.
+MOE_EP_ENV = dict(SERVE_MOE_ENV, MAX_NEW_TOKENS="8",
+                  HBM_PREFIX_CACHE="false")
+MOE_EP_RUNS = {"ep1": {"MOE_IMPL": "ep"}, "tp2": {"MESH_SHAPE": "tp=2"},
+               "ep2": {"MESH_SHAPE": "ep=2"},
+               "dp2_ep2_tp2": {"MESH_SHAPE": "dp=2,ep=2,tp=2"}}
+#: (run, shards, whether the dispatch serves the MoE, the kernel each
+#: forward launches once per shard and layer)
+MOE_EP_KERNELS = {"ep1": (1, True, "ragged_attention_pool"),
+                  "tp2": (2, False, "ragged_attention_pool_sharded"),
+                  "ep2": (2, True, "ragged_attention_pool_sharded"),
+                  "dp2_ep2_tp2": (8, True, "paged_decode_attention")}
+#: the requests each engine serves, one at a time, greedy (two, of 8 new
+#: tokens: the phase's six engines must keep the script inside its time
+#: budget on a slow host)
+MOE_EP_QUERIES = QUERIES[:2]
+
+
+class _DropTap:
+    """The forward's expert-parallel dispatch, wrapped where the model
+    calls it: every call's routing is taken again from the router's picks
+    per expert shard (``parallel/moe.py::ep_routes``, the capacity the
+    call gets) and the live tokens' dropped picks are counted on the
+    card; the first prefill call's input, mask, output and dropped tokens
+    are kept for the dense check. The package has no drop counter (nor
+    has JAX)."""
+
+    def __init__(self, torch):
+        from ai_agent_kubectl_tpu_torch.models import transformer
+
+        self.torch, self.module = torch, transformer
+        self.real = transformer.expert_parallel_moe
+        self.calls = 0
+        self.dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.captured = None
+        transformer.expert_parallel_moe = self._call
+
+    def _call(self, cfg, lps, xs, mesh, *, capacity=None, token_mask=None,
+              **kw):
+        from ai_agent_kubectl_tpu_torch.parallel.moe import (
+            default_capacity, ep_routes)
+
+        torch = self.torch
+        B, S, D = xs[0].shape
+        T, ep = B * S, mesh.shape["expert"]
+        T_l = T // ep if T % ep == 0 else T
+        C = capacity or default_capacity(cfg, T_l)
+        mask = (torch.ones((T,), device=xs[0].device) if token_mask is None
+                else token_mask.reshape(T).float().to(xs[0].device))
+        lost = []
+        for e, i in enumerate(mesh.groups("expert")[0]):
+            rows = slice(e * T_l, (e + 1) * T_l)
+            slot, _ = ep_routes(cfg, lps[i]["router"],
+                                xs[i].reshape(T, D)[rows], mask[rows], C)
+            lost.append(((slot == cfg.n_experts * C)
+                         & (mask[rows] > 0)[:, None]).any(dim=1))
+        lost = torch.cat(lost)
+        self.dropped += lost.sum()
+        self.calls += 1
+        out = self.real(cfg, lps, xs, mesh, capacity=capacity,
+                        token_mask=token_mask, **kw)
+        if self.captured is None and S > 1:
+            self.captured = {"x": xs[0].clone(), "mask": mask.clone(),
+                             "out": out[0].clone(), "lost": lost.clone(),
+                             "router": lps[0]["router"].clone()}
+        return out
+
+    def read(self) -> int:
+        return int(self.dropped)
+
+    def restore(self) -> None:
+        self.module.expert_parallel_moe = self.real
+
+
+def phase_serve_moe_ep(torch) -> dict:
+    """Phase 15d: Mixtral on expert and data meshes of one card."""
+    release_served_apps(torch)
+    try:
+        return asyncio.run(_serve_moe_ep(torch))
+    finally:
+        release_served_apps(torch)
+
+
+async def _serve_moe_ep(torch) -> dict:
+    """Two random trees from seed 0 in turn: int4 attention with int8
+    experts for (a), int8 throughout for (b)-(d) (the mesh serves int8);
+    each serves the unsharded dense reference engine first, then its
+    runs; transcripts gated where no prefill dropped a token, the first
+    prefill dispatch of each run against ``dense_moe`` on its kept
+    tokens."""
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.ops.quant import random_params_int8
+
+    tag = "serve_moe_ep"
+    mcfg = get_config(MOE_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs, refs = {}, {}
+    for quant, names in (("int4", ("ep1",)),
+                         ("int8", ("tp2", "ep2", "dp2_ep2_tp2"))):
+        t0 = time.monotonic()
+        tree = random_params_int8(
+            torch.Generator(device="cuda").manual_seed(0), mcfg,
+            dtype=torch.bfloat16, quantize_embed=True,
+            int4=quant == "int4", device="cuda")
+        torch.cuda.synchronize()
+        log(f"[{tag}] {mcfg.name}, {mcfg.n_layers} layers: random "
+            f"{quant} tree drawn in {time.monotonic() - t0:.2f} s")
+        ref = refs[quant] = await _moe_ep_run(torch, f"dense_{quant}",
+                                              {"QUANT": quant}, tree, mcfg)
+        for name in names:
+            runs[name] = await _moe_ep_run(torch, name, MOE_EP_RUNS[name],
+                                           tree, mcfg)
+            _moe_ep_gate(torch, name, runs[name], ref, tree, mcfg)
+        ref.pop("engine")
+    if not any(r["gated"] for r in runs.values()):
+        raise AssertionError(f"{tag}: every request dropped a token: no "
+                             f"transcript gated")
+        del tree
+        release_served_apps(torch)
+    peak = torch.cuda.max_memory_allocated() - base
+    info = {"runs": {k: {kk: vv for kk, vv in v.items()
+                         if kk not in ("ids", "engine", "prompts")}
+                     for k, v in runs.items()},
+            "references": {k: {kk: vv for kk, vv in v.items()
+                               if kk not in ("ids", "prompts")}
+                           for k, v in refs.items()},
+            "peak_gb": peak / 1e9,
+            "launches": {n: sum(r["launches"][n] for r in runs.values())
+                         for n in _launch_counters()}}
+    log(f"[{tag}] " + "; ".join(
+        f"{k}: {v['seconds']:.1f} s, {v['tok_per_s']:.1f} tok/s, drops "
+        f"{v['drops']} (startup {v['startup_drops']}), gated "
+        f"{v['gated']} of {len(MOE_EP_QUERIES)}"
+        for k, v in info["runs"].items())
+        + f"; the dense references " + ", ".join(
+            f"{k} {v['tok_per_s']:.1f} tok/s" for k, v in refs.items())
+        + f" (shards on one card measure no interconnect: no claim); "
+        f"peak {peak / 1e9:.1f} GB; {gpu_line()}")
+    return info
+
+
+async def _moe_ep_run(torch, name: str, env: dict, params, mcfg) -> dict:
+    """One engine from the environment-style config (the mesh's devices
+    on the one card) on ``params``, served over HTTP's app, the requests
+    sent to it one at a time (greedy), each one's dropped tokens counted
+    on its own; /health's sharding section and /metrics read after."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.parallel.mesh import MeshConfig
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+
+    tag = f"serve_moe_ep/{name}"
+    port = _free_port()
+    _phase_env(dict(MOE_EP_ENV, **env), port)
+    cfg = ServiceConfig.from_env()
+    n = MeshConfig.parse(cfg.mesh_shape).n_devices
+    inner = BatchedTorchEngine.from_config(
+        cfg, devices=[torch.device("cuda", 0)] * n if n > 1 else None)
+    inner.params = params
+    reference = not env.get("MESH_SHAPE") and not env.get("MOE_IMPL")
+    drops = None if reference else _DropTap(torch)
+    shards = _ShardTap(torch) if name == "dp2_ep2_tp2" else None
+    runner = web.AppRunner(create_app(cfg, inner), access_log=None)
+    t0 = time.monotonic()
+    try:
+        await runner.setup()             # starts the engine (warm-up too)
+        site = web.TCPSite(runner, cfg.host, cfg.port)
+        await site.start()
+        startup_s = time.monotonic() - t0
+        out = {"startup_s": startup_s, "regime": inner._attention_regime,
+               "quant": inner.quant,
+               "startup_drops": drops.read() if drops else 0}
+        counters = _launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        prompts = [render_prompt(q) for q in MOE_EP_QUERIES]
+        ids, per_request = [], []
+        t_run = time.monotonic()
+        for p in prompts:
+            d0 = drops.read() if drops else 0
+            res = await inner.generate(p, max_tokens=int(
+                MOE_EP_ENV["MAX_NEW_TOKENS"]), temperature=0.0)
+            ids.append(res.token_ids)
+            per_request.append((drops.read() if drops else 0) - d0)
+        seconds = time.monotonic() - t_run
+        while inner._inflight:
+            await asyncio.sleep(0.005)
+        torch.cuda.synchronize()
+        out.update(seconds=seconds, ids=ids, prompts=prompts,
+                   tok_per_s=sum(len(i) for i in ids) / seconds,
+                   drops=per_request,
+                   launches={k: fn.launches for k, fn in counters.items()},
+                   dispatches=drops.calls if drops else 0,
+                   forward_steps=inner.forward_steps)
+        if inner.kv_pool:
+            check_pool_books(inner)
+        url = f"http://{cfg.host}:{port}"
+        async with aiohttp.ClientSession() as http:
+            async with http.get(f"{url}/health") as r:
+                out["sharding"] = (await r.json()).get("sharding")
+            async with http.get(f"{url}/metrics") as r:
+                out["metrics"] = _scrape(await r.text(), TP_FAMILIES)
+    finally:
+        if drops:
+            drops.restore()
+        if shards:
+            shards.restore()
+        await runner.cleanup()           # stops the engine
+    if drops:
+        out["captured"] = drops.captured
+    if shards:
+        # The last request's last decode step, on its data group's shard
+        # (the requests come one at a time: the group's other slots idle).
+        out["decode_positions"] = (
+            [res.prompt_tokens + res.completion_tokens - 1]
+            + [0] * (N_SLOTS // MESH_DP - 1))
+        out["kernel_checks"] = shards.check(tag)
+        shards.inputs.clear()
+    log(f"[{tag}] {cfg.model_name} {cfg.mesh_shape or 'one device'} "
+        f"(MOE_IMPL={cfg.moe_impl}, {inner.quant}): up in {startup_s:.1f} "
+        f"s, regime {inner._attention_regime}; {len(ids)} requests in "
+        f"{seconds:.2f} s; drops per request {per_request} (startup "
+        f"{out['startup_drops']}); launches "
+        f"{ {k: v for k, v in out['launches'].items() if v} }")
+    if reference:
+        out["engine"] = inner            # its params: the near-tie forward
+    inner._cache = None
+    if not reference:
+        inner.params = None
+    release_served_apps(torch)
+    return out
+
+
+def _moe_ep_gate(torch, name: str, run: dict, ref: dict, params,
+                 mcfg) -> None:
+    """One run's gates: its kernel launched once per shard and layer of
+    each forward, the dispatch where it serves, the fallback flags, the
+    transcripts of requests none of whose prefill dropped a token equal
+    to the dense reference's or apart first at a near tie, and the first
+    prefill dispatch within LOGIT_RTOL of ``dense_moe`` over the tokens
+    it kept."""
+    from ai_agent_kubectl_tpu_torch.parallel.moe import dense_moe
+
+    tag = f"serve_moe_ep/{name}"
+    n, ep, kernel = MOE_EP_KERNELS[name]
+    failures = []
+    launched = run["launches"][kernel]
+    if launched <= 0 or launched % (n * mcfg.n_layers):
+        failures.append(f"{launched} {kernel} launches on {n} shards")
+    if name == "ep1" and run["launches"]["qmatmul4"] <= 0:
+        failures.append("no int4 launch on the one-device expert mesh")
+    if name == "dp2_ep2_tp2":
+        f = run["launches"]["flash_attention_cached"]
+        if f <= 0 or f % (n * mcfg.n_layers):
+            failures.append(f"{f} flash launches on {n} shards")
+    if (run["dispatches"] > 0) is not ep:
+        failures.append(f"{run['dispatches']} dispatches")
+    fallback = name == "dp2_ep2_tp2"
+    sh = run["sharding"] or {}
+    if (sh.get("devices") != n
+            or sh.get("kv_pool_mesh_fallback") is not fallback
+            or sh.get("pool_sharded") is fallback
+            or run["metrics"].get("kv_pool_mesh_fallback")
+            != (1.0 if fallback else 0.0)):
+        failures.append(f"/health {sh}, /metrics {run['metrics']}")
+    engine = ref["engine"]
+    gated = [i for i, d in enumerate(run["drops"])
+             if d == 0 and run["startup_drops"] == 0]
+    run["gated"] = len(gated)
+    try:
+        run["near_tie_mismatches"] = _spec_gate_mismatches(
+            torch, tag, engine,
+            [(engine.tokenizer.encode(run["prompts"][i]), 0.0, 0)
+             for i in gated],
+            [ref["ids"][i] for i in gated], [run["ids"][i] for i in gated])
+    except AssertionError as e:
+        failures.append(str(e))
+    cap = run.pop("captured", None)
+    if ep and cap is None:
+        failures.append("no prefill dispatch captured")
+    if cap is not None:
+        routers = params["layers"]["router"]
+        li = next(i for i in range(mcfg.n_layers)
+                  if torch.equal(routers[i], cap["router"]))
+        lp = {k: params["layers"][k][li] for k in ("router", "w_gate",
+                                                   "w_up", "w_down")}
+        with torch.no_grad():
+            want = dense_moe(mcfg, lp, cap["x"]).reshape(-1, mcfg.dim)
+        got = cap["out"].reshape(-1, mcfg.dim)
+        kept = (cap["mask"] > 0) & ~cap["lost"]
+        diff = (got[kept] - want[kept]).float()
+        rms = float(want[kept].float().pow(2).mean().sqrt())
+        err = float(diff.pow(2).mean().sqrt())
+        run["dispatch_check"] = {
+            "layer": li, "tokens": int(kept.sum()),
+            "dropped_tokens": int(cap["lost"].sum()), "rms_err": err,
+            "rms": rms, "max_abs_err": float(diff.abs().max())}
+        if not int(kept.sum()) or err > LOGIT_RTOL * rms:
+            failures.append(f"dispatch vs dense_moe {run['dispatch_check']}")
+    if failures:
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+    log(f"[{tag}] gated {len(gated)} of {len(run['drops'])} transcripts "
+        f"(near ties {len(run['near_tie_mismatches'])}); dispatch check "
+        f"{run.get('dispatch_check')}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -9156,10 +9939,13 @@ def main() -> int:
     run("serve_host", phase_serve_host, torch)
     run("serve_fleet", phase_serve_fleet, torch, results.get("serve", {}))
     run("serve_tp", phase_serve_tp, torch)
+    run("serve_spec_tp", phase_serve_spec_tp, torch)
+    run("serve_moe_ep", phase_serve_moe_ep, torch)
     run("timing", phase_timing, torch, results.get("serve", {}),
         results.get("serve_paged", {}), results.get("serve_moe", {}),
         results.get("serve_spec", {}), results.get("serve_host", {}),
-        results.get("serve_tp", {}), args.profile)
+        results.get("serve_tp", {}), args.profile,
+        results.get("serve_spec_tp", {}), results.get("serve_moe_ep", {}))
     faulthandler.cancel_dump_traceback_later()
     log(f"[done] phases {phases} in {time.monotonic() - t_all:.1f} s")
 

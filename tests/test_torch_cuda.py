@@ -1483,3 +1483,118 @@ def test_sharded_pool_kernels_launch_per_shard(card, geometry):
     _close(torch.cat(shards, dim=1),
            tpa.paged_decode_attention_pool(q1, k, v, pos, tables,
                                            page_size=page))
+
+
+@pytest.mark.parametrize("axes", [dict(expert=2), dict(expert=2, model=2)],
+                         ids=["ep2", "ep2_tp2"])
+def test_expert_parallel_moe_on_the_card_matches_the_cpu(card, axes):
+    """toy-moe's dispatch, float32, over shards of one card and of the
+    CPU from the same weights: each shard's output within 1e-4 (float32
+    GEMMs of another summation order), and every token kept (decode's
+    capacity of every local token)."""
+    from ai_agent_kubectl_tpu_torch.models import transformer as tt
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.parallel import moe
+    from ai_agent_kubectl_tpu_torch.parallel.mesh import (MeshConfig,
+                                                          build_mesh)
+    from ai_agent_kubectl_tpu_torch.parallel.sharding import shard_params
+
+    cfg = get_config("toy-moe")
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
+                            dtype=torch.float32)
+    x = torch.randn((4, 1, cfg.dim), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", card):
+        mesh = build_mesh(MeshConfig(**axes),
+                          [dev] * MeshConfig(**axes).n_devices)
+        lps = [{k: t["layers"][k][0] for k in ("router", "w_gate", "w_up",
+                                                "w_down")}
+               for t in shard_params(params, mesh, cfg)]
+        out[str(dev)] = moe.expert_parallel_moe(
+            cfg, lps, [x.to(dev)] * mesh.size, mesh, capacity=2)
+    torch.cuda.synchronize()
+    for got, want in zip(out[str(card)], out["cpu"]):
+        assert torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    assert torch.allclose(out["cpu"][0], moe.dense_moe(cfg, lp, x),
+                          atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("spec,n", [("dp=2,ep=2,tp=2", 8), ("ep=2", 2)])
+def test_toy_moe_mesh_engine_on_the_card_equals_the_cpus(card, spec, n):
+    """toy-moe through ``BatchedTorchEngine`` on a mesh of shards of one
+    card (float32, so the pool serves its gather path: the ragged kernel
+    reads bf16): the dense ladder under the data axis (the pool's
+    fallback), or the pool on an expert mesh; greedy transcripts equal
+    to the same mesh's on the CPU, the fallback flagged."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models import transformer as tt
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    cfg = get_config("toy-moe")
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
+                            dtype=torch.float32)
+    prompts = ["list pods", "get nodes -o wide", "describe deployment web"]
+
+    async def run(dev):
+        eng = BatchedTorchEngine(
+            cfg, tokenizer=ByteTokenizer(), params=params, device=dev,
+            dtype="float32", max_seq_len=128, prefill_buckets=(32, 64),
+            batch_size=4, chunk_len=4, prefix_cache=False,
+            ragged_attention="off", mesh_shape=spec, devices=[dev] * n)
+        await eng.start()
+        try:
+            res = await asyncio.gather(*[
+                eng.generate(p, max_tokens=12, temperature=0.0)
+                for p in prompts])
+            return [r.text for r in res], eng.sharding_health()
+        finally:
+            await eng.stop()
+
+    got, health = asyncio.run(run("cuda"))
+    want, _ = asyncio.run(run("cpu"))
+    assert got == want
+    assert health["kv_pool_mesh_fallback"] is spec.startswith("dp")
+
+
+def test_spec_on_tp2_on_the_card_equals_spec_off(card):
+    """Speculative decoding on a tp=2 mesh of one card (toy-8m, float32,
+    the draft toy-8m from the target's seed, k=2; float32 serves the
+    pool's gather path, the ragged kernel reading bf16): the draft
+    sharded, proposals accepted, and the greedy transcripts equal to
+    spec off on one device. serve_spec_tp in ``chip_smoke.py`` drives
+    the sharded ragged kernel in bf16."""
+    import asyncio
+
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import ByteTokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    prompts = [f"pod q{i} " for i in range(4)]
+    kw = dict(tokenizer=ByteTokenizer(), device="cuda", dtype="float32",
+              max_seq_len=128, prefill_buckets=(16, 32), batch_size=4,
+              chunk_len=4, prefix_cache=False, ragged_attention="off")
+
+    async def run(**extra):
+        eng = BatchedTorchEngine(get_config("toy-8m"), **kw, **extra)
+        await eng.start()
+        try:
+            res = await asyncio.gather(*[
+                eng.generate(p, max_tokens=24, temperature=0.0)
+                for p in prompts])
+            return eng, [r.text for r in res]
+        finally:
+            await eng.stop()
+
+    on, got = asyncio.run(run(
+        spec_decode=True, spec_draft_k=2, spec_draft_model="toy-8m",
+        spec_draft_seed=0, mesh_shape="tp=2", devices=[card] * 2))
+    _, want = asyncio.run(run())
+    h = on.spec_health()
+    assert h["draft_sharded"] is True and h["draft_kv_fallback"] is False
+    assert h["accepted_tokens_total"] > 0
+    assert len(on._draft_cache.k.shards) == 2
+    assert got == want

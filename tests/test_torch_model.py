@@ -244,10 +244,11 @@ def test_decode_regimes_match_jax(layout, impl):
 
 
 def test_forward_refuses_later_slices():
-    """The ring path (either layout) and an MoE model on a mesh wait for
-    later slices; paged decode, the pool's gather path, an MoE model
-    (toy-moe from the port's own init, through both layouts) and a dense
-    model on a ``model`` mesh are served."""
+    """The ring path (either layout) waits for a later slice; paged
+    decode, the pool's gather path, an MoE model (toy-moe from the
+    port's own init, through both layouts, and on a ``model`` mesh,
+    where it equals the unsharded forward) and a dense model on a
+    ``model`` mesh are served."""
     _, tcfg = _configs("toy-8m")
     params = tt.init_params(torch.Generator().manual_seed(0), tcfg,
                             dtype=torch.float32)
@@ -270,8 +271,13 @@ def test_forward_refuses_later_slices():
     moe_cfg = tconfig.get_config("toy-moe")
     moe = tt.init_params(torch.Generator().manual_seed(0), moe_cfg,
                          dtype=torch.float32)
-    with pytest.raises(ValueError, match="mixture-of-experts.*A8"):
-        tt.forward(moe, moe_cfg, tok, tok, dense, mesh=mesh)
+    whole, _ = tt.forward(moe, moe_cfg, tok, tok, tt.KVCache.zeros(
+        moe_cfg, 1, 16, dtype=torch.float32), mesh=None)
+    split, _ = tt.forward(
+        shard_params(moe, mesh, moe_cfg), moe_cfg, tok, tok,
+        tt.KVCache.zeros(moe_cfg, 1, 16, dtype=torch.float32, mesh=mesh),
+        mesh=mesh)
+    torch.testing.assert_close(split, whole, atol=1e-5, rtol=1e-5)
     E, D, F_ = moe_cfg.n_experts, moe_cfg.dim, moe_cfg.mlp_hidden
     assert moe["layers"]["router"].shape == (2, D, E)
     assert moe["layers"]["w_gate"].shape == (2, E, D, F_)

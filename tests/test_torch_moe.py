@@ -21,8 +21,9 @@ weights (and, quantized, the same bytes).
   ``RAGGED_ATTENTION=off``, ``KV_POOL=false``) and ``TorchEngine``,
   under ``QUANT`` "" and "int4", byte-identical to the JAX engines';
   seeded temperature-0.9 transcripts equal too.
-- ``MOE_IMPL``: auto and dense read, ep refused at boot and in the
-  forward.
+- ``MOE_IMPL``: auto, dense and ep read (ep builds the one-device
+  expert mesh in the engine); ep without a mesh refused in the forward
+  with the JAX message.
 """
 
 import asyncio
@@ -429,13 +430,19 @@ def test_moe_impl_is_read(monkeypatch, value):
 
 
 def test_moe_impl_ep_refused_at_boot(monkeypatch):
+    """``MOE_IMPL=ep`` now boots: the engine builds the JAX engine's
+    one-device expert mesh for an MoE model (served in
+    ``tests/test_torch_mesh_serving.py``); a bad value is still
+    refused."""
     monkeypatch.setenv("MOE_IMPL", "ep")
-    with pytest.raises(ValueError, match="MOE_IMPL=ep .*needs a mesh"):
-        ServiceConfig.from_env()
+    assert ServiceConfig.from_env().moe_impl == "ep"
     with pytest.raises(ValueError, match="MOE_IMPL must be"):
         ServiceConfig(moe_impl="expert")
-    with pytest.raises(ValueError, match="MOE_IMPL=ep needs a mesh"):
-        TorchEngine(TCFG, moe_impl="ep", device="cpu")
+    eng = TorchEngine(TCFG, moe_impl="ep", device="cpu")
+    eng._setup_mesh()
+    assert eng.mesh.size == 1 and eng.mesh.shape["expert"] == 1
     # A dense model ignores the knob, as in the JAX engine.
-    assert TorchEngine(tconfig.get_config("toy-8m"), moe_impl="ep",
-                       device="cpu").moe_impl == "ep"
+    dense = TorchEngine(tconfig.get_config("toy-8m"), moe_impl="ep",
+                        device="cpu")
+    dense._setup_mesh()
+    assert dense.moe_impl == "ep" and dense.mesh is None

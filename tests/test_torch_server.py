@@ -137,15 +137,14 @@ async def test_server_with_batched_engine_on_cpu():
 
 
 async def test_degraded_engine_answers_503():
-    """An engine that cannot be built (here: an MoE model under
-    MOE_IMPL=ep, which needs an expert mesh the port does not build)
-    leaves the server up but degraded: it answers 503 and its log says
-    why."""
+    """An engine that cannot be built (here: a model the registry does
+    not know) leaves the server up but degraded: it answers 503 and its
+    log says why."""
     cfg = ServiceConfig(torch_device="cpu", decode_batch_size=1,
-                        model_name="toy-moe", moe_impl="ep")
+                        model_name="no-such-model")
     engine = build_engine(cfg)
     assert isinstance(engine, DegradedEngine)
-    assert "MOE_IMPL=ep needs a mesh" in engine.reason
+    assert "Unknown model 'no-such-model'" in engine.reason
     app = create_app(cfg, engine)
     async with TestClient(TestServer(app)) as client:
         r = await client.get("/health")
@@ -223,9 +222,10 @@ def test_config_defaults_match_the_jax_package():
 
 
 #: every knob of UNSERVED_KNOBS with a value that asks for the feature,
-#: and MESH_SHAPE with an axis the port does not serve (it serves tp=N)
+#: and MESH_SHAPE with an axis the port does not serve (it serves
+#: dp/ep/tp)
 REFUSED = [
-    ("MESH_SHAPE", "dp=2"), ("DCN_MESH_SHAPE", "data:2"),
+    ("MESH_SHAPE", "pp=2"), ("DCN_MESH_SHAPE", "data:2"),
     ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
     ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
 ]

@@ -29,9 +29,10 @@ each shard's tensors its own. Everything is float32.
 - ``/health``'s ``sharding`` section and the five mesh families of
   ``/metrics`` against the JAX app's; every family of the JAX app's
   ``/metrics`` in the port's.
-- The refusals: data/expert/pipe/seq axes, speculative decoding or an
-  MoE model on a mesh, too many devices from the environment, and
-  ``QUANT=int4`` resolving to int8.
+- The refusals: pipe and seq axes, too many devices from the
+  environment, and ``QUANT=int4`` resolving to int8; speculative
+  decoding and an MoE model on a mesh boot (served in
+  ``tests/test_torch_spec_tp.py`` and ``test_torch_mesh_serving.py``).
 
 Each JAX engine is built once per module.
 """
@@ -262,7 +263,8 @@ def test_spec_trees_match_jax(name):
 
 MESHES = [dict(model=1), dict(model=2), dict(model=4), dict(model=8),
           dict(data=2, model=2), dict(data=2, model=4),
-          dict(pipe=2, model=2), dict(expert=2, model=2), dict(data=4)]
+          dict(pipe=2, model=2), dict(expert=2, model=2), dict(data=4),
+          dict(data=2, expert=2, model=2)]
 SHAPES = [(4, 1, 256), (8, 1, 2048), (3, 1, 256), (1, 8, 256),
           (1, 7, 256), (2, 8, 256), (6, 4, 4096), (1, 1, 256)]
 VOCABS = [512, 511, 32000, 128256, 256000]
@@ -717,11 +719,15 @@ def init_toy_params():
 
 # ---------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("spec,axis", [("dp=2", "data"), ("ep=2", "expert"),
+@pytest.mark.parametrize("spec,axis", [("dp=2,pp=2", "pipe"),
+                                       ("ep=2,sp=2", "seq"),
                                        ("pp=2,tp=2", "pipe"),
                                        ("sp=2", "seq")])
 def test_non_model_axes_are_refused_at_boot_naming_a8(monkeypatch, spec,
                                                       axis):
+    """The pipe and seq axes wait for A8's later parts, beside any served
+    axis (data, expert and model serve:
+    ``tests/test_torch_mesh_serving.py``)."""
     monkeypatch.setenv("MESH_SHAPE", spec)
     with pytest.raises(ValueError, match=f"the {axis} axis .*A8"):
         ServiceConfig.from_env()
@@ -731,28 +737,31 @@ def test_non_model_axes_are_refused_at_boot_naming_a8(monkeypatch, spec,
 
 
 def test_spec_decode_and_moe_on_a_mesh_are_refused(monkeypatch):
+    """No longer refused: speculative decoding and an MoE model on a tp
+    mesh boot from the environment as in the JAX package, and the
+    engines set their meshes up (served in
+    ``tests/test_torch_spec_tp.py`` and ``test_torch_mesh_serving.py``)."""
     monkeypatch.setenv("MESH_SHAPE", "tp=2")
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
     assert ServiceConfig.from_env().mesh_shape == "tp=2"
     assert JaxServiceConfig.from_env().mesh_shape == "tp=2"
     monkeypatch.setenv("SPEC_DECODE", "true")
     monkeypatch.setenv("SPEC_DRAFT_MODEL", "toy-8m")
-    with pytest.raises(ValueError, match="SPEC_DECODE with MESH_SHAPE.*A8"):
-        ServiceConfig.from_env()
+    assert ServiceConfig.from_env().spec_decode
+    assert JaxServiceConfig.from_env().spec_decode
     monkeypatch.delenv("SPEC_DECODE")
     monkeypatch.setenv("MODEL_NAME", "toy-moe")
-    with pytest.raises(ValueError, match="mixture-of-experts.*A8"):
-        ServiceConfig.from_env()
+    assert ServiceConfig.from_env().model_name == "toy-moe"
     eng = TorchEngine(get_config("toy-moe"), tokenizer=ByteTokenizer(),
                       device="cpu", mesh_shape="tp=2", devices=CPU2)
-    with pytest.raises(ValueError, match="mixture-of-experts.*A8"):
-        eng._setup_mesh()
+    eng._setup_mesh()
+    assert eng.mesh.tp == 2
     spec = BatchedTorchEngine(get_config("toy-8m"),
                               tokenizer=ByteTokenizer(), device="cpu",
                               mesh_shape="tp=2", devices=CPU2,
                               spec_decode=True, spec_draft_model="toy-8m")
-    with pytest.raises(ValueError, match="SPEC_DECODE on a mesh.*A8"):
-        spec._start_blocking()
+    spec._setup_mesh()
+    assert spec.mesh.tp == 2
 
 
 def test_too_many_devices_fails_fast_as_the_jax_engine(monkeypatch):
