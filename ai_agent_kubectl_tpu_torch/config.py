@@ -55,7 +55,9 @@ termination, and the batched engine refuses a depth below 1. Group
 admission's scratch budget (``ADMIT_SCRATCH_MB``, default 512, 0 =
 uncapped) is read with the JAX parsing; it caps the group sizes of the
 batched engine on the dense KV ladder (``KV_POOL=false``), and the pool
-has no scratch to cap.
+has no scratch to cap. ``MESH_SHAPE`` serves every axis (dp/ep/pp/sp/tp;
+the engines check a pipe axis against the layers); the DCN and
+distributed knobs are refused naming ROADMAP.md A8.
 """
 
 from __future__ import annotations
@@ -71,30 +73,14 @@ from .obs.slo import parse_slo_windows
 from .obs.steptime import load_baselines
 
 
-#: JAX-package knobs whose features wait for a later slice (ROADMAP.md,
-#: queue A), each with the value the port serves: its "off" default.
+#: JAX-package knobs whose features wait for a later slice (ROADMAP.md
+#: A8: DCN and distributed init), each with the value the port serves:
+#: its "off" default.
 UNSERVED_KNOBS = {
     # more than one host, or processes joined by torch.distributed (A8)
     "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
     "COORDINATOR_ADDRESS": "", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
 }
-
-
-def _mesh_device_count(spec: str) -> int:
-    """Device count a MESH_SHAPE spec asks for (product of its axis
-    sizes; 1 for empty): the JAX config's mirror of
-    ``parallel/mesh.py::MeshConfig.parse``'s arithmetic, which config
-    validation reads without building a mesh. Malformed axis names are
-    the engine's error to raise, so unknown parts simply count their
-    integer value."""
-    total = 1
-    for part in filter(None, (p.strip() for p in (spec or "").split(","))):
-        _, _, val = part.replace(":", "=").partition("=")
-        try:
-            total *= max(1, int(val))
-        except ValueError:
-            continue
-    return total
 
 
 #: ``parallel/mesh.py::MeshConfig.parse``'s alias map, for validation.
@@ -105,10 +91,6 @@ _MESH_AXIS_ALIASES = {
     "sp": "seq", "seq": "seq",
     "tp": "model", "model": "model",
 }
-
-#: axes the port does not serve yet (ROADMAP.md A8): data, expert and
-#: model are served.
-_UNSERVED_MESH_AXES = frozenset({"pipe", "seq"})
 
 
 def _mesh_axes_over_one(spec: str) -> set:
@@ -222,8 +204,8 @@ class ServiceConfig:
     # "fake" answers from the rule table (engine/fake.py, no model).
     engine: str = "torch"
     torch_device: str = "cuda"              # TORCH_DEVICE: cuda | cpu
-    # Serving on a mesh: "dp=2,ep=2,tp=2" style (or "data:2,..."), the
-    # data, expert and model axes; pipe and seq wait (ROADMAP.md A8).
+    # Serving on a mesh: "dp=2,ep=2,tp=2" style (or "data:2,..."), every
+    # axis (dp/ep/pp/sp/tp); DCN and distributed init wait (A8).
     mesh_shape: str = ""                    # MESH_SHAPE
     model_name: str = "toy-8m"              # MODEL_NAME (registry key)
     model_path: Optional[str] = None        # MODEL_PATH (HF safetensors)
@@ -640,17 +622,6 @@ class ServiceConfig:
                     f"{self.mesh_shape!r}): the spec KV pool's blocks and "
                     f"the draft verify window shard over tp/ep only — use "
                     f"a tensor/expert-parallel mesh or disable one of them")
-        # The mesh: the data, expert and model axes are served; the pipe
-        # and seq axes wait for later parts of ROADMAP.md A8.
-        if _mesh_device_count(self.mesh_shape) > 1:
-            bad = sorted(_mesh_axes_over_one(self.mesh_shape)
-                         & _UNSERVED_MESH_AXES)
-            if bad:
-                raise ValueError(
-                    f"MESH_SHAPE={self.mesh_shape!r}: the {'/'.join(bad)} "
-                    f"axis is not served by the PyTorch port yet "
-                    f"(ROADMAP.md A8); it serves the data, expert and "
-                    f"model axes (dp/ep/tp)")
         # Only the continuous-batching engine has the radix tree the host
         # tier hangs off (the JAX single-sequence engine ignores the knob).
         if self.host_kv_blocks > 0 and not self.batched_engine:
@@ -713,7 +684,7 @@ class ServiceConfig:
             raw = os.getenv(name)
             if raw not in (None, "") and not _same_value(raw, served):
                 raise ValueError(f"{name}={raw!r} is not served by the "
-                                 f"PyTorch port yet (ROADMAP.md, queue A)")
+                                 f"PyTorch port yet (ROADMAP.md A8)")
         moe_impl = (_env_str("MOE_IMPL", "auto") or "auto").lower()
         return cls(
             api_auth_key=_env_str("API_AUTH_KEY", None),

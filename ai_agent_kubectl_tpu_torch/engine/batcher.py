@@ -206,8 +206,11 @@ one ``("firsts", ...)`` entry). In every regime:
   cache's slots over ``data``, every forward over the shards. The
   pool's kernels run once per shard through the sharded wrappers; where
   KV or H does not divide tp the pool serves the gather path instead,
-  with the JAX warning. A >1 data (or pipe, seq) axis turns a requested
-  pool into the dense ladder, loudly (``kv_pool_mesh_fallback``). The
+  with the JAX warning. A >1 data, pipe or seq axis turns a requested
+  pool into the dense ladder, loudly (``kv_pool_mesh_fallback``); on a
+  pipe axis paged decode falls back to dense too (the stages read
+  dense), and long admissions on a seq axis prefill by the ring
+  (``TorchEngine._prefill_prompt``). The
   dense ladder reads per (data, model) shard in the JAX layouts (heads
   split together, MQA's KV head replicated, or heads replicated). MoE
   layers run dense under tp or dispatched over ``expert``. Speculative
@@ -297,7 +300,8 @@ def default_seed(prompt: str) -> int:
 
 def resolve_decode_attn(decode_attn: str, cfg, *, kv_quant: str = "",
                         page_size: int, device: torch.device,
-                        dtype: torch.dtype = torch.bfloat16) -> tuple:
+                        dtype: torch.dtype = torch.bfloat16,
+                        pipe: int = 1) -> tuple:
     """Resolve ``DECODE_ATTN`` to a concrete impl and page size (the JAX
     ``resolve_decode_attn``, whose accelerator test becomes "the engine
     serves on cuda").
@@ -308,13 +312,15 @@ def resolve_decode_attn(decode_attn: str, cfg, *, kv_quant: str = "",
     page raised to ``_AUTO_PAGED_MIN_PAGE``; ``dense`` for MQA, MHA and
     always on the CPU (where the kernel's plain version would stand in for
     it).
-    Explicit ``dense``/``paged`` pass through. Returns ``(impl,
+    Never ``paged`` on a ``pipe`` axis > 1 (the stages read dense, as
+    in JAX). Explicit ``dense``/``paged`` pass through. Returns ``(impl,
     page_size)``."""
     if decode_attn != "auto":
         return decode_attn, page_size
     page = max(page_size, _AUTO_PAGED_MIN_PAGE)
     if (device.type == "cuda"
             and cfg.q_per_kv > 1 and cfg.n_kv_heads > 1 and not kv_quant
+            and pipe <= 1
             and paged_supported(page, cfg.head_dim, 1, dtype)):
         return "paged", page
     return "dense", page_size
@@ -962,11 +968,12 @@ class BatchedTorchEngine(TorchEngine):
         ``_S_alloc`` and the decode KV buckets."""
         cfg = self.model_cfg
         on_card = self.device.type == "cuda"
+        pipe = self.mesh.pp if self.mesh is not None else 1
         impl, page = resolve_decode_attn(
             self.decode_attn, cfg, kv_quant=self.kv_quant,
             page_size=(self.kv_pool_page if self.kv_pool
                        else self.kv_page_size),
-            device=self.device, dtype=self.dtype)
+            device=self.device, dtype=self.dtype, pipe=pipe)
         if impl == "paged" and self.kv_quant:
             # No kernel reads int8 KV (nor does the JAX package's).
             if self.kv_pool:
@@ -976,6 +983,11 @@ class BatchedTorchEngine(TorchEngine):
             else:
                 logger.warning("DECODE_ATTN=paged does not read int8 KV; "
                                "falling back to the dense KV ladder")
+            impl = "dense"
+        if impl == "paged" and pipe > 1 and not self.kv_pool:
+            # The pipeline stages read dense (JAX engine/batcher.py:1698).
+            logger.warning("paged decode attention does not compose "
+                           "with a pipe mesh axis; falling back to dense")
             impl = "dense"
         if (impl == "paged" and on_card
                 and not paged_supported(page, cfg.head_dim, 1, self.dtype)):

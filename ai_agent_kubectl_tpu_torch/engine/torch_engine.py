@@ -51,22 +51,33 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   (``weights_version``, the JAX package's fingerprint of ``MODEL_PATH``
   or of the ``dev:<model>:seed=<n>:quant=<q>`` sentinel without one).
 
-- ``MESH_SHAPE`` serves over the ``data``, ``expert`` and ``model``
-  axes (``_setup_mesh``, the JAX engine's): the weights split per
-  ``parallel/sharding.py`` (``shard_params``: Megatron over ``model``,
-  experts over ``expert``), the cache per shard, every forward over the
+- ``MESH_SHAPE`` serves over every axis (``_setup_mesh``, the JAX
+  engine's): the weights split per ``parallel/sharding.py``
+  (``shard_params``: Megatron over ``model``, experts over ``expert``,
+  layers over ``pipe``), the cache per shard, every forward over the
   shards (``models/transformer.py::_forward_tp``). The mesh's devices
   are the distinct cards of the serving type, or the constructor's
   ``devices`` list, which may repeat a device (``[cuda:0] * 2`` puts
   two shards on one card). ``QUANT=int4`` serves int8 under a
   multi-device mesh, with the JAX warning (int4 on the one-device
-  expert mesh); a pipe or seq axis is refused (ROADMAP.md A8).
+  expert mesh).
+- **Ring prefill** on a ``seq`` axis: a prompt beyond the largest
+  bucket that does not extend the cached prefix prefills in one pass
+  (``_prefill_ring``), the padded prompt cut into one block per seq row
+  and the blocks joined by ring attention
+  (``parallel/ring_attention.py``); where the axis does not divide the
+  padded length it prefills in chunks. Every other forward runs on the
+  seq-0 row.
+- **Pipeline stages** on a ``pipe`` axis (``parallel/pipeline.py``):
+  the layers must divide over the stages, ``MOE_IMPL=ep`` is refused
+  and an expert axis runs its MoE layers dense (warned), as in JAX.
 
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
-path. Left out of the JAX engine: ring prefill, the pipe and seq mesh
-axes, and the compile cache and ladder warm threads
-(nothing compiles in eager PyTorch).
+path. Left out of the JAX engine: DCN and distributed init
+(ROADMAP.md A8), the float32 forcing of a CPU pipe mesh (XLA:CPU's
+workaround; PyTorch serves the asked dtype), and the compile cache and
+ladder warm threads (nothing compiles in eager PyTorch).
 
 Everything runs on ``device`` — ``cuda`` unless the caller asks for the
 CPU, as the tests do. A CUDA request with no card raises
@@ -217,6 +228,7 @@ class TorchEngine:
         self._prefix: Optional[PrefixKV] = None
         self._kv_buckets = kv_bucket_ladder(self.max_seq_len)
         self._impl_for: dict = {}    # (q_len, kv_len) -> attn impl
+        self.ring_prefills = 0       # prompts prefilled by the ring
         self._eos_d = torch.tensor(sorted(set(model_cfg.eos_ids)),
                                    dtype=torch.int32, device=self.device)
 
@@ -270,9 +282,10 @@ class TorchEngine:
         all-to-alls degenerate to the shard's own buffers), as in the
         JAX engine. A larger spec builds the mesh over the constructor's
         ``devices``, else the distinct devices of the serving type, and
-        raises when there are too few (as the JAX engine does) or when it
-        has a >1 pipe or seq axis (ROADMAP.md A8). Idempotent: a restart
-        keeps the mesh."""
+        raises when there are too few, when its pipe axis does not
+        divide the layers, and for ``MOE_IMPL=ep`` with a pipe axis (the
+        JAX engine's checks and messages). Idempotent: a restart keeps
+        the mesh."""
         spec = self.mesh_shape.strip()
         force_ep_mesh = self.moe_impl == "ep" and self.model_cfg.is_moe
         if self.mesh is not None or (not spec and not force_ep_mesh):
@@ -283,6 +296,23 @@ class TorchEngine:
             return
         if total == 1:
             logger.info("MOE_IMPL=ep: building 1-device expert mesh")
+        n_pipe = mesh_cfg.pipe
+        if n_pipe > 1 and self.model_cfg.n_layers % n_pipe:
+            raise ValueError(
+                f"MESH_SHAPE pipe={n_pipe} does not divide "
+                f"{self.model_cfg.name}'s {self.model_cfg.n_layers} layers")
+        if n_pipe > 1 and self.model_cfg.is_moe and self.moe_impl == "ep":
+            raise ValueError(
+                "MOE_IMPL=ep does not compose with a pipe mesh axis: the "
+                "EP all-to-all dispatch can't nest under the pipeline "
+                "stage shard_map. Use ep×tp without pp (MoE models "
+                "shard better over expert+model than pipe), or drop "
+                "MOE_IMPL to auto to accept dense per-stage experts.")
+        if n_pipe > 1 and self.model_cfg.is_moe and mesh_cfg.expert > 1:
+            logger.warning(
+                "pipe>1 disables expert-parallel MoE dispatch: MoE layers "
+                "run dense (all experts) inside each pipeline stage; "
+                "prefer ep×tp without pp for MoE serving")
         devices = self.devices or distinct_devices(self.device.type)
         if total > len(devices):
             raise ValueError(
@@ -603,11 +633,14 @@ class TorchEngine:
         """Prefill one prompt into a fresh cache. Returns (last_logits
         [1, V], cache, n_prompt, prefix_hit).
 
-        Routing: a prompt that extends the cached system prefix prefills
-        only its suffix; one that fits a bucket prefills in one pass; a
-        longer one prefills in sequential chunks at absolute offsets.
-        Only prompts beyond the KV capacity (max_seq - budget) are
-        left-truncated (the query tail is the informative part)."""
+        Routing (the JAX engine's): a prompt that extends the cached
+        system prefix prefills only its suffix; one that fits a bucket
+        prefills in one pass; a longer one prefills by ring attention
+        when the mesh has a seq axis > 1 (``_prefill_ring``), else (or
+        where the ring cannot shard its padded length) in sequential
+        chunks at absolute offsets. Only prompts beyond the KV capacity
+        (max_seq - budget) are left-truncated (the query tail is the
+        informative part)."""
         max_prompt = self.max_seq_len - max(1, max_tokens)
         if len(prompt_ids) > max_prompt:
             prompt_ids = prompt_ids[-max_prompt:]
@@ -615,6 +648,10 @@ class TorchEngine:
         if self._prefix is not None and self._prefix.matches(prompt_ids):
             return self._prefill_suffix(prompt_ids)
         if n_prompt > self.prefill_buckets[-1]:
+            if self.mesh is not None and self.mesh.shape["seq"] > 1:
+                out = self._prefill_ring(prompt_ids)
+                if out is not None:
+                    return out
             logits, cache, n = self._prefill_chunked(prompt_ids)
             return logits, cache, n, False
         bucket = self._bucket_for(n_prompt)
@@ -652,6 +689,36 @@ class TorchEngine:
         logits = self._prefill(prompt_ids[prefix.n:], prefix.n, sbucket,
                                kv_limit, cache)
         return logits, cache, prefix.n + n_suffix, True
+
+    def _prefill_ring(self, prompt_ids):
+        """Ring-attention prefill of a prompt beyond the largest bucket on
+        a ``seq`` axis (the JAX ``_prefill_ring``): the prompt padded to
+        the next power of two (at least the axis size, at most
+        ``max_seq_len``), in one forward whose seq rows each project one
+        block and join by the ring; every position's K/V lands in the
+        cache. Returns the ``_prefill_prompt`` tuple, or None when the
+        padded length is short of the prompt or not divisible by the
+        axis (the caller prefills in chunks)."""
+        n = len(prompt_ids)
+        sp = self.mesh.shape["seq"]
+        s_pad = max(sp, 1 << (n - 1).bit_length())   # next pow2 >= n
+        if s_pad > self.max_seq_len:
+            s_pad = self.max_seq_len
+        if s_pad < n or s_pad % sp:
+            return None
+        tokens = np.zeros((1, s_pad), np.int32)
+        tokens[0, :n] = prompt_ids
+        dev = self.device
+        cols = torch.arange(s_pad, dtype=torch.int32, device=dev)
+        cache = self._new_cache()
+        logits, _ = forward(
+            self.params, self.model_cfg, self._h2d(tokens), cols[None],
+            cache, kv_limit=s_pad, attn_impl="ring",
+            token_mask=(cols < n)[None], moe_impl=self.moe_impl,
+            logits_at=torch.full((1,), n - 1, dtype=torch.int64,
+                                 device=dev), mesh=self.mesh)
+        self.ring_prefills += 1
+        return logits[:, 0], cache, n, False
 
     def _prefill_chunked(self, prompt_ids, cache: Optional[KVCache] = None,
                          start: int = 0):

@@ -49,16 +49,23 @@ Shared by both:
   an int8 cache asked to attend through one of them raises.
 
 - Under a mesh of more than one shard (``mesh=``, the JAX forward's
-  mesh on its ``data``, ``expert`` and ``model`` axes) the forward runs
-  over per-shard weights and caches (``_forward_tp``): Megatron
-  column/row splits, the f≈1 residual split, attention per shard on its
-  own heads — the two pool kernels through their sharded wrappers, the
-  dense ladder's paged decode and flash prefill per (data, model) shard
-  —, the dense cache's slots over ``data``, and MoE layers dense under
-  tp or dispatched over ``expert``.
-
-Ring attention and the pipe and seq axes belong to later slices
-(ROADMAP.md A8): ``attn_impl="ring"`` raises ``NotImplementedError``.
+  mesh) the forward runs over per-shard weights and caches
+  (``_forward_tp``, one ``_MeshPass``): Megatron column/row splits, the
+  f≈1 residual split, attention per shard on its own heads — the two
+  pool kernels through their sharded wrappers, the dense ladder's paged
+  decode and flash prefill per (data, model) shard —, the dense cache's
+  slots over ``data``, and MoE layers dense under tp or dispatched over
+  ``expert``.
+- ``attn_impl="ring"`` (the dense cache, S > 1): the window attends over
+  its own fresh K/V (``parallel/ring_attention.py``), the K/V write
+  still landing every position, int8 caches included. On a ``seq``
+  axis > 1 the window splits into one block per seq row
+  (``_forward_ring``); every other forward on such a mesh runs on the
+  seq-0 row, which holds the cache. Over a block table it raises, as
+  the JAX package has no such path.
+- On a ``pipe`` axis > 1 the layer stack runs in stages
+  (``parallel/pipeline.py::pipeline_forward``), attention dense and MoE
+  dense in each; a block table raises with the JAX message.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from ..ops.rope import rope_tables, rotate
 from ..parallel.collectives import all_gather, all_reduce, reduce_scatter
 from ..parallel.moe import (dense_moe, dense_moe_partial,
                             expert_parallel_moe)
+from ..parallel.ring_attention import ring_attention_shards
 from ..parallel.sharding import (head_layout, replicate, residual_split_dim,
                                   rows_split)
 from .config import ModelConfig
@@ -131,18 +139,22 @@ class KVCache:
     @classmethod
     def _kv(cls, cfg: ModelConfig, shape: tuple, dtype, device,
             kv_quant: str, mesh, split_rows: bool = False):
-        """One zeroed K or V leaf: a tensor, or on a mesh of more than
-        one shard a ``ShardedKV`` of per-shard leaves (KV heads split
-        where ``head_layout`` splits them, slots split over ``data``
+        """One zeroed K or V leaf: a tensor, or over a mesh's cache row
+        (``Mesh.cache_row``: the seq-0 row) of more than one shard a
+        ``ShardedKV`` of per-shard leaves (layers split over ``pipe``,
+        KV heads where ``head_layout`` splits them, slots over ``data``
         under ``split_rows`` where that divides, else a whole copy per
         shard), each allocated on its shard's device."""
         if mesh is None or mesh.size <= 1:
             return cls._leaf(shape, dtype, device, kv_quant)
+        mesh = mesh.cache_row()[0]
+        if mesh.size == 1:
+            return cls._leaf(shape, dtype, mesh.devices[0], kv_quant)
         heads = head_layout(cfg, mesh.tp)[1]
         rows = split_rows and rows_split(mesh, shape[1])
-        local = (shape[0], shape[1] // mesh.dp if rows else shape[1],
-                 shape[2], shape[3] // mesh.tp if heads else shape[3],
-                 shape[4])
+        local = (shape[0] // mesh.pp, shape[1] // mesh.dp if rows
+                 else shape[1], shape[2],
+                 shape[3] // mesh.tp if heads else shape[3], shape[4])
         return ShardedKV(shards=[cls._leaf(local, dtype, d, kv_quant)
                                  for d in mesh.devices], heads_split=heads,
                          row_groups=mesh.dp if rows else 1)
@@ -296,7 +308,11 @@ def _scatter_rows(leaf: torch.Tensor, flat: torch.Tensor,
 
 def _write_kv(layer, flat: torch.Tensor, x: torch.Tensor) -> None:
     """The window's K or V [B, S, KV, hd] into one layer's cache at flat
-    rows: quantized first when the layer is a ``QuantKV``."""
+    rows (copied to the cache's device first where it lies elsewhere):
+    quantized first when the layer is a ``QuantKV``."""
+    dev = _leaf_device(layer)
+    if x.device != dev:
+        x = x.to(dev)
     if isinstance(layer, QuantKV):
         x = kv_quantize(x)
     kv_map(lambda leaf, upd: _scatter_rows(leaf, flat, upd), layer, x)
@@ -493,13 +509,17 @@ def _dense_attend(tokens: torch.Tensor, positions: torch.Tensor,
     (``_dense_read``)."""
     with scope("kv_write"):
         flat = _dense_flat_pos(positions, cache.max_seq, write_mask)
-    read = _dense_read(tokens, positions, kv_limit, attn_impl, page_size)
+    ring = attn_impl == "ring" and tokens.shape[1] > 1
+    if not ring:
+        read = _dense_read(tokens, positions, kv_limit, attn_impl, page_size)
 
     def attend(q, k, v, layer_k, layer_v):
         with scope("kv_write"):
             _write_kv(layer_k, flat, k)
             _write_kv(layer_v, flat, v)
         with scope("attention"):
+            if ring:        # a ring of one: the window's own fresh K/V
+                return ring_attention_shards([q], [k], [v], [positions])[0]
             return read(q, layer_k, layer_v)
 
     return attend
@@ -540,7 +560,7 @@ def _dense_read(tokens: torch.Tensor, positions: torch.Tensor,
 
 # ------------------------------------------------ the mesh forward
 
-def _tp_pool_reads(cfg: ModelConfig, tokens, positions, cache: KVCache,
+def _tp_pool_reads(cfg: ModelConfig, tokens, positions, caches: list,
                    tables, q_lens, kv_limit, attn_impl: str, mesh):
     """The pool's per-layer read over every shard: ``read(qs, lks, lvs)``
     -> per-shard outputs [B, S, H/tp, hd]. The two kernel paths go
@@ -579,7 +599,7 @@ def _tp_pool_reads(cfg: ModelConfig, tokens, positions, cache: KVCache,
         return read
     toks, poss, tbls = (replicate(t, mesh)
                         for t in (tokens, positions, tables))
-    reads = [_pool_read(toks[i], poss[i], cache.shard(i), tbls[i], q_lens,
+    reads = [_pool_read(toks[i], poss[i], caches[i], tbls[i], q_lens,
                         kv_limit, attn_impl) for i in range(mesh.size)]
     return lambda qs, lks, lvs: [r(q, k, v) for r, q, k, v in
                                  zip(reads, qs, lks, lvs)]
@@ -643,8 +663,9 @@ def _forward_tp(params, cfg: ModelConfig, tokens, positions,
                 cache: KVCache, *, mesh, kv_limit, attn_impl, page_size,
                 logits_at, write_mask, block_tables, q_lens, token_mask,
                 moe_impl):
-    """``forward`` over a mesh of more than one shard (the JAX forward
-    under a mesh, one controller over per-shard tensors):
+    """``forward`` over a mesh of more than one shard with no seq or pipe
+    split in it (the JAX forward under a mesh, one controller over
+    per-shard tensors): one ``_MeshPass`` over every shard's layers.
 
     - ``params`` is ``parallel/sharding.py::shard_params``'s per-shard
       trees, ``cache`` a ``KVCache`` of ``ShardedKV`` leaves;
@@ -671,155 +692,371 @@ def _forward_tp(params, cfg: ModelConfig, tokens, positions,
       them; the head's logits gather over the vocab on the first
       shard's device, where the logits are returned.
     """
-    n, tp = mesh.size, mesh.tp
-    B, S = tokens.shape
-    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
-    q_split, kv_split = head_layout(cfg, tp)
-    H_l = H // tp if q_split else H
-    KV_l = KV // tp if kv_split else KV
-    split = residual_split_dim(mesh, (B, S, d))
-    models = mesh.groups("model")
-    mcoord = [mesh.coord(i, "model") for i in range(n)]
-    dp_rows = cache.k.row_groups
-    per = n // dp_rows
-    B_l = B // dp_rows
+    run = _MeshPass(cfg, mesh, tokens, positions, _shard_caches(cache, mesh),
+                    row_groups=_row_groups(cache), kv_limit=kv_limit,
+                    attn_impl=attn_impl, page_size=page_size,
+                    write_mask=write_mask, block_tables=block_tables,
+                    q_lens=q_lens, token_mask=token_mask, moe_impl=moe_impl)
+    h = run.embed(params)
+    layers = [p["layers"] for p in params]
+    for li in range(cfg.n_layers):
+        h = run.layer([{name: w[li] for name, w in lay.items()}
+                       for lay in layers], h, li)
+    return run.head(params, run.gather(h), logits_at), cache
 
-    def blocks(t):
+
+def _shard_caches(cache: KVCache, mesh) -> list:
+    """Each shard's own cache of a mesh (the cache itself on every shard
+    of a one-shard mesh)."""
+    if not cache.sharded:
+        return [cache] * mesh.size
+    return [cache.shard(i) for i in range(mesh.size)]
+
+
+def _row_groups(cache: KVCache) -> int:
+    return cache.k.row_groups if cache.sharded else 1
+
+
+class _MeshPass:
+    """One forward's per-shard state over a mesh every shard of which runs
+    every layer it holds: the ``data``, ``expert`` and ``model`` axes (a
+    whole mesh without seq or pipe, one seq row of a ring prefill, or one
+    pipeline stage). ``embed``, ``layer`` (or ``qkv``, ``write`` and
+    ``finish``, between which a ring prefill runs its ring) and ``head``
+    are the forward's three parts (see ``_forward_tp``).
+
+    ``caches``: each shard's own ``KVCache`` (plain or ``QuantKV``
+    leaves), which may lie on another device than the shard (a ring
+    prefill's seq rows all write the seq-0 row's cache); ``row_groups``:
+    the data groups the caches' slots split over. ``rows``: the global
+    batch rows ``[a, b)`` this pass runs (a pipeline microbatch; default
+    all), each data group taking its slots among them (possibly none).
+    ``tokens`` may be None for a pass that only runs layers;
+    ``residual=False`` keeps the residual replicated (a pipeline stage,
+    where the JAX policy is off)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, tokens, positions,
+                 caches: list, *, row_groups: int = 1, kv_limit=None,
+                 attn_impl: str = "dense", page_size: int = 128,
+                 write_mask=None, block_tables=None, q_lens=None,
+                 token_mask=None, moe_impl: str = "auto", rows=None,
+                 residual: bool = True):
+        self.cfg, self.mesh, self.caches = cfg, mesh, caches
+        self.kv_limit, self.attn_impl, self.page_size = (kv_limit, attn_impl,
+                                                         page_size)
+        self.write_mask, self.block_tables, self.q_lens = (
+            write_mask, block_tables, q_lens)
+        self.token_mask, self.moe_impl = token_mask, moe_impl
+        n, tp = mesh.size, mesh.tp
+        B, S = positions.shape
+        self.S = S
+        q_split, kv_split = head_layout(cfg, tp)
+        self.q_split = q_split
+        self.H_l = cfg.n_heads // tp if q_split else cfg.n_heads
+        self.KV_l = cfg.n_kv_heads // tp if kv_split else cfg.n_kv_heads
+        self.models = mesh.groups("model")
+        self.mcoord = [mesh.coord(i, "model") for i in range(n)]
+        self.dp_rows = row_groups
+        self.per = n // row_groups
+        B_l = B // row_groups
+        a, b = rows if rows is not None else (0, B)
+        # Each data group's global rows [lo, hi) among [a, b), and its
+        # local (slot) rows within the group's B_l.
+        self.spans = []
+        for g in range(row_groups):
+            lo, hi = max(a, g * B_l), min(b, (g + 1) * B_l)
+            hi = max(lo, hi)
+            self.spans.append((lo, hi, lo - g * B_l, hi - g * B_l))
+        self.cut = rows is not None
+        self.split = (residual_split_dim(mesh, (b - a, S, cfg.dim))
+                      if residual else None)
+        self.tokens, self.positions = tokens, positions
+        self.toks = self.spread(self.blocks(tokens))
+        self.poss = self.spread(self.blocks(positions))
+        self.rope = None
+        self._reads = None
+        self._prepared = False
+
+    # ------------------------------------------------------- layout
+
+    def blocks(self, t):
         """Each data group's rows of a [B, ...] tensor (None stays)."""
-        if t is None or dp_rows == 1:
-            return [t] * dp_rows
-        return list(t.split(B_l))
+        if t is None:
+            return [None] * self.dp_rows
+        return [t[lo:hi] for lo, hi, _, _ in self.spans]
 
-    def spread(bs):
+    def spread(self, bs):
         """Per-group values onto each shard of the group's device."""
-        return [None if bs[i // per] is None else bs[i // per].to(dev)
-                for i, dev in enumerate(mesh.devices)]
+        return [None if bs[i // self.per] is None
+                else bs[i // self.per].to(dev)
+                for i, dev in enumerate(self.mesh.devices)]
 
-    toks, poss = spread(blocks(tokens)), spread(blocks(positions))
-    if block_tables is not None:
-        tables = block_tables.to(torch.int32).contiguous()
+    def take(self, xs) -> list:
+        """Each shard's rows of this pass out of per-shard tensors over
+        its group's whole slots (a pipeline microbatch's rows)."""
+        if not self.cut:
+            return list(xs)
+        return [x[self.spans[i // self.per][2]:self.spans[i // self.per][3]]
+                for i, x in enumerate(xs)]
+
+    def layer_cache(self, i: int, li: int) -> tuple:
+        """Shard ``i``'s K and V of layer ``li``, cut to its group's
+        slots of this pass."""
+        c = self.caches[i]
+        lk, lv = c.k[li], c.v[li]
+        if self.cut:
+            _, _, lo, hi = self.spans[i // self.per]
+            lk, lv = (kv_map(lambda a: a[lo:hi], x) for x in (lk, lv))
+        return lk, lv
+
+    def gather(self, xs):
+        """The residual whole on every shard (a no-op when replicated)."""
+        if self.split is None:
+            return xs
+        return all_gather(xs, self.split, self.models)
+
+    def _prepare(self) -> None:
+        """The per-forward setup of the K/V writes (flat rows, on each
+        cache's device) and of the reads."""
+        self._prepared = True
+        cfg, mesh, n = self.cfg, self.mesh, self.mesh.size
+        tokens, positions = self.tokens, self.positions
+        cdev = [_leaf_device(c.k) for c in self.caches]
+        if self.block_tables is not None:
+            c0 = self.caches[0]
+            tables = self.block_tables.to(torch.int32).contiguous()
+            with scope("kv_write"):
+                flat = _pool_flat_pos(tables, positions, c0.page,
+                                      c0.n_blocks, self.write_mask)
+                self.flats = [flat.to(d) for d in cdev]
+            with scope("attention"):
+                self._reads = _tp_pool_reads(
+                    cfg, tokens, positions, self.caches, tables, self.q_lens,
+                    self.kv_limit, self.attn_impl, mesh)
+            return
+        max_seq = self.caches[0].max_seq
         with scope("kv_write"):
-            flats = replicate(_pool_flat_pos(tables, positions, cache.page,
-                                             cache.n_blocks, write_mask),
-                              mesh)
+            flats = [_dense_flat_pos(p, max_seq, w) for p, w in
+                     zip(self.blocks(positions), self.blocks(self.write_mask))]
+            self.flats = [flats[i // self.per].to(cdev[i]) for i in range(n)]
+        if self.attn_impl == "ring" and self.S > 1:
+            return
         with scope("attention"):
-            read = _tp_pool_reads(cfg, tokens, positions, cache, tables,
-                                  q_lens, kv_limit, attn_impl, mesh)
-    else:
-        with scope("kv_write"):
-            flats = spread([_dense_flat_pos(p, cache.max_seq, w)
-                            for p, w in zip(blocks(positions),
-                                            blocks(write_mask))])
-        with scope("attention"):
-            reads = [_dense_read(toks[i], poss[i], kv_limit, attn_impl,
-                                 page_size) for i in range(n)]
+            reads = [_dense_read(self.poss[i], self.poss[i], self.kv_limit,
+                                 self.attn_impl, self.page_size)
+                     for i in range(n)]
 
         def read(qs, lks, lvs):
             return [r(q, k, v) for r, q, k, v in zip(reads, qs, lks, lvs)]
+        self._reads = read
 
-    with scope("embed"):
-        dt = params[0]["final_norm"].dtype
-        emb = [p["embed"] for p in params]
-        V_l = emb[0].shape[0]
-        if V_l != cfg.vocab_size:       # vocab rows split over the shards
-            parts = []
-            for i in range(n):
-                lo = toks[i].long() - mcoord[i] * V_l
-                inside = (lo >= 0) & (lo < V_l)
-                e = embed_lookup(emb[i], lo.clamp(0, V_l - 1), dtype=dt)
-                parts.append(torch.where(inside[..., None], e,
-                                         torch.zeros((), dtype=dt,
-                                                     device=e.device)))
-            h = _tp_combine(parts, False, split, models)
-        else:
-            h = _tp_combine([embed_lookup(emb[i], toks[i], dtype=dt)
-                             for i in range(n)], True, split, models)
-        if cfg.embed_scale:
-            c = torch.tensor(cfg.dim ** 0.5, dtype=dt).item()
-            h = [x * c for x in h]
-    with scope("rope"):
-        rope = spread([torch.stack(rope_tables(p, hd, cfg.rope_theta))
-                       for p in blocks(positions)])
+    # ------------------------------------------------------- parts
 
-    def gather(xs):
-        return xs if split is None else all_gather(xs, split, models)
+    def embed(self, params) -> list:
+        """The vocab-sharded embedding: each shard's rows looked up and
+        summed over the model group (``embed_scale`` applied)."""
+        cfg, n = self.cfg, self.mesh.size
+        toks, mcoord = self.toks, self.mcoord
+        with scope("embed"):
+            dt = params[0]["final_norm"].dtype
+            emb = [p["embed"] for p in params]
+            V_l = emb[0].shape[0]
+            if V_l != cfg.vocab_size:       # vocab rows split over shards
+                parts = []
+                for i in range(n):
+                    lo = toks[i].long() - mcoord[i] * V_l
+                    inside = (lo >= 0) & (lo < V_l)
+                    e = embed_lookup(emb[i], lo.clamp(0, V_l - 1), dtype=dt)
+                    parts.append(torch.where(
+                        inside[..., None], e,
+                        torch.zeros((), dtype=dt, device=e.device)))
+                h = _tp_combine(parts, False, self.split, self.models)
+            else:
+                h = _tp_combine([embed_lookup(emb[i], toks[i], dtype=dt)
+                                 for i in range(n)], True, self.split,
+                                self.models)
+            if cfg.embed_scale:
+                c = torch.tensor(cfg.dim ** 0.5, dtype=dt).item()
+                h = [x * c for x in h]
+        return h
 
-    layers = [p["layers"] for p in params]
-    wo_whole = layers[0]["wo"].shape[1] == H * hd
-    down_whole = layers[0]["w_down"].shape[-2] == cfg.mlp_hidden
-    shards = [cache.shard(i) for i in range(n)]
-    for li in range(cfg.n_layers):
-        lps = [{name: w[li] for name, w in lay.items()} for lay in layers]
+    def qkv(self, lps, h) -> tuple:
+        """The layer's attention inputs per shard: q [rows, S, H_l, hd],
+        k and v [rows, S, KV_l, hd], rotated."""
+        cfg, S, hd = self.cfg, self.S, self.cfg.head_dim
+        if self.rope is None:
+            with scope("rope"):
+                self.rope = self.spread([
+                    torch.stack(rope_tables(p, hd, cfg.rope_theta))
+                    for p in self.blocks(self.positions)])
         with scope("attn_norm"):
-            xs = gather([rms_norm(x, lp["attn_norm"], cfg.rms_eps,
-                                  cfg.rms_offset) for x, lp in zip(h, lps)])
+            xs = self.gather([rms_norm(x, lp["attn_norm"], cfg.rms_eps,
+                                       cfg.rms_offset)
+                              for x, lp in zip(h, lps)])
         with scope("qkv_proj"):
-            qs = [qmatmul(x, lp["wq"]).view(x.shape[0], S, H_l, hd)
+            qs = [qmatmul(x, lp["wq"]).view(x.shape[0], S, self.H_l, hd)
                   for x, lp in zip(xs, lps)]
-            ks = [qmatmul(x, lp["wk"]).view(x.shape[0], S, KV_l, hd)
+            ks = [qmatmul(x, lp["wk"]).view(x.shape[0], S, self.KV_l, hd)
                   for x, lp in zip(xs, lps)]
-            vs = [qmatmul(x, lp["wv"]).view(x.shape[0], S, KV_l, hd)
+            vs = [qmatmul(x, lp["wv"]).view(x.shape[0], S, self.KV_l, hd)
                   for x, lp in zip(xs, lps)]
         with scope("rope"):
-            qs = [rotate(q, r[0], r[1]) for q, r in zip(qs, rope)]
-            ks = [rotate(k, r[0], r[1]) for k, r in zip(ks, rope)]
-        lks = [c.k[li] for c in shards]
-        lvs = [c.v[li] for c in shards]
+            qs = [rotate(q, r[0], r[1]) for q, r in zip(qs, self.rope)]
+            ks = [rotate(k, r[0], r[1]) for k, r in zip(ks, self.rope)]
+        return qs, ks, vs
+
+    def write(self, li: int, ks, vs) -> tuple:
+        """The window's K/V into each shard's cache of layer ``li`` (on
+        the cache's device). Returns the layer's leaves per shard."""
+        if not self._prepared:
+            self._prepare()
+        lks, lvs = zip(*(self.layer_cache(i, li)
+                         for i in range(self.mesh.size)))
         with scope("kv_write"):
-            for i in range(n):
-                _write_kv(lks[i], flats[i], ks[i])
-                _write_kv(lvs[i], flats[i], vs[i])
-        with scope("attention"):
-            attn = read(qs, lks, lvs)
+            for i in range(self.mesh.size):
+                _write_kv(lks[i], self.flats[i], ks[i])
+                _write_kv(lvs[i], self.flats[i], vs[i])
+        return list(lks), list(lvs)
+
+    def finish(self, lps, h, attn) -> list:
+        """The layer after attention: wo, the residual, the MLP."""
+        cfg, S, hd = self.cfg, self.S, self.cfg.head_dim
+        wo_whole = lps[0]["wo"].shape[0] == cfg.n_heads * hd
+        down_whole = lps[0]["w_down"].shape[-2] == cfg.mlp_hidden
         with scope("o_proj"):
             outs = []
             for i, (a, lp) in enumerate(zip(attn, lps)):
-                a = a.reshape(a.shape[0], S, H_l * hd)
+                a = a.reshape(a.shape[0], S, self.H_l * hd)
                 rows = lp["wo"].shape[0]
-                if not q_split and not wo_whole:
-                    a = a[..., mcoord[i] * rows:(mcoord[i] + 1) * rows]
+                if not self.q_split and not wo_whole:
+                    a = a[..., self.mcoord[i] * rows:
+                          (self.mcoord[i] + 1) * rows]
                 outs.append(qmatmul(a, lp["wo"]))
-            h = [x + o for x, o in zip(h, _tp_combine(outs, wo_whole,
-                                                       split, models))]
+            h = [x + o for x, o in zip(h, _tp_combine(
+                outs, wo_whole, self.split, self.models))]
         with scope("mlp"):
-            xs = gather([rms_norm(x, lp["mlp_norm"], cfg.rms_eps,
-                                  cfg.rms_offset) for x, lp in zip(h, lps)])
+            xs = self.gather([rms_norm(x, lp["mlp_norm"], cfg.rms_eps,
+                                       cfg.rms_offset)
+                              for x, lp in zip(h, lps)])
             if cfg.is_moe:
-                outs = _tp_moe(cfg, lps, xs, mesh, moe_impl=moe_impl,
-                               token_mask=token_mask,
-                               data_split=dp_rows > 1, split=split,
-                               groups=models)
+                outs = _tp_moe(cfg, lps, xs, self.mesh,
+                               moe_impl=self.moe_impl,
+                               token_mask=self.token_mask,
+                               data_split=self.dp_rows > 1, split=self.split,
+                               groups=self.models)
             else:
                 outs = _tp_combine([_dense_mlp(cfg, lp, x)
                                     for x, lp in zip(xs, lps)],
-                                   down_whole, split, models)
+                                   down_whole, self.split, self.models)
             h = [x + o for x, o in zip(h, outs)]
-    h = gather(h)
-    head = params[0].get("lm_head", emb[0])
-    vocab_split = (head.shape[-1] if "lm_head" in params[0]
-                   else head.shape[0]) != cfg.vocab_size
-    ats = spread(blocks(logits_at))
-    rows = []
-    # One model group per data group of rows (expert row 0's) makes
-    # the logits; the others hold the same.
-    for g in (models[r * mesh.ep] for r in range(dp_rows)):
-        logits = []
-        for i in (g if vocab_split else g[:1]):
-            with scope("final_norm"):
-                x = rms_norm(h[i], params[i]["final_norm"], cfg.rms_eps,
-                             cfg.rms_offset)
-            if ats[i] is not None:
-                x = x[torch.arange(x.shape[0], device=x.device),
-                      ats[i].long()][:, None]
-            with scope("lm_head"):
-                logits.append(tied_head(x, params[i]["embed"])
-                              if cfg.tie_embeddings
-                              else qmatmul(x, params[i]["lm_head"]))
-        if vocab_split:
-            logits = all_gather(logits, -1)
-        rows.append(logits[0].to(mesh.devices[0]))
-    out = rows[0] if len(rows) == 1 else torch.cat(rows)
-    return out.float(), cache
+        return h
+
+    def layer(self, lps, h, li: int) -> list:
+        """One whole layer on every shard: K/V written, then read (a ring
+        of one over the window's own K/V under ``attn_impl="ring"``)."""
+        qs, ks, vs = self.qkv(lps, h)
+        lks, lvs = self.write(li, ks, vs)
+        with scope("attention"):
+            if self.attn_impl == "ring" and self.S > 1:
+                attn = [ring_attention_shards([q], [k], [v], [p])[0]
+                        for q, k, v, p in zip(qs, ks, vs, self.poss)]
+            else:
+                attn = self._reads(qs, lks, lvs)
+        return self.finish(lps, h, attn)
+
+    def head(self, params, h, logits_at) -> torch.Tensor:
+        """Final norm and head over ``h`` (whole on every shard): one
+        model group per data group of rows (expert row 0's) makes the
+        logits (the others hold the same), gathered over the vocab and
+        joined in data order on the mesh's first device."""
+        cfg, mesh = self.cfg, self.mesh
+        head_w = params[0].get("lm_head", params[0]["embed"])
+        vocab_split = (head_w.shape[-1] if "lm_head" in params[0]
+                       else head_w.shape[0]) != cfg.vocab_size
+        ats = self.spread(self.blocks(logits_at))
+        rows = []
+        for g in (self.models[r * mesh.ep] for r in range(self.dp_rows)):
+            logits = []
+            for i in (g if vocab_split else g[:1]):
+                with scope("final_norm"):
+                    x = rms_norm(h[i], params[i]["final_norm"], cfg.rms_eps,
+                                 cfg.rms_offset)
+                if ats[i] is not None:
+                    x = x[torch.arange(x.shape[0], device=x.device),
+                          ats[i].long()][:, None]
+                with scope("lm_head"):
+                    logits.append(tied_head(x, params[i]["embed"])
+                                  if cfg.tie_embeddings
+                                  else qmatmul(x, params[i]["lm_head"]))
+            if vocab_split:
+                logits = all_gather(logits, -1)
+            rows.append(logits[0].to(mesh.devices[0]))
+        out = rows[0] if len(rows) == 1 else torch.cat(rows)
+        return out.float()
+
+
+def _leaf_device(leaf) -> torch.device:
+    return (leaf.q if isinstance(leaf, QuantKV) else leaf).device
+
+
+def _forward_ring(params, cfg: ModelConfig, tokens, positions,
+                  cache: KVCache, *, mesh, logits_at, write_mask,
+                  token_mask, moe_impl):
+    """A ring prefill over a mesh with a seq axis > 1 (the JAX forward's
+    ``attn_impl="ring"``): the window cut into ``sp`` contiguous blocks,
+    block ``r`` run by seq row ``r`` (``Mesh.select``) on its own
+    devices with its own copy of the weights, each layer's K/V of every
+    block written into the one cache of the seq-0 row, and each shard's
+    queries attending over the window's own fresh K/V by the ring among
+    the shards of its seq group (each model shard over its own heads).
+    The rows' final hidden states join on the seq-0 row, which runs the
+    head."""
+    sp = mesh.sp
+    B, S = tokens.shape
+    if S % sp:
+        raise ValueError(
+            f"seq len {S} not divisible by seq axis size {sp}")
+    row0, _ = mesh.cache_row()
+    caches = _shard_caches(cache, row0)
+    S_l = S // sp
+    runs, prm = [], []
+    for r in range(sp):
+        sub, idx = mesh.select("seq", r)
+        cols = slice(r * S_l, (r + 1) * S_l)
+        runs.append(_MeshPass(
+            cfg, sub, tokens[:, cols], positions[:, cols], caches,
+            row_groups=_row_groups(cache), attn_impl="ring",
+            write_mask=(write_mask[:, cols] if write_mask is not None
+                        and write_mask.dim() == 2 else write_mask),
+            token_mask=(token_mask[:, cols] if token_mask is not None
+                        else None), moe_impl=moe_impl))
+        prm.append([params[i] for i in idx])
+    h = [run.embed(p) for run, p in zip(runs, prm)]
+    n_row = row0.size
+    for li in range(cfg.n_layers):
+        lps = [[{name: w[li] for name, w in p["layers"].items()}
+                for p in ps] for ps in prm]
+        parts = [run.qkv(lp, x) for run, lp, x in zip(runs, lps, h)]
+        for run, (_, ks, vs) in zip(runs, parts):
+            run.write(li, ks, vs)
+        attn = [[None] * n_row for _ in range(sp)]
+        with scope("attention"):
+            for k in range(n_row):      # one ring per seq group
+                outs = ring_attention_shards(
+                    [parts[r][0][k] for r in range(sp)],
+                    [parts[r][1][k] for r in range(sp)],
+                    [parts[r][2][k] for r in range(sp)],
+                    [runs[r].poss[k] for r in range(sp)])
+                for r in range(sp):
+                    attn[r][k] = outs[r]
+        h = [run.finish(lp, x, a)
+             for run, lp, x, a in zip(runs, lps, h, attn)]
+    h = [run.gather(x) for run, x in zip(runs, h)]
+    whole = [torch.cat([h[r][k].to(row0.devices[k]) for r in range(sp)],
+                       dim=1) for k in range(n_row)]
+    head = _MeshPass(cfg, row0, tokens, positions, caches,
+                     row_groups=_row_groups(cache))
+    return head.head(prm[0], whole, logits_at), cache
 
 
 # -------------------------------------------------------------- forward
@@ -866,39 +1103,42 @@ def forward(
     evaluation ignores it). Under a ``mesh`` of more than one shard the
     forward runs ``_forward_tp`` over per-shard weights and caches: the
     ``model`` axis tensor-parallel, slots over ``data`` where the dense
-    cache splits them, experts over ``expert``. ``logits_at`` gathers
+    cache splits them, experts over ``expert``; a ``pipe`` axis runs the
+    layers in stages (``pipeline_forward``, attention dense); on a
+    ``seq`` axis ``attn_impl="ring"`` runs ``_forward_ring`` and every
+    other forward the seq-0 row. ``attn_impl="ring"`` over the dense
+    cache attends over the window's own K/V (the JAX ring prefill; dense
+    for a one-column window, as in JAX). ``logits_at`` gathers
     each row's hidden state at one column BEFORE the LM head, returning
     [B, 1, vocab]. An int8 cache (``QuantKV`` leaves) reads through the
     gather path or the dense read only: ``attn_impl`` "ragged", "paged"
     with one column and "flash" with several raise, their kernels
     reading bf16 KV."""
-    tp = mesh is not None and mesh.size > 1
+    B, S = tokens.shape
+    multi = mesh is not None and mesh.size > 1
     if block_tables is not None:
         attn_impl = attn_impl or "ragged"
+        if multi and mesh.pp > 1:
+            raise NotImplementedError(
+                "block-paged KV does not compose with a pipe mesh axis "
+                "(no table plumbing in the stage body); use the dense "
+                "KV ladder")
         if attn_impl not in ("ragged", "paged", "dense", "flash"):
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} over the pool waits for a later "
-                f"slice of the port (ragged, paged, dense and flash are "
-                f"served)")
-        if not tp:
-            attend = _pool_attend(tokens, positions, cache, write_mask,
-                                  block_tables, q_lens, kv_limit, attn_impl)
+                f"attn_impl={attn_impl!r} is not served over the pool "
+                f"(ragged, paged, dense and flash are; a ring prefill "
+                f"runs on the dense cache, as in the JAX package)")
     else:
         attn_impl = attn_impl or "dense"
-        if attn_impl not in ("dense", "flash", "paged"):
+        if attn_impl not in ("dense", "flash", "paged", "ring"):
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} over the dense cache waits for a "
-                f"later slice of the port (dense, flash and paged are "
-                f"served)")
+                f"attn_impl={attn_impl!r} over the dense cache: dense, "
+                f"flash, paged and ring are served")
         if kv_limit is None:
             kv_limit = cache.max_seq
         if not 0 < kv_limit <= cache.max_seq:
             raise ValueError(f"kv_limit {kv_limit} outside the cache's "
                              f"{cache.max_seq} positions")
-        if not tp:
-            attend = _dense_attend(tokens, positions, cache, write_mask,
-                                   kv_limit, attn_impl, page_size)
-    B, S = tokens.shape
     if cache.quantized and (attn_impl == "ragged"
                             or (attn_impl == "paged" and S == 1)
                             or (attn_impl == "flash" and S > 1)):
@@ -907,13 +1147,36 @@ def forward(
             f"reads bf16); the engines resolve KV_QUANT=int8 to the gather "
             f"path on the pool and the dense read on the dense cache")
 
-    if tp:
+    if multi and mesh.sp > 1:
+        if attn_impl == "ring" and S > 1 and mesh.pp == 1:
+            return _forward_ring(params, cfg, tokens, positions, cache,
+                                 mesh=mesh, logits_at=logits_at,
+                                 write_mask=write_mask,
+                                 token_mask=token_mask, moe_impl=moe_impl)
+        # Every other forward runs on the seq-0 row, which holds the cache
+        # (a pipe axis beside it runs even a ring prefill dense, as JAX).
+        mesh, idx = mesh.cache_row()
+        params = [params[i] for i in idx] if mesh.size > 1 else params[idx[0]]
+        multi = mesh.size > 1
+    if multi and mesh.pp > 1:
+        from ..parallel.pipeline import pipeline_forward
+
+        return pipeline_forward(params, cfg, tokens, positions, cache, mesh,
+                                kv_limit=kv_limit, logits_at=logits_at,
+                                write_mask=write_mask)
+    if multi:
         return _forward_tp(params, cfg, tokens, positions, cache,
                            mesh=mesh, kv_limit=kv_limit,
                            attn_impl=attn_impl, page_size=page_size,
                            logits_at=logits_at, write_mask=write_mask,
                            block_tables=block_tables, q_lens=q_lens,
                            token_mask=token_mask, moe_impl=moe_impl)
+    if block_tables is not None:
+        attend = _pool_attend(tokens, positions, cache, write_mask,
+                              block_tables, q_lens, kv_limit, attn_impl)
+    else:
+        attend = _dense_attend(tokens, positions, cache, write_mask,
+                               kv_limit, attn_impl, page_size)
     # final_norm is always a plain tensor in the model dtype: it anchors
     # the activation dtype when the embedding is stored int8.
     with scope("embed"):

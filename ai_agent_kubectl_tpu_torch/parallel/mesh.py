@@ -16,8 +16,11 @@ Axis conventions (the JAX package's, fixed order):
 - ``seq``    — sequence/context (ring attention)
 - ``model``  — tensor parallelism
 
-``data``, ``expert`` and ``model`` are served; a mesh with a >1 pipe or
-seq axis is refused where it is built (ROADMAP.md A8 holds them). Shard
+Every axis is served. A ``seq`` axis carries ring prefill
+(``parallel/ring_attention.py``): every other forward runs on the seq-0
+row of shards (``Mesh.select``), which alone holds the KV cache. A
+``pipe`` axis splits the layer stack into stages
+(``parallel/pipeline.py``), each stage a sub-mesh of its own. Shard
 ``i`` sits at the coordinates of the JAX device layout,
 ``np.asarray(devices).reshape(cfg.shape)`` over ``AXES``: the shard
 index is the row-major ravel of (data, expert, pipe, seq, model), so
@@ -40,10 +43,6 @@ import torch
 logger = logging.getLogger(__name__)
 
 AXES = ("data", "expert", "pipe", "seq", "model")
-
-#: the axes a later part of ROADMAP.md A8 serves
-UNSERVED_AXES = ("pipe", "seq")
-
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
@@ -122,6 +121,14 @@ class Mesh:
     def dp(self) -> int:
         return self.config.data
 
+    @property
+    def pp(self) -> int:
+        return self.config.pipe
+
+    @property
+    def sp(self) -> int:
+        return self.config.seq
+
     def coords(self, i: int) -> Dict[str, int]:
         """Shard ``i``'s index on each axis."""
         return dict(zip(AXES, (int(c) for c in
@@ -143,22 +150,34 @@ class Mesh:
         return [[int(i) for i in g] for g in
                 idx.transpose(outer + inner).reshape(-1, width)]
 
+    def select(self, axis: str, coord: int) -> tuple:
+        """The sub-mesh of the shards at ``coord`` on ``axis`` (that axis
+        of size 1, the others as they are, shard order kept) and their
+        indices in this mesh: a pipeline stage, or a row of the seq
+        axis."""
+        idx = [i for i in range(self.size) if self.coord(i, axis) == coord]
+        cfg = dataclasses.replace(self.config, **{axis: 1})
+        return Mesh(cfg, tuple(self.devices[i] for i in idx)), idx
+
+    def cache_row(self) -> tuple:
+        """The sub-mesh that holds the KV cache and runs every forward but
+        a ring prefill, with its indices: the seq-0 row (the whole mesh
+        without a seq axis). The JAX layout replicates params and cache
+        over ``seq``; the replicas compute the same values, so the port
+        keeps one."""
+        if self.config.seq <= 1:
+            return self, list(range(self.size))
+        return self.select("seq", 0)
+
 
 def build_mesh(cfg: MeshConfig, devices: Sequence) -> Mesh:
     """A mesh over ``devices`` (one per shard; a device may repeat).
     Raises when the spec wants another number of devices, as the JAX
-    ``build_mesh`` does, and when it has a >1 pipe or seq axis
-    (ROADMAP.md A8)."""
+    ``build_mesh`` does."""
     devices = tuple(torch.device(d) for d in devices)
     if cfg.n_devices != len(devices):
         raise ValueError(f"Mesh {cfg.describe()} wants {cfg.n_devices} "
                          f"devices, got {len(devices)}")
-    bad = [a for a in UNSERVED_AXES if getattr(cfg, a) > 1]
-    if bad:
-        raise ValueError(
-            f"Mesh {cfg.describe()}: the {'/'.join(bad)} axis is not "
-            f"served by the PyTorch port yet (ROADMAP.md A8); it serves "
-            f"the data, expert and model axes (dp/ep/tp)")
     mesh = Mesh(cfg, devices)
     logger.info("Mesh built: %s over %d %s device(s)", cfg.describe(),
                 len(devices), devices[0].type)

@@ -1,6 +1,5 @@
 """Partition policy: how params, KV cache and activations split over the
-``data``, ``expert`` and ``model`` axes, and the functions that split
-them.
+mesh axes, and the functions that split them.
 
 The counterpart of the JAX package's ``parallel/sharding.py``. A spec is
 a tuple of mesh axis names (or ``None``, or a tuple of names) over a
@@ -19,7 +18,17 @@ same policy: Megatron tensor parallelism over the stacked-layer tree of
   over ``data`` (the pool never splits: its blocks are shared by every
   slot, so a data mesh serves the dense ladder); every leaf replicated
   over the axes it does not name (each expert row holds its data
-  group's cache).
+  group's cache);
+- pipe: every ``[L, ...]`` layer leaf and the cache's layer axis split
+  into contiguous stages (each stage's shards hold L/pp layers); the
+  embedding, final norm and head are replicated over ``pipe`` as in the
+  JAX specs: the first stage's shards embed, the last stage's run the
+  norm and the head (``parallel/pipeline.py``);
+- seq: params replicated over ``seq`` (each seq row projects its block
+  of a ring prefill on its own devices), the cache held by the seq-0
+  row alone (``Mesh.cache_row``): the JAX replicas over ``seq`` hold the
+  same values, and keeping one spares the host a second copy of every
+  launch outside the ring.
 
 ``sanitize_spec`` drops an axis that does not divide its dimension. The
 ``shard_*`` functions split the port's tensors into per-shard tensors
@@ -28,7 +37,8 @@ head-packed projection (wq, wk, wv) splits on whole heads or not at
 all, since each shard runs the attention kernel on its own heads (XLA
 may split a single KV head's columns and gather them back; a shard here
 cannot). So Gemma-2B's single KV head is replicated under tp=2 and its
-query heads split (``head_layout``).
+query heads split (``head_layout``). Shards on one device that would
+hold the same block share one tensor (the weights are read-only).
 """
 
 from __future__ import annotations
@@ -268,11 +278,20 @@ def _spec_cuts(mesh: Mesh, spec: Spec, shape: tuple, i: int) -> list:
 
 
 def _leaf_shards(leaf, spec: Spec, mesh: Mesh) -> list:
+    """A weight leaf's block on every shard; shards on one device with
+    the same cuts (replicas over ``data``, ``seq``, or an axis the leaf
+    does not split) share one block."""
     if isinstance(leaf, QuantInt4):
         raise ValueError("QUANT=int4 does not compose with a multi-device "
                          "mesh; the engines serve int8 instead")
-    return [_leaf_block(leaf, _spec_cuts(mesh, spec, tuple(leaf.shape), i),
-                        dev) for i, dev in enumerate(mesh.devices)]
+    out, made = [], {}
+    for i, dev in enumerate(mesh.devices):
+        cuts = _spec_cuts(mesh, spec, tuple(leaf.shape), i)
+        key = (str(dev), tuple(cuts))
+        if key not in made:
+            made[key] = _leaf_block(leaf, cuts, dev)
+        out.append(made[key])
+    return out
 
 
 def _no_model(spec: Spec) -> Spec:
@@ -312,17 +331,20 @@ def shard_params(params: Params, mesh: Mesh,
 
 
 def _cache_spec(heads_split: bool, split_rows: bool) -> Spec:
-    """The per-shard split of a cache leaf [L, X, Y, KV, hd]: slots (X)
-    over ``data`` and KV heads over ``model``, each where asked."""
-    return P(None, "data" if split_rows else None, None,
+    """The per-shard split of a cache leaf [L, X, Y, KV, hd]: layers over
+    ``pipe``, slots (X) over ``data`` and KV heads over ``model``, the
+    last two where asked."""
+    return P("pipe", "data" if split_rows else None, None,
              "model" if heads_split else None, None)
 
 
 def _kv_shards(leaf, mesh: Mesh, heads_split: bool,
                split_rows: bool) -> ShardedKV:
-    """One cache leaf [L, X, Y, KV, hd] (or a ``QuantKV``) over the mesh:
-    KV heads split over ``model`` and slots over ``data`` where asked,
-    else a whole copy per shard; each shard's leaf its own tensor."""
+    """One cache leaf [L, X, Y, KV, hd] (or a ``QuantKV``) over the
+    mesh's cache row (``Mesh.cache_row``): layers over ``pipe``, KV heads
+    over ``model`` and slots over ``data`` where asked, else a whole copy
+    per shard; each shard's leaf its own tensor."""
+    mesh = mesh.cache_row()[0]
     spec = _cache_spec(heads_split, split_rows)
     out, seen = [], set()
     for i, dev in enumerate(mesh.devices):
@@ -346,10 +368,10 @@ def rows_split(mesh: Mesh, batch: int) -> bool:
 
 def shard_cache(cache, mesh: Mesh, cfg: ModelConfig, *,
                 split_rows: bool = False):
-    """A dense per-slot ``KVCache`` split over the mesh: KV heads over
-    ``model`` where they divide (``cache_specs``), and with
-    ``split_rows`` its slots over ``data`` where that divides; else a
-    whole copy per shard."""
+    """A dense per-slot ``KVCache`` split over the mesh's cache row:
+    layers over ``pipe``, KV heads over ``model`` where they divide
+    (``cache_specs``), and with ``split_rows`` its slots over ``data``
+    where that divides; else a whole copy per shard."""
     from ..models.transformer import KVCache
 
     heads = head_layout(cfg, mesh.tp)[1]

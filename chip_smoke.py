@@ -6,8 +6,8 @@
                                      # the serve burst timed six times
 
 Phases, in order; any failure raises and the script exits non-zero.
-Every model runs at its full width. serve, serve_ckpt and serve_tp run
-every layer of theirs; the phases that PHASE_LAYERS names run fewer
+Every model runs at its full width. serve, serve_ckpt, serve_tp,
+serve_ring and serve_pp run every layer of theirs; the phases that PHASE_LAYERS names run fewer
 (Gemma-2B 6 of 18, Gemma-7B 8 of 28, Llama-3-8B 8 of 32 in serve_paged,
 Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
 (MOE_LAYERS, KVQ_LAYERS), so that the whole script stays well inside its
@@ -92,7 +92,12 @@ Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
                admission's scatter (ops/quant.py::kv_set_slots: a
                shallow source, a padding row at the out-of-range slot,
                bf16 and int8 leaves) must equal its CPU result bit for
-               bit.
+               bit. The dense paged decode as it follows a ring prefill
+               on serve_ring's sp=2,tp=2 (a Llama-3-8B tp=2 shard, 16
+               over 4 heads of 128, page 64, a cache of 8,256 positions,
+               8 slots near 3,000 and 6,000 on and beside a key-split
+               boundary), held against the plain version and timed with
+               its bound and SDPA.
 3. serve    -- build the port's server from the environment-style config
                (MODEL_NAME=gemma-2b-it, random bf16 weights from a fixed
                seed, DECODE_BATCH_SIZE=8, the default pool and radix
@@ -595,6 +600,47 @@ Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
                capacity T_local and drops nothing.
                Printed: each run's seconds, tok/s and drops (shards on
                one card measure no interconnect: no claim).
+15e. serve_ring -- ring prefill on a seq axis: Llama-3-8B bf16 at full
+               width (random weights from seed 0) on MESH_SHAPE sp=2
+               (two shards of the one card) and sp=2,tp=2 (four), with
+               MAX_SEQ_LEN=8192, the default buckets (largest 1,024),
+               HBM_PREFIX_CACHE=false and DECODE_ATTN=paged (page 64).
+               Over HTTP: two pasted event dumps of about 3,000 and
+               6,000 tokens (padded to 4,096 and 8,192, prefilled by the
+               ring) beside six short queries, 16 new tokens each; then
+               the 6,000-token dump through the single-sequence engine
+               on sp=2, and the 3,000-token one on sp=3, which 4,096
+               does not divide (the chunked fallback). Reference: the
+               unsharded dense-ladder engine on the same weights (the
+               long prompts prefilled in chunks through flash). Gates:
+               the ring ran where it must (counted on each engine) and
+               fell back on sp=3; every first-token logits of a long
+               prompt against the reference's within serve_tp's rule;
+               greedy transcripts equal or apart first at a near tie
+               (a top-2 gap within TP_LOGIT_MAX of the logits' rms);
+               /health's sharding mesh seq 2 and kv_pool_mesh_fallback
+               true, the /metrics gauge 1, the fallback warned; decode
+               through row 4 and short prefills through row 3, their
+               inputs tapped and held against the plain versions; the
+               books balanced. Printed: ring prefill ms against the
+               reference's chunked prefill ms, peak memory, row 4's and
+               row 3's launches per run.
+15f. serve_pp -- pipeline stages on a pipe axis: Llama-3-8B bf16 at full
+               width (seed 0) on pp=2 (two shards of the card), pp=2,tp=2
+               and pp=2,tp=2 with KV_QUANT=int8 (four), DECODE_ATTN=paged
+               (which a pipe axis turns to dense, loudly), the burst of 8
+               queries over HTTP, 16 new tokens. Reference: the unsharded
+               dense-ladder engine (dense decode; int8 KV for the int8
+               run). Gates: one prefill step's logits within serve_tp's
+               rule; greedy transcripts equal or apart first at a near
+               tie; each stage's shards hold L/pp layers of the weights
+               and of the cache (payload and scales); the pool and paged
+               decode fell back, warned; /health's mesh pipe 2 and the
+               residual split off; no kernel launched inside a stage (the
+               JAX stage body is dense); the books balanced. Printed:
+               bytes of weights and KV per stage, the microbatch counts,
+               tok/s against the reference (one card carries every
+               stage: no claim).
 16. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
@@ -642,7 +688,7 @@ PHASES = ("build", "kernel", "serve", "serve_pipe", "serve1", "serve_paged",
           "serve_ckpt", "serve_qos", "serve_moe", "serve_kvq", "serve_obs",
           "serve_chaos", "serve_grammar", "serve_spec", "serve_host",
           "serve_fleet", "serve_tp", "serve_spec_tp", "serve_moe_ep",
-          "timing")
+          "serve_ring", "serve_pp", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -1430,6 +1476,10 @@ def phase_kernel(torch) -> dict:
         out[key]["mesh_shards"] = got
         out[key]["max_abs_err"] = max(out[key]["max_abs_err"],
                                       got["max_abs_err"])
+    ring = _kernel_ring_decode(torch, gen)
+    row = out["paged_decode_attention"]
+    row["ring_decode"] = ring
+    row["max_abs_err"] = max(row["max_abs_err"], ring["max_abs_err"])
     return out
 
 
@@ -5435,6 +5485,9 @@ def kernel_lines(results: dict) -> list:
     tp_runs = results.get("serve_tp", {}).get("runs", {})
     spec_tp = results.get("serve_spec_tp", {}).get("launches", {})
     moe_ep = results.get("serve_moe_ep", {}).get("launches", {})
+    ring = results.get("serve_ring", {}).get("launches", {})
+    pp = results.get("serve_pp", {}).get("launches", {})
+    ring_decode = kernel.get("paged_decode_attention", {}).get("ring_decode")
 
     def tp_launches(name):
         counts = [r["launches"].get(name) for r in tp_runs.values()]
@@ -5470,7 +5523,9 @@ def kernel_lines(results: dict) -> list:
                                "serve_pipe": pipe.get(name),
                                "serve_tp": tp_launches(name),
                                "serve_spec_tp": spec_tp.get(name),
-                               "serve_moe_ep": moe_ep.get(name)},
+                               "serve_moe_ep": moe_ep.get(name),
+                               "serve_ring": ring.get(name),
+                               "serve_pp": pp.get(name)},
             "shapes": shapes,
         }
 
@@ -5507,7 +5562,9 @@ def kernel_lines(results: dict) -> list:
               "ai_agent_kubectl_tpu/ops/paged_attention.py:264",
               paged.get("dense", {}).get("launches", {}).get("paged"),
               kernel.get("paged_decode_attention", {}).get("max_abs_err"),
-              timing.get("paged_decode_attention", {}), "decode",
+              dict(timing.get("paged_decode_attention", {}),
+                   **({"ring_decode_tp2_s8192": ring_decode}
+                      if ring_decode else {})), "decode",
               "torch.nn.functional.scaled_dot_product_attention over the "
               "live span with a key mask"),
         entry("ragged_attention_pool_sharded", "ragged_attention.cu",
@@ -9873,6 +9930,671 @@ def _moe_ep_gate(torch, name: str, run: dict, ref: dict, params,
         f"{run.get('dispatch_check')}")
 
 
+# ---------------------------------------------------------- serve_ring
+
+#: ring prefill on a seq axis of the one card: Llama-3-8B bf16 at full
+#: width (random weights from seed 0) over MESH_SHAPE sp=2 and sp=2,tp=2,
+#: the prompts past the largest bucket (1,024) prefilled by the ring
+RING_MODEL = "llama-3-8b-instruct"
+SERVE_RING_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda", "MODEL_NAME": RING_MODEL,
+    "DTYPE": "bfloat16", "DECODE_BATCH_SIZE": str(N_SLOTS),
+    "TOKENIZER_PATH": SERVE_ENV["TOKENIZER_PATH"],
+    "RATE_LIMIT": "1000/minute", "MAX_SEQ_LEN": "8192",
+    # Every prompt would take the suffix path with the prefix cache on.
+    "HBM_PREFIX_CACHE": "false", "DECODE_ATTN": "paged",
+    # DECODE_ATTN=auto's page for a GQA model; an explicit paged keeps
+    # KV_PAGE_SIZE.
+    "KV_PAGE_SIZE": "64", "MAX_NEW_TOKENS": "16",
+}
+#: run -> (MESH_SHAPE, shards on the card)
+RING_RUNS = {"sp2": ("sp=2", 2), "sp2_tp2": ("sp=2,tp=2", 4)}
+#: the two long queries' rendered lengths (padded to 4,096 and 8,192)
+RING_LONG_TOKENS = (3000, 6000)
+#: a seq axis that 4,096 does not divide: the ring falls back to chunks
+RING_FALLBACK = ("sp=3", 3)
+#: the dense ladder's span of serve_ring: MAX_SEQ_LEN 8192 and one
+#: 16-token chunk, in pages of 64 (phase 2's row-4 geometry)
+RING_DECODE_SPAN = -(-(8192 + 16) // 64) * 64
+#: Llama-3-8B's tp=2 shard: 16 query heads over 4 KV heads of 128
+LLAMA_TP2 = dict(H=LLAMA_HEADS // 2, KV=LLAMA_KV // 2, hd=LLAMA_HD)
+
+
+def ring_decode_positions(kps: int) -> list:
+    """8 slots near 3,000 and 6,000 (the serve_ring prompts' decode
+    positions), on and beside the key-split boundaries nearest them."""
+    out = []
+    for near in (3000, 6000):
+        b = max(1, round(near / kps)) * kps
+        out += [b - 1, b, b + 1, near]
+    return out
+
+
+def _kernel_ring_decode(torch, gen) -> dict:
+    """Row 4 as the decode after a ring prefill launches it on a shard of
+    serve_ring (b): the dense cache of RING_DECODE_SPAN positions at
+    Llama-3-8B's tp=2 shard, page 64, 8 slots near 3,000 and 6,000 on
+    and beside a key-split boundary; against the plain version, then
+    timed with its bound and SDPA over the live span."""
+    import torch.nn.functional as F
+
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain, split_plan)
+
+    splits, kps, _ = split_plan(N_SLOTS, LLAMA_TP2["H"], LLAMA_TP2["KV"],
+                                RING_DECODE_SPAN)
+    positions = ring_decode_positions(kps)
+    case = paged_case(torch, gen, page=64, positions=positions,
+                      span=RING_DECODE_SPAN, **LLAMA_TP2)["dense"]
+    if splits < 2:
+        raise AssertionError("paged ring decode: the keys must split")
+    err = check_close(torch, "paged dense [llama_tp2_s8192]",
+                      paged_decode_attention(**case),
+                      paged_decode_attention_plain(**case))
+    q, kc, vc, mask = paged_sdpa_inputs(torch, case, False)
+    entry = timed(
+        torch, lambda: paged_decode_attention(**case),
+        lambda: paged_decode_attention_plain(**case),
+        lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, enable_gqa=True), iters=50)
+    entry.update(positions=positions, splits=splits, keys_per_split=kps,
+                 max_abs_err=err)
+    with_bound(entry, *paged_live_work(case, False))
+    log(f"[kernel] paged dense llama_tp2_s8192 (the decode after a ring "
+        f"prefill, span {RING_DECODE_SPAN}): max |kernel - plain| = "
+        f"{err:.3e} ({splits} key splits of {kps}; positions {positions})")
+    log_timing(f"paged dense decode, Llama-3-8B tp=2 shard over "
+               f"{RING_DECODE_SPAN} positions", entry, "sdpa")
+    return entry
+
+
+def phase_serve_ring(torch) -> dict:
+    """Phase 15e: ring prefill on a seq axis of the one card."""
+    release_served_apps(torch)
+    out = asyncio.run(_serve_ring(torch))
+    release_served_apps(torch)
+    return out
+
+
+def _dump_query(tokenizer, target: int) -> str:
+    """A pasted ``kubectl get events`` dump of a large cluster, cut where
+    the rendered prompt reaches ``target`` tokens (one line, as the
+    service's sanitation leaves it)."""
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+
+    head = "why do these pods keep failing? events:"
+    lines, i = [], 0
+    reasons = ("BackOff", "FailedScheduling", "Unhealthy", "OOMKilling",
+               "FailedMount")
+    while True:
+        lines.append(f"{i % 59}m Warning {reasons[i % 5]} pod/web-{i:04d} "
+                     f"node-{i % 37:02d} back-off restarting failed "
+                     f"container web in payments-{i % 11}")
+        i += 1
+        if i % 2 == 0:
+            query = " ".join([head] + lines)
+            if len(tokenizer.encode(render_prompt(query))) >= target:
+                return query
+
+
+class _RingTap:
+    """``_prefill_ring`` and ``_prefill_chunked`` of one engine, timed
+    (the card synchronized around each call) with each call's prompt
+    length and last-position logits kept, keyed by the prompt's token
+    count; ``_prefill_ring``'s returning None (the chunked fallback) is
+    counted."""
+
+    def __init__(self, torch, engine):
+        self.torch = torch
+        self.calls: dict = {"ring": [], "chunked": []}
+        for kind, name in (("ring", "_prefill_ring"),
+                           ("chunked", "_prefill_chunked")):
+            setattr(engine, name, self._wrap(kind, getattr(engine, name)))
+
+    def _wrap(self, kind, real):
+        torch = self.torch
+
+        def call(prompt_ids, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = real(prompt_ids, *a, **kw)
+            torch.cuda.synchronize()
+            self.calls[kind].append({
+                "n": len(prompt_ids), "ms": (time.monotonic() - t0) * 1e3,
+                "logits": None if out is None else out[0][0].float().clone(),
+                "fell_back": out is None})
+            return out
+        return call
+
+
+def _logit_check(torch, got, want) -> dict:
+    """serve_tp's rule: the rms of the difference within LOGIT_RTOL of
+    the logits' rms, its max within TP_LOGIT_MAX of it."""
+    rms = float(want.pow(2).mean().sqrt())
+    diff = (got - want).float()
+    out = {"rms": rms, "max_abs_err": float(diff.abs().max()),
+           "rms_err": float(diff.pow(2).mean().sqrt()),
+           "argmax_equal": bool(int(got.argmax()) == int(want.argmax()))}
+    out["ok"] = bool(torch.isfinite(got).all()
+                     and out["rms_err"] <= LOGIT_RTOL * rms
+                     and out["max_abs_err"] <= TP_LOGIT_MAX * rms)
+    return out
+
+
+def _chunked_near_tie(torch, ref, ids, want, got) -> "dict | None":
+    """Where ``got`` first leaves the reference's greedy ``want`` and the
+    top-2 gap of the reference's own prefill of the prompt and the common
+    prefix there (its ``_prefill_prompt``), against TP_LOGIT_MAX x the
+    logits' rms: the largest logit error serve_tp's rule accepts between
+    a sharded and an unsharded forward, so a smaller gap may flip (one
+    bf16 step of a top logit near 10 is 0.0625, above LOGIT_RTOL x an
+    rms near 1); None when they are equal."""
+    want, got = list(want), list(got)
+    if want == got:
+        return None
+    k = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    with torch.no_grad():
+        logits = ref._prefill_prompt(list(ids) + want[:k], 1)[0][0].float()
+    rms = float(logits.pow(2).mean().sqrt())
+    top2 = torch.topk(logits, 2).values
+    return {"position": k, "gap": float(top2[0] - top2[1]),
+            "tolerance": TP_LOGIT_MAX * rms}
+
+
+def _dense_books(tag: str, inner) -> None:
+    if any(s is not None for s in inner._slots) or \
+            inner.stats().get("kv_pages_used"):
+        raise AssertionError(f"{tag}: the books do not balance")
+
+
+def _batcher_warnings():
+    """A handler keeping the batcher's and the engine's warnings."""
+    import logging
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    keep = Keep()
+    for name in ("ai_agent_kubectl_tpu_torch.engine.batcher",
+                 "ai_agent_kubectl_tpu_torch.engine.torch_engine"):
+        logging.getLogger(name).addHandler(keep)
+    return keep
+
+
+def _drop_warnings(keep) -> None:
+    import logging
+
+    for name in ("ai_agent_kubectl_tpu_torch.engine.batcher",
+                 "ai_agent_kubectl_tpu_torch.engine.torch_engine"):
+        logging.getLogger(name).removeHandler(keep)
+
+
+async def _http_run(torch, tag: str, env: dict, params, devices, queries,
+                    families, *, batched: bool = True, on_engine=None):
+    """One engine from the environment-style config (the mesh's devices
+    named), its weights handed over, served over HTTP: ``queries`` at
+    once, counted in a window of their own (the pipe drained), then
+    /health and /metrics. Returns (what was measured, the stopped
+    engine)."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.torch_engine import TorchEngine
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.service import status_for_text
+
+    port = _free_port()
+    _phase_env(env, port)
+    cfg = ServiceConfig.from_env()
+    cls = BatchedTorchEngine if batched else TorchEngine
+    inner = cls.from_config(cfg, devices=devices)
+    inner.params = params
+    if on_engine is not None:
+        on_engine(inner)
+    engine = RecordingEngine(inner)
+    keep = _batcher_warnings()
+    runner = web.AppRunner(create_app(cfg, engine), access_log=None)
+    t0 = time.monotonic()
+    try:
+        await runner.setup()             # starts the engine (warm-up too)
+        site = web.TCPSite(runner, cfg.host, cfg.port)
+        await site.start()
+        out = {"startup_s": time.monotonic() - t0}
+        log(f"[{tag}] {cfg.model_name} up in {out['startup_s']:.1f} s on "
+            f"{inner.mesh.devices if inner.mesh else inner.device} (mesh "
+            f"{cfg.mesh_shape or '-'})")
+        counters = _launch_counters()
+        url = f"http://{cfg.host}:{port}"
+        async with aiohttp.ClientSession() as http:
+            async def ask(query):
+                async with http.post(f"{url}/kubectl-command",
+                                     json={"query": query}) as r:
+                    return r.status, await r.json()
+
+            engine.results.clear()
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t_burst = time.monotonic()
+            burst = await asyncio.gather(*[ask(q) for q in queries])
+            out["burst_s"] = time.monotonic() - t_burst
+            while getattr(inner, "_inflight", None):
+                await asyncio.sleep(0.005)
+            torch.cuda.synchronize()
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["launches"] = {n: fn.launches for n, fn in counters.items()}
+            async with http.get(f"{url}/health") as r:
+                out["sharding"] = (await r.json()).get("sharding")
+            async with http.get(f"{url}/metrics") as r:
+                out["metrics"] = _scrape(await r.text(), families)
+        statuses = [s for s, _ in burst]
+        want = [status_for_text(res.text) for _, res in engine.results]
+        if sorted(statuses) != sorted(want) or len(engine.results) != \
+                len(queries):
+            raise AssertionError(f"{tag}: statuses {statuses}, the engine's "
+                                 f"results {want}")
+        out["results"] = {p: list(r.token_ids) for p, r in engine.results}
+        tokens = sum(r.completion_tokens for _, r in engine.results)
+        out["burst_tok_per_s"] = tokens / out["burst_s"]
+        if batched:
+            _dense_books(tag, inner)
+    finally:
+        await runner.cleanup()           # stops the engine
+        _drop_warnings(keep)
+    out["warnings"] = keep.lines
+    return out, inner
+
+
+async def _ring_reference(torch, params, prompts):
+    """The unsharded engine on the same weights (the dense ladder: each
+    long prompt prefilled in chunks through flash, row 3), at the
+    engine: the queries' greedy token ids, each long prompt's chunked
+    prefill (ms, last logits), the launches."""
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+
+    _phase_env(dict(SERVE_RING_ENV, KV_POOL="false"), _free_port())
+    ref = BatchedTorchEngine.from_config(ServiceConfig.from_env())
+    ref.params = params
+    await ref.start()
+    tap = _RingTap(torch, ref)
+    counters = _launch_counters()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        got = await asyncio.gather(*[
+            ref.generate(p, max_tokens=16, temperature=0.0)
+            for p in prompts])
+        tok_s = sum(r.completion_tokens for r in got) / (time.monotonic()
+                                                          - t0)
+        while ref._inflight:
+            await asyncio.sleep(0.005)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        ids = {p: list(r.token_ids) for p, r in zip(prompts, got)}
+        chunked = {c["n"]: c for c in tap.calls["chunked"]}
+    finally:
+        await ref.stop()
+    return ref, {"ids": ids, "chunked": chunked, "tok_per_s": tok_s,
+                 "launches": launches}
+
+
+async def _serve_ring(torch) -> dict:
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import load_tokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.models.transformer import init_params
+
+    cfg = get_config(RING_MODEL)
+    tokenizer = load_tokenizer(cfg, SERVE_ENV["TOKENIZER_PATH"])
+    longs = [_dump_query(tokenizer, n) for n in RING_LONG_TOKENS]
+    queries = longs + QUERIES[:6]
+    long_ids = [tokenizer.encode(render_prompt(q)) for q in longs]
+    if any(len(i) > 8192 - 16 for i in long_ids):
+        raise AssertionError(f"serve_ring: prompts {[len(i) for i in long_ids]}"
+                             f" past the cache")
+    log(f"[serve_ring] long queries of {[len(i) for i in long_ids]} "
+        f"rendered tokens (buckets up to 1024), six short ones")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       dtype=torch.bfloat16, device="cuda")
+    card = torch.device("cuda", 0)
+    runs, taps = {}, {}
+    tap = _ShardTap(torch)
+    try:
+        for name, (spec, n) in RING_RUNS.items():
+            env = dict(SERVE_RING_ENV, MESH_SHAPE=spec)
+            runs[name], inner = await _http_run(
+                torch, f"serve_ring/{name}", env, full, [card] * n, queries,
+                TP_FAMILIES, on_engine=lambda e, k=name: taps.__setitem__(
+                    k, _RingTap(torch, e)))
+            runs[name]["ring_prefills"] = inner.ring_prefills
+            runs[name]["mesh"] = dict(inner.mesh.shape)
+            runs[name]["decode"] = inner._decode_impl
+            del inner
+            release_served_apps(torch)
+        # The long query once more through the single-sequence engine.
+        env = dict(SERVE_RING_ENV, MESH_SHAPE="sp=2", DECODE_BATCH_SIZE="1")
+        runs["single"], inner = await _http_run(
+            torch, "serve_ring/single", env, full, [card] * 2, longs[1:],
+            TP_FAMILIES, batched=False,
+            on_engine=lambda e: taps.__setitem__("single",
+                                                 _RingTap(torch, e)))
+        runs["single"]["ring_prefills"] = inner.ring_prefills
+        del inner
+        # A seq axis that s_pad 4,096 does not divide: chunked prefill.
+        spec, n = RING_FALLBACK
+        env = dict(SERVE_RING_ENV, MESH_SHAPE=spec, DECODE_BATCH_SIZE="1")
+        runs["fallback"], inner = await _http_run(
+            torch, "serve_ring/fallback", env, full, [card] * n, longs[:1],
+            TP_FAMILIES, batched=False,
+            on_engine=lambda e: taps.__setitem__("fallback",
+                                                 _RingTap(torch, e)))
+        runs["fallback"]["ring_prefills"] = inner.ring_prefills
+        del inner
+        release_served_apps(torch)
+    finally:
+        tap.restore()
+    checks = tap.check("serve_ring")
+    tap.inputs.clear()
+    ref, reference = await _ring_reference(
+        torch, full, sorted(set().union(*(r["results"] for r in
+                                          runs.values()))))
+    peak = torch.cuda.max_memory_allocated() - base
+    failures, ties, logit_checks = [], [], {}
+    for name, r in runs.items():
+        calls = taps[name].calls
+        want_rings = {"sp2": 2, "sp2_tp2": 2, "single": 1,
+                      "fallback": 0}[name]
+        if r["ring_prefills"] != want_rings:
+            failures.append(f"{name}: {r['ring_prefills']} ring prefills, "
+                            f"expected {want_rings}")
+        if name == "fallback" and not any(c["fell_back"]
+                                          for c in calls["ring"]):
+            failures.append(f"{name}: the ring did not fall back")
+        firsts = {c["n"]: c for c in calls["ring"] if not c["fell_back"]}
+        if name == "fallback":
+            firsts = {c["n"]: c for c in calls["chunked"]}
+        for n_tok, c in firsts.items():
+            want = reference["chunked"].get(n_tok)
+            if want is None:
+                failures.append(f"{name}: no reference prefill of {n_tok}")
+                continue
+            chk = _logit_check(torch, c["logits"], want["logits"])
+            chk.update(ms=c["ms"], reference_ms=want["ms"])
+            logit_checks[f"{name}/{n_tok}"] = chk
+            if not chk["ok"]:
+                failures.append(f"{name}: first-token logits of the "
+                                f"{n_tok}-token prompt {chk}")
+        for prompt, got in r["results"].items():
+            ids = ref.tokenizer.encode(prompt)
+            gap = _chunked_near_tie(torch, ref, ids,
+                                    reference["ids"][prompt], got)
+            if gap is not None:
+                if gap["gap"] > gap["tolerance"]:
+                    failures.append(f"{name}: a transcript leaves the "
+                                    f"reference's at {gap}, not a near tie")
+                ties.append({"run": name, **gap})
+        if name in RING_RUNS:
+            sh = r["sharding"] or {}
+            if (sh.get("mesh", {}).get("seq") != 2
+                    or sh.get("kv_pool_mesh_fallback") is not True
+                    or r["metrics"].get("kv_pool_mesh_fallback") != 1):
+                failures.append(f"{name}: /health {sh}, /metrics "
+                                f"{r['metrics']}")
+            if not any("falling back to the dense KV ladder" in w
+                       for w in r["warnings"]):
+                failures.append(f"{name}: the pool fell back silently")
+            if r["decode"] != "paged" or \
+                    r["launches"]["paged_decode_attention"] <= 0 or \
+                    r["launches"]["flash_attention_cached"] <= 0:
+                failures.append(f"{name}: decode {r['decode']}, launches "
+                                f"{r['launches']}")
+    del full
+    if failures:
+        raise AssertionError("serve_ring: " + "; ".join(failures))
+    rows = {k: [r["launches"]["paged_decode_attention"],
+                r["launches"]["flash_attention_cached"]]
+            for k, r in runs.items()}
+    info = {"runs": {k: {kk: vv for kk, vv in v.items()
+                         if kk not in ("results", "warnings")}
+                     for k, v in runs.items()},
+            "logits": logit_checks, "near_ties": ties,
+            "kernel_checks": checks, "peak_gb": peak / 1e9,
+            "reference_tok_per_s": reference["tok_per_s"],
+            "reference_launches": reference["launches"],
+            "launches": {n: sum(r["launches"][n] for r in runs.values())
+                         for n in _launch_counters()}}
+    log(f"[serve_ring] ring prefill against the unsharded chunked prefill "
+        f"(ms): " + ", ".join(f"{k} {v['ms']:.1f} vs {v['reference_ms']:.1f}"
+                             f" (logit rms err {v['rms_err']:.4f}, max "
+                             f"{v['max_abs_err']:.4f} of rms {v['rms']:.3f})"
+                             for k, v in logit_checks.items())
+        + f"; {len(ties)} transcript(s) apart at a near tie; row 4 / row 3 "
+        f"launches per run {rows}; bursts " + ", ".join(
+            f"{k} {v['burst_tok_per_s']:.1f} tok/s" for k, v in runs.items())
+        + f", the reference {reference['tok_per_s']:.1f} tok/s at the "
+        f"engine (shards on one card: no claim); peak {peak / 1e9:.1f} GB "
+        f"above the phase's start; {gpu_line()}")
+    return info
+
+
+# ------------------------------------------------------------ serve_pp
+
+#: pipeline stages on one card: Llama-3-8B bf16 at full width (random
+#: weights from seed 0) over MESH_SHAPE pp=2, pp=2,tp=2 and pp=2,tp=2
+#: with int8 KV; DECODE_ATTN=paged asks for what the stages cannot read
+SERVE_PP_ENV = {
+    "ENGINE": "torch", "TORCH_DEVICE": "cuda", "MODEL_NAME": RING_MODEL,
+    "DTYPE": "bfloat16", "DECODE_BATCH_SIZE": str(N_SLOTS),
+    "TOKENIZER_PATH": SERVE_ENV["TOKENIZER_PATH"],
+    "RATE_LIMIT": "1000/minute", "MAX_NEW_TOKENS": "16",
+    "DECODE_ATTN": "paged", "KV_PAGE_SIZE": "64",
+}
+#: run -> (MESH_SHAPE, shards, extra knobs)
+PP_RUNS = {"pp2": ("pp=2", 2, {}), "pp2_tp2": ("pp=2,tp=2", 4, {}),
+           "pp2_tp2_int8": ("pp=2,tp=2", 4, {"KV_QUANT": "int8"})}
+PP_PAGED_WARNING = ("paged decode attention does not compose with a pipe "
+                    "mesh axis; falling back to dense")
+
+
+def phase_serve_pp(torch) -> dict:
+    """Phase 15f: pipeline stages on a pipe axis of the one card."""
+    release_served_apps(torch)
+    out = asyncio.run(_serve_pp(torch))
+    release_served_apps(torch)
+    return out
+
+
+def _stage_bytes(inner) -> list:
+    """(layers, parameter bytes, cache bytes) of each pipeline stage,
+    each distinct tensor once; raises unless every shard of a stage holds
+    L/pp layers of the weights and the cache."""
+    from ai_agent_kubectl_tpu_torch.ops.quant import QuantKV
+
+    mesh, cfg = inner.mesh, inner.model_cfg
+    L = cfg.n_layers // mesh.pp
+    out = []
+    for s in range(mesh.pp):
+        _, idx = mesh.select("pipe", s)
+        seen, pbytes, cbytes = set(), 0, 0
+        for i in idx:
+            for t in _leaves(inner.params[i]):
+                if t.data_ptr() not in seen:
+                    seen.add(t.data_ptr())
+                    pbytes += t.numel() * t.element_size()
+            if inner.params[i]["layers"]["wq"].shape[0] != L:
+                raise AssertionError(f"stage {s} shard {i}: "
+                                     f"{inner.params[i]['layers']['wq'].shape}")
+            for leaf in (inner._cache.k, inner._cache.v):
+                c = leaf.shards[i]
+                parts = (c.q, c.s) if isinstance(c, QuantKV) else (c,)
+                if any(p.shape[0] != L for p in parts):
+                    raise AssertionError(f"stage {s} shard {i}: cache "
+                                         f"{[p.shape for p in parts]}")
+                cbytes += sum(p.numel() * p.element_size() for p in parts)
+        out.append({"layers": L, "param_bytes": pbytes,
+                    "cache_bytes": cbytes})
+    return out
+
+
+async def _pp_reference(torch, params, prompts, kv_quant: str) -> tuple:
+    """The unsharded dense-ladder engine on the same weights, dense
+    decode (the stages' attention), at the engine: greedy token ids and
+    tok/s."""
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+
+    _phase_env(dict(SERVE_PP_ENV, KV_POOL="false", DECODE_ATTN="dense",
+                    KV_QUANT=kv_quant), _free_port())
+    ref = BatchedTorchEngine.from_config(ServiceConfig.from_env())
+    ref.params = params
+    await ref.start()
+    try:
+        t0 = time.monotonic()
+        got = await asyncio.gather(*[
+            ref.generate(p, max_tokens=16, temperature=0.0)
+            for p in prompts])
+        tok_s = sum(r.completion_tokens for r in got) / (time.monotonic()
+                                                          - t0)
+        while ref._inflight:
+            await asyncio.sleep(0.005)
+    finally:
+        await ref.stop()
+    return ref, {"ids": {p: list(r.token_ids) for p, r in zip(prompts, got)},
+                 "tok_per_s": tok_s}
+
+
+def _pp_step_logits(torch, params, cfg, ids, mesh=None, kv_quant=""):
+    """One prefill step over a fresh dense cache: the logits at the last
+    position."""
+    from ai_agent_kubectl_tpu_torch.models.transformer import KVCache, forward
+
+    n = len(ids)
+    cache = KVCache.zeros(cfg, 1, n, dtype=torch.bfloat16, device="cuda",
+                          kv_quant=kv_quant, mesh=mesh)
+    with torch.no_grad():
+        logits, _ = forward(params, cfg,
+                            torch.tensor([ids], dtype=torch.int32,
+                                         device="cuda"),
+                            torch.arange(n, dtype=torch.int32,
+                                         device="cuda")[None], cache,
+                            logits_at=torch.tensor([n - 1], device="cuda"),
+                            mesh=mesh)
+    return logits[0, 0].float()
+
+
+async def _serve_pp(torch) -> dict:
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.models.transformer import init_params
+    from ai_agent_kubectl_tpu_torch.parallel.pipeline import microbatch_count
+
+    cfg = get_config(RING_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       dtype=torch.bfloat16, device="cuda")
+    card = torch.device("cuda", 0)
+    runs, failures, step = {}, [], {}
+    refs = {}
+    ids0 = None
+    for name, (spec, n, extra) in PP_RUNS.items():
+        env = dict(SERVE_PP_ENV, MESH_SHAPE=spec, **extra)
+        runs[name], inner = await _http_run(
+            torch, f"serve_pp/{name}", env, full, [card] * n, QUERIES,
+            TP_FAMILIES)
+        r = runs[name]
+        r["stages"] = _stage_bytes(inner)
+        r["microbatches"] = {"decode": microbatch_count(N_SLOTS, 2),
+                             "admission": microbatch_count(1, 2)}
+        r["decode"], r["kv_pool"] = inner._decode_impl, inner.kv_pool
+        kvq = extra.get("KV_QUANT", "")
+        log(f"[serve_pp/{name}] burst {r['burst_s']:.2f} s, "
+            f"{r['burst_tok_per_s']:.1f} tok/s, decode {r['decode']}")
+        if ids0 is None:
+            ids0 = inner.tokenizer.encode(sorted(r["results"])[0])
+        step[name] = _logit_check(
+            torch, _pp_step_logits(torch, inner.params, cfg, ids0,
+                                   inner.mesh, kvq),
+            _pp_step_logits(torch, full, cfg, ids0, None, kvq))
+        inner._cache = None
+        del inner
+        release_served_apps(torch)
+        if kvq not in refs:
+            t_ref = time.monotonic()
+            refs[kvq] = await _pp_reference(torch, full,
+                                            sorted(r["results"]), kvq)
+            log(f"[serve_pp] reference (KV {kvq or 'bf16'}) in "
+                f"{time.monotonic() - t_ref:.1f} s")
+        ref, reference = refs[kvq]
+        r["reference_tok_per_s"] = reference["tok_per_s"]
+        r["near_ties"] = []
+        for prompt, got in r["results"].items():
+            gap = _chunked_near_tie(torch, ref, ref.tokenizer.encode(prompt),
+                                    reference["ids"][prompt], got)
+            if gap is not None:
+                if gap["gap"] > gap["tolerance"]:
+                    failures.append(f"{name}: a transcript leaves the "
+                                    f"reference's at {gap}, not a near tie")
+                r["near_ties"].append(gap)
+        if not step[name]["ok"]:
+            failures.append(f"{name}: one step's logits {step[name]}")
+        sh = r["sharding"] or {}
+        if (sh.get("mesh", {}).get("pipe") != 2
+                or sh.get("kv_pool_mesh_fallback") is not True
+                or r["metrics"].get("kv_pool_mesh_fallback") != 1
+                or sh.get("residual_tp_fraction") != 0.0):
+            failures.append(f"{name}: /health {sh}, /metrics {r['metrics']}")
+        # The paged fallback's warning: the pipe's, or int8 KV's first
+        # (the JAX engine's order).
+        paged_warned = any(PP_PAGED_WARNING in w or (
+            kvq and "DECODE_ATTN=paged does not read int8 KV" in w)
+            for w in r["warnings"])
+        if r["decode"] != "dense" or r["kv_pool"] or not paged_warned \
+                or not any("KV_POOL does not compose" in w
+                           for w in r["warnings"]):
+            failures.append(f"{name}: decode {r['decode']}, pool "
+                            f"{r['kv_pool']}, warnings {r['warnings']}")
+        if any(v for k, v in r["launches"].items()):
+            failures.append(f"{name}: a kernel launched inside a stage "
+                            f"{r['launches']}")
+    peak = torch.cuda.max_memory_allocated() - base
+    del full, refs
+    if failures:
+        raise AssertionError("serve_pp: " + "; ".join(failures))
+    info = {"runs": {k: {kk: vv for kk, vv in v.items()
+                         if kk not in ("results", "warnings")}
+                     for k, v in runs.items()},
+            "step_logits": step, "peak_gb": peak / 1e9,
+            "launches": {n: sum(r["launches"][n] for r in runs.values())
+                         for n in _launch_counters()}}
+    log(f"[serve_pp] stages: " + "; ".join(
+        f"{k} " + ", ".join(f"{s['layers']} layers, {s['param_bytes'] / 1e9:.2f}"
+                            f" GB params, {s['cache_bytes'] / 1e9:.2f} GB KV"
+                            for s in v["stages"])
+        for k, v in runs.items())
+        + f"; microbatches {runs['pp2']['microbatches']}; one step's "
+        f"logits " + ", ".join(f"{k} rms err {v['rms_err']:.4f} max "
+                               f"{v['max_abs_err']:.4f} (rms {v['rms']:.3f})"
+                               for k, v in step.items())
+        + "; bursts " + ", ".join(
+            f"{k} {v['burst_tok_per_s']:.1f} tok/s (reference "
+            f"{v['reference_tok_per_s']:.1f} at the engine)"
+            for k, v in runs.items())
+        + f" (one card carries every stage: no claim); peak "
+        f"{peak / 1e9:.1f} GB above the phase's start; {gpu_line()}")
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -9941,6 +10663,8 @@ def main() -> int:
     run("serve_tp", phase_serve_tp, torch)
     run("serve_spec_tp", phase_serve_spec_tp, torch)
     run("serve_moe_ep", phase_serve_moe_ep, torch)
+    run("serve_ring", phase_serve_ring, torch)
+    run("serve_pp", phase_serve_pp, torch)
     run("timing", phase_timing, torch, results.get("serve", {}),
         results.get("serve_paged", {}), results.get("serve_moe", {}),
         results.get("serve_spec", {}), results.get("serve_host", {}),

@@ -244,11 +244,13 @@ def test_decode_regimes_match_jax(layout, impl):
 
 
 def test_forward_refuses_later_slices():
-    """The ring path (either layout) waits for a later slice; paged
-    decode, the pool's gather path, an MoE model (toy-moe from the
-    port's own init, through both layouts, and on a ``model`` mesh,
-    where it equals the unsharded forward) and a dense model on a
-    ``model`` mesh are served."""
+    """The ring path over the pool is not served (the JAX package has
+    none: a ring prefill runs on the dense cache, where a one-column
+    window reads dense, as in JAX: ``tests/test_torch_ring.py`` serves
+    the ring); paged decode, the pool's gather path, an MoE model
+    (toy-moe from the port's own init, through both layouts, and on a
+    ``model`` mesh, where it equals the unsharded forward) and a dense
+    model on a ``model`` mesh are served."""
     _, tcfg = _configs("toy-8m")
     params = tt.init_params(torch.Generator().manual_seed(0), tcfg,
                             dtype=torch.float32)
@@ -257,8 +259,10 @@ def test_forward_refuses_later_slices():
     tok = torch.zeros((1, 1), dtype=torch.int32)
     tables = torch.zeros((1, 2), dtype=torch.int32)
     dense = tt.KVCache.zeros(tcfg, 1, 16, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        tt.forward(params, tcfg, tok, tok, dense, attn_impl="ring")
+    ring, _ = tt.forward(params, tcfg, tok, tok, dense, attn_impl="ring")
+    want, _ = tt.forward(params, tcfg, tok, tok, tt.KVCache.zeros(
+        tcfg, 1, 16, dtype=torch.float32, device="cpu"))
+    torch.testing.assert_close(ring, want, atol=0, rtol=0)
     with pytest.raises(NotImplementedError, match="ring"):
         tt.forward(params, tcfg, tok, tok, cache, attn_impl="ring",
                    block_tables=tables)

@@ -221,17 +221,16 @@ def test_config_defaults_match_the_jax_package():
         assert getattr(ours, name) == getattr(theirs, name), name
 
 
-#: every knob of UNSERVED_KNOBS with a value that asks for the feature,
-#: and MESH_SHAPE with an axis the port does not serve (it serves
-#: dp/ep/tp)
+#: every knob of UNSERVED_KNOBS with a value that asks for the feature
+#: (MESH_SHAPE serves every axis: tests/test_torch_tp.py boots them)
 REFUSED = [
-    ("MESH_SHAPE", "pp=2"), ("DCN_MESH_SHAPE", "data:2"),
+    ("DCN_MESH_SHAPE", "data:2"),
     ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
     ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
 ]
 
 #: a value of each refused knob that the port serves
-SERVED = dict(UNSERVED_KNOBS, MESH_SHAPE="tp=2")
+SERVED = dict(UNSERVED_KNOBS)
 
 
 def test_refused_list_names_every_unserved_knob():
@@ -243,7 +242,7 @@ def test_refused_list_names_every_unserved_knob():
 def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
                                                       value):
     monkeypatch.setenv(knob, value)
-    with pytest.raises(ValueError, match=knob):
+    with pytest.raises(ValueError, match=f"{knob}.*A8"):
         ServiceConfig.from_env()
     monkeypatch.setenv(knob, SERVED[knob])
     assert ServiceConfig.from_env().engine == "torch"

@@ -725,15 +725,26 @@ def init_toy_params():
                                        ("sp=2", "seq")])
 def test_non_model_axes_are_refused_at_boot_naming_a8(monkeypatch, spec,
                                                       axis):
-    """The pipe and seq axes wait for A8's later parts, beside any served
-    axis (data, expert and model serve:
-    ``tests/test_torch_mesh_serving.py``)."""
+    """No longer refused: the pipe and seq axes (A8 rows 4 and 5) boot
+    from the environment beside any served axis, as in the JAX package,
+    and build their meshes; only the DCN and distributed knobs are still
+    refused naming A8 (``tests/test_torch_server.py``). Served in
+    ``tests/test_torch_ring.py`` and ``tests/test_torch_pp.py``."""
     monkeypatch.setenv("MESH_SHAPE", spec)
-    with pytest.raises(ValueError, match=f"the {axis} axis .*A8"):
-        ServiceConfig.from_env()
-    with pytest.raises(ValueError, match="A8"):
-        pmesh.build_mesh(pmesh.MeshConfig.parse(spec),
-                         ["cpu"] * pmesh.MeshConfig.parse(spec).n_devices)
+    monkeypatch.setenv("TORCH_DEVICE", "cpu")
+    assert ServiceConfig.from_env().mesh_shape == spec
+    assert JaxServiceConfig.from_env().mesh_shape == spec
+    cfg = pmesh.MeshConfig.parse(spec)
+    mesh = pmesh.build_mesh(cfg, ["cpu"] * cfg.n_devices)
+    assert mesh.shape[axis] == 2 and mesh.size == cfg.n_devices
+    # Each stage or seq row is a sub-mesh of the other axes.
+    for c in range(2):
+        sub, idx = mesh.select(axis, c)
+        assert sub.shape[axis] == 1 and len(idx) == mesh.size // 2
+        assert all(mesh.coord(i, axis) == c for i in idx)
+    row, idx = mesh.cache_row()
+    assert row.shape["seq"] == 1
+    assert len(idx) == mesh.size // (2 if axis == "seq" else 1)
 
 
 def test_spec_decode_and_moe_on_a_mesh_are_refused(monkeypatch):
