@@ -4,9 +4,10 @@ The knobs the port reads, under the JAX package's environment variable
 names and with its defaults and validation, plus ``TORCH_DEVICE`` — the
 counterpart of ``JAX_PLATFORMS``: the server runs on ``cuda`` unless it
 is set to ``cpu``. Every other knob of the JAX package names a feature
-the port does not serve yet: it is listed in ``UNSERVED_KNOBS`` and
-refused at boot when set to anything but the value the port serves, so
-a deployment never silently gets less than it asked for. ``ENGINE``
+the port does not serve yet: it would be listed in ``UNSERVED_KNOBS``
+(empty now: every knob is served) and refused at boot when set to
+anything but the value the port serves, so a deployment never silently
+gets less than it asked for. ``ENGINE``
 takes the port's engines (``torch``, ``torch-batched``), the remote
 ``openai`` engine and the rule-table ``fake`` engine (no model, no
 device); the JAX package's ``jax`` and ``jax-batched`` engines are
@@ -56,8 +57,16 @@ admission's scratch budget (``ADMIT_SCRATCH_MB``, default 512, 0 =
 uncapped) is read with the JAX parsing; it caps the group sizes of the
 batched engine on the dense KV ladder (``KV_POOL=false``), and the pool
 has no scratch to cap. ``MESH_SHAPE`` serves every axis (dp/ep/pp/sp/tp;
-the engines check a pipe axis against the layers); the DCN and
-distributed knobs are refused naming ROADMAP.md A8.
+the engines check a pipe axis against the layers). The DCN and
+distributed knobs (``DCN_MESH_SHAPE``, ``DISTRIBUTED_INIT``,
+``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``) are read with
+the JAX defaults and parsing, and ``SPEC_DECODE``'s refusal counts the
+DCN spec's data/pipe/seq axes as the JAX one does. On a mesh that spans
+processes (a DCN spec over more than one device) what rank 0 cannot
+mirror to the other processes is refused at boot, each naming its
+ROADMAP.md row: a seq axis across processes (A12 row 1), the host KV
+tier (A12 row 2) and a fleet (A12 row 3); so is an engine without a
+mesh (``ENGINE=openai|fake``) when ``NUM_PROCESSES`` > 1.
 """
 
 from __future__ import annotations
@@ -73,14 +82,10 @@ from .obs.slo import parse_slo_windows
 from .obs.steptime import load_baselines
 
 
-#: JAX-package knobs whose features wait for a later slice (ROADMAP.md
-#: A8: DCN and distributed init), each with the value the port serves:
-#: its "off" default.
-UNSERVED_KNOBS = {
-    # more than one host, or processes joined by torch.distributed (A8)
-    "DCN_MESH_SHAPE": "", "DISTRIBUTED_INIT": "false",
-    "COORDINATOR_ADDRESS": "", "NUM_PROCESSES": "1", "PROCESS_ID": "0",
-}
+#: JAX-package knobs whose features wait for a later slice, each with
+#: the value the port serves (its "off" default): none since the DCN and
+#: distributed knobs are served.
+UNSERVED_KNOBS: dict = {}
 
 
 #: ``parallel/mesh.py::MeshConfig.parse``'s alias map, for validation.
@@ -91,6 +96,16 @@ _MESH_AXIS_ALIASES = {
     "sp": "seq", "seq": "seq",
     "tp": "model", "model": "model",
 }
+
+
+def _mesh_size(spec: str) -> int:
+    """The device count of a mesh spec (unknown names or sizes are the
+    engine's error and count 1 here)."""
+    n = 1
+    for part in filter(None, (p.strip() for p in (spec or "").split(","))):
+        _, _, val = part.replace(":", "=").partition("=")
+        n *= int(val) if val.strip().isdigit() else 1
+    return n
 
 
 def _mesh_axes_over_one(spec: str) -> set:
@@ -205,8 +220,13 @@ class ServiceConfig:
     engine: str = "torch"
     torch_device: str = "cuda"              # TORCH_DEVICE: cuda | cpu
     # Serving on a mesh: "dp=2,ep=2,tp=2" style (or "data:2,..."), every
-    # axis (dp/ep/pp/sp/tp); DCN and distributed init wait (A8).
+    # axis (dp/ep/pp/sp/tp), multiplied across processes by the DCN spec.
     mesh_shape: str = ""                    # MESH_SHAPE
+    dcn_mesh_shape: str = ""                # DCN_MESH_SHAPE (across processes)
+    distributed_init: bool = False          # DISTRIBUTED_INIT
+    coordinator_address: Optional[str] = None   # COORDINATOR_ADDRESS
+    num_processes: int = 1                  # NUM_PROCESSES
+    process_id: int = 0                     # PROCESS_ID
     model_name: str = "toy-8m"              # MODEL_NAME (registry key)
     model_path: Optional[str] = None        # MODEL_PATH (HF safetensors)
     tokenizer_path: Optional[str] = None    # TOKENIZER_PATH
@@ -612,16 +632,20 @@ class ServiceConfig:
                     f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
                     f"{self.decode_batch_size} would serve plain decode")
             # The draft world shards over tp/ep; the pool the spec chunk
-            # needs never splits over data (nor pipe/seq), as in JAX.
-            bad = sorted(_mesh_axes_over_one(self.mesh_shape)
+            # needs never splits over data (nor pipe/seq), as in JAX:
+            # the DCN spec's axes count too.
+            bad = sorted((_mesh_axes_over_one(self.mesh_shape)
+                          | _mesh_axes_over_one(self.dcn_mesh_shape))
                          & {"data", "pipe", "seq"})
             if bad:
                 raise ValueError(
                     f"SPEC_DECODE does not compose with a mesh that has "
                     f"a >1 {'/'.join(bad)} axis (MESH_SHAPE="
-                    f"{self.mesh_shape!r}): the spec KV pool's blocks and "
-                    f"the draft verify window shard over tp/ep only — use "
-                    f"a tensor/expert-parallel mesh or disable one of them")
+                    f"{self.mesh_shape!r} DCN_MESH_SHAPE="
+                    f"{self.dcn_mesh_shape!r}): the spec KV pool's "
+                    f"blocks and the draft verify window shard over "
+                    f"tp/ep only — use a tensor/expert-parallel mesh or "
+                    f"disable one of them")
         # Only the continuous-batching engine has the radix tree the host
         # tier hangs off (the JAX single-sequence engine ignores the knob).
         if self.host_kv_blocks > 0 and not self.batched_engine:
@@ -631,6 +655,38 @@ class ServiceConfig:
                 f"DECODE_BATCH_SIZE>1, or ENGINE=torch-batched); "
                 f"ENGINE={self.engine} with DECODE_BATCH_SIZE="
                 f"{self.decode_batch_size} has no radix tree to demote from")
+        self._check_processes()
+
+    def _check_processes(self) -> None:
+        """The refusals of a mesh that spans processes: what rank 0
+        cannot mirror to the other processes' shards, each naming its
+        ROADMAP.md row."""
+        if self.num_processes > 1 and self.engine not in ("torch",
+                                                          "torch-batched"):
+            raise ValueError(
+                f"NUM_PROCESSES={self.num_processes} serves one mesh over "
+                f"the processes; ENGINE={self.engine} has no mesh (use "
+                f"ENGINE=torch or torch-batched)")
+        if _mesh_size(self.dcn_mesh_shape) <= 1:
+            return
+        if "seq" in _mesh_axes_over_one(self.dcn_mesh_shape):
+            raise ValueError(
+                f"DCN_MESH_SHAPE={self.dcn_mesh_shape!r}: a seq axis across "
+                f"processes is not served (ROADMAP.md A12 row 1): the ring "
+                f"prefill writes every block's K/V into the seq-0 row's "
+                f"cache, which would lie in another process")
+        if self.host_kv_blocks > 0:
+            raise ValueError(
+                f"HOST_KV_BLOCKS={self.host_kv_blocks} with DCN_MESH_SHAPE="
+                f"{self.dcn_mesh_shape!r} is not served (ROADMAP.md A12 row "
+                f"2): a demote reads every shard's block, and another "
+                f"process's shards are not rank 0's to read")
+        if self.fleet_size > 1:
+            raise ValueError(
+                f"FLEET_SIZE={self.fleet_size} with DCN_MESH_SHAPE="
+                f"{self.dcn_mesh_shape!r} is not served (ROADMAP.md A12 row "
+                f"3): each replica would need a follower stream of its own "
+                f"in every process")
 
     @property
     def batched_engine(self) -> bool:
@@ -684,7 +740,7 @@ class ServiceConfig:
             raw = os.getenv(name)
             if raw not in (None, "") and not _same_value(raw, served):
                 raise ValueError(f"{name}={raw!r} is not served by the "
-                                 f"PyTorch port yet (ROADMAP.md A8)")
+                                 f"PyTorch port yet")
         moe_impl = (_env_str("MOE_IMPL", "auto") or "auto").lower()
         return cls(
             api_auth_key=_env_str("API_AUTH_KEY", None),
@@ -760,6 +816,11 @@ class ServiceConfig:
             spec_draft_model=_env_str("SPEC_DRAFT_MODEL", "gemma-2b-it"),
             spec_draft_path=_env_str("SPEC_DRAFT_PATH", None),
             mesh_shape=_env_str("MESH_SHAPE", "") or "",
+            dcn_mesh_shape=_env_str("DCN_MESH_SHAPE", "") or "",
+            distributed_init=_env_bool("DISTRIBUTED_INIT", False),
+            coordinator_address=_env_str("COORDINATOR_ADDRESS", None),
+            num_processes=_env_int("NUM_PROCESSES", 1),
+            process_id=_env_int("PROCESS_ID", 0),
             fleet_size=_env_int("FLEET_SIZE", 1),
             fleet_hedge_ms=_env_float("FLEET_HEDGE_MS", 0.0),
             fleet_affinity=_env_bool("FLEET_AFFINITY", True),

@@ -261,6 +261,7 @@ from ..obs.slo import SLO_SESSION_TTFT
 from ..ops.paged_attention import paged_supported
 from ..ops.quant import (QuantKV, ShardedKV, kv_broadcast_rows, kv_map,
                          kv_set_slots, kv_update_slice)
+from ..parallel import distributed
 from ..parallel.sharding import (ShardedParams, draft_kv_fallback,
                                   kernel_heads_divide, residual_fraction,
                                   shard_params)
@@ -389,6 +390,47 @@ def step_fold(step_logits, prev_tok, live, ngen, budget, health, gram,
     return termination_fold(nxt, step_logits, prev_tok, live, ngen, budget,
                             health, eos_ids, vocab_size, health_check,
                             grammar=grammar)
+
+
+# ---------------------------------------------------- calls on shards
+#
+# The batcher's cache writes outside the forward, module-level so that
+# the dispatch point (``TorchEngine._shards``) names them by reference:
+# on a mesh that spans processes each runs on every process over its own
+# shards.
+
+def copy_pool_rows(cache: KVCache, src: int, dst: int, rows: int) -> None:
+    """Copy-on-write: the first ``rows`` KV rows of pool block ``src``
+    into block ``dst``, every layer, in place."""
+    for kv in (cache.k, cache.v):
+        kv_map(lambda a: a[:, dst, :rows].copy_(a[:, src, :rows]), kv)
+
+
+def splice_slots(cache: KVCache, scratch: KVCache, depth: int,
+                 slots) -> None:
+    """A scratch prefill's first ``depth`` KV rows of each row into the
+    dense cache's ``slots`` (``kv_set_slots``: out-of-range slots
+    dropped)."""
+    for dst, src in ((cache.k, scratch.k), (cache.v, scratch.v)):
+        kv_set_slots(dst, kv_map(lambda a: a[:, :, :depth], src), slots)
+
+
+def splice_prefix_rows(scratch: KVCache, prefix, rows: int) -> None:
+    """The resident prefix's K/V into each of a scratch's first ``rows``
+    rows."""
+    kv_update_slice(scratch.k, kv_broadcast_rows(prefix.k, rows))
+    kv_update_slice(scratch.v, kv_broadcast_rows(prefix.v, rows))
+
+
+def slot_view(cache: KVCache, slot_idx: int, zero: bool) -> KVCache:
+    """One slot's rows of a dense cache as a one-row cache (a view),
+    zeroed first when ``zero``."""
+    view = KVCache(*(kv_map(lambda a: a[:, slot_idx:slot_idx + 1], leaf)
+                     for leaf in (cache.k, cache.v)))
+    if zero:
+        for leaf in (view.k, view.v):
+            kv_map(torch.Tensor.zero_, leaf)
+    return view
 
 
 @dataclasses.dataclass
@@ -904,6 +946,13 @@ class BatchedTorchEngine(TorchEngine):
                     self.chunk_len, self.chunk_pipe_depth,
                     "device" if self.device_termination else "host-scan")
 
+    def build_shards(self) -> None:
+        """A follower rank's part of ``start`` (``TorchEngine``'s), and
+        the draft's weight shards under speculative decoding."""
+        super().build_shards()
+        if self.spec_decode:
+            self._spec_load()
+
     def _grammar_start(self) -> None:
         """Compile the kubectl grammar against this tokenizer (host numpy
         truth), after the boot-time cross-check with the safety ring."""
@@ -954,6 +1003,8 @@ class BatchedTorchEngine(TorchEngine):
                                                   ShardedParams):
             self._draft_params = shard_params(self._draft_params, self.mesh,
                                               dcfg)
+        if self.mesh is not None and self.mesh.hybrid:
+            distributed.HANDS.adopt("draft_params", self._draft_params)
         if self._draft_kv_fallback:
             logger.warning(
                 "draft %s KV heads (%d) do not divide the mesh's model "
@@ -1105,10 +1156,10 @@ class BatchedTorchEngine(TorchEngine):
         self._tok_d = self._pos_d = self._active_d = None
         self._ngen_d = self._budget_d = self._seeds_d = self._temps_d = None
         if self.kv_pool:
-            self._cache = KVCache.pool(self.model_cfg, self._pool_n_blocks,
-                                       self.kv_pool_page, dtype=self.dtype,
-                                       device=dev, kv_quant=self.kv_quant,
-                                       mesh=self.mesh)
+            self._cache = self._shards(
+                KVCache.pool, self.model_cfg, self._pool_n_blocks,
+                self.kv_pool_page, dtype=self.dtype, device=dev,
+                kv_quant=self.kv_quant, mesh=self.mesh, keep=True)
             prev_pool, prev_radix = self._pool, self._radix
             prev_store = self._host_store
             self._pool = BlockPool(self._pool_n_blocks, self.kv_pool_page)
@@ -1135,10 +1186,10 @@ class BatchedTorchEngine(TorchEngine):
             self._tables = np.full((N, self._pool_max_pages),
                                    self._pool_n_blocks, np.int32)
         else:
-            self._cache = KVCache.zeros(self.model_cfg, N, self._S_alloc,
-                                        dtype=self.dtype, device=dev,
-                                        kv_quant=self.kv_quant,
-                                        mesh=self.mesh, split_rows=True)
+            self._cache = self._shards(
+                KVCache.zeros, self.model_cfg, N, self._S_alloc,
+                dtype=self.dtype, device=dev, kv_quant=self.kv_quant,
+                mesh=self.mesh, split_rows=True, keep=True)
         self._tok_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._pos_d = torch.zeros((N, 1), dtype=torch.int32, device=dev)
         self._active_d = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -1160,10 +1211,9 @@ class BatchedTorchEngine(TorchEngine):
         # The draft's dense per-slot cache, rebuilt with the rest (a
         # replay re-prefills it from host truth, as the pool's blocks).
         if self.spec_decode:
-            self._draft_cache = KVCache.zeros(self._draft_cfg, N,
-                                              self._S_alloc,
-                                              dtype=self.dtype, device=dev,
-                                              mesh=self.mesh)
+            self._draft_cache = self._shards(
+                KVCache.zeros, self._draft_cfg, N, self._S_alloc,
+                dtype=self.dtype, device=dev, mesh=self.mesh, keep=True)
 
     # ------------------------------------------------ block-paged KV pool
 
@@ -1186,8 +1236,9 @@ class BatchedTorchEngine(TorchEngine):
         if write_mask is not None:
             token_mask = (write_mask if write_mask.dim() == 2
                           else write_mask[:, None])
-        logits, self._cache = forward(
-            self.params, self.model_cfg, tokens, positions, self._cache,
+        logits, self._cache = self._shards(
+            forward, self.params, self.model_cfg, tokens, positions,
+            self._cache,
             kv_limit=kv_limit, attn_impl=attn_impl,
             page_size=self.kv_page_size, logits_at=logits_at,
             write_mask=write_mask, block_tables=tables, q_lens=q_lens,
@@ -1218,9 +1269,7 @@ class BatchedTorchEngine(TorchEngine):
         into block ``dst``, every layer, in place (payload and scales of
         an int8 pool)."""
         with scope("kv_splice"):
-            for kv in (self._cache.k, self._cache.v):
-                kv_map(lambda a: a[:, dst, :rows].copy_(a[:, src, :rows]),
-                       kv)
+            self._shards(copy_pool_rows, self._cache, src, dst, rows)
 
     # ------------------------------------------ host-tier block transfer
     #
@@ -1562,10 +1611,7 @@ class BatchedTorchEngine(TorchEngine):
         the slot's rows past them are rewritten by decode before any
         query can read them."""
         with scope("kv_splice"):
-            for dst, src in ((self._cache.k, scratch.k),
-                             (self._cache.v, scratch.v)):
-                kv_set_slots(dst, kv_map(lambda a: a[:, :, :n], src),
-                             [slot_idx])
+            self._shards(splice_slots, self._cache, scratch, n, [slot_idx])
 
     def _arm_first(self, slot_idx: int, last_logits: torch.Tensor,
                    req: _Request, n_prompt: int, gs: int = -1,
@@ -1813,8 +1859,8 @@ class BatchedTorchEngine(TorchEngine):
         positions, KV written for the ``live`` rows only. Returns the
         logits [N, S, vocab]."""
         self.draft_forward_steps += 1
-        logits, self._draft_cache = forward(
-            self._draft_params, self._draft_cfg, tokens, positions,
+        logits, self._draft_cache = self._shards(
+            forward, self._draft_params, self._draft_cfg, tokens, positions,
             self._draft_cache, kv_limit=kv_limit, attn_impl="dense",
             write_mask=live, token_mask=live[:, None], moe_impl="dense",
             mesh=self.mesh)
@@ -1834,13 +1880,9 @@ class BatchedTorchEngine(TorchEngine):
         n = len(ids)
         if n <= start:
             return
-        cache = self._draft_cache
         with scope("kv_splice"):
-            view = KVCache(*(kv_map(lambda a: a[:, slot_idx:slot_idx + 1],
-                                    leaf) for leaf in (cache.k, cache.v)))
-            if start == 0:
-                for leaf in (view.k, view.v):
-                    kv_map(torch.Tensor.zero_, leaf)
+            view = self._shards(slot_view, self._draft_cache, slot_idx,
+                                start == 0, keep=True)
         big = self.prefill_buckets[-1]
         offset = start
         while offset < n:
@@ -1850,8 +1892,9 @@ class BatchedTorchEngine(TorchEngine):
             tokens = np.zeros((1, bucket), np.int64)
             tokens[0, :L] = ids[offset:offset + L]
             positions = offset + torch.arange(bucket, device=self.device)
-            forward(self._draft_params, self._draft_cfg, self._h2d(tokens),
-                    positions[None].to(torch.int32), view,
+            self._shards(
+                    forward, self._draft_params, self._draft_cfg,
+                    self._h2d(tokens), positions[None].to(torch.int32), view,
                     kv_limit=kv_limit, attn_impl="dense", moe_impl="dense",
                     logits_at=torch.full((1,), L - 1, dtype=torch.int64,
                                          device=self.device),
@@ -2848,12 +2891,12 @@ class BatchedTorchEngine(TorchEngine):
             wait_ms = (t_adm - req.t_submit) * 1000.0
             self._brownout.note_queue_wait(req.lane, wait_ms, now=t_adm)
             self._slo.note(SLO_QUEUE_WAIT, req.lane, wait_ms, now=t_adm)
-        scratch = KVCache.zeros(cfg, kpad, kv_limit, dtype=self.dtype,
-                                device=dev, kv_quant=self.kv_quant,
-                                mesh=self.mesh)
+        scratch = self._shards(KVCache.zeros, cfg, kpad, kv_limit,
+                               dtype=self.dtype, device=dev,
+                               kv_quant=self.kv_quant, mesh=self.mesh,
+                               keep=True)
         with scope("kv_splice"):
-            kv_update_slice(scratch.k, kv_broadcast_rows(prefix.k, kpad))
-            kv_update_slice(scratch.v, kv_broadcast_rows(prefix.v, kpad))
+            self._shards(splice_prefix_rows, scratch, prefix, kpad)
         tokens = np.zeros((kpad, sbucket), np.int32)
         suf_lens = np.ones((kpad,), np.int64)   # padding rows: column 0
         temps = np.zeros((kpad,), np.float32)
@@ -2866,8 +2909,8 @@ class BatchedTorchEngine(TorchEngine):
             seeds[i] = req.seed
         lens_d = self._h2d(suf_lens)
         cols = torch.arange(sbucket, dtype=torch.int32, device=dev)
-        logits, _ = forward(
-            self.params, cfg, self._h2d(tokens),
+        logits, _ = self._shards(
+            forward, self.params, cfg, self._h2d(tokens),
             (prefix.n + cols)[None].expand(kpad, sbucket), scratch,
             kv_limit=kv_limit,
             attn_impl=self._prefill_impl_for(sbucket, kv_limit),
@@ -2898,10 +2941,8 @@ class BatchedTorchEngine(TorchEngine):
         # The scratch's trash row (past kv_limit) stays behind: the slots
         # take exactly the kv_limit positions the forward wrote.
         with scope("kv_splice"):
-            for dst, src in ((self._cache.k, scratch.k),
-                             (self._cache.v, scratch.v)):
-                kv_set_slots(dst, kv_map(lambda a: a[:, :, :kv_limit], src),
-                             slots)
+            self._shards(splice_slots, self._cache, scratch, kv_limit,
+                         slots)
         self._inflight.append(("firsts", self._to_host_async(first_d),
                                pairs))
         self._group_admitted += 1

@@ -72,12 +72,20 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   the layers must divide over the stages, ``MOE_IMPL=ep`` is refused
   and an expert axis runs its MoE layers dense (warned), as in JAX.
 
+- ``DCN_MESH_SHAPE`` multiplies each axis across processes joined by
+  ``parallel/distributed.py::init_distributed`` (the hybrid mesh of
+  ``parallel/mesh.py``). Rank 0 runs this engine; every other rank
+  builds its own shards (``build_shards``) and follows rank 0's calls
+  (``serve_follower``). Every call that touches shards — each forward,
+  each sharded cache's allocation, the prefix's trim and splice — goes
+  through the one dispatch point (``_shards``), which posts it to the
+  followers first on a mesh that spans processes.
+
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
-path. Left out of the JAX engine: DCN and distributed init
-(ROADMAP.md A8), the float32 forcing of a CPU pipe mesh (XLA:CPU's
-workaround; PyTorch serves the asked dtype), and the compile cache and
-ladder warm threads (nothing compiles in eager PyTorch).
+path. Left out of the JAX engine: the float32 forcing of a CPU pipe mesh
+(XLA:CPU's workaround; PyTorch serves the asked dtype), and the compile
+cache and ladder warm threads (nothing compiles in eager PyTorch).
 
 Everything runs on ``device`` — ``cuda`` unless the caller asks for the
 CPU, as the tests do. A CUDA request with no card raises
@@ -107,6 +115,7 @@ from ..ops.flash_attention import flash_supported
 from ..ops.quant import is_quantized, kv_map, quantize_params_int8, \
     random_params_int8
 from ..ops.quant4 import quantize_params_int4
+from ..parallel import distributed
 from ..parallel.mesh import MeshConfig, build_mesh, distinct_devices
 from ..parallel.sharding import ShardedParams, residual_fraction, \
     shard_params
@@ -161,6 +170,7 @@ class TorchEngine:
         seed: int = 0,
         device: DeviceLike = None,
         mesh_shape: str = "",
+        dcn_mesh_shape: str = "",
         devices: Optional[list] = None,
     ):
         if dtype not in DTYPES:
@@ -189,6 +199,7 @@ class TorchEngine:
         self.device = (self.devices[0] if self.devices
                        else resolve_device(device))
         self.mesh_shape = mesh_shape or ""
+        self.dcn_mesh_shape = dcn_mesh_shape or ""
         self.mesh = None
         self.model_path = model_path
         self.tokenizer_path = tokenizer_path
@@ -262,6 +273,9 @@ class TorchEngine:
                                 temperature=0.0)
         except Exception:
             logger.exception("warmup generation failed")
+        # Every rank's launch counts from here on are the serving's own
+        # (``distributed.report``).
+        self._shards(distributed.mark_served)
 
     def _start_blocking(self) -> None:
         t0 = time.monotonic()
@@ -274,29 +288,44 @@ class TorchEngine:
                     self.quant or "-", self.attn_impl, self.prefill_buckets)
 
     def _setup_mesh(self) -> None:
-        """The serving mesh from ``mesh_shape`` (the JAX engine's
-        ``_setup_mesh``). An empty spec or a one-device mesh keeps
-        ``self.mesh = None``: every path then runs exactly as on one
-        card; except that ``MOE_IMPL=ep`` on an MoE model builds a
+        """The serving mesh from ``mesh_shape`` and ``dcn_mesh_shape``
+        (the JAX engine's ``_setup_mesh``). An empty spec or a one-device
+        mesh keeps ``self.mesh = None``: every path then runs exactly as
+        on one card; except that ``MOE_IMPL=ep`` on an MoE model builds a
         one-device expert mesh, so the dispatch itself serves (its
         all-to-alls degenerate to the shard's own buffers), as in the
         JAX engine. A larger spec builds the mesh over the constructor's
         ``devices``, else the distinct devices of the serving type, and
-        raises when there are too few, when its pipe axis does not
-        divide the layers, and for ``MOE_IMPL=ep`` with a pipe axis (the
-        JAX engine's checks and messages). Idempotent: a restart keeps
-        the mesh."""
+        raises when there are too few, when its pipe axis (the DCN factor
+        counted) does not divide the layers, and for ``MOE_IMPL=ep`` with
+        a pipe axis (the JAX engine's checks and messages). A DCN spec
+        over more than one device takes this process's first ICI-count
+        devices and every other process's (``global_devices``): the
+        device total is ``MESH_SHAPE x DCN_MESH_SHAPE``; a process group
+        of another size than the DCN spec's, and a DCN seq axis, are
+        refused. Idempotent: a restart keeps the mesh."""
         spec = self.mesh_shape.strip()
+        dcn_spec = self.dcn_mesh_shape.strip()
         force_ep_mesh = self.moe_impl == "ep" and self.model_cfg.is_moe
-        if self.mesh is not None or (not spec and not force_ep_mesh):
+        if self.mesh is not None:
             return
         mesh_cfg = MeshConfig.parse(spec)
-        total = mesh_cfg.n_devices
+        dcn_cfg = MeshConfig.parse(dcn_spec) if dcn_spec else None
+        n_dcn = dcn_cfg.n_devices if dcn_cfg else 1
+        world = distributed.world_size()
+        if world > 1 and n_dcn != world:
+            raise ValueError(
+                f"NUM_PROCESSES={world} serves one mesh over every process: "
+                f"DCN_MESH_SHAPE must multiply to {world} (got "
+                f"{dcn_spec!r})")
+        if not spec and not dcn_spec and not force_ep_mesh:
+            return
+        total = mesh_cfg.n_devices * n_dcn
         if total == 1 and not force_ep_mesh:
             return
         if total == 1:
             logger.info("MOE_IMPL=ep: building 1-device expert mesh")
-        n_pipe = mesh_cfg.pipe
+        n_pipe = mesh_cfg.pipe * (dcn_cfg.pipe if dcn_cfg else 1)
         if n_pipe > 1 and self.model_cfg.n_layers % n_pipe:
             raise ValueError(
                 f"MESH_SHAPE pipe={n_pipe} does not divide "
@@ -313,13 +342,41 @@ class TorchEngine:
                 "pipe>1 disables expert-parallel MoE dispatch: MoE layers "
                 "run dense (all experts) inside each pipeline stage; "
                 "prefer ep×tp without pp for MoE serving")
+        if dcn_cfg is not None and dcn_cfg.seq > 1:
+            raise ValueError(
+                f"DCN_MESH_SHAPE={dcn_spec!r}: a seq axis across processes "
+                f"is not served (ROADMAP.md A12 row 1): the ring prefill "
+                f"writes every block's K/V into the seq-0 row's cache, "
+                f"which would lie in another process")
         devices = self.devices or distinct_devices(self.device.type)
+        if n_dcn > 1:
+            devices = distributed.global_devices(
+                devices[:mesh_cfg.n_devices])
         if total > len(devices):
             raise ValueError(
-                f"MESH_SHAPE={spec!r} DCN_MESH_SHAPE='' wants {total} "
-                f"devices; only {len(devices)} present")
-        self.mesh = build_mesh(mesh_cfg, devices[:total])
-        self.device = self.mesh.devices[0]
+                f"MESH_SHAPE={spec!r} DCN_MESH_SHAPE={dcn_spec!r} wants "
+                f"{total} devices; only {len(devices)} present")
+        self.mesh = build_mesh(mesh_cfg, devices[:total], dcn=dcn_cfg)
+        self.device = self.mesh.home
+        if self.mesh.hybrid:
+            distributed.HANDS.adopt("mesh", self.mesh)
+
+    def build_shards(self) -> None:
+        """A follower rank's part of ``start``: the mesh and this
+        process's weight shards. Everything else on its shards (caches,
+        the prefix, every forward) arrives as rank 0's calls
+        (``parallel/distributed.py::serve_follower``)."""
+        self._setup_mesh()
+        self._load()
+
+    def _shards(self, fn, /, *args, keep: bool = False, **kwargs):
+        """The engine's one dispatch point of work on shards
+        (``parallel/distributed.py::dispatch``): ``fn``, a module-level
+        function, posted to the other processes first on a mesh that
+        spans them; ``keep`` for a result that later calls name (a
+        cache, the prefix)."""
+        return distributed.dispatch(self.mesh, fn, *args, keep=keep,
+                                    **kwargs)
 
     def sharding_health(self) -> Optional[dict]:
         """The sharding view for /health (the JAX engine's keys): mesh
@@ -402,6 +459,8 @@ class TorchEngine:
             self.weights_version = checkpoint_version(
                 self.model_path or dev_id)
         self.params = self._placed(self.params)
+        if self.mesh is not None and self.mesh.hybrid:
+            distributed.HANDS.adopt("params", self.params)
 
     def _placed(self, params):
         """A parameter tree as this engine serves it: split over the
@@ -544,9 +603,10 @@ class TorchEngine:
     # ------------------------------------------------------------ prefill
 
     def _new_cache(self) -> KVCache:
-        return KVCache.zeros(self.model_cfg, 1, self.max_seq_len,
-                             dtype=self.dtype, device=self.device,
-                             kv_quant=self.kv_quant, mesh=self.mesh)
+        return self._shards(KVCache.zeros, self.model_cfg, 1,
+                            self.max_seq_len, dtype=self.dtype,
+                            device=self.device, kv_quant=self.kv_quant,
+                            mesh=self.mesh, keep=True)
 
     def _prefill_impl_for(self, q_len: int, kv_len: int) -> str:
         """Attention for a prefill shape: flash where the kernel's gate
@@ -582,8 +642,8 @@ class TorchEngine:
         tokens[0, :n] = ids
         dev = self.device
         cols = torch.arange(bucket, dtype=torch.int32, device=dev)
-        logits, _ = forward(
-            self.params, self.model_cfg,
+        logits, _ = self._shards(
+            forward, self.params, self.model_cfg,
             self._h2d(tokens), (offset + cols)[None], cache,
             kv_limit=kv_limit, attn_impl=self._prefill_impl_for(
                 bucket, kv_limit),
@@ -615,19 +675,13 @@ class TorchEngine:
             _, cache, _ = self._prefill_chunked(list(ids))
         # Trim to the true prefix length: the padding slots' K/V is never
         # copied into request caches.
-        def trim(leaf):
-            return leaf[:, :, :P].clone()
-
-        self._prefix = PrefixKV(ids=list(ids), k=kv_map(trim, cache.k),
-                                v=kv_map(trim, cache.v))
+        self._prefix = self._shards(trim_prefix, cache, list(ids),
+                                    keep=True)
         logger.info("Prefix-KV cache ready: %d tokens resident on %s", P,
                     self.device)
 
     def _splice_prefix(self, cache: KVCache) -> None:
-        P = self._prefix.n
-        for dst, src in ((cache.k, self._prefix.k),
-                         (cache.v, self._prefix.v)):
-            kv_map(lambda d, p: d[:, :, :P].copy_(p), dst, src)
+        self._shards(splice_prefix, cache, self._prefix)
 
     def _prefill_prompt(self, prompt_ids, max_tokens: int):
         """Prefill one prompt into a fresh cache. Returns (last_logits
@@ -711,9 +765,9 @@ class TorchEngine:
         dev = self.device
         cols = torch.arange(s_pad, dtype=torch.int32, device=dev)
         cache = self._new_cache()
-        logits, _ = forward(
-            self.params, self.model_cfg, self._h2d(tokens), cols[None],
-            cache, kv_limit=s_pad, attn_impl="ring",
+        logits, _ = self._shards(
+            forward, self.params, self.model_cfg, self._h2d(tokens),
+            cols[None], cache, kv_limit=s_pad, attn_impl="ring",
             token_mask=(cols < n)[None], moe_impl=self.moe_impl,
             logits_at=torch.full((1,), n - 1, dtype=torch.int64,
                                  device=dev), mesh=self.mesh)
@@ -763,9 +817,10 @@ class TorchEngine:
         discards."""
         steps = []
         for _ in range(chunk_len):
-            logits, _ = forward(self.params, self.model_cfg, tok, pos, cache,
-                                kv_limit=kv_limit, attn_impl="dense",
-                                moe_impl=self.moe_impl, mesh=self.mesh)
+            logits, _ = self._shards(
+                forward, self.params, self.model_cfg, tok, pos, cache,
+                kv_limit=kv_limit, attn_impl="dense", moe_impl=self.moe_impl,
+                mesh=self.mesh)
             sub = None
             if temperature > 0.0:
                 key, sub = split(key)
@@ -1024,6 +1079,30 @@ class TorchEngine:
             self._gen_inflight -= 1
 
 
+# ---------------------------------------------------- calls on shards
+#
+# Module-level, so that the dispatch point names them by reference: on a
+# mesh that spans processes each runs on every process over its shards.
+
+def trim_prefix(cache: KVCache, ids: list) -> PrefixKV:
+    """The system prompt's K/V, trimmed to its length (the padding
+    slots' K/V is never copied into request caches)."""
+    P = len(ids)
+
+    def trim(leaf):
+        return leaf[:, :, :P].clone()
+
+    return PrefixKV(ids=list(ids), k=kv_map(trim, cache.k),
+                    v=kv_map(trim, cache.v))
+
+
+def splice_prefix(cache: KVCache, prefix: PrefixKV) -> None:
+    """The resident prefix's K/V into a fresh cache's first rows."""
+    P = prefix.n
+    for dst, src in ((cache.k, prefix.k), (cache.v, prefix.v)):
+        kv_map(lambda d, p: d[:, :, :P].copy_(p), dst, src)
+
+
 def tree_matches(live, new) -> bool:
     """Whether two parameter trees have one structure and every tensor
     (quantized leaves' ``q`` and ``scale`` included) one shape and
@@ -1064,4 +1143,5 @@ def engine_kwargs(cfg) -> dict:
         prefix_cache=cfg.hbm_prefix_cache,
         device=cfg.torch_device,
         mesh_shape=cfg.mesh_shape,
+        dcn_mesh_shape=cfg.dcn_mesh_shape,
     )

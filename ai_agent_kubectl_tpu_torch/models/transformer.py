@@ -66,6 +66,11 @@ Shared by both:
 - On a ``pipe`` axis > 1 the layer stack runs in stages
   (``parallel/pipeline.py::pipeline_forward``), attention dense and MoE
   dense in each; a block table raises with the JAX message.
+- On a mesh that spans processes (``DCN_MESH_SHAPE``) each process runs
+  the same forward over its own shards (every per-shard list holds None
+  for another process's shard), the collectives join them across
+  processes, and the logits land on rank 0 alone (None elsewhere):
+  only rank 0 samples.
 """
 
 from __future__ import annotations
@@ -89,7 +94,8 @@ from ..ops.ragged_attention import (check_heads_divide,
                                     ragged_attention_pool,
                                     ragged_attention_pool_sharded)
 from ..ops.rope import rope_tables, rotate
-from ..parallel.collectives import all_gather, all_reduce, reduce_scatter
+from ..parallel.collectives import (all_gather, all_reduce, gather_home,
+                                    reduce_scatter)
 from ..parallel.moe import (dense_moe, dense_moe_partial,
                             expert_parallel_moe)
 from ..parallel.ring_attention import ring_attention_shards
@@ -144,7 +150,8 @@ class KVCache:
         ``ShardedKV`` of per-shard leaves (layers split over ``pipe``,
         KV heads where ``head_layout`` splits them, slots over ``data``
         under ``split_rows`` where that divides, else a whole copy per
-        shard), each allocated on its shard's device."""
+        shard), each allocated on its shard's device (this process's
+        shards only: another process's is None here)."""
         if mesh is None or mesh.size <= 1:
             return cls._leaf(shape, dtype, device, kv_quant)
         mesh = mesh.cache_row()[0]
@@ -156,8 +163,9 @@ class KVCache:
                  else shape[1], shape[2],
                  shape[3] // mesh.tp if heads else shape[3], shape[4])
         return ShardedKV(shards=[cls._leaf(local, dtype, d, kv_quant)
-                                 for d in mesh.devices], heads_split=heads,
-                         row_groups=mesh.dp if rows else 1)
+                                 if mesh.is_local(i) else None
+                                 for i, d in enumerate(mesh.devices)],
+                         heads_split=heads, row_groups=mesh.dp if rows else 1)
 
     @classmethod
     def pool(cls, cfg: ModelConfig, n_blocks: int, page: int, *,
@@ -190,10 +198,13 @@ class KVCache:
     def sharded(self) -> bool:
         return isinstance(self.k, ShardedKV)
 
-    def shard(self, i: int) -> "KVCache":
-        """Shard ``i``'s own cache (the cache itself when unsharded)."""
+    def shard(self, i: int) -> Optional["KVCache"]:
+        """Shard ``i``'s own cache (the cache itself when unsharded; None
+        for another process's shard)."""
         if not self.sharded:
             return self
+        if self.k.shards[i] is None:
+            return None
         return KVCache(k=self.k.shards[i], v=self.v.shards[i])
 
     @property
@@ -579,10 +590,11 @@ def _tp_pool_reads(cfg: ModelConfig, tokens, positions, caches: list,
         ql, tbl = replicate(ql, mesh), replicate(tables, mesh)
 
         def read(qs, lks, lvs):
-            n_blocks, page = lks[0].shape[0] - 1, lks[0].shape[1]
+            n_blocks, page = _first(lks).shape[0] - 1, _first(lks).shape[1]
             return ragged_attention_pool_sharded(
-                [q.contiguous() for q in qs], [k[:n_blocks] for k in lks],
-                [v[:n_blocks] for v in lvs], ql, pos0, tbl, mesh,
+                _each(torch.Tensor.contiguous, qs),
+                _each(lambda k: k[:n_blocks], lks),
+                _each(lambda v: v[:n_blocks], lvs), ql, pos0, tbl, mesh,
                 page_size=page)
         return read
     if attn_impl == "paged" and S == 1:
@@ -590,22 +602,42 @@ def _tp_pool_reads(cfg: ModelConfig, tokens, positions, caches: list,
         tbl = replicate(tables, mesh)
 
         def read(qs, lks, lvs):
-            n_blocks, page = lks[0].shape[0] - 1, lks[0].shape[1]
+            n_blocks, page = _first(lks).shape[0] - 1, _first(lks).shape[1]
             outs = paged_decode_attention_pool_sharded(
-                [q[:, 0].contiguous() for q in qs],
-                [k[:n_blocks] for k in lks], [v[:n_blocks] for v in lvs],
+                _each(lambda q: q[:, 0].contiguous(), qs),
+                _each(lambda k: k[:n_blocks], lks),
+                _each(lambda v: v[:n_blocks], lvs),
                 pos0, tbl, mesh, page_size=page)
-            return [o[:, None] for o in outs]
+            return _each(lambda o: o[:, None], outs)
         return read
     toks, poss, tbls = (replicate(t, mesh)
                         for t in (tokens, positions, tables))
-    reads = [_pool_read(toks[i], poss[i], caches[i], tbls[i], q_lens,
-                        kv_limit, attn_impl) for i in range(mesh.size)]
-    return lambda qs, lks, lvs: [r(q, k, v) for r, q, k, v in
-                                 zip(reads, qs, lks, lvs)]
+    reads = _each(lambda t, p, c, b: _pool_read(t, p, c, b, q_lens, kv_limit,
+                                                attn_impl),
+                  toks, poss, caches, tbls)
+    return lambda qs, lks, lvs: _each(lambda r, q, k, v: r(q, k, v), reads,
+                                      qs, lks, lvs)
 
 
-def _tp_combine(partials, whole: bool, split_dim: Optional[int], groups):
+def _each(fn, *per_shard) -> list:
+    """``fn`` over each shard's arguments (the lists zipped), None where
+    the first list holds None (another process's shard)."""
+    return [None if a[0] is None else fn(*a) for a in zip(*per_shard)]
+
+
+def _first(per_shard):
+    """The first of this process's entries of a per-shard list."""
+    return next(x for x in per_shard if x is not None)
+
+
+def _layer_trees(params, li: int) -> list:
+    """Each shard's tree of layer ``li`` (None for another process's)."""
+    return [None if p is None else {name: w[li] for name, w in
+                                    p["layers"].items()} for p in params]
+
+
+def _tp_combine(partials, whole: bool, split_dim: Optional[int], groups,
+                mesh=None):
     """A row-parallel product's per-shard partial sums joined over each
     model group into the residual's layout: reduce-scattered over the
     residual's split dimension, or all-reduced when the residual is
@@ -618,12 +650,13 @@ def _tp_combine(partials, whole: bool, split_dim: Optional[int], groups):
         out = list(partials)
         for g in groups:
             for r, i in enumerate(g):
-                out[i] = partials[i].chunk(len(g), dim=split_dim)[r]\
-                    .contiguous()
+                if partials[i] is not None:
+                    out[i] = partials[i].chunk(len(g), dim=split_dim)[r]\
+                        .contiguous()
         return out
     if split_dim is None:
-        return all_reduce(partials, groups)
-    return reduce_scatter(partials, split_dim, groups)
+        return all_reduce(partials, groups, mesh)
+    return reduce_scatter(partials, split_dim, groups, mesh)
 
 
 def _tp_moe(cfg: ModelConfig, lps, xs, mesh, *, moe_impl: str,
@@ -636,27 +669,30 @@ def _tp_moe(cfg: ModelConfig, lps, xs, mesh, *, moe_impl: str,
     the float32 partials summed over the expert group and then joined
     over the model group as ``w_down``'s are. Returns the outputs in the
     residual's layout."""
-    B_l, S, _ = xs[0].shape
+    B_l, S, _ = _first(xs).shape
     B = B_l * (mesh.dp if data_split else 1)
     if _moe_path(cfg, moe_impl, mesh, B * S) == "ep":
-        full = all_gather(xs, 0, mesh.groups("data")) if data_split else xs
+        full = (all_gather(xs, 0, mesh.groups("data"), mesh) if data_split
+                else xs)
         ys = expert_parallel_moe(
             cfg, lps, full, mesh, token_mask=token_mask,
             capacity=_ep_capacity(B * S, S, mesh.ep))
         if data_split:
-            ys = [y[mesh.coord(i, "data") * B_l:][:B_l]
+            ys = [None if y is None else y[mesh.coord(i, "data") * B_l:][:B_l]
                   for i, y in enumerate(ys)]
-        return _tp_combine(ys, True, split, groups)
-    E_l = lps[0]["w_gate"].shape[0]
+        return _tp_combine(ys, True, split, groups, mesh)
+    lp0 = _first(lps)
+    E_l = lp0["w_gate"].shape[0]
     experts_split = E_l != cfg.n_experts
-    parts = [dense_moe_partial(cfg, lp, x, mesh.coord(i, "expert") * E_l
+    parts = [None if lp is None else
+             dense_moe_partial(cfg, lp, x, mesh.coord(i, "expert") * E_l
                                if experts_split else 0)
              for i, (lp, x) in enumerate(zip(lps, xs))]
     if experts_split:
-        parts = all_reduce(parts, mesh.groups("expert"))
-    whole = lps[0]["w_down"].shape[1] == cfg.mlp_hidden
-    return [p.to(x.dtype) for p, x in
-            zip(_tp_combine(parts, whole, split, groups), xs)]
+        parts = all_reduce(parts, mesh.groups("expert"), mesh)
+    whole = lp0["w_down"].shape[1] == cfg.mlp_hidden
+    return _each(lambda p, x: p.to(x.dtype),
+                 _tp_combine(parts, whole, split, groups, mesh), xs)
 
 
 def _forward_tp(params, cfg: ModelConfig, tokens, positions,
@@ -698,16 +734,14 @@ def _forward_tp(params, cfg: ModelConfig, tokens, positions,
                     write_mask=write_mask, block_tables=block_tables,
                     q_lens=q_lens, token_mask=token_mask, moe_impl=moe_impl)
     h = run.embed(params)
-    layers = [p["layers"] for p in params]
     for li in range(cfg.n_layers):
-        h = run.layer([{name: w[li] for name, w in lay.items()}
-                       for lay in layers], h, li)
+        h = run.layer(_layer_trees(params, li), h, li)
     return run.head(params, run.gather(h), logits_at), cache
 
 
 def _shard_caches(cache: KVCache, mesh) -> list:
     """Each shard's own cache of a mesh (the cache itself on every shard
-    of a one-shard mesh)."""
+    of a one-shard mesh; None for another process's shard)."""
     if not cache.sharded:
         return [cache] * mesh.size
     return [cache.shard(i) for i in range(mesh.size)]
@@ -733,7 +767,12 @@ class _MeshPass:
     all), each data group taking its slots among them (possibly none).
     ``tokens`` may be None for a pass that only runs layers;
     ``residual=False`` keeps the residual replicated (a pipeline stage,
-    where the JAX policy is off)."""
+    where the JAX policy is off).
+
+    On a mesh that spans processes every per-shard list holds None for
+    another process's shard: each part runs this process's shards
+    (``self.local``; none in a pipeline stage held elsewhere), and the
+    collectives join the rest."""
 
     def __init__(self, cfg: ModelConfig, mesh, tokens, positions,
                  caches: list, *, row_groups: int = 1, kv_limit=None,
@@ -748,6 +787,7 @@ class _MeshPass:
             write_mask, block_tables, q_lens)
         self.token_mask, self.moe_impl = token_mask, moe_impl
         n, tp = mesh.size, mesh.tp
+        self.local = mesh.local_shards
         B, S = positions.shape
         self.S = S
         q_split, kv_split = head_layout(cfg, tp)
@@ -786,8 +826,10 @@ class _MeshPass:
         return [t[lo:hi] for lo, hi, _, _ in self.spans]
 
     def spread(self, bs):
-        """Per-group values onto each shard of the group's device."""
+        """Per-group values onto each shard of the group's device (None
+        for another process's shard)."""
         return [None if bs[i // self.per] is None
+                or not self.mesh.is_local(i)
                 else bs[i // self.per].to(dev)
                 for i, dev in enumerate(self.mesh.devices)]
 
@@ -796,7 +838,8 @@ class _MeshPass:
         its group's whole slots (a pipeline microbatch's rows)."""
         if not self.cut:
             return list(xs)
-        return [x[self.spans[i // self.per][2]:self.spans[i // self.per][3]]
+        return [None if x is None else
+                x[self.spans[i // self.per][2]:self.spans[i // self.per][3]]
                 for i, x in enumerate(xs)]
 
     def layer_cache(self, i: int, li: int) -> tuple:
@@ -813,7 +856,7 @@ class _MeshPass:
         """The residual whole on every shard (a no-op when replicated)."""
         if self.split is None:
             return xs
-        return all_gather(xs, self.split, self.models)
+        return all_gather(xs, self.split, self.models, self.mesh)
 
     def _prepare(self) -> None:
         """The per-forward setup of the K/V writes (flat rows, on each
@@ -821,33 +864,36 @@ class _MeshPass:
         self._prepared = True
         cfg, mesh, n = self.cfg, self.mesh, self.mesh.size
         tokens, positions = self.tokens, self.positions
-        cdev = [_leaf_device(c.k) for c in self.caches]
+        cdev = [None if c is None or not mesh.is_local(i)
+                else _leaf_device(c.k) for i, c in enumerate(self.caches)]
         if self.block_tables is not None:
-            c0 = self.caches[0]
+            c0 = _first(self.caches)
             tables = self.block_tables.to(torch.int32).contiguous()
             with scope("kv_write"):
                 flat = _pool_flat_pos(tables, positions, c0.page,
                                       c0.n_blocks, self.write_mask)
-                self.flats = [flat.to(d) for d in cdev]
+                self.flats = _each(flat.to, cdev)
             with scope("attention"):
                 self._reads = _tp_pool_reads(
                     cfg, tokens, positions, self.caches, tables, self.q_lens,
                     self.kv_limit, self.attn_impl, mesh)
             return
-        max_seq = self.caches[0].max_seq
+        max_seq = _first(self.caches).max_seq
         with scope("kv_write"):
             flats = [_dense_flat_pos(p, max_seq, w) for p, w in
                      zip(self.blocks(positions), self.blocks(self.write_mask))]
-            self.flats = [flats[i // self.per].to(cdev[i]) for i in range(n)]
+            self.flats = [None if cdev[i] is None
+                          else flats[i // self.per].to(cdev[i])
+                          for i in range(n)]
         if self.attn_impl == "ring" and self.S > 1:
             return
         with scope("attention"):
-            reads = [_dense_read(self.poss[i], self.poss[i], self.kv_limit,
-                                 self.attn_impl, self.page_size)
-                     for i in range(n)]
+            reads = _each(lambda p: _dense_read(p, p, self.kv_limit,
+                                                self.attn_impl,
+                                                self.page_size), self.poss)
 
         def read(qs, lks, lvs):
-            return [r(q, k, v) for r, q, k, v in zip(reads, qs, lks, lvs)]
+            return _each(lambda r, q, k, v: r(q, k, v), reads, qs, lks, lvs)
         self._reads = read
 
     # ------------------------------------------------------- parts
@@ -857,27 +903,34 @@ class _MeshPass:
         summed over the model group (``embed_scale`` applied)."""
         cfg, n = self.cfg, self.mesh.size
         toks, mcoord = self.toks, self.mcoord
+        if not self.local:
+            return [None] * n
         with scope("embed"):
-            dt = params[0]["final_norm"].dtype
-            emb = [p["embed"] for p in params]
-            V_l = emb[0].shape[0]
+            dt = _first(params)["final_norm"].dtype
+            emb = [None if p is None else p["embed"] for p in params]
+            V_l = _first(emb).shape[0]
             if V_l != cfg.vocab_size:       # vocab rows split over shards
                 parts = []
                 for i in range(n):
+                    if emb[i] is None:
+                        parts.append(None)
+                        continue
                     lo = toks[i].long() - mcoord[i] * V_l
                     inside = (lo >= 0) & (lo < V_l)
                     e = embed_lookup(emb[i], lo.clamp(0, V_l - 1), dtype=dt)
                     parts.append(torch.where(
                         inside[..., None], e,
                         torch.zeros((), dtype=dt, device=e.device)))
-                h = _tp_combine(parts, False, self.split, self.models)
+                h = _tp_combine(parts, False, self.split, self.models,
+                                self.mesh)
             else:
-                h = _tp_combine([embed_lookup(emb[i], toks[i], dtype=dt)
-                                 for i in range(n)], True, self.split,
+                h = _tp_combine(_each(lambda e, t: embed_lookup(e, t,
+                                                                dtype=dt),
+                                      emb, toks), True, self.split,
                                 self.models)
             if cfg.embed_scale:
                 c = torch.tensor(cfg.dim ** 0.5, dtype=dt).item()
-                h = [x * c for x in h]
+                h = _each(lambda x: x * c, h)
         return h
 
     def qkv(self, lps, h) -> tuple:
@@ -890,19 +943,16 @@ class _MeshPass:
                     torch.stack(rope_tables(p, hd, cfg.rope_theta))
                     for p in self.blocks(self.positions)])
         with scope("attn_norm"):
-            xs = self.gather([rms_norm(x, lp["attn_norm"], cfg.rms_eps,
-                                       cfg.rms_offset)
-                              for x, lp in zip(h, lps)])
+            xs = self.gather(_each(lambda x, lp: rms_norm(
+                x, lp["attn_norm"], cfg.rms_eps, cfg.rms_offset), h, lps))
         with scope("qkv_proj"):
-            qs = [qmatmul(x, lp["wq"]).view(x.shape[0], S, self.H_l, hd)
-                  for x, lp in zip(xs, lps)]
-            ks = [qmatmul(x, lp["wk"]).view(x.shape[0], S, self.KV_l, hd)
-                  for x, lp in zip(xs, lps)]
-            vs = [qmatmul(x, lp["wv"]).view(x.shape[0], S, self.KV_l, hd)
-                  for x, lp in zip(xs, lps)]
+            qs, ks, vs = (_each(lambda x, lp: qmatmul(x, lp[w]).view(
+                x.shape[0], S, heads, hd), xs, lps)
+                for w, heads in (("wq", self.H_l), ("wk", self.KV_l),
+                                 ("wv", self.KV_l)))
         with scope("rope"):
-            qs = [rotate(q, r[0], r[1]) for q, r in zip(qs, self.rope)]
-            ks = [rotate(k, r[0], r[1]) for k, r in zip(ks, self.rope)]
+            qs = _each(lambda q, r: rotate(q, r[0], r[1]), qs, self.rope)
+            ks = _each(lambda k, r: rotate(k, r[0], r[1]), ks, self.rope)
         return qs, ks, vs
 
     def write(self, li: int, ks, vs) -> tuple:
@@ -910,10 +960,10 @@ class _MeshPass:
         the cache's device). Returns the layer's leaves per shard."""
         if not self._prepared:
             self._prepare()
-        lks, lvs = zip(*(self.layer_cache(i, li)
-                         for i in range(self.mesh.size)))
+        lks, lvs = zip(*(self.layer_cache(i, li) if self.mesh.is_local(i)
+                         else (None, None) for i in range(self.mesh.size)))
         with scope("kv_write"):
-            for i in range(self.mesh.size):
+            for i in self.local:
                 _write_kv(lks[i], self.flats[i], ks[i])
                 _write_kv(lvs[i], self.flats[i], vs[i])
         return list(lks), list(lvs)
@@ -921,23 +971,26 @@ class _MeshPass:
     def finish(self, lps, h, attn) -> list:
         """The layer after attention: wo, the residual, the MLP."""
         cfg, S, hd = self.cfg, self.S, self.cfg.head_dim
-        wo_whole = lps[0]["wo"].shape[0] == cfg.n_heads * hd
-        down_whole = lps[0]["w_down"].shape[-2] == cfg.mlp_hidden
+        lp0 = _first(lps)
+        wo_whole = lp0["wo"].shape[0] == cfg.n_heads * hd
+        down_whole = lp0["w_down"].shape[-2] == cfg.mlp_hidden
         with scope("o_proj"):
             outs = []
             for i, (a, lp) in enumerate(zip(attn, lps)):
+                if a is None:
+                    outs.append(None)
+                    continue
                 a = a.reshape(a.shape[0], S, self.H_l * hd)
                 rows = lp["wo"].shape[0]
                 if not self.q_split and not wo_whole:
                     a = a[..., self.mcoord[i] * rows:
                           (self.mcoord[i] + 1) * rows]
                 outs.append(qmatmul(a, lp["wo"]))
-            h = [x + o for x, o in zip(h, _tp_combine(
-                outs, wo_whole, self.split, self.models))]
+            h = _each(torch.add, h, _tp_combine(
+                outs, wo_whole, self.split, self.models, self.mesh))
         with scope("mlp"):
-            xs = self.gather([rms_norm(x, lp["mlp_norm"], cfg.rms_eps,
-                                       cfg.rms_offset)
-                              for x, lp in zip(h, lps)])
+            xs = self.gather(_each(lambda x, lp: rms_norm(
+                x, lp["mlp_norm"], cfg.rms_eps, cfg.rms_offset), h, lps))
             if cfg.is_moe:
                 outs = _tp_moe(cfg, lps, xs, self.mesh,
                                moe_impl=self.moe_impl,
@@ -945,39 +998,54 @@ class _MeshPass:
                                data_split=self.dp_rows > 1, split=self.split,
                                groups=self.models)
             else:
-                outs = _tp_combine([_dense_mlp(cfg, lp, x)
-                                    for x, lp in zip(xs, lps)],
-                                   down_whole, self.split, self.models)
-            h = [x + o for x, o in zip(h, outs)]
+                outs = _tp_combine(_each(lambda x, lp: _dense_mlp(cfg, lp, x),
+                                         xs, lps),
+                                   down_whole, self.split, self.models,
+                                   self.mesh)
+            h = _each(torch.add, h, outs)
         return h
 
     def layer(self, lps, h, li: int) -> list:
         """One whole layer on every shard: K/V written, then read (a ring
-        of one over the window's own K/V under ``attn_impl="ring"``)."""
+        of one over the window's own K/V under ``attn_impl="ring"``).
+        Nothing runs where no shard of the pass is this process's."""
+        if not self.local:
+            return h
         qs, ks, vs = self.qkv(lps, h)
         lks, lvs = self.write(li, ks, vs)
         with scope("attention"):
             if self.attn_impl == "ring" and self.S > 1:
-                attn = [ring_attention_shards([q], [k], [v], [p])[0]
-                        for q, k, v, p in zip(qs, ks, vs, self.poss)]
+                attn = _each(lambda q, k, v, p: ring_attention_shards(
+                    [q], [k], [v], [p])[0], qs, ks, vs, self.poss)
             else:
                 attn = self._reads(qs, lks, lvs)
         return self.finish(lps, h, attn)
 
-    def head(self, params, h, logits_at) -> torch.Tensor:
+    def head(self, params, h, logits_at, dest=None
+             ) -> Optional[torch.Tensor]:
         """Final norm and head over ``h`` (whole on every shard): one
         model group per data group of rows (expert row 0's) makes the
         logits (the others hold the same), gathered over the vocab and
-        joined in data order on the mesh's first device."""
+        joined in data order on ``dest`` (default: the mesh's first
+        device). Across processes the logits land on rank 0 alone, on
+        ``dest`` or its first device of the mesh, and every other
+        process returns None (``gather_home``)."""
         cfg, mesh = self.cfg, self.mesh
-        head_w = params[0].get("lm_head", params[0]["embed"])
-        vocab_split = (head_w.shape[-1] if "lm_head" in params[0]
-                       else head_w.shape[0]) != cfg.vocab_size
+        if dest is None:
+            dest = mesh.devices[0] if not mesh.hybrid else mesh.home
+        vocab_split = False
+        if self.local:
+            p0 = _first(params)
+            head_w = p0.get("lm_head", p0["embed"])
+            vocab_split = (head_w.shape[-1] if "lm_head" in p0
+                           else head_w.shape[0]) != cfg.vocab_size
         ats = self.spread(self.blocks(logits_at))
         rows = []
         for g in (self.models[r * mesh.ep] for r in range(self.dp_rows)):
-            logits = []
+            logits = [None] * mesh.size
             for i in (g if vocab_split else g[:1]):
+                if not mesh.is_local(i):
+                    continue
                 with scope("final_norm"):
                     x = rms_norm(h[i], params[i]["final_norm"], cfg.rms_eps,
                                  cfg.rms_offset)
@@ -985,12 +1053,13 @@ class _MeshPass:
                     x = x[torch.arange(x.shape[0], device=x.device),
                           ats[i].long()][:, None]
                 with scope("lm_head"):
-                    logits.append(tied_head(x, params[i]["embed"])
-                                  if cfg.tie_embeddings
-                                  else qmatmul(x, params[i]["lm_head"]))
-            if vocab_split:
-                logits = all_gather(logits, -1)
-            rows.append(logits[0].to(mesh.devices[0]))
+                    logits[i] = (tied_head(x, params[i]["embed"])
+                                 if cfg.tie_embeddings
+                                 else qmatmul(x, params[i]["lm_head"]))
+            rows.append(gather_home(logits, -1, g if vocab_split else g[:1],
+                                    mesh, dest))
+        if rows[0] is None:
+            return None
         out = rows[0] if len(rows) == 1 else torch.cat(rows)
         return out.float()
 
@@ -1034,14 +1103,13 @@ def _forward_ring(params, cfg: ModelConfig, tokens, positions,
     h = [run.embed(p) for run, p in zip(runs, prm)]
     n_row = row0.size
     for li in range(cfg.n_layers):
-        lps = [[{name: w[li] for name, w in p["layers"].items()}
-                for p in ps] for ps in prm]
+        lps = [_layer_trees(ps, li) for ps in prm]
         parts = [run.qkv(lp, x) for run, lp, x in zip(runs, lps, h)]
         for run, (_, ks, vs) in zip(runs, parts):
             run.write(li, ks, vs)
         attn = [[None] * n_row for _ in range(sp)]
         with scope("attention"):
-            for k in range(n_row):      # one ring per seq group
+            for k in row0.local_shards:     # one ring per seq group
                 outs = ring_attention_shards(
                     [parts[r][0][k] for r in range(sp)],
                     [parts[r][1][k] for r in range(sp)],
@@ -1053,7 +1121,8 @@ def _forward_ring(params, cfg: ModelConfig, tokens, positions,
              for run, lp, x, a in zip(runs, lps, h, attn)]
     h = [run.gather(x) for run, x in zip(runs, h)]
     whole = [torch.cat([h[r][k].to(row0.devices[k]) for r in range(sp)],
-                       dim=1) for k in range(n_row)]
+                       dim=1) if row0.is_local(k) else None
+             for k in range(n_row)]
     head = _MeshPass(cfg, row0, tokens, positions, caches,
                      row_groups=_row_groups(cache))
     return head.head(prm[0], whole, logits_at), cache

@@ -135,3 +135,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper that counts its launches (``.launches``: one
+    per kernel launch in this process), by name."""
+    from .flash_attention import flash_attention_cached
+    from .paged_attention import (paged_decode_attention,
+                                  paged_decode_attention_pool,
+                                  paged_decode_attention_pool_sharded)
+    from .quant4 import qmatmul4
+    from .ragged_attention import (ragged_attention_pool,
+                                   ragged_attention_pool_sharded)
+
+    return {f.__name__: f for f in (
+        ragged_attention_pool, flash_attention_cached, paged_decode_attention,
+        paged_decode_attention_pool, qmatmul4, ragged_attention_pool_sharded,
+        paged_decode_attention_pool_sharded)}
+
+
+def launch_counts() -> dict:
+    """This process's launch count of every kernel wrapper, by name."""
+    return {name: f.launches for name, f in launch_counters().items()}

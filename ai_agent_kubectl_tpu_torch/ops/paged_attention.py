@@ -288,7 +288,8 @@ def paged_decode_attention_pool_sharded(q, k, v, positions, block_tables,
 
     ``q`` [N, H, hd] and ``k``/``v`` [n_blocks, page, KV, hd] are whole
     tensors (split here, with the JAX refusal when the heads do not
-    divide) or lists of per-shard blocks, one per shard of the mesh;
+    divide) or lists of per-shard blocks, one per shard of the mesh
+    (None for another process's shard);
     ``positions`` and ``block_tables`` are the same on every shard.
     Returns the per-shard
     outputs [N, H/tp, hd] in shard order (``torch.cat(out, dim=1)``
@@ -306,9 +307,10 @@ def paged_decode_attention_pool_sharded(q, k, v, positions, block_tables,
                            global_heads(k, 2), tp)
     qs = split_heads(q, mesh, 1)
     ks, vs = split_heads(k, mesh, 2), split_heads(v, mesh, 2)
-    devices = [t.device for t in qs]
+    devices = [None if t is None else t.device for t in qs]
     before = paged_decode_attention_pool.launches
-    out = [fn(qs[i], ks[i], vs[i], pos, tbl, page_size=page_size,
+    out = [None if qs[i] is None else
+           fn(qs[i], ks[i], vs[i], pos, tbl, page_size=page_size,
               scale=scale)
            for i, (pos, tbl) in enumerate(zip(
                on_shards(positions, devices),

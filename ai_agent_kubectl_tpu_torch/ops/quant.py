@@ -246,34 +246,42 @@ class ShardedKV:
     holds ``KV / tp`` heads); otherwise each shard holds a full copy.
     ``row_groups``: the slot axis (1) is split over a ``data`` axis of
     that size, the data groups major in shard order (a dense cache's
-    ``cache_specs``); 1 = every shard holds every slot."""
+    ``cache_specs``); 1 = every shard holds every slot. On a mesh that
+    spans processes another process's shard is None here."""
 
     shards: list
     heads_split: bool
     row_groups: int = 1
 
     @property
+    def _first(self):
+        return next(s for s in self.shards if s is not None)
+
+    @property
     def shape(self):
-        """Shard 0's geometry (KV heads per shard)."""
-        return tuple(self.shards[0].shape)
+        """The first local shard's geometry (KV heads per shard)."""
+        return tuple(self._first.shape)
 
     @property
     def nbytes(self) -> int:
-        return sum(s.nbytes for s in self.shards)
+        """Bytes of this process's shards."""
+        return sum(s.nbytes for s in self.shards if s is not None)
 
     @property
     def quantized(self) -> bool:
-        return isinstance(self.shards[0], QuantKV)
+        return isinstance(self._first, QuantKV)
 
 
 def kv_map(fn, *kvs):
     """``fn`` applied leaf by leaf: shard by shard over ``ShardedKV``
     arguments, then to ``q`` and then ``s`` of each ``QuantKV`` argument
     (leaves paired in order), or once to plain tensors. Returns a
-    ``ShardedKV`` or ``QuantKV`` of the results, or the one result."""
+    ``ShardedKV`` or ``QuantKV`` of the results, or the one result.
+    Another process's shard (None) stays None."""
     if isinstance(kvs[0], ShardedKV):
         return ShardedKV(
-            shards=[kv_map(fn, *(kv.shards[i] for kv in kvs))
+            shards=[None if kvs[0].shards[i] is None
+                    else kv_map(fn, *(kv.shards[i] for kv in kvs))
                     for i in range(len(kvs[0].shards))],
             heads_split=kvs[0].heads_split, row_groups=kvs[0].row_groups)
     if isinstance(kvs[0], QuantKV):
@@ -325,6 +333,8 @@ def kv_set_slots(dst, src, slots):
     if isinstance(dst, ShardedKV) and dst.row_groups > 1:
         per = len(dst.shards) // dst.row_groups
         for k, (d, s) in enumerate(zip(dst.shards, src.shards)):
+            if d is None:
+                continue
             lo = (k // per) * batch
             kv_map(set_rows([(i, slot - lo) for i, slot in enumerate(slots)
                              if lo <= slot < lo + batch]), d, s)

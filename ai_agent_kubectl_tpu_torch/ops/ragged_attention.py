@@ -204,10 +204,12 @@ def split_heads(x, mesh, axis: int) -> list:
 
 def on_shards(x, devices) -> list:
     """A replicated argument (positions, q_lens, tables) on each shard's
-    device: a list is taken as it is, a tensor moved where it is not."""
+    device: a list is taken as it is, a tensor moved where it is not
+    (None for another process's shard, whose device is None)."""
     if isinstance(x, (list, tuple)):
         return list(x)
-    return [x if x.device == d else x.to(d) for d in devices]
+    return [None if d is None else x if x.device == d else x.to(d)
+            for d in devices]
 
 
 def global_heads(x, axis: int) -> int:
@@ -241,7 +243,8 @@ def ragged_attention_pool_sharded(q, k, v, q_lens, positions,
     ``q`` [N, W, H, hd] and ``k``/``v`` [n_blocks, page, KV, hd] are
     whole tensors (split here, with the JAX refusal when the heads do
     not divide) or lists of per-shard blocks, one per shard of the mesh
-    (the pool's own shards);
+    (the pool's own shards; None for another process's shard, which
+    launches nothing here);
     ``q_lens``, ``positions`` and ``block_tables`` are the same on every
     shard (a tensor, or one per shard). Each shard's local G = H/KV is
     the model's. Returns the per-shard outputs [N, W, H/tp, hd] in shard
@@ -258,10 +261,11 @@ def ragged_attention_pool_sharded(q, k, v, q_lens, positions,
                            global_heads(k, 2), tp)
     qs, ks, vs = (split_heads(x, mesh, ax) for x, ax in
                   ((q, 2), (k, 2), (v, 2)))
-    devices = [t.device for t in qs]
+    devices = [None if t is None else t.device for t in qs]
     fn = ragged_attention_pool_plain if plain else ragged_attention_pool
     before = ragged_attention_pool.launches
-    out = [fn(qs[i], ks[i], vs[i], ql, pos, tbl, page_size=page_size,
+    out = [None if qs[i] is None else
+           fn(qs[i], ks[i], vs[i], ql, pos, tbl, page_size=page_size,
               scale=scale)
            for i, (ql, pos, tbl) in enumerate(zip(
                on_shards(q_lens, devices), on_shards(positions, devices),

@@ -28,6 +28,17 @@ the model shards of one (data, expert) row are adjacent. ``Mesh.groups``
 lists the shards a collective over some axes runs among. An ``expert``
 mesh may have one device: ``MOE_IMPL=ep`` on one card serves the
 dispatch over it, as the JAX engine does.
+
+A mesh may span processes (``DCN_MESH_SHAPE``, ``build_mesh(...,
+dcn=)``): each axis is then ``ici x dcn`` in size, laid out as the JAX
+``mesh_utils.create_hybrid_device_mesh(ici, dcn,
+process_is_granule=True)`` lays it out — each process's devices
+reshaped to the ICI shape, the processes in rank order, the DCN index
+the outer part of each axis's coordinate. ``Mesh.owners`` names each
+shard's process; a process holds and runs its own shards only
+(``Mesh.is_local``), and ``parallel/collectives.py`` joins the shards
+across processes (``parallel/distributed.py`` starts the process
+group).
 """
 
 from __future__ import annotations
@@ -96,6 +107,38 @@ class Mesh:
 
     config: MeshConfig
     devices: tuple
+    #: each shard's process (its rank); empty: every shard is this
+    #: process's own
+    owners: tuple = ()
+    #: this process's rank
+    rank: int = 0
+
+    def owner(self, i: int) -> int:
+        return self.owners[i] if self.owners else self.rank
+
+    def is_local(self, i: int) -> bool:
+        """Whether shard ``i`` is this process's: only its own shards'
+        tensors exist here."""
+        return not self.owners or self.owners[i] == self.rank
+
+    @property
+    def local_shards(self) -> list:
+        return [i for i in range(self.size) if self.is_local(i)]
+
+    @property
+    def hybrid(self) -> bool:
+        """Whether this mesh is laid out over processes: a DCN mesh (its
+        shards in more than one process), or a part of one (a pipeline
+        stage may lie wholly in another process)."""
+        return bool(self.owners)
+
+    @property
+    def home(self):
+        """The device of this process's first shard: where rank 0's
+        results (the logits) land. None on a sub-mesh (a pipeline stage)
+        with no shard here."""
+        local = self.local_shards
+        return self.devices[local[0]] if local else None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -157,7 +200,9 @@ class Mesh:
         axis."""
         idx = [i for i in range(self.size) if self.coord(i, axis) == coord]
         cfg = dataclasses.replace(self.config, **{axis: 1})
-        return Mesh(cfg, tuple(self.devices[i] for i in idx)), idx
+        owners = tuple(self.owners[i] for i in idx) if self.owners else ()
+        return Mesh(cfg, tuple(self.devices[i] for i in idx), owners,
+                    self.rank), idx
 
     def cache_row(self) -> tuple:
         """The sub-mesh that holds the KV cache and runs every forward but
@@ -170,18 +215,78 @@ class Mesh:
         return self.select("seq", 0)
 
 
-def build_mesh(cfg: MeshConfig, devices: Sequence) -> Mesh:
+def build_mesh(cfg: MeshConfig, devices: Sequence,
+               dcn: Optional[MeshConfig] = None) -> Mesh:
     """A mesh over ``devices`` (one per shard; a device may repeat).
     Raises when the spec wants another number of devices, as the JAX
-    ``build_mesh`` does."""
-    devices = tuple(torch.device(d) for d in devices)
-    if cfg.n_devices != len(devices):
-        raise ValueError(f"Mesh {cfg.describe()} wants {cfg.n_devices} "
-                         f"devices, got {len(devices)}")
-    mesh = Mesh(cfg, devices)
-    logger.info("Mesh built: %s over %d %s device(s)", cfg.describe(),
-                len(devices), devices[0].type)
+    ``build_mesh`` does.
+
+    ``dcn`` (``DCN_MESH_SHAPE``) with more than one device makes the
+    hybrid mesh: ``devices`` is then every process's devices, each entry
+    ``(rank, device)`` (``parallel/distributed.py::global_devices``; a
+    bare device is this process's), and each axis ``ici x dcn`` in size,
+    laid out as ``create_hybrid_device_mesh(cfg.shape, dcn.shape,
+    process_is_granule=True)`` does. It raises as that function does
+    when the processes are not ``dcn``'s device count (one process cannot
+    host a two-granule mesh)."""
+    from . import distributed
+
+    rank = distributed.rank()
+    total = cfg.n_devices * (dcn.n_devices if dcn is not None else 1)
+    if total != len(devices):
+        raise ValueError(
+            f"Mesh {cfg.describe()}"
+            + (f" x dcn {dcn.describe()}" if dcn is not None else "")
+            + f" wants {total} devices, got {len(devices)}")
+    if dcn is None or dcn.n_devices == 1:
+        mesh = Mesh(cfg, tuple(_device(d)[1] for d in devices), (), rank)
+    else:
+        mesh = _hybrid_mesh(cfg, dcn, [_device(d) for d in devices], rank)
+    logger.info("Mesh built: %s over %d %s device(s)%s",
+                mesh.config.describe(), mesh.size, mesh.devices[0].type,
+                f" in {len(set(mesh.owners))} processes" if mesh.hybrid
+                else "")
     return mesh
+
+
+def _device(d) -> tuple:
+    """(rank, torch.device) of a ``build_mesh`` entry; a bare device is
+    this process's."""
+    from . import distributed
+
+    if isinstance(d, tuple):
+        return int(d[0]), torch.device(d[1])
+    return distributed.rank(), torch.device(d)
+
+
+def _hybrid_mesh(cfg: MeshConfig, dcn: MeshConfig, devices: list,
+                 rank: int) -> Mesh:
+    """The ``create_hybrid_device_mesh`` layout: the granules (one per
+    process, in rank order) each reshaped to the ICI shape, placed as
+    blocks of the DCN shape, so that coordinate ``c`` on an axis of ICI
+    size ``n`` is granule block ``c // n``, device ``c % n``."""
+    granules: Dict[int, list] = {}
+    for p, d in devices:
+        granules.setdefault(p, []).append(d)
+    keys = sorted(granules)
+    if len(keys) != dcn.n_devices:
+        raise ValueError(f"Number of slices {len(keys)} must equal the "
+                         f"product of dcn_mesh_shape {dcn.shape}")
+    for k in keys:
+        if len(granules[k]) != cfg.n_devices:
+            raise ValueError(
+                f"Number of devices {len(granules[k])} must equal the "
+                f"product of mesh_shape {cfg.shape}")
+    shape = tuple(i * d for i, d in zip(cfg.shape, dcn.shape))
+    devs, owners = [], []
+    for c in np.ndindex(*shape):
+        g = np.ravel_multi_index(tuple(x // n for x, n in zip(c, cfg.shape)),
+                                 dcn.shape)
+        local = np.ravel_multi_index(
+            tuple(x % n for x, n in zip(c, cfg.shape)), cfg.shape)
+        devs.append(granules[keys[g]][local])
+        owners.append(keys[g])
+    return Mesh(MeshConfig(*shape), tuple(devs), tuple(owners), rank)
 
 
 def single_device_mesh(device=None) -> Mesh:

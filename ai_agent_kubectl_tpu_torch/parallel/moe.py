@@ -178,8 +178,12 @@ def expert_parallel_moe(cfg: ModelConfig, lps: Sequence[Dict[str, Any]],
 
     ``capacity`` defaults to ``max(1, int(capacity_factor * k *
     T_local / E))``; tokens past it drop. Raises the JAX ``ValueError``
-    when B*S or E does not divide the expert axis."""
-    B, S, D = xs[0].shape
+    when B*S or E does not divide the expert axis. On a mesh that spans
+    processes ``lps`` and ``xs`` hold None for another process's shard:
+    this process routes and runs its own shards, and the all-to-alls
+    cross processes (``parallel/collectives.py``)."""
+    x0 = next(x for x in xs if x is not None)
+    B, S, D = x0.shape
     T = B * S
     ep, E = mesh.shape["expert"], cfg.n_experts
     if T % ep or E % ep:
@@ -193,10 +197,14 @@ def expert_parallel_moe(cfg: ModelConfig, lps: Sequence[Dict[str, Any]],
     use_tp = tp > 1 and cfg.mlp_hidden % tp == 0
     if token_mask is None:
         token_mask = torch.ones((B, S), dtype=torch.float32,
-                                device=xs[0].device)
+                                device=x0.device)
     k = cfg.experts_per_token
     sends, routes = [], []
     for i, (lp, x) in enumerate(zip(lps, xs)):
+        if x is None:
+            sends.append(None)
+            routes.append(None)
+            continue
         e = mesh.coord(i, "expert")
         rows = slice(e * T_local, (e + 1) * T_local)
         xt = x.reshape(T, D)[rows]
@@ -209,11 +217,16 @@ def expert_parallel_moe(cfg: ModelConfig, lps: Sequence[Dict[str, Any]],
         sends.append(buf[:-1].view(E, capacity, D))
         routes.append((slot, w))
     groups = mesh.groups("expert")
-    recv = all_to_all(sends, 0, 1, groups)          # [E_local, ep*C, D]
-    outs = [_ffn(cfg, lp, r) for lp, r in zip(lps, recv)]
-    back = all_to_all(outs, 1, 0, groups)           # [E, C, D]
+    recv = all_to_all(sends, 0, 1, groups, mesh)    # [E_local, ep*C, D]
+    outs = [None if r is None else _ffn(cfg, lp, r)
+            for lp, r in zip(lps, recv)]
+    back = all_to_all(outs, 1, 0, groups, mesh)     # [E, C, D]
     ys = []
-    for (slot, w), y in zip(routes, back):
+    for route, y in zip(routes, back):
+        if route is None:
+            ys.append(None)
+            continue
+        slot, w = route
         flat = torch.cat([y.reshape(E * capacity, D),
                           y.new_zeros((1, D))])
         picks = flat[slot].float() * w[..., None]   # [T_local, k, D]
@@ -222,6 +235,7 @@ def expert_parallel_moe(cfg: ModelConfig, lps: Sequence[Dict[str, Any]],
             out = out + picks[:, j]
         ys.append(out)
     if use_tp:
-        ys = all_reduce(ys, mesh.groups("model"))
-    ys = [y.to(x.dtype) for y, x in zip(ys, xs)]
-    return [y.reshape(B, S, D) for y in all_gather(ys, 0, groups)]
+        ys = all_reduce(ys, mesh.groups("model"), mesh)
+    ys = [None if y is None else y.to(x.dtype) for y, x in zip(ys, xs)]
+    return [None if y is None else y.reshape(B, S, D)
+            for y in all_gather(ys, 0, groups, mesh)]

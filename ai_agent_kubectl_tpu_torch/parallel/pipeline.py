@@ -17,12 +17,15 @@ port's one-controller mesh (``parallel/mesh.py``):
   launches are issued in that order (for each step, for each stage), so
   stages on distinct cards overlap; a bubble step launches nothing.
 - The hidden state hands off by a copy to the next stage's devices (the
-  JAX ``ppermute``); each microbatch writes its own rows of each stage's
-  cache.
+  JAX ``ppermute``; ``parallel/collectives.py::transfer``, which sends
+  it to another process where the next stage lies there); each
+  microbatch writes its own rows of each stage's cache. A process runs
+  the stages it holds shards of, and only those.
 - The embedding, final norm and head stay outside the stages, as in
   JAX, where they are replicated over ``pipe``: the first stage's shards
   embed, the last stage's run the norm and the head, and the logits
-  return on the mesh's first device.
+  return on the mesh's first device (on every process, on its first
+  device of the mesh).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Optional
 import torch
 
 from ..models.config import ModelConfig
+from .collectives import transfer
 
 
 def microbatch_count(B: int, n_stages: int,
@@ -69,7 +73,7 @@ def pipeline_layers(params, cfg: ModelConfig, h: list,
     it (each shard its stage's layers; written in place). Returns the
     hidden states on each last-stage shard. Requires the layers to
     divide over the stages."""
-    from ..models.transformer import _MeshPass, _row_groups
+    from ..models.transformer import _layer_trees, _MeshPass, _row_groups
 
     n_stages = mesh.shape[axis]
     if cfg.n_layers % n_stages:
@@ -87,7 +91,7 @@ def pipeline_layers(params, cfg: ModelConfig, h: list,
                        write_mask=write_mask, moe_impl="dense",
                        rows=(m * Bm, (m + 1) * Bm), residual=False)
              for m in range(M)] for sub, _, caches in stages]
-    layers = [[params[i]["layers"] for i in idx] for _, idx, _ in stages]
+    stage_params = [[params[i] for i in idx] for _, idx, _ in stages]
     state = {(0, m): runs[0][m].take(h) for m in range(M)}
     outs = [None] * M
     for t in range(n_stages + M - 1):
@@ -97,16 +101,16 @@ def pipeline_layers(params, cfg: ModelConfig, h: list,
                 continue                # a bubble: nothing to launch
             run, x = runs[s][m], state.pop((s, m))
             for li in range(L_l):
-                x = run.layer([{name: w[li] for name, w in lay.items()}
-                               for lay in layers[s]], x, li)
+                x = run.layer(_layer_trees(stage_params[s], li), x, li)
             if s + 1 < n_stages:        # hand off to the next stage
-                nxt = stages[s + 1][0].devices
-                state[(s + 1, m)] = [y if y.device == d else
-                                     y.to(d, non_blocking=True)
-                                     for y, d in zip(x, nxt)]
+                (_, src, _), (nxt, dst, _) = stages[s], stages[s + 1]
+                state[(s + 1, m)] = transfer(
+                    [(y, a, b, d) for y, a, b, d in
+                     zip(x, src, dst, nxt.devices)], mesh)
             else:
                 outs[m] = x
-    return [torch.cat([o[k] for o in outs]) if M > 1 else outs[0][k]
+    return [None if outs[0][k] is None else
+            torch.cat([o[k] for o in outs]) if M > 1 else outs[0][k]
             for k in range(len(outs[0]))]
 
 
@@ -135,5 +139,6 @@ def pipeline_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     last, idx, caches = stages[-1]
     head = _MeshPass(cfg, last, tokens, positions, caches, row_groups=groups,
                      residual=False)
-    logits = head.head([params[i] for i in idx], h, logits_at)
-    return logits.to(mesh.devices[0]), cache
+    logits = head.head([params[i] for i in idx], h, logits_at,
+                       dest=mesh.home)
+    return logits, cache

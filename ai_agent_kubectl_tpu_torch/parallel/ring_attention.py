@@ -21,6 +21,9 @@ blocks (``parallel/mesh.py``):
   with the blocks, so a block's place in the ring never matters. A fully
   masked row outputs 0.
 - GQA/MQA: KV heads are shared by their query-head groups by reshape.
+- A ring never crosses processes: a seq axis across them
+  (``DCN_MESH_SHAPE``) is refused at boot (ROADMAP.md A12 row 1), so
+  every shard of a seq group is in one process.
 """
 
 from __future__ import annotations

@@ -38,7 +38,10 @@ all, since each shard runs the attention kernel on its own heads (XLA
 may split a single KV head's columns and gather them back; a shard here
 cannot). So Gemma-2B's single KV head is replicated under tp=2 and its
 query heads split (``head_layout``). Shards on one device that would
-hold the same block share one tensor (the weights are read-only).
+hold the same block share one tensor (the weights are read-only). On a
+mesh that spans processes each process places its own shards only
+(``Mesh.is_local``): another process's shard holds None here, and no
+process allocates another's bytes.
 """
 
 from __future__ import annotations
@@ -230,7 +233,7 @@ class ShardedParams(list):
     """A parameter tree per shard (shard ``i`` on ``mesh.devices[i]``),
     each with the unsharded tree's keys; a replicated leaf is the same
     values on every shard (the same tensor where shards share a
-    device)."""
+    device). Another process's shard is None."""
 
 
 #: one cut of a tensor: (dimension, parts, this shard's part)
@@ -286,6 +289,9 @@ def _leaf_shards(leaf, spec: Spec, mesh: Mesh) -> list:
                          "mesh; the engines serve int8 instead")
     out, made = [], {}
     for i, dev in enumerate(mesh.devices):
+        if not mesh.is_local(i):
+            out.append(None)
+            continue
         cuts = _spec_cuts(mesh, spec, tuple(leaf.shape), i)
         key = (str(dev), tuple(cuts))
         if key not in made:
@@ -313,20 +319,24 @@ def shard_params(params: Params, mesh: Mesh,
     specs = param_specs(cfg)
     q_split, kv_split = head_layout(cfg, mesh.tp)
     whole = {"wq": not q_split, "wk": not kv_split, "wv": not kv_split}
-    trees = [dict() for _ in mesh.devices]
+    trees = [dict() if mesh.is_local(i) else None
+             for i in range(mesh.size)]
     for key, spec in specs.items():
         if key == "layers":
             for t in trees:
-                t["layers"] = {}
+                if t is not None:
+                    t["layers"] = {}
             for name, lspec in spec.items():
                 if whole.get(name):
                     lspec = _no_model(lspec)
                 for t, s in zip(trees, _leaf_shards(
                         params["layers"][name], lspec, mesh)):
-                    t["layers"][name] = s
+                    if t is not None:
+                        t["layers"][name] = s
             continue
         for t, s in zip(trees, _leaf_shards(params[key], spec, mesh)):
-            t[key] = s
+            if t is not None:
+                t[key] = s
     return ShardedParams(trees)
 
 
@@ -348,6 +358,9 @@ def _kv_shards(leaf, mesh: Mesh, heads_split: bool,
     spec = _cache_spec(heads_split, split_rows)
     out, seen = [], set()
     for i, dev in enumerate(mesh.devices):
+        if not mesh.is_local(i):
+            out.append(None)
+            continue
         block = _leaf_block(leaf, _spec_cuts(mesh, spec, tuple(leaf.shape),
                                              i), dev)
         ptr = (block.q if isinstance(block, QuantKV) else block).data_ptr()
@@ -422,5 +435,6 @@ def token_spec() -> Spec:
 
 def replicate(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     """One tensor on every shard's device (itself where it already
-    is)."""
-    return [t if t.device == d else t.to(d) for d in mesh.devices]
+    is; None for another process's shard)."""
+    return [None if not mesh.is_local(i) else t if t.device == d
+            else t.to(d) for i, d in enumerate(mesh.devices)]

@@ -110,7 +110,7 @@ def parse_fault_points(cfg):
     return injector
 
 
-def _build_inner(cfg, faults):
+def _build_inner(cfg, faults, devices=None):
     if cfg.engine == "fake":
         from ..engine.fake import FakeEngine
 
@@ -125,10 +125,11 @@ def _build_inner(cfg, faults):
     if cfg.batched_engine:
         from ..engine.batcher import BatchedTorchEngine
 
-        return BatchedTorchEngine.from_config(cfg, faults=faults)
+        return BatchedTorchEngine.from_config(cfg, faults=faults,
+                                              devices=devices)
     from ..engine.torch_engine import TorchEngine
 
-    return TorchEngine.from_config(cfg)
+    return TorchEngine.from_config(cfg, devices=devices)
 
 
 def _build_fleet(cfg, injector):
@@ -154,7 +155,9 @@ def _build_fleet(cfg, injector):
     )
 
 
-def build_engine(cfg):
+def build_engine(cfg, devices=None):
+    """The engine ``cfg`` names (``devices``: the mesh's devices of this
+    process, one per shard, when they are not the distinct cards)."""
     injector = parse_fault_points(cfg)
     if cfg.fleet_size > 1 and cfg.engine == "openai":
         # Outside the degraded-start net, as in the JAX factory: N
@@ -171,7 +174,7 @@ def build_engine(cfg):
             faults = injector
             if injector is not None and injector.scoped_replicas():
                 faults = injector.for_replica(0)
-            engine = _build_inner(cfg, faults)
+            engine = _build_inner(cfg, faults, devices)
         if injector is not None and injector.has("generate"):
             from ..testing.faults import ChaosEngine
 

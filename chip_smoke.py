@@ -6,12 +6,12 @@
                                      # the serve burst timed six times
 
 Phases, in order; any failure raises and the script exits non-zero.
-Every model runs at its full width. serve, serve_ckpt, serve_tp,
-serve_ring and serve_pp run every layer of theirs; the phases that PHASE_LAYERS names run fewer
-(Gemma-2B 6 of 18, Gemma-7B 8 of 28, Llama-3-8B 8 of 32 in serve_paged,
-Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
-(MOE_LAYERS, KVQ_LAYERS), so that the whole script stays well inside its
-1,200 s:
+Every model runs at its full width. serve, serve_ckpt and serve_tp run
+every layer of theirs; the phases that PHASE_LAYERS names run fewer
+(Gemma-2B 6 of 18, Gemma-7B 8 of 28, Llama-3-8B 8 of 32 in serve_paged
+and serve_dcn and 16 of 32 in serve_ring and serve_pp, Mixtral 8 of 32
+in serve_moe_ep), as serve_moe and serve_kvq do (MOE_LAYERS,
+KVQ_LAYERS), so that the whole script stays well inside its 1,200 s:
 
 1. build    -- compile every CUDA kernel of the port from the sources in
                ``ai_agent_kubectl_tpu_torch/csrc`` (one nvcc per source,
@@ -601,7 +601,8 @@ Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
                Printed: each run's seconds, tok/s and drops (shards on
                one card measure no interconnect: no claim).
 15e. serve_ring -- ring prefill on a seq axis: Llama-3-8B bf16 at full
-               width (random weights from seed 0) on MESH_SHAPE sp=2
+               width, 16 of its 32 layers (random weights from seed 0)
+               on MESH_SHAPE sp=2
                (two shards of the one card) and sp=2,tp=2 (four), with
                MAX_SEQ_LEN=8192, the default buckets (largest 1,024),
                HBM_PREFIX_CACHE=false and DECODE_ATTN=paged (page 64).
@@ -626,7 +627,8 @@ Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
                reference's chunked prefill ms, peak memory, row 4's and
                row 3's launches per run.
 15f. serve_pp -- pipeline stages on a pipe axis: Llama-3-8B bf16 at full
-               width (seed 0) on pp=2 (two shards of the card), pp=2,tp=2
+               width, 16 of its 32 layers (seed 0) on pp=2 (two shards of
+               the card), pp=2,tp=2
                and pp=2,tp=2 with KV_QUANT=int8 (four), DECODE_ATTN=paged
                (which a pipe axis turns to dense, loudly), the burst of 8
                queries over HTTP, 16 new tokens. Reference: the unsharded
@@ -641,6 +643,37 @@ Mixtral 8 of 32 in serve_moe_ep), as serve_moe and serve_kvq do
                bytes of weights and KV per stage, the microbatch counts,
                tok/s against the reference (one card carries every
                stage: no claim).
+15g. serve_dcn -- two processes over gloo on the one card (DCN and
+               distributed init): Llama-3-8B bf16 at full width, 8 of
+               its 32 layers, seed 0; each rank a subprocess of this
+               script (``--rank-of serve_dcn``) running the port's
+               server entry point on two shards of the card
+               (``--devices cuda:0,cuda:0``), rank 0 on HTTP. (a) Before
+               serving, a forward of 4 rows x 128 columns (flash per
+               shard) over tp=2 x DCN dp=2, whose batch crosses the
+               process boundary: rank 0's logits torch.equal to the
+               one-process dp=2,tp=2 mesh's on [cuda:0] * 4 in the same
+               shard order (run twice there: its own determinism), none
+               on rank 1 (only rank 0 samples). (b) The pool engine over tp=2 x DCN
+               tp=2 (a data axis takes the pool away, the JAX rule),
+               four queries each alone and then as a burst through the
+               stream route, 16 new tokens: transcripts byte-identical
+               to the one-process tp=4 mesh's, and against the
+               unsharded engine equal or at a near tie (TP_LOGIT_MAX's
+               rule). (c) The books on rank 0 (/health's pool, /metrics).
+               (d) Each rank's own launches of row 6 while it served
+               (counted from the end of its engine's start, the warm-up
+               and (a) apart), above zero on both. (e) Rank 1 binds
+               no port; both ranks exit 0 once rank 0 is stopped
+               (SIGTERM). (f) The single-sequence
+               engine over DCN dp=2 answers one query as its one-process
+               mesh does; flash (row 3) launches on both ranks while
+               they serve. Printed:
+               ms a forward in two processes and in one, each burst
+               against the one-process mesh's, ms posting a call, each
+               rank's traffic with the other (collectives, seconds,
+               bytes), launches per rank while serving and before,
+               the phase's seconds.
 16. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
@@ -688,7 +721,7 @@ PHASES = ("build", "kernel", "serve", "serve_pipe", "serve1", "serve_paged",
           "serve_ckpt", "serve_qos", "serve_moe", "serve_kvq", "serve_obs",
           "serve_chaos", "serve_grammar", "serve_spec", "serve_host",
           "serve_fleet", "serve_tp", "serve_spec_tp", "serve_moe_ep",
-          "serve_ring", "serve_pp", "timing")
+          "serve_ring", "serve_pp", "serve_dcn", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -700,7 +733,8 @@ START_ENV = dict(os.environ)
 #: host's launches, so it grows with the layers, and the whole script
 #: must finish well inside its 1,200 s on a card shared with a busy host.
 #: serve, serve_ckpt and serve_tp run every layer; serve_moe and serve_kvq
-#: take MOE_LAYERS and KVQ_LAYERS.
+#: take MOE_LAYERS and KVQ_LAYERS; serve_ring and serve_pp half of
+#: Llama-3-8B's layers since serve_dcn joined them.
 PHASE_LAYERS = {
     "serve_pipe": {"gemma-2b-it": 6},
     "serve1": {"gemma-7b-it": 8},
@@ -714,6 +748,9 @@ PHASE_LAYERS = {
     "serve_fleet": {"gemma-2b-it": 6},
     "serve_spec_tp": {"gemma-2b-it": 6, "gemma-7b-it": 8},
     "serve_moe_ep": {"mixtral-8x7b-instruct": 8},     # MOE_LAYERS
+    "serve_dcn": {"llama-3-8b-instruct": 8},
+    "serve_ring": {"llama-3-8b-instruct": 16},
+    "serve_pp": {"llama-3-8b-instruct": 16},
 }
 #: seconds after which every thread's stack is printed to stderr once, so
 #: that a run stopped at the limit shows where it was
@@ -1569,6 +1606,7 @@ def _kernel_mesh_shards(torch, gen) -> dict:
 #: the sharded wrappers' geometries of phase 2: (label, heads, tp,
 #: whether the paged pool kernel runs there too)
 TP_KERNEL_GEOMETRIES = (("llama_tp2", "LLAMA", 2, True),
+                        ("llama_tp4", "LLAMA", 4, True),
                         ("llama_tp8", "LLAMA", 8, True),
                         ("g7_tp2", "G7", 2, False))
 #: phase 2's ragged windows for the sharded wrapper: decode with a frozen
@@ -5487,6 +5525,7 @@ def kernel_lines(results: dict) -> list:
     moe_ep = results.get("serve_moe_ep", {}).get("launches", {})
     ring = results.get("serve_ring", {}).get("launches", {})
     pp = results.get("serve_pp", {}).get("launches", {})
+    dcn = results.get("serve_dcn", {}).get("launches", {})
     ring_decode = kernel.get("paged_decode_attention", {}).get("ring_decode")
 
     def tp_launches(name):
@@ -5525,7 +5564,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_spec_tp": spec_tp.get(name),
                                "serve_moe_ep": moe_ep.get(name),
                                "serve_ring": ring.get(name),
-                               "serve_pp": pp.get(name)},
+                               "serve_pp": pp.get(name),
+                               "serve_dcn": dcn.get(name)},
             "shapes": shapes,
         }
 
@@ -6358,23 +6398,10 @@ def phase_serve_grammar(torch, serve_info: dict) -> dict:
 
 
 def _launch_counters():
-    from ai_agent_kubectl_tpu_torch.ops.flash_attention import (
-        flash_attention_cached)
-    from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_pool,
-        paged_decode_attention_pool_sharded)
-    from ai_agent_kubectl_tpu_torch.ops.quant4 import qmatmul4
-    from ai_agent_kubectl_tpu_torch.ops.ragged_attention import (
-        ragged_attention_pool, ragged_attention_pool_sharded)
+    """Every kernel wrapper's launch counter, by name (the port's)."""
+    from ai_agent_kubectl_tpu_torch.ops._cuda import launch_counters
 
-    return {"ragged_attention_pool": ragged_attention_pool,
-            "flash_attention_cached": flash_attention_cached,
-            "paged_decode_attention": paged_decode_attention,
-            "paged_decode_attention_pool": paged_decode_attention_pool,
-            "qmatmul4": qmatmul4,
-            "ragged_attention_pool_sharded": ragged_attention_pool_sharded,
-            "paged_decode_attention_pool_sharded":
-                paged_decode_attention_pool_sharded}
+    return launch_counters()
 
 
 async def _serve_grammar(torch, serve_info: dict) -> dict:
@@ -10595,6 +10622,440 @@ async def _serve_pp(torch) -> dict:
     return info
 
 
+# ----------------------------------------------------------- serve_dcn
+
+DCN_MODEL = "llama-3-8b-instruct"
+#: both rank processes' environment: each adds ENGINE, DCN_MESH_SHAPE,
+#: its PROCESS_ID and PORT, and the coordinator's address
+SERVE_DCN_ENV = {
+    "TORCH_DEVICE": "cuda", "MODEL_NAME": DCN_MODEL, "DTYPE": "bfloat16",
+    "TOKENIZER_PATH": SERVE_ENV["TOKENIZER_PATH"],
+    "RATE_LIMIT": "1000/minute", "MAX_NEW_TOKENS": "16",
+    "MESH_SHAPE": "tp=2", "NUM_PROCESSES": "2",
+}
+#: each rank's two shards, on the one card
+DCN_DEVICES = ("cuda:0", "cuda:0")
+#: run -> (ENGINE, DECODE_BATCH_SIZE, DCN_MESH_SHAPE, the one-process
+#: MESH_SHAPE with the same shards in the same order, queries). A data
+#: axis takes the pool away (the JAX engine's rule), so the batched run
+#: joins the processes on the model axis: the pool, each rank's ragged
+#: kernel on its two shards; the single-sequence run on the data axis.
+#: Four slots for four queries: every join of a ragged prologue carries
+#: each slot's window across the processes.
+DCN_RUNS = {"batched": ("torch-batched", 4, "tp=2", "tp=4", QUERIES[:4]),
+            "single": ("torch", 1, "dp=2", "dp=2,tp=2", QUERIES[:1])}
+#: (a): rows x columns of the forward whose batch crosses the process
+#: boundary (tp=2 x DCN dp=2), flash prefill per shard
+DCN_FORWARD = (4, 128)
+#: seconds a rank process may take to start serving, and to exit
+DCN_START_S, DCN_EXIT_S = 300.0, 60.0
+
+
+def phase_serve_dcn(torch) -> dict:
+    """Phase 15g: two processes over gloo on the one card."""
+    release_served_apps(torch)
+    out = asyncio.run(_serve_dcn(torch))
+    release_served_apps(torch)
+    return out
+
+
+def dcn_rank(torch) -> int:
+    """One rank process of serve_dcn (``--rank-of serve_dcn``): the cut
+    model, (a)'s forward where ``DCN_FORWARD_OUT`` names its directory,
+    then the port's server entry point on two shards of the card."""
+    from ai_agent_kubectl_tpu_torch.server.__main__ import main as serve
+
+    out = os.environ.get("DCN_FORWARD_OUT")
+    with phase_layers("serve_dcn"):
+        if out:
+            _dcn_forward(torch, Path(out))
+        serve(["--devices", ",".join(DCN_DEVICES)])
+    return 0
+
+
+def _dcn_inputs(torch, cfg) -> tuple:
+    rows, cols = DCN_FORWARD
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, cols), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    positions = torch.arange(cols, dtype=torch.int32,
+                             device="cuda")[None].expand(rows, cols)
+    return tokens, positions.contiguous()
+
+
+def _dcn_forward_run(torch, params, cfg, mesh, reps: int = 3) -> tuple:
+    """(a)'s forward over ``mesh`` (a prefill, flash per shard): the
+    logits at each row's last column (None on a rank other than 0 of a
+    mesh over processes), and ms per forward over ``reps`` more (a fresh
+    cache each)."""
+    from ai_agent_kubectl_tpu_torch.models.transformer import KVCache, forward
+
+    rows, cols = DCN_FORWARD
+    tokens, positions = _dcn_inputs(torch, cfg)
+    last = torch.full((rows,), cols - 1, dtype=torch.int64, device="cuda")
+
+    def once():
+        cache = KVCache.zeros(cfg, rows, cols, dtype=torch.bfloat16,
+                              device="cuda", mesh=mesh, split_rows=True)
+        with torch.no_grad():
+            return forward(params, cfg, tokens, positions, cache,
+                           kv_limit=cols, attn_impl="flash",
+                           logits_at=last, mesh=mesh)[0]
+
+    logits = once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        once()
+    torch.cuda.synchronize()
+    return logits, (time.perf_counter() - t0) * 1e3 / max(1, reps)
+
+
+def _dcn_forward(torch, out: Path) -> None:
+    """(a) in a rank process: the group joined, tp=2 x DCN dp=2 over
+    both processes, the seeded weights' own shards, the forward; its
+    logits and ms saved for the phase."""
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.models.transformer import init_params
+    from ai_agent_kubectl_tpu_torch.parallel import distributed
+    from ai_agent_kubectl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ai_agent_kubectl_tpu_torch.parallel.sharding import shard_params
+
+    rank = int(os.environ["PROCESS_ID"])
+    distributed.init_distributed(os.environ["COORDINATOR_ADDRESS"], 2, rank)
+    cfg = get_config(DCN_MODEL)
+    mesh = build_mesh(MeshConfig.parse("tp=2"),
+                      distributed.global_devices(list(DCN_DEVICES)),
+                      dcn=MeshConfig.parse("dp=2"))
+    full = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       dtype=torch.bfloat16, device="cuda")
+    params = shard_params(full, mesh, cfg)
+    del full
+    logits, ms = _dcn_forward_run(torch, params, cfg, mesh)
+    if logits is not None:
+        torch.save(logits.cpu(), out / f"forward-{rank}.pt")
+    (out / f"forward-{rank}.json").write_text(json.dumps(
+        {"ms": ms, "owners": list(mesh.owners), "local": mesh.local_shards,
+         "logits": logits is not None}))
+    del params, logits
+    torch.cuda.empty_cache()
+
+
+def _sse_text(body: str) -> tuple:
+    """(a stream's token pieces joined, its last event)."""
+    pieces, last = [], None
+    for frame in body.split("\n\n"):
+        if not frame.strip():
+            continue
+        lines = frame.split("\n")
+        event = next((ln[7:] for ln in lines if ln.startswith("event: ")),
+                     None)
+        if event is None:
+            pieces.append("\n".join(ln[6:] for ln in lines
+                                    if ln.startswith("data: ")))
+        last = event
+    return "".join(pieces), last
+
+
+async def _dcn_http(url: str, queries=(), burst=()) -> dict:
+    """Over ``/kubectl-command/stream``: each of ``queries`` alone, in
+    turn (its transcript: one admission alone, so that every server
+    compared runs the same shapes), then ``burst`` at once (seconds),
+    then /health and /metrics (the books' families)."""
+    import aiohttp
+
+    async with aiohttp.ClientSession() as http:
+        async def ask(q):
+            async with http.post(f"{url}/kubectl-command/stream",
+                                 json={"query": q}) as r:
+                return _sse_text(await r.text())
+
+        got = [await ask(q) for q in queries]
+        t0 = time.monotonic()
+        ends = await asyncio.gather(*[ask(q) for q in burst])
+        burst_s = time.monotonic() - t0
+        async with http.get(f"{url}/health") as r:
+            health = await r.json()
+        async with http.get(f"{url}/metrics") as r:
+            metrics = _scrape(await r.text(), (
+                "engine_batch_occupancy", "engine_queue_depth",
+                "mesh_devices"))
+    return {"texts": {q: t for q, (t, _) in zip(queries, got)},
+            "events": [e for _, e in got + list(ends)], "burst_s": burst_s,
+            "sharding": health.get("sharding"),
+            "kv_pool": health.get("kv_pool"), "metrics": metrics}
+
+
+def _dcn_burst_queries(queries) -> list:
+    """The burst's queries: others than the transcripts' (a command the
+    safety parse passes is cached by its query)."""
+    return [f"{q} right now" for q in queries]
+
+
+def _port_open(port: int) -> bool:
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(1.0)
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
+async def _dcn_pair(torch, name: str, work: Path) -> dict:
+    """Two rank processes of one run: started together, rank 0 asked
+    over HTTP once it is ready, then stopped; both exits and reports."""
+    import signal
+
+    import aiohttp
+
+    engine, batch, dcn, _, queries = DCN_RUNS[name]
+    coord = f"127.0.0.1:{_free_port()}"
+    ports = [_free_port(), _free_port()]
+    procs, logs = [], []
+    for r in range(2):
+        env = dict(START_ENV, **SERVE_DCN_ENV, ENGINE=engine,
+                   DECODE_BATCH_SIZE=str(batch), DCN_MESH_SHAPE=dcn,
+                   COORDINATOR_ADDRESS=coord, PROCESS_ID=str(r),
+                   HOST="127.0.0.1", PORT=str(ports[r]),
+                   OMP_NUM_THREADS="4")
+        if name == "batched":
+            env["DCN_FORWARD_OUT"] = str(work)
+        out = open(work / f"{name}-{r}.out", "w")
+        err = open(work / f"{name}-{r}.err", "w")
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-of",
+             "serve_dcn"], env=env, stdout=out, stderr=err, cwd=str(ROOT)))
+    url = f"http://127.0.0.1:{ports[0]}"
+    t0 = time.monotonic()
+    res: dict = {}
+    try:
+        async with aiohttp.ClientSession() as http:
+            while True:
+                if any(p.poll() is not None for p in procs):
+                    raise AssertionError(f"serve_dcn/{name}: a rank ended "
+                                         f"before serving")
+                if time.monotonic() - t0 > DCN_START_S:
+                    raise AssertionError(f"serve_dcn/{name}: rank 0 did not "
+                                         f"answer /health engine_ready "
+                                         f"within {DCN_START_S:.0f} s")
+                try:
+                    async with http.get(f"{url}/health") as r:
+                        if (await r.json()).get("engine_ready"):
+                            break
+                except (aiohttp.ClientError, ValueError):
+                    pass
+                await asyncio.sleep(0.25)
+        res["startup_s"] = time.monotonic() - t0
+        res["rank1_port_open"] = _port_open(ports[1])
+        res.update(await _dcn_http(url, queries,
+                                   _dcn_burst_queries(queries)))
+    finally:
+        if procs[0].poll() is None:
+            procs[0].send_signal(signal.SIGTERM)
+        end = time.monotonic() + DCN_EXIT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise AssertionError(f"serve_dcn/{name}: a rank did not "
+                                     f"exit within {DCN_EXIT_S:.0f} s of "
+                                     f"rank 0's stop")
+        for out, err in logs:
+            out.close()
+            err.close()
+    res["exits"] = [p.returncode for p in procs]
+    res["pair_s"] = time.monotonic() - t0
+    res["reports"] = []
+    for r in range(2):
+        lines = (work / f"{name}-{r}.out").read_text().strip().splitlines()
+        res["reports"].append(json.loads(lines[-1]) if lines else None)
+        if procs[r].returncode != 0:
+            log((work / f"{name}-{r}.err").read_text()[-3000:])
+    return res
+
+
+async def _dcn_one_process(torch, name: str, params, batched: bool) -> dict:
+    """A run's references on the same weights, in this process: the
+    one-process mesh (its shards in the same order, on the card) and the
+    unsharded engine, each asked each query alone in turn through
+    ``generate`` (token ids and text); then the mesh served over HTTP and
+    sent the pair's burst."""
+    from aiohttp import web
+
+    from ai_agent_kubectl_tpu_torch.config import ServiceConfig
+    from ai_agent_kubectl_tpu_torch.engine.batcher import BatchedTorchEngine
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.torch_engine import TorchEngine
+    from ai_agent_kubectl_tpu_torch.server.app import create_app
+    from ai_agent_kubectl_tpu_torch.server.sanitize import sanitize_query
+
+    engine, batch, _, spec, queries = DCN_RUNS[name]
+    cls = BatchedTorchEngine if batched else TorchEngine
+    prompts = {q: render_prompt(sanitize_query(q)) for q in queries}
+    out = {}
+    for tag, mesh_spec, n in (("mesh", spec, 4), ("unsharded", "", 1)):
+        port = _free_port()
+        _phase_env(dict(SERVE_DCN_ENV, ENGINE=engine,
+                        DECODE_BATCH_SIZE=str(batch), MESH_SHAPE=mesh_spec,
+                        NUM_PROCESSES="1"), port)
+        cfg = ServiceConfig.from_env()
+        inner = cls.from_config(
+            cfg, devices=[torch.device("cuda", 0)] * n if n > 1 else None)
+        inner.params = params
+        runner = web.AppRunner(create_app(cfg, inner), access_log=None)
+        got = {"ids": {}, "texts": {}}
+        try:
+            await runner.setup()             # starts the engine
+            await web.TCPSite(runner, cfg.host, port).start()
+            for q in queries:
+                r = await inner.generate(prompts[q], max_tokens=16,
+                                         temperature=0.0)
+                got["ids"][q], got["texts"][q] = list(r.token_ids), r.text
+            if tag == "mesh":
+                got["burst_s"] = (await _dcn_http(
+                    f"http://127.0.0.1:{port}",
+                    burst=_dcn_burst_queries(queries)))["burst_s"]
+        finally:
+            await runner.cleanup()           # stops the engine
+        if tag == "unsharded":
+            got["near_ties"] = [
+                _chunked_near_tie(torch, inner,
+                                  inner.tokenizer.encode(prompts[q]),
+                                  got["ids"][q], out["mesh"]["ids"][q])
+                for q in queries]
+        inner._cache = None
+        del inner
+        release_served_apps(torch)
+        out[tag] = got
+    return out
+
+
+async def _serve_dcn(torch) -> dict:
+    import tempfile
+
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+    from ai_agent_kubectl_tpu_torch.models.transformer import init_params
+    from ai_agent_kubectl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ai_agent_kubectl_tpu_torch.parallel.sharding import shard_params
+
+    work = Path(tempfile.mkdtemp(prefix="serve_dcn-"))
+    t_phase = time.monotonic()
+    failures = []
+    runs = {name: await _dcn_pair(torch, name, work) for name in DCN_RUNS}
+    # (a) against the one-process mesh on the card, in the same shard
+    # order, on the same seeded weights; run twice to show its own
+    # determinism.
+    cfg = get_config(DCN_MODEL)
+    full = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       dtype=torch.bfloat16, device="cuda")
+    mesh = build_mesh(MeshConfig.parse("dp=2,tp=2"),
+                      [torch.device("cuda", 0)] * 4)
+    sharded = shard_params(full, mesh, cfg)
+    one, one_ms = _dcn_forward_run(torch, sharded, cfg, mesh)
+    again, _ = _dcn_forward_run(torch, sharded, cfg, mesh, reps=0)
+    del sharded
+    # Only rank 0 samples, so only rank 0 receives the logits.
+    ranks = [json.loads((work / f"forward-{r}.json").read_text())
+             for r in range(2)]
+    got = torch.load(work / "forward-0.pt").to("cuda")
+    fwd = {"ms": [r["ms"] for r in ranks], "one_process_ms": one_ms,
+           "logits_on_rank": [r["logits"] for r in ranks],
+           "equal_one_process": bool(torch.equal(got, one)),
+           "one_process_deterministic": bool(torch.equal(one, again)),
+           "max_abs_err": float((got.float() - one.float()).abs().max()),
+           "finite": bool(torch.isfinite(got).all())}
+    if not (fwd["logits_on_rank"] == [True, False]
+            and fwd["equal_one_process"] and fwd["finite"]):
+        failures.append(f"(a) forward {fwd}")
+    del one, again, got
+    refs = {}
+    t_refs = time.monotonic()
+    for name, (engine, _, dcn, spec, queries) in DCN_RUNS.items():
+        r = runs[name]
+        refs[name] = ref = await _dcn_one_process(
+            torch, name, full, batched=engine == "torch-batched")
+        mine = ref["mesh"]
+        # (b)/(f): byte-identical to the one-process mesh; against the
+        # unsharded engine equal or at a near tie
+        if r["texts"] != mine["texts"]:
+            failures.append(f"{name}: transcripts {r['texts']} != the "
+                            f"one-process mesh's {mine['texts']}")
+        for gap in ref["unsharded"]["near_ties"]:
+            if gap is not None and gap["gap"] > gap["tolerance"]:
+                failures.append(f"{name}: leaves the unsharded engine at "
+                                f"{gap}, not a near tie")
+        if any(e not in ("done", "error") for e in r["events"]):
+            failures.append(f"{name}: stream ends {r['events']}")
+        # (c) the books on rank 0; (e) both exits; rank 1 binds no port
+        m = r["metrics"]
+        if m.get("engine_batch_occupancy") or m.get("engine_queue_depth"):
+            failures.append(f"{name}: books {m}")
+        pool = r.get("kv_pool")
+        if name == "batched" and (
+                not pool or pool["live"] != 0
+                or pool["free"] + pool["cached"] != pool["n_blocks"]):
+            failures.append(f"{name}: the pool's books {pool}")
+        if r["exits"] != [0, 0] or r["rank1_port_open"]:
+            failures.append(f"{name}: exits {r['exits']}, rank 1 port open "
+                            f"{r['rank1_port_open']}")
+        # (d)/(f): each rank's own launches of the path's kernel while
+        # it served, its engine's start apart (the report's launches)
+        kernel = ("ragged_attention_pool_sharded" if name == "batched"
+                  else "flash_attention_cached")
+        counts = [rep["launches"][kernel] if rep else 0
+                  for rep in r["reports"]]
+        if min(counts) <= 0:
+            failures.append(f"{name}: {kernel} launches per rank {counts}")
+        sh = r["sharding"] or {}
+        if sh.get("devices") != 4 or (name == "batched"
+                                      and m.get("mesh_devices") != 4):
+            failures.append(f"{name}: /health sharding {sh}, /metrics {m}")
+    del full
+    if failures:
+        raise AssertionError("serve_dcn: " + "; ".join(failures))
+    info = {"forward": fwd, "seconds": time.monotonic() - t_phase,
+            "references_s": time.monotonic() - t_refs,
+            "runs": {}, "launches": {}}
+    for name, r in runs.items():
+        rep0 = r["reports"][0]
+        one_s = refs[name]["mesh"]["burst_s"]
+        info["runs"][name] = {
+            "startup_s": r["startup_s"], "burst_s": r["burst_s"],
+            "one_process_burst_s": one_s,
+            "burst_ratio": r["burst_s"] / one_s,
+            "pair_s": r["pair_s"], "calls": rep0["calls"],
+            "ms_per_call_post": 1e3 * rep0["post_s"] / max(1, rep0["calls"]),
+            "traffic_per_rank": [rep["traffic"] for rep in r["reports"]],
+            "launches_per_rank": [rep["launches"] for rep in r["reports"]],
+            "launches_at_start_per_rank": [rep["launches_at_start"]
+                                           for rep in r["reports"]],
+            "regime": (r["sharding"] or {}).get("attention_regime")}
+    for n in _launch_counters():
+        info["launches"][n] = sum(rep["launches"].get(n, 0)
+                                  for r in runs.values()
+                                  for rep in r["reports"])
+    log("[serve_dcn] (a) forward 4x128 over tp=2 x DCN dp=2: logits on "
+        f"ranks {fwd['logits_on_rank']}, = one-process mesh "
+        f"{fwd['equal_one_process']}"
+        f"; {fwd['ms'][0]:.1f} ms a forward in two processes vs "
+        f"{fwd['one_process_ms']:.1f} ms in one; " + "; ".join(
+            f"{k} burst {v['burst_s']:.2f} s vs {v['one_process_burst_s']:.2f}"
+            f" s in one process ({v['burst_ratio']:.2f}x), {v['calls']} calls"
+            f" at {v['ms_per_call_post']:.2f} ms posting each, traffic per "
+            f"rank " + str([{kk: round(vv, 4) for kk, vv in t.items()}
+                            for t in v['traffic_per_rank']])
+            + ", launches per rank while serving " + str(
+                [{kk: vv for kk, vv in lp.items() if vv}
+                 for lp in v['launches_per_rank']])
+            + f", the pair {v['pair_s']:.1f} s (startup "
+            f"{v['startup_s']:.1f})" for k, v in info["runs"].items())
+        + f"; references {info['references_s']:.1f} s; phase "
+        f"{info['seconds']:.1f} s; {gpu_line()}")
+    return info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -10606,6 +11067,9 @@ def main() -> int:
     ap.add_argument("--bursts", type=int, default=1,
                     help="bursts of 8 fresh queries the serve phase times "
                     "(the first is the counted one)")
+    ap.add_argument("--rank-of", choices=("serve_dcn",),
+                    help="run as one rank process of that phase (the "
+                    "phase starts them)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -10623,6 +11087,8 @@ def main() -> int:
             "CUDA device")
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.rank_of:
+        return dcn_rank(torch)
     # Every float32 comparison on the card runs in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -10665,6 +11131,7 @@ def main() -> int:
     run("serve_moe_ep", phase_serve_moe_ep, torch)
     run("serve_ring", phase_serve_ring, torch)
     run("serve_pp", phase_serve_pp, torch)
+    run("serve_dcn", phase_serve_dcn, torch)
     run("timing", phase_timing, torch, results.get("serve", {}),
         results.get("serve_paged", {}), results.get("serve_moe", {}),
         results.get("serve_spec", {}), results.get("serve_host", {}),

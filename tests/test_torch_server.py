@@ -221,31 +221,45 @@ def test_config_defaults_match_the_jax_package():
         assert getattr(ours, name) == getattr(theirs, name), name
 
 
-#: every knob of UNSERVED_KNOBS with a value that asks for the feature
-#: (MESH_SHAPE serves every axis: tests/test_torch_tp.py boots them)
-REFUSED = [
-    ("DCN_MESH_SHAPE", "data:2"),
-    ("DISTRIBUTED_INIT", "true"), ("COORDINATOR_ADDRESS", "h:1"),
-    ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1"),
+#: the DCN and distributed knobs, refused until the port served them: a
+#: value that asks for the feature, read into the field the JAX from_env
+#: fills (MESH_SHAPE serves every axis: tests/test_torch_tp.py boots
+#: them; the two-process runs are tests/test_torch_dcn.py's)
+DCN_KNOBS = [
+    ("DCN_MESH_SHAPE", "data:2", "dcn_mesh_shape"),
+    ("DISTRIBUTED_INIT", "true", "distributed_init"),
+    ("COORDINATOR_ADDRESS", "h:1", "coordinator_address"),
+    ("NUM_PROCESSES", "2", "num_processes"),
+    ("PROCESS_ID", "1", "process_id"),
 ]
 
-#: a value of each refused knob that the port serves
-SERVED = dict(UNSERVED_KNOBS)
 
-
-def test_refused_list_names_every_unserved_knob():
-    assert "MESH_SHAPE" not in UNSERVED_KNOBS
-    assert sorted(k for k, _ in REFUSED) == sorted(SERVED)
-
-
-@pytest.mark.parametrize("knob,value", REFUSED)
-def test_config_refuses_knobs_the_port_does_not_serve(monkeypatch, knob,
-                                                      value):
+@pytest.mark.parametrize("knob,value,field",
+                         DCN_KNOBS + [("SPEC_DECODE", "true", None)])
+def test_config_reads_the_dcn_knobs_as_the_jax_package(monkeypatch, knob,
+                                                       value, field):
+    """Each DCN knob parses into the JAX field's value (its default
+    too); ``SPEC_DECODE`` with a DCN data axis refuses with the JAX
+    message."""
+    assert knob not in UNSERVED_KNOBS
+    if field is None:
+        monkeypatch.setenv("DCN_MESH_SHAPE", "dp=2")
+        monkeypatch.setenv("SPEC_DRAFT_MODEL", "toy-8m")
+        monkeypatch.setenv(knob, value)
+        errors = []
+        for cls in (ServiceConfig, JaxServiceConfig):
+            with pytest.raises(ValueError) as e:
+                cls.from_env()
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
+        assert "DCN_MESH_SHAPE='dp=2'" in errors[0]
+        return
+    assert getattr(ServiceConfig.from_env(), field) == \
+        getattr(JaxServiceConfig.from_env(), field)
     monkeypatch.setenv(knob, value)
-    with pytest.raises(ValueError, match=f"{knob}.*A8"):
-        ServiceConfig.from_env()
-    monkeypatch.setenv(knob, SERVED[knob])
-    assert ServiceConfig.from_env().engine == "torch"
+    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    assert getattr(ours, field) == getattr(theirs, field)
+    assert getattr(ours, field) != getattr(ServiceConfig(), field)
 
 
 #: the fleet and rollout knobs, refused until the port served them: a

@@ -727,9 +727,10 @@ def test_non_model_axes_are_refused_at_boot_naming_a8(monkeypatch, spec,
                                                       axis):
     """No longer refused: the pipe and seq axes (A8 rows 4 and 5) boot
     from the environment beside any served axis, as in the JAX package,
-    and build their meshes; only the DCN and distributed knobs are still
-    refused naming A8 (``tests/test_torch_server.py``). Served in
-    ``tests/test_torch_ring.py`` and ``tests/test_torch_pp.py``."""
+    and build their meshes, and so do the DCN and distributed knobs
+    (``tests/test_torch_server.py``; the two-process runs are
+    ``tests/test_torch_dcn.py``'s). Served in ``tests/test_torch_ring.py``
+    and ``tests/test_torch_pp.py``."""
     monkeypatch.setenv("MESH_SHAPE", spec)
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
     assert ServiceConfig.from_env().mesh_shape == spec
