@@ -64,9 +64,10 @@ the JAX defaults and parsing, and ``SPEC_DECODE``'s refusal counts the
 DCN spec's data/pipe/seq axes as the JAX one does. On a mesh that spans
 processes (a DCN spec over more than one device) what rank 0 cannot
 mirror to the other processes is refused at boot, each naming its
-ROADMAP.md row: a seq axis across processes (A12 row 1), the host KV
-tier (A12 row 2) and a fleet (A12 row 3); so is an engine without a
-mesh (``ENGINE=openai|fake``) when ``NUM_PROCESSES`` > 1.
+ROADMAP.md row: the host KV tier (A12 row 2) and a fleet (A12 row 3);
+so is an engine without a mesh (``ENGINE=openai|fake``) when
+``NUM_PROCESSES`` > 1. A seq axis across processes (A12 row 1) is
+served: its ring prefill crosses them.
 """
 
 from __future__ import annotations
@@ -669,12 +670,6 @@ class ServiceConfig:
                 f"ENGINE=torch or torch-batched)")
         if _mesh_size(self.dcn_mesh_shape) <= 1:
             return
-        if "seq" in _mesh_axes_over_one(self.dcn_mesh_shape):
-            raise ValueError(
-                f"DCN_MESH_SHAPE={self.dcn_mesh_shape!r}: a seq axis across "
-                f"processes is not served (ROADMAP.md A12 row 1): the ring "
-                f"prefill writes every block's K/V into the seq-0 row's "
-                f"cache, which would lie in another process")
         if self.host_kv_blocks > 0:
             raise ValueError(
                 f"HOST_KV_BLOCKS={self.host_kv_blocks} with DCN_MESH_SHAPE="

@@ -79,7 +79,12 @@ or a random init from ``seed``; plain, int8 or packed int4), the ``start``/``sto
   (``serve_follower``). Every call that touches shards — each forward,
   each sharded cache's allocation, the prefix's trim and splice — goes
   through the one dispatch point (``_shards``), which posts it to the
-  followers first on a mesh that spans processes.
+  followers first on a mesh that spans processes. A seq axis with a DCN
+  factor puts seq rows in other processes than the seq-0 row: their
+  process holds their weights and no cache, runs its rows of each ring
+  prefill (the hops, the K/V bound for the seq-0 row's cache and the
+  final hidden states crossing processes) and idles through every
+  other forward.
 
 The continuous-batching engine (``engine/batcher.py::
 BatchedTorchEngine``) builds on this class and replaces the serving
@@ -302,8 +307,10 @@ class TorchEngine:
         over more than one device takes this process's first ICI-count
         devices and every other process's (``global_devices``): the
         device total is ``MESH_SHAPE x DCN_MESH_SHAPE``; a process group
-        of another size than the DCN spec's, and a DCN seq axis, are
-        refused. Idempotent: a restart keeps the mesh."""
+        of another size than the DCN spec's is refused. A DCN seq axis
+        puts seq rows in other processes than the seq-0 row, which alone
+        holds the cache: their process takes part in ring prefills only.
+        Idempotent: a restart keeps the mesh."""
         spec = self.mesh_shape.strip()
         dcn_spec = self.dcn_mesh_shape.strip()
         force_ep_mesh = self.moe_impl == "ep" and self.model_cfg.is_moe
@@ -342,12 +349,6 @@ class TorchEngine:
                 "pipe>1 disables expert-parallel MoE dispatch: MoE layers "
                 "run dense (all experts) inside each pipeline stage; "
                 "prefer ep×tp without pp for MoE serving")
-        if dcn_cfg is not None and dcn_cfg.seq > 1:
-            raise ValueError(
-                f"DCN_MESH_SHAPE={dcn_spec!r}: a seq axis across processes "
-                f"is not served (ROADMAP.md A12 row 1): the ring prefill "
-                f"writes every block's K/V into the seq-0 row's cache, "
-                f"which would lie in another process")
         devices = self.devices or distinct_devices(self.device.type)
         if n_dcn > 1:
             devices = distributed.global_devices(

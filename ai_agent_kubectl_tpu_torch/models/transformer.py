@@ -95,7 +95,7 @@ from ..ops.ragged_attention import (check_heads_divide,
                                     ragged_attention_pool_sharded)
 from ..ops.rope import rope_tables, rotate
 from ..parallel.collectives import (all_gather, all_reduce, gather_home,
-                                    reduce_scatter)
+                                    reduce_scatter, transfer)
 from ..parallel.moe import (dense_moe, dense_moe_partial,
                             expert_parallel_moe)
 from ..parallel.ring_attention import ring_attention_shards
@@ -151,11 +151,13 @@ class KVCache:
         KV heads where ``head_layout`` splits them, slots over ``data``
         under ``split_rows`` where that divides, else a whole copy per
         shard), each allocated on its shard's device (this process's
-        shards only: another process's is None here)."""
+        shards only: another process's is None here, so a process that
+        holds no shard of the cache row, the seq-0 row of a DCN seq axis,
+        holds no cache at all)."""
         if mesh is None or mesh.size <= 1:
             return cls._leaf(shape, dtype, device, kv_quant)
         mesh = mesh.cache_row()[0]
-        if mesh.size == 1:
+        if mesh.size == 1 and mesh.is_local(0):
             return cls._leaf(shape, dtype, mesh.devices[0], kv_quant)
         heads = head_layout(cfg, mesh.tp)[1]
         rows = split_rows and rows_split(mesh, shape[1])
@@ -747,6 +749,11 @@ def _shard_caches(cache: KVCache, mesh) -> list:
     return [cache.shard(i) for i in range(mesh.size)]
 
 
+def _holds_cache(cache: KVCache) -> bool:
+    """Whether a shard of the cache is this process's."""
+    return not cache.sharded or any(s is not None for s in cache.k.shards)
+
+
 def _row_groups(cache: KVCache) -> int:
     return cache.k.row_groups if cache.sharded else 1
 
@@ -864,8 +871,13 @@ class _MeshPass:
         self._prepared = True
         cfg, mesh, n = self.cfg, self.mesh, self.mesh.size
         tokens, positions = self.tokens, self.positions
-        cdev = [None if c is None or not mesh.is_local(i)
-                else _leaf_device(c.k) for i, c in enumerate(self.caches)]
+        cdev = [None if c is None else _leaf_device(c.k)
+                for c in self.caches]
+        if all(d is None for d in cdev):
+            # No cache here: a ring prefill's row in another process than
+            # the seq-0 row writes nothing in this one.
+            self.flats = [None] * n
+            return
         if self.block_tables is not None:
             c0 = _first(self.caches)
             tables = self.block_tables.to(torch.int32).contiguous()
@@ -937,6 +949,8 @@ class _MeshPass:
         """The layer's attention inputs per shard: q [rows, S, H_l, hd],
         k and v [rows, S, KV_l, hd], rotated."""
         cfg, S, hd = self.cfg, self.S, self.cfg.head_dim
+        if not self.local:
+            return ([None] * self.mesh.size,) * 3
         if self.rope is None:
             with scope("rope"):
                 self.rope = self.spread([
@@ -957,20 +971,26 @@ class _MeshPass:
 
     def write(self, li: int, ks, vs) -> tuple:
         """The window's K/V into each shard's cache of layer ``li`` (on
-        the cache's device). Returns the layer's leaves per shard."""
+        the cache's device), where both are in this process: a ring
+        prefill's row hands its K/V to the seq-0 row's process first
+        (``_forward_ring``). Returns the layer's leaves per shard."""
         if not self._prepared:
             self._prepare()
-        lks, lvs = zip(*(self.layer_cache(i, li) if self.mesh.is_local(i)
-                         else (None, None) for i in range(self.mesh.size)))
+        lks, lvs = zip(*(self.layer_cache(i, li) if c is not None
+                         else (None, None)
+                         for i, c in enumerate(self.caches)))
         with scope("kv_write"):
-            for i in self.local:
-                _write_kv(lks[i], self.flats[i], ks[i])
-                _write_kv(lvs[i], self.flats[i], vs[i])
+            for i, (k, v) in enumerate(zip(ks, vs)):
+                if k is not None and lks[i] is not None:
+                    _write_kv(lks[i], self.flats[i], k)
+                    _write_kv(lvs[i], self.flats[i], v)
         return list(lks), list(lvs)
 
     def finish(self, lps, h, attn) -> list:
         """The layer after attention: wo, the residual, the MLP."""
         cfg, S, hd = self.cfg, self.S, self.cfg.head_dim
+        if not self.local:
+            return h
         lp0 = _first(lps)
         wo_whole = lp0["wo"].shape[0] == cfg.n_heads * hd
         down_whole = lp0["w_down"].shape[-2] == cfg.mlp_hidden
@@ -1079,18 +1099,32 @@ def _forward_ring(params, cfg: ModelConfig, tokens, positions,
     queries attending over the window's own fresh K/V by the ring among
     the shards of its seq group (each model shard over its own heads).
     The rows' final hidden states join on the seq-0 row, which runs the
-    head."""
+    head.
+
+    On a mesh over processes (a seq axis with a DCN factor) each process
+    runs its own rows' shards and the rings of every seq group it holds
+    a shard of. Row ``r``'s fresh K/V and its final hidden state cross
+    to the process of the seq-0 row's shard of the same group
+    (``collectives.transfer``, one call a layer for the K/V); a row in
+    another process than its cache never touches ``caches``. The logits
+    reach rank 0 alone (``gather_home``); every other process returns
+    None. ``_forward_ring.calls`` counts the ring prefills this process
+    took part in."""
+    _forward_ring.calls += 1
     sp = mesh.sp
     B, S = tokens.shape
     if S % sp:
         raise ValueError(
             f"seq len {S} not divisible by seq axis size {sp}")
-    row0, _ = mesh.cache_row()
+    row0, idx0 = mesh.cache_row()
     caches = _shard_caches(cache, row0)
+    # Where each seq-0 shard's cache lies (None: another process's).
+    cdev = [None if c is None else _leaf_device(c.k) for c in caches]
     S_l = S // sp
+    subs = [mesh.select("seq", r) for r in range(sp)]
+    rows = [idx for _, idx in subs]
     runs, prm = [], []
-    for r in range(sp):
-        sub, idx = mesh.select("seq", r)
+    for r, (sub, idx) in enumerate(subs):
         cols = slice(r * S_l, (r + 1) * S_l)
         runs.append(_MeshPass(
             cfg, sub, tokens[:, cols], positions[:, cols], caches,
@@ -1100,32 +1134,58 @@ def _forward_ring(params, cfg: ModelConfig, tokens, positions,
             token_mask=(token_mask[:, cols] if token_mask is not None
                         else None), moe_impl=moe_impl))
         prm.append([params[i] for i in idx])
-    h = [run.embed(p) for run, p in zip(runs, prm)]
     n_row = row0.size
+    # One ring per seq group (the shards at one place of every row) that
+    # has a shard here, in group order in every process.
+    rings = [k for k in range(n_row)
+             if any(mesh.is_local(idx[k]) for idx in rows)]
+    h = [run.embed(p) for run, p in zip(runs, prm)]
     for li in range(cfg.n_layers):
         lps = [_layer_trees(ps, li) for ps in prm]
         parts = [run.qkv(lp, x) for run, lp, x in zip(runs, lps, h)]
-        for run, (_, ks, vs) in zip(runs, parts):
-            run.write(li, ks, vs)
+        fresh = _to_cache_row(mesh, rows, idx0, cdev,
+                              [p[1:] for p in parts[1:]])
+        for r, run in enumerate(runs):
+            run.write(li, *(parts[0][1:] if r == 0 else fresh[r - 1]))
         attn = [[None] * n_row for _ in range(sp)]
         with scope("attention"):
-            for k in row0.local_shards:     # one ring per seq group
+            for k in rings:
                 outs = ring_attention_shards(
                     [parts[r][0][k] for r in range(sp)],
                     [parts[r][1][k] for r in range(sp)],
                     [parts[r][2][k] for r in range(sp)],
-                    [runs[r].poss[k] for r in range(sp)])
+                    [runs[r].poss[k] for r in range(sp)],
+                    mesh=mesh, shards=[idx[k] for idx in rows])
                 for r in range(sp):
                     attn[r][k] = outs[r]
         h = [run.finish(lp, x, a)
              for run, lp, x, a in zip(runs, lps, h, attn)]
     h = [run.gather(x) for run, x in zip(runs, h)]
-    whole = [torch.cat([h[r][k].to(row0.devices[k]) for r in range(sp)],
-                       dim=1) if row0.is_local(k) else None
-             for k in range(n_row)]
+    got = transfer([(h[r][k], rows[r][k], idx0[k], row0.devices[k])
+                    for k in range(n_row) for r in range(sp)], mesh)
+    whole = [torch.cat(got[k * sp:(k + 1) * sp], dim=1)
+             if row0.is_local(k) else None for k in range(n_row)]
     head = _MeshPass(cfg, row0, tokens, positions, caches,
                      row_groups=_row_groups(cache))
     return head.head(prm[0], whole, logits_at), cache
+
+
+_forward_ring.calls = 0
+
+
+def _to_cache_row(mesh, rows, idx0, cdev, kvs) -> list:
+    """Rows ``1..sp-1``'s fresh (ks, vs) per shard handed to the seq-0
+    row's shard of the same group, on its cache's device, in one
+    ``transfer``: each row's (ks, vs) there, None where that cache is
+    another process's."""
+    n_row = len(idx0)
+    moves = [(t[k], rows[r][k], idx0[k], cdev[k])
+             for r, kv in enumerate(kvs, start=1) for t in kv
+             for k in range(n_row)]
+    got = transfer(moves, mesh)
+    return [(got[2 * n_row * j:2 * n_row * j + n_row],
+             got[2 * n_row * j + n_row:2 * n_row * (j + 1)])
+            for j in range(len(kvs))]
 
 
 # -------------------------------------------------------------- forward
@@ -1175,7 +1235,10 @@ def forward(
     cache splits them, experts over ``expert``; a ``pipe`` axis runs the
     layers in stages (``pipeline_forward``, attention dense); on a
     ``seq`` axis ``attn_impl="ring"`` runs ``_forward_ring`` and every
-    other forward the seq-0 row. ``attn_impl="ring"`` over the dense
+    other forward the seq-0 row; on a mesh over processes one that holds
+    no shard of that row (the seq-0 row of a DCN seq axis is rank 0's)
+    runs its rows of a ring prefill and returns ``(None, cache)`` from
+    any other forward. ``attn_impl="ring"`` over the dense
     cache attends over the window's own K/V (the JAX ring prefill; dense
     for a one-column window, as in JAX). ``logits_at`` gathers
     each row's hidden state at one column BEFORE the LM head, returning
@@ -1185,6 +1248,16 @@ def forward(
     reading bf16 KV."""
     B, S = tokens.shape
     multi = mesh is not None and mesh.size > 1
+    if multi and mesh.hybrid and not _holds_cache(cache):
+        # No shard of the cache row is this process's (the seq-0 row of a
+        # DCN seq axis is rank 0's): it runs a ring prefill's rows and no
+        # other forward. Rank 0, which holds the cache, checked the call.
+        if attn_impl == "ring" and S > 1 and mesh.sp > 1 and mesh.pp == 1:
+            return _forward_ring(params, cfg, tokens, positions, cache,
+                                 mesh=mesh, logits_at=logits_at,
+                                 write_mask=write_mask,
+                                 token_mask=token_mask, moe_impl=moe_impl)
+        return None, cache
     if block_tables is not None:
         attn_impl = attn_impl or "ragged"
         if multi and mesh.pp > 1:

@@ -95,13 +95,22 @@ def activities_for(device: torch.device) -> list:
 
 class ProfilerSession:
     """One capture, started and stopped on the thread that runs the
-    forwards."""
+    forwards. On a card each end waits for the card first: the capture
+    opens on an idle card, whatever work earlier callers left queued on
+    any stream, and closes only once every kernel it launched has ended,
+    so that CUPTI holds each one's record when the capture flushes."""
 
     def __init__(self, device: torch.device):
-        self.activities = activities_for(device)
+        self.device = torch.device(device)
+        self.activities = activities_for(self.device)
         self._prof = None
 
+    def _drain(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def start(self) -> None:
+        self._drain()
         self._prof = torch.profiler.profile(activities=self.activities)
         self._prof.__enter__()
 
@@ -109,6 +118,7 @@ class ProfilerSession:
         """Stop the capture and export its Chrome trace; returns the
         file's path."""
         prof, self._prof = self._prof, None
+        self._drain()
         prof.__exit__(None, None, None)
         path = os.path.join(trace_dir, TRACE_FILE)
         prof.export_chrome_trace(path)

@@ -317,8 +317,11 @@ def kv_set_slots(dst, src, slots):
 
     A ``dst`` whose slots are split over ``data`` (``row_groups`` > 1)
     takes a ``src`` whose every shard holds every row: each shard writes
-    the rows bound for its own slots, at their local index. Returns
+    the rows bound for its own slots, at their local index. A ``dst`` of
+    which no shard is this process's is left as it is. Returns
     ``dst``."""
+    if isinstance(dst, ShardedKV) and all(s is None for s in dst.shards):
+        return dst
     slots = [int(s) for s in np.asarray(slots).reshape(-1)]
     batch = dst.shape[1]
 

@@ -77,7 +77,8 @@ POLL_S, POLL_MAX_S = 0.0002, 0.02
 #: seconds rank 0 waits for the followers to take its last call
 STOP_WAIT_S = 30.0
 
-_state = {"nccl": False, "store": None, "launches_at_start": None}
+_state = {"nccl": False, "store": None, "launches_at_start": None,
+          "rings_at_start": 0}
 _groups: dict = {}
 #: this process's traffic with the others: collectives and moves made,
 #: seconds spent in them (the device syncs of the staging included) and
@@ -171,7 +172,8 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _groups.clear()
-    _state.update(nccl=False, store=None, launches_at_start=None)
+    _state.update(nccl=False, store=None, launches_at_start=None,
+                  rings_at_start=0)
 
 
 def _int_env(name: str) -> Optional[int]:
@@ -559,26 +561,30 @@ def serve_follower(engine) -> dict:
 
 
 def mark_served() -> None:
-    """Note this process's kernel launches so far: the engine's start
-    (its warm-up, the system prompt's preload) posts this as its last
-    call, so that ``report`` counts the launches of the serving that
-    follows apart from those before it."""
+    """Note this process's kernel launches and ring prefills so far: the
+    engine's start (its warm-up, the system prompt's preload) posts this
+    as its last call, so that ``report`` counts those of the serving
+    that follows apart from those before it."""
+    from ..models.transformer import _forward_ring
     from ..ops._cuda import launch_counts
 
     _state["launches_at_start"] = launch_counts()
+    _state["rings_at_start"] = _forward_ring.calls
 
 
 def report() -> dict:
     """This process's part of a run over processes: its rank, the calls
     it posted (rank 0) or took, the seconds rank 0 spent posting them,
-    its traffic with the other processes (``TRAFFIC``), and its own
-    kernel launches: ``launches`` since the engine started serving
-    (``mark_served``), ``launches_at_start`` before."""
+    its traffic with the other processes (``TRAFFIC``), the ring
+    prefills it took part in since the engine started serving
+    (``ring_forwards``; ``mark_served``), and its own kernel launches:
+    ``launches`` since then, ``launches_at_start`` before."""
+    from ..models.transformer import _forward_ring
     from ..ops._cuda import launch_counts
 
     start = _state.get("launches_at_start") or {}
     return {"rank": rank(), "calls": HANDS.calls, "post_s": HANDS.post_s,
-            "traffic": dict(TRAFFIC),
+            "traffic": dict(TRAFFIC), "ring_forwards": _forward_ring.calls - _state["rings_at_start"],
             "launches": {k: v - start.get(k, 0)
                          for k, v in launch_counts().items()},
             "launches_at_start": start}

@@ -209,7 +209,8 @@ class Mesh:
         a ring prefill, with its indices: the seq-0 row (the whole mesh
         without a seq axis). The JAX layout replicates params and cache
         over ``seq``; the replicas compute the same values, so the port
-        keeps one."""
+        keeps one. A seq row in another process than this row (a DCN seq
+        axis) holds its weights and no cache."""
         if self.config.seq <= 1:
             return self, list(range(self.size))
         return self.select("seq", 0)

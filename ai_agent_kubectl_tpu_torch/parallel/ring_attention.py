@@ -4,7 +4,7 @@
 The counterpart of the JAX package's ``parallel/ring_attention.py``, in
 plain tensor code as the JAX version is plain ``jnp`` (no Pallas kernel
 there, so no CUDA source here). One controller holds every seq shard's
-blocks (``parallel/mesh.py``):
+blocks in its process (``parallel/mesh.py``):
 
 - Each shard holds one contiguous block of the queries, keys, values and
   their absolute positions, on its own device.
@@ -21,9 +21,14 @@ blocks (``parallel/mesh.py``):
   with the blocks, so a block's place in the ring never matters. A fully
   masked row outputs 0.
 - GQA/MQA: KV heads are shared by their query-head groups by reshape.
-- A ring never crosses processes: a seq axis across them
-  (``DCN_MESH_SHAPE``) is refused at boot (ROADMAP.md A12 row 1), so
-  every shard of a seq group is in one process.
+- A ring may cross processes (a seq axis with a ``DCN_MESH_SHAPE``
+  factor): each process then holds and computes its own members' blocks
+  only (another process's are None here), and every step's hops go
+  through ``parallel/collectives.py::transfer`` in one call, in the same
+  order in every process, so that the point-to-point sends and receives
+  pair up. A hop within a process stays a copy, and neither the
+  online-softmax state nor the merge order changes: a ring in one
+  process keeps its bits.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+
+from .collectives import transfer
 
 
 def _block_attention(q, k, v, qpos, kpos, scale: float):
@@ -73,49 +80,73 @@ def _to(t: torch.Tensor, device) -> torch.Tensor:
     return t if t.device == device else t.to(device, non_blocking=True)
 
 
-def ring_attention_shards(qs: Sequence[torch.Tensor],
-                          ks: Sequence[torch.Tensor],
-                          vs: Sequence[torch.Tensor],
-                          positions: Sequence[torch.Tensor], *,
-                          scale: Optional[float] = None
-                          ) -> List[torch.Tensor]:
-    """The ring over one seq group: shard ``j``'s query block ``qs[j]``
-    [B, S/n, H, hd] attends over every shard's K/V block [B, S/n, KV, hd]
-    (``positions[j]`` [B, S/n] the absolute positions of shard ``j``'s
-    block), each block on its shard's device. Returns each shard's
-    output [B, S/n, H, hd] in the queries' dtype, on its device."""
+def ring_attention_shards(qs: Sequence[Optional[torch.Tensor]],
+                          ks: Sequence[Optional[torch.Tensor]],
+                          vs: Sequence[Optional[torch.Tensor]],
+                          positions: Sequence[Optional[torch.Tensor]], *,
+                          scale: Optional[float] = None, mesh=None,
+                          shards: Optional[Sequence[int]] = None
+                          ) -> List[Optional[torch.Tensor]]:
+    """The ring over one seq group: member ``j``'s query block ``qs[j]``
+    [B, S/n, H, hd] attends over every member's K/V block [B, S/n, KV,
+    hd] (``positions[j]`` [B, S/n] the absolute positions of member
+    ``j``'s block), each block on its member's device. Returns each
+    member's output [B, S/n, H, hd] in the queries' dtype, on its
+    device.
+
+    ``mesh`` and ``shards``: the mesh the members lie on and each
+    member's shard index in it. On a mesh over processes every list
+    holds None for another process's member, which is None in the
+    result too; without ``mesh`` every member is this process's."""
     n = len(qs)
+    here = [j for j in range(n) if qs[j] is not None]
+    if not here:
+        return [None] * n
     if scale is None:
-        scale = qs[0].shape[-1] ** -0.5
-    devs = [q.device for q in qs]
-    state = []
-    for q in qs:
-        B, Sq, H, hd = q.shape
-        state.append((torch.full((B, Sq, H, 1), float("-inf"),
-                                 dtype=torch.float32, device=q.device),
-                      torch.zeros((B, Sq, H, 1), dtype=torch.float32,
-                                  device=q.device),
-                      torch.zeros((B, Sq, H, hd), dtype=torch.float32,
-                                  device=q.device)))
+        scale = qs[here[0]].shape[-1] ** -0.5
+    devs = [None if q is None else q.device for q in qs]
+    if shards is None:
+        shards = list(range(n))
+    state: list = [None] * n
+    for j in here:
+        B, Sq, H, hd = qs[j].shape
+        dev = devs[j]
+        state[j] = (torch.full((B, Sq, H, 1), float("-inf"),
+                               dtype=torch.float32, device=dev),
+                    torch.zeros((B, Sq, H, 1), dtype=torch.float32,
+                                device=dev),
+                    torch.zeros((B, Sq, H, hd), dtype=torch.float32,
+                                device=dev))
     blocks = list(zip(ks, vs, positions))
     for i in range(n):
         nxt = None
         if i < n - 1:
-            # One hop j -> j + 1, issued before this step's compute; the
-            # last step skips it (its blocks would be discarded).
-            nxt = [tuple(_to(t, devs[j]) for t in blocks[(j - 1) % n])
-                   for j in range(n)]
-        for j in range(n):
+            # One hop j -> j + 1 for every member, issued before this
+            # step's compute; the last step skips it (its blocks would be
+            # discarded).
+            nxt = _hop(blocks, devs, shards, mesh)
+        for j in here:
             k, v, kpos = blocks[j]
             part = _block_attention(qs[j], k, v, positions[j], kpos, scale)
             state[j] = _merge(*state[j], *part)
         if nxt is not None:
             blocks = nxt
-    out = []
-    for q, (_, l, acc) in zip(qs, state):
+    out: list = [None] * n
+    for j in here:
+        _, l, acc = state[j]
         l = torch.where(l == 0.0, torch.ones((), device=l.device), l)
-        out.append((acc / l).to(q.dtype))
+        out[j] = (acc / l).to(qs[j].dtype)
     return out
+
+
+def _hop(blocks: list, devs: list, shards: Sequence[int], mesh) -> list:
+    """Every member's (k, v, positions) block handed to the next member
+    (``j - 1`` to ``j``): one ``transfer`` of the step's moves, a copy
+    within a process."""
+    n = len(blocks)
+    got = transfer([(t, shards[(j - 1) % n], shards[j], devs[j])
+                    for j in range(n) for t in blocks[(j - 1) % n]], mesh)
+    return [tuple(got[3 * j:3 * j + 3]) for j in range(n)]
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

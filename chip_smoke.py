@@ -10636,14 +10636,27 @@ SERVE_DCN_ENV = {
 #: each rank's two shards, on the one card
 DCN_DEVICES = ("cuda:0", "cuda:0")
 #: run -> (ENGINE, DECODE_BATCH_SIZE, DCN_MESH_SHAPE, the one-process
-#: MESH_SHAPE with the same shards in the same order, queries). A data
+#: MESH_SHAPE with the same shards in the same order, queries: an int is
+#: serve_ring's pasted event dump of that many rendered tokens). A data
 #: axis takes the pool away (the JAX engine's rule), so the batched run
 #: joins the processes on the model axis: the pool, each rank's ragged
 #: kernel on its two shards; the single-sequence run on the data axis.
 #: Four slots for four queries: every join of a ragged prologue carries
-#: each slot's window across the processes.
+#: each slot's window across the processes. The seq runs put seq row 0
+#: (two shards, the cache) on rank 0 and row 1 on rank 1: the dumps'
+#: ring prefills cross the processes, every other forward runs on rank
+#: 0's row alone.
 DCN_RUNS = {"batched": ("torch-batched", 4, "tp=2", "tp=4", QUERIES[:4]),
-            "single": ("torch", 1, "dp=2", "dp=2,tp=2", QUERIES[:1])}
+            "single": ("torch", 1, "dp=2", "dp=2,tp=2", QUERIES[:1]),
+            "seq_single": ("torch", 1, "sp=2", "sp=2,tp=2",
+                           (RING_LONG_TOKENS[0], QUERIES[4])),
+            "seq_batched": ("torch-batched", 4, "sp=2", "sp=2,tp=2",
+                            RING_LONG_TOKENS + (QUERIES[5], QUERIES[6]))}
+#: the seq runs' knobs beside SERVE_DCN_ENV: serve_ring's (8,192
+#: positions; every prompt would take the suffix path with the prefix
+#: cache on; paged decode at DECODE_ATTN=auto's page for a GQA model)
+SERVE_DCN_SEQ_ENV = {"MAX_SEQ_LEN": "8192", "HBM_PREFIX_CACHE": "false",
+                     "DECODE_ATTN": "paged", "KV_PAGE_SIZE": "64"}
 #: (a): rows x columns of the forward whose batch crosses the process
 #: boundary (tp=2 x DCN dp=2), flash prefill per shard
 DCN_FORWARD = (4, 128)
@@ -10666,11 +10679,33 @@ def dcn_rank(torch) -> int:
     from ai_agent_kubectl_tpu_torch.server.__main__ import main as serve
 
     out = os.environ.get("DCN_FORWARD_OUT")
+    ring_out = os.environ.get("DCN_RING_OUT")
     with phase_layers("serve_dcn"):
         if out:
             _dcn_forward(torch, Path(out))
+        if ring_out:
+            _dcn_ring_forward(torch, Path(ring_out))
         serve(["--devices", ",".join(DCN_DEVICES)])
     return 0
+
+
+def _dcn_env(name: str) -> dict:
+    """Both rank processes' and the references' knobs of one run."""
+    seq = "sp" in DCN_RUNS[name][2]
+    return dict(SERVE_DCN_ENV, **(SERVE_DCN_SEQ_ENV if seq else {}))
+
+
+def _dcn_queries(name: str) -> list:
+    """A run's queries, each dump built to its token count."""
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import load_tokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    queries = DCN_RUNS[name][4]
+    if all(isinstance(q, str) for q in queries):
+        return list(queries)
+    tok = load_tokenizer(get_config(DCN_MODEL), SERVE_ENV["TOKENIZER_PATH"])
+    return [_dump_query(tok, q) if isinstance(q, int) else q
+            for q in queries]
 
 
 def _dcn_inputs(torch, cfg) -> tuple:
@@ -10711,10 +10746,10 @@ def _dcn_forward_run(torch, params, cfg, mesh, reps: int = 3) -> tuple:
     return logits, (time.perf_counter() - t0) * 1e3 / max(1, reps)
 
 
-def _dcn_forward(torch, out: Path) -> None:
-    """(a) in a rank process: the group joined, tp=2 x DCN dp=2 over
-    both processes, the seeded weights' own shards, the forward; its
-    logits and ms saved for the phase."""
+def _dcn_shards(torch, dcn: str) -> tuple:
+    """A rank process's part of a forward: the group joined, tp=2 x DCN
+    ``dcn`` over both processes, the seeded weights' own shards. Returns
+    (rank, cfg, mesh, params)."""
     from ai_agent_kubectl_tpu_torch.models.config import get_config
     from ai_agent_kubectl_tpu_torch.models.transformer import init_params
     from ai_agent_kubectl_tpu_torch.parallel import distributed
@@ -10726,11 +10761,16 @@ def _dcn_forward(torch, out: Path) -> None:
     cfg = get_config(DCN_MODEL)
     mesh = build_mesh(MeshConfig.parse("tp=2"),
                       distributed.global_devices(list(DCN_DEVICES)),
-                      dcn=MeshConfig.parse("dp=2"))
+                      dcn=MeshConfig.parse(dcn))
     full = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                        dtype=torch.bfloat16, device="cuda")
-    params = shard_params(full, mesh, cfg)
-    del full
+    return rank, cfg, mesh, shard_params(full, mesh, cfg)
+
+
+def _dcn_forward(torch, out: Path) -> None:
+    """(a) in a rank process: tp=2 x DCN dp=2, the forward; its logits
+    and ms saved for the phase."""
+    rank, cfg, mesh, params = _dcn_shards(torch, "dp=2")
     logits, ms = _dcn_forward_run(torch, params, cfg, mesh)
     if logits is not None:
         torch.save(logits.cpu(), out / f"forward-{rank}.pt")
@@ -10738,6 +10778,90 @@ def _dcn_forward(torch, out: Path) -> None:
         {"ms": ms, "owners": list(mesh.owners), "local": mesh.local_shards,
          "logits": logits is not None}))
     del params, logits
+    torch.cuda.empty_cache()
+
+
+def _dcn_ring_inputs(torch) -> dict:
+    """(g)'s ring prefill as ``TorchEngine._prefill_ring`` issues it: the
+    3,021-token dump's rendered ids padded to the next power of two,
+    their positions, the padding's mask and the last position's
+    column."""
+    from ai_agent_kubectl_tpu_torch.engine.prompts import render_prompt
+    from ai_agent_kubectl_tpu_torch.engine.tokenizer import load_tokenizer
+    from ai_agent_kubectl_tpu_torch.models.config import get_config
+
+    tok = load_tokenizer(get_config(DCN_MODEL), SERVE_ENV["TOKENIZER_PATH"])
+    ids = tok.encode(render_prompt(_dump_query(tok, RING_LONG_TOKENS[0])))
+    n = len(ids)
+    s_pad = 1 << (n - 1).bit_length()
+    tokens = torch.zeros((1, s_pad), dtype=torch.int32)
+    tokens[0, :n] = torch.tensor(ids, dtype=torch.int32)
+    cols = torch.arange(s_pad, dtype=torch.int32, device="cuda")
+    return {"n": n, "tokens": tokens.to("cuda"), "positions": cols[None],
+            "token_mask": (cols < n)[None], "kv_limit": s_pad,
+            "logits_at": torch.full((1,), n - 1, dtype=torch.int64,
+                                    device="cuda")}
+
+
+def _dcn_ring_run(torch, params, cfg, mesh, inputs: dict) -> tuple:
+    """(g)'s forward over ``mesh`` into a fresh cache of 8,192 positions:
+    (logits at the last position, None on a rank other than 0 of a mesh
+    over processes; the cache), and the ms of one more such forward."""
+    from ai_agent_kubectl_tpu_torch.models.transformer import KVCache, forward
+
+    def once():
+        cache = KVCache.zeros(cfg, 1, int(SERVE_DCN_SEQ_ENV["MAX_SEQ_LEN"]),
+                              dtype=torch.bfloat16, device="cuda", mesh=mesh)
+        with torch.no_grad():
+            logits, _ = forward(params, cfg, inputs["tokens"],
+                                inputs["positions"], cache,
+                                kv_limit=inputs["kv_limit"], attn_impl="ring",
+                                token_mask=inputs["token_mask"],
+                                logits_at=inputs["logits_at"], mesh=mesh)
+        return logits, cache
+
+    logits, cache = once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    once()
+    torch.cuda.synchronize()
+    return logits, cache, (time.perf_counter() - t0) * 1e3
+
+
+def _cache_leaves(cache) -> dict:
+    """A cache's K and V shards as host tensors (None: another
+    process's)."""
+    def leaves(x):
+        return [None if t is None else t.cpu()
+                for t in getattr(x, "shards", [x])]
+    return {"k": leaves(cache.k), "v": leaves(cache.v)}
+
+
+def _dcn_ring_forward(torch, out: Path) -> None:
+    """(g) in a rank process: tp=2 x DCN sp=2 over both processes (seq row
+    0 this card's two shards in rank 0, row 1 in rank 1), the seeded
+    weights' own shards, one ring prefill of the 3,021-token dump; rank
+    0's logits and its seq-0 row's cache saved for the phase, the bytes
+    and joins that crossed."""
+    from ai_agent_kubectl_tpu_torch.parallel import distributed
+
+    rank, cfg, mesh, params = _dcn_shards(torch, "sp=2")
+    inputs = _dcn_ring_inputs(torch)
+    before = dict(distributed.TRAFFIC)
+    logits, cache, ms = _dcn_ring_run(torch, params, cfg, mesh, inputs)
+    # Two forwards ran: each crossed the same bytes.
+    traffic = {k: (distributed.TRAFFIC[k] - before[k]) / 2 for k in before}
+    leaves = _cache_leaves(cache)
+    if logits is not None:
+        torch.save({"logits": logits.cpu(), **leaves},
+                   out / f"ring-{rank}.pt")
+    (out / f"ring-{rank}.json").write_text(json.dumps(
+        {"ms": ms, "owners": list(mesh.owners), "local": mesh.local_shards,
+         "logits": logits is not None, "n": inputs["n"],
+         "cache_here": [t is not None for t in leaves["k"]],
+         "params_here": [p is not None for p in params],
+         "traffic": traffic}))
+    del params, logits, cache
     torch.cuda.empty_cache()
 
 
@@ -10786,9 +10910,12 @@ async def _dcn_http(url: str, queries=(), burst=()) -> dict:
             "kv_pool": health.get("kv_pool"), "metrics": metrics}
 
 
-def _dcn_burst_queries(queries) -> list:
+def _dcn_burst_queries(name: str, queries) -> list:
     """The burst's queries: others than the transcripts' (a command the
-    safety parse passes is cached by its query)."""
+    safety parse passes is cached by its query); none for a seq run,
+    whose dumps' ring prefills the transcripts already time."""
+    if "sp" in DCN_RUNS[name][2]:
+        return []
     return [f"{q} right now" for q in queries]
 
 
@@ -10807,18 +10934,21 @@ async def _dcn_pair(torch, name: str, work: Path) -> dict:
 
     import aiohttp
 
-    engine, batch, dcn, _, queries = DCN_RUNS[name]
+    engine, batch, dcn, _, _ = DCN_RUNS[name]
+    queries = _dcn_queries(name)
     coord = f"127.0.0.1:{_free_port()}"
     ports = [_free_port(), _free_port()]
     procs, logs = [], []
     for r in range(2):
-        env = dict(START_ENV, **SERVE_DCN_ENV, ENGINE=engine,
+        env = dict(START_ENV, **_dcn_env(name), ENGINE=engine,
                    DECODE_BATCH_SIZE=str(batch), DCN_MESH_SHAPE=dcn,
                    COORDINATOR_ADDRESS=coord, PROCESS_ID=str(r),
                    HOST="127.0.0.1", PORT=str(ports[r]),
                    OMP_NUM_THREADS="4")
         if name == "batched":
             env["DCN_FORWARD_OUT"] = str(work)
+        if name == "seq_single":
+            env["DCN_RING_OUT"] = str(work)
         out = open(work / f"{name}-{r}.out", "w")
         err = open(work / f"{name}-{r}.err", "w")
         logs.append((out, err))
@@ -10848,7 +10978,7 @@ async def _dcn_pair(torch, name: str, work: Path) -> dict:
         res["startup_s"] = time.monotonic() - t0
         res["rank1_port_open"] = _port_open(ports[1])
         res.update(await _dcn_http(url, queries,
-                                   _dcn_burst_queries(queries)))
+                                   _dcn_burst_queries(name, queries)))
     finally:
         if procs[0].poll() is None:
             procs[0].send_signal(signal.SIGTERM)
@@ -10891,13 +11021,15 @@ async def _dcn_one_process(torch, name: str, params, batched: bool) -> dict:
     from ai_agent_kubectl_tpu_torch.server.app import create_app
     from ai_agent_kubectl_tpu_torch.server.sanitize import sanitize_query
 
-    engine, batch, _, spec, queries = DCN_RUNS[name]
+    engine, batch, _, spec, _ = DCN_RUNS[name]
+    queries = _dcn_queries(name)
     cls = BatchedTorchEngine if batched else TorchEngine
     prompts = {q: render_prompt(sanitize_query(q)) for q in queries}
+    burst = _dcn_burst_queries(name, queries)
     out = {}
     for tag, mesh_spec, n in (("mesh", spec, 4), ("unsharded", "", 1)):
         port = _free_port()
-        _phase_env(dict(SERVE_DCN_ENV, ENGINE=engine,
+        _phase_env(dict(_dcn_env(name), ENGINE=engine,
                         DECODE_BATCH_SIZE=str(batch), MESH_SHAPE=mesh_spec,
                         NUM_PROCESSES="1"), port)
         cfg = ServiceConfig.from_env()
@@ -10913,10 +11045,9 @@ async def _dcn_one_process(torch, name: str, params, batched: bool) -> dict:
                 r = await inner.generate(prompts[q], max_tokens=16,
                                          temperature=0.0)
                 got["ids"][q], got["texts"][q] = list(r.token_ids), r.text
-            if tag == "mesh":
+            if tag == "mesh" and burst:
                 got["burst_s"] = (await _dcn_http(
-                    f"http://127.0.0.1:{port}",
-                    burst=_dcn_burst_queries(queries)))["burst_s"]
+                    f"http://127.0.0.1:{port}", burst=burst))["burst_s"]
         finally:
             await runner.cleanup()           # stops the engine
         if tag == "unsharded":
@@ -10943,7 +11074,9 @@ async def _serve_dcn(torch) -> dict:
     work = Path(tempfile.mkdtemp(prefix="serve_dcn-"))
     t_phase = time.monotonic()
     failures = []
-    runs = {name: await _dcn_pair(torch, name, work) for name in DCN_RUNS}
+    runs = {}
+    for name in DCN_RUNS:
+        runs[name] = await _dcn_pair(torch, name, work)
     # (a) against the one-process mesh on the card, in the same shard
     # order, on the same seeded weights; run twice to show its own
     # determinism.
@@ -10970,6 +11103,9 @@ async def _serve_dcn(torch) -> dict:
             and fwd["equal_one_process"] and fwd["finite"]):
         failures.append(f"(a) forward {fwd}")
     del one, again, got
+    ring = _dcn_ring_check(torch, full, cfg, work)
+    if not ring.pop("ok"):
+        failures.append(f"(g) ring forward {ring}")
     refs = {}
     t_refs = time.monotonic()
     for name, (engine, _, dcn, spec, queries) in DCN_RUNS.items():
@@ -10977,8 +11113,8 @@ async def _serve_dcn(torch) -> dict:
         refs[name] = ref = await _dcn_one_process(
             torch, name, full, batched=engine == "torch-batched")
         mine = ref["mesh"]
-        # (b)/(f): byte-identical to the one-process mesh; against the
-        # unsharded engine equal or at a near tie
+        # (b)/(f)/(h): byte-identical to the one-process mesh; against
+        # the unsharded engine equal or at a near tie
         if r["texts"] != mine["texts"]:
             failures.append(f"{name}: transcripts {r['texts']} != the "
                             f"one-process mesh's {mine['texts']}")
@@ -11000,60 +11136,151 @@ async def _serve_dcn(torch) -> dict:
         if r["exits"] != [0, 0] or r["rank1_port_open"]:
             failures.append(f"{name}: exits {r['exits']}, rank 1 port open "
                             f"{r['rank1_port_open']}")
+        sh = r["sharding"] or {}
+        if sh.get("devices") != 4 or (engine == "torch-batched"
+                                      and m.get("mesh_devices") != 4):
+            failures.append(f"{name}: /health sharding {sh}, /metrics {m}")
+        launches = [rep["launches"] if rep else {} for rep in r["reports"]]
+        if "sp" in dcn:
+            failures += _dcn_seq_gates(name, r, sh, launches)
+            continue
         # (d)/(f): each rank's own launches of the path's kernel while
         # it served, its engine's start apart (the report's launches)
         kernel = ("ragged_attention_pool_sharded" if name == "batched"
                   else "flash_attention_cached")
-        counts = [rep["launches"][kernel] if rep else 0
-                  for rep in r["reports"]]
+        counts = [lp.get(kernel, 0) for lp in launches]
         if min(counts) <= 0:
             failures.append(f"{name}: {kernel} launches per rank {counts}")
-        sh = r["sharding"] or {}
-        if sh.get("devices") != 4 or (name == "batched"
-                                      and m.get("mesh_devices") != 4):
-            failures.append(f"{name}: /health sharding {sh}, /metrics {m}")
     del full
     if failures:
         raise AssertionError("serve_dcn: " + "; ".join(failures))
-    info = {"forward": fwd, "seconds": time.monotonic() - t_phase,
+    info = {"forward": fwd, "ring": ring,
+            "seconds": time.monotonic() - t_phase,
             "references_s": time.monotonic() - t_refs,
             "runs": {}, "launches": {}}
     for name, r in runs.items():
         rep0 = r["reports"][0]
-        one_s = refs[name]["mesh"]["burst_s"]
         info["runs"][name] = {
-            "startup_s": r["startup_s"], "burst_s": r["burst_s"],
-            "one_process_burst_s": one_s,
-            "burst_ratio": r["burst_s"] / one_s,
-            "pair_s": r["pair_s"], "calls": rep0["calls"],
+            "startup_s": r["startup_s"], "pair_s": r["pair_s"],
+            "calls": rep0["calls"],
             "ms_per_call_post": 1e3 * rep0["post_s"] / max(1, rep0["calls"]),
             "traffic_per_rank": [rep["traffic"] for rep in r["reports"]],
+            "ring_forwards_per_rank": [rep["ring_forwards"]
+                                       for rep in r["reports"]],
             "launches_per_rank": [rep["launches"] for rep in r["reports"]],
             "launches_at_start_per_rank": [rep["launches_at_start"]
                                            for rep in r["reports"]],
             "regime": (r["sharding"] or {}).get("attention_regime")}
+        one_s = refs[name]["mesh"].get("burst_s")
+        if one_s:
+            info["runs"][name].update(
+                burst_s=r["burst_s"], one_process_burst_s=one_s,
+                burst_ratio=r["burst_s"] / one_s)
     for n in _launch_counters():
         info["launches"][n] = sum(rep["launches"].get(n, 0)
                                   for r in runs.values()
                                   for rep in r["reports"])
+
+    def run_line(k, v):
+        burst = (f"burst {v['burst_s']:.2f} s vs "
+                 f"{v['one_process_burst_s']:.2f} s in one process "
+                 f"({v['burst_ratio']:.2f}x), " if "burst_s" in v else
+                 f"ring prefills per rank {v['ring_forwards_per_rank']}, ")
+        return (f"{k} {burst}{v['calls']} calls at "
+                f"{v['ms_per_call_post']:.2f} ms posting each, traffic per "
+                f"rank " + str([{kk: round(vv, 4) for kk, vv in t.items()}
+                                for t in v['traffic_per_rank']])
+                + ", launches per rank while serving " + str(
+                    [{kk: vv for kk, vv in lp.items() if vv}
+                     for lp in v['launches_per_rank']])
+                + f", the pair {v['pair_s']:.1f} s (startup "
+                f"{v['startup_s']:.1f})")
+
     log("[serve_dcn] (a) forward 4x128 over tp=2 x DCN dp=2: logits on "
         f"ranks {fwd['logits_on_rank']}, = one-process mesh "
         f"{fwd['equal_one_process']}"
         f"; {fwd['ms'][0]:.1f} ms a forward in two processes vs "
-        f"{fwd['one_process_ms']:.1f} ms in one; " + "; ".join(
-            f"{k} burst {v['burst_s']:.2f} s vs {v['one_process_burst_s']:.2f}"
-            f" s in one process ({v['burst_ratio']:.2f}x), {v['calls']} calls"
-            f" at {v['ms_per_call_post']:.2f} ms posting each, traffic per "
-            f"rank " + str([{kk: round(vv, 4) for kk, vv in t.items()}
-                            for t in v['traffic_per_rank']])
-            + ", launches per rank while serving " + str(
-                [{kk: vv for kk, vv in lp.items() if vv}
-                 for lp in v['launches_per_rank']])
-            + f", the pair {v['pair_s']:.1f} s (startup "
-            f"{v['startup_s']:.1f})" for k, v in info["runs"].items())
+        f"{fwd['one_process_ms']:.1f} ms in one; (g) ring prefill of the "
+        f"{ring['n']}-token dump over tp=2 x DCN sp=2: logits on ranks "
+        f"{ring['logits_on_rank']}, = one-process sp=2,tp=2 mesh "
+        f"{ring['equal_one_process']}, seq-0 cache = "
+        f"{ring['cache_equal']}; {ring['ms'][0]:.1f} ms in two processes "
+        f"vs {ring['one_process_ms']:.1f} ms in one; crossed per rank "
+        + str([{k: round(v, 4) for k, v in t.items()}
+               for t in ring["traffic"]]) + "; "
+        + "; ".join(run_line(k, v) for k, v in info["runs"].items())
         + f"; references {info['references_s']:.1f} s; phase "
         f"{info['seconds']:.1f} s; {gpu_line()}")
     return info
+
+
+def _dcn_ring_check(torch, full, cfg, work: Path) -> dict:
+    """(g) against the one-process sp=2,tp=2 mesh on four shards of the
+    card, on the same weights and inputs: rank 0's logits and every
+    position of its seq-0 row's cache ``torch.equal`` to that mesh's, no
+    logits and no cache on rank 1, each rank its own row's weights.
+    ``ok`` says whether every gate held."""
+    from ai_agent_kubectl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ai_agent_kubectl_tpu_torch.parallel.sharding import shard_params
+
+    mesh = build_mesh(MeshConfig.parse("sp=2,tp=2"),
+                      [torch.device("cuda", 0)] * 4)
+    sharded = shard_params(full, mesh, cfg)
+    one, cache, one_ms = _dcn_ring_run(torch, sharded, cfg, mesh,
+                                       _dcn_ring_inputs(torch))
+    del sharded
+    want = _cache_leaves(cache)
+    del cache
+    ranks = [json.loads((work / f"ring-{r}.json").read_text())
+             for r in range(2)]
+    got = torch.load(work / "ring-0.pt")
+    logits = got["logits"].to("cuda")
+    out = {"n": ranks[0]["n"], "ms": [r["ms"] for r in ranks],
+           "one_process_ms": one_ms,
+           "logits_on_rank": [r["logits"] for r in ranks],
+           "equal_one_process": bool(torch.equal(logits, one)),
+           "max_abs_err": float((logits.float() - one.float()).abs().max()),
+           "finite": bool(torch.isfinite(logits).all()),
+           "cache_equal": all(
+               len(got[k]) == len(want[k])
+               and all(torch.equal(a, b) for a, b in zip(got[k], want[k]))
+               for k in ("k", "v")),
+           "cache_here": [r["cache_here"] for r in ranks],
+           "params_here": [r["params_here"] for r in ranks],
+           "traffic": [r["traffic"] for r in ranks]}
+    out["ok"] = (out["logits_on_rank"] == [True, False]
+                 and out["equal_one_process"] and out["finite"]
+                 and out["cache_equal"]
+                 and out["cache_here"] == [[True, True], [False, False]]
+                 and out["params_here"] == [[True, True, False, False],
+                                            [False, False, True, True]]
+                 and all(t["bytes"] > 0 for t in out["traffic"]))
+    return out
+
+
+def _dcn_seq_gates(name: str, r: dict, sh: dict, launches: list) -> list:
+    """(h)'s gates of a seq run beside the common ones: each dump took
+    the ring on both ranks; rank 0 launched flash (the short prompts on
+    the seq-0 row) and, in the batched engine, the paged decode (the
+    single-sequence engine decodes dense); rank 1 no kernel while
+    serving (its seq row holds no cache); the pool fell back to the
+    dense ladder in the batched engine, as in one process."""
+    engine, _, _, _, queries = DCN_RUNS[name]
+    batched = engine == "torch-batched"
+    dumps = sum(isinstance(q, int) for q in queries)
+    out = []
+    rings = [rep["ring_forwards"] if rep else None for rep in r["reports"]]
+    if rings != [dumps, dumps]:
+        out.append(f"{name}: ring prefills per rank {rings}, expected "
+                   f"{dumps} each")
+    l0, l1 = launches
+    if (l0.get("flash_attention_cached", 0) <= 0 or any(l1.values())
+            or batched and l0.get("paged_decode_attention", 0) <= 0):
+        out.append(f"{name}: launches per rank while serving {launches}")
+    if (sh.get("mesh", {}).get("seq") != 2
+            or sh.get("kv_pool_mesh_fallback") is not batched):
+        out.append(f"{name}: /health sharding {sh}")
+    return out
 
 
 def main() -> int:

@@ -6,7 +6,8 @@ float32.
 - The hybrid layout: ``parallel/mesh.py::build_mesh(..., dcn=)`` places
   every shard where ``mesh_utils.create_hybrid_device_mesh(...,
   process_is_granule=True)`` places its device, over stub devices of
-  two processes (one process, no spawn), on five ICI x DCN specs.
+  two processes (one process, no spawn), on seven ICI x DCN specs (two
+  of them a seq axis across the processes).
 - In one process: the wrong device count and two granules asked of one
   process raise, as the JAX ``build_mesh`` does
   (``tests/test_parallel.py``); ``init_distributed``'s return values
@@ -161,7 +162,8 @@ class _Stub:
 
 @pytest.mark.parametrize("ici,dcn", [("tp=2", "dp=2"), ("tp=2", "pp=2"),
                                      ("tp=2", "tp=2"), ("dp=2,tp=2", "dp=2"),
-                                     ("ep=2", "dp=2")])
+                                     ("ep=2", "dp=2"), ("tp=2", "sp=2"),
+                                     ("sp=2", "sp=2")])
 def test_hybrid_layout_matches_create_hybrid_device_mesh(ici, dcn):
     """Shard by shard: the port's owner and local device index of shard
     ``i`` are the process and per-process index of the device JAX puts
@@ -654,7 +656,6 @@ def test_follower_exits_nonzero_when_rank0_is_gone():
 # --------------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("env,match", [
-    ({"DCN_MESH_SHAPE": "sp=2"}, "A12 row 1"),
     ({"DCN_MESH_SHAPE": "dp=2", "HOST_KV_BLOCKS": "64"}, "A12 row 2"),
     ({"DCN_MESH_SHAPE": "tp=2", "FLEET_SIZE": "2"}, "A12 row 3"),
     ({"NUM_PROCESSES": "2", "ENGINE": "fake"}, "ENGINE=fake has no mesh"),

@@ -224,9 +224,11 @@ def test_config_defaults_match_the_jax_package():
 #: the DCN and distributed knobs, refused until the port served them: a
 #: value that asks for the feature, read into the field the JAX from_env
 #: fills (MESH_SHAPE serves every axis: tests/test_torch_tp.py boots
-#: them; the two-process runs are tests/test_torch_dcn.py's)
+#: them; the two-process runs are tests/test_torch_dcn.py's, and a seq
+#: axis across the processes tests/test_torch_dcn_ring.py's)
 DCN_KNOBS = [
     ("DCN_MESH_SHAPE", "data:2", "dcn_mesh_shape"),
+    ("DCN_MESH_SHAPE", "sp=2", "dcn_mesh_shape"),
     ("DISTRIBUTED_INIT", "true", "distributed_init"),
     ("COORDINATOR_ADDRESS", "h:1", "coordinator_address"),
     ("NUM_PROCESSES", "2", "num_processes"),
@@ -260,6 +262,25 @@ def test_config_reads_the_dcn_knobs_as_the_jax_package(monkeypatch, knob,
     ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
     assert getattr(ours, field) == getattr(theirs, field)
     assert getattr(ours, field) != getattr(ServiceConfig(), field)
+
+
+@pytest.mark.parametrize("mesh_shape", ["", "tp=2"])
+def test_spec_decode_with_a_dcn_seq_axis_refuses_as_the_jax_package(
+        monkeypatch, mesh_shape):
+    """A seq axis across processes is served, but not under speculative
+    decoding: both packages refuse it with one message, which names the
+    seq axis."""
+    monkeypatch.setenv("MESH_SHAPE", mesh_shape)
+    monkeypatch.setenv("DCN_MESH_SHAPE", "sp=2")
+    monkeypatch.setenv("SPEC_DECODE", "true")
+    monkeypatch.setenv("SPEC_DRAFT_MODEL", "toy-8m")
+    errors = []
+    for cls in (ServiceConfig, JaxServiceConfig):
+        with pytest.raises(ValueError) as e:
+            cls.from_env()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    assert "a >1 seq axis" in errors[0]
 
 
 #: the fleet and rollout knobs, refused until the port served them: a
