@@ -12,6 +12,10 @@ takes the port's engines (``torch``, ``torch-batched``), the remote
 ``openai`` engine and the rule-table ``fake`` engine (no model, no
 device); the JAX package's ``jax`` and ``jax-batched`` engines are
 refused by name.
+``from_env`` first reads a ``.env`` file in the working directory
+(``load_env_file``, the JAX package's loader and rules): the process
+environment wins over the file, and a knob set only in the file is read
+and refused as one set in the environment.
 ``COMPILE_CACHE_DIR`` has no counterpart: nothing compiles in eager
 PyTorch, so the knob is not read.
 
@@ -75,6 +79,7 @@ from __future__ import annotations
 import os
 import re
 from dataclasses import dataclass, field, fields
+from pathlib import Path
 from typing import Optional, Tuple
 
 from .engine.kv_pool import check_host_tier
@@ -149,6 +154,42 @@ def _same_value(raw: str, served: str) -> bool:
         return float(val) == float(served)
     except ValueError:
         return False
+
+
+def load_env_file(path: str | os.PathLike = ".env", *,
+                  override: bool = False) -> dict:
+    """Parse a ``.env`` file into ``os.environ`` and return what it
+    parsed, as the JAX package's loader does: lines of ``KEY=VALUE``,
+    ``#`` comments, an optional ``export`` prefix, one pair of matching
+    quotes stripped, and an inline `` #`` comment cut from an unquoted
+    value. A missing file is not an error. A variable already in the
+    process environment wins unless ``override``."""
+    parsed: dict[str, str] = {}
+    p = Path(path)
+    if not p.is_file():
+        return parsed
+    for raw in p.read_text().splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.startswith("export "):
+            line = line[len("export "):].lstrip()
+        if "=" not in line:
+            continue
+        key, _, value = line.partition("=")
+        key = key.strip()
+        value = value.strip()
+        if (len(value) >= 2 and value[0] == value[-1]
+                and value[0] in ("'", '"')):
+            value = value[1:-1]
+        else:
+            value = value.split(" #", 1)[0].rstrip()
+        if not key:
+            continue
+        parsed[key] = value
+        if override or key not in os.environ:
+            os.environ[key] = value
+    return parsed
 
 
 _RATE_RE = re.compile(
@@ -730,7 +771,14 @@ class ServiceConfig:
                             if b.strip()))
 
     @classmethod
-    def from_env(cls) -> "ServiceConfig":
+    def from_env(cls, env_file: str | os.PathLike | None = ".env"
+                 ) -> "ServiceConfig":
+        """The knobs of the process environment, after ``env_file``
+        (``None`` reads no file) has filled in those it does not set:
+        a knob set only in the file is read, or refused, as one set in
+        the environment."""
+        if env_file is not None:
+            load_env_file(env_file)
         for name, served in UNSERVED_KNOBS.items():
             raw = os.getenv(name)
             if raw not in (None, "") and not _same_value(raw, served):

@@ -1027,6 +1027,23 @@ class TorchEngine:
             if event == "token":
                 yield payload
 
+    async def stream_events(self, prompt: str, *, max_tokens: int = 128,
+                            temperature: float = 0.0,
+                            timeout: Optional[float] = None,
+                            seed: Optional[int] = None,
+                            resume_ids=None, export=None):
+        """The fleet's event stream (``engine/fleet.py``), token by
+        token. The single-sequence engine imports and exports nothing
+        across replicas, as the JAX one: a request migrated in replays
+        from scratch under its pinned seed (the fleet's relay drops the
+        prefix it re-emits). The batched engine overrides this with the
+        whole resume/export contract."""
+        del resume_ids, export
+        async for ev in self._stream_events(
+                prompt, max_tokens=max_tokens, temperature=temperature,
+                timeout=timeout, seed=seed):
+            yield ev
+
     async def _stream_events(self, prompt: str, *, max_tokens: int,
                              temperature: float, timeout: Optional[float],
                              seed: Optional[int] = None):

@@ -18,12 +18,20 @@ the engine's start).
 ``--devices cpu,cpu`` names this process's mesh devices, one per shard
 (a device may repeat: ``cuda:0,cuda:0`` runs two shards on one card);
 without it the mesh takes the distinct devices of the serving type.
+
+Rank 0 stops as the JAX entry point does (``_serve``): on SIGTERM or
+SIGINT the listening socket stays open while the engine drains for up
+to ``DRAIN_TIMEOUT_SECS`` (``/health`` answers 503: the engine is not
+ready), a second signal cuts the drain short (``engine.stop(0)``), and
+only then is the site torn down.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
+import signal
 from typing import Optional, Sequence
 
 from aiohttp import web
@@ -77,12 +85,62 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     logger.info("Starting server on %s:%s (engine=%s, device=%s)",
                 cfg.host, cfg.port, getattr(engine, "name", "?"),
                 cfg.torch_device)
-    web.run_app(create_app(cfg, engine), host=cfg.host, port=cfg.port,
-                access_log=None)
+    asyncio.run(_serve(cfg, create_app(cfg, engine), logger))
     if distributed.world_size() > 1:
         distributed.HANDS.stop()
         print(json.dumps(distributed.report()), flush=True)
         distributed.shutdown()
+
+
+async def _serve(cfg: ServiceConfig, app: web.Application, logger) -> None:
+    """Serve ``app`` until SIGTERM or SIGINT, then drain with the socket
+    open: ``engine.stop(drain_secs=DRAIN_TIMEOUT_SECS)`` lets in-flight
+    requests finish while ``/health`` answers 503, so a load balancer
+    takes this process out of rotation instead of meeting a refused
+    connection (``web.run_app`` closes the socket before any shutdown
+    hook runs). A second signal stops the engine at once. The runner's
+    cleanup comes last; its engine stop is a no-op by then."""
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, cfg.host, cfg.port)
+    await site.start()
+
+    stop_ev = asyncio.Event()
+    force_ev = asyncio.Event()
+    loop = asyncio.get_running_loop()
+
+    def on_signal() -> None:
+        # The first signal starts the drain, the second cuts it short.
+        (force_ev if stop_ev.is_set() else stop_ev).set()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, on_signal)
+    await stop_ev.wait()
+    logger.info("Shutdown signal: draining (up to %.0fs) while still "
+                "answering health checks; signal again to skip the drain",
+                cfg.drain_timeout_secs)
+    engine = app["service"].engine
+    drain = asyncio.ensure_future(
+        engine.stop(drain_secs=cfg.drain_timeout_secs))
+    force = asyncio.ensure_future(force_ev.wait())
+    done, _ = await asyncio.wait({drain, force},
+                                 return_when=asyncio.FIRST_COMPLETED)
+    if drain not in done:
+        logger.warning("Second signal: aborting drain, stopping now")
+        try:
+            # stop(0) ends what is still in flight, so the draining
+            # stop() returns promptly too.
+            await engine.stop(drain_secs=0.0)
+        except Exception:
+            logger.exception("force stop failed; awaiting original drain")
+    force.cancel()
+    try:
+        # The drain's outcome is always read: a failing stop() is
+        # logged, and the teardown goes on.
+        await drain
+    except Exception:
+        logger.exception("engine drain/stop failed during shutdown")
+    await runner.cleanup()
 
 
 if __name__ == "__main__":

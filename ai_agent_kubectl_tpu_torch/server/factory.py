@@ -71,6 +71,12 @@ class DegradedEngine:
     async def generate(self, prompt, **kw) -> EngineResult:
         raise EngineUnavailable(self.reason)
 
+    async def generate_stream(self, prompt, **kw):
+        # Raises before the first piece, so the stream route answers
+        # with its engine-unavailable frame (or the degraded fallback).
+        raise EngineUnavailable(self.reason)
+        yield  # pragma: no cover - makes this an async generator
+
 
 def parse_fault_points(cfg):
     """The one shared injector of ``FAULT_POINTS`` (None when empty), or

@@ -8,8 +8,8 @@ error_type?, error_code?}``.
 
 Additions (documented, additive-only): ``CommandResponse.engine_metadata``
 carries engine phase timings (queue/prefill/decode, TTFT) when a local
-engine served the request — the TPU-native analog of the reference's
-``duration_ms`` bookkeeping (app.py:164,227).
+engine served the request — the in-process engine's counterpart of the
+reference's ``duration_ms`` bookkeeping (app.py:164,227).
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ class ExecutionMetadata(BaseModel):
 
 
 class EngineMetadata(BaseModel):
-    """Per-request engine phase timings (TPU-native addition; SURVEY.md §5
-    tracing row)."""
+    """Per-request engine phase timings (an addition to the reference's
+    contract; SURVEY.md §5 tracing row)."""
 
     queue_ms: float = 0.0
     prefill_ms: float = 0.0

@@ -674,6 +674,25 @@ KVQ_LAYERS), so that the whole script stays well inside its 1,200 s:
                rank's traffic with the other (collectives, seconds,
                bytes), launches per rank while serving and before,
                the phase's seconds.
+15h. serve_drain -- the port's server entry point through SIGTERM: a
+               subprocess of this script (``--rank-of serve_drain``)
+               running ``server.__main__.main`` on the card with
+               serve's Gemma-2B (full width, 6 of its 18 layers, random
+               bf16 from seed 0, 8 slots, the pool and the ragged
+               kernel) and GRAMMAR_DECODE=true, so that the random
+               weights' commands pass validation; DRAIN_TIMEOUT_SECS=30.
+               A burst of 8 streams; SIGTERM once each has sent its
+               first piece. Gates: /health answers 503 (engine_ready
+               false) through the drain and never 200 after its first
+               503; every stream ends in ``event: done`` with a command
+               unsafe_reason passes; at least one finished after the
+               signal; the process exits 0; its report line (the last of
+               its stdout, ``distributed.report``) counts the ragged
+               kernel's launches while serving, above zero. Printed: the
+               drain's ms (signal to the last stream's end), the streams
+               finished inside it, the exit code and its ms after the
+               signal, /health's answers, the launches, the phase's
+               seconds, the card's name and power limit.
 16. timing  -- time each kernel, its plain version, one PyTorch library
                call computing the same function, and its bound, at the
                shapes the serving paths give it (serve_moe's and
@@ -721,7 +740,7 @@ PHASES = ("build", "kernel", "serve", "serve_pipe", "serve1", "serve_paged",
           "serve_ckpt", "serve_qos", "serve_moe", "serve_kvq", "serve_obs",
           "serve_chaos", "serve_grammar", "serve_spec", "serve_host",
           "serve_fleet", "serve_tp", "serve_spec_tp", "serve_moe_ep",
-          "serve_ring", "serve_pp", "serve_dcn", "timing")
+          "serve_ring", "serve_pp", "serve_dcn", "serve_drain", "timing")
 #: the environment the script started with; each serving phase starts
 #: from it (_phase_env), so no knob of one phase leaks into the next
 START_ENV = dict(os.environ)
@@ -749,6 +768,7 @@ PHASE_LAYERS = {
     "serve_spec_tp": {"gemma-2b-it": 6, "gemma-7b-it": 8},
     "serve_moe_ep": {"mixtral-8x7b-instruct": 8},     # MOE_LAYERS
     "serve_dcn": {"llama-3-8b-instruct": 8},
+    "serve_drain": {"gemma-2b-it": 6},
     "serve_ring": {"llama-3-8b-instruct": 16},
     "serve_pp": {"llama-3-8b-instruct": 16},
 }
@@ -5473,7 +5493,8 @@ def kernel_lines(results: dict) -> list:
     ragged and int4; its spec-on Gemma-2B engines and the drill: ragged;
     not its spec-off reference engines) and of phase 14 (both its HTTP
     engines' session traffic: ragged in (a), paged pool and flash in
-    (b))."""
+    (b)); and of the processes of serve_dcn and serve_drain (each
+    server's own count while serving)."""
     timing = results.get("timing", {})
     kernel = results.get("kernel", {})
     serve1 = results.get("serve1", {}).get("launches", {})
@@ -5526,6 +5547,7 @@ def kernel_lines(results: dict) -> list:
     ring = results.get("serve_ring", {}).get("launches", {})
     pp = results.get("serve_pp", {}).get("launches", {})
     dcn = results.get("serve_dcn", {}).get("launches", {})
+    drain = results.get("serve_drain", {}).get("launches", {})
     ring_decode = kernel.get("paged_decode_attention", {}).get("ring_decode")
 
     def tp_launches(name):
@@ -5565,7 +5587,8 @@ def kernel_lines(results: dict) -> list:
                                "serve_moe_ep": moe_ep.get(name),
                                "serve_ring": ring.get(name),
                                "serve_pp": pp.get(name),
-                               "serve_dcn": dcn.get(name)},
+                               "serve_dcn": dcn.get(name),
+                               "serve_drain": drain.get(name)},
             "shapes": shapes,
         }
 
@@ -10865,20 +10888,25 @@ def _dcn_ring_forward(torch, out: Path) -> None:
     torch.cuda.empty_cache()
 
 
-def _sse_text(body: str) -> tuple:
-    """(a stream's token pieces joined, its last event)."""
-    pieces, last = [], None
+def _sse_frames(body: str) -> list:
+    """A stream's frames as (event or None, data)."""
+    out = []
     for frame in body.split("\n\n"):
         if not frame.strip():
             continue
         lines = frame.split("\n")
         event = next((ln[7:] for ln in lines if ln.startswith("event: ")),
                      None)
-        if event is None:
-            pieces.append("\n".join(ln[6:] for ln in lines
-                                    if ln.startswith("data: ")))
-        last = event
-    return "".join(pieces), last
+        out.append((event, "\n".join(ln[6:] for ln in lines
+                                     if ln.startswith("data: "))))
+    return out
+
+
+def _sse_text(body: str) -> tuple:
+    """(a stream's token pieces joined, its last event)."""
+    frames = _sse_frames(body)
+    return ("".join(d for e, d in frames if e is None),
+            frames[-1][0] if frames else None)
 
 
 async def _dcn_http(url: str, queries=(), burst=()) -> dict:
@@ -11283,6 +11311,178 @@ def _dcn_seq_gates(name: str, r: dict, sh: dict, launches: list) -> list:
     return out
 
 
+
+# --------------------------------------------------------- serve_drain
+
+#: serve_drain's server, as the port's entry point reads it: serve's
+#: Gemma-2B (the default batched engine over the block pool, the ragged
+#: kernel) with the grammar on, so that every command the random weights
+#: give passes the service's validation (serve_grammar's gate)
+SERVE_DRAIN_ENV = dict(SERVE_ENV, GRAMMAR_DECODE="true",
+                       DRAIN_TIMEOUT_SECS="30")
+#: seconds the server process may take to serve, to decode the burst's
+#: first pieces, and to exit after the SIGTERM
+DRAIN_START_S, DRAIN_DECODE_S, DRAIN_EXIT_S = 120.0, 60.0, 60.0
+
+
+def phase_serve_drain(torch) -> dict:
+    """Phase 15h: the entry point's drain on SIGTERM."""
+    release_served_apps(torch)
+    return asyncio.run(_serve_drain())
+
+
+def drain_rank(torch) -> int:
+    """serve_drain's server process (``--rank-of serve_drain``): the
+    port's entry point on the cut Gemma-2B until its SIGTERM and drain,
+    then one JSON line of its kernel launches while serving (from the end
+    of the engine's start, ``distributed.report``)."""
+    from ai_agent_kubectl_tpu_torch.parallel import distributed
+    from ai_agent_kubectl_tpu_torch.server.__main__ import main as serve
+
+    with phase_layers("serve_drain"):
+        serve([])
+    print(json.dumps(distributed.report()), flush=True)
+    return 0
+
+
+async def _serve_drain() -> dict:
+    """The burst of streams, SIGTERM once each has its first piece, and
+    what a client and the process show: /health during the drain, every
+    stream's end, the exit code and the server's launches."""
+    import signal
+    import tempfile
+
+    import aiohttp
+
+    from ai_agent_kubectl_tpu_torch.server.safety import unsafe_reason
+
+    t0 = time.monotonic()
+    work = Path(tempfile.mkdtemp(prefix="serve_drain-"))
+    port = _free_port()
+    env = dict(START_ENV, **SERVE_DRAIN_ENV, HOST="127.0.0.1",
+               PORT=str(port))
+    out_f = open(work / "server.out", "w")
+    err_f = open(work / "server.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-of",
+         "serve_drain"], env=env, stdout=out_f, stderr=err_f,
+        cwd=str(ROOT))
+    url = f"http://127.0.0.1:{port}"
+    queries = [f"{q} before the drain" for q in QUERIES]
+    bodies = {q: b"" for q in queries}
+    ends: dict = {}
+    res: dict = {}
+    try:
+        async with aiohttp.ClientSession() as http:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError("serve_drain: the server ended "
+                                         "before serving")
+                if time.monotonic() - t0 > DRAIN_START_S:
+                    raise AssertionError(f"serve_drain: no engine_ready "
+                                         f"within {DRAIN_START_S:.0f} s")
+                try:
+                    async with http.get(f"{url}/health") as r:
+                        if (await r.json()).get("engine_ready"):
+                            break
+                except (aiohttp.ClientError, ValueError):
+                    pass
+                await asyncio.sleep(0.25)
+            res["startup_s"] = time.monotonic() - t0
+
+            async def stream(q):
+                async with http.post(f"{url}/kubectl-command/stream",
+                                     json={"query": q}) as r:
+                    async for chunk in r.content.iter_any():
+                        bodies[q] += chunk
+                ends[q] = time.monotonic()
+
+            tasks = [asyncio.ensure_future(stream(q)) for q in queries]
+            end = time.monotonic() + DRAIN_DECODE_S
+            while not all(b"\n\n" in b for b in bodies.values()):
+                if time.monotonic() > end or any(t.done() for t in tasks):
+                    break
+                await asyncio.sleep(0.005)
+            decoding = sum(b"\n\n" in b and q not in ends
+                           for q, b in bodies.items())
+            proc.send_signal(signal.SIGTERM)
+            t_sig = time.monotonic()
+            health = []
+            while not all(t.done() for t in tasks):
+                if time.monotonic() - t_sig > DRAIN_EXIT_S:
+                    raise AssertionError("serve_drain: the burst did not "
+                                         "end inside the drain")
+                try:
+                    async with http.get(f"{url}/health") as r:
+                        health.append((r.status,
+                                       (await r.json()).get("engine_ready")))
+                except aiohttp.ClientError as e:
+                    health.append((type(e).__name__, None))
+                await asyncio.sleep(0.02)
+            for t in tasks:
+                await t
+        res["exit"] = proc.wait(timeout=DRAIN_EXIT_S)
+        res["exit_ms"] = (time.monotonic() - t_sig) * 1e3
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        out_f.close()
+        err_f.close()
+    lines = (work / "server.out").read_text().strip().splitlines()
+    report = json.loads(lines[-1]) if lines else {}
+    if res["exit"] != 0:
+        log((work / "server.err").read_text()[-3000:])
+    failures = []
+    frames = {q: _sse_frames(b.decode("utf-8", "replace"))
+              for q, b in bodies.items()}
+    commands = {}
+    for q, fr in frames.items():
+        if not fr or fr[-1][0] != "done":
+            failures.append(f"{q!r} ended {fr[-1] if fr else None}")
+        elif unsafe_reason(fr[-1][1]) is not None:
+            failures.append(f"{q!r}: done with {fr[-1][1]!r}")
+        else:
+            commands[q] = fr[-1][1]
+    inside = sum(ends[q] > t_sig for q in queries)
+    statuses = sorted({s for s, _ in health}, key=str)
+    if not any(s == 503 and ready is False for s, ready in health):
+        failures.append(f"/health during the drain: {statuses}")
+    first = next((i for i, (s, _) in enumerate(health) if s == 503),
+                 len(health))
+    if any(s == 200 for s, _ in health[first:]):
+        failures.append("/health answered 200 after a 503 in the drain")
+    if inside < 1 or decoding < 1:
+        failures.append(f"{decoding} streams decoding at the SIGTERM, "
+                        f"{inside} finished after it")
+    if res["exit"] != 0:
+        failures.append(f"exit code {res['exit']}")
+    launches = report.get("launches", {})
+    if launches.get("ragged_attention_pool", 0) <= 0:
+        failures.append(f"launches while serving {launches}")
+    res.update(
+        drain_ms=(max(ends.values()) - t_sig) * 1e3, streams=len(queries),
+        decoding_at_signal=decoding, finished_in_drain=inside,
+        health_in_drain=statuses, health_polls=len(health),
+        launches=launches, launches_at_start=report.get("launches_at_start"),
+        token_frames=sum(len(fr) - 1 for fr in frames.values()),
+        phase_s=time.monotonic() - t0, gpu=gpu_line())
+    log(f"[serve_drain] gemma-2b-it over the entry point (grammar on): "
+        f"{decoding} of {len(queries)} streams decoding at the SIGTERM, "
+        f"{inside} finished inside the drain of {res['drain_ms']:.1f} ms; "
+        f"/health in it {statuses} over {len(health)} polls; exit "
+        f"{res['exit']} {res['exit_ms']:.1f} ms after the signal; "
+        f"ragged launches while serving "
+        f"{launches.get('ragged_attention_pool')}; startup "
+        f"{res['startup_s']:.1f} s; phase {res['phase_s']:.1f} s; "
+        f"{res['gpu']}")
+    log("[serve_drain] json " + json.dumps(
+        {k: v for k, v in res.items() if k != "launches_at_start"}))
+    if failures:
+        raise AssertionError("serve_drain: " + "; ".join(failures))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -11294,7 +11494,7 @@ def main() -> int:
     ap.add_argument("--bursts", type=int, default=1,
                     help="bursts of 8 fresh queries the serve phase times "
                     "(the first is the counted one)")
-    ap.add_argument("--rank-of", choices=("serve_dcn",),
+    ap.add_argument("--rank-of", choices=("serve_dcn", "serve_drain"),
                     help="run as one rank process of that phase (the "
                     "phase starts them)")
     args = ap.parse_args()
@@ -11314,6 +11514,8 @@ def main() -> int:
             "CUDA device")
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.rank_of == "serve_drain":
+        return drain_rank(torch)
     if args.rank_of:
         return dcn_rank(torch)
     # Every float32 comparison on the card runs in full float32.
@@ -11359,6 +11561,7 @@ def main() -> int:
     run("serve_ring", phase_serve_ring, torch)
     run("serve_pp", phase_serve_pp, torch)
     run("serve_dcn", phase_serve_dcn, torch)
+    run("serve_drain", phase_serve_drain, torch)
     run("timing", phase_timing, torch, results.get("serve", {}),
         results.get("serve_paged", {}), results.get("serve_moe", {}),
         results.get("serve_spec", {}), results.get("serve_host", {}),

@@ -893,7 +893,8 @@ def test_containment_and_openai_knobs_read_as_the_jax_package(
         monkeypatch, knob, value, field):
     monkeypatch.setenv(knob, value)
     assert knob not in UNSERVED_KNOBS
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == getattr(theirs, field) != \
         getattr(ServiceConfig(), field)
 
@@ -918,7 +919,7 @@ def test_bad_containment_knobs_raise_the_jax_errors(monkeypatch, knob,
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError) as ei:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(ei.value))
     assert errors[0] == errors[1]
 

@@ -232,11 +232,13 @@ def test_server_passes_explicit_ranks_only_above_one_process(
     monkeypatch.setenv("COORDINATOR_ADDRESS", "h:1")
     monkeypatch.setenv("NUM_PROCESSES", str(n))
     monkeypatch.setenv("PROCESS_ID", "1" if n > 1 else "0")
-    assert server_main.join_group(ServiceConfig.from_env()) is True
+    assert server_main.join_group(
+        ServiceConfig.from_env(env_file=None)) is True
     assert calls == [(("h:1",) + want, {"require": False})]
     calls.clear()
     monkeypatch.delenv("COORDINATOR_ADDRESS")
-    assert server_main.join_group(ServiceConfig.from_env()) is False
+    assert server_main.join_group(
+        ServiceConfig.from_env(env_file=None)) is False
     assert calls == []
 
 
@@ -449,7 +451,7 @@ def _jax_transcripts(mesh_shape: str) -> list:
         for k, v in env.items():
             mp.setenv(k, v)
         mp.setenv("MESH_SHAPE", mesh_shape)
-        jcfg = JaxServiceConfig.from_env()
+        jcfg = JaxServiceConfig.from_env(env_file=None)
     eng = BatchedJaxEngine.from_config(jcfg)
     eng.params = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)
 
@@ -480,8 +482,8 @@ def _one_process_spec(mesh_shape: str) -> tuple:
             mp.setenv(k, v)
         mp.setenv("MESH_SHAPE", mesh_shape)
         mp.setenv("NUM_PROCESSES", "1")
-        eng = BatchedTorchEngine.from_config(ServiceConfig.from_env(),
-                                             devices=["cpu"] * 4)
+        eng = BatchedTorchEngine.from_config(
+            ServiceConfig.from_env(env_file=None), devices=["cpu"] * 4)
 
     async def run():
         await eng.start()
@@ -664,7 +666,7 @@ def test_boot_refuses_what_cannot_be_mirrored(monkeypatch, env, match):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match=match):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
 
 
 def test_engine_refuses_a_dcn_spec_over_another_process_count():

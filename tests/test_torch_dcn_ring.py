@@ -261,7 +261,7 @@ def _jax_transcripts(kind: str, tree) -> list:
             mp.setenv(k, v)
         mp.setenv("MESH_SHAPE", ONE_PROCESS_MESH)
         mp.setenv("DECODE_BATCH_SIZE", batch)
-        jcfg = JaxServiceConfig.from_env()
+        jcfg = JaxServiceConfig.from_env(env_file=None)
     eng = cls.from_config(jcfg)
     eng.params = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)
 

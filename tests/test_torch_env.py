@@ -64,7 +64,8 @@ def test_a_leaked_knob_is_gone_inside_a_guarded_module(name, value):
         next(gen)
         try:
             assert name not in os.environ
-            assert getattr(ServiceConfig.from_env(), name.lower()) == default
+            cfg = ServiceConfig.from_env(env_file=None)
+            assert getattr(cfg, name.lower()) == default
         finally:
             with pytest.raises(StopIteration):
                 next(gen)

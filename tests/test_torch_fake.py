@@ -496,7 +496,7 @@ HEALTH_KEYS = ("status", "engine", "engine_ready", "model", "breaker",
 async def _http(pkg, env: dict, monkeypatch, requests) -> list:
     for key, val in env.items():
         monkeypatch.setenv(key, val)
-    cfg = pkg.config.ServiceConfig.from_env()
+    cfg = pkg.config.ServiceConfig.from_env(env_file=None)
     engine = pkg.factory.build_engine(cfg)
     app = pkg.app.create_app(cfg, engine,
                              executor=pkg.executor.CommandExecutor(

@@ -800,7 +800,7 @@ def test_bad_grammar_knobs_raise_the_jax_errors(monkeypatch, knob, value,
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError, match=message) as exc:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(exc.value))
     assert errors[0] == errors[1]
 
@@ -817,12 +817,12 @@ def test_grammar_refused_where_no_engine_would_enforce_it(monkeypatch, env):
         monkeypatch.setenv(k, v)
     monkeypatch.setenv("GRAMMAR_DECODE", "true")
     with pytest.raises(ValueError, match="GRAMMAR_DECODE=true is enforced"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
     monkeypatch.setenv("GRAMMAR_DECODE", "false")
-    ServiceConfig.from_env()
+    ServiceConfig.from_env(env_file=None)
     monkeypatch.setenv("GRAMMAR_DECODE", "true")
     monkeypatch.setenv("ENGINE", "torch-batched")
-    assert ServiceConfig.from_env().grammar_decode
+    assert ServiceConfig.from_env(env_file=None).grammar_decode
 
 
 def test_batched_engine_from_config_serves_the_grammar_knobs():

@@ -181,7 +181,8 @@ def test_admit_scratch_mb_read_as_the_jax_package(monkeypatch, raw):
     outcomes = []
     for cls in (ServiceConfig, JaxServiceConfig):
         try:
-            outcomes.append(("read", cls.from_env().admit_scratch_mb))
+            outcomes.append(
+                ("read", cls.from_env(env_file=None).admit_scratch_mb))
         except ValueError as e:
             outcomes.append(("refused", str(e)))
     assert outcomes[0] == outcomes[1]
@@ -191,7 +192,8 @@ def test_admit_scratch_mb_read_as_the_jax_package(monkeypatch, raw):
     assert outcomes[0] == ("read", int(raw) if raw else 512)
     eng = BatchedTorchEngine.from_config(ServiceConfig(
         torch_device="cpu", kv_pool=False,
-        admit_scratch_mb=ServiceConfig.from_env().admit_scratch_mb))
+        admit_scratch_mb=ServiceConfig.from_env(
+            env_file=None).admit_scratch_mb))
     assert eng.admit_scratch_mb == max(0, int(raw) if raw else 512)
 
 

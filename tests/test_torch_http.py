@@ -440,9 +440,10 @@ async def test_metrics_names_and_label_cardinality():
 
 
 async def test_openapi_per_path():
-    """The port documents exactly the routes it serves, each with the
-    JAX document's methods, status codes, content types and schema
-    references; the referenced schemas are the JAX ones; both are
+    """The port documents every path the JAX document does (the routes
+    it serves), each with the JAX document's methods, status codes,
+    content types and schema references; the referenced schemas are the
+    JAX ones (their descriptions are each package's own words); both are
     served without the key."""
     docs = []
 
@@ -454,22 +455,31 @@ async def test_openapi_per_path():
     assert await run_both(scenario, {"api_auth_key": "k"}) == [200, 200]
     ours, theirs = docs
 
+    def undescribed(obj):
+        if isinstance(obj, dict):
+            return {k: undescribed(v) for k, v in obj.items()
+                    if k != "description"}
+        if isinstance(obj, list):
+            return [undescribed(v) for v in obj]
+        return obj
+
     def shape(op):
         return {
-            "body": op.get("requestBody"),
+            "body": undescribed(op.get("requestBody")),
             "responses": {code: r.get("content")
                           for code, r in op["responses"].items()},
         }
 
-    assert set(ours["paths"]) == {"/kubectl-command",
-                                  "/kubectl-command/stream", "/execute",
-                                  "/health", "/metrics"}
+    assert set(ours["paths"]) == set(theirs["paths"])
+    assert {"/kubectl-command", "/kubectl-command/stream", "/execute",
+            "/health", "/metrics", "/admin/rollout"} <= set(ours["paths"])
     for path, item in ours["paths"].items():
         assert set(item) == set(theirs["paths"][path]), path
         for method, op in item.items():
             assert shape(op) == shape(theirs["paths"][path][method]), path
     for name, schema in ours["components"]["schemas"].items():
-        assert schema == theirs["components"]["schemas"][name], name
+        assert undescribed(schema) == undescribed(
+            theirs["components"]["schemas"][name]), name
     assert ours["info"]["title"] == theirs["info"]["title"]
     assert ours["security"] == theirs["security"]
 

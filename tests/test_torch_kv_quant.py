@@ -714,7 +714,7 @@ async def test_kv_quant_int8_boots_and_serves(monkeypatch, kind):
                             MAX_NEW_TOKENS="4", PREFILL_BUCKETS="64,128",
                             RATE_LIMIT="1000/minute", **env).items():
         monkeypatch.setenv(name, value)
-    cfg = ServiceConfig.from_env()
+    cfg = ServiceConfig.from_env(env_file=None)
     assert cfg.kv_quant == "int8"
     engine = build_engine(cfg)
     assert type(engine) is (TorchEngine if regime is None

@@ -226,7 +226,8 @@ def test_mesh_knobs_boot_from_the_environment(monkeypatch, env):
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     for field in ("mesh_shape", "moe_impl", "spec_decode", "model_name"):
         assert getattr(ours, field) == getattr(theirs, field)
     cls = BatchedTorchEngine if ours.batched_engine else TorchEngine
@@ -247,7 +248,7 @@ def test_spec_decode_with_a_data_axis_refuses_as_jax(monkeypatch, spec):
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match="SPEC_DECODE does not compose "
                        "with a mesh that has a >1 data axis"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
     with pytest.raises(ValueError, match="SPEC_DECODE does not compose "
                        "with a mesh that has a >1 data axis"):
-        JaxServiceConfig.from_env()
+        JaxServiceConfig.from_env(env_file=None)

@@ -421,7 +421,7 @@ def test_sampled_transcripts_match_the_jax_engines(kind, quant):
 @pytest.mark.parametrize("value", ["auto", "dense", "DENSE"])
 def test_moe_impl_is_read(monkeypatch, value):
     monkeypatch.setenv("MOE_IMPL", value)
-    cfg = ServiceConfig.from_env()
+    cfg = ServiceConfig.from_env(env_file=None)
     assert cfg.moe_impl == value.lower()
     engine = TorchEngine.from_config(ServiceConfig(
         torch_device="cpu", model_name="toy-moe", moe_impl=cfg.moe_impl,
@@ -435,7 +435,7 @@ def test_moe_impl_ep_refused_at_boot(monkeypatch):
     ``tests/test_torch_mesh_serving.py``); a bad value is still
     refused."""
     monkeypatch.setenv("MOE_IMPL", "ep")
-    assert ServiceConfig.from_env().moe_impl == "ep"
+    assert ServiceConfig.from_env(env_file=None).moe_impl == "ep"
     with pytest.raises(ValueError, match="MOE_IMPL must be"):
         ServiceConfig(moe_impl="expert")
     eng = TorchEngine(TCFG, moe_impl="ep", device="cpu")

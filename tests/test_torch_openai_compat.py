@@ -145,7 +145,7 @@ def test_from_env_boots_engine_openai(monkeypatch):
     monkeypatch.setenv("OPENAI_API_KEY", "sk-test")
     monkeypatch.setenv("OPENAI_MODEL", "gpt-4o")
     monkeypatch.setenv("OPENAI_BASE_URL", "http://127.0.0.1:9/v1")
-    cfg = ServiceConfig.from_env()
+    cfg = ServiceConfig.from_env(env_file=None)
     assert (cfg.engine, cfg.openai_api_key, cfg.openai_model,
             cfg.openai_base_url) == ("openai", "sk-test", "gpt-4o",
                                      "http://127.0.0.1:9/v1")

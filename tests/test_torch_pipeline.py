@@ -614,15 +614,15 @@ def test_depth_below_one_raises_as_the_jax_engine(monkeypatch):
     for make in (lambda: _jax_engine(0),
                  lambda: _port_engine(None, 0),
                  lambda: BatchedTorchEngine.from_config(
-                     ServiceConfig.from_env())):
+                     ServiceConfig.from_env(env_file=None))):
         monkeypatch.setenv("CHUNK_PIPE_DEPTH", "0")
         monkeypatch.setenv("TORCH_DEVICE", "cpu")
         with pytest.raises(ValueError) as e:
             make()
         errors.append(str(e.value))
     assert errors == ["chunk_pipe_depth must be >= 1"] * 3
-    assert ServiceConfig.from_env().chunk_pipe_depth == \
-        JaxServiceConfig.from_env().chunk_pipe_depth == 0
+    assert ServiceConfig.from_env(env_file=None).chunk_pipe_depth == \
+        JaxServiceConfig.from_env(env_file=None).chunk_pipe_depth == 0
 
 
 # ----------------------- a preempted request resumed over its own chunks

@@ -731,6 +731,6 @@ def test_bad_qos_knobs_raise_the_jax_errors(monkeypatch, knob, value):
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError) as ei:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(ei.value))
     assert errors[0] == errors[1] and knob in errors[0]

@@ -169,7 +169,7 @@ def test_config_reads_the_jax_knob_names(monkeypatch):
                      "BREAKER_RECOVERY_SECS": "4",
                      "FLIGHT_RECORDER_SIZE": "16"}.items():
         monkeypatch.setenv(key, val)
-    cfg = ServiceConfig.from_env()
+    cfg = ServiceConfig.from_env(env_file=None)
     assert (cfg.engine, cfg.torch_device, cfg.model_name) == (
         "torch-batched", "cpu", "gemma-2b-it")
     assert cfg.decode_batch_size == 4 and cfg.kv_pool_page == 32
@@ -186,25 +186,25 @@ def test_config_reads_the_jax_knob_names(monkeypatch):
     assert cfg.flight_recorder_size == 16
     # TRUST_PROXY_HEADERS wins over its alias, as in the JAX package
     monkeypatch.setenv("TRUST_PROXY_HEADERS", "false")
-    assert not ServiceConfig.from_env().trust_proxy_headers
+    assert not ServiceConfig.from_env(env_file=None).trust_proxy_headers
     monkeypatch.setenv("RATE_LIMIT", "often")
     with pytest.raises(ValueError, match="rate limit"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
     monkeypatch.setenv("RATE_LIMIT", "10/minute")
     monkeypatch.setenv("KV_POOL", "false")
     monkeypatch.setenv("DECODE_ATTN", "paged")
     monkeypatch.setenv("KV_PAGE_SIZE", "64")
-    cfg = ServiceConfig.from_env()
+    cfg = ServiceConfig.from_env(env_file=None)
     assert not cfg.kv_pool and cfg.decode_attn == "paged"
     assert cfg.kv_page_size == 64
     monkeypatch.setenv("RAGGED_ATTENTION", "on")
     with pytest.raises(ValueError, match="KV_POOL"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
     monkeypatch.setenv("KV_POOL", "true")
-    assert ServiceConfig.from_env().ragged_attention == "on"
+    assert ServiceConfig.from_env(env_file=None).ragged_attention == "on"
     monkeypatch.setenv("DECODE_ATTN", "flash")
     with pytest.raises(ValueError, match="DECODE_ATTN"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
 
 
 def test_config_defaults_match_the_jax_package():
@@ -251,15 +251,16 @@ def test_config_reads_the_dcn_knobs_as_the_jax_package(monkeypatch, knob,
         errors = []
         for cls in (ServiceConfig, JaxServiceConfig):
             with pytest.raises(ValueError) as e:
-                cls.from_env()
+                cls.from_env(env_file=None)
             errors.append(str(e.value))
         assert errors[0] == errors[1]
         assert "DCN_MESH_SHAPE='dp=2'" in errors[0]
         return
-    assert getattr(ServiceConfig.from_env(), field) == \
-        getattr(JaxServiceConfig.from_env(), field)
+    assert getattr(ServiceConfig.from_env(env_file=None), field) == \
+        getattr(JaxServiceConfig.from_env(env_file=None), field)
     monkeypatch.setenv(knob, value)
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == getattr(theirs, field)
     assert getattr(ours, field) != getattr(ServiceConfig(), field)
 
@@ -277,7 +278,7 @@ def test_spec_decode_with_a_dcn_seq_axis_refuses_as_the_jax_package(
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError) as e:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(e.value))
     assert errors[0] == errors[1]
     assert "a >1 seq axis" in errors[0]
@@ -307,14 +308,16 @@ def test_config_reads_the_fleet_and_rollout_knobs_as_the_jax_package(
     assert getattr(ServiceConfig(), field) == getattr(JaxServiceConfig(),
                                                       field)
     monkeypatch.setenv(knob, value)
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == getattr(theirs, field)
     assert getattr(ours, field) != getattr(ServiceConfig(), field)
     monkeypatch.setenv(knob, bad)
     outcomes = []
     for cls in (ServiceConfig, JaxServiceConfig):
         try:
-            outcomes.append(("read", getattr(cls.from_env(), field)))
+            outcomes.append(
+                ("read", getattr(cls.from_env(env_file=None), field)))
         except ValueError as e:
             outcomes.append(("refused", str(e)))
     assert outcomes[0] == outcomes[1]
@@ -336,10 +339,11 @@ GRAMMAR_KNOBS = [
 def test_config_reads_the_grammar_knobs_as_the_jax_package(
         monkeypatch, knob, value, field, want):
     assert knob not in UNSERVED_KNOBS
-    assert getattr(ServiceConfig.from_env(), field) == \
-        getattr(JaxServiceConfig.from_env(), field)
+    assert getattr(ServiceConfig.from_env(env_file=None), field) == \
+        getattr(JaxServiceConfig.from_env(env_file=None), field)
     monkeypatch.setenv(knob, value)
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == want == getattr(theirs, field)
 
 
@@ -359,7 +363,8 @@ def test_config_reads_the_pipe_knobs_as_the_jax_package(monkeypatch, knob,
                                                         value, field, want):
     assert knob not in UNSERVED_KNOBS
     monkeypatch.setenv(knob, value)
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == want == getattr(theirs, field)
 
 
@@ -375,7 +380,7 @@ def test_host_scan_refuses_grammar_and_spec_with_the_jax_message(
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError) as e:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(e.value))
     assert errors[0] == errors[1]
     assert errors[0].startswith(f"{feature} requires DEVICE_TERMINATION=true")
@@ -388,7 +393,7 @@ def test_batched_engine_serves_the_pipe_knobs(monkeypatch):
     monkeypatch.setenv("DEVICE_TERMINATION", "false")
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DECODE_BATCH_SIZE", "4")
-    eng = BatchedTorchEngine.from_config(ServiceConfig.from_env())
+    eng = BatchedTorchEngine.from_config(ServiceConfig.from_env(env_file=None))
     assert (eng.chunk_pipe_depth, eng.device_termination) == (2, False)
     stats = eng.stats()
     assert (stats["pipe_depth"], stats["device_termination"]) == (2, False)
@@ -413,7 +418,8 @@ def test_config_reads_the_containment_and_openai_knobs(monkeypatch, knob,
                                                        value, field):
     monkeypatch.setenv(knob, value)
     assert knob not in UNSERVED_KNOBS
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == getattr(theirs, field)
     assert str(getattr(ours, field)) in (value, f"{float(value)}"
                                          if value.isdigit() else value)
@@ -438,7 +444,8 @@ def test_config_reads_the_qos_knobs_as_the_jax_package(monkeypatch, knob,
                                                        value, field, want):
     monkeypatch.setenv(knob, value)
     assert knob not in UNSERVED_KNOBS
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == want == getattr(theirs, field)
     assert ours.tenant_tier_map == theirs.tenant_tier_map
     assert ours.lane_weight_map == theirs.lane_weight_map
@@ -480,12 +487,13 @@ def test_config_reads_the_telemetry_knobs_as_the_jax_package(
     """Each telemetry knob is read (no longer refused) into the field the
     JAX from_env fills, with the JAX default when unset."""
     assert knob not in UNSERVED_KNOBS
-    assert getattr(ServiceConfig.from_env(), field) == \
-        getattr(JaxServiceConfig.from_env(), field)
+    assert getattr(ServiceConfig.from_env(env_file=None), field) == \
+        getattr(JaxServiceConfig.from_env(env_file=None), field)
     if value == "BASELINES":
         value = _baselines_file(tmp_path)
     monkeypatch.setenv(knob, value)
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == getattr(theirs, field)
     assert getattr(ours, field) != getattr(ServiceConfig(), field)
 
@@ -517,7 +525,7 @@ def test_bad_telemetry_knobs_raise_the_jax_errors(monkeypatch, knob, value,
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError, match=message) as exc:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(exc.value))
     assert errors[0] == errors[1]
 
@@ -529,12 +537,13 @@ def test_config_reads_kv_quant_as_the_jax_package(monkeypatch, value):
     with the JAX engine's message."""
     monkeypatch.setenv("KV_QUANT", value)
     assert "KV_QUANT" not in UNSERVED_KNOBS
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert ours.kv_quant == theirs.kv_quant == value.lower()
     monkeypatch.setenv("KV_QUANT", "int4")
     with pytest.raises(ValueError,
                        match="KV_QUANT must be '' or 'int8', got 'int4'"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
 
 
 @pytest.mark.parametrize("engine", ["jax", "jax-batched"])
@@ -542,7 +551,7 @@ def test_config_refuses_the_jax_packages_engines_by_name(monkeypatch,
                                                          engine):
     monkeypatch.setenv("ENGINE", engine)
     with pytest.raises(ValueError, match=f"ENGINE={engine} "):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
 
 
 def test_config_serves_engine_fake(monkeypatch):
@@ -553,13 +562,14 @@ def test_config_serves_engine_fake(monkeypatch):
     from ai_agent_kubectl_tpu_torch.server.factory import build_engine
 
     monkeypatch.setenv("ENGINE", "fake")
-    cfg = ServiceConfig.from_env()
-    assert cfg.engine == JaxServiceConfig.from_env().engine == "fake"
+    cfg = ServiceConfig.from_env(env_file=None)
+    assert cfg.engine == "fake"
+    assert JaxServiceConfig.from_env(env_file=None).engine == "fake"
     assert not cfg.batched_engine
     assert isinstance(build_engine(cfg), FakeEngine)
     monkeypatch.setenv("FAULT_POINTS", "admit:error:1.0")
     with pytest.raises(ValueError, match="only wired into the continuous"):
-        build_engine(ServiceConfig.from_env())
+        build_engine(ServiceConfig.from_env(env_file=None))
 
 
 def test_config_serves_engine_openai(monkeypatch):
@@ -567,9 +577,10 @@ def test_config_serves_engine_openai(monkeypatch):
     with the JAX package's OpenAI knobs."""
     monkeypatch.setenv("ENGINE", "openai")
     monkeypatch.setenv("OPENAI_API_KEY", "sk-x")
-    cfg = ServiceConfig.from_env()
+    cfg = ServiceConfig.from_env(env_file=None)
     assert (cfg.engine, cfg.openai_api_key, cfg.openai_model) == (
-        "openai", "sk-x", JaxServiceConfig.from_env().openai_model)
+        "openai", "sk-x",
+        JaxServiceConfig.from_env(env_file=None).openai_model)
 
 
 def _knobs_read(module) -> set:
@@ -723,14 +734,15 @@ def test_config_reads_host_kv_blocks_with_the_jax_errors(monkeypatch, env,
     for knob, value in env.items():
         monkeypatch.setenv(knob, value)
     if error is None:
-        ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+        ours = ServiceConfig.from_env(env_file=None)
+        theirs = JaxServiceConfig.from_env(env_file=None)
         assert ours.host_kv_blocks == theirs.host_kv_blocks == int(
             env["HOST_KV_BLOCKS"])
         return
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError, match=error) as ei:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(ei.value))
     assert errors[0] == errors[1]
 
@@ -745,7 +757,7 @@ def test_config_refuses_host_kv_blocks_where_no_engine_serves_it(
                         ("OPENAI_API_KEY", "sk-x")):
         monkeypatch.setenv(knob, value)
     with pytest.raises(ValueError, match="continuous-batching engine only"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
 
 
 @pytest.mark.parametrize("spec", ["offload:fail", "onload:corrupt",

@@ -376,7 +376,7 @@ def test_engine_guards(monkeypatch):
         ServiceConfig(attn_impl="ring")
     monkeypatch.setenv("QUANT", "int4")
     monkeypatch.setenv("ATTN_IMPL", "flash")
-    cfg = ServiceConfig.from_env()
+    cfg = ServiceConfig.from_env(env_file=None)
     assert (cfg.quant, cfg.attn_impl) == ("int4", "flash")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device requested"):

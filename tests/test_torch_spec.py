@@ -575,7 +575,7 @@ def test_bad_spec_knobs_raise_the_jax_errors(monkeypatch, env):
     errors = []
     for cls in (ServiceConfig, JaxServiceConfig):
         with pytest.raises(ValueError) as ei:
-            cls.from_env()
+            cls.from_env(env_file=None)
         errors.append(str(ei.value))
     assert errors[0] == errors[1]
 
@@ -593,11 +593,12 @@ SPEC_KNOBS = [
 @pytest.mark.parametrize("knob,value,field,want", SPEC_KNOBS)
 def test_config_reads_the_spec_knobs_as_the_jax_package(
         monkeypatch, knob, value, field, want):
-    assert getattr(ServiceConfig.from_env(), field) == \
-        getattr(JaxServiceConfig.from_env(), field)
+    assert getattr(ServiceConfig.from_env(env_file=None), field) == \
+        getattr(JaxServiceConfig.from_env(env_file=None), field)
     monkeypatch.setenv("SPEC_DRAFT_MODEL", "toy-8m")
     monkeypatch.setenv(knob, value)
-    ours, theirs = ServiceConfig.from_env(), JaxServiceConfig.from_env()
+    ours = ServiceConfig.from_env(env_file=None)
+    theirs = JaxServiceConfig.from_env(env_file=None)
     assert getattr(ours, field) == want == getattr(theirs, field)
 
 
@@ -611,11 +612,11 @@ def test_spec_refused_where_no_engine_would_run_it(monkeypatch, env):
     it refuses to boot; the batched pool engine boots."""
     monkeypatch.setenv("SPEC_DRAFT_MODEL", "toy-8m")
     monkeypatch.setenv("SPEC_DECODE", "true")
-    assert ServiceConfig.from_env().spec_decode
+    assert ServiceConfig.from_env(env_file=None).spec_decode
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match="SPEC_DECODE=true"):
-        ServiceConfig.from_env()
+        ServiceConfig.from_env(env_file=None)
 
 
 def test_engine_constructor_validates_the_spec_knobs():

@@ -733,8 +733,8 @@ def test_non_model_axes_are_refused_at_boot_naming_a8(monkeypatch, spec,
     and ``tests/test_torch_pp.py``."""
     monkeypatch.setenv("MESH_SHAPE", spec)
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
-    assert ServiceConfig.from_env().mesh_shape == spec
-    assert JaxServiceConfig.from_env().mesh_shape == spec
+    assert ServiceConfig.from_env(env_file=None).mesh_shape == spec
+    assert JaxServiceConfig.from_env(env_file=None).mesh_shape == spec
     cfg = pmesh.MeshConfig.parse(spec)
     mesh = pmesh.build_mesh(cfg, ["cpu"] * cfg.n_devices)
     assert mesh.shape[axis] == 2 and mesh.size == cfg.n_devices
@@ -755,15 +755,15 @@ def test_spec_decode_and_moe_on_a_mesh_are_refused(monkeypatch):
     ``tests/test_torch_spec_tp.py`` and ``test_torch_mesh_serving.py``)."""
     monkeypatch.setenv("MESH_SHAPE", "tp=2")
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
-    assert ServiceConfig.from_env().mesh_shape == "tp=2"
-    assert JaxServiceConfig.from_env().mesh_shape == "tp=2"
+    assert ServiceConfig.from_env(env_file=None).mesh_shape == "tp=2"
+    assert JaxServiceConfig.from_env(env_file=None).mesh_shape == "tp=2"
     monkeypatch.setenv("SPEC_DECODE", "true")
     monkeypatch.setenv("SPEC_DRAFT_MODEL", "toy-8m")
-    assert ServiceConfig.from_env().spec_decode
-    assert JaxServiceConfig.from_env().spec_decode
+    assert ServiceConfig.from_env(env_file=None).spec_decode
+    assert JaxServiceConfig.from_env(env_file=None).spec_decode
     monkeypatch.delenv("SPEC_DECODE")
     monkeypatch.setenv("MODEL_NAME", "toy-moe")
-    assert ServiceConfig.from_env().model_name == "toy-moe"
+    assert ServiceConfig.from_env(env_file=None).model_name == "toy-moe"
     eng = TorchEngine(get_config("toy-moe"), tokenizer=ByteTokenizer(),
                       device="cpu", mesh_shape="tp=2", devices=CPU2)
     eng._setup_mesh()
@@ -794,6 +794,7 @@ def test_too_many_devices_fails_fast_as_the_jax_engine(monkeypatch):
     assert str(ours.value) == str(theirs.value)
     monkeypatch.setenv("MESH_SHAPE", "tp=2")
     monkeypatch.setenv("TORCH_DEVICE", "cpu")
-    env_eng = BatchedTorchEngine.from_config(ServiceConfig.from_env())
+    env_eng = BatchedTorchEngine.from_config(
+        ServiceConfig.from_env(env_file=None))
     with pytest.raises(ValueError, match="wants 2 devices; only 1 present"):
         env_eng._setup_mesh()
