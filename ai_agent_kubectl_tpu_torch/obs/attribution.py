@@ -102,7 +102,7 @@ _KERNEL_RULES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("attention", ("ragged_mma_kernel", "ragged_combine_kernel",
                    "paged_decode_kernel", "paged_combine_kernel",
                    "flash_mma_kernel", "flash_combine_kernel")),
-    ("weight_gemms", ("int4_mma_kernel", "int4_reduce_kernel")),
+    ("weight_gemms", ("int4_wgmma_kernel",)),
     ("weight_gemms", ("gemm", "gemv", "matmul", "nvjet", "cutlass",
                       "xmma", "cublas", "splitkreduce", "dot_kernel")),
     ("data_movement", ("memcpy", "memset", "copy", "convert", "cast",

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -39,10 +40,13 @@ import torch
 GROUP_IN = 512
 BLOCK_OUT = 512
 
-#: the kernel's small-T path (the GEMV tiling: 256 output columns by 8
-#: tokens a block) serves up to this many rows; more rows take its tiled
-#: path (128 output columns by 64 tokens a block). Both run on the tensor
-#: cores; the source note of ``csrc/int4_matmul.cu`` gives the design.
+#: up to this many rows the kernel runs as a GEMV: 8 token columns a
+#: block (wgmma m64n8k16), one consumer warpgroup unpacking two byte
+#: columns a thread, three blocks an SM. More rows take token tiles of
+#: round_up(T, 8) up to 64 and of 128 above, two consumer warpgroups a
+#: block. A small grid cuts the contraction across a thread-block
+#: cluster. One launch either way; the source note of
+#: ``csrc/int4_matmul.cu`` gives the design.
 SKINNY_MAX_T = 8
 
 
@@ -175,24 +179,62 @@ def qmatmul4_plain(x: torch.Tensor, w: QuantInt4) -> torch.Tensor:
     return (partial * w.scale).sum(dim=-2).to(x.dtype)
 
 
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built on first use, its C functions typed
+    once."""
+    global _LIB
+    if _LIB is None:
+        from ._cuda import load
+
+        lib = load("int4_matmul")
+        lib.int4_matmul_plan.argtypes = [ctypes.c_int] * 4
+        lib.int4_matmul_plan.restype = ctypes.c_int
+        lib.int4_matmul_bf16.argtypes = ([ctypes.c_void_p] * 4
+                                         + [ctypes.c_int] * 6
+                                         + [ctypes.c_void_p])
+        lib.int4_matmul_bf16.restype = ctypes.c_int
+        lib.int4_matmul_geometry.argtypes = ([ctypes.c_int] * 4
+                                             + [ctypes.c_void_p] * 3)
+        lib.int4_matmul_geometry.restype = ctypes.c_int
+        lib.int4_matmul_error_string.argtypes = [ctypes.c_int]
+        lib.int4_matmul_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+@functools.lru_cache(maxsize=None)
 def split_plan(T: int, IN: int, OUT: int, group_in: int) -> int:
     """How many slices of whole scale groups the kernel cuts the
-    contraction into for these shapes (1: none): the kernel's own rule
-    (``int4_matmul_plan`` in ``csrc/int4_matmul.cu``; it splits when the
-    grid of output tiles x token tiles is under one block per SM, aiming
-    for two), read from its library, so it builds the kernel first. A
-    split call's f32 workspace is [splits, T, OUT]; the source note
-    bounds it (12.9 MB for T > 8, 3.2 MB below)."""
-    from ._cuda import load
-
-    fn = load("int4_matmul").int4_matmul_plan
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
-    splits = fn(T, IN, OUT, group_in)
+    contraction into for these shapes (1: none), which is the size of
+    the thread-block cluster that sums them: the kernel's own rule
+    (``int4_matmul_plan`` in ``csrc/int4_matmul.cu``; it splits only a
+    grid under half a wave of resident blocks, into at most one wave, at
+    most 16 slices and only as many clusters as the current device holds
+    at once), read from its library, so it builds the kernel first. Kept
+    per shape: a call reads it from here."""
+    splits = _lib().int4_matmul_plan(T, IN, OUT, group_in)
     if splits <= 0:
         raise ValueError(f"the kernel takes no plan for T={T}, "
                          f"[{IN}, {OUT}], group_in={group_in}")
     return splits
+
+
+def kernel_geometry(T: int, IN: int, OUT: int, group_in: int) -> tuple:
+    """``(bn, splits, (grid_x, grid_y))`` of the kernel's launch for these
+    shapes, from its library (``int4_matmul_geometry``): the token tile,
+    the cluster size and the grid (token tiles x cluster ranks, output
+    tiles)."""
+    bn, gx, gy = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    splits = _lib().int4_matmul_geometry(
+        T, IN, OUT, group_in, ctypes.addressof(bn), ctypes.addressof(gx),
+        ctypes.addressof(gy))
+    if splits <= 0:
+        raise ValueError(f"the kernel takes no plan for T={T}, "
+                         f"[{IN}, {OUT}], group_in={group_in}")
+    return bn.value, splits, (gx.value, gy.value)
 
 
 def _check_cuda_args(x2: torch.Tensor, w: QuantInt4) -> None:
@@ -220,15 +262,23 @@ def _check_cuda_args(x2: torch.Tensor, w: QuantInt4) -> None:
     if tuple(w.scale.shape) != (IN // w.group_in, OUT):
         raise ValueError(f"scale must be [{IN // w.group_in}, {OUT}], got "
                          f"{tuple(w.scale.shape)}")
+    # The kernel reads x and q through TMA: 16-byte aligned bases and row
+    # strides that are multiples of 16 bytes.
     if x2.data_ptr() % 16 or w.q.data_ptr() % 16 or w.scale.data_ptr() % 16:
         raise ValueError("x, q and scale must be 16-byte aligned")
+    if (x2.stride(0) * x2.element_size()) % 16 or w.q.stride(0) % 16:
+        raise ValueError(f"the rows of x ({x2.stride(0)} values) and q "
+                         f"({w.q.stride(0)} bytes) must be multiples of 16 "
+                         f"bytes apart")
 
 
 def qmatmul4(x: torch.Tensor, w: QuantInt4) -> torch.Tensor:
     """``x @ w`` for a packed int4 weight; x [..., IN], any leading dims.
     CPU tensors take the plain version; CUDA tensors launch the Hopper
     kernel (bf16 x, a 2-D contiguous layer slice of the payload, a
-    tileable format) and raise on anything else."""
+    tileable format, 16-byte aligned rows for its TMA copies) and raise
+    on anything else: one launch, whose contraction split (a cluster's
+    size, kept per shape) the kernel's own plan gives; no workspace."""
     if x.device.type == "cpu":
         return qmatmul4_plain(x, w)
     if x.device.type != "cuda":
@@ -241,26 +291,18 @@ def qmatmul4(x: torch.Tensor, w: QuantInt4) -> torch.Tensor:
     if not x2.is_contiguous():
         x2 = x2.contiguous()
     _check_cuda_args(x2, w)
-    from ._cuda import load
-
-    lib = load("int4_matmul")
-    fn = lib.int4_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     OUT = w.q.shape[1] * 2
-    splits = split_plan(T, IN, OUT, w.group_in)
+    lib = _lib()
     out = torch.empty((T, OUT), dtype=x.dtype, device=x.device)
-    work = (torch.empty((splits, T, OUT), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
     with torch.cuda.device(x.device):
+        # The plan asks the current device how many clusters fit at once.
+        splits = split_plan(T, IN, OUT, w.group_in)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
-                 out.data_ptr(), 0 if work is None else work.data_ptr(),
-                 T, IN, OUT, w.group_in, w.block_out, splits, stream)
+        err = lib.int4_matmul_bf16(
+            x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
+            out.data_ptr(), T, IN, OUT, w.group_in, w.block_out, splits,
+            stream)
     if err != 0:
-        lib.int4_matmul_error_string.restype = ctypes.c_char_p
-        lib.int4_matmul_error_string.argtypes = [ctypes.c_int]
         msg = lib.int4_matmul_error_string(err).decode()
         raise RuntimeError(f"int4 matmul kernel launch failed: {msg} "
                            f"(cudaError {err})")

@@ -50,9 +50,14 @@ KVQ_LAYERS), so that the whole script stays well inside its 1,200 s:
                  and 256, once with its last row padding, Gemma-2B's at
                  B = 4); each case's key split is printed and checked;
                * the int4 matmul on Gemma-7B's four projection shapes at
-                 T in {1, 8, 9, 16, 64, 65, 85, 512, 600}, formats
-                 512/512, 256/256 and 128/256 (the GEMV, the tiled path,
-                 with and without the contraction split), and on
+                 T in {1, 8, 9, 16, 40, 48, 64, 65, 85, 127, 128, 129,
+                 256, 512, 600, 1024}, formats 512/512, 256/256 and
+                 128/256 (the GEMV, token tiles of round_up(T, 8) up to 64
+                 and of 128 at their edges, with and without the
+                 contraction split across a thread-block cluster), at
+                 every cluster size the plan gives at serve1's and
+                 serve_kvq's shapes and at the cluster limit of 16, each
+                 call one launch and a repeat byte-identical, and on
                  Mixtral's wq (4096x4096) and wk (4096x1024) at T in {1,
                  8, 64, 512, 4096} and its head (4096x32000, 512/256) at
                  T in {1, 8}, and on Llama-3-8B's w_gate (4096x14336),
@@ -1191,12 +1196,14 @@ def flash_sdpa_inputs(torch, case):
 
 # ------------------------------------------------------------ int4 matmul
 
-# Phase 2's int4 rows: both sides of the GEMV/tiled switch at 8, one and
-# two token tiles of 64 (with and without the contraction split, which
-# the tiled path takes at wq, wo and w_down up to T=128), serve1's
-# prefill buckets, a chunk past 512, and serve_spec's rows: its verify
-# forward (8 x (k + 1)) and its ragged prologues (8 x W).
-INT4_TS = tuple(sorted({1, 8, 9, 16, 64, 65, 85, 512, 600, SPEC_VERIFY_ROWS,
+# Phase 2's int4 rows: both sides of the GEMV/tiled switch at 8, token
+# tiles of round_up(T, 8) (T = 40, 48: no power of two) up to 64 and of
+# 128 above (127, 128, 129 and 256 at its edges; 65 and 85 partly empty),
+# with and without the contraction split (a thread-block cluster),
+# serve1's prefill buckets, a chunk past 512, and serve_spec's rows: its
+# verify forward (8 x (k + 1)) and its ragged prologues (8 x W).
+INT4_TS = tuple(sorted({1, 8, 9, 16, 48, 64, 65, 85, 127, 128, 129, 256, 512,
+                        600, SPEC_VERIFY_ROWS,
                         *(N_SLOTS * w for w in G7_PROLOGUE_WIDTHS)}))
 INT4_FORMATS = ((512, 512), (256, 256), (128, 256))
 
@@ -1215,6 +1222,32 @@ def int4_case(torch, gen, *, T, IN, OUT, fmt, device="cuda"):
     x = torch.randn((T, IN), generator=gen, device=device).to(
         torch.bfloat16)
     return x, QuantInt4(q=q, scale=scale, group_in=gi, block_out=bo)
+
+
+# The projections (IN, OUT) that serve1 (Gemma-7B) and serve_kvq
+# (Llama-3-8B, whose wq and wo are Mixtral's 4096x4096) run through the int4
+# kernel, and the most rows a call there takes (8 slots x a 512 window).
+INT4_PHASE_PROJ = {"serve1": tuple(G7_PROJ.values()),
+                   "serve_kvq": (*LLAMA_PROJ.values(), (4096, 4096))}
+INT4_PHASE_MAX_T = 8 * 512
+
+
+def int4_cluster_cases() -> list:
+    """(phase, IN, OUT, T, splits): for each of serve1's and serve_kvq's
+    projections at pick_format's format, the first T that gives each
+    cluster size the plan takes there (T up to INT4_PHASE_MAX_T)."""
+    from ai_agent_kubectl_tpu_torch.ops.quant4 import pick_format, split_plan
+
+    out = []
+    for phase, shapes in INT4_PHASE_PROJ.items():
+        for IN, OUT in shapes:
+            seen = set()
+            for T in range(1, INT4_PHASE_MAX_T + 1):
+                splits = split_plan(T, IN, OUT, pick_format(IN, OUT)[0])
+                if splits not in seen:
+                    seen.add(splits)
+                    out.append((phase, IN, OUT, T, splits))
+    return out
 
 
 def int4_cases(torch, gen):
@@ -1238,6 +1271,15 @@ def int4_cases(torch, gen):
         for T in LLAMA_TS:
             x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
             out.append((f"llama_{name}_T{T}_{fmt[0]}/{fmt[1]}", x, w))
+    # Every cluster size at serve1's and serve_kvq's shapes (the first T
+    # giving it), and a plan at the cluster limit of 16: Llama's wk at T =
+    # 40 and 128/256 (32 groups over 8 output tiles).
+    for phase, IN, OUT, T, splits in int4_cluster_cases():
+        fmt = pick_format(IN, OUT)
+        x, w = int4_case(torch, gen, T=T, IN=IN, OUT=OUT, fmt=fmt)
+        out.append((f"{phase}_{IN}x{OUT}_T{T}_cluster{splits}", x, w))
+    x, w = int4_case(torch, gen, T=40, IN=4096, OUT=1024, fmt=(128, 256))
+    out.append(("llama_wk_T40_128/256_cluster_limit", x, w))
     return out
 
 
@@ -1815,33 +1857,41 @@ def _kernel_flash(torch, gen) -> dict:
 
 def _kernel_int4(torch, gen) -> dict:
     from ai_agent_kubectl_tpu_torch.ops.quant4 import (
-        SKINNY_MAX_T, qmatmul4, qmatmul4_plain, split_plan)
+        SKINNY_MAX_T, kernel_geometry, qmatmul4, qmatmul4_plain)
 
     worst = 0.0
     n = 0
-    split_tiled = 0
-    before = qmatmul4.launches
+    clusters = {}         # cluster size -> cases
     for label, x, w in int4_cases(torch, gen):
         T, IN = x.shape
-        splits = split_plan(T, IN, w.q.shape[1] * 2, w.group_in)
-        split_tiled += T > SKINNY_MAX_T and splits > 1
+        OUT = w.q.shape[1] * 2
+        bn, splits, grid = kernel_geometry(T, IN, OUT, w.group_in)
+        before = qmatmul4.launches
         out = qmatmul4(x, w)
+        if qmatmul4.launches != before + 1:
+            raise AssertionError(f"int4 [{label}]: the launch counter grew "
+                                 f"by {qmatmul4.launches - before}, not 1")
+        again = qmatmul4(x, w)
         ref = qmatmul4_plain(x, w)
         err = check_close(torch, f"int4 [{label}]", out, ref)
-        log(f"[kernel] int4 {label}: max |kernel - plain| = {err:.3e} "
-            f"(max |plain| {float(ref.float().abs().max()):.3f}; "
-            f"{splits} slice(s))")
+        if not torch.equal(out, again):
+            raise AssertionError(f"int4 [{label}]: a repeat is not "
+                                 f"byte-identical")
+        path = "gemv" if T <= SKINNY_MAX_T else "tiled"
+        log(f"[kernel] int4 {label}: {path}, BN {bn}, cluster {splits}, "
+            f"grid {grid}; max |kernel - plain| = {err:.3e} (max |plain| "
+            f"{float(ref.float().abs().max()):.3f}); repeat identical")
+        clusters.setdefault(splits, 0)
+        clusters[splits] += 1
         worst = max(worst, err)
-        n += 1
-    grew = qmatmul4.launches - before
-    if grew != n:
-        raise AssertionError(f"int4 launch counter grew by {grew}, "
-                             f"expected {n}")
-    if not split_tiled:
-        raise AssertionError("no int4 case took the tiled path's "
-                             "contraction split")
-    return {"max_abs_err": worst, "cases": n,
-            "split_tiled_cases": split_tiled}
+        n += 2
+    wanted = {c[-1] for c in int4_cluster_cases()} | {16}
+    if not wanted <= set(clusters):
+        raise AssertionError(f"int4: cluster sizes {sorted(wanted)} wanted, "
+                             f"{sorted(clusters)} checked")
+    return {"max_abs_err": worst, "calls": n,
+            "cases_by_cluster_size": {str(k): v for k, v in
+                                      sorted(clusters.items())}}
 
 
 QUERIES = [
@@ -5931,7 +5981,7 @@ def _attribute_7b_int4(torch) -> dict:
         if art["span_source"] != "cuda_device":
             raise AssertionError(f"(b) span_source {art['span_source']}")
         int4 = _check_billing(_spans_by_category(trace_dir),
-                              r"int4_(mma|reduce)_kernel", {"weight_gemms"},
+                              r"int4_wgmma_kernel", {"weight_gemms"},
                               "int4 kernel")
     finally:
         import shutil

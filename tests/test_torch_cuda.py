@@ -127,15 +127,18 @@ def test_paged_kernels_match_plain(card, geometry):
 
 
 @pytest.mark.parametrize("T,OUT", [(1, 4096), (8, 4096), (9, 4096),
-                                   (64, 4096), (64, 24576), (600, 4096)],
+                                   (64, 4096), (64, 24576), (600, 4096),
+                                   (40, 4096), (129, 4096)],
                          ids=["gemv_T1", "gemv_T8", "tiled_T9_split",
                               "tiled_T64_split", "tiled_T64_whole",
-                              "tiled_T600_whole"])
+                              "tiled_T600_whole", "tiled_T40_split",
+                              "tiled_T129_split"])
 def test_int4_kernel_paths_match_plain(card, T, OUT):
-    """The GEMV and the tiled path at Gemma-7B widths, with and without
-    the contraction split (wq's 32 output tiles split at T <= 128,
-    w_gate's 192 do not), random packed bytes (every nibble, -8 too);
-    a repeat is byte-identical (the slices sum in a fixed order)."""
+    """The GEMV and the tiled path at Gemma-7B widths (token tiles of 40
+    and of 128 with a second, partly empty one at 129), with and without
+    the contraction split across a cluster (wq's output tiles split up to
+    T = 256, w_gate's 192 do not), random packed bytes (every nibble, -8
+    too); a repeat is byte-identical (the slices sum in rank order)."""
     IN = 3072
     gen = torch.Generator(device=card).manual_seed(T + OUT)
     q = torch.randint(-128, 128, (IN, OUT // 2), generator=gen,
@@ -145,7 +148,7 @@ def test_int4_kernel_paths_match_plain(card, T, OUT):
     w = tq4.QuantInt4(q=q, scale=scale)
     x = torch.randn((T, IN), generator=gen, device=card).to(torch.bfloat16)
     splits = tq4.split_plan(T, IN, OUT, 512)
-    assert (splits > 1) == (OUT == 4096 and T <= 128)
+    assert (splits > 1) == (OUT == 4096 and T <= 256)
     before = tq4.qmatmul4.launches
     out = tq4.qmatmul4(x, w)
     _close(out, tq4.qmatmul4_plain(x, w))
@@ -220,38 +223,45 @@ _SERVE1_TS = [1, 8, 9, 64, 65, 91, 128, 256, 512, 600]
 
 
 def test_int4_split_plan(card):
-    """The kernel's contraction split: whole groups a slice and none
-    empty, only grids under one block per SM (132) split, and the f32
-    workspace [splits, T, OUT] under the bound its source states (12.9
-    MB for T > 8, 3.2 MB below) at every shape serve1 runs and beyond."""
-    worst = 0
+    """The kernel's contraction split, the size of the cluster that sums
+    it: whole groups a slice and none empty, at most 16 slices (the
+    cluster limit; 12 for the GEMV, 8 at token tiles of 128), only grids
+    under half a wave of resident blocks split (three blocks an SM for the
+    GEMV, two below token tiles of 128, one at 128), and into at most one
+    wave. No workspace: the cluster's partial rows stay in shared
+    memory."""
     for IN, OUT in _SERVE1_PROJ + [(512, 512), (8192, 1024)]:
-        for T in _SERVE1_TS + [2, 17, 127, 129]:
+        for T in _SERVE1_TS + [2, 17, 40, 127, 129]:
             for group_in in (128, 256, 512):
                 if IN % group_in:
                     continue
                 G = IN // group_in
                 splits = tq4.split_plan(T, IN, OUT, group_in)
+                bn, got, (gx, gy) = tq4.kernel_geometry(T, IN, OUT, group_in)
+                assert got == splits
                 per = -(-G // splits)
                 assert 1 <= splits <= G and (splits - 1) * per < G
-                tiles = (OUT // 256 if T <= tq4.SKINNY_MAX_T
-                         else OUT // 128 * -(-T // 64))
-                assert splits == 1 or tiles < 132
-                ws = 4 * splits * T * OUT if splits > 1 else 0
-                assert ws < (4 * 396 * 256 * 8 if T <= tq4.SKINNY_MAX_T
-                             else 4 * 396 * 128 * 64)
-                if ((IN, OUT) in _SERVE1_PROJ and group_in == 512
-                        and T in _SERVE1_TS):
-                    worst = max(worst, ws)
-    # Decode cuts w_gate's contraction in 3 and w_down's in 16; serve1's
-    # prefix-hit bucket splits wq (32 output tiles) in 6, w_down in 10,
-    # and leaves w_gate (192 tiles) whole; its largest workspace is wq's
-    # at T=256, 3 slices of [256, 4096].
+                wide = T > 64
+                assert splits <= (8 if wide else 12 if T <= tq4.SKINNY_MAX_T
+                                  else 16)
+                assert bn == (128 if wide else max(8, -(-T // 8) * 8))
+                tiles = OUT // 128 * -(-T // bn)
+                assert gx * gy == tiles * splits
+                slots = 132 * (1 if wide else 3 if T <= tq4.SKINNY_MAX_T
+                               else 2)
+                assert splits == 1 or (2 * tiles <= slots and
+                                       gx * gy <= slots)
+    # On an H100 SXM: decode cuts w_gate's contraction in 2 and w_down's
+    # in 12 (the GEMV's cluster limit); serve1's prefill bucket of 64
+    # splits wq (32 output tiles) in 6 and w_down in 8 (its 24 clusters of
+    # 10 would not all fit at once), and leaves w_gate (192 tiles) whole,
+    # as it leaves wq at 512 (128 tiles of 128 x 128); Llama's wk at T = 40
+    # and 128/256 takes the limit of 16.
     assert [tq4.split_plan(*a, 512) for a in (
         (1, 3072, 24576), (1, 24576, 3072), (64, 3072, 4096),
         (64, 24576, 3072), (64, 3072, 24576), (512, 3072, 4096))] == [
-            3, 16, 6, 10, 1, 1]
-    assert worst == 3 * 256 * 4096 * 4
+            2, 12, 6, 8, 1, 1]
+    assert tq4.split_plan(40, 4096, 1024, 128) == 16
     with pytest.raises(ValueError, match="no plan"):
         tq4.split_plan(1, 3000, 4096, 512)
 
@@ -273,13 +283,12 @@ def test_int4_launch_refuses_another_plan(card, T, IN, OUT, splits):
     q = torch.zeros((IN, OUT // 2), dtype=torch.int8, device=card)
     scale = torch.zeros((IN // 512, OUT), device=card)
     out = torch.empty((T, OUT), dtype=torch.bfloat16, device=card)
-    work = torch.empty((max(splits, 1), T, OUT), device=card)
     fn = load("int4_matmul").int4_matmul_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             work.data_ptr(), T, IN, OUT, 512, 512, splits,
+             T, IN, OUT, 512, 512, splits,
              torch.cuda.current_stream().cuda_stream)
     assert err == 1                       # cudaErrorInvalidValue
 

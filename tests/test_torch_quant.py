@@ -112,14 +112,22 @@ def test_plain_matches_pallas_interpret(T, IN, OUT, fmt):
     np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
-# The kernel's path edges (T 8 | 9: the GEMV and the tiled path; 64 | 65:
-# one token tile and two) at the format with the most groups a row.
+# The kernel's path edges (T 8 | 9: the GEMV and the tiled path; 40, 48:
+# token tiles of round_up(T, 8), no power of two; 64 | 65 and 128 | 129:
+# the token tile of 128 and its second tile) at the format with the most
+# groups a row and at 512/512.
 @pytest.mark.parametrize("T,IN,OUT,fmt", [
     (8, 256, 768, (128, 256)), (9, 256, 768, (128, 256)),
     (65, 256, 768, (128, 256)), (9, 512, 1024, (512, 512)),
-    (65, 512, 1024, (512, 512))],
+    (65, 512, 1024, (512, 512)),
+    (40, 512, 1024, (512, 512)), (48, 512, 1024, (512, 512)),
+    (128, 512, 1024, (512, 512)), (129, 512, 1024, (512, 512)),
+    (40, 256, 768, (128, 256)), (48, 256, 768, (128, 256)),
+    (128, 256, 768, (128, 256)), (129, 256, 768, (128, 256))],
     ids=["128x256_T8", "128x256_T9", "128x256_T65", "512x512_T9",
-         "512x512_T65"])
+         "512x512_T65", "512x512_T40", "512x512_T48", "512x512_T128",
+         "512x512_T129", "128x256_T40", "128x256_T48", "128x256_T128",
+         "128x256_T129"])
 def test_plain_matches_pallas_interpret_at_path_edges(T, IN, OUT, fmt):
     w = _w((IN, OUT), 5)
     x = _w((T, IN), 6)
