@@ -3,8 +3,8 @@
 // split rule, 16-byte cp.async with zero-fill, ldmatrix, the bf16
 // tensor-core product (mma.sync.m16n8k16, f32 accumulate), bf16 packing,
 // reductions over the four lanes that hold one fragment row, one warp's
-// FlashAttention-2 step over a K/V stage in shared memory, and the merge of
-// a row's key splits.
+// FlashAttention-2 step over a K/V stage in shared memory (its rows padded,
+// or in TMA's 128-byte swizzle), and the merge of a row's key splits.
 //
 // Fragment layout of mma.sync.m16n8k16 (PTX ISA): lane = 4 * g + c holds
 // rows g and g + 8 of the 16-row tile, and columns 2c, 2c + 1 of each 8-wide
@@ -100,16 +100,41 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Where element (row, col) of a K or V tile in shared memory lies, col a
+// multiple of 8 (one 16-byte piece, the unit of ldmatrix). PaddedRows: rows
+// of STRIDE bf16 (a stride of HD + 8 keeps ldmatrix free of bank
+// conflicts). Swizzle128<ROWS>: the layout a TMA load in the 128-byte swizzle
+// leaves, a tile of ROWS rows (a multiple of 8, from a 1024-byte aligned
+// base) stored as HD / 64 column blocks [ROWS][64], where the 16-byte piece
+// j of row r lies at piece j ^ (r & 7) of its 128-byte line. `base` may be
+// any multiple of 8 rows into the tile.
+template <int STRIDE>
+struct PaddedRows {
+  static __device__ __forceinline__ const __nv_bfloat16* at(const __nv_bfloat16* base, int row,
+                                                            int col) {
+    return base + row * STRIDE + col;
+  }
+};
+
+template <int ROWS>
+struct Swizzle128 {
+  static __device__ __forceinline__ const __nv_bfloat16* at(const __nv_bfloat16* base, int row,
+                                                            int col) {
+    return base + (col >> 6) * (ROWS * 64) + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3);
+  }
+};
+
 // One warp's FlashAttention-2 step over NK keys (a multiple of 16) held in
 // shared memory: S = Q K^T for the warp's 16 query rows (sQw: row 0 of them,
-// row stride STRIDE bf16, as are cK and cV), then the online softmax and
+// row stride STRIDE bf16; cK and cV laid out as KVT says, by default the
+// same padded rows), then the online softmax and
 // O += P V, with P rounded to bf16 for the product while the sum l takes the
 // unrounded P. Key kb + j is cK's row j. `masked`: keys past a row's limit
 // (lim_a for row g, lim_b for row g + 8; -1 sees none) get probability 0;
 // a caller passes false only when every key of the step is within every
 // limit. softcap > 0 applies tanh(s * scale / softcap) * softcap before the
 // mask. The running max and sums are in the log2 domain.
-template <int HD, int NK, int STRIDE>
+template <int HD, int NK, int STRIDE, class KVT = PaddedRows<STRIDE>>
 __device__ __forceinline__ void mma_attend_step(const __nv_bfloat16* sQw,
                                                 const __nv_bfloat16* cK,
                                                 const __nv_bfloat16* cV, int kb, int lim_a,
@@ -134,8 +159,8 @@ __device__ __forceinline__ void mma_attend_step(const __nv_bfloat16* sQw,
 #pragma unroll
     for (int nt = 0; nt < NT; nt += 2) {
       uint32_t b[4];
-      ldmatrix_x4(b, cK + ((nt + (lane >> 4)) * 8 + (lane & 7)) * STRIDE + ks * 16 +
-                         ((lane >> 3) & 1) * 8);
+      ldmatrix_x4(b, KVT::at(cK, (nt + (lane >> 4)) * 8 + (lane & 7),
+                             ks * 16 + ((lane >> 3) & 1) * 8));
       mma_bf16(s[nt], a[0], a[1], a[2], a[3], b[0], b[1]);
       mma_bf16(s[nt + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
     }
@@ -197,8 +222,8 @@ __device__ __forceinline__ void mma_attend_step(const __nv_bfloat16* sQw,
 #pragma unroll
     for (int dt = 0; dt < HD / 8; dt += 2) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STRIDE +
-                               (dt + (lane >> 4)) * 8);
+      ldmatrix_x4_trans(b, KVT::at(cV, kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                   (dt + (lane >> 4)) * 8));
       mma_bf16(o[dt], a0, a1, a2, a3, b[0], b[1]);
       mma_bf16(o[dt + 1], a0, a1, a2, a3, b[2], b[3]);
     }
@@ -210,9 +235,14 @@ __device__ __forceinline__ void mma_attend_step(const __nv_bfloat16* sQw,
 // the row's running max (log2 domain) and sum at ws_ml[s * rows_total + row]
 // and its unnormalised accumulator at ws_o[(s * rows_total + row) * HD]. One
 // warp per row, HD / 32 columns a lane, one pass: each split rescales the
-// running merge to the larger max, as the online softmax does, so no load
-// waits on another split's. A row no split saw (live 0, or every max -inf)
-// writes exact zeros.
+// running merge to the larger max, as the online softmax does. The loads of
+// up to kCombineBatch splits are issued together before any is used, so a
+// row costs one round trip per batch, not one per split. A row no split saw
+// (live 0, or every max -inf) writes exact zeros. The partials are read
+// through L2 only (ld.global.cg): other blocks of the same launch may have
+// written them.
+constexpr int kCombineBatch = 4;
+
 template <int HD>
 __device__ __forceinline__ void combine_row(const float* __restrict__ ws_o,
                                             const float* __restrict__ ws_ml, size_t row,
@@ -224,21 +254,33 @@ __device__ __forceinline__ void combine_row(const float* __restrict__ ws_o,
   float num[HD / 32];
 #pragma unroll
   for (int i = 0; i < HD / 32; ++i) num[i] = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < live; ++s) {
-    const float2 p = ml[s * rows_total + row];
-    const float* o = ws_o + (s * rows_total + row) * HD;
-    float v[HD / 32];
+  for (int s0 = 0; s0 < live; s0 += kCombineBatch) {
+    float2 p[kCombineBatch];
+    float v[kCombineBatch][HD / 32];
 #pragma unroll
-    for (int i = 0; i < HD / 32; ++i) v[i] = o[lane + 32 * i];
-    const float mn = fmaxf(m, p.x);
-    if (mn == -INFINITY) continue;  // nothing seen yet
-    const float a = m == -INFINITY ? 0.f : exp2f(m - mn);
-    const float w = p.x == -INFINITY ? 0.f : exp2f(p.x - mn);
-    den = den * a + w * p.y;
+    for (int b = 0; b < kCombineBatch; ++b) {
+      p[b] = make_float2(-INFINITY, 0.f);
 #pragma unroll
-    for (int i = 0; i < HD / 32; ++i) num[i] = num[i] * a + w * v[i];
-    m = mn;
+      for (int i = 0; i < HD / 32; ++i) v[b][i] = 0.f;
+      if (s0 + b < live) {
+        const size_t r = (s0 + b) * rows_total + row;
+        p[b] = __ldcg(ml + r);
+#pragma unroll
+        for (int i = 0; i < HD / 32; ++i) v[b][i] = __ldcg(ws_o + r * HD + lane + 32 * i);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kCombineBatch; ++b) {
+      const float mn = fmaxf(m, p[b].x);
+      if (s0 + b < live && mn != -INFINITY) {  // else past the row's splits, or nothing seen yet
+        const float a = m == -INFINITY ? 0.f : exp2f(m - mn);
+        const float w = p[b].x == -INFINITY ? 0.f : exp2f(p[b].x - mn);
+        den = den * a + w * p[b].y;
+#pragma unroll
+        for (int i = 0; i < HD / 32; ++i) num[i] = num[i] * a + w * v[b][i];
+        m = mn;
+      }
+    }
   }
   const float inv = den != 0.f ? 1.f / den : 0.f;
 #pragma unroll

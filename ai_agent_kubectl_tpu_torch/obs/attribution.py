@@ -100,7 +100,7 @@ _SCOPE_RULES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 #: the flash kernels by the attention scope rule's own keywords.)
 _KERNEL_RULES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("attention", ("ragged_mma_kernel", "ragged_combine_kernel",
-                   "paged_decode_kernel", "paged_combine_kernel",
+                   "paged_decode_kernel",
                    "flash_mma_kernel", "flash_combine_kernel")),
     ("weight_gemms", ("int4_wgmma_kernel",)),
     ("weight_gemms", ("gemm", "gemv", "matmul", "nvjet", "cutlass",

@@ -24,13 +24,22 @@ The kernel (``csrc/paged_attention.cu``, CUDA C++ for sm_90a) runs for
 CUDA tensors; its source note gives its design and what bounds it. The
 plain versions run for CPU tensors only. A CUDA tensor launches the
 kernel or raises — nothing falls back to a plain version. Each wrapper's
-``.launches`` counts its kernel launches.
+``.launches`` counts its kernel launches, one a call.
+
+Per call the wrapper adds little host work: the chunk rule
+(``split_plan``) is cached per shape, each K/V leaf's TMA map is encoded
+once per (pointer, shape, slot stride), the merge's counters and partials
+are allocated once per (device, stream) and the entry points are typed
+once.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import threading
+from collections import OrderedDict
+from typing import Dict, Optional
 
 import torch
 
@@ -163,49 +172,154 @@ def _check_cuda_args(q, k, v, positions, page_size: int,
             raise ValueError(f"{name} must be 16-byte aligned per slot")
 
 
-def split_plan(N: int, H: int, KV: int, span: int) -> tuple:
-    """``(splits, keys_per_split, ws_rows)`` for a call over a span of
+#: the kernel's chunk rule (``plan`` in ``csrc/paged_attention.cu``; its
+#: source note gives the reasons): chunks are a multiple of CHUNK_KEYS keys,
+#: aim at TARGET_ITEMS items when every slot sits at the span's end, carry
+#: at least MIN_ITEM_BYTES of K/V rows and at most the span; a row tile is
+#: ROW_TILE query heads; a call takes at most MAX_SLOTS slots.
+CHUNK_KEYS, TARGET_ITEMS, MIN_ITEM_BYTES, ROW_TILE, MAX_SLOTS = (
+    64, 198, 131072, 16, 2048)
+
+
+@functools.lru_cache(maxsize=512)
+def split_plan(N: int, H: int, KV: int, head_dim: int, span: int) -> tuple:
+    """``(max_chunks, chunk, row_tiles)`` for a call over a span of
     ``span`` keys (the dense cache's S, or the pool's ``max_pages *
-    page``): the span cut into ranges of ``keys_per_split`` (a multiple
-    of 64) when the (slot, KV head, 16-head tile) blocks alone are under
-    one per SM, and the rows of each split's workspaces. The kernel's own
-    rule (``paged_decode_plan`` in ``csrc/paged_attention.cu``), read
-    from its library, so it builds the kernel first. A function of the
-    shapes only, never of positions: a slot's live splits follow from its
-    own position. The source note bounds the workspaces (6.5 MB at
-    head_dim 256)."""
-    from ._cuda import split_plan as read_plan
+    page``): each row tile (slot, KV head, 16 query heads) cuts its live
+    keys into chunks of ``chunk`` keys, ``max_chunks`` of them at the
+    span's end. A function of the shapes only, never of positions: a
+    slot's chunks follow from its own position (``slot_chunks``). The
+    kernel holds a launch to this rule and refuses any other chunk; the
+    card tests hold the rule to the kernel's ``paged_decode_plan``.
+    Raises ValueError for shapes the kernel does not take."""
+    if not (0 < N <= MAX_SLOTS and KV > 0 and H % KV == 0 and span > 0
+            and head_dim in HEAD_DIMS):
+        raise ValueError(f"the paged kernel takes no shapes "
+                         f"{(N, H, KV, head_dim, span)}")
+    tiles = N * KV * -(-(H // KV) // ROW_TILE)
+    chunk = max(-(-span * tiles // TARGET_ITEMS),
+                MIN_ITEM_BYTES // (4 * head_dim))
+    chunk = min(-(-chunk // CHUNK_KEYS), -(-span // CHUNK_KEYS)) * CHUNK_KEYS
+    return -(-span // chunk), chunk, tiles
 
-    return read_plan("paged_attention", "paged_decode_plan", N, H, KV, span)
+
+def slot_chunks(position: int, span: int, chunk: int) -> int:
+    """The chunks (work items per row tile) of a slot at ``position``:
+    one for a negative position (its rows are zeros), else
+    ``min(position, span - 1) // chunk + 1``."""
+    return 1 if position < 0 else min(position, span - 1) // chunk + 1
 
 
-def _launch(fn_name: str, q: torch.Tensor, KV: int, span: int,
-            inputs: list, shape: list, argtypes: list) -> torch.Tensor:
-    """Call ``fn_name(*inputs, out, ws_o, ws_ml, *shape, keys_per_split,
-    splits, stream)`` with the kernel's split plan and its workspaces
-    (``argtypes`` types ``shape``); raise on a refused launch. Returns
-    the output."""
-    from ._cuda import load, split_workspaces
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel's library, its entry points typed once."""
+    from ._cuda import load
 
-    N, H, hd = q.shape
-    splits, kps, rows = split_plan(N, H, KV, span)
     lib = load("paged_attention")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * (len(inputs) + 3) + argtypes
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+    lib.paged_decode_bf16.argtypes = [P] * 7 + [I] * 5 + [F, I, P]
+    lib.paged_decode_pool_bf16.argtypes = [P] * 8 + [I] * 7 + [F, I, P]
+    lib.paged_decode_map_dense.argtypes = [P, I, I, I, I, L, P]
+    lib.paged_decode_map_pool.argtypes = [P, I, I, I, I, P]
+    lib.paged_attention_error_string.argtypes = [I]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    for fn in (lib.paged_decode_bf16, lib.paged_decode_pool_bf16,
+               lib.paged_decode_map_dense, lib.paged_decode_map_pool):
+        fn.restype = I
+    return lib
+
+
+#: encoded tensor maps (CUtensorMap, 128 bytes) by everything a map holds:
+#: the pointer, the shape and the slot stride; the pool's and the cache's
+#: per-layer buffers live as long as the engine, so each is encoded once.
+_MAPS: "OrderedDict[tuple, ctypes.Array]" = OrderedDict()
+_MAPS_KEPT = 1024
+#: the merge's arrival counters (int32, zeroed once) and partials (f32) of
+#: each (device, stream): launches on one stream never overlap, and each
+#: leaves every counter at 0.
+_SCRATCH: Dict[tuple, tuple] = {}
+_CACHE_LOCK = threading.Lock()    # both caches: look up, then fill
+
+
+def _raise(lib, what: str, err: int) -> None:
+    msg = lib.paged_attention_error_string(err).decode()
+    raise RuntimeError(f"paged attention {what} failed: {msg} "
+                       f"(cudaError {err})")
+
+
+def _tensor_map(lib, t: torch.Tensor, page: int = 0) -> ctypes.Array:
+    """The TMA map of a K or V leaf: the pool [n_blocks, page, KV, hd]
+    when ``page``, else the dense cache [N, S, KV, hd] by its slot
+    stride."""
+    key = (t.data_ptr(), tuple(t.shape), t.stride(0), page)
+    with _CACHE_LOCK:
+        got = _MAPS.get(key)
+        if got is not None:
+            return got
+        got = ctypes.create_string_buffer(128)
+        a, b, kv, hd = t.shape
+        err = (lib.paged_decode_map_pool(t.data_ptr(), a, b, kv, hd, got)
+               if page else
+               lib.paged_decode_map_dense(t.data_ptr(), a, b, kv, hd,
+                                          t.stride(0), got))
+        if err:
+            _raise(lib, "tensor map", err)
+        _MAPS[key] = got
+        if len(_MAPS) > _MAPS_KEPT:
+            _MAPS.popitem(last=False)
+        return got
+
+
+def _scratch(device: torch.device, stream: int, tiles: int,
+             floats: int) -> tuple:
+    """The counters and the workspace of (device, stream), at least
+    ``tiles`` counters and ``floats`` floats: allocated on that stream,
+    the counters zeroed once, both grown for a larger shape."""
+    key = (device.index, stream)
+    with _CACHE_LOCK:
+        got = _SCRATCH.get(key)
+        if got is None or got[0].numel() < tiles or got[1].numel() < floats:
+            tiles = max(tiles, got[0].numel() if got else 0)
+            floats = max(floats, got[1].numel() if got else 0)
+            got = (torch.zeros(tiles, dtype=torch.int32, device=device),
+                   torch.empty(floats, dtype=torch.float32, device=device))
+            _SCRATCH[key] = got
+        return got
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            positions: torch.Tensor, tables: Optional[torch.Tensor],
+            span: int, scale: float) -> torch.Tensor:
+    """One launch of the kernel on torch's current stream of q's device,
+    over the pool when ``tables`` is given; raise on a refused launch.
+    Returns the output."""
+    N, H, hd = q.shape
+    KV = k.shape[2]
+    max_chunks, chunk, tiles = split_plan(N, H, KV, hd, span)
+    lib = _library()
+    page = k.shape[1] if tables is not None else 0
+    kmap, vmap = (_tensor_map(lib, x, page) for x in (k, v))
     out = torch.empty_like(q)
-    ws_o, ws_ml, _keep = split_workspaces(splits, rows, hd, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in inputs], out.data_ptr(), ws_o,
-                 ws_ml, *shape, kps, splits, stream)
-    if err != 0:
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        msg = lib.paged_attention_error_string(err).decode()
-        raise RuntimeError(f"paged attention kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+        counters = ws = 0
+        if max_chunks > 1:
+            c, w = _scratch(q.device, stream, tiles,
+                            tiles * max_chunks * ROW_TILE * (hd + 2))
+            counters, ws = c.data_ptr(), w.data_ptr()
+        if page:
+            err = lib.paged_decode_pool_bf16(
+                q.data_ptr(), kmap, vmap, positions.data_ptr(),
+                tables.data_ptr(), out.data_ptr(), ws, counters, N, H, KV,
+                hd, page, k.shape[0], tables.shape[1], scale, chunk, stream)
+        else:
+            err = lib.paged_decode_bf16(
+                q.data_ptr(), kmap, vmap, positions.data_ptr(),
+                out.data_ptr(), ws, counters, N, H, KV, hd, span, scale,
+                chunk, stream)
+    if err:
+        _raise(lib, "kernel launch", err)
     return out
 
 
@@ -227,12 +341,7 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not "
                          f"{q.device}")
     _check_cuda_args(q, k, v, positions, page_size)
-    N, H, hd = q.shape
-    KV, S = k.shape[2], k.shape[1]
-    out = _launch("paged_decode_bf16", q, KV, S, [q, k, v, positions],
-                  [N, H, KV, hd, S, k.stride(0), v.stride(0), float(scale)],
-                  [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
-                  + [ctypes.c_float])
+    out = _launch(q, k, v, positions, None, k.shape[1], float(scale))
     paged_decode_attention.launches += 1
     return out
 
@@ -260,13 +369,8 @@ def paged_decode_attention_pool(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"paged_decode_attention_pool runs on cuda or cpu, "
                          f"not {q.device}")
     _check_cuda_args(q, k, v, positions, page_size, block_tables)
-    N, H, hd = q.shape
-    n_blocks, page, KV, _ = k.shape
-    max_pages = block_tables.shape[1]
-    out = _launch("paged_decode_pool_bf16", q, KV, max_pages * page,
-                  [q, k, v, positions, block_tables],
-                  [N, H, KV, hd, page, n_blocks, max_pages, float(scale)],
-                  [ctypes.c_int] * 7 + [ctypes.c_float])
+    out = _launch(q, k, v, positions, block_tables,
+                  block_tables.shape[1] * k.shape[1], float(scale))
     paged_decode_attention_pool.launches += 1
     return out
 

@@ -68,15 +68,20 @@ KVQ_LAYERS), so that the whole script stays well inside its 1,200 s:
                  pool) at Llama-3-8B's grouping (H=32, KV=8, head_dim 128;
                  pages 64 and 16), Gemma-2B's (8 over 1, 256; page 16,
                  and page 64 over serve_host (b)'s span of 1024) and
-                 Gemma-7B's (16 over 16, 256), 8 slots at positions 0,
-                 page-1, page, on both sides of the first key-split
-                 boundary, mid-cache and the span's last slot (every
-                 geometry splits the keys; the plan is printed): the dense
-                 cache read through its strided view (NaN from each
-                 slot's position on and in the trash row), the pool
-                 through tables with a block shared by two slots,
-                 sentinel entries and every block past the live spans
-                 NaN.
+                 Gemma-7B's (16 over 16, 256), and a head_dim 64 GQA (16
+                 over 4; pages 16 and 64), 8 slots at positions 0,
+                 page-1, page, on both sides of the first and the last
+                 chunk edge of the kernel's chunk rule and on the span's
+                 last slot (every geometry cuts its keys into chunks;
+                 the plan is printed): the dense cache read through its
+                 strided view (NaN from each slot's position on and in
+                 the trash row), the pool through tables with a block
+                 shared by two slots, sentinel entries and every row past
+                 the live spans NaN. Each call must launch one kernel
+                 (torch.profiler) and count one launch, keep the NaN
+                 rows out (a finite output), repeat bit for bit, and
+                 leave every other slot's bits as they were when slot 3
+                 moves.
                The two sharded wrappers (the model axis: Q and KV heads
                split together, one kernel launch per shard on two
                shards of the one card) at Llama-3-8B's tp=2 (16 over 4
@@ -100,9 +105,9 @@ KVQ_LAYERS), so that the whole script stays well inside its 1,200 s:
                bit. The dense paged decode as it follows a ring prefill
                on serve_ring's sp=2,tp=2 (a Llama-3-8B tp=2 shard, 16
                over 4 heads of 128, page 64, a cache of 8,256 positions,
-               8 slots near 3,000 and 6,000 on and beside a key-split
-               boundary), held against the plain version and timed with
-               its bound and SDPA.
+               8 slots near 3,000 and 6,000 on and beside a chunk edge),
+               held against the plain version as above; the timing
+               phase times it at RING_TIMING_POSITIONS.
 3. serve    -- build the port's server from the environment-style config
                (MODEL_NAME=gemma-2b-it, random bf16 weights from a fixed
                seed, DECODE_BATCH_SIZE=8, the default pool and radix
@@ -1352,7 +1357,10 @@ PAGED_GEOMETRIES = (
     ("llama_p16", (LLAMA_HEADS, LLAMA_KV, LLAMA_HD), 16, None),
     ("gemma2b_p16", (N_HEADS, N_KV, HEAD_DIM), 16, None),
     ("gemma2b_p64", (N_HEADS, N_KV, HEAD_DIM), 64, G2B_POOL_SPAN),
-    ("gemma7b_p16", (G7_HEADS, G7_HEADS, G7_HD), 16, None))
+    ("gemma7b_p16", (G7_HEADS, G7_HEADS, G7_HD), 16, None),
+    # head_dim 64, the kernel's third template (a GQA grouping of 4).
+    ("hd64_p16", (16, 4, 64), 16, None),
+    ("hd64_p64", (16, 4, 64), 64, None))
 
 
 def paged_span(page: int) -> int:
@@ -1362,25 +1370,83 @@ def paged_span(page: int) -> int:
 
 
 def paged_cases(torch, gen):
-    """The geometries of phase 2 for paged decode: (label, case, plan).
-    Every geometry splits the keys over blocks (8 slots give 8 to 128
-    blocks); the positions sit at 0, page - 1, page, on both sides of the
-    first split boundary (keys_per_split - 1 and keys_per_split), in the
-    middle, and on the span's last slot. Both layouts share the span, so
+    """The geometries of phase 2 for paged decode: (label, case, plan),
+    the plan the kernel's chunk rule (max_chunks, chunk, row tiles).
+    Every geometry cuts its keys into chunks (8 slots give 8 to 128 row
+    tiles); the positions sit at 0, page - 1, page, on both sides of the
+    first chunk edge (chunk - 1 and chunk) and of the last (last - 1 and
+    last), and on the span's last slot. Both layouts share the span, so
     one plan holds for both."""
     from ai_agent_kubectl_tpu_torch.ops.paged_attention import split_plan
 
     out = []
     for label, (H, KV, hd), page, span in PAGED_GEOMETRIES:
         S = span or paged_span(page)
-        plan = split_plan(N_SLOTS, H, KV, S)
-        kps = plan[1]
-        positions = [0, page - 1, page, kps - 1, S - 1, kps, 700, 1000]
+        plan = split_plan(N_SLOTS, H, KV, hd, S)
+        max_chunks, chunk, _ = plan
+        last = (max_chunks - 1) * chunk
+        positions = [0, page - 1, page, chunk - 1, chunk, last - 1, last,
+                     S - 1]
         out.append((label, paged_case(torch, gen, H=H, KV=KV, hd=hd,
                                       page=page, positions=positions,
                                       span=S),
                     plan))
     return out
+
+
+def paged_chunk(H: int, KV: int, hd: int, span: int, n: int = N_SLOTS) -> int:
+    """The paged kernel's chunk for these shapes (its rule, shapes only)."""
+    from ai_agent_kubectl_tpu_torch.ops.paged_attention import split_plan
+
+    return split_plan(n, H, KV, hd, span)[1]
+
+
+def check_one_kernel_a_call(torch, label, calls) -> None:
+    """Each of ``calls`` (after a warm-up of each) launches one of the
+    port's kernels: one torch.profiler session over all of them counts
+    the port's kernels (PyTorch's own kernels and memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    launched = {name: n for name, n, _ in port_kernel_events(prof)}
+    if sum(launched.values()) != len(calls):
+        raise AssertionError(f"{label}: {len(calls)} calls launched "
+                             f"{launched}, not one kernel each")
+
+
+def check_paged_call(torch, label, kernel, plain, case, moved_slot=3):
+    """One paged kernel against its plain version on ``case`` (NaN past
+    every slot's last live key must stay out: the output is finite), one
+    counted launch a call, byte-identical on a repeat, and every other
+    slot byte-identical when slot ``moved_slot`` moves down to half its
+    position (its own output against the plain version). Returns the max
+    abs error. check_one_kernel_a_call counts the kernels a call
+    launches."""
+    before = kernel.launches
+    out = kernel(**case)
+    if kernel.launches != before + 1:
+        raise AssertionError(f"{label}: {kernel.launches - before} counted "
+                             f"launches for one call")
+    err = check_close(torch, label, out, plain(**case))
+    if not torch.equal(out, kernel(**case)):
+        raise AssertionError(f"{label}: a repeat changed the output's bits")
+    pos = case["positions"].clone()
+    pos[moved_slot] = pos[moved_slot] // 2
+    moved = dict(case, positions=pos)
+    out2 = kernel(**moved)
+    err = max(err, check_close(torch, f"{label} (slot {moved_slot} moved)",
+                               out2, plain(**moved)))
+    keep = torch.arange(out.shape[0], device=out.device) != moved_slot
+    if not torch.equal(out2[keep], out[keep]):
+        raise AssertionError(f"{label}: moving slot {moved_slot} changed "
+                             f"another slot's bits")
+    return err
 
 
 def paged_live_work(case, pool: bool) -> tuple:
@@ -1597,10 +1663,12 @@ def _kernel_mesh_shards(torch, gen) -> dict:
         paged_decode_attention, paged_decode_attention_plain)
 
     H_l, KV_l = LLAMA_HEADS // MESH_TP, LLAMA_KV // MESH_TP
-    positions = [0, 63, 64, 255, 256, 700, 1000, 1087]
+    rows = N_SLOTS // MESH_DP
+    # Each shard's own chunk edges (4 slots, 16 over 4 heads).
+    chunk = paged_chunk(H_l, KV_l, LLAMA_HD, paged_span(64), n=rows)
+    positions = [0, 63, 64, chunk - 1, chunk, 700, 1000, 1087]
     case = paged_case(torch, gen, page=64, positions=positions,
                       **LLAMA)["dense"]
-    rows = N_SLOTS // MESH_DP
     S = case["k"].shape[1]
     worst = {"paged": 0.0, "flash": 0.0}
     before = paged_decode_attention.launches
@@ -1709,7 +1777,10 @@ def _kernel_sharded(torch, gen) -> dict:
         calls = [("ragged", w, ragged_case(torch, gen, **kw, **g))
                  for w, kw in TP_RAGGED_WINDOWS]
         if paged:
-            positions = [0, 63, 64, 255, 256, 700, 1000, 1087]
+            # A shard's own chunk edges.
+            chunk = paged_chunk(g["H"] // tp, g["KV"] // tp, g["hd"],
+                                paged_span(64))
+            positions = [0, 63, 64, chunk - 1, chunk, 700, 1000, 1087]
             calls.append(("paged", "decode", paged_case(
                 torch, gen, page=64, positions=positions, **g)["pool"]))
         for kind, window, case in calls:
@@ -1795,30 +1866,27 @@ def _kernel_paged(torch, gen) -> dict:
         paged_decode_attention_pool, paged_decode_attention_pool_plain)
 
     worst = {"dense": 0.0, "pool": 0.0}
-    cases = paged_cases(torch, gen)
-    before = (paged_decode_attention.launches,
-              paged_decode_attention_pool.launches)
-    for label, case, (splits, kps, _) in cases:
-        if splits < 2:
+    calls = {"dense": [], "pool": []}
+    for label, case, (max_chunks, chunk, _) in paged_cases(torch, gen):
+        if max_chunks < 2:
             raise AssertionError(f"paged [{label}]: the keys must split")
         for kind, kernel, plain in (
                 ("dense", paged_decode_attention,
                  paged_decode_attention_plain),
                 ("pool", paged_decode_attention_pool,
                  paged_decode_attention_pool_plain)):
-            out = kernel(**case[kind])
-            ref = plain(**case[kind])
-            err = check_close(torch, f"paged {kind} [{label}]", out, ref)
+            err = check_paged_call(torch, f"paged {kind} [{label}]", kernel,
+                                   plain, case[kind])
+            calls[kind].append(
+                lambda kernel=kernel, args=case[kind]: kernel(**args))
             log(f"[kernel] paged {kind} {label}: max |kernel - plain| = "
-                f"{err:.3e} over {out.numel()} values ({splits} key "
-                f"split(s) of {kps}; positions "
+                f"{err:.3e}, NaN past each last key kept out, one kernel a "
+                f"call, repeat and moved slot bit-stable (chunks of "
+                f"{chunk}, {max_chunks} at the span's end; positions "
                 f"{case[kind]['positions'].tolist()})")
             worst[kind] = max(worst[kind], err)
-    grew = (paged_decode_attention.launches - before[0],
-            paged_decode_attention_pool.launches - before[1])
-    if grew != (len(cases), len(cases)):
-        raise AssertionError(f"paged launch counters grew by {grew}, "
-                             f"expected {len(cases)} each")
+    for kind, fns in calls.items():
+        check_one_kernel_a_call(torch, f"paged {kind}", fns)
     return {"paged_decode_attention": {"max_abs_err": worst["dense"]},
             "paged_decode_attention_pool": {"max_abs_err": worst["pool"]}}
 
@@ -5124,7 +5192,13 @@ def kernel_breakdown(torch, fn, *, iters: int = 10) -> dict:
             scratch.sum()
             fn()
         torch.cuda.synchronize()
-    out = {}
+    return {name: us / count for name, count, us in port_kernel_events(prof)}
+
+
+def port_kernel_events(prof):
+    """(name, count, device us) of each kernel of the port in a
+    torch.profiler run: PyTorch's own kernels, memsets and host-side
+    records (no device time) left out; template arguments kept."""
     for e in prof.key_averages():
         name = re.sub(r"\(anonymous namespace\)::|^void |\(.*$", "", e.key)
         if name.startswith("at::") or name.startswith("Memset") or not e.count:
@@ -5133,8 +5207,7 @@ def kernel_breakdown(torch, fn, *, iters: int = 10) -> dict:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us:
-            out[name] = float(us) / e.count
-    return out
+            yield name, e.count, float(us)
 
 
 def timed(torch, kernel, plain, library, *, iters: int,
@@ -5304,9 +5377,11 @@ def _timing_paged(torch, gen, paged_info: dict, host_info: dict,
                   profile: bool) -> dict:
     """Both paged entry points at Llama-3-8B's grouping, page 64, 8 slots
     at the final positions the serve_paged burst reached (each engine's
-    own), and the pool's at Gemma-2B's, page 64, at the positions of
-    serve_host (b)'s last decode step; the library call SDPA over the
-    gathered live span with a key mask."""
+    own), the pool's at Gemma-2B's, page 64, at the positions of
+    serve_host (b)'s last decode step, and the dense decode after a ring
+    prefill (a Llama-3-8B tp=2 shard over 8,256 positions) at
+    RING_TIMING_POSITIONS; the library call SDPA over the gathered live
+    span with a key mask."""
     import torch.nn.functional as F
 
     from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
@@ -5354,6 +5429,21 @@ def _timing_paged(torch, gen, paged_info: dict, host_info: dict,
         entry, *paged_live_work(case, True))
     log_timing(f"paged pool decode, Gemma-2B page 64, at {positions}", entry,
                "sdpa")
+    case = paged_case(torch, gen, page=64, positions=RING_TIMING_POSITIONS,
+                      span=RING_DECODE_SPAN, **LLAMA_TP2)["dense"]
+    q, kc, vc, mask = paged_sdpa_inputs(torch, case, False)
+    entry = timed(
+        torch, lambda: paged_decode_attention(**case),
+        lambda: paged_decode_attention_plain(**case),
+        lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=mask, enable_gqa=True),
+        iters=50, profile=profile)
+    entry["positions"] = RING_TIMING_POSITIONS
+    out["paged_decode_attention"]["ring_decode_tp2_s8192"] = with_bound(
+        entry, *paged_live_work(case, False))
+    log_timing(f"paged dense decode, Llama-3-8B tp=2 shard over "
+               f"{RING_DECODE_SPAN} positions, at {RING_TIMING_POSITIONS}",
+               entry, "sdpa")
     return out
 
 
@@ -5598,7 +5688,6 @@ def kernel_lines(results: dict) -> list:
     pp = results.get("serve_pp", {}).get("launches", {})
     dcn = results.get("serve_dcn", {}).get("launches", {})
     drain = results.get("serve_drain", {}).get("launches", {})
-    ring_decode = kernel.get("paged_decode_attention", {}).get("ring_decode")
 
     def tp_launches(name):
         counts = [r["launches"].get(name) for r in tp_runs.values()]
@@ -5675,9 +5764,7 @@ def kernel_lines(results: dict) -> list:
               "ai_agent_kubectl_tpu/ops/paged_attention.py:264",
               paged.get("dense", {}).get("launches", {}).get("paged"),
               kernel.get("paged_decode_attention", {}).get("max_abs_err"),
-              dict(timing.get("paged_decode_attention", {}),
-                   **({"ring_decode_tp2_s8192": ring_decode}
-                      if ring_decode else {})), "decode",
+              timing.get("paged_decode_attention", {}), "decode",
               "torch.nn.functional.scaled_dot_product_attention over the "
               "live span with a key mask"),
         entry("ragged_attention_pool_sharded", "ragged_attention.cu",
@@ -10060,12 +10147,18 @@ RING_DECODE_SPAN = -(-(8192 + 16) // 64) * 64
 LLAMA_TP2 = dict(H=LLAMA_HEADS // 2, KV=LLAMA_KV // 2, hd=LLAMA_HD)
 
 
-def ring_decode_positions(kps: int) -> list:
+#: the timing phase's positions for the decode after a ring prefill: 8
+#: slots on and beside the 960-key boundaries nearest 3,000 and 6,000,
+#: fixed so that every tree the timing compares reads the same keys
+RING_TIMING_POSITIONS = [2879, 2880, 2881, 3000, 5759, 5760, 5761, 6000]
+
+
+def ring_decode_positions(chunk: int) -> list:
     """8 slots near 3,000 and 6,000 (the serve_ring prompts' decode
-    positions), on and beside the key-split boundaries nearest them."""
+    positions), on and beside the chunk edges nearest them."""
     out = []
     for near in (3000, 6000):
-        b = max(1, round(near / kps)) * kps
+        b = max(1, round(near / chunk)) * chunk
         out += [b - 1, b, b + 1, near]
     return out
 
@@ -10074,38 +10167,30 @@ def _kernel_ring_decode(torch, gen) -> dict:
     """Row 4 as the decode after a ring prefill launches it on a shard of
     serve_ring (b): the dense cache of RING_DECODE_SPAN positions at
     Llama-3-8B's tp=2 shard, page 64, 8 slots near 3,000 and 6,000 on
-    and beside a key-split boundary; against the plain version, then
-    timed with its bound and SDPA over the live span."""
-    import torch.nn.functional as F
-
+    and beside a chunk edge; against the plain version, one kernel a
+    call, bit-stable on a repeat and when a slot moves (check_paged_call).
+    The timing phase times it."""
     from ai_agent_kubectl_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain, split_plan)
 
-    splits, kps, _ = split_plan(N_SLOTS, LLAMA_TP2["H"], LLAMA_TP2["KV"],
-                                RING_DECODE_SPAN)
-    positions = ring_decode_positions(kps)
+    max_chunks, chunk, _ = split_plan(N_SLOTS, LLAMA_TP2["H"],
+                                      LLAMA_TP2["KV"], LLAMA_TP2["hd"],
+                                      RING_DECODE_SPAN)
+    positions = ring_decode_positions(chunk)
     case = paged_case(torch, gen, page=64, positions=positions,
                       span=RING_DECODE_SPAN, **LLAMA_TP2)["dense"]
-    if splits < 2:
+    if max_chunks < 2:
         raise AssertionError("paged ring decode: the keys must split")
-    err = check_close(torch, "paged dense [llama_tp2_s8192]",
-                      paged_decode_attention(**case),
-                      paged_decode_attention_plain(**case))
-    q, kc, vc, mask = paged_sdpa_inputs(torch, case, False)
-    entry = timed(
-        torch, lambda: paged_decode_attention(**case),
-        lambda: paged_decode_attention_plain(**case),
-        lambda: F.scaled_dot_product_attention(
-            q, kc, vc, attn_mask=mask, enable_gqa=True), iters=50)
-    entry.update(positions=positions, splits=splits, keys_per_split=kps,
-                 max_abs_err=err)
-    with_bound(entry, *paged_live_work(case, False))
+    err = check_paged_call(torch, "paged dense [llama_tp2_s8192]",
+                           paged_decode_attention,
+                           paged_decode_attention_plain, case)
+    check_one_kernel_a_call(torch, "paged dense [llama_tp2_s8192]",
+                            [lambda: paged_decode_attention(**case)])
     log(f"[kernel] paged dense llama_tp2_s8192 (the decode after a ring "
         f"prefill, span {RING_DECODE_SPAN}): max |kernel - plain| = "
-        f"{err:.3e} ({splits} key splits of {kps}; positions {positions})")
-    log_timing(f"paged dense decode, Llama-3-8B tp=2 shard over "
-               f"{RING_DECODE_SPAN} positions", entry, "sdpa")
-    return entry
+        f"{err:.3e}, one kernel a call, bit-stable (chunks of {chunk}; "
+        f"positions {positions})")
+    return {"positions": positions, "chunk": chunk, "max_abs_err": err}
 
 
 def phase_serve_ring(torch) -> dict:

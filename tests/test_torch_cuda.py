@@ -456,19 +456,20 @@ def _paged_args(card, *, H, KV, hd, positions, page, S, seed):
     ids=["llama_8slots_split", "gemma2b_split", "gemma7b_split",
          "llama_32slots_whole"])
 def test_paged_key_split_matches_plain(card, geometry, N, split):
-    """Both paged entry points on both sides of the key split, 8 slots at
-    positions 0, page - 1, page, on both sides of the first split edge,
-    mid-span and on the span's last slot (the rest of 32 slots spread
-    over the span): within tolerance of the plain versions, byte-
-    identical on a repeat, and every other slot byte-identical when slot
-    3 moves 300 positions (modulo the span; its K/V rebuilt for the new
-    span)."""
+    """Both paged entry points on both sides of the first and the last
+    chunk edge, 8 slots at positions 0, page - 1, page, the first edge
+    - 1 and + 0, the last edge - 1 and + 0, and the span's last slot
+    (the rest of 32 slots spread over the span): within tolerance of the
+    plain versions, one launch a call, byte-identical on a repeat, and
+    every other slot byte-identical when slot 3 moves 300 positions
+    (modulo the span; its K/V rebuilt for the new span)."""
     H, KV, hd = geometry
     page, S = 64, 1088
-    splits, kps, _ = tpa.split_plan(N, H, KV, S)
-    assert (splits > 1) == split
-    edge = min(kps, S - 1)            # the span is one split when whole
-    positions = [0, page - 1, page, edge - 1, edge, 700, S - 1, 333]
+    max_chunks, chunk, _ = tpa.split_plan(N, H, KV, hd, S)
+    assert (max_chunks > 1) == split
+    first = min(chunk, S - 1)         # the span is one chunk when whole
+    last = max((max_chunks - 1) * chunk, 1)
+    positions = [0, page - 1, page, first - 1, first, last - 1, last, S - 1]
     positions += [(37 * i) % S for i in range(N - len(positions))]
     moved = list(positions)
     moved[3] = (moved[3] + 300) % S
@@ -492,6 +493,104 @@ def test_paged_key_split_matches_plain(card, geometry, N, split):
             if n != 3:
                 assert torch.equal(out2[n], out[n]), f"slot {n} moved"
         assert not torch.equal(out2[3], out[3])
+
+
+def test_paged_ring_decode_shape_matches_plain(card):
+    """The decode after a ring prefill: one Llama-3-8B tp=2 shard (16
+    over 4 heads of 128), a cache of 8,256 positions (page 64), 8 slots
+    on and beside the chunk edges nearest 3,000 and 6,000, in both
+    layouts: within tolerance, and byte-identical on a repeat."""
+    page, S, H, KV, hd = 64, 8256, 16, 4, 128
+    _, chunk, _ = tpa.split_plan(8, H, KV, hd, S)
+    positions = []
+    for near in (3000, 6000):
+        edge = max(1, round(near / chunk)) * chunk
+        positions += [edge - 1, edge, edge + 1, near]
+    dense, pool = _paged_args(card, H=H, KV=KV, hd=hd, positions=positions,
+                              page=page, S=S, seed=5)
+    for fn, plain, a in (
+            (tpa.paged_decode_attention, tpa.paged_decode_attention_plain,
+             dense),
+            (tpa.paged_decode_attention_pool,
+             tpa.paged_decode_attention_pool_plain, pool)):
+        out = fn(*a, page_size=page)
+        _close(out, plain(*a, page_size=page))
+        assert torch.equal(out, fn(*a, page_size=page))
+
+
+#: (H, KV) of a grouping at each head_dim: a GQA model's at 64 and 128,
+#: Gemma-2B's MQA at 256
+NAN_GROUPINGS = {64: (16, 4), 128: (32, 8), 256: (8, 1)}
+
+
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_paged_nan_past_the_last_key_never_reaches_the_output(card, hd,
+                                                              page):
+    """NaN in every row past each slot's last live key, inside the page
+    that holds it (the TMA box copies those rows), in both layouts: the
+    output is finite and within tolerance of the plain versions, which
+    select those rows away."""
+    H, KV = NAN_GROUPINGS[hd]
+    S = 320
+    positions = [5, 17, 70, 100, 129, 200, 250, 300]
+    assert all((p + 1) % page for p in positions)   # inside a page
+    dense, pool = _paged_args(card, H=H, KV=KV, hd=hd, positions=positions,
+                              page=page, S=S, seed=hd + page)
+    assert torch.isnan(dense[1][0, positions[0] + 1]).all()
+    for fn, plain, a in (
+            (tpa.paged_decode_attention, tpa.paged_decode_attention_plain,
+             dense),
+            (tpa.paged_decode_attention_pool,
+             tpa.paged_decode_attention_pool_plain, pool)):
+        _close(fn(*a, page_size=page), plain(*a, page_size=page))
+
+
+def test_paged_calls_on_two_streams_match_plain(card):
+    """One split call on each of two streams, issued back to back: each
+    equals the plain version, and each stream has buffers of its own."""
+    page, S = 64, 1088
+    calls = [_paged_args(card, H=32, KV=8, hd=128, positions=pos, page=page,
+                         S=S, seed=i)
+             for i, pos in enumerate(([700, 5, 384, 383, 1000, 64, 0, 900],
+                                      [1087, 768, 767, 3, 212, 212, 212,
+                                       727]))]
+    assert tpa.split_plan(8, 32, 8, 128, S)[0] > 1
+    streams = [torch.cuda.Stream(card) for _ in calls]
+    torch.cuda.synchronize()
+    outs = []
+    for stream, (dense, pool) in zip(streams, calls):
+        with torch.cuda.stream(stream):
+            outs.append((tpa.paged_decode_attention(*dense, page_size=page),
+                         tpa.paged_decode_attention_pool(*pool,
+                                                         page_size=page)))
+    torch.cuda.synchronize()
+    for (dense, pool), (o_dense, o_pool) in zip(calls, outs):
+        _close(o_dense, tpa.paged_decode_attention_plain(*dense,
+                                                         page_size=page))
+        _close(o_pool, tpa.paged_decode_attention_pool_plain(
+            *pool, page_size=page))
+    assert {(card.index or 0, s.cuda_stream) for s in streams} <= {
+        (d or 0, s) for d, s in tpa._SCRATCH}
+
+
+def test_paged_fifty_calls_are_bit_identical(card):
+    """50 split calls in a row on one stream: every output equals the
+    first bit for bit, and the merge's counters are back at 0 after
+    each call (each resets its own)."""
+    page, S = 64, 1088
+    positions = [700, 5, 384, 383, 1000, 64, 0, 900]
+    dense, pool = _paged_args(card, H=32, KV=8, hd=128, positions=positions,
+                              page=page, S=S, seed=3)
+    assert tpa.split_plan(8, 32, 8, 128, S)[0] > 1
+    for fn, a in ((tpa.paged_decode_attention, dense),
+                  (tpa.paged_decode_attention_pool, pool)):
+        outs = [fn(*a, page_size=page) for _ in range(50)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+        stream = torch.cuda.current_stream(card).cuda_stream
+        counters = tpa._SCRATCH[(card.index or 0, stream)][0]
+        assert int(counters.abs().sum()) == 0
 
 
 def test_flash_split_plan(card):
@@ -529,30 +628,38 @@ def test_flash_split_plan(card):
 
 
 def test_paged_split_plan(card):
-    """The paged kernel's key split: ranges of a multiple of 64 keys
-    covering the span, none empty, only grids of (slot, KV head, 16-head
-    tile) under one block per SM split (and only spans over 64 keys),
-    and the workspaces under the bound its source states (6.5 MB at
-    head_dim 256)."""
+    """The paged kernel's chunk rule: the wrapper's rule equals the
+    kernel's own (``paged_decode_plan``) over a grid of shapes; chunks
+    are a multiple of 64 keys covering the span, at least 128 KB of K/V
+    an item, one chunk when the row tiles alone reach the rule's 198
+    items; and the source note's values at the served shapes."""
+    from ai_agent_kubectl_tpu_torch.ops._cuda import split_plan as read_plan
+
     for N in (1, 4, 8, 16, 32):
-        for H, KV in ((32, 8), (8, 1), (16, 16), (64, 2)):
-            for span in (64, 128, 1024, 1040, 1088, 4096):
-                splits, kps, rows = tpa.split_plan(N, H, KV, span)
-                blocks = N * KV * -(-(H // KV) // 16)
-                assert rows == blocks * 16
-                assert kps % 64 == 0
-                assert (splits - 1) * kps < span <= splits * kps
-                assert (splits > 1) == (blocks < 132 and span > 64)
-                ws = 4 * splits * rows * (256 + 2) if splits > 1 else 0
-                assert ws < 4 * 396 * 16 * (256 + 2)
-    # serve_paged's decode: the dense cache's span 1088 in 5 splits of
-    # 256, the pool's 1024 in 4; Gemma-2B's grouping in 17 of 64.
-    assert tpa.split_plan(8, 32, 8, 1088)[:2] == (5, 256)
-    assert tpa.split_plan(8, 32, 8, 1024)[:2] == (4, 256)
-    assert tpa.split_plan(8, 8, 1, 1040)[:2] == (17, 64)
-    assert tpa.split_plan(32, 32, 8, 1088)[:2] == (1, 1088)
+        for H, KV in ((32, 8), (8, 1), (16, 16), (64, 2), (16, 4)):
+            for hd in (64, 128, 256):
+                for span in (64, 128, 1024, 1040, 1088, 4096, 8256):
+                    plan = tpa.split_plan(N, H, KV, hd, span)
+                    assert plan == read_plan("paged_attention",
+                                             "paged_decode_plan", N, H, KV,
+                                             hd, span)
+                    max_chunks, chunk, tiles = plan
+                    assert tiles == N * KV * -(-(H // KV) // 16)
+                    assert chunk % 64 == 0
+                    assert (max_chunks - 1) * chunk < span <= (
+                        max_chunks * chunk)
+                    assert chunk * 4 * hd >= 131072 or max_chunks == 1
+                    if tiles >= 198:
+                        assert max_chunks == 1
+    # serve_paged's decode (a slot at 212 is one item), the ring decode's
+    # shard, Gemma-2B's grouping, 32 Llama slots.
+    assert tpa.split_plan(8, 32, 8, 128, 1088) == (3, 384, 64)
+    assert tpa.split_plan(8, 32, 8, 128, 1024) == (3, 384, 64)
+    assert tpa.split_plan(8, 16, 4, 128, 8256) == (7, 1344, 32)
+    assert tpa.split_plan(8, 8, 1, 256, 1040) == (9, 128, 8)
+    assert tpa.split_plan(32, 32, 8, 128, 1088) == (1, 1088, 256)
     with pytest.raises(ValueError):
-        tpa.split_plan(8, 30, 8, 1088)
+        tpa.split_plan(8, 30, 8, 128, 1088)
 
 
 def _c_entry(lib, symbol, n_ptrs, middle):
@@ -592,41 +699,37 @@ def test_flash_launch_refuses_another_plan(card, shift):
 
 
 @pytest.mark.parametrize("pool", [False, True], ids=["dense", "pool"])
-@pytest.mark.parametrize("shift", [(1, 0), (-1, 0), (0, 64)],
+@pytest.mark.parametrize("shift", [-64, 64, 1],
                          ids=["more_splits", "fewer_splits", "wider"])
 def test_paged_launch_refuses_another_plan(card, pool, shift):
-    """Both paged C entry points refuse any key split but their plan's
-    with cudaErrorInvalidValue, before they launch anything."""
-    import ctypes
-
+    """Both paged C entry points refuse any chunk but their rule's with
+    cudaErrorInvalidValue, before they launch anything."""
     page, S = 64, 1088
     dense_args, pool_args = _paged_args(card, H=32, KV=8, hd=128,
                                         positions=[5] * 8, page=page, S=S,
                                         seed=0)
-    splits, kps, rows = tpa.split_plan(8, 32, 8, S)
-    splits, kps = splits + shift[0], kps + shift[1]
+    max_chunks, chunk, tiles = tpa.split_plan(8, 32, 8, 128, S)
+    lib = tpa._library()
     q = dense_args[0]
     out = torch.empty_like(q)
-    ws_o = torch.empty((max(splits, 1), rows, 128), device=card)
-    ws_ml = torch.empty((max(splits, 1), rows, 2), device=card)
+    counters = torch.zeros(tiles, dtype=torch.int32, device=card)
+    ws = torch.empty(tiles * max_chunks * 16 * 130, device=card)
     stream = torch.cuda.current_stream().cuda_stream
     if pool:
         _, k, v, pos, tables = pool_args
-        fn = _c_entry("paged_attention", "paged_decode_pool_bf16", 8,
-                      [ctypes.c_int] * 7 + [ctypes.c_float])
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                 tables.data_ptr(), out.data_ptr(), ws_o.data_ptr(),
-                 ws_ml.data_ptr(), 8, 32, 8, 128, page, k.shape[0],
-                 tables.shape[1], 128 ** -0.5, kps, splits, stream)
+        maps = [tpa._tensor_map(lib, x, page) for x in (k, v)]
+        err = lib.paged_decode_pool_bf16(
+            q.data_ptr(), *maps, pos.data_ptr(), tables.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), counters.data_ptr(), 8, 32, 8,
+            128, page, k.shape[0], tables.shape[1], 128 ** -0.5,
+            chunk + shift, stream)
     else:
         _, k, v, pos = dense_args
-        fn = _c_entry("paged_attention", "paged_decode_bf16", 7,
-                      [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
-                      + [ctypes.c_float])
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), ws_o.data_ptr(), ws_ml.data_ptr(), 8, 32, 8,
-                 128, S, k.stride(0), v.stride(0), 128 ** -0.5, kps, splits,
-                 stream)
+        maps = [tpa._tensor_map(lib, x) for x in (k, v)]
+        err = lib.paged_decode_bf16(
+            q.data_ptr(), *maps, pos.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), counters.data_ptr(), 8, 32, 8, 128, S,
+            128 ** -0.5, chunk + shift, stream)
     assert err == 1                       # cudaErrorInvalidValue
 
 

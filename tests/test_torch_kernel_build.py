@@ -3,7 +3,8 @@
 of every header in ``csrc/`` and of the flags, so an edited header
 rebuilds every library that includes it; the three attention kernels
 take their shared device code from one header and define none of it
-themselves.
+themselves, and the two kernels fed by TMA (the int4 GEMM and paged
+decode) take their mbarrier, TMA and tensor-map helpers from another.
 """
 
 import re
@@ -15,6 +16,10 @@ ATTENTION = ("ragged_attention", "flash_attention", "paged_attention")
 SHARED = ("cp_async16", "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16",
           "pack_bf16x2", "quad_max", "quad_sum", "mma_attend_step",
           "combine_row", "key_split")
+TMA_USERS = ("int4_matmul", "paged_attention")
+TMA_SHARED = ("smem_u32", "mbar_init", "mbar_expect_tx", "mbar_arrive",
+              "mbar_wait", "tma_load_2d", "tma_load_3d", "tma_load_4d",
+              "fence_proxy_async", "encoder", "encode")
 
 
 def test_library_path_hashes_every_header(tmp_path):
@@ -53,3 +58,17 @@ def test_attention_sources_share_one_header():
                 "flash_attention": "flash_attention_plan",
                 "paged_attention": "paged_decode_plan"}[name]
         assert f'extern "C" int {plan}(' in src
+
+
+def test_tma_kernels_share_one_header():
+    header = (_cuda.CSRC / "hopper_tma.cuh").read_text()
+    for fn in TMA_SHARED:
+        assert re.search(rf"\b{fn}\(", header), fn
+    for name in TMA_USERS:
+        src = (_cuda.CSRC / f"{name}.cu").read_text()
+        assert '#include "hopper_tma.cuh"' in src, name
+        for fn in TMA_SHARED:
+            # Used, never defined again: no return type before the name.
+            assert not re.search(
+                rf"(void|bool|uint32_t|EncodeTiled)\s+{fn}\(", src), (
+                    f"{name} defines {fn}")
